@@ -1,0 +1,133 @@
+"""Scan preprocessing for the 2D frontend.
+
+Counterpart of the JAX package's `ops/scan_pipeline_2d.py`
+(LocalTrajectoryBuilder2D::AddRangeData, local_trajectory_builder_2d.cc
+:104-225): per-point motion unwarping between the scan-start and scan-end
+poses (translation lerp + rotation slerp), range gating, missing-data ray
+clamping, gravity alignment about the scan-end pose, z cropping and the
+voxel filter.
+
+On CUDA tensors the per-point pass is the kernel
+`csrc/scan_preprocess_2d.cu` (K1) and the voxel filter the kernel
+`csrc/voxel_filter.cu` (K2); on CPU tensors both run their plain twins.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Tuple
+
+import torch
+
+from cartographer_tpu_torch.ops import cuda
+from cartographer_tpu_torch.sensor.point_cloud import PointCloud, RangeData
+from cartographer_tpu_torch.sensor.voxel_filter import voxel_filter_mask
+from cartographer_tpu_torch.transform.interpolation import interpolate_rigid3
+from cartographer_tpu_torch.transform.rigid import Rigid3
+
+_KERNEL = cuda.CudaKernel(
+    "scan_preprocess_2d.cu", "scan_preprocess_2d",
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] + [ctypes.c_float] * 5
+    + [ctypes.c_void_p] * 5)
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanPreprocessParams2D:
+    min_range: float = 0.0
+    max_range: float = 30.0
+    min_z: float = -0.8
+    max_z: float = 2.0
+    missing_data_ray_length: float = 5.0
+    voxel_filter_size: float = 0.025
+
+
+def align_scan_plain(points, times01, mask, origin, pose_start: Rigid3, pose_end: Rigid3,
+                     gravity_rotation, params: ScanPreprocessParams2D):
+    """Plain twin of K1: -> (hits (N, 3), misses (N, 2), is_return (N,),
+    is_miss (N,), origin (3,)), all in the gravity-aligned frame."""
+    poses = interpolate_rigid3(
+        Rigid3(pose_start.translation[None], pose_start.rotation[None]),
+        Rigid3(pose_end.translation[None], pose_end.rotation[None]), times01)
+    hits_local = poses.apply(points)
+    origins_local = poses.apply(origin)
+    deltas = hits_local - origins_local
+    ranges = torch.linalg.norm(deltas, dim=-1)
+    is_return = mask & (ranges >= params.min_range) & (ranges <= params.max_range)
+    is_miss = mask & (ranges > params.max_range)
+    safe_ranges = torch.clamp(ranges, min=1e-6)
+    scale = torch.full_like(safe_ranges, params.missing_data_ray_length) / safe_ranges
+    miss_local = origins_local + deltas * scale[:, None]
+    align = Rigid3(torch.zeros_like(pose_end.translation), gravity_rotation).compose(
+        pose_end.inverse())
+    hits = align.apply(hits_local)
+    misses = align.apply(miss_local)
+    origin_aligned = align.apply(pose_end.translation)
+    is_return = is_return & (hits[:, 2] >= params.min_z) & (hits[:, 2] <= params.max_z)
+    is_miss = is_miss & (misses[:, 2] >= params.min_z) & (misses[:, 2] <= params.max_z)
+    return hits, misses[:, 0:2].contiguous(), is_return, is_miss, origin_aligned
+
+
+def _align_kernel(points, times01, mask, origin, pose_start, pose_end, gravity_rotation,
+                  params):
+    n = points.shape[0]
+    cuda.check(points, "points", torch.float32, (n, 3))
+    cuda.check(times01, "times01", torch.float32, (n,))
+    cuda.check(mask, "mask", torch.bool, (n,))
+    cuda.check(origin, "origins", torch.float32, (n, 3))
+    for name, t, size in (("pose_start.translation", pose_start.translation, 3),
+                          ("pose_start.rotation", pose_start.rotation, 4),
+                          ("pose_end.translation", pose_end.translation, 3),
+                          ("pose_end.rotation", pose_end.rotation, 4),
+                          ("gravity_rotation", gravity_rotation, 4)):
+        cuda.check(t, name, torch.float32, (size,))
+    device = points.device
+    hits = torch.empty((n, 3), dtype=torch.float32, device=device)
+    misses = torch.empty((n, 2), dtype=torch.float32, device=device)
+    is_return = torch.empty(n, dtype=torch.bool, device=device)
+    is_miss = torch.empty(n, dtype=torch.bool, device=device)
+    origin_aligned = torch.empty(3, dtype=torch.float32, device=device)
+    _KERNEL(device, points.data_ptr(), times01.data_ptr(), mask.data_ptr(),
+            origin.data_ptr(), pose_start.translation.data_ptr(),
+            pose_start.rotation.data_ptr(), pose_end.translation.data_ptr(),
+            pose_end.rotation.data_ptr(), gravity_rotation.data_ptr(), n,
+            float(params.min_range), float(params.max_range), float(params.min_z),
+            float(params.max_z), float(params.missing_data_ray_length), hits.data_ptr(),
+            misses.data_ptr(), is_return.data_ptr(), is_miss.data_ptr(),
+            origin_aligned.data_ptr())
+    return hits, misses, is_return, is_miss, origin_aligned
+
+
+def align_scan(points, times01, mask, origin, pose_start, pose_end, gravity_rotation,
+               params):
+    """K1: unwarp, gate, clamp misses, gravity-align and z-crop a scan."""
+    if points.is_cuda:
+        return _align_kernel(points, times01, mask, origin, pose_start, pose_end,
+                             gravity_rotation, params)
+    return align_scan_plain(points, times01, mask, origin, pose_start, pose_end,
+                            gravity_rotation, params)
+
+
+def preprocess_scan_2d(
+    points: torch.Tensor,  # (N, 3) in sensor/tracking frame
+    times01: torch.Tensor,  # (N,) in [0, 1]: fraction between start and end pose
+    mask: torch.Tensor,  # (N,)
+    origin: torch.Tensor,  # (N, 3) per-point sensor origins in tracking frame
+    pose_start: Rigid3,  # tracking -> local at first point
+    pose_end: Rigid3,  # tracking -> local at last point
+    gravity_rotation: torch.Tensor,  # (4,) gravity orientation estimate
+    params: ScanPreprocessParams2D,
+    perm: torch.Tensor,  # (N,) int32 voxel-filter permutation
+) -> Tuple[RangeData, torch.Tensor]:
+    """Returns (gravity-aligned 2D RangeData, sensor origin in that frame).
+
+    The RangeData is centred at the scan-end sensor position, with z dropped
+    after cropping; the returns are voxel-filtered in 3D cells."""
+    hits, misses, is_return, is_miss, origin_aligned = align_scan(
+        points, times01, mask, origin, pose_start, pose_end, gravity_rotation, params)
+    keep = voxel_filter_mask(hits, is_return, params.voxel_filter_size, perm)
+    zeros = torch.zeros(points.shape[0], dtype=torch.float32, device=points.device)
+    returns = PointCloud(points=hits[:, 0:2], mask=keep, intensities=zeros)
+    miss_cloud = PointCloud(points=misses, mask=is_miss, intensities=zeros)
+    return RangeData(origin=origin_aligned[0:2], returns=returns, misses=miss_cloud), \
+        origin_aligned

@@ -1,0 +1,58 @@
+"""Quaternion math on tensors, batched, (w, x, y, z) convention.
+
+Counterpart of the JAX package's `transform/quaternion.py`; every op
+broadcasts over leading dimensions.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def normalize(q: torch.Tensor) -> torch.Tensor:
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
+def multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    aw, ax, ay, az = a.unbind(-1)
+    bw, bx, by, bz = b.unbind(-1)
+    return torch.stack([
+        aw * bw - ax * bx - ay * by - az * bz,
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+    ], dim=-1)
+
+
+def conjugate(q: torch.Tensor) -> torch.Tensor:
+    return torch.cat([q[..., 0:1], -q[..., 1:4]], dim=-1)
+
+
+def rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vectors v (..., 3) by quaternions q (..., 4); broadcasts."""
+    qw = q[..., 0:1]
+    qv = q[..., 1:4].expand(v.shape)
+    t = 2.0 * torch.linalg.cross(qv, v)
+    return v + qw * t + torch.linalg.cross(qv, t)
+
+
+def from_yaw(yaw: torch.Tensor) -> torch.Tensor:
+    half = 0.5 * yaw
+    zeros = torch.zeros_like(half)
+    return torch.stack([torch.cos(half), zeros, zeros, torch.sin(half)], dim=-1)
+
+
+def slerp(a: torch.Tensor, b: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Spherical interpolation between quaternions along the shortest arc;
+    linear when the two are nearly parallel (sin(theta) < 1e-6)."""
+    dot = torch.sum(a * b, dim=-1, keepdim=True)
+    b = torch.where(dot < 0, -b, b)
+    dot = dot.abs()
+    theta = torch.arccos(dot.clamp(-1.0, 1.0))
+    sin_theta = torch.sin(theta)
+    near = sin_theta < 1e-6
+    t_ = t[..., None] if t.dim() < dot.dim() else t
+    safe = torch.where(near, torch.ones_like(sin_theta), sin_theta)
+    wa = torch.where(near, 1.0 - t_, torch.sin((1.0 - t_) * theta) / safe)
+    wb = torch.where(near, t_, torch.sin(t_ * theta) / safe)
+    return normalize(wa * a + wb * b)
