@@ -1,13 +1,13 @@
-"""2D trajectory-builder options with the reference's default values.
+"""2D SLAM options with the reference's default values.
 
-The subset of the JAX package's `core/config.py` that the 2D local-SLAM
-frontend reads: nested frozen dataclasses whose defaults replicate the
-reference's trajectory_builder_2d.lua, plus the static capacities the
-device pipeline is sized by (`TpuOptions2D`, kept under its original name so
-that the `dataclasses.asdict` trees of the two packages share their keys).
-Options of features the port does not have are left out; the two switches
-the builder must refuse (`use_online_correlative_scan_matching`,
-`submaps.grid_type`) stay.
+The subset of the JAX package's `core/config.py` that the port's 2D
+modules read: nested frozen dataclasses whose defaults replicate the
+reference's trajectory_builder_2d.lua, pose_graph.lua and map_builder.lua,
+plus the static capacities the device pipeline is sized by (`TpuOptions2D`,
+kept under its original name so that the `dataclasses.asdict` trees of the
+two packages share their keys). Options of features the port does not have
+are left out; the switches the constructors must refuse (`submaps.grid_type`,
+`use_trajectory_builder_3d`, `batch_scan_dispatch` and the trimmers) stay.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import typing
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 
 def _d(factory):
@@ -41,6 +41,14 @@ class AdaptiveVoxelFilterOptions:
     max_length: float = 0.5
     min_num_points: int = 200
     max_range: float = 50.0
+
+
+@dataclasses.dataclass(frozen=True)
+class RealTimeCorrelativeScanMatcherOptions:
+    linear_search_window: float = 0.1
+    angular_search_window: float = math.radians(20.0)
+    translation_delta_cost_weight: float = 1e-1
+    rotation_delta_cost_weight: float = 1e-1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,11 +107,93 @@ class TrajectoryBuilder2DOptions:
     loop_closure_adaptive_voxel_filter: AdaptiveVoxelFilterOptions = _d(
         lambda: AdaptiveVoxelFilterOptions(max_length=0.9, min_num_points=100, max_range=50.0))
     use_online_correlative_scan_matching: bool = False
+    real_time_correlative_scan_matcher: RealTimeCorrelativeScanMatcherOptions = _d(
+        RealTimeCorrelativeScanMatcherOptions)
     ceres_scan_matcher: CeresScanMatcherOptions2D = _d(CeresScanMatcherOptions2D)
     motion_filter: MotionFilterOptions = _d(MotionFilterOptions)
     pose_extrapolator: PoseExtrapolatorOptions = _d(PoseExtrapolatorOptions)
     submaps: SubmapsOptions2D = _d(SubmapsOptions2D)
     tpu: TpuOptions2D = _d(TpuOptions2D)
+
+
+# ---------------------------------------------------------------- pose_graph.lua
+
+
+@dataclasses.dataclass(frozen=True)
+class FastCorrelativeScanMatcherOptions2D:
+    linear_search_window: float = 7.0
+    angular_search_window: float = math.radians(30.0)
+    branch_and_bound_depth: int = 7
+    # Static bound of the angular candidate count (worst-case scan radius)
+    # and the beam width of the level-synchronous search.
+    max_scan_range: float = 30.0
+    beam_width: int = 4096
+
+
+@dataclasses.dataclass(frozen=True)
+class ConstraintBuilderOptions:
+    sampling_ratio: float = 0.3
+    max_constraint_distance: float = 15.0
+    min_score: float = 0.55
+    global_localization_min_score: float = 0.6
+    loop_closure_translation_weight: float = 1.1e4
+    loop_closure_rotation_weight: float = 1e5
+    fast_correlative_scan_matcher: FastCorrelativeScanMatcherOptions2D = _d(
+        FastCorrelativeScanMatcherOptions2D)
+    ceres_scan_matcher: CeresScanMatcherOptions2D = _d(
+        lambda: CeresScanMatcherOptions2D(occupied_space_weight=20.0, translation_weight=10.0,
+                                          rotation_weight=1.0, max_num_iterations=10,
+                                          use_nonmonotonic_steps=True))
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizationProblemOptions:
+    huber_scale: float = 1e1
+    local_slam_pose_translation_weight: float = 1e5
+    local_slam_pose_rotation_weight: float = 1e5
+    odometry_translation_weight: float = 1e5
+    odometry_rotation_weight: float = 1e5
+    fixed_frame_pose_translation_weight: float = 1e1
+    fixed_frame_pose_rotation_weight: float = 1e2
+    fixed_frame_pose_use_tolerant_loss: bool = False
+    max_num_iterations: int = 50
+
+
+@dataclasses.dataclass(frozen=True)
+class PoseGraphOptions:
+    optimize_every_n_nodes: int = 90
+    constraint_builder: ConstraintBuilderOptions = _d(ConstraintBuilderOptions)
+    matcher_translation_weight: float = 5e2
+    matcher_rotation_weight: float = 1.6e3
+    optimization_problem: OptimizationProblemOptions = _d(OptimizationProblemOptions)
+    max_num_final_iterations: int = 200
+    global_sampling_ratio: float = 0.003
+    global_constraint_search_after_n_seconds: float = 10.0
+    overlapping_submaps_trimmer_2d: Optional[Any] = None  # not ported: must stay None
+
+
+# ------------------------------------------------ trajectory_builder.lua, map_builder.lua
+
+
+@dataclasses.dataclass(frozen=True)
+class TrajectoryBuilderOptions:
+    trajectory_builder_2d: TrajectoryBuilder2DOptions = _d(TrajectoryBuilder2DOptions)
+    pure_localization_trimmer: Optional[Any] = None  # not ported: must stay None
+
+
+@dataclasses.dataclass(frozen=True)
+class MapBuilderOptions:
+    use_trajectory_builder_2d: bool = False
+    use_trajectory_builder_3d: bool = False  # not ported: must stay False
+    num_background_threads: int = 4
+    pose_graph: PoseGraphOptions = _d(PoseGraphOptions)
+    collate_by_trajectory: bool = False
+    # Loop-closure searches on num_background_threads and the solves on an
+    # optimizer thread while the frontend continues (the reference's
+    # pipelined work queue, pose_graph_2d.cc:520-544); False runs them
+    # inline, deterministically.
+    async_constraint_search: bool = True
+    batch_scan_dispatch: bool = False  # not ported: must stay False
 
 
 def replace_tree(options, path: str, value):

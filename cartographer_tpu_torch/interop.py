@@ -1,19 +1,29 @@
 """Carry state between the JAX package and the port as numpy arrays.
 
-With these a test builds a submap with one package and matches or inserts
-on it with the other; the port itself never imports the JAX package.
+With these a test builds a submap, a precomputation pyramid or a pose-graph
+problem with one package and runs it through the other; the port itself
+never imports the JAX package.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 from typing import Any, Dict, Tuple
 
 import numpy as np
 
-from cartographer_tpu_torch.core.config import TrajectoryBuilder2DOptions, from_dict
+import torch
+
+from cartographer_tpu_torch.core.config import (
+    MapBuilderOptions,
+    TrajectoryBuilder2DOptions,
+    TrajectoryBuilderOptions,
+    from_dict,
+)
 from cartographer_tpu_torch.core.tensor import to_device
 from cartographer_tpu_torch.ops.grid_2d import Grid2D
+from cartographer_tpu_torch.parallel.schur_spa import SchurSpaProblem2D
 
 
 def grid2d_from_numpy(log_odds: np.ndarray, known: np.ndarray, origin: np.ndarray,
@@ -36,10 +46,9 @@ UNPORTED_SWITCHES = {
     "pose_extrapolator.use_imu_based": False,
     "submaps.range_data_inserter_type": "PROBABILITY_GRID_INSERTER_2D",
 }
-# Options that only unported features read (the correlative matcher, the
-# IMU-based extrapolator, TSDF submaps) or that the 2D frontend never reads.
+# Options that only unported features read (the IMU-based extrapolator,
+# TSDF submaps) or that the 2D frontend never reads.
 UNREAD_OPTIONS = (
-    "real_time_correlative_scan_matcher",
     "pose_extrapolator.imu_based",
     "submaps.tsdf_range_data_inserter",
     "tpu.filtered_capacity",
@@ -54,16 +63,87 @@ def _pop(d: Dict[str, Any], path: str, default):
     return d.pop(key, default)
 
 
+def _strip(d: Dict[str, Any], switches: Dict[str, Any], unread) -> Dict[str, Any]:
+    d = copy.deepcopy(d)
+    for path, off in switches.items():
+        value = _pop(d, path, off)
+        if value != off:
+            raise NotImplementedError(f"{path} = {value!r} is not ported")
+    for path in unread:
+        _pop(d, path, None)
+    return d
+
+
 def options_from_dict(d: Dict[str, Any]) -> TrajectoryBuilder2DOptions:
     """TrajectoryBuilder2DOptions from `dataclasses.asdict` of the JAX
     package's options of the same name. A switch of UNPORTED_SWITCHES that
     turns its feature on raises NotImplementedError; UNREAD_OPTIONS are
     dropped."""
-    d = copy.deepcopy(d)
-    for path, off in UNPORTED_SWITCHES.items():
-        value = _pop(d, path, off)
-        if value != off:
-            raise NotImplementedError(f"{path} = {value!r} is not ported")
-    for path in UNREAD_OPTIONS:
-        _pop(d, path, None)
-    return from_dict(TrajectoryBuilder2DOptions, d)
+    return from_dict(TrajectoryBuilder2DOptions,
+                     _strip(d, UNPORTED_SWITCHES, UNREAD_OPTIONS))
+
+
+# The same for the trajectory and map-builder trees: switches of unported
+# features (3D, cross-robot batching, the trimmers) and options that only
+# unported features read (3D matchers, IMU terms, multi-chip meshes, logs).
+UNPORTED_MAP_BUILDER_SWITCHES = {
+    "use_trajectory_builder_3d": False,
+    "batch_scan_dispatch": False,
+    "pose_graph.overlapping_submaps_trimmer_2d": None,
+}
+UNREAD_MAP_BUILDER_OPTIONS = (
+    "use_device_mesh",
+    "pose_graph.log_residual_histograms",
+    "pose_graph.max_nodes",
+    "pose_graph.max_submaps",
+    "pose_graph.max_constraints",
+    "pose_graph.constraint_builder.log_matches",
+    "pose_graph.constraint_builder.fast_correlative_scan_matcher_3d",
+    "pose_graph.constraint_builder.ceres_scan_matcher_3d",
+    "pose_graph.optimization_problem.acceleration_weight",
+    "pose_graph.optimization_problem.rotation_weight",
+    "pose_graph.optimization_problem.fixed_frame_pose_tolerant_loss_param_a",
+    "pose_graph.optimization_problem.fixed_frame_pose_tolerant_loss_param_b",
+    "pose_graph.optimization_problem.log_solver_summary",
+    "pose_graph.optimization_problem.use_online_imu_extrinsics_in_3d",
+    "pose_graph.optimization_problem.fix_z_in_3d",
+    "pose_graph.optimization_problem.use_nonmonotonic_steps",
+    "pose_graph.optimization_problem.num_threads",
+)
+UNPORTED_TRAJECTORY_SWITCHES = {"pure_localization_trimmer": None}
+UNREAD_TRAJECTORY_OPTIONS = ("trajectory_builder_3d", "collate_fixed_frame",
+                             "collate_landmarks")
+
+
+def map_builder_options_from_dict(d: Dict[str, Any]) -> MapBuilderOptions:
+    """MapBuilderOptions from `dataclasses.asdict` of the JAX package's."""
+    return from_dict(MapBuilderOptions, _strip(d, UNPORTED_MAP_BUILDER_SWITCHES,
+                                               UNREAD_MAP_BUILDER_OPTIONS))
+
+
+def trajectory_builder_options_from_dict(d: Dict[str, Any]) -> TrajectoryBuilderOptions:
+    """TrajectoryBuilderOptions (with the 2D tree through options_from_dict)
+    from `dataclasses.asdict` of the JAX package's."""
+    d = _strip(d, UNPORTED_TRAJECTORY_SWITCHES, UNREAD_TRAJECTORY_OPTIONS)
+    tb2 = options_from_dict(d.pop("trajectory_builder_2d", {}))
+    return TrajectoryBuilderOptions(trajectory_builder_2d=tb2, **d)
+
+
+def pyramid_from_numpy(pyramid: np.ndarray, device) -> torch.Tensor:
+    """(depth, S, S) precomputation pyramid of the JAX package's
+    `build_precomputation_pyramid`."""
+    return to_device(np.asarray(pyramid, np.float32), device)
+
+
+def schur_problem_from_numpy(arrays: Dict[str, np.ndarray], device) -> SchurSpaProblem2D:
+    """SchurSpaProblem2D from the JAX problem's fields as numpy arrays
+    (`{f.name: np.asarray(getattr(problem, f.name))}`). Unary node terms are
+    not ported (the 2D pose graph never fills them): any valid one raises."""
+    if np.any(np.asarray(arrays.get("u_valid", np.zeros(0, bool)))):
+        raise NotImplementedError("unary node terms of the Schur SPA are not ported")
+    fields = {}
+    for name in (f.name for f in dataclasses.fields(SchurSpaProblem2D)):
+        a = np.asarray(arrays[name])
+        a = a.astype(np.int32) if a.dtype.kind in "iu" else a
+        fields[name] = to_device(a.astype(np.float32) if a.dtype.kind == "f" else a, device)
+    return SchurSpaProblem2D(**fields)

@@ -6,18 +6,19 @@ the sequential state (pose extrapolator, submap window, sensor collation)
 and runs one per-scan device step, `_fused_step`:
 
   1. preprocess: unwarp, gate, gravity-align, voxel filter (K1, K2)
-  2. the two adaptive voxel filters (K2) and the LM refine (K3)
+  2. the two adaptive voxel filters (K2), the online correlative search
+     when `use_online_correlative_scan_matching` is set (K5) and the LM
+     refine (K3)
   3. the motion filter decision, on the device
   4. the conditional raycast insertion into both active submaps (K4)
 
 Each scan makes one host-to-device copy of its inputs and exactly one
-blocking device-to-host copy: the packed result vector. The LM loop's early
-exit, the adaptive filters' searches and the insertion's do_insert gate
-stay on the device.
+blocking device-to-host copy: the packed result vector. The correlative
+search's data-dependent angular step and argmax, the LM loop's early exit,
+the adaptive filters' searches and the insertion's do_insert gate stay on
+the device.
 
-Only the default configuration's path is ported: the online correlative
-scan matcher, TSDF submaps and cross-robot batching raise
-NotImplementedError.
+TSDF submaps and cross-robot batching raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -37,6 +38,10 @@ from cartographer_tpu_torch.mapping.motion_filter import MotionFilter
 from cartographer_tpu_torch.mapping.pose_extrapolator import PoseExtrapolator
 from cartographer_tpu_torch.mapping.range_data_collator import RangeDataCollator
 from cartographer_tpu_torch.mapping.submap_2d import ActiveSubmaps2D, Submap2D
+from cartographer_tpu_torch.ops.correlative_2d import (
+    CorrelativeSearchParams,
+    real_time_correlative_match,
+)
 from cartographer_tpu_torch.ops.scan_matcher_2d import GaussNewtonMatcherParams2D, lm_match_2d
 from cartographer_tpu_torch.ops.scan_pipeline_2d import (
     ScanPreprocessParams2D,
@@ -91,8 +96,6 @@ class LocalTrajectoryBuilder2D:
         JAX package's permutation through it)."""
         if batcher is not None:
             raise NotImplementedError("cross-robot scan batching is not ported")
-        if options.use_online_correlative_scan_matching:
-            raise NotImplementedError("the online correlative scan matcher is not ported")
         if options.submaps.grid_type == "TSDF":
             raise NotImplementedError("TSDF submaps are not ported")
         self._device = torch.device(device)
@@ -118,6 +121,13 @@ class LocalTrajectoryBuilder2D:
             min_z=options.min_z, max_z=options.max_z,
             missing_data_ray_length=options.missing_data_ray_length,
             voxel_filter_size=options.voxel_filter_size)
+        corr = options.real_time_correlative_scan_matcher
+        self._corr_params = CorrelativeSearchParams(
+            linear_search_window=corr.linear_search_window,
+            angular_search_window=corr.angular_search_window,
+            translation_delta_cost_weight=corr.translation_delta_cost_weight,
+            rotation_delta_cost_weight=corr.rotation_delta_cost_weight,
+            max_scan_range=options.max_range)
         gn = options.ceres_scan_matcher
         self._gn_params = GaussNewtonMatcherParams2D(
             occupied_space_weight=gn.occupied_space_weight,
@@ -130,6 +140,7 @@ class LocalTrajectoryBuilder2D:
         self.device_fetches = 0
         self.device_seconds = 0.0
         self.host_seconds = 0.0
+        self.lm_iterations: List[int] = []  # the LM refine's iterations, per scan
         self._mf_last = None
 
         factory = metrics.GLOBAL_FACTORY
@@ -225,8 +236,15 @@ class LocalTrajectoryBuilder2D:
                                          lc.min_num_points, lc.max_range, perm)
         if opts.tpu.loop_closure_capacity < n:
             lc_cloud = lc_cloud.compact(opts.tpu.loop_closure_capacity)
-        pose_m, cost, _ = lm_match_2d(self._active_submaps.matching_grid, filtered.points,
-                                      filtered.mask, pred, pred[0:2], self._gn_params)
+        grid = self._active_submaps.matching_grid
+        initial = pred
+        if opts.use_online_correlative_scan_matching:
+            _, initial = real_time_correlative_match(grid, filtered.points, filtered.mask, pred,
+                                                     self._corr_params)
+        # The translation penalty pulls toward the prediction, the rotation
+        # penalty toward the correlative estimate (ceres_scan_matcher_2d.cc).
+        pose_m, cost, iterations = lm_match_2d(grid, filtered.points, filtered.mask, initial,
+                                               pred[0:2], self._gn_params)
         finite = torch.isfinite(pose_m).all() & has_grid
         pose_vec = torch.where(finite, pose_m, pred)
 
@@ -246,7 +264,8 @@ class LocalTrajectoryBuilder2D:
         self._active_submaps.insert(rd_local, small[_ACTIVE] > 0.5, do_insert)
         packed = torch.cat([
             pose_vec, est_q,
-            torch.stack([cost, do_insert.to(torch.float32), ok.to(torch.float32)]),
+            torch.stack([cost, do_insert.to(torch.float32), ok.to(torch.float32),
+                         iterations.to(torch.float32)]),
             lc_cloud.mask.to(torch.float32), lc_cloud.points.reshape(-1)])
         return packed, rd_local
 
@@ -314,13 +333,14 @@ class LocalTrajectoryBuilder2D:
         self.device_fetches += 1
         self.device_seconds += _time.monotonic() - dev_t0
 
-        lc_cap = (packed.shape[0] - 10) // 3
+        lc_cap = (packed.shape[0] - 11) // 3
         pose_2d = np.asarray(packed[:3], np.float64)
         est_q = np.asarray(packed[3:7], np.float64)
         inserted = bool(packed[8] > 0.5)
         ok = bool(packed[9] > 0.5)
-        lc_mask = packed[10:10 + lc_cap] > 0.5
-        lc_points = packed[10 + lc_cap:].reshape(lc_cap, 2)
+        self.lm_iterations.append(int(packed[10]))
+        lc_mask = packed[11:11 + lc_cap] > 0.5
+        lc_points = packed[11 + lc_cap:].reshape(lc_cap, 2)
         if not ok and had_grid:
             # Non-finite match: drop the scan (the insertion was suppressed
             # on the device too).

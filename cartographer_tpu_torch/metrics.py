@@ -1,8 +1,9 @@
 """Metric families with null-object defaults.
 
-The subset of the JAX package's `metrics` module that the 2D frontend
-registers (local_trajectory_builder_2d.cc RegisterMetrics): instrumentation
-costs nothing until a caller installs a collecting factory.
+The subset of the JAX package's `metrics` module that the port's 2D modules
+register (the RegisterMetrics of local_trajectory_builder_2d.cc,
+constraint_builder_2d.cc, pose_graph_2d.cc and global_trajectory_builder.cc):
+instrumentation costs nothing until a caller installs a collecting factory.
 """
 
 from __future__ import annotations
@@ -17,6 +18,11 @@ class Counter:
 
 class Gauge:
     def set(self, value: float) -> None:
+        pass
+
+
+class Histogram:
+    def observe(self, value: float) -> None:
         pass
 
 
@@ -38,6 +44,9 @@ class FamilyFactory:
 
     def new_gauge_family(self, name: str, description: str):
         return _Family(Gauge)
+
+    def new_histogram_family(self, name: str, description: str, boundaries):
+        return _Family(Histogram)
 
 
 GLOBAL_FACTORY: FamilyFactory = FamilyFactory()

@@ -12,7 +12,8 @@ moves ray samples and voxel keys across cell boundaries.
 
 Every kernel launch goes through a `CudaKernel`, which counts its launches,
 launches on PyTorch's current stream and raises when the C function returns
-a CUDA error.
+a CUDA error. Building and loading hold one process-wide lock, so threads
+that launch a kernel for the first time at once build its library once.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ BUILD_DIR = CSRC_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
-_lock = threading.Lock()
+_lock = threading.RLock()  # build() and CudaKernel._load
 KERNELS: Dict[str, "CudaKernel"] = {}
 
 
@@ -95,17 +96,20 @@ class CudaKernel:
         self._argtypes = list(argtypes) + [ctypes.c_void_p]  # + stream
         self._fn = None
         self.launches = 0
+        self._count_lock = threading.Lock()  # launches come from several threads
         KERNELS[symbol] = self
 
     def _load(self):
         if self._fn is None:
-            path = library_path(self.source)
-            if not path.exists():
-                build([self.source])
-            fn = getattr(ctypes.CDLL(str(path)), self.symbol)
-            fn.argtypes = self._argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
+            with _lock:
+                if self._fn is None:
+                    path = library_path(self.source)
+                    if not path.exists():
+                        build([self.source])
+                    fn = getattr(ctypes.CDLL(str(path)), self.symbol)
+                    fn.argtypes = self._argtypes
+                    fn.restype = ctypes.c_int
+                    self._fn = fn
         return self._fn
 
     def __call__(self, device: torch.device, *args) -> None:
@@ -114,7 +118,8 @@ class CudaKernel:
         err = fn(*args, stream)
         if err != 0:
             raise RuntimeError(f"{self.symbol}: CUDA error {err} at launch")
-        self.launches += 1
+        with self._count_lock:
+            self.launches += 1
 
 
 def reset_launch_counts() -> None:

@@ -3,10 +3,10 @@
 Counterpart of the JAX package's `ops/gauss_newton.py:lm_solve`, taking the
 residuals together with their Jacobian instead of differentiating a
 residual function. The JAX while_loop exits early at `function_tolerance`;
-here the loop runs `num_iterations` times and freezes every quantity once
-converged, which gives the same result without reading the flag on the
-host. The CUDA kernel of the 2D matcher (csrc/scan_matcher_2d.cu) runs this
-same loop on the card.
+here the loop freezes every quantity once converged, which gives the same
+result without reading the flag on the host; on the CPU, where reading it
+costs nothing, the loop also stops there. The CUDA kernel of the 2D matcher
+(csrc/scan_matcher_2d.cu) runs this same loop on the card.
 """
 
 from __future__ import annotations
@@ -42,6 +42,8 @@ def lm_solve(
     done = torch.zeros((), dtype=torch.bool, device=x0.device)
     iterations = torch.zeros((), dtype=torch.int32, device=x0.device)
     for _ in range(num_iterations):
+        if not x0.is_cuda and bool(done):
+            break
         r, jac = residual_and_jacobian(x)
         h = jac.T @ jac
         g = jac.T @ r

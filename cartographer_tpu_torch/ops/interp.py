@@ -48,20 +48,24 @@ def bicubic_with_gradient(value_at: Callable[[torch.Tensor, torch.Tensor], torch
     j0 = j0.long()
     wx, dwx = catmull_rom_weights(fx), catmull_rom_derivatives(fx)
     wy, dwy = catmull_rom_weights(fy), catmull_rom_derivatives(fy)
+    taps = torch.arange(-1, 3, device=coords.device)
+    ii = (i0[..., None] + taps).clamp(0, s0 - 1)
+    jj = (j0[..., None] + taps).clamp(0, s1 - 1)
+    g = value_at(ii[..., :, None], jj[..., None, :])  # (..., 4, 4): all 16 taps at once
+    # The sums run in the same order as a tap-by-tap loop: over dj within a
+    # row, then over the rows di.
+    row = torch.zeros_like(g[..., 0])
+    drow = torch.zeros_like(g[..., 0])
+    for dj in range(4):
+        row = row + wy[dj][..., None] * g[..., dj]
+        drow = drow + dwy[dj][..., None] * g[..., dj]
     val = torch.zeros_like(fx)
     dfx = torch.zeros_like(fx)
     dfy = torch.zeros_like(fx)
     for di in range(4):
-        ii = (i0 + di - 1).clamp(0, s0 - 1)
-        row = torch.zeros_like(fx)
-        drow = torch.zeros_like(fx)
-        for dj in range(4):
-            g = value_at(ii, (j0 + dj - 1).clamp(0, s1 - 1))
-            row = row + wy[dj] * g
-            drow = drow + dwy[dj] * g
-        val = val + wx[di] * row
-        dfx = dfx + dwx[di] * row
-        dfy = dfy + wx[di] * drow
+        val = val + wx[di] * row[..., di]
+        dfx = dfx + dwx[di] * row[..., di]
+        dfy = dfy + wx[di] * drow[..., di]
     return val, torch.stack([dfx, dfy], dim=-1)
 
 

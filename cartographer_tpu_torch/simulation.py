@@ -143,3 +143,51 @@ def relative_to_first(truth: np.ndarray) -> np.ndarray:
     c, s = np.cos(-a0), np.sin(-a0)
     dx, dy = truth[:, 0] - x0, truth[:, 1] - y0
     return np.stack([c * dx - s * dy, s * dx + c * dy, truth[:, 2] - a0], -1)
+
+
+def synthetic_pose_graph(num_submaps: int, num_nodes: int, constraint_slots: int,
+                         seed: int = 0, outlier_share: float = 0.05, pose_noise: float = 0.1):
+    """A pose-graph problem in the fields of the Schur SPA
+    (`parallel.schur_spa.SchurSpaProblem2D`) as numpy arrays, with its truth.
+
+    Nodes lie on a loop of laps; node n belongs to submap n * S // N and is
+    tied to it and to the next submap (INTRA, the pose graph's weights);
+    the remaining constraint slots are Huber-weighted loop closures between
+    random nodes and submaps, `outlier_share` of them wrong by a metre; the
+    consecutive nodes are tied by local-SLAM terms. Submap 0 is frozen. The
+    initial poses are the truth plus `pose_noise` of Gaussian noise.
+    Returns (arrays, truth_submaps (S, 3), truth_nodes (N, 3))."""
+    from cartographer_tpu_torch.mapping.pose_graph_2d import _compose2d, _inverse2d
+
+    rng = np.random.RandomState(seed)
+    S, N = num_submaps, num_nodes
+    t = np.linspace(0.0, 2.0 * np.pi * max(1, N // 300), N, endpoint=False)
+    truth_n = np.stack([11.0 * np.cos(t), 7.0 * np.sin(t), t + np.pi / 2], -1)
+    truth_s = truth_n[(np.arange(S) * N) // S] + np.array([0.3, -0.2, 0.05])
+    owner = np.arange(N) * S // N
+    a_intra = np.concatenate([owner, np.minimum(owner + 1, S - 1)])
+    b_intra = np.concatenate([np.arange(N), np.arange(N)])
+    n_inter = max(constraint_slots - a_intra.shape[0], 0)
+    a = np.concatenate([a_intra, rng.randint(0, S, n_inter)])[:constraint_slots]
+    b = np.concatenate([b_intra, rng.randint(0, N, n_inter)])[:constraint_slots]
+    C = a.shape[0]
+    inter = np.arange(C) >= a_intra.shape[0]
+    rel = _compose2d(_inverse2d(truth_s[a]), truth_n[b]) + rng.normal(0.0, 0.01, (C, 3))
+    wrong = inter & (rng.rand(C) < outlier_share)
+    rel[wrong] += np.array([1.0, -0.7, 0.2])
+    nn_rel = (_compose2d(_inverse2d(truth_n[:-1]), truth_n[1:])
+              + rng.normal(0.0, 0.005, (N - 1, 3)))
+    sub_fixed = np.zeros(S, bool)
+    sub_fixed[0] = True
+    arrays = dict(
+        submap_poses=(truth_s + pose_noise * rng.normal(size=(S, 3)) * ~sub_fixed[:, None]
+                      ).astype(np.float32),
+        node_poses=(truth_n + pose_noise * rng.normal(size=(N, 3))).astype(np.float32),
+        a_idx=a.astype(np.int32), b_idx=b.astype(np.int32), rel=rel.astype(np.float32),
+        trans_weight=np.where(inter, 1.1e4, 5e2).astype(np.float32),
+        rot_weight=np.where(inter, 1e5, 1.6e3).astype(np.float32),
+        use_huber=inter, valid=np.ones(C, bool), j_idx=np.arange(N - 1, dtype=np.int32),
+        nn_rel=nn_rel.astype(np.float32), nn_trans_weight=np.full(N - 1, 1e5, np.float32),
+        nn_rot_weight=np.full(N - 1, 1e5, np.float32), nn_valid=np.ones(N - 1, bool),
+        submap_fixed=sub_fixed, node_fixed=np.zeros(N, bool))
+    return arrays, truth_s, truth_n

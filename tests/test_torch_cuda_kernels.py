@@ -1,9 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch twins, on the card.
 
 These tests need an NVIDIA GPU with nvcc (sm_90a) and skip elsewhere; run
-them on the card with `python -m pytest -m cuda tests/test_torch_cuda_kernels.py`.
-`chip_smoke.py` holds the same kernels against their twins at the 2D
-frontend's full width.
+them on the card, where JAX (which tests/conftest.py loads) is absent, with
+`python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py`.
+`chip_smoke.py` holds the same kernels against their twins at full width.
 """
 
 import numpy as np
@@ -114,3 +114,74 @@ def test_scan_matcher_2d_kernel(dev):
     xp, cp, _ = scan_matcher_2d._match_plain(*args)
     torch.testing.assert_close(xk, xp, atol=1e-4, rtol=0)
     torch.testing.assert_close(ck, cp, atol=0, rtol=1e-4)
+
+
+def _card_grid(dev):
+    grids, rd = _grids_and_scan(dev)
+    grid_2d.insert_into_slots(grids, rd, _t(np.array([True, False]), dev),
+                              torch.ones((), dtype=torch.bool, device=dev), 0.55, 0.49, True,
+                              SAMPLES)
+    return grids.slot(0), rd
+
+
+def test_correlative_2d_kernel(dev):
+    from cartographer_tpu_torch.ops import correlative_2d
+
+    grid, rd = _card_grid(dev)
+    params = correlative_2d.CorrelativeSearchParams(max_scan_range=12.0)
+    x0 = _t(np.float32([0.23, -0.12, 0.02]), dev)
+    best, scores = correlative_2d._match_kernel(grid, rd.returns.points, rd.returns.mask, x0,
+                                                params)
+    best_p, scores_p = correlative_2d.correlative_match_plain(
+        grid, rd.returns.points, rd.returns.mask, x0, params)
+    assert torch.equal(scores, scores_p)
+    assert torch.equal(best, best_p)
+
+
+def test_bnb_kernels(dev):
+    from cartographer_tpu_torch.ops import bnb_2d
+
+    grid, rd = _card_grid(dev)
+    pyr = bnb_2d.build_precomputation_pyramid(grid, 7)
+    assert torch.equal(pyr, bnb_2d.pyramid_plain(grid, 7))
+    rng = np.random.RandomState(4)
+    n = 128
+    cells = _t(rng.randint(-20, SIZE + 20, (31, n, 2)).astype(np.int32), dev)
+    mask = _t(rng.rand(n) < 0.8, dev)
+    b = 5000
+    a_idx = _t(rng.randint(0, 31, b).astype(np.int32), dev)
+    ox = _t(rng.randint(-64, 64, b).astype(np.int32), dev)
+    oy = _t(rng.randint(-64, 64, b).astype(np.int32), dev)
+    for h in (0, 3, 6):
+        got = bnb_2d.score_candidates(pyr[h], cells, mask, a_idx, ox, oy)
+        ref = bnb_2d.score_candidates_plain(pyr[h], cells, mask, a_idx, ox, oy)
+        assert torch.equal(got, ref)
+    params = bnb_2d.FastCorrelativeMatcherParams2D(linear_search_window=2.0, beam_width=512,
+                                                   max_scan_range=12.0)
+    pts, m = rd.returns.points[:n], rd.returns.mask[:n]
+    x0 = _t(np.float32([0.3, -0.2, 0.05]), dev)
+    out = bnb_2d.fast_correlative_match_2d(pyr, grid, pts, m, x0, params, 0.3)
+    ref = bnb_2d.fast_correlative_match_2d(pyr, grid, pts, m, x0, params, 0.3,
+                                           score=bnb_2d.score_candidates_plain)
+    assert torch.equal(out, ref)
+
+
+def _spa_problem(dev):
+    from cartographer_tpu_torch.interop import schur_problem_from_numpy
+    from cartographer_tpu_torch.simulation import synthetic_pose_graph
+
+    arrays, _, _ = synthetic_pose_graph(8, 120, 512, seed=5)
+    return schur_problem_from_numpy(arrays, dev)
+
+
+@pytest.mark.parametrize("iterations", [1, 2, 50])
+def test_schur_spa_2d_kernel(dev, iterations):
+    from cartographer_tpu_torch.parallel import schur_spa
+
+    p = _spa_problem(dev)
+    wmax = schur_spa.max_weight(p)
+    q = schur_spa.normalized(p, wmax)
+    sub, nod = schur_spa._solve_kernel(q, iterations, 10.0 / wmax, 1e-6)
+    sub_p, nod_p = schur_spa.solve_plain(q, iterations, 10.0 / wmax, 1e-6)
+    torch.testing.assert_close(sub, sub_p, atol=1e-3, rtol=0)
+    torch.testing.assert_close(nod, nod_p, atol=1e-3, rtol=0)

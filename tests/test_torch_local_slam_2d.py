@@ -4,12 +4,15 @@ path) against the JAX package's, and alone against ground truth.
 The default configuration runs no correlative search, so the scan matcher
 only refines the extrapolator's constant-velocity prediction: the
 trajectories here start from rest and ramp their speed up, as a robot does.
+With the online correlative matcher on, the frontend also follows a robot
+that starts at speed.
 """
 
 import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 
@@ -25,6 +28,10 @@ from cartographer_tpu_torch.transform import nquat
 from test_local_slam_2d import make_wall_points, scan_at, small_options
 
 T0 = 1_000_000_000
+
+# The suite runs several test processes at once; PyTorch's CPU thread pool in
+# each would contend for the cores and slow every process many times over.
+torch.set_num_threads(1)
 
 
 def _jax_options(**overrides):
@@ -59,8 +66,10 @@ def _yaw(q):
     return float(nquat.get_yaw(q))
 
 
-def test_builder_matches_jax():
-    jopts = _jax_options(**{"submaps.num_range_data": 5})
+@pytest.mark.parametrize("correlative", [False, True])
+def test_builder_matches_jax(correlative):
+    jopts = _jax_options(**{"submaps.num_range_data": 5,
+                            "use_online_correlative_scan_matching": correlative})
     jb = JBuilder(jopts, ["laser"])
     tb = LocalTrajectoryBuilder2D(options_from_dict(dataclasses.asdict(jopts)), ["laser"],
                                   device="cpu", permutation_fn=_jax_permutation)
@@ -139,8 +148,20 @@ def test_waits_for_imu_when_configured():
     assert builder.add_range_data("laser", TimedPointCloudData(**scan)) is None
 
 
+def test_online_correlative_matcher_runs():
+    # At speed from the first scan, with a jump the constant-velocity
+    # prediction cannot know: the correlative window finds it.
+    poses = [(np.array([0.06 * i, 0.0]), 0.0) for i in range(20)]
+    poses += [(poses[-1][0] + np.array([0.06 * i + 0.05, 0.04]), 0.03) for i in range(1, 11)]
+    options = _port_options(**{"use_online_correlative_scan_matching": True})
+    results = _drive(options, poses)
+    assert len(results) == len(poses)
+    errors = [np.linalg.norm(r.local_pose_translation[:2] - p[0]) for r, p in zip(results, poses)]
+    assert max(errors) < 0.05, max(errors)
+    assert abs(_yaw(results[-1].local_pose_rotation) - 0.03) < 0.01
+
+
 @pytest.mark.parametrize("override", [
-    {"use_online_correlative_scan_matching": True},
     {"submaps.grid_type": "TSDF"},
 ])
 def test_unported_options_raise(override):

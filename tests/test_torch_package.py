@@ -11,9 +11,29 @@ from pathlib import Path
 import pytest
 import torch
 
-from cartographer_tpu.core.config import TrajectoryBuilder2DOptions as JOptions, apply_overrides
-from cartographer_tpu_torch.core.config import TrajectoryBuilder2DOptions
-from cartographer_tpu_torch.interop import UNPORTED_SWITCHES, UNREAD_OPTIONS, options_from_dict
+from cartographer_tpu.core.config import (
+    MapBuilderOptions as JMapBuilderOptions,
+    TrajectoryBuilder2DOptions as JOptions,
+    TrajectoryBuilderOptions as JTrajectoryOptions,
+    apply_overrides,
+)
+from cartographer_tpu_torch.core.config import (
+    MapBuilderOptions,
+    TrajectoryBuilder2DOptions,
+    TrajectoryBuilderOptions,
+)
+from cartographer_tpu_torch.interop import (
+    UNPORTED_MAP_BUILDER_SWITCHES,
+    UNPORTED_SWITCHES,
+    UNPORTED_TRAJECTORY_SWITCHES,
+    UNREAD_MAP_BUILDER_OPTIONS,
+    UNREAD_OPTIONS,
+    UNREAD_TRAJECTORY_OPTIONS,
+    map_builder_options_from_dict,
+    options_from_dict,
+    trajectory_builder_options_from_dict,
+)
+from cartographer_tpu_torch.ops import cuda
 from cartographer_tpu_torch.mapping.local_trajectory_builder_2d import LocalTrajectoryBuilder2D
 
 REPO = Path(__file__).resolve().parent.parent
@@ -83,3 +103,79 @@ def test_unported_switches_raise(path, value):
 def test_unported_options_are_not_settable():
     with pytest.raises(TypeError):
         apply_overrides(TrajectoryBuilder2DOptions(), {"num_accumulated_range_data": 2})
+
+
+def _assert_carried(jopts, port, dropped):
+    port = _flat(dataclasses.asdict(port))
+    jax = _flat(dataclasses.asdict(jopts))
+    assert port == {key: jax[key] for key in port}
+    for key in set(jax) - set(port):
+        assert any(key == p or key.startswith(p + ".") for p in dropped), key
+
+
+def test_map_builder_options_carry_across():
+    jopts = apply_overrides(JMapBuilderOptions(use_trajectory_builder_2d=True), {
+        "pose_graph.optimize_every_n_nodes": 12,
+        "pose_graph.constraint_builder.fast_correlative_scan_matcher.beam_width": 512,
+        "async_constraint_search": False})
+    _assert_carried(jopts, map_builder_options_from_dict(dataclasses.asdict(jopts)),
+                    tuple(UNPORTED_MAP_BUILDER_SWITCHES) + UNREAD_MAP_BUILDER_OPTIONS)
+    jtraj = apply_overrides(JTrajectoryOptions(), {
+        "trajectory_builder_2d.use_online_correlative_scan_matching": True,
+        "trajectory_builder_2d.real_time_correlative_scan_matcher.linear_search_window": 0.2})
+    _assert_carried(jtraj, trajectory_builder_options_from_dict(dataclasses.asdict(jtraj)),
+                    tuple(UNPORTED_TRAJECTORY_SWITCHES) + UNREAD_TRAJECTORY_OPTIONS
+                    + tuple("trajectory_builder_2d." + p
+                            for p in tuple(UNPORTED_SWITCHES) + UNREAD_OPTIONS))
+    assert map_builder_options_from_dict(
+        dataclasses.asdict(JMapBuilderOptions())) == MapBuilderOptions()
+    assert trajectory_builder_options_from_dict(
+        dataclasses.asdict(JTrajectoryOptions())) == TrajectoryBuilderOptions()
+
+
+@pytest.mark.parametrize("path,value", [
+    ("use_trajectory_builder_3d", True),
+    ("batch_scan_dispatch", True),
+    ("pose_graph.overlapping_submaps_trimmer_2d", {"fresh_submaps_count": 1}),
+])
+def test_unported_map_builder_switches_raise(path, value):
+    jopts = apply_overrides(JMapBuilderOptions(), {path: value})
+    with pytest.raises(NotImplementedError, match=path):
+        map_builder_options_from_dict(dataclasses.asdict(jopts))
+
+
+def test_pure_localization_trimmer_raises():
+    jtraj = apply_overrides(JTrajectoryOptions(), {"pure_localization_trimmer": {"x": 3}})
+    with pytest.raises(NotImplementedError, match="pure_localization_trimmer"):
+        trajectory_builder_options_from_dict(dataclasses.asdict(jtraj))
+
+
+def test_concurrent_first_launches_build_once(monkeypatch, tmp_path):
+    import ctypes
+    import threading
+    import time
+
+    built = []
+
+    def fake_build(sources):
+        built.append(tuple(sources))
+        time.sleep(0.2)  # a build takes a while: the other threads arrive meanwhile
+        (tmp_path / "lib.so").write_bytes(b"")
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: 0
+
+    monkeypatch.setattr(cuda, "library_path", lambda source: tmp_path / "lib.so")
+    monkeypatch.setattr(cuda, "build", fake_build)
+    monkeypatch.setattr(ctypes, "CDLL", lambda path: Lib())
+    kernel = cuda.CudaKernel("fake.cu", "fake_symbol", [])
+    try:
+        threads = [threading.Thread(target=kernel._load) for _ in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        cuda.KERNELS.pop("fake_symbol", None)
+    assert built == [("fake.cu",)]
