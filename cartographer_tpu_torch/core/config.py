@@ -1,13 +1,14 @@
-"""2D SLAM options with the reference's default values.
+"""SLAM options with the reference's default values.
 
-The subset of the JAX package's `core/config.py` that the port's 2D
-modules read: nested frozen dataclasses whose defaults replicate the
-reference's trajectory_builder_2d.lua, pose_graph.lua and map_builder.lua,
-plus the static capacities the device pipeline is sized by (`TpuOptions2D`,
-kept under its original name so that the `dataclasses.asdict` trees of the
-two packages share their keys). Options of features the port does not have
-are left out; the switches the constructors must refuse (`submaps.grid_type`,
-`use_trajectory_builder_3d`, `batch_scan_dispatch` and the trimmers) stay.
+The subset of the JAX package's `core/config.py` that the port's modules
+read: nested frozen dataclasses whose defaults replicate the reference's
+trajectory_builder_2d.lua, trajectory_builder_3d.lua, pose_graph.lua and
+map_builder.lua, plus the static capacities the device pipeline is sized by
+(`TpuOptions2D`, `TpuOptions3D`, kept under their original names so that the
+`dataclasses.asdict` trees of the two packages share their keys). Options of
+features the port does not have are left out; the switches the constructors
+must refuse (`submaps.grid_type`, `use_trajectory_builder_3d`,
+`batch_scan_dispatch` and the trimmers) stay.
 """
 
 from __future__ import annotations
@@ -114,6 +115,80 @@ class TrajectoryBuilder2DOptions:
     pose_extrapolator: PoseExtrapolatorOptions = _d(PoseExtrapolatorOptions)
     submaps: SubmapsOptions2D = _d(SubmapsOptions2D)
     tpu: TpuOptions2D = _d(TpuOptions2D)
+
+
+# ------------------------------------------------------- trajectory_builder_3d.lua
+
+MAX_3D_RANGE = 60.0
+
+
+@dataclasses.dataclass(frozen=True)
+class TpuOptions3D:
+    """Static capacities for the 3D pipeline."""
+
+    scan_capacity: int = 4096
+    filtered_capacity_high: int = 512
+    filtered_capacity_low: int = 1024
+    # Dense crop windows (cells per side) gathered from the paged grids for
+    # the matcher; they do not bound the submap's addressable extent.
+    high_grid_size: int = 256
+    low_grid_size: int = 192
+    # Paged submap grids: a pool of max_pages pages of page_size^3 voxels
+    # behind a page table of num_blocks^3 slots (128 * 16 * 0.1 m = 204.8 m
+    # addressable per side for the high-resolution grid).
+    page_size: int = 16
+    max_pages: int = 2048
+    num_blocks: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class CeresScanMatcherOptions3D:
+    occupied_space_weight_0: float = 1.0
+    occupied_space_weight_1: float = 6.0
+    translation_weight: float = 5.0
+    rotation_weight: float = 4e2
+    only_optimize_yaw: bool = False
+    max_num_iterations: int = 12
+    use_nonmonotonic_steps: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class RangeDataInserterOptions3D:
+    hit_probability: float = 0.55
+    miss_probability: float = 0.49
+    num_free_space_voxels: int = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class SubmapsOptions3D:
+    high_resolution: float = 0.10
+    high_resolution_max_range: float = 20.0
+    low_resolution: float = 0.45
+    num_range_data: int = 160
+    range_data_inserter: RangeDataInserterOptions3D = _d(RangeDataInserterOptions3D)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrajectoryBuilder3DOptions:
+    min_range: float = 1.0
+    max_range: float = MAX_3D_RANGE
+    voxel_filter_size: float = 0.15
+    high_resolution_adaptive_voxel_filter: AdaptiveVoxelFilterOptions = _d(
+        lambda: AdaptiveVoxelFilterOptions(max_length=2.0, min_num_points=150, max_range=15.0))
+    low_resolution_adaptive_voxel_filter: AdaptiveVoxelFilterOptions = _d(
+        lambda: AdaptiveVoxelFilterOptions(max_length=4.0, min_num_points=200,
+                                           max_range=MAX_3D_RANGE))
+    ceres_scan_matcher: CeresScanMatcherOptions3D = _d(CeresScanMatcherOptions3D)
+    motion_filter: MotionFilterOptions = _d(
+        lambda: MotionFilterOptions(max_time_seconds=0.5, max_distance_meters=0.1,
+                                    max_angle_radians=0.004))
+    rotational_histogram_size: int = 120
+    pose_extrapolator: PoseExtrapolatorOptions = _d(PoseExtrapolatorOptions)
+    submaps: SubmapsOptions3D = _d(SubmapsOptions3D)
+    # Skip scans whose gravity-removed IMU acceleration exceeds this
+    # [m/s^2]; 0 = off.
+    max_accel_skip: float = 0.0
+    tpu: TpuOptions3D = _d(TpuOptions3D)
 
 
 # ---------------------------------------------------------------- pose_graph.lua

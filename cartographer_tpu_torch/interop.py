@@ -18,11 +18,14 @@ import torch
 from cartographer_tpu_torch.core.config import (
     MapBuilderOptions,
     TrajectoryBuilder2DOptions,
+    TrajectoryBuilder3DOptions,
     TrajectoryBuilderOptions,
     from_dict,
 )
 from cartographer_tpu_torch.core.tensor import to_device
 from cartographer_tpu_torch.ops.grid_2d import Grid2D
+from cartographer_tpu_torch.ops.grid_3d import Grid3D
+from cartographer_tpu_torch.ops.paged_grid_3d import PagedGrid3D, PagedSubmapGrid3D
 from cartographer_tpu_torch.parallel.schur_spa import SchurSpaProblem2D
 
 
@@ -81,6 +84,67 @@ def options_from_dict(d: Dict[str, Any]) -> TrajectoryBuilder2DOptions:
     dropped."""
     return from_dict(TrajectoryBuilder2DOptions,
                      _strip(d, UNPORTED_SWITCHES, UNREAD_OPTIONS))
+
+
+# The JAX package's 3D options: switches of unported features (the online
+# correlative search, intensities, the IMU-based extrapolator, scan
+# accumulation) and options only they read.
+UNPORTED_3D_SWITCHES = {
+    "num_accumulated_range_data": 1,
+    "use_online_correlative_scan_matching": False,
+    "use_intensities": False,
+    "pose_extrapolator.use_imu_based": False,
+}
+UNREAD_3D_OPTIONS = (
+    "real_time_correlative_scan_matcher",
+    "ceres_scan_matcher.intensity_cost_function_options_0",
+    "submaps.range_data_inserter.intensity_threshold",
+    "pose_extrapolator.imu_based",
+    "imu_gravity_time_constant",
+    "tpu.ray_samples",
+)
+
+
+def options_3d_from_dict(d: Dict[str, Any]) -> TrajectoryBuilder3DOptions:
+    """TrajectoryBuilder3DOptions from `dataclasses.asdict` of the JAX
+    package's options of the same name; a switch of UNPORTED_3D_SWITCHES
+    that turns its feature on raises NotImplementedError."""
+    return from_dict(TrajectoryBuilder3DOptions,
+                     _strip(d, UNPORTED_3D_SWITCHES, UNREAD_3D_OPTIONS))
+
+
+def grid3d_from_numpy(log_odds: np.ndarray, known: np.ndarray, origin: np.ndarray,
+                      resolution: float, device) -> Grid3D:
+    return Grid3D(to_device(np.asarray(log_odds, np.float32), device),
+                  to_device(np.asarray(known, bool), device),
+                  to_device(np.asarray(origin, np.float32), device), float(resolution))
+
+
+def paged_grid_from_numpy(pages: np.ndarray, known: np.ndarray, page_table: np.ndarray,
+                          origin: np.ndarray, resolution: float, page_size: int,
+                          slots: Dict[Tuple[int, int, int], int], device
+                          ) -> PagedSubmapGrid3D:
+    """A PagedSubmapGrid3D holding the JAX package's pool, table and
+    allocation state (`PagedSubmapGrid3D.grid` fields and `_slots`)."""
+    page_table = np.asarray(page_table, np.int32)
+    paged = PagedSubmapGrid3D.__new__(PagedSubmapGrid3D)
+    paged.grid = PagedGrid3D(
+        to_device(np.asarray(pages, np.float32), device), to_device(np.asarray(known, bool), device),
+        to_device(page_table.copy(), device), to_device(np.asarray(origin, np.float32), device),
+        float(resolution), int(page_size))
+    paged._slots = {tuple(int(v) for v in k): int(s) for k, s in slots.items()}
+    paged._origin_host = np.asarray(origin, np.float32).copy()
+    paged._table_host = page_table.copy()
+    paged._scratch = None
+    paged.pages_allocated_last_insert = 0
+    return paged
+
+
+def paged_grid_to_numpy(paged: PagedSubmapGrid3D):
+    """-> (pages, known, page_table, origin, resolution, page_size, slots)."""
+    g = paged.grid
+    return (g.pages.cpu().numpy(), g.known.cpu().numpy(), g.page_table.cpu().numpy(),
+            g.origin.cpu().numpy(), g.resolution, g.page_size, dict(paged._slots))
 
 
 # The same for the trajectory and map-builder trees: switches of unported

@@ -1,14 +1,15 @@
 """Metric families with null-object defaults.
 
-The subset of the JAX package's `metrics` module that the port's 2D modules
+The subset of the JAX package's `metrics` module that the port's modules
 register (the RegisterMetrics of local_trajectory_builder_2d.cc,
-constraint_builder_2d.cc, pose_graph_2d.cc and global_trajectory_builder.cc):
+local_trajectory_builder_3d.cc, constraint_builder_2d.cc, pose_graph_2d.cc
+and global_trajectory_builder.cc):
 instrumentation costs nothing until a caller installs a collecting factory.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 
 class Counter:
@@ -47,6 +48,10 @@ class FamilyFactory:
 
     def new_histogram_family(self, name: str, description: str, boundaries):
         return _Family(Histogram)
+
+
+def exponential_boundaries(scale_factor: float, base: float, num: int) -> List[float]:
+    return [scale_factor * (base ** i) for i in range(num)]
 
 
 GLOBAL_FACTORY: FamilyFactory = FamilyFactory()

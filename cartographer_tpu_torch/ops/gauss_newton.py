@@ -2,7 +2,8 @@
 
 Counterpart of the JAX package's `ops/gauss_newton.py:lm_solve`, taking the
 residuals together with their Jacobian instead of differentiating a
-residual function. The JAX while_loop exits early at `function_tolerance`;
+residual function; `retract_fn` and `tangent_dim` carry manifold updates as
+in the JAX solver. The JAX while_loop exits early at `function_tolerance`;
 here the loop freezes every quantity once converged, which gives the same
 result without reading the flag on the host; on the CPU, where reading it
 costs nothing, the loop also stops there. The CUDA kernel of the 2D matcher
@@ -11,7 +12,7 @@ costs nothing, the loop also stops there. The CUDA kernel of the 2D matcher
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -19,6 +20,8 @@ import torch
 def lm_solve(
     residual_and_jacobian: Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]],
     x0: torch.Tensor,
+    retract_fn: Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]] = None,
+    tangent_dim: Optional[int] = None,
     num_iterations: int = 20,
     init_lambda: float = 1e-4,
     lambda_up: float = 4.0,
@@ -27,9 +30,19 @@ def lm_solve(
     function_tolerance: float = 1e-6,
     nonmonotonic: bool = False,
 ):
-    """Minimize 0.5 * ||r(x)||^2 over the flat vector x.
+    """Minimize 0.5 * ||r(x)||^2 over x.
 
-    Returns (x, final_cost, iterations) as tensors on x0's device."""
+    x is a flat vector updated by x + delta, or, with `retract_fn(x, delta)`
+    (a boxplus on a manifold, e.g. a pose with a quaternion), any tensor;
+    the Jacobian is then taken with respect to the `tangent_dim` components
+    of delta at delta = 0. Returns (x, final_cost, iterations) as tensors on
+    x0's device."""
+    if retract_fn is None:
+        retract_fn = torch.add
+        if tangent_dim is None:
+            tangent_dim = x0.shape[-1]
+    elif tangent_dim is None:
+        raise ValueError("tangent_dim required with a custom retract_fn")
 
     def cost(x):
         r, _ = residual_and_jacobian(x)
@@ -45,11 +58,13 @@ def lm_solve(
         if not x0.is_cuda and bool(done):
             break
         r, jac = residual_and_jacobian(x)
+        if jac.shape[-1] != tangent_dim:
+            raise ValueError(f"Jacobian has {jac.shape[-1]} columns, expected {tangent_dim}")
         h = jac.T @ jac
         g = jac.T @ r
         damped = h + lam * torch.diag(torch.clamp(torch.diagonal(h), min=min_diagonal))
         delta = -torch.linalg.solve_ex(damped, g)[0]
-        x_new = x + delta
+        x_new = retract_fn(x, delta)
         new_cost = cost(x_new)
         finite = torch.isfinite(delta).all() & torch.isfinite(new_cost)
         improved = (new_cost < current) & finite

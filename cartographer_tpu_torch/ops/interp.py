@@ -1,6 +1,8 @@
-"""Bicubic (Catmull-Rom) grid interpolation with its analytic gradient.
+"""Bicubic (Catmull-Rom) and trilinear grid interpolation with their
+analytic gradients.
 
-Counterpart of the JAX package's `ops/interp.py:interp_bicubic`: values sit
+Counterpart of the JAX package's `ops/interp.py:interp_bicubic` and
+`interp_trilinear`: values sit
 at cell centers (cell i at i + 0.5), taps clamp to the grid border. The JAX
 package differentiates through the interpolation with jax.jacfwd; here the
 gradient is the Catmull-Rom derivative written out, with the floored cell
@@ -73,4 +75,44 @@ def interp_bicubic(grid: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     """Bicubic interpolation of `grid` (S0, S1) at continuous cell
     coordinates `coords` (..., 2)."""
     value, _ = bicubic_with_gradient(lambda ii, jj: grid[ii, jj], grid.shape, coords)
+    return value
+
+
+def trilinear_with_gradient(value_at: Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
+                                               torch.Tensor],
+                            shape: Tuple[int, int, int], coords: torch.Tensor):
+    """Trilinear interpolation at `coords` (..., 3) of the grid whose cell
+    values `value_at(ii, jj, kk)` returns (InterpolatedGrid::GetProbability);
+    -> (value (...), d value / d coords (..., 3)).
+
+    Values sit at cell centers; the corner indices clamp to the border, the
+    weights do not, so the gradient across a clamped axis is zero only where
+    both corners coincide, as under jax.jacfwd."""
+    p = coords - 0.5
+    base = torch.floor(p)
+    f = p - base
+    base = base.long()
+    corners = torch.arange(2, device=coords.device)
+    idx = [(base[..., a, None] + corners).clamp(0, shape[a] - 1) for a in range(3)]
+    g = value_at(idx[0][..., :, None, None], idx[1][..., None, :, None],
+                 idx[2][..., None, None, :])  # (..., 2, 2, 2): all 8 corners at once
+    w = [(1.0 - f[..., a], f[..., a]) for a in range(3)]
+    val = torch.zeros_like(f[..., 0])
+    grad = [torch.zeros_like(val) for _ in range(3)]
+    for di in range(2):
+        for dj in range(2):
+            for dk in range(2):
+                c = g[..., di, dj, dk]
+                val = val + w[0][di] * w[1][dj] * w[2][dk] * c
+                si, sj, sk = (2.0 * d - 1.0 for d in (di, dj, dk))
+                grad[0] = grad[0] + si * (w[1][dj] * w[2][dk]) * c
+                grad[1] = grad[1] + sj * (w[0][di] * w[2][dk]) * c
+                grad[2] = grad[2] + sk * (w[0][di] * w[1][dj]) * c
+    return val, torch.stack(grad, dim=-1)
+
+
+def interp_trilinear(grid: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """Trilinear interpolation of `grid` (S0, S1, S2) at continuous cell
+    coordinates `coords` (..., 3)."""
+    value, _ = trilinear_with_gradient(lambda ii, jj, kk: grid[ii, jj, kk], grid.shape, coords)
     return value

@@ -1,6 +1,8 @@
-"""A simulated 2D LiDAR robot in a multi-room floor plan (numpy only).
+"""A simulated LiDAR robot in a multi-room floor plan (numpy only): a 2D
+scanner, and a spinning multi-ring 3D sensor with an IMU in the same plan
+extruded to a hall.
 
-Used to drive the 2D frontend end to end where no recorded data is at
+Used to drive the frontends end to end where no recorded data is at
 hand: a floor plan of wall segments, a closed smooth path through its
 rooms driven with a speed ramp from rest, and a rotating range sensor whose
 beams are fired at successive times along the path (so scans carry the
@@ -15,10 +17,10 @@ from typing import List, Tuple
 import numpy as np
 
 
-def floor_plan() -> np.ndarray:
-    """Wall segments (W, 4) [x0, y0, x1, y1] of a 36 m x 20 m floor: outer
-    walls, a central block of rooms, dividing walls with doorways where the
-    path crosses them, and pillars."""
+def floor_plan(scale: float = 1.0) -> np.ndarray:
+    """Wall segments (W, 4) [x0, y0, x1, y1] of a 36 m x 20 m floor (times
+    `scale`): outer walls, a central block of rooms, dividing walls with
+    doorways where the path crosses them, and pillars."""
     walls: List[Tuple[float, float, float, float]] = []
 
     def box(x0, y0, x1, y1):
@@ -35,7 +37,7 @@ def floor_plan() -> np.ndarray:
                    (16.5, 0.0), (-9.5, -8.5), (9.5, 8.5)):
         s = 0.2 + 0.2 * rng.rand()
         box(cx - s, cy - s, cx + s, cy + s)
-    return np.asarray(walls, np.float64)
+    return scale * np.asarray(walls, np.float64)
 
 
 @dataclasses.dataclass
@@ -72,17 +74,19 @@ class Path:
 
 @dataclasses.dataclass
 class Robot:
-    """Speed ramp from rest to `speed` m/s over `ramp` seconds along `path`."""
+    """Speed ramp from rest to `speed` m/s over `ramp` seconds along `path`,
+    starting `start` metres of arc into it."""
 
     path: Path
     speed: float
     ramp: float
+    start: float = 0.0
 
     def arc_at(self, t: np.ndarray) -> np.ndarray:
         t = np.maximum(np.asarray(t, np.float64), 0.0)
         ramping = 0.5 * self.speed / self.ramp * t * t
         cruising = 0.5 * self.speed * self.ramp + self.speed * (t - self.ramp)
-        return np.where(t < self.ramp, ramping, cruising)
+        return self.start + np.where(t < self.ramp, ramping, cruising)
 
     def pose_at(self, t):
         return self.path.pose_at(self.arc_at(t))
@@ -191,3 +195,76 @@ def synthetic_pose_graph(num_submaps: int, num_nodes: int, constraint_slots: int
         nn_rot_weight=np.full(N - 1, 1e5, np.float32), nn_valid=np.ones(N - 1, bool),
         submap_fixed=sub_fixed, node_fixed=np.zeros(N, bool))
     return arrays, truth_s, truth_n
+
+
+# ---------------------------------------------------------------- 3D
+
+WALL_HEIGHT = 3.0  # the floor plan's walls and pillars, floor to ceiling
+SENSOR_HEIGHT = 1.0  # the spinning sensor above the floor
+GRAVITY = 9.81
+
+
+def simulate_scans_3d(num_scans: int, rings: int = 16, azimuths: int = 256,
+                      period: float = 0.1, speed: float = 1.4, ramp: float = 6.0,
+                      max_range: float = 60.0, elevation: float = np.radians(15.0),
+                      noise: float = 0.01, imu_rate: float = 100.0, scale: float = 0.5,
+                      start: float = 3.0, seed: int = 0):
+    """A spinning multi-ring LiDAR and an IMU carried through the floor
+    plan extruded to a hall `WALL_HEIGHT` high with floor and ceiling.
+
+    The sensor, level and `SENSOR_HEIGHT` above the floor, turns once per
+    `period`; at each of `azimuths` steps all `rings` beams (elevations from
+    -`elevation` to +`elevation`) fire at the same time, so a scan has
+    rings * azimuths returns with per-point times. The robot follows the
+    closed path from rest up to `speed`, from `start` metres into it: in the
+    path's first bend, where its heading, and with it the local frame of a
+    frontend that starts there, is oblique to the walls. (Walls along the
+    axes of the voxel grid put every return of a wall at the same offset
+    within its cell, which biases the interpolated match toward the cell
+    centers.) `scale` shrinks the floor plan: at half scale walls are near
+    enough to dominate the returns. At full size (`scale=1.0`) most returns
+    are rings on the floor and ceiling, which move with the sensor, and the
+    default frontend (LM refinement of a constant-velocity prediction, no
+    correlative search) falls behind the robot along the corridors, in this
+    port as in the reference (tests/test_torch_local_slam_3d.py).
+
+    Returns (scans, imu, truth): scans as (time [s] of the last beam, points
+    (rings * azimuths, 3) each in the sensor frame at its own firing time,
+    times relative to the last beam); imu as (time, linear acceleration
+    (3,), angular velocity (3,)) at `imu_rate` from 0.05 s before the first
+    beam, carrying gravity and the path's yaw rate; truth (num_scans, 3)
+    [x, y, yaw] at each scan's time. Beams that hit nothing within
+    max_range come back at max_range + 1 m."""
+    rng = np.random.RandomState(seed)
+    walls = floor_plan(scale)
+    robot = Robot(Path.superellipse(11.0 * scale, 7.0 * scale), speed, ramp, start)
+    step = np.repeat(np.arange(azimuths), rings)
+    rel = (-period + period * (step + 1) / azimuths)  # firing times, the last at 0
+    azimuth = -np.pi + 2.0 * np.pi * step / azimuths
+    elev = np.tile(np.linspace(-elevation, elevation, rings), azimuths)
+    cos_e, sin_e, tan_e = np.cos(elev), np.sin(elev), np.tan(elev)
+    scans, truth = [], []
+    for i in range(num_scans):
+        t_scan = (i + 1) * period
+        xy, yaw = robot.pose_at(t_scan + rel)
+        horizontal = raycast(walls, xy, yaw + azimuth, max_range)  # to the first wall
+        wall_z = SENSOR_HEIGHT + horizontal * tan_e
+        with np.errstate(divide="ignore"):
+            ranges = np.where(wall_z < 0.0, SENSOR_HEIGHT / -sin_e,
+                              np.where(wall_z > WALL_HEIGHT,
+                                       (WALL_HEIGHT - SENSOR_HEIGHT) / sin_e,
+                                       horizontal / cos_e))
+        ranges = np.where(np.isfinite(ranges) & (ranges <= max_range),
+                          ranges + noise * rng.randn(ranges.shape[0]), max_range + 1.0)
+        points = np.stack([ranges * cos_e * np.cos(azimuth), ranges * cos_e * np.sin(azimuth),
+                           ranges * sin_e], -1).astype(np.float32)
+        scans.append((t_scan, points, rel.astype(np.float32)))
+        truth.append([xy[-1, 0], xy[-1, 1], yaw[-1]])
+    imu = []
+    dt = 1.0 / imu_rate
+    for k in range(int(round((num_scans * period + 0.05) * imu_rate)) + 1):
+        t = -0.05 + k * dt
+        (_, yaw0), (_, yaw1) = robot.pose_at(t - 0.5 * dt), robot.pose_at(t + 0.5 * dt)
+        imu.append((t, np.array([0.0, 0.0, GRAVITY]),
+                    np.array([0.0, 0.0, float(yaw1 - yaw0) / dt])))
+    return scans, imu, np.asarray(truth)

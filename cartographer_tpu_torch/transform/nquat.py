@@ -31,10 +31,18 @@ def conjugate(q):
     return np.array([q[0], -q[1], -q[2], -q[3]])
 
 
+def _cross(a, b):
+    """Cross product of two 3-vectors; np.cross spends tens of microseconds
+    on axis bookkeeping, which the IMU-rate callers pay per message."""
+    return np.array([a[1] * b[2] - a[2] * b[1],
+                     a[2] * b[0] - a[0] * b[2],
+                     a[0] * b[1] - a[1] * b[0]])
+
+
 def rotate(q, v):
     qv = q[1:4]
-    t = 2.0 * np.cross(qv, v)
-    return v + q[0] * t + np.cross(qv, t)
+    t = 2.0 * _cross(qv, v)
+    return v + q[0] * t + _cross(qv, t)
 
 
 def from_axis_angle(aa):
@@ -63,10 +71,10 @@ def from_two_vectors(a, b):
         return IDENTITY.copy()
     a = a / an
     b = b / bn
-    c = np.cross(a, b)
+    c = _cross(a, b)
     w = 1.0 + np.dot(a, b)
     if w < 1e-8:
-        ortho = np.cross(a, [1.0, 0.0, 0.0] if abs(a[0]) < 0.9 else [0.0, 1.0, 0.0])
+        ortho = _cross(a, [1.0, 0.0, 0.0] if abs(a[0]) < 0.9 else [0.0, 1.0, 0.0])
         return normalize(np.array([0.0, *ortho]))
     return normalize(np.array([w, *c]))
 

@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `cartographer_tpu_torch/csrc/` and runs,
-on the card, at full width (the reference's default 2D options):
+on the card, at full width (the reference's default 2D and 3D options):
 
 1. the frontend kernels K1-K4, each against its plain PyTorch twin;
 2. `LocalTrajectoryBuilder2D` with the online correlative matcher on over
@@ -17,7 +17,18 @@ on the card, at full width (the reference's default 2D options):
    (default pose-graph options, background searches): K1-K8 launched, at
    least 100 loop closures and 3 solves, optimized poses within 0.25 m of
    the truth and no worse than the frontend's; the first loop-closure pairs
-   again on the CPU's plain path; one certified global localization.
+   again on the CPU's plain path; one certified global localization;
+5. the 3D frontend, `LocalTrajectoryBuilder3D`, over 400 simulated scans of
+   a 16-ring sensor with an IMU in the same floor plan extruded to a hall
+   (paged submaps, dense crops of 256^3 and 192^3 per scan): K2 and K9-K12
+   launched, one blocking copy per scan, accuracy against ground truth, one
+   finished submap with its dense crops, the first scans again on the
+   CPU's plain path;
+6. the 3D kernels K9-K12, each against its plain twin, on that run's pools,
+   windows and clouds;
+7. the 3D frontend once more over the hall at full size with the robot's
+   heading along the walls, where the LM-only matcher tracks worst: its
+   error and its page count are reported, not limited.
 
 Prints a `kernels` JSON line, a timing JSON line, the card's name and power
 limit, and as its last line `{"ok": true, "device": {...}}`. Any failed
@@ -43,6 +54,13 @@ CPU_SCANS = 50
 PROFILED_SCANS = 30
 GLOBAL_SCANS = 900  # three laps of the floor plan's path
 CPU_PAIRS = 3
+NUM_SCANS_3D = 400  # one submap finishes at 320 insertions
+CPU_SCANS_3D = 20
+TIME_OFFSET_US = 10_000_000  # the simulated IMU starts before t = 0
+KERNELS_2D = ("scan_preprocess_2d", "voxel_filter", "scan_matcher_2d", "insert_2d",
+              "correlative_2d", "bnb_pyramid", "bnb_score", "schur_spa_2d")
+KERNELS_3D = ("voxel_filter", "paged_insert_3d", "paged_crop_3d", "scan_matcher_3d",
+              "rot_histogram", "rot_histogram_rotate")
 
 
 def _fail(msg):
@@ -394,7 +412,7 @@ def _slice_phase(torch, dev):
     if worst[0] > 0.02 or worst[1] > 0.01:
         _fail("card and CPU plain path disagree")
 
-    profile = _profile(torch, builder, profiled)
+    profile = _profile(torch, lambda d: builder.add_range_data("laser", d), profiled)
     steady = walls[10:]
     return dict(
         profile=profile,
@@ -627,7 +645,7 @@ def _global_phase(torch, dev):
           f"{inter} loop closures from {cb.pairs_matched} matched pairs, {solves} solves, "
           f"{wall:.1f} s wall; constraint search {cb.match_seconds:.2f} s, solves "
           f"{pg.solve_seconds:.2f} s; launches {launches}")
-    _check_launched(launches, list(launches), "global SLAM")
+    _check_launched(launches, KERNELS_2D, "global SLAM")
     if inter < 100 or solves < 3:
         _fail(f"global SLAM ran {inter} loop closures and {solves} solves (need >= 100, >= 3)")
     # Node (trajectory, index) -> scan index: scan i is stamped (i + 1) * 0.1 s.
@@ -696,15 +714,395 @@ def _global_phase(torch, dev):
                 global_localization_beam=beam)
 
 
-def _profile(torch, builder, data):
+def _events_3d(num_scans, **scene):
+    """Simulated 3D scans as (IMU messages up to the scan's time that no
+    earlier scan took, the scan), and the ground truth in the first pose's
+    frame; `scene` goes to `simulate_scans_3d`."""
+    from cartographer_tpu_torch.sensor.data import ImuData, TimedPointCloudData
+    from cartographer_tpu_torch.simulation import relative_to_first, simulate_scans_3d
+
+    scans, imu, truth = simulate_scans_3d(num_scans, seed=0, **scene)
+    stamp = lambda t: TIME_OFFSET_US + int(round(t * 1e6))  # noqa: E731
+    events, k = [], 0
+    for ts, pts, rel in scans:
+        batch = []
+        while k < len(imu) and imu[k][0] <= ts:
+            batch.append(ImuData(time=stamp(imu[k][0]), linear_acceleration=imu[k][1],
+                                 angular_velocity=imu[k][2]))
+            k += 1
+        events.append((batch, TimedPointCloudData(
+            time=stamp(ts), origin=np.zeros(3, np.float32), ranges=pts, times=rel)))
+    return events, relative_to_first(truth)
+
+
+def _feed_3d(builder, event):
+    for message in event[0]:
+        builder.add_imu_data(message)
+    return builder.add_range_data("points", event[1])
+
+
+def _drive_3d(torch, builder, events, gt, label):
+    """Feeds the events to the builder, counting the synchronizing
+    operations; checks that no scan is dropped and that each makes one
+    blocking copy. Returns the poses [x, y, z, yaw], their position and yaw
+    errors against the truth, the finished submaps, the wall seconds of each
+    `add_range_data` and the number of inserted scans."""
+    from cartographer_tpu_torch.transform import nquat
+
+    n = len(events)
+    est, finished, walls, inserted = [], [], [], 0
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for event in events:
+            for message in event[0]:
+                builder.add_imu_data(message)
+            t0 = time.monotonic()
+            r = builder.add_range_data("points", event[1])
+            walls.append(time.monotonic() - t0)
+            if r is None:
+                _fail(f"{label}: the 3D frontend dropped scan {len(est)}")
+            est.append([*r.local_pose_translation, nquat.get_yaw(r.local_pose_rotation)])
+            if r.insertion_result is not None:
+                inserted += 1
+                for f in r.insertion_result.finished_submaps:
+                    _ = (f.high_grid, f.low_grid)  # the dense crops of the compacted pools
+                    finished.append(f)
+    torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    print(f"{label}: {n} scans, {inserted} inserted, {builder.device_fetches} fetches, "
+          f"{syncs} synchronizing operations, {len(finished)} finished submaps")
+    if builder.device_fetches != n or syncs != n:
+        _fail(f"{label}: expected one blocking copy per scan, got {syncs} synchronizing "
+              f"operations for {n} scans")
+    est = np.asarray(est)
+    if not np.isfinite(est).all():
+        _fail(f"{label}: non-finite poses")
+    offset = np.concatenate([est[:, :2] - gt[:n, :2], est[:, 2:3]], 1)
+    yaw_err = np.abs((est[:, 3] - gt[:n, 2] + np.pi) % (2 * np.pi) - np.pi)
+    return est, offset, yaw_err, finished, walls, inserted
+
+
+def _slice_phase_3d(torch, dev):
+    """The 3D frontend on the card at the default options, over simulated
+    scans of a 16-ring sensor with an IMU in the floor plan's hall."""
+    from cartographer_tpu_torch.core.config import TrajectoryBuilder3DOptions
+    from cartographer_tpu_torch.mapping.local_trajectory_builder_3d import (
+        LocalTrajectoryBuilder3D,
+    )
+    from cartographer_tpu_torch.ops import cuda
+    from cartographer_tpu_torch.transform import nquat
+
+    opts, n = TrajectoryBuilder3DOptions(), NUM_SCANS_3D
+    t_sim = time.monotonic()
+    events, gt = _events_3d(n + PROFILED_SCANS + 1)
+    print(f"3D frontend: {time.monotonic() - t_sim:.1f} s to simulate {len(events)} scans")
+
+    builder = LocalTrajectoryBuilder3D(opts, ["points"], device=dev)
+    cuda.reset_launch_counts()
+    est, offset, yaw_err, finished, walls, inserted = _drive_3d(
+        torch, builder, events[:n], gt, "3D frontend")
+    launches = cuda.launch_counts()
+    print(f"3D frontend: launches {launches}")
+    _check_launched(launches, KERNELS_3D, "3D frontend")
+    active = builder._active_submaps.submaps
+    if len(finished) < 1 or len(active) != 2 or active[1].num_range_data == 0:
+        _fail(f"{len(finished)} submaps finished, {len(active)} active: the window did not "
+              f"rotate")
+    f = finished[0]
+    crops = (tuple(f.high_grid.log_odds.shape), tuple(f.low_grid.log_odds.shape))
+    known = (int(f.high_grid.known.sum()), int(f.low_grid.known.sum()))
+    want = ((opts.tpu.high_grid_size,) * 3, (opts.tpu.low_grid_size,) * 3)
+    print(f"3D frontend: finished submap of {f.num_range_data} scans: "
+          f"{f.high_paged.num_allocated} high and {f.low_paged.num_allocated} low pages of "
+          f"{opts.tpu.max_pages}, pools compacted to {f.high_paged.grid.max_pages} and "
+          f"{f.low_paged.grid.max_pages} pages, crops {crops} with {known} known cells, "
+          f"histogram sum {f.histogram.sum():.1f}")
+    if crops != want or min(known) == 0 or not f.histogram.sum() > 0:
+        _fail("the finished submap's dense crops or histogram are empty")
+    errors = np.linalg.norm(offset, axis=1)
+    print(f"3D frontend: mean error {errors.mean():.4f} m (max {errors.max():.4f}), mean yaw "
+          f"error {yaw_err.mean():.5f} rad (max {yaw_err.max():.5f}) against ground truth "
+          f"(limits 0.25 m, 0.02 rad)")
+    if not (errors.mean() <= 0.25 and yaw_err.mean() <= 0.02):
+        _fail("the 3D frontend lost the ground truth")
+    # Where the error sits: the mean (x, y, z) offset from the truth while the first
+    # submap is matched against, and after matching has moved to the second.
+    switch = 2 * opts.submaps.num_range_data
+    offsets = [offset[min(20, switch // 2):switch].mean(0).tolist(),
+               offset[switch + 20:].mean(0).tolist()]
+    print(f"3D frontend: mean offset from the truth {np.round(offsets[0], 4).tolist()} m over "
+          f"scans 20-{switch}, {np.round(offsets[1], 4).tolist()} m from scan {switch + 20} on")
+
+    # The first scans again on the CPU's plain path, with the same permutations.
+    def card_permutation(seed, size):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randperm(size, generator=g, device=dev, dtype=torch.int32).cpu().numpy()
+
+    t_cpu = time.monotonic()
+    cpu = LocalTrajectoryBuilder3D(opts, ["points"], device="cpu",
+                                   permutation_fn=card_permutation)
+    worst = np.zeros(2)
+    for i, event in enumerate(events[:CPU_SCANS_3D]):
+        r = _feed_3d(cpu, event)
+        c = np.array([*r.local_pose_translation, nquat.get_yaw(r.local_pose_rotation)])
+        worst = np.maximum(worst, [np.linalg.norm(c[:3] - est[i, :3]), abs(c[3] - est[i, 3])])
+    print(f"3D frontend: first {CPU_SCANS_3D} scans against the CPU plain path: max "
+          f"{worst[0]:.3g} m, {worst[1]:.3g} rad (tolerance 0.02 m, 0.01 rad), "
+          f"{time.monotonic() - t_cpu:.1f} s")
+    if worst[0] > 0.02 or worst[1] > 0.01:
+        _fail("card and CPU plain path disagree in 3D")
+
+    profile = _profile(torch, lambda e: _feed_3d(builder, e), events[n:n + PROFILED_SCANS],
+                       "3D profile")
+    # One more scan, keeping what its step read and left on the card (the dense
+    # windows, the packed result, the insertion's tensors) for the kernel phase.
+    step, kept = builder._fused_step, []
+
+    def keeping_step(high_grid, low_grid, upload, perm):
+        out = step(high_grid, low_grid, upload, perm)
+        kept.append(((high_grid, low_grid), *out))
+        return out
+
+    builder._fused_step = keeping_step
+    _feed_3d(builder, events[n + PROFILED_SCANS])
+    del builder._fused_step
+    steady = walls[10:]
+    return dict(
+        builder=builder, last_step=kept[0], profile=profile, scans=n, inserted=inserted,
+        finished_submaps=len(finished), mean_error_m=float(errors.mean()),
+        mean_yaw_error_rad=float(yaw_err.mean()),
+        mean_offset_m=offsets,
+        frontend_3d_builder_scans_per_sec=len(steady) / sum(steady),
+        host_seconds=builder.host_seconds, device_seconds=builder.device_seconds,
+        allocator_ms_per_inserted_scan=builder.allocator_seconds * 1e3 / max(inserted, 1),
+        new_pages_per_inserted_scan=builder.pages_allocated / max(inserted, 1),
+        finished_submap_pages=[f.high_paged.num_allocated, f.low_paged.num_allocated],
+        launches=launches, lm_iterations_per_scan=float(np.mean(builder.lm_iterations[1:n])),
+        cpu_agreement=[float(worst[0]), float(worst[1])])
+
+
+def _full_hall_phase_3d(torch, dev):
+    """The 3D frontend again, over the hall at the floor plan's full size
+    (36 m x 20 m) from the start of the path, where the robot's heading,
+    and with it the local frame and the voxel grids, lie along the walls.
+    The default LM-only matcher has nothing but the constant-velocity
+    prediction along a corridor's axis there, so this run's error against
+    the truth is reported and not limited; what is checked is that every
+    scan is placed with one blocking copy and that the page pools hold a
+    submap of this hall."""
+    from cartographer_tpu_torch.core.config import TrajectoryBuilder3DOptions
+    from cartographer_tpu_torch.mapping.local_trajectory_builder_3d import (
+        LocalTrajectoryBuilder3D,
+    )
+
+    opts, n = TrajectoryBuilder3DOptions(), NUM_SCANS_3D
+    events, gt = _events_3d(n, scale=1.0, start=0.0)
+    builder = LocalTrajectoryBuilder3D(opts, ["points"], device=dev)
+    est, offset, yaw_err, finished, walls, inserted = _drive_3d(
+        torch, builder, events, gt, "3D full-size hall")
+    errors = np.linalg.norm(offset, axis=1)
+    if len(finished) < 1:
+        _fail("3D full-size hall: no submap finished")
+    pages = [finished[0].high_paged.num_allocated, finished[0].low_paged.num_allocated]
+    result = dict(
+        scans=n, inserted=inserted, mean_error_m=float(errors.mean()),
+        max_error_m=float(errors.max()), mean_yaw_error_rad=float(yaw_err.mean()),
+        error_by_100_scans_m=[float(errors[i:i + 100].mean()) for i in range(0, n, 100)],
+        final_offset_m=offset[-20:].mean(0).tolist(), finished_submap_pages=pages,
+        pool_pages=opts.tpu.max_pages, scans_per_sec=len(walls[10:]) / sum(walls[10:]))
+    print("3D full-size hall (reported, no limit on the error): " + json.dumps(result))
+    return result
+
+
+def _kernel_phase_3d(torch, dev, builder, last_step):
+    """K9-K12 against their twins on the card, on the pools, windows and
+    clouds of the 3D run's last scan (default widths): `last_step` is that
+    scan's (dense windows, packed result, insertion tensors)."""
+    import dataclasses
+
+    from cartographer_tpu_torch.mapping.local_trajectory_builder_3d import unpack_step_result
+    from cartographer_tpu_torch.ops import paged_grid_3d, rot_histogram, scan_matcher_3d
+    from cartographer_tpu_torch.sensor import voxel_filter
+    from cartographer_tpu_torch.sensor.point_cloud import PointCloud
+    from cartographer_tpu_torch.transform import quaternion as quat
+
+    opts = builder._options
+    rows = {}
+    (high_grid, low_grid), packed, (est_t, local_points, keep, in_high) = last_step
+    bins = opts.rotational_histogram_size
+    u = unpack_step_result(packed, bins, builder._caps)
+    host = unpack_step_result(packed.cpu().numpy(), bins, builder._caps)
+    n = builder._caps[0]
+    B = opts.tpu.page_size
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+
+    # K2 at the shapes of the 3D step: 4096 points, 3D keys, both searches.
+    perm = torch.randperm(n, generator=torch.Generator(device=dev).manual_seed(5), device=dev,
+                          dtype=torch.int32)
+    m = voxel_filter.voxel_filter_mask(local_points, keep, opts.voxel_filter_size, perm)
+    mism = int((m != voxel_filter.voxel_filter_mask_plain(local_points, keep,
+                                                          opts.voxel_filter_size, perm)).sum())
+    centered = (local_points - est_t).contiguous()
+    for f in (opts.high_resolution_adaptive_voxel_filter,
+              opts.low_resolution_adaptive_voxel_filter):
+        a = voxel_filter.adaptive_voxel_filter(
+            PointCloud(centered, keep, torch.zeros(n, device=dev)), f.max_length,
+            f.min_num_points, f.max_range, perm).mask
+        b = voxel_filter.adaptive_voxel_filter_mask_plain(centered, keep, f.max_length,
+                                                          f.min_num_points, f.max_range, perm)
+        mism += int((a != (b & keep)).sum())
+    if mism:
+        _fail(f"K2 (3D keys, {n} points) differs from the plain twin in {mism} points")
+    print(f"K2 voxel_filter at 3D shapes ({n} points): masks equal to the plain twin")
+
+    # K10: the two windows of a scan, around the last pose.
+    center = host["translation"].astype(np.float32)
+    submaps = builder._active_submaps.submaps
+    windows = ((submaps[0].high_paged, opts.tpu.high_grid_size),
+               (submaps[0].low_paged, opts.tpu.low_grid_size))
+    differ, read_bytes, gathers = 0, 0, []
+    for paged, size in windows:
+        got = paged.crop_dense(center, size)
+        ref = paged_grid_3d.crop_dense_plain(paged.grid, t(center), size)
+        differ += int((got.log_odds != ref.log_odds).sum() + (got.known != ref.known).sum()
+                      + (got.origin != ref.origin).sum())
+        start = (paged.grid.world_to_cell(t(center)).cpu().numpy() - size // 2)
+        lo, hi = start // B, (start + size - 1) // B + 1
+        nb = paged.grid.num_blocks
+        lo, hi = np.clip(lo, 0, nb), np.clip(hi, 0, nb)
+        table = paged.grid.page_table[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]]
+        pages = table[table >= 0].long()
+        gathers.append((paged.grid, pages))
+        read_bytes += int(pages.numel()) * B ** 3 * 5 + int(table.numel()) * 4
+        del got, ref
+    if differ:
+        _fail(f"K10 crops differ from the plain twin in {differ} cells (tolerance 0)")
+    print(f"K10 paged_crop_3d: {windows[0][1]}^3 and {windows[1][1]}^3 windows, 0 differing "
+          f"cells, {[int(p.numel()) for _, p in gathers]} pages under them")
+    written = sum(size ** 3 * 5 + 12 for _, size in windows)
+    cells = sum(size ** 3 for _, size in windows)
+    rows["paged_crop_3d"] = dict(
+        replaces="cartographer_tpu/ops/paged_grid_3d.py:287", max_abs_err=float(differ),
+        ms=_cuda_ms(lambda: [p.crop_dense(center, s) for p, s in windows]),
+        plain_ms=_cuda_ms(lambda: [paged_grid_3d.crop_dense_plain(p.grid, t(center), s)
+                                   for p, s in windows], reps=3, warmup=1),
+        bound=_bound(written + read_bytes, cells * 20),
+        # Advanced indexing gathers the windows' pages; it does not assemble them.
+        library_ms=_cuda_ms(lambda: [(g.pages[p], g.known[p]) for g, p in gathers]))
+
+    # K9: the four insertions of a scan, on clones for the twin.
+    ins = opts.submaps.range_data_inserter
+    args = (ins.hit_probability, ins.miss_probability, ins.num_free_space_voxels)
+    jobs = []
+    for submap in submaps:
+        for paged, mask_t, mask_h in ((submap.high_paged, in_high, host["high_range_mask"]),
+                                      (submap.low_paged, keep, host["local_mask"])):
+            twin = dataclasses.replace(paged.grid, pages=paged.grid.pages.clone(),
+                                       known=paged.grid.known.clone())
+            paged.insert_range_data(center, host["local_points"], mask_h, *args,
+                                    device_tensors=(est_t, local_points, mask_t))
+            paged_grid_3d.insert_paged_plain(twin, est_t, local_points, mask_t, *args)
+            jobs.append((paged, mask_t, twin))
+    differ = sum(int((p.grid.pages != w.pages).sum() + (p.grid.known != w.known).sum())
+                 for p, _, w in jobs)
+    if differ:
+        _fail(f"K9 pools differ from the plain twin in {differ} cells (tolerance 0)")
+    lins = [p._scratch.cells[p._scratch.cells >= 0] for p, _, _ in jobs]
+    touched = [int(torch.unique(x).numel()) for x in lins]
+    print(f"K9 paged_insert_3d: 4 pools of {opts.tpu.max_pages} x {B}^3, 0 differing cells, "
+          f"{touched} cells touched")
+    marks = [torch.zeros(p.grid.pages.numel(), dtype=torch.bool, device=dev)
+             for p, _, _ in jobs]
+    ones = [torch.ones(x.shape[0], dtype=torch.bool, device=dev) for x in lins]
+    per = ins.num_free_space_voxels + 1
+    rows["paged_insert_3d"] = dict(
+        replaces="cartographer_tpu/ops/paged_grid_3d.py:235", max_abs_err=float(differ),
+        ms=_cuda_ms(lambda: [paged_grid_3d.insert_paged(p.grid, est_t, local_points, mk, *args,
+                                                        p._scratch) for p, mk, _ in jobs]),
+        plain_ms=_cuda_ms(lambda: [paged_grid_3d.insert_paged_plain(
+            w, est_t, local_points, mk, *args) for _, mk, w in jobs], reps=3, warmup=1),
+        bound=_bound(sum(c * 10 for c in touched) + 4 * (n * 13 + 12 + n * per * 4),
+                     4 * n * per * 40),
+        # index_put_ sets the marks of the candidate cells; it applies nothing.
+        library_ms=_cuda_ms(lambda: [mk.index_put_((x,), o)
+                                     for mk, x, o in zip(marks, lins, ones)]))
+    del marks, jobs
+
+    # K11: the match from a pose 5 cm and 0.6 degrees off the scan's own.
+    gn = builder._gn_params
+    q0 = quat.normalize(quat.multiply(u["rotation"], quat.from_axis_angle(
+        t(np.float32([0.004, -0.003, 0.01])))))
+    x0 = torch.cat([u["translation"] + t(np.float32([0.04, -0.03, 0.02])), q0])
+    margs = (high_grid, low_grid, u["high_points"].contiguous(), u["high_mask"],
+             u["low_points"].contiguous(), u["low_mask"], x0, x0[0:3].clone(), gn)
+    xk, ck, itk = scan_matcher_3d.lm_match_3d(*margs)
+    xp, cp, itp = scan_matcher_3d._match_plain(*margs)
+    err_t = float((xk[0:3] - xp[0:3]).abs().max())
+    dq = quat.multiply(quat.conjugate(xp[3:7]), xk[3:7])
+    err_r = float(2.0 * torch.asin(dq[1:4].norm().clamp(max=1.0)))
+    rel_cost = abs(float(ck) - float(cp)) / max(abs(float(cp)), 1e-30)
+    moved = float((xk[0:3] - x0[0:3]).norm())
+    iters = int(itk)
+    valid = (int(u["high_mask"].sum()), int(u["low_mask"].sum()))
+    print(f"K11 scan_matcher_3d: {valid} points, pose err {err_t:.3g} m, {err_r:.3g} rad "
+          f"(tolerance 1e-4 each), cost rel err {rel_cost:.3g} (rtol 1e-4), {iters} iterations "
+          f"(plain {int(itp)}), moved {moved:.4f} m")
+    if err_t > 1e-4 or err_r > 1e-4 or rel_cost > 1e-4 or not moved > 1e-3:
+        _fail("K11 differs from the plain twin")
+    passes = 1 + 2 * iters
+    rows["scan_matcher_3d"] = dict(
+        replaces="cartographer_tpu/ops/scan_matcher_3d.py:61", max_abs_err=max(err_t, err_r),
+        ms=_cuda_ms(lambda: scan_matcher_3d.lm_match_3d(*margs)),
+        plain_ms=_cuda_ms(lambda: scan_matcher_3d._match_plain(*margs), reps=3, warmup=1),
+        bound=_bound(sum(valid) * (13 + 8 * 5) + 44, passes * sum(valid) * 8 * 40),
+        library_ms=None)
+
+    # K12: the histogram of the high-resolution cloud, and its rotation.
+    pts, mask = u["high_points"].contiguous(), u["high_mask"]
+    got = rot_histogram.compute_rotational_histogram(pts, mask, bins)
+    ref = rot_histogram.rotational_histogram_plain(pts, mask, bins)
+    bin_err = float((got - ref).abs().max())
+    sum_err = abs(float(got.sum()) - float(ref.sum()))
+    empty = rot_histogram.compute_rotational_histogram(pts, torch.zeros_like(mask), bins)
+    print(f"K12 rot_histogram: {valid[0]} points, {bins} bins, sum {float(ref.sum()):.3f}: "
+          f"largest bin difference {bin_err:.3g}, sum difference {sum_err:.3g} (tolerance "
+          f"1e-4 each); empty cloud sum {float(empty.sum())}")
+    if bin_err > 1e-4 or sum_err > 1e-4 or not float(ref.sum()) > 0 or float(empty.abs().sum()):
+        _fail("K12 differs from the plain twin")
+    nv, npad = valid[0], rot_histogram._padded_size(pts.shape[0])
+    rows["rot_histogram"] = dict(
+        replaces="cartographer_tpu/ops/rot_histogram.py:27", max_abs_err=bin_err,
+        ms=_cuda_ms(lambda: rot_histogram.compute_rotational_histogram(pts, mask, bins)),
+        plain_ms=_cuda_ms(lambda: rot_histogram.rotational_histogram_plain(pts, mask, bins),
+                          reps=2, warmup=1),
+        bound=_bound(pts.shape[0] * 13 + bins * 4,
+                     npad * 45 + (2 * 129 + bins) * npad + nv * 60),
+        library_ms=None)
+    yaw = quat.get_yaw(u["rotation"]).contiguous()
+    rot_err = float((rot_histogram.rotate_histogram(got, yaw)
+                     - rot_histogram.rotate_histogram_plain(got, yaw)).abs().max())
+    if rot_err > 1e-6:
+        _fail(f"K12's rotation differs from the plain twin by {rot_err} (tolerance 1e-6)")
+    print(f"K12 rot_histogram_rotate: max |err| {rot_err:.3g} (tolerance 1e-6)")
+    rows["rot_histogram_rotate"] = dict(
+        replaces="cartographer_tpu/ops/rot_histogram.py:94", max_abs_err=rot_err,
+        ms=_cuda_ms(lambda: rot_histogram.rotate_histogram(got, yaw)),
+        plain_ms=_cuda_ms(lambda: rot_histogram.rotate_histogram_plain(got, yaw)),
+        bound=_bound(bins * 8 + 4, bins * 10), library_ms=None)
+    return rows
+
+
+def _profile(torch, feed, data, label="profile"):
     """Device busy share and kernel time by name over a window of scans
-    that continues the main run (its launches are not counted there)."""
+    that continues the main run (its launches are not counted there);
+    `feed(d)` hands one scan to the builder."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         for d in data:
-            builder.add_range_data("laser", d)
+            feed(d)
         wall = time.monotonic() - t0
     by_name, activities = {}, 0
     for e in prof.key_averages():
@@ -720,7 +1118,7 @@ def _profile(torch, builder, data):
               "device_busy_share": busy_ms / (wall * 1e3 / len(data)) if by_name
               else "not measured",
               "device_ms_per_scan_by_kernel": top}
-    print("profile: " + json.dumps(result))
+    print(f"{label}: " + json.dumps(result))
     return result
 
 
@@ -750,15 +1148,20 @@ def main() -> int:
     backend_rows, backend = _backend_kernel_phase(torch, dev, ctx, run)
     rows.update(backend_rows)
     slam = _global_phase(torch, dev)
+    del run["submap"], run["nodes"]
+    run3d = _slice_phase_3d(torch, dev)
+    rows3d = _kernel_phase_3d(torch, dev, run3d.pop("builder"), run3d.pop("last_step"))
+    full_hall = _full_hall_phase_3d(torch, dev)
 
     sources = {k.symbol: k.source for k in cuda.KERNELS.values()}
     kernels = []
-    for name, row in rows.items():
+    for name, row in {**rows, **rows3d}.items():
         bound_ms, bound_by = row["bound"]
+        launches = run3d["launches"] if name in rows3d else slam["launches"]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"cartographer_tpu_torch/csrc/{sources[name]}",
-            "replaces": row["replaces"], "launches": slam["launches"][name],
+            "replaces": row["replaces"], "launches": launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": row["library_ms"]})
@@ -776,6 +1179,12 @@ def main() -> int:
             "profile": {k: v for k, v in run["profile"].items()
                         if k != "device_ms_per_scan_by_kernel"}},
         "global_slam": {k: v for k, v in slam.items()},
+        "frontend_3d": {
+            **{k: v for k, v in run3d.items() if k not in ("profile", "launches")},
+            "launches_per_scan": {k: v / run3d["scans"] for k, v in run3d["launches"].items()
+                                  if k in KERNELS_3D},
+            "profile": run3d["profile"]},
+        "frontend_3d_full_size_hall": full_hall,
         "bnb_match_ms": backend["bnb_match_ms"],
         "schur_50_iterations_ms": backend["schur_50_iterations_ms"],
         "kernel_device_ms": {k["name"]: k["ms"] for k in kernels},

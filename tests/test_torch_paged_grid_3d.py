@@ -1,0 +1,169 @@
+"""The port's paged 3D grid (plain twins of kernels K9 and K10) against the
+JAX package: the same scans inserted into the same pool give the same
+allocation, pool and known cells, and the same dense crops, cell for cell."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from cartographer_tpu.ops.paged_grid_3d import PagedSubmapGrid3D as JPaged
+from cartographer_tpu.ops.probability import probability_to_log_odds as j_log_odds
+from cartographer_tpu_torch.interop import paged_grid_from_numpy, paged_grid_to_numpy
+from cartographer_tpu_torch.ops.paged_grid_3d import PagedSubmapGrid3D
+from cartographer_tpu_torch.ops.probability import probability_to_log_odds
+
+RES, PAGE, PAGES, BLOCKS = 0.1, 8, 512, 16  # 12.8 m addressable per side
+CENTER = np.float32([0.3, -0.2, 0.1])
+
+torch.set_num_threads(1)
+
+
+def _scan(rng, origin, n=256, reach=2.0, valid=0.9):
+    """Returns on a box around `origin`: rays in every direction, so the
+    deltas to the origin take both signs and rays cross page borders.
+
+    The tests' sensor origins lie off the cell borders: under jit XLA turns
+    the JAX program's division by the resolution into a multiplication by
+    its reciprocal, which puts a coordinate that sits on a border (to the
+    last bit) into the other cell than a true division does."""
+    d = rng.normal(size=(n, 3))
+    d /= np.abs(d).max(axis=1, keepdims=True)
+    pts = (origin + reach * d * rng.uniform(0.6, 1.0, (n, 1))).astype(np.float32)
+    return pts, rng.rand(n) < valid
+
+
+def _pair(**kw):
+    args = dict(page_size=PAGE, max_pages=PAGES, num_blocks=BLOCKS)
+    args.update(kw)
+    return JPaged(RES, CENTER, **args), PagedSubmapGrid3D(RES, CENTER, device="cpu", **args)
+
+
+def _same_increment(p):
+    return np.float32(j_log_odds(jnp.float32(p))) == np.float32(probability_to_log_odds(p))
+
+
+# XLA's float32 log puts the default hit increment (p = 0.55) one ulp from
+# the port's, so with the defaults the pools agree to 1e-6 and not bit for
+# bit; with probabilities whose increments coincide they are equal exactly.
+HIT, MISS = next((h, 0.49) for h in (0.56, 0.57, 0.58, 0.59, 0.61, 0.62)
+                 if _same_increment(h) and _same_increment(0.49))
+
+
+def _insert_both(jp, tp, origin, pts, mask, free=2, hit=HIT, miss=MISS):
+    kwargs = dict(hit_probability=hit, miss_probability=miss, num_free_space_voxels=free)
+    jp.insert_range_data(origin, pts, mask, **kwargs)
+    tp.insert_range_data(origin, pts, mask, **kwargs)
+
+
+def _assert_same_pool(jp, tp, atol=0.0):
+    pages, known, table, origin, _, _, slots = paged_grid_to_numpy(tp)
+    assert slots == jp._slots
+    np.testing.assert_array_equal(table, np.asarray(jp.grid.page_table))
+    np.testing.assert_array_equal(origin, np.asarray(jp.grid.origin))
+    np.testing.assert_array_equal(known, np.asarray(jp.grid.known))
+    np.testing.assert_allclose(pages, np.asarray(jp.grid.pages), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("free", [0, 2, 3])
+def test_insert_matches_jax(free):
+    rng = np.random.RandomState(free)
+    jp, tp = _pair()
+    for k in range(4):
+        origin = np.float32([0.4 * k - 0.487, 0.1 * k + 0.031, 0.057])
+        pts, mask = _scan(rng, origin)
+        _insert_both(jp, tp, origin, pts, mask, free)
+    _assert_same_pool(jp, tp)
+    assert tp.num_allocated > 8 and int(tp.grid.known.sum()) > 500
+
+
+def test_insert_with_default_probabilities():
+    rng = np.random.RandomState(4)
+    jp, tp = _pair()
+    for k in range(4):
+        origin = np.float32([0.3 * k + 0.017, -0.2 * k - 0.023, 0.057])
+        pts, mask = _scan(rng, origin, reach=1.0)  # the same cells hit again and again
+        _insert_both(jp, tp, origin, pts, mask, hit=0.55, miss=0.49)
+    _assert_same_pool(jp, tp, atol=1e-6)
+    assert float(tp.grid.pages.max()) > 0.3  # cells hit more than once
+
+
+def test_returns_outside_the_table_are_dropped():
+    rng = np.random.RandomState(5)
+    jp, tp = _pair()
+    origin = np.float32([5.51, 0.013, 0.027])  # 0.9 m from the table's edge at 6.7 m
+    pts, mask = _scan(rng, origin, reach=3.0)
+    _insert_both(jp, tp, origin, pts, mask)
+    _assert_same_pool(jp, tp)
+    assert int((pts[mask][:, 0] > 6.8).sum()) > 10
+
+
+def test_pool_exhaustion_raises():
+    rng = np.random.RandomState(6)
+    _, tp = _pair(max_pages=4)
+    pts, mask = _scan(rng, np.zeros(3, np.float32), reach=3.0)
+    with pytest.raises(MemoryError):
+        tp.insert_range_data(np.zeros(3, np.float32), pts, mask)
+
+
+@pytest.mark.parametrize("center,size", [
+    ([0.31, -0.22, 0.13], 32),   # the table's middle
+    ([0.37, -1.13, 0.52], 48),   # an offset that is no multiple of the page
+    ([-5.93, 5.84, 0.02], 32),   # partly outside the table, negative window start
+    ([6.33, 6.31, 6.32], 40),    # leaves the table at its far corner
+])
+def test_crop_matches_jax(center, size):
+    rng = np.random.RandomState(7)
+    jp, tp = _pair()
+    for origin in ([0.01, 0.02, 0.03], [0.51, -1.02, 0.33], [-5.03, 5.01, 0.02],
+                   [5.61, 5.62, 5.63]):
+        origin = np.float32(origin)
+        pts, mask = _scan(rng, origin, reach=1.5)
+        _insert_both(jp, tp, origin, pts, mask)
+    ref = jp.crop_dense(np.float32(center), size)
+    got = tp.crop_dense(np.float32(center), size)
+    np.testing.assert_array_equal(got.known.numpy(), np.asarray(ref.known))
+    np.testing.assert_array_equal(got.log_odds.numpy(), np.asarray(ref.log_odds))
+    np.testing.assert_allclose(got.origin.numpy(), np.asarray(ref.origin), atol=1e-6, rtol=0)
+    assert got.resolution == ref.resolution
+
+
+def test_compacted_pool_crops_the_same():
+    rng = np.random.RandomState(8)
+    jp, tp = _pair()
+    origin = np.float32([0.21, 0.13, 0.02])
+    pts, mask = _scan(rng, origin)
+    _insert_both(jp, tp, origin, pts, mask)
+    before = tp.crop_dense(tp.known_center(), 48)
+    jp.compact()
+    tp.compact()
+    assert tp.grid.max_pages == jp.grid.pages.shape[0] < PAGES
+    np.testing.assert_allclose(tp.known_center(), jp.known_center(), atol=0, rtol=0)
+    ref = jp.crop_dense(jp.known_center(), 48)
+    got = tp.crop_dense(tp.known_center(), 48)
+    np.testing.assert_array_equal(got.log_odds.numpy(), np.asarray(ref.log_odds))
+    np.testing.assert_array_equal(got.known.numpy(), np.asarray(ref.known))
+    assert torch.equal(got.log_odds, before.log_odds) and int(got.known.sum()) > 100
+
+
+def test_state_carries_across_from_jax():
+    """A pool built by the JAX package goes on in the port, and both give
+    the same probabilities at the same points."""
+    rng = np.random.RandomState(9)
+    jp, _ = _pair()
+    origin = np.float32([0.01, 0.23, 0.02])
+    pts, mask = _scan(rng, origin)
+    jp.insert_range_data(origin, pts, mask)
+    g = jp.grid
+    tp = paged_grid_from_numpy(np.asarray(g.pages), np.asarray(g.known),
+                               np.asarray(g.page_table), np.asarray(g.origin), g.resolution,
+                               g.page_size, jp._slots, "cpu")
+    origin2 = np.float32([0.61, -0.33, 0.12])
+    pts2, mask2 = _scan(rng, origin2)
+    _insert_both(jp, tp, origin2, pts2, mask2)
+    _assert_same_pool(jp, tp)
+    query = np.concatenate([pts, pts2, np.float32([[50.0, 0.0, 0.0]])])
+    ref = np.asarray(jp.grid.probability_at(jnp.asarray(query)))
+    got = tp.probability_at(torch.from_numpy(query)).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-6, rtol=0)

@@ -102,3 +102,35 @@ def test_compact():
     _close(port.points, ref.points)
     _close(port.intensities, ref.intensities)
     np.testing.assert_array_equal(port.mask.numpy(), np.asarray(ref.mask))
+
+
+def _axis_angles(case):
+    rng = np.random.RandomState(5)
+    axes = rng.randn(32, 3).astype(np.float32)
+    axes /= np.linalg.norm(axes, axis=-1, keepdims=True)
+    angle = {"zero": 0.0, "tiny": 3e-7, "small": 1e-3, "generic": 1.3,
+             "near_pi": np.pi - 1e-3}[case]
+    return (angle * axes).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["zero", "tiny", "small", "generic", "near_pi"])
+def test_axis_angle_maps(case):
+    aa = _axis_angles(case)
+    q = jquat.from_axis_angle(jnp.asarray(aa))
+    port_q = quat.from_axis_angle(torch.from_numpy(aa))
+    _close(port_q, q)
+    # Near pi the log map divides a small w into atan2: 1e-6 of the angle.
+    back = quat.to_axis_angle(port_q)
+    np.testing.assert_allclose(back.numpy(), np.asarray(jquat.to_axis_angle(q)), atol=4e-6,
+                               rtol=0)
+    np.testing.assert_allclose(back.numpy(), aa, atol=2e-5, rtol=0)
+    # q and -q are the same rotation: the hemisphere flip.
+    _close(quat.to_axis_angle(-port_q), jquat.to_axis_angle(-q))
+
+
+def test_get_yaw():
+    rng = np.random.RandomState(6)
+    q = _unit_quats(rng, 64)
+    _close(quat.get_yaw(torch.from_numpy(q)), jquat.get_yaw(jnp.asarray(q)))
+    yaw = torch.tensor([0.7, -2.9])
+    np.testing.assert_allclose(quat.get_yaw(quat.from_yaw(yaw)).numpy(), yaw.numpy(), atol=1e-6)

@@ -75,3 +75,28 @@ def test_adaptive_voxel_filter_edge_cases(case):
     np.testing.assert_array_equal(port, ref)
     if case == "few_points":
         np.testing.assert_array_equal(port, mask)
+
+
+def test_adaptive_filters_of_a_3d_scan_exact():
+    """The shapes the 3D frontend gives the filter: 4096 points with 3D
+    keys, the voxel filter and then both adaptive searches on its output."""
+    rng = np.random.RandomState(13)
+    n = 4096
+    # Walls of a hall seen from inside: most points far, some near.
+    pts = rng.uniform(-1.0, 1.0, (n, 3))
+    pts /= np.abs(pts).max(axis=1, keepdims=True)
+    pts = (pts * np.float32([14.0, 9.0, 1.5])).astype(np.float32)
+    mask = rng.rand(n) < 0.95
+    key, perm = _perm(17, n)
+    ref = np.asarray(j_voxel_filter_mask(jnp.asarray(pts), jnp.asarray(mask), 0.15, key))
+    keep = voxel_filter_mask(torch.from_numpy(pts), torch.from_numpy(mask), 0.15, perm)
+    np.testing.assert_array_equal(keep.numpy(), ref)
+    zeros = np.zeros(n, np.float32)
+    for max_length, min_num_points, max_range in ((2.0, 150, 15.0), (4.0, 200, 60.0)):
+        jref = j_adaptive(JPointCloud(jnp.asarray(pts), jnp.asarray(ref), jnp.asarray(zeros)),
+                          max_length, min_num_points, max_range, key)
+        port = adaptive_voxel_filter(
+            PointCloud(torch.from_numpy(pts), keep, torch.from_numpy(zeros)), max_length,
+            min_num_points, max_range, perm)
+        np.testing.assert_array_equal(port.mask.numpy(), np.asarray(jref.mask))
+        assert min_num_points <= int(port.mask.sum()) < 2 * min_num_points + 100
