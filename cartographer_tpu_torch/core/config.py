@@ -7,8 +7,8 @@ map_builder.lua, plus the static capacities the device pipeline is sized by
 (`TpuOptions2D`, `TpuOptions3D`, kept under their original names so that the
 `dataclasses.asdict` trees of the two packages share their keys). Options of
 features the port does not have are left out; the switches the constructors
-must refuse (`submaps.grid_type`, `use_trajectory_builder_3d`,
-`batch_scan_dispatch` and the trimmers) stay.
+must refuse (`submaps.grid_type`, `use_intensities`, `batch_scan_dispatch`
+and the trimmers) stay.
 """
 
 from __future__ import annotations
@@ -185,6 +185,7 @@ class TrajectoryBuilder3DOptions:
     rotational_histogram_size: int = 120
     pose_extrapolator: PoseExtrapolatorOptions = _d(PoseExtrapolatorOptions)
     submaps: SubmapsOptions3D = _d(SubmapsOptions3D)
+    use_intensities: bool = False  # not ported: must stay False
     # Skip scans whose gravity-removed IMU acceleration exceeds this
     # [m/s^2]; 0 = off.
     max_accel_skip: float = 0.0
@@ -206,6 +207,17 @@ class FastCorrelativeScanMatcherOptions2D:
 
 
 @dataclasses.dataclass(frozen=True)
+class FastCorrelativeScanMatcherOptions3D:
+    branch_and_bound_depth: int = 8
+    full_resolution_depth: int = 3
+    min_rotational_score: float = 0.77
+    min_low_resolution_score: float = 0.55
+    linear_xy_search_window: float = 5.0
+    linear_z_search_window: float = 1.0
+    angular_search_window: float = math.radians(15.0)
+
+
+@dataclasses.dataclass(frozen=True)
 class ConstraintBuilderOptions:
     sampling_ratio: float = 0.3
     max_constraint_distance: float = 15.0
@@ -219,11 +231,20 @@ class ConstraintBuilderOptions:
         lambda: CeresScanMatcherOptions2D(occupied_space_weight=20.0, translation_weight=10.0,
                                           rotation_weight=1.0, max_num_iterations=10,
                                           use_nonmonotonic_steps=True))
+    fast_correlative_scan_matcher_3d: FastCorrelativeScanMatcherOptions3D = _d(
+        FastCorrelativeScanMatcherOptions3D)
+    ceres_scan_matcher_3d: CeresScanMatcherOptions3D = _d(
+        lambda: CeresScanMatcherOptions3D(occupied_space_weight_0=5.0,
+                                          occupied_space_weight_1=30.0, translation_weight=10.0,
+                                          rotation_weight=1.0, only_optimize_yaw=False,
+                                          max_num_iterations=10))
 
 
 @dataclasses.dataclass(frozen=True)
 class OptimizationProblemOptions:
     huber_scale: float = 1e1
+    acceleration_weight: float = 1.1e2
+    rotation_weight: float = 1.6e4
     local_slam_pose_translation_weight: float = 1e5
     local_slam_pose_rotation_weight: float = 1e5
     odometry_translation_weight: float = 1e5
@@ -231,6 +252,8 @@ class OptimizationProblemOptions:
     fixed_frame_pose_translation_weight: float = 1e1
     fixed_frame_pose_rotation_weight: float = 1e2
     fixed_frame_pose_use_tolerant_loss: bool = False
+    use_online_imu_extrinsics_in_3d: bool = True
+    fix_z_in_3d: bool = False
     max_num_iterations: int = 50
 
 
@@ -253,13 +276,14 @@ class PoseGraphOptions:
 @dataclasses.dataclass(frozen=True)
 class TrajectoryBuilderOptions:
     trajectory_builder_2d: TrajectoryBuilder2DOptions = _d(TrajectoryBuilder2DOptions)
+    trajectory_builder_3d: TrajectoryBuilder3DOptions = _d(TrajectoryBuilder3DOptions)
     pure_localization_trimmer: Optional[Any] = None  # not ported: must stay None
 
 
 @dataclasses.dataclass(frozen=True)
 class MapBuilderOptions:
     use_trajectory_builder_2d: bool = False
-    use_trajectory_builder_3d: bool = False  # not ported: must stay False
+    use_trajectory_builder_3d: bool = False
     num_background_threads: int = 4
     pose_graph: PoseGraphOptions = _d(PoseGraphOptions)
     collate_by_trajectory: bool = False

@@ -23,10 +23,12 @@ from cartographer_tpu_torch.core.config import (
     from_dict,
 )
 from cartographer_tpu_torch.core.tensor import to_device
+from cartographer_tpu_torch.ops.bnb_3d import PrecomputationStack3D
 from cartographer_tpu_torch.ops.grid_2d import Grid2D
 from cartographer_tpu_torch.ops.grid_3d import Grid3D
 from cartographer_tpu_torch.ops.paged_grid_3d import PagedGrid3D, PagedSubmapGrid3D
 from cartographer_tpu_torch.parallel.schur_spa import SchurSpaProblem2D
+from cartographer_tpu_torch.parallel.schur_spa_3d import SchurSpaProblem3D
 
 
 def grid2d_from_numpy(log_odds: np.ndarray, known: np.ndarray, origin: np.ndarray,
@@ -148,10 +150,10 @@ def paged_grid_to_numpy(paged: PagedSubmapGrid3D):
 
 
 # The same for the trajectory and map-builder trees: switches of unported
-# features (3D, cross-robot batching, the trimmers) and options that only
-# unported features read (3D matchers, IMU terms, multi-chip meshes, logs).
+# features (cross-robot batching, the trimmers) and options that only
+# unported features read (multi-chip meshes, logs, the intensity cost,
+# tolerant-loss shapes).
 UNPORTED_MAP_BUILDER_SWITCHES = {
-    "use_trajectory_builder_3d": False,
     "batch_scan_dispatch": False,
     "pose_graph.overlapping_submaps_trimmer_2d": None,
 }
@@ -162,21 +164,15 @@ UNREAD_MAP_BUILDER_OPTIONS = (
     "pose_graph.max_submaps",
     "pose_graph.max_constraints",
     "pose_graph.constraint_builder.log_matches",
-    "pose_graph.constraint_builder.fast_correlative_scan_matcher_3d",
-    "pose_graph.constraint_builder.ceres_scan_matcher_3d",
-    "pose_graph.optimization_problem.acceleration_weight",
-    "pose_graph.optimization_problem.rotation_weight",
+    "pose_graph.constraint_builder.ceres_scan_matcher_3d.intensity_cost_function_options_0",
     "pose_graph.optimization_problem.fixed_frame_pose_tolerant_loss_param_a",
     "pose_graph.optimization_problem.fixed_frame_pose_tolerant_loss_param_b",
     "pose_graph.optimization_problem.log_solver_summary",
-    "pose_graph.optimization_problem.use_online_imu_extrinsics_in_3d",
-    "pose_graph.optimization_problem.fix_z_in_3d",
     "pose_graph.optimization_problem.use_nonmonotonic_steps",
     "pose_graph.optimization_problem.num_threads",
 )
 UNPORTED_TRAJECTORY_SWITCHES = {"pure_localization_trimmer": None}
-UNREAD_TRAJECTORY_OPTIONS = ("trajectory_builder_3d", "collate_fixed_frame",
-                             "collate_landmarks")
+UNREAD_TRAJECTORY_OPTIONS = ("collate_fixed_frame", "collate_landmarks")
 
 
 def map_builder_options_from_dict(d: Dict[str, Any]) -> MapBuilderOptions:
@@ -186,11 +182,13 @@ def map_builder_options_from_dict(d: Dict[str, Any]) -> MapBuilderOptions:
 
 
 def trajectory_builder_options_from_dict(d: Dict[str, Any]) -> TrajectoryBuilderOptions:
-    """TrajectoryBuilderOptions (with the 2D tree through options_from_dict)
-    from `dataclasses.asdict` of the JAX package's."""
+    """TrajectoryBuilderOptions (with the 2D tree through options_from_dict,
+    the 3D tree through options_3d_from_dict) from `dataclasses.asdict` of
+    the JAX package's."""
     d = _strip(d, UNPORTED_TRAJECTORY_SWITCHES, UNREAD_TRAJECTORY_OPTIONS)
     tb2 = options_from_dict(d.pop("trajectory_builder_2d", {}))
-    return TrajectoryBuilderOptions(trajectory_builder_2d=tb2, **d)
+    tb3 = options_3d_from_dict(d.pop("trajectory_builder_3d", {}))
+    return TrajectoryBuilderOptions(trajectory_builder_2d=tb2, trajectory_builder_3d=tb3, **d)
 
 
 def pyramid_from_numpy(pyramid: np.ndarray, device) -> torch.Tensor:
@@ -205,9 +203,30 @@ def schur_problem_from_numpy(arrays: Dict[str, np.ndarray], device) -> SchurSpaP
     not ported (the 2D pose graph never fills them): any valid one raises."""
     if np.any(np.asarray(arrays.get("u_valid", np.zeros(0, bool)))):
         raise NotImplementedError("unary node terms of the Schur SPA are not ported")
+    return _problem_from_numpy(SchurSpaProblem2D, arrays, device)
+
+
+def _problem_from_numpy(cls, arrays: Dict[str, np.ndarray], device):
+    """`cls` from its fields as numpy arrays: integers as int32, floats as
+    float32, booleans as they are."""
     fields = {}
-    for name in (f.name for f in dataclasses.fields(SchurSpaProblem2D)):
+    for name in (f.name for f in dataclasses.fields(cls)):
         a = np.asarray(arrays[name])
         a = a.astype(np.int32) if a.dtype.kind in "iu" else a
         fields[name] = to_device(a.astype(np.float32) if a.dtype.kind == "f" else a, device)
-    return SchurSpaProblem2D(**fields)
+    return cls(**fields)
+
+
+def stack3d_from_numpy(full: np.ndarray, coarse: np.ndarray, depth: int,
+                       full_resolution_depth: int, device) -> PrecomputationStack3D:
+    """PrecomputationStack3D of the JAX package's
+    `build_precomputation_stack_3d` (its `full` and `coarse` uint8 levels)."""
+    return PrecomputationStack3D(to_device(np.asarray(full, np.uint8), device),
+                                 to_device(np.asarray(coarse, np.uint8), device), int(depth),
+                                 int(full_resolution_depth))
+
+
+def schur_problem_3d_from_numpy(arrays: Dict[str, np.ndarray], device) -> SchurSpaProblem3D:
+    """SchurSpaProblem3D from the JAX problem's fields as numpy arrays
+    (`{f.name: np.asarray(getattr(problem, f.name))}`)."""
+    return _problem_from_numpy(SchurSpaProblem3D, arrays, device)

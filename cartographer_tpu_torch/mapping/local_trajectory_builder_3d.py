@@ -12,8 +12,9 @@ runs one device step, `_fused_step`:
   2. the high- and the low-resolution adaptive voxel filters (K2)
   3. the SE(3) LM match on both windows (K11), guarded against non-finite
      results on the device
-  4. the rotational histogram of the gravity-aligned high-resolution cloud
-     (K12) and its rotation by the matched yaw
+  4. the rotational histogram of the levelled high-resolution cloud (K12;
+     the gravity alignment without its yaw) and its rotation by the matched
+     yaw
   5. the scan in the local frame and the high-resolution range gate
 
 Each scan makes one host-to-device copy of its inputs, from pinned memory,
@@ -26,6 +27,16 @@ waiting.
 The online correlative search, intensities, the IMU-based extrapolator and
 scan accumulation are not ported: `interop.options_3d_from_dict` raises
 NotImplementedError for them.
+
+Known departure from the JAX package: step 4 levels the cloud without the
+IMU tracker's yaw, as the reference does (submap_3d.cc InsertData), where
+the JAX builder takes the histogram of the gravity-aligned cloud, so the
+two scan histograms differ by a rotation of yaw(gravity_alignment) and the
+submap histograms differ with it. The JAX form counts the IMU yaw twice and
+smears the submap histogram, and with it the 3D loop closure's rotational
+pre-filter rejected every pair of the simulated hall.
+`tests/test_torch_local_slam_3d.py::test_scan_histogram_departs_from_jax_by_the_imu_yaw`
+pins the difference at a turning yaw rate.
 """
 
 from __future__ import annotations
@@ -123,6 +134,8 @@ class LocalTrajectoryBuilder3D:
         if self._device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("LocalTrajectoryBuilder3D: no CUDA device is available; "
                                "pass device='cpu' to run the plain PyTorch path")
+        if options.use_intensities:
+            raise NotImplementedError("intensities are not ported")
         self._options = options
         self._active_submaps = ActiveSubmaps3D(
             options.submaps, options.tpu, self._device, options.rotational_histogram_size)
@@ -275,9 +288,18 @@ class LocalTrajectoryBuilder3D:
         est_q = quat.normalize(est[3:7])
         ok = finite | ~has_grid
 
-        hist = compute_rotational_histogram(
-            quat.rotate(small[_GRAVITY], high.points), high.mask,
-            opts.rotational_histogram_size)
+        # The histogram of the cloud levelled by the gravity alignment with
+        # the IMU tracker's yaw taken out, so the histogram's yaw is the
+        # tracking frame's: rotated by the matched yaw it lands in the submap
+        # frame, and a loop closure rotates it by the node's yaw in the
+        # submap. The reference rotates the gravity-frame histogram by the
+        # yaw of local_pose * gravity^-1 (submap_3d.cc InsertData), the same
+        # thing; rotating it by the matched yaw alone, as the JAX package
+        # does, counts the IMU's yaw twice and smears the submap histogram.
+        gravity = small[_GRAVITY]
+        level = quat.multiply(quat.from_yaw(-quat.get_yaw(gravity)), gravity)
+        hist = compute_rotational_histogram(quat.rotate(level, high.points), high.mask,
+                                            opts.rotational_histogram_size)
         # Rotated into the submap frame here, so the scan keeps one fetch.
         hist_rot = rotate_histogram(hist, quat.get_yaw(est_q))
         local_points = Rigid3(est_t, est_q).apply(tracking)

@@ -6,14 +6,17 @@ is cut into 0.2 m z-slices, each slice sorted by angle around its centroid,
 and the directions between a point and its slice's running anchor are
 accumulated, weighted by how perpendicular they are to the direction from
 the centroid, into `histogram_size` bins over [0, pi). `match_histograms`
-belongs to the 3D loop closure and is not ported.
+scores candidate yaws of the 3D loop closure: the cosine similarity of the
+scan histogram rotated by each yaw against the submap's.
 
-Both functions launch the CUDA kernels of `csrc/rot_histogram.cu` (K12) on
-CUDA tensors and run the plain twins on CPU tensors. The JAX program adds
-the slice sums and the bins by scatter-add, whose order of additions a
-device does not fix; kernel and twin both add in one fixed order, a
-pairwise halving tree over the points (padded to a power of two), so they
-agree where a last bit could flip a threshold or a bin edge.
+The histogram and its rotation launch the CUDA kernels of
+`csrc/rot_histogram.cu` (K12), `match_histograms` its `rot_match` (K13), on
+CUDA tensors; CPU tensors run the plain twins. The JAX program adds the
+slice sums and the bins by scatter-add, whose order of additions a device
+does not fix; kernel and twin both add in one fixed order, a pairwise
+halving tree over the points (padded to a power of two), so they agree
+where a last bit could flip a threshold or a bin edge. K13 sums the bins of
+its dot product and norms in the same tree.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from cartographer_tpu_torch.core.tensor import true_div
 from cartographer_tpu_torch.ops import cuda
@@ -37,6 +41,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _KERNEL = cuda.CudaKernel("rot_histogram.cu", "rot_histogram", [_P, _P, _I, _I, _I, _P])
 _ROTATE_KERNEL = cuda.CudaKernel("rot_histogram.cu", "rot_histogram_rotate",
                                  [_P, _P, _I, _P])
+_MATCH_KERNEL = cuda.CudaKernel("rot_histogram.cu", "rot_match", [_P, _P, _P, _I, _I, _I, _P])
 
 
 def _padded_size(n: int) -> int:
@@ -171,4 +176,46 @@ def rotate_histogram(histogram: torch.Tensor, angle: torch.Tensor) -> torch.Tens
     out = torch.empty_like(histogram)
     _ROTATE_KERNEL(histogram.device, histogram.data_ptr(), angle.data_ptr(), size,
                    out.data_ptr())
+    return out
+
+
+def _rotated_rows(histogram: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """(A, size): the histogram rotated by each angle, as rotate_histogram."""
+    size = histogram.shape[0]
+    shift = true_div(angles * size, math.pi)[:, None]
+    lo = torch.floor(shift)
+    frac = shift - lo
+    upper = torch.remainder(torch.arange(size, device=histogram.device)[None, :] - lo.long(), size)
+    lower = torch.remainder(upper - 1, size)
+    return (1.0 - frac) * histogram[upper] + frac * histogram[lower]
+
+
+def match_histograms_plain(submap_histogram: torch.Tensor, scan_histogram: torch.Tensor,
+                           angles: torch.Tensor) -> torch.Tensor:
+    size = scan_histogram.shape[0]
+    pad = _padded_size(size) - size
+    rotated = F.pad(_rotated_rows(scan_histogram, angles), (0, pad))
+    sub = F.pad(submap_histogram, (0, pad))[None, :]
+    dot = _tree_sum(rotated * sub)
+    denom = torch.sqrt(_tree_sum(rotated * rotated)) * torch.sqrt(_tree_sum(sub * sub))
+    return dot / torch.clamp(denom, min=1e-9)
+
+
+def match_histograms(submap_histogram: torch.Tensor, scan_histogram: torch.Tensor,
+                     angles: torch.Tensor) -> torch.Tensor:
+    """Cosine similarity of the scan histogram rotated by each of the angles
+    (A,) against the submap histogram (RotationalScanMatcher::Match);
+    returns (A,)."""
+    if not angles.is_cuda:
+        return match_histograms_plain(submap_histogram, scan_histogram, angles)
+    size, a = scan_histogram.shape[0], angles.shape[0]
+    cuda.check(scan_histogram, "scan_histogram", torch.float32, (size,))
+    cuda.check(submap_histogram, "submap_histogram", torch.float32, (size,))
+    cuda.check(angles, "angles", torch.float32, (a,))
+    if not 0 < size <= _MAX_BINS:
+        raise ValueError(f"match_histograms: at most {_MAX_BINS} bins, got {size}")
+    out = torch.empty(a, dtype=torch.float32, device=angles.device)
+    if a:
+        _MATCH_KERNEL(angles.device, scan_histogram.data_ptr(), submap_histogram.data_ptr(),
+                      angles.data_ptr(), a, size, _padded_size(size), out.data_ptr())
     return out

@@ -268,3 +268,119 @@ def simulate_scans_3d(num_scans: int, rings: int = 16, azimuths: int = 256,
         imu.append((t, np.array([0.0, 0.0, GRAVITY]),
                     np.array([0.0, 0.0, float(yaw1 - yaw0) / dt])))
     return scans, imu, np.asarray(truth)
+
+
+def synthetic_pose_graph_3d(num_slots: int, num_nodes: int, constraint_slots: int,
+                            seed: int = 0, outlier_share: float = 0.05,
+                            pose_noise: float = 0.05, dt: float = 0.1):
+    """An SE(3) pose-graph problem with IMU terms in the fields of the 3D
+    Schur SPA (`parallel.schur_spa_3d.SchurSpaProblem3D`) as numpy arrays,
+    with its truth.
+
+    Nodes lie on laps of a loop that rises and falls, `dt` apart, their
+    orientation the heading with a small roll and pitch. Of the
+    `num_slots` reduced slots the last is the trajectory's IMU block
+    (gravity 9.81 learned from 9.7 and clamped non-negative, an IMU
+    calibration a degree off learned from the identity), the one before it
+    a yaw-only fixed-frame origin tied to every 10th node, and the rest
+    submaps: node n belongs to submap n * (num_slots - 2) // N and is tied
+    to it and to the next (INTRA, the pose graph's weights); submap 0 is
+    frozen. The remaining constraint slots are Huber-weighted loop closures
+    between random nodes and submaps, `outlier_share` of them a metre wrong.
+    The chain carries local-SLAM terms, a gyro term per consecutive pair and
+    an acceleration triplet per consecutive triple, both exact for the
+    truth, with the reference's weights. The initial poses are the truth
+    plus `pose_noise` of Gaussian noise (a tenth of it in radians).
+    Returns (arrays, truth node translations (N, 3), truth node rotations
+    (N, 4))."""
+    from cartographer_tpu_torch.transform import nquat
+
+    rng = np.random.RandomState(seed)
+    S, N = num_slots, num_nodes
+    n_sub, origin_slot, imu_slot = S - 2, S - 2, S - 1
+    s = np.linspace(0.0, 2.0 * np.pi * max(1, N // 1000), N, endpoint=False)
+    truth_t = np.stack([11.0 * np.cos(s), 7.0 * np.sin(s), 0.3 * np.sin(3.0 * s)], -1)
+    truth_q = np.stack([nquat.multiply(nquat.from_yaw(a + np.pi / 2), nquat.from_axis_angle(
+        np.array([0.02 * np.sin(5 * a), 0.03 * np.cos(4 * a), 0.0]))) for a in s])
+
+    def inv(t, q):
+        iq = nquat.conjugate(q)
+        return nquat.rotate(iq, -t), iq
+
+    def comp(a, b):
+        return a[0] + nquat.rotate(a[1], b[0]), nquat.normalize(nquat.multiply(a[1], b[1]))
+
+    first = (np.arange(n_sub) * N) // n_sub
+    sub_t = np.zeros((S, 3))
+    sub_q = np.tile([1.0, 0.0, 0.0, 0.0], (S, 1))
+    sub_t[:n_sub] = truth_t[first] + np.array([0.3, -0.2, 0.05])
+    sub_q[:n_sub] = truth_q[first]
+    sub_t[origin_slot] = [2.0, -1.0, 0.5]
+    sub_q[origin_slot] = nquat.from_yaw(0.3)
+    calib = nquat.from_axis_angle(np.radians([0.5, -0.4, 0.8]))
+    gravity = 9.81
+
+    owner = np.arange(N) * n_sub // N
+    a_idx = list(owner) + list(np.minimum(owner + 1, n_sub - 1))
+    b_idx = list(range(N)) * 2
+    tw, rw, hub = [5e2] * (2 * N), [1.6e3] * (2 * N), [False] * (2 * N)
+    fixes = list(range(0, N, 10))
+    a_idx += [origin_slot] * len(fixes)
+    b_idx += fixes
+    tw += [1e1] * len(fixes)
+    rw += [1e2] * len(fixes)
+    hub += [False] * len(fixes)
+    n_loop = max(constraint_slots - len(a_idx), 0)
+    a_idx += list(rng.randint(0, n_sub, n_loop))
+    b_idx += list(rng.randint(0, N, n_loop))
+    tw += [1.1e4] * n_loop
+    rw += [1e5] * n_loop
+    hub += [True] * n_loop
+    a_idx, b_idx = np.asarray(a_idx[:constraint_slots]), np.asarray(b_idx[:constraint_slots])
+    C = a_idx.shape[0]
+    rel = [comp(inv(sub_t[a], sub_q[a]), (truth_t[b], truth_q[b])) for a, b in zip(a_idx, b_idx)]
+    rel_t = np.asarray([r[0] for r in rel]) + rng.normal(0.0, 0.01, (C, 3))
+    rel_q = np.asarray([r[1] for r in rel])
+    wrong = np.asarray(hub[:C]) & (rng.rand(C) < outlier_share)
+    rel_t[wrong] += np.array([1.0, -0.7, 0.2])
+    nn = [comp(inv(truth_t[j], truth_q[j]), (truth_t[j + 1], truth_q[j + 1]))
+          for j in range(N - 1)]
+    rot_dq = [nquat.multiply(nquat.conjugate(calib), nquat.multiply(
+        nquat.multiply(nquat.conjugate(truth_q[i]), truth_q[i + 1]), calib))
+        for i in range(N - 1)]
+    acc_dv = []
+    for i in range(N - 2):
+        second = (truth_t[i + 2] - truth_t[i + 1]) / dt - (truth_t[i + 1] - truth_t[i]) / dt
+        v = second + np.array([0.0, 0.0, gravity * dt])
+        acc_dv.append(nquat.rotate(nquat.conjugate(calib),
+                                   nquat.rotate(nquat.conjugate(truth_q[i + 1]), v)))
+    sub_free = np.ones((S, 6), bool)
+    sub_free[0] = False
+    sub_free[origin_slot] = [True, True, True, False, False, True]
+    sub_free[imu_slot] = [True, False, False, True, True, True]
+    grav_clamp = np.zeros(S, bool)
+    grav_clamp[imu_slot] = True
+    init_sub_t, init_sub_q = sub_t.copy(), sub_q.copy()
+    init_sub_t[1:n_sub] += pose_noise * rng.normal(size=(n_sub - 1, 3))
+    init_sub_t[imu_slot] = [9.7, 0.0, 0.0]
+    init_q = np.stack([nquat.normalize(nquat.multiply(q, nquat.from_axis_angle(
+        0.1 * pose_noise * rng.normal(size=3)))) for q in truth_q])
+    f32 = lambda x: np.asarray(x, np.float32)  # noqa: E731
+    arrays = dict(
+        sub_t=f32(init_sub_t), sub_q=f32(init_sub_q),
+        node_t=f32(truth_t + pose_noise * rng.normal(size=(N, 3))), node_q=f32(init_q),
+        sub_free=sub_free, node_free=np.ones((N, 6), bool), grav_clamp=grav_clamp,
+        a_idx=a_idx.astype(np.int32), b_idx=b_idx.astype(np.int32), rel_t=f32(rel_t),
+        rel_q=f32(rel_q), trans_weight=f32(tw[:C]), rot_weight=f32(rw[:C]),
+        use_huber=np.asarray(hub[:C]), valid=np.ones(C, bool),
+        j_idx=np.arange(N - 1, dtype=np.int32), nn_rel_t=f32([r[0] for r in nn]),
+        nn_rel_q=f32([r[1] for r in nn]), nn_trans_weight=f32(np.full(N - 1, 1e5)),
+        nn_rot_weight=f32(np.full(N - 1, 1e5)), nn_valid=np.ones(N - 1, bool),
+        rot_i=np.arange(N - 1, dtype=np.int32), rot_traj=np.full(N - 1, imu_slot, np.int32),
+        rot_delta_q=f32(rot_dq), rot_weight_c=f32(np.full(N - 1, 1.6e4 / dt)),
+        rot_valid=np.ones(N - 1, bool),
+        acc_i=np.arange(N - 2, dtype=np.int32), acc_traj=np.full(N - 2, imu_slot, np.int32),
+        acc_delta_v=f32(acc_dv), acc_dt1=f32(np.full(N - 2, dt)),
+        acc_dt2=f32(np.full(N - 2, dt)), acc_weight=f32(np.full(N - 2, 1.1e2 / (2 * dt))),
+        acc_valid=np.ones(N - 2, bool))
+    return arrays, truth_t, truth_q

@@ -36,6 +36,21 @@ def rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return v + qw * t + torch.linalg.cross(qv, t)
 
 
+def rotate_expanded(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """`rotate` with the cross products written out one operation at a
+    time, in the order the 3D loop-closure kernels compute it (no fused
+    multiply-add can form across separate PyTorch operations), and with
+    forward-mode tangents, which `torch.linalg.cross` does not take."""
+    qw, qx, qy, qz = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    vx, vy, vz = v[..., 0], v[..., 1], v[..., 2]
+    tx = 2.0 * (qy * vz - qz * vy)
+    ty = 2.0 * (qz * vx - qx * vz)
+    tz = 2.0 * (qx * vy - qy * vx)
+    return torch.stack([vx + qw * tx + (qy * tz - qz * ty),
+                        vy + qw * ty + (qz * tx - qx * tz),
+                        vz + qw * tz + (qx * ty - qy * tx)], -1)
+
+
 def from_axis_angle(aa: torch.Tensor) -> torch.Tensor:
     """Exponential map: axis-angle vector (..., 3) -> quaternion (..., 4),
     with the Taylor branch below |aa|^2 = 1e-12."""

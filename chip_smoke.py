@@ -26,7 +26,16 @@ on the card, at full width (the reference's default 2D and 3D options):
    CPU's plain path;
 6. the 3D kernels K9-K12, each against its plain twin, on that run's pools,
    windows and clouds;
-7. the 3D frontend once more over the hall at full size with the robot's
+7. 3D global SLAM through `MapBuilder(use_trajectory_builder_3d=True)` at
+   the default options over 700 scans of that hall (three laps; background
+   searches and solves): K2 and K9-K16 launched, at least 50 loop closures
+   and 3 solves, optimized poses no worse than the frontend's plus 0.02 m,
+   and one certified global localization of a third-lap node against the
+   first submap with its yaw unknown;
+8. the 3D backend kernels K13-K16, each against its plain twin, on that
+   run's state (its node, finished submap and a local pair) and on a
+   synthetic SE(3) pose graph with IMU terms at the solver's capacity;
+9. the 3D frontend once more over the hall at full size with the robot's
    heading along the walls, where the LM-only matcher tracks worst: its
    error and its page count are reported, not limited.
 
@@ -61,6 +70,9 @@ KERNELS_2D = ("scan_preprocess_2d", "voxel_filter", "scan_matcher_2d", "insert_2
               "correlative_2d", "bnb_pyramid", "bnb_score", "schur_spa_2d")
 KERNELS_3D = ("voxel_filter", "paged_insert_3d", "paged_crop_3d", "scan_matcher_3d",
               "rot_histogram", "rot_histogram_rotate")
+GLOBAL_SCANS_3D = 700  # three laps of the half-scale hall
+KERNELS_3D_GLOBAL = KERNELS_3D + ("rot_match", "bnb3d_stack", "bnb3d_discretize",
+                                  "bnb3d_score", "schur_spa_3d")
 
 
 def _fail(msg):
@@ -1093,6 +1105,288 @@ def _kernel_phase_3d(torch, dev, builder, last_step):
     return rows
 
 
+def _pair_args(cb, r):
+    """The arguments of `fast_correlative_match_3d` for a local request of
+    the 3D constraint builder, as its search passes them."""
+    hp, hm, lp, lm, hist, init = (x[0].contiguous() for x in cb._clouds([r]))
+    m = r.matcher
+    return (m.stack, m.high_grid, m.low_grid, hp, hm, lp, lm, hist, m.histogram,
+            init[0:3].contiguous(), init[3:7].contiguous(), cb.bnb_params,
+            cb._options.min_score, m.low_probability)
+
+
+def _global_phase_3d(torch, dev):
+    """3D global SLAM through MapBuilder on the card over three laps of the
+    half-scale hall, then one global localization."""
+    from cartographer_tpu_torch.core.config import MapBuilderOptions, TrajectoryBuilderOptions
+    from cartographer_tpu_torch.mapping.constraint_builder_3d import MatchRequest3D
+    from cartographer_tpu_torch.mapping.id import SubmapId
+    from cartographer_tpu_torch.mapping.map_builder import MapBuilder
+    from cartographer_tpu_torch.ops import bnb_3d, cuda
+    from cartographer_tpu_torch.simulation import Path, Robot
+    from cartographer_tpu_torch.transform import nquat
+
+    t_sim = time.monotonic()
+    events, gt = _events_3d(GLOBAL_SCANS_3D)
+    print(f"3D global: {time.monotonic() - t_sim:.1f} s to simulate {len(events)} scans")
+    mb = MapBuilder(MapBuilderOptions(use_trajectory_builder_3d=True), device=dev)
+    pg = mb.pose_graph
+    cb = pg.constraint_builder
+    recorded = []
+    compute = cb.compute_constraints
+
+    def recording(requests):
+        recorded.extend(r for r in requests[:64 - len(recorded)] if not r.match_full)
+        return compute(requests)
+
+    cb.compute_constraints = recording
+    tid = mb.add_trajectory_builder(["points", "imu"], TrajectoryBuilderOptions())
+    cuda.reset_launch_counts()
+    t0 = time.monotonic()
+    for imus, scan in events:
+        for message in imus:
+            mb.add_sensor_data(tid, "imu", message)
+        mb.add_sensor_data(tid, "points", scan)
+    mb.finish_trajectory(tid)
+    pg.run_final_optimization()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = cuda.launch_counts()
+    cb.compute_constraints = compute
+    inter, solves = pg.num_inter_constraints(), pg.solves
+    print(f"3D global: {len(events)} scans, {len(pg.nodes)} nodes, {len(pg.submap_data)} "
+          f"submaps, {inter} loop closures from {cb.pairs_matched} pairs tried, {solves} solves, "
+          f"{wall:.1f} s wall; constraint search {cb.match_seconds:.2f} s on its threads "
+          f"({cb.match_seconds * 1e3 / max(cb.pairs_matched, 1):.2f} ms per pair), solves "
+          f"{pg.solve_seconds:.2f} s ({pg.snapshot_seconds:.3f} s of host snapshots); launches "
+          f"{launches}")
+    _check_launched(launches, KERNELS_3D_GLOBAL, "3D global SLAM")
+    if inter < 50 or solves < 3 or not recorded:
+        _fail(f"3D global SLAM ran {inter} loop closures and {solves} solves (need >= 50, >= 3)")
+    # Node -> scan index: scan i is stamped TIME_OFFSET_US + (i + 1) * 0.1 s.
+    index = {nid: int(round((node.time - TIME_OFFSET_US) / 1e5)) - 1
+             for nid, node in pg.nodes.items()}
+
+    def mean_error(position):
+        return float(np.mean([np.linalg.norm(np.concatenate([
+            position(node)[:2] - gt[index[nid], :2], position(node)[2:3]]))
+            for nid, node in pg.nodes.items()]))
+
+    local_err = mean_error(lambda n: n.local_pose_translation)
+    global_err = mean_error(lambda n: n.global_t)
+    print(f"3D global: mean error of the optimized poses {global_err:.4f} m, of the frontend's "
+          f"{local_err:.4f} m (limit: the frontend's + 0.02 m); learned gravity "
+          f"{pg.trajectory_data[0]['gravity_constant']:.4f} m/s^2")
+    if not global_err <= local_err + 0.02:
+        _fail("3D optimized poses are worse than the frontend's by more than 0.02 m")
+
+    # Global localization: a third-lap node against submap 0, yaw unknown.
+    robot = Robot(Path.superellipse(11.0 * 0.5, 7.0 * 0.5), 1.4, 6.0, 3.0)
+    lap = ((robot.arc_at((np.arange(len(events)) + 1) * 0.1) - 3.0)
+           // robot.path.arc[-1]).astype(int)
+    entry = pg.submap_data[SubmapId(0, 0)]
+    late = [(nid, node) for nid, node in pg.nodes.items() if lap[index[nid]] >= 2]
+    nid, node = min(late, key=lambda kv: np.linalg.norm(
+        kv[1].global_t - entry.submap.local_pose_translation))
+    matcher = cb.matcher_for(SubmapId(0, 0), entry.submap)
+    unknown_yaw = nquat.multiply(nquat.from_yaw(1.0), node.gravity_alignment)
+    req = MatchRequest3D(SubmapId(0, 0), nid, matcher, node.high_res_cloud, node.low_res_cloud,
+                         np.asarray(node.scan_histogram, np.float32), np.zeros(3), unknown_yaw,
+                         match_full=True)
+    hp, hm, lp, lm, hist, _ = (x[0].contiguous() for x in cb._clouds([req]))
+    node_q = torch.tensor(unknown_yaw, dtype=torch.float32, device=dev)
+    identity = torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev)
+    t0 = time.monotonic()
+    found, score, loc_t, loc_q, rot, low, certified = bnb_3d.match_full_submap_3d_exact(
+        matcher.stack, matcher.high_grid, matcher.low_grid, hp, hm, lp, lm, hist,
+        matcher.histogram, node_q, identity, cb.bnb_params,
+        pg._options.constraint_builder.global_localization_min_score,
+        low_probability=matcher.low_probability)
+    loc_s = time.monotonic() - t0
+    loc_err = float(np.linalg.norm(loc_t - node.global_t))
+    rot_err = float(nquat.angle(nquat.multiply(nquat.conjugate(node.global_q), loc_q)))
+    print(f"3D global localization: node {nid} (scan {index[nid]}, lap {lap[index[nid]] + 1}) "
+          f"in submap (0, 0): score {score:.4f}, found {found}, certified {certified}, "
+          f"{loc_err:.4f} m and {rot_err:.4f} rad from its optimized pose (limits 0.2 m, "
+          f"0.05 rad), {loc_s:.2f} s")
+    if not (found and certified and loc_err <= 0.2 and rot_err <= 0.05):
+        _fail("3D global localization did not come back certified within 0.2 m and 0.05 rad")
+    # The first recorded pair whose search found a match, for K15's check.
+    request = next((r for r in recorded
+                    if float(bnb_3d.fast_correlative_match_3d(*_pair_args(cb, r))[0]) > 0.5),
+                   recorded[0])
+    return dict(
+        pose_graph=pg, request=request, node=node, node_rotation=unknown_yaw,
+        summary=dict(
+            scans=len(events), nodes=len(pg.nodes), submaps=len(pg.submap_data),
+            loop_closures=inter, pairs_tried=cb.pairs_matched, solves=solves,
+            wall_seconds=wall, constraint_search_seconds=cb.match_seconds,
+            solve_seconds=pg.solve_seconds, snapshot_seconds=pg.snapshot_seconds,
+            wall_ms_per_pair=cb.match_seconds * 1e3 / max(cb.pairs_matched, 1),
+            launches=launches, mean_error_optimized_m=global_err,
+            mean_error_frontend_m=local_err, global_localization_score=score,
+            global_localization_certified=certified, global_localization_error_m=loc_err,
+            global_localization_error_rad=rot_err, global_localization_seconds=loc_s))
+
+
+def _backend_kernel_phase_3d(torch, dev, ctx):
+    """K13-K16 against their twins on the card, on the 3D global run's node,
+    finished submap and first local pair, and on a synthetic SE(3) pose
+    graph with IMU terms at the solver's capacity."""
+    import torch.nn.functional as F
+
+    from cartographer_tpu_torch.interop import schur_problem_3d_from_numpy
+    from cartographer_tpu_torch.ops import bnb_3d, rot_histogram
+    from cartographer_tpu_torch.parallel import schur_spa_3d
+    from cartographer_tpu_torch.simulation import synthetic_pose_graph_3d
+    from cartographer_tpu_torch.transform import quaternion as quat
+
+    rows, extra = {}, {}
+    pg, req = ctx["pose_graph"], ctx["request"]
+    cb = pg.constraint_builder
+    m = req.matcher
+    params = cb.bnb_params
+
+    # K13: the node's full-circle yaws (1259 at 0.1 m and 20 m).
+    n_yaws = bnb_3d.full_circle_yaws(m.high_grid.resolution, params.max_scan_range)
+    hist = torch.tensor(np.asarray(ctx["node"].scan_histogram, np.float32), device=dev)
+    yaw0 = float(quat.get_yaw(torch.tensor(ctx["node_rotation"])))
+    angles = (yaw0 + (torch.arange(n_yaws, dtype=torch.float32, device=dev) - n_yaws // 2)
+              * np.float32(2.0 * np.pi / n_yaws)).contiguous()
+    got = rot_histogram.match_histograms(m.histogram, hist, angles)
+    ref = rot_histogram.match_histograms_plain(m.histogram, hist, angles)
+    err = float((got - ref).abs().max())
+    print(f"K13 rot_match: {n_yaws} yaws x {hist.shape[0]} bins, max |err| {err:.3g} "
+          f"(tolerance 1e-6), best score {float(got.max()):.4f}")
+    if not err <= 1e-6:
+        _fail("K13 differs from the plain twin")
+    bins = hist.shape[0]
+    rows["rot_match"] = dict(
+        replaces="cartographer_tpu/ops/rot_histogram.py:107", max_abs_err=err,
+        ms=_cuda_ms(lambda: rot_histogram.match_histograms(m.histogram, hist, angles)),
+        plain_ms=_cuda_ms(lambda: rot_histogram.match_histograms_plain(m.histogram, hist,
+                                                                       angles)),
+        bound=_bound(2 * bins * 4 + 2 * n_yaws * 4, n_yaws * bins * 14), library_ms=None)
+
+    # K14: the stack of a finished submap's 256^3 crop.
+    grid = m.high_grid
+    depth, frd = params.branch_and_bound_depth, params.full_resolution_depth
+    got = bnb_3d.build_precomputation_stack_3d(grid, depth, frd)
+    ref = bnb_3d.stack_plain(grid, depth, frd)
+    differ = int((got.full != ref.full).sum() + (got.coarse != ref.coarse).sum())
+    S = grid.size
+    print(f"K14 bnb3d_stack: {S}^3 crop, {frd} full and {depth - frd} coarse levels, "
+          f"{differ} differing cells (tolerance 0), {int(got.full[0].gt(0).sum())} cells above "
+          f"the floor")
+    if differ or not torch.equal(got.full, m.stack.full):
+        _fail("K14 differs from the plain twin")
+    q = got.full[0].float()[None, None]
+    rows["bnb3d_stack"] = dict(
+        replaces="cartographer_tpu/ops/bnb_3d.py:113", max_abs_err=float(differ),
+        ms=_cuda_ms(lambda: bnb_3d.build_precomputation_stack_3d(grid, depth, frd), reps=10),
+        plain_ms=_cuda_ms(lambda: bnb_3d.stack_plain(grid, depth, frd), reps=3, warmup=1),
+        bound=_bound(S ** 3 * 5 + frd * S ** 3 + (depth - frd) * (S // 2) ** 3,
+                     S ** 3 * (12 + 8 * (frd - 1)) + (depth - frd) * S ** 3 * 2),
+        # One halving of the quantized level; the stack takes 18 such passes.
+        library_ms=_cuda_ms(lambda: F.max_pool3d(q, 2, 2)))
+    del got, ref
+
+    # K15: one local pair of the run at the default widths, kernel against twin.
+    args = _pair_args(cb, req)
+    calls = []
+    score, discretize = bnb_3d.score, bnb_3d.discretize
+
+    def recorded_score(*a):
+        calls.append(("score", a))
+        return score(*a)
+
+    def recorded_discretize(*a):
+        calls.append(("discretize", a))
+        return discretize(*a)
+
+    bnb_3d.score, bnb_3d.discretize = recorded_score, recorded_discretize
+    out_k = bnb_3d.fast_correlative_match_3d(*args)
+    bnb_3d.score, bnb_3d.discretize = score, discretize
+    out_p = bnb_3d.fast_correlative_match_3d(*args, plain=True)
+    same = torch.equal(out_k, out_p)
+    cand = sum(a[6].shape[0] for kind, a in calls if kind == "score")
+    gathers = sum(a[6].shape[0] * int(a[5].sum()) for kind, a in calls if kind == "score")
+    print(f"K15 bnb3d_discretize, bnb3d_score: pair {req.node_id}/{req.submap_id}: score "
+          f"{float(out_k[1]):.6f} (twin {float(out_p[1]):.6f}), found {bool(out_k[0])}, certified "
+          f"{bool(out_k[11])}, result vectors bit-equal {same}; {len(calls)} launches, {cand} "
+          f"candidates")
+    if not same:
+        _fail(f"K15 match differs from the plain twin: {out_k} vs {out_p}")
+    scores = [a for kind, a in calls if kind == "score"]
+
+    def score_bytes(a):
+        # The level cells the candidates can touch (at most one per point and
+        # candidate, at most the whole level), the cells of the yaws in use,
+        # the mask, and the candidates in and their scores out.
+        level, cells, mask, a_idx = a[0], a[4], a[5], a[6]
+        b, item = a_idx.shape[0], level.element_size()
+        yaws = int(a_idx.unique().numel())
+        return (min(level.numel() * item, b * int(mask.sum()) * item)
+                + yaws * cells.shape[1] * 12 + mask.numel() + b * 20)
+
+    cloud_bytes = sum(a[0].numel() * 4 + a[1].numel() * 4 + a[0].shape[0] * a[1].shape[0] * 12
+                      for kind, a in calls if kind == "discretize")
+    rows["bnb3d_score"] = dict(
+        replaces="cartographer_tpu/ops/bnb_3d.py:152", max_abs_err=0.0 if same else 1.0,
+        ms=_cuda_ms(lambda: [score(*a) for a in scores], reps=10),
+        plain_ms=_cuda_ms(lambda: [bnb_3d.score_plain(*a) for a in scores], reps=3, warmup=1),
+        bound=_bound(sum(score_bytes(a) for a in scores), gathers * 25), library_ms=None)
+    rows["bnb3d_discretize"] = dict(
+        replaces="cartographer_tpu/ops/bnb_3d.py:503", max_abs_err=0.0 if same else 1.0,
+        ms=_cuda_ms(lambda: [discretize(*a) for k, a in calls if k == "discretize"]),
+        plain_ms=_cuda_ms(lambda: [bnb_3d.discretize_plain(*a) for k, a in calls
+                                   if k == "discretize"]),
+        bound=_bound(cloud_bytes, sum(a[1].shape[0] * a[0].shape[0] * 60
+                                      for k, a in calls if k == "discretize")),
+        library_ms=None)
+    extra["bnb3d_match_ms"] = _cuda_ms(lambda: bnb_3d.fast_correlative_match_3d(*args), reps=10)
+
+    # K16: a synthetic pose graph with IMU terms at capacity.
+    S, N, C = 64, 4096, 16384
+    arrays, truth_t, _ = synthetic_pose_graph_3d(S, N, C, seed=3)
+    problem = schur_problem_3d_from_numpy(arrays, dev)
+    wmax = schur_spa_3d.max_weight(problem)
+    p = schur_spa_3d.pad_even(schur_spa_3d.normalized(problem, wmax))
+    hs = 10.0 / wmax
+    kern = schur_spa_3d._solve_kernel(p, 2, hs, 1e-6)
+    twin = schur_spa_3d.solve_plain(p, 2, hs, 1e-6)
+    err = max(float((a - b).abs().max()) for a, b in zip(kern, twin))
+    if not err <= 1e-3:
+        _fail(f"K16 two iterations differ from the plain twin by {err} (tolerance 1e-3)")
+    k50 = schur_spa_3d._solve_kernel(p, 50, hs, 1e-6)
+    cost0 = float(schur_spa_3d.cost(p.sub_t, p.sub_q, p.node_t, p.node_q, p, hs))
+    cost50 = float(schur_spa_3d.cost(*k50, p, hs))
+    err0 = float(np.abs(arrays["node_t"] - truth_t).mean())
+    err50 = float(np.abs(k50[2].cpu().numpy() - truth_t).mean())
+    print(f"K16 schur_spa_3d: 2 iterations at N={N} S={S} C={C} R={N - 1} A={N - 2} within "
+          f"{err:.3g} of the plain twin (tolerance 1e-3); 50 iterations: cost {cost0:.4g} -> "
+          f"{cost50:.4g}, node error {err0:.4f} -> {err50:.4f} m")
+    if not (cost50 < 0.01 * cost0 and err50 < 0.5 * err0):
+        _fail("K16 50 iterations did not converge")
+    K, E, N2 = 6 * S + 1, C + 2 * (N - 1) + 3 * (N - 2), N // 2
+    per_iteration_ops = (C * 2 * 6000 + (N - 1) * 6000 * 4 + (N - 1) * 3 * 5000
+                         + (N - 2) * 4 * 5000 + N2 * 12 ** 3 * 6 + 2 * N * 12 * K * 24
+                         + E * K * 72 + (6 * S) ** 3 // 3 + N * 6 * 6 * S * 2)
+    spd = torch.randn(6 * S, 6 * S, device=dev)
+    spd = spd @ spd.T + 6 * S * torch.eye(6 * S, device=dev)
+    rows["schur_spa_3d"] = dict(
+        replaces="cartographer_tpu/parallel/schur_spa_3d.py:529", max_abs_err=err,
+        ms=_cuda_ms(lambda: schur_spa_3d._solve_kernel(p, 2, hs, 1e-6), reps=3),
+        plain_ms=_cuda_ms(lambda: schur_spa_3d.solve_plain(p, 2, hs, 1e-6), reps=1, warmup=0),
+        bound=_bound(C * 50 + (N - 1) * 44 + (N - 1) * 28 + (N - 2) * 36 + (S + N) * 41,
+                     2 * per_iteration_ops),
+        # The reduced system's Cholesky factor, twice (one per iteration).
+        library_ms=_cuda_ms(lambda: [torch.linalg.cholesky(spd) for _ in range(2)]))
+    extra["schur_3d_50_iterations_ms"] = _cuda_ms(
+        lambda: schur_spa_3d._solve_kernel(p, 50, hs, 1e-6), reps=2, warmup=1)
+    return rows, extra
+
+
 def _profile(torch, feed, data, label="profile"):
     """Device busy share and kernel time by name over a window of scans
     that continues the main run (its launches are not counted there);
@@ -1151,13 +1445,17 @@ def main() -> int:
     del run["submap"], run["nodes"]
     run3d = _slice_phase_3d(torch, dev)
     rows3d = _kernel_phase_3d(torch, dev, run3d.pop("builder"), run3d.pop("last_step"))
+    slam3d = _global_phase_3d(torch, dev)
+    rows3g, backend3d = _backend_kernel_phase_3d(torch, dev, slam3d)
+    del slam3d["pose_graph"], slam3d["request"]
     full_hall = _full_hall_phase_3d(torch, dev)
 
     sources = {k.symbol: k.source for k in cuda.KERNELS.values()}
     kernels = []
-    for name, row in {**rows, **rows3d}.items():
+    for name, row in {**rows, **rows3d, **rows3g}.items():
         bound_ms, bound_by = row["bound"]
-        launches = run3d["launches"] if name in rows3d else slam["launches"]
+        launches = (slam3d["summary"]["launches"] if name in rows3g
+                    else run3d["launches"] if name in rows3d else slam["launches"])
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"cartographer_tpu_torch/csrc/{sources[name]}",
@@ -1184,9 +1482,12 @@ def main() -> int:
             "launches_per_scan": {k: v / run3d["scans"] for k, v in run3d["launches"].items()
                                   if k in KERNELS_3D},
             "profile": run3d["profile"]},
+        "global_slam_3d": slam3d["summary"],
         "frontend_3d_full_size_hall": full_hall,
         "bnb_match_ms": backend["bnb_match_ms"],
         "schur_50_iterations_ms": backend["schur_50_iterations_ms"],
+        "bnb3d_match_ms": backend3d["bnb3d_match_ms"],
+        "schur_3d_50_iterations_ms": backend3d["schur_3d_50_iterations_ms"],
         "kernel_device_ms": {k["name"]: k["ms"] for k in kernels},
         "bound_ms": {k["name"]: k["bound_ms"] for k in kernels},
         "library_ms": {k["name"]: k["library_ms"] for k in kernels}}))

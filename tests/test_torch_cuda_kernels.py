@@ -310,3 +310,128 @@ def test_rot_histogram_kernel(dev, n, bins):
         a = torch.tensor(angle, dtype=torch.float32, device=dev)
         assert torch.equal(rot_histogram.rotate_histogram(got, a),
                            rot_histogram.rotate_histogram_plain(got, a))
+
+
+def test_rot_match_kernel(dev):
+    from cartographer_tpu_torch.ops import rot_histogram
+
+    rng = np.random.RandomState(13)
+    scan, submap = (_t(rng.rand(120).astype(np.float32), dev) for _ in range(2))
+    angles = _t(rng.uniform(-4.0, 4.0, 1259).astype(np.float32), dev)
+    got = rot_histogram.match_histograms(submap, scan, angles)
+    ref = rot_histogram.match_histograms_plain(submap, scan, angles)
+    torch.testing.assert_close(got, ref, atol=1e-6, rtol=0)
+
+
+def _occupied_grid_3d(rng, dev, size=64, resolution=0.2):
+    """A 3D grid with eight random planes of occupied cells, known
+    everywhere, and points on them."""
+    from cartographer_tpu_torch.ops.grid_3d import Grid3D
+
+    log_odds = torch.full((size,) * 3, -2.0, device=dev)
+    cells = []
+    for _ in range(8):
+        u = rng.randint(size // 8, size - size // 8, (600, 2))
+        cells.append(np.insert(u, rng.randint(3), rng.randint(size // 4, 3 * size // 4), axis=1))
+    cells = np.concatenate(cells)
+    c = torch.from_numpy(cells).to(dev)
+    log_odds[c[:, 0], c[:, 1], c[:, 2]] = 2.0
+    origin = -0.5 * size * resolution
+    grid = Grid3D(log_odds, torch.ones((size,) * 3, dtype=torch.bool, device=dev),
+                  torch.full((3,), origin, device=dev), resolution)
+    return grid, (cells + 0.37).astype(np.float32) * resolution + origin
+
+
+@pytest.mark.parametrize("depth,frd", [(4, 3), (8, 3)])
+def test_bnb3d_stack_kernel(dev, depth, frd):
+    from cartographer_tpu_torch.ops import bnb_3d
+
+    grid, _ = _occupied_grid_3d(np.random.RandomState(depth), dev, size=128)
+    grid = dataclasses.replace(grid, known=_t(np.random.RandomState(1).rand(128, 128, 128) < 0.7,
+                                              dev))
+    got = bnb_3d.build_precomputation_stack_3d(grid, depth, frd)
+    ref = bnb_3d.stack_plain(grid, depth, frd)
+    assert torch.equal(got.full, ref.full) and torch.equal(got.coarse, ref.coarse)
+
+
+def test_bnb3d_search_kernels(dev):
+    from cartographer_tpu_torch.ops import bnb_3d, rot_histogram
+
+    rng = np.random.RandomState(5)
+    grid, points = _occupied_grid_3d(rng, dev)
+    low = dataclasses.replace(grid, log_odds=grid.log_odds[::2, ::2, ::2].contiguous(),
+                              known=grid.known[::2, ::2, ::2].contiguous(), resolution=0.4)
+    stack = bnb_3d.build_precomputation_stack_3d(grid, 4, 3)
+    world = points[rng.choice(len(points), 512, replace=False)]
+    c, s = np.cos(0.1), np.sin(0.1)
+    local = ((world - np.float32([0.4, -0.2, 0.2]))
+             @ np.float32([[c, -s, 0], [s, c, 0], [0, 0, 1]])).astype(np.float32)
+    hp, lp = _t(local[:256], dev), _t(local, dev)
+    hm, lm = (torch.ones(n, dtype=torch.bool, device=dev) for n in (256, 512))
+    hist = rot_histogram.compute_rotational_histogram(hp, hm, 120)
+    params = bnb_3d.FastCorrelativeMatcherParams3D(
+        branch_and_bound_depth=4, min_rotational_score=0.0, min_low_resolution_score=0.0,
+        linear_xy_search_window=1.0, linear_z_search_window=0.4, beam_width=512,
+        max_scan_range=8.0)
+    init_t, init_q = torch.zeros(3, device=dev), _t(np.float32([1, 0, 0, 0]), dev)
+    yaw_q = torch.nn.functional.normalize(torch.randn(33, 4, device=dev), dim=-1)
+    assert torch.equal(bnb_3d.discretize(hp, yaw_q, init_q, init_t, grid.origin, 0.2),
+                       bnb_3d.discretize_plain(hp, yaw_q, init_q, init_t, grid.origin, 0.2))
+    args = (stack, grid, low, hp, hm, lp, lm, hist, hist, init_t, init_q, params, 0.3)
+    got = bnb_3d.fast_correlative_match_3d(*args)
+    ref = bnb_3d.fast_correlative_match_3d(*args, plain=True)
+    assert torch.equal(got, ref) and float(got[0]) == 1.0
+
+
+@pytest.mark.parametrize("iterations", [1, 2, 30])
+def test_schur_spa_3d_kernel(dev, iterations):
+    """K16 against its twin, iteration by iteration. Atomics reorder the
+    kernel's cost sums (float32, about 1e-7 relative), so once an LM step
+    changes the cost by less than that, the accept test is a tie that either
+    side may take either way, and from there lambda and the path differ.
+    Until the accept flags part the costs agree at 1e-4; every decision they
+    take apart is such a near-tie on both sides; both end at the same cost.
+    Over the steps that lower the cost by more than 1e-5, which no rounding
+    flips, the states agree at 1e-3. After 30 iterations both have
+    converged."""
+    from cartographer_tpu_torch.interop import schur_problem_3d_from_numpy
+    from cartographer_tpu_torch.parallel import schur_spa_3d
+    from cartographer_tpu_torch.simulation import synthetic_pose_graph_3d
+
+    arrays, truth_t, _ = synthetic_pose_graph_3d(8, 200, 640, seed=2)
+    p = schur_problem_3d_from_numpy(arrays, dev)
+    wmax = schur_spa_3d.max_weight(p)
+    pp = schur_spa_3d.pad_even(schur_spa_3d.normalized(p, wmax))
+
+    def run(solve, n):
+        history = torch.zeros((n, 4), dtype=torch.float32, device=dev)
+        return solve(pp, n, 10.0 / wmax, 1e-6, history=history), history.cpu().numpy()
+
+    got, hk = run(schur_spa_3d._solve_kernel, iterations)
+    ref, hp = run(schur_spa_3d.solve_plain, iterations)
+    for i, (k, r) in enumerate(zip(hk, hp)):
+        print(f"iteration {i}: kernel cost {k[0]:.9g} -> {k[1]:.9g} accept {k[2]:.0f}, "
+              f"twin cost {r[0]:.9g} -> {r[1]:.9g} accept {r[2]:.0f}")
+    parted = np.flatnonzero(hk[:, 2] != hp[:, 2])
+    d = int(parted[0]) if parted.size else iterations
+    gap = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    print(f"accept flags part at iteration {d} of {iterations}; states {gap:.3g} apart")
+    np.testing.assert_allclose(hk[:d, :2], hp[:d, :2], rtol=1e-4, atol=0)
+    for i in parted:
+        for h in (hk, hp):
+            assert abs(h[i, 1] - h[i, 0]) <= 1e-5 * h[i, 0], (i, h[i])
+    np.testing.assert_allclose(hk[-1, 0], hp[-1, 0], rtol=1e-4, atol=0)
+    ends = (got[2], ref[2])
+    small = np.flatnonzero(hp[:, 0] - hp[:, 1] < 1e-5 * hp[:, 0])
+    steps = int(small[0]) if small.size else iterations
+    assert steps == iterations or steps >= 3
+    if steps < iterations:
+        (got, hk), (ref, _) = run(schur_spa_3d._solve_kernel, steps), run(schur_spa_3d.solve_plain,
+                                                                          steps)
+        assert (hk[:, 2] == hp[:steps, 2]).all()
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, atol=1e-3, rtol=0)
+    if iterations > 2:
+        for nodes in ends:
+            err = np.abs(nodes.cpu().numpy()[:len(truth_t)] - truth_t).mean()
+            assert err < 0.1 * np.abs(arrays["node_t"] - truth_t).mean()

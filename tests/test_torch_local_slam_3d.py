@@ -9,10 +9,15 @@ import pytest
 import torch
 
 import jax
+import jax.numpy as jnp
 
 from cartographer_tpu.core.config import TrajectoryBuilder3DOptions as JOptions, apply_overrides
 from cartographer_tpu.mapping.local_trajectory_builder_3d import (
     LocalTrajectoryBuilder3D as JBuilder,
+)
+from cartographer_tpu.ops.rot_histogram import (
+    compute_rotational_histogram as j_histogram,
+    rotate_histogram as j_rotate,
 )
 from cartographer_tpu.sensor.data import ImuData as JImuData, TimedPointCloudData as JScan
 from cartographer_tpu_torch.core.config import TrajectoryBuilder3DOptions
@@ -83,6 +88,16 @@ def _port_builder(**overrides):
             ImuData, TimedPointCloudData)
 
 
+def _levelled_histogram(ir, jopts):
+    """The JAX histogram of a JAX insertion's high-resolution cloud levelled
+    by its gravity alignment without the yaw."""
+    g = np.asarray(ir.gravity_alignment, np.float64)
+    level = nquat.multiply(nquat.from_yaw(-nquat.get_yaw(g)), g)
+    cloud = np.stack([nquat.rotate(level, p) for p in ir.high_res_cloud]).astype(np.float32)
+    return np.asarray(j_histogram(jnp.asarray(cloud), jnp.ones(len(cloud), bool),
+                                  jopts.rotational_histogram_size))
+
+
 def test_builder_matches_jax():
     jopts = _jax_options()
     jb = JBuilder(jopts, ["points"])
@@ -103,7 +118,8 @@ def test_builder_matches_jax():
             jfinished += rj.insertion_result.finished_submaps
             tfinished += rt.insertion_result.finished_submaps
             np.testing.assert_allclose(rt.insertion_result.scan_histogram.sum(),
-                                       rj.insertion_result.scan_histogram.sum(), rtol=0.05)
+                                       _levelled_histogram(rj.insertion_result, jopts).sum(),
+                                       rtol=0.05)
     assert len(tfinished) == len(jfinished) >= 1
     assert [s.num_range_data for s in tfinished] == [s.num_range_data for s in jfinished]
     assert ([s.num_range_data for s in tb._active_submaps.submaps]
@@ -114,8 +130,56 @@ def test_builder_matches_jax():
     assert tf.high_grid.log_odds.shape == jf.high_grid.log_odds.shape
     same = np.asarray(jf.high_grid.known) == tf.high_grid.known.numpy()
     assert same.mean() > 0.999, same.mean()
-    np.testing.assert_allclose(tf.histogram, jf.histogram, atol=0.05 * jf.histogram.max())
+    # The submap histogram adds each scan's histogram of its cloud levelled
+    # without the IMU's yaw, rotated by the scan's yaw (the reference's
+    # submap_3d.cc InsertData; the JAX builder rotates the gravity-frame
+    # histogram, which counts the IMU yaw twice): rebuilt from the JAX
+    # builder's insertions with the JAX functions.
+    expected = np.zeros_like(np.asarray(jf.histogram))
+    inserted = [r.insertion_result for r in jres if r.insertion_result is not None]
+    for ir in inserted[:2 * _jax_options().submaps.num_range_data]:
+        expected += np.asarray(j_rotate(jnp.asarray(_levelled_histogram(ir, jopts)), jnp.float32(
+            nquat.get_yaw(ir.local_pose_rotation))))
+    np.testing.assert_allclose(tf.histogram, expected, atol=0.05 * expected.max())
     assert tb.device_fetches == 26
+
+
+def test_scan_histogram_departs_from_jax_by_the_imu_yaw():
+    """The port's one departure from the JAX builder: its scan histogram is
+    of the cloud levelled without the IMU tracker's yaw. At a turning yaw
+    rate it is the JAX histogram of the JAX insertion's cloud levelled so,
+    and it matches the JAX builder's gravity-frame histogram rotated by
+    -yaw(gravity_alignment), up to the rotation's linear interpolation
+    (which blurs the few-point histograms of this scene), far better than
+    that histogram itself."""
+    jopts = _jax_options()
+    jb = JBuilder(jopts, ["points"])
+    tb = LocalTrajectoryBuilder3D(options_3d_from_dict(dataclasses.asdict(jopts)), ["points"],
+                                  device="cpu", permutation_fn=_jax_permutation)
+    world = make_environment_3d(num=500, seed=3)
+    poses = [(np.array([0.03 * i, 0.0, 0.0]), 0.03 * i) for i in range(20)]
+    jres, tres = _drive([(jb, JImuData, JScan), (tb, ImuData, TimedPointCloudData)], world,
+                        poses)
+
+    def cosine(a, b):
+        return float(a @ b / max(np.linalg.norm(a) * np.linalg.norm(b), 1e-9))
+
+    rotated, unrotated = [], []
+    for rj, rt in zip(jres, tres):
+        if rj.insertion_result is None:
+            continue
+        jir, tir = rj.insertion_result, rt.insertion_result
+        exact = _levelled_histogram(jir, jopts)
+        np.testing.assert_allclose(tir.scan_histogram, exact, atol=1e-4 * exact.max(), rtol=0)
+        yaw = nquat.get_yaw(np.asarray(jir.gravity_alignment, np.float64))
+        if abs(yaw) > 0.05:  # about two bins (1.5 degrees each) or more
+            levelled = np.asarray(j_rotate(jnp.asarray(jir.scan_histogram, jnp.float32),
+                                           jnp.float32(-yaw)))
+            rotated.append(cosine(tir.scan_histogram, levelled))
+            unrotated.append(cosine(tir.scan_histogram, jir.scan_histogram))
+    assert len(rotated) >= 15
+    assert min(rotated) > 0.6 and np.mean(rotated) > 0.75, rotated
+    assert all(r > u for r, u in zip(rotated, unrotated)) and np.mean(unrotated) < 0.15
 
 
 # The simulated hall at a small width: 8 rings x 128 azimuths, the default

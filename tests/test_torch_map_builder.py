@@ -180,7 +180,7 @@ def test_map_builder_without_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("override", [
-    {"use_trajectory_builder_3d": True},
+    {"use_trajectory_builder_3d": True, "pose_graph.overlapping_submaps_trimmer_2d": object()},
     {"batch_scan_dispatch": True},
     {"pose_graph.overlapping_submaps_trimmer_2d": object()},
 ])

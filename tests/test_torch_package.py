@@ -23,9 +23,11 @@ from cartographer_tpu_torch.core.config import (
     TrajectoryBuilderOptions,
 )
 from cartographer_tpu_torch.interop import (
+    UNPORTED_3D_SWITCHES,
     UNPORTED_MAP_BUILDER_SWITCHES,
     UNPORTED_SWITCHES,
     UNPORTED_TRAJECTORY_SWITCHES,
+    UNREAD_3D_OPTIONS,
     UNREAD_MAP_BUILDER_OPTIONS,
     UNREAD_OPTIONS,
     UNREAD_TRAJECTORY_OPTIONS,
@@ -126,17 +128,24 @@ def test_map_builder_options_carry_across():
     _assert_carried(jtraj, trajectory_builder_options_from_dict(dataclasses.asdict(jtraj)),
                     tuple(UNPORTED_TRAJECTORY_SWITCHES) + UNREAD_TRAJECTORY_OPTIONS
                     + tuple("trajectory_builder_2d." + p
-                            for p in tuple(UNPORTED_SWITCHES) + UNREAD_OPTIONS))
+                            for p in tuple(UNPORTED_SWITCHES) + UNREAD_OPTIONS)
+                    + tuple("trajectory_builder_3d." + p
+                            for p in tuple(UNPORTED_3D_SWITCHES) + UNREAD_3D_OPTIONS))
     assert map_builder_options_from_dict(
         dataclasses.asdict(JMapBuilderOptions())) == MapBuilderOptions()
+    j3d = apply_overrides(JMapBuilderOptions(use_trajectory_builder_3d=True), {
+        "pose_graph.constraint_builder.fast_correlative_scan_matcher_3d.branch_and_bound_depth": 6,
+        "pose_graph.optimization_problem.fix_z_in_3d": True})
+    _assert_carried(j3d, map_builder_options_from_dict(dataclasses.asdict(j3d)),
+                    tuple(UNPORTED_MAP_BUILDER_SWITCHES) + UNREAD_MAP_BUILDER_OPTIONS)
     assert trajectory_builder_options_from_dict(
         dataclasses.asdict(JTrajectoryOptions())) == TrajectoryBuilderOptions()
 
 
 @pytest.mark.parametrize("path,value", [
-    ("use_trajectory_builder_3d", True),
     ("batch_scan_dispatch", True),
     ("pose_graph.overlapping_submaps_trimmer_2d", {"fresh_submaps_count": 1}),
+    ("pose_graph.overlapping_submaps_trimmer_2d", {"min_covered_area": 5.0}),
 ])
 def test_unported_map_builder_switches_raise(path, value):
     jopts = apply_overrides(JMapBuilderOptions(), {path: value})

@@ -1,5 +1,5 @@
-"""The port's rotational histogram (plain twin of kernel K12) against the
-JAX package."""
+"""The port's rotational histogram and its yaw scoring (plain twins of
+kernels K12 and K13) against the JAX package."""
 
 import numpy as np
 import pytest
@@ -9,10 +9,12 @@ import jax.numpy as jnp
 
 from cartographer_tpu.ops.rot_histogram import (
     compute_rotational_histogram as j_histogram,
+    match_histograms as j_match,
     rotate_histogram as j_rotate,
 )
 from cartographer_tpu_torch.ops.rot_histogram import (
     compute_rotational_histogram,
+    match_histograms,
     rotate_histogram,
 )
 
@@ -90,3 +92,26 @@ def test_rotation_follows_the_cloud():
     rotated = rotate_histogram(a, torch.tensor(yaw, dtype=torch.float32))
     cos = float((rotated * b).sum() / (rotated.norm() * b.norm()))
     assert cos > 0.9, cos
+
+
+@pytest.mark.parametrize("count,span", [(107, 0.27), (1259, np.pi)])
+def test_match_histograms_matches_jax(count, span):
+    """The candidate yaws of a local search (107 within 15 degrees) and of a
+    full-circle search (1259), around an initial yaw."""
+    rng = np.random.RandomState(count)
+    pts = _room(rng, 512)
+    mask = np.ones(512, bool)
+    scan = np.asarray(j_histogram(jnp.asarray(pts), jnp.asarray(mask), 120))
+    c, s = np.cos(0.7), np.sin(0.7)
+    turned = np.stack([c * pts[:, 0] - s * pts[:, 1], s * pts[:, 0] + c * pts[:, 1],
+                       pts[:, 2]], -1).astype(np.float32)
+    submap = np.asarray(j_histogram(jnp.asarray(turned), jnp.asarray(mask), 120))
+    angles = (0.65 + np.linspace(-span, span, count)).astype(np.float32)
+    ref = np.asarray(j_match(jnp.asarray(submap), jnp.asarray(scan), jnp.asarray(angles)))
+    got = match_histograms(torch.from_numpy(submap), torch.from_numpy(scan),
+                           torch.from_numpy(angles)).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-6, rtol=0)
+    if count == 107:  # the local window: the best yaw is the cloud's turn, up to a bin
+        assert abs(angles[int(np.argmax(got))] - 0.7) < np.pi / 120 + 0.03
+    zero = match_histograms(torch.zeros(120), torch.from_numpy(scan), torch.from_numpy(angles))
+    assert torch.equal(zero, torch.zeros(count))
