@@ -7,8 +7,8 @@ map_builder.lua, plus the static capacities the device pipeline is sized by
 (`TpuOptions2D`, `TpuOptions3D`, kept under their original names so that the
 `dataclasses.asdict` trees of the two packages share their keys). Options of
 features the port does not have are left out; the switches the constructors
-must refuse (`submaps.grid_type`, `use_intensities`, `batch_scan_dispatch`
-and the trimmers) stay.
+must refuse (`submaps.grid_type`, `batch_scan_dispatch`, the trimmers and
+the 2D `pose_extrapolator.use_imu_based`) stay.
 """
 
 from __future__ import annotations
@@ -75,8 +75,24 @@ class ConstantVelocityExtrapolatorOptions:
 
 
 @dataclasses.dataclass(frozen=True)
+class ImuBasedExtrapolatorOptions:
+    """trajectory_builder_3d.lua pose_extrapolator.imu_based defaults."""
+    pose_queue_duration: float = 5.0
+    gravity_constant: float = 9.806
+    pose_translation_weight: float = 1.0
+    pose_rotation_weight: float = 1.0
+    imu_acceleration_weight: float = 1.0
+    imu_rotation_weight: float = 1.0
+    odometry_translation_weight: float = 1.0
+    odometry_rotation_weight: float = 1.0
+    max_num_iterations: int = 10
+
+
+@dataclasses.dataclass(frozen=True)
 class PoseExtrapolatorOptions:
+    use_imu_based: bool = False  # 3D only: the 2D builder refuses it
     constant_velocity: ConstantVelocityExtrapolatorOptions = _d(ConstantVelocityExtrapolatorOptions)
+    imu_based: ImuBasedExtrapolatorOptions = _d(ImuBasedExtrapolatorOptions)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,6 +136,7 @@ class TrajectoryBuilder2DOptions:
 # ------------------------------------------------------- trajectory_builder_3d.lua
 
 MAX_3D_RANGE = 60.0
+INTENSITY_THRESHOLD = 40.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,9 +159,20 @@ class TpuOptions3D:
 
 
 @dataclasses.dataclass(frozen=True)
+class IntensityCostFunctionOptions:
+    weight: float = 0.5
+    huber_scale: float = 0.3
+    intensity_threshold: float = INTENSITY_THRESHOLD
+
+
+@dataclasses.dataclass(frozen=True)
 class CeresScanMatcherOptions3D:
     occupied_space_weight_0: float = 1.0
     occupied_space_weight_1: float = 6.0
+    # The frontend reads only `weight` (with use_intensities); the matcher's
+    # Huber scale and threshold stay at 0.3 and 40, as in the JAX package.
+    intensity_cost_function_options_0: IntensityCostFunctionOptions = _d(
+        IntensityCostFunctionOptions)
     translation_weight: float = 5.0
     rotation_weight: float = 4e2
     only_optimize_yaw: bool = False
@@ -157,6 +185,7 @@ class RangeDataInserterOptions3D:
     hit_probability: float = 0.55
     miss_probability: float = 0.49
     num_free_space_voxels: int = 2
+    intensity_threshold: float = INTENSITY_THRESHOLD
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,6 +207,10 @@ class TrajectoryBuilder3DOptions:
     low_resolution_adaptive_voxel_filter: AdaptiveVoxelFilterOptions = _d(
         lambda: AdaptiveVoxelFilterOptions(max_length=4.0, min_num_points=200,
                                            max_range=MAX_3D_RANGE))
+    use_online_correlative_scan_matching: bool = False
+    real_time_correlative_scan_matcher: RealTimeCorrelativeScanMatcherOptions = _d(
+        lambda: RealTimeCorrelativeScanMatcherOptions(
+            linear_search_window=0.15, angular_search_window=math.radians(1.0)))
     ceres_scan_matcher: CeresScanMatcherOptions3D = _d(CeresScanMatcherOptions3D)
     motion_filter: MotionFilterOptions = _d(
         lambda: MotionFilterOptions(max_time_seconds=0.5, max_distance_meters=0.1,
@@ -185,7 +218,7 @@ class TrajectoryBuilder3DOptions:
     rotational_histogram_size: int = 120
     pose_extrapolator: PoseExtrapolatorOptions = _d(PoseExtrapolatorOptions)
     submaps: SubmapsOptions3D = _d(SubmapsOptions3D)
-    use_intensities: bool = False  # not ported: must stay False
+    use_intensities: bool = False
     # Skip scans whose gravity-removed IMU acceleration exceeds this
     # [m/s^2]; 0 = off.
     max_accel_skip: float = 0.0

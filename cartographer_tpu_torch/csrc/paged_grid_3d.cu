@@ -1,11 +1,14 @@
-// K9 paged_insert_3d, K10 paged_crop_3d
+// K9 paged_insert_3d, K10 paged_crop_3d, K18 paged_intensity_insert_3d,
+// K19 paged_intensity_crop_3d
 //
-// Replaces: cartographer_tpu/ops/paged_grid_3d.py:_insert_paged (l.235) and
-// crop_dense / _crop_pools (l.323, l.287).
+// Replaces: cartographer_tpu/ops/paged_grid_3d.py:_insert_paged (l.235),
+// crop_dense / _crop_pools (l.323, l.287), _insert_intensity_paged (l.385)
+// and crop_dense_intensity (l.410).
 //
 // A paged grid is a pool of P pages of B^3 voxels (float32 log-odds and a
-// known flag) behind a page table of NB^3 int32 slots (-1: no page). Block
-// b covers the world cells [b * B, (b + 1) * B) of each axis.
+// known flag, or float32 intensity sums and counts) behind a page table of
+// NB^3 int32 slots (-1: no page). Block b covers the world cells
+// [b * B, (b + 1) * B) of each axis.
 //
 // K9, insert. Per return: the hit cell and `free_voxels` cells back along
 // the ray from the sensor origin. Every cell changes at most once per scan
@@ -20,16 +23,32 @@
 // by the resolution, floor, and a floor division of the signed products
 // along the ray.
 //
-// K10, crop. One thread per cell of the dense size^3 window whose first
-// cell is floor((center - origin) / resolution) - size / 2: block by floor
-// division, page lookup, read or 0 / false where the block has no page or
-// lies outside the table. The window's origin comes out with it.
+// K10 and K19, crop. One thread per cell of the dense size^3 window whose
+// first cell is floor((center - origin) / resolution) - size / 2: block by
+// floor division, page lookup, read both pools or write 0 where the block
+// has no page or lies outside the table. The window's origin comes out with
+// it. One template over the two pools' element types serves the occupancy
+// pools (K10: log-odds, known) and the intensity pools (K19: sums, counts),
+// so a scan's two high-resolution windows are the same cells.
+//
+// K18, intensity insert, in one block. It resolves every return to its pool
+// index (true division, floor, block and page; no cell for a return that is
+// masked out, whose intensity is above the threshold or NaN, outside the
+// table or on a block without a page) and sorts the 64-bit keys (pool
+// index, return index) in shared memory (bitonic). Each run of equal pool
+// indices is then one cell's returns in their order: the thread at its head
+// adds their intensities and counts to the pool in that order, the order of
+// the plain twin's scatter-add on the CPU and of the JAX program. No
+// atomics: the sums are the same from run to run, so a run on the card
+// repeats.
 //
 // Bound: bytes. K9 touches 3 N cells of the pool (5 bytes each, read and
-// written) and reads N returns; K10 writes 5 bytes per window cell and
-// reads as many from the pages the window covers. Design: K9 never sweeps
-// the pool (8.4 M cells); K10 runs the last axis fastest so a warp reads
-// and writes runs of a page row.
+// written) and reads N returns; K18 reads N returns and intensities and
+// updates at most N cells (8 bytes each, read and written); K10 writes 5
+// bytes and K19 8 bytes per window cell and reads as many from the pages
+// the window covers. Design: K9 and K18 never sweep the pool (8.4 M cells);
+// the crops run the last axis fastest so a warp reads and writes runs of a
+// page row.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -38,6 +57,9 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kSortThreads = 1024;
+constexpr int kMaxSorted = 8192;  // 64 KB of sort keys
+constexpr unsigned int kNoCell = 0xFFFFFFFFu;
 
 struct Paged {
   const int* table;  // (nb, nb, nb)
@@ -130,11 +152,22 @@ __global__ void apply_kernel(const long long* __restrict__ cells, int count,
   known[lin] = 1;
 }
 
-__global__ void crop_kernel(Paged g, const float* __restrict__ pages,
-                            const uint8_t* __restrict__ known, float cx, float cy, float cz,
-                            int size, float* __restrict__ dense,
-                            uint8_t* __restrict__ dense_known,
-                            float* __restrict__ window_origin) {
+Paged make_paged(const void* table, const void* origin, float resolution, int page_size,
+                 int num_blocks, int num_pages) {
+  Paged g;
+  g.table = (const int*)table;
+  g.origin = (const float*)origin;
+  g.resolution = resolution;
+  g.page_size = page_size;
+  g.num_blocks = num_blocks;
+  g.num_pages = num_pages;
+  return g;
+}
+
+template <typename A, typename B>
+__global__ void crop_kernel(Paged g, const A* __restrict__ pool_a, const B* __restrict__ pool_b,
+                            float cx, float cy, float cz, int size, A* __restrict__ dense_a,
+                            B* __restrict__ dense_b, float* __restrict__ window_origin) {
   const float center[3] = {cx, cy, cz};
   int start[3];
   for (int a = 0; a < 3; ++a)
@@ -149,20 +182,72 @@ __global__ void crop_kernel(Paged g, const float* __restrict__ pages,
   int i = (int)(idx / ((size_t)size * size));
   int c[3] = {start[0] + i, start[1] + j, start[2] + k};
   long long lin = pool_index(g, c);
-  dense[idx] = lin >= 0 ? pages[lin] : 0.0f;
-  dense_known[idx] = lin >= 0 ? known[lin] : (uint8_t)0;
+  dense_a[idx] = lin >= 0 ? pool_a[lin] : (A)0;
+  dense_b[idx] = lin >= 0 ? pool_b[lin] : (B)0;
 }
 
-Paged make_paged(const void* table, const void* origin, float resolution, int page_size,
-                 int num_blocks, int num_pages) {
-  Paged g;
-  g.table = (const int*)table;
-  g.origin = (const float*)origin;
-  g.resolution = resolution;
-  g.page_size = page_size;
-  g.num_blocks = num_blocks;
-  g.num_pages = num_pages;
-  return g;
+__global__ void __launch_bounds__(kSortThreads)
+    intensity_insert_kernel(Paged g, const float* __restrict__ returns,
+                            const float* __restrict__ intensities,
+                            const uint8_t* __restrict__ mask, int n, int npad,
+                            float threshold, float* __restrict__ sums,
+                            float* __restrict__ counts) {
+  extern __shared__ unsigned long long keys[];  // npad (pool index, return) keys
+  for (int i = threadIdx.x; i < npad; i += blockDim.x) {
+    unsigned int lin = kNoCell;
+    if (i < n && mask[i] && intensities[i] <= threshold) {
+      int c[3];
+      for (int a = 0; a < 3; ++a)
+        c[a] = world_to_cell(returns[3 * i + a], g.origin[a], g.resolution);
+      long long found = pool_index(g, c);
+      if (found >= 0) lin = (unsigned int)found;
+    }
+    keys[i] = ((unsigned long long)lin << 32) | (unsigned int)i;
+  }
+  __syncthreads();
+  // Bitonic sort, ascending: the keys are distinct, so each cell's returns
+  // end up together and in their order.
+  for (int k = 2; k <= npad; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = threadIdx.x; i < npad; i += blockDim.x) {
+        int l = i ^ j;
+        if (l > i) {
+          unsigned long long a = keys[i], b = keys[l];
+          if ((a > b) == ((i & k) == 0)) {
+            keys[i] = b;
+            keys[l] = a;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    unsigned int lin = (unsigned int)(keys[i] >> 32);
+    if (lin == kNoCell || (i > 0 && (unsigned int)(keys[i - 1] >> 32) == lin)) continue;
+    float s = sums[lin], c = counts[lin];
+    for (int j = i; j < n && (unsigned int)(keys[j] >> 32) == lin; ++j) {
+      s = s + intensities[keys[j] & 0xFFFFFFFFull];
+      c = c + 1.0f;
+    }
+    sums[lin] = s;
+    counts[lin] = c;
+  }
+}
+
+template <typename A, typename B>
+int launch_crop(const void* pool_a, const void* pool_b, const void* table,
+                const void* grid_origin, float resolution, int page_size, int num_blocks,
+                int num_pages, float cx, float cy, float cz, int size, void* dense_a,
+                void* dense_b, void* window_origin, void* stream) {
+  Paged g = make_paged(table, grid_origin, resolution, page_size, num_blocks, num_pages);
+  size_t total = (size_t)size * size * size;
+  if (total == 0) return 0;
+  unsigned int blocks = (unsigned int)((total + kThreads - 1) / kThreads);
+  crop_kernel<A, B><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      g, (const A*)pool_a, (const B*)pool_b, cx, cy, cz, size, (A*)dense_a, (B*)dense_b,
+      (float*)window_origin);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -197,12 +282,43 @@ extern "C" int paged_crop_3d(const void* pages, const void* known, const void* t
                              int num_blocks, int num_pages, float cx, float cy, float cz,
                              int size, void* dense, void* dense_known, void* window_origin,
                              void* stream) {
+  return launch_crop<float, uint8_t>(pages, known, table, grid_origin, resolution, page_size,
+                                     num_blocks, num_pages, cx, cy, cz, size, dense,
+                                     dense_known, window_origin, stream);
+}
+
+extern "C" int paged_intensity_crop_3d(const void* sums, const void* counts, const void* table,
+                                       const void* grid_origin, float resolution,
+                                       int page_size, int num_blocks, int num_pages, float cx,
+                                       float cy, float cz, int size, void* dense_sums,
+                                       void* dense_counts, void* window_origin, void* stream) {
+  return launch_crop<float, float>(sums, counts, table, grid_origin, resolution, page_size,
+                                   num_blocks, num_pages, cx, cy, cz, size, dense_sums,
+                                   dense_counts, window_origin, stream);
+}
+
+// Adds in place into `sums` and `counts` (num_pages * page_size^3 each, under
+// 2^32 - 1 cells); at most kMaxSorted returns.
+extern "C" int paged_intensity_insert_3d(void* sums, void* counts, const void* table,
+                                         const void* grid_origin, float resolution,
+                                         int page_size, int num_blocks, int num_pages,
+                                         const void* returns, const void* intensities,
+                                         const void* mask, int n, float threshold,
+                                         void* stream) {
+  if (n == 0) return 0;
+  if (n > kMaxSorted ||
+      (long long)num_pages * page_size * page_size * page_size >= (long long)kNoCell)
+    return (int)cudaErrorInvalidValue;
+  int npad = 2;
+  while (npad < n) npad <<= 1;
+  size_t bytes = (size_t)npad * sizeof(unsigned long long);
+  cudaError_t err = cudaFuncSetAttribute(intensity_insert_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)bytes);
+  if (err != cudaSuccess) return (int)err;
   Paged g = make_paged(table, grid_origin, resolution, page_size, num_blocks, num_pages);
-  size_t total = (size_t)size * size * size;
-  if (total == 0) return 0;
-  unsigned int blocks = (unsigned int)((total + kThreads - 1) / kThreads);
-  crop_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      g, (const float*)pages, (const uint8_t*)known, cx, cy, cz, size, (float*)dense,
-      (uint8_t*)dense_known, (float*)window_origin);
+  intensity_insert_kernel<<<1, kSortThreads, bytes, (cudaStream_t)stream>>>(
+      g, (const float*)returns, (const float*)intensities, (const uint8_t*)mask, n, npad,
+      threshold, (float*)sums, (float*)counts);
   return (int)cudaGetLastError();
 }

@@ -1,14 +1,16 @@
 // K11 scan_matcher_3d
 //
 // Replaces: cartographer_tpu/ops/scan_matcher_3d.py:gauss_newton_match_3d
-// (l.61) with _occupied_residuals (l.53) and se3_retract (l.45),
-// ops/interp.py:interp_trilinear (l.80) and ops/gauss_newton.py:lm_solve
-// (l.22).
+// (l.61) with _occupied_residuals (l.53), the intensity residual (l.93-113)
+// and se3_retract (l.45), ops/interp.py:interp_trilinear (l.80) and
+// ops/gauss_newton.py:lm_solve (l.22).
 //
 // The whole Levenberg-Marquardt solve on the SE(3) tangent [dt, so3] (or
 // [dt, yaw]) is one launch of one block: per iteration one pass over the
 // high- and the low-resolution cloud computes the residuals
-// w / sqrt(n) * (1 - P(T p)), their analytic Jacobian, J^T J (21 values),
+// w / sqrt(n) * (1 - P(T p)), with an intensity grid also the high cloud's
+// intensity rows w_i / sqrt(n_i) * clip(I(T p) - i) over the points whose
+// intensity i is at most the threshold, their analytic Jacobian, J^T J (21 values),
 // J^T r (6) and the cost at the pose; thread 0 adds the translation and
 // rotation penalties, damps the diagonal, solves the 6x6 (4x4) system with
 // partial pivoting and retracts (t += dt, q = normalize(q * exp(so3))); a
@@ -20,6 +22,13 @@
 // corner indices clamped to the border. The probability is computed from
 // the log-odds and known flags of the 8 gathered corners
 // (1 / (1 + exp(-l)), or 0.1 where unknown): no probability volume is made.
+// I is the trilinear interpolation of the running-average intensity, read
+// per corner as sums / max(counts, 1), the value of the twin's average()
+// volume to the bit. clip is the soft Huber clip of the JAX program: the
+// identity up to twice the scale s, s + sqrt(s (|r| - s)) beyond it; its
+// derivative is 1 (0 at r = 0, where sign(r) = 0), s / (2 sqrt(s (|r| - s)))
+// beyond, and the mean of the two at the kink, as jax.jacfwd takes it. The
+// intensity grid's pointers are null when the term is off.
 // The rotation acts on the right, so d world / d so3 = -R(q) [p]x, and the
 // rotation penalty log(conj(q_target) q) has the inverse right Jacobian of
 // SO(3); JAX takes both with jacfwd at delta = 0.
@@ -60,10 +69,35 @@ struct Cloud {
   float scale;  // occupied_space_weight / sqrt(number of valid points)
 };
 
+struct Intensity {
+  const float* sums;  // (size^3,) or null: no intensity rows
+  const float* counts;
+  const float* origin;
+  float resolution;
+  int size;
+  const float* values;  // (n,) the high cloud's intensities
+  float scale;  // intensity weight / sqrt(number of points within the threshold)
+  float huber_scale;
+  float threshold;
+};
+
 __device__ inline float probability(const Grid& g, int i, int j, int k) {
   size_t idx = ((size_t)i * g.size + j) * g.size + k;
   return g.known[idx] ? 1.0f / (1.0f + expf(-g.log_odds[idx])) : 0.1f;
 }
+
+struct OccupancyCorner {
+  const Grid* g;
+  __device__ float operator()(int i, int j, int k) const { return probability(*g, i, j, k); }
+};
+
+struct IntensityCorner {
+  const Intensity* it;
+  __device__ float operator()(int i, int j, int k) const {
+    size_t idx = ((size_t)i * it->size + j) * it->size + k;
+    return it->sums[idx] / fmaxf(it->counts[idx], 1.0f);
+  }
+};
 
 __device__ inline void cross3(const float a[3], const float b[3], float out[3]) {
   out[0] = a[1] * b[2] - a[2] * b[1];
@@ -87,6 +121,53 @@ __device__ inline void quat_multiply(const float a[4], const float b[4], float o
   out[3] = a[0] * b[3] + a[1] * b[2] - a[2] * b[1] + a[3] * b[0];
 }
 
+// Trilinear value at the world point `world` of the size^3 grid whose cell
+// values `corner(i, j, k)` returns (corner indices clamped to the border),
+// and its gradient in cell coordinates.
+template <typename Corner>
+__device__ inline float trilinear(const float* origin, float resolution, int size,
+                                  const float world[3], Corner corner, float grad[3]) {
+  int base[3];
+  float w[3][2];
+  for (int a = 0; a < 3; ++a) {
+    float c = (world[a] - origin[a]) / resolution - 0.5f;
+    float b = floorf(c);
+    float f = c - b;
+    base[a] = (int)b;
+    w[a][0] = 1.0f - f;
+    w[a][1] = f;
+  }
+  float val = 0.0f;
+  grad[0] = grad[1] = grad[2] = 0.0f;
+  for (int di = 0; di < 2; ++di) {
+    int ii = min(max(base[0] + di, 0), size - 1);
+    for (int dj = 0; dj < 2; ++dj) {
+      int jj = min(max(base[1] + dj, 0), size - 1);
+      for (int dk = 0; dk < 2; ++dk) {
+        int kk = min(max(base[2] + dk, 0), size - 1);
+        float c = corner(ii, jj, kk);
+        val = val + w[0][di] * w[1][dj] * w[2][dk] * c;
+        float si = di ? 1.0f : -1.0f, sj = dj ? 1.0f : -1.0f, sk = dk ? 1.0f : -1.0f;
+        grad[0] = grad[0] + si * (w[1][dj] * w[2][dk]) * c;
+        grad[1] = grad[1] + sj * (w[0][di] * w[2][dk]) * c;
+        grad[2] = grad[2] + sk * (w[0][di] * w[1][dj]) * c;
+      }
+    }
+  }
+  return val;
+}
+
+// The gradient on the tangent [dt, so3] of a residual whose gradient in
+// world coordinates is gw, at the body point p and rotation q.
+__device__ inline void tangent_gradient(const float q[4], const float p[3], const float gw[3],
+                                        float* jac) {
+  float gb[3];
+  float qc[4] = {q[0], -q[1], -q[2], -q[3]};
+  rotate(qc, gw, gb);
+  for (int a = 0; a < 3; ++a) jac[a] = gw[a];
+  cross3(p, gb, jac + 3);
+}
+
 // Residual of point k of `cloud` at pose x = [t, q] and, when jac != nullptr,
 // its gradient on the tangent [dt, so3].
 __device__ inline float residual(const Grid& g, const Cloud& cloud, const float x[7], int k,
@@ -98,43 +179,52 @@ __device__ inline float residual(const Grid& g, const Cloud& cloud, const float 
   }
   const float* q = x + 3;
   float p[3] = {cloud.points[3 * k], cloud.points[3 * k + 1], cloud.points[3 * k + 2]};
-  float rot[3];
-  rotate(q, p, rot);
-  int base[3];
-  float w[3][2];
-  for (int a = 0; a < 3; ++a) {
-    float c = ((rot[a] + x[a]) - g.origin[a]) / g.resolution - 0.5f;
-    float b = floorf(c);
-    float f = c - b;
-    base[a] = (int)b;
-    w[a][0] = 1.0f - f;
-    w[a][1] = f;
-  }
-  float val = 0.0f, grad[3] = {0.0f, 0.0f, 0.0f};
-  for (int di = 0; di < 2; ++di) {
-    int ii = min(max(base[0] + di, 0), g.size - 1);
-    for (int dj = 0; dj < 2; ++dj) {
-      int jj = min(max(base[1] + dj, 0), g.size - 1);
-      for (int dk = 0; dk < 2; ++dk) {
-        int kk = min(max(base[2] + dk, 0), g.size - 1);
-        float c = probability(g, ii, jj, kk);
-        val = val + w[0][di] * w[1][dj] * w[2][dk] * c;
-        float si = di ? 1.0f : -1.0f, sj = dj ? 1.0f : -1.0f, sk = dk ? 1.0f : -1.0f;
-        grad[0] = grad[0] + si * (w[1][dj] * w[2][dk]) * c;
-        grad[1] = grad[1] + sj * (w[0][di] * w[2][dk]) * c;
-        grad[2] = grad[2] + sk * (w[0][di] * w[1][dj]) * c;
-      }
-    }
-  }
+  float world[3];
+  rotate(q, p, world);
+  for (int a = 0; a < 3; ++a) world[a] = world[a] + x[a];
+  float grad[3];
+  float val = trilinear(g.origin, g.resolution, g.size, world, OccupancyCorner{&g}, grad);
   if (jac) {
-    float gw[3], gb[3];
+    float gw[3];
     for (int a = 0; a < 3; ++a) gw[a] = -cloud.scale * (grad[a] / g.resolution);
-    float qc[4] = {q[0], -q[1], -q[2], -q[3]};
-    rotate(qc, gw, gb);
-    for (int a = 0; a < 3; ++a) jac[a] = gw[a];
-    cross3(p, gb, jac + 3);
+    tangent_gradient(q, p, gw, jac);
   }
   return cloud.scale * (1.0f - val);
+}
+
+// The intensity residual of point k of the high cloud, and its gradient.
+__device__ inline float intensity_residual(const Intensity& it, const Cloud& cloud,
+                                           const float x[7], int k, float* jac) {
+  float value = it.values[k];
+  if (!cloud.mask[k] || !(value <= it.threshold)) {
+    if (jac)
+      for (int a = 0; a < 6; ++a) jac[a] = 0.0f;
+    return 0.0f;
+  }
+  const float* q = x + 3;
+  float p[3] = {cloud.points[3 * k], cloud.points[3 * k + 1], cloud.points[3 * k + 2]};
+  float world[3];
+  rotate(q, p, world);
+  for (int a = 0; a < 3; ++a) world[a] = world[a] + x[a];
+  float grad[3];
+  float pred = trilinear(it.origin, it.resolution, it.size, world, IntensityCorner{&it}, grad);
+  float r = pred - value;
+  float s = it.huber_scale;
+  float a = fabsf(r);
+  float arg = s * (a - s);
+  bool outlier = arg > 0.0f;
+  float soft = outlier ? sqrtf(arg) : 0.0f;
+  float bound = s + soft;
+  float sign = r > 0.0f ? 1.0f : (r < 0.0f ? -1.0f : 0.0f);
+  if (jac) {
+    float d_bound = outlier ? 0.5f * s * sign / soft : 0.0f;
+    float d_min = a < bound ? sign : (a > bound ? d_bound : 0.5f * (sign + d_bound));
+    float d_r = sign * d_min;
+    float gw[3];
+    for (int c = 0; c < 3; ++c) gw[c] = (it.scale * d_r) * (grad[c] / it.resolution);
+    tangent_gradient(q, p, gw, jac);
+  }
+  return it.scale * (sign * fminf(a, bound));
 }
 
 // Block-wide sum of v[0..count); the result is valid in every thread.
@@ -249,11 +339,15 @@ __device__ inline void retract(const float x[7], const float d[6], float x_new[7
 }
 
 __device__ float sum_of_squares(const Grid& hg, const Cloud& hc, const Grid& lg,
-                                const Cloud& lc, const float x[7]) {
+                                const Cloud& lc, const Intensity& it, const float x[7]) {
   float acc = 0.0f;
   for (int k = threadIdx.x; k < hc.n; k += blockDim.x) {
     float r = residual(hg, hc, x, k, nullptr);
     acc += r * r;
+    if (it.sums) {
+      r = intensity_residual(it, hc, x, k, nullptr);
+      acc += r * r;
+    }
   }
   for (int k = threadIdx.x; k < lc.n; k += blockDim.x) {
     float r = residual(lg, lc, x, k, nullptr);
@@ -270,7 +364,7 @@ __device__ inline void accumulate(float* acc, const float j[6], float r) {
   acc[27] += r * r;
 }
 
-__global__ void scan_matcher_3d_kernel(Grid hg, Cloud hc, Grid lg, Cloud lc,
+__global__ void scan_matcher_3d_kernel(Grid hg, Cloud hc, Grid lg, Cloud lc, Intensity rows,
                                        const float* __restrict__ x0,
                                        const float* __restrict__ target_t, float wt, float wr,
                                        int yaw_only, int num_iterations, int nonmonotonic,
@@ -283,13 +377,18 @@ __global__ void scan_matcher_3d_kernel(Grid hg, Cloud hc, Grid lg, Cloud lc,
   __shared__ float lam, current, best_cost;
   __shared__ int it, stop, finite_delta;
 
-  // n = max(number of valid points, 1) of each cloud, counted once.
-  float cnt[2] = {0.0f, 0.0f};
-  for (int k = threadIdx.x; k < hc.n; k += blockDim.x) cnt[0] += hc.mask[k] ? 1.0f : 0.0f;
+  // n = max(number of valid points, 1) of each cloud and of the intensity
+  // rows, counted once.
+  float cnt[3] = {0.0f, 0.0f, 0.0f};
+  for (int k = threadIdx.x; k < hc.n; k += blockDim.x) {
+    cnt[0] += hc.mask[k] ? 1.0f : 0.0f;
+    if (rows.sums) cnt[2] += (hc.mask[k] && rows.values[k] <= rows.threshold) ? 1.0f : 0.0f;
+  }
   for (int k = threadIdx.x; k < lc.n; k += blockDim.x) cnt[1] += lc.mask[k] ? 1.0f : 0.0f;
-  block_sum(cnt, 2, scratch, sums);
+  block_sum(cnt, 3, scratch, sums);
   hc.scale = hc.scale / sqrtf(fmaxf(sums[0], 1.0f));
   lc.scale = lc.scale / sqrtf(fmaxf(sums[1], 1.0f));
+  rows.scale = rows.scale / sqrtf(fmaxf(sums[2], 1.0f));
   __syncthreads();
   Penalty pen;
   for (int a = 0; a < 3; ++a) pen.target_t[a] = target_t[a];
@@ -309,7 +408,7 @@ __global__ void scan_matcher_3d_kernel(Grid hg, Cloud hc, Grid lg, Cloud lc,
   {
     float xl[7];
     for (int q = 0; q < 7; ++q) xl[q] = x[q];
-    float acc = sum_of_squares(hg, hc, lg, lc, xl);
+    float acc = sum_of_squares(hg, hc, lg, lc, rows, xl);
     block_sum(&acc, 1, scratch, sums);
     if (threadIdx.x == 0) current = best_cost = 0.5f * (sums[0] + penalty_sq(pen, xl));
   }
@@ -326,6 +425,10 @@ __global__ void scan_matcher_3d_kernel(Grid hg, Cloud hc, Grid lg, Cloud lc,
       float j[6];
       float r = residual(hg, hc, xl, k, j);
       accumulate(acc, j, r);
+      if (rows.sums) {
+        r = intensity_residual(rows, hc, xl, k, j);
+        accumulate(acc, j, r);
+      }
     }
     for (int k = threadIdx.x; k < lc.n; k += blockDim.x) {
       float j[6];
@@ -383,7 +486,7 @@ __global__ void scan_matcher_3d_kernel(Grid hg, Cloud hc, Grid lg, Cloud lc,
     // Pass B: cost at the retracted pose.
     float xn[7];
     for (int q = 0; q < 7; ++q) xn[q] = x_new[q];
-    float sq = sum_of_squares(hg, hc, lg, lc, xn);
+    float sq = sum_of_squares(hg, hc, lg, lc, rows, xn);
     block_sum(&sq, 1, scratch, sums);
     if (threadIdx.x == 0) {
       float new_cost = 0.5f * (sums[0] + penalty_sq(pen, xn));
@@ -440,7 +543,11 @@ extern "C" int scan_matcher_3d(
     float high_resolution, int high_size, const void* high_points, const void* high_mask,
     int num_high, const void* low_log_odds, const void* low_known, const void* low_origin,
     float low_resolution, int low_size, const void* low_points, const void* low_mask,
-    int num_low, const void* x0, const void* target_t, float occupied_space_weight_0,
+    int num_low, const void* intensity_sums, const void* intensity_counts,
+    const void* intensity_origin, float intensity_resolution, int intensity_size,
+    const void* high_intensities, float intensity_weight, float huber_scale,
+    float intensity_threshold, const void* x0, const void* target_t,
+    float occupied_space_weight_0,
     float occupied_space_weight_1, float translation_weight, float rotation_weight,
     int only_optimize_yaw, int num_iterations, int nonmonotonic, float function_tolerance,
     void* x_out, void* cost_out, void* iterations_out, void* stream) {
@@ -448,8 +555,12 @@ extern "C" int scan_matcher_3d(
   Grid lg = make_grid(low_log_odds, low_known, low_origin, low_resolution, low_size);
   Cloud hc = make_cloud(high_points, high_mask, num_high, occupied_space_weight_0);
   Cloud lc = make_cloud(low_points, low_mask, num_low, occupied_space_weight_1);
+  Intensity rows{(const float*)intensity_sums, (const float*)intensity_counts,
+                 (const float*)intensity_origin, intensity_resolution, intensity_size,
+                 (const float*)high_intensities, intensity_weight, huber_scale,
+                 intensity_threshold};
   scan_matcher_3d_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(
-      hg, hc, lg, lc, (const float*)x0, (const float*)target_t, translation_weight,
+      hg, hc, lg, lc, rows, (const float*)x0, (const float*)target_t, translation_weight,
       rotation_weight, only_optimize_yaw, num_iterations, nonmonotonic, function_tolerance,
       (float*)x_out, (float*)cost_out, (int*)iterations_out);
   return (int)cudaGetLastError();

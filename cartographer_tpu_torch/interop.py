@@ -25,8 +25,13 @@ from cartographer_tpu_torch.core.config import (
 from cartographer_tpu_torch.core.tensor import to_device
 from cartographer_tpu_torch.ops.bnb_3d import PrecomputationStack3D
 from cartographer_tpu_torch.ops.grid_2d import Grid2D
-from cartographer_tpu_torch.ops.grid_3d import Grid3D
-from cartographer_tpu_torch.ops.paged_grid_3d import PagedGrid3D, PagedSubmapGrid3D
+from cartographer_tpu_torch.ops.grid_3d import Grid3D, IntensityGrid3D
+from cartographer_tpu_torch.ops.paged_grid_3d import (
+    PagedGrid3D,
+    PagedIntensityGrid3D,
+    PagedIntensitySubmapGrid3D,
+    PagedSubmapGrid3D,
+)
 from cartographer_tpu_torch.parallel.schur_spa import SchurSpaProblem2D
 from cartographer_tpu_torch.parallel.schur_spa_3d import SchurSpaProblem3D
 
@@ -88,20 +93,12 @@ def options_from_dict(d: Dict[str, Any]) -> TrajectoryBuilder2DOptions:
                      _strip(d, UNPORTED_SWITCHES, UNREAD_OPTIONS))
 
 
-# The JAX package's 3D options: switches of unported features (the online
-# correlative search, intensities, the IMU-based extrapolator, scan
-# accumulation) and options only they read.
+# The JAX package's 3D options: the switch of scan accumulation, which the
+# JAX package's 3D builder never reads, and options that no 3D code reads.
 UNPORTED_3D_SWITCHES = {
     "num_accumulated_range_data": 1,
-    "use_online_correlative_scan_matching": False,
-    "use_intensities": False,
-    "pose_extrapolator.use_imu_based": False,
 }
 UNREAD_3D_OPTIONS = (
-    "real_time_correlative_scan_matcher",
-    "ceres_scan_matcher.intensity_cost_function_options_0",
-    "submaps.range_data_inserter.intensity_threshold",
-    "pose_extrapolator.imu_based",
     "imu_gravity_time_constant",
     "tpu.ray_samples",
 )
@@ -109,8 +106,10 @@ UNREAD_3D_OPTIONS = (
 
 def options_3d_from_dict(d: Dict[str, Any]) -> TrajectoryBuilder3DOptions:
     """TrajectoryBuilder3DOptions from `dataclasses.asdict` of the JAX
-    package's options of the same name; a switch of UNPORTED_3D_SWITCHES
-    that turns its feature on raises NotImplementedError."""
+    package's options of the same name (the online correlative search,
+    intensities and the IMU-based extrapolator among them); a switch of
+    UNPORTED_3D_SWITCHES that turns its feature on raises
+    NotImplementedError."""
     return from_dict(TrajectoryBuilder3DOptions,
                      _strip(d, UNPORTED_3D_SWITCHES, UNREAD_3D_OPTIONS))
 
@@ -120,6 +119,21 @@ def grid3d_from_numpy(log_odds: np.ndarray, known: np.ndarray, origin: np.ndarra
     return Grid3D(to_device(np.asarray(log_odds, np.float32), device),
                   to_device(np.asarray(known, bool), device),
                   to_device(np.asarray(origin, np.float32), device), float(resolution))
+
+
+def intensity_grid3d_from_numpy(sums: np.ndarray, counts: np.ndarray, origin: np.ndarray,
+                                resolution: float, device) -> IntensityGrid3D:
+    return IntensityGrid3D(to_device(np.asarray(sums, np.float32), device),
+                           to_device(np.asarray(counts, np.float32), device),
+                           to_device(np.asarray(origin, np.float32), device), float(resolution))
+
+
+def _with_allocation(paged, page_table: np.ndarray, origin: np.ndarray, slots):
+    paged._slots = {tuple(int(v) for v in k): int(s) for k, s in slots.items()}
+    paged._origin_host = np.asarray(origin, np.float32).copy()
+    paged._table_host = page_table.copy()
+    paged.pages_allocated_last_insert = 0
+    return paged
 
 
 def paged_grid_from_numpy(pages: np.ndarray, known: np.ndarray, page_table: np.ndarray,
@@ -134,12 +148,25 @@ def paged_grid_from_numpy(pages: np.ndarray, known: np.ndarray, page_table: np.n
         to_device(np.asarray(pages, np.float32), device), to_device(np.asarray(known, bool), device),
         to_device(page_table.copy(), device), to_device(np.asarray(origin, np.float32), device),
         float(resolution), int(page_size))
-    paged._slots = {tuple(int(v) for v in k): int(s) for k, s in slots.items()}
-    paged._origin_host = np.asarray(origin, np.float32).copy()
-    paged._table_host = page_table.copy()
     paged._scratch = None
-    paged.pages_allocated_last_insert = 0
-    return paged
+    return _with_allocation(paged, page_table, origin, slots)
+
+
+def paged_intensity_grid_from_numpy(sums: np.ndarray, counts: np.ndarray,
+                                    page_table: np.ndarray, origin: np.ndarray,
+                                    resolution: float, page_size: int,
+                                    slots: Dict[Tuple[int, int, int], int], device
+                                    ) -> PagedIntensitySubmapGrid3D:
+    """A PagedIntensitySubmapGrid3D holding the JAX package's pools, table
+    and allocation state (`PagedIntensitySubmapGrid3D.grid` fields and
+    `_slots`)."""
+    page_table = np.asarray(page_table, np.int32)
+    paged = PagedIntensitySubmapGrid3D.__new__(PagedIntensitySubmapGrid3D)
+    paged.grid = PagedIntensityGrid3D(
+        to_device(np.asarray(sums, np.float32), device),
+        to_device(np.asarray(counts, np.float32), device), to_device(page_table.copy(), device),
+        to_device(np.asarray(origin, np.float32), device), float(resolution), int(page_size))
+    return _with_allocation(paged, page_table, origin, slots)
 
 
 def paged_grid_to_numpy(paged: PagedSubmapGrid3D):
@@ -151,8 +178,7 @@ def paged_grid_to_numpy(paged: PagedSubmapGrid3D):
 
 # The same for the trajectory and map-builder trees: switches of unported
 # features (cross-robot batching, the trimmers) and options that only
-# unported features read (multi-chip meshes, logs, the intensity cost,
-# tolerant-loss shapes).
+# unported features read (multi-chip meshes, logs, tolerant-loss shapes).
 UNPORTED_MAP_BUILDER_SWITCHES = {
     "batch_scan_dispatch": False,
     "pose_graph.overlapping_submaps_trimmer_2d": None,
@@ -164,7 +190,6 @@ UNREAD_MAP_BUILDER_OPTIONS = (
     "pose_graph.max_submaps",
     "pose_graph.max_constraints",
     "pose_graph.constraint_builder.log_matches",
-    "pose_graph.constraint_builder.ceres_scan_matcher_3d.intensity_cost_function_options_0",
     "pose_graph.optimization_problem.fixed_frame_pose_tolerant_loss_param_a",
     "pose_graph.optimization_problem.fixed_frame_pose_tolerant_loss_param_b",
     "pose_graph.optimization_problem.log_solver_summary",

@@ -18,7 +18,8 @@ search's data-dependent angular step and argmax, the LM loop's early exit,
 the adaptive filters' searches and the insertion's do_insert gate stay on
 the device.
 
-TSDF submaps and cross-robot batching raise NotImplementedError.
+TSDF submaps, cross-robot batching and the IMU-based extrapolator (which
+the JAX package's 2D builder never reads) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -98,6 +99,8 @@ class LocalTrajectoryBuilder2D:
             raise NotImplementedError("cross-robot scan batching is not ported")
         if options.submaps.grid_type == "TSDF":
             raise NotImplementedError("TSDF submaps are not ported")
+        if options.pose_extrapolator.use_imu_based:
+            raise NotImplementedError("the IMU-based extrapolator is not ported to 2D")
         self._device = torch.device(device)
         if self._device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("LocalTrajectoryBuilder2D: no CUDA device is available; "

@@ -2,33 +2,43 @@
 
 Counterpart of the JAX package's `mapping/local_trajectory_builder_3d.py`
 (mapping/internal/3d/local_trajectory_builder_3d.cc). IMU data is mandatory:
-the pose extrapolator is created from the first IMU message, and scans
-before it are dropped. Per scan the host crops dense matching windows from
-the paged grids of the matching submap around the predicted pose (K10) and
-runs one device step, `_fused_step`:
+the pose extrapolator (constant-velocity, or with
+`pose_extrapolator.use_imu_based` the sliding-window ImuBasedPoseExtrapolator)
+is created from the first IMU message, and scans before it are dropped. Per
+scan the host crops dense matching windows from the paged grids of the
+matching submap around the predicted pose (K10, and with intensities the
+intensity pools' window, K19) and runs one device step, `_fused_step`:
 
   1. unwarp between the extrapolated start and end poses, the range gate
      on each point's own ray, the voxel filter (K2, 3D keys)
   2. the high- and the low-resolution adaptive voxel filters (K2)
-  3. the SE(3) LM match on both windows (K11), guarded against non-finite
-     results on the device
-  4. the rotational histogram of the levelled high-resolution cloud (K12;
+  3. with `use_online_correlative_scan_matching`, the real-time correlative
+     search of the high-resolution cloud on the high window around the
+     prediction (K17), whose best pose starts the LM
+  4. the SE(3) LM match on both windows (K11; with `use_intensities` also
+     the intensity rows of the high cloud), its translation pulled toward
+     the prediction, guarded against non-finite results on the device
+  5. the rotational histogram of the levelled high-resolution cloud (K12;
      the gravity alignment without its yaw) and its rotation by the matched
      yaw
-  5. the scan in the local frame and the high-resolution range gate
+  6. the scan in the local frame and the high-resolution range gate
 
-Each scan makes one host-to-device copy of its inputs, from pinned memory,
-and exactly one blocking device-to-host copy: the packed result vector.
-After it the host decides the motion filter, allocates pages for the blocks
-the scan touches and launches the paged insertion (K9) into both grids of
-both active submaps on the tensors the step left on the device, without
-waiting.
+Each scan makes one host-to-device copy of its inputs (points, origins,
+times and intensities), from pinned memory, and exactly one blocking
+device-to-host copy: the packed result vector. After it the host decides
+the motion filter, allocates pages for the blocks the scan touches and
+launches the paged insertions (K9, and with intensities K18) into the
+grids of both active submaps on the tensors the step left on the device,
+without waiting.
 
-The online correlative search, intensities, the IMU-based extrapolator and
-scan accumulation are not ported: `interop.options_3d_from_dict` raises
-NotImplementedError for them.
+Scan accumulation (`num_accumulated_range_data`, which the JAX package's 3D
+builder never reads) is not ported.
 
-Known departure from the JAX package: step 4 levels the cloud without the
+As in the JAX package, the intensity residual takes its Huber scale and
+threshold from the matcher's defaults (0.3, 40), not from
+`intensity_cost_function_options_0`, whose weight alone is read.
+
+Known departure from the JAX package: step 5 levels the cloud without the
 IMU tracker's yaw, as the reference does (submap_3d.cc InsertData), where
 the JAX builder takes the histogram of the gravity-aligned cloud, so the
 two scan histograms differ by a rotation of yaw(gravity_alignment) and the
@@ -52,16 +62,24 @@ from cartographer_tpu_torch import metrics
 from cartographer_tpu_torch.core.config import TrajectoryBuilder3DOptions
 from cartographer_tpu_torch.core.tensor import to_device
 from cartographer_tpu_torch.core.time import Time, from_seconds
+from cartographer_tpu_torch.mapping.imu_based_pose_extrapolator import (
+    ImuBasedPoseExtrapolator,
+)
 from cartographer_tpu_torch.mapping.motion_filter import MotionFilter
 from cartographer_tpu_torch.mapping.pose_extrapolator import PoseExtrapolator
 from cartographer_tpu_torch.mapping.range_data_collator import RangeDataCollator
 from cartographer_tpu_torch.mapping.submap_3d import ActiveSubmaps3D, Submap3D
-from cartographer_tpu_torch.ops.grid_3d import Grid3D
+from cartographer_tpu_torch.ops.grid_3d import Grid3D, IntensityGrid3D
 from cartographer_tpu_torch.ops.rot_histogram import (
     compute_rotational_histogram,
     rotate_histogram,
 )
-from cartographer_tpu_torch.ops.scan_matcher_3d import GaussNewtonMatcherParams3D, lm_match_3d
+from cartographer_tpu_torch.ops.scan_matcher_3d import (
+    CorrelativeSearchParams3D,
+    GaussNewtonMatcherParams3D,
+    correlative_match_3d,
+    lm_match_3d,
+)
 from cartographer_tpu_torch.sensor.data import ImuData, OdometryData, TimedPointCloudData
 from cartographer_tpu_torch.sensor.point_cloud import PointCloud
 from cartographer_tpu_torch.sensor.voxel_filter import adaptive_voxel_filter, voxel_filter_mask
@@ -79,11 +97,12 @@ _HEAD = 10  # est_t (3), est_q (4), cost, ok, LM iterations
 PermutationFn = Callable[[int, int], np.ndarray]
 
 
-def unpack_step_result(packed, bins: int, caps):
+def unpack_step_result(packed, bins: int, caps, intensities: bool = False):
     """The fields of the per-scan packed result (a numpy array or a tensor),
     as views: the pose, the match's cost, ok flag and iterations, the scan
     histogram and its rotation into the submap frame, the scan in the local
-    frame with its masks, and the two matching clouds."""
+    frame with its masks (and, with `intensities`, its intensities), and the
+    two matching clouds."""
     cap, cap_high, cap_low = caps
     out = {"translation": packed[0:3], "rotation": packed[3:7], "cost": packed[7],
            "ok": packed[8], "iterations": packed[9]}
@@ -91,7 +110,9 @@ def unpack_step_result(packed, bins: int, caps):
     for name, size, shape in (
             ("histogram", bins, None), ("rotated_histogram", bins, None),
             ("local_points", 3 * cap, (cap, 3)), ("local_mask", cap, bool),
-            ("high_range_mask", cap, bool), ("high_points", 3 * cap_high, (cap_high, 3)),
+            ("high_range_mask", cap, bool),
+            *((("local_intensities", cap, None),) if intensities else ()),
+            ("high_points", 3 * cap_high, (cap_high, 3)),
             ("high_mask", cap_high, bool), ("low_points", 3 * cap_low, (cap_low, 3)),
             ("low_mask", cap_low, bool)):
         field = packed[o:o + size]
@@ -134,13 +155,12 @@ class LocalTrajectoryBuilder3D:
         if self._device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("LocalTrajectoryBuilder3D: no CUDA device is available; "
                                "pass device='cpu' to run the plain PyTorch path")
-        if options.use_intensities:
-            raise NotImplementedError("intensities are not ported")
         self._options = options
         self._active_submaps = ActiveSubmaps3D(
-            options.submaps, options.tpu, self._device, options.rotational_histogram_size)
+            options.submaps, options.tpu, self._device, options.rotational_histogram_size,
+            use_intensities=options.use_intensities)
         self._motion_filter = MotionFilter(options.motion_filter)
-        self._extrapolator: Optional[PoseExtrapolator] = None
+        self._extrapolator = None  # a PoseExtrapolator or an ImuBasedPoseExtrapolator
         self._range_data_collator = RangeDataCollator(expected_range_sensor_ids)
         self._seed_counter = 0
         self._last_imu_accel: Optional[np.ndarray] = None
@@ -151,17 +171,26 @@ class LocalTrajectoryBuilder3D:
         self._gn_params = GaussNewtonMatcherParams3D(
             occupied_space_weight_0=gn.occupied_space_weight_0,
             occupied_space_weight_1=gn.occupied_space_weight_1,
+            intensity_weight=(gn.intensity_cost_function_options_0.weight
+                              if options.use_intensities else 0.0),
             translation_weight=gn.translation_weight,
             rotation_weight=gn.rotation_weight,
             only_optimize_yaw=gn.only_optimize_yaw,
             num_iterations=gn.max_num_iterations,
             use_nonmonotonic_steps=gn.use_nonmonotonic_steps)
+        rt = options.real_time_correlative_scan_matcher
+        self._corr_params = CorrelativeSearchParams3D(
+            linear_search_window=rt.linear_search_window,
+            angular_search_window=rt.angular_search_window,
+            translation_delta_cost_weight=rt.translation_delta_cost_weight,
+            rotation_delta_cost_weight=rt.rotation_delta_cost_weight,
+            max_scan_range=options.max_range)
         cap = options.tpu.scan_capacity
         self._caps = (cap, min(options.tpu.filtered_capacity_high, cap),
                       min(options.tpu.filtered_capacity_low, cap))
         # Pinned staging for the per-scan upload. Reusing it is safe: the
         # blocking fetch at the end of each scan drains the stream.
-        self._staging = torch.empty(8 * cap + _SMALL, dtype=torch.float32,
+        self._staging = torch.empty(9 * cap + _SMALL, dtype=torch.float32,
                                     pin_memory=self._device.type == "cuda")
         # One step and one blocking fetch per scan; host_seconds is all of
         # add_range_data, device_seconds the step and its fetch inside it,
@@ -202,9 +231,16 @@ class LocalTrajectoryBuilder3D:
 
     def add_imu_data(self, imu_data: ImuData) -> None:
         if self._extrapolator is None:
-            cv = self._options.pose_extrapolator.constant_velocity
-            self._extrapolator = PoseExtrapolator.initialize_with_imu(
-                from_seconds(cv.pose_queue_duration), cv.imu_gravity_time_constant, imu_data)
+            # PoseExtrapolatorInterface::CreateWithImuData.
+            pe = self._options.pose_extrapolator
+            if pe.use_imu_based:
+                self._extrapolator = ImuBasedPoseExtrapolator.initialize_with_imu(
+                    pe.imu_based, [imu_data])
+            else:
+                cv = pe.constant_velocity
+                self._extrapolator = PoseExtrapolator.initialize_with_imu(
+                    from_seconds(cv.pose_queue_duration), cv.imu_gravity_time_constant,
+                    imu_data)
         else:
             self._extrapolator.add_imu_data(imu_data)
         self._last_imu_accel = np.asarray(imu_data.linear_acceleration)
@@ -241,20 +277,26 @@ class LocalTrajectoryBuilder3D:
         """Blank dense windows for the first scan: the step always matches,
         and `has_grid` gates the result on the device."""
         t, sub = self._options.tpu, self._options.submaps
-        return (Grid3D.create(t.high_grid_size, sub.high_resolution, center, self._device),
-                Grid3D.create(t.low_grid_size, sub.low_resolution, center, self._device))
+        dev = self._device
+        return (Grid3D.create(t.high_grid_size, sub.high_resolution, center, dev),
+                Grid3D.create(t.low_grid_size, sub.low_resolution, center, dev),
+                IntensityGrid3D.create(t.high_grid_size, sub.high_resolution, center, dev)
+                if self._options.use_intensities else None)
 
-    def _fused_step(self, high_grid: Grid3D, low_grid: Grid3D, upload: torch.Tensor,
+    def _fused_step(self, high_grid: Grid3D, low_grid: Grid3D,
+                    intensity_grid: Optional[IntensityGrid3D], upload: torch.Tensor,
                     perm: torch.Tensor):
         """The per-scan device step; returns (packed result, the tensors the
-        insertion reads: origin, local points, mask, high-resolution mask)."""
+        insertion reads: origin, local points, mask, high-resolution mask,
+        intensities)."""
         opts = self._options
         n, cap_high, cap_low = self._caps
         points = upload[0:3 * n].view(n, 3)
         origins = upload[3 * n:6 * n].view(n, 3)
         t01 = upload[6 * n:7 * n]
         mask = upload[7 * n:8 * n] > 0.5
-        small = upload[8 * n:]
+        intensities = upload[8 * n:9 * n]
+        small = upload[9 * n:]
         pose_start = Rigid3(small[_PS_T], small[_PS_Q])
         pose_end = Rigid3(small[_PE_T], small[_PE_Q])
         has_grid = small[_HAS_GRID] > 0.5
@@ -269,7 +311,7 @@ class LocalTrajectoryBuilder3D:
         r = torch.linalg.norm(local - origins_local, dim=-1)
         keep = mask & (r >= opts.min_range) & (r <= opts.max_range)
         keep = keep & voxel_filter_mask(tracking, keep, opts.voxel_filter_size, perm)
-        cloud = PointCloud(tracking, keep, torch.zeros_like(t01))
+        cloud = PointCloud(tracking, keep, intensities)
         hi = opts.high_resolution_adaptive_voxel_filter
         lo = opts.low_resolution_adaptive_voxel_filter
         high = adaptive_voxel_filter(cloud, hi.max_length, hi.min_num_points, hi.max_range,
@@ -277,13 +319,19 @@ class LocalTrajectoryBuilder3D:
         low = adaptive_voxel_filter(cloud, lo.max_length, lo.min_num_points, lo.max_range,
                                     perm).compact(cap_low)
 
-        # Both penalties pull toward the prediction (no correlative search).
-        x0 = torch.cat([pose_end.translation, pose_end.rotation])
+        # The LM starts from the correlative search's best pose (when it
+        # runs) and its rotation penalty pulls toward it; its translation
+        # penalty pulls toward the prediction.
+        prediction = torch.cat([pose_end.translation, pose_end.rotation])
+        x0 = prediction
+        if opts.use_online_correlative_scan_matching:
+            _, x0 = correlative_match_3d(high_grid, high.points, high.mask, prediction,
+                                         self._corr_params)
         pose_m, cost, iterations = lm_match_3d(
             high_grid, low_grid, high.points, high.mask, low.points, low.mask, x0,
-            pose_end.translation, self._gn_params)
+            pose_end.translation, self._gn_params, intensity_grid, high.intensities)
         finite = torch.isfinite(pose_m).all() & has_grid
-        est = torch.where(finite, pose_m, x0)
+        est = torch.where(finite, pose_m, prediction)
         est_t = est[0:3]
         est_q = quat.normalize(est[3:7])
         ok = finite | ~has_grid
@@ -311,9 +359,10 @@ class LocalTrajectoryBuilder3D:
             torch.stack([cost, ok.to(torch.float32), iterations.to(torch.float32)]),
             hist, hist_rot,
             local_points.reshape(-1), keep.to(torch.float32), in_high.to(torch.float32),
+            *((intensities,) if opts.use_intensities else ()),
             high.points.reshape(-1), high.mask.to(torch.float32),
             low.points.reshape(-1), low.mask.to(torch.float32)])
-        return packed, (est_t, local_points, keep, in_high)
+        return packed, (est_t, local_points, keep, in_high, intensities)
 
     def _process_scan(self, data: TimedPointCloudData) -> Optional[MatchingResult3D]:
         if self._extrapolator is None:
@@ -350,7 +399,9 @@ class LocalTrajectoryBuilder3D:
             data.per_point_origins(3)[:npts].reshape(-1)
         staging[6 * capacity:6 * capacity + npts] = times01[:npts]
         staging[7 * capacity:7 * capacity + npts] = 1.0
-        small = staging[8 * capacity:]
+        if data.intensities is not None:
+            staging[8 * capacity:8 * capacity + npts] = data.intensities[:npts]
+        small = staging[9 * capacity:]
         small[_PS_T], small[_PS_Q] = pose_start
         small[_PE_T], small[_PE_Q] = pose_end
         small[_GRAVITY] = gravity_q
@@ -369,14 +420,15 @@ class LocalTrajectoryBuilder3D:
         self._seed_counter += 1
         seed = self._seed_counter & 0x7FFFFFFF
         upload = self._staging.to(self._device, non_blocking=True, copy=True)
-        packed_device, device_tensors = self._fused_step(grids[0], grids[1], upload,
+        packed_device, device_tensors = self._fused_step(*grids, upload,
                                                          self._permutation(seed, capacity))
         packed = packed_device.cpu().numpy()  # the single blocking transfer
         del grids
         self.device_fetches += 1
         self.device_seconds += _time.monotonic() - stage_t1
 
-        u = unpack_step_result(packed, self._options.rotational_histogram_size, self._caps)
+        u = unpack_step_result(packed, self._options.rotational_histogram_size, self._caps,
+                               self._options.use_intensities)
         est_t = np.asarray(u["translation"], np.float64)
         est_q = nquat.normalize(np.asarray(u["rotation"], np.float64))
         cost, ok = float(u["cost"]), bool(u["ok"] > 0.5)
@@ -403,7 +455,8 @@ class LocalTrajectoryBuilder3D:
             finished = self._active_submaps.insert_range_data(
                 np.asarray(est_t, np.float32), local_points, local_mask, scan_hist,
                 nquat.get_yaw(est_q), rotated_histogram=hist_rotated,
-                high_mask=high_range_mask, device_tensors=device_tensors)
+                high_mask=high_range_mask, device_tensors=device_tensors,
+                intensities=u.get("local_intensities"))
             self.allocator_seconds += _time.monotonic() - insert_t0
             self.pages_allocated += self._active_submaps.pages_allocated_last_insert
             insertion_result = InsertionResult3D(

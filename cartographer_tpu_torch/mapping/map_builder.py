@@ -12,8 +12,8 @@ for the CPU, and the constructor raises when there is no card.
 
 Not ported, and refused with NotImplementedError: cross-robot batched
 dispatch, the trimmers (pure localization among them), landmarks,
-pose-graph-only (uplinked) trajectories, intensities, a device mesh or
-multihost process group, and serialize_state / load_state.
+pose-graph-only (uplinked) trajectories, a device mesh or multihost process
+group, and serialize_state / load_state.
 """
 
 from __future__ import annotations

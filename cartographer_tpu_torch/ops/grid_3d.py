@@ -1,10 +1,11 @@
-"""Dense 3D occupancy grid: the window the 3D matcher reads.
+"""Dense 3D grids: the windows the 3D matchers read.
 
-Counterpart of `Grid3D` in the JAX package's `ops/grid_3d.py`: a cubic
-log-odds volume with a known mask; cell (i, j, k) covers
-[origin + idx * resolution, + resolution). The port fills it by cropping a
-paged grid (`ops/paged_grid_3d.py:crop_dense`); the dense inserter and the
-intensity grid of the JAX module are not ported.
+Counterpart of `Grid3D` and `IntensityGrid3D` in the JAX package's
+`ops/grid_3d.py`: a cubic log-odds volume with a known mask, and a cubic
+running-average intensity volume (sums and counts); cell (i, j, k) covers
+[origin + idx * resolution, + resolution). The port fills both by cropping
+paged grids (`ops/paged_grid_3d.py:crop_dense`, `crop_dense_intensity`);
+the dense inserters of the JAX module are not ported.
 """
 
 from __future__ import annotations
@@ -52,3 +53,32 @@ class Grid3D:
     def probability(self) -> torch.Tensor:
         return torch.where(self.known, log_odds_to_probability(self.log_odds),
                            torch.full_like(self.log_odds, UNKNOWN_PROBABILITY))
+
+
+@dataclasses.dataclass(frozen=True)
+class IntensityGrid3D:
+    """Running-average intensity per voxel (IntensityHybridGrid)."""
+
+    sums: torch.Tensor  # (S, S, S) float32
+    counts: torch.Tensor  # (S, S, S) float32
+    origin: torch.Tensor  # (3,) float32
+    resolution: float
+
+    @staticmethod
+    def create(size: int, resolution: float, center, device) -> "IntensityGrid3D":
+        origin = np.asarray(center, np.float32) - np.float32(0.5 * size * resolution)
+        shape = (size, size, size)
+        return IntensityGrid3D(
+            sums=torch.zeros(shape, dtype=torch.float32, device=device),
+            counts=torch.zeros(shape, dtype=torch.float32, device=device),
+            origin=to_device(origin.astype(np.float32), device), resolution=float(resolution))
+
+    @property
+    def size(self) -> int:
+        return self.sums.shape[0]
+
+    def world_to_cell_continuous(self, points: torch.Tensor) -> torch.Tensor:
+        return true_div(points - self.origin, self.resolution)
+
+    def average(self) -> torch.Tensor:
+        return self.sums / self.counts.clamp(min=1.0)

@@ -208,7 +208,7 @@ def simulate_scans_3d(num_scans: int, rings: int = 16, azimuths: int = 256,
                       period: float = 0.1, speed: float = 1.4, ramp: float = 6.0,
                       max_range: float = 60.0, elevation: float = np.radians(15.0),
                       noise: float = 0.01, imu_rate: float = 100.0, scale: float = 0.5,
-                      start: float = 3.0, seed: int = 0):
+                      start: float = 3.0, seed: int = 0, intensities: bool = False):
     """A spinning multi-ring LiDAR and an IMU carried through the floor
     plan extruded to a hall `WALL_HEIGHT` high with floor and ceiling.
 
@@ -234,8 +234,19 @@ def simulate_scans_3d(num_scans: int, rings: int = 16, azimuths: int = 256,
     (3,), angular velocity (3,)) at `imu_rate` from 0.05 s before the first
     beam, carrying gravity and the path's yaw rate; truth (num_scans, 3)
     [x, y, yaw] at each scan's time. Beams that hit nothing within
-    max_range come back at max_range + 1 m."""
+    max_range come back at max_range + 1 m.
+
+    With `intensities`, each scan also carries a per-return intensity
+    (rings * azimuths,) as its fourth element, drawn from its own seeded
+    generator so the ranges stay those of the call without it: along the
+    walls 22.5 + 12.5 sin(2 pi (x + y) / 1.5 m) of the hit's world
+    position (10 to 35, a texture that pins the position along a
+    corridor), 20 on the floor and 30 on the ceiling, 70 on the
+    retro-reflective markers (the wall stretches where
+    sin(2 pi (x - y) / 5.3 m) > 0.97), 0 for beams without a return; plus
+    Gaussian noise of 0.5."""
     rng = np.random.RandomState(seed)
+    intensity_rng = np.random.RandomState(seed + 1)
     walls = floor_plan(scale)
     robot = Robot(Path.superellipse(11.0 * scale, 7.0 * scale), speed, ramp, start)
     step = np.repeat(np.arange(azimuths), rings)
@@ -258,7 +269,18 @@ def simulate_scans_3d(num_scans: int, rings: int = 16, azimuths: int = 256,
                           ranges + noise * rng.randn(ranges.shape[0]), max_range + 1.0)
         points = np.stack([ranges * cos_e * np.cos(azimuth), ranges * cos_e * np.sin(azimuth),
                            ranges * sin_e], -1).astype(np.float32)
-        scans.append((t_scan, points, rel.astype(np.float32)))
+        scan = (t_scan, points, rel.astype(np.float32))
+        if intensities:
+            hit = xy + horizontal[:, None] * np.stack([np.cos(yaw + azimuth),
+                                                       np.sin(yaw + azimuth)], -1)
+            with np.errstate(invalid="ignore"):  # beams without a wall: inf
+                wall = 22.5 + 12.5 * np.sin(2.0 * np.pi * (hit[:, 0] + hit[:, 1]) / 1.5)
+                marker = np.sin(2.0 * np.pi * (hit[:, 0] - hit[:, 1]) / 5.3) > 0.97
+            value = np.where(wall_z < 0.0, 20.0, np.where(wall_z > WALL_HEIGHT, 30.0,
+                                                            np.where(marker, 70.0, wall)))
+            value = np.where(ranges <= max_range, value, 0.0)
+            scan += ((value + 0.5 * intensity_rng.randn(value.shape[0])).astype(np.float32),)
+        scans.append(scan)
         truth.append([xy[-1, 0], xy[-1, 1], yaw[-1]])
     imu = []
     dt = 1.0 / imu_rate

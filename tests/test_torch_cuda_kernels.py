@@ -435,3 +435,115 @@ def test_schur_spa_3d_kernel(dev, iterations):
         for nodes in ends:
             err = np.abs(nodes.cpu().numpy()[:len(truth_t)] - truth_t).mean()
             assert err < 0.1 * np.abs(arrays["node_t"] - truth_t).mean()
+
+
+def _intensity_pair(dev):
+    """The same intensity pools on the card and on the CPU after four scans."""
+    from cartographer_tpu_torch.ops.paged_grid_3d import PagedIntensitySubmapGrid3D
+
+    center = np.float32([0.3, -0.2, 0.1])
+    args = dict(page_size=8, max_pages=1024, num_blocks=32)
+    card = PagedIntensitySubmapGrid3D(0.1, center, device=dev, **args)
+    cpu = PagedIntensitySubmapGrid3D(0.1, center, device="cpu", **args)
+    rng = np.random.RandomState(17)
+    for k in range(4):
+        pts, mask = _hall_scan(rng, np.float32([0.2 * k + 0.013, -0.1 * k + 0.021, 0.037]))
+        intens = (rng.rand(len(pts)) * 60.0).astype(np.float32)
+        for paged in (card, cpu):
+            paged.insert(pts, intens, mask, 40.0)
+    return card, cpu
+
+
+def test_paged_intensity_insert_kernel(dev):
+    """K18: counts exact, sums within 1e-5 of the CPU twin, and the same to
+    the bit from run to run (each cell adds its returns in their order)."""
+    import dataclasses
+
+    from cartographer_tpu_torch.ops import paged_grid_3d
+
+    card, cpu = _intensity_pair(dev)
+    assert card._slots == cpu._slots
+    assert torch.equal(card.grid.page_table.cpu(), cpu.grid.page_table)
+    assert torch.equal(card.grid.counts.cpu(), cpu.grid.counts)
+    torch.testing.assert_close(card.grid.sums.cpu(), cpu.grid.sums, rtol=1e-5, atol=0)
+    assert float(card.grid.counts.sum()) > 2000
+    rng = np.random.RandomState(18)
+    pts, mask = _hall_scan(rng, np.float32([0.41, 0.33, -0.05]), 4096)
+    args = (_t(pts, dev), _t((rng.rand(4096) * 50.0).astype(np.float32), dev), _t(mask, dev))
+    runs = []
+    for _ in range(2):
+        grid = dataclasses.replace(card.grid, sums=card.grid.sums.clone(),
+                                   counts=card.grid.counts.clone())
+        paged_grid_3d.insert_intensity_paged(grid, *args, 40.0)
+        runs.append(grid)
+    assert torch.equal(runs[0].sums, runs[1].sums) and torch.equal(runs[0].counts, runs[1].counts)
+    assert not torch.equal(runs[0].counts, card.grid.counts)
+
+
+@pytest.mark.parametrize("center,size", [([0.31, -0.22, 0.13], 64), ([-12.0, 12.1, 0.2], 64),
+                                         ([12.6, 12.6, 12.6], 40)])
+def test_paged_intensity_crop_kernel(dev, center, size):
+    """K19: the window exactly, including windows beyond the page table."""
+    from cartographer_tpu_torch.ops import paged_grid_3d
+
+    card, _ = _intensity_pair(dev)
+    got = card.crop_dense(np.float32(center), size)
+    ref = paged_grid_3d.crop_dense_intensity_plain(card.grid, _t(np.float32(center), dev), size)
+    assert torch.equal(got.sums, ref.sums) and torch.equal(got.counts, ref.counts)
+    assert torch.equal(got.origin, ref.origin)
+
+
+def test_scan_matcher_3d_kernel_with_intensities(dev):
+    """K11 with its intensity rows against the twin, within 1e-4."""
+    from cartographer_tpu_torch.ops import scan_matcher_3d
+
+    high, _ = _paged_pair(dev, 0.1)
+    low, _ = _paged_pair(dev, 0.3)
+    inten, _ = _intensity_pair(dev)
+    center = np.float32([0.3, 0.0, 0.0])
+    hg, lg, ig = high.crop_dense(center, 96), low.crop_dense(center, 48), inten.crop_dense(
+        center, 96)
+    assert torch.equal(hg.origin, ig.origin)
+    rng = np.random.RandomState(19)
+    shift = np.float32([0.313, -0.079, 0.037])
+    hp, hm = _hall_scan(rng, shift, 256)
+    lp, lm = _hall_scan(rng, shift, 512)
+    hi = _t((rng.rand(256) * 50.0).astype(np.float32), dev)
+    x0 = _t(np.float32([0.05, -0.04, 0.02, np.cos(0.01), 0.0, 0.0, np.sin(0.01)]), dev)
+    params = scan_matcher_3d.GaussNewtonMatcherParams3D(intensity_weight=0.5)
+    args = (hg, lg, _t(hp - shift, dev), _t(hm, dev), _t(lp - shift, dev), _t(lm, dev), x0,
+            x0[0:3].clone(), params, ig, hi)
+    xk, ck, itk = scan_matcher_3d.lm_match_3d(*args)
+    xp, cp, itp = scan_matcher_3d._match_plain(*args)
+    torch.testing.assert_close(xk, xp, atol=1e-4, rtol=0)
+    torch.testing.assert_close(ck, cp, atol=0, rtol=1e-4)
+    without, cost_without, _ = scan_matcher_3d.lm_match_3d(*args[:9])
+    assert float(cost_without) < float(ck)  # the intensity rows add to the cost
+
+
+@pytest.mark.parametrize("window,max_range", [(np.radians(1.0), 60.0), (0.05, 6.0)])
+def test_correlative_3d_kernel(dev, window, max_range):
+    """K17: the score and the pose bit for bit against the twin, at the
+    default window (27 to 125 of the 21^3 rotations valid) and at a window
+    where every rotation of the static grid is valid."""
+    from cartographer_tpu_torch.ops import scan_matcher_3d
+
+    high, _ = _paged_pair(dev, 0.1)
+    grid = high.crop_dense(np.float32([0.3, 0.0, 0.0]), 96)
+    rng = np.random.RandomState(23)
+    shift = np.float32([0.313, -0.079, 0.037])
+    pts, mask = _hall_scan(rng, shift, 512)
+    pts = pts - shift
+    if max_range == 6.0:
+        pts[0] = [5.0, 4.0, 1.0]  # about 6.5 m: every angle of the 7 is valid
+        mask[0] = True
+    params = scan_matcher_3d.CorrelativeSearchParams3D(
+        linear_search_window=0.15, angular_search_window=window, max_scan_range=max_range)
+    x0 = _t(np.float32([0.04, -0.03, 0.01, np.cos(0.005), 0.0, 0.0, np.sin(0.005)]), dev)
+    args = (grid, _t(pts, dev), _t(mask, dev), x0, params)
+    score, x, best = scan_matcher_3d._correlative_kernel(*args)
+    ref_score, ref_x, ref_index = scan_matcher_3d.correlative_match_3d_plain(*args)
+    flat = ~int(best.cpu()) & 0xFFFFFFFF
+    assert flat == ref_index
+    assert float(score) == float(ref_score) and torch.equal(x[0:3], ref_x[0:3])
+    torch.testing.assert_close(x[3:7], ref_x[3:7], atol=1e-6, rtol=0)

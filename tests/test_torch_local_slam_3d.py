@@ -26,6 +26,8 @@ from cartographer_tpu_torch.interop import (
     UNPORTED_3D_SWITCHES,
     UNREAD_3D_OPTIONS,
     options_3d_from_dict,
+    paged_grid_from_numpy,
+    paged_intensity_grid_from_numpy,
 )
 from cartographer_tpu_torch.mapping.local_trajectory_builder_3d import LocalTrajectoryBuilder3D
 from cartographer_tpu_torch.sensor.data import ImuData, TimedPointCloudData
@@ -313,12 +315,193 @@ def test_options_carry_across():
 
 
 @pytest.mark.parametrize("path,value", [
-    ("use_online_correlative_scan_matching", True),
-    ("use_intensities", True),
-    ("pose_extrapolator.use_imu_based", True),
     ("num_accumulated_range_data", 2),
 ])
 def test_unported_options_raise(path, value):
     jopts = apply_overrides(JOptions(), {path: value})
     with pytest.raises(NotImplementedError, match=path):
         options_3d_from_dict(dataclasses.asdict(jopts))
+
+
+# The whole frontend: the correlative search before the LM, the intensity
+# rows and pools. A max_range of 20 m (the hall is 18 m long) keeps the
+# correlative search's static rotation grid at 7^3 (21^3 at 60 m), which the
+# JAX package scores in full.
+FULL_FRONTEND = {"use_online_correlative_scan_matching": True, "use_intensities": True,
+                 "max_range": 20.0}
+
+
+def _pool_difference(jax_submap, submap, sync=False) -> float:
+    """The largest share of the cells (known, or with an intensity) in which
+    the port submap's three page pools differ from the JAX submap's; with
+    `sync`, the port's pools are then set to the JAX ones."""
+    shares = []
+    for name in ("high_paged", "low_paged", "intensity_paged"):
+        jp, port = getattr(jax_submap, name), getattr(submap, name)
+        g = jp.grid
+        if name == "intensity_paged":
+            ref, got = np.asarray(g.counts), port.grid.counts.numpy()
+            if sync:
+                setattr(submap, name, paged_intensity_grid_from_numpy(
+                    np.asarray(g.sums), ref, np.asarray(g.page_table), np.asarray(g.origin),
+                    g.resolution, g.page_size, jp._slots, "cpu"))
+        else:
+            ref, got = np.asarray(g.known), port.grid.known.numpy()
+            if sync:
+                setattr(submap, name, paged_grid_from_numpy(
+                    np.asarray(g.pages), ref, np.asarray(g.page_table), np.asarray(g.origin),
+                    g.resolution, g.page_size, jp._slots, "cpu"))
+        if got.shape == ref.shape:
+            shares.append(float((got != ref).sum() / max((ref != 0).sum(), 1)))
+        else:
+            shares.append(1.0)
+    return max(shares)
+
+
+def _drive_both(jopts, num, sync):
+    """The first `num` scans of the half-scale hall with intensities through
+    the JAX builder and the port's plain path, one scan to each in turn.
+    Returns both packages' poses [x, y, z, yaw], the ground truth, the
+    largest pool difference of each scan (before any syncing) and the port
+    builder."""
+    scans, imu, truth = simulate_scans_3d(num, rings=8, azimuths=128, seed=0, intensities=True)
+    jb = JBuilder(jopts, ["points"])
+    tb = LocalTrajectoryBuilder3D(options_3d_from_dict(dataclasses.asdict(jopts)), ["points"],
+                                  device="cpu", permutation_fn=_jax_permutation)
+    est, k, shares = [], 0, []
+    for ts, pts, rel, intens in scans:
+        for b, imu_data, cloud in ((jb, JImuData, JScan), (tb, ImuData, TimedPointCloudData)):
+            for t, accel, gyro in [m for m in imu[k:] if m[0] <= ts]:
+                b.add_imu_data(imu_data(time=T0 + from_seconds(t), linear_acceleration=accel,
+                                        angular_velocity=gyro))
+            r = b.add_range_data("points", cloud(
+                time=T0 + from_seconds(ts), origin=np.zeros(3, np.float32), ranges=pts,
+                times=rel, intensities=intens))
+            est.append([*r.local_pose_translation,
+                        nquat.get_yaw(np.asarray(r.local_pose_rotation, np.float64))])
+        k += sum(1 for m in imu[k:] if m[0] <= ts)
+        shares.append(max(_pool_difference(js, ts_, sync) for js, ts_ in zip(
+            jb._active_submaps.submaps, tb._active_submaps.submaps)))
+    return (np.asarray(est[0::2]), np.asarray(est[1::2]), relative_to_first(truth), shares,
+            tb)
+
+
+@pytest.mark.parametrize("extrapolator", ["constant_velocity", "imu_based"])
+def test_hall_with_the_full_frontend_against_jax(extrapolator):
+    """The first 16 scans of the half-scale hall with intensities through
+    both packages, with the correlative search and the intensity term on,
+    and with the IMU-based extrapolator (a 1 s queue) and the intensity
+    term: each scan within 2 cm and 0.01 rad of the JAX builder's.
+
+    After each scan the port's page pools (occupancy and intensity) are
+    set to the JAX builder's, once they have been checked to differ in at
+    most a few cells while the two poses agree: the JAX inserts may
+    multiply by the reciprocal of the resolution where the port divides,
+    and a return on a cell border then lands in the neighbouring cell. One
+    such cell's running average moves the intensity rows, and the
+    correlative search, which picks among candidates a step apart (0.1 m,
+    about 0.0074 rad here), makes the difference a jump: without the
+    syncing the two builders part by up to 5 cm within these 16 scans.
+    Even from the same pools, two candidates that score within float noise
+    of each other may go either way; the IMU-based extrapolator's queue
+    solve carries the last digits of every pose into the next prediction,
+    and with the search on the two builders then part by a candidate step
+    within these scans, so that case runs without the search (the test
+    below runs the search with that extrapolator, at cells whose size is a
+    power of two and without syncing).
+
+    Against the truth only the position is limited: at this width (8
+    rings) the search picks rotations from a sparse window and the LM's
+    rotation penalty holds the pose there, so the yaw falls behind the
+    turning robot in both packages (by up to 0.07 rad over these scans)."""
+    extra = ({"pose_extrapolator.use_imu_based": True,
+              "pose_extrapolator.imu_based.pose_queue_duration": 1.0,
+              "use_online_correlative_scan_matching": False}
+             if extrapolator == "imu_based" else {})
+    jopts = apply_overrides(JOptions(), {**HALL_OPTIONS, **FULL_FRONTEND, **extra})
+    jest, test, gt, shares, tb = _drive_both(jopts, 16, sync=True)
+    np.testing.assert_allclose(test[:, :3], jest[:, :3], atol=0.02, rtol=0)
+    np.testing.assert_allclose(test[:, 3], jest[:, 3], atol=0.01, rtol=0)
+    # The pools are compared where the same scan was inserted at the same pose.
+    changed = [s for s, j, t in zip(shares, jest, test) if np.abs(j[:3] - t[:3]).max() < 1e-4]
+    assert len(changed) >= 8 and max(changed) < 0.01, changed
+    assert tb._active_submaps.submaps[0].intensity_paged.num_allocated > 50
+    for e in (jest, test):
+        assert np.linalg.norm(e[:, :2] - gt[:16, :2], axis=1).mean() < 0.25
+
+
+# Cells of 0.125 m and 0.5 m: a division by a power of two is the
+# multiplication by its reciprocal, so XLA's rewrite moves no return.
+POWER_OF_TWO_CELLS = {"submaps.high_resolution": 0.125, "submaps.low_resolution": 0.5}
+
+
+@pytest.mark.parametrize("extrapolator", ["constant_velocity", "imu_based"])
+def test_hall_with_the_full_frontend_against_jax_unsynced(extrapolator):
+    """The slice as a user sets it, correlative search, intensity term and
+    (in the second case) the IMU-based extrapolator at once, through both
+    packages over the first 16 scans of the half-scale hall, each package
+    inserting into its own pools: every scan within 2 cm and 0.01 rad of
+    the JAX builder's, and the pools equal cell for cell after every scan
+    while the poses agree (the first 8 scans at least). The cells are powers of two in size, so that the
+    JAX inserts and voxel keys, which may multiply by the reciprocal of
+    the resolution, put every return in the cell the port's division
+    gives it (at 0.10 m the test above syncs the pools instead)."""
+    extra = ({"pose_extrapolator.use_imu_based": True,
+              "pose_extrapolator.imu_based.pose_queue_duration": 1.0}
+             if extrapolator == "imu_based" else {})
+    jopts = apply_overrides(JOptions(), {**HALL_OPTIONS, **FULL_FRONTEND,
+                                         **POWER_OF_TWO_CELLS, **extra})
+    jest, test, gt, shares, tb = _drive_both(jopts, 16, sync=False)
+    np.testing.assert_allclose(test[:, :3], jest[:, :3], atol=0.02, rtol=0)
+    np.testing.assert_allclose(test[:, 3], jest[:, 3], atol=0.01, rtol=0)
+    # While the poses agree to the micrometre the pools stay the same cell
+    # for cell; after a near-tie of the search or the LM has moved a pose by
+    # a millimetre, returns near cell borders go to other cells.
+    agree = np.abs(test[:, :3] - jest[:, :3]).max(1) < 1e-5
+    same = len(agree) if agree.all() else int(np.argmin(agree))
+    assert same >= 8 and max(shares[:same]) == 0.0, (same, shares)
+    assert tb._active_submaps.submaps[0].intensity_paged.num_allocated > 20
+    for e in (jest, test):
+        assert np.linalg.norm(e[:, :2] - gt[:16, :2], axis=1).mean() < 0.25
+
+
+def test_straight_line_with_the_imu_based_extrapolator():
+    """The JAX package's test_local_slam_3d_with_imu_based_extrapolator on
+    the port."""
+    world = make_environment_3d(num=500, seed=1)
+    poses = [(np.array([0.04 * i, 0.0, 0.0]), 0.0) for i in range(12)]
+    (results,) = _drive([_port_builder(**{
+        "pose_extrapolator.use_imu_based": True,
+        "pose_extrapolator.imu_based.pose_queue_duration": 1.0})], world, poses)
+    assert len(results) >= 11 and all(r is not None for r in results)
+    np.testing.assert_allclose(results[-1].local_pose_translation, [0.04 * 11, 0.0, 0.0],
+                               atol=0.15)
+
+
+def test_full_frontend_options_round_trip():
+    """options_3d_from_dict carries the three switches and the options they
+    read, at values other than the defaults."""
+    jopts = _jax_options(**{
+        "use_online_correlative_scan_matching": True, "use_intensities": True,
+        "pose_extrapolator.use_imu_based": True,
+        "real_time_correlative_scan_matcher.linear_search_window": 0.25,
+        "real_time_correlative_scan_matcher.angular_search_window": 0.03,
+        "real_time_correlative_scan_matcher.rotation_delta_cost_weight": 0.2,
+        "ceres_scan_matcher.intensity_cost_function_options_0.weight": 0.7,
+        "ceres_scan_matcher.intensity_cost_function_options_0.huber_scale": 0.4,
+        "submaps.range_data_inserter.intensity_threshold": 35.0,
+        "pose_extrapolator.imu_based.pose_queue_duration": 2.0,
+        "pose_extrapolator.imu_based.imu_rotation_weight": 3.0})
+    port = options_3d_from_dict(dataclasses.asdict(jopts))
+    flat = _flat(dataclasses.asdict(port))
+    ref = _flat(dataclasses.asdict(jopts))
+    assert flat == {key: ref[key] for key in flat}
+    assert set(ref) - set(flat) == {"num_accumulated_range_data", *UNREAD_3D_OPTIONS}
+    assert port.use_intensities and port.pose_extrapolator.use_imu_based
+    assert port.real_time_correlative_scan_matcher.linear_search_window == 0.25
+    builder = LocalTrajectoryBuilder3D(port, ["points"], device="cpu")
+    assert builder._gn_params.intensity_weight == 0.7
+    # The JAX builder leaves the matcher's Huber scale and threshold at their
+    # defaults; so does the port.
+    assert (builder._gn_params.intensity_huber_scale,
+            builder._gn_params.intensity_threshold) == (0.3, 40.0)

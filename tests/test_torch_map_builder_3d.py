@@ -143,7 +143,6 @@ def test_3d_map_builder_without_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("path,value", [
-    ("trajectory_builder_3d.use_intensities", True),
     ("pure_localization_trimmer", object()),
 ])
 def test_unported_3d_trajectory_options_raise(path, value):
@@ -151,6 +150,50 @@ def test_unported_3d_trajectory_options_raise(path, value):
     options = apply_overrides(TrajectoryBuilderOptions(), {path: value})
     with pytest.raises(NotImplementedError):
         mb.add_trajectory_builder(["points", "imu"], options)
+
+
+def test_map_builder_runs_the_full_frontend():
+    """The correlative search, intensities and the IMU-based extrapolator
+    carried from the JAX package's TrajectoryBuilderOptions into a 3D
+    MapBuilder, which places a few scans of the hall with intensities."""
+    from cartographer_tpu_torch.mapping.imu_based_pose_extrapolator import (
+        ImuBasedPoseExtrapolator,
+    )
+    from cartographer_tpu_torch.simulation import relative_to_first, simulate_scans_3d
+
+    jtraj = JTrajectoryOptions(trajectory_builder_3d=apply_overrides(
+        JTrajectoryOptions().trajectory_builder_3d, {
+            "use_online_correlative_scan_matching": True, "use_intensities": True,
+            "pose_extrapolator.use_imu_based": True,
+            "pose_extrapolator.imu_based.pose_queue_duration": 1.0, "max_range": 20.0,
+            "tpu.scan_capacity": 1024, "tpu.page_size": 8, "tpu.max_pages": 1024,
+            "tpu.num_blocks": 64, "tpu.high_grid_size": 96, "tpu.low_grid_size": 48}))
+    options = trajectory_builder_options_from_dict(dataclasses.asdict(jtraj))
+    mb = MapBuilder(MapBuilderOptions(use_trajectory_builder_3d=True,
+                                      async_constraint_search=False), device="cpu")
+    tid = mb.add_trajectory_builder(["points", "imu"], options)
+    scans, imu, truth = simulate_scans_3d(8, rings=8, azimuths=128, seed=1, intensities=True)
+    k = 0
+    for ts, pts, rel, intens in scans:
+        for t, accel, gyro in [m for m in imu[k:] if m[0] <= ts]:
+            mb.add_sensor_data(tid, "imu", ImuData(time=T0 + from_seconds(t),
+                                                   linear_acceleration=accel,
+                                                   angular_velocity=gyro))
+            k += 1
+        mb.add_sensor_data(tid, "points", TimedPointCloudData(
+            time=T0 + from_seconds(ts), origin=np.zeros(3, np.float32), ranges=pts, times=rel,
+            intensities=intens))
+    mb.finish_trajectory(tid)
+    local = mb.get_trajectory_builder(tid)._local
+    assert isinstance(local._extrapolator, ImuBasedPoseExtrapolator)
+    submap = local._active_submaps.submaps[0]
+    assert submap.intensity_paged.num_allocated > 0 and submap.intensity_grid is not None
+    nodes = [n for _, n in sorted(mb.pose_graph.nodes.items())]
+    assert len(nodes) >= 4  # the robot starts from rest: the motion filter drops some
+    gt = relative_to_first(truth)
+    last = nodes[-1]
+    i = round((last.time - T0) / 100_000) - 1
+    assert np.linalg.norm(last.local_pose_translation[:2] - gt[i, :2]) < 0.25
 
 
 def test_3d_landmarks_and_trimmers_raise():

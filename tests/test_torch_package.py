@@ -107,6 +107,16 @@ def test_unported_options_are_not_settable():
         apply_overrides(TrajectoryBuilder2DOptions(), {"num_accumulated_range_data": 2})
 
 
+def test_2d_builder_refuses_the_imu_based_extrapolator():
+    """The pose-extrapolator options are shared with 3D, where the
+    IMU-based extrapolator is ported; the 2D builder refuses it (the JAX
+    package's 2D builder never reads the switch)."""
+    options = apply_overrides(TrajectoryBuilder2DOptions(),
+                              {"pose_extrapolator.use_imu_based": True})
+    with pytest.raises(NotImplementedError, match="IMU-based"):
+        LocalTrajectoryBuilder2D(options, ["laser"], device="cpu")
+
+
 def _assert_carried(jopts, port, dropped):
     port = _flat(dataclasses.asdict(port))
     jax = _flat(dataclasses.asdict(jopts))

@@ -219,12 +219,3 @@ def test_se3_retract_matches_jax():
         got = se3_retract(_t(np.concatenate([t, q])), _t(delta)).numpy()
         np.testing.assert_allclose(got[:3], np.asarray(ref.translation), atol=1e-6, rtol=0)
         np.testing.assert_allclose(got[3:], np.asarray(ref.rotation), atol=1e-6, rtol=0)
-
-
-def test_intensity_term_raises():
-    (jh, jl), world = _grids()
-    hp, hm, lp, lm = _clouds(world, np.random.RandomState(6), 32, 32)
-    pose = Rigid3(torch.zeros(3), _t(np.float32([1, 0, 0, 0])))
-    with pytest.raises(NotImplementedError, match="intensity"):
-        gauss_newton_match_3d(_port_grid(jh), _port_grid(jl), _t(hp), _t(hm), _t(lp), _t(lm),
-                              pose, GaussNewtonMatcherParams3D(intensity_weight=0.5))
