@@ -7,8 +7,8 @@ map_builder.lua, plus the static capacities the device pipeline is sized by
 (`TpuOptions2D`, `TpuOptions3D`, kept under their original names so that the
 `dataclasses.asdict` trees of the two packages share their keys). Options of
 features the port does not have are left out; the switches the constructors
-must refuse (`submaps.grid_type`, `batch_scan_dispatch`, the trimmers and
-the 2D `pose_extrapolator.use_imu_based`) stay.
+must refuse (`batch_scan_dispatch`, the trimmers and the 2D
+`pose_extrapolator.use_imu_based`) stay.
 """
 
 from __future__ import annotations
@@ -103,12 +103,31 @@ class ProbabilityGridRangeDataInserterOptions2D:
 
 
 @dataclasses.dataclass(frozen=True)
+class TsdfRangeDataInserterOptions2D:
+    """trajectory_builder_2d.lua tsdf_range_data_inserter. The JAX inserter
+    reads neither update_free_space, num_normal_samples nor sample_radius
+    (its normals always take 4 samples); they are carried, not read."""
+    truncation_distance: float = 0.3
+    maximum_weight: float = 10.0
+    update_free_space: bool = False
+    num_normal_samples: int = 4
+    sample_radius: float = 0.5
+    project_sdf_distance_to_scan_normal: bool = True
+    update_weight_range_exponent: int = 0
+    update_weight_angle_scan_normal_to_ray_kernel_bandwidth: float = 0.5
+    update_weight_distance_cell_to_hit_kernel_bandwidth: float = 0.5
+
+
+@dataclasses.dataclass(frozen=True)
 class SubmapsOptions2D:
     num_range_data: int = 90
-    grid_type: str = "PROBABILITY_GRID"  # "TSDF" is not ported
+    grid_type: str = "PROBABILITY_GRID"  # or "TSDF"
     resolution: float = 0.05
+    # Carried as the JAX options carry it; the builders read grid_type.
+    range_data_inserter_type: str = "PROBABILITY_GRID_INSERTER_2D"
     probability_grid_range_data_inserter: ProbabilityGridRangeDataInserterOptions2D = _d(
         ProbabilityGridRangeDataInserterOptions2D)
+    tsdf_range_data_inserter: TsdfRangeDataInserterOptions2D = _d(TsdfRangeDataInserterOptions2D)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -17,6 +17,11 @@ def true_div(x: torch.Tensor, divisor) -> torch.Tensor:
     return x / divisor
 
 
+def f32(x: float) -> float:
+    """A Python float rounded to float32, as JAX rounds a weak-typed scalar."""
+    return float(np.float32(x))
+
+
 def to_device(array: np.ndarray, device) -> torch.Tensor:
     """Host numpy -> tensor on `device` without waiting for the copy."""
     array = np.require(array, requirements=["C", "W"])

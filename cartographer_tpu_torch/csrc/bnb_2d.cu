@@ -10,6 +10,12 @@
 // cell. Bound: bytes, each level reads the previous one (4 MB at 1024^2,
 // L2-resident) and writes 4 MB; 28 MB written for a depth-7 pyramid.
 //
+// bnb_pyramid_tsdf is K6's TSDF form: level 0 is the score surface of a TSDF
+// grid, weight > 0 ? 1 - |tsd| / truncation : 0 (JAX ops/tsdf_2d.py:
+// TsdfGrid2D.correspondence_score, l.71, which the JAX constraint builder
+// reads through grid.probability(), constraint_builder_2d.py:195); the
+// levels above, padded with UNKNOWN, are the same launches.
+//
 // K7 replaces: cartographer_tpu/ops/bnb_2d.py:_score_candidates (l.81), the
 // scorer of the beam search fast_correlative_match_2d (l.101, beam path
 // l.147-228) and of match_full_submap_exact (l.398).
@@ -38,6 +44,14 @@ __global__ void level0_kernel(const float* __restrict__ log_odds,
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= cells) return;
   out[i] = known[i] ? 1.0f / (1.0f + expf(-log_odds[i])) : kUnknown;
+}
+
+__global__ void level0_tsdf_kernel(const float* __restrict__ tsd,
+                                   const float* __restrict__ weight, float truncation,
+                                   int cells, float* __restrict__ out) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= cells) return;
+  out[i] = weight[i] > 0.0f ? 1.0f - fabsf(tsd[i]) / truncation : 0.0f;
 }
 
 __global__ void level_kernel(const float* __restrict__ prev, int size, int shift,
@@ -86,6 +100,17 @@ __global__ void score_kernel(const float* __restrict__ level, int size,
   if (lane == 0) out[c] = s[0] / (float)max(count, 1);
 }
 
+// Levels 1 .. depth - 1 over level 0 in `levels`.
+int upper_levels(float* levels, int size, int depth, cudaStream_t s) {
+  int cells = size * size;
+  int threads = 256, blocks = (cells + threads - 1) / threads;
+  for (int h = 1; h < depth; ++h) {
+    level_kernel<<<blocks, threads, 0, s>>>(levels + (size_t)(h - 1) * cells, size,
+                                            1 << (h - 1), levels + (size_t)h * cells);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int bnb_pyramid(const void* log_odds, const void* known, int size, int depth,
@@ -93,14 +118,19 @@ extern "C" int bnb_pyramid(const void* log_odds, const void* known, int size, in
   cudaStream_t s = (cudaStream_t)stream;
   int cells = size * size;
   int threads = 256, blocks = (cells + threads - 1) / threads;
-  float* levels = (float*)out;
   level0_kernel<<<blocks, threads, 0, s>>>((const float*)log_odds, (const uint8_t*)known,
-                                           cells, levels);
-  for (int h = 1; h < depth; ++h) {
-    level_kernel<<<blocks, threads, 0, s>>>(levels + (size_t)(h - 1) * cells, size,
-                                            1 << (h - 1), levels + (size_t)h * cells);
-  }
-  return (int)cudaGetLastError();
+                                           cells, (float*)out);
+  return upper_levels((float*)out, size, depth, s);
+}
+
+extern "C" int bnb_pyramid_tsdf(const void* tsd, const void* weight, float truncation,
+                                int size, int depth, void* out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  int cells = size * size;
+  int threads = 256, blocks = (cells + threads - 1) / threads;
+  level0_tsdf_kernel<<<blocks, threads, 0, s>>>((const float*)tsd, (const float*)weight,
+                                                truncation, cells, (float*)out);
+  return upper_levels((float*)out, size, depth, s);
 }
 
 extern "C" int bnb_score(const void* level, int size, const void* cells, int n,

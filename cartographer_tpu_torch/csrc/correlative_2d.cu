@@ -18,6 +18,12 @@
 // decodes the winner into [score, x, y, theta] on the device, so the caller
 // never waits.
 //
+// correlative_2d_tsdf is K5's TSDF form, on the score surface of a TSDF grid
+// (JAX ops/tsdf_2d.py:TsdfGrid2D.correspondence_score, l.71, which the JAX
+// search reads through grid.probability()): weight > 0 ? 1 - |tsd| /
+// truncation : 0 in the map, UNKNOWN outside it, as the gather form pads.
+// One template over the cell's surface serves both exported functions.
+//
 // Bound: operations and latency. At full width 421 x 5 x 5 candidates x 512
 // points are 5.4 M gathers of 5 bytes from a 5 MB grid (L2-resident), a few
 // microseconds of bytes; the blocks are short, so launch and tail effects
@@ -33,8 +39,9 @@ constexpr int kThreads = 256;
 constexpr int kMaxPoints = 4096;
 
 struct Params {
-  const float* log_odds;
-  const uint8_t* known;
+  const float* values;  // log-odds, or tsd (TSDF form)
+  const void* flags;    // known (uint8), or weight (float32, TSDF form)
+  float truncation;     // TSDF form only
   const float* origin;
   float resolution;
   int size;
@@ -59,14 +66,19 @@ __device__ inline float from_ordered_bits(uint32_t b) {
   return __uint_as_float((b & 0x80000000u) ? (b & 0x7fffffffu) : ~b);
 }
 
+template <bool kTsdf>
 __device__ inline float probability(const Params& p, int cx, int cy) {
   if (cx < 0 || cx >= p.size || cy < 0 || cy >= p.size) return 0.1f;
   size_t idx = (size_t)cx * p.size + cy;
-  return p.known[idx] ? 1.0f / (1.0f + expf(-p.log_odds[idx])) : 0.1f;
+  if (kTsdf)
+    return ((const float*)p.flags)[idx] > 0.0f ? 1.0f - fabsf(p.values[idx]) / p.truncation
+                                               : 0.0f;
+  return ((const uint8_t*)p.flags)[idx] ? 1.0f / (1.0f + expf(-p.values[idx])) : 0.1f;
 }
 
 __global__ void init_key(unsigned long long* key) { key[0] = 0ull; }
 
+template <bool kTsdf>
 __global__ void score_kernel(Params p, float* __restrict__ scores, float* __restrict__ deltas,
                              unsigned long long* __restrict__ key) {
   __shared__ float s[kMaxPoints];
@@ -118,7 +130,7 @@ __global__ void score_kernel(Params p, float* __restrict__ scores, float* __rest
       float wy = (st * x + ct * y) + p.init[1];
       int cx = (int)floorf((wx - p.origin[0]) / p.resolution);
       int cy = (int)floorf((wy - p.origin[1]) / p.resolution);
-      v = probability(p, cx + sx, cy + sy);
+      v = probability<kTsdf>(p, cx + sx, cy + sy);
     }
     s[k] = v;
   }
@@ -155,17 +167,17 @@ __global__ void decode_kernel(Params p, const float* __restrict__ deltas,
   best[3] = p.init[2] + deltas[a];
 }
 
-}  // namespace
-
-extern "C" int correlative_2d(const void* log_odds, const void* known, const void* grid_origin,
-                              float resolution, int size, const void* points, const void* mask,
-                              int n, const void* init, int num_angles, int nl, float angle_limit,
-                              float tw, float rw, float res_sq, float min_range, void* scores,
-                              void* deltas, void* key, void* best, void* stream) {
+template <bool kTsdf>
+int launch(const void* values, const void* flags, float truncation, const void* grid_origin,
+           float resolution, int size, const void* points, const void* mask, int n,
+           const void* init, int num_angles, int nl, float angle_limit, float tw, float rw,
+           float res_sq, float min_range, void* scores, void* deltas, void* key, void* best,
+           void* stream) {
   if (n > kMaxPoints || (n & (n - 1)) != 0) return (int)cudaErrorInvalidValue;
   Params p;
-  p.log_odds = (const float*)log_odds;
-  p.known = (const uint8_t*)known;
+  p.values = (const float*)values;
+  p.flags = flags;
+  p.truncation = truncation;
   p.origin = (const float*)grid_origin;
   p.resolution = resolution;
   p.size = size;
@@ -183,9 +195,34 @@ extern "C" int correlative_2d(const void* log_odds, const void* known, const voi
   cudaStream_t s = (cudaStream_t)stream;
   int w = 2 * nl + 1;
   init_key<<<1, 1, 0, s>>>((unsigned long long*)key);
-  score_kernel<<<num_angles * w * w, kThreads, 0, s>>>(p, (float*)scores, (float*)deltas,
-                                                       (unsigned long long*)key);
+  score_kernel<kTsdf><<<num_angles * w * w, kThreads, 0, s>>>(
+      p, (float*)scores, (float*)deltas, (unsigned long long*)key);
   decode_kernel<<<1, 1, 0, s>>>(p, (const float*)deltas, (const unsigned long long*)key,
                                 (float*)best);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int correlative_2d(const void* log_odds, const void* known, const void* grid_origin,
+                              float resolution, int size, const void* points, const void* mask,
+                              int n, const void* init, int num_angles, int nl, float angle_limit,
+                              float tw, float rw, float res_sq, float min_range, void* scores,
+                              void* deltas, void* key, void* best, void* stream) {
+  return launch<false>(log_odds, known, 0.0f, grid_origin, resolution, size, points, mask, n,
+                       init, num_angles, nl, angle_limit, tw, rw, res_sq, min_range, scores,
+                       deltas, key, best, stream);
+}
+
+// K5's TSDF form: `tsd` and `weight` (float32, size^2) and the truncation.
+extern "C" int correlative_2d_tsdf(const void* tsd, const void* weight, float truncation,
+                                   const void* grid_origin, float resolution, int size,
+                                   const void* points, const void* mask, int n,
+                                   const void* init, int num_angles, int nl,
+                                   float angle_limit, float tw, float rw, float res_sq,
+                                   float min_range, void* scores, void* deltas, void* key,
+                                   void* best, void* stream) {
+  return launch<true>(tsd, weight, truncation, grid_origin, resolution, size, points, mask, n,
+                      init, num_angles, nl, angle_limit, tw, rw, res_sq, min_range, scores,
+                      deltas, key, best, stream);
 }

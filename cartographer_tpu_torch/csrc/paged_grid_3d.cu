@@ -40,7 +40,11 @@
 // adds their intensities and counts to the pool in that order, the order of
 // the plain twin's scatter-add on the CPU and of the JAX program. No
 // atomics: the sums are the same from run to run, so a run on the card
-// repeats.
+// repeats. Above one sort tile (bitonic::kSortTile, 8,192) the keys do not
+// fit one block's shared memory: the same three steps run over device
+// memory instead, the keys written by one launch, sorted by the multi-block
+// bitonic network of bitonic_sort.cuh, and each run added by its head in a
+// third launch; the keys and the network are the same, so the sums are too.
 //
 // Bound: bytes. K9 touches 3 N cells of the pool (5 bytes each, read and
 // written) and reads N returns; K18 reads N returns and intensities and
@@ -54,11 +58,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "bitonic_sort.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kSortThreads = 1024;
-constexpr int kMaxSorted = 8192;  // 64 KB of sort keys
 constexpr unsigned int kNoCell = 0xFFFFFFFFu;
 
 struct Paged {
@@ -186,53 +190,67 @@ __global__ void crop_kernel(Paged g, const A* __restrict__ pool_a, const B* __re
   dense_b[idx] = lin >= 0 ? pool_b[lin] : (B)0;
 }
 
-__global__ void __launch_bounds__(kSortThreads)
+__device__ inline unsigned long long intensity_key(const Paged& g, const float* returns,
+                                                   const float* intensities,
+                                                   const uint8_t* mask, int n, float threshold,
+                                                   int i) {
+  unsigned int lin = kNoCell;
+  if (i < n && mask[i] && intensities[i] <= threshold) {
+    int c[3];
+    for (int a = 0; a < 3; ++a)
+      c[a] = world_to_cell(returns[3 * i + a], g.origin[a], g.resolution);
+    long long found = pool_index(g, c);
+    if (found >= 0) lin = (unsigned int)found;
+  }
+  return ((unsigned long long)lin << 32) | (unsigned int)i;
+}
+
+// The head of each run of equal pool indices adds the run in return order.
+__device__ inline void add_run(const unsigned long long* keys, int i, int n,
+                               const float* intensities, float* sums, float* counts) {
+  unsigned int lin = (unsigned int)(keys[i] >> 32);
+  if (lin == kNoCell || (i > 0 && (unsigned int)(keys[i - 1] >> 32) == lin)) return;
+  float s = sums[lin], c = counts[lin];
+  for (int j = i; j < n && (unsigned int)(keys[j] >> 32) == lin; ++j) {
+    s = s + intensities[keys[j] & 0xFFFFFFFFull];
+    c = c + 1.0f;
+  }
+  sums[lin] = s;
+  counts[lin] = c;
+}
+
+// Up to one sort tile of returns: keys, sort and runs in one block.
+__global__ void __launch_bounds__(bitonic::kSortThreads)
     intensity_insert_kernel(Paged g, const float* __restrict__ returns,
                             const float* __restrict__ intensities,
                             const uint8_t* __restrict__ mask, int n, int npad,
                             float threshold, float* __restrict__ sums,
                             float* __restrict__ counts) {
   extern __shared__ unsigned long long keys[];  // npad (pool index, return) keys
-  for (int i = threadIdx.x; i < npad; i += blockDim.x) {
-    unsigned int lin = kNoCell;
-    if (i < n && mask[i] && intensities[i] <= threshold) {
-      int c[3];
-      for (int a = 0; a < 3; ++a)
-        c[a] = world_to_cell(returns[3 * i + a], g.origin[a], g.resolution);
-      long long found = pool_index(g, c);
-      if (found >= 0) lin = (unsigned int)found;
-    }
-    keys[i] = ((unsigned long long)lin << 32) | (unsigned int)i;
-  }
+  for (int i = threadIdx.x; i < npad; i += blockDim.x)
+    keys[i] = intensity_key(g, returns, intensities, mask, n, threshold, i);
   __syncthreads();
-  // Bitonic sort, ascending: the keys are distinct, so each cell's returns
-  // end up together and in their order.
-  for (int k = 2; k <= npad; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < npad; i += blockDim.x) {
-        int l = i ^ j;
-        if (l > i) {
-          unsigned long long a = keys[i], b = keys[l];
-          if ((a > b) == ((i & k) == 0)) {
-            keys[i] = b;
-            keys[l] = a;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    unsigned int lin = (unsigned int)(keys[i] >> 32);
-    if (lin == kNoCell || (i > 0 && (unsigned int)(keys[i - 1] >> 32) == lin)) continue;
-    float s = sums[lin], c = counts[lin];
-    for (int j = i; j < n && (unsigned int)(keys[j] >> 32) == lin; ++j) {
-      s = s + intensities[keys[j] & 0xFFFFFFFFull];
-      c = c + 1.0f;
-    }
-    sums[lin] = s;
-    counts[lin] = c;
-  }
+  // Ascending: the keys are distinct, so each cell's returns end up
+  // together and in their order.
+  for (int k = 2; k <= npad; k <<= 1) bitonic::tile_steps(keys, npad, 0, k, k >> 1);
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    add_run(keys, i, n, intensities, sums, counts);
+}
+
+// Above one sort tile: the keys into device memory, one per thread.
+__global__ void intensity_keys_kernel(Paged g, const float* __restrict__ returns,
+                                      const float* __restrict__ intensities,
+                                      const uint8_t* __restrict__ mask, int n, int npad,
+                                      float threshold, unsigned long long* __restrict__ keys) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < npad) keys[i] = intensity_key(g, returns, intensities, mask, n, threshold, i);
+}
+
+__global__ void intensity_runs_kernel(const unsigned long long* __restrict__ keys, int n,
+                                      const float* __restrict__ intensities,
+                                      float* __restrict__ sums, float* __restrict__ counts) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) add_run(keys, i, n, intensities, sums, counts);
 }
 
 template <typename A, typename B>
@@ -298,26 +316,39 @@ extern "C" int paged_intensity_crop_3d(const void* sums, const void* counts, con
 }
 
 // Adds in place into `sums` and `counts` (num_pages * page_size^3 each, under
-// 2^32 - 1 cells); at most kMaxSorted returns.
+// 2^32 - 1 cells). `keys` holds max(2, next_pow2(n)) int64 of scratch, used
+// above one sort tile of returns.
 extern "C" int paged_intensity_insert_3d(void* sums, void* counts, const void* table,
                                          const void* grid_origin, float resolution,
                                          int page_size, int num_blocks, int num_pages,
                                          const void* returns, const void* intensities,
                                          const void* mask, int n, float threshold,
-                                         void* stream) {
+                                         void* keys, void* stream) {
   if (n == 0) return 0;
-  if (n > kMaxSorted ||
-      (long long)num_pages * page_size * page_size * page_size >= (long long)kNoCell)
+  if ((long long)num_pages * page_size * page_size * page_size >= (long long)kNoCell)
     return (int)cudaErrorInvalidValue;
   int npad = 2;
   while (npad < n) npad <<= 1;
+  Paged g = make_paged(table, grid_origin, resolution, page_size, num_blocks, num_pages);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (keys == nullptr) return (int)cudaErrorInvalidValue;
+  if (npad > bitonic::kSortTile) {
+    unsigned long long* k = (unsigned long long*)keys;
+    intensity_keys_kernel<<<(npad + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+        g, (const float*)returns, (const float*)intensities, (const uint8_t*)mask, n, npad,
+        threshold, k);
+    cudaError_t err = bitonic::sort(k, npad, st);
+    if (err != cudaSuccess) return (int)err;
+    intensity_runs_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+        k, n, (const float*)intensities, (float*)sums, (float*)counts);
+    return (int)cudaGetLastError();
+  }
   size_t bytes = (size_t)npad * sizeof(unsigned long long);
   cudaError_t err = cudaFuncSetAttribute(intensity_insert_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  Paged g = make_paged(table, grid_origin, resolution, page_size, num_blocks, num_pages);
-  intensity_insert_kernel<<<1, kSortThreads, bytes, (cudaStream_t)stream>>>(
+  intensity_insert_kernel<<<1, bitonic::kSortThreads, bytes, st>>>(
       g, (const float*)returns, (const float*)intensities, (const uint8_t*)mask, n, npad,
       threshold, (float*)sums, (float*)counts);
   return (int)cudaGetLastError();

@@ -24,6 +24,18 @@
 // with a reduction and a barrier each. Design: one block of 256 threads
 // holds the state in shared memory and runs the loop without returning to
 // the host, so the early exit costs no synchronisation.
+//
+// One template over the surface the residual reads serves three exported
+// functions:
+//  - scan_matcher_2d (K3) on an occupancy grid, as above;
+//  - scan_matcher_2d_tsdf (K3's TSDF form): the same residual on the score
+//    surface of a TSDF grid, weight > 0 ? 1 - |tsd| / truncation : 0 (JAX
+//    ops/tsdf_2d.py:TsdfGrid2D.correspondence_score, l.71, which the JAX
+//    loop-closure refine reads through grid.probability());
+//  - lm_match_tsdf_2d (K22), in place of ops/tsdf_2d.py:
+//    gauss_newton_match_tsdf (l.183) with tsdf_residuals (l.210): residual
+//    w / sqrt(n) * bicubic(tsd) * 0.8 / resolution of the raw signed
+//    distance, lm_solve's defaults (monotonic steps, tolerance 1e-6).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -35,9 +47,13 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSums = 10;  // H (6), g (3), sum of squares
 
+enum Surface { kOccupancy = 0, kTsdfScore = 1, kTsdfDistance = 2 };
+
 struct Problem {
-  const float* log_odds;
-  const uint8_t* known;
+  const float* values;  // log-odds (occupancy) or tsd (TSDF)
+  const void* flags;    // known (uint8, occupancy) or weight (float, TSDF)
+  float truncation;     // TSDF score surface only
+  float distance_scale;  // 0.8 / resolution, K22 only
   const float* origin;  // (2,) world position of cell (0, 0)
   float resolution;
   int size;
@@ -47,9 +63,17 @@ struct Problem {
   float scale;  // occupied_space_weight / sqrt(n)
 };
 
-__device__ inline float probability(const Problem& p, int i, int j) {
+// The interpolated cell value: probability (0.1 where unknown), TSDF score
+// (0 where unknown) or the raw signed distance.
+template <int kSurface>
+__device__ inline float cell_value(const Problem& p, int i, int j) {
   size_t idx = (size_t)i * p.size + j;
-  return p.known[idx] ? 1.0f / (1.0f + expf(-p.log_odds[idx])) : 0.1f;
+  if (kSurface == kOccupancy)
+    return ((const uint8_t*)p.flags)[idx] ? 1.0f / (1.0f + expf(-p.values[idx])) : 0.1f;
+  if (kSurface == kTsdfScore)
+    return ((const float*)p.flags)[idx] > 0.0f ? 1.0f - fabsf(p.values[idx]) / p.truncation
+                                               : 0.0f;
+  return p.values[idx];
 }
 
 __device__ inline void catmull_rom(float f, float w[4], float dw[4]) {
@@ -66,6 +90,7 @@ __device__ inline void catmull_rom(float f, float w[4], float dw[4]) {
 }
 
 // Residual of point k at pose x and, when jac != nullptr, its gradient.
+template <int kSurface>
 __device__ inline float residual(const Problem& p, const float x[3], float c, float s,
                                  int k, float* jac) {
   if (!p.mask[k]) {
@@ -89,13 +114,22 @@ __device__ inline float residual(const Problem& p, const float x[3], float c, fl
     float row = 0.0f, drow = 0.0f;
     for (int dj = 0; dj < 4; ++dj) {
       int jj = min(max(j0 + dj - 1, 0), p.size - 1);
-      float g = probability(p, ii, jj);
+      float g = cell_value<kSurface>(p, ii, jj);
       row = row + wy[dj] * g;
       drow = drow + dwy[dj] * g;
     }
     val = val + wx[di] * row;
     dfx = dfx + dwx[di] * row;
     dfy = dfy + wx[di] * drow;
+  }
+  if (kSurface == kTsdfDistance) {
+    if (jac) {
+      float k_ = p.scale * p.distance_scale / p.resolution;
+      jac[0] = k_ * dfx;
+      jac[1] = k_ * dfy;
+      jac[2] = k_ * (dfy * rx - dfx * ry);
+    }
+    return p.scale * (val * p.distance_scale);
   }
   if (jac) {
     float k_ = -p.scale / p.resolution;
@@ -164,6 +198,7 @@ __device__ inline float penalty_sq(const Penalty& q, const float x[3]) {
   return a * a + b * b + r * r;
 }
 
+template <int kSurface>
 __global__ void scan_matcher_2d_kernel(Problem p, const float* __restrict__ x0,
                                        const float* __restrict__ target_t, float wt,
                                        float wr, int num_iterations, int nonmonotonic,
@@ -197,7 +232,7 @@ __global__ void scan_matcher_2d_kernel(Problem p, const float* __restrict__ x0,
     float c = cosf(xl[2]), s = sinf(xl[2]);
     float acc = 0.0f;
     for (int k = threadIdx.x; k < p.m; k += blockDim.x) {
-      float r = residual(p, xl, c, s, k, nullptr);
+      float r = residual<kSurface>(p, xl, c, s, k, nullptr);
       acc += r * r;
     }
     block_sum(&acc, 1, scratch, sums);
@@ -212,7 +247,7 @@ __global__ void scan_matcher_2d_kernel(Problem p, const float* __restrict__ x0,
     float acc[kSums] = {0.0f};
     for (int k = threadIdx.x; k < p.m; k += blockDim.x) {
       float j[3];
-      float r = residual(p, xl, c, s, k, j);
+      float r = residual<kSurface>(p, xl, c, s, k, j);
       acc[0] += j[0] * j[0];
       acc[1] += j[0] * j[1];
       acc[2] += j[0] * j[2];
@@ -246,7 +281,7 @@ __global__ void scan_matcher_2d_kernel(Problem p, const float* __restrict__ x0,
     float cn = cosf(xn[2]), sn = sinf(xn[2]);
     float sq = 0.0f;
     for (int k = threadIdx.x; k < p.m; k += blockDim.x) {
-      float r = residual(p, xn, cn, sn, k, nullptr);
+      float r = residual<kSurface>(p, xn, cn, sn, k, nullptr);
       sq += r * r;
     }
     block_sum(&sq, 1, scratch, sums);
@@ -279,6 +314,33 @@ __global__ void scan_matcher_2d_kernel(Problem p, const float* __restrict__ x0,
   }
 }
 
+template <int kSurface>
+int launch(const void* values, const void* flags, float truncation, float distance_scale,
+           const void* grid_origin, float resolution, int size, const void* points,
+           const void* mask, int m,
+           const void* x0, const void* target_t, float occupied_space_weight,
+           float translation_weight, float rotation_weight, int num_iterations,
+           int nonmonotonic, float function_tolerance, void* x_out, void* cost_out,
+           void* iterations_out, void* stream) {
+  Problem p;
+  p.values = (const float*)values;
+  p.flags = flags;
+  p.truncation = truncation;
+  p.distance_scale = distance_scale;
+  p.origin = (const float*)grid_origin;
+  p.resolution = resolution;
+  p.size = size;
+  p.points = (const float*)points;
+  p.mask = (const uint8_t*)mask;
+  p.m = m;
+  p.scale = occupied_space_weight;
+  scan_matcher_2d_kernel<kSurface><<<1, kThreads, 0, (cudaStream_t)stream>>>(
+      p, (const float*)x0, (const float*)target_t, translation_weight, rotation_weight,
+      num_iterations, nonmonotonic, function_tolerance, (float*)x_out, (float*)cost_out,
+      (int*)iterations_out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int scan_matcher_2d(const void* log_odds, const void* known,
@@ -289,19 +351,40 @@ extern "C" int scan_matcher_2d(const void* log_odds, const void* known,
                                float rotation_weight, int num_iterations, int nonmonotonic,
                                float function_tolerance, void* x_out, void* cost_out,
                                void* iterations_out, void* stream) {
-  Problem p;
-  p.log_odds = (const float*)log_odds;
-  p.known = (const uint8_t*)known;
-  p.origin = (const float*)grid_origin;
-  p.resolution = resolution;
-  p.size = size;
-  p.points = (const float*)points;
-  p.mask = (const uint8_t*)mask;
-  p.m = m;
-  p.scale = occupied_space_weight;
-  scan_matcher_2d_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(
-      p, (const float*)x0, (const float*)target_t, translation_weight, rotation_weight,
-      num_iterations, nonmonotonic, function_tolerance, (float*)x_out, (float*)cost_out,
-      (int*)iterations_out);
-  return (int)cudaGetLastError();
+  return launch<kOccupancy>(log_odds, known, 0.0f, 0.0f, grid_origin, resolution, size, points,
+                            mask, m, x0, target_t, occupied_space_weight, translation_weight,
+                            rotation_weight, num_iterations, nonmonotonic, function_tolerance,
+                            x_out, cost_out, iterations_out, stream);
+}
+
+// K3 on the TSDF score surface: `tsd` and `weight` (float32, size^2).
+extern "C" int scan_matcher_2d_tsdf(const void* tsd, const void* weight, float truncation,
+                                    const void* grid_origin, float resolution, int size,
+                                    const void* points, const void* mask, int m,
+                                    const void* x0, const void* target_t,
+                                    float occupied_space_weight, float translation_weight,
+                                    float rotation_weight, int num_iterations,
+                                    int nonmonotonic, float function_tolerance, void* x_out,
+                                    void* cost_out, void* iterations_out, void* stream) {
+  return launch<kTsdfScore>(tsd, weight, truncation, 0.0f, grid_origin, resolution, size,
+                            points, mask, m, x0, target_t, occupied_space_weight,
+                            translation_weight, rotation_weight, num_iterations, nonmonotonic,
+                            function_tolerance, x_out, cost_out, iterations_out, stream);
+}
+
+// K22: the TSDF LM on the raw signed distance `tsd` (float32, size^2);
+// distance_scale is 0.8 / resolution rounded to float32 on the host.
+extern "C" int lm_match_tsdf_2d(const void* tsd, float distance_scale,
+                                const void* grid_origin, float resolution, int size,
+                                const void* points, const void* mask, int m,
+                                const void* x0, const void* target_t,
+                                float occupied_space_weight, float translation_weight,
+                                float rotation_weight, int num_iterations, int nonmonotonic,
+                                float function_tolerance, void* x_out, void* cost_out,
+                                void* iterations_out, void* stream) {
+  return launch<kTsdfDistance>(tsd, nullptr, 0.0f, distance_scale, grid_origin, resolution,
+                               size, points, mask, m, x0, target_t, occupied_space_weight,
+                               translation_weight, rotation_weight, num_iterations,
+                               nonmonotonic, function_tolerance, x_out, cost_out,
+                               iterations_out, stream);
 }

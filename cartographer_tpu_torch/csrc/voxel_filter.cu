@@ -25,6 +25,13 @@
 // next_pow2(2N) slots (8-byte key, 4-byte rank: 48 KB at N = 2048) with the
 // inverse permutation and per-point slots lives in dynamic shared memory, so
 // no pass touches device memory after the first load.
+//
+// Above kMaxSharedPoints (4,096) the table and the per-point arrays do not
+// fit one block's shared memory. The same block then keeps them in a
+// global-memory scratch the wrapper always passes (393 KB of table at N =
+// 16,384, resident in the 50 MB L2) and runs the same passes over it with
+// global atomics: one template, two storage places, the same mask bit for
+// bit, and still no host synchronisation between the 13 passes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -35,6 +42,7 @@ constexpr unsigned long long kEmpty = 0xFFFFFFFFFFFFFFFFull;
 constexpr int kThreads = 1024;
 constexpr int kCoarseSteps = 7;
 constexpr int kBisectSteps = 5;
+constexpr int kMaxSharedPoints = 4096;
 
 struct Shared {
   unsigned long long* keys;  // [slots]
@@ -123,16 +131,19 @@ __device__ void final_mask(const Shared& s, const float* points, int stride, int
   }
 }
 
+// kGlobal: the table and per-point arrays live in `scratch` (device memory)
+// instead of dynamic shared memory.
+template <bool kGlobal>
 __global__ void voxel_filter_kernel(const float* __restrict__ points, int stride, int dim,
                                     const uint8_t* __restrict__ mask,
                                     const int* __restrict__ perm, int n, int slots,
                                     int adaptive, float resolution_or_max_length,
                                     int min_num_points, float max_range,
-                                    uint8_t* __restrict__ keep) {
+                                    uint8_t* __restrict__ keep, unsigned char* scratch) {
   extern __shared__ unsigned char smem[];
   __shared__ int counter;
   Shared s;
-  s.keys = reinterpret_cast<unsigned long long*>(smem);
+  s.keys = reinterpret_cast<unsigned long long*>(kGlobal ? scratch : smem);
   s.ranks = reinterpret_cast<unsigned int*>(s.keys + slots);
   s.inv = reinterpret_cast<int*>(s.ranks + slots);
   s.slot = s.inv + n;
@@ -205,16 +216,27 @@ extern "C" int voxel_filter_shared_bytes(int n, int slots) {
   return slots * (8 + 4) + n * (4 + 4 + 1);
 }
 
+// `scratch` holds voxel_filter_shared_bytes(n, slots) bytes (8-byte aligned),
+// used when n > kMaxSharedPoints.
 extern "C" int voxel_filter(const void* points, int stride, int dim, const void* mask,
                             const void* perm, int n, int slots, int adaptive,
                             float resolution_or_max_length, int min_num_points,
-                            float max_range, void* keep, void* stream) {
+                            float max_range, void* keep, void* scratch, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+  if (n > kMaxSharedPoints) {
+    voxel_filter_kernel<true><<<1, kThreads, 0, st>>>(
+        (const float*)points, stride, dim, (const uint8_t*)mask, (const int*)perm, n, slots,
+        adaptive, resolution_or_max_length, min_num_points, max_range, (uint8_t*)keep,
+        (unsigned char*)scratch);
+    return (int)cudaGetLastError();
+  }
   int shared = voxel_filter_shared_bytes(n, slots);
   cudaError_t err = cudaFuncSetAttribute(
-      voxel_filter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+      voxel_filter_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
   if (err != cudaSuccess) return (int)err;
-  voxel_filter_kernel<<<1, kThreads, shared, (cudaStream_t)stream>>>(
+  voxel_filter_kernel<false><<<1, kThreads, shared, st>>>(
       (const float*)points, stride, dim, (const uint8_t*)mask, (const int*)perm, n, slots,
-      adaptive, resolution_or_max_length, min_num_points, max_range, (uint8_t*)keep);
+      adaptive, resolution_or_max_length, min_num_points, max_range, (uint8_t*)keep, nullptr);
   return (int)cudaGetLastError();
 }

@@ -32,6 +32,7 @@ from cartographer_tpu_torch.ops.paged_grid_3d import (
     PagedIntensitySubmapGrid3D,
     PagedSubmapGrid3D,
 )
+from cartographer_tpu_torch.ops.tsdf_2d import TsdfGrid2D
 from cartographer_tpu_torch.parallel.schur_spa import SchurSpaProblem2D
 from cartographer_tpu_torch.parallel.schur_spa_3d import SchurSpaProblem3D
 
@@ -49,18 +50,32 @@ def grid2d_to_numpy(grid: Grid2D) -> Tuple[np.ndarray, np.ndarray, np.ndarray, f
             grid.origin.cpu().numpy(), grid.resolution)
 
 
+def tsdf_grid2d_from_numpy(tsd: np.ndarray, weight: np.ndarray, origin: np.ndarray,
+                           resolution: float, truncation_distance: float, max_weight: float,
+                           device) -> TsdfGrid2D:
+    """A TsdfGrid2D holding the JAX package's TsdfGrid2D fields."""
+    return TsdfGrid2D(to_device(np.asarray(tsd, np.float32), device),
+                      to_device(np.asarray(weight, np.float32), device),
+                      to_device(np.asarray(origin, np.float32), device), float(resolution),
+                      float(truncation_distance), float(max_weight))
+
+
+def tsdf_grid2d_to_numpy(grid: TsdfGrid2D):
+    """-> (tsd, weight, origin, resolution, truncation_distance, max_weight)."""
+    return (grid.tsd.cpu().numpy(), grid.weight.cpu().numpy(), grid.origin.cpu().numpy(),
+            grid.resolution, grid.truncation_distance, grid.max_weight)
+
+
 # Switches of the JAX package's 2D options that select features the port
 # does not have, each with the value that leaves the feature off.
 UNPORTED_SWITCHES = {
     "num_accumulated_range_data": 1,
     "pose_extrapolator.use_imu_based": False,
-    "submaps.range_data_inserter_type": "PROBABILITY_GRID_INSERTER_2D",
 }
-# Options that only unported features read (the IMU-based extrapolator,
-# TSDF submaps) or that the 2D frontend never reads.
+# Options that only unported features read (the IMU-based extrapolator) or
+# that the 2D frontend never reads.
 UNREAD_OPTIONS = (
     "pose_extrapolator.imu_based",
-    "submaps.tsdf_range_data_inserter",
     "tpu.filtered_capacity",
     "imu_gravity_time_constant",
 )

@@ -12,14 +12,20 @@ and runs one per-scan device step, `_fused_step`:
   3. the motion filter decision, on the device
   4. the conditional raycast insertion into both active submaps (K4)
 
+With `submaps.grid_type = "TSDF"` the submaps are TSDF grids: the search
+scores their score surface (K5's TSDF form), the refine is the TSDF matcher
+(K22) and the insertion the TSDF inserter (K20's normals, then K21).
+
 Each scan makes one host-to-device copy of its inputs and exactly one
 blocking device-to-host copy: the packed result vector. The correlative
 search's data-dependent angular step and argmax, the LM loop's early exit,
 the adaptive filters' searches and the insertion's do_insert gate stay on
 the device.
 
-TSDF submaps, cross-robot batching and the IMU-based extrapolator (which
-the JAX package's 2D builder never reads) raise NotImplementedError.
+Cross-robot batching and the IMU-based extrapolator (which the JAX
+package's 2D builder never reads) raise NotImplementedError. On a CUDA
+device, a capacity option above the size a one-block kernel takes raises
+ValueError at construction (`check_kernel_limits`).
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from cartographer_tpu_torch.mapping.motion_filter import MotionFilter
 from cartographer_tpu_torch.mapping.pose_extrapolator import PoseExtrapolator
 from cartographer_tpu_torch.mapping.range_data_collator import RangeDataCollator
 from cartographer_tpu_torch.mapping.submap_2d import ActiveSubmaps2D, Submap2D
+from cartographer_tpu_torch.ops import bnb_2d, correlative_2d
 from cartographer_tpu_torch.ops.correlative_2d import (
     CorrelativeSearchParams,
     real_time_correlative_match,
@@ -48,6 +55,7 @@ from cartographer_tpu_torch.ops.scan_pipeline_2d import (
     ScanPreprocessParams2D,
     preprocess_scan_2d,
 )
+from cartographer_tpu_torch.ops.tsdf_2d import lm_match_tsdf_2d
 from cartographer_tpu_torch.sensor.data import ImuData, OdometryData, TimedPointCloudData
 from cartographer_tpu_torch.sensor.point_cloud import PointCloud, RangeData
 from cartographer_tpu_torch.sensor.voxel_filter import adaptive_voxel_filter
@@ -87,6 +95,28 @@ class MatchingResult:
     insertion_result: Optional[InsertionResult]
 
 
+def _pow2(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+def check_kernel_limits(options: TrajectoryBuilder2DOptions) -> None:
+    """Raise ValueError where a capacity option makes a cloud larger than
+    the one-block CUDA kernel that takes it (the plain path takes any size)."""
+    tpu = options.tpu
+    if options.use_online_correlative_scan_matching:
+        n = _pow2(min(tpu.matcher_capacity, tpu.scan_capacity))
+        if n > correlative_2d.MAX_POINTS:
+            raise ValueError(
+                f"tpu.matcher_capacity = {tpu.matcher_capacity}: the online correlative search "
+                f"(K5) takes at most {correlative_2d.MAX_POINTS} points on the card")
+    n = _pow2(max(min(tpu.loop_closure_capacity, tpu.scan_capacity), 16))
+    if n > bnb_2d.MAX_POINTS:
+        raise ValueError(
+            f"tpu.loop_closure_capacity = {tpu.loop_closure_capacity}: the loop-closure "
+            f"scorer (K7) takes at most {bnb_2d.MAX_POINTS} points (padded to a power of two) "
+            f"on the card")
+
+
 class LocalTrajectoryBuilder2D:
     def __init__(self, options: TrajectoryBuilder2DOptions,
                  expected_range_sensor_ids: List[str], device="cuda", batcher=None,
@@ -97,14 +127,14 @@ class LocalTrajectoryBuilder2D:
         JAX package's permutation through it)."""
         if batcher is not None:
             raise NotImplementedError("cross-robot scan batching is not ported")
-        if options.submaps.grid_type == "TSDF":
-            raise NotImplementedError("TSDF submaps are not ported")
         if options.pose_extrapolator.use_imu_based:
             raise NotImplementedError("the IMU-based extrapolator is not ported to 2D")
         self._device = torch.device(device)
-        if self._device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("LocalTrajectoryBuilder2D: no CUDA device is available; "
-                               "pass device='cpu' to run the plain PyTorch path")
+        if self._device.type == "cuda":
+            check_kernel_limits(options)
+            if not torch.cuda.is_available():
+                raise RuntimeError("LocalTrajectoryBuilder2D: no CUDA device is available; "
+                                   "pass device='cpu' to run the plain PyTorch path")
         self._options = options
         self._active_submaps = ActiveSubmaps2D(options.submaps, options.tpu, self._device)
         self._motion_filter = MotionFilter(options.motion_filter)
@@ -246,8 +276,9 @@ class LocalTrajectoryBuilder2D:
                                                      self._corr_params)
         # The translation penalty pulls toward the prediction, the rotation
         # penalty toward the correlative estimate (ceres_scan_matcher_2d.cc).
-        pose_m, cost, iterations = lm_match_2d(grid, filtered.points, filtered.mask, initial,
-                                               pred[0:2], self._gn_params)
+        match = lm_match_tsdf_2d if opts.submaps.grid_type == "TSDF" else lm_match_2d
+        pose_m, cost, iterations = match(grid, filtered.points, filtered.mask, initial,
+                                         pred[0:2], self._gn_params)
         finite = torch.isfinite(pose_m).all() & has_grid
         pose_vec = torch.where(finite, pose_m, pred)
 

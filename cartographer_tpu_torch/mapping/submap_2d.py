@@ -4,10 +4,10 @@ Counterpart of the JAX package's `mapping/submap_2d.py`
 (mapping/2d/submap_2d.cc): ActiveSubmaps2D keeps the older submap (slot 0,
 used for matching) and a newer one (slot 1); a new submap starts every
 `num_range_data` inserted scans and the older one is finished after
-2 * num_range_data. Both grids live in one batched Grid2D whose leading
-dimension is the slot, so one insertion updates both; `prepare` and
-`commit` split the window bookkeeping around the device step so that the
-step needs no extra host round-trip.
+2 * num_range_data. Both grids live in one batched Grid2D (or TsdfGrid2D,
+with `grid_type = "TSDF"`) whose leading dimension is the slot, so one
+insertion updates both; `prepare` and `commit` split the window bookkeeping
+around the device step so that the step needs no extra host round-trip.
 """
 
 from __future__ import annotations
@@ -21,6 +21,12 @@ import torch
 from cartographer_tpu_torch.core.config import SubmapsOptions2D, TpuOptions2D
 from cartographer_tpu_torch.core.tensor import to_device
 from cartographer_tpu_torch.ops.grid_2d import Grid2D, InsertScratch, insert_into_slots
+from cartographer_tpu_torch.ops.tsdf_2d import (
+    TsdfGrid2D,
+    TsdfInserterParams,
+    TsdfInsertScratch,
+    insert_into_slots_tsdf,
+)
 from cartographer_tpu_torch.sensor.point_cloud import RangeData
 
 _SLOTS = 2
@@ -34,7 +40,7 @@ class Submap2D:
     local_pose_rotation: np.ndarray  # (4,) quaternion
     num_range_data: int = 0
     insertion_finished: bool = False
-    grid: Optional[Grid2D] = None
+    grid: Optional[Grid2D] = None  # or a TsdfGrid2D
 
 
 class ActiveSubmaps2D:
@@ -44,38 +50,51 @@ class ActiveSubmaps2D:
     """
 
     def __init__(self, options: SubmapsOptions2D, tpu: TpuOptions2D, device):
-        if options.grid_type == "TSDF":
-            raise NotImplementedError("TSDF submaps are not ported")
         self._options = options
         self._tpu = tpu
         self._device = torch.device(device)
+        self._tsdf = options.grid_type == "TSDF"
         self.submaps: List[Submap2D] = []
-        self._grids: Optional[Grid2D] = None  # batched (2, S, S)
-        self._scratch = (InsertScratch.create(_SLOTS, tpu.submap_grid_size, self._device)
-                         if self._device.type == "cuda" else None)
+        self._grids = None  # batched (2, S, S) Grid2D or TsdfGrid2D
+        self._scratch = None
+        if self._device.type == "cuda":
+            size = tpu.submap_grid_size
+            self._scratch = (TsdfInsertScratch.create(_SLOTS, size, tpu.scan_capacity,
+                                                      self._device) if self._tsdf
+                             else InsertScratch.create(_SLOTS, size, self._device))
+        t = options.tsdf_range_data_inserter
+        self._tsdf_params = TsdfInserterParams(
+            t.update_weight_range_exponent,
+            t.update_weight_angle_scan_normal_to_ray_kernel_bandwidth,
+            t.update_weight_distance_cell_to_hit_kernel_bandwidth,
+            t.project_sdf_distance_to_scan_normal) if self._tsdf else None
 
-    def _blank_grid(self, center_xy: np.ndarray) -> Grid2D:
+    def _blank_grid(self, center_xy: np.ndarray):
+        if self._tsdf:
+            t = self._options.tsdf_range_data_inserter
+            return TsdfGrid2D.create(self._tpu.submap_grid_size, self._options.resolution,
+                                     center_xy, self._device, t.truncation_distance,
+                                     t.maximum_weight)
         return Grid2D.create(self._tpu.submap_grid_size, self._options.resolution,
                              center_xy, self._device)
 
     @property
-    def matching_grid(self) -> Optional[Grid2D]:
+    def matching_grid(self):
         return None if self._grids is None else self._grids.slot(0)
 
     @property
-    def grids(self) -> Optional[Grid2D]:
+    def grids(self):
         return self._grids
 
-    def _set_slot(self, slot: int, grid: Grid2D) -> None:
+    def _set_slot(self, slot: int, grid) -> None:
+        names = ("tsd", "weight", "origin") if self._tsdf else ("log_odds", "known", "origin")
         if self._grids is None:
-            self._grids = Grid2D(
-                torch.stack([grid.log_odds] * _SLOTS), torch.stack([grid.known] * _SLOTS),
-                torch.stack([grid.origin] * _SLOTS), grid.resolution)
+            self._grids = dataclasses.replace(
+                grid, **{k: torch.stack([getattr(grid, k)] * _SLOTS) for k in names})
             return
         target = self._grids.slot(slot)
-        target.log_odds.copy_(grid.log_odds)
-        target.known.copy_(grid.known)
-        target.origin.copy_(grid.origin)
+        for k in names:
+            getattr(target, k).copy_(getattr(grid, k))
 
     def prepare(self, origin_xy: np.ndarray) -> np.ndarray:
         """Window management before an insertion: start a submap when the
@@ -106,6 +125,10 @@ class ActiveSubmaps2D:
                do_insert: torch.Tensor) -> None:
         """Insert a gravity-aligned local-frame scan into the active slots
         when `do_insert` (0-d bool, may live on the device) holds."""
+        if self._tsdf:
+            insert_into_slots_tsdf(self._grids, range_data, active, do_insert,
+                                   self._tsdf_params, self._scratch)
+            return
         ins = self._options.probability_grid_range_data_inserter
         insert_into_slots(self._grids, range_data, active, do_insert, ins.hit_probability,
                           ins.miss_probability, ins.insert_free_space,

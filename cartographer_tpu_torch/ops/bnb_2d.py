@@ -14,7 +14,9 @@ the best leaf scores at least the largest bound the beam dropped.
 
 `build_precomputation_pyramid` launches the CUDA kernel `csrc/bnb_2d.cu`
 `bnb_pyramid` (K6) and `score_candidates` its `bnb_score` (K7) on CUDA
-tensors; CPU tensors take their plain twins. The beam selection is a stable
+tensors; CPU tensors take their plain twins. On a `TsdfGrid2D` level 0 is
+its score surface (K6's TSDF form, `bnb_pyramid_tsdf`), as the JAX
+constraint builder builds it from `grid.probability()`. The beam selection is a stable
 sort (value descending, index ascending: the order of `lax.top_k`), the same
 on both paths. The point axis is summed as the same pairwise halving tree on
 both, so on the card the twin's scores are bit-equal to the kernel's.
@@ -38,11 +40,17 @@ from cartographer_tpu_torch.ops.correlative_2d import (
     tree_sum,
 )
 from cartographer_tpu_torch.ops.grid_2d import Grid2D
-from cartographer_tpu_torch.ops.probability import UNKNOWN_PROBABILITY, log_odds_to_probability
+from cartographer_tpu_torch.ops.probability import UNKNOWN_PROBABILITY
 
-_PYRAMID = cuda.CudaKernel(
-    "bnb_2d.cu", "bnb_pyramid",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+# One pyramid kernel per surface form (Grid2D.SURFACE, TsdfGrid2D.SURFACE).
+_PYRAMIDS = {
+    "occupancy": cuda.CudaKernel(
+        "bnb_2d.cu", "bnb_pyramid",
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+    "tsdf": cuda.CudaKernel(
+        "bnb_2d.cu", "bnb_pyramid_tsdf",
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+         ctypes.c_void_p])}
 _SCORE = cuda.CudaKernel(
     "bnb_2d.cu", "bnb_score",
     [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
@@ -66,15 +74,9 @@ class FastCorrelativeMatcherParams2D:
 # ---------------------------------------------------------------- K6
 
 
-def probability_grid(grid: Grid2D) -> torch.Tensor:
-    """(S, S) probability image; cells never updated hold UNKNOWN."""
-    return torch.where(grid.known, log_odds_to_probability(grid.log_odds),
-                       torch.full_like(grid.log_odds, UNKNOWN_PROBABILITY))
-
-
-def pyramid_plain(grid: Grid2D, depth: int) -> torch.Tensor:
+def pyramid_plain(grid, depth: int) -> torch.Tensor:
     """The plain twin of K6: log-doubling with UNKNOWN padding, as l.60-78."""
-    current = probability_grid(grid)
+    current = grid.probability()
     levels = [current]
     for h in range(1, depth):
         shift = 1 << (h - 1)
@@ -86,17 +88,15 @@ def pyramid_plain(grid: Grid2D, depth: int) -> torch.Tensor:
     return torch.stack(levels)
 
 
-def build_precomputation_pyramid(grid: Grid2D, depth: int) -> torch.Tensor:
-    """(depth, S, S) pyramid of the grid's probabilities
-    (PrecomputationGridStack2D, fast_correlative_scan_matcher_2d.cc:91-186)."""
-    if not grid.log_odds.is_cuda:
+def build_precomputation_pyramid(grid, depth: int) -> torch.Tensor:
+    """(depth, S, S) pyramid of a Grid2D's probabilities or a TsdfGrid2D's
+    score surface (PrecomputationGridStack2D,
+    fast_correlative_scan_matcher_2d.cc:91-186)."""
+    if not grid.origin.is_cuda:
         return pyramid_plain(grid, depth)
     size = grid.size
-    cuda.check(grid.log_odds, "log_odds", torch.float32, (size, size))
-    cuda.check(grid.known, "known", torch.bool, (size, size))
-    out = torch.empty((depth, size, size), dtype=torch.float32, device=grid.log_odds.device)
-    _PYRAMID(out.device, grid.log_odds.data_ptr(), grid.known.data_ptr(), size, depth,
-             out.data_ptr())
+    out = torch.empty((depth, size, size), dtype=torch.float32, device=grid.origin.device)
+    _PYRAMIDS[grid.SURFACE](out.device, *grid.surface_args(), size, depth, out.data_ptr())
     return out
 
 

@@ -41,9 +41,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from cartographer_tpu_torch.core.tensor import true_div
+from cartographer_tpu_torch.core.tensor import f32, true_div
 from cartographer_tpu_torch.ops import cuda
-from cartographer_tpu_torch.ops.correlative_2d import f32, tree_sum
+from cartographer_tpu_torch.ops.correlative_2d import tree_sum
 from cartographer_tpu_torch.ops.grid_3d import Grid3D
 from cartographer_tpu_torch.ops.probability import (
     MAX_PROBABILITY,

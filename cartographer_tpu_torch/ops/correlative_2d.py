@@ -12,9 +12,12 @@ largest range of the cloud), so it is computed on the device and the
 candidate count is the static worst case from `max_scan_range`.
 
 `real_time_correlative_match` launches the CUDA kernel `csrc/correlative_2d.cu`
-(K5) on CUDA tensors and the plain twin on CPU tensors. Both sum the point
-axis (padded to a power of two) as the same pairwise halving tree, so on the
-card the twin's scores are bit-equal to the kernel's.
+(K5) on CUDA tensors and the plain twin on CPU tensors. On a `TsdfGrid2D`
+both score its score surface (K5's TSDF form, `correlative_2d_tsdf`): 0 in
+unknown cells, UNKNOWN outside the map, as the JAX search reads it through
+`grid.probability()`. Both sum the point axis (padded to a power of two) as
+the same pairwise halving tree, so on the card the twin's scores are
+bit-equal to the kernel's.
 """
 
 from __future__ import annotations
@@ -24,20 +27,28 @@ import dataclasses
 import math
 from typing import Tuple
 
-import numpy as np
 import torch
 
-from cartographer_tpu_torch.core.tensor import true_div
+from cartographer_tpu_torch.core.tensor import f32, true_div
 from cartographer_tpu_torch.ops import cuda
 from cartographer_tpu_torch.ops.grid_2d import Grid2D
-from cartographer_tpu_torch.ops.probability import UNKNOWN_PROBABILITY, log_odds_to_probability
+from cartographer_tpu_torch.ops.probability import UNKNOWN_PROBABILITY
 
-_KERNEL = cuda.CudaKernel(
-    "correlative_2d.cu", "correlative_2d",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
-     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-     ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-     ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+# One kernel per surface form (Grid2D.SURFACE, TsdfGrid2D.SURFACE).
+_KERNELS = {
+    "occupancy": cuda.CudaKernel(
+        "correlative_2d.cu", "correlative_2d",
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+         ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+         ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]),
+    "tsdf": cuda.CudaKernel(
+        "correlative_2d.cu", "correlative_2d_tsdf",
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p, ctypes.c_float,
+         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+         ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_void_p])}
 
 MAX_POINTS = 4096  # the kernel keeps one float per (padded) point in shared memory
 
@@ -61,11 +72,6 @@ def static_num_angles(angular_window: float, max_scan_range: float, resolution: 
     """Worst-case (finest step) angle count, correlative_scan_matcher_2d.cc:40-44."""
     step = (1.0 - 1e-3) * math.acos(1.0 - resolution**2 / (2.0 * max_scan_range**2))
     return 2 * int(math.ceil(angular_window / step)) + 1
-
-
-def f32(x: float) -> float:
-    """A Python float rounded to float32, as JAX rounds a weak-typed scalar."""
-    return float(np.float32(x))
 
 
 def angular_step(points: torch.Tensor, mask: torch.Tensor, resolution: float) -> torch.Tensor:
@@ -96,16 +102,14 @@ def candidate_cells(grid: Grid2D, points: torch.Tensor, mask: torch.Tensor,
     return deltas, angle_valid, cells
 
 
-def probability_at(grid: Grid2D, cx: torch.Tensor, cy: torch.Tensor) -> torch.Tensor:
-    """Probability of cells (cx, cy) of the grid; out-of-map cells and cells
-    never updated score UNKNOWN_PROBABILITY."""
+def probability_at(grid, cx: torch.Tensor, cy: torch.Tensor) -> torch.Tensor:
+    """Probability of cells (cx, cy) of a Grid2D, out-of-map cells and cells
+    never updated UNKNOWN_PROBABILITY; of a TsdfGrid2D its score surface,
+    out-of-map cells UNKNOWN_PROBABILITY."""
     size = grid.size
     inside = (cx >= 0) & (cx < size) & (cy >= 0) & (cy < size)
-    lin = torch.clamp(cx, 0, size - 1) * size + torch.clamp(cy, 0, size - 1)
-    lo = grid.log_odds.reshape(-1)[lin]
-    known = grid.known.reshape(-1)[lin] & inside
-    return torch.where(known, log_odds_to_probability(lo),
-                       torch.full_like(lo, UNKNOWN_PROBABILITY))
+    score = grid.score_at(torch.clamp(cx, 0, size - 1), torch.clamp(cy, 0, size - 1))
+    return torch.where(inside, score, torch.full_like(score, UNKNOWN_PROBABILITY))
 
 
 def tree_sum(v: torch.Tensor) -> torch.Tensor:
@@ -180,8 +184,7 @@ def _match_kernel(grid: Grid2D, points: torch.Tensor, mask: torch.Tensor,
     n = points.shape[0]
     if n > MAX_POINTS:
         raise ValueError(f"correlative_2d: at most {MAX_POINTS} points, got {n}")
-    cuda.check(grid.log_odds, "log_odds", torch.float32, (size, size))
-    cuda.check(grid.known, "known", torch.bool, (size, size))
+    surface = grid.surface_args()
     cuda.check(grid.origin, "grid origin", torch.float32, (2,))
     cuda.check(points, "points", torch.float32, (n, 2))
     cuda.check(mask, "mask", torch.bool, (n,))
@@ -192,12 +195,12 @@ def _match_kernel(grid: Grid2D, points: torch.Tensor, mask: torch.Tensor,
     deltas = torch.empty(num_angles, dtype=torch.float32, device=device)
     key = torch.empty(1, dtype=torch.int64, device=device)
     best = torch.empty(4, dtype=torch.float32, device=device)
-    _KERNEL(device, grid.log_odds.data_ptr(), grid.known.data_ptr(), grid.origin.data_ptr(),
-            f32(res), size, points.data_ptr(), mask.data_ptr(), n, initial_pose.data_ptr(),
-            num_angles, nl, f32(params.angular_search_window + 1e-6),
-            f32(params.translation_delta_cost_weight), f32(params.rotation_delta_cost_weight),
-            f32(res**2), f32(3.0 * res), scores.data_ptr(), deltas.data_ptr(),
-            key.data_ptr(), best.data_ptr())
+    _KERNELS[grid.SURFACE](device, *surface, grid.origin.data_ptr(), f32(res), size,
+               points.data_ptr(), mask.data_ptr(), n, initial_pose.data_ptr(), num_angles, nl,
+               f32(params.angular_search_window + 1e-6),
+               f32(params.translation_delta_cost_weight),
+               f32(params.rotation_delta_cost_weight), f32(res**2), f32(3.0 * res),
+               scores.data_ptr(), deltas.data_ptr(), key.data_ptr(), best.data_ptr())
     return best, scores
 
 

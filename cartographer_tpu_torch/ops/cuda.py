@@ -48,7 +48,9 @@ def _nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    text = (CSRC_DIR / source).read_bytes()
+    # The headers go into every library's hash: a source may include any.
+    text = (CSRC_DIR / source).read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{Path(source).stem}-{digest}.so"
 

@@ -26,7 +26,9 @@ from cartographer_tpu_torch.ops import cuda
 from cartographer_tpu_torch.ops.probability import (
     MAX_LOG_ODDS,
     MIN_LOG_ODDS,
+    UNKNOWN_PROBABILITY,
     clamp_log_odds,
+    log_odds_to_probability,
     probability_to_log_odds,
 )
 from cartographer_tpu_torch.sensor.point_cloud import RangeData
@@ -54,6 +56,10 @@ class Grid2D:
     origin: torch.Tensor  # (..., 2) float32, world position of cell (0, 0) corner
     resolution: float
 
+    # The form of the matching kernels (K3, K5, K6) that reads this grid's
+    # surface; TsdfGrid2D has "tsdf".
+    SURFACE = "occupancy"
+
     @staticmethod
     def create(size: int, resolution: float, center, device) -> "Grid2D":
         origin = np.asarray(center, np.float32) - np.float32(0.5 * size * resolution)
@@ -79,6 +85,27 @@ class Grid2D:
     def world_to_cell_continuous(self, points: torch.Tensor) -> torch.Tensor:
         """World (..., 2) -> fractional cell coordinates (cell centers at .5)."""
         return true_div(points - self.origin, self.resolution)
+
+    def score_at(self, ii: torch.Tensor, jj: torch.Tensor) -> torch.Tensor:
+        """The matchers' surface at cells (ii, jj), all inside the grid: the
+        probability, UNKNOWN_PROBABILITY where never updated."""
+        lo = self.log_odds[..., ii, jj]
+        return torch.where(self.known[..., ii, jj], log_odds_to_probability(lo),
+                           torch.full_like(lo, UNKNOWN_PROBABILITY))
+
+    def probability(self) -> torch.Tensor:
+        """(S, S) the matchers' surface: the probability, UNKNOWN_PROBABILITY
+        where never updated."""
+        return torch.where(self.known, log_odds_to_probability(self.log_odds),
+                           torch.full_like(self.log_odds, UNKNOWN_PROBABILITY))
+
+    def surface_args(self) -> tuple:
+        """The surface arguments of the matching kernels' occupancy form:
+        the log-odds and known pointers of one (S, S) grid."""
+        size = self.size
+        cuda.check(self.log_odds, "log_odds", torch.float32, (size, size))
+        cuda.check(self.known, "known", torch.bool, (size, size))
+        return self.log_odds.data_ptr(), self.known.data_ptr()
 
 
 # ---------------------------------------------------------------- plain twin

@@ -15,7 +15,8 @@ host mirror of the table), and four device programs, all in
   - `insert_intensity_paged` (K18): the running-average intensity pools of
     the reference's IntensityHybridGrid (sums and counts behind their own
     page table), fed with the returns whose intensity is at most the
-    threshold, in place;
+    threshold, in place, for scans of any size (above 8,192 returns its
+    key sort runs over several blocks);
   - `crop_dense_intensity` (K19): K10's crop of the two intensity pools
     into a dense `IntensityGrid3D`.
 
@@ -55,7 +56,7 @@ _CROP_ARGS = [_P, _P, _P, _P, _F, _I, _I, _I, _F, _F, _F, _I, _P, _P, _P]
 _CROP_KERNEL = cuda.CudaKernel("paged_grid_3d.cu", "paged_crop_3d", _CROP_ARGS)
 _INTENSITY_INSERT_KERNEL = cuda.CudaKernel(
     "paged_grid_3d.cu", "paged_intensity_insert_3d",
-    [_P, _P, _P, _P, _F, _I, _I, _I, _P, _P, _P, _I, _F])
+    [_P, _P, _P, _P, _F, _I, _I, _I, _P, _P, _P, _I, _F, _P])
 _INTENSITY_CROP_KERNEL = cuda.CudaKernel("paged_grid_3d.cu", "paged_intensity_crop_3d",
                                          _CROP_ARGS)
 
@@ -478,8 +479,6 @@ def insert_intensity_paged(grid: PagedIntensityGrid3D, returns: torch.Tensor,
         insert_intensity_paged_plain(grid, returns, intensities, mask, threshold)
         return
     n = returns.shape[0]
-    if n > 8192:  # the kernel sorts a 64-bit key per return in 64 KB of shared memory
-        raise ValueError(f"insert_intensity_paged: {n} returns (at most 8192)")
     P, B, nb = grid.max_pages, grid.page_size, grid.num_blocks
     cuda.check(grid.sums, "sums", torch.float32, (P, B, B, B))
     cuda.check(grid.counts, "counts", torch.float32, (P, B, B, B))
@@ -488,10 +487,15 @@ def insert_intensity_paged(grid: PagedIntensityGrid3D, returns: torch.Tensor,
     cuda.check(returns, "returns", torch.float32, (n, 3))
     cuda.check(intensities, "intensities", torch.float32, (n,))
     cuda.check(mask, "mask", torch.bool, (n,))
+    # One 64-bit key per return, padded to a power of two: the kernel sorts
+    # them here where one block's shared memory cannot hold them.
+    keys = torch.empty(max(2, 1 << (n - 1).bit_length()), dtype=torch.int64,
+                       device=returns.device)
     _INTENSITY_INSERT_KERNEL(returns.device, grid.sums.data_ptr(), grid.counts.data_ptr(),
                              grid.page_table.data_ptr(), grid.origin.data_ptr(),
                              grid.resolution, B, nb, P, returns.data_ptr(),
-                             intensities.data_ptr(), mask.data_ptr(), n, float(threshold))
+                             intensities.data_ptr(), mask.data_ptr(), n, float(threshold),
+                             keys.data_ptr())
 
 
 def crop_dense_intensity_plain(grid: PagedIntensityGrid3D, center: torch.Tensor,

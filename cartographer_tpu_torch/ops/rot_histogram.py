@@ -34,8 +34,8 @@ _MIN_DISTANCE = 0.2
 _MAX_DISTANCE = 0.9
 _SLICE_HEIGHT = 0.2
 _MAX_SLICES = 128
-_MAX_POINTS = 1024  # one block, one thread per point; 10 index bits in the sort key
-_MAX_BINS = 1024
+MAX_POINTS = 1024  # one block, one thread per point; 10 index bits in the sort key
+MAX_BINS = 1024
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _KERNEL = cuda.CudaKernel("rot_histogram.cu", "rot_histogram", [_P, _P, _I, _I, _I, _P])
@@ -144,9 +144,9 @@ def compute_rotational_histogram(points: torch.Tensor, mask: torch.Tensor,
     n = points.shape[0]
     cuda.check(points, "points", torch.float32, (n, 3))
     cuda.check(mask, "mask", torch.bool, (n,))
-    if n > _MAX_POINTS or not 0 < histogram_size <= _MAX_BINS:
-        raise ValueError(f"rotational histogram: at most {_MAX_POINTS} points and "
-                         f"{_MAX_BINS} bins, got {n} and {histogram_size}")
+    if n > MAX_POINTS or not 0 < histogram_size <= MAX_BINS:
+        raise ValueError(f"rotational histogram: at most {MAX_POINTS} points and "
+                         f"{MAX_BINS} bins, got {n} and {histogram_size}")
     hist = torch.empty(histogram_size, dtype=torch.float32, device=points.device)
     _KERNEL(points.device, points.data_ptr(), mask.data_ptr(), n, _padded_size(n),
             histogram_size, hist.data_ptr())
@@ -212,8 +212,8 @@ def match_histograms(submap_histogram: torch.Tensor, scan_histogram: torch.Tenso
     cuda.check(scan_histogram, "scan_histogram", torch.float32, (size,))
     cuda.check(submap_histogram, "submap_histogram", torch.float32, (size,))
     cuda.check(angles, "angles", torch.float32, (a,))
-    if not 0 < size <= _MAX_BINS:
-        raise ValueError(f"match_histograms: at most {_MAX_BINS} bins, got {size}")
+    if not 0 < size <= MAX_BINS:
+        raise ValueError(f"match_histograms: at most {MAX_BINS} bins, got {size}")
     out = torch.empty(a, dtype=torch.float32, device=angles.device)
     if a:
         _MATCH_KERNEL(angles.device, scan_histogram.data_ptr(), submap_histogram.data_ptr(),

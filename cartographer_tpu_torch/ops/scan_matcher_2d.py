@@ -10,7 +10,10 @@ and a rotation penalty toward the initial rotation, minimized over
 `gauss_newton_match_2d` launches the CUDA kernel `csrc/scan_matcher_2d.cu`
 (K3), which runs the whole solve in one launch, on CUDA tensors and the
 plain twin (`occupied_space_residuals_and_jacobian` + `gauss_newton.lm_solve`)
-on CPU tensors.
+on CPU tensors. On a `TsdfGrid2D` both read its score surface in place of
+the probability (K3's TSDF form, `scan_matcher_2d_tsdf`), as the JAX
+matcher does through `grid.probability()`; the loop-closure refine runs
+there. The TSDF frontend's own matcher is `tsdf_2d.lm_match_tsdf_2d` (K22).
 """
 
 from __future__ import annotations
@@ -21,22 +24,29 @@ from typing import Tuple
 
 import torch
 
+from cartographer_tpu_torch.core.tensor import true_div
 from cartographer_tpu_torch.ops import cuda
 from cartographer_tpu_torch.ops.gauss_newton import lm_solve
 from cartographer_tpu_torch.ops.grid_2d import Grid2D
 from cartographer_tpu_torch.ops.interp import bicubic_with_gradient
-from cartographer_tpu_torch.ops.probability import UNKNOWN_PROBABILITY, log_odds_to_probability
-from cartographer_tpu_torch.core.tensor import true_div
 from cartographer_tpu_torch.transform.rigid import Rigid2
 
 _FUNCTION_TOLERANCE = 1e-6  # Ceres Solver::Options default, as lm_solve
 
-_KERNEL = cuda.CudaKernel(
-    "scan_matcher_2d.cu", "scan_matcher_2d",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
-     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-     ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+# One kernel per surface form (Grid2D.SURFACE, TsdfGrid2D.SURFACE).
+_KERNELS = {
+    "occupancy": cuda.CudaKernel(
+        "scan_matcher_2d.cu", "scan_matcher_2d",
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+         ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]),
+    "tsdf": cuda.CudaKernel(
+        "scan_matcher_2d.cu", "scan_matcher_2d_tsdf",
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p, ctypes.c_float,
+         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+         ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+         ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,23 +58,19 @@ class GaussNewtonMatcherParams2D:
     use_nonmonotonic_steps: bool = False
 
 
-def occupied_space_residuals_and_jacobian(grid: Grid2D, points: torch.Tensor,
+def occupied_space_residuals_and_jacobian(grid, points: torch.Tensor,
                                           mask: torch.Tensor, pose_vec: torch.Tensor,
                                           weight: float):
     """Residuals (M,) w / sqrt(n) * (1 - P(T p)) (0 where masked) and their
-    Jacobian (M, 3) with respect to pose_vec = [x, y, theta]."""
+    Jacobian (M, 3) with respect to pose_vec = [x, y, theta]; P is the
+    probability of a Grid2D or the score surface of a TsdfGrid2D."""
     c, s = torch.cos(pose_vec[2]), torch.sin(pose_vec[2])
     x, y = points[..., 0], points[..., 1]
     rx = c * x - s * y
     ry = s * x + c * y
     world = torch.stack([rx, ry], dim=-1) + pose_vec[0:2]
     coords = grid.world_to_cell_continuous(world)
-
-    def probability_at(ii, jj):
-        return torch.where(grid.known[ii, jj], log_odds_to_probability(grid.log_odds[ii, jj]),
-                           torch.full_like(grid.log_odds[ii, jj], UNKNOWN_PROBABILITY))
-
-    p, dp = bicubic_with_gradient(probability_at, grid.log_odds.shape, coords)
+    p, dp = bicubic_with_gradient(grid.score_at, (grid.size, grid.size), coords)
     n = torch.clamp(mask.to(torch.float32).sum(), min=1.0)
     scale = torch.full_like(n, weight) / torch.sqrt(n)
     dp = true_div(dp, grid.resolution)  # d coords / d world = 1 / resolution
@@ -95,8 +101,7 @@ def _match_plain(grid, points, mask, x0, target_translation, params):
 def _match_kernel(grid, points, mask, x0, target_translation, params):
     size = grid.size
     m = points.shape[0]
-    cuda.check(grid.log_odds, "log_odds", torch.float32, (size, size))
-    cuda.check(grid.known, "known", torch.bool, (size, size))
+    surface = grid.surface_args()
     cuda.check(grid.origin, "grid origin", torch.float32, (2,))
     cuda.check(points, "points", torch.float32, (m, 2))
     cuda.check(mask, "mask", torch.bool, (m,))
@@ -106,19 +111,19 @@ def _match_kernel(grid, points, mask, x0, target_translation, params):
     x = torch.empty(3, dtype=torch.float32, device=device)
     cost = torch.empty((), dtype=torch.float32, device=device)
     iterations = torch.empty((), dtype=torch.int32, device=device)
-    _KERNEL(device, grid.log_odds.data_ptr(), grid.known.data_ptr(),
-            grid.origin.data_ptr(), float(grid.resolution), size, points.data_ptr(),
-            mask.data_ptr(), m, x0.data_ptr(), target_translation.data_ptr(),
-            float(params.occupied_space_weight), float(params.translation_weight),
-            float(params.rotation_weight), int(params.num_iterations),
-            int(params.use_nonmonotonic_steps), _FUNCTION_TOLERANCE, x.data_ptr(),
-            cost.data_ptr(), iterations.data_ptr())
+    _KERNELS[grid.SURFACE](device, *surface, grid.origin.data_ptr(), float(grid.resolution), size,
+               points.data_ptr(), mask.data_ptr(), m, x0.data_ptr(),
+               target_translation.data_ptr(), float(params.occupied_space_weight),
+               float(params.translation_weight), float(params.rotation_weight),
+               int(params.num_iterations), int(params.use_nonmonotonic_steps),
+               _FUNCTION_TOLERANCE, x.data_ptr(), cost.data_ptr(), iterations.data_ptr())
     return x, cost, iterations
 
 
-def lm_match_2d(grid: Grid2D, points: torch.Tensor, mask: torch.Tensor, x0: torch.Tensor,
+def lm_match_2d(grid, points: torch.Tensor, mask: torch.Tensor, x0: torch.Tensor,
                 target_translation: torch.Tensor, params: GaussNewtonMatcherParams2D):
-    """The solve on pose vectors: -> (pose (3,), final cost, LM iterations)."""
+    """The solve on pose vectors, on a Grid2D or the score surface of a
+    TsdfGrid2D: -> (pose (3,), final cost, LM iterations)."""
     if points.is_cuda:
         return _match_kernel(grid, points, mask, x0.contiguous(),
                              target_translation.contiguous(), params)

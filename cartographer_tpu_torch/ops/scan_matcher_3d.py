@@ -53,6 +53,7 @@ from cartographer_tpu_torch.transform import quaternion as quat
 from cartographer_tpu_torch.transform.rigid import Rigid3
 
 _FUNCTION_TOLERANCE = 1e-6  # Ceres Solver::Options default, as lm_solve
+CORRELATIVE_MAX_POINTS = 2048  # K17 keeps the cloud in one block's shared memory
 
 _P, _F, _I = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
 _KERNEL = cuda.CudaKernel(
@@ -416,8 +417,8 @@ def _correlative_kernel(grid: Grid3D, points, mask, x0, params):
     cuda.check(points, "points", torch.float32, (n, 3))
     cuda.check(mask, "mask", torch.bool, (n,))
     cuda.check(x0, "initial pose", torch.float32, (7,))
-    if not 0 < n <= 2048:
-        raise ValueError(f"correlative_3d: {n} points (1 to 2048 supported)")
+    if not 0 < n <= CORRELATIVE_MAX_POINTS:
+        raise ValueError(f"correlative_3d: {n} points (1 to {CORRELATIVE_MAX_POINTS} supported)")
     res = grid.resolution
     nl, na = search_sizes(res, params)
     dev = x0.device

@@ -9,7 +9,9 @@ permutation gives the same mask in both packages.
 The wrappers launch the CUDA kernel `csrc/voxel_filter.cu` (K2) on CUDA
 tensors and run the plain PyTorch twin, the JAX algorithm written in
 PyTorch (shuffle, stable sort by packed key, last point of each run), on
-CPU tensors.
+CPU tensors. The kernel takes clouds of any size: above one block's shared
+memory its hash table moves to a device-memory scratch that the wrapper
+always passes.
 """
 
 from __future__ import annotations
@@ -26,13 +28,12 @@ _COARSE_STEPS = 7  # max_length/2^7 < 1e-2*max_length stopping rule
 _BISECT_STEPS = 5  # until (high-low)/low <= 10%
 _PACK_BIAS = 1 << 15  # per-axis voxel indices packed as biased 16-bit fields
 _SENTINEL = 1 << 62  # sorts after every packed key of a valid point
-_MAX_SHARED_BYTES = 232448
 
 _KERNEL = cuda.CudaKernel(
     "voxel_filter.cu", "voxel_filter",
     [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-     ctypes.c_float, ctypes.c_void_p])
+     ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
 
 
 # ---------------------------------------------------------------- plain twin
@@ -104,12 +105,13 @@ def _launch(points, mask, perm, adaptive, length, min_num_points, max_range):
     slots = 64
     while slots < 2 * n:
         slots *= 2
-    if slots * 12 + n * 9 > _MAX_SHARED_BYTES:
-        raise ValueError(f"voxel filter: {n} points exceed one block's shared memory")
     keep = torch.empty(n, dtype=torch.bool, device=points.device)
+    # Table, ranks, inverse permutation, slots and flags, for a cloud whose
+    # table does not fit the kernel's shared memory.
+    scratch = torch.empty(slots * 12 + n * 9, dtype=torch.uint8, device=points.device)
     _KERNEL(points.device, points.data_ptr(), points.stride(0), dim, mask.data_ptr(),
             perm.data_ptr(), n, slots, int(adaptive), float(length),
-            int(min_num_points), float(max_range), keep.data_ptr())
+            int(min_num_points), float(max_range), keep.data_ptr(), scratch.data_ptr())
     return keep
 
 

@@ -52,7 +52,21 @@ on the card, at full width (the reference's default 2D and 3D options):
 13. 200 scans of the half-scale hall with the IMU-based extrapolator (a
     1 s pose queue) and intensities: error reported, the first scans again
     on the CPU's plain path; then 70 scans with the default 5 s queue, its
-    host cost read once the queue is full.
+    host cost read once the queue is full;
+14. the 2D frontend of phase 2 on TSDF submaps (`submaps.grid_type =
+    "TSDF"`, the TSDF inserter at its defaults): K1, K2, K20, K21, K22 and
+    K5's TSDF form launched, one blocking copy per scan, accuracy against
+    ground truth, the first scans again on the CPU's plain path;
+15. K20, K21, K22 and the TSDF forms of K3, K5 and K6, each against its
+    plain twin, on that run's state;
+16. global SLAM through `MapBuilder` on TSDF submaps over the three laps of
+    phase 4: loop closures, solves, optimized poses no worse than the
+    frontend's; the first pairs again on the CPU's plain path;
+17. the 3D frontend at the default options plus intensities with a
+    16-ring x 1024-azimuth sensor (`tpu.scan_capacity` 16,384, above K2's
+    and K18's one-block sizes) over 100 scans, the first 20 again on the
+    CPU's plain path, K2 and K18 at that size against their twins.
+Phase 10 also runs the scans of two more seeds and reports their yaw error.
 
 Prints a `kernels` JSON line, a timing JSON line, the card's name and power
 limit, and as its last line `{"ok": true, "device": {...}}`. Any failed
@@ -78,6 +92,7 @@ CPU_SCANS = 50
 PROFILED_SCANS = 30
 GLOBAL_SCANS = 900  # three laps of the floor plan's path
 CPU_PAIRS = 3
+REFINE_EVERY = 150  # the TSDF global run's loop-closure refines held against the twin
 NUM_SCANS_3D = 400  # one submap finishes at 320 insertions
 CPU_SCANS_3D = 20
 TIME_OFFSET_US = 10_000_000  # the simulated IMU starts before t = 0
@@ -93,6 +108,15 @@ FULL_FRONTEND_KERNELS = KERNELS_3D + ("correlative_3d", "paged_intensity_insert_
                                       "paged_intensity_crop_3d")
 KERNELS_3D_GLOBAL = KERNELS_3D + ("rot_match", "bnb3d_stack", "bnb3d_discretize",
                                   "bnb3d_score", "schur_spa_3d")
+YAW_SEEDS = (1, 2)  # the full frontend's phase again over these seeds' scans
+TSDF_FRONTEND_KERNELS = ("scan_preprocess_2d", "voxel_filter", "correlative_2d_tsdf",
+                         "lm_match_tsdf_2d", "tsdf_normals_2d", "tsdf_insert_2d")
+TSDF_KERNELS = TSDF_FRONTEND_KERNELS + ("bnb_pyramid_tsdf", "bnb_score",
+                                        "scan_matcher_2d_tsdf", "schur_spa_2d")
+TSDF_ERROR_LIMIT = 0.25  # m, the TSDF frontend's mean error (see PERF.md, PR 6)
+TSDF_GLOBAL_LIMITS = (100, 3, 0.25)  # loop closures, solves, optimized mean error [m]
+LARGE_SCAN_CAPACITY = 16384  # 16 rings x 1024 azimuths
+LARGE_SCANS_3D = 100
 
 
 def _fail(msg):
@@ -363,17 +387,33 @@ def _check_launched(launches, names, phase):
             _fail(f"kernel {name} was not launched in the {phase} phase")
 
 
-def _frontend_options():
+def _frontend_options(grid_type="PROBABILITY_GRID"):
+    """The default 2D options with the online correlative search on, no IMU,
+    and the submaps' grid type (the TSDF inserter at its defaults)."""
     from cartographer_tpu_torch.core.config import TrajectoryBuilder2DOptions, apply_overrides
 
     return apply_overrides(TrajectoryBuilder2DOptions(), {
-        "use_imu_data": False, "use_online_correlative_scan_matching": True})
+        "use_imu_data": False, "use_online_correlative_scan_matching": True,
+        "submaps.grid_type": grid_type})
 
 
-def _slice_phase(torch, dev):
+def _grid_on(grid, device):
+    """A copy of a Grid2D or TsdfGrid2D on `device`."""
+    import dataclasses
+
+    import torch
+
+    return dataclasses.replace(grid, **{f.name: getattr(grid, f.name).to(device)
+                                        for f in dataclasses.fields(grid)
+                                        if isinstance(getattr(grid, f.name), torch.Tensor)})
+
+
+def _slice_phase(torch, dev, grid_type="PROBABILITY_GRID", kernels=FRONTEND_KERNELS,
+                 error_limit=0.25, label="frontend"):
     """The 2D frontend, online correlative matcher on, on the card over
-    simulated scans of a floor plan."""
+    simulated scans of a floor plan, on submaps of `grid_type`."""
     from cartographer_tpu_torch.core.config import apply_overrides
+    from cartographer_tpu_torch.mapping import local_trajectory_builder_2d as ltb
     from cartographer_tpu_torch.mapping.local_trajectory_builder_2d import (
         LocalTrajectoryBuilder2D,
     )
@@ -382,8 +422,8 @@ def _slice_phase(torch, dev):
     from cartographer_tpu_torch.simulation import relative_to_first, simulate_scans
     from cartographer_tpu_torch.transform import nquat
 
-    opts = _frontend_options()
-    scans, truth = simulate_scans(NUM_SCANS + PROFILED_SCANS, seed=0)
+    opts = _frontend_options(grid_type)
+    scans, truth = simulate_scans(NUM_SCANS + PROFILED_SCANS + 1, seed=0)
     gt = relative_to_first(truth)[:NUM_SCANS]
     data = [TimedPointCloudData(time=int(round(ts * 1e6)), origin=np.zeros(3, np.float32),
                                 ranges=pts, times=rel) for ts, pts, rel in scans]
@@ -406,20 +446,21 @@ def _slice_phase(torch, dev):
     torch.cuda.set_sync_debug_mode("default")
     launches = cuda.launch_counts()
     syncs = sum("synchroniz" in str(w.message) for w in caught)
-    print(f"frontend: {len(data)} scans, {builder.device_fetches} fetches, {syncs} "
+    print(f"{label}: {len(data)} scans, {builder.device_fetches} fetches, {syncs} "
           f"synchronizing operations, {len(finished)} finished submaps, launches {launches}")
-    _check_launched(launches, FRONTEND_KERNELS, "frontend")
+    _check_launched(launches, kernels, label)
     if builder.device_fetches != len(data) or syncs != len(data):
-        _fail(f"expected one blocking copy per scan, got {syncs} synchronizing operations "
-              f"for {len(data)} scans")
+        _fail(f"{label}: expected one blocking copy per scan, got {syncs} synchronizing "
+              f"operations for {len(data)} scans")
     if len(finished) < 2:
-        _fail(f"only {len(finished)} submaps finished (need >= 2)")
+        _fail(f"{label}: only {len(finished)} submaps finished (need >= 2)")
     est = np.asarray(est)
     errors = np.linalg.norm(est[:, :2] - gt[:, :2], axis=1)
-    print(f"frontend: mean error {errors.mean():.4f} m, max {errors.max():.4f} m against "
-          f"ground truth")
-    if errors.mean() > 0.25:
-        _fail(f"mean error {errors.mean()} m against ground truth (limit 0.25 m)")
+    print(f"{label}: mean error {errors.mean():.4f} m, max {errors.max():.4f} m against "
+          f"ground truth (limit {error_limit} m)")
+    if errors.mean() > error_limit:
+        _fail(f"{label}: mean error {errors.mean()} m against ground truth "
+              f"(limit {error_limit} m)")
 
     # The first scans again on the CPU's plain path, with the same permutations.
     def card_permutation(seed, n):
@@ -439,20 +480,33 @@ def _slice_phase(torch, dev):
         c = [np.array([*r.local_pose_translation[:2], nquat.get_yaw(r.local_pose_rotation)])
              for r in (a, b)]
         worst = np.maximum(worst, [np.linalg.norm(c[0][:2] - c[1][:2]), abs(c[0][2] - c[1][2])])
-    print(f"frontend: first {CPU_SCANS} scans, correlative search off, against the CPU plain "
+    print(f"{label}: first {CPU_SCANS} scans, correlative search off, against the CPU plain "
           f"path: max {worst[0]:.3g} m, {worst[1]:.3g} rad (tolerance 0.02 m, 0.01 rad)")
     if worst[0] > 0.02 or worst[1] > 0.01:
-        _fail("card and CPU plain path disagree")
+        _fail(f"{label}: card and CPU plain path disagree")
 
-    profile = _profile(torch, lambda d: builder.add_range_data("laser", d), profiled)
+    profile = _profile(torch, lambda d: builder.add_range_data("laser", d), profiled[:-1],
+                       f"{label} profile")
+    # One more scan, keeping the arguments of its search and its refine and
+    # its range data in the local frame, for the kernel phases.
+    kept = {"correlative": [], "lm": []}
+    restore = [_recording(ltb, "real_time_correlative_match", kept["correlative"]),
+               _recording(ltb, "lm_match_tsdf_2d" if grid_type == "TSDF" else "lm_match_2d",
+                          kept["lm"])]
+    try:
+        kept["range_data"] = builder.add_range_data("laser", profiled[-1]).range_data_in_local
+    finally:
+        for r in restore:
+            r()
     steady = walls[10:]
     return dict(
         profile=profile,
         scans=len(data), finished_submaps=len(finished), mean_error_m=float(errors.mean()),
         frontend_2d_builder_scans_per_sec=len(steady) / sum(steady),
         host_seconds=builder.host_seconds, device_seconds=builder.device_seconds,
-        launches=launches, submap=finished[0], nodes=nodes,
-        lm_iterations_per_scan=float(np.mean(builder.lm_iterations)))
+        launches=launches, submap=finished[0], nodes=nodes, builder=builder, kept=kept,
+        lm_iterations_per_scan=float(np.mean(builder.lm_iterations)),
+        cpu_agreement=[float(worst[0]), float(worst[1])])
 
 
 def _distinct_cells(torch, lin_list):
@@ -636,14 +690,18 @@ def _backend_kernel_phase(torch, dev, ctx, run):
     return rows, extra
 
 
-def _global_phase(torch, dev):
-    """Global SLAM through MapBuilder on the card over three laps."""
+def _global_phase(torch, dev, grid_type="PROBABILITY_GRID", kernels=KERNELS_2D,
+                  limits=(100, 3, 0.25), localize=True, label="global", refines=None):
+    """Global SLAM through MapBuilder on the card over three laps, on
+    submaps of `grid_type`; `limits` are the least loop closures and solves
+    and the largest mean error of the optimized poses. The arguments of
+    every REFINE_EVERY-th loop-closure refine go into `refines` if given."""
     from cartographer_tpu_torch.core.config import MapBuilderOptions, TrajectoryBuilderOptions
+    from cartographer_tpu_torch.mapping import constraint_builder_2d
     from cartographer_tpu_torch.mapping.constraint_builder_2d import _pow2_points
     from cartographer_tpu_torch.mapping.id import NodeId, SubmapId
     from cartographer_tpu_torch.mapping.map_builder import MapBuilder
     from cartographer_tpu_torch.ops import bnb_2d, cuda
-    from cartographer_tpu_torch.ops.grid_2d import Grid2D
     from cartographer_tpu_torch.sensor.data import TimedPointCloudData
     from cartographer_tpu_torch.simulation import Path, Robot, relative_to_first, simulate_scans
 
@@ -660,7 +718,10 @@ def _global_phase(torch, dev):
         return compute(requests)
 
     cb.compute_constraints = recording
-    tid = mb.add_trajectory_builder(["laser"], TrajectoryBuilderOptions(_frontend_options()))
+    restore = (_recording(constraint_builder_2d, "lm_match_2d", refines, REFINE_EVERY)
+               if refines is not None else lambda: None)
+    tid = mb.add_trajectory_builder(["laser"],
+                                    TrajectoryBuilderOptions(_frontend_options(grid_type)))
     cuda.reset_launch_counts()
     t0 = time.monotonic()
     for ts, pts, rel in scans:
@@ -672,32 +733,35 @@ def _global_phase(torch, dev):
     wall = time.monotonic() - t0
     launches = cuda.launch_counts()
     cb.compute_constraints = compute
+    restore()
     inter, solves = pg.num_inter_constraints(), pg.solves
-    print(f"global: {len(scans)} scans, {len(pg.nodes)} nodes, {len(pg.submap_data)} submaps, "
-          f"{inter} loop closures from {cb.pairs_matched} matched pairs, {solves} solves, "
-          f"{wall:.1f} s wall; constraint search {cb.match_seconds:.2f} s, solves "
+    print(f"{label}: {len(scans)} scans, {len(pg.nodes)} nodes, {len(pg.submap_data)} "
+          f"submaps, {inter} loop closures from {cb.pairs_matched} matched pairs, {solves} "
+          f"solves, {wall:.1f} s wall; constraint search {cb.match_seconds:.2f} s, solves "
           f"{pg.solve_seconds:.2f} s; launches {launches}")
-    _check_launched(launches, KERNELS_2D, "global SLAM")
-    if inter < 100 or solves < 3:
-        _fail(f"global SLAM ran {inter} loop closures and {solves} solves (need >= 100, >= 3)")
+    _check_launched(launches, kernels, label)
+    min_inter, min_solves, max_error = limits
+    if inter < min_inter or solves < min_solves:
+        _fail(f"{label} ran {inter} loop closures and {solves} solves (need >= {min_inter}, "
+              f">= {min_solves})")
     # Node (trajectory, index) -> scan index: scan i is stamped (i + 1) * 0.1 s.
     index = {nid: int(round(node.time / 1e5)) - 1 for nid, node in pg.nodes.items()}
     local_err = np.mean([np.linalg.norm(node.local_pose_translation[:2] - gt[index[nid], :2])
                          for nid, node in pg.nodes.items()])
     global_err = np.mean([np.linalg.norm(node.global_pose_2d[:2] - gt[index[nid], :2])
                           for nid, node in pg.nodes.items()])
-    print(f"global: mean error of the optimized poses {global_err:.4f} m, of the frontend's "
-          f"{local_err:.4f} m (limits 0.25 m and the frontend's)")
-    if not (global_err <= 0.25 and global_err <= local_err):
-        _fail("optimized poses are not within 0.25 m of the truth and the frontend's error")
+    print(f"{label}: mean error of the optimized poses {global_err:.4f} m, of the frontend's "
+          f"{local_err:.4f} m (limits {max_error} m and the frontend's)")
+    if not (global_err <= max_error and global_err <= local_err):
+        _fail(f"{label}: optimized poses are not within {max_error} m of the truth and the "
+              f"frontend's error")
 
     # The first loop-closure pairs again, on the CPU's plain path.
     params = cb._bnb_params
     depth = params.branch_and_bound_depth
     for r in recorded:
         pts, mask = _pow2_points([r.points])
-        g_cpu = Grid2D(r.grid.log_odds.cpu(), r.grid.known.cpu(), r.grid.origin.cpu(),
-                       r.grid.resolution)
+        g_cpu = _grid_on(r.grid, "cpu")
         init = np.asarray(r.init, np.float32)
         card = bnb_2d.fast_correlative_match_2d(
             cb._pyramid_for(r.submap_id, r.grid), r.grid, torch.from_numpy(pts[0]).to(dev),
@@ -707,12 +771,20 @@ def _global_phase(torch, dev):
             bnb_2d.pyramid_plain(g_cpu, depth), g_cpu, torch.from_numpy(pts[0]),
             torch.from_numpy(mask[0]), torch.from_numpy(init), params, 0.0)
         err = float((card[0] - cpu[0]).abs())
-        print(f"global: pair {r.node_id}/{r.submap_id} card {float(card[0]):.5f} CPU "
+        print(f"{label}: pair {r.node_id}/{r.submap_id} card {float(card[0]):.5f} CPU "
               f"{float(cpu[0]):.5f} (tolerance 1e-5), certificates {bool(card[5])}, "
               f"{bool(cpu[5])}")
         if err > 1e-5 or bool(card[5]) != bool(cpu[5]):
             _fail("a loop-closure pair differs between the card and the CPU's plain path")
 
+    summary = dict(scans=len(scans), nodes=len(pg.nodes), submaps=len(pg.submap_data),
+                   loop_closures=inter, matched_pairs=cb.pairs_matched, solves=solves,
+                   wall_seconds=wall, constraint_search_seconds=cb.match_seconds,
+                   solve_seconds=pg.solve_seconds, launches=launches,
+                   mean_error_optimized_m=float(global_err),
+                   mean_error_frontend_m=float(local_err))
+    if not localize:
+        return summary
     # Global localization: a lap-3 node against a finished lap-1 submap.
     robot = Robot(Path.superellipse(), 2.1, 6.0)  # simulate_scans' path and speeds
     lap_of_scan = (robot.arc_at((np.arange(len(scans)) + 1) * 0.1)
@@ -737,23 +809,222 @@ def _global_phase(torch, dev):
           f"(limit 0.1 m), {loc_s:.2f} s")
     if not certified or not loc_err <= 0.1:
         _fail("global localization did not come back certified within 0.1 m")
-    return dict(scans=len(scans), nodes=len(pg.nodes), submaps=len(pg.submap_data),
-                loop_closures=inter, matched_pairs=cb.pairs_matched, solves=solves,
-                wall_seconds=wall, constraint_search_seconds=cb.match_seconds,
-                solve_seconds=pg.solve_seconds, launches=launches,
-                mean_error_optimized_m=float(global_err), mean_error_frontend_m=float(local_err),
-                global_localization_error_m=loc_err, global_localization_seconds=loc_s,
-                global_localization_beam=beam)
+    return dict(summary, global_localization_error_m=loc_err,
+                global_localization_seconds=loc_s, global_localization_beam=beam)
 
 
-def _events_3d(num_scans, **scene):
+def _defined_normals(pts, mask, origin):
+    """The valid returns whose 5 angle-sorted neighbours have clearly
+    separate covariance eigenvalues: there a normal is defined up to the
+    sign the flip fixes (numpy, float64)."""
+    rel = pts - origin
+    order = np.argsort(np.where(mask, np.arctan2(rel[:, 1], rel[:, 0]), np.inf), kind="stable")
+    sp = pts[order].astype(np.float64)
+    n = len(pts)
+    nb = sp[np.clip(np.arange(n)[:, None] + np.arange(-2, 3), 0, n - 1)]
+    c = nb - nb.mean(1, keepdims=True)
+    ev = np.linalg.eigvalsh(np.einsum("nki,nkj->nij", c, c))
+    ok = np.zeros(n, bool)
+    ok[order] = (ev[:, 1] - ev[:, 0]) > 1e-3 * np.maximum(ev[:, 1], 1e-12)
+    return ok & mask
+
+
+def _kernel_phase_tsdf(torch, dev, run):
+    """K20, K21, K22 and the TSDF forms of K5 and K6 against their twins on
+    the card, on the TSDF frontend run's state: its last scan's range data,
+    search and refine arguments, active grids and first finished submap
+    (default widths)."""
+    import torch.nn.functional as F
+
+    from cartographer_tpu_torch.core.tensor import true_div
+    from cartographer_tpu_torch.ops import bnb_2d, correlative_2d, tsdf_2d
+    from cartographer_tpu_torch.ops.probability import UNKNOWN_PROBABILITY
+
+    rows = {}
+    builder, kept = run["builder"], run["kept"]
+    rd = kept["range_data"]
+    pts, mask, origin = rd.returns.points, rd.returns.mask, rd.origin
+    n, valid = pts.shape[0], int(mask.sum())
+
+    # K20: the scan's normals.
+    got = tsdf_2d.estimate_normals_2d(pts, mask, origin)
+    ref = tsdf_2d._normals_plain(pts, mask, origin)
+    defined = _defined_normals(pts.cpu().numpy(), mask.cpu().numpy(), origin.cpu().numpy())
+    err = (got - ref).abs().max(-1).values.cpu().numpy()
+    max_err = float(err[defined].max())
+    print(f"K20 tsdf_normals_2d: {valid} of {n} returns, {int(defined.sum())} with a defined "
+          f"normal: max |err| {max_err:.3g} there (tolerance 1e-5), "
+          f"{int((err[~defined & mask.cpu().numpy()] > 1e-5).sum())} of the others differ")
+    if max_err > 1e-5:
+        _fail("K20 differs from the plain twin")
+    rel = pts - origin
+    keys = torch.where(mask, torch.atan2(rel[:, 1], rel[:, 0]),
+                       torch.full_like(rel[:, 0], float("inf")))
+    rows["tsdf_normals_2d"] = dict(
+        replaces="cartographer_tpu/ops/tsdf_2d.py:86", max_abs_err=max_err,
+        ms=_cuda_ms(lambda: tsdf_2d.estimate_normals_2d(pts, mask, origin)),
+        plain_ms=_cuda_ms(lambda: tsdf_2d._normals_plain(pts, mask, origin), reps=10),
+        # atan2 and the key (20), a sort's n log2 n comparisons, the window's
+        # mean, covariance and eigenvector (60) per point.
+        bound=_bound(n * 17 + 8, n * (80 + int(np.log2(n)))),
+        library_ms=_cuda_ms(lambda: torch.argsort(keys, stable=True)))
+
+    # K21: the scan into both active grids, on clones for the twin.
+    grids = builder._active_submaps.grids
+    scratch = builder._active_submaps._scratch
+    params = builder._active_submaps._tsdf_params
+    card = grids.clone()
+    twin = grids.clone()
+    active = torch.ones(2, dtype=torch.bool, device=dev)
+    yes = torch.ones((), dtype=torch.bool, device=dev)
+    tsdf_2d.insert_into_slots_tsdf(card, rd, active, yes, params, scratch, normals=got)
+    tsdf_2d._insert_plain(twin, rd, got, active, yes, params)
+    known_diff = int(((card.weight > 0) != (twin.weight > 0)).sum())
+    err = float(max((card.tsd - twin.tsd).abs().max(), (card.weight - twin.weight).abs().max()))
+    sample_pts, sdf, w = tsdf_2d._samples(rd, got, grids.truncation_distance, params)
+    lins, touched = [], 0
+    size = grids.size
+    for slot in range(2):
+        c = torch.floor(true_div(sample_pts - grids.origin[slot], grids.resolution)).long()
+        inside = ((c >= 0) & (c < size)).all(-1) & (w > 0)
+        lin = (c[..., 0] * size + c[..., 1])[inside]
+        lins.append((lin, w[inside], (w * sdf)[inside]))
+        touched += int(torch.unique(lin).numel())
+    print(f"K21 tsdf_insert_2d: {touched} cells touched in 2 slots, known sets "
+          f"{'equal' if not known_diff else f'differ in {known_diff} cells'}, max |err| "
+          f"{err:.3g} (tolerance 1e-5: float atomics order the sums)")
+    if known_diff or err > 1e-5:
+        _fail("K21 differs from the plain twin")
+    sums = [torch.zeros(size * size, device=dev) for _ in range(4)]
+    rows["tsdf_insert_2d"] = dict(
+        replaces="cartographer_tpu/ops/tsdf_2d.py:115", max_abs_err=err,
+        ms=_cuda_ms(lambda: tsdf_2d.insert_into_slots_tsdf(card, rd, active, yes, params,
+                                                           scratch, normals=got)),
+        plain_ms=_cuda_ms(lambda: tsdf_2d._insert_plain(twin, rd, got, active, yes, params),
+                          reps=5),
+        # Reads the returns, mask, normals and origin, reads and writes the
+        # tsd and weight of the touched cells; 16 samples per return and slot
+        # at some 60 operations each, 10 per touched cell.
+        bound=_bound(n * 17 + 8 + touched * 16, 2 * 16 * valid * 60 + touched * 10),
+        # index_add_ of the two sums of both slots: the scatter only.
+        library_ms=_cuda_ms(lambda: [(sums[2 * k].index_add_(0, lin, ww),
+                                      sums[2 * k + 1].index_add_(0, lin, ws))
+                                     for k, (lin, ww, ws) in enumerate(lins)]))
+    del card, twin
+
+    # K22: the scan's TSDF refine (K3's TSDF form is held on the loop
+    # closures' refines, where the main path runs it: _refine_phase_tsdf).
+    margs = kept["lm"][0]
+    lvalid = int(margs[2].sum())
+    xk, ck, itk = tsdf_2d.lm_match_tsdf_2d(*margs)
+    xp, cp, itp = tsdf_2d._match_plain(*margs)
+    err = float((xk - xp).abs().max())
+    rel_cost = abs(float(ck) - float(cp)) / max(abs(float(cp)), 1e-30)
+    print(f"lm_match_tsdf_2d: max |pose err| {err:.3g} (tolerance 1e-4), cost rel err "
+          f"{rel_cost:.3g} (rtol 1e-4), {int(itk)} iterations (plain {int(itp)})")
+    if err > 1e-4 or rel_cost > 1e-4:
+        _fail("lm_match_tsdf_2d differs from the plain twin")
+    rows["lm_match_tsdf_2d"] = dict(
+        replaces="cartographer_tpu/ops/tsdf_2d.py:183", max_abs_err=err,
+        ms=_cuda_ms(lambda: tsdf_2d.lm_match_tsdf_2d(*margs)),
+        plain_ms=_cuda_ms(lambda: tsdf_2d._match_plain(*margs), reps=5),
+        # Per valid point: the point and flag, 16 tsd cells per bicubic
+        # sample; some 12 operations per cell and pass, 1 + 2 passes per
+        # iteration.
+        bound=_bound(lvalid * (8 + 1 + 16 * 4), (1 + 2 * int(itk)) * lvalid * 16 * 12),
+        library_ms=None)
+
+    # K5's TSDF form: the scan's search.
+    cgrid, cpts, cmask, cpose, cparams = kept["correlative"][0]
+    cargs = (cgrid, cpts, cmask, cpose, cparams)
+    best_k, scores_k = correlative_2d._match_kernel(*cargs)
+    best_p, scores_p = correlative_2d.correlative_match_plain(*cargs)
+    if not torch.equal(best_k, best_p) or not torch.equal(scores_k, scores_p):
+        _fail(f"K5's TSDF form differs from the plain twin ({best_k} vs {best_p})")
+    cvalid = int(cmask.sum())
+    w_ = scores_k.shape[-1]
+    angles = int(torch.isfinite(scores_k[:, 0, 0]).sum())
+    _, _, cells = correlative_2d.candidate_cells(cgrid, cpts, cmask, cpose, scores_k.shape[0],
+                                                 cparams.angular_search_window)
+    cells = cells[torch.isfinite(scores_k[:, 0, 0])][:, cmask]
+    shifts = torch.arange(w_, device=dev) - w_ // 2
+    lin = ((cells[:, None, None, :, 0] + shifts[None, :, None, None]) * cgrid.size
+           + cells[:, None, None, :, 1] + shifts[None, None, :, None])
+    print(f"correlative_2d_tsdf: scores and argmax equal to the twin (exact), {angles} valid "
+          f"angles, best score {float(best_k[0]):.5f}")
+    rows["correlative_2d_tsdf"] = dict(
+        symbol="correlative_2d_tsdf", replaces="cartographer_tpu/ops/correlative_2d.py:138",
+        max_abs_err=0.0, ms=_cuda_ms(lambda: correlative_2d._match_kernel(*cargs)),
+        plain_ms=_cuda_ms(lambda: correlative_2d.correlative_match_plain(*cargs), reps=5),
+        bound=_bound(_distinct_cells(torch, [lin]) * 8 + cpts.shape[0] * 9
+                     + scores_k.numel() * 4, angles * w_ * w_ * cvalid * 14),
+        library_ms=None)
+
+    # K6's TSDF form: the pyramid of the run's first finished submap.
+    submap_grid = run["submap"].grid
+    depth = 7
+    pyr = bnb_2d.build_precomputation_pyramid(submap_grid, depth)
+    ref = bnb_2d.pyramid_plain(submap_grid, depth)
+    if not torch.equal(pyr, ref):
+        _fail("K6's TSDF form differs from the plain twin (tolerance: exact)")
+    size = submap_grid.size
+    padded = [F.pad(ref[h - 1][None, None], (0, 1 << (h - 1), 0, 1 << (h - 1)),
+                    value=UNKNOWN_PROBABILITY) for h in range(1, depth)]
+    print(f"bnb_pyramid_tsdf: {depth} levels of {size}^2 equal to the twin (exact)")
+    rows["bnb_pyramid_tsdf"] = dict(
+        symbol="bnb_pyramid_tsdf", replaces="cartographer_tpu/ops/bnb_2d.py:60",
+        max_abs_err=0.0,
+        ms=_cuda_ms(lambda: bnb_2d.build_precomputation_pyramid(submap_grid, depth)),
+        plain_ms=_cuda_ms(lambda: bnb_2d.pyramid_plain(submap_grid, depth), reps=10),
+        bound=_bound(size * size * 8 + depth * size * size * 4, size * size * (3 * depth + 4)),
+        library_ms=_cuda_ms(lambda: [F.max_pool2d(x, 2, stride=1, dilation=1 << h)
+                                     for h, x in enumerate(padded)]))
+    return rows
+
+
+def _refine_phase_tsdf(torch, calls):
+    """K3's TSDF form against its twin on the TSDF global run's loop-closure
+    refines (every REFINE_EVERY-th call of ConstraintBuilder2D's refine: a
+    power-of-two cloud against a finished submap from the BnB pose), where
+    the main path runs it; its time and bound are the means over them."""
+    from cartographer_tpu_torch.ops import scan_matcher_2d
+
+    if not calls:
+        _fail("the TSDF global run made no loop-closure refine")
+    errs, ms, plain_ms, nbytes, ops = [], [], [], 0, 0
+    for args in calls:
+        xk, ck, itk = scan_matcher_2d.lm_match_2d(*args)
+        xp, cp, itp = scan_matcher_2d._match_plain(*args)
+        err = float((xk - xp).abs().max())
+        rel_cost = abs(float(ck) - float(cp)) / max(abs(float(cp)), 1e-30)
+        valid = int(args[2].sum())
+        print(f"scan_matcher_2d_tsdf: loop-closure refine of {valid} of {args[1].shape[0]} "
+              f"points: max |pose err| {err:.3g} (tolerance 1e-4), cost rel err "
+              f"{rel_cost:.3g} (rtol 1e-4), {int(itk)} iterations (plain {int(itp)})")
+        if err > 1e-4 or rel_cost > 1e-4:
+            _fail("scan_matcher_2d_tsdf differs from the plain twin")
+        errs.append(err)
+        # Per valid point: the point and flag, 16 cells of tsd and weight per
+        # bicubic sample; some 12 operations per cell and pass.
+        nbytes += valid * (8 + 1 + 16 * 8)
+        ops += (1 + 2 * int(itk)) * valid * 16 * 12
+        ms.append(_cuda_ms(lambda: scan_matcher_2d.lm_match_2d(*args), reps=10))
+        plain_ms.append(_cuda_ms(lambda: scan_matcher_2d._match_plain(*args), reps=3))
+    k = len(calls)
+    return {"scan_matcher_2d_tsdf": dict(
+        replaces="cartographer_tpu/ops/scan_matcher_2d.py:70", max_abs_err=max(errs),
+        ms=sum(ms) / k, plain_ms=sum(plain_ms) / k, bound=_bound(nbytes / k, ops / k),
+        library_ms=None)}
+
+
+def _events_3d(num_scans, seed=0, **scene):
     """Simulated 3D scans as (IMU messages up to the scan's time that no
     earlier scan took, the scan), and the ground truth in the first pose's
-    frame; `scene` goes to `simulate_scans_3d`."""
+    frame; `seed` and `scene` go to `simulate_scans_3d`."""
     from cartographer_tpu_torch.sensor.data import ImuData, TimedPointCloudData
     from cartographer_tpu_torch.simulation import relative_to_first, simulate_scans_3d
 
-    scans, imu, truth = simulate_scans_3d(num_scans, seed=0, **scene)
+    scans, imu, truth = simulate_scans_3d(num_scans, seed=seed, **scene)
     stamp = lambda t: TIME_OFFSET_US + int(round(t * 1e6))  # noqa: E731
     events, k = [], 0
     for ts, pts, rel, *intensities in scans:
@@ -1151,13 +1422,16 @@ def _full_frontend_options(**extra):
         "use_online_correlative_scan_matching": True, "use_intensities": True, **extra})
 
 
-def _recording(module, name, calls):
-    """Wrap module.name so its calls' arguments are appended to `calls`;
-    returns a function that restores it."""
+def _recording(module, name, calls, every=1):
+    """Wrap module.name so the arguments of every `every`-th call are
+    appended to `calls`; returns a function that restores it."""
     original = getattr(module, name)
+    seen = [0]
 
     def recorded(*args):
-        calls.append(args)
+        if seen[0] % every == 0:
+            calls.append(args)
+        seen[0] += 1
         return original(*args)
 
     setattr(module, name, recorded)
@@ -1231,11 +1505,24 @@ def _slice_phase_3d_full(torch, dev):
         del builder._fused_step
         for r in restore:
             r()
+    # The same phase over the scans of other seeds (the sensor noise and the
+    # intensities): the spread of the yaw error, reported beside the CPU
+    # witnesses' (tests/hall_yaw_witness_3d.py), not limited.
+    yaw_by_seed = {0: float(yaw_err.mean())}
+    for seed in YAW_SEEDS:
+        events_s, gt_s = _events_3d(n, seed=seed, intensities=True)
+        b = ltb.LocalTrajectoryBuilder3D(opts, ["points"], device=dev)
+        _, offset_s, yaw_s, _, _, _ = _drive_3d(torch, b, events_s, gt_s, f"{label} seed {seed}")
+        yaw_by_seed[seed] = float(yaw_s.mean())
+        print(f"{label} seed {seed}: mean error {np.linalg.norm(offset_s, axis=1).mean():.4f} "
+              f"m, mean yaw error {yaw_s.mean():.5f} rad (reported)")
+        del b
     steady = walls[10:]
     return dict(
         builder=builder, kept=kept, profile=profile, scans=n, inserted=inserted,
         finished_submaps=len(finished), mean_error_m=float(errors.mean()),
         max_error_m=float(errors.max()), mean_yaw_error_rad=float(yaw_err.mean()),
+        mean_yaw_error_rad_by_seed=yaw_by_seed,
         yaw_error_by_100_scans_rad=[float(yaw_err[i:i + 100].mean()) for i in range(0, n, 100)],
         final_offset_m=offset[-20:].mean(0).tolist(),
         frontend_3d_builder_scans_per_sec=len(steady) / sum(steady),
@@ -1429,6 +1716,151 @@ def _kernel_phase_3d_full(torch, dev, builder, kept):
                      passes * (sum(counts[:2]) * 8 * 40 + counts[2] * 8 * 50)),
         library_ms=None)
     return rows
+
+
+def _large_scan_phase_3d(torch, dev):
+    """The 3D frontend at the default options plus intensities with a
+    16-ring x 1024-azimuth sensor, `tpu.scan_capacity` 16,384: K2's table
+    above one block's shared memory, K18's sort above one block's 8,192 keys.
+    The first scans again on the CPU's plain path; K2 and K18 against their
+    twins on the last scan."""
+    import dataclasses
+
+    from cartographer_tpu_torch.core.config import TrajectoryBuilder3DOptions, apply_overrides
+    from cartographer_tpu_torch.mapping import local_trajectory_builder_3d as ltb
+    from cartographer_tpu_torch.ops import cuda, paged_grid_3d
+    from cartographer_tpu_torch.sensor import voxel_filter
+    from cartographer_tpu_torch.sensor.point_cloud import PointCloud
+
+    label = f"3D frontend at {LARGE_SCAN_CAPACITY} returns"
+    opts = apply_overrides(TrajectoryBuilder3DOptions(), {
+        "use_intensities": True, "tpu.scan_capacity": LARGE_SCAN_CAPACITY})
+    n = LARGE_SCANS_3D
+    events, gt = _events_3d(n + 1, azimuths=LARGE_SCAN_CAPACITY // 16, intensities=True)
+    builder = ltb.LocalTrajectoryBuilder3D(opts, ["points"], device=dev)
+    cuda.reset_launch_counts()
+    est, offset, yaw_err, _, walls, inserted = _drive_3d(torch, builder, events[:n], gt, label)
+    launches = cuda.launch_counts()
+    _check_launched(launches, ("voxel_filter", "paged_insert_3d", "paged_crop_3d",
+                               "scan_matcher_3d", "paged_intensity_insert_3d",
+                               "paged_intensity_crop_3d"), label)
+    errors = np.linalg.norm(offset, axis=1)
+    print(f"{label}: mean error {errors.mean():.4f} m, mean yaw error {yaw_err.mean():.5f} rad "
+          f"(reported), launches {launches}")
+    worst = _cpu_agreement_3d(torch, dev, opts, events, est, label)
+
+    # One more scan, keeping its step's tensors.
+    kept, step = {}, builder._fused_step
+
+    def keeping_step(*args):
+        out = step(*args)
+        kept["step"] = out
+        return out
+
+    builder._fused_step = keeping_step
+    try:
+        _feed_3d(builder, events[n])
+    finally:
+        del builder._fused_step
+    packed, device_tensors = kept["step"]
+    _, local_points, _, in_high, intensities = device_tensors
+    host = ltb.unpack_step_result(packed.cpu().numpy(), opts.rotational_histogram_size,
+                                  builder._caps, True)
+    rows = {}
+
+    # K2: the scan's 16,384 raw returns, 3D keys, then both adaptive filters.
+    pts = torch.from_numpy(np.ascontiguousarray(events[n][1].ranges[:, :3])).to(dev)
+    size = pts.shape[0]
+    mask = torch.ones(size, dtype=torch.bool, device=dev)
+    perm = torch.randperm(size, generator=torch.Generator(device=dev).manual_seed(5),
+                          device=dev, dtype=torch.int32)
+    keep = voxel_filter.voxel_filter_mask(pts, mask, opts.voxel_filter_size, perm)
+    mism = int((keep != voxel_filter.voxel_filter_mask_plain(
+        pts, mask, opts.voxel_filter_size, perm)).sum())
+    cloud = PointCloud(pts, keep, torch.zeros(size, device=dev))
+    filters = (opts.high_resolution_adaptive_voxel_filter,
+               opts.low_resolution_adaptive_voxel_filter)
+    for f in filters:
+        a = voxel_filter.adaptive_voxel_filter(cloud, f.max_length, f.min_num_points,
+                                               f.max_range, perm).mask
+        b = voxel_filter.adaptive_voxel_filter_mask_plain(pts, keep, f.max_length,
+                                                          f.min_num_points, f.max_range, perm)
+        mism += int((a != b).sum())
+    print(f"K2 voxel_filter at {size} points (table in device memory): {mism} points differ "
+          f"from the twin (tolerance: exact)")
+    if mism:
+        _fail(f"K2 at {size} points differs from the plain twin")
+
+    def k2_scan():
+        m = voxel_filter.voxel_filter_mask(pts, mask, opts.voxel_filter_size, perm)
+        c = PointCloud(pts, m, cloud.intensities)
+        for f in filters:
+            voxel_filter.adaptive_voxel_filter(c, f.max_length, f.min_num_points, f.max_range,
+                                               perm)
+
+    def k2_plain():
+        m = voxel_filter.voxel_filter_mask_plain(pts, mask, opts.voxel_filter_size, perm)
+        for f in filters:
+            voxel_filter.adaptive_voxel_filter_mask_plain(pts, m, f.max_length,
+                                                          f.min_num_points, f.max_range, perm)
+
+    valid = int(keep.sum())
+    key_sets = [voxel_filter._packed_voxel_keys(pts, mask, opts.voxel_filter_size)] + [
+        voxel_filter._packed_voxel_keys(pts, keep, f.max_length) for f in filters]
+    rows["voxel_filter"] = dict(
+        max_abs_err=float(mism), ms=_cuda_ms(k2_scan), plain_ms=_cuda_ms(k2_plain, reps=3),
+        # Up to 13 hashing passes per adaptive filter, 20 operations per
+        # point and pass; the bytes as K2's row.
+        bound=_bound(size * 18 + 2 * size * 14, (1 + 2 * 13) * valid * 20),
+        library_ms=_cuda_ms(lambda: [torch.unique(k) for k in key_sets]))
+
+    # K18: the scan's insertion into both submaps' intensity pools, against
+    # the CPU twin to the bit.
+    threshold = opts.submaps.range_data_inserter.intensity_threshold
+    jobs = []
+    for submap in builder._active_submaps.submaps:
+        p = submap.intensity_paged
+        p.insert(host["local_points"], host["local_intensities"], host["high_range_mask"],
+                 threshold, device_tensors=(local_points, intensities, in_high))
+        jobs.append(p)
+    before = [dataclasses.replace(p.grid, sums=p.grid.sums.clone(), counts=p.grid.counts.clone())
+              for p in jobs]
+    cpu_args = (local_points.cpu(), intensities.cpu(), in_high.cpu())
+    differ = 0
+    for p, b in zip(jobs, before):
+        twin = dataclasses.replace(b, sums=b.sums.cpu(), counts=b.counts.cpu(),
+                                   page_table=b.page_table.cpu(), origin=b.origin.cpu())
+        paged_grid_3d.insert_intensity_paged_plain(twin, *cpu_args, threshold)
+        paged_grid_3d.insert_intensity_paged(p.grid, local_points, intensities, in_high,
+                                             threshold)
+        differ += int((p.grid.sums.cpu() != twin.sums).sum()
+                      + (p.grid.counts.cpu() != twin.counts).sum())
+    touched = [int(torch.unique(paged_grid_3d._pool_index(
+        b, b.world_to_cell(local_points), in_high & (intensities <= threshold))[0]).numel())
+        for b in before]
+    print(f"K18 paged_intensity_insert_3d at {local_points.shape[0]} returns (multi-block "
+          f"sort): {differ} pool cells differ from the CPU twin (tolerance: exact), "
+          f"{touched} cells touched")
+    if differ:
+        _fail(f"K18 at {local_points.shape[0]} returns differs from the CPU twin")
+    nret = local_points.shape[0]
+    rows["paged_intensity_insert_3d"] = dict(
+        max_abs_err=float(differ),
+        ms=_cuda_ms(lambda: [paged_grid_3d.insert_intensity_paged(
+            b, local_points, intensities, in_high, threshold) for b in before]),
+        plain_ms=_cuda_ms(lambda: [paged_grid_3d.insert_intensity_paged_plain(
+            b, local_points, intensities, in_high, threshold) for b in before], reps=3,
+            warmup=1),
+        bound=_bound(len(jobs) * (nret * 17 + 12) + sum(c * 16 for c in touched),
+                     len(jobs) * nret * 12),
+        library_ms=None)
+    steady = walls[10:]
+    return dict(scans=n, returns_per_scan=nret, inserted=inserted,
+                mean_error_m=float(errors.mean()), mean_yaw_error_rad=float(yaw_err.mean()),
+                frontend_3d_builder_scans_per_sec=len(steady) / sum(steady),
+                host_seconds=builder.host_seconds, device_seconds=builder.device_seconds,
+                cpu_agreement=[float(worst[0]), float(worst[1])], launches=launches,
+                kernels=rows)
 
 
 def _imu_based_phase_3d(torch, dev):
@@ -1812,7 +2244,18 @@ def main() -> int:
     backend_rows, backend = _backend_kernel_phase(torch, dev, ctx, run)
     rows.update(backend_rows)
     slam = _global_phase(torch, dev)
-    del run["submap"], run["nodes"]
+    for key in ("submap", "nodes", "builder", "kept"):
+        del run[key]
+    run_tsdf = _slice_phase(torch, dev, "TSDF", TSDF_FRONTEND_KERNELS, TSDF_ERROR_LIMIT,
+                            "TSDF frontend")
+    rows_tsdf = _kernel_phase_tsdf(torch, dev, run_tsdf)
+    for key in ("submap", "nodes", "builder", "kept"):
+        del run_tsdf[key]
+    refines = []
+    slam_tsdf = _global_phase(torch, dev, "TSDF", TSDF_KERNELS, TSDF_GLOBAL_LIMITS,
+                              localize=False, label="TSDF global", refines=refines)
+    rows_tsdf.update(_refine_phase_tsdf(torch, refines))
+    del refines
     run3d = _slice_phase_3d(torch, dev)
     rows3d = _kernel_phase_3d(torch, dev, run3d.pop("builder"), run3d.pop("last_step"))
     slam3d = _global_phase_3d(torch, dev)
@@ -1823,12 +2266,14 @@ def main() -> int:
     rows3f = _kernel_phase_3d_full(torch, dev, run3f.pop("builder"), run3f.pop("kept"))
     full_hall_corr = _full_hall_phase_3d(torch, dev, correlative=True)
     imu_based = _imu_based_phase_3d(torch, dev)
+    large = _large_scan_phase_3d(torch, dev)
 
     sources = {k.symbol: k.source for k in cuda.KERNELS.values()}
     kernels = []
-    for name, row in {**rows, **rows3d, **rows3g, **rows3f}.items():
+    for name, row in {**rows, **rows_tsdf, **rows3d, **rows3g, **rows3f}.items():
         bound_ms, bound_by = row["bound"]
         launches = (run3f["launches"] if name in rows3f
+                    else slam_tsdf["launches"] if name in rows_tsdf
                     else slam3d["summary"]["launches"] if name in rows3g
                     else run3d["launches"] if name in rows3d else slam["launches"])
         symbol = row.get("symbol", name)
@@ -1853,6 +2298,13 @@ def main() -> int:
             "profile": {k: v for k, v in run["profile"].items()
                         if k != "device_ms_per_scan_by_kernel"}},
         "global_slam": {k: v for k, v in slam.items()},
+        "frontend_tsdf": {
+            **{k: v for k, v in run_tsdf.items() if k not in ("profile", "launches")},
+            "launches_per_scan": {k: v / run_tsdf["scans"] for k, v in
+                                  run_tsdf["launches"].items() if v},
+            "profile": {k: v for k, v in run_tsdf["profile"].items()
+                        if k != "device_ms_per_scan_by_kernel"}},
+        "global_slam_tsdf": slam_tsdf,
         "frontend_3d": {
             **{k: v for k, v in run3d.items() if k not in ("profile", "launches")},
             "launches_per_scan": {k: v / run3d["scans"] for k, v in run3d["launches"].items()
@@ -1867,6 +2319,12 @@ def main() -> int:
             "profile": run3f["profile"]},
         "frontend_3d_full_size_hall_correlative": full_hall_corr,
         "frontend_3d_imu_based": imu_based,
+        "frontend_3d_16384_returns": {
+            **{k: v for k, v in large.items() if k != "kernels"},
+            "kernels": {name: {"ms": r["ms"], "plain_ms": r["plain_ms"],
+                               "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                               "library_ms": r["library_ms"], "max_abs_err": r["max_abs_err"]}
+                        for name, r in large["kernels"].items()}},
         "bnb_match_ms": backend["bnb_match_ms"],
         "schur_50_iterations_ms": backend["schur_50_iterations_ms"],
         "bnb3d_match_ms": backend3d["bnb3d_match_ms"],

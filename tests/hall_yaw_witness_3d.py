@@ -19,11 +19,20 @@ candidates, in the same order, at a 27th of the work on the CPU.
 Run from the repository root (the phase's 400 scans by default: about 12
 minutes and 3 GB of memory on a CPU):
 
-    JAX_PLATFORMS=cpu python tests/hall_yaw_witness_3d.py [num_scans]
+    JAX_PLATFORMS=cpu python tests/hall_yaw_witness_3d.py [num_scans] [seed] [PERMS.npy]
 
-It prints one JSON object. The two packages part at the search's near-ties
+`seed` (default 0, the smoke's first run) draws the scans' noise and
+intensities; the path is the same for every seed. It prints one JSON object. The two packages part at the search's near-ties
 within the first scans, so each is a different path through the same
 scans.
+
+With `PERMS.npy` (the voxel-filter permutations of seeds 1..450 for 4,096
+points, as `tests/hall_yaw_card_witness_3d.py card-permutations` writes the
+card's own) only the port's plain path runs, with those permutations: the
+card's inputs on the CPU. Its poses [x, y, z, yaw] go to
+`cpu_est_seed<seed>.npy` beside PERMS.npy; where the card's of the same
+seed lie there (`card_est_seed<seed>.npy`, from that script's `card` mode),
+it also reports the first scan at which the two part.
 """
 
 import dataclasses
@@ -67,20 +76,40 @@ def _jax_permutation(seed, n):
     return np.asarray(jax.random.permutation(jax.random.PRNGKey(seed), n))
 
 
-def main(num: int) -> dict:
+def _parting(card: np.ndarray, cpu: np.ndarray) -> dict:
+    """Where the card's poses part from the plain path's: the first scan
+    beyond 1 mm or 1e-4 rad, and each one's yaw steps there."""
+    pos = np.linalg.norm(card[:, :3] - cpu[:, :3], axis=1)
+    yaw = np.abs((card[:, 3] - cpu[:, 3] + np.pi) % (2 * np.pi) - np.pi)
+    apart = np.nonzero((pos > 1e-3) | (yaw > 1e-4))[0]
+    out = dict(largest_difference=[float(pos.max()), float(yaw.max())],
+               first_parting_scan=int(apart[0]) if len(apart) else None)
+    if len(apart) and apart[0] > 0:
+        i = int(apart[0])
+        out.update(difference_there=[float(pos[i]), float(yaw[i])],
+                   yaw_step_there_card=float(card[i, 3] - card[i - 1, 3]),
+                   yaw_step_there_cpu=float(cpu[i, 3] - cpu[i - 1, 3]),
+                   largest_difference_before=[float(pos[:i].max()), float(yaw[:i].max())])
+    return out
+
+
+def main(num: int, seed: int = 0, perms_path: str = "") -> dict:
     jax.config.update("jax_platforms", "cpu")
     torch.set_num_threads(4)
     jopts = apply_overrides(JOptions(), OPTIONS)
-    scans, imu, truth = simulate_scans_3d(SMOKE_SCANS, seed=0, intensities=True)
+    scans, imu, truth = simulate_scans_3d(SMOKE_SCANS, seed=seed, intensities=True)
     scans, gt = scans[:num], relative_to_first(truth)[:num]
     largest = max(float(np.linalg.norm(s[1], axis=1).max()) for s in scans)
     assert largest <= OPTIONS["max_range"], largest
-    builders = {
-        "jax": (JBuilder(jopts, ["points"]), JImuData, JScan),
-        "port_plain": (LocalTrajectoryBuilder3D(
-            options_3d_from_dict(dataclasses.asdict(jopts)), ["points"], device="cpu",
-            permutation_fn=_jax_permutation), ImuData, TimedPointCloudData)}
-    out = {"scans": num, "largest_range_m": largest}
+    permutation_fn = _jax_permutation
+    if perms_path:
+        perms = np.load(perms_path)
+        permutation_fn = lambda s, n: perms[s - 1][:n]  # noqa: E731
+    builders = {} if perms_path else {"jax": (JBuilder(jopts, ["points"]), JImuData, JScan)}
+    builders["port_plain"] = (LocalTrajectoryBuilder3D(
+        options_3d_from_dict(dataclasses.asdict(jopts)), ["points"], device="cpu",
+        permutation_fn=permutation_fn), ImuData, TimedPointCloudData)
+    out = {"scans": num, "seed": seed, "largest_range_m": largest, "permutations": perms_path}
     poses = {}
     for name, (b, imu_data, cloud) in builders.items():
         t0, k, est = time.monotonic(), 0, []
@@ -107,11 +136,21 @@ def main(num: int) -> dict:
                                        for i in range(0, num, 20)],
             seconds=time.monotonic() - t0)
         print(name, json.dumps(out[name]), flush=True)
-    d = poses["jax"] - poses["port_plain"]
-    out["largest_difference"] = [float(np.abs(d[:, :3]).max()), float(np.abs(d[:, 3]).max())]
+    if not perms_path:
+        d = poses["jax"] - poses["port_plain"]
+        out["largest_difference"] = [float(np.abs(d[:, :3]).max()),
+                                     float(np.abs(d[:, 3]).max())]
+    else:
+        folder = os.path.dirname(perms_path) or "."
+        np.save(os.path.join(folder, f"cpu_est_seed{seed}.npy"), poses["port_plain"])
+        card_path = os.path.join(folder, f"card_est_seed{seed}.npy")
+        if os.path.exists(card_path):
+            out["card"] = _parting(np.load(card_path)[:num], poses["port_plain"])
     out["max_rss_gb"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
     return out
 
 
 if __name__ == "__main__":
-    print(json.dumps(main(int(sys.argv[1]) if len(sys.argv) > 1 else 400)))
+    print(json.dumps(main(int(sys.argv[1]) if len(sys.argv) > 1 else 400,
+                          int(sys.argv[2]) if len(sys.argv) > 2 else 0,
+                          sys.argv[3] if len(sys.argv) > 3 else "")))

@@ -547,3 +547,167 @@ def test_correlative_3d_kernel(dev, window, max_range):
     assert flat == ref_index
     assert float(score) == float(ref_score) and torch.equal(x[0:3], ref_x[0:3])
     torch.testing.assert_close(x[3:7], ref_x[3:7], atol=1e-6, rtol=0)
+
+
+# ---------------------------------------------------------------- scan sizes above one block
+
+
+@pytest.mark.parametrize("n", [4097, 16384, 32768])
+def test_voxel_filter_kernel_large(dev, n):
+    """K2 above one block's shared memory (its table in device memory): the
+    voxel filter with 3D keys and both adaptive searches, masks equal to the
+    twin's (exact)."""
+    rng = np.random.RandomState(n)
+    pts = rng.uniform(-1.0, 1.0, (n, 3))
+    pts /= np.abs(pts).max(axis=1, keepdims=True)
+    pts = _t((pts * np.float32([14.0, 9.0, 1.5])).astype(np.float32), dev)
+    mask = _t(rng.rand(n) < 0.95, dev)
+    perm = _t(rng.permutation(n).astype(np.int32), dev)
+    keep = voxel_filter.voxel_filter_mask(pts, mask, 0.05, perm)
+    assert torch.equal(keep, voxel_filter.voxel_filter_mask_plain(pts, mask, 0.05, perm))
+    assert int(keep.sum()) < int(mask.sum())
+    cloud = PointCloud(pts, keep, torch.zeros(n, device=dev))
+    for max_length, min_num_points, max_range in ((2.0, 150, 15.0), (0.5, 3000, 60.0)):
+        got = voxel_filter.adaptive_voxel_filter(cloud, max_length, min_num_points, max_range,
+                                                 perm).mask
+        ref = voxel_filter.adaptive_voxel_filter_mask_plain(pts, keep, max_length,
+                                                            min_num_points, max_range, perm)
+        assert torch.equal(got, ref) and int(got.sum()) >= min(min_num_points, int(keep.sum()))
+
+
+@pytest.mark.parametrize("n", [4097, 16384, 32768])
+def test_paged_intensity_insert_kernel_large(dev, n):
+    """K18 at and above one block's 8,192 keys (the multi-block sort): pools
+    equal to the CPU twin's to the bit after two scans."""
+    from cartographer_tpu_torch.ops.paged_grid_3d import PagedIntensitySubmapGrid3D
+
+    center = np.float32([0.3, -0.2, 0.1])
+    args = dict(page_size=8, max_pages=4096, num_blocks=32)
+    card = PagedIntensitySubmapGrid3D(0.1, center, device=dev, **args)
+    cpu = PagedIntensitySubmapGrid3D(0.1, center, device="cpu", **args)
+    rng = np.random.RandomState(n + 1)
+    for k in range(2):
+        pts, mask = _hall_scan(rng, np.float32([0.2 * k + 0.013, -0.1 * k + 0.021, 0.037]), n)
+        intens = (rng.rand(n) * 60.0).astype(np.float32)
+        for paged in (card, cpu):
+            paged.insert(pts, intens, mask, 40.0)
+    assert float(cpu.grid.counts.sum()) > 0.5 * n
+    assert torch.equal(card.grid.counts.cpu(), cpu.grid.counts)
+    assert torch.equal(card.grid.sums.cpu(), cpu.grid.sums)
+
+
+# ---------------------------------------------------------------- TSDF (K20-K22, K3/K5/K6 forms)
+
+
+def _tsdf_scan(dev, n, valid, seed=21, origin=(0.031, -0.017)):
+    """A room scan of `valid` returns padded to `n` with the sensor origin."""
+    rng = np.random.RandomState(seed)
+    a = np.sort(rng.uniform(-np.pi, np.pi, valid))
+    d = np.stack([np.cos(a), np.sin(a)], -1)
+    o = np.asarray(origin, np.float64)
+    tx = np.where(d[:, 0] > 0, (5.013 - o[0]) / d[:, 0], (-4.987 - o[0]) / d[:, 0])
+    ty = np.where(d[:, 1] > 0, (4.013 - o[1]) / d[:, 1], (-3.987 - o[1]) / d[:, 1])
+    r = np.minimum(np.abs(tx), np.abs(ty)) + rng.normal(0, 0.003, valid)
+    pts = np.tile(np.float32(origin), (n, 1))
+    pts[:valid] = o + r[:, None] * d
+    none = PointCloud(torch.zeros(n, 2, device=dev), torch.zeros(n, dtype=torch.bool, device=dev),
+                      torch.zeros(n, device=dev))
+    return RangeData(_t(np.float32(origin), dev),
+                     PointCloud(_t(pts, dev), _t(np.arange(n) < valid, dev),
+                                torch.zeros(n, device=dev)), none)
+
+
+@pytest.mark.parametrize("n,valid", [(300, 300), (2048, 1500), (16384, 12000)])
+def test_tsdf_normals_kernel(dev, n, valid):
+    """K20 against its twin on the card: the sort (one block, or several at
+    16,384) and the normals, within 1e-5 where the neighbourhood is not
+    isotropic (there any unit vector is an eigenvector)."""
+    from cartographer_tpu_torch.ops import tsdf_2d
+
+    rd = _tsdf_scan(dev, n, valid)
+    pts, mask = rd.returns.points, rd.returns.mask
+    got = tsdf_2d.estimate_normals_2d(pts, mask, rd.origin)
+    ref = tsdf_2d._normals_plain(pts, mask, rd.origin)
+    close = (got - ref).abs().max(-1).values <= 1e-5
+    assert float(close[mask].float().mean()) >= 0.995
+    torch.testing.assert_close(got.norm(dim=-1), torch.ones(n, device=dev), atol=1e-5, rtol=0)
+
+
+def _tsdf_batch(dev):
+    from cartographer_tpu_torch.ops.tsdf_2d import TsdfGrid2D
+
+    origins = _t(np.float32([[-6.4, -6.4], [-6.1, -6.3]]), dev)
+    return TsdfGrid2D(torch.zeros(2, SIZE, SIZE, device=dev), torch.zeros(2, SIZE, SIZE,
+                                                                          device=dev),
+                      origins, 0.05)
+
+
+def test_tsdf_insert_kernel(dev):
+    """K21 against its twin on the card over three scans (one with slot 1
+    inactive, one with do_insert False): the same known cells, tsd and
+    weight within 1e-5 (float atomics order the sums)."""
+    from cartographer_tpu_torch.ops import tsdf_2d
+
+    card, plain = _tsdf_batch(dev), _tsdf_batch(dev)
+    params = tsdf_2d.TsdfInserterParams()
+    for k, (active, do) in enumerate((([True, False], True), ([True, True], False),
+                                      ([True, True], True))):
+        rd = _tsdf_scan(dev, 2048, 1500, seed=30 + k, origin=(0.05 * k + 0.031, -0.017))
+        a, d = _t(np.array(active), dev), torch.tensor(do, device=dev)
+        normals = tsdf_2d._normals_plain(rd.returns.points, rd.returns.mask, rd.origin)
+        tsdf_2d.insert_into_slots_tsdf(card, rd, a, d, params, normals=normals)
+        tsdf_2d._insert_plain(plain, rd, normals, a, d, params)
+    assert int((plain.weight > 0).sum()) > 5000
+    assert torch.equal(card.weight > 0, plain.weight > 0)
+    torch.testing.assert_close(card.weight, plain.weight, atol=1e-5, rtol=0)
+    torch.testing.assert_close(card.tsd, plain.tsd, atol=1e-5, rtol=0)
+
+
+def _tsdf_grid(dev):
+    from cartographer_tpu_torch.ops import tsdf_2d
+
+    batch = _tsdf_batch(dev)
+    for k in range(3):
+        rd = _tsdf_scan(dev, 2048, 1500, seed=40 + k, origin=(0.04 * k + 0.031, -0.017))
+        normals = tsdf_2d._normals_plain(rd.returns.points, rd.returns.mask, rd.origin)
+        tsdf_2d._insert_plain(batch, rd, normals, _t(np.array([True, True]), dev),
+                              torch.tensor(True, device=dev), tsdf_2d.TsdfInserterParams())
+    return batch.slot(0), rd
+
+
+def test_tsdf_lm_kernel(dev):
+    """K22 against its twin, within 1e-4 (pose) and 1e-4 relative (cost)."""
+    from cartographer_tpu_torch.ops import tsdf_2d
+
+    grid, rd = _tsdf_grid(dev)
+    params = scan_matcher_2d.GaussNewtonMatcherParams2D()
+    pts, mask = rd.returns.points[:512], rd.returns.mask[:512]
+    x0 = _t(np.float32([0.11, -0.05, 0.01]), dev)
+    args = (grid, pts, mask, x0, x0[0:2] - 0.02, params)
+    xk, ck, ik = tsdf_2d.lm_match_tsdf_2d(*args)
+    xp, cp, ip = tsdf_2d._match_plain(*args)
+    torch.testing.assert_close(xk, xp, atol=1e-4, rtol=0)
+    torch.testing.assert_close(ck, cp, atol=0, rtol=1e-4)
+    assert int(ik) > 1
+
+
+def test_tsdf_surface_forms_of_k3_k5_k6(dev):
+    """K3, K5 and K6 on the score surface of a TSDF grid against their
+    twins: K3 within 1e-4, K5's scores and argmax and K6's levels exact."""
+    from cartographer_tpu_torch.ops import bnb_2d, correlative_2d
+
+    grid, rd = _tsdf_grid(dev)
+    params = scan_matcher_2d.GaussNewtonMatcherParams2D()
+    pts, mask = rd.returns.points[:512], rd.returns.mask[:512]
+    x0 = _t(np.float32([0.09, -0.04, 0.02]), dev)
+    args = (grid, pts, mask, x0, x0[0:2], params)
+    xk, ck, _ = scan_matcher_2d.lm_match_2d(*args)
+    xp, cp, _ = scan_matcher_2d._match_plain(*args)
+    torch.testing.assert_close(xk, xp, atol=1e-4, rtol=0)
+    torch.testing.assert_close(ck, cp, atol=0, rtol=1e-4)
+    cparams = correlative_2d.CorrelativeSearchParams(max_scan_range=12.0)
+    best, scores = correlative_2d._match_kernel(grid, pts, mask, x0, cparams)
+    best_p, scores_p = correlative_2d.correlative_match_plain(grid, pts, mask, x0, cparams)
+    assert torch.equal(scores, scores_p) and torch.equal(best, best_p)
+    pyr = bnb_2d.build_precomputation_pyramid(grid, 7)
+    assert torch.equal(pyr, bnb_2d.pyramid_plain(grid, 7))

@@ -21,8 +21,16 @@ from cartographer_tpu.mapping.local_trajectory_builder_2d import (
 )
 from cartographer_tpu.sensor.data import TimedPointCloudData as JScan
 from cartographer_tpu_torch.core.config import apply_overrides
-from cartographer_tpu_torch.interop import grid2d_to_numpy, options_from_dict
-from cartographer_tpu_torch.mapping.local_trajectory_builder_2d import LocalTrajectoryBuilder2D
+from cartographer_tpu_torch.interop import (
+    grid2d_to_numpy,
+    options_from_dict,
+    tsdf_grid2d_to_numpy,
+)
+from cartographer_tpu_torch.mapping.local_trajectory_builder_2d import (
+    LocalTrajectoryBuilder2D,
+    check_kernel_limits,
+)
+from cartographer_tpu_torch.ops.tsdf_2d import TsdfGrid2D
 from cartographer_tpu_torch.sensor.data import TimedPointCloudData
 from cartographer_tpu_torch.transform import nquat
 from test_local_slam_2d import make_wall_points, scan_at, small_options
@@ -161,13 +169,82 @@ def test_online_correlative_matcher_runs():
     assert abs(_yaw(results[-1].local_pose_rotation) - 0.03) < 0.01
 
 
-@pytest.mark.parametrize("override", [
-    {"submaps.grid_type": "TSDF"},
+@pytest.mark.parametrize("correlative", [True, False])
+def test_tsdf_builder_matches_jax(correlative):
+    """TSDF submaps (the twin of tests/test_tsdf_local_slam.py, scan by scan
+    against the JAX builder): poses within 5 mm and 5e-3 rad, the same
+    insertions and finished submaps, 90% of the active grids' known cells
+    within 1e-4."""
+    jopts = _jax_options(**{"submaps.grid_type": "TSDF", "submaps.num_range_data": 5,
+                            "use_online_correlative_scan_matching": correlative})
+    jb = JBuilder(jopts, ["laser"])
+    tb = LocalTrajectoryBuilder2D(options_from_dict(dataclasses.asdict(jopts)), ["laser"],
+                                  device="cpu", permutation_fn=_jax_permutation)
+    world = make_wall_points(500)
+    poses = _ramped(22, 0.05, 6, yaw_rate=0.01)
+    jfinished, tfinished = [], []
+    for scan in _scans(world, poses):
+        rj = jb.add_range_data("laser", JScan(**scan))
+        rt = tb.add_range_data("laser", TimedPointCloudData(**scan))
+        np.testing.assert_allclose(rt.local_pose_translation, rj.local_pose_translation,
+                                   atol=5e-3, rtol=0)
+        assert abs(_yaw(rt.local_pose_rotation) - _yaw(rj.local_pose_rotation)) < 5e-3
+        assert (rt.insertion_result is None) == (rj.insertion_result is None)
+        if rj.insertion_result is not None:
+            jfinished += rj.insertion_result.finished_submaps
+            tfinished += rt.insertion_result.finished_submaps
+    assert len(tfinished) == len(jfinished) >= 2
+    assert [s.num_range_data for s in tfinished] == [s.num_range_data for s in jfinished]
+    tsd, weight, _, _, _, _ = tsdf_grid2d_to_numpy(tb._active_submaps.grids)
+    jgrids = jb._active_submaps.grids
+    known = (weight > 0) | (np.asarray(jgrids.weight) > 0)
+    same = ((np.abs(weight - np.asarray(jgrids.weight)) <= 1e-4)
+            & (np.abs(tsd - np.asarray(jgrids.tsd)) <= 1e-4))
+    # The poses part by up to 0.15 mm over these scans (rounding), which
+    # moves samples across cell borders: 90% of the known cells agree.
+    assert known.sum() > 1000
+    assert same[known].mean() >= 0.9, same[known].mean()
+    err = np.linalg.norm(rt.local_pose_translation[:2] - poses[-1][0])
+    assert err < 0.12, (rt.local_pose_translation, poses[-1][0])
+
+
+def test_tsdf_options_are_accepted_and_carried():
+    """grid_type TSDF and the TSDF inserter's options, formerly refused,
+    reach the builder's submaps."""
+    jopts = _jax_options(**{"submaps.grid_type": "TSDF",
+                            "submaps.range_data_inserter_type": "TSDF_INSERTER_2D",
+                            "submaps.tsdf_range_data_inserter.truncation_distance": 0.25,
+                            "submaps.tsdf_range_data_inserter.maximum_weight": 7.0})
+    options = options_from_dict(dataclasses.asdict(jopts))
+    assert options.submaps.range_data_inserter_type == "TSDF_INSERTER_2D"
+    assert dataclasses.asdict(options.submaps.tsdf_range_data_inserter) == dataclasses.asdict(
+        jopts.submaps.tsdf_range_data_inserter)
+    builder = LocalTrajectoryBuilder2D(options, ["laser"], device="cpu")
+    scan = next(_scans(make_wall_points(), [(np.zeros(2), 0.0)]))
+    builder.add_range_data("laser", TimedPointCloudData(**scan))
+    grid = builder._active_submaps.matching_grid
+    assert isinstance(grid, TsdfGrid2D)
+    assert (grid.truncation_distance, grid.max_weight) == (0.25, 7.0)
+    assert float(grid.weight.max()) > 0
+
+
+@pytest.mark.parametrize("override,option", [
+    ({"tpu.matcher_capacity": 8192, "tpu.scan_capacity": 8192,
+      "use_online_correlative_scan_matching": True}, "tpu.matcher_capacity"),
+    ({"tpu.loop_closure_capacity": 2048, "tpu.scan_capacity": 2048},
+     "tpu.loop_closure_capacity"),
 ])
-def test_unported_options_raise(override):
+def test_kernel_limits_refused_at_construction(override, option):
+    """A capacity above a one-block kernel's limit raises on a CUDA device
+    before any scan, naming the option; the plain path takes it."""
     options = apply_overrides(_port_options(), override)
-    with pytest.raises(NotImplementedError):
-        LocalTrajectoryBuilder2D(options, ["laser"], device="cpu")
+    with pytest.raises(ValueError, match=option):
+        LocalTrajectoryBuilder2D(options, ["laser"], device="cuda")
+    LocalTrajectoryBuilder2D(options, ["laser"], device="cpu")
+    # Without the correlative search the matcher capacity meets no K5.
+    if option == "tpu.matcher_capacity":
+        check_kernel_limits(apply_overrides(
+            options, {"use_online_correlative_scan_matching": False}))
 
 
 def test_batcher_raises():

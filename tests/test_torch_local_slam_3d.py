@@ -29,7 +29,10 @@ from cartographer_tpu_torch.interop import (
     paged_grid_from_numpy,
     paged_intensity_grid_from_numpy,
 )
-from cartographer_tpu_torch.mapping.local_trajectory_builder_3d import LocalTrajectoryBuilder3D
+from cartographer_tpu_torch.mapping.local_trajectory_builder_3d import (
+    LocalTrajectoryBuilder3D,
+    check_kernel_limits,
+)
 from cartographer_tpu_torch.sensor.data import ImuData, TimedPointCloudData
 from cartographer_tpu_torch.simulation import relative_to_first, simulate_scans_3d
 from cartographer_tpu_torch.transform import nquat
@@ -505,3 +508,22 @@ def test_full_frontend_options_round_trip():
     # defaults; so does the port.
     assert (builder._gn_params.intensity_huber_scale,
             builder._gn_params.intensity_threshold) == (0.3, 40.0)
+
+
+@pytest.mark.parametrize("override,option", [
+    ({"tpu.filtered_capacity_high": 2048}, "tpu.filtered_capacity_high"),
+    ({"rotational_histogram_size": 2048}, "rotational_histogram_size"),
+])
+def test_kernel_limits_refused_at_construction(override, option):
+    """A capacity above a one-block kernel's limit (K12's 1,024 points or
+    bins) raises on a CUDA device before any scan, naming the option; the
+    plain path takes it. A scan capacity above K2's and K18's one-block
+    sizes is not refused."""
+    from cartographer_tpu_torch.core.config import apply_overrides as port_overrides
+
+    options = port_overrides(TrajectoryBuilder3DOptions(), override)
+    with pytest.raises(ValueError, match=option):
+        LocalTrajectoryBuilder3D(options, ["points"], device="cuda")
+    LocalTrajectoryBuilder3D(options, ["points"], device="cpu")
+    check_kernel_limits(port_overrides(TrajectoryBuilder3DOptions(),
+                                       {"tpu.scan_capacity": 32768}))

@@ -25,6 +25,7 @@ from cartographer_tpu_torch.interop import (
     trajectory_builder_options_from_dict,
 )
 from cartographer_tpu_torch.mapping.map_builder import MapBuilder
+from cartographer_tpu_torch.ops.tsdf_2d import TsdfGrid2D
 from cartographer_tpu_torch.sensor.data import LandmarkData, TimedPointCloudData
 from test_local_slam_2d import make_wall_points, scan_at
 from test_map_builder import build_options, square_loop_poses
@@ -142,6 +143,52 @@ def test_background_searches_build_the_graph():
     _drive(mb, tid, square_loop_poses()[:40])
     pg = mb.pose_graph
     assert len(pg.nodes) >= 30 and pg.solves >= 2 and pg.num_inter_constraints() > 0
+
+
+def test_tsdf_map_builder_matches_jax():
+    """MapBuilder on TSDF submaps (the pyramid and the loop-closure refine
+    read the score surface): the first 48 poses of the loop in both
+    packages, searches in the foreground. The same nodes and submaps, the
+    same loop closures up to matches within 0.03 of min_score, scores within
+    0.03, optimized poses within 2 cm and 0.01 rad. The frontends part by up
+    to 3.5 mm over the turns in place (rounding), and a TSDF cell's score
+    moves by up to 1 where a sample lands in its neighbour, so the match
+    scores part by up to 0.025 where the probability grids' part by 1e-3."""
+    jmb_options, jtraj = build_options()
+    jmb_options = j_apply_overrides(jmb_options, {"async_constraint_search": False,
+                                                  "use_device_mesh": False})
+    jtraj = j_apply_overrides(jtraj, {"trajectory_builder_2d.submaps.grid_type": "TSDF"})
+    poses = square_loop_poses()[:48]
+    jmb = JMapBuilder(jmb_options)
+    jlog = []
+    _record_scores(jmb.pose_graph._constraint_builder, jlog)
+    _drive(jmb, jmb.add_trajectory_builder(["laser"], jtraj), poses)
+    mb = MapBuilder(map_builder_options_from_dict(dataclasses.asdict(jmb_options)), device="cpu")
+    log = []
+    _record_scores(mb.pose_graph.constraint_builder, log)
+    tid = mb.add_trajectory_builder(
+        ["laser"], trajectory_builder_options_from_dict(dataclasses.asdict(jtraj)),
+        permutation_fn=_jax_permutation)
+    _drive(mb, tid, poses)
+    jpg, pg = jmb.pose_graph, mb.pose_graph
+    assert all(isinstance(e.submap.grid, TsdfGrid2D) for _, e in pg.submap_data.items()
+               if e.submap.grid is not None)
+    assert len(pg.nodes) == len(jpg.nodes) >= 40
+    assert len(pg.submap_data) == len(jpg.submap_data) >= 3
+    assert pg.num_inter_constraints() > 0
+    min_score = jmb._options.pose_graph.constraint_builder.min_score
+    near = {(n.node_index, s.submap_index) for n, s, score in jlog
+            if abs(score - min_score) <= 0.03}
+    assert _inter_pairs(pg) ^ _inter_pairs(jpg) <= near
+    scores = {(n.node_index, s.submap_index): score for n, s, score in jlog}
+    assert len(log) == len(jlog)
+    for n, s, score in log:
+        assert abs(score - scores[(n.node_index, s.submap_index)]) <= 0.03, (n, s)
+    jposes = jpg.node_global_poses()
+    for nid, pose in pg.node_global_poses().items():
+        jpose = np.asarray(jposes[type(next(iter(jposes)))(*dataclasses.astuple(nid))])
+        assert np.abs(pose[:2] - jpose[:2]).max() <= 0.02, nid
+        assert abs(pose[2] - jpose[2]) <= 0.01, nid
 
 
 def test_second_trajectory_globally_localizes():

@@ -94,12 +94,21 @@ def test_options_carry_across():
 @pytest.mark.parametrize("path,value", [
     ("num_accumulated_range_data", 2),
     ("pose_extrapolator.use_imu_based", True),
-    ("submaps.range_data_inserter_type", "TSDF_INSERTER_2D"),
 ])
 def test_unported_switches_raise(path, value):
     jopts = apply_overrides(JOptions(), {path: value})
     with pytest.raises(NotImplementedError, match=path):
         options_from_dict(dataclasses.asdict(jopts))
+
+
+def test_tsdf_inserter_switch_is_carried():
+    """The TSDF inserter's switch and options, once refused, are carried as
+    the JAX options hold them."""
+    jopts = apply_overrides(JOptions(), {
+        "submaps.grid_type": "TSDF", "submaps.range_data_inserter_type": "TSDF_INSERTER_2D",
+        "submaps.tsdf_range_data_inserter.update_weight_range_exponent": 2})
+    port = options_from_dict(dataclasses.asdict(jopts))
+    assert dataclasses.asdict(port.submaps) == dataclasses.asdict(jopts.submaps)
 
 
 def test_unported_options_are_not_settable():
