@@ -23,7 +23,10 @@
 // value under the scan's precomputed cell of point k at angle a, shifted by
 // the offset (UNKNOWN outside the map), masked points give 0, and the warp
 // sums the point axis (a power of two) as a pairwise halving tree in shared
-// memory, the plain twin's order, then divides by the valid count. Bound:
+// memory, the plain twin's order, then divides by the valid count. Above
+// kMaxPoints points each lane first folds its k over the points
+// k + j * kMaxPoints in that tree's order (halving_fold.cuh), so a warp keeps
+// at most kMaxPoints floats for any cloud and the sum keeps its bits. Bound:
 // bytes and latency. A level-step of 16,384 candidates x 128 points gathers
 // 2 M floats scattered over a 4 MB level (L2-resident); the cells (a few
 // hundred KB) are read once per candidate.
@@ -32,11 +35,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "halving_fold.cuh"
+
 namespace {
 
 constexpr float kUnknown = 0.1f;
 constexpr int kWarpsPerBlock = 4;
-constexpr int kMaxPoints = 1024;
+constexpr int kMaxPoints = 1024;  // a warp's shared tile of the point sum
 
 __global__ void level0_kernel(const float* __restrict__ log_odds,
                               const uint8_t* __restrict__ known, int cells,
@@ -77,11 +82,12 @@ __global__ void score_kernel(const float* __restrict__ level, int size,
   const int warp = threadIdx.x >> 5;
   const int c = blockIdx.x * kWarpsPerBlock + warp;
   if (c >= b) return;  // whole warps leave together; no block-wide barrier below
-  float* s = smem + warp * n;
+  const int tile = min(n, kMaxPoints), m = n / tile;
+  float* s = smem + warp * tile;
   const int* base = cells + (size_t)a_idx[c] * n * 2;
   const int dx = ox[c], dy = oy[c];
   int count = 0;
-  for (int k = lane; k < n; k += 32) {
+  auto value = [&](int k) {
     float v = 0.0f;
     if (mask[k]) {
       int cx = base[2 * k] + dx, cy = base[2 * k + 1] + dy;
@@ -89,11 +95,13 @@ __global__ void score_kernel(const float* __restrict__ level, int size,
       v = inside ? level[(size_t)cx * size + cy] : kUnknown;
       count += 1;
     }
-    s[k] = v;
-  }
+    return v;
+  };
+  for (int k = lane; k < tile; k += 32)
+    s[k] = halving::fold(m, [&](int j) { return value(k + j * tile); });
   for (int off = 16; off > 0; off >>= 1) count += __shfl_xor_sync(0xffffffffu, count, off);
   __syncwarp();
-  for (int h = n / 2; h >= 1; h >>= 1) {
+  for (int h = tile / 2; h >= 1; h >>= 1) {
     for (int k = lane; k < h; k += 32) s[k] = s[k] + s[k + h];
     __syncwarp();
   }
@@ -136,10 +144,10 @@ extern "C" int bnb_pyramid_tsdf(const void* tsd, const void* weight, float trunc
 extern "C" int bnb_score(const void* level, int size, const void* cells, int n,
                          const void* mask, const void* a_idx, const void* ox, const void* oy,
                          int b, void* out, void* stream) {
-  if (n > kMaxPoints || (n & (n - 1)) != 0) return (int)cudaErrorInvalidValue;
+  if (n < 1 || (n & (n - 1)) != 0) return (int)cudaErrorInvalidValue;
   if (b == 0) return (int)cudaGetLastError();
   int blocks = (b + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  size_t shared = (size_t)kWarpsPerBlock * n * sizeof(float);
+  size_t shared = (size_t)kWarpsPerBlock * (n < kMaxPoints ? n : kMaxPoints) * sizeof(float);
   score_kernel<<<blocks, 32 * kWarpsPerBlock, shared, (cudaStream_t)stream>>>(
       (const float*)level, size, (const int*)cells, n, (const uint8_t*)mask,
       (const int*)a_idx, (const int*)ox, (const int*)oy, b, (float*)out);

@@ -11,7 +11,10 @@
 // angle, reads the log-odds and known flag of each shifted cell and turns
 // them into a probability on the fly (no probability image is built), and
 // sums the masked points as a pairwise halving tree in shared memory, the
-// order the plain twin uses. Thread 0 applies the motion prior, writes the
+// order the plain twin uses. Above kMaxPoints padded points each thread first
+// folds its k over the points k + j * kMaxPoints in that tree's order
+// (halving_fold.cuh), so the shared array holds kMaxPoints floats for any
+// cloud and the sum keeps its bits. Thread 0 applies the motion prior, writes the
 // score and folds it into one 64-bit atomicMax over (order-preserving score
 // bits, ~flat index): the maximum score wins and, among equal scores, the
 // lowest flat index, which is jnp.argmax's tie-break. A one-thread launch
@@ -33,10 +36,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "halving_fold.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxPoints = 4096;
+constexpr int kMaxPoints = 4096;  // the shared tile of the point sum
 
 struct Params {
   const float* values;  // log-odds, or tsd (TSDF form)
@@ -47,7 +52,7 @@ struct Params {
   int size;
   const float* points;
   const uint8_t* mask;
-  int n;  // power of two
+  int n;  // power of two, any size
   const float* init;
   int num_angles;
   int nl;
@@ -122,7 +127,7 @@ __global__ void score_kernel(Params p, float* __restrict__ scores, float* __rest
   const float ct = cosf(theta), st = sinf(theta);
   const int sx = ix - p.nl, sy = iy - p.nl;
 
-  for (int k = threadIdx.x; k < p.n; k += blockDim.x) {
+  auto value = [&](int k) {
     float v = 0.0f;
     if (p.mask[k]) {
       float x = p.points[2 * k], y = p.points[2 * k + 1];
@@ -132,10 +137,13 @@ __global__ void score_kernel(Params p, float* __restrict__ scores, float* __rest
       int cy = (int)floorf((wy - p.origin[1]) / p.resolution);
       v = probability<kTsdf>(p, cx + sx, cy + sy);
     }
-    s[k] = v;
-  }
+    return v;
+  };
+  const int tile = min(p.n, kMaxPoints), m = p.n / tile;
+  for (int k = threadIdx.x; k < tile; k += blockDim.x)
+    s[k] = halving::fold(m, [&](int j) { return value(k + j * tile); });
   __syncthreads();
-  for (int h = p.n / 2; h >= 1; h >>= 1) {
+  for (int h = tile / 2; h >= 1; h >>= 1) {
     for (int k = threadIdx.x; k < h; k += blockDim.x) s[k] = s[k] + s[k + h];
     __syncthreads();
   }
@@ -173,7 +181,7 @@ int launch(const void* values, const void* flags, float truncation, const void* 
            const void* init, int num_angles, int nl, float angle_limit, float tw, float rw,
            float res_sq, float min_range, void* scores, void* deltas, void* key, void* best,
            void* stream) {
-  if (n > kMaxPoints || (n & (n - 1)) != 0) return (int)cudaErrorInvalidValue;
+  if (n < 1 || (n & (n - 1)) != 0) return (int)cudaErrorInvalidValue;
   Params p;
   p.values = (const float*)values;
   p.flags = flags;

@@ -35,6 +35,13 @@
 // kernel decodes the winner into the score and the pose
 // [t_initial + offset, normalize(q_initial * q_r)], on the device.
 //
+// Above kMaxPoints points (the large form) the cells of a work item go to a
+// device-memory scratch, one slice per block, and the grid is capped at the
+// scratch's blocks (the wrapper gives 4 per SM); above kBuffer padded points
+// each row keeps kBuffer floats and each thread first folds its point i over
+// the points i + j * kBuffer in the tree's order (halving_fold.cuh), so the
+// sums keep their bits at any cloud size.
+//
 // Bound: operations. The range maximum reads the N points once; each valid
 // rotation transforms the valid points and gathers their cells for every
 // translation (125 x 125 x 512 = 8 M cells at most at the defaults, 5 bytes
@@ -44,11 +51,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "halving_fold.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kBuffer = 4096;  // floats of shared memory for the rows of sums
-constexpr int kMaxPoints = 2048;
+constexpr int kMaxPoints = 2048;  // cells in shared memory up to this cloud size
 
 struct Grid {
   const float* log_odds;
@@ -140,17 +149,21 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <bool kLarge>
 __global__ void __launch_bounds__(kThreads)
     search_kernel(Grid g, const float* __restrict__ points, const uint8_t* __restrict__ mask,
                   int n, int npad, const float* __restrict__ x0, Search s,
-                  const State* __restrict__ state, unsigned long long* __restrict__ best) {
+                  const State* __restrict__ state, int* __restrict__ scratch,
+                  unsigned long long* __restrict__ best) {
   __shared__ float buffer[kBuffer];
-  __shared__ int cells[3 * kMaxPoints];
+  __shared__ int shared_cells[kLarge ? 1 : 3 * kMaxPoints];
+  int* cells = kLarge ? scratch + (size_t)blockIdx.x * 3 * n : shared_cells;
 
   const State st = *state;
   const int A = 2 * s.na + 1, V = 2 * st.k + 1;
   const int L = 2 * s.nl + 1, T = L * L * L;
-  const int rows = kBuffer / npad, groups = (T + rows - 1) / rows;
+  const int width = min(npad, kBuffer), folds = npad / width;  // a row's floats
+  const int rows = kBuffer / width, groups = (T + rows - 1) / rows;
   const float num = (float)max(st.count, 1);
   const float q0[4] = {x0[3], x0[4], x0[5], x0[6]};
   for (int item = blockIdx.x; item < V * V * V * groups; item += gridDim.x) {
@@ -171,29 +184,32 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
 
     const int nr = min(rows, T - t0);
-    for (int idx = threadIdx.x; idx < nr * npad; idx += blockDim.x) {
-      int row = idx / npad, i = idx - row * npad, t = t0 + row;
-      float val = 0.0f;
-      if (i < n && mask[i]) {
-        int c[3] = {cells[3 * i] + t / (L * L) - s.nl, cells[3 * i + 1] + (t / L) % L - s.nl,
-                    cells[3 * i + 2] + t % L - s.nl};
-        bool inside = true;
-        for (int a = 0; a < 3; ++a) inside = inside && c[a] >= 0 && c[a] < g.size;
-        val = inside ? probability(g, c[0], c[1], c[2]) : 0.1f;
-      }
-      buffer[idx] = val;
+    for (int idx = threadIdx.x; idx < nr * width; idx += blockDim.x) {
+      int row = idx / width, i0 = idx - row * width, t = t0 + row;
+      buffer[idx] = halving::fold(folds, [&](int j) {
+        int i = i0 + j * width;
+        float val = 0.0f;
+        if (i < n && mask[i]) {
+          int c[3] = {cells[3 * i] + t / (L * L) - s.nl,
+                      cells[3 * i + 1] + (t / L) % L - s.nl, cells[3 * i + 2] + t % L - s.nl};
+          bool inside = true;
+          for (int a = 0; a < 3; ++a) inside = inside && c[a] >= 0 && c[a] < g.size;
+          val = inside ? probability(g, c[0], c[1], c[2]) : 0.1f;
+        }
+        return val;
+      });
     }
     __syncthreads();
-    for (int h = npad / 2; h > 0; h >>= 1) {
+    for (int h = width / 2; h > 0; h >>= 1) {
       for (int idx = threadIdx.x; idx < nr * h; idx += blockDim.x) {
         int row = idx / h, i = idx - row * h;
-        buffer[row * npad + i] = buffer[row * npad + i] + buffer[row * npad + i + h];
+        buffer[row * width + i] = buffer[row * width + i] + buffer[row * width + i + h];
       }
       __syncthreads();
     }
     if (threadIdx.x < nr) {
       int t = t0 + threadIdx.x;
-      float raw = buffer[threadIdx.x * npad] / num;
+      float raw = buffer[threadIdx.x * width] / num;
       float lx = (float)(t / (L * L) - s.nl) * g.resolution;
       float ly = (float)((t / L) % L - s.nl) * g.resolution;
       float lz = (float)(t % L - s.nl) * g.resolution;
@@ -236,16 +252,20 @@ __global__ void decode_kernel(const unsigned long long* __restrict__ best,
 
 // `best` holds one zero int64; `state` four 32-bit words of scratch (the
 // scan's angular step, its valid points and the largest angle index inside
-// the window on return); `x_out` the best pose [t, q] (7,) and `score_out`
-// its score.
+// the window on return); above kMaxPoints points `cells` holds
+// cell_blocks * 3 * n int32 of scratch and the search runs on at most
+// cell_blocks blocks (null and 0 below); `x_out` the best pose [t, q] (7,)
+// and `score_out` its score.
+
 extern "C" int correlative_3d(const void* log_odds, const void* known, const void* origin,
                               float resolution, int size, const void* points, const void* mask,
                               int n, int npad, const void* x0, int nl, int na,
                               float resolution_sq, float min_range, float shrink,
                               float window, float translation_weight, float rotation_weight,
-                              void* best, void* state, void* x_out, void* score_out,
-                              void* stream) {
-  if (n <= 0 || n > kMaxPoints || npad < n || npad > kBuffer || (npad & (npad - 1)))
+                              void* best, void* state, void* cells, int cell_blocks,
+                              void* x_out, void* score_out, void* stream) {
+  if (n <= 0 || npad < n || (npad & (npad - 1)) ||
+      (n > kMaxPoints && (cells == nullptr || cell_blocks < 1)))
     return (int)cudaErrorInvalidValue;
   Grid g{(const float*)log_odds, (const uint8_t*)known, (const float*)origin, resolution, size};
   Search s{nl, na, resolution_sq, min_range, shrink, window, translation_weight,
@@ -258,11 +278,17 @@ extern "C" int correlative_3d(const void* log_odds, const void* known, const voi
   // The valid rotations are known only on the device: enough blocks for the
   // work items of every rotation of a window that holds 27 of them, a grid
   // stride beyond.
-  const int L = 2 * nl + 1, rows = kBuffer / npad;
+  const int L = 2 * nl + 1, rows = kBuffer / (npad < kBuffer ? npad : kBuffer);
   const int items = 27 * ((L * L * L + rows - 1) / rows);
-  search_kernel<<<items, kThreads, 0, st>>>(g, (const float*)points, (const uint8_t*)mask, n,
-                                            npad, (const float*)x0, s, (const State*)state,
-                                            (unsigned long long*)best);
+  if (n > kMaxPoints) {
+    search_kernel<true><<<items < cell_blocks ? items : cell_blocks, kThreads, 0, st>>>(
+        g, (const float*)points, (const uint8_t*)mask, n, npad, (const float*)x0, s,
+        (const State*)state, (int*)cells, (unsigned long long*)best);
+  } else {
+    search_kernel<false><<<items, kThreads, 0, st>>>(
+        g, (const float*)points, (const uint8_t*)mask, n, npad, (const float*)x0, s,
+        (const State*)state, nullptr, (unsigned long long*)best);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   decode_kernel<<<1, 1, 0, st>>>((const unsigned long long*)best, (const State*)state,

@@ -23,9 +23,7 @@ the adaptive filters' searches and the insertion's do_insert gate stay on
 the device.
 
 Cross-robot batching and the IMU-based extrapolator (which the JAX
-package's 2D builder never reads) raise NotImplementedError. On a CUDA
-device, a capacity option above the size a one-block kernel takes raises
-ValueError at construction (`check_kernel_limits`).
+package's 2D builder never reads) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -45,7 +43,6 @@ from cartographer_tpu_torch.mapping.motion_filter import MotionFilter
 from cartographer_tpu_torch.mapping.pose_extrapolator import PoseExtrapolator
 from cartographer_tpu_torch.mapping.range_data_collator import RangeDataCollator
 from cartographer_tpu_torch.mapping.submap_2d import ActiveSubmaps2D, Submap2D
-from cartographer_tpu_torch.ops import bnb_2d, correlative_2d
 from cartographer_tpu_torch.ops.correlative_2d import (
     CorrelativeSearchParams,
     real_time_correlative_match,
@@ -95,28 +92,6 @@ class MatchingResult:
     insertion_result: Optional[InsertionResult]
 
 
-def _pow2(n: int) -> int:
-    return 1 << max(0, (n - 1).bit_length())
-
-
-def check_kernel_limits(options: TrajectoryBuilder2DOptions) -> None:
-    """Raise ValueError where a capacity option makes a cloud larger than
-    the one-block CUDA kernel that takes it (the plain path takes any size)."""
-    tpu = options.tpu
-    if options.use_online_correlative_scan_matching:
-        n = _pow2(min(tpu.matcher_capacity, tpu.scan_capacity))
-        if n > correlative_2d.MAX_POINTS:
-            raise ValueError(
-                f"tpu.matcher_capacity = {tpu.matcher_capacity}: the online correlative search "
-                f"(K5) takes at most {correlative_2d.MAX_POINTS} points on the card")
-    n = _pow2(max(min(tpu.loop_closure_capacity, tpu.scan_capacity), 16))
-    if n > bnb_2d.MAX_POINTS:
-        raise ValueError(
-            f"tpu.loop_closure_capacity = {tpu.loop_closure_capacity}: the loop-closure "
-            f"scorer (K7) takes at most {bnb_2d.MAX_POINTS} points (padded to a power of two) "
-            f"on the card")
-
-
 class LocalTrajectoryBuilder2D:
     def __init__(self, options: TrajectoryBuilder2DOptions,
                  expected_range_sensor_ids: List[str], device="cuda", batcher=None,
@@ -130,11 +105,9 @@ class LocalTrajectoryBuilder2D:
         if options.pose_extrapolator.use_imu_based:
             raise NotImplementedError("the IMU-based extrapolator is not ported to 2D")
         self._device = torch.device(device)
-        if self._device.type == "cuda":
-            check_kernel_limits(options)
-            if not torch.cuda.is_available():
-                raise RuntimeError("LocalTrajectoryBuilder2D: no CUDA device is available; "
-                                   "pass device='cpu' to run the plain PyTorch path")
+        if self._device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("LocalTrajectoryBuilder2D: no CUDA device is available; "
+                               "pass device='cpu' to run the plain PyTorch path")
         self._options = options
         self._active_submaps = ActiveSubmaps2D(options.submaps, options.tpu, self._device)
         self._motion_filter = MotionFilter(options.motion_filter)

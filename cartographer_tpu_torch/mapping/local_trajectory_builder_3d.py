@@ -69,7 +69,6 @@ from cartographer_tpu_torch.mapping.motion_filter import MotionFilter
 from cartographer_tpu_torch.mapping.pose_extrapolator import PoseExtrapolator
 from cartographer_tpu_torch.mapping.range_data_collator import RangeDataCollator
 from cartographer_tpu_torch.mapping.submap_3d import ActiveSubmaps3D, Submap3D
-from cartographer_tpu_torch.ops import rot_histogram
 from cartographer_tpu_torch.ops.grid_3d import Grid3D, IntensityGrid3D
 from cartographer_tpu_torch.ops.rot_histogram import (
     compute_rotational_histogram,
@@ -144,26 +143,6 @@ class MatchingResult3D:
     insertion_result: Optional[InsertionResult3D]
 
 
-def check_kernel_limits(options: TrajectoryBuilder3DOptions) -> None:
-    """Raise ValueError where a capacity option makes a cloud larger than
-    the one-block CUDA kernel that takes it (the plain path takes any size).
-    The high-resolution cloud feeds the rotational histogram (K12, at most
-    1,024 points) and the online correlative search (K17, at most 2,048), so
-    K12's limit holds both; the loop-closure scorer (K15) takes the
-    constraint builder's fixed 256 and 512 points."""
-    tpu = options.tpu
-    high = min(tpu.filtered_capacity_high, tpu.scan_capacity)
-    if high > rot_histogram.MAX_POINTS:
-        raise ValueError(
-            f"tpu.filtered_capacity_high = {tpu.filtered_capacity_high}: the rotational "
-            f"histogram (K12) and the online correlative search (K17) take at most "
-            f"{rot_histogram.MAX_POINTS} points on the card")
-    if not 0 < options.rotational_histogram_size <= rot_histogram.MAX_BINS:
-        raise ValueError(
-            f"rotational_histogram_size = {options.rotational_histogram_size}: the rotational "
-            f"histogram (K12) takes 1 to {rot_histogram.MAX_BINS} bins on the card")
-
-
 class LocalTrajectoryBuilder3D:
     def __init__(self, options: TrajectoryBuilder3DOptions,
                  expected_range_sensor_ids: List[str], device="cuda",
@@ -173,11 +152,9 @@ class LocalTrajectoryBuilder3D:
         `permutation_fn(seed, n)` replaces the voxel filters' on-device
         permutation (tests inject the JAX package's permutation through it)."""
         self._device = torch.device(device)
-        if self._device.type == "cuda":
-            check_kernel_limits(options)
-            if not torch.cuda.is_available():
-                raise RuntimeError("LocalTrajectoryBuilder3D: no CUDA device is available; "
-                                   "pass device='cpu' to run the plain PyTorch path")
+        if self._device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("LocalTrajectoryBuilder3D: no CUDA device is available; "
+                               "pass device='cpu' to run the plain PyTorch path")
         self._options = options
         self._active_submaps = ActiveSubmaps3D(
             options.submaps, options.tpu, self._device, options.rotational_histogram_size,

@@ -56,8 +56,6 @@ _SCORE = cuda.CudaKernel(
     [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
 
-MAX_POINTS = 1024  # the kernel keeps one float per (padded) point of each warp in shared memory
-
 
 @dataclasses.dataclass(frozen=True)
 class FastCorrelativeMatcherParams2D:
@@ -129,8 +127,8 @@ def score_candidates(level: torch.Tensor, cells: torch.Tensor, mask: torch.Tenso
     size = level.shape[-1]
     a_n, n = cells.shape[0], cells.shape[1]
     b = a_idx.shape[0]
-    if n > MAX_POINTS or n & (n - 1):
-        raise ValueError(f"bnb_score: the point count must be a power of two <= {MAX_POINTS}")
+    if n < 1 or n & (n - 1):
+        raise ValueError(f"bnb_score: the point count must be a power of two, got {n}")
     cuda.check(level, "level", torch.float32, (size, size))
     cuda.check(cells, "cells", torch.int32, (a_n, n, 2))
     cuda.check(mask, "mask", torch.bool, (n,))

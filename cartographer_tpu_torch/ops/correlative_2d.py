@@ -50,8 +50,6 @@ _KERNELS = {
          ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_void_p])}
 
-MAX_POINTS = 4096  # the kernel keeps one float per (padded) point in shared memory
-
 
 @dataclasses.dataclass(frozen=True)
 class CorrelativeSearchParams:
@@ -182,8 +180,6 @@ def _match_kernel(grid: Grid2D, points: torch.Tensor, mask: torch.Tensor,
     num_angles = params.static_num_angles(res)
     points, mask = pad_points(points, mask)
     n = points.shape[0]
-    if n > MAX_POINTS:
-        raise ValueError(f"correlative_2d: at most {MAX_POINTS} points, got {n}")
     surface = grid.surface_args()
     cuda.check(grid.origin, "grid origin", torch.float32, (2,))
     cuda.check(points, "points", torch.float32, (n, 2))

@@ -16,7 +16,9 @@ slice sums and the bins by scatter-add, whose order of additions a device
 does not fix; kernel and twin both add in one fixed order, a pairwise
 halving tree over the points (padded to a power of two), so they agree
 where a last bit could flip a threshold or a bin edge. K13 sums the bins of
-its dot product and norms in the same tree.
+its dot product and norms in the same tree. Both take any point and bin
+count: K12 runs in one block's shared memory up to 1,024 points and on a
+device-memory scratch with a multi-block key sort above.
 """
 
 from __future__ import annotations
@@ -34,11 +36,12 @@ _MIN_DISTANCE = 0.2
 _MAX_DISTANCE = 0.9
 _SLICE_HEIGHT = 0.2
 _MAX_SLICES = 128
-MAX_POINTS = 1024  # one block, one thread per point; 10 index bits in the sort key
-MAX_BINS = 1024
+_ONE_BLOCK_POINTS = 1024  # K12's one-block form; above, a device-memory scratch
+_INDEX_BITS = 22  # the point index in the sort key
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_KERNEL = cuda.CudaKernel("rot_histogram.cu", "rot_histogram", [_P, _P, _I, _I, _I, _P])
+_KERNEL = cuda.CudaKernel("rot_histogram.cu", "rot_histogram",
+                          [_P, _P, _I, _I, _I, _P, _P, _P])
 _ROTATE_KERNEL = cuda.CudaKernel("rot_histogram.cu", "rot_histogram_rotate",
                                  [_P, _P, _I, _P])
 _MATCH_KERNEL = cuda.CudaKernel("rot_histogram.cu", "rot_match", [_P, _P, _P, _I, _I, _I, _P])
@@ -96,7 +99,8 @@ def rotational_histogram_plain(points: torch.Tensor, mask: torch.Tensor,
     sort_slice = torch.where(keep, slice_idx, torch.full_like(slice_idx, _MAX_SLICES))
 
     # Stable sort by (slice, angle): one key of slice, angle bits and index.
-    key = (sort_slice << 42) | (_ordered_bits(angle_c) << 10) | torch.arange(n, device=dev)
+    key = ((sort_slice << (32 + _INDEX_BITS)) | (_ordered_bits(angle_c) << _INDEX_BITS)
+           | torch.arange(n, device=dev))
     order = torch.sort(key).indices
     sp = points[order][:, 0:2]
     s_slice = sort_slice[order]
@@ -144,12 +148,19 @@ def compute_rotational_histogram(points: torch.Tensor, mask: torch.Tensor,
     n = points.shape[0]
     cuda.check(points, "points", torch.float32, (n, 3))
     cuda.check(mask, "mask", torch.bool, (n,))
-    if n > MAX_POINTS or not 0 < histogram_size <= MAX_BINS:
-        raise ValueError(f"rotational histogram: at most {MAX_POINTS} points and "
-                         f"{MAX_BINS} bins, got {n} and {histogram_size}")
-    hist = torch.empty(histogram_size, dtype=torch.float32, device=points.device)
-    _KERNEL(points.device, points.data_ptr(), mask.data_ptr(), n, _padded_size(n),
-            histogram_size, hist.data_ptr())
+    padded = _padded_size(n)
+    if padded > 1 << _INDEX_BITS or histogram_size < 1:
+        raise ValueError(f"rotational histogram: at most {1 << _INDEX_BITS} points and at "
+                         f"least one bin, got {n} and {histogram_size}")
+    dev = points.device
+    hist = torch.empty(histogram_size, dtype=torch.float32, device=dev)
+    large = padded > _ONE_BLOCK_POINTS
+    scratch = torch.empty(4 * padded + 2 * (_MAX_SLICES + 1) if large else 0,
+                          dtype=torch.float32, device=dev)
+    keys = torch.empty(padded if large else 0, dtype=torch.int64, device=dev)
+    _KERNEL(dev, points.data_ptr(), mask.data_ptr(), n, padded, histogram_size,
+            hist.data_ptr(), scratch.data_ptr() if large else None,
+            keys.data_ptr() if large else None)
     return hist
 
 
@@ -212,8 +223,8 @@ def match_histograms(submap_histogram: torch.Tensor, scan_histogram: torch.Tenso
     cuda.check(scan_histogram, "scan_histogram", torch.float32, (size,))
     cuda.check(submap_histogram, "submap_histogram", torch.float32, (size,))
     cuda.check(angles, "angles", torch.float32, (a,))
-    if not 0 < size <= MAX_BINS:
-        raise ValueError(f"match_histograms: at most {MAX_BINS} bins, got {size}")
+    if size < 1:
+        raise ValueError("match_histograms: the histograms have no bins")
     out = torch.empty(a, dtype=torch.float32, device=angles.device)
     if a:
         _MATCH_KERNEL(angles.device, scan_histogram.data_ptr(), submap_histogram.data_ptr(),

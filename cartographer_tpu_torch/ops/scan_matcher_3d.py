@@ -53,7 +53,10 @@ from cartographer_tpu_torch.transform import quaternion as quat
 from cartographer_tpu_torch.transform.rigid import Rigid3
 
 _FUNCTION_TOLERANCE = 1e-6  # Ceres Solver::Options default, as lm_solve
-CORRELATIVE_MAX_POINTS = 2048  # K17 keeps the cloud in one block's shared memory
+# K17 keeps a cloud's cells in shared memory up to 2,048 points; above, each
+# of at most 4 blocks per SM keeps them in its slice of a device scratch.
+_CORRELATIVE_SHARED_POINTS = 2048
+_CORRELATIVE_LARGE_BLOCKS = 4 * 132
 
 _P, _F, _I = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
 _KERNEL = cuda.CudaKernel(
@@ -65,7 +68,7 @@ _KERNEL = cuda.CudaKernel(
 _CORRELATIVE_KERNEL = cuda.CudaKernel(
     "correlative_3d.cu", "correlative_3d",
     [_P, _P, _P, _F, _I, _P, _P, _I, _I, _P, _I, _I, _F, _F, _F, _F, _F, _F, _P, _P, _P,
-     _P])
+     _I, _P, _P])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -417,13 +420,15 @@ def _correlative_kernel(grid: Grid3D, points, mask, x0, params):
     cuda.check(points, "points", torch.float32, (n, 3))
     cuda.check(mask, "mask", torch.bool, (n,))
     cuda.check(x0, "initial pose", torch.float32, (7,))
-    if not 0 < n <= CORRELATIVE_MAX_POINTS:
-        raise ValueError(f"correlative_3d: {n} points (1 to {CORRELATIVE_MAX_POINTS} supported)")
+    if n < 1:
+        raise ValueError("correlative_3d: the cloud is empty")
     res = grid.resolution
     nl, na = search_sizes(res, params)
     dev = x0.device
     best = torch.zeros(1, dtype=torch.int64, device=dev)
     state = torch.empty(4, dtype=torch.int32, device=dev)
+    cell_blocks = _CORRELATIVE_LARGE_BLOCKS if n > _CORRELATIVE_SHARED_POINTS else 0
+    cells = torch.empty(cell_blocks * 3 * n, dtype=torch.int32, device=dev)
     x = torch.empty(7, dtype=torch.float32, device=dev)
     score = torch.empty((), dtype=torch.float32, device=dev)
     f32 = lambda v: float(np.float32(v))  # noqa: E731
@@ -433,7 +438,8 @@ def _correlative_kernel(grid: Grid3D, points, mask, x0, params):
                         f32(params.angular_search_window + 1e-6),
                         f32(params.translation_delta_cost_weight),
                         f32(params.rotation_delta_cost_weight), best.data_ptr(),
-                        state.data_ptr(), x.data_ptr(), score.data_ptr())
+                        state.data_ptr(), cells.data_ptr() if cell_blocks else None,
+                        cell_blocks, x.data_ptr(), score.data_ptr())
     return score, x, best
 
 

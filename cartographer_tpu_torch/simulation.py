@@ -292,6 +292,31 @@ def simulate_scans_3d(num_scans: int, rings: int = 16, azimuths: int = 256,
     return scans, imu, np.asarray(truth)
 
 
+def simulate_scan_pair_3d(azimuths: int = 1800, rings: int = 16, start: float = 3.0,
+                          gap: float = 0.35, speed: float = 1e-3, seed: int = 0):
+    """Two rigid scans of the half-scale hall for a scan matcher: the robot
+    of `simulate_scans_3d` creeps at `speed` (1 mm/s: a scan's skew stays
+    near 0.1 mm), the source scan taken `start` metres into the path and
+    the target `gap` metres further on, in the path's first bend (at the
+    defaults 0.35 m and 0.094 rad apart). Each scan has rings * azimuths
+    returns (28,800 at the defaults: a 16-beam sensor at a 0.2 degree step).
+
+    Returns (source (n, 3), target (n, 3), translation (3,), yaw): the true
+    pose of the source's sensor frame in the target's, target = R(yaw) p + t
+    for a point p of the source."""
+    poses, clouds = [], []
+    for k, s in enumerate((start, start + gap)):
+        scans, _, truth = simulate_scans_3d(1, rings, azimuths, speed=speed, start=s,
+                                            seed=seed + k)
+        clouds.append(scans[0][1])
+        poses.append(truth[0])
+    (xa, ya, yaw_a), (xb, yb, yaw_b) = poses
+    c, s = np.cos(-yaw_b), np.sin(-yaw_b)
+    dx, dy = xa - xb, ya - yb
+    translation = np.array([c * dx - s * dy, s * dx + c * dy, 0.0])
+    return clouds[0], clouds[1], translation, float(yaw_a - yaw_b)
+
+
 def synthetic_pose_graph_3d(num_slots: int, num_nodes: int, constraint_slots: int,
                             seed: int = 0, outlier_share: float = 0.05,
                             pose_noise: float = 0.05, dt: float = 0.1):

@@ -65,7 +65,21 @@ on the card, at full width (the reference's default 2D and 3D options):
 17. the 3D frontend at the default options plus intensities with a
     16-ring x 1024-azimuth sensor (`tpu.scan_capacity` 16,384, above K2's
     and K18's one-block sizes) over 100 scans, the first 20 again on the
-    CPU's plain path, K2 and K18 at that size against their twins.
+    CPU's plain path, K2 and K18 at that size against their twins;
+18. K5, K7, K12, K13 and K17 at their former one-block limits and above
+    (K5 to 16,384 points, K7 to 4,096, K12 to 8,192 points and 2,048 bins,
+    K13 at 2,048 bins, K17 to 8,192 points), each equal to its twin bit for
+    bit; the 2D frontend with 16,384-beam scans and `tpu.matcher_capacity`
+    8,192, `tpu.loop_closure_capacity` 2,048, and the 3D frontend at its
+    full options with `tpu.filtered_capacity_high` 4,096, over 40 scans each;
+19. the scan-match testbed, `python -m cartographer_tpu_torch.io.scan_match_main`,
+    on two 28,800-return scans of the hall written as binary PCD files
+    (padded to 32,768): one call of `main` in a subprocess, `run` for `icp`
+    (K23, K24) and `ceres` (K25, K11), each within 1e-3 m and 1e-3 rad of
+    the JAX package's result on the CPU witness (`SCAN_MATCH_WITNESS`,
+    tests/scan_match_witness_3d.py) and no further from the truth than it
+    plus 0.01 m; K23, K24 and K25 against their twins on the run's own
+    inputs, the whole card icp_match within 1e-4 m and 1e-4 rad of its twin.
 Phase 10 also runs the scans of two more seeds and reports their yaw error.
 
 Prints a `kernels` JSON line, a timing JSON line, the card's name and power
@@ -117,6 +131,33 @@ TSDF_ERROR_LIMIT = 0.25  # m, the TSDF frontend's mean error (see PERF.md, PR 6)
 TSDF_GLOBAL_LIMITS = (100, 3, 0.25)  # loop closures, solves, optimized mean error [m]
 LARGE_SCAN_CAPACITY = 16384  # 16 rings x 1024 azimuths
 LARGE_SCANS_3D = 100
+# Capacities above the former one-block limits of K5 (4,096 points), K7
+# (1,024), K12 (1,024) and K17 (2,048), and the scans each frontend runs at them.
+RAISED_2D = {"tpu.scan_capacity": 16384, "tpu.matcher_capacity": 8192,
+             "tpu.loop_closure_capacity": 2048}
+RAISED_3D = {"tpu.filtered_capacity_high": 4096}
+RAISED_SCANS = 40
+RAISED_BEAMS_2D = 16384
+# The sizes each kernel is held at: its former limit first, then above it.
+ABOVE_ONE_BLOCK = {"correlative_2d": (4096, 8192, 16384), "bnb_score": (1024, 2048, 4096),
+                   "rot_histogram": ((1024, 120), (2048, 120), (8192, 120), (2048, 2048)),
+                   "rot_match": (1024, 2048), "correlative_3d": (2048, 4096, 8192)}
+SCAN_MATCH_AZIMUTHS = 1800  # 16 rings x 1,800 = 28,800 returns, padded to 32,768
+# The JAX package's results on the phase's two scans (28,800 returns each),
+# from tests/scan_match_witness_3d.py on a CPU; the port's plain path there
+# came within 1.4e-5 m and 5.4e-6 rad of them.
+SCAN_MATCH_WITNESS = {
+    "icp": {"translation": [-0.2975173890590668, 0.015327480621635914, 0.0031256440561264753],
+            "rotation_axis_angle": [-0.00010325784387532622, 0.0007269812049344182,
+                                    -0.09223847836256027],
+            "error_against_truth": [0.05208039034827474, 0.0023057987602942698]},
+    "ceres": {"translation": [-0.3259914219379425, 0.016334345564246178, -0.06265384703874588],
+              "rotation_axis_angle": [-0.018975865095853806, -0.006681465078145266,
+                                      -0.08618146926164627],
+              "error_against_truth": [0.06691846726395673, 0.02173406413777845]},
+}
+SCAN_MATCH_KERNELS = {"icp": ("icp_nearest", "icp_kabsch", "icp_stats"),
+                      "ceres": ("dense_insert_3d", "scan_matcher_3d")}
 
 
 def _fail(msg):
@@ -2189,6 +2230,481 @@ def _backend_kernel_phase_3d(torch, dev, ctx):
     return rows, extra
 
 
+def _sizes_row(row, n, **extra):
+    """One "at n" entry (points, or bins for K13) of a kernel's timing
+    around its former one-block limit."""
+    ms, by = row["bound"]
+    return {"at": n, **extra, "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": ms,
+            "bound_by": by, "max_abs_err": row["max_abs_err"]}
+
+
+def _one_block_limits_phase(torch, dev):
+    """K5, K7, K12, K13 and K17 at their former one-block limits and above
+    (the halving fold, K12's device-memory scratch and multi-block sort),
+    each equal to its twin bit for bit; and the 2D and 3D frontends built
+    with capacities above those limits (`RAISED_2D`, `RAISED_3D`) and driven
+    over RAISED_SCANS scans, which a builder refused before."""
+    from cartographer_tpu_torch.core.config import apply_overrides
+    from cartographer_tpu_torch.mapping import local_trajectory_builder_2d as ltb2
+    from cartographer_tpu_torch.mapping import local_trajectory_builder_3d as ltb3
+    from cartographer_tpu_torch.ops import bnb_2d, correlative_2d, cuda, rot_histogram
+    from cartographer_tpu_torch.ops import scan_matcher_3d
+    from cartographer_tpu_torch.sensor.data import TimedPointCloudData
+    from cartographer_tpu_torch.simulation import relative_to_first, simulate_scans
+    from cartographer_tpu_torch.transform import nquat
+
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    out = {}
+
+    # The 2D frontend: 16,384-beam scans, the matcher cloud 8,192 points.
+    label = "2D frontend at raised capacities"
+    opts = apply_overrides(_frontend_options(), RAISED_2D)
+    scans, truth = simulate_scans(RAISED_SCANS, beams=RAISED_BEAMS_2D, seed=0)
+    gt = relative_to_first(truth)
+    builder = ltb2.LocalTrajectoryBuilder2D(opts, ["laser"], device=dev)
+    calls, est, lc_points = [], [], []
+    restore = _recording(ltb2, "real_time_correlative_match", calls)
+    cuda.reset_launch_counts()
+    try:
+        for ts, pts, rel in scans:
+            r = builder.add_range_data("laser", TimedPointCloudData(
+                time=int(round(ts * 1e6)), origin=np.zeros(3, np.float32), ranges=pts,
+                times=rel))
+            est.append([*r.local_pose_translation[:2], nquat.get_yaw(r.local_pose_rotation)])
+            if r.insertion_result is not None:
+                lc_points.append(int(r.insertion_result.filtered_gravity_aligned_point_cloud
+                                     .mask.sum()))
+    finally:
+        restore()
+    launches = cuda.launch_counts()
+    _check_launched(launches, FRONTEND_KERNELS, label)
+    errors = np.linalg.norm(np.asarray(est)[:, :2] - gt[:, :2], axis=1)
+    matcher = [int(c[2].sum()) for c in calls]
+    print(f"{label}: {len(scans)} scans of {RAISED_BEAMS_2D} beams, K5 on {calls[0][1].shape[0]} "
+          f"padded points ({min(matcher)}-{max(matcher)} valid), loop-closure cloud "
+          f"{opts.tpu.loop_closure_capacity} ({min(lc_points)}-{max(lc_points)} valid), mean "
+          f"error {errors.mean():.4f} m (limit 0.25), launches {launches}")
+    if errors.mean() > 0.25 or calls[0][1].shape[0] != opts.tpu.matcher_capacity:
+        _fail(f"{label}: lost the ground truth or the matcher cloud has the wrong size")
+    out["frontend_2d"] = dict(scans=len(scans), beams=RAISED_BEAMS_2D,
+                              k5_padded_points=calls[0][1].shape[0],
+                              matcher_valid_points=[min(matcher), max(matcher)],
+                              loop_closure_valid_points=[min(lc_points), max(lc_points)],
+                              mean_error_m=float(errors.mean()),
+                              correlative_2d_launches=launches["correlative_2d"])
+
+    # K5 on the run's last grid and pose, on the last scan's returns: 4,096
+    # (the former limit), 8,192 and 16,384 points.
+    grid, _, _, x0, cparams = calls[-1]
+    raw = scans[-1][1][:, :2]
+    rows = {"correlative_2d": [], "bnb_score": [], "rot_histogram": [], "rot_match": [],
+            "correlative_3d": []}
+    for n in ABOVE_ONE_BLOCK["correlative_2d"]:
+        pts, mask = t(raw[:n]), t(np.isfinite(raw[:n]).all(1) & (np.abs(raw[:n]).max(1) < 29))
+        args = (grid, pts, mask, x0, cparams)
+        best_k, scores_k = correlative_2d._match_kernel(*args)
+        best_p, scores_p = correlative_2d.correlative_match_plain(*args)
+        if not (torch.equal(scores_k, scores_p) and torch.equal(best_k, best_p)):
+            _fail(f"K5 at {n} points differs from the twin (tolerance: exact)")
+        angles = int(torch.isfinite(scores_k[:, 0, 0]).sum())
+        w, valid = scores_k.shape[-1], int(mask.sum())
+        rows["correlative_2d"].append(_sizes_row(dict(
+            ms=_cuda_ms(lambda: correlative_2d._match_kernel(*args)),
+            plain_ms=_cuda_ms(lambda: correlative_2d.correlative_match_plain(*args), reps=3,
+                              warmup=1),
+            bound=_bound(n * 9 + scores_k.numel() * 4 + min(angles * w * w * valid,
+                                                            grid.size ** 2) * 5,
+                         angles * w * w * valid * 14),
+            max_abs_err=0.0), n))
+    # K7 on the pyramid of that grid: the scan's cells at 31 angles, 4,096
+    # candidates, levels 0, 3 and 6, at 1,024 (the former limit), 2,048 and
+    # 4,096 points.
+    pyr = bnb_2d.build_precomputation_pyramid(grid, 7)
+    rng = np.random.RandomState(7)
+    for n in ABOVE_ONE_BLOCK["bnb_score"]:
+        pts, mask = t(raw[:n]), t(np.isfinite(raw[:n]).all(1) & (np.abs(raw[:n]).max(1) < 29))
+        _, _, cells = correlative_2d.candidate_cells(grid, pts, mask, x0, 31, 0.5)
+        cells = cells.to(torch.int32).contiguous()
+        b = 4096
+        a_idx, ox, oy = (t(rng.randint(lo, hi, b).astype(np.int32))
+                         for lo, hi in ((0, 31), (-64, 64), (-64, 64)))
+        for h in (0, 3, 6):
+            got = bnb_2d.score_candidates(pyr[h], cells, mask, a_idx, ox, oy)
+            if not torch.equal(got, bnb_2d.score_candidates_plain(pyr[h], cells, mask, a_idx,
+                                                                  ox, oy)):
+                _fail(f"K7 at {n} points differs from the twin on level {h} (exact)")
+        sargs = (pyr[3], cells, mask, a_idx, ox, oy)
+        valid = int(mask.sum())
+        cx = cells[a_idx.long()][:, mask, 0] + ox[:, None]
+        cy = cells[a_idx.long()][:, mask, 1] + oy[:, None]
+        inside = (cx >= 0) & (cx < grid.size) & (cy >= 0) & (cy < grid.size)
+        rows["bnb_score"].append(_sizes_row(dict(
+            ms=_cuda_ms(lambda: bnb_2d.score_candidates(*sargs)),
+            plain_ms=_cuda_ms(lambda: bnb_2d.score_candidates_plain(*sargs)),
+            bound=_bound(_distinct_cells(torch, [(cx * grid.size + cy)[inside]]) * 4
+                         + cells.numel() * 4 + b * 16, b * valid * 10),
+            max_abs_err=0.0), n, candidates=b))
+    del builder, calls, pyr
+
+    # The 3D frontend at its full options with the high-resolution cloud at
+    # 4,096 points: K12 above one block (scratch, multi-block sort) and K17
+    # above its former 2,048 on the frontend's path.
+    label = "3D full frontend at raised capacities"
+    opts3 = _full_frontend_options(**RAISED_3D)
+    events, gt3 = _events_3d(RAISED_SCANS, intensities=True)
+    builder = ltb3.LocalTrajectoryBuilder3D(opts3, ["points"], device=dev)
+    kept = []
+    restore = _recording(ltb3, "correlative_match_3d", kept)
+    cuda.reset_launch_counts()
+    try:
+        _, offset, yaw_err, _, _, _ = _drive_3d(torch, builder, events, gt3, label)
+    finally:
+        restore()
+    launches = cuda.launch_counts()
+    _check_launched(launches, FULL_FRONTEND_KERNELS, label)
+    high = [int(c[2].sum()) for c in kept]
+    errors = np.linalg.norm(offset, axis=1)
+    print(f"{label}: K12 and K17 on {kept[0][1].shape[0]} padded points ({min(high)}-"
+          f"{max(high)} valid), mean error {errors.mean():.4f} m (limit 0.25), mean yaw error "
+          f"{yaw_err.mean():.5f} rad (reported)")
+    if errors.mean() > 0.25 or kept[0][1].shape[0] != RAISED_3D["tpu.filtered_capacity_high"]:
+        _fail(f"{label}: lost the ground truth or the high cloud has the wrong size")
+    out["frontend_3d"] = dict(scans=len(events), high_padded_points=kept[0][1].shape[0],
+                              high_valid_points=[min(high), max(high)],
+                              mean_error_m=float(errors.mean()),
+                              mean_yaw_error_rad=float(yaw_err.mean()),
+                              launches={k: launches[k] for k in ("rot_histogram",
+                                                                 "correlative_3d")})
+
+    # K12 on the last scan's returns (the raw 16 x 256 scan, padded to the
+    # sizes), K13 on random histograms of 1,024 and 2,048 bins.
+    raw3 = events[-1][1].ranges[:, :3]
+    for n, bins in ABOVE_ONE_BLOCK["rot_histogram"]:
+        reps = -(-n // raw3.shape[0])
+        cloud = np.concatenate([raw3 + np.float32(0.013 * k) for k in range(reps)])[:n]
+        pts = t(cloud.astype(np.float32))
+        mask = t(np.linalg.norm(cloud, axis=1) < 40.0)
+        got = rot_histogram.compute_rotational_histogram(pts, mask, bins)
+        if not torch.equal(got, rot_histogram.rotational_histogram_plain(pts, mask, bins)):
+            _fail(f"K12 at {n} points and {bins} bins differs from the twin (exact)")
+        nv, npad = int(mask.sum()), rot_histogram._padded_size(n)
+        rows["rot_histogram"].append(_sizes_row(dict(
+            ms=_cuda_ms(lambda: rot_histogram.compute_rotational_histogram(pts, mask, bins)),
+            plain_ms=_cuda_ms(lambda: rot_histogram.rotational_histogram_plain(pts, mask, bins),
+                              reps=1, warmup=0),
+            bound=_bound(n * 13 + bins * 4, npad * 45 + (2 * 129 + bins) * npad + nv * 60),
+            max_abs_err=0.0), n, bins=bins))
+    for bins in ABOVE_ONE_BLOCK["rot_match"]:
+        scan_h, sub_h = (t(rng.rand(bins).astype(np.float32)) for _ in range(2))
+        angles = t(rng.uniform(-4.0, 4.0, 1259).astype(np.float32))
+        got = rot_histogram.match_histograms(sub_h, scan_h, angles)
+        if not torch.equal(got, rot_histogram.match_histograms_plain(sub_h, scan_h, angles)):
+            _fail(f"K13 at {bins} bins differs from the twin (exact)")
+        rows["rot_match"].append(_sizes_row(dict(
+            ms=_cuda_ms(lambda: rot_histogram.match_histograms(sub_h, scan_h, angles)),
+            plain_ms=_cuda_ms(lambda: rot_histogram.match_histograms_plain(sub_h, scan_h,
+                                                                           angles)),
+            bound=_bound(2 * bins * 4 + 2 * 1259 * 4, 1259 * bins * 14),
+            max_abs_err=0.0), bins, yaws=1259))
+    # K17 on the run's last search: its 4,096 points, the first 2,048 (the
+    # former limit) and 8,192 (the cloud and a copy 2 cm off).
+    cgrid, cpoints, cmask, cx0, cparams3 = kept[-1]
+    for n in ABOVE_ONE_BLOCK["correlative_3d"]:
+        if n <= cpoints.shape[0]:
+            pts, mask = cpoints[:n].contiguous(), cmask[:n].contiguous()
+        else:
+            pts = torch.cat([cpoints, cpoints + 0.02]).contiguous()
+            mask = torch.cat([cmask, cmask]).contiguous()
+        cargs = (cgrid, pts, mask, cx0, cparams3)
+        score, x, best = scan_matcher_3d._correlative_kernel(*cargs)
+        ref_score, ref_x, ref_index = scan_matcher_3d.correlative_match_3d_plain(*cargs)
+        q_err = float((x[3:7] - ref_x[3:7]).abs().max())
+        if (~int(best.cpu()) & 0xFFFFFFFF != ref_index or float(score) != float(ref_score)
+                or not torch.equal(x[0:3], ref_x[0:3]) or q_err > 1e-6):
+            _fail(f"K17 at {n} points differs from the twin")
+        cells, rotations = _correlative_cells(torch, *cargs)
+        valid = int(mask.sum())
+        nl, _ = scan_matcher_3d.search_sizes(cgrid.resolution, cparams3)
+        translations = (2 * nl + 1) ** 3
+        rows["correlative_3d"].append(_sizes_row(dict(
+            ms=_cuda_ms(lambda: scan_matcher_3d._correlative_kernel(*cargs)),
+            plain_ms=_cuda_ms(lambda: scan_matcher_3d.correlative_match_3d_plain(*cargs),
+                              reps=2, warmup=1),
+            bound=_bound(n * 13 + 28 + cells * 5, valid * 7 + rotations * valid * 36
+                         + rotations * translations * valid * 12),
+            max_abs_err=q_err), n, rotations=rotations))
+    for name, entries in rows.items():
+        print(f"{name} above its former one-block limit (equal to the twin): "
+              + json.dumps(entries))
+    out["kernels"] = rows
+    return out
+
+
+def _write_binary_pcd(path, points):
+    points = np.ascontiguousarray(points, np.float32)
+    n = len(points)
+    header = ("VERSION 0.7\nFIELDS x y z\nSIZE 4 4 4\nTYPE F F F\nCOUNT 1 1 1\n"
+              f"WIDTH {n}\nHEIGHT 1\nVIEWPOINT 0 0 0 1 0 0 0\nPOINTS {n}\nDATA binary\n")
+    with open(path, "wb") as f:
+        f.write(header.encode("ascii") + points.tobytes())
+
+
+def _rotation_angle_between(q_a, q_b):
+    import torch
+
+    from cartographer_tpu_torch.transform import quaternion as quat
+
+    dq = quat.multiply(quat.conjugate(torch.as_tensor(q_a, dtype=torch.float64)),
+                       torch.as_tensor(q_b, dtype=torch.float64))
+    return float(quat.to_axis_angle(dq).norm())
+
+
+def _quaternion_of(result):
+    import torch
+
+    from cartographer_tpu_torch.transform import quaternion as quat
+
+    return quat.from_axis_angle(torch.tensor(result["rotation_axis_angle"],
+                                             dtype=torch.float64))
+
+
+def _pose_error(result, translation, yaw):
+    """(translation [m], rotation angle [rad]) from a CLI result to the
+    planar true pose (as tests/scan_match_witness_3d.py measures it)."""
+    q_true = [np.cos(yaw / 2), 0.0, 0.0, np.sin(yaw / 2)]
+    return (float(np.linalg.norm(np.asarray(result["translation"]) - translation)),
+            _rotation_angle_between(q_true, _quaternion_of(result)))
+
+
+def _pose_difference(a, b):
+    """(translation [m], rotation angle [rad]) between two CLI results."""
+    return (float(np.linalg.norm(np.subtract(a["translation"], b["translation"]))),
+            _rotation_angle_between(_quaternion_of(a), _quaternion_of(b)))
+
+
+def _scan_match_phase(torch, dev):
+    """The scan-match testbed (`io/scan_match_main.py`) on two full-width
+    scans of the simulated hall written as binary PCD files: one call of
+    `main` in a subprocess, then `run` in this process for `icp` and
+    `ceres`, each against the CPU witness's JAX result and the simulator's
+    truth; K23, K24 and its stats form, K25 and the whole card icp_match
+    against their twins on the run's own inputs."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    from cartographer_tpu_torch.io import scan_match_main
+    from cartographer_tpu_torch.io.pcd import read_pcd
+    from cartographer_tpu_torch.ops import cuda, icp
+    from cartographer_tpu_torch.ops.grid_3d import (
+        Grid3D,
+        _flat_index,
+        insert_range_data_3d,
+        insert_range_data_3d_plain,
+    )
+    from cartographer_tpu_torch.simulation import simulate_scan_pair_3d
+    from cartographer_tpu_torch.transform import quaternion as quat
+
+    source, target, t_true, yaw_true = simulate_scan_pair_3d(azimuths=SCAN_MATCH_AZIMUTHS)
+    args = dict(init=[0, 0, 0, 0, 0, 0], max_iterations=30, resolution=0.3,
+                max_correspondence_distance=1.0)
+    out = {"returns": len(source), "true_translation": t_true.tolist(), "true_yaw": yaw_true,
+           "modes": {}}
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, name) for name in ("source.pcd", "target.pcd")]
+        _write_binary_pcd(paths[0], source)
+        _write_binary_pcd(paths[1], target)
+        repo = str(Path(__file__).resolve().parent)
+        t0 = time.monotonic()
+        proc = subprocess.run([sys.executable, "-m", "cartographer_tpu_torch.io.scan_match_main",
+                               "--source", paths[0], "--target", paths[1], "--mode", "icp"],
+                              cwd=repo, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            _fail(f"scan_match_main failed: {proc.stderr[-2000:]}")
+        printed = json.loads(proc.stdout.strip().splitlines()[-1])
+        out["main_subprocess"] = dict(printed, wall_seconds=time.monotonic() - t0)
+        for mode in ("icp", "ceres"):
+            cuda.reset_launch_counts()
+            t0 = time.monotonic()
+            result = scan_match_main.run(*paths, mode=mode, **args, device=dev)
+            wall = time.monotonic() - t0
+            launches = {k: v for k, v in cuda.launch_counts().items() if v}
+            _check_launched(launches, SCAN_MATCH_KERNELS[mode], f"scan match {mode}")
+            witness = SCAN_MATCH_WITNESS[mode]
+            err = _pose_error(result, t_true, yaw_true)
+            dt, dr = _pose_difference(result, witness)
+            print(f"scan match {mode}: {json.dumps(result)}; {wall:.2f} s wall, launches "
+                  f"{launches}; error against truth {err[0]:.4f} m, {err[1]:.5f} rad (limit the "
+                  f"JAX witness's {witness['error_against_truth'][0]:.4f} m + 0.01); against the "
+                  f"JAX witness {dt:.3g} m, {dr:.3g} rad (limits 1e-3 each)")
+            if dt > 1e-3 or dr > 1e-3 or err[0] > witness["error_against_truth"][0] + 0.01:
+                _fail(f"scan match {mode}: departs from the JAX witness")
+            out["modes"][mode] = dict(result, wall_seconds=wall, launches=launches,
+                                      error_against_truth=list(err),
+                                      against_jax_witness=[dt, dr])
+        if printed["translation"] != out["modes"]["icp"]["translation"]:
+            _fail("scan match: main's printed result differs from run's")
+
+        # The run's own inputs, as `run` builds them.
+        src_np, tgt_np = read_pcd(paths[0]), read_pcd(paths[1])
+    cap = 1 << int(np.ceil(np.log2(max(len(src_np), len(tgt_np), 16))))
+
+    def pad(p):
+        buf = np.zeros((cap, 3), np.float32)
+        buf[:len(p)] = p
+        return (torch.from_numpy(buf).to(dev),
+                torch.from_numpy(np.arange(cap) < len(p)).to(dev))
+
+    (src, sm), (tgt, tm) = pad(src_np), pad(tgt_np)
+    n = cap
+    x0 = torch.tensor([0, 0, 0, 1, 0, 0, 0], dtype=torch.float32, device=dev)
+    max_dist = args["max_correspondence_distance"]
+
+    # K23: the first round's correspondences.
+    got = icp.nearest(src, sm, tgt, tm, x0, max_dist)
+    ref = icp.nearest_plain(src, sm, tgt, tm, x0, max_dist)
+    differ = sum(int((a != b).sum()) for a, b in zip(got, ref))
+    print(f"K23 icp_nearest at {n} x {n} points: {differ} entries differ from the twin "
+          f"(tolerance: exact), {int(got[2].sum())} valid")
+    if differ:
+        _fail("K23 differs from the plain twin")
+    nn, world, valid = got
+    b2 = (tgt * tgt).sum(1)[None, :].contiguous()
+    rows["icp_nearest"] = dict(
+        replaces="cartographer_tpu/ops/icp.py:44", max_abs_err=0.0,
+        ms=_cuda_ms(lambda: icp.nearest(src, sm, tgt, tm, x0, max_dist), reps=10),
+        plain_ms=_cuda_ms(lambda: icp.nearest_plain(src, sm, tgt, tm, x0, max_dist), reps=3,
+                          warmup=1),
+        # 28 bytes in and 17 out per source point, 13 per target; 10
+        # operations per pair (the cross term, the form, the compare).
+        bound=_bound(n * (13 + 28 + 17), n * n * 10),
+        # |b|^2 - 2 a.b by one matrix product, then the row minima.
+        library_ms=_cuda_ms(lambda: torch.addmm(b2, src, tgt.T, alpha=-2.0).min(dim=1),
+                            reps=5))
+
+    # K24: one round from those correspondences; its stats form.
+    pose_k, R_k, t_k = icp.kabsch(world, tgt, nn, valid, x0)
+    pose_p, R_p, t_p = icp.kabsch_plain(world, tgt, nn, valid, x0)
+    err24 = max(float((R_k - R_p).abs().max()), float((t_k - t_p).abs().max()),
+                float((pose_k - pose_p).abs().max()))
+    print(f"K24 icp_kabsch: one round's R, t and pose within {err24:.3g} of the twin "
+          f"(tolerance 1e-5)")
+    if err24 > 1e-5:
+        _fail("K24 differs from the plain twin")
+    matched = tgt[nn.long()]
+    w = valid.to(torch.float32)
+    H = ((world - (world * w[:, None]).sum(0) / w.sum())[:, :, None] * w[:, None, None]
+         * (matched - (matched * w[:, None]).sum(0) / w.sum())[:, None, :]).sum(0)
+    nv = int(valid.sum())
+    rows["icp_kabsch"] = dict(
+        replaces="cartographer_tpu/ops/icp.py:53", max_abs_err=err24,
+        ms=_cuda_ms(lambda: icp.kabsch(world, tgt, nn, valid, x0)),
+        plain_ms=_cuda_ms(lambda: icp.kabsch_plain(world, tgt, nn, valid, x0)),
+        # world, nn, valid and the matched targets once; the 16 sums.
+        bound=_bound(n * (12 + 4 + 1) + nv * 12 + 28 * 2, n * 7 * 2 + n * 9 * 4),
+        # The 3x3 SVD alone: a part of the function.
+        library_ms=_cuda_ms(lambda: torch.linalg.svd(H)))
+    def stats_kernel():
+        return torch.stack(icp.stats(world, sm, tgt, nn, valid))
+
+    err_s = float((stats_kernel() - torch.stack(icp.stats_plain(world, sm, tgt, nn, valid))
+                   ).abs().max())
+    print(f"K24 icp_stats: fitness and RMSE within {err_s:.3g} of the twin (tolerance: exact)")
+    if err_s:
+        _fail("K24's stats form differs from the plain twin")
+    rows["icp_stats"] = dict(
+        replaces="cartographer_tpu/ops/icp.py:82", max_abs_err=err_s, ms=_cuda_ms(stats_kernel),
+        plain_ms=_cuda_ms(lambda: icp.stats_plain(world, sm, tgt, nn, valid)),
+        bound=_bound(n * (12 + 1 + 4 + 1) + nv * 12 + 8, n * 12), library_ms=None)
+
+    # The whole card icp_match against the twin's on the card.
+    pose_c, fit_c, rmse_c = icp.icp_match_vector(src, sm, tgt, tm, x0)
+    pose_t, fit_t, rmse_t = icp.icp_match_plain(src, sm, tgt, tm, x0, icp.IcpParams())
+    dq = quat.multiply(quat.conjugate(pose_t[3:7]), pose_c[3:7])
+    icp_err = (float((pose_c[0:3] - pose_t[0:3]).abs().max()),
+               float(quat.to_axis_angle(dq).norm()))
+    print(f"icp_match on the card against its twin on the card: {icp_err[0]:.3g} m, "
+          f"{icp_err[1]:.3g} rad (tolerance 1e-4 each); fitness {float(fit_c):.6f} / "
+          f"{float(fit_t):.6f}, rmse {float(rmse_c):.6f} / {float(rmse_t):.6f}")
+    if icp_err[0] > 1e-4 or icp_err[1] > 1e-4:
+        _fail("the card's icp_match departs from its twin")
+    out["icp_match_against_twin"] = list(icp_err)
+    out["icp_match_device_ms"] = _cuda_ms(lambda: icp.icp_match_vector(src, sm, tgt, tm, x0),
+                                          reps=3, warmup=1)
+
+    # K25: the first insert into each grid, as `run` makes them.
+    center = tgt_np.mean(0)
+    origin = torch.from_numpy(np.asarray(center, np.float32)).to(dev)
+    touched, inserts = [], []
+    for size, res in ((128, args["resolution"]), (64, args["resolution"] * 3)):
+        grid = Grid3D.create(size, res, center, dev)
+        a = insert_range_data_3d(grid, origin, tgt, tm)
+        b = insert_range_data_3d_plain(grid, origin, tgt, tm)
+        differ = int((a.log_odds != b.log_odds).sum() + (a.known != b.known).sum())
+        print(f"K25 dense_insert_3d into {size}^3 at {res:.2f} m: {differ} cells differ from the "
+              f"twin (tolerance: exact), {int(a.known.sum())} known")
+        if differ:
+            _fail(f"K25 into {size}^3 differs from the plain twin")
+        hit = grid.world_to_cell(tgt).long()
+        o = grid.world_to_cell(origin).long()
+        delta = hit - o
+        ns = delta.abs().amax(-1)
+        ks = torch.arange(1, 3, device=dev)
+        pos = (ns[:, None] - ks).clamp(min=0)
+        miss = o + torch.div(delta[:, None] * pos[..., None], ns.clamp(min=1)[:, None, None],
+                             rounding_mode="floor")
+        lin = torch.cat([_flat_index(hit, tm, size),
+                         _flat_index(miss, (tm & (ns > 0))[:, None].expand(-1, 2),
+                                     size).reshape(-1)])
+        inserts.append((grid, lin))
+        touched.append(int(torch.unique(lin[lin < size ** 3]).numel()))
+    marks = [torch.zeros(g.size ** 3 + 1, dtype=torch.bool, device=dev) for g, _ in inserts]
+    ones = torch.ones((), dtype=torch.bool, device=dev)
+    rows["dense_insert_3d"] = dict(
+        replaces="cartographer_tpu/ops/grid_3d.py:95", max_abs_err=0.0,
+        ms=_cuda_ms(lambda: [insert_range_data_3d(g, origin, tgt, tm) for g, _ in inserts]),
+        plain_ms=_cuda_ms(lambda: [insert_range_data_3d_plain(g, origin, tgt, tm)
+                                   for g, _ in inserts], reps=5),
+        # Each grid read and written whole (the function returns new ones:
+        # 5 bytes a cell each way), the returns and the origin once.
+        bound=_bound(sum(2 * 5 * g.size ** 3 for g, _ in inserts) + 2 * (n * 13 + 12),
+                     2 * n * 3 * 20),
+        # index_put_ sets the marks of both grids; it applies nothing.
+        library_ms=_cuda_ms(lambda: [mk.index_put_((lin,), ones)
+                                     for mk, (_, lin) in zip(marks, inserts)]))
+    out["dense_insert_touched_cells"] = touched
+
+    # K11 on the `ceres` mode's grids (four inserts each) and clouds, from
+    # the identity, against its twin on the card.
+    from cartographer_tpu_torch.ops import scan_matcher_3d
+
+    grids = []
+    for grid, _ in inserts:
+        for _ in range(4):
+            grid = insert_range_data_3d(grid, origin, tgt, tm)
+        grids.append(grid)
+    params = scan_matcher_3d.GaussNewtonMatcherParams3D(
+        num_iterations=args["max_iterations"], translation_weight=0.1, rotation_weight=1.0)
+    margs = (*grids, src, sm, src, sm, x0, x0[0:3].clone(), params)
+    xk, ck, itk = scan_matcher_3d.lm_match_3d(*margs)
+    xp, cp, _ = scan_matcher_3d._match_plain(*margs)
+    dq = quat.multiply(quat.conjugate(xp[3:7]), xk[3:7])
+    k11_err = (float((xk[0:3] - xp[0:3]).abs().max()), float(quat.to_axis_angle(dq).norm()))
+    print(f"K11 scan_matcher_3d on the ceres mode's grids, 2 x {n} points: {int(itk)} "
+          f"iterations, pose within {k11_err[0]:.3g} m, {k11_err[1]:.3g} rad of its twin on the "
+          f"card (tolerance 1e-4 each)")
+    if max(k11_err) > 1e-4:
+        _fail("K11 on the ceres mode's inputs differs from its twin")
+    out["scan_matcher_3d_at_ceres"] = dict(
+        iterations=int(itk), against_twin=list(k11_err),
+        ms=_cuda_ms(lambda: scan_matcher_3d.lm_match_3d(*margs), reps=5, warmup=1),
+        plain_ms=_cuda_ms(lambda: scan_matcher_3d._match_plain(*margs), reps=1, warmup=0))
+    out["kernels"] = {k: {"ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+                          "library_ms": r["library_ms"]} for k, r in rows.items()}
+    return rows, out
+
+
 def _profile(torch, feed, data, label="profile"):
     """Device busy share and kernel time by name over a window of scans
     that continues the main run (its launches are not counted there);
@@ -2267,12 +2783,17 @@ def main() -> int:
     full_hall_corr = _full_hall_phase_3d(torch, dev, correlative=True)
     imu_based = _imu_based_phase_3d(torch, dev)
     large = _large_scan_phase_3d(torch, dev)
+    raised = _one_block_limits_phase(torch, dev)
+    rows_sm, scan_match = _scan_match_phase(torch, dev)
+    scan_match_launches = {**scan_match["modes"]["ceres"]["launches"],
+                           **scan_match["modes"]["icp"]["launches"]}
 
     sources = {k.symbol: k.source for k in cuda.KERNELS.values()}
     kernels = []
-    for name, row in {**rows, **rows_tsdf, **rows3d, **rows3g, **rows3f}.items():
+    for name, row in {**rows, **rows_tsdf, **rows3d, **rows3g, **rows3f, **rows_sm}.items():
         bound_ms, bound_by = row["bound"]
-        launches = (run3f["launches"] if name in rows3f
+        launches = (scan_match_launches if name in rows_sm
+                    else run3f["launches"] if name in rows3f
                     else slam_tsdf["launches"] if name in rows_tsdf
                     else slam3d["summary"]["launches"] if name in rows3g
                     else run3d["launches"] if name in rows3d else slam["launches"])
@@ -2325,6 +2846,8 @@ def main() -> int:
                                "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
                                "library_ms": r["library_ms"], "max_abs_err": r["max_abs_err"]}
                         for name, r in large["kernels"].items()}},
+        "above_one_block": raised,
+        "scan_match": scan_match,
         "bnb_match_ms": backend["bnb_match_ms"],
         "schur_50_iterations_ms": backend["schur_50_iterations_ms"],
         "bnb3d_match_ms": backend3d["bnb3d_match_ms"],

@@ -552,6 +552,95 @@ def test_correlative_3d_kernel(dev, window, max_range):
 # ---------------------------------------------------------------- scan sizes above one block
 
 
+@pytest.mark.parametrize("n", [4096, 8192, 16384])
+def test_correlative_2d_kernel_large(dev, n):
+    """K5 at its former one-block limit (4,096 points) and above it (the
+    fold), scores and best candidate bit for bit against the twin."""
+    from cartographer_tpu_torch.ops import correlative_2d
+
+    grid, _ = _card_grid(dev)
+    rng = np.random.RandomState(n)
+    pts = _t(_room(rng, n)[:, :2].astype(np.float32) * np.float32(0.5), dev)
+    mask = _t(rng.rand(n) < 0.9, dev)
+    params = correlative_2d.CorrelativeSearchParams(max_scan_range=12.0)
+    x0 = _t(np.float32([0.23, -0.12, 0.02]), dev)
+    best, scores = correlative_2d._match_kernel(grid, pts, mask, x0, params)
+    best_p, scores_p = correlative_2d.correlative_match_plain(grid, pts, mask, x0, params)
+    assert torch.equal(scores, scores_p)
+    assert torch.equal(best, best_p)
+
+
+@pytest.mark.parametrize("n", [1024, 2048, 4096])
+def test_bnb_score_kernel_large(dev, n):
+    """K7 at its former one-warp limit (1,024 points) and above it (the
+    fold), bit for bit against the twin on three pyramid levels."""
+    from cartographer_tpu_torch.ops import bnb_2d
+
+    grid, _ = _card_grid(dev)
+    pyr = bnb_2d.build_precomputation_pyramid(grid, 7)
+    rng = np.random.RandomState(n)
+    cells = _t(rng.randint(-20, SIZE + 20, (31, n, 2)).astype(np.int32), dev)
+    mask = _t(rng.rand(n) < 0.8, dev)
+    b = 5000
+    a_idx = _t(rng.randint(0, 31, b).astype(np.int32), dev)
+    ox = _t(rng.randint(-64, 64, b).astype(np.int32), dev)
+    oy = _t(rng.randint(-64, 64, b).astype(np.int32), dev)
+    for h in (0, 3, 6):
+        got = bnb_2d.score_candidates(pyr[h], cells, mask, a_idx, ox, oy)
+        assert torch.equal(got, bnb_2d.score_candidates_plain(pyr[h], cells, mask, a_idx, ox, oy))
+
+
+@pytest.mark.parametrize("n,bins", [(1024, 120), (2048, 120), (8192, 120), (2048, 2048)])
+def test_rot_histogram_kernel_large(dev, n, bins):
+    """K12 at its former one-block limit (1,024 points) and above it (the
+    device-memory scratch and the multi-block key sort), up to 2,048 bins,
+    bit for bit against the twin."""
+    from cartographer_tpu_torch.ops import rot_histogram
+
+    rng = np.random.RandomState(n + bins)
+    pts, mask = _hall_scan(rng, np.zeros(3, np.float32), n)
+    pts, mask = _t(pts, dev), _t(mask, dev)
+    got = rot_histogram.compute_rotational_histogram(pts, mask, bins)
+    ref = rot_histogram.rotational_histogram_plain(pts, mask, bins)
+    assert torch.equal(got, ref) and float(got.sum()) > 1.0
+
+
+@pytest.mark.parametrize("bins", [1024, 2048])
+def test_rot_match_kernel_large(dev, bins):
+    """K13 at its former one-block limit (1,024 bins) and above it (the
+    fold), bit for bit against the twin."""
+    from cartographer_tpu_torch.ops import rot_histogram
+
+    rng = np.random.RandomState(bins)
+    scan, submap = (_t(rng.rand(bins).astype(np.float32), dev) for _ in range(2))
+    angles = _t(rng.uniform(-4.0, 4.0, 1259).astype(np.float32), dev)
+    got = rot_histogram.match_histograms(submap, scan, angles)
+    assert torch.equal(got, rot_histogram.match_histograms_plain(submap, scan, angles))
+
+
+@pytest.mark.parametrize("n", [2048, 4096, 8192])
+def test_correlative_3d_kernel_large(dev, n):
+    """K17 at its former one-block limit (2,048 points) and above it (cells
+    in a device scratch, the fold above 4,096): score, pose and flat index
+    bit for bit against the twin."""
+    from cartographer_tpu_torch.ops import scan_matcher_3d
+
+    high, _ = _paged_pair(dev, 0.1)
+    grid = high.crop_dense(np.float32([0.3, 0.0, 0.0]), 96)
+    rng = np.random.RandomState(n)
+    shift = np.float32([0.313, -0.079, 0.037])
+    pts, mask = _hall_scan(rng, shift, n)
+    params = scan_matcher_3d.CorrelativeSearchParams3D(
+        linear_search_window=0.15, angular_search_window=np.radians(1.0), max_scan_range=60.0)
+    x0 = _t(np.float32([0.04, -0.03, 0.01, np.cos(0.005), 0.0, 0.0, np.sin(0.005)]), dev)
+    args = (grid, _t(pts - shift, dev), _t(mask, dev), x0, params)
+    score, x, best = scan_matcher_3d._correlative_kernel(*args)
+    ref_score, ref_x, ref_index = scan_matcher_3d.correlative_match_3d_plain(*args)
+    assert ~int(best.cpu()) & 0xFFFFFFFF == ref_index
+    assert float(score) == float(ref_score) and torch.equal(x[0:3], ref_x[0:3])
+    torch.testing.assert_close(x[3:7], ref_x[3:7], atol=1e-6, rtol=0)
+
+
 @pytest.mark.parametrize("n", [4097, 16384, 32768])
 def test_voxel_filter_kernel_large(dev, n):
     """K2 above one block's shared memory (its table in device memory): the
@@ -711,3 +800,101 @@ def test_tsdf_surface_forms_of_k3_k5_k6(dev):
     assert torch.equal(scores, scores_p) and torch.equal(best, best_p)
     pyr = bnb_2d.build_precomputation_pyramid(grid, 7)
     assert torch.equal(pyr, bnb_2d.pyramid_plain(grid, 7))
+
+
+# ---------------------------------------------------------------- the scan-match testbed
+
+
+def _icp_clouds(dev, n, planar=False):
+    """A target on the walls of a room (or one tilted plane) and the source:
+    the target moved by a small pose, with 10% of either masked out."""
+    from cartographer_tpu_torch.transform import quaternion as quat
+
+    rng = np.random.RandomState(n + planar)
+    if planar:
+        uv = rng.uniform(-4, 4, (n, 2))
+        tgt = uv[:, :1] * np.array([0.9, 0.1, 0.2]) + uv[:, 1:] * np.array([-0.1, 0.8, 0.3])
+    else:
+        tgt, _ = _hall_scan(rng, np.float32([0.3, -0.2, 0.1]), n)
+    tgt = _t(tgt.astype(np.float32), dev)
+    q = quat.from_axis_angle(_t(np.float32([0.02, -0.01, 0.08]), dev))
+    src = quat.rotate(q, tgt) + _t(np.float32([0.21, -0.13, 0.05]), dev)
+    return (src.contiguous(), _t(rng.rand(n) < 0.9, dev), tgt, _t(rng.rand(n) < 0.9, dev))
+
+
+@pytest.mark.parametrize("n", [1000, 4096])
+def test_icp_nearest_kernel(dev, n):
+    """K23: indices, moved points and valid flags bit for bit against the
+    twin (the same elementwise distance form)."""
+    from cartographer_tpu_torch.ops import icp
+
+    src, sm, tgt, tm = _icp_clouds(dev, n)
+    pose = _t(np.float32([0.1, -0.05, 0.02, np.cos(0.02), 0.0, 0.0, np.sin(0.02)]), dev)
+    for max_dist in (0.2, 1.0):
+        got = icp.nearest(src, sm, tgt, tm, pose, max_dist)
+        ref = icp.nearest_plain(src, sm, tgt, tm, pose, max_dist)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("planar", [False, True])
+def test_icp_kabsch_kernel(dev, planar):
+    """K24: one round's R, t and pose within 1e-5 of the twin on the same
+    correspondences (general and rank-2 clouds); its stats form exact."""
+    from cartographer_tpu_torch.ops import icp
+
+    src, sm, tgt, tm = _icp_clouds(dev, 4096, planar)
+    x0 = _t(np.float32([0, 0, 0, 1, 0, 0, 0]), dev)
+    nn, world, valid = icp.nearest(src, sm, tgt, tm, x0, 1.0)
+    pose, R, t = icp.kabsch(world, tgt, nn, valid, x0)
+    pose_p, R_p, t_p = icp.kabsch_plain(world, tgt, nn, valid, x0)
+    torch.testing.assert_close(R, R_p, atol=1e-5, rtol=0)
+    torch.testing.assert_close(t, t_p, atol=1e-5, rtol=0)
+    torch.testing.assert_close(pose, pose_p, atol=1e-5, rtol=0)
+    assert torch.equal(torch.stack(icp.stats(world, sm, tgt, nn, valid)),
+                       torch.stack(icp.stats_plain(world, sm, tgt, nn, valid)))
+
+
+def test_icp_match_kernel(dev):
+    """The whole card icp_match (30 rounds of K23 + K24, then the stats)
+    within 1e-4 m and 1e-4 rad of the twin's on the card."""
+    from cartographer_tpu_torch.ops import icp
+    from cartographer_tpu_torch.transform import quaternion as quat
+
+    src, sm, tgt, tm = _icp_clouds(dev, 4096)
+    x0 = _t(np.float32([0, 0, 0, 1, 0, 0, 0]), dev)
+    pose, fit, rmse = icp.icp_match_vector(src, sm, tgt, tm, x0)
+    pose_p, fit_p, rmse_p = icp.icp_match_plain(src, sm, tgt, tm, x0, icp.IcpParams())
+    torch.testing.assert_close(pose[0:3], pose_p[0:3], atol=1e-4, rtol=0)
+    dq = quat.multiply(quat.conjugate(pose_p[3:7]), pose[3:7])
+    assert float(quat.to_axis_angle(dq).norm()) < 1e-4
+    torch.testing.assert_close(fit, fit_p, atol=1e-5, rtol=0)
+    torch.testing.assert_close(rmse, rmse_p, atol=1e-5, rtol=0)
+    assert float(fit) > 0.7
+
+
+@pytest.mark.parametrize("free_space", [0, 2])
+def test_dense_insert_kernel(dev, free_space):
+    """K25: four inserts of rays in every octant, log-odds and known equal
+    to the twin's (exact)."""
+    from cartographer_tpu_torch.ops.grid_3d import (
+        Grid3D,
+        insert_range_data_3d,
+        insert_range_data_3d_plain,
+    )
+
+    rng = np.random.RandomState(free_space)
+    center = np.float32([0.113, -0.071, 0.037])
+    grid = Grid3D.create(64, 0.2, center, dev)
+    ref = grid
+    for k in range(4):
+        origin = _t(center + np.float32([0.05 * k, -0.03 * k, 0.01]), dev)
+        d = rng.normal(size=(4096, 3))
+        pts = center + d / np.linalg.norm(d, axis=1, keepdims=True) * rng.uniform(0.5, 8, (4096, 1))
+        pts, mask = _t(pts.astype(np.float32), dev), _t(rng.rand(4096) < 0.9, dev)
+        grid = insert_range_data_3d(grid, origin, pts, mask, num_free_space_voxels=free_space)
+        ref = insert_range_data_3d_plain(ref, origin, pts, mask,
+                                         num_free_space_voxels=free_space)
+        assert torch.equal(grid.log_odds, ref.log_odds)
+        assert torch.equal(grid.known, ref.known)
+    assert int(grid.known.sum()) > 1000

@@ -26,10 +26,7 @@ from cartographer_tpu_torch.interop import (
     options_from_dict,
     tsdf_grid2d_to_numpy,
 )
-from cartographer_tpu_torch.mapping.local_trajectory_builder_2d import (
-    LocalTrajectoryBuilder2D,
-    check_kernel_limits,
-)
+from cartographer_tpu_torch.mapping.local_trajectory_builder_2d import LocalTrajectoryBuilder2D
 from cartographer_tpu_torch.ops.tsdf_2d import TsdfGrid2D
 from cartographer_tpu_torch.sensor.data import TimedPointCloudData
 from cartographer_tpu_torch.transform import nquat
@@ -235,16 +232,37 @@ def test_tsdf_options_are_accepted_and_carried():
      "tpu.loop_closure_capacity"),
 ])
 def test_kernel_limits_refused_at_construction(override, option):
-    """A capacity above a one-block kernel's limit raises on a CUDA device
-    before any scan, naming the option; the plain path takes it."""
+    """A capacity above a kernel's former one-block limit (K5's 4,096
+    points, K7's 1,024) is no longer refused: on a CUDA device the builder
+    takes the options (without a card it stops only at the missing device),
+    and the plain path follows the JAX builder with them scan by scan."""
     options = apply_overrides(_port_options(), override)
-    with pytest.raises(ValueError, match=option):
+    if torch.cuda.is_available():
         LocalTrajectoryBuilder2D(options, ["laser"], device="cuda")
-    LocalTrajectoryBuilder2D(options, ["laser"], device="cpu")
-    # Without the correlative search the matcher capacity meets no K5.
-    if option == "tpu.matcher_capacity":
-        check_kernel_limits(apply_overrides(
-            options, {"use_online_correlative_scan_matching": False}))
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device is available"):
+            LocalTrajectoryBuilder2D(options, ["laser"], device="cuda")
+    jopts = _jax_options(**override)
+    jb = JBuilder(jopts, ["laser"])
+    tb = LocalTrajectoryBuilder2D(options_from_dict(dataclasses.asdict(jopts)), ["laser"],
+                                  device="cpu", permutation_fn=_jax_permutation)
+    assert getattr(tb._options.tpu, option.split(".")[1]) == override[option]
+    inserted = 0
+    for scan in _scans(make_wall_points(500), _ramped(6, 0.05, 3)):
+        rj = jb.add_range_data("laser", JScan(**scan))
+        rt = tb.add_range_data("laser", TimedPointCloudData(**scan))
+        np.testing.assert_allclose(rt.local_pose_translation, rj.local_pose_translation,
+                                   atol=5e-3, rtol=0)
+        assert abs(_yaw(rt.local_pose_rotation) - _yaw(rj.local_pose_rotation)) < 5e-3
+        assert (rt.insertion_result is None) == (rj.insertion_result is None)
+        if rj.insertion_result is not None:
+            jc = rj.insertion_result.filtered_gravity_aligned_point_cloud
+            tc = rt.insertion_result.filtered_gravity_aligned_point_cloud
+            assert tc.points.shape[0] == jc.points.shape[0] == min(
+                jopts.tpu.loop_closure_capacity, jopts.tpu.scan_capacity)
+            assert int(tc.mask.sum()) == int(np.asarray(jc.mask).sum())
+            inserted += 1
+    assert inserted >= 3
 
 
 def test_batcher_raises():

@@ -29,10 +29,7 @@ from cartographer_tpu_torch.interop import (
     paged_grid_from_numpy,
     paged_intensity_grid_from_numpy,
 )
-from cartographer_tpu_torch.mapping.local_trajectory_builder_3d import (
-    LocalTrajectoryBuilder3D,
-    check_kernel_limits,
-)
+from cartographer_tpu_torch.mapping.local_trajectory_builder_3d import LocalTrajectoryBuilder3D
 from cartographer_tpu_torch.sensor.data import ImuData, TimedPointCloudData
 from cartographer_tpu_torch.simulation import relative_to_first, simulate_scans_3d
 from cartographer_tpu_torch.transform import nquat
@@ -515,15 +512,39 @@ def test_full_frontend_options_round_trip():
     ({"rotational_histogram_size": 2048}, "rotational_histogram_size"),
 ])
 def test_kernel_limits_refused_at_construction(override, option):
-    """A capacity above a one-block kernel's limit (K12's 1,024 points or
-    bins) raises on a CUDA device before any scan, naming the option; the
-    plain path takes it. A scan capacity above K2's and K18's one-block
-    sizes is not refused."""
+    """A capacity above a kernel's former one-block limit (K12's 1,024
+    points or bins, K17's 2,048 points) is no longer refused: on a CUDA
+    device the builder takes the options (without a card it stops only at
+    the missing device), and the plain path follows the JAX builder with
+    them scan by scan, histograms included."""
     from cartographer_tpu_torch.core.config import apply_overrides as port_overrides
 
+    override = {**override, "tpu.scan_capacity": 2048}
     options = port_overrides(TrajectoryBuilder3DOptions(), override)
-    with pytest.raises(ValueError, match=option):
+    if torch.cuda.is_available():
         LocalTrajectoryBuilder3D(options, ["points"], device="cuda")
-    LocalTrajectoryBuilder3D(options, ["points"], device="cpu")
-    check_kernel_limits(port_overrides(TrajectoryBuilder3DOptions(),
-                                       {"tpu.scan_capacity": 32768}))
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device is available"):
+            LocalTrajectoryBuilder3D(options, ["points"], device="cuda")
+    jopts = _jax_options(**override)
+    jb = JBuilder(jopts, ["points"])
+    tb = LocalTrajectoryBuilder3D(options_3d_from_dict(dataclasses.asdict(jopts)), ["points"],
+                                  device="cpu", permutation_fn=_jax_permutation)
+    world = make_environment_3d(num=500, seed=3)
+    poses = [(np.array([0.04 * i, 0.003 * i, 0.0]), 0.004 * i) for i in range(5)]
+    jres, tres = _drive([(jb, JImuData, JScan), (tb, ImuData, TimedPointCloudData)], world,
+                        poses)
+    inserted = 0
+    for rj, rt in zip(jres, tres):
+        np.testing.assert_allclose(rt.local_pose_translation, rj.local_pose_translation,
+                                   atol=0.02, rtol=0)
+        dq = nquat.multiply(nquat.conjugate(rj.local_pose_rotation), rt.local_pose_rotation)
+        assert nquat.angle(dq) < 0.01
+        assert (rt.insertion_result is None) == (rj.insertion_result is None)
+        if rj.insertion_result is not None:
+            exact = _levelled_histogram(rj.insertion_result, jopts)
+            assert rt.insertion_result.scan_histogram.shape == exact.shape
+            np.testing.assert_allclose(rt.insertion_result.scan_histogram, exact,
+                                       atol=1e-4 * max(exact.max(), 1.0), rtol=0)
+            inserted += 1
+    assert inserted >= 3
