@@ -143,6 +143,16 @@ def intensity_grid3d_from_numpy(sums: np.ndarray, counts: np.ndarray, origin: np
                            to_device(np.asarray(origin, np.float32), device), float(resolution))
 
 
+def ndt_grid_from_numpy(means: np.ndarray, inv_cov_chol: np.ndarray, valid: np.ndarray,
+                        origin: np.ndarray, device):
+    """The JAX package's `build_ndt_grid` result (means (C, 3), inv_cov_chol
+    (C, 3, 3), valid (C,), origin (3,)) as the port's grid tuple."""
+    return (to_device(np.asarray(means, np.float32), device),
+            to_device(np.asarray(inv_cov_chol, np.float32), device),
+            to_device(np.asarray(valid, bool), device),
+            to_device(np.asarray(origin, np.float32), device))
+
+
 def _with_allocation(paged, page_table: np.ndarray, origin: np.ndarray, slots):
     paged._slots = {tuple(int(v) for v in k): int(s) for k, s in slots.items()}
     paged._origin_host = np.asarray(origin, np.float32).copy()

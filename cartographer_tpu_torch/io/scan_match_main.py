@@ -7,11 +7,18 @@ flags or a yaml file (testcfg.yaml style), and print the result as one JSON
 object, the JAX CLI's.
 
 - `icp`: point-to-point ICP (`ops/icp.py`, kernels K23 and K24);
+- `gicp`: point-to-plane ICP against the target's normals (`ops/icp.py`,
+  kernels K26 for the normals, K23 and K27 for each of the
+  `max_iterations // 5` rounds, K24's stats);
+- `ndt`: the target's per-voxel Gaussians on a 32^3 grid of cells of
+  `resolution` around its masked mean (K28), then one LM solve of the
+  source on them (K29). The CLI's default `resolution` of 0.3 m is the
+  `ceres` grid's: its 9.6 m cube leaves NDT at the start pose on a scan of a
+  hall, in the JAX package as here; 1.0 m is `NdtParams`' own default;
 - `ceres`: the target inserted four times into a 128^3 grid at
   `resolution` and a 64^3 grid at 3 x `resolution` around its centroid
   (`ops/grid_3d.py`, K25), then the source refined on them by the 3D
-  Gauss-Newton matcher (`ops/scan_matcher_3d.py`, K11);
-- `gicp` and `ndt` are not ported yet and raise NotImplementedError.
+  Gauss-Newton matcher (`ops/scan_matcher_3d.py`, K11).
 
 Both clouds are padded with masked zeros to the next power of two. The work
 runs on the card unless `--device cpu` asks for the plain PyTorch path.
@@ -31,14 +38,19 @@ import numpy as np
 import torch
 
 MODES = ("ceres", "icp", "gicp", "ndt")
-UNPORTED_MODES = ("gicp", "ndt")
 
 
 def run(source_path: str, target_path: str, mode: str, init: list, max_iterations: int,
         resolution: float, max_correspondence_distance: float, device="cuda") -> dict:
     from cartographer_tpu_torch.io.pcd import read_pcd
     from cartographer_tpu_torch.ops.grid_3d import Grid3D, insert_range_data_3d
-    from cartographer_tpu_torch.ops.icp import IcpParams, icp_match
+    from cartographer_tpu_torch.ops.icp import (
+        IcpParams,
+        NdtParams,
+        gicp_match,
+        icp_match,
+        ndt_match,
+    )
     from cartographer_tpu_torch.ops.scan_matcher_3d import (
         GaussNewtonMatcherParams3D,
         gauss_newton_match_3d,
@@ -50,9 +62,6 @@ def run(source_path: str, target_path: str, mode: str, init: list, max_iteration
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("scan_match: no CUDA device is available; pass device='cpu' "
                            "(--device cpu) to run the plain PyTorch path")
-    if mode in UNPORTED_MODES:
-        raise NotImplementedError(f"scan_match: mode {mode!r} is not ported yet (GICP and NDT "
-                                  f"come with the next slice of the port)")
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
 
@@ -73,12 +82,17 @@ def run(source_path: str, target_path: str, mode: str, init: list, max_iteration
                      quat.from_axis_angle(torch.tensor(init[3:6], dtype=torch.float32,
                                                        device=dev)))
 
-    if mode == "icp":
-        pose, fitness, rmse = icp_match(
+    if mode in ("icp", "gicp"):
+        match = icp_match if mode == "icp" else gicp_match
+        pose, fitness, rmse = match(
             src, sm, tgt, tm, initial,
             IcpParams(max_iterations=max_iterations,
                       max_correspondence_distance=max_correspondence_distance))
         extras = {"fitness": float(fitness), "rmse": float(rmse)}
+    elif mode == "ndt":
+        pose, cost = ndt_match(src, sm, tgt, tm, initial,
+                               NdtParams(resolution=resolution, max_iterations=max_iterations))
+        extras = {"cost": float(cost)}
     else:
         # Grid-based Gauss-Newton: the target rasterized into an occupancy
         # grid pair, the source refined on it (the fork's scanmatch_mode 1).

@@ -79,7 +79,16 @@ on the card, at full width (the reference's default 2D and 3D options):
     the JAX package's result on the CPU witness (`SCAN_MATCH_WITNESS`,
     tests/scan_match_witness_3d.py) and no further from the truth than it
     plus 0.01 m; K23, K24 and K25 against their twins on the run's own
-    inputs, the whole card icp_match within 1e-4 m and 1e-4 rad of its twin.
+    inputs, the whole card icp_match within 1e-4 m and 1e-4 rad of its twin;
+20. the testbed's `gicp` and `ndt` modes on phase 19's two scans: one call of
+    `main --mode gicp` in a subprocess, `run` for `gicp` (K26 once, K23 seven
+    times, K27 six times, K24's stats once), `ndt` at 1 m cells (K28, K29
+    once each) and `ndt` at the CLI's 0.3 m (held to JAX's near-start pose,
+    its error reported), each within 1e-3 m and 1e-3 rad of the JAX witness
+    and no further from the truth than it plus 0.01 m; K26 (neighbours exact,
+    normals within 1e-5 up to sign), K27 and K29 (1e-4 m, rad and cost) and
+    K28 (valid and means exact, L within 1e-5 of its scale) against their
+    twins on the run's own inputs.
 Phase 10 also runs the scans of two more seeds and reports their yaw error.
 
 Prints a `kernels` JSON line, a timing JSON line, the card's name and power
@@ -145,7 +154,9 @@ ABOVE_ONE_BLOCK = {"correlative_2d": (4096, 8192, 16384), "bnb_score": (1024, 20
 SCAN_MATCH_AZIMUTHS = 1800  # 16 rings x 1,800 = 28,800 returns, padded to 32,768
 # The JAX package's results on the phase's two scans (28,800 returns each),
 # from tests/scan_match_witness_3d.py on a CPU; the port's plain path there
-# came within 1.4e-5 m and 5.4e-6 rad of them.
+# came within 2.4e-5 m and 5.4e-6 rad of them (`gicp` 2.4e-5 m, the others
+# within 1.4e-5 m). `ndt` runs at 1 m cells (`NdtParams`' own default);
+# `ndt_0.3` at the CLI's default 0.3 m, where NDT stays near its start.
 SCAN_MATCH_WITNESS = {
     "icp": {"translation": [-0.2975173890590668, 0.015327480621635914, 0.0031256440561264753],
             "rotation_axis_angle": [-0.00010325784387532622, 0.0007269812049344182,
@@ -155,9 +166,28 @@ SCAN_MATCH_WITNESS = {
               "rotation_axis_angle": [-0.018975865095853806, -0.006681465078145266,
                                       -0.08618146926164627],
               "error_against_truth": [0.06691846726395673, 0.02173406413777845]},
+    "gicp": {"translation": [-0.30435681343078613, 0.014649390242993832, -0.0003316214424557984],
+             "rotation_axis_angle": [0.00011036113573936746, 0.001007847604341805,
+                                     -0.09181549400091171],
+             "error_against_truth": [0.04516654607883488, 0.0027987845096616153]},
+    "ndt": {"translation": [-0.3293704688549042, 0.021773548796772957, 0.012046853080391884],
+            "rotation_axis_angle": [-0.004455555696040392, -0.001060257782228291,
+                                    -0.08957352489233017],
+            "error_against_truth": [0.02412409415223021, 0.006670145893141986]},
+    "ndt_0.3": {"translation": [-0.004539962392300367, 0.00036251291749067605,
+                                -1.8983097106684e-05],
+                "rotation_axis_angle": [4.909468043479137e-05, -2.0628696802305058e-05,
+                                        4.0910555981099606e-05],
+                "error_against_truth": [0.3453181890257144, 0.09446525490689732]},
 }
 SCAN_MATCH_KERNELS = {"icp": ("icp_nearest", "icp_kabsch", "icp_stats"),
                       "ceres": ("dense_insert_3d", "scan_matcher_3d")}
+# Phase 20's runs: (mode, resolution, witness, the exact launches of each kernel).
+GICP_NDT_RUNS = (
+    ("gicp", 0.3, "gicp", {"icp_normals": 1, "icp_nearest": 7, "gicp_lm": 6, "icp_stats": 1}),
+    ("ndt", 1.0, "ndt", {"ndt_grid": 1, "ndt_lm": 1}),
+    ("ndt", 0.3, "ndt_0.3", {"ndt_grid": 1, "ndt_lm": 1}),
+)
 
 
 def _fail(msg):
@@ -179,8 +209,16 @@ def _cuda_ms(fn, reps=30, warmup=3):
             fn()
         torch.cuda.synchronize()
     device_ms = sum(_device_us(e) for e in prof.key_averages()) / 1e3 / reps
-    if device_ms > 0:
-        return device_ms
+    return device_ms if device_ms > 0 else _event_ms(fn, reps, warmup=0)
+
+
+def _event_ms(fn, reps=30, warmup=3):
+    """The median device milliseconds between two CUDA events around fn():
+    its kernels and the gaps between them."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -2482,6 +2520,53 @@ def _pose_difference(a, b):
             _rotation_angle_between(_quaternion_of(a), _quaternion_of(b)))
 
 
+def _write_scan_pair(tmp):
+    """The testbed's two full-width scans of the hall as binary PCD files in
+    `tmp`: -> (paths, returns, true translation, true yaw)."""
+    import os
+
+    from cartographer_tpu_torch.simulation import simulate_scan_pair_3d
+
+    source, target, t_true, yaw_true = simulate_scan_pair_3d(azimuths=SCAN_MATCH_AZIMUTHS)
+    paths = [os.path.join(tmp, name) for name in ("source.pcd", "target.pcd")]
+    _write_binary_pcd(paths[0], source)
+    _write_binary_pcd(paths[1], target)
+    return paths, len(source), t_true, yaw_true
+
+
+def _main_subprocess(paths, mode):
+    """`python -m cartographer_tpu_torch.io.scan_match_main` on the pair in a
+    fresh process: -> its printed result with the wall seconds."""
+    from pathlib import Path
+
+    t0 = time.monotonic()
+    proc = subprocess.run([sys.executable, "-m", "cartographer_tpu_torch.io.scan_match_main",
+                           "--source", paths[0], "--target", paths[1], "--mode", mode],
+                          cwd=str(Path(__file__).resolve().parent), capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        _fail(f"scan_match_main --mode {mode} failed: {proc.stderr[-2000:]}")
+    printed = json.loads(proc.stdout.strip().splitlines()[-1])
+    return dict(printed, wall_seconds=time.monotonic() - t0)
+
+
+def _padded_pair(torch, dev, paths):
+    """The run's own inputs, as `run` builds them: -> (src, sm, tgt, tm, the
+    target's returns as numpy)."""
+    from cartographer_tpu_torch.io.pcd import read_pcd
+
+    src_np, tgt_np = read_pcd(paths[0]), read_pcd(paths[1])
+    cap = 1 << int(np.ceil(np.log2(max(len(src_np), len(tgt_np), 16))))
+
+    def pad(p):
+        buf = np.zeros((cap, 3), np.float32)
+        buf[:len(p)] = p
+        return (torch.from_numpy(buf).to(dev),
+                torch.from_numpy(np.arange(cap) < len(p)).to(dev))
+
+    return (*pad(src_np), *pad(tgt_np), tgt_np)
+
+
 def _scan_match_phase(torch, dev):
     """The scan-match testbed (`io/scan_match_main.py`) on two full-width
     scans of the simulated hall written as binary PCD files: one call of
@@ -2489,12 +2574,9 @@ def _scan_match_phase(torch, dev):
     `ceres`, each against the CPU witness's JAX result and the simulator's
     truth; K23, K24 and its stats form, K25 and the whole card icp_match
     against their twins on the run's own inputs."""
-    import os
     import tempfile
-    from pathlib import Path
 
     from cartographer_tpu_torch.io import scan_match_main
-    from cartographer_tpu_torch.io.pcd import read_pcd
     from cartographer_tpu_torch.ops import cuda, icp
     from cartographer_tpu_torch.ops.grid_3d import (
         Grid3D,
@@ -2502,28 +2584,17 @@ def _scan_match_phase(torch, dev):
         insert_range_data_3d,
         insert_range_data_3d_plain,
     )
-    from cartographer_tpu_torch.simulation import simulate_scan_pair_3d
     from cartographer_tpu_torch.transform import quaternion as quat
 
-    source, target, t_true, yaw_true = simulate_scan_pair_3d(azimuths=SCAN_MATCH_AZIMUTHS)
     args = dict(init=[0, 0, 0, 0, 0, 0], max_iterations=30, resolution=0.3,
                 max_correspondence_distance=1.0)
-    out = {"returns": len(source), "true_translation": t_true.tolist(), "true_yaw": yaw_true,
-           "modes": {}}
     rows = {}
     with tempfile.TemporaryDirectory() as tmp:
-        paths = [os.path.join(tmp, name) for name in ("source.pcd", "target.pcd")]
-        _write_binary_pcd(paths[0], source)
-        _write_binary_pcd(paths[1], target)
-        repo = str(Path(__file__).resolve().parent)
-        t0 = time.monotonic()
-        proc = subprocess.run([sys.executable, "-m", "cartographer_tpu_torch.io.scan_match_main",
-                               "--source", paths[0], "--target", paths[1], "--mode", "icp"],
-                              cwd=repo, capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            _fail(f"scan_match_main failed: {proc.stderr[-2000:]}")
-        printed = json.loads(proc.stdout.strip().splitlines()[-1])
-        out["main_subprocess"] = dict(printed, wall_seconds=time.monotonic() - t0)
+        paths, returns, t_true, yaw_true = _write_scan_pair(tmp)
+        out = {"returns": returns, "true_translation": t_true.tolist(), "true_yaw": yaw_true,
+               "modes": {}}
+        printed = _main_subprocess(paths, "icp")
+        out["main_subprocess"] = printed
         for mode in ("icp", "ceres"):
             cuda.reset_launch_counts()
             t0 = time.monotonic()
@@ -2545,19 +2616,8 @@ def _scan_match_phase(torch, dev):
                                       against_jax_witness=[dt, dr])
         if printed["translation"] != out["modes"]["icp"]["translation"]:
             _fail("scan match: main's printed result differs from run's")
-
-        # The run's own inputs, as `run` builds them.
-        src_np, tgt_np = read_pcd(paths[0]), read_pcd(paths[1])
-    cap = 1 << int(np.ceil(np.log2(max(len(src_np), len(tgt_np), 16))))
-
-    def pad(p):
-        buf = np.zeros((cap, 3), np.float32)
-        buf[:len(p)] = p
-        return (torch.from_numpy(buf).to(dev),
-                torch.from_numpy(np.arange(cap) < len(p)).to(dev))
-
-    (src, sm), (tgt, tm) = pad(src_np), pad(tgt_np)
-    n = cap
+        src, sm, tgt, tm, tgt_np = _padded_pair(torch, dev, paths)
+    n = src.shape[0]
     x0 = torch.tensor([0, 0, 0, 1, 0, 0, 0], dtype=torch.float32, device=dev)
     max_dist = args["max_correspondence_distance"]
 
@@ -2705,6 +2765,196 @@ def _scan_match_phase(torch, dev):
     return rows, out
 
 
+def _gicp_ndt_phase(torch, dev):
+    """The testbed's `gicp` and `ndt` modes on phase 19's two scans: one call
+    of `main --mode gicp` in a subprocess, then `run` for `gicp`, `ndt` at 1 m
+    and `ndt` at the CLI's 0.3 m, each against the CPU witness's JAX result
+    and the simulator's truth with its exact launch counts; K26-K29 against
+    their twins on the run's own inputs, timed beside their bounds."""
+    import tempfile
+
+    from cartographer_tpu_torch.io import scan_match_main
+    from cartographer_tpu_torch.ops import cuda, icp
+    from cartographer_tpu_torch.transform import quaternion as quat
+
+    args = dict(init=[0, 0, 0, 0, 0, 0], max_iterations=30, max_correspondence_distance=1.0)
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths, returns, t_true, yaw_true = _write_scan_pair(tmp)
+        out = {"returns": returns, "runs": {}, "launches": {}}
+        printed = _main_subprocess(paths, "gicp")
+        out["main_subprocess"] = printed
+        for mode, resolution, key, expected in GICP_NDT_RUNS:
+            cuda.reset_launch_counts()
+            t0 = time.monotonic()
+            result = scan_match_main.run(*paths, mode=mode, resolution=resolution, **args,
+                                         device=dev)
+            wall = time.monotonic() - t0
+            launches = {k: v for k, v in cuda.launch_counts().items() if v}
+            if launches != expected:
+                _fail(f"scan match {key}: launches {launches}, expected {expected}")
+            witness = SCAN_MATCH_WITNESS[key]
+            err = _pose_error(result, t_true, yaw_true)
+            dt, dr = _pose_difference(result, witness)
+            limit = witness["error_against_truth"][0] + 0.01
+            print(f"scan match {key}: {json.dumps(result)}; {wall:.3f} s wall, launches "
+                  f"{launches}; error against truth {err[0]:.4f} m, {err[1]:.5f} rad (limit "
+                  f"{limit:.4f} m: the JAX witness's + 0.01); against the JAX witness {dt:.3g} m, "
+                  f"{dr:.3g} rad (limits 1e-3 each)")
+            if dt > 1e-3 or dr > 1e-3 or err[0] > limit:
+                _fail(f"scan match {key}: departs from the JAX witness")
+            out["runs"][key] = dict(result, wall_seconds=wall, launches=launches,
+                                    error_against_truth=list(err), against_jax_witness=[dt, dr])
+            if key != "ndt_0.3":  # the kernel line counts the 1 m run's launches
+                out["launches"].update(launches)
+        if printed["translation"] != out["runs"]["gicp"]["translation"]:
+            _fail("scan match: main's printed gicp result differs from run's")
+        src, sm, tgt, tm, _ = _padded_pair(torch, dev, paths)
+    n = src.shape[0]
+    x0 = torch.tensor([0, 0, 0, 1, 0, 0, 0], dtype=torch.float32, device=dev)
+
+    def pose_gap(a, b):
+        dq = quat.multiply(quat.conjugate(b[3:7]), a[3:7])
+        return float((a[0:3] - b[0:3]).abs().max()), float(quat.to_axis_angle(dq).norm())
+
+    # K26: the target's normals and neighbour lists.
+    normals, idx = icp.normals_with_neighbours(tgt, tm)
+    normals_p, idx_p = icp.normals_plain(tgt, tm)
+    differ = int((idx != idx_p).sum())
+    err26 = float(torch.minimum((normals - normals_p).abs().amax(1),
+                                (normals + normals_p).abs().amax(1)).max())
+    print(f"K26 icp_normals at {n} x {n} points: {differ} neighbour entries differ from the "
+          f"twin (tolerance: exact), normals within {err26:.3g} up to sign (tolerance 1e-5)")
+    if differ or err26 > 1e-5:
+        _fail("K26 differs from the plain twin")
+    b2 = (tgt * tgt).sum(1)[None, :].contiguous()
+
+    def library_normals():
+        d2 = torch.addmm(b2, tgt, tgt.T, alpha=-2.0)
+        d2.masked_fill_(~tm[None, :], float("inf"))
+        nb = tgt[torch.topk(d2, 10, dim=1, largest=False).indices]
+        e = nb - nb.mean(1, keepdim=True)
+        cov = torch.einsum("nki,nkj->nij", e, e) / 10
+        # cuSOLVER's batched eigh refuses 32,768 matrices at once.
+        return [torch.linalg.eigh(c).eigenvectors[:, :, 0] for c in cov.split(4096)]
+
+    rows["icp_normals"] = dict(
+        replaces="cartographer_tpu/ops/icp.py:118", max_abs_err=err26,
+        ms=_cuda_ms(lambda: icp.normals_with_neighbours(tgt, tm), reps=10),
+        plain_ms=_cuda_ms(lambda: icp.normals_plain(tgt, tm), reps=2, warmup=1),
+        # 13 bytes in per point, 12 + 40 out; 10 operations per pair (the
+        # cross term, the form, the list's compare).
+        bound=_bound(n * (13 + 12 + 40), n * n * 10),
+        # |b|^2 - 2 a.b by one matrix product, the row top-10, the
+        # covariances and batched eighs of 4,096.
+        library_ms=_cuda_ms(library_normals, reps=3, warmup=1))
+
+    # K27: the first round's LM on its correspondences, from the identity.
+    nn, world, valid = icp.nearest(src, sm, tgt, tm, x0, args["max_correspondence_distance"])
+    k27 = icp.gicp_lm(src, tgt, normals, nn, valid, x0, 10)
+    k27_p = icp.gicp_lm_plain(src, tgt, normals, nn, valid, x0, 10)
+    gap27 = pose_gap(k27[0], k27_p[0])
+    cost27 = abs(float(k27[1]) - float(k27_p[1])) / max(abs(float(k27_p[1])), 1e-30)
+    print(f"K27 gicp_lm, the first round on {n} rows: {int(k27[2])} iterations, pose within "
+          f"{gap27[0]:.3g} m, {gap27[1]:.3g} rad and cost within {cost27:.3g} relative of the "
+          f"twin (tolerance 1e-4 each)")
+    if max(*gap27, cost27) > 1e-4:
+        _fail("K27 differs from the plain twin")
+    nv, its27 = int(valid.sum()), int(k27[2])
+    rows["gicp_lm"] = dict(
+        replaces="cartographer_tpu/ops/icp.py:150", max_abs_err=max(gap27),
+        ms=_cuda_ms(lambda: icp.gicp_lm(src, tgt, normals, nn, valid, x0, 10), reps=10),
+        plain_ms=_cuda_ms(lambda: icp.gicp_lm_plain(src, tgt, normals, nn, valid, x0, 10),
+                          reps=3, warmup=1),
+        # The points, indices and flags once, the matched points and normals
+        # of the valid rows once; per valid row 31 operations for the first
+        # cost, then per iteration 113 (residual, gradient, 27 sums) + 31.
+        bound=_bound(n * (12 + 4 + 1) + nv * 24 + 2 * 28, nv * (31 + 144 * its27)),
+        library_ms=None)
+    # A whole match by CUDA events: the profiler's total over these
+    # multi-launch calls has read below their own kernels' sum.
+    out["gicp_match_event_ms"] = _event_ms(lambda: icp.gicp_match_vector(src, sm, tgt, tm, x0),
+                                           reps=5, warmup=1)
+    out["icp_normals_event_ms"] = _event_ms(lambda: icp.normals_with_neighbours(tgt, tm),
+                                            reps=5, warmup=1)
+
+    # K28 and K29 at the 1 m run's parameters.
+    params = icp.NdtParams(resolution=1.0, max_iterations=args["max_iterations"])
+    center = icp.ndt_center(tgt, tm)
+    grid = icp.build_ndt_grid(tgt, tm, params, center)
+    grid_p = icp.build_ndt_grid_plain(tgt, tm, params, center)
+    means, L, valid_cells, origin = grid
+    exact = (torch.equal(valid_cells, grid_p[2]) and torch.equal(means, grid_p[0])
+             and torch.equal(origin, grid_p[3]))
+    scale = float(grid_p[1][valid_cells].abs().max())
+    err28 = float((L - grid_p[1])[valid_cells].abs().max())
+    C = params.grid_extent ** 3
+    print(f"K28 ndt_grid, {int(tm.sum())} points into {C} cells: {int(valid_cells.sum())} valid; "
+          f"valid, means and origin {'equal to' if exact else 'DIFFER from'} the twin's "
+          f"(tolerance: exact), L within {err28:.3g} (tolerance 1e-5 x {scale:.3g})")
+    if not exact or err28 > 1e-5 * scale:
+        _fail("K28 differs from the plain twin")
+    lin, inb = icp._ndt_cells(tgt, tm, origin, params.resolution, params.grid_extent)
+    lin = torch.where(inb, lin, torch.full_like(lin, C))
+    rows_sums = torch.cat([torch.ones_like(tgt[:, :1]), tgt,
+                           (tgt[:, :, None] * tgt[:, None, :]).reshape(-1, 9)], 1)
+
+    def library_grid():
+        sums = torch.zeros((C + 1, 13), device=dev).index_add_(0, lin, rows_sums)[:C]
+        n_ = sums[:, 0].clamp(min=1.0)
+        mu = sums[:, 1:4] / n_[:, None]
+        cov = (sums[:, 4:13].reshape(-1, 3, 3) / n_[:, None, None]
+               - mu[:, :, None] * mu[:, None, :] + 0.01 * torch.eye(3, device=dev))
+        return torch.linalg.cholesky(torch.linalg.inv(cov))
+
+    rows["ndt_grid"] = dict(
+        replaces="cartographer_tpu/ops/icp.py:179", max_abs_err=err28,
+        ms=_cuda_ms(lambda: icp.build_ndt_grid(tgt, tm, params, center)),
+        plain_ms=_cuda_ms(lambda: icp.build_ndt_grid_plain(tgt, tm, params, center), reps=2,
+                          warmup=1),
+        # The points and the mask once; per cell a mean, a factor and a flag.
+        bound=_bound(n * 13 + C * (12 + 36 + 1), int(inb.sum()) * 25 + C * 120),
+        # index_add_ of the count, sum and products, then the batched
+        # inverse and Cholesky.
+        library_ms=_cuda_ms(library_grid))
+
+    k29 = icp.ndt_lm(grid, src, sm, x0, params)
+    k29_p = icp.ndt_lm_plain(grid, src, sm, x0, params)
+    gap29 = pose_gap(k29[0], k29_p[0])
+    cost29 = abs(float(k29[1]) - float(k29_p[1])) / max(abs(float(k29_p[1])), 1e-30)
+    print(f"K29 ndt_lm on {n} points x 3 rows: {int(k29[2])} iterations, pose within "
+          f"{gap29[0]:.3g} m, {gap29[1]:.3g} rad and cost within {cost29:.3g} relative of the "
+          f"twin (tolerance 1e-4 each)")
+    if max(*gap29, cost29) > 1e-4:
+        _fail("K29 differs from the plain twin")
+    world = icp.transform_points(k29[0], src)
+    lin29, inb29 = icp._ndt_cells(world, sm, origin, params.resolution, params.grid_extent)
+    lin29 = torch.where(inb29, lin29, torch.zeros_like(lin29))
+    ok = inb29 & valid_cells[lin29]
+    cells29, its29 = int(torch.unique(lin29[ok]).numel()), int(k29[2])
+    rows["ndt_lm"] = dict(
+        replaces="cartographer_tpu/ops/icp.py:219", max_abs_err=max(gap29),
+        ms=_cuda_ms(lambda: icp.ndt_lm(grid, src, sm, x0, params), reps=5, warmup=1),
+        plain_ms=_cuda_ms(lambda: icp.ndt_lm_plain(grid, src, sm, x0, params), reps=2,
+                          warmup=1),
+        # The points and the mask once, the cells they land in (a mean, a
+        # factor, a flag) once; per point in a valid cell 54 operations for
+        # the first cost, then per iteration 300 (3 rows, 3 gradients, 27
+        # sums of 3) + 54.
+        bound=_bound(n * 13 + cells29 * 52 + 2 * 28, int(ok.sum()) * (54 + 354 * its29)),
+        library_ms=None)
+    out["ndt_match_event_ms"] = _event_ms(
+        lambda: icp.ndt_match_vector(src, sm, tgt, tm, x0, params), reps=5, warmup=1)
+    out["ndt_lm_event_ms"] = _event_ms(lambda: icp.ndt_lm(grid, src, sm, x0, params), reps=5,
+                                       warmup=1)
+    print(f"gicp and ndt by CUDA events: gicp_match {out['gicp_match_event_ms']:.3f} ms, K26 "
+          f"{out['icp_normals_event_ms']:.3f}; ndt_match {out['ndt_match_event_ms']:.3f} ms, K29 "
+          f"{out['ndt_lm_event_ms']:.3f}")
+    out["kernels"] = {k: {"ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+                          "library_ms": r["library_ms"]} for k, r in rows.items()}
+    return rows, out
+
+
 def _profile(torch, feed, data, label="profile"):
     """Device busy share and kernel time by name over a window of scans
     that continues the main run (its launches are not counted there);
@@ -2785,7 +3035,10 @@ def main() -> int:
     large = _large_scan_phase_3d(torch, dev)
     raised = _one_block_limits_phase(torch, dev)
     rows_sm, scan_match = _scan_match_phase(torch, dev)
-    scan_match_launches = {**scan_match["modes"]["ceres"]["launches"],
+    rows_gn, gicp_ndt = _gicp_ndt_phase(torch, dev)
+    rows_sm.update(rows_gn)
+    # K23 and its stats form count the `icp` run's launches, as before.
+    scan_match_launches = {**gicp_ndt["launches"], **scan_match["modes"]["ceres"]["launches"],
                            **scan_match["modes"]["icp"]["launches"]}
 
     sources = {k.symbol: k.source for k in cuda.KERNELS.values()}
@@ -2848,6 +3101,7 @@ def main() -> int:
                         for name, r in large["kernels"].items()}},
         "above_one_block": raised,
         "scan_match": scan_match,
+        "scan_match_gicp_ndt": gicp_ndt,
         "bnb_match_ms": backend["bnb_match_ms"],
         "schur_50_iterations_ms": backend["schur_50_iterations_ms"],
         "bnb3d_match_ms": backend3d["bnb3d_match_ms"],

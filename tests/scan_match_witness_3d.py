@@ -7,8 +7,9 @@ Writes the smoke's two full-width scans of the simulated hall
 (`simulation.simulate_scan_pair_3d`, 16 rings x `azimuths` returns, default
 1,800: 28,800 returns, padded to 32,768 by the CLI) as binary PCD files, runs
 the JAX package's `io/scan_match_main.run` and the port's on its plain path
-(`device="cpu"`) for each mode (default `icp ceres`), and prints one JSON
-object: each package's pose, its error against the simulator's truth
+(`device="cpu"`) for each mode (default `icp ceres gicp ndt:1.0 ndt:0.3`; a
+mode written `mode:resolution` runs at that `resolution`, else at the CLI's
+0.3 m), and prints one JSON object: each package's pose, its error against the simulator's truth
 (translation in metres, rotation angle in radians), the two packages'
 difference and the wall seconds. chip_smoke.py holds the card to the JAX
 results recorded from this script (`SCAN_MATCH_WITNESS`).
@@ -70,7 +71,7 @@ def difference(a, b):
 
 def main(argv):
     azimuths = int(argv[1]) if len(argv) > 1 else 1800
-    modes = argv[2:] or ["icp", "ceres"]
+    modes = argv[2:] or ["icp", "ceres", "gicp", "ndt:1.0", "ndt:0.3"]
     import torch
 
     from cartographer_tpu.io.scan_match_main import run as jax_run
@@ -87,17 +88,19 @@ def main(argv):
         write_binary_pcd(paths[1], target)
         args = dict(init=[0, 0, 0, 0, 0, 0], max_iterations=30, resolution=0.3,
                     max_correspondence_distance=1.0)
-        for mode in modes:
+        for spec in modes:
+            mode, _, resolution = spec.partition(":")
             row = {}
             for name, run in (("jax", jax_run), ("port_plain", lambda *a, **k: port_run(
                     *a, **k, device="cpu"))):
                 t0 = time.monotonic()
-                result = run(*paths, mode=mode, **args)
+                result = run(*paths, mode=mode,
+                             **dict(args, resolution=float(resolution or args["resolution"])))
                 row[name] = {**result, "wall_seconds": time.monotonic() - t0,
                              "error_against_truth": pose_error(result, translation, yaw)}
-                print(f"{mode} {name}: {json.dumps(row[name])}", flush=True)
+                print(f"{spec} {name}: {json.dumps(row[name])}", flush=True)
             row["difference"] = difference(row["jax"], row["port_plain"])
-            out["modes"][mode] = row
+            out["modes"][spec] = row
     print(json.dumps(out))
     return 0
 

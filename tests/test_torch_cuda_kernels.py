@@ -873,6 +873,119 @@ def test_icp_match_kernel(dev):
     assert float(fit) > 0.7
 
 
+def _same_up_to_sign(a, b):
+    """Largest componentwise gap between the rows of a and b or -b."""
+    return float(torch.minimum((a - b).abs().amax(1), (a + b).abs().amax(1)).max())
+
+
+@pytest.mark.parametrize("n,k", [(1000, 10), (4096, 10), (700, 16), (300, 3)])
+def test_icp_normals_kernel(dev, n, k):
+    """K26: neighbour lists exact against the twin (the same distance form
+    and tie-break), normals within 1e-5 up to sign (Jacobi against eigh,
+    both in double on the same float32 covariance), zero on masked rows."""
+    from cartographer_tpu_torch.ops import icp
+
+    _, _, tgt, tm = _icp_clouds(dev, n)
+    normals, idx = icp.normals_with_neighbours(tgt, tm, k)
+    ref, ref_idx = icp.normals_plain(tgt, tm, k)
+    assert torch.equal(idx, ref_idx)
+    assert _same_up_to_sign(normals, ref) < 1e-5
+    assert not normals[~tm].any()
+
+
+def test_icp_normals_kernel_few_valid(dev):
+    """K26 with fewer than k masked-in points: masked columns fill the lists
+    in index order."""
+    from cartographer_tpu_torch.ops import icp
+
+    rng = np.random.RandomState(7)
+    pts = _t(rng.uniform(-2, 2, (40, 3)).astype(np.float32), dev)
+    mask = torch.zeros(40, dtype=torch.bool, device=dev)
+    mask[[1, 4, 8, 9, 15, 22, 27]] = True
+    normals, idx = icp.normals_with_neighbours(pts, mask)
+    ref, ref_idx = icp.normals_plain(pts, mask)
+    assert torch.equal(idx, ref_idx)
+    assert _same_up_to_sign(normals, ref) < 1e-5
+
+
+def test_gicp_lm_kernel(dev):
+    """K27: one round's LM within 1e-4 m, 1e-4 rad and 1e-4 of the cost of
+    the twin on the same correspondences, and unchanged by flipped normals."""
+    from cartographer_tpu_torch.ops import icp
+    from cartographer_tpu_torch.transform import quaternion as quat
+
+    src, sm, tgt, tm = _icp_clouds(dev, 4096)
+    normals, _ = icp.normals_with_neighbours(tgt, tm)
+    x0 = _t(np.float32([0, 0, 0, 1, 0, 0, 0]), dev)
+    nn, _, valid = icp.nearest(src, sm, tgt, tm, x0, 1.0)
+    x, cost, its = icp.gicp_lm(src, tgt, normals, nn, valid, x0, 10)
+    xp, cp, _ = icp.gicp_lm_plain(src, tgt, normals, nn, valid, x0, 10)
+    torch.testing.assert_close(x[0:3], xp[0:3], atol=1e-4, rtol=0)
+    dq = quat.multiply(quat.conjugate(xp[3:7]), x[3:7])
+    assert float(quat.to_axis_angle(dq).norm()) < 1e-4
+    torch.testing.assert_close(cost, cp, atol=0, rtol=1e-4)
+    flipped = icp.gicp_lm(src, tgt, -normals, nn, valid, x0, 10)
+    assert torch.equal(flipped[0], x) and torch.equal(flipped[1], cost)
+    assert int(its) >= 2
+
+
+def test_gicp_match_kernel(dev):
+    """The whole card gicp_match (K26, 6 x (K23 + K27), K23, stats) within
+    1e-4 m and 1e-4 rad of the twin's on the card."""
+    from cartographer_tpu_torch.ops import icp
+    from cartographer_tpu_torch.transform import quaternion as quat
+
+    src, sm, tgt, tm = _icp_clouds(dev, 4096)
+    x0 = _t(np.float32([0, 0, 0, 1, 0, 0, 0]), dev)
+    pose, fit, rmse = icp.gicp_match_vector(src, sm, tgt, tm, x0)
+    pose_p, fit_p, rmse_p = icp.gicp_match_plain(src, sm, tgt, tm, x0, icp.IcpParams())
+    torch.testing.assert_close(pose[0:3], pose_p[0:3], atol=1e-4, rtol=0)
+    dq = quat.multiply(quat.conjugate(pose_p[3:7]), pose[3:7])
+    assert float(quat.to_axis_angle(dq).norm()) < 1e-4
+    torch.testing.assert_close(fit, fit_p, atol=1e-5, rtol=0)
+    torch.testing.assert_close(rmse, rmse_p, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("resolution,extent", [(1.0, 32), (0.5, 24), (0.3, 32)])
+def test_ndt_grid_kernel(dev, resolution, extent):
+    """K28: valid and the means exact against the twin (both add each cell's
+    points in input order), L within 1e-5 of its largest entries (both
+    double, adjugate against LU)."""
+    from cartographer_tpu_torch.ops import icp
+
+    _, _, tgt, tm = _icp_clouds(dev, 4096)
+    params = icp.NdtParams(resolution=resolution, grid_extent=extent)
+    center = icp.ndt_center(tgt, tm)
+    means, L, valid, origin = icp.build_ndt_grid(tgt, tm, params, center)
+    rm, rL, rv, ro = icp.build_ndt_grid_plain(tgt, tm, params, center)
+    assert torch.equal(origin, ro) and torch.equal(valid, rv) and torch.equal(means, rm)
+    assert int(valid.sum()) > 10
+    torch.testing.assert_close(L[valid], rL[valid], atol=1e-5 * float(rL[valid].abs().max()),
+                               rtol=0)
+
+
+@pytest.mark.parametrize("resolution", [1.0, 0.5])
+def test_ndt_match_kernel(dev, resolution):
+    """K29 on K28's grid and the whole card ndt_match: pose within 1e-4 m
+    and 1e-4 rad, cost within 1e-4 relative, of the twins on the card."""
+    from cartographer_tpu_torch.ops import icp
+    from cartographer_tpu_torch.transform import quaternion as quat
+
+    src, sm, tgt, tm = _icp_clouds(dev, 4096)
+    params = icp.NdtParams(resolution=resolution)
+    x0 = _t(np.float32([0, 0, 0, 1, 0, 0, 0]), dev)
+    grid = icp.build_ndt_grid(tgt, tm, params, icp.ndt_center(tgt, tm))
+    x, cost, its = icp.ndt_lm(grid, src, sm, x0, params)
+    xp, cp, _ = icp.ndt_lm_plain(grid, src, sm, x0, params)
+    torch.testing.assert_close(x[0:3], xp[0:3], atol=1e-4, rtol=0)
+    dq = quat.multiply(quat.conjugate(xp[3:7]), x[3:7])
+    assert float(quat.to_axis_angle(dq).norm()) < 1e-4
+    torch.testing.assert_close(cost, cp, atol=0, rtol=1e-4)
+    assert int(its) >= 2
+    pose, c2 = icp.ndt_match_vector(src, sm, tgt, tm, x0, params)
+    assert torch.equal(pose, x) and torch.equal(c2, cost)
+
+
 @pytest.mark.parametrize("free_space", [0, 2])
 def test_dense_insert_kernel(dev, free_space):
     """K25: four inserts of rays in every octant, log-odds and known equal

@@ -77,12 +77,14 @@ def _args(mode, **kw):
     return args
 
 
-@pytest.mark.parametrize("mode", ["icp", "ceres"])
+@pytest.mark.parametrize("mode", ["icp", "ceres", "gicp", "ndt"])
 def test_run_matches_jax(tmp_path, mode):
     """`run` on the plain path against the JAX CLI's `run`: the same keys,
-    pose within 1e-4, fitness, RMSE and cost within 1e-4."""
+    pose within 1e-4, fitness, RMSE and cost within 1e-4 (`ndt` at
+    `NdtParams`' own 1 m cells)."""
     source, target = _pair_files(tmp_path)
-    args = _args(mode, init=[0.05, -0.02, 0.0, 0.0, 0.0, 0.02])
+    args = _args(mode, init=[0.05, -0.02, 0.0, 0.0, 0.0, 0.02],
+                 resolution=1.0 if mode == "ndt" else 0.3)
     ref = j_run(source, target, **args)
     got = scan_match_main.run(source, target, **args, device="cpu")
     assert set(got) == set(ref) and got["mode"] == mode
@@ -90,17 +92,30 @@ def test_run_matches_jax(tmp_path, mode):
     np.testing.assert_allclose(got["rotation_axis_angle"], ref["rotation_axis_angle"], atol=1e-4)
     for key in set(ref) - {"mode", "translation", "rotation_axis_angle"}:
         assert got[key] == pytest.approx(ref[key], abs=1e-4, rel=1e-4), key
-    if mode == "icp":
+    if mode in ("icp", "gicp"):
         np.testing.assert_allclose(got["translation"], [0.3, -0.2, 0.1], atol=0.08)
 
 
-@pytest.mark.parametrize("mode", ["gicp", "ndt"])
-def test_unported_modes_raise(tmp_path, mode):
+def test_unknown_mode_raises(tmp_path):
     source, target = _pair_files(tmp_path, n=50)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        scan_match_main.run(source, target, **_args(mode), device="cpu")
     with pytest.raises(ValueError, match="unknown mode"):
         scan_match_main.run(source, target, **_args("lm"), device="cpu")
+
+
+@pytest.mark.parametrize("mode", ["gicp", "ndt"])
+def test_main_runs_gicp_and_ndt(tmp_path, capsys, mode):
+    """`main --device cpu` prints the JAX CLI's keys and a pose within 1e-4
+    of the JAX `run` on the same flags."""
+    source, target = _pair_files(tmp_path, n=400)
+    flags = ["--source", source, "--target", target, "--mode", mode, "--max_iterations", "10",
+             "--resolution", "1.0", "--device", "cpu"]
+    assert scan_match_main.main(flags) == 0
+    printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    ref = j_run(source, target, **_args(mode, max_iterations=10, resolution=1.0))
+    assert set(printed) == set(ref) and printed["mode"] == mode
+    np.testing.assert_allclose(printed["translation"], ref["translation"], atol=1e-4)
+    np.testing.assert_allclose(printed["rotation_axis_angle"], ref["rotation_axis_angle"],
+                               atol=1e-4)
 
 
 def test_main_prints_the_json_of_run(tmp_path, capsys):
