@@ -1,7 +1,8 @@
 // Bitonic sort of distinct 64-bit keys in device memory, ascending, in place,
 // over as many blocks as the keys need. Shared by K18 (paged_grid_3d.cu:
-// tile_steps up to one tile of keys, the whole sort above) and K20
-// (tsdf_2d.cu).
+// tile_steps up to one tile of keys, the whole sort above), K20
+// (tsdf_2d.cu), K12, K28, K30 (grid_3d.cu) and K31 (voxel_filter.cu, whose
+// keys repeat: equal keys end up together, in some order).
 //
 // The count is a power of two. Every stage k and step j of the network that
 // stays within a tile of kSortTile keys runs in shared memory, one tile per

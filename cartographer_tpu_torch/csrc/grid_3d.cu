@@ -1,8 +1,9 @@
-// K25 dense_insert_3d
+// K25 dense_insert_3d, K30 dense_intensity_insert_3d
 //
-// Replaces: cartographer_tpu/ops/grid_3d.py:insert_range_data_3d (l.95) with
-// _flat_index (l.88): RangeDataInserter3D::Insert into a dense S^3 log-odds
-// grid, K9's semantics on a dense index.
+// K25 replaces: cartographer_tpu/ops/grid_3d.py:insert_range_data_3d (l.95)
+// with _flat_index (l.88): RangeDataInserter3D::Insert into a dense S^3
+// log-odds grid, K9's semantics on a dense index. K30 replaces
+// insert_intensities (l.144); see its section at the end of this file.
 //
 // Two launches after a memset of two S^3 byte scratches. The mark pass runs
 // one thread per return and per free-space sample: the return's cell
@@ -25,6 +26,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "bitonic_sort.cuh"
 
 namespace {
 
@@ -119,5 +122,101 @@ extern "C" int dense_insert_3d(const void* log_odds, const void* known, const vo
   apply_kernel<<<(unsigned int)((cells + kThreads - 1) / kThreads), kThreads, 0, st>>>(
       (const float*)log_odds, (const uint8_t*)known, (const uint8_t*)hit, (const uint8_t*)miss,
       cells, hit_lo, miss_lo, min_lo, max_lo, (float*)out_log_odds, (uint8_t*)out_known);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- K30
+//
+// InsertIntensitiesIntoGrid into a dense S^3 running-average grid (sums and
+// counts, float32, in place): K18's semantics on a dense index. A return
+// adds its intensity and 1 to its cell floor((p - origin) / resolution) (a
+// true division) when it is masked in, its intensity is at most the
+// threshold (NaN is not) and the cell is inside the cube; the others add
+// nothing. XLA's scatter-add on the CPU adds each cell's returns in input
+// order, and float atomics would not, so: one launch writes the 64-bit key
+// (cell << 32 | return index) per return, (all ones << 32 | index) for the
+// returns that add nothing and all ones for the padding to a power of two;
+// bitonic_sort.cuh sorts them (any size); in the last launch the thread at
+// the head of each run of one cell adds the run's intensities and counts to
+// the cell's old values in input order and writes the cell once. No
+// atomics: the sums equal the twin's and the JAX program's bit for bit,
+// and a run on the card repeats.
+//
+// Bound: bytes, N returns read once (17 bytes each) and every touched
+// cell's sum and count read and written once (16 bytes); the sort's passes
+// make it latency-bound. The grid is never swept (16.8 M cells at S = 256).
+
+namespace {
+
+constexpr unsigned int kNoCell = 0xFFFFFFFFu;
+
+__global__ void intensity_keys_kernel(const float* __restrict__ returns,
+                                      const float* __restrict__ intensities,
+                                      const uint8_t* __restrict__ mask, int n, int npad,
+                                      const float* __restrict__ grid_origin, float resolution,
+                                      int size, float threshold,
+                                      unsigned long long* __restrict__ keys) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= npad) return;
+  if (i >= n) {
+    keys[i] = ~0ull;
+    return;
+  }
+  unsigned int cell = kNoCell;
+  if (mask[i] && intensities[i] <= threshold) {
+    int c[3];
+    bool inside = true;
+    for (int a = 0; a < 3; ++a) {
+      const float f = floorf((returns[3 * (size_t)i + a] - grid_origin[a]) / resolution);
+      inside = inside && f >= 0.0f && f < (float)size;
+      c[a] = inside ? (int)f : 0;
+    }
+    if (inside) cell = (unsigned int)(((long long)c[0] * size + c[1]) * size + c[2]);
+  }
+  keys[i] = ((unsigned long long)cell << 32) | (unsigned int)i;
+}
+
+// The head of each run of one cell adds the run to the cell in input order.
+__global__ void intensity_runs_kernel(const unsigned long long* __restrict__ keys, int n,
+                                      const float* __restrict__ intensities,
+                                      float* __restrict__ sums, float* __restrict__ counts) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const unsigned int cell = (unsigned int)(keys[i] >> 32);
+  if (cell == kNoCell || (i > 0 && (unsigned int)(keys[i - 1] >> 32) == cell)) return;
+  float s = sums[cell], c = counts[cell];
+  for (int j = i; j < n && (unsigned int)(keys[j] >> 32) == cell; ++j) {
+    s = s + intensities[keys[j] & 0xFFFFFFFFull];
+    c = c + 1.0f;
+  }
+  sums[cell] = s;
+  counts[cell] = c;
+}
+
+}  // namespace
+
+// Adds in place into `sums` and `counts` (size^3 each, under 2^32 - 1 cells).
+// `keys` holds max(2, next_pow2(n)) int64 of scratch.
+extern "C" int dense_intensity_insert_3d(void* sums, void* counts, const void* grid_origin,
+                                         float resolution, int size, const void* returns,
+                                         const void* intensities, const void* mask, int n,
+                                         float threshold, void* keys, void* stream) {
+  if (size < 1 || n < 0 || keys == nullptr ||
+      (long long)size * size * size >= (long long)kNoCell)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  int npad = 2;
+  while (npad < n) npad <<= 1;
+  cudaStream_t st = (cudaStream_t)stream;
+  unsigned long long* k = (unsigned long long*)keys;
+  intensity_keys_kernel<<<(npad + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+      (const float*)returns, (const float*)intensities, (const uint8_t*)mask, n, npad,
+      (const float*)grid_origin, resolution, size, threshold, k);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = bitonic::sort(k, npad, st);
+  if (err != cudaSuccess) return (int)err;
+  intensity_runs_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+      k, n, (const float*)intensities, (float*)sums, (float*)counts);
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,9 @@
-// K2 voxel_filter
+// K2 voxel_filter, K31 voxel_filter_edge
 //
-// Replaces: cartographer_tpu/sensor/voxel_filter.py:voxel_filter_mask (l.67,
-// with _packed_voxel_keys l.38) and adaptive_voxel_filter (l.97).
+// K2 replaces: cartographer_tpu/sensor/voxel_filter.py:voxel_filter_mask
+// (l.67, with _packed_voxel_keys l.38) and adaptive_voxel_filter (l.97).
+// K31 replaces voxel_filter_edge (l.145, with _run_boundaries l.25); see its
+// section at the end of this file.
 //
 // The JAX filter shuffles the cloud with a permutation, stable-sorts it by
 // packed voxel key and keeps the last point of each run of equal keys. The
@@ -35,6 +37,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bitonic_sort.cuh"
 
 namespace {
 
@@ -238,5 +242,120 @@ extern "C" int voxel_filter(const void* points, int stride, int dim, const void*
   voxel_filter_kernel<false><<<1, kThreads, shared, st>>>(
       (const float*)points, stride, dim, (const uint8_t*)mask, (const int*)perm, n, slots,
       adaptive, resolution_or_max_length, min_num_points, max_range, (uint8_t*)keep, nullptr);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- K31
+//
+// The fork's edge filter: keep the valid points whose voxel holds fewer than
+// int32(float32(max_count) * float32(ratio)) valid points, max_count being
+// the largest voxel's population. The JAX program lexsorts the packed keys,
+// counts each run and takes the maximum over the valid points.
+//
+// Here: one launch writes K2's packed voxel key per valid point (the key
+// code above: a true division, floor(p / resolution + 0.5), clipped and
+// biased fields, z in the high word) and an all-ones sentinel for masked
+// points and the padding to a power of two; bitonic_sort.cuh sorts them
+// (any size); then one thread per valid point finds its key's run in the
+// sorted keys by two binary searches, so the run's length is its count,
+// and takes the block's maximum in shared memory and the cloud's with one
+// atomicMax per block; a last launch applies the threshold. Masked points
+// never reach the maximum, and every output is an integer, so the mask
+// equals the twin's and the JAX program's exactly.
+//
+// Bound: bytes, N points and flags read and N flags written once; the sort's
+// passes and the binary searches (2 log2 N reads of L2 per point) make it
+// latency-bound.
+
+namespace {
+
+constexpr int kEdgeThreads = 256;
+
+__global__ void edge_keys_kernel(const float* __restrict__ points, int stride, int dim,
+                                 const uint8_t* __restrict__ mask, int n, int npad,
+                                 float resolution, unsigned long long* __restrict__ keys) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= npad) return;
+  keys[i] = (i < n && mask[i]) ? voxel_key(points + (size_t)i * stride, dim, resolution)
+                               : kEmpty;
+}
+
+// The first position in keys[0, count) whose key is >= v.
+__device__ inline int first_not_below(const unsigned long long* keys, int count,
+                                      unsigned long long v) {
+  int lo = 0, hi = count;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (keys[mid] < v) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+__global__ void edge_counts_kernel(const float* __restrict__ points, int stride, int dim,
+                                   const uint8_t* __restrict__ mask, int n, int npad,
+                                   float resolution,
+                                   const unsigned long long* __restrict__ sorted,
+                                   int* __restrict__ counts, int* __restrict__ max_count) {
+  __shared__ int block_max;
+  if (threadIdx.x == 0) block_max = 0;
+  __syncthreads();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) {
+    int c = 0;
+    if (mask[i]) {
+      // Valid keys are below 0xFFFE'FFFE'FFFF, so key + 1 does not wrap.
+      const unsigned long long key =
+          voxel_key(points + (size_t)i * stride, dim, resolution);
+      c = first_not_below(sorted, npad, key + 1) - first_not_below(sorted, npad, key);
+      atomicMax(&block_max, c);
+    }
+    counts[i] = c;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0 && block_max > 0) atomicMax(max_count, block_max);
+}
+
+__global__ void edge_keep_kernel(const uint8_t* __restrict__ mask, int n,
+                                 const int* __restrict__ counts,
+                                 const int* __restrict__ max_count, float ratio,
+                                 uint8_t* __restrict__ keep) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int threshold = (int)((float)*max_count * ratio);  // truncates, as astype(int32)
+  keep[i] = mask[i] && counts[i] < threshold;
+}
+
+}  // namespace
+
+// `keys` holds max(2, next_pow2(n)) int64 of scratch, `counts` n + 1 int32
+// (the last one the maximum).
+extern "C" int voxel_filter_edge(const void* points, int stride, int dim, const void* mask,
+                                 int n, float resolution, float ratio, void* keep, void* keys,
+                                 void* counts, void* stream) {
+  if (n < 1 || (dim != 2 && dim != 3) || keys == nullptr || counts == nullptr)
+    return (int)cudaErrorInvalidValue;
+  int npad = 2;
+  while (npad < n) npad <<= 1;
+  cudaStream_t st = (cudaStream_t)stream;
+  int* max_count = (int*)counts + n;
+  cudaError_t err = cudaMemsetAsync(max_count, 0, sizeof(int), st);
+  if (err != cudaSuccess) return (int)err;
+  unsigned long long* k = (unsigned long long*)keys;
+  edge_keys_kernel<<<(npad + kEdgeThreads - 1) / kEdgeThreads, kEdgeThreads, 0, st>>>(
+      (const float*)points, stride, dim, (const uint8_t*)mask, n, npad, resolution, k);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = bitonic::sort(k, npad, st);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (n + kEdgeThreads - 1) / kEdgeThreads;
+  edge_counts_kernel<<<blocks, kEdgeThreads, 0, st>>>(
+      (const float*)points, stride, dim, (const uint8_t*)mask, n, npad, resolution, k,
+      (int*)counts, max_count);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  edge_keep_kernel<<<blocks, kEdgeThreads, 0, st>>>((const uint8_t*)mask, n,
+                                                     (const int*)counts, max_count, ratio,
+                                                     (uint8_t*)keep);
   return (int)cudaGetLastError();
 }

@@ -1,1 +1,3 @@
-"""io modules of the PyTorch port: the PCD reader and the scan-match testbed."""
+"""io modules of the PyTorch port: the PCD reader, the scan-match testbed, and
+state interchange (pbstream framing, the native and reference formats, the
+pbstream CLI)."""

@@ -10,10 +10,16 @@ graph's IMU terms), else 2D. The device flows down to the frontends, the
 constraint builders and the solvers; it is the card unless the caller asks
 for the CPU, and the constructor raises when there is no card.
 
+`serialize_state` writes the pose graph to a pbstream in the native format
+or the reference's proto schema (`io/serialization.py`,
+`io/carto_pbstream.py`); `load_state` reads either, with its grids on the
+builder's device, frozen by default, so that a new trajectory localizes
+against the loaded map.
+
 Not ported, and refused with NotImplementedError: cross-robot batched
-dispatch, the trimmers (pure localization among them), landmarks,
-pose-graph-only (uplinked) trajectories, a device mesh or multihost process
-group, and serialize_state / load_state.
+dispatch, the trimmers (pure localization among them), landmark
+observations, pose-graph-only (uplinked) trajectories, and a device mesh or
+multihost process group.
 """
 
 from __future__ import annotations
@@ -26,6 +32,13 @@ import torch
 from cartographer_tpu_torch import metrics
 from cartographer_tpu_torch.core.config import MapBuilderOptions, TrajectoryBuilderOptions
 from cartographer_tpu_torch.core.time import Time
+from cartographer_tpu_torch.io.carto_pbstream import (
+    is_carto_stream,
+    load_carto_state,
+    write_carto_state,
+)
+from cartographer_tpu_torch.io.pbstream import ProtoStreamReader, ProtoStreamWriter
+from cartographer_tpu_torch.io.serialization import load_state, serialize_state
 from cartographer_tpu_torch.mapping.local_trajectory_builder_2d import (
     LocalTrajectoryBuilder2D,
     MatchingResult,
@@ -139,6 +152,7 @@ class MapBuilder:
                                 device=self._device)
         self._collator = TrajectoryCollator() if options.collate_by_trajectory else Collator()
         self._builders: Dict[int, GlobalTrajectoryBuilder] = {}
+        self._frozen: List[int] = []  # trajectory ids loaded by load_state
 
     def add_trajectory_builder(
             self, expected_sensor_ids: List[str], trajectory_options: TrajectoryBuilderOptions,
@@ -152,7 +166,7 @@ class MapBuilder:
             raise NotImplementedError("pose-graph-only (uplinked) trajectories are not ported")
         if trajectory_options.pure_localization_trimmer is not None:
             raise NotImplementedError("the pure-localization trimmer is not ported")
-        trajectory_id = len(self._builders)
+        trajectory_id = len(self._builders) + len(self._frozen)
         range_ids = [s for s in expected_sensor_ids
                      if s.startswith("range") or "laser" in s or "points" in s]
         if self._options.use_trajectory_builder_3d:
@@ -202,8 +216,31 @@ class MapBuilder:
     def get_trajectory_builder(self, trajectory_id: int) -> GlobalTrajectoryBuilder:
         return self._builders[trajectory_id]
 
-    def serialize_state(self, *args, **kwargs) -> None:
-        raise NotImplementedError("state serialization is not ported")
+    def serialize_state(self, writer_or_path, include_unfinished_submaps: bool = True,
+                        format: str = "native") -> None:
+        """MapBuilder::SerializeState (map_builder.cc:213-225), once the
+        background searches and solves have drained. `format` "native"
+        writes the MessagePack records the JAX package writes, "carto" the
+        reference's proto schema."""
+        if format not in ("native", "carto"):
+            raise ValueError(f"unknown pbstream format {format!r}")
+        self.pose_graph.wait_for_optimization()
+        self.pose_graph.wait_for_all_computations()
+        writer = (writer_or_path if isinstance(writer_or_path, ProtoStreamWriter)
+                  else ProtoStreamWriter(writer_or_path))
+        write = write_carto_state if format == "carto" else serialize_state
+        write(self.pose_graph, writer, include_unfinished_submaps)
+        writer.close()
 
-    def load_state(self, *args, **kwargs):
-        raise NotImplementedError("state loading is not ported")
+    def load_state(self, reader_or_path, load_frozen_state: bool = True) -> Dict[int, int]:
+        """MapBuilder::LoadState (map_builder.cc:227-395) of a native or a
+        reference-schema pbstream; returns the trajectory id remapping. The
+        loaded trajectories count toward the ids of new ones."""
+        reader = (reader_or_path if isinstance(reader_or_path, ProtoStreamReader)
+                  else ProtoStreamReader(reader_or_path))
+        records = list(reader)
+        reader.close()
+        load = load_carto_state if records and is_carto_stream(records[0]) else load_state
+        remapping = load(records, self.pose_graph, frozen=load_frozen_state)
+        self._frozen.extend(sorted(set(remapping.values())))
+        return remapping

@@ -12,7 +12,11 @@ trajectory's fixed-frame origin is a submap-side slot).
 With `num_background_threads` > 0 the searches run on a thread pool and the
 solves on one optimizer thread while the frontend keeps adding nodes (the
 reference's work queue, pose_graph_2d.cc:520-544); pending pairs coalesce
-across nodes. Landmarks and the trimmers are not ported.
+across nodes. A trajectory loaded frozen (`freeze_trajectory`, from a saved
+map) keeps its submap and node poses fixed in every solve and adds no
+consecutive-node terms, so new trajectories localize against it. Landmark
+poses are kept as state only, so that a saved map passes through unchanged;
+landmark observations and the trimmers are not ported.
 """
 
 from __future__ import annotations
@@ -59,6 +63,7 @@ class SubmapDataEntry:
     global_pose_2d: np.ndarray  # (3,)
     node_ids: Set[NodeId] = dataclasses.field(default_factory=set)
     finished: bool = False
+    frozen: bool = False
 
 
 def _pose2d_of_node(node: TrajectoryNode) -> np.ndarray:
@@ -161,9 +166,20 @@ class PoseGraph2D:
         self._fixed_frame_data = MapByTime()
         # Learned fixed-frame origin in the map per trajectory, [x, y, theta].
         self.fixed_frame_origin: Dict[int, np.ndarray] = {}
+        self._frozen_trajectories: Set[int] = set()
+        # Landmark poses [x, y, theta] and the frozen ones, carried by saved
+        # maps (no observation adds to them here).
+        self.landmark_poses: Dict[str, np.ndarray] = {}
+        self._frozen_landmarks: Set[str] = set()
+        # PoseGraphInterface::TrajectoryState (ACTIVE/FINISHED/FROZEN).
+        self.trajectory_states: Dict[int, str] = {}
         # Solves run and their wall seconds (problem build, solve, fetch).
         self.solves = 0
         self.solve_seconds = 0.0
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
 
     @property
     def constraint_builder(self) -> ConstraintBuilder2D:
@@ -183,6 +199,7 @@ class PoseGraph2D:
         (pose_graph_2d.cc:126-170, 312-402)."""
         with self._result_lock:
             self._connectivity.add(trajectory_id)
+            self.trajectory_states.setdefault(trajectory_id, "ACTIVE")
             node_id = NodeId(trajectory_id, self.nodes.append(trajectory_id, node))
             submap_ids = self._register_insertion_submaps(trajectory_id, insertion_submaps)
             for sid in submap_ids:
@@ -419,11 +436,12 @@ class PoseGraph2D:
             for (tid, sindex), entry in self.submap_data.items():
                 submap_slots[SubmapId(tid, sindex)] = len(sub_poses)
                 sub_poses.append(entry.global_pose_2d)
-                sub_fixed.append(len(sub_poses) == 1)  # the first submap anchors the map
+                # The first submap anchors the map; frozen trajectories stay.
+                sub_fixed.append(tid in self._frozen_trajectories or len(sub_poses) == 1)
             for (tid, nindex), node in self.nodes.items():
                 node_slots[NodeId(tid, nindex)] = len(node_poses)
                 node_poses.append(node.global_pose_2d)
-                node_fixed.append(False)
+                node_fixed.append(tid in self._frozen_trajectories)
             tail_anchor = {tid: SubmapId(tid, sindex)
                            for (tid, sindex), _ in self.submap_data.items()}
             anchor_old = {tid: self.submap_data[sid].global_pose_2d.copy()
@@ -442,6 +460,8 @@ class PoseGraph2D:
             # (optimization_problem_2d.cc:304-349).
             j_idx, nn_rels, nn_tws, nn_rws = [], [], [], []
             for tid in self.nodes.trajectory_ids():
+                if tid in self._frozen_trajectories:
+                    continue
                 items = self.nodes.trajectory(tid)
                 odo = self._odometry_poses_at(tid, [n.time for _, n in items])
                 for k, ((i1, n1), (i2, n2)) in enumerate(zip(items, items[1:])):
@@ -574,9 +594,16 @@ class PoseGraph2D:
     def add_landmark_data(self, trajectory_id: int, data) -> None:
         raise NotImplementedError("landmarks are not ported")
 
+    def freeze_trajectory(self, trajectory_id: int) -> None:
+        self._frozen_trajectories.add(trajectory_id)
+        self.trajectory_states[trajectory_id] = "FROZEN"
+        self._connectivity.add(trajectory_id)
+
     def finish_trajectory(self, trajectory_id: int) -> None:
         """The trajectory is finished once its pending searches and any
         solve in flight have drained (pose_graph_2d.cc:546+)."""
+        if self.trajectory_states.get(trajectory_id) != "FROZEN":
+            self.trajectory_states[trajectory_id] = "FINISHED"
         self.wait_for_all_computations()
         self.wait_for_optimization()
 

@@ -16,8 +16,10 @@ solves on one optimizer thread while the frontend keeps adding nodes;
 pending pairs coalesce across nodes. The IMU integration starts its walk at
 the first sample after the interval's start (a bisection), where the JAX
 module walks the queue from its first sample, and keeps each interval's
-result for later solves. Landmarks and the trimmers are not ported and
-raise.
+result for later solves. A frozen trajectory (a loaded map) stays fixed in
+every solve. Landmark poses are kept as state only, so that a saved map
+passes through unchanged; landmark observations and the trimmers are not
+ported and raise.
 """
 
 from __future__ import annotations
@@ -141,11 +143,21 @@ class PoseGraph3D:
         # TrajectoryData): gravity constant, IMU calibration quaternion and
         # fixed-frame origin, carried across optimizations.
         self.trajectory_data: Dict[int, Dict] = {}
+        # Landmark poses [t (3) | q (4)] and the frozen ones, carried by
+        # saved maps (no observation adds to them here).
+        self.landmark_poses: Dict[str, np.ndarray] = {}
+        self._frozen_landmarks: Set[str] = set()
+        # PoseGraphInterface::TrajectoryState (ACTIVE/FINISHED/FROZEN).
+        self.trajectory_states: Dict[int, str] = {}
         # Solves run, their wall seconds (snapshot, upload, solve, fetch) and
         # the host seconds of their problem snapshots.
         self.solves = 0
         self.solve_seconds = 0.0
         self.snapshot_seconds = 0.0
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
 
     @property
     def constraint_builder(self) -> ConstraintBuilder3D:
@@ -257,6 +269,7 @@ class PoseGraph3D:
         """PoseGraph3D::AddNode + ComputeConstraintsForNode."""
         with self._result_lock:
             self._connectivity.add(trajectory_id)
+            self.trajectory_states.setdefault(trajectory_id, "ACTIVE")
             node_id = NodeId(trajectory_id, self.nodes.append(trajectory_id, node))
             submap_ids = self._register_insertion_submaps(trajectory_id, insertion_submaps)
             for sid in submap_ids:
@@ -683,11 +696,14 @@ class PoseGraph3D:
 
     def freeze_trajectory(self, trajectory_id: int) -> None:
         self._frozen_trajectories.add(trajectory_id)
+        self.trajectory_states[trajectory_id] = "FROZEN"
         self._connectivity.add(trajectory_id)
 
     def finish_trajectory(self, trajectory_id: int) -> None:
         """The trajectory is finished once its pending searches and any
         solve in flight have drained."""
+        if self.trajectory_states.get(trajectory_id) != "FROZEN":
+            self.trajectory_states[trajectory_id] = "FINISHED"
         self.wait_for_all_computations()
         self.wait_for_optimization()
 

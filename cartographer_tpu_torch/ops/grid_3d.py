@@ -7,8 +7,10 @@ running-average intensity volume (sums and counts); cell (i, j, k) covers
 cropping paged grids (`ops/paged_grid_3d.py:crop_dense`,
 `crop_dense_intensity`); the scan-match testbed fills a `Grid3D` with
 `insert_range_data_3d`, which launches `csrc/grid_3d.cu` (K25) on CUDA
-tensors and runs its plain twin on CPU tensors. The dense intensity
-inserter (`insert_intensities`) is not ported yet.
+tensors and runs its plain twin on CPU tensors. `insert_intensities` adds
+returns into an `IntensityGrid3D` in place, each cell's returns in input
+order: `csrc/grid_3d.cu` (K30) on CUDA tensors, its plain twin on CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from cartographer_tpu_torch.core.tensor import to_device, true_div
+from cartographer_tpu_torch.core.tensor import f32, index_add_in_order_, to_device, true_div
 from cartographer_tpu_torch.ops import cuda
 from cartographer_tpu_torch.ops.probability import (
     MAX_LOG_ODDS,
@@ -34,6 +36,8 @@ _P, _F, _I = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
 _INSERT_KERNEL = cuda.CudaKernel(
     "grid_3d.cu", "dense_insert_3d",
     [_P, _P, _P, _F, _I, _P, _P, _P, _I, _F, _F, _I, _F, _F, _P, _P, _P, _P])
+_INTENSITY_KERNEL = cuda.CudaKernel(
+    "grid_3d.cu", "dense_intensity_insert_3d", [_P, _P, _P, _F, _I, _P, _P, _P, _I, _F, _P])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -181,3 +185,53 @@ def insert_range_data_3d(grid: Grid3D, origin: torch.Tensor, returns: torch.Tens
     insert = _insert_kernel if returns.is_cuda else insert_range_data_3d_plain
     return insert(grid, origin, returns, mask, hit_probability, miss_probability,
                   num_free_space_voxels)
+
+
+# ---------------------------------------------------------------- K30 insert
+
+
+def _intensity_cells(grid: IntensityGrid3D, returns, intensities, mask, threshold: float):
+    """-> (lin (N,) int64, ok (N,)): each return's flat cell and whether it
+    adds (masked in, intensity <= threshold, inside the cube)."""
+    s = grid.size
+    cells = torch.floor(grid.world_to_cell_continuous(returns)).to(torch.int32)
+    valid = mask & (intensities <= f32(threshold))
+    ok = ((cells >= 0) & (cells < s)).all(dim=-1) & valid
+    cells = cells.long()
+    return (cells[:, 0] * s + cells[:, 1]) * s + cells[:, 2], ok
+
+
+def insert_intensities_plain(grid: IntensityGrid3D, returns: torch.Tensor,
+                             intensities: torch.Tensor, mask: torch.Tensor,
+                             intensity_threshold: float) -> IntensityGrid3D:
+    """The plain twin of K30: each cell's returns added to its old sum and
+    count in input order, in place."""
+    lin, ok = _intensity_cells(grid, returns, intensities, mask, intensity_threshold)
+    lin = lin[ok]
+    index_add_in_order_(grid.sums.view(-1), lin, intensities[ok])
+    index_add_in_order_(grid.counts.view(-1), lin, torch.ones_like(intensities[ok]))
+    return grid
+
+
+def insert_intensities(grid: IntensityGrid3D, returns: torch.Tensor, intensities: torch.Tensor,
+                       mask: torch.Tensor, intensity_threshold: float) -> IntensityGrid3D:
+    """InsertIntensitiesIntoGrid: the masked `returns` (N, 3) in the grid
+    frame whose `intensities` (N,) are at most the threshold add their
+    intensity and 1 to their cell's sum and count; returns outside the cube
+    add nothing. In place; returns `grid`."""
+    if not returns.is_cuda:
+        return insert_intensities_plain(grid, returns, intensities, mask, intensity_threshold)
+    s, n = grid.size, returns.shape[0]
+    cuda.check(grid.sums, "sums", torch.float32, (s, s, s))
+    cuda.check(grid.counts, "counts", torch.float32, (s, s, s))
+    cuda.check(grid.origin, "grid origin", torch.float32, (3,))
+    cuda.check(returns, "returns", torch.float32, (n, 3))
+    cuda.check(intensities, "intensities", torch.float32, (n,))
+    cuda.check(mask, "mask", torch.bool, (n,))
+    keys = torch.empty(max(2, 1 << max(n - 1, 0).bit_length()), dtype=torch.int64,
+                       device=returns.device)
+    _INTENSITY_KERNEL(returns.device, grid.sums.data_ptr(), grid.counts.data_ptr(),
+                      grid.origin.data_ptr(), grid.resolution, s, returns.data_ptr(),
+                      intensities.data_ptr(), mask.data_ptr(), n, f32(intensity_threshold),
+                      keys.data_ptr())
+    return grid

@@ -44,7 +44,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from cartographer_tpu_torch.core.tensor import f32, true_div
+from cartographer_tpu_torch.core.tensor import f32, index_add_in_order_, true_div
 from cartographer_tpu_torch.ops import cuda
 from cartographer_tpu_torch.ops.correlative_2d import tree_sum
 from cartographer_tpu_torch.ops.gauss_newton import lm_solve
@@ -559,25 +559,9 @@ def _ndt_cells(points, mask, origin, resolution: float, g: int):
 
 def _cell_sums(lin: torch.Tensor, values: torch.Tensor, cells: int) -> torch.Tensor:
     """(cells, F): the rows of `values` (N, F) added into their cell `lin`
-    from zero in input order (XLA's scatter-add on the CPU, K28's order):
-    the r-th point of every cell at once, for r = 0, 1, ..., so that no two
-    adds of one launch meet in a cell."""
+    from zero in input order (XLA's scatter-add on the CPU, K28's order)."""
     out = torch.zeros((cells, values.shape[1]), dtype=values.dtype, device=values.device)
-    if lin.numel() == 0:
-        return out
-    order = torch.sort(lin, stable=True).indices
-    keys = lin[order]
-    pos = torch.arange(keys.shape[0], device=lin.device)
-    first = torch.ones_like(keys, dtype=torch.bool)
-    first[1:] = keys[1:] != keys[:-1]
-    rank = pos - torch.cummax(torch.where(first, pos, torch.zeros_like(pos)), 0).values
-    by_rank = torch.sort(rank, stable=True).indices  # rank-major, then cell
-    keys, values = keys[by_rank], values[order[by_rank]]
-    start = 0
-    for end in torch.bincount(rank).cumsum(0).tolist():
-        out.index_add_(0, keys[start:end], values[start:end])
-        start = end
-    return out
+    return index_add_in_order_(out, lin, values)
 
 
 def _ndt_origin(center: torch.Tensor, params: NdtParams) -> torch.Tensor:

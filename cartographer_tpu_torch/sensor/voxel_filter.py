@@ -1,4 +1,4 @@
-"""Voxel downsampling: the random voxel filter and the adaptive voxel filter.
+"""Voxel downsampling: the random, adaptive and edge voxel filters.
 
 Counterpart of the JAX package's `sensor/voxel_filter.py`
 (sensor/internal/voxel_filter.cc). The JAX filter draws its shuffle from
@@ -11,7 +11,9 @@ tensors and run the plain PyTorch twin, the JAX algorithm written in
 PyTorch (shuffle, stable sort by packed key, last point of each run), on
 CPU tensors. The kernel takes clouds of any size: above one block's shared
 memory its hash table moves to a device-memory scratch that the wrapper
-always passes.
+always passes. The fork's edge filter (`voxel_filter_edge`) keeps the points
+of sparsely populated voxels: K31 in the same source on CUDA tensors, its
+plain twin (the JAX program: sorted keys, run lengths) on CPU tensors.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import ctypes
 
 import torch
 
-from cartographer_tpu_torch.core.tensor import true_div
+from cartographer_tpu_torch.core.tensor import f32, true_div
 from cartographer_tpu_torch.ops import cuda
 from cartographer_tpu_torch.sensor.point_cloud import PointCloud
 
@@ -34,6 +36,10 @@ _KERNEL = cuda.CudaKernel(
     [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
      ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+_EDGE_KERNEL = cuda.CudaKernel(
+    "voxel_filter.cu", "voxel_filter_edge",
+    [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+     ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
 
 
 # ---------------------------------------------------------------- plain twin
@@ -91,6 +97,24 @@ def adaptive_voxel_filter_mask_plain(points, mask, max_length, min_num_points,
                        voxel_filter_mask_plain(points, base, lengths[-1], perm), keep)
 
 
+def voxel_filter_edge_plain(points, mask, resolution, voxel_edge_ratio) -> torch.Tensor:
+    """The plain twin of K31: the JAX program's sort, run lengths and
+    threshold int32(float32(max_count) * float32(ratio))."""
+    n = points.shape[0]
+    keys = _packed_voxel_keys(points, mask, resolution)
+    sorted_keys, order = torch.sort(keys, stable=True)
+    run_start = torch.ones_like(mask)
+    run_start[1:] = sorted_keys[1:] != sorted_keys[:-1]
+    run_id = torch.cumsum(run_start.to(torch.int64), 0) - 1
+    counts = torch.bincount(run_id, minlength=n)
+    per_point = torch.empty_like(counts)
+    per_point[order] = counts[run_id]
+    max_count = torch.where(mask, per_point, torch.zeros_like(per_point)).max()
+    ratio = torch.tensor(voxel_edge_ratio, dtype=torch.float32, device=points.device)
+    threshold = (max_count.to(torch.float32) * ratio).to(torch.int64)
+    return mask & (per_point < threshold)
+
+
 # ---------------------------------------------------------------- kernel
 
 
@@ -143,3 +167,35 @@ def adaptive_voxel_filter(cloud: PointCloud, max_length: float, min_num_points: 
         keep = adaptive_voxel_filter_mask_plain(cloud.points, cloud.mask, max_length,
                                                 min_num_points, max_range, perm)
     return cloud.filter_mask(keep)
+
+
+def voxel_filter_edge_mask(points: torch.Tensor, mask: torch.Tensor, resolution: float,
+                           voxel_edge_ratio: float = 0.5) -> torch.Tensor:
+    """Keep-mask of the fork's edge filter (voxel_filter.cc
+    EdgeVoxelFilterIndices): the valid points whose voxel of edge
+    `resolution` holds fewer than `voxel_edge_ratio` x the largest voxel's
+    population."""
+    n, dim = points.shape
+    if n == 0:
+        return mask.clone()
+    if not points.is_cuda:
+        return voxel_filter_edge_plain(points, mask, resolution, voxel_edge_ratio)
+    if dim not in (2, 3) or points.stride(1) != 1 or points.dtype != torch.float32:
+        raise ValueError("points must be (N, 2) or (N, 3) float32 with unit column stride")
+    cuda.check(mask, "mask", torch.bool, (n,))
+    keep = torch.empty(n, dtype=torch.bool, device=points.device)
+    keys = torch.empty(max(2, 1 << (n - 1).bit_length()), dtype=torch.int64,
+                       device=points.device)
+    counts = torch.empty(n + 1, dtype=torch.int32, device=points.device)
+    _EDGE_KERNEL(points.device, points.data_ptr(), points.stride(0), dim, mask.data_ptr(), n,
+                 f32(resolution), f32(voxel_edge_ratio), keep.data_ptr(), keys.data_ptr(),
+                 counts.data_ptr())
+    return keep
+
+
+def voxel_filter_edge(cloud: PointCloud, resolution: float,
+                      voxel_edge_ratio: float = 0.5) -> PointCloud:
+    """The fork's edge-preserving filter: points on sparsely sampled
+    structure (edges) survive."""
+    return cloud.filter_mask(voxel_filter_edge_mask(cloud.points, cloud.mask, resolution,
+                                                    voxel_edge_ratio))

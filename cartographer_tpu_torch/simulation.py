@@ -111,8 +111,10 @@ def raycast(walls: np.ndarray, origins: np.ndarray, angles: np.ndarray,
 
 def simulate_scans(num_scans: int, beams: int = 1081, period: float = 0.1,
                    speed: float = 2.1, ramp: float = 6.0, max_range: float = 30.0,
-                   fov: float = 2.0 * np.pi, noise: float = 0.005, seed: int = 0):
-    """Scans of the floor plan along the path.
+                   fov: float = 2.0 * np.pi, noise: float = 0.005, seed: int = 0,
+                   start: float = 0.0):
+    """Scans of the floor plan along the path, the robot starting from rest
+    `start` metres of arc into it.
 
     Returns a list of (time [s] of the last beam, points (beams, 3), each in
     the sensor frame at its own beam time, beam times (beams,) relative to
@@ -122,7 +124,7 @@ def simulate_scans(num_scans: int, beams: int = 1081, period: float = 0.1,
     """
     rng = np.random.RandomState(seed)
     walls = floor_plan()
-    robot = Robot(Path.superellipse(), speed, ramp)
+    robot = Robot(Path.superellipse(), speed, ramp, start)
     rel = np.linspace(-period, 0.0, beams)  # beam times relative to the scan time
     beam_angles = -0.5 * fov + fov * np.arange(beams) / beams
     scans, truth = [], []
@@ -140,10 +142,11 @@ def simulate_scans(num_scans: int, beams: int = 1081, period: float = 0.1,
     return scans, np.asarray(truth)
 
 
-def relative_to_first(truth: np.ndarray) -> np.ndarray:
+def relative_to_first(truth: np.ndarray, first=None) -> np.ndarray:
     """Ground-truth poses expressed in the frame of the first one, which is
-    the frontend's local frame."""
-    x0, y0, a0 = truth[0]
+    the frontend's local frame, or of the pose `first` [x, y, yaw] (the
+    frame of a map that another trajectory started)."""
+    x0, y0, a0 = truth[0] if first is None else first
     c, s = np.cos(-a0), np.sin(-a0)
     dx, dy = truth[:, 0] - x0, truth[:, 1] - y0
     return np.stack([c * dx - s * dy, s * dx + c * dy, truth[:, 2] - a0], -1)

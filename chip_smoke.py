@@ -88,7 +88,25 @@ on the card, at full width (the reference's default 2D and 3D options):
     and no further from the truth than it plus 0.01 m; K26 (neighbours exact,
     normals within 1e-5 up to sign), K27 and K29 (1e-4 m, rad and cost) and
     K28 (valid and means exact, L within 1e-5 of its scale) against their
-    twins on the run's own inputs.
+    twins on the run's own inputs;
+21. K30 (the dense intensity insert) and K31 (the edge voxel filter) at the
+    path's shapes (K31 on a 2D scan, 3D scans of 4,096 and 16,384 returns and
+    the testbed's 28,800-return cloud padded to 32,768; K30 on scans of
+    4,096, 16,384 and 32,768 returns into a 256^3 window), each equal to its
+    twin bit for bit, and K30 over phase 10's first scans against K18 -> K19's
+    crop of the same window (counts exact, sums within 1e-5 relative); both
+    timed by the profiler and by CUDA events;
+22. state interchange: phase 4's 2D map and phase 7's 3D map written as
+    native and reference-schema pbstreams and loaded by fresh card
+    MapBuilders (poses, constraints and trajectory data exact, grids equal
+    after the format's quantization and on the card, clouds within 1 mm); a
+    fresh card MapBuilder loads the 2D map frozen and localizes a new
+    trajectory of LOCALIZE_SCANS scans started at a pose it is not told (at
+    least 100 loop closures to the frozen map, mean error within 0.1 m of
+    the truth, every frozen pose unmoved bit for bit); the pbstream CLI's
+    `info` counts in subprocesses; a v1 twin of the 3D reference-schema
+    stream loads with its submap histograms rebuilt by K12's rotation on the
+    card, within 1e-5 of the plain path's.
 Phase 10 also runs the scans of two more seeds and reports their yaw error.
 
 Prints a `kernels` JSON line, a timing JSON line, the card's name and power
@@ -100,6 +118,7 @@ outside the repository, it exits non-zero before printing a result.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -183,6 +202,18 @@ SCAN_MATCH_WITNESS = {
 SCAN_MATCH_KERNELS = {"icp": ("icp_nearest", "icp_kabsch", "icp_stats"),
                       "ceres": ("dense_insert_3d", "scan_matcher_3d")}
 # Phase 20's runs: (mode, resolution, witness, the exact launches of each kernel).
+LOCALIZE_SCANS = 250  # the new trajectory against the frozen map (phase 22)
+# m of arc into the path: 3 m before the map's first pose and 25 degrees off
+# its heading. Both packages' full-submap search keeps the 30-degree angular
+# window of the fast matcher (the reference's searches +-pi), so a start
+# further round the lap never localizes (tests/localization_witness_2d.py).
+LOCALIZE_START = 56.5
+LOCALIZE_LIMITS = (100, 0.1)  # least loop closures to the frozen map, largest mean error [m]
+LOCALIZE_SEED = 3
+LOCALIZE_TIME_OFFSET = 1000.0  # s: the new run comes after the map's
+EDGE_FILTER = (0.3, 0.5)  # K31's resolution [m] and ratio (the JAX test's values)
+K30_RETURNS = (4096, 16384, 32768)  # returns per scan at K30's shapes
+K30_PATH_SCANS = 20  # phase 10's first scans into K30's window
 GICP_NDT_RUNS = (
     ("gicp", 0.3, "gicp", {"icp_normals": 1, "icp_nearest": 7, "gicp_lm": 6, "icp_stats": 1}),
     ("ndt", 1.0, "ndt", {"ndt_grid": 1, "ndt_lm": 1}),
@@ -856,8 +887,9 @@ def _global_phase(torch, dev, grid_type="PROBABILITY_GRID", kernels=KERNELS_2D,
         if err > 1e-5 or bool(card[5]) != bool(cpu[5]):
             _fail("a loop-closure pair differs between the card and the CPU's plain path")
 
-    summary = dict(scans=len(scans), nodes=len(pg.nodes), submaps=len(pg.submap_data),
-                   loop_closures=inter, matched_pairs=cb.pairs_matched, solves=solves,
+    summary = dict(map_builder=mb, scans=len(scans), nodes=len(pg.nodes),
+                   submaps=len(pg.submap_data), loop_closures=inter,
+                   matched_pairs=cb.pairs_matched, solves=solves,
                    wall_seconds=wall, constraint_search_seconds=cb.match_seconds,
                    solve_seconds=pg.solve_seconds, launches=launches,
                    mean_error_optimized_m=float(global_err),
@@ -2955,6 +2987,522 @@ def _gicp_ndt_phase(torch, dev):
     return rows, out
 
 
+def _timed(fn, reps=20, warmup=2):
+    """(profiler ms, CUDA-event ms, flag) of fn(): the profiler's total has
+    dropped device events on some calls, so the new rows are read both
+    ways and flagged where the two differ by more than 2x."""
+    profiler = _cuda_ms(fn, reps, warmup)
+    events = _event_ms(fn, reps, warmup)
+    return profiler, events, max(profiler, events) > 2.0 * max(min(profiler, events), 1e-9)
+
+
+def _edge_intensity_phase(torch, dev):
+    """Phase 21: K30 and K31 at the path's shapes, each equal to its twin bit
+    for bit; K30 over phase 10's first scans against K18 -> K19's crop of
+    the same window; both timed by the profiler and by CUDA events beside
+    their bounds and library calls. Launches count the path's run: K31 once
+    per shape, K30 once per scan."""
+    from cartographer_tpu_torch.core.config import INTENSITY_THRESHOLD as INTENSITY_THRESHOLD_3D
+    from cartographer_tpu_torch.core.config import TpuOptions3D
+    from cartographer_tpu_torch.ops import cuda
+    from cartographer_tpu_torch.ops.grid_3d import (
+        IntensityGrid3D,
+        _intensity_cells,
+        insert_intensities,
+        insert_intensities_plain,
+    )
+    from cartographer_tpu_torch.ops.paged_grid_3d import PagedIntensitySubmapGrid3D
+    from cartographer_tpu_torch.sensor import voxel_filter
+    from cartographer_tpu_torch.simulation import (
+        simulate_scan_pair_3d,
+        simulate_scans,
+        simulate_scans_3d,
+    )
+
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    out, rows = {}, {}
+
+    # K31's inputs: a 2D scan, 3D frontend scans of 4,096 and 16,384
+    # returns, and the testbed's 28,800-return cloud padded to 32,768.
+    scan_2d = simulate_scans(1, seed=0)[0][0][1][:, :2]
+    clouds = {"2d_1081": (scan_2d, np.ones(len(scan_2d), bool)),
+              "3d_4096": (simulate_scans_3d(1)[0][0][1], np.ones(4096, bool)),
+              "3d_16384": (simulate_scans_3d(1, azimuths=1024)[0][0][1], np.ones(16384, bool))}
+    source = simulate_scan_pair_3d()[0]
+    padded = np.zeros((32768, 3), np.float32)
+    padded[:len(source)] = source
+    clouds["3d_32768"] = (padded, np.arange(32768) < len(source))
+    inputs = {k: (t(p), t(m)) for k, (p, m) in clouds.items()}
+    res, ratio = EDGE_FILTER
+    # K30's inputs: the 256^3 window at 0.1 m (the 3D frontend's intensity
+    # crop) around the sensor, scans with intensities of 4,096, 16,384 and
+    # 32,768 returns.
+    tpu = TpuOptions3D()
+    window = tpu.high_grid_size
+    scans = {n: simulate_scans_3d(1, azimuths=n // 16, intensities=True)[0][0]
+             for n in K30_RETURNS}
+    k30 = {n: (t(s[1]), t(s[3]), t(np.ones(n, bool))) for n, s in scans.items()}
+    # Phase 10's first scans (the full frontend's scene) in the map frame,
+    # gated at the high resolution's range as the frontend gates them.
+    # The returns within 1e-3 of a cell's border are left out: the dense
+    # window's origin is the pool's plus whole cells in float32, so a
+    # return on a border may fall on either side in the two grids.
+    events = simulate_scans_3d(K30_PATH_SCANS, intensities=True)
+    center = np.float32([events[2][0][0], events[2][0][1], 0.0])
+    paged = PagedIntensitySubmapGrid3D(0.1, center, dev, page_size=tpu.page_size,
+                                       max_pages=tpu.max_pages, num_blocks=tpu.num_blocks)
+    window_origin = paged.crop_dense(center, window).origin
+    dense = IntensityGrid3D(torch.zeros((window,) * 3, device=dev),
+                            torch.zeros((window,) * 3, device=dev), window_origin.clone(), 0.1)
+    origin_host = window_origin.cpu().numpy().astype(np.float64)
+    path_inputs = []
+    for (ts, pts, rel, intens), (x, y, yaw) in zip(events[0], events[2]):
+        c, s_ = np.cos(yaw), np.sin(yaw)
+        world = np.stack([x + c * pts[:, 0] - s_ * pts[:, 1], y + s_ * pts[:, 0] + c * pts[:, 1],
+                          pts[:, 2]], -1).astype(np.float32)
+        frac = np.mod((world.astype(np.float64) - origin_host) / 0.1, 1.0)
+        near = ((np.linalg.norm(pts, axis=1) <= 20.0)
+                & ((frac > 1e-3) & (frac < 1 - 1e-3)).all(axis=1))
+        path_inputs.append((world, intens, near))
+
+    # The path's run, with the counts set to 0 just before.
+    cuda.reset_launch_counts()
+    masks = {k: voxel_filter.voxel_filter_edge_mask(p, m, res, ratio) for k, (p, m) in
+             inputs.items()}
+    for world, intens, near in path_inputs:
+        insert_intensities(dense, t(world), t(intens), t(near), INTENSITY_THRESHOLD_3D)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in cuda.launch_counts().items() if v}
+    if launches != {"voxel_filter_edge": len(inputs), "dense_intensity_insert_3d":
+                    len(path_inputs)}:
+        _fail(f"phase 21: launches {launches}")
+    out["launches"] = launches
+
+    # K30 against K18 -> K19 on the same scans and window.
+    for world, intens, near in path_inputs:
+        paged.insert(world, intens, near, INTENSITY_THRESHOLD_3D)
+    crop = paged.crop_dense(center, window)
+    differing = int((crop.counts != dense.counts).sum())
+    rel = float(((crop.sums - dense.sums).abs() / dense.sums.abs().clamp(min=1e-30)).max())
+    cells = int((dense.counts > 0).sum())
+    print(f"K30 over {len(path_inputs)} scans of phase 10's scene into the {window}^3 window: "
+          f"{cells} cells, counts differ from K18 -> K19's crop in {differing} (tolerance: "
+          f"exact), sums within {rel:.3g} relative (tolerance 1e-5)")
+    if differing or rel > 1e-5:
+        _fail("K30 differs from K18 -> K19's crop of the same window")
+    out["against_paged"] = dict(scans=len(path_inputs), cells=cells, sums_relative=rel)
+
+    # K31 against its twin at each shape.
+    sizes = {}
+    for k, (p, m) in inputs.items():
+        want = voxel_filter.voxel_filter_edge_plain(p, m, res, ratio)
+        if not torch.equal(masks[k], want):
+            _fail(f"K31 at {k} differs from its twin")
+        n = p.shape[0]
+        keys = voxel_filter._packed_voxel_keys(p, m, res)
+        ms, ev, flag = _timed(lambda: voxel_filter.voxel_filter_edge_mask(p, m, res, ratio))
+        sizes[k] = dict(
+            points=n, kept=int(masks[k].sum()), valid=int(m.sum()), ms=ms, event_ms=ev,
+            timers_differ_2x=flag,
+            plain_ms=_cuda_ms(lambda: voxel_filter.voxel_filter_edge_plain(p, m, res, ratio),
+                              reps=5, warmup=1),
+            # The points and flags read once, the keep flags written once.
+            bound=_bound(n * (4 * p.shape[1] + 1) + n, 0),
+            # torch.unique of the packed keys with inverse and counts: the
+            # runs' lengths per point, not the threshold.
+            library_ms=_cuda_ms(lambda: torch.unique(keys, return_inverse=True,
+                                                     return_counts=True)))
+        print(f"K31 voxel_filter_edge at {k}: {sizes[k]['kept']} of {sizes[k]['valid']} kept, "
+              f"equal to the twin (tolerance: exact); {ms:.4f} ms by the profiler, {ev:.4f} by "
+              f"CUDA events{' (DIFFER by more than 2x)' if flag else ''}, plain "
+              f"{sizes[k]['plain_ms']:.3f}, torch.unique {sizes[k]['library_ms']:.4f}, bound "
+              f"{sizes[k]['bound'][0]:.2e}")
+    row = sizes["3d_4096"]
+    rows["voxel_filter_edge"] = dict(
+        replaces="cartographer_tpu/sensor/voxel_filter.py:145", max_abs_err=0.0, ms=row["ms"],
+        plain_ms=row["plain_ms"], bound=row["bound"], library_ms=row["library_ms"])
+    out["voxel_filter_edge"] = {k: dict(v, bound_ms=v["bound"][0]) for k, v in sizes.items()}
+
+    # K30 against its twin: two inserts at each size into a fresh window.
+    sizes = {}
+    for n, (pts, intens, m) in k30.items():
+        got = IntensityGrid3D.create(window, 0.1, np.zeros(3, np.float32), dev)
+        ref = IntensityGrid3D.create(window, 0.1, np.zeros(3, np.float32), dev)
+        for _ in range(2):
+            insert_intensities(got, pts, intens, m, INTENSITY_THRESHOLD_3D)
+            insert_intensities_plain(ref, pts, intens, m, INTENSITY_THRESHOLD_3D)
+        if not (torch.equal(got.sums, ref.sums) and torch.equal(got.counts, ref.counts)):
+            _fail(f"K30 at {n} returns differs from its twin")
+        lin, ok = _intensity_cells(got, pts, intens, m, INTENSITY_THRESHOLD_3D)
+        touched = int(torch.unique(lin[ok]).numel())
+        lin_all = torch.where(ok, lin, torch.full_like(lin, window ** 3))
+        ones = torch.ones_like(intens)
+        flat = window ** 3
+
+        def library():
+            sums = torch.zeros(flat + 1, device=dev).index_add_(0, lin_all, intens)
+            return sums, torch.zeros(flat + 1, device=dev).index_add_(0, lin_all, ones)
+
+        ms, ev, flag = _timed(lambda: insert_intensities(got, pts, intens, m,
+                                                         INTENSITY_THRESHOLD_3D))
+        sizes[n] = dict(
+            returns=n, cells_touched=touched, ms=ms, event_ms=ev, timers_differ_2x=flag,
+            plain_ms=_cuda_ms(lambda: insert_intensities_plain(ref, pts, intens, m,
+                                                               INTENSITY_THRESHOLD_3D),
+                              reps=5, warmup=1),
+            # The returns, intensities and flags read once; each touched
+            # cell's sum and count read and written once.
+            bound=_bound(n * 17 + touched * 16, 0),
+            # index_add_ of the sums and the counts (float atomics: not the
+            # input order).
+            library_ms=_cuda_ms(library))
+        print(f"K30 dense_intensity_insert_3d at {n} returns ({touched} cells): equal to the "
+              f"twin bit for bit; {ms:.4f} ms by the profiler, {ev:.4f} by CUDA events"
+              f"{' (DIFFER by more than 2x)' if flag else ''}, plain {sizes[n]['plain_ms']:.3f}, "
+              f"index_add_ {sizes[n]['library_ms']:.4f}, bound {sizes[n]['bound'][0]:.2e}")
+    row = sizes[K30_RETURNS[0]]
+    rows["dense_intensity_insert_3d"] = dict(
+        replaces="cartographer_tpu/ops/grid_3d.py:144", max_abs_err=0.0, ms=row["ms"],
+        plain_ms=row["plain_ms"], bound=row["bound"], library_ms=row["library_ms"])
+    out["dense_intensity_insert_3d"] = {n: dict(v, bound_ms=v["bound"][0])
+                                        for n, v in sizes.items()}
+    for v in (*out["voxel_filter_edge"].values(), *out["dense_intensity_insert_3d"].values()):
+        del v["bound"]
+    return rows, out
+
+
+def _same_cloud(a, b, reordered):
+    """Largest gap between two node clouds (the reference schema groups the
+    points by block, so there both are sorted by their millimetre cells)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    if a.shape != b.shape:
+        return float("inf")
+    if reordered and len(a):
+        a = a[np.lexsort(np.round(a * 1000).T)]
+        b = b[np.lexsort(np.round(b * 1000).T)]
+    return float(np.abs(a - b).max()) if len(a) else 0.0
+
+
+def _check_loaded(torch, fmt, dim, src, loaded):
+    """The state a fresh card MapBuilder loaded against the graph that wrote
+    it: poses, constraints and trajectory data exactly (the reference
+    schema carries a 2D yaw as a quaternion: within 1e-12 rad there), grids
+    equal after the format's quantization and on the card, clouds within
+    the 1 mm compression. Returns the largest cloud gap."""
+    from cartographer_tpu_torch.io import carto_pbstream
+
+    label = f"{dim}D {fmt}"
+    carto = fmt == "carto"
+
+    def same(a, b, what, yaw_tolerance=False):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        if yaw_tolerance and carto:
+            ok = np.array_equal(a[:2], b[:2]) and abs(a[2] - b[2]) <= 1e-12
+        else:
+            ok = np.array_equal(a, b)
+        if not ok:
+            _fail(f"state interchange {label}: {what} differs: {a} against {b}")
+
+    if ([k for k, _ in src.nodes.items()] != [k for k, _ in loaded.nodes.items()]
+            or [k for k, _ in src.submap_data.items()]
+            != [k for k, _ in loaded.submap_data.items()]):
+        _fail(f"state interchange {label}: node or submap ids differ")
+    cloud_gap = 0.0
+    for (key, a), (_, b) in zip(src.nodes.items(), loaded.nodes.items()):
+        if a.time != b.time:
+            _fail(f"state interchange {label}: node {key} time differs")
+        for f in ("gravity_alignment", "local_pose_translation", "local_pose_rotation"):
+            same(getattr(a, f), getattr(b, f), f"node {key} {f}")
+        if dim == 2:
+            same(a.global_pose_2d, b.global_pose_2d, f"node {key} pose", True)
+            cloud_gap = max(cloud_gap, _same_cloud(a.filtered_points, b.filtered_points, carto))
+        else:
+            same(a.global_t, b.global_t, f"node {key} translation")
+            same(a.global_q, b.global_q, f"node {key} rotation")
+            same(a.scan_histogram, b.scan_histogram, f"node {key} histogram")
+            for f in ("high_res_cloud", "low_res_cloud"):
+                cloud_gap = max(cloud_gap, _same_cloud(getattr(a, f), getattr(b, f), carto))
+    if cloud_gap > 1e-3:
+        _fail(f"state interchange {label}: node clouds {cloud_gap:.3g} m apart (limit 1 mm)")
+    grids = 0
+    for (key, a), (_, b) in zip(src.submap_data.items(), loaded.submap_data.items()):
+        sa, sb = a.submap, b.submap
+        same(sa.local_pose_translation, sb.local_pose_translation, f"submap {key} origin")
+        same(sa.local_pose_rotation, sb.local_pose_rotation, f"submap {key} rotation")
+        if (sa.num_range_data, sa.insertion_finished) != (sb.num_range_data,
+                                                          sb.insertion_finished):
+            _fail(f"state interchange {label}: submap {key} counters differ")
+        if dim == 2:
+            same(a.global_pose_2d, b.global_pose_2d, f"submap {key} pose", True)
+            pairs = [(sa.grid, sb.grid)]
+        else:
+            same(a.global_t, b.global_t, f"submap {key} translation")
+            same(a.global_q, b.global_q, f"submap {key} rotation")
+            pairs = [(sa.high_grid, sb.high_grid), (sa.low_grid, sb.low_grid)]
+            if (sa.histogram is None) != (sb.histogram is None):
+                _fail(f"state interchange {label}: submap {key} histogram lost")
+            if sa.histogram is not None:
+                same(np.asarray(sa.histogram, np.float32), sb.histogram, f"submap {key} histogram")
+        for ga, gb in pairs:
+            if (ga is None) != (gb is None):
+                _fail(f"state interchange {label}: submap {key} grid lost")
+            if ga is None:
+                continue
+            grids += 1
+            if not gb.log_odds.is_cuda:
+                _fail(f"state interchange {label}: a loaded grid is not on the card")
+            if carto and dim == 2:  # uint16 probabilities: the format's own round trip
+                want = carto_pbstream._grid2d_from_proto(carto_pbstream._grid2d_to_proto(ga), "cpu")
+                ok = all(torch.equal(getattr(want, f), getattr(gb, f).cpu())
+                         for f in ("log_odds", "known", "origin"))
+            elif carto:  # the sparse cell lists, their uint16 values, a float resolution
+                pa, pb = (carto_pbstream._grid3d_to_proto(g) for g in (ga, gb))
+                ok = (np.float32(pa.pop("resolution")) == np.float32(pb.pop("resolution"))
+                      and pa == pb)
+            else:  # float16 log-odds
+                lo = ga.log_odds.cpu().numpy().astype(np.float16).astype(np.float32)
+                ok = (np.array_equal(gb.log_odds.cpu().numpy(), lo)
+                      and torch.equal(ga.known.cpu(), gb.known.cpu())
+                      and torch.equal(ga.origin.cpu(), gb.origin.cpu()))
+            if not ok:
+                _fail(f"state interchange {label}: submap {key} grid differs after the "
+                      f"format's quantization")
+    if len(src.constraints) != len(loaded.constraints):
+        _fail(f"state interchange {label}: constraint count differs")
+    for ca, cb in zip(src.constraints, loaded.constraints):
+        if ((ca.submap_id, ca.node_id, ca.tag, ca.translation_weight, ca.rotation_weight)
+                != (cb.submap_id, cb.node_id, cb.tag, cb.translation_weight,
+                    cb.rotation_weight)):
+            _fail(f"state interchange {label}: a constraint differs")
+        if dim == 2:
+            same(ca.rel, cb.rel, "a constraint's pose", True)
+        else:
+            same(ca.rel_t, cb.rel_t, "a constraint's translation")
+            same(ca.rel_q, cb.rel_q, "a constraint's rotation")
+    if dim == 3:
+        for tid, td in src.trajectory_data.items():
+            for f in ("gravity_constant", "imu_calibration"):
+                if f in td:
+                    same(td[f], loaded.trajectory_data[tid][f], f"trajectory {tid} {f}")
+    return cloud_gap, grids
+
+
+def _pbstream_info(paths):
+    """`python -m cartographer_tpu_torch.io.pbstream_main info` on each file,
+    in parallel subprocesses: -> {path: {kind: count}}."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    procs = {p: subprocess.Popen([sys.executable, "-m", "cartographer_tpu_torch.io.pbstream_main",
+                                  "info", p], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                 text=True, cwd=root, env=env) for p in paths}
+    out = {}
+    for p, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=300)
+        if proc.returncode != 0:
+            _fail(f"pbstream info failed on {p}: {stderr}")
+        counts = {}
+        for line in stdout.splitlines():
+            kind, _, value = line.partition(": ")
+            if kind not in ("schema", "format_version"):
+                counts[kind] = int(value)
+        out[p] = counts
+    return out
+
+
+def _localize_phase(torch, dev, path):
+    """A fresh card MapBuilder loads the 2D map frozen and runs a new
+    trajectory of LOCALIZE_SCANS scans of the floor plan from LOCALIZE_START
+    metres of arc, at a pose it is not told; the frozen poses must not move."""
+    from cartographer_tpu_torch.core.config import MapBuilderOptions, TrajectoryBuilderOptions
+    from cartographer_tpu_torch.mapping.map_builder import MapBuilder
+    from cartographer_tpu_torch.ops import cuda
+    from cartographer_tpu_torch.sensor.data import TimedPointCloudData
+    from cartographer_tpu_torch.simulation import relative_to_first, simulate_scans
+
+    _, map_truth = simulate_scans(1, seed=2)  # phase 4's first pose: the map frame
+    scans, truth = simulate_scans(LOCALIZE_SCANS, seed=LOCALIZE_SEED, start=LOCALIZE_START)
+    gt = relative_to_first(truth, first=map_truth[0])
+    mb = MapBuilder(MapBuilderOptions(use_trajectory_builder_2d=True), device=dev)
+    pg, cb = mb.pose_graph, mb.pose_graph.constraint_builder
+    cuda.reset_launch_counts()
+    t0 = time.monotonic()
+    remap = mb.load_state(path)
+    load_s = time.monotonic() - t0
+    frozen_nodes = {k: n.global_pose_2d.copy() for k, n in pg.nodes.items()}
+    frozen_submaps = {k: e.global_pose_2d.copy() for k, e in pg.submap_data.items()}
+    searches = [0]
+    begin = cb.begin_global_constraint
+
+    def counting(*args, **kwargs):
+        searches[0] += 1
+        return begin(*args, **kwargs)
+
+    cb.begin_global_constraint = counting
+    tid = mb.add_trajectory_builder(["laser"], TrajectoryBuilderOptions(_frontend_options()))
+    t0 = time.monotonic()
+    for ts, pts, rel in scans:
+        mb.add_sensor_data(tid, "laser", TimedPointCloudData(
+            time=int(round((ts + LOCALIZE_TIME_OFFSET) * 1e6)), origin=np.zeros(3, np.float32),
+            ranges=pts, times=rel))
+    mb.finish_trajectory(tid)
+    pg.run_final_optimization()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    cb.begin_global_constraint = begin
+    launches = cuda.launch_counts()
+    _check_launched(launches, KERNELS_2D, "localization")
+    moved = [k for k, n in pg.nodes.items() if k in frozen_nodes
+             and not np.array_equal(n.global_pose_2d, frozen_nodes[k])]
+    moved += [k for k, e in pg.submap_data.items() if k in frozen_submaps
+              and not np.array_equal(e.global_pose_2d, frozen_submaps[k])]
+    nodes = [(i, n) for (t, i), n in pg.nodes.items() if t == tid]
+    index = np.array([int(round(n.time / 1e5 - LOCALIZE_TIME_OFFSET * 10)) - 1
+                      for _, n in nodes])
+    errors = np.array([np.linalg.norm(n.global_pose_2d[:2] - gt[k, :2])
+                       for (_, n), k in zip(nodes, index)])
+    links = sum(1 for c in pg.constraints if c.tag == "INTER_SUBMAP"
+                and {c.node_id.trajectory_id, c.submap_id.trajectory_id} == {0, tid})
+    out = dict(remapping={str(k): v for k, v in remap.items()}, trajectory_id=tid,
+               scans=len(scans), nodes=len(nodes), global_searches=searches[0],
+               constraints_to_frozen_map=links, solves=pg.solves,
+               mean_error_m=float(errors.mean()),
+               mean_error_last_100_scans_m=float(errors[index >= len(scans) - 100].mean()),
+               load_seconds=load_s, localize_seconds=wall,
+               frozen_poses_moved=len(moved), launches={k: v for k, v in launches.items() if v})
+    min_links, max_error = LOCALIZE_LIMITS
+    print(f"localization against the frozen map: trajectory {tid}, {len(nodes)} nodes, "
+          f"{searches[0]} global searches, {links} loop closures to the frozen map (limit >= "
+          f"{min_links}), {pg.solves} solves, mean error {errors.mean():.4f} m (limit "
+          f"{max_error}; {out['mean_error_last_100_scans_m']:.4f} over the last 100 scans), "
+          f"load {load_s:.2f} s, {wall:.1f} s; {len(moved)} frozen poses moved (limit 0, bit "
+          f"for bit)")
+    if moved or tid != 1 or links < min_links or errors.mean() > max_error:
+        _fail("localization against the frozen map failed its limits")
+    return out
+
+
+def _state_interchange_phase(torch, dev, mb2d, pg3d):
+    """Phase 22: phase 4's 2D map and phase 7's 3D map written as native and
+    reference-schema pbstreams and loaded by fresh card MapBuilders (checked
+    field by field); localization against the frozen 2D map; the pbstream
+    CLI's counts; a v1 stream's submap histograms rebuilt by K12's rotation
+    on the card."""
+    import tempfile
+
+    from cartographer_tpu_torch.core.config import MapBuilderOptions
+    from cartographer_tpu_torch.io import carto_pbstream, carto_protos, serialization
+    from cartographer_tpu_torch.io.pbstream import ProtoStreamReader, ProtoStreamWriter
+    from cartographer_tpu_torch.io.proto_wire import decode_message, encode_message
+    from cartographer_tpu_torch.mapping.map_builder import MapBuilder
+    from cartographer_tpu_torch.ops import cuda
+
+    out = {"write_seconds": {}, "load_seconds": {}, "bytes": {}}
+    pg3d.wait_for_optimization()
+    pg3d.wait_for_all_computations()
+    writers = {"native": serialization.serialize_state, "carto": carto_pbstream.write_carto_state}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for dim, fmt in ((2, "native"), (2, "carto"), (3, "native"), (3, "carto")):
+            key = f"{dim}d_{fmt}"
+            path = paths[key] = f"{tmp}/{key}.pbstream"
+            t0 = time.monotonic()
+            if dim == 2:
+                mb2d.serialize_state(path, format=fmt)
+            else:
+                writer = ProtoStreamWriter(path)
+                writers[fmt](pg3d, writer)
+                writer.close()
+            out["write_seconds"][key] = time.monotonic() - t0
+            out["bytes"][key] = os.path.getsize(path)
+            fresh = MapBuilder(MapBuilderOptions(use_trajectory_builder_2d=dim == 2,
+                                                 use_trajectory_builder_3d=dim == 3), device=dev)
+            t0 = time.monotonic()
+            remap = fresh.load_state(path)
+            torch.cuda.synchronize()
+            out["load_seconds"][key] = time.monotonic() - t0
+            if remap != {0: 0}:
+                _fail(f"state interchange {key}: remapping {remap}")
+            src = mb2d.pose_graph if dim == 2 else pg3d
+            gap, grids = _check_loaded(torch, fmt, dim, src, fresh.pose_graph)
+            print(f"state interchange {key}: {len(src.nodes)} nodes, {len(src.submap_data)} "
+                  f"submaps, {len(src.constraints)} constraints, {grids} grids on the card: equal "
+                  f"(poses exact, grids after the format's quantization, clouds within {gap:.2e} m); "
+                  f"{out['bytes'][key] / 1e6:.1f} MB, write {out['write_seconds'][key]:.2f} s, load "
+                  f"{out['load_seconds'][key]:.2f} s")
+            del fresh
+
+        out["localization"] = _localize_phase(torch, dev, paths["2d_native"])
+
+        # The pbstream CLI in subprocesses: its counts against the graphs.
+        info = _pbstream_info(list(paths.values()))
+        for key, path in paths.items():
+            pg = mb2d.pose_graph if key.startswith("2d") else pg3d
+            nodes, submaps = len(pg.nodes), len(pg.submap_data)
+            if key == "2d_native":
+                want = {"header": 1, "pose_graph": 1, "trajectory_builder_options": 1,
+                        "submap": submaps, "node": nodes, "trajectory_data": 1}
+            elif key == "3d_native":
+                want = {"header": 1, "pose_graph": 1, "trajectory_builder_options": 1,
+                        "submap3d": submaps, "node3d": nodes, "trajectory_data": 1}
+            else:
+                want = {"pose_graph": 1, "all_trajectory_builder_options": 1, "submap": submaps,
+                        "node": nodes}
+                if key == "3d_carto" and pg.trajectory_data:
+                    want["trajectory_data"] = len(pg.trajectory_data)
+            if info[path] != want:
+                _fail(f"pbstream info on {key}: {info[path]}, expected {want}")
+        print(f"pbstream info (subprocesses): {json.dumps({k: info[p] for k, p in paths.items()})}")
+        out["pbstream_info"] = {k: info[p] for k, p in paths.items()}
+
+        # A v1 twin of the 3D reference-schema stream: header version 1, the
+        # submap histograms stripped (tests/test_v1_migration.py's
+        # _write_v1_twin).
+        reader = ProtoStreamReader(paths["3d_carto"])
+        records = list(reader)
+        reader.close()
+        v1 = f"{tmp}/3d_v1.pbstream"
+        writer = ProtoStreamWriter(v1)
+        writer.write(encode_message(carto_protos.SERIALIZATION_HEADER, {"format_version": 1}))
+        for rec in records[1:]:
+            msg = decode_message(carto_protos.SERIALIZED_DATA, rec)
+            if "submap" in msg and "submap_3d" in msg["submap"]:
+                msg["submap"]["submap_3d"].pop("rotational_scan_matcher_histogram", None)
+            writer.write(encode_message(carto_protos.SERIALIZED_DATA, msg))
+        writer.close()
+        options = MapBuilderOptions(use_trajectory_builder_3d=True)
+        card = MapBuilder(options, device=dev)
+        cuda.reset_launch_counts()
+        t0 = time.monotonic()
+        card.load_state(v1, load_frozen_state=False)
+        torch.cuda.synchronize()
+        v1_s = time.monotonic() - t0
+        rotations = cuda.launch_counts()["rot_histogram_rotate"]
+        intra = sum(1 for c in card.pose_graph.constraints if c.tag == "INTRA_SUBMAP")
+        plain = MapBuilder(options, device="cpu")
+        plain.load_state(v1, load_frozen_state=False)
+        twin_err = v2_err = 0.0
+        for (key, e), (_, p), (_, s) in zip(card.pose_graph.submap_data.items(),
+                                            plain.pose_graph.submap_data.items(),
+                                            pg3d.submap_data.items()):
+            h, hp = np.asarray(e.submap.histogram), np.asarray(p.submap.histogram)
+            twin_err = max(twin_err, float(np.abs(h - hp).max() / max(np.abs(hp).max(), 1e-30)))
+            if s.submap.histogram is not None:
+                hs = np.asarray(s.submap.histogram)
+                v2_err = max(v2_err, float(np.abs(h - hs).max() / max(np.abs(hs).max(), 1e-30)))
+        print(f"v1 migration on the card: {rotations} K12 rotations for {intra} INTRA constraints, "
+              f"{v1_s:.2f} s; rebuilt histograms within {twin_err:.3g} of the plain path's "
+              f"(tolerance 1e-5, relative to the largest bin), {v2_err:.3g} from the v2 stream's "
+              f"(reported: the port's node histograms leave the IMU's yaw out, which the "
+              f"reference's migration rotates away)")
+        if rotations != intra or twin_err > 1e-5:
+            _fail("v1 migration: K12 was not launched per INTRA constraint or departs from the "
+                  "plain path")
+        out["v1_migration"] = dict(rotations=rotations, intra_constraints=intra, seconds=v1_s,
+                                   relative_to_plain=twin_err, relative_to_v2=v2_err)
+    return out
+
+
 def _profile(torch, feed, data, label="profile"):
     """Device busy share and kernel time by name over a window of scans
     that continues the main run (its launches are not counted there);
@@ -3010,6 +3558,7 @@ def main() -> int:
     backend_rows, backend = _backend_kernel_phase(torch, dev, ctx, run)
     rows.update(backend_rows)
     slam = _global_phase(torch, dev)
+    map_2d = slam.pop("map_builder")  # phase 22 saves and reloads its map
     for key in ("submap", "nodes", "builder", "kept"):
         del run[key]
     run_tsdf = _slice_phase(torch, dev, "TSDF", TSDF_FRONTEND_KERNELS, TSDF_ERROR_LIMIT,
@@ -3020,13 +3569,15 @@ def main() -> int:
     refines = []
     slam_tsdf = _global_phase(torch, dev, "TSDF", TSDF_KERNELS, TSDF_GLOBAL_LIMITS,
                               localize=False, label="TSDF global", refines=refines)
+    del slam_tsdf["map_builder"]
     rows_tsdf.update(_refine_phase_tsdf(torch, refines))
     del refines
     run3d = _slice_phase_3d(torch, dev)
     rows3d = _kernel_phase_3d(torch, dev, run3d.pop("builder"), run3d.pop("last_step"))
     slam3d = _global_phase_3d(torch, dev)
     rows3g, backend3d = _backend_kernel_phase_3d(torch, dev, slam3d)
-    del slam3d["pose_graph"], slam3d["request"]
+    map_3d = slam3d.pop("pose_graph")  # phase 22 saves and reloads it
+    del slam3d["request"]
     full_hall = _full_hall_phase_3d(torch, dev)
     run3f = _slice_phase_3d_full(torch, dev)
     rows3f = _kernel_phase_3d_full(torch, dev, run3f.pop("builder"), run3f.pop("kept"))
@@ -3037,15 +3588,20 @@ def main() -> int:
     rows_sm, scan_match = _scan_match_phase(torch, dev)
     rows_gn, gicp_ndt = _gicp_ndt_phase(torch, dev)
     rows_sm.update(rows_gn)
+    rows_ei, edge_intensity = _edge_intensity_phase(torch, dev)
+    interchange = _state_interchange_phase(torch, dev, map_2d, map_3d)
+    del map_2d, map_3d
     # K23 and its stats form count the `icp` run's launches, as before.
     scan_match_launches = {**gicp_ndt["launches"], **scan_match["modes"]["ceres"]["launches"],
                            **scan_match["modes"]["icp"]["launches"]}
 
     sources = {k.symbol: k.source for k in cuda.KERNELS.values()}
     kernels = []
-    for name, row in {**rows, **rows_tsdf, **rows3d, **rows3g, **rows3f, **rows_sm}.items():
+    for name, row in {**rows, **rows_tsdf, **rows3d, **rows3g, **rows3f, **rows_sm,
+                      **rows_ei}.items():
         bound_ms, bound_by = row["bound"]
-        launches = (scan_match_launches if name in rows_sm
+        launches = (edge_intensity["launches"] if name in rows_ei
+                    else scan_match_launches if name in rows_sm
                     else run3f["launches"] if name in rows3f
                     else slam_tsdf["launches"] if name in rows_tsdf
                     else slam3d["summary"]["launches"] if name in rows3g
@@ -3102,6 +3658,8 @@ def main() -> int:
         "above_one_block": raised,
         "scan_match": scan_match,
         "scan_match_gicp_ndt": gicp_ndt,
+        "edge_filter_and_dense_intensity": edge_intensity,
+        "state_interchange": interchange,
         "bnb_match_ms": backend["bnb_match_ms"],
         "schur_50_iterations_ms": backend["schur_50_iterations_ms"],
         "bnb3d_match_ms": backend3d["bnb3d_match_ms"],

@@ -1011,3 +1011,54 @@ def test_dense_insert_kernel(dev, free_space):
         assert torch.equal(grid.log_odds, ref.log_odds)
         assert torch.equal(grid.known, ref.known)
     assert int(grid.known.sum()) > 1000
+
+
+@pytest.mark.parametrize("n", [4096, 16384, 32768])
+def test_dense_intensity_insert_kernel(dev, n):
+    """K30: two inserts into a 256^3 window with clustered returns (long
+    runs per cell), intensities above the threshold and returns outside
+    the cube: sums and counts equal to the twin's bit for bit."""
+    from cartographer_tpu_torch.ops.grid_3d import (
+        IntensityGrid3D,
+        insert_intensities,
+        insert_intensities_plain,
+    )
+
+    rng = np.random.RandomState(n)
+    center = np.float32([0.113, -0.071, 0.037])
+    grid = IntensityGrid3D.create(256, 0.1, center, dev)
+    ref = IntensityGrid3D.create(256, 0.1, center, dev)
+    for k in range(2):
+        centers = rng.uniform(-10, 10, (64, 3))
+        pts = np.concatenate([centers[rng.randint(0, 64, n // 2)]
+                              + rng.normal(0, 0.05, (n // 2, 3)),
+                              rng.uniform(-16, 16, (n - n // 2, 3))]) + center
+        args = (_t(pts.astype(np.float32), dev), _t(rng.uniform(0, 60, n).astype(np.float32), dev),
+                _t(rng.rand(n) < 0.9, dev), 40.0)
+        insert_intensities(grid, *args)
+        insert_intensities_plain(ref, *args)
+    assert torch.equal(grid.sums, ref.sums) and torch.equal(grid.counts, ref.counts)
+    assert float(grid.counts.max()) > 10
+
+
+@pytest.mark.parametrize("dim,n", [(2, 1081), (3, 4096), (3, 16384), (3, 32768)])
+def test_voxel_filter_edge_kernel(dev, dim, n):
+    """K31 at the path's shapes: keep-masks equal to the twin's (exact),
+    with masked points piled into one voxel."""
+    from cartographer_tpu_torch.sensor.voxel_filter import (
+        voxel_filter_edge_mask,
+        voxel_filter_edge_plain,
+    )
+
+    rng = np.random.RandomState(dim * n)
+    centers = rng.uniform(-20, 20, (40, dim))
+    pts = np.concatenate([centers[rng.randint(0, 40, n // 2)] + rng.normal(0, 0.3, (n // 2, dim)),
+                          rng.uniform(-30, 30, (n - n // 2, dim))]).astype(np.float32)
+    mask = rng.rand(n) < 0.9
+    pile = rng.choice(n, n // 20, replace=False)
+    pts[pile], mask[pile] = np.float32(0.01), False
+    p, m = _t(pts, dev), _t(mask, dev)
+    got = voxel_filter_edge_mask(p, m, 0.3, 0.5)
+    want = voxel_filter_edge_plain(p, m, 0.3, 0.5)
+    assert torch.equal(got, want)
+    assert 0 < int(got.sum()) < int(m.sum())

@@ -24,6 +24,7 @@ from cartographer_tpu_torch.interop import (
     map_builder_options_from_dict,
     trajectory_builder_options_from_dict,
 )
+from cartographer_tpu_torch.mapping.id import SubmapId
 from cartographer_tpu_torch.mapping.map_builder import MapBuilder
 from cartographer_tpu_torch.ops.tsdf_2d import TsdfGrid2D
 from cartographer_tpu_torch.sensor.data import LandmarkData, TimedPointCloudData
@@ -237,13 +238,18 @@ def test_unported_map_builder_options_raise(override):
         MapBuilder(options, device="cpu")
 
 
-def test_unported_entry_points_raise():
+def test_unported_entry_points_raise(tmp_path):
+    """A mesh and landmark observations still raise; serialize_state and
+    load_state, which raised until state interchange was ported, now run
+    (an empty map round-trips)."""
     mb = MapBuilder(MapBuilderOptions(use_trajectory_builder_2d=True), device="cpu")
-    for call in (lambda: mb.serialize_state("x.pbstream"), lambda: mb.load_state("x"),
-                 lambda: MapBuilder(MapBuilderOptions(use_trajectory_builder_2d=True),
-                                    device="cpu", mesh=object())):
-        with pytest.raises(NotImplementedError):
-            call()
+    with pytest.raises(NotImplementedError):
+        MapBuilder(MapBuilderOptions(use_trajectory_builder_2d=True), device="cpu",
+                   mesh=object())
+    path = str(tmp_path / "empty.pbstream")
+    mb.serialize_state(path)
+    assert MapBuilder(MapBuilderOptions(use_trajectory_builder_2d=True),
+                      device="cpu").load_state(path) == {}
     _, jtraj = build_options()
     tid = mb.add_trajectory_builder(
         ["laser", "landmarks"], trajectory_builder_options_from_dict(dataclasses.asdict(jtraj)))
@@ -262,3 +268,80 @@ def test_map_builder_imports_no_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("fmt", ["native", "carto"])
+def test_saved_maps_cross_packages(both, fmt, tmp_path):
+    """The loop's map saved by either package loads in the other: JAX's
+    stream gives the port the state JAX's own load gives it, and the port's
+    stream gives JAX the port's state (poses and constraints exact, grids
+    equal to their quantization, clouds within the 1 mm compression)."""
+    from test_torch_serialization import _assert_same_graph
+
+    jmb, _, mb, _, _, _ = both
+    jpath, ppath = str(tmp_path / "jax.pbstream"), str(tmp_path / "port.pbstream")
+    jmb.serialize_state(jpath, format=fmt)
+    mb.serialize_state(ppath, format=fmt)
+    port_from_jax = MapBuilder(mb._options, device="cpu")
+    jax_own = JMapBuilder(jmb._options)
+    assert port_from_jax.load_state(jpath) == jax_own.load_state(jpath) == {0: 0}
+    _assert_same_graph(jax_own.pose_graph, port_from_jax.pose_graph, 2)
+    jax_from_port = JMapBuilder(jmb._options)
+    jax_from_port.load_state(ppath, load_frozen_state=False)
+    jpg, pg = jax_from_port.pose_graph, mb.pose_graph
+    assert len(jpg.nodes) == len(pg.nodes) and len(jpg.constraints) == len(pg.constraints)
+    jposes = jpg.node_global_poses()
+    for nid, pose in pg.node_global_poses().items():
+        jpose = np.asarray(jposes[type(next(iter(jposes)))(*dataclasses.astuple(nid))])
+        if fmt == "native":
+            np.testing.assert_array_equal(jpose, pose)
+        else:  # the reference schema carries the yaw as a quaternion
+            np.testing.assert_allclose(jpose, pose, rtol=0, atol=1e-12)
+    for (key, e), (_, je) in zip(pg.submap_data.items(), jpg.submap_data.items()):
+        if e.submap.grid is None:
+            continue
+        known = e.submap.grid.known.numpy()
+        np.testing.assert_array_equal(np.asarray(je.submap.grid.known), known)
+        lo = e.submap.grid.log_odds.numpy()
+        tol = 1e-2 if fmt == "native" else 1e-3 * np.abs(lo).max() + 2e-4
+        np.testing.assert_allclose(np.asarray(je.submap.grid.log_odds)[known], lo[known],
+                                   atol=tol)
+    for (key, n), (_, jn) in zip(pg.nodes.items(), jpg.nodes.items()):
+        got = np.asarray(jn.filtered_points)
+        want = n.filtered_points
+        if fmt == "carto":  # the reference's compression reorders by block
+            got, want = got[np.lexsort(got.T)], want[np.lexsort(np.round(want * 1000).T)]
+        np.testing.assert_allclose(got, want, atol=1e-3)
+
+
+def test_new_trajectory_against_a_frozen_map(both, tmp_path):
+    """A map loaded frozen: the next trajectory takes id 1 in both packages,
+    and its scans and solves leave every frozen pose where it was."""
+    jmb, _, mb, _, _, poses = both
+    path = str(tmp_path / "map.pbstream")
+    jmb.serialize_state(path)
+    jax_side = JMapBuilder(jmb._options)
+    jax_side.load_state(path)
+    port = MapBuilder(mb._options, device="cpu")
+    port.load_state(path)
+    frozen_nodes = {k: v.copy() for k, v in port.pose_graph.node_global_poses().items()}
+    frozen_submaps = {k: e.global_pose_2d.copy() for k, e in port.pose_graph.submap_data.items()}
+    _, jtraj = build_options()
+    traj = trajectory_builder_options_from_dict(dataclasses.asdict(jtraj))
+    assert (port.add_trajectory_builder(["laser"], traj)
+            == jax_side.add_trajectory_builder(["laser"], jtraj) == 1)
+    world = make_wall_points(num=400, seed=5)
+    for i, (t_xy, yaw) in enumerate(poses[:24]):
+        scan = scan_at(world, t_xy, yaw)
+        port.add_sensor_data(1, "laser", TimedPointCloudData(
+            time=T0 + from_seconds(100.0 + i * 0.1), origin=np.zeros(3, np.float32),
+            ranges=scan, times=np.zeros(len(scan), np.float32)))
+    port.finish_trajectory(1)
+    port.pose_graph.run_final_optimization()
+    pg = port.pose_graph
+    assert pg.solves >= 2 and pg.nodes.size_of_trajectory(1) > 10
+    assert pg.trajectory_states == {0: "FROZEN", 1: "FINISHED"}
+    for nid, pose in frozen_nodes.items():
+        np.testing.assert_array_equal(pg.node_global_poses()[nid], pose)
+    for key, pose in frozen_submaps.items():
+        np.testing.assert_array_equal(pg.submap_data[SubmapId(*key)].global_pose_2d, pose)

@@ -57,6 +57,23 @@ def test_port_imports_no_jax():
     assert out.stdout.strip() == "[]"
 
 
+def test_state_interchange_imports_neither_jax_nor_msgpack():
+    """The card's machine has no msgpack: the port's native format carries
+    its own codec."""
+    code = (
+        "import sys\n"
+        "import cartographer_tpu_torch.io.serialization\n"
+        "import cartographer_tpu_torch.io.carto_pbstream\n"
+        "import cartographer_tpu_torch.io.pbstream_main\n"
+        "print([m for m in sys.modules if m.split('.')[0] in ('jax', 'msgpack',\n"
+        "       'cartographer_tpu')])\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def test_chip_smoke_imports_no_jax():
     source = (REPO / "chip_smoke.py").read_text()
     assert "import jax" not in source and "from jax" not in source
