@@ -31,20 +31,17 @@
 // pools (K10: log-odds, known) and the intensity pools (K19: sums, counts),
 // so a scan's two high-resolution windows are the same cells.
 //
-// K18, intensity insert, in one block. It resolves every return to its pool
-// index (true division, floor, block and page; no cell for a return that is
-// masked out, whose intensity is above the threshold or NaN, outside the
-// table or on a block without a page) and sorts the 64-bit keys (pool
-// index, return index) in shared memory (bitonic). Each run of equal pool
-// indices is then one cell's returns in their order: the thread at its head
-// adds their intensities and counts to the pool in that order, the order of
-// the plain twin's scatter-add on the CPU and of the JAX program. No
-// atomics: the sums are the same from run to run, so a run on the card
-// repeats. Above one sort tile (bitonic::kSortTile, 8,192) the keys do not
-// fit one block's shared memory: the same three steps run over device
-// memory instead, the keys written by one launch, sorted by the multi-block
-// bitonic network of bitonic_sort.cuh, and each run added by its head in a
-// third launch; the keys and the network are the same, so the sums are too.
+// K18, intensity insert. Each return resolves to its pool index (true
+// division, floor, block and page; no cell for a return that is masked out,
+// whose intensity is above the threshold or NaN, outside the table or on a
+// block without a page), and in_order_scatter.cuh adds each cell's returns
+// to its sum and count in their order, the order of the plain twin's
+// scatter-add on the CPU and of the JAX program: compaction, a stable radix
+// sort of the pool indices (3 passes of 8 bits for the default pool of 2^23
+// cells) and one thread per run, all in shared memory. No atomics: the sums
+// are the same from run to run, so a run on the card repeats. One launch up
+// to 131,072 returns (a thread-block cluster of one block per 512 returns,
+// up to 16), one more per further 131,072; no scratch.
 //
 // Bound: bytes. K9 touches 3 N cells of the pool (5 bytes each, read and
 // written) and reads N returns; K18 reads N returns and intensities and
@@ -58,12 +55,11 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "bitonic_sort.cuh"
+#include "in_order_scatter.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr unsigned int kNoCell = 0xFFFFFFFFu;
 
 struct Paged {
   const int* table;  // (nb, nb, nb)
@@ -190,68 +186,27 @@ __global__ void crop_kernel(Paged g, const A* __restrict__ pool_a, const B* __re
   dense_b[idx] = lin >= 0 ? pool_b[lin] : (B)0;
 }
 
-__device__ inline unsigned long long intensity_key(const Paged& g, const float* returns,
-                                                   const float* intensities,
-                                                   const uint8_t* mask, int n, float threshold,
-                                                   int i) {
-  unsigned int lin = kNoCell;
-  if (i < n && mask[i] && intensities[i] <= threshold) {
+// K18's returns for in_order_scatter: a return's pool index, or kNone.
+struct IntensityReturns {
+  Paged g;
+  const float* returns;
+  const float* intensities;
+  const uint8_t* mask;
+  float threshold;
+
+  __device__ unsigned int cell(int i, float& value) const {
+    // Every load first, so that they overlap.
+    const float p[3] = {returns[3 * (size_t)i], returns[3 * (size_t)i + 1],
+                        returns[3 * (size_t)i + 2]};
+    const bool in = mask[i] != 0;
+    value = intensities[i];
+    if (!in || !(value <= threshold)) return in_order_scatter::kNone;
     int c[3];
-    for (int a = 0; a < 3; ++a)
-      c[a] = world_to_cell(returns[3 * i + a], g.origin[a], g.resolution);
-    long long found = pool_index(g, c);
-    if (found >= 0) lin = (unsigned int)found;
+    for (int a = 0; a < 3; ++a) c[a] = world_to_cell(p[a], g.origin[a], g.resolution);
+    const long long found = pool_index(g, c);
+    return found >= 0 ? (unsigned int)found : in_order_scatter::kNone;
   }
-  return ((unsigned long long)lin << 32) | (unsigned int)i;
-}
-
-// The head of each run of equal pool indices adds the run in return order.
-__device__ inline void add_run(const unsigned long long* keys, int i, int n,
-                               const float* intensities, float* sums, float* counts) {
-  unsigned int lin = (unsigned int)(keys[i] >> 32);
-  if (lin == kNoCell || (i > 0 && (unsigned int)(keys[i - 1] >> 32) == lin)) return;
-  float s = sums[lin], c = counts[lin];
-  for (int j = i; j < n && (unsigned int)(keys[j] >> 32) == lin; ++j) {
-    s = s + intensities[keys[j] & 0xFFFFFFFFull];
-    c = c + 1.0f;
-  }
-  sums[lin] = s;
-  counts[lin] = c;
-}
-
-// Up to one sort tile of returns: keys, sort and runs in one block.
-__global__ void __launch_bounds__(bitonic::kSortThreads)
-    intensity_insert_kernel(Paged g, const float* __restrict__ returns,
-                            const float* __restrict__ intensities,
-                            const uint8_t* __restrict__ mask, int n, int npad,
-                            float threshold, float* __restrict__ sums,
-                            float* __restrict__ counts) {
-  extern __shared__ unsigned long long keys[];  // npad (pool index, return) keys
-  for (int i = threadIdx.x; i < npad; i += blockDim.x)
-    keys[i] = intensity_key(g, returns, intensities, mask, n, threshold, i);
-  __syncthreads();
-  // Ascending: the keys are distinct, so each cell's returns end up
-  // together and in their order.
-  for (int k = 2; k <= npad; k <<= 1) bitonic::tile_steps(keys, npad, 0, k, k >> 1);
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    add_run(keys, i, n, intensities, sums, counts);
-}
-
-// Above one sort tile: the keys into device memory, one per thread.
-__global__ void intensity_keys_kernel(Paged g, const float* __restrict__ returns,
-                                      const float* __restrict__ intensities,
-                                      const uint8_t* __restrict__ mask, int n, int npad,
-                                      float threshold, unsigned long long* __restrict__ keys) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < npad) keys[i] = intensity_key(g, returns, intensities, mask, n, threshold, i);
-}
-
-__global__ void intensity_runs_kernel(const unsigned long long* __restrict__ keys, int n,
-                                      const float* __restrict__ intensities,
-                                      float* __restrict__ sums, float* __restrict__ counts) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) add_run(keys, i, n, intensities, sums, counts);
-}
+};
 
 template <typename A, typename B>
 int launch_crop(const void* pool_a, const void* pool_b, const void* table,
@@ -316,40 +271,21 @@ extern "C" int paged_intensity_crop_3d(const void* sums, const void* counts, con
 }
 
 // Adds in place into `sums` and `counts` (num_pages * page_size^3 each, under
-// 2^32 - 1 cells). `keys` holds max(2, next_pow2(n)) int64 of scratch, used
-// above one sort tile of returns.
+// 2^32 - 1 cells); `passes` radix passes of 8 bits cover the pool's indices.
 extern "C" int paged_intensity_insert_3d(void* sums, void* counts, const void* table,
                                          const void* grid_origin, float resolution,
                                          int page_size, int num_blocks, int num_pages,
                                          const void* returns, const void* intensities,
-                                         const void* mask, int n, float threshold,
-                                         void* keys, void* stream) {
-  if (n == 0) return 0;
-  if ((long long)num_pages * page_size * page_size * page_size >= (long long)kNoCell)
+                                         const void* mask, int n, float threshold, int passes,
+                                         void* stream) {
+  const long long cells = (long long)num_pages * page_size * page_size * page_size;
+  if (cells >= (long long)in_order_scatter::kNone || passes < 1 ||
+      (passes < 4 && cells > (1ll << (8 * passes))))
     return (int)cudaErrorInvalidValue;
-  int npad = 2;
-  while (npad < n) npad <<= 1;
-  Paged g = make_paged(table, grid_origin, resolution, page_size, num_blocks, num_pages);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (keys == nullptr) return (int)cudaErrorInvalidValue;
-  if (npad > bitonic::kSortTile) {
-    unsigned long long* k = (unsigned long long*)keys;
-    intensity_keys_kernel<<<(npad + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-        g, (const float*)returns, (const float*)intensities, (const uint8_t*)mask, n, npad,
-        threshold, k);
-    cudaError_t err = bitonic::sort(k, npad, st);
-    if (err != cudaSuccess) return (int)err;
-    intensity_runs_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-        k, n, (const float*)intensities, (float*)sums, (float*)counts);
-    return (int)cudaGetLastError();
-  }
-  size_t bytes = (size_t)npad * sizeof(unsigned long long);
-  cudaError_t err = cudaFuncSetAttribute(intensity_insert_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  intensity_insert_kernel<<<1, bitonic::kSortThreads, bytes, st>>>(
-      g, (const float*)returns, (const float*)intensities, (const uint8_t*)mask, n, npad,
-      threshold, (float*)sums, (float*)counts);
-  return (int)cudaGetLastError();
+  IntensityReturns src{make_paged(table, grid_origin, resolution, page_size, num_blocks,
+                                  num_pages),
+                       (const float*)returns, (const float*)intensities, (const uint8_t*)mask,
+                       threshold};
+  return (int)in_order_scatter::launch(src, n, passes, (float*)sums, (float*)counts,
+                                       (cudaStream_t)stream);
 }

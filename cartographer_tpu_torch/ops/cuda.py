@@ -116,7 +116,10 @@ class CudaKernel:
 
     def __call__(self, device: torch.device, *args) -> None:
         fn = self._load()
-        stream = torch.cuda.current_stream(device).cuda_stream
+        # PyTorch's current stream as a raw handle: the public
+        # current_stream(device) builds a Stream object, some 3 us per launch.
+        index = device.index if device.index is not None else torch.cuda.current_device()
+        stream = torch._C._cuda_getCurrentRawStream(index)
         err = fn(*args, stream)
         if err != 0:
             raise RuntimeError(f"{self.symbol}: CUDA error {err} at launch")

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from cartographer_tpu_torch.core.tensor import f32, index_add_in_order_, to_device, true_div
-from cartographer_tpu_torch.ops import cuda
+from cartographer_tpu_torch.ops import cuda, in_order_scatter
 from cartographer_tpu_torch.ops.probability import (
     MAX_LOG_ODDS,
     MIN_LOG_ODDS,
@@ -37,7 +37,7 @@ _INSERT_KERNEL = cuda.CudaKernel(
     "grid_3d.cu", "dense_insert_3d",
     [_P, _P, _P, _F, _I, _P, _P, _P, _I, _F, _F, _I, _F, _F, _P, _P, _P, _P])
 _INTENSITY_KERNEL = cuda.CudaKernel(
-    "grid_3d.cu", "dense_intensity_insert_3d", [_P, _P, _P, _F, _I, _P, _P, _P, _I, _F, _P])
+    "grid_3d.cu", "dense_intensity_insert_3d", [_P, _P, _P, _F, _I, _P, _P, _P, _I, _F, _I])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -222,16 +222,16 @@ def insert_intensities(grid: IntensityGrid3D, returns: torch.Tensor, intensities
     if not returns.is_cuda:
         return insert_intensities_plain(grid, returns, intensities, mask, intensity_threshold)
     s, n = grid.size, returns.shape[0]
+    if n == 0:
+        return grid
     cuda.check(grid.sums, "sums", torch.float32, (s, s, s))
     cuda.check(grid.counts, "counts", torch.float32, (s, s, s))
     cuda.check(grid.origin, "grid origin", torch.float32, (3,))
     cuda.check(returns, "returns", torch.float32, (n, 3))
     cuda.check(intensities, "intensities", torch.float32, (n,))
     cuda.check(mask, "mask", torch.bool, (n,))
-    keys = torch.empty(max(2, 1 << max(n - 1, 0).bit_length()), dtype=torch.int64,
-                       device=returns.device)
     _INTENSITY_KERNEL(returns.device, grid.sums.data_ptr(), grid.counts.data_ptr(),
                       grid.origin.data_ptr(), grid.resolution, s, returns.data_ptr(),
                       intensities.data_ptr(), mask.data_ptr(), n, f32(intensity_threshold),
-                      keys.data_ptr())
+                      in_order_scatter.radix_passes(s ** 3))
     return grid

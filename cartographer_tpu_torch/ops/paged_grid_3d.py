@@ -15,8 +15,9 @@ host mirror of the table), and four device programs, all in
   - `insert_intensity_paged` (K18): the running-average intensity pools of
     the reference's IntensityHybridGrid (sums and counts behind their own
     page table), fed with the returns whose intensity is at most the
-    threshold, in place, for scans of any size (above 8,192 returns its
-    key sort runs over several blocks);
+    threshold, in place, each cell's returns in their order, for scans of
+    any size (`csrc/in_order_scatter.cuh`: one block up to 8,192 returns, a
+    cluster of blocks above);
   - `crop_dense_intensity` (K19): K10's crop of the two intensity pools
     into a dense `IntensityGrid3D`.
 
@@ -38,7 +39,7 @@ import numpy as np
 import torch
 
 from cartographer_tpu_torch.core.tensor import to_device, true_div
-from cartographer_tpu_torch.ops import cuda
+from cartographer_tpu_torch.ops import cuda, in_order_scatter
 from cartographer_tpu_torch.ops.grid_3d import Grid3D, IntensityGrid3D
 from cartographer_tpu_torch.ops.probability import (
     MAX_LOG_ODDS,
@@ -56,7 +57,7 @@ _CROP_ARGS = [_P, _P, _P, _P, _F, _I, _I, _I, _F, _F, _F, _I, _P, _P, _P]
 _CROP_KERNEL = cuda.CudaKernel("paged_grid_3d.cu", "paged_crop_3d", _CROP_ARGS)
 _INTENSITY_INSERT_KERNEL = cuda.CudaKernel(
     "paged_grid_3d.cu", "paged_intensity_insert_3d",
-    [_P, _P, _P, _P, _F, _I, _I, _I, _P, _P, _P, _I, _F, _P])
+    [_P, _P, _P, _P, _F, _I, _I, _I, _P, _P, _P, _I, _F, _I])
 _INTENSITY_CROP_KERNEL = cuda.CudaKernel("paged_grid_3d.cu", "paged_intensity_crop_3d",
                                          _CROP_ARGS)
 
@@ -479,6 +480,8 @@ def insert_intensity_paged(grid: PagedIntensityGrid3D, returns: torch.Tensor,
         insert_intensity_paged_plain(grid, returns, intensities, mask, threshold)
         return
     n = returns.shape[0]
+    if n == 0:
+        return
     P, B, nb = grid.max_pages, grid.page_size, grid.num_blocks
     cuda.check(grid.sums, "sums", torch.float32, (P, B, B, B))
     cuda.check(grid.counts, "counts", torch.float32, (P, B, B, B))
@@ -487,15 +490,11 @@ def insert_intensity_paged(grid: PagedIntensityGrid3D, returns: torch.Tensor,
     cuda.check(returns, "returns", torch.float32, (n, 3))
     cuda.check(intensities, "intensities", torch.float32, (n,))
     cuda.check(mask, "mask", torch.bool, (n,))
-    # One 64-bit key per return, padded to a power of two: the kernel sorts
-    # them here where one block's shared memory cannot hold them.
-    keys = torch.empty(max(2, 1 << (n - 1).bit_length()), dtype=torch.int64,
-                       device=returns.device)
     _INTENSITY_INSERT_KERNEL(returns.device, grid.sums.data_ptr(), grid.counts.data_ptr(),
                              grid.page_table.data_ptr(), grid.origin.data_ptr(),
                              grid.resolution, B, nb, P, returns.data_ptr(),
                              intensities.data_ptr(), mask.data_ptr(), n, float(threshold),
-                             keys.data_ptr())
+                             in_order_scatter.radix_passes(grid.sums.numel()))
 
 
 def crop_dense_intensity_plain(grid: PagedIntensityGrid3D, center: torch.Tensor,

@@ -46,7 +46,9 @@ on the card, at full width (the reference's default 2D and 3D options):
     m; a mean yaw error of 0.03 rad, above the JAX builder's and the plain
     path's on the CPU), the first scans again on the CPU's plain path;
 11. K17, K18, K19 and K11 with its intensity rows, each against its plain
-    twin, on that run's pools, windows and clouds;
+    twin, on that run's pools, windows and clouds; K18 also timed by CUDA
+    events, its kernel launches per call counted, and `index_add_` of the
+    sums and the counts into both pools timed beside it;
 12. the full-size hall of phase 9 with the correlative search on (error and
     pages reported, not limited);
 13. 200 scans of the half-scale hall with the IMU-based extrapolator (a
@@ -65,7 +67,8 @@ on the card, at full width (the reference's default 2D and 3D options):
 17. the 3D frontend at the default options plus intensities with a
     16-ring x 1024-azimuth sensor (`tpu.scan_capacity` 16,384, above K2's
     and K18's one-block sizes) over 100 scans, the first 20 again on the
-    CPU's plain path, K2 and K18 at that size against their twins;
+    CPU's plain path, K2 and K18 at that size against their twins (K18
+    timed as in phase 11);
 18. K5, K7, K12, K13 and K17 at their former one-block limits and above
     (K5 to 16,384 points, K7 to 4,096, K12 to 8,192 points and 2,048 bins,
     K13 at 2,048 bins, K17 to 8,192 points), each equal to its twin bit for
@@ -94,8 +97,9 @@ on the card, at full width (the reference's default 2D and 3D options):
     the testbed's 28,800-return cloud padded to 32,768; K30 on scans of
     4,096, 16,384 and 32,768 returns into a 256^3 window), each equal to its
     twin bit for bit, and K30 over phase 10's first scans against K18 -> K19's
-    crop of the same window (counts exact, sums within 1e-5 relative); both
-    timed by the profiler and by CUDA events;
+    crop of the same window (counts and sums exact); both timed by the
+    profiler and by CUDA events, K30's kernel launches per call counted and
+    `index_add_` into clones of its grid's sums and counts timed beside it;
 22. state interchange: phase 4's 2D map and phase 7's 3D map written as
     native and reference-schema pbstreams and loaded by fresh card
     MapBuilders (poses, constraints and trajectory data exact, grids equal
@@ -225,22 +229,26 @@ def _fail(msg):
     raise AssertionError(msg)
 
 
-def _cuda_ms(fn, reps=30, warmup=3):
+def _cuda_ms(fn, reps=30, warmup=3, attempts=3):
     """Device milliseconds per call of fn(): the GPU activity (kernels and
-    copies) the profiler records, or, where it records none, the median
-    time between two CUDA events around the call."""
+    copies) the profiler records, or, where it records none in `attempts`
+    windows (it has dropped a whole window), the median time between two
+    CUDA events around the call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(attempts):
         torch.cuda.synchronize()
-    device_ms = sum(_device_us(e) for e in prof.key_averages()) / 1e3 / reps
-    return device_ms if device_ms > 0 else _event_ms(fn, reps, warmup=0)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        device_ms = sum(_device_us(e) for e in prof.key_averages()) / 1e3 / reps
+        if device_ms > 0:
+            return device_ms
+    return _event_ms(fn, reps, warmup=0)
 
 
 def _event_ms(fn, reps=30, warmup=3):
@@ -1676,7 +1684,7 @@ def _kernel_phase_3d_full(torch, dev, builder, kept):
     import dataclasses
 
     from cartographer_tpu_torch.mapping.local_trajectory_builder_3d import unpack_step_result
-    from cartographer_tpu_torch.ops import paged_grid_3d, scan_matcher_3d
+    from cartographer_tpu_torch.ops import in_order_scatter, paged_grid_3d, scan_matcher_3d
     from cartographer_tpu_torch.transform import quaternion as quat
 
     opts = builder._options
@@ -1773,27 +1781,39 @@ def _kernel_phase_3d_full(torch, dev, builder, kept):
               f"relative (tolerance: counts exact, sums 1e-5)")
     n = local_points.shape[0]
     ok = in_high & (intensities <= threshold)
-    lins = []
+    lins, values = [], []
     for p, _ in jobs:
         lin, found = paged_grid_3d._pool_index(p.grid, p.grid.world_to_cell(local_points), ok)
         lins.append(lin[found])
+        values.append(intensities[found])
     touched = [int(torch.unique(x).numel()) for x in lins]
-    values = [torch.ones(x.numel(), device=dev) for x in lins]
+    ones = [torch.ones_like(v) for v in values]
     print(f"K18 paged_intensity_insert_3d: {len(jobs)} pools, counts equal, sums within "
           f"{sum_err:.3g} relative (tolerance 1e-5), {touched} cells touched")
+    ms, ev, flag = _timed(lambda: [paged_grid_3d.insert_intensity_paged(
+        p.grid, local_points, intensities, in_high, threshold) for p, _ in jobs])
+    per_call = _launches_per_call(lambda: paged_grid_3d.insert_intensity_paged(
+        jobs[0][0].grid, local_points, intensities, in_high, threshold),
+        in_order_scatter.launches(n), "K18")
     rows["paged_intensity_insert_3d"] = dict(
         replaces="cartographer_tpu/ops/paged_grid_3d.py:385", max_abs_err=sum_err,
-        ms=_cuda_ms(lambda: [paged_grid_3d.insert_intensity_paged(
-            p.grid, local_points, intensities, in_high, threshold) for p, _ in jobs]),
+        ms=ms, event_ms=ev, timers_differ_2x=flag, returns=n, launches_per_call=per_call,
         plain_ms=_cuda_ms(lambda: [paged_grid_3d.insert_intensity_paged_plain(
             w, local_points, intensities, in_high, threshold) for _, w in jobs], reps=3,
             warmup=1),
         bound=_bound(len(jobs) * (n * 17 + 12) + sum(c * 16 for c in touched),
                      len(jobs) * n * 12),
-        # index_add_ of the counts: the scatter of one of the two pools, with
-        # the pool indices computed beforehand.
-        library_ms=_cuda_ms(lambda: [p.grid.counts.view(-1).index_add_(0, x, v)
-                                     for (p, _), x, v in zip(jobs, lins, values)]))
+        # index_add_ of the sums and of the counts into both pools, the pool
+        # indices computed beforehand: the same function (float atomics, so
+        # not the input order).
+        library_ms=_cuda_ms(lambda: [(p.grid.sums.view(-1).index_add_(0, x, v),
+                                      p.grid.counts.view(-1).index_add_(0, x, o))
+                                     for (p, _), x, v, o in zip(jobs, lins, values, ones)]))
+    r = rows["paged_intensity_insert_3d"]
+    print(f"K18 paged_intensity_insert_3d at {n} returns, {len(jobs)} pools: {ms:.4f} ms by the "
+          f"profiler, {ev:.4f} by CUDA events{' (DIFFER by more than 2x)' if flag else ''}, "
+          f"{per_call} launches per call, index_add_ of sums and counts {r['library_ms']:.4f}, "
+          f"bound {r['bound'][0]:.2e}")
     del jobs
 
     # K11 with its intensity rows: the step's match from a pose 5 cm and 0.6
@@ -1839,7 +1859,7 @@ def _large_scan_phase_3d(torch, dev):
 
     from cartographer_tpu_torch.core.config import TrajectoryBuilder3DOptions, apply_overrides
     from cartographer_tpu_torch.mapping import local_trajectory_builder_3d as ltb
-    from cartographer_tpu_torch.ops import cuda, paged_grid_3d
+    from cartographer_tpu_torch.ops import cuda, in_order_scatter, paged_grid_3d
     from cartographer_tpu_torch.sensor import voxel_filter
     from cartographer_tpu_torch.sensor.point_cloud import PointCloud
 
@@ -1946,25 +1966,42 @@ def _large_scan_phase_3d(torch, dev):
                                              threshold)
         differ += int((p.grid.sums.cpu() != twin.sums).sum()
                       + (p.grid.counts.cpu() != twin.counts).sum())
-    touched = [int(torch.unique(paged_grid_3d._pool_index(
-        b, b.world_to_cell(local_points), in_high & (intensities <= threshold))[0]).numel())
-        for b in before]
-    print(f"K18 paged_intensity_insert_3d at {local_points.shape[0]} returns (multi-block "
-          f"sort): {differ} pool cells differ from the CPU twin (tolerance: exact), "
-          f"{touched} cells touched")
-    if differ:
-        _fail(f"K18 at {local_points.shape[0]} returns differs from the CPU twin")
+    ok = in_high & (intensities <= threshold)
+    lins, values = [], []
+    for b in before:
+        lin, found = paged_grid_3d._pool_index(b, b.world_to_cell(local_points), ok)
+        lins.append(lin[found])
+        values.append(intensities[found])
+    touched = [int(torch.unique(x).numel()) for x in lins]
+    ones = [torch.ones_like(v) for v in values]
     nret = local_points.shape[0]
+    print(f"K18 paged_intensity_insert_3d at {nret} returns: {differ} pool cells differ from "
+          f"the CPU twin (tolerance: exact), {touched} cells touched")
+    if differ:
+        _fail(f"K18 at {nret} returns differs from the CPU twin")
+    ms, ev, flag = _timed(lambda: [paged_grid_3d.insert_intensity_paged(
+        b, local_points, intensities, in_high, threshold) for b in before])
+    per_call = _launches_per_call(lambda: paged_grid_3d.insert_intensity_paged(
+        before[0], local_points, intensities, in_high, threshold),
+        in_order_scatter.launches(nret), f"K18 at {nret} returns")
     rows["paged_intensity_insert_3d"] = dict(
-        max_abs_err=float(differ),
-        ms=_cuda_ms(lambda: [paged_grid_3d.insert_intensity_paged(
-            b, local_points, intensities, in_high, threshold) for b in before]),
+        max_abs_err=float(differ), ms=ms, event_ms=ev, timers_differ_2x=flag, returns=nret,
+        launches_per_call=per_call,
         plain_ms=_cuda_ms(lambda: [paged_grid_3d.insert_intensity_paged_plain(
             b, local_points, intensities, in_high, threshold) for b in before], reps=3,
             warmup=1),
         bound=_bound(len(jobs) * (nret * 17 + 12) + sum(c * 16 for c in touched),
                      len(jobs) * nret * 12),
-        library_ms=None)
+        # index_add_ of the sums and the counts into both pools (indices
+        # computed beforehand): the same function in atomic order.
+        library_ms=_cuda_ms(lambda: [(b.sums.view(-1).index_add_(0, x, v),
+                                      b.counts.view(-1).index_add_(0, x, o))
+                                     for b, x, v, o in zip(before, lins, values, ones)]))
+    r = rows["paged_intensity_insert_3d"]
+    print(f"K18 paged_intensity_insert_3d at {nret} returns, {len(before)} pools: {ms:.4f} ms "
+          f"by the profiler, {ev:.4f} by CUDA events"
+          f"{' (DIFFER by more than 2x)' if flag else ''}, {per_call} launches per call, "
+          f"index_add_ of sums and counts {r['library_ms']:.4f}, bound {r['bound'][0]:.2e}")
     steady = walls[10:]
     return dict(scans=n, returns_per_scan=nret, inserted=inserted,
                 mean_error_m=float(errors.mean()), mean_yaw_error_rad=float(yaw_err.mean()),
@@ -2996,6 +3033,36 @@ def _timed(fn, reps=20, warmup=2):
     return profiler, events, max(profiler, events) > 2.0 * max(min(profiler, events), 1e-9)
 
 
+def _launches_per_call(fn, expected, label):
+    """Kernels one call of fn() launches: the kernel nodes of a CUDA graph
+    captured around the call (the profiler dropped kernels of short
+    sessions). Fails above `expected`, the count the kernel's source
+    states."""
+    import ctypes
+
+    import torch
+
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    driver = ctypes.CDLL("libcuda.so.1")
+    raw, count = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    if driver.cuGraphGetNodes(raw, None, ctypes.byref(count)) != 0:
+        _fail(f"{label}: cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    driver.cuGraphGetNodes(raw, nodes, ctypes.byref(count))
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        driver.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        kinds.append(kind.value)
+    launched = kinds.count(0)  # CU_GRAPH_NODE_TYPE_KERNEL
+    del graph
+    if launched > expected:
+        _fail(f"{label}: {launched} kernel launches per call, the source states {expected}")
+    return launched
+
+
 def _edge_intensity_phase(torch, dev):
     """Phase 21: K30 and K31 at the path's shapes, each equal to its twin bit
     for bit; K30 over phase 10's first scans against K18 -> K19's crop of
@@ -3004,7 +3071,7 @@ def _edge_intensity_phase(torch, dev):
     per shape, K30 once per scan."""
     from cartographer_tpu_torch.core.config import INTENSITY_THRESHOLD as INTENSITY_THRESHOLD_3D
     from cartographer_tpu_torch.core.config import TpuOptions3D
-    from cartographer_tpu_torch.ops import cuda
+    from cartographer_tpu_torch.ops import cuda, in_order_scatter
     from cartographer_tpu_torch.ops.grid_3d import (
         IntensityGrid3D,
         _intensity_cells,
@@ -3083,14 +3150,15 @@ def _edge_intensity_phase(torch, dev):
         paged.insert(world, intens, near, INTENSITY_THRESHOLD_3D)
     crop = paged.crop_dense(center, window)
     differing = int((crop.counts != dense.counts).sum())
-    rel = float(((crop.sums - dense.sums).abs() / dense.sums.abs().clamp(min=1e-30)).max())
+    differing_sums = int((crop.sums != dense.sums).sum())
     cells = int((dense.counts > 0).sum())
     print(f"K30 over {len(path_inputs)} scans of phase 10's scene into the {window}^3 window: "
-          f"{cells} cells, counts differ from K18 -> K19's crop in {differing} (tolerance: "
-          f"exact), sums within {rel:.3g} relative (tolerance 1e-5)")
-    if differing or rel > 1e-5:
+          f"{cells} cells, counts differ from K18 -> K19's crop in {differing}, sums in "
+          f"{differing_sums} (tolerance: exact, both add each cell in input order)")
+    if differing or differing_sums:
         _fail("K30 differs from K18 -> K19's crop of the same window")
-    out["against_paged"] = dict(scans=len(path_inputs), cells=cells, sums_relative=rel)
+    out["against_paged"] = dict(scans=len(path_inputs), cells=cells,
+                                differing_counts=differing, differing_sums=differing_sums)
 
     # K31 against its twin at each shape.
     sizes = {}
@@ -3134,32 +3202,36 @@ def _edge_intensity_phase(torch, dev):
         if not (torch.equal(got.sums, ref.sums) and torch.equal(got.counts, ref.counts)):
             _fail(f"K30 at {n} returns differs from its twin")
         lin, ok = _intensity_cells(got, pts, intens, m, INTENSITY_THRESHOLD_3D)
-        touched = int(torch.unique(lin[ok]).numel())
-        lin_all = torch.where(ok, lin, torch.full_like(lin, window ** 3))
-        ones = torch.ones_like(intens)
-        flat = window ** 3
+        lin_ok, intens_ok = lin[ok], intens[ok]
+        touched = int(torch.unique(lin_ok).numel())
+        ones = torch.ones_like(intens_ok)
+        sums, counts = got.sums.view(-1).clone(), got.counts.view(-1).clone()
 
-        def library():
-            sums = torch.zeros(flat + 1, device=dev).index_add_(0, lin_all, intens)
-            return sums, torch.zeros(flat + 1, device=dev).index_add_(0, lin_all, ones)
+        def library():  # into the grid's existing sums and counts: nothing allocated
+            return sums.index_add_(0, lin_ok, intens_ok), counts.index_add_(0, lin_ok, ones)
 
         ms, ev, flag = _timed(lambda: insert_intensities(got, pts, intens, m,
                                                          INTENSITY_THRESHOLD_3D))
+        per_call = _launches_per_call(
+            lambda: insert_intensities(got, pts, intens, m, INTENSITY_THRESHOLD_3D),
+            in_order_scatter.launches(n), f"K30 at {n} returns")
         sizes[n] = dict(
             returns=n, cells_touched=touched, ms=ms, event_ms=ev, timers_differ_2x=flag,
+            launches_per_call=per_call,
             plain_ms=_cuda_ms(lambda: insert_intensities_plain(ref, pts, intens, m,
                                                                INTENSITY_THRESHOLD_3D),
                               reps=5, warmup=1),
             # The returns, intensities and flags read once; each touched
             # cell's sum and count read and written once.
             bound=_bound(n * 17 + touched * 16, 0),
-            # index_add_ of the sums and the counts (float atomics: not the
-            # input order).
+            # index_add_ of the contributing returns' sums and counts into
+            # clones of the grid's (float atomics: not the input order).
             library_ms=_cuda_ms(library))
         print(f"K30 dense_intensity_insert_3d at {n} returns ({touched} cells): equal to the "
               f"twin bit for bit; {ms:.4f} ms by the profiler, {ev:.4f} by CUDA events"
-              f"{' (DIFFER by more than 2x)' if flag else ''}, plain {sizes[n]['plain_ms']:.3f}, "
-              f"index_add_ {sizes[n]['library_ms']:.4f}, bound {sizes[n]['bound'][0]:.2e}")
+              f"{' (DIFFER by more than 2x)' if flag else ''}, {per_call} launches per call, "
+              f"plain {sizes[n]['plain_ms']:.3f}, index_add_ {sizes[n]['library_ms']:.4f}, "
+              f"bound {sizes[n]['bound'][0]:.2e}")
     row = sizes[K30_RETURNS[0]]
     rows["dense_intensity_insert_3d"] = dict(
         replaces="cartographer_tpu/ops/grid_3d.py:144", max_abs_err=0.0, ms=row["ms"],
@@ -3659,6 +3731,10 @@ def main() -> int:
         "scan_match": scan_match,
         "scan_match_gicp_ndt": gicp_ndt,
         "edge_filter_and_dense_intensity": edge_intensity,
+        "paged_intensity_insert_3d": {
+            phase: {k: v for k, v in r.items() if k not in ("bound", "replaces")}
+            for phase, r in (("phase_11", rows3f["paged_intensity_insert_3d"]),
+                             ("phase_17", large["kernels"]["paged_intensity_insert_3d"]))},
         "state_interchange": interchange,
         "bnb_match_ms": backend["bnb_match_ms"],
         "schur_50_iterations_ms": backend["schur_50_iterations_ms"],

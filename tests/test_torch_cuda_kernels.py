@@ -455,8 +455,9 @@ def _intensity_pair(dev):
 
 
 def test_paged_intensity_insert_kernel(dev):
-    """K18: counts exact, sums within 1e-5 of the CPU twin, and the same to
-    the bit from run to run (each cell adds its returns in their order)."""
+    """K18: counts and sums equal to the CPU twin's bit for bit, and the
+    same to the bit from run to run (each cell adds its returns in their
+    order)."""
     import dataclasses
 
     from cartographer_tpu_torch.ops import paged_grid_3d
@@ -465,11 +466,12 @@ def test_paged_intensity_insert_kernel(dev):
     assert card._slots == cpu._slots
     assert torch.equal(card.grid.page_table.cpu(), cpu.grid.page_table)
     assert torch.equal(card.grid.counts.cpu(), cpu.grid.counts)
-    torch.testing.assert_close(card.grid.sums.cpu(), cpu.grid.sums, rtol=1e-5, atol=0)
+    assert torch.equal(card.grid.sums.cpu(), cpu.grid.sums)
     assert float(card.grid.counts.sum()) > 2000
     rng = np.random.RandomState(18)
     pts, mask = _hall_scan(rng, np.float32([0.41, 0.33, -0.05]), 4096)
-    args = (_t(pts, dev), _t((rng.rand(4096) * 50.0).astype(np.float32), dev), _t(mask, dev))
+    host = (pts, (rng.rand(4096) * 50.0).astype(np.float32), mask)
+    args = tuple(_t(a, dev) for a in host)
     runs = []
     for _ in range(2):
         grid = dataclasses.replace(card.grid, sums=card.grid.sums.clone(),
@@ -478,6 +480,10 @@ def test_paged_intensity_insert_kernel(dev):
         runs.append(grid)
     assert torch.equal(runs[0].sums, runs[1].sums) and torch.equal(runs[0].counts, runs[1].counts)
     assert not torch.equal(runs[0].counts, card.grid.counts)
+    paged_grid_3d.insert_intensity_paged_plain(cpu.grid, *(torch.from_numpy(a) for a in host),
+                                               40.0)
+    assert torch.equal(runs[0].counts.cpu(), cpu.grid.counts)
+    assert torch.equal(runs[0].sums.cpu(), cpu.grid.sums)
 
 
 @pytest.mark.parametrize("center,size", [([0.31, -0.22, 0.13], 64), ([-12.0, 12.1, 0.2], 64),
@@ -683,6 +689,176 @@ def test_paged_intensity_insert_kernel_large(dev, n):
     assert float(cpu.grid.counts.sum()) > 0.5 * n
     assert torch.equal(card.grid.counts.cpu(), cpu.grid.counts)
     assert torch.equal(card.grid.sums.cpu(), cpu.grid.sums)
+
+
+# The in-order scatter of K18 and K30 (csrc/in_order_scatter.cuh): a cluster
+# of one block per 512 returns (up to 16 of 8,192 each), a launch per
+# 131,072. Returns sit at cell centers, so a pool index or flat cell places
+# them.
+THRESHOLD = 40.0
+SCATTER_SIZES = [511, 512, 513, 8191, 8192, 8193, 16384, 32768, 131073]
+SCATTER_CASES = ["one_cell_8192", "one_cell_32768", "none", "last_cell", "digits"]
+
+
+def _scatter_case(case, n_cells, place, outside, rng):
+    """(points, intensities, mask) of a case, cells given by flat index:
+    `place` maps cells to points, `outside` gives n points that add
+    nothing for want of a cell."""
+    if case.startswith("one_cell"):
+        n = int(case.split("_")[-1])
+        cells = np.full(n, rng.randint(n_cells))
+        return place(cells), rng.uniform(0, THRESHOLD, n).astype(np.float32), np.ones(n, bool)
+    n = {"none": 4096, "last_cell": 5000, "digits": 6000}[case]
+    if case == "none":
+        cells = rng.randint(0, n_cells, n)
+    elif case == "last_cell":
+        cells = np.full(n, n_cells - 1)
+    else:
+        cells = rng.choice([0, 0xFF, 0x100, 0xFFFF, 0x10000, n_cells - 1], n)
+    pts = place(cells)
+    intens = rng.uniform(0, THRESHOLD, n).astype(np.float32)
+    mask = np.ones(n, bool)
+    # Returns that add nothing, interleaved with the rest: masked out,
+    # above the threshold, NaN, without a cell.
+    drop = rng.randint(0, 5, n) if case == "none" else rng.choice(5, n, p=[.6, .1, .1, .1, .1])
+    mask[drop == 1] = False
+    intens[drop == 2] = THRESHOLD + 1.0 + rng.uniform(0, 20, int((drop == 2).sum()))
+    intens[drop == 3] = np.nan
+    pts[drop == 4] = outside(int((drop == 4).sum()))
+    if case == "none":
+        drop[drop == 0] = 1
+        mask[drop == 1] = False
+    return pts, intens, mask
+
+
+def _default_pool(seed):
+    """A pool of the default size (2,048 pages of 16^3: 2^23 cells) behind
+    a 16^3-block table whose random half of the blocks holds every page,
+    with random old sums and counts; -> (grid on the CPU, place, outside)."""
+    from cartographer_tpu_torch.ops.paged_grid_3d import PagedIntensityGrid3D
+
+    rng = np.random.RandomState(seed)
+    P, B, nb = 2048, 16, 16
+    grid = PagedIntensityGrid3D.create(0.1, np.float32([0.3, -0.2, 0.1]), "cpu", page_size=B,
+                                       max_pages=P, num_blocks=nb)
+    blocks = rng.choice(nb ** 3, P, replace=False)
+    table = np.full(nb ** 3, -1, np.int32)
+    table[blocks] = np.arange(P, dtype=np.int32)
+    grid.page_table.copy_(torch.from_numpy(table.reshape(nb, nb, nb)))
+    grid.sums.copy_(torch.from_numpy(rng.uniform(0, 500, grid.sums.shape).astype(np.float32)))
+    grid.counts.copy_(torch.from_numpy(rng.randint(0, 20, grid.counts.shape).astype(np.float32)))
+    origin = grid.origin.numpy().astype(np.float64)
+    unpaged = np.setdiff1d(np.arange(nb ** 3), blocks)
+
+    def place(cells):
+        page, off = np.divmod(cells, B ** 3)
+        block = np.stack(np.unravel_index(blocks[page], (nb,) * 3), -1)
+        offset = np.stack(np.unravel_index(off, (B,) * 3), -1)
+        return (origin + (block * B + offset + 0.5) * 0.1).astype(np.float32)
+
+    def outside(n):  # beyond the table or on a block without a page
+        block = np.stack(np.unravel_index(rng.choice(unpaged, n), (nb,) * 3), -1)
+        pts = origin + (block * B + rng.randint(0, B, (n, 3)) + 0.5) * 0.1
+        far = rng.rand(n) < 0.5
+        pts[far] += np.float32(100.0)
+        return pts.astype(np.float32)
+
+    return grid, place, outside
+
+
+def _k18_against_cpu(dev, grid, inputs):
+    """Each (points, intensities, mask) of `inputs` into `grid` by K18 on
+    the card and by the twin on the CPU; True where both pools end equal."""
+    import dataclasses
+
+    from cartographer_tpu_torch.ops import paged_grid_3d
+
+    card = dataclasses.replace(grid, sums=grid.sums.to(dev), counts=grid.counts.to(dev),
+                               page_table=grid.page_table.to(dev), origin=grid.origin.to(dev))
+    for pts, intens, mask in inputs:
+        host = [torch.from_numpy(np.ascontiguousarray(a)) for a in (pts, intens, mask)]
+        paged_grid_3d.insert_intensity_paged(card, *(a.to(dev) for a in host), THRESHOLD)
+        paged_grid_3d.insert_intensity_paged_plain(grid, *host, THRESHOLD)
+    torch.cuda.synchronize()
+    return (torch.equal(card.counts.cpu(), grid.counts)
+            and torch.equal(card.sums.cpu(), grid.sums))
+
+
+@pytest.mark.parametrize("n", SCATTER_SIZES)
+def test_paged_intensity_insert_kernel_sizes(dev, n):
+    """K18 about the one-block capacity and the cluster's, on the default
+    pool: two scans of clustered returns (long runs), with returns that add
+    nothing; sums and counts equal to the CPU twin's bit for bit."""
+    grid, place, outside = _default_pool(n)
+    rng = np.random.RandomState(n + 3)
+    inputs = []
+    k = 64 if n >= 4096 else 4  # hot cells: runs of over 10 returns at every size
+    for _ in range(2):
+        hot = rng.randint(0, 2 ** 23, k)
+        cells = np.where(rng.rand(n) < 0.5, hot[rng.randint(0, k, n)], rng.randint(0, 2 ** 23, n))
+        pts = place(cells)
+        far = rng.rand(n) < 0.05
+        pts[far] = outside(int(far.sum()))
+        intens = rng.uniform(0, 60, n).astype(np.float32)
+        intens[rng.rand(n) < 0.01] = np.nan
+        inputs.append((pts, intens, rng.rand(n) < 0.9))
+    before = grid.counts.clone()
+    assert _k18_against_cpu(dev, grid, inputs)
+    assert float((grid.counts - before).max()) > 10
+
+
+@pytest.mark.parametrize("case", SCATTER_CASES)
+def test_paged_intensity_insert_kernel_cases(dev, case):
+    """K18 on the default pool: one run of every return, no contributing
+    return, the pool's last cell among returns that add nothing, and pool
+    indices at the radix digits' boundaries and the top of the key's 23
+    bits; equal to the CPU twin bit for bit."""
+    grid, place, outside = _default_pool(7)
+    before = grid.counts.clone()
+    inputs = [_scatter_case(case, 2 ** 23, place, outside, np.random.RandomState(11))]
+    assert _k18_against_cpu(dev, grid, inputs)
+    added = float((grid.counts - before).sum())
+    assert (added == 0) == (case == "none")
+
+
+def _dense_window(dev, seed):
+    """A 256^3 window at 0.1 m with random old sums and counts, on the card
+    and on a clone; -> (grid, twin, place, outside)."""
+    from cartographer_tpu_torch.ops.grid_3d import IntensityGrid3D
+
+    rng = np.random.RandomState(seed)
+    grid = IntensityGrid3D.create(256, 0.1, np.float32([0.113, -0.071, 0.037]), dev)
+    grid.sums.copy_(_t(rng.uniform(0, 500, grid.sums.shape).astype(np.float32), dev))
+    grid.counts.copy_(_t(rng.randint(0, 20, grid.counts.shape).astype(np.float32), dev))
+    twin = dataclasses.replace(grid, sums=grid.sums.clone(), counts=grid.counts.clone())
+    origin = grid.origin.cpu().numpy().astype(np.float64)
+
+    def place(cells):
+        c = np.stack(np.unravel_index(cells, (256,) * 3), -1)
+        return (origin + (c + 0.5) * 0.1).astype(np.float32)
+
+    def outside(n):
+        c = rng.randint(0, 256, (n, 3))
+        c[np.arange(n), rng.randint(0, 3, n)] = rng.choice([-3, -1, 256, 300], n)
+        return (origin + (c + 0.5) * 0.1).astype(np.float32)
+
+    return grid, twin, place, outside
+
+
+@pytest.mark.parametrize("case", SCATTER_CASES)
+def test_dense_intensity_insert_kernel_cases(dev, case):
+    """K30 on a 256^3 window: the cases of K18's, the top of the key's 24
+    bits the window's last cell; equal to the twin bit for bit."""
+    from cartographer_tpu_torch.ops.grid_3d import insert_intensities, insert_intensities_plain
+
+    grid, twin, place, outside = _dense_window(dev, 5)
+    before = grid.counts.clone()
+    pts, intens, mask = _scatter_case(case, 256 ** 3, place, outside, np.random.RandomState(12))
+    args = (_t(pts, dev), _t(intens, dev), _t(mask, dev), THRESHOLD)
+    insert_intensities(grid, *args)
+    insert_intensities_plain(twin, *args)
+    assert torch.equal(grid.sums, twin.sums) and torch.equal(grid.counts, twin.counts)
+    assert (float((grid.counts - before).sum()) == 0) == (case == "none")
 
 
 # ---------------------------------------------------------------- TSDF (K20-K22, K3/K5/K6 forms)
@@ -1013,7 +1189,7 @@ def test_dense_insert_kernel(dev, free_space):
     assert int(grid.known.sum()) > 1000
 
 
-@pytest.mark.parametrize("n", [4096, 16384, 32768])
+@pytest.mark.parametrize("n", [4096] + SCATTER_SIZES)
 def test_dense_intensity_insert_kernel(dev, n):
     """K30: two inserts into a 256^3 window with clustered returns (long
     runs per cell), intensities above the threshold and returns outside
@@ -1028,9 +1204,10 @@ def test_dense_intensity_insert_kernel(dev, n):
     center = np.float32([0.113, -0.071, 0.037])
     grid = IntensityGrid3D.create(256, 0.1, center, dev)
     ref = IntensityGrid3D.create(256, 0.1, center, dev)
+    c = 64 if n >= 4096 else 4  # clusters: runs of over 10 returns at every size
     for k in range(2):
-        centers = rng.uniform(-10, 10, (64, 3))
-        pts = np.concatenate([centers[rng.randint(0, 64, n // 2)]
+        centers = rng.uniform(-10, 10, (c, 3))
+        pts = np.concatenate([centers[rng.randint(0, c, n // 2)]
                               + rng.normal(0, 0.05, (n // 2, 3)),
                               rng.uniform(-16, 16, (n - n // 2, 3))]) + center
         args = (_t(pts.astype(np.float32), dev), _t(rng.uniform(0, 60, n).astype(np.float32), dev),

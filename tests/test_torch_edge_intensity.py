@@ -75,6 +75,45 @@ def test_insert_intensities_matches_jax(n, seed):
     assert grid.counts.max() > 5  # runs of many returns were added in order
 
 
+@pytest.mark.parametrize("case", ["one_cell", "last_cell", "empty_mask"])
+def test_insert_intensities_cases_match_jax(case):
+    """A 32^3 grid with random old sums and counts: every return in one cell
+    (one run of 700), the grid's last cell among returns that add nothing
+    (JAX adds 0.0 there for each of them), an empty mask; sums and counts
+    equal to JAX's bit for bit."""
+    size, resolution, threshold, n = 32, 0.1, 40.0, 700
+    rng = np.random.RandomState(len(case) + 100)
+    jgrid = JIntensityGrid3D.create(size, resolution, CENTER)
+    sums = rng.uniform(0, 500, (size,) * 3).astype(np.float32)
+    counts = rng.randint(0, 20, (size,) * 3).astype(np.float32)
+    jgrid = JIntensityGrid3D(jnp.asarray(sums), jnp.asarray(counts), jgrid.origin, resolution)
+    grid = IntensityGrid3D(torch.from_numpy(sums.copy()), torch.from_numpy(counts.copy()),
+                           torch.from_numpy(np.array(jgrid.origin)), resolution)
+    cell = size ** 3 - 1 if case == "last_cell" else rng.randint(size ** 3)
+    c = np.array(np.unravel_index(cell, (size,) * 3))
+    pts = np.repeat((np.asarray(jgrid.origin) + (c + 0.5) * resolution)[None], n, 0)
+    pts = pts.astype(np.float32)
+    intens = rng.uniform(0, threshold, n).astype(np.float32)
+    mask = np.ones(n, bool)
+    drop = rng.randint(0, 5, n) if case == "last_cell" else np.zeros(n, int)
+    # Masked out, above the threshold, NaN, outside the cube.
+    mask[drop == 1] = False
+    intens[drop == 2] = threshold + 5.0
+    intens[drop == 3] = np.nan
+    pts[drop == 4] += np.float32(0.5)
+    if case == "empty_mask":
+        mask[:] = False
+    jgrid = j_insert_intensities(jgrid, jnp.asarray(pts), jnp.asarray(intens),
+                                 jnp.asarray(mask), threshold)
+    grid = insert_intensities(grid, torch.from_numpy(pts), torch.from_numpy(intens),
+                              torch.from_numpy(mask), threshold)
+    np.testing.assert_array_equal(grid.sums.numpy(), np.asarray(jgrid.sums))
+    np.testing.assert_array_equal(grid.counts.numpy(), np.asarray(jgrid.counts))
+    added = float(grid.counts.numpy().reshape(-1)[cell] - counts.reshape(-1)[cell])
+    assert added == int((mask & (intens <= threshold) & (drop == 0)).sum())
+    assert (added == n) == (case == "one_cell") and (added == 0) == (case == "empty_mask")
+
+
 def test_insert_intensities_masked_and_empty_change_nothing():
     grid = IntensityGrid3D.create(16, 0.2, CENTER, "cpu")
     pts = torch.zeros((5, 3)) + torch.from_numpy(CENTER)

@@ -23,7 +23,9 @@ from cartographer_tpu.ops.grid_3d import (
 )
 from cartographer_tpu.ops.interp import interp_trilinear as j_interp_trilinear
 from cartographer_tpu.ops.paged_grid_3d import (
+    PagedIntensityGrid3D as JPagedIntensityGrid3D,
     PagedIntensitySubmapGrid3D as JPagedIntensity,
+    _insert_intensity_paged as j_insert_intensity_paged,
     crop_dense_intensity as j_crop_dense_intensity,
 )
 from cartographer_tpu.ops.scan_matcher_3d import (
@@ -38,7 +40,9 @@ from cartographer_tpu_torch.interop import (
     intensity_grid3d_from_numpy,
     paged_intensity_grid_from_numpy,
 )
+from cartographer_tpu_torch.ops import in_order_scatter
 from cartographer_tpu_torch.ops.paged_grid_3d import (
+    PagedIntensityGrid3D,
     PagedIntensitySubmapGrid3D,
     crop_dense_intensity,
     crop_dense_intensity_plain,
@@ -357,3 +361,74 @@ def test_submap_intensity_grid_is_the_high_window():
     assert f.intensity_paged is not None and f.intensity_grid is not None
     assert torch.equal(f.intensity_grid.origin, f.high_grid.origin)
     assert f.intensity_paged.grid.max_pages < 512  # compacted
+
+
+@pytest.mark.parametrize("case", ["one_cell", "last_cell", "empty_mask"])
+def test_paged_intensity_insert_cases_match_jax(case):
+    """K18's twin against _insert_intensity_paged on a pool of 64 pages of
+    8^3 with random old sums and counts: every return in one cell (one run
+    of 700), the pool's last cell among returns that add nothing (JAX adds
+    0.0 there for each of them), and an empty mask; pools equal bit for
+    bit."""
+    rng = np.random.RandomState(len(case))
+    P, B, nb = 64, 8, 8
+    blocks = rng.choice(nb ** 3, P, replace=False)
+    table = np.full(nb ** 3, -1, np.int32)
+    table[blocks] = np.arange(P, dtype=np.int32)
+    table = table.reshape(nb, nb, nb)
+    sums = rng.uniform(0, 500, (P, B, B, B)).astype(np.float32)
+    counts = rng.randint(0, 20, (P, B, B, B)).astype(np.float32)
+    origin = np.float32([-3.2, -3.1, -3.3])
+    n = 700
+    cell = {"one_cell": rng.randint(P * B ** 3), "last_cell": P * B ** 3 - 1,
+            "empty_mask": rng.randint(P * B ** 3)}[case]
+    page, off = divmod(cell, B ** 3)
+    world = (np.array(np.unravel_index(blocks[page], (nb,) * 3)) * B
+             + np.array(np.unravel_index(off, (B,) * 3)) + 0.5)
+    pts = np.repeat((origin + world * RES)[None], n, 0).astype(np.float32)
+    intens = (rng.rand(n) * 40.0).astype(np.float32)
+    mask = np.ones(n, bool)
+    drop = rng.randint(0, 5, n) if case == "last_cell" else np.zeros(n, int)
+    # Masked out, above the threshold, NaN, beyond the table.
+    mask[drop == 1] = False
+    intens[drop == 2] = 45.0
+    intens[drop == 3] = np.nan
+    pts[drop == 4] += np.float32(10.0)
+    if case == "empty_mask":
+        mask[:] = False
+    jgrid = JPagedIntensityGrid3D(jnp.asarray(sums), jnp.asarray(counts), jnp.asarray(table),
+                                  jnp.asarray(origin), RES, B)
+    jgrid = j_insert_intensity_paged(jgrid, jnp.asarray(pts), jnp.asarray(intens),
+                                     jnp.asarray(mask & (intens <= 40.0)))
+    grid = PagedIntensityGrid3D(_t(sums), _t(counts), _t(table), _t(origin), RES, B)
+    insert_intensity_paged(grid, _t(pts), _t(intens), _t(mask), 40.0)
+    np.testing.assert_array_equal(grid.sums.numpy(), np.asarray(jgrid.sums))
+    np.testing.assert_array_equal(grid.counts.numpy(), np.asarray(jgrid.counts))
+    added = float(grid.counts.numpy().reshape(-1)[cell] - counts.reshape(-1)[cell])
+    assert added == int((mask & (intens <= 40.0) & (drop == 0)).sum())
+    assert (added == n) == (case == "one_cell") and (added == 0) == (case == "empty_mask")
+
+
+def test_in_order_scatter_host_choices():
+    """The radix passes the host asks of K18 and K30 for the pools and
+    windows the port uses, and the launches a call makes about the one-block
+    and the cluster capacities."""
+    from cartographer_tpu_torch.core.config import TpuOptions3D
+
+    tpu = TpuOptions3D()
+    assert tpu.max_pages * tpu.page_size ** 3 == 2 ** 23
+    assert in_order_scatter.radix_passes(tpu.max_pages * tpu.page_size ** 3) == 3
+    assert in_order_scatter.radix_passes(tpu.high_grid_size ** 3) == 3  # K30's 256^3
+    assert in_order_scatter.radix_passes(POOL["max_pages"] * POOL["page_size"] ** 3) == 3
+    assert in_order_scatter.radix_passes(64 * 8 ** 3) == 2
+    for cells, passes in [(1, 1), (2, 1), (256, 1), (257, 2), (2 ** 16, 2), (2 ** 16 + 1, 3),
+                          (2 ** 24, 3), (2 ** 24 + 1, 4), (2 ** 32 - 2, 4)]:
+        assert in_order_scatter.radix_passes(cells) == passes
+        assert (cells - 1) >> (8 * passes) == 0
+    with pytest.raises(ValueError):
+        in_order_scatter.radix_passes(0)
+    tile, chunk = in_order_scatter.TILE, in_order_scatter.CHUNK
+    assert (tile, chunk) == (8192, 131072)
+    for n, launches in [(0, 0), (1, 1), (4096, 1), (tile - 1, 1), (tile, 1), (tile + 1, 1),
+                        (32768, 1), (chunk, 1), (chunk + 1, 2), (3 * chunk, 3)]:
+        assert in_order_scatter.launches(n) == launches
