@@ -7,8 +7,8 @@ map_builder.lua, plus the static capacities the device pipeline is sized by
 (`TpuOptions2D`, `TpuOptions3D`, kept under their original names so that the
 `dataclasses.asdict` trees of the two packages share their keys). Options of
 features the port does not have are left out; the switches the constructors
-must refuse (`batch_scan_dispatch`, the trimmers and the 2D
-`pose_extrapolator.use_imu_based`) stay.
+must refuse (the trimmers and the 2D `pose_extrapolator.use_imu_based`)
+stay.
 """
 
 from __future__ import annotations
@@ -344,7 +344,7 @@ class MapBuilderOptions:
     # pipelined work queue, pose_graph_2d.cc:520-544); False runs them
     # inline, deterministically.
     async_constraint_search: bool = True
-    batch_scan_dispatch: bool = False  # not ported: must stay False
+    batch_scan_dispatch: bool = False  # one ScanBatcher for the 2D trajectories
 
 
 def replace_tree(options, path: str, value):

@@ -27,6 +27,18 @@
 // truncation : 0 in the map, UNKNOWN outside it, as the gather form pads.
 // One template over the cell's surface serves both exported functions.
 //
+// Robots: blockIdx.y is the robot of a cross-robot batch (the JAX package's
+// _batched_step_cached vmaps the search over robots); a launch for one
+// robot instantiates the same body with the robot index 0, so that it costs
+// what the one-robot kernel did. num_angles comes
+// from the options, so every robot of a batch has the same grid of
+// candidates; each robot has its own grid (a pointer table of values,
+// flags and origin in the launch's parameters: no copy to the device),
+// padded points and mask, start pose, scores, 64-bit key and decode. One
+// init_key launch clears the robots' keys, one decode launch reads them.
+// Above kMaxRobots robots the entry point launches once per kMaxRobots.
+// One search is the R = 1 case.
+//
 // Bound: operations and latency. At full width 421 x 5 x 5 candidates x 512
 // points are 5.4 M gathers of 5 bytes from a 5 MB grid (L2-resident), a few
 // microseconds of bytes; the blocks are short, so launch and tail effects
@@ -42,18 +54,21 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxPoints = 4096;  // the shared tile of the point sum
+constexpr int kMaxRobots = 64;    // robots per launch: the pointer table's rows
 
+// Per robot: the surface values, flags and grid origin.
+struct Grids {
+  const void* values[kMaxRobots];
+  const void* flags[kMaxRobots];
+  const void* origin[kMaxRobots];
+};
+
+// What every robot of a launch shares.
 struct Params {
-  const float* values;  // log-odds, or tsd (TSDF form)
-  const void* flags;    // known (uint8), or weight (float32, TSDF form)
-  float truncation;     // TSDF form only
-  const float* origin;
+  float truncation;  // TSDF form only
   float resolution;
   int size;
-  const float* points;
-  const uint8_t* mask;
   int n;  // power of two, any size
-  const float* init;
   int num_angles;
   int nl;
   float angle_limit;  // angular_search_window + 1e-6
@@ -71,21 +86,53 @@ __device__ inline float from_ordered_bits(uint32_t b) {
   return __uint_as_float((b & 0x80000000u) ? (b & 0x7fffffffu) : ~b);
 }
 
+// One robot's grid, padded points, mask and start pose.
+struct Robot {
+  const float* values;  // log-odds, or tsd (TSDF form)
+  const void* flags;    // known (uint8), or weight (float32, TSDF form)
+  const float* origin;
+  const float* points;
+  const uint8_t* mask;
+  const float* init;
+};
+
+// Robot r's inputs: `points` and `mask` robot 0's, `init` robot 0's start
+// pose, robot r's init_rs floats further.
+__device__ inline Robot robot_of(const Params& p, const Grids& grids, const float* points,
+                                 const uint8_t* mask, const float* init, long long init_rs,
+                                 int r) {
+  return {(const float*)grids.values[r], grids.flags[r], (const float*)grids.origin[r],
+          points + (long long)r * 2 * p.n, mask + (long long)r * p.n, init + r * init_rs};
+}
+
 template <bool kTsdf>
-__device__ inline float probability(const Params& p, int cx, int cy) {
+__device__ inline float probability(const Params& p, const Robot& q, int cx, int cy) {
   if (cx < 0 || cx >= p.size || cy < 0 || cy >= p.size) return 0.1f;
   size_t idx = (size_t)cx * p.size + cy;
   if (kTsdf)
-    return ((const float*)p.flags)[idx] > 0.0f ? 1.0f - fabsf(p.values[idx]) / p.truncation
+    return ((const float*)q.flags)[idx] > 0.0f ? 1.0f - fabsf(q.values[idx]) / p.truncation
                                                : 0.0f;
-  return ((const uint8_t*)p.flags)[idx] ? 1.0f / (1.0f + expf(-p.values[idx])) : 0.1f;
+  return ((const uint8_t*)q.flags)[idx] ? 1.0f / (1.0f + expf(-q.values[idx])) : 0.1f;
 }
 
-__global__ void init_key(unsigned long long* key) { key[0] = 0ull; }
+__global__ void init_key(unsigned long long* key, int robots) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r < robots) key[r] = 0ull;
+}
 
-template <bool kTsdf>
-__global__ void score_kernel(Params p, float* __restrict__ scores, float* __restrict__ deltas,
+// kRobots: a launch for several robots (blockIdx.y); one robot's launch
+// instantiates the same body with r = 0.
+template <bool kTsdf, bool kRobots>
+__global__ void score_kernel(Params p, Grids grids, const float* __restrict__ points,
+                             const uint8_t* __restrict__ mask, const float* __restrict__ init,
+                             long long init_rs, float* __restrict__ scores,
+                             float* __restrict__ deltas,
                              unsigned long long* __restrict__ key) {
+  const int r = kRobots ? blockIdx.y : 0;
+  const Robot q = robot_of(p, grids, points, mask, init, init_rs, r);
+  scores += (long long)r * p.num_angles * (2 * p.nl + 1) * (2 * p.nl + 1);
+  deltas += (long long)r * p.num_angles;
+  key += r;
   __shared__ float s[kMaxPoints];
   __shared__ float red[kThreads / 32];
   __shared__ int cnt;
@@ -99,10 +146,10 @@ __global__ void score_kernel(Params p, float* __restrict__ scores, float* __rest
   float mr = 0.0f;
   int c = 0;
   for (int k = threadIdx.x; k < p.n; k += blockDim.x) {
-    float x = p.points[2 * k], y = p.points[2 * k + 1];
-    float r = sqrtf(x * x + y * y);
-    if (p.mask[k]) {
-      mr = fmaxf(mr, r);
+    float x = q.points[2 * k], y = q.points[2 * k + 1];
+    float range = sqrtf(x * x + y * y);
+    if (q.mask[k]) {
+      mr = fmaxf(mr, range);
       c += 1;
     }
   }
@@ -118,24 +165,24 @@ __global__ void score_kernel(Params p, float* __restrict__ scores, float* __rest
   }
   __syncthreads();
   mr = red[0];
-  for (int q = 1; q < kThreads / 32; ++q) mr = fmaxf(mr, red[q]);
+  for (int w_ = 1; w_ < kThreads / 32; ++w_) mr = fmaxf(mr, red[w_]);
   mr = fmaxf(mr, p.min_range);
   const float step = 0.999f * acosf(1.0f - p.res_sq / (2.0f * (mr * mr)));
   const int half = (p.num_angles - 1) / 2;
   const float delta = ((float)a - (float)half) * step;
-  const float theta = p.init[2] + delta;
+  const float theta = q.init[2] + delta;
   const float ct = cosf(theta), st = sinf(theta);
   const int sx = ix - p.nl, sy = iy - p.nl;
 
   auto value = [&](int k) {
     float v = 0.0f;
-    if (p.mask[k]) {
-      float x = p.points[2 * k], y = p.points[2 * k + 1];
-      float wx = (ct * x - st * y) + p.init[0];
-      float wy = (st * x + ct * y) + p.init[1];
-      int cx = (int)floorf((wx - p.origin[0]) / p.resolution);
-      int cy = (int)floorf((wy - p.origin[1]) / p.resolution);
-      v = probability<kTsdf>(p, cx + sx, cy + sy);
+    if (q.mask[k]) {
+      float x = q.points[2 * k], y = q.points[2 * k + 1];
+      float wx = (ct * x - st * y) + q.init[0];
+      float wy = (st * x + ct * y) + q.init[1];
+      int cx = (int)floorf((wx - q.origin[0]) / p.resolution);
+      int cy = (int)floorf((wy - q.origin[1]) / p.resolution);
+      v = probability<kTsdf>(p, q, cx + sx, cy + sy);
     }
     return v;
   };
@@ -152,8 +199,8 @@ __global__ void score_kernel(Params p, float* __restrict__ scores, float* __rest
     float dx = fabsf((float)sx) * p.resolution;
     float dy = fabsf((float)sy) * p.resolution;
     float dist = sqrtf(dx * dx + dy * dy);
-    float q = dist * p.tw + fabsf(delta) * p.rw;
-    float score = fabsf(delta) <= p.angle_limit ? raw * expf(-(q * q)) : -INFINITY;
+    float prior = dist * p.tw + fabsf(delta) * p.rw;
+    float score = fabsf(delta) <= p.angle_limit ? raw * expf(-(prior * prior)) : -INFINITY;
     scores[flat] = score;
     if (ix == 0 && iy == 0) deltas[a] = delta;
     unsigned long long k64 = ((unsigned long long)ordered_bits(score) << 32) |
@@ -162,75 +209,104 @@ __global__ void score_kernel(Params p, float* __restrict__ scores, float* __rest
   }
 }
 
-__global__ void decode_kernel(Params p, const float* __restrict__ deltas,
+__global__ void decode_kernel(Params p, Grids grids, const float* __restrict__ init,
+                              long long init_rs, int robots, const float* __restrict__ deltas,
                               const unsigned long long* __restrict__ key,
                               float* __restrict__ best) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= robots) return;
+  const float* start = init + r * init_rs;
+  deltas += (long long)r * p.num_angles;
+  key += r;
+  best += 4 * r;
   const int w = 2 * p.nl + 1;
   unsigned long long k64 = key[0];
   int flat = (int)(0xffffffffu - (uint32_t)(k64 & 0xffffffffull));
   int a = flat / (w * w), ix = (flat / w) % w, iy = flat % w;
   best[0] = from_ordered_bits((uint32_t)(k64 >> 32));
-  best[1] = p.init[0] + (float)(ix - p.nl) * p.resolution;
-  best[2] = p.init[1] + (float)(iy - p.nl) * p.resolution;
-  best[3] = p.init[2] + deltas[a];
+  best[1] = start[0] + (float)(ix - p.nl) * p.resolution;
+  best[2] = start[1] + (float)(iy - p.nl) * p.resolution;
+  best[3] = start[2] + deltas[a];
 }
 
+// `grids` (host memory): robots x (values, flags, origin) device pointers.
+// `points` (robots, n, 2) and `mask` (robots, n) contiguous; `init` robot
+// 0's start pose, robot r's init_rs floats further; outputs per robot.
 template <bool kTsdf>
-int launch(const void* values, const void* flags, float truncation, const void* grid_origin,
-           float resolution, int size, const void* points, const void* mask, int n,
-           const void* init, int num_angles, int nl, float angle_limit, float tw, float rw,
-           float res_sq, float min_range, void* scores, void* deltas, void* key, void* best,
-           void* stream) {
-  if (n < 1 || (n & (n - 1)) != 0) return (int)cudaErrorInvalidValue;
-  Params p;
-  p.values = (const float*)values;
-  p.flags = flags;
-  p.truncation = truncation;
-  p.origin = (const float*)grid_origin;
-  p.resolution = resolution;
-  p.size = size;
-  p.points = (const float*)points;
-  p.mask = (const uint8_t*)mask;
-  p.n = n;
-  p.init = (const float*)init;
-  p.num_angles = num_angles;
-  p.nl = nl;
-  p.angle_limit = angle_limit;
-  p.tw = tw;
-  p.rw = rw;
-  p.res_sq = res_sq;
-  p.min_range = min_range;
+int launch(const void* const* grids, int robots, float truncation, float resolution, int size,
+           const void* points, const void* mask, int n, const void* init, long long init_rs,
+           int num_angles, int nl, float angle_limit, float tw, float rw, float res_sq,
+           float min_range, void* scores, void* deltas, void* key, void* best, void* stream) {
+  if (n < 1 || (n & (n - 1)) != 0 || robots < 1 || grids == nullptr)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  int w = 2 * nl + 1;
-  init_key<<<1, 1, 0, s>>>((unsigned long long*)key);
-  score_kernel<kTsdf><<<num_angles * w * w, kThreads, 0, s>>>(
-      p, (float*)scores, (float*)deltas, (unsigned long long*)key);
-  decode_kernel<<<1, 1, 0, s>>>(p, (const float*)deltas, (const unsigned long long*)key,
-                                (float*)best);
-  return (int)cudaGetLastError();
+  const int w = 2 * nl + 1;
+  for (int r0 = 0; r0 < robots; r0 += kMaxRobots) {
+    const int count = min(kMaxRobots, robots - r0);
+    Grids g = {};
+    for (int r = 0; r < count; ++r) {
+      g.values[r] = grids[3 * (r0 + r)];
+      g.flags[r] = grids[3 * (r0 + r) + 1];
+      g.origin[r] = grids[3 * (r0 + r) + 2];
+    }
+    Params p;
+    p.truncation = truncation;
+    p.resolution = resolution;
+    p.size = size;
+    p.n = n;
+    p.num_angles = num_angles;
+    p.nl = nl;
+    p.angle_limit = angle_limit;
+    p.tw = tw;
+    p.rw = rw;
+    p.res_sq = res_sq;
+    p.min_range = min_range;
+    const float* pts = (const float*)points + (long long)r0 * 2 * n;
+    const uint8_t* msk = (const uint8_t*)mask + (long long)r0 * n;
+    const float* start = (const float*)init + r0 * init_rs;
+    float* sc = (float*)scores + (long long)r0 * num_angles * w * w;
+    float* de = (float*)deltas + (long long)r0 * num_angles;
+    unsigned long long* k = (unsigned long long*)key + r0;
+    init_key<<<1, kMaxRobots, 0, s>>>(k, count);
+    const dim3 grid(num_angles * w * w, count);
+    if (count == 1)
+      score_kernel<kTsdf, false><<<grid, kThreads, 0, s>>>(p, g, pts, msk, start, init_rs, sc,
+                                                           de, k);
+    else
+      score_kernel<kTsdf, true><<<grid, kThreads, 0, s>>>(p, g, pts, msk, start, init_rs, sc,
+                                                          de, k);
+    decode_kernel<<<1, kMaxRobots, 0, s>>>(p, g, start, init_rs, count, de, k,
+                                           (float*)best + 4 * r0);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 }  // namespace
 
-extern "C" int correlative_2d(const void* log_odds, const void* known, const void* grid_origin,
-                              float resolution, int size, const void* points, const void* mask,
-                              int n, const void* init, int num_angles, int nl, float angle_limit,
+// K5 on occupancy grids: per robot the log-odds (float32) and known (uint8)
+// grids, size^2, and the grid origin.
+extern "C" int correlative_2d(const void* const* grids, int robots, float resolution, int size,
+                              const void* points, const void* mask, int n, const void* init,
+                              long long init_rs, int num_angles, int nl, float angle_limit,
                               float tw, float rw, float res_sq, float min_range, void* scores,
                               void* deltas, void* key, void* best, void* stream) {
-  return launch<false>(log_odds, known, 0.0f, grid_origin, resolution, size, points, mask, n,
-                       init, num_angles, nl, angle_limit, tw, rw, res_sq, min_range, scores,
-                       deltas, key, best, stream);
+  return launch<false>(grids, robots, 0.0f, resolution, size, points, mask, n, init, init_rs,
+                       num_angles, nl, angle_limit, tw, rw, res_sq, min_range, scores, deltas,
+                       key, best, stream);
 }
 
-// K5's TSDF form: `tsd` and `weight` (float32, size^2) and the truncation.
-extern "C" int correlative_2d_tsdf(const void* tsd, const void* weight, float truncation,
-                                   const void* grid_origin, float resolution, int size,
-                                   const void* points, const void* mask, int n,
-                                   const void* init, int num_angles, int nl,
+// K5's TSDF form: per robot `tsd` and `weight` (float32, size^2) and the
+// grid origin; one truncation.
+extern "C" int correlative_2d_tsdf(const void* const* grids, int robots, float truncation,
+                                   float resolution, int size, const void* points,
+                                   const void* mask, int n, const void* init,
+                                   long long init_rs, int num_angles, int nl,
                                    float angle_limit, float tw, float rw, float res_sq,
                                    float min_range, void* scores, void* deltas, void* key,
                                    void* best, void* stream) {
-  return launch<true>(tsd, weight, truncation, grid_origin, resolution, size, points, mask, n,
-                      init, num_angles, nl, angle_limit, tw, rw, res_sq, min_range, scores,
+  return launch<true>(grids, robots, truncation, resolution, size, points, mask, n, init,
+                      init_rs, num_angles, nl, angle_limit, tw, rw, res_sq, min_range, scores,
                       deltas, key, best, stream);
 }

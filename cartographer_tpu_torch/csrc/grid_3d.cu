@@ -149,7 +149,7 @@ extern "C" int dense_insert_3d(const void* log_odds, const void* known, const vo
 namespace {
 
 // K30's returns for in_order_scatter: a return's flat cell, or kNone.
-struct DenseReturns {
+struct DenseReturns : in_order_scatter::SumCount {
   const float* returns;
   const float* intensities;
   const uint8_t* mask;
@@ -158,12 +158,13 @@ struct DenseReturns {
   int size;
   float threshold;
 
-  __device__ unsigned int cell(int i, float& value) const {
+  __device__ unsigned int cell(int i, unsigned int& payload) const {
     // Every load first, so that they overlap.
     const float p[3] = {returns[3 * (size_t)i], returns[3 * (size_t)i + 1],
                         returns[3 * (size_t)i + 2]};
     const bool in = mask[i] != 0;
-    value = intensities[i];
+    const float value = intensities[i];
+    payload = __float_as_uint(value);
     if (!in || !(value <= threshold)) return in_order_scatter::kNone;
     int c[3];
     for (int a = 0; a < 3; ++a) {
@@ -187,8 +188,8 @@ extern "C" int dense_intensity_insert_3d(void* sums, void* counts, const void* g
   if (size < 1 || n < 0 || cells >= (long long)in_order_scatter::kNone || passes < 1 ||
       (passes < 4 && cells > (1ll << (8 * passes))))
     return (int)cudaErrorInvalidValue;
-  DenseReturns src{(const float*)returns, (const float*)intensities, (const uint8_t*)mask,
+  DenseReturns src{{(float*)sums, (float*)counts},
+                   (const float*)returns, (const float*)intensities, (const uint8_t*)mask,
                    (const float*)grid_origin, resolution, size, threshold};
-  return (int)in_order_scatter::launch(src, n, passes, (float*)sums, (float*)counts,
-                                       (cudaStream_t)stream);
+  return (int)in_order_scatter::launch(src, n, passes, (cudaStream_t)stream);
 }

@@ -1,43 +1,53 @@
-// In-order segmented scatter-add, shared by K18 (paged_grid_3d.cu) and K30
-// (grid_3d.cu): for every return that contributes, sums[cell] += value and
-// counts[cell] += 1, each cell's returns added to its old sum and count in
-// input order. That is the order of XLA's scatter-add on the CPU and of the
-// twins' index_add_in_order_, so the card equals the twin bit for bit and a
-// run repeats. No atomics touch the sums (float atomics moved results at
+// In-order segmented scatter-add, shared by K18 (paged_grid_3d.cu), K30
+// (grid_3d.cu) and K21 (tsdf_2d.cu): every item that contributes is added
+// into its cell, each cell's items added to its old state in input order.
+// That is the order of XLA's scatter-add on the CPU and of the twins'
+// index_add_in_order_, so the card equals the twin bit for bit and a run
+// repeats. No atomics touch the sums (float atomics moved results at
 // near-ties).
 //
-// A `Source` says per return whether it contributes and to which cell:
-//   __device__ unsigned int cell(int i, float& value) const
-// returns the cell (below 2^(8 passes)) or kNone, and sets the value.
+// A `Source` says per item whether it contributes, to which cell and with
+// what 32-bit payload, and how a cell takes its items:
+//   __device__ unsigned int cell(int i, unsigned int& payload) const
+//     returns the cell (below 2^(8 passes)) or kNone, and sets the payload;
+//   typename Acc;  __device__ Acc load(unsigned int cell) const
+//     the cell's old state;
+//   __device__ void add(Acc& acc, unsigned int payload) const
+//     adds one item;
+//   __device__ void store(unsigned int cell, const Acc& acc) const
+//     writes the cell once, after its last item.
+// `SumCount` is the sum-and-count cell of K18 and K30 (the payload is the
+// intensity's bits); K21's payload is its sample's index, through which it
+// recomputes the sample's two addends (w and w x sdf) in the walk.
 //
-// One launch holds up to kChunk = 131,072 returns on chip: a thread-block
+// One launch holds up to kChunk = 131,072 items on chip: a thread-block
 // cluster of up to 16 blocks of 512 threads, each block up to kTile = 8,192
-// returns in 147 KB of dynamic shared memory, the blocks reading and writing
+// items in 147 KB of dynamic shared memory, the blocks reading and writing
 // each other's through distributed shared memory. The cluster takes one
-// block per kSpread = 512 returns, up to 16: one SM issues too few memory
+// block per kSpread = 512 items, up to 16: one SM issues too few memory
 // requests and instructions for a scan's sort, and the old sums' scattered
 // loads and stores, on its own (on the card, tests/in_order_scatter_trace.py:
 // one block took 2.4x and 2 blocks 1.7x the cycles of 8 at 4,096 returns,
 // and 8 blocks 1.2-1.4x those of 16 at 16,384 and 32,768). Above kChunk,
-// one launch per kChunk returns in input order on the stream keeps each
+// one launch per kChunk items in input order on the stream keeps each
 // cell's order across launches too. So a call is one launch up to 131,072
-// returns, ceil(n / 131,072) above, and allocates nothing.
+// items, ceil(n / 131,072) above, and allocates nothing.
 //
-// 1. Compact. Block b takes the b-th slice of the launch's returns, each
-//    warp a contiguous share of it, staged in shared memory; the returns
+// 1. Compact. Block b takes the b-th slice of the launch's items, each
+//    warp a contiguous share of it, staged in shared memory; the items
 //    that add nothing drop out (a warp ballot, then one scan of the 16
 //    warps' counts) and the rest go to the block's tile in input order, the
-//    intensity beside the cell in one 8-byte item: the returns are read
-//    from device memory once. The cluster's tiles, block after block, are
-//    the contributing returns in input order.
+//    payload beside the cell in one 8-byte item: the inputs are read from
+//    device memory once. The cluster's tiles, block after block, are the
+//    contributing items in input order.
 // 2. Sort the cells alone, stably: an LSD radix sort with 8-bit digits and
-//    `passes` passes (ceil(bits / 8), from the pool's or the grid's cell
-//    count on the host: 3 for both the default pool of 2^23 cells and K30's
-//    256^3 window). Stability keeps the input order within a cell, so the
-//    return index never enters the key. Per pass: the block counts its
-//    tile's digits per warp share with shared atomics (a count does not
-//    depend on their order) and turns each digit's 16 warp counts into
-//    offsets; after a cluster barrier each block reads the cluster's
+//    `passes` passes (ceil(bits / 8), from the grid's cell count on the
+//    host: 3 for the default pool of 2^23 cells, K30's 256^3 window and
+//    K21's two 1024^2 slots). Stability keeps the input order within a
+//    cell, so the item index never enters the key. Per pass: the block
+//    counts its tile's digits per warp share with shared atomics (a count
+//    does not depend on their order) and turns each digit's 16 warp counts
+//    into offsets; after a cluster barrier each block reads the cluster's
 //    per-digit totals at once and scans them over the 256 digits; then each
 //    warp walks its share in order and sends every item to base[digit] +
 //    its warp's running count + its rank among the lower lanes of equal
@@ -48,17 +58,17 @@
 //    steps (78 at 4,096 keys) in one block and, above 8,192 keys, a launch
 //    per larger step.
 // 3. Add the runs. A position whose cell differs from the one before it
-//    starts a run; its thread adds the run's values to the cell's old sum
-//    and count one after another, reading them from shared memory (a run
-//    that crosses into the next block reads that block's), and writes the
-//    cell once. A thread per run, the old sums and counts of kBatch runs
-//    loaded together: a scan's runs are short (a few returns per 0.1 m
-//    cell), and one long run costs one thread's walk.
+//    starts a run; its thread adds the run's payloads to the cell's old
+//    state one after another, reading them from shared memory (a run that
+//    crosses into the next block reads that block's), and writes the cell
+//    once. A thread per run, the old states of kBatch runs loaded
+//    together: a scan's runs are short (a few returns per 0.1 m cell), and
+//    one long run costs one thread's walk.
 //
-// Bound: bytes, each return's inputs read once and each touched cell's sum
-// and count read and written once. The time goes to the three passes'
-// barriers and traffic between the blocks, and to two round trips to
-// device memory (the returns, the old sums); see PERF.md for the card's.
+// Bound: bytes, each item's inputs read once and each touched cell's state
+// read and written once. The time goes to the three passes' barriers and
+// traffic between the blocks, and to two round trips to device memory (the
+// inputs, the old states); see PERF.md for the card's.
 
 #pragma once
 
@@ -82,7 +92,7 @@ constexpr int kBatch = 4;         // runs per thread whose loads are in flight t
 constexpr unsigned int kNone = 0xFFFFFFFFu;
 
 struct Shared {
-  uint2 items[2][kTile];  // (cell, intensity's bits), double-buffered across the passes
+  uint2 items[2][kTile];  // (cell, payload), double-buffered across the passes
   unsigned int count[kDigits * kRow];  // per digit and warp: counts, then running offsets
   unsigned int total[kDigits];  // the block's count per digit, read by the cluster
   unsigned int base[kDigits];   // the block's first position per digit
@@ -125,22 +135,41 @@ __device__ inline void sync_all(cg::cluster_group& cluster, unsigned int blocks)
     __syncthreads();
 }
 
-// Adds the values of items[j], items[j + 1], ... while their cell is `key`,
-// before `end`.
-__device__ inline void walk(const uint2* items, unsigned int& j, unsigned int end,
-                            unsigned int key, float& sum, float& c) {
+// The cell of K18 and K30: a running sum of intensities (the payload's
+// bits) and a count, in two float arrays.
+struct SumCount {
+  float* sums;
+  float* counts;
+
+  struct Acc {
+    float sum, count;
+  };
+  __device__ Acc load(unsigned int c) const { return {sums[c], counts[c]}; }
+  __device__ void add(Acc& a, unsigned int payload) const {
+    a.sum = a.sum + __uint_as_float(payload);
+    a.count = a.count + 1.0f;
+  }
+  __device__ void store(unsigned int c, const Acc& a) const {
+    sums[c] = a.sum;
+    counts[c] = a.count;
+  }
+};
+
+// Adds the payloads of items[j], items[j + 1], ... while their cell is
+// `key`, before `end`.
+template <class Source>
+__device__ inline void walk(const Source& src, const uint2* items, unsigned int& j,
+                            unsigned int end, unsigned int key, typename Source::Acc& acc) {
   for (; j < end; ++j) {
     const uint2 item = items[j];
     if (item.x != key) break;
-    sum = sum + __uint_as_float(item.y);
-    c = c + 1.0f;
+    src.add(acc, item.y);
   }
 }
 
 template <class Source>
 __global__ void __launch_bounds__(kThreads, 1)
-    scatter_kernel(Source src, int begin, int count, int passes, float* __restrict__ sums,
-                   float* __restrict__ counts) {
+    scatter_kernel(Source src, int begin, int count, int passes) {
   extern __shared__ __align__(16) unsigned char smem[];
   Shared& s = *reinterpret_cast<Shared*>(smem);
   cg::cluster_group cluster = cg::this_cluster();
@@ -159,9 +188,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll 4
   for (int i0 = in_lo; i0 < in_hi; i0 += 32) {
     const int i = i0 + lane;
-    float value = 0.0f;
-    const unsigned int cell = i < in_hi ? src.cell(begin + first + i, value) : kNone;
-    if (i < in_hi) s.items[1][i] = make_uint2(cell, __float_as_uint(value));
+    unsigned int payload = 0u;
+    const unsigned int cell = i < in_hi ? src.cell(begin + first + i, payload) : kNone;
+    if (i < in_hi) s.items[1][i] = make_uint2(cell, payload);
     kept += __popc(__ballot_sync(0xFFFFFFFFu, cell != kNone));
   }
   if (lane == 0) s.warp_sum[warp] = kept;
@@ -257,13 +286,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 
   // 3. Add each run that starts in this block's positions, in order. A
-  // thread loads the old sums and counts of kBatch runs before it walks
-  // them, so their loads are in flight together.
+  // thread loads the old states of kBatch runs before it walks them, so
+  // their loads are in flight together.
   const uint2* items = s.items[passes & 1];  // the last pass's output
   size = all > rank * per ? min(per, all - rank * per) : 0u;
   for (unsigned int start = 0; start < size; start += kThreads * kBatch) {
     unsigned int key[kBatch];
-    float sum[kBatch], c[kBatch];
+    typename Source::Acc acc[kBatch];
     bool head[kBatch];
 #pragma unroll
     for (int q = 0; q < kBatch; ++q) {
@@ -278,36 +307,33 @@ __global__ void __launch_bounds__(kThreads, 1)
                              : ~key[q];
         head[q] = prev != key[q];
       }
-      sum[q] = head[q] ? sums[key[q]] : 0.0f;
-      c[q] = head[q] ? counts[key[q]] : 0.0f;
+      if (head[q]) acc[q] = src.load(key[q]);
     }
 #pragma unroll
     for (int q = 0; q < kBatch; ++q) {
       if (!head[q]) continue;
       unsigned int j = start + q * kThreads + threadIdx.x, end = size;
-      walk(items, j, end, key[q], sum[q], c[q]);
+      walk(src, items, j, end, key[q], acc[q]);
       // A run that reaches the end of this block's positions goes on in the next.
       for (unsigned int r = rank + 1; j == end && r < blocks && r * per < all; ++r) {
         j = 0;
         end = min(per, all - r * per);
-        walk(cluster.map_shared_rank(&s, r)->items[passes & 1], j, end, key[q], sum[q], c[q]);
+        walk(src, cluster.map_shared_rank(&s, r)->items[passes & 1], j, end, key[q], acc[q]);
       }
-      sums[key[q]] = sum[q];
-      counts[key[q]] = c[q];
+      src.store(key[q], acc[q]);
     }
   }
   if (blocks > 1) cluster.sync();  // no block leaves while another may read its shared memory
 }
 
-// Adds the n returns of `src` in place; `passes` (1 to 4) radix passes of 8
-// bits cover every cell index. ceil(n / kChunk) launches on `stream`, each a
-// cluster of cluster_blocks(returns) blocks.
+// Adds the n items of `src` into its cells in place; `passes` (1 to 4) radix
+// passes of 8 bits cover every cell index. ceil(n / kChunk) launches on
+// `stream`, each a cluster of cluster_blocks(items) blocks.
 template <class Source>
-inline cudaError_t launch(const Source& src, int n, int passes, float* sums, float* counts,
-                          cudaStream_t stream) {
+inline cudaError_t launch(const Source& src, int n, int passes, cudaStream_t stream) {
   if (n < 0 || passes < 1 || passes > 4) return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
-  void (*kernel)(Source, int, int, int, float*, float*) = scatter_kernel<Source>;
+  void (*kernel)(Source, int, int, int) = scatter_kernel<Source>;
   const int bytes = (int)sizeof(Shared);
   static int configured = -1;  // the device on which the kernel may take `bytes`
   int device = 0;
@@ -334,7 +360,7 @@ inline cudaError_t launch(const Source& src, int n, int passes, float* sums, flo
     attribute[0].val.clusterDim.z = 1;
     config.attrs = attribute;
     config.numAttrs = 1;
-    err = cudaLaunchKernelEx(&config, kernel, src, begin, count, passes, sums, counts);
+    err = cudaLaunchKernelEx(&config, kernel, src, begin, count, passes);
     if (err != cudaSuccess) return err;
   }
   return cudaGetLastError();

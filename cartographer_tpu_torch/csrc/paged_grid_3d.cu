@@ -187,19 +187,20 @@ __global__ void crop_kernel(Paged g, const A* __restrict__ pool_a, const B* __re
 }
 
 // K18's returns for in_order_scatter: a return's pool index, or kNone.
-struct IntensityReturns {
+struct IntensityReturns : in_order_scatter::SumCount {
   Paged g;
   const float* returns;
   const float* intensities;
   const uint8_t* mask;
   float threshold;
 
-  __device__ unsigned int cell(int i, float& value) const {
+  __device__ unsigned int cell(int i, unsigned int& payload) const {
     // Every load first, so that they overlap.
     const float p[3] = {returns[3 * (size_t)i], returns[3 * (size_t)i + 1],
                         returns[3 * (size_t)i + 2]};
     const bool in = mask[i] != 0;
-    value = intensities[i];
+    const float value = intensities[i];
+    payload = __float_as_uint(value);
     if (!in || !(value <= threshold)) return in_order_scatter::kNone;
     int c[3];
     for (int a = 0; a < 3; ++a) c[a] = world_to_cell(p[a], g.origin[a], g.resolution);
@@ -282,10 +283,10 @@ extern "C" int paged_intensity_insert_3d(void* sums, void* counts, const void* t
   if (cells >= (long long)in_order_scatter::kNone || passes < 1 ||
       (passes < 4 && cells > (1ll << (8 * passes))))
     return (int)cudaErrorInvalidValue;
-  IntensityReturns src{make_paged(table, grid_origin, resolution, page_size, num_blocks,
+  IntensityReturns src{{(float*)sums, (float*)counts},
+                       make_paged(table, grid_origin, resolution, page_size, num_blocks,
                                   num_pages),
                        (const float*)returns, (const float*)intensities, (const uint8_t*)mask,
                        threshold};
-  return (int)in_order_scatter::launch(src, n, passes, (float*)sums, (float*)counts,
-                                       (cudaStream_t)stream);
+  return (int)in_order_scatter::launch(src, n, passes, (cudaStream_t)stream);
 }

@@ -25,6 +25,15 @@
 // holds the state in shared memory and runs the loop without returning to
 // the host, so the early exit costs no synchronisation.
 //
+// Robots: one block per robot of a cross-robot batch (the JAX package's
+// _batched_step_cached vmaps the solve over robots), each with its own
+// grid, points, start pose, target and early exit. The robots' grids stay
+// where their submaps keep them: a pointer table (surface values, flags,
+// origin per robot) travels in the launch's parameters, so it needs no copy
+// to the device; above kMaxRobots robots the entry point launches once per
+// kMaxRobots. The points, masks, start poses and targets are robot 0's plus
+// the robot times a robot stride in elements. One solve is the R = 1 case.
+//
 // One template over the surface the residual reads serves three exported
 // functions:
 //  - scan_matcher_2d (K3) on an occupancy grid, as above;
@@ -46,6 +55,19 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSums = 10;  // H (6), g (3), sum of squares
+constexpr int kMaxRobots = 64;  // robots per launch: the pointer table's rows
+
+// Per robot: the surface values, flags and grid origin.
+struct Grids {
+  const void* values[kMaxRobots];
+  const void* flags[kMaxRobots];
+  const void* origin[kMaxRobots];
+};
+
+// Robot strides of the per-robot inputs, in elements.
+struct RobotStrides {
+  long long points, mask, x0, target;
+};
 
 enum Surface { kOccupancy = 0, kTsdfScore = 1, kTsdfDistance = 2 };
 
@@ -199,12 +221,24 @@ __device__ inline float penalty_sq(const Penalty& q, const float x[3]) {
 }
 
 template <int kSurface>
-__global__ void scan_matcher_2d_kernel(Problem p, const float* __restrict__ x0,
+__global__ void scan_matcher_2d_kernel(Problem p, Grids grids, RobotStrides rs,
+                                       const float* __restrict__ x0,
                                        const float* __restrict__ target_t, float wt,
                                        float wr, int num_iterations, int nonmonotonic,
                                        float function_tolerance, float* __restrict__ x_out,
                                        float* __restrict__ cost_out,
                                        int* __restrict__ iterations_out) {
+  const int r = blockIdx.x;
+  p.values = (const float*)grids.values[r];
+  p.flags = grids.flags[r];
+  p.origin = (const float*)grids.origin[r];
+  p.points += r * rs.points;
+  p.mask += r * rs.mask;
+  x0 += r * rs.x0;
+  target_t += r * rs.target;
+  x_out += 3 * r;
+  cost_out += r;
+  iterations_out += r;
   __shared__ float scratch[kWarps][kSums];
   __shared__ float sums[kSums];
   __shared__ float x[3], x_new[3], best_x[3];
@@ -314,76 +348,95 @@ __global__ void scan_matcher_2d_kernel(Problem p, const float* __restrict__ x0,
   }
 }
 
+// `grids` (host memory): robots x (values, flags, origin) device pointers;
+// `strides` (host memory): the robot strides of points, mask, x0, target.
 template <int kSurface>
-int launch(const void* values, const void* flags, float truncation, float distance_scale,
-           const void* grid_origin, float resolution, int size, const void* points,
-           const void* mask, int m,
-           const void* x0, const void* target_t, float occupied_space_weight,
-           float translation_weight, float rotation_weight, int num_iterations,
-           int nonmonotonic, float function_tolerance, void* x_out, void* cost_out,
-           void* iterations_out, void* stream) {
-  Problem p;
-  p.values = (const float*)values;
-  p.flags = flags;
-  p.truncation = truncation;
-  p.distance_scale = distance_scale;
-  p.origin = (const float*)grid_origin;
-  p.resolution = resolution;
-  p.size = size;
-  p.points = (const float*)points;
-  p.mask = (const uint8_t*)mask;
-  p.m = m;
-  p.scale = occupied_space_weight;
-  scan_matcher_2d_kernel<kSurface><<<1, kThreads, 0, (cudaStream_t)stream>>>(
-      p, (const float*)x0, (const float*)target_t, translation_weight, rotation_weight,
-      num_iterations, nonmonotonic, function_tolerance, (float*)x_out, (float*)cost_out,
-      (int*)iterations_out);
-  return (int)cudaGetLastError();
+int launch(const void* const* grids, int robots, float truncation, float distance_scale,
+           float resolution, int size, const void* points, const void* mask, int m,
+           const void* x0, const void* target_t, const void* strides,
+           float occupied_space_weight, float translation_weight, float rotation_weight,
+           int num_iterations, int nonmonotonic, float function_tolerance, void* x_out,
+           void* cost_out, void* iterations_out, void* stream) {
+  if (grids == nullptr || strides == nullptr || robots < 1) return (int)cudaErrorInvalidValue;
+  const long long* st = (const long long*)strides;
+  RobotStrides rs = {st[0], st[1], st[2], st[3]};
+  for (int r0 = 0; r0 < robots; r0 += kMaxRobots) {
+    const int count = min(kMaxRobots, robots - r0);
+    Grids g = {};
+    for (int r = 0; r < count; ++r) {
+      g.values[r] = grids[3 * (r0 + r)];
+      g.flags[r] = grids[3 * (r0 + r) + 1];
+      g.origin[r] = grids[3 * (r0 + r) + 2];
+    }
+    Problem p;
+    p.values = nullptr;
+    p.flags = nullptr;
+    p.truncation = truncation;
+    p.distance_scale = distance_scale;
+    p.origin = nullptr;
+    p.resolution = resolution;
+    p.size = size;
+    p.points = (const float*)points + r0 * rs.points;
+    p.mask = (const uint8_t*)mask + r0 * rs.mask;
+    p.m = m;
+    p.scale = occupied_space_weight;
+    scan_matcher_2d_kernel<kSurface><<<count, kThreads, 0, (cudaStream_t)stream>>>(
+        p, g, rs, (const float*)x0 + r0 * rs.x0, (const float*)target_t + r0 * rs.target,
+        translation_weight, rotation_weight, num_iterations, nonmonotonic,
+        function_tolerance, (float*)x_out + 3 * r0, (float*)cost_out + r0,
+        (int*)iterations_out + r0);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 }  // namespace
 
-extern "C" int scan_matcher_2d(const void* log_odds, const void* known,
-                               const void* grid_origin, float resolution, int size,
-                               const void* points, const void* mask, int m,
-                               const void* x0, const void* target_t,
+// K3 on occupancy grids: per robot the log-odds (float32) and known (uint8)
+// grids, size^2, and the grid origin.
+extern "C" int scan_matcher_2d(const void* const* grids, int robots, float resolution,
+                               int size, const void* points, const void* mask, int m,
+                               const void* x0, const void* target_t, const void* strides,
                                float occupied_space_weight, float translation_weight,
                                float rotation_weight, int num_iterations, int nonmonotonic,
                                float function_tolerance, void* x_out, void* cost_out,
                                void* iterations_out, void* stream) {
-  return launch<kOccupancy>(log_odds, known, 0.0f, 0.0f, grid_origin, resolution, size, points,
-                            mask, m, x0, target_t, occupied_space_weight, translation_weight,
+  return launch<kOccupancy>(grids, robots, 0.0f, 0.0f, resolution, size, points, mask, m, x0,
+                            target_t, strides, occupied_space_weight, translation_weight,
                             rotation_weight, num_iterations, nonmonotonic, function_tolerance,
                             x_out, cost_out, iterations_out, stream);
 }
 
-// K3 on the TSDF score surface: `tsd` and `weight` (float32, size^2).
-extern "C" int scan_matcher_2d_tsdf(const void* tsd, const void* weight, float truncation,
-                                    const void* grid_origin, float resolution, int size,
-                                    const void* points, const void* mask, int m,
-                                    const void* x0, const void* target_t,
+// K3 on the TSDF score surface: per robot `tsd` and `weight` (float32,
+// size^2) and the grid origin; one truncation.
+extern "C" int scan_matcher_2d_tsdf(const void* const* grids, int robots, float truncation,
+                                    float resolution, int size, const void* points,
+                                    const void* mask, int m, const void* x0,
+                                    const void* target_t, const void* strides,
                                     float occupied_space_weight, float translation_weight,
                                     float rotation_weight, int num_iterations,
                                     int nonmonotonic, float function_tolerance, void* x_out,
                                     void* cost_out, void* iterations_out, void* stream) {
-  return launch<kTsdfScore>(tsd, weight, truncation, 0.0f, grid_origin, resolution, size,
-                            points, mask, m, x0, target_t, occupied_space_weight,
-                            translation_weight, rotation_weight, num_iterations, nonmonotonic,
-                            function_tolerance, x_out, cost_out, iterations_out, stream);
+  return launch<kTsdfScore>(grids, robots, truncation, 0.0f, resolution, size, points, mask, m,
+                            x0, target_t, strides, occupied_space_weight, translation_weight,
+                            rotation_weight, num_iterations, nonmonotonic, function_tolerance,
+                            x_out, cost_out, iterations_out, stream);
 }
 
-// K22: the TSDF LM on the raw signed distance `tsd` (float32, size^2);
+// K22: the TSDF LM on the raw signed distance: per robot `tsd` (float32,
+// size^2; the table's flags column unused) and the grid origin;
 // distance_scale is 0.8 / resolution rounded to float32 on the host.
-extern "C" int lm_match_tsdf_2d(const void* tsd, float distance_scale,
-                                const void* grid_origin, float resolution, int size,
-                                const void* points, const void* mask, int m,
-                                const void* x0, const void* target_t,
-                                float occupied_space_weight, float translation_weight,
-                                float rotation_weight, int num_iterations, int nonmonotonic,
-                                float function_tolerance, void* x_out, void* cost_out,
-                                void* iterations_out, void* stream) {
-  return launch<kTsdfDistance>(tsd, nullptr, 0.0f, distance_scale, grid_origin, resolution,
-                               size, points, mask, m, x0, target_t, occupied_space_weight,
+extern "C" int lm_match_tsdf_2d(const void* const* grids, int robots, float distance_scale,
+                                float resolution, int size, const void* points,
+                                const void* mask, int m, const void* x0, const void* target_t,
+                                const void* strides, float occupied_space_weight,
+                                float translation_weight, float rotation_weight,
+                                int num_iterations, int nonmonotonic, float function_tolerance,
+                                void* x_out, void* cost_out, void* iterations_out,
+                                void* stream) {
+  return launch<kTsdfDistance>(grids, robots, 0.0f, distance_scale, resolution, size, points,
+                               mask, m, x0, target_t, strides, occupied_space_weight,
                                translation_weight, rotation_weight, num_iterations,
                                nonmonotonic, function_tolerance, x_out, cost_out,
                                iterations_out, stream);

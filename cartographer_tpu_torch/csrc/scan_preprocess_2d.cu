@@ -8,7 +8,15 @@
 // the range gate, the clamp of misses to missing_data_ray_length, the
 // alignment T = R_gravity * pose_end^-1 and the z crop.
 //
-// Bound: bytes. One pass over the scan: it reads 3+3+1 floats and one mask
+// Robots: blockIdx.y is the robot of a cross-robot batch (the JAX
+// package's _batched_step_cached vmaps the step over robots). Each input
+// is robot 0's row plus the robot's index times that input's robot stride
+// (in elements: a row of the tick's upload, or 0 for one robot); the
+// outputs are contiguous (robots, n, ...). One robot is the grid's R = 1
+// case: the same kernel body (instantiated with the robot index 0) and the
+// same C entry point.
+//
+// Bound: bytes. One pass over the scans: it reads 3+3+1 floats and one mask
 // byte per point and writes 3+2 floats and two mask bytes, about 50 bytes a
 // point; the arithmetic (two quaternion rotations, a slerp) is small.
 // Design: one thread per point, every scan-level quantity (the slerp angle,
@@ -56,18 +64,41 @@ __device__ inline void transform(Quat q, const float t[3], const float v[3], flo
   out[2] += t[2];
 }
 
+// The robot strides of the nine inputs, in elements.
+struct Strides {
+  long long points, times01, mask, origins, ps_t, ps_q, pe_t, pe_q, gravity_q;
+};
+
+// kRobots: a launch for several robots (blockIdx.y); one robot's launch
+// instantiates the same body with r = 0, at the one-robot kernel's cost.
+template <bool kRobots>
 __global__ void scan_preprocess_2d_kernel(
     const float* __restrict__ points, const float* __restrict__ times01,
     const uint8_t* __restrict__ mask, const float* __restrict__ origins,
     const float* __restrict__ ps_t, const float* __restrict__ ps_q,
     const float* __restrict__ pe_t, const float* __restrict__ pe_q,
-    const float* __restrict__ gravity_q, int n, float min_range, float max_range,
-    float min_z, float max_z, float missing_data_ray_length,
+    const float* __restrict__ gravity_q, Strides rs, int n, float min_range,
+    float max_range, float min_z, float max_z, float missing_data_ray_length,
     float* __restrict__ hits_out, float* __restrict__ misses_out,
     uint8_t* __restrict__ is_return_out, uint8_t* __restrict__ is_miss_out,
     float* __restrict__ origin_out) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  const long long r = kRobots ? blockIdx.y : 0;
+  points += r * rs.points;
+  times01 += r * rs.times01;
+  mask += r * rs.mask;
+  origins += r * rs.origins;
+  ps_t += r * rs.ps_t;
+  ps_q += r * rs.ps_q;
+  pe_t += r * rs.pe_t;
+  pe_q += r * rs.pe_q;
+  gravity_q += r * rs.gravity_q;
+  hits_out += r * 3 * n;
+  misses_out += r * 2 * n;
+  is_return_out += r * n;
+  is_miss_out += r * n;
+  origin_out += r * 3;
 
   // Per-point pose between the scan-start and scan-end poses.
   float f = times01[i];
@@ -132,18 +163,25 @@ __global__ void scan_preprocess_2d_kernel(
 
 }  // namespace
 
+// `strides` (host memory): the nine inputs' robot strides, in elements.
 extern "C" int scan_preprocess_2d(
     const void* points, const void* times01, const void* mask, const void* origins,
     const void* ps_t, const void* ps_q, const void* pe_t, const void* pe_q,
-    const void* gravity_q, int n, float min_range, float max_range, float min_z,
-    float max_z, float missing_data_ray_length, void* hits_out, void* misses_out,
-    void* is_return_out, void* is_miss_out, void* origin_out, void* stream) {
+    const void* gravity_q, const void* strides, int robots, int n, float min_range,
+    float max_range, float min_z, float max_z, float missing_data_ray_length, void* hits_out,
+    void* misses_out, void* is_return_out, void* is_miss_out, void* origin_out, void* stream) {
+  if (robots < 1 || robots > 65535 || n < 1 || strides == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const long long* st = (const long long*)strides;
+  Strides rs = {st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8]};
   const int threads = 256;
-  const int blocks = (n + threads - 1) / threads;
-  scan_preprocess_2d_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  const dim3 blocks((n + threads - 1) / threads, robots);
+  auto kernel =
+      robots == 1 ? scan_preprocess_2d_kernel<false> : scan_preprocess_2d_kernel<true>;
+  kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const float*)points, (const float*)times01, (const uint8_t*)mask,
       (const float*)origins, (const float*)ps_t, (const float*)ps_q,
-      (const float*)pe_t, (const float*)pe_q, (const float*)gravity_q, n, min_range,
+      (const float*)pe_t, (const float*)pe_q, (const float*)gravity_q, rs, n, min_range,
       max_range, min_z, max_z, missing_data_ray_length, (float*)hits_out,
       (float*)misses_out, (uint8_t*)is_return_out, (uint8_t*)is_miss_out,
       (float*)origin_out);

@@ -17,20 +17,22 @@
 //
 // K21 replaces: cartographer_tpu/ops/tsdf_2d.py:insert_range_data_tsdf
 // (l.115), batched over the two active submaps as mapping/submap_2d.py's
-// insert_body_cached (l.77). Mark pass, one thread per (slot, sample k,
-// point): the sample p - t_k d on the ray (d the unit ray, t_k the 16
+// insert_body_cached (l.77). One item per (slot, sample k, point), in that
+// flat order: the sample p - t_k d on the ray (d the unit ray, t_k the 16
 // offsets of jnp.linspace(-truncation, truncation, 16) in its own float32
 // arithmetic, computed here), its signed distance projected on the normal
 // (or t_k) and clipped, and the weight range term x angle Gaussian x
-// distance Gaussian, in JAX's order of operations with -fmad=false; the
-// weight and weight x sdf go into the slot's per-cell sums by float atomics
-// (their order varies from run to run: a few ulp). The thread whose atomic
-// add finds a cell's sum at zero appends the cell to the slot's list of
-// touched cells. Apply pass, one thread per list entry: the running
-// weighted average (old_w tsd + sum w sdf) / (old_w + sum w), the weight
-// clamped at max_weight, and the sums zeroed for the next scan. Cells this
+// distance Gaussian, in JAX's order of operations with -fmad=false. An item
+// adds w and w x sdf to its slot's cell; in_order_scatter.cuh adds each
+// cell's items in input order, the order of the JAX scatter-add over
+// w.reshape(-1) and of the twin's index_add_in_order_, and then in the same
+// thread applies the running weighted average (old_w tsd + sum w sdf) /
+// (old_w + sum w) and the weight clamped at max_weight, writing the cell
+// once. No atomics: the grids equal the twin's bit for bit and a run
+// repeats. The item's payload is its index; the walk recomputes its two
+// addends from it (a few dozen flops), so an item stays 8 bytes. Cells this
 // scan does not touch keep their values; JAX recomputes every cell, which
-// re-rounds (w tsd) / w of an untouched cell by at most an ulp. Both passes
+// re-rounds (w tsd) / w of an untouched cell by at most an ulp. The items
 // read do_insert and the active flags from device memory, so the caller
 // never waits.
 //
@@ -38,15 +40,16 @@
 // barrier-separated steps); its bytes are 29 B per point. K21 by bytes:
 // it reads the N points, masks and normals and reads and writes the tsd
 // and weight of the cells the scan touches, and its 32 N samples are a few
-// hundred thousand flops. Design: the mark pass never sweeps the grids; the
-// apply pass visits only the listed cells, so the sweep of K4's apply
-// (every cell of both slots) is not needed here.
+// hundred thousand flops; the radix passes' barriers make it latency-bound.
+// The grids are never swept, and there is no scratch: 2 x 16 x 2,048
+// samples are one launch (a cluster of 16 blocks).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "bitonic_sort.cuh"
+#include "in_order_scatter.cuh"
 
 namespace {
 
@@ -133,7 +136,8 @@ __global__ void normals_kernel(const float* __restrict__ points,
   normals[2 * idx + 1] = ny;
 }
 
-struct InsertParams {
+// K21's items for in_order_scatter: one per (slot, sample k, point).
+struct TsdfSamples {
   const float* points;
   const uint8_t* mask;
   const float* normals;
@@ -149,80 +153,71 @@ struct InsertParams {
   int project_to_normal;
   const uint8_t* active;
   const uint8_t* do_insert;
-  int slots;
-};
+  float max_weight;
+  float* tsd;     // (slots, size, size)
+  float* weight;  // (slots, size, size)
 
-__device__ inline float sample_offset(float truncation, int k) {
-  if (k == kSamples - 1) return truncation;
-  float h = (float)k / (float)(kSamples - 1);
-  return -truncation * (1.0f - h) + truncation * h;
-}
-
-__global__ void insert_mark_kernel(InsertParams p, float* __restrict__ wsum,
-                                   float* __restrict__ wtsd, int* __restrict__ touched,
-                                   int* __restrict__ counts) {
-  if (!p.do_insert[0]) return;
-  long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  long long per_slot = (long long)kSamples * p.n;
-  if (idx >= per_slot * p.slots) return;
-  int slot = (int)(idx / per_slot);
-  if (!p.active[slot]) return;
-  int rest = (int)(idx - slot * per_slot);
-  int k = rest / p.n;
-  int i = rest - k * p.n;
-  if (!p.mask[i]) return;
-  float hx = p.points[2 * i], hy = p.points[2 * i + 1];
-  float rx = hx - p.origin[0], ry = hy - p.origin[1];
-  float len = fmaxf(sqrtf(rx * rx + ry * ry), 1e-6f);
-  float dx = rx / len, dy = ry / len;
-  float t = sample_offset(p.truncation, k);
-  float sx = hx - t * dx, sy = hy - t * dy;
-  float nx = p.normals[2 * i], ny = p.normals[2 * i + 1];
-  float sdf = p.project_to_normal ? (hx - sx) * (-nx) + (hy - sy) * (-ny) : t;
-  sdf = fminf(fmaxf(sdf, -p.truncation), p.truncation);
-  float w_range = p.range_exponent == 0 ? 1.0f : 1.0f / powf(len, (float)p.range_exponent);
-  float cosine = fabsf(nx * (-dx) + ny * (-dy));
-  float angle = acosf(fminf(fmaxf(cosine, -1.0f), 1.0f));
-  float w_angle = expf(-(angle * angle) / p.angle_denominator);
-  float w_dist = expf(-(t * t) / p.distance_denominator);
-  float w = (w_range * w_angle) * w_dist;
-  if (!(w > 0.0f)) return;  // adds nothing
-  const float* g = p.grid_origins + 2 * slot;
-  float ci = floorf((sx - g[0]) / p.resolution);
-  float cj = floorf((sy - g[1]) / p.resolution);
-  if (!(ci >= 0.0f && ci < (float)p.size && cj >= 0.0f && cj < (float)p.size)) return;
-  size_t cells = (size_t)p.size * p.size;
-  size_t cell = (size_t)ci * p.size + (size_t)cj;
-  size_t at = slot * cells + cell;
-  float before = atomicAdd(&wsum[at], w);
-  atomicAdd(&wtsd[at], w * sdf);
-  if (before == 0.0f) {
-    int q = atomicAdd(&counts[slot], 1);
-    touched[slot * per_slot + q] = (int)cell;
+  __device__ static float sample_offset(float truncation, int k) {
+    if (k == kSamples - 1) return truncation;
+    float h = (float)k / (float)(kSamples - 1);
+    return -truncation * (1.0f - h) + truncation * h;
   }
-}
 
-__global__ void insert_apply_kernel(InsertParams p, float max_weight, float* __restrict__ tsd,
-                                    float* __restrict__ weight, float* __restrict__ wsum,
-                                    float* __restrict__ wtsd, const int* __restrict__ touched,
-                                    const int* __restrict__ counts) {
-  if (!p.do_insert[0]) return;
-  long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  long long per_slot = (long long)kSamples * p.n;
-  if (idx >= per_slot * p.slots) return;
-  int slot = (int)(idx / per_slot);
-  int q = (int)(idx - slot * per_slot);
-  if (q >= counts[slot]) return;
-  size_t cells = (size_t)p.size * p.size;
-  size_t at = slot * cells + (size_t)touched[slot * per_slot + q];
-  float ws = wsum[at], wt = wtsd[at];
-  wsum[at] = 0.0f;
-  wtsd[at] = 0.0f;
-  float old_w = weight[at], old_t = tsd[at];
-  float new_w = old_w + ws;
-  if (new_w > 0.0f) tsd[at] = (old_w * old_t + wt) / fmaxf(new_w, 1e-9f);
-  weight[at] = fminf(new_w, max_weight);
-}
+  // Item `idx`'s weight and signed distance, and its cell (slot-major), or
+  // kNone where it adds nothing.
+  __device__ unsigned int sample(int idx, float& w, float& sdf) const {
+    const int per_slot = kSamples * n;
+    const int slot = idx / per_slot;
+    const int rest = idx - slot * per_slot;
+    const int k = rest / n;
+    const int i = rest - k * n;
+    if (!do_insert[0] || !active[slot] || !mask[i]) return in_order_scatter::kNone;
+    float hx = points[2 * i], hy = points[2 * i + 1];
+    float rx = hx - origin[0], ry = hy - origin[1];
+    float len = fmaxf(sqrtf(rx * rx + ry * ry), 1e-6f);
+    float dx = rx / len, dy = ry / len;
+    float t = sample_offset(truncation, k);
+    float sx = hx - t * dx, sy = hy - t * dy;
+    float nx = normals[2 * i], ny = normals[2 * i + 1];
+    sdf = project_to_normal ? (hx - sx) * (-nx) + (hy - sy) * (-ny) : t;
+    sdf = fminf(fmaxf(sdf, -truncation), truncation);
+    float w_range = range_exponent == 0 ? 1.0f : 1.0f / powf(len, (float)range_exponent);
+    float cosine = fabsf(nx * (-dx) + ny * (-dy));
+    float angle = acosf(fminf(fmaxf(cosine, -1.0f), 1.0f));
+    float w_angle = expf(-(angle * angle) / angle_denominator);
+    float w_dist = expf(-(t * t) / distance_denominator);
+    w = (w_range * w_angle) * w_dist;
+    if (!(w > 0.0f)) return in_order_scatter::kNone;  // adds nothing
+    const float* g = grid_origins + 2 * slot;
+    float ci = floorf((sx - g[0]) / resolution);
+    float cj = floorf((sy - g[1]) / resolution);
+    if (!(ci >= 0.0f && ci < (float)size && cj >= 0.0f && cj < (float)size))
+      return in_order_scatter::kNone;
+    return (unsigned int)(((long long)slot * size + (long long)ci) * size + (long long)cj);
+  }
+
+  __device__ unsigned int cell(int idx, unsigned int& payload) const {
+    float w, sdf;
+    payload = (unsigned int)idx;
+    return sample(idx, w, sdf);
+  }
+
+  struct Acc {
+    float old_w, old_t, ws, wt;
+  };
+  __device__ Acc load(unsigned int c) const { return {weight[c], tsd[c], 0.0f, 0.0f}; }
+  __device__ void add(Acc& a, unsigned int idx) const {
+    float w, sdf;
+    sample((int)idx, w, sdf);
+    a.ws = a.ws + w;
+    a.wt = a.wt + w * sdf;
+  }
+  __device__ void store(unsigned int c, const Acc& a) const {
+    float new_w = a.old_w + a.ws;
+    if (new_w > 0.0f) tsd[c] = (a.old_w * a.old_t + a.wt) / fmaxf(new_w, 1e-9f);
+    weight[c] = fminf(new_w, max_weight);
+  }
+};
 
 }  // namespace
 
@@ -243,45 +238,24 @@ extern "C" int tsdf_normals_2d(const void* points, const void* mask, const void*
   return (int)cudaGetLastError();
 }
 
-// K21. `wsum` and `wtsd` (slots, size, size) are zero on entry and on
-// return; `touched` holds slots * 16 * n int32 and `counts` slots int32.
+// K21: inserts in place into `tsd` and `weight` (slots, size, size);
+// `passes` radix passes of 8 bits cover the slots' cell indices.
 extern "C" int tsdf_insert_2d(const void* points, const void* mask, const void* normals,
                               const void* origin, int n, const void* grid_origins,
                               float resolution, int size, float truncation, float max_weight,
                               int range_exponent, float angle_denominator,
                               float distance_denominator, int project_to_normal,
-                              const void* active, const void* do_insert, int slots, void* tsd,
-                              void* weight, void* wsum, void* wtsd, void* touched,
-                              void* counts, void* stream) {
-  if (n == 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  InsertParams p;
-  p.points = (const float*)points;
-  p.mask = (const uint8_t*)mask;
-  p.normals = (const float*)normals;
-  p.origin = (const float*)origin;
-  p.n = n;
-  p.grid_origins = (const float*)grid_origins;
-  p.resolution = resolution;
-  p.size = size;
-  p.truncation = truncation;
-  p.range_exponent = range_exponent;
-  p.angle_denominator = angle_denominator;
-  p.distance_denominator = distance_denominator;
-  p.project_to_normal = project_to_normal;
-  p.active = (const uint8_t*)active;
-  p.do_insert = (const uint8_t*)do_insert;
-  p.slots = slots;
-  cudaError_t err = cudaMemsetAsync(counts, 0, sizeof(int) * slots, st);
-  if (err != cudaSuccess) return (int)err;
-  long long total = (long long)kSamples * n * slots;
-  unsigned blocks = (unsigned)((total + kThreads - 1) / kThreads);
-  insert_mark_kernel<<<blocks, kThreads, 0, st>>>(p, (float*)wsum, (float*)wtsd, (int*)touched,
-                                                  (int*)counts);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  insert_apply_kernel<<<blocks, kThreads, 0, st>>>(p, max_weight, (float*)tsd, (float*)weight,
-                                                   (float*)wsum, (float*)wtsd,
-                                                   (const int*)touched, (const int*)counts);
-  return (int)cudaGetLastError();
+                              const void* active, const void* do_insert, int slots, int passes,
+                              void* tsd, void* weight, void* stream) {
+  const long long cells = (long long)slots * size * size;
+  const long long items = (long long)kSamples * n * slots;
+  if (n < 0 || size < 1 || cells >= (long long)in_order_scatter::kNone || items > 0x7FFFFFFFll ||
+      passes < 1 || (passes < 4 && cells > (1ll << (8 * passes))))
+    return (int)cudaErrorInvalidValue;
+  TsdfSamples src{(const float*)points, (const uint8_t*)mask, (const float*)normals,
+                  (const float*)origin, n, (const float*)grid_origins, resolution, size, truncation, range_exponent,
+                  angle_denominator, distance_denominator, project_to_normal,
+                  (const uint8_t*)active, (const uint8_t*)do_insert, max_weight, (float*)tsd,
+                  (float*)weight};
+  return (int)in_order_scatter::launch(src, (int)items, passes, (cudaStream_t)stream);
 }

@@ -21,6 +21,14 @@
 // The adaptive filter's range gate, 7 halving lengths, 5 bisection steps and
 // final mask all run inside one launch: the counts never leave the block.
 //
+// Robots and filters: blockIdx.x is the robot of a cross-robot batch (the
+// JAX package vmaps the step over robots), each with its own cloud, mask
+// and permutation (robot 0's plus the robot times a robot stride in
+// elements); blockIdx.y picks one of up to two filters that read the same
+// clouds, so a scan's two adaptive filters (the matcher's and the loop
+// closure's) share one launch. The keep-masks are (filters, robots, n).
+// One cloud and one filter is the grid's 1 x 1 case.
+//
 // Bound: operations, not bytes. A scan of 2048 points is 25 KB in and 2 KB
 // out, but the adaptive filter makes up to 13 passes of hashing with shared
 // memory atomics. Design: one block of 1024 threads per cloud; the table of
@@ -30,8 +38,9 @@
 //
 // Above kMaxSharedPoints (4,096) the table and the per-point arrays do not
 // fit one block's shared memory. The same block then keeps them in a
-// global-memory scratch the wrapper always passes (393 KB of table at N =
-// 16,384, resident in the 50 MB L2) and runs the same passes over it with
+// global-memory scratch the wrapper passes, one slice per (filter, robot)
+// (393 KB of table at N = 16,384, resident in the 50 MB L2), and runs the
+// same passes over it with
 // global atomics: one template, two storage places, the same mask bit for
 // bit, and still no host synchronisation between the 13 passes.
 
@@ -47,6 +56,15 @@ constexpr int kThreads = 1024;
 constexpr int kCoarseSteps = 7;
 constexpr int kBisectSteps = 5;
 constexpr int kMaxSharedPoints = 4096;
+constexpr int kMaxFilters = 2;
+
+// Per filter (blockIdx.y): the resolution, or the adaptive filter's
+// max_length, min_num_points and max_range.
+struct Filters {
+  float length[kMaxFilters];
+  int min_num_points[kMaxFilters];
+  float max_range[kMaxFilters];
+};
 
 struct Shared {
   unsigned long long* keys;  // [slots]
@@ -138,16 +156,26 @@ __device__ void final_mask(const Shared& s, const float* points, int stride, int
 // kGlobal: the table and per-point arrays live in `scratch` (device memory)
 // instead of dynamic shared memory.
 template <bool kGlobal>
-__global__ void voxel_filter_kernel(const float* __restrict__ points, int stride, int dim,
-                                    const uint8_t* __restrict__ mask,
-                                    const int* __restrict__ perm, int n, int slots,
-                                    int adaptive, float resolution_or_max_length,
-                                    int min_num_points, float max_range,
-                                    uint8_t* __restrict__ keep, unsigned char* scratch) {
+__global__ void voxel_filter_kernel(const float* __restrict__ points, int stride,
+                                    long long points_rs, int dim,
+                                    const uint8_t* __restrict__ mask, long long mask_rs,
+                                    const int* __restrict__ perm, long long perm_rs, int n,
+                                    int slots, int adaptive, Filters filters,
+                                    uint8_t* __restrict__ keep, unsigned char* scratch,
+                                    long long slice) {
   extern __shared__ unsigned char smem[];
   __shared__ int counter;
+  const long long r = blockIdx.x, f = blockIdx.y;
+  points += r * points_rs;
+  mask += r * mask_rs;
+  perm += r * perm_rs;
+  keep += (f * gridDim.x + r) * n;
+  const float resolution_or_max_length = filters.length[f];
+  const int min_num_points = filters.min_num_points[f];
+  const float max_range = filters.max_range[f];
   Shared s;
-  s.keys = reinterpret_cast<unsigned long long*>(kGlobal ? scratch : smem);
+  s.keys = reinterpret_cast<unsigned long long*>(
+      kGlobal ? scratch + (f * gridDim.x + r) * slice : smem);
   s.ranks = reinterpret_cast<unsigned int*>(s.keys + slots);
   s.inv = reinterpret_cast<int*>(s.ranks + slots);
   s.slot = s.inv + n;
@@ -220,28 +248,55 @@ extern "C" int voxel_filter_shared_bytes(int n, int slots) {
   return slots * (8 + 4) + n * (4 + 4 + 1);
 }
 
-// `scratch` holds voxel_filter_shared_bytes(n, slots) bytes (8-byte aligned),
+// The scratch bytes of one (filter, robot) block: voxel_filter_shared_bytes
+// rounded up to 8.
+extern "C" long long voxel_filter_scratch_slice(int n, int slots) {
+  return ((long long)voxel_filter_shared_bytes(n, slots) + 7) / 8 * 8;
+}
+
+// `points`, `mask` and `perm` are robot 0's; robot r's lie `*_rs` elements
+// further. `filters` (1 or 2) filters, filter k of parameters (length_k,
+// min_num_points_k, max_range_k), each run over every robot's cloud into
+// keep[filter][robot]; without `adaptive` the length is the resolution. `scratch` holds filters
+// x robots x voxel_filter_scratch_slice(n, slots) bytes (8-byte aligned),
 // used when n > kMaxSharedPoints.
-extern "C" int voxel_filter(const void* points, int stride, int dim, const void* mask,
-                            const void* perm, int n, int slots, int adaptive,
-                            float resolution_or_max_length, int min_num_points,
-                            float max_range, void* keep, void* scratch, void* stream) {
+extern "C" int voxel_filter(const void* points, int stride, long long points_rs, int dim,
+                            const void* mask, long long mask_rs, const void* perm,
+                            long long perm_rs, int n, int slots, int robots, int filters,
+                            int adaptive, float length0, int min_num_points0,
+                            float max_range0, float length1, int min_num_points1,
+                            float max_range1, void* keep, void* scratch, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+  if (scratch == nullptr || robots < 1 || filters < 1 || filters > kMaxFilters)
+    return (int)cudaErrorInvalidValue;
+  Filters f = {{length0, length1}, {min_num_points0, min_num_points1},
+               {max_range0, max_range1}};
+  const dim3 grid(robots, filters);
+  const long long slice = voxel_filter_scratch_slice(n, slots);
   if (n > kMaxSharedPoints) {
-    voxel_filter_kernel<true><<<1, kThreads, 0, st>>>(
-        (const float*)points, stride, dim, (const uint8_t*)mask, (const int*)perm, n, slots,
-        adaptive, resolution_or_max_length, min_num_points, max_range, (uint8_t*)keep,
-        (unsigned char*)scratch);
+    voxel_filter_kernel<true><<<grid, kThreads, 0, st>>>(
+        (const float*)points, stride, points_rs, dim, (const uint8_t*)mask, mask_rs,
+        (const int*)perm, perm_rs, n, slots, adaptive, f, (uint8_t*)keep,
+        (unsigned char*)scratch, slice);
     return (int)cudaGetLastError();
   }
   int shared = voxel_filter_shared_bytes(n, slots);
-  cudaError_t err = cudaFuncSetAttribute(
-      voxel_filter_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+  // Raised once per device to the largest size asked so far, so that a
+  // launch under stream capture makes no attribute call.
+  static int configured_device = -1, configured_bytes = 0;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return (int)err;
-  voxel_filter_kernel<false><<<1, kThreads, shared, st>>>(
-      (const float*)points, stride, dim, (const uint8_t*)mask, (const int*)perm, n, slots,
-      adaptive, resolution_or_max_length, min_num_points, max_range, (uint8_t*)keep, nullptr);
+  if (device != configured_device || shared > configured_bytes) {
+    err = cudaFuncSetAttribute(voxel_filter_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+    if (err != cudaSuccess) return (int)err;
+    configured_device = device;
+    configured_bytes = shared;
+  }
+  voxel_filter_kernel<false><<<grid, kThreads, shared, st>>>(
+      (const float*)points, stride, points_rs, dim, (const uint8_t*)mask, mask_rs,
+      (const int*)perm, perm_rs, n, slots, adaptive, f, (uint8_t*)keep, nullptr, 0);
   return (int)cudaGetLastError();
 }
 

@@ -202,10 +202,9 @@ def paged_grid_to_numpy(paged: PagedSubmapGrid3D):
 
 
 # The same for the trajectory and map-builder trees: switches of unported
-# features (cross-robot batching, the trimmers) and options that only
-# unported features read (multi-chip meshes, logs, tolerant-loss shapes).
+# features (the trimmers) and options that only unported features read
+# (multi-chip meshes, logs, tolerant-loss shapes).
 UNPORTED_MAP_BUILDER_SWITCHES = {
-    "batch_scan_dispatch": False,
     "pose_graph.overlapping_submaps_trimmer_2d": None,
 }
 UNREAD_MAP_BUILDER_OPTIONS = (

@@ -3,12 +3,12 @@
 Counterpart of the JAX package's `mapping/local_trajectory_builder_2d.py`
 (mapping/internal/2d/local_trajectory_builder_2d.cc). The host class owns
 the sequential state (pose extrapolator, submap window, sensor collation)
-and runs one per-scan device step, `_fused_step`:
+and runs one device step per scan, `batched_step`:
 
   1. preprocess: unwarp, gate, gravity-align, voxel filter (K1, K2)
-  2. the two adaptive voxel filters (K2), the online correlative search
-     when `use_online_correlative_scan_matching` is set (K5) and the LM
-     refine (K3)
+  2. the two adaptive voxel filters (K2, one launch), the online
+     correlative search when `use_online_correlative_scan_matching` is set
+     (K5) and the LM refine (K3)
   3. the motion filter decision, on the device
   4. the conditional raycast insertion into both active submaps (K4)
 
@@ -16,28 +16,35 @@ With `submaps.grid_type = "TSDF"` the submaps are TSDF grids: the search
 scores their score surface (K5's TSDF form), the refine is the TSDF matcher
 (K22) and the insertion the TSDF inserter (K20's normals, then K21).
 
-Each scan makes one host-to-device copy of its inputs and exactly one
-blocking device-to-host copy: the packed result vector. The correlative
-search's data-dependent angular step and argmax, the LM loop's early exit,
-the adaptive filters' searches and the insertion's do_insert gate stay on
-the device.
+The step takes R robots' scans at once (the JAX package's
+`_batched_step_cached`, `jax.vmap` of the fused step): the robots' staging
+rows go to the card in one copy, every kernel is one launch for all R (a
+robot index in its grid; each robot's grids stay where its submaps keep
+them, reached through a pointer table), the glue runs on (R, ...) tensors,
+and one packed (R, P) result comes back. A builder alone runs the R = 1
+case of the same code: one host-to-device copy of its inputs and exactly
+one blocking device-to-host copy, the packed result, per scan. With a
+`ScanBatcher` (`mapping/scan_batcher.py`) concurrent robots' scans share
+ticks of R. The correlative search's data-dependent angular step and
+argmax, the LM loop's early exit, the adaptive filters' searches and the
+insertion's do_insert gate stay on the device.
 
-Cross-robot batching and the IMU-based extrapolator (which the JAX
-package's 2D builder never reads) raise NotImplementedError.
+TSDF submaps with a batcher (K20 and K21 batched across robots) and the
+IMU-based extrapolator (which the JAX package's 2D builder never reads)
+raise NotImplementedError.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time as _time
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from cartographer_tpu_torch import metrics
 from cartographer_tpu_torch.core.config import TrajectoryBuilder2DOptions
-from cartographer_tpu_torch.core.tensor import to_device
 from cartographer_tpu_torch.core.time import Time, from_seconds
 from cartographer_tpu_torch.mapping.motion_filter import MotionFilter
 from cartographer_tpu_torch.mapping.pose_extrapolator import PoseExtrapolator
@@ -55,7 +62,7 @@ from cartographer_tpu_torch.ops.scan_pipeline_2d import (
 from cartographer_tpu_torch.ops.tsdf_2d import lm_match_tsdf_2d
 from cartographer_tpu_torch.sensor.data import ImuData, OdometryData, TimedPointCloudData
 from cartographer_tpu_torch.sensor.point_cloud import PointCloud, RangeData
-from cartographer_tpu_torch.sensor.voxel_filter import adaptive_voxel_filter
+from cartographer_tpu_torch.sensor.voxel_filter import adaptive_voxel_filter_masks
 from cartographer_tpu_torch.transform import nquat
 from cartographer_tpu_torch.transform import quaternion as quat
 from cartographer_tpu_torch.transform.rigid import Rigid2, Rigid3
@@ -92,16 +99,134 @@ class MatchingResult:
     insertion_result: Optional[InsertionResult]
 
 
+@dataclasses.dataclass
+class _Scan:
+    """A scan prepared on its robot's thread (its row in the builder's
+    staging), and what the host needs again after the step."""
+
+    data: TimedPointCloudData
+    seed: int
+    time_first: Time
+    gravity_q: np.ndarray
+    had_grid: bool
+
+
+def _norm(v: torch.Tensor) -> torch.Tensor:
+    """The Euclidean norm over the last axis, added up in index order: the
+    same bits for a robot whatever R (a reduction kernel may split a wider
+    batch differently)."""
+    sq = v[..., 0] * v[..., 0]
+    for k in range(1, v.shape[-1]):
+        sq = sq + v[..., k] * v[..., k]
+    return torch.sqrt(sq)
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    out = a[..., 0] * b[..., 0]
+    for k in range(1, a.shape[-1]):
+        out = out + a[..., k] * b[..., k]
+    return out
+
+
+def batched_step(builders: Sequence["LocalTrajectoryBuilder2D"], staging: torch.Tensor,
+                 seeds: Sequence[int]):
+    """The per-scan device step of R robots: `builders` (of one step key),
+    `staging` (R, 8n + 33) host rows (pinned for a card), `seeds` their
+    voxel-filter seeds. -> (packed results (R, P) on the device, range data
+    in each robot's local frame with a leading R). Updates every robot's
+    active grids in place, where the JAX program donates them and returns
+    new ones. Every kernel is one launch for all R."""
+    b0 = builders[0]
+    robots, n = staging.shape[0], b0._options.tpu.scan_capacity
+    upload = staging.to(b0._device, non_blocking=True, copy=True)  # the one host-to-device copy
+    perms = torch.empty((robots, n), dtype=torch.int32, device=b0._device)
+    for r, (b, seed) in enumerate(zip(builders, seeds)):
+        b._permutation_into(perms[r], seed)
+    return device_step(builders, upload, perms)
+
+
+def device_step(builders: Sequence["LocalTrajectoryBuilder2D"], upload: torch.Tensor,
+                perms: torch.Tensor):
+    """`batched_step` once its rows (`upload`, (R, 8n + 33)) and the voxel
+    filters' permutations (`perms`, (R, n) int32) are on the device: the
+    kernels and the glue, nothing else."""
+    b0 = builders[0]
+    opts = b0._options
+    robots, n = upload.shape[0], opts.tpu.scan_capacity
+    points = upload[:, 0:3 * n].view(robots, n, 3)
+    origins = upload[:, 3 * n:6 * n].view(robots, n, 3)
+    t01 = upload[:, 6 * n:7 * n]
+    mask = upload[:, 7 * n:8 * n] > 0.5
+    small = upload[:, 8 * n:]
+    gravity_q = small[:, _GRAVITY]
+    pred = small[:, _PRED]
+    has_grid = small[:, _HAS_GRID] > 0.5
+
+    rd_aligned, _ = preprocess_scan_2d(
+        points, t01, mask, origins, Rigid3(small[:, _PS_T], small[:, _PS_Q]),
+        Rigid3(small[:, _PE_T], small[:, _PE_Q]), gravity_q, b0._pre_params, perms)
+    # The matcher's filter and the loop-closure node cloud's coarser one.
+    avf, lc = opts.adaptive_voxel_filter, opts.loop_closure_adaptive_voxel_filter
+    keep, keep_lc = adaptive_voxel_filter_masks(
+        rd_aligned.returns.points, rd_aligned.returns.mask,
+        [(avf.max_length, avf.min_num_points, avf.max_range),
+         (lc.max_length, lc.min_num_points, lc.max_range)], perms)
+    filtered = rd_aligned.returns.filter_mask(keep)
+    if opts.tpu.matcher_capacity < n:
+        filtered = filtered.compact(opts.tpu.matcher_capacity)
+    lc_cloud = rd_aligned.returns.filter_mask(keep_lc)
+    if opts.tpu.loop_closure_capacity < n:
+        lc_cloud = lc_cloud.compact(opts.tpu.loop_closure_capacity)
+    grids = [b._active_submaps.matching_grid for b in builders]
+    initial = pred
+    if opts.use_online_correlative_scan_matching:
+        _, initial = real_time_correlative_match(grids, filtered.points, filtered.mask, pred,
+                                                 b0._corr_params)
+    # The translation penalty pulls toward the prediction, the rotation
+    # penalty toward the correlative estimate (ceres_scan_matcher_2d.cc).
+    match = lm_match_tsdf_2d if opts.submaps.grid_type == "TSDF" else lm_match_2d
+    pose_m, cost, iterations = match(grids, filtered.points, filtered.mask, initial,
+                                     pred[:, 0:2], b0._gn_params)
+    finite = torch.isfinite(pose_m).all(-1) & has_grid
+    pose_vec = torch.where(finite[:, None], pose_m, pred)
+
+    # Motion filter on the device (motion_filter.cc IsSimilar).
+    mf = opts.motion_filter
+    est_q = quat.multiply(quat.from_yaw(pose_vec[:, 2]), gravity_q)
+    est_q = est_q / _norm(est_q)[:, None]
+    est_t = torch.cat([pose_vec[:, 0:2], torch.zeros_like(pose_vec[:, 0:1])], -1)
+    dist = _norm(est_t - small[:, _MF_T])
+    dangle = 2.0 * torch.arccos(torch.clamp(
+        torch.abs(_dot(est_q, small[:, _MF_Q])), 0.0, 1.0))
+    moved = ((small[:, _MF_FIRST] > 0.5) | (small[:, _MF_DT] > mf.max_time_seconds)
+             | (dist > mf.max_distance_meters) | (dangle > mf.max_angle_radians))
+    ok = finite | ~has_grid  # the first scan (no grid) still inserts
+    do_insert = moved & ok
+
+    rd_local = rd_aligned.transform(Rigid2.from_vector(pose_vec))
+    ActiveSubmaps2D.insert_batch([b._active_submaps for b in builders], rd_local,
+                                 small[:, _ACTIVE] > 0.5, do_insert)
+    packed = torch.cat([
+        pose_vec, est_q,
+        torch.stack([cost, do_insert.to(torch.float32), ok.to(torch.float32),
+                     iterations.to(torch.float32)], -1),
+        lc_cloud.mask.to(torch.float32), lc_cloud.points.reshape(robots, -1)], -1)
+    return packed, rd_local
+
+
 class LocalTrajectoryBuilder2D:
     def __init__(self, options: TrajectoryBuilder2DOptions,
                  expected_range_sensor_ids: List[str], device="cuda", batcher=None,
                  permutation_fn: Optional[PermutationFn] = None):
         """`device` is where the per-scan step runs; a CUDA device must be
-        present when it is one (the default). `permutation_fn(seed, n)`
-        replaces the voxel filters' on-device permutation (tests inject the
-        JAX package's permutation through it)."""
-        if batcher is not None:
-            raise NotImplementedError("cross-robot scan batching is not ported")
+        present when it is one (the default). `batcher`
+        (mapping.scan_batcher.ScanBatcher, shared by concurrent trajectories
+        with the same step options) runs this builder's steps in
+        cross-robot ticks. `permutation_fn(seed, n)` replaces the voxel
+        filters' on-device permutation (tests inject the JAX package's
+        permutation through it)."""
+        if batcher is not None and options.submaps.grid_type == "TSDF":
+            raise NotImplementedError("TSDF submaps are not batched across robots")
         if options.pose_extrapolator.use_imu_based:
             raise NotImplementedError("the IMU-based extrapolator is not ported to 2D")
         self._device = torch.device(device)
@@ -109,6 +234,7 @@ class LocalTrajectoryBuilder2D:
             raise RuntimeError("LocalTrajectoryBuilder2D: no CUDA device is available; "
                                "pass device='cpu' to run the plain PyTorch path")
         self._options = options
+        self._batcher = batcher
         self._active_submaps = ActiveSubmaps2D(options.submaps, options.tpu, self._device)
         self._motion_filter = MotionFilter(options.motion_filter)
         self._extrapolator: Optional[PoseExtrapolator] = None
@@ -117,9 +243,11 @@ class LocalTrajectoryBuilder2D:
         self._permutation_fn = permutation_fn
         self._generator = torch.Generator(device=self._device)
         capacity = options.tpu.scan_capacity
-        # Pinned staging for the per-scan upload. Reusing it is safe: the
-        # blocking fetch at the end of each scan drains the stream.
-        self._staging = torch.empty(8 * capacity + _SMALL, dtype=torch.float32,
+        # Pinned staging for the per-scan upload, a batch of one row.
+        # Reusing it is safe: the scan's step has copied it (alone, the
+        # blocking fetch drains the stream; in a batcher's tick, the row is
+        # copied into the tick's own buffer) before the next scan writes it.
+        self._staging = torch.empty((1, 8 * capacity + _SMALL), dtype=torch.float32,
                                     pin_memory=self._device.type == "cuda")
 
         self._pre_params = ScanPreprocessParams2D(
@@ -148,6 +276,12 @@ class LocalTrajectoryBuilder2D:
         self.host_seconds = 0.0
         self.lm_iterations: List[int] = []  # the LM refine's iterations, per scan
         self._mf_last = None
+        # What must agree for two builders' scans to share a batcher's tick.
+        self.step_key = (self._pre_params, options.adaptive_voxel_filter,
+                         options.loop_closure_adaptive_voxel_filter, self._corr_params,
+                         self._gn_params, options.use_online_correlative_scan_matching,
+                         options.motion_filter, options.submaps, options.tpu,
+                         str(self._device))
 
         factory = metrics.GLOBAL_FACTORY
         self._metric_latency = factory.new_gauge_family(
@@ -205,78 +339,35 @@ class LocalTrajectoryBuilder2D:
         finally:
             self.host_seconds += _time.monotonic() - host_t0
 
-    def _permutation(self, seed: int, n: int) -> torch.Tensor:
+    def _permutation_into(self, out: torch.Tensor, seed: int) -> None:
+        """This robot's voxel-filter permutation of its scan `seed` into
+        `out` (a row of the tick's (R, n) buffer), from its own generator."""
         if self._permutation_fn is not None:
-            return to_device(np.asarray(self._permutation_fn(seed, n), np.int32),
-                             self._device)
+            n = out.shape[0]
+            out.copy_(torch.from_numpy(np.array(self._permutation_fn(seed, n), np.int32)),
+                      non_blocking=True)
+            return
         self._generator.manual_seed(seed)
-        return torch.randperm(n, generator=self._generator, device=self._device,
-                              dtype=torch.int32)
-
-    def _fused_step(self, upload: torch.Tensor, perm: torch.Tensor):
-        """The per-scan device step; returns (packed result, range data in
-        the local frame). Updates the active grids in place, where the JAX
-        program donates them and returns new ones."""
-        opts = self._options
-        n = opts.tpu.scan_capacity
-        points = upload[0:3 * n].view(n, 3)
-        origins = upload[3 * n:6 * n].view(n, 3)
-        t01 = upload[6 * n:7 * n]
-        mask = upload[7 * n:8 * n] > 0.5
-        small = upload[8 * n:]
-        gravity_q = small[_GRAVITY]
-        pred = small[_PRED]
-        has_grid = small[_HAS_GRID] > 0.5
-
-        rd_aligned, _ = preprocess_scan_2d(
-            points, t01, mask, origins, Rigid3(small[_PS_T], small[_PS_Q]),
-            Rigid3(small[_PE_T], small[_PE_Q]), gravity_q, self._pre_params, perm)
-        avf = opts.adaptive_voxel_filter
-        filtered = adaptive_voxel_filter(rd_aligned.returns, avf.max_length,
-                                         avf.min_num_points, avf.max_range, perm)
-        if opts.tpu.matcher_capacity < n:
-            filtered = filtered.compact(opts.tpu.matcher_capacity)
-        # The loop-closure node cloud is a separate, coarser filter.
-        lc = opts.loop_closure_adaptive_voxel_filter
-        lc_cloud = adaptive_voxel_filter(rd_aligned.returns, lc.max_length,
-                                         lc.min_num_points, lc.max_range, perm)
-        if opts.tpu.loop_closure_capacity < n:
-            lc_cloud = lc_cloud.compact(opts.tpu.loop_closure_capacity)
-        grid = self._active_submaps.matching_grid
-        initial = pred
-        if opts.use_online_correlative_scan_matching:
-            _, initial = real_time_correlative_match(grid, filtered.points, filtered.mask, pred,
-                                                     self._corr_params)
-        # The translation penalty pulls toward the prediction, the rotation
-        # penalty toward the correlative estimate (ceres_scan_matcher_2d.cc).
-        match = lm_match_tsdf_2d if opts.submaps.grid_type == "TSDF" else lm_match_2d
-        pose_m, cost, iterations = match(grid, filtered.points, filtered.mask, initial,
-                                         pred[0:2], self._gn_params)
-        finite = torch.isfinite(pose_m).all() & has_grid
-        pose_vec = torch.where(finite, pose_m, pred)
-
-        # Motion filter on the device (motion_filter.cc IsSimilar).
-        mf = opts.motion_filter
-        est_q = quat.normalize(quat.multiply(quat.from_yaw(pose_vec[2]), gravity_q))
-        est_t = torch.cat([pose_vec[0:2], torch.zeros_like(pose_vec[0:1])])
-        dist = torch.linalg.norm(est_t - small[_MF_T])
-        dangle = 2.0 * torch.arccos(torch.clamp(
-            torch.abs(torch.sum(est_q * small[_MF_Q])), 0.0, 1.0))
-        moved = ((small[_MF_FIRST] > 0.5) | (small[_MF_DT] > mf.max_time_seconds)
-                 | (dist > mf.max_distance_meters) | (dangle > mf.max_angle_radians))
-        ok = finite | ~has_grid  # the first scan (no grid) still inserts
-        do_insert = moved & ok
-
-        rd_local = rd_aligned.transform(Rigid2.from_vector(pose_vec))
-        self._active_submaps.insert(rd_local, small[_ACTIVE] > 0.5, do_insert)
-        packed = torch.cat([
-            pose_vec, est_q,
-            torch.stack([cost, do_insert.to(torch.float32), ok.to(torch.float32),
-                         iterations.to(torch.float32)]),
-            lc_cloud.mask.to(torch.float32), lc_cloud.points.reshape(-1)])
-        return packed, rd_local
+        torch.randperm(out.shape[0], generator=self._generator, out=out)
 
     def _process_scan_inner(self, data: TimedPointCloudData) -> Optional[MatchingResult]:
+        scan = self._prepare(data)
+        if scan is None:
+            return None
+        dev_t0 = _time.monotonic()
+        if self._batcher is not None:
+            packed, rd_local = self._batcher.submit(self.step_key, (self, scan.seed))
+        else:
+            packed, rd = batched_step([self], self._staging, [scan.seed])
+            packed = packed.cpu().numpy()[0]  # the single blocking transfer
+            rd_local = rd.robot(0)
+        self.device_fetches += 1
+        self.device_seconds += _time.monotonic() - dev_t0
+        return self._finish(scan, packed, rd_local)
+
+    def _prepare(self, data: TimedPointCloudData) -> Optional[_Scan]:
+        """The host work before the step: the extrapolator's poses, the
+        submap window, and the scan's staging row."""
         if self._options.use_imu_data and self._extrapolator is None:
             return None  # waiting for the first IMU message
         self._initialize_extrapolator(data.time)
@@ -312,7 +403,7 @@ class LocalTrajectoryBuilder2D:
             lt, mf_t, mf_q = self._mf_last
             mf_dt, mf_first = (data.time - lt) * 1e-6, False
 
-        staging = self._staging.numpy()
+        staging = self._staging.numpy()[0]
         staging.fill(0.0)
         staging[0:3 * npts] = (data.ranges[:npts, :3] if data.ranges.shape[1] >= 3 else
                                np.pad(data.ranges[:npts], ((0, 0), (0, 1)))).reshape(-1)
@@ -330,16 +421,13 @@ class LocalTrajectoryBuilder2D:
         small[_HAS_GRID] = had_grid
         small[_MF_FIRST] = mf_first
         small[_ACTIVE] = active
-
-        dev_t0 = _time.monotonic()
         self._seed_counter += 1
-        seed = self._seed_counter & 0x7FFFFFFF
-        upload = self._staging.to(self._device, non_blocking=True, copy=True)
-        packed, rd_local = self._fused_step(upload, self._permutation(seed, capacity))
-        packed = packed.cpu().numpy()  # the single blocking transfer
-        self.device_fetches += 1
-        self.device_seconds += _time.monotonic() - dev_t0
+        return _Scan(data, self._seed_counter & 0x7FFFFFFF, time_first, gravity_q, had_grid)
 
+    def _finish(self, scan: _Scan, packed: np.ndarray, rd_local: RangeData
+                ) -> Optional[MatchingResult]:
+        """The host work after the step, on this robot's packed result."""
+        data, had_grid, gravity_q = scan.data, scan.had_grid, scan.gravity_q
         lc_cap = (packed.shape[0] - 11) // 3
         pose_2d = np.asarray(packed[:3], np.float64)
         est_q = np.asarray(packed[3:7], np.float64)
@@ -380,7 +468,7 @@ class LocalTrajectoryBuilder2D:
         self._last_wall_time = wall
         self._last_sensor_time = data.time
         self._metric_scans.increment()
-        self._metric_latency.set(float(t1 - time_first) * 1e-6)
+        self._metric_latency.set(float(data.time - scan.time_first) * 1e-6)
 
         return MatchingResult(
             time=data.time,

@@ -16,10 +16,14 @@ or the reference's proto schema (`io/serialization.py`,
 builder's device, frozen by default, so that a new trajectory localizes
 against the loaded map.
 
-Not ported, and refused with NotImplementedError: cross-robot batched
-dispatch, the trimmers (pure localization among them), landmark
-observations, pose-graph-only (uplinked) trajectories, and a device mesh or
-multihost process group.
+With `batch_scan_dispatch` the 2D trajectories share one `ScanBatcher`
+(`mapping/scan_batcher.py`): their frontends' steps run in cross-robot
+ticks, one launch per kernel and one fetch per tick.
+
+Not ported, and refused with NotImplementedError: the trimmers (pure
+localization among them), landmark observations, pose-graph-only
+(uplinked) trajectories, a device mesh or multihost process group, and
+TSDF submaps under `batch_scan_dispatch`.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ from cartographer_tpu_torch.mapping.local_trajectory_builder_2d import (
 from cartographer_tpu_torch.mapping.local_trajectory_builder_3d import LocalTrajectoryBuilder3D
 from cartographer_tpu_torch.mapping.pose_graph_2d import PoseGraph2D, TrajectoryNode
 from cartographer_tpu_torch.mapping.pose_graph_3d import PoseGraph3D, TrajectoryNode3D
+from cartographer_tpu_torch.mapping.scan_batcher import ScanBatcher
 from cartographer_tpu_torch.sensor.collator import Collator, TrajectoryCollator
 from cartographer_tpu_torch.sensor.data import (
     FixedFramePoseData,
@@ -137,8 +142,6 @@ class MapBuilder:
             raise NotImplementedError("multi-device SLAM (a mesh or multihost) is not ported")
         if not options.use_trajectory_builder_2d and not options.use_trajectory_builder_3d:
             raise ValueError("one of use_trajectory_builder_2d/3d must be set")
-        if options.batch_scan_dispatch:
-            raise NotImplementedError("cross-robot batched dispatch is not ported")
         if options.pose_graph.overlapping_submaps_trimmer_2d is not None:
             raise NotImplementedError("the overlapping-submaps trimmer is not ported")
         self._device = torch.device(device)
@@ -153,6 +156,7 @@ class MapBuilder:
         self._collator = TrajectoryCollator() if options.collate_by_trajectory else Collator()
         self._builders: Dict[int, GlobalTrajectoryBuilder] = {}
         self._frozen: List[int] = []  # trajectory ids loaded by load_state
+        self._scan_batcher: Optional[ScanBatcher] = None  # shared by the 2D trajectories
 
     def add_trajectory_builder(
             self, expected_sensor_ids: List[str], trajectory_options: TrajectoryBuilderOptions,
@@ -175,9 +179,15 @@ class MapBuilder:
                                              device=self._device, permutation_fn=permutation_fn)
             glue = GlobalTrajectoryBuilder3D
         else:
+            batcher = None
+            if self._options.batch_scan_dispatch:
+                if self._scan_batcher is None:
+                    self._scan_batcher = ScanBatcher()
+                batcher = self._scan_batcher
             local = LocalTrajectoryBuilder2D(trajectory_options.trajectory_builder_2d,
                                              range_ids or expected_sensor_ids,
-                                             device=self._device, permutation_fn=permutation_fn)
+                                             device=self._device, batcher=batcher,
+                                             permutation_fn=permutation_fn)
             glue = GlobalTrajectoryBuilder
         self._builders[trajectory_id] = glue(trajectory_id, local, self.pose_graph,
                                              local_slam_result_callback)

@@ -13,7 +13,7 @@ around the device step so that the step needs no extra host round-trip.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -24,7 +24,6 @@ from cartographer_tpu_torch.ops.grid_2d import Grid2D, InsertScratch, insert_int
 from cartographer_tpu_torch.ops.tsdf_2d import (
     TsdfGrid2D,
     TsdfInserterParams,
-    TsdfInsertScratch,
     insert_into_slots_tsdf,
 )
 from cartographer_tpu_torch.sensor.point_cloud import RangeData
@@ -56,12 +55,9 @@ class ActiveSubmaps2D:
         self._tsdf = options.grid_type == "TSDF"
         self.submaps: List[Submap2D] = []
         self._grids = None  # batched (2, S, S) Grid2D or TsdfGrid2D
-        self._scratch = None
-        if self._device.type == "cuda":
-            size = tpu.submap_grid_size
-            self._scratch = (TsdfInsertScratch.create(_SLOTS, size, tpu.scan_capacity,
-                                                      self._device) if self._tsdf
-                             else InsertScratch.create(_SLOTS, size, self._device))
+        self._scratch = None  # K4's hit and free masks
+        if self._device.type == "cuda" and not self._tsdf:
+            self._scratch = InsertScratch.create(_SLOTS, tpu.submap_grid_size, self._device)
         t = options.tsdf_range_data_inserter
         self._tsdf_params = TsdfInserterParams(
             t.update_weight_range_exponent,
@@ -127,12 +123,31 @@ class ActiveSubmaps2D:
         when `do_insert` (0-d bool, may live on the device) holds."""
         if self._tsdf:
             insert_into_slots_tsdf(self._grids, range_data, active, do_insert,
-                                   self._tsdf_params, self._scratch)
+                                   self._tsdf_params)
             return
         ins = self._options.probability_grid_range_data_inserter
         insert_into_slots(self._grids, range_data, active, do_insert, ins.hit_probability,
                           ins.miss_probability, ins.insert_free_space,
                           self._tpu.ray_samples, self._scratch)
+
+    @staticmethod
+    def insert_batch(windows: Sequence["ActiveSubmaps2D"], range_data: RangeData,
+                     active: torch.Tensor, do_insert: torch.Tensor) -> None:
+        """Insert R robots' scans (every field of `range_data` with a leading
+        R; `active` (R, 2), `do_insert` (R,)) into each robot's own active
+        slots: one launch of K4 for all R on the card. TSDF windows insert
+        one robot's scan."""
+        w0 = windows[0]
+        if w0._tsdf:
+            if len(windows) != 1:
+                raise NotImplementedError("TSDF submaps are not batched across robots")
+            w0.insert(range_data.robot(0), active[0], do_insert[0])
+            return
+        ins = w0._options.probability_grid_range_data_inserter
+        insert_into_slots([w._grids for w in windows], range_data, active, do_insert,
+                          ins.hit_probability, ins.miss_probability, ins.insert_free_space,
+                          w0._tpu.ray_samples,
+                          None if w0._scratch is None else [w._scratch for w in windows])
 
     def insert_range_data(self, range_data_2d: RangeData,
                           origin_xy: np.ndarray) -> List[Submap2D]:
@@ -164,3 +179,4 @@ class ActiveSubmaps2D:
                 submap.grid = self._grids.slot(i).clone()
                 finished.append(submap)
         return finished
+

@@ -17,7 +17,9 @@ both score its score surface (K5's TSDF form, `correlative_2d_tsdf`): 0 in
 unknown cells, UNKNOWN outside the map, as the JAX search reads it through
 `grid.probability()`. Both sum the point axis (padded to a power of two) as
 the same pairwise halving tree, so on the card the twin's scores are
-bit-equal to the kernel's.
+bit-equal to the kernel's. With (R, N, 2) points, R grids and R start
+poses (the cross-robot batched step), the kernel searches every robot in
+one launch, each with its own argmax; one search is the R = 1 case.
 """
 
 from __future__ import annotations
@@ -34,21 +36,13 @@ from cartographer_tpu_torch.ops import cuda
 from cartographer_tpu_torch.ops.grid_2d import Grid2D
 from cartographer_tpu_torch.ops.probability import UNKNOWN_PROBABILITY
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# The arguments after the kernel's own surface scalars (none, or one).
+_ARGS = [_F, _I, _P, _P, _I, _P, ctypes.c_longlong, _I, _I, _F, _F, _F, _F, _F, _P, _P, _P, _P]
 # One kernel per surface form (Grid2D.SURFACE, TsdfGrid2D.SURFACE).
 _KERNELS = {
-    "occupancy": cuda.CudaKernel(
-        "correlative_2d.cu", "correlative_2d",
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
-         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-         ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-         ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]),
-    "tsdf": cuda.CudaKernel(
-        "correlative_2d.cu", "correlative_2d_tsdf",
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p, ctypes.c_float,
-         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-         ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_void_p])}
+    "occupancy": cuda.CudaKernel("correlative_2d.cu", "correlative_2d", [_P, _I] + _ARGS),
+    "tsdf": cuda.CudaKernel("correlative_2d.cu", "correlative_2d_tsdf", [_P, _I, _F] + _ARGS)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,13 +115,15 @@ def tree_sum(v: torch.Tensor) -> torch.Tensor:
 
 
 def pad_points(points: torch.Tensor, mask: torch.Tensor):
-    """Pad the point axis with masked zeros to a power of two (>= 2)."""
-    n = points.shape[0]
+    """Pad the point axis (the last but one of `points`, the last of `mask`)
+    with masked zeros to a power of two (>= 2)."""
+    n = points.shape[-2]
     p = max(2, 1 << (n - 1).bit_length())
     if p == n:
         return points.contiguous(), mask.contiguous()
-    return (torch.cat([points, points.new_zeros((p - n, 2))]).contiguous(),
-            torch.cat([mask, mask.new_zeros(p - n)]).contiguous())
+    return (torch.cat([points, points.new_zeros((*points.shape[:-2], p - n, 2))],
+                      -2).contiguous(),
+            torch.cat([mask, mask.new_zeros((*mask.shape[:-1], p - n))], -1).contiguous())
 
 
 def scores_plain(grid: Grid2D, points: torch.Tensor, mask: torch.Tensor,
@@ -173,31 +169,51 @@ def correlative_match_plain(grid: Grid2D, points: torch.Tensor, mask: torch.Tens
                  grid.resolution), scores
 
 
-def _match_kernel(grid: Grid2D, points: torch.Tensor, mask: torch.Tensor,
+def _match_kernel(grids, points: torch.Tensor, mask: torch.Tensor,
                   initial_pose: torch.Tensor, params: CorrelativeSearchParams):
-    res, size = grid.resolution, grid.size
+    """K5 for one robot ((N, 2) points) or R ((R, N, 2)): -> (best (4,),
+    scores (A, W, W)), with a leading R for R robots."""
+    robots = points.shape[0] if points.dim() == 3 else None
+    size, res = cuda.robot_grids(grids, robots or 1)
     nl = params.num_linear(res)
     num_angles = params.static_num_angles(res)
     points, mask = pad_points(points, mask)
-    n = points.shape[0]
-    surface = grid.surface_args()
-    cuda.check(grid.origin, "grid origin", torch.float32, (2,))
-    cuda.check(points, "points", torch.float32, (n, 2))
-    cuda.check(mask, "mask", torch.bool, (n,))
-    cuda.check(initial_pose, "initial pose", torch.float32, (3,))
+    n = points.shape[-2]
+    table = cuda.pointer_table([g.surface_row() for g in grids])
+    lead = () if robots is None else (robots,)
+    cuda.check(points, "points", torch.float32, (*lead, n, 2))
+    cuda.check(mask, "mask", torch.bool, (*lead, n))
+    init_rs = cuda.robot_stride(initial_pose, "initial pose", torch.float32, (3,), robots)
+    surface = grids[0].SURFACE
+    scalars = (f32(grids[0].truncation_distance),) if surface == "tsdf" else ()
     device = points.device
     w = 2 * nl + 1
-    scores = torch.empty((num_angles, w, w), dtype=torch.float32, device=device)
-    deltas = torch.empty(num_angles, dtype=torch.float32, device=device)
-    key = torch.empty(1, dtype=torch.int64, device=device)
-    best = torch.empty(4, dtype=torch.float32, device=device)
-    _KERNELS[grid.SURFACE](device, *surface, grid.origin.data_ptr(), f32(res), size,
-               points.data_ptr(), mask.data_ptr(), n, initial_pose.data_ptr(), num_angles, nl,
-               f32(params.angular_search_window + 1e-6),
-               f32(params.translation_delta_cost_weight),
-               f32(params.rotation_delta_cost_weight), f32(res**2), f32(3.0 * res),
-               scores.data_ptr(), deltas.data_ptr(), key.data_ptr(), best.data_ptr())
+    scores = torch.empty((*lead, num_angles, w, w), dtype=torch.float32, device=device)
+    deltas = torch.empty((*lead, num_angles), dtype=torch.float32, device=device)
+    key = torch.empty(robots or 1, dtype=torch.int64, device=device)
+    best = torch.empty((*lead, 4), dtype=torch.float32, device=device)
+    _KERNELS[surface](device, table, robots or 1, *scalars, f32(res), size, points.data_ptr(),
+                      mask.data_ptr(), n, initial_pose.data_ptr(), init_rs, num_angles, nl,
+                      f32(params.angular_search_window + 1e-6),
+                      f32(params.translation_delta_cost_weight),
+                      f32(params.rotation_delta_cost_weight), f32(res**2), f32(3.0 * res),
+                      scores.data_ptr(), deltas.data_ptr(), key.data_ptr(), best.data_ptr())
     return best, scores
+
+
+def correlative_match(grid, points: torch.Tensor, mask: torch.Tensor,
+                      initial_pose: torch.Tensor, params: CorrelativeSearchParams):
+    """-> (best [score, x, y, theta], scores (A, W, W)) of one search, or
+    with (R, N, 2) points, R grids and (R, 3) start poses, of R robots'
+    searches ((R, 4), (R, A, W, W)): one launch on the card."""
+    if points.is_cuda:
+        grids = [grid] if points.dim() == 2 else list(grid)
+        return _match_kernel(grids, points, mask, initial_pose, params)
+    if points.dim() == 2:
+        return correlative_match_plain(grid, points, mask, initial_pose, params)
+    rows = [correlative_match_plain(g, points[r], mask[r], initial_pose[r], params)
+            for r, g in enumerate(grid)]
+    return tuple(torch.stack(t) for t in zip(*rows))
 
 
 def real_time_correlative_match(grid: Grid2D, points: torch.Tensor, mask: torch.Tensor,
@@ -207,7 +223,7 @@ def real_time_correlative_match(grid: Grid2D, points: torch.Tensor, mask: torch.
     grid frame; `points` (N, 2) in the scan frame, `mask` (N,)).
 
     Returns (score, pose (3,)) as device tensors: the best candidate's
-    prior-weighted mean probability and its pose."""
-    match = _match_kernel if points.is_cuda else correlative_match_plain
-    best, _ = match(grid, points, mask, initial_pose, params)
-    return best[0], best[1:4]
+    prior-weighted mean probability and its pose. With (R, N, 2) points, R
+    grids and (R, 3) start poses: (scores (R,), poses (R, 3))."""
+    best, _ = correlative_match(grid, points, mask, initial_pose, params)
+    return best[..., 0], best[..., 1:4]

@@ -136,6 +136,47 @@ def launch_counts() -> Dict[str, int]:
     return {name: k.launches for name, k in KERNELS.items()}
 
 
+def robot_stride(t: torch.Tensor, name: str, dtype: torch.dtype, inner,
+                 robots: Optional[int]) -> int:
+    """Check that `t` is a CUDA tensor of `dtype`, of shape `inner` (one
+    robot: `robots` is None) or (robots, *inner) with each row contiguous
+    (a batch of robots' inputs, possibly rows of a wider buffer); return
+    the robot stride in elements (0 for one robot)."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    shape = (tuple(inner) if robots is None else (robots, *inner))
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
+    expected = 1
+    for size, stride in zip(reversed(tuple(inner)), reversed(t.stride())):
+        if size != 1 and stride != expected:
+            raise ValueError(f"{name}: expected rows that are each contiguous")
+        expected *= size
+    return t.stride(0) if robots is not None and robots > 1 else 0
+
+
+def robot_grids(grids, robots: int):
+    """Check that `grids` holds one grid per robot, all of one size and
+    resolution (a kernel's launch shares them); -> (size, resolution)."""
+    if len(grids) != robots:
+        raise ValueError(f"{len(grids)} grids for {robots} robots")
+    size, res = grids[0].size, grids[0].resolution
+    if any(g.size != size or g.resolution != res for g in grids):
+        raise ValueError("the robots' grids must share their size and resolution")
+    return size, res
+
+
+def pointer_table(columns) -> ctypes.Array:
+    """The robots' device pointers in host memory, robot-major: `columns` is
+    a sequence of per-robot sequences of tensors (or None for a null
+    pointer). A kernel's C entry point copies the table into its launch
+    parameters, so it costs no copy to the device."""
+    flat = [0 if t is None else t.data_ptr() for row in columns for t in row]
+    return (ctypes.c_void_p * len(flat))(*flat)
+
+
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> None:
     """Raise unless `t` is a contiguous CUDA tensor of `dtype` (and `shape`)."""
     if not t.is_cuda:

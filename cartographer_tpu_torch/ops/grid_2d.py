@@ -9,14 +9,16 @@ precedence over free. The port implements the JAX package's scatter form.
 `insert_into_slots` updates a batch of grids (the two active submaps) in
 place: the JAX program donates the grids and returns new ones, here the
 tensors are overwritten. On CUDA tensors it launches the kernel
-`csrc/insert_2d.cu` (K4), on CPU tensors it runs the plain twin.
+`csrc/insert_2d.cu` (K4), on CPU tensors it runs the plain twin. With a
+leading robot dimension on the scan (the cross-robot batched step), it
+inserts R robots' scans into their own grids, wherever each robot keeps
+them, in one launch; one robot is the R = 1 case.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional
 
 import numpy as np
 import torch
@@ -33,13 +35,10 @@ from cartographer_tpu_torch.ops.probability import (
 )
 from cartographer_tpu_torch.sensor.point_cloud import RangeData
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _KERNEL = cuda.CudaKernel(
     "insert_2d.cu", "insert_2d",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-     ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_void_p, ctypes.c_void_p])
+    [_P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _F, _I, _I, _I, _I, _F, _F, _F, _F])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,6 +97,15 @@ class Grid2D:
         where never updated."""
         return torch.where(self.known, log_odds_to_probability(self.log_odds),
                            torch.full_like(self.log_odds, UNKNOWN_PROBABILITY))
+
+    def surface_row(self) -> tuple:
+        """This (S, S) grid's row of the matching kernels' pointer table (K3,
+        K5): its log-odds, known flags and origin."""
+        size = self.size
+        cuda.check(self.log_odds, "log_odds", torch.float32, (size, size))
+        cuda.check(self.known, "known", torch.bool, (size, size))
+        cuda.check(self.origin, "grid origin", torch.float32, (2,))
+        return self.log_odds, self.known, self.origin
 
     def surface_args(self) -> tuple:
         """The surface arguments of the matching kernels' occupancy form:
@@ -175,41 +183,53 @@ class InsertScratch:
             torch.zeros((slots, size, size), dtype=torch.uint8, device=device))
 
 
-def insert_into_slots(grids: Grid2D, rd: RangeData, active: torch.Tensor,
+def insert_into_slots(grids, rd: RangeData, active: torch.Tensor,
                       do_insert: torch.Tensor, hit_probability: float,
                       miss_probability: float, insert_free_space: bool,
-                      ray_samples: int, scratch: Optional[InsertScratch] = None) -> None:
+                      ray_samples: int, scratch=None) -> None:
     """Insert one scan (in the grids' frame) into every grid of the batch
-    whose `active` flag is set, when `do_insert` (0-d bool) holds; in place."""
+    whose `active` flag is set, when `do_insert` (0-d bool) holds; in place.
+    With (R, N, 2) clouds, (R, 2) origin, (R, slots) `active` and (R,)
+    `do_insert`, `grids` (and `scratch`, if given) are R robots' batches."""
     hit_lo = probability_to_log_odds(hit_probability)
     miss_lo = probability_to_log_odds(miss_probability)
-    if not grids.log_odds.is_cuda:
-        _insert_plain(grids, rd, active, do_insert, hit_lo, miss_lo, insert_free_space,
-                      ray_samples)
+    robots = rd.returns.points.shape[0] if rd.returns.points.dim() == 3 else None
+    if not rd.returns.points.is_cuda:
+        jobs = ([(grids, rd, active, do_insert)] if robots is None else
+                [(grids[r], rd.robot(r), active[r], do_insert[r]) for r in range(robots)])
+        for g, one, a, d in jobs:
+            _insert_plain(g, one, a, d, hit_lo, miss_lo, insert_free_space, ray_samples)
         return
-    slots, size = grids.log_odds.shape[0], grids.size
-    n = rd.returns.capacity
-    cuda.check(grids.log_odds, "log_odds", torch.float32, (slots, size, size))
-    cuda.check(grids.known, "known", torch.bool, (slots, size, size))
-    cuda.check(grids.origin, "grid origin", torch.float32, (slots, 2))
-    cuda.check(rd.returns.points, "returns", torch.float32, (n, 2))
-    cuda.check(rd.returns.mask, "returns mask", torch.bool, (n,))
-    cuda.check(rd.misses.points, "misses", torch.float32, (n, 2))
-    cuda.check(rd.misses.mask, "misses mask", torch.bool, (n,))
-    cuda.check(rd.origin, "origin", torch.float32, (2,))
-    cuda.check(active, "active", torch.bool, (slots,))
-    cuda.check(do_insert, "do_insert", torch.bool, ())
+    if robots is None:
+        grids, scratch = [grids], None if scratch is None else [scratch]
+    n = rd.returns.points.shape[-2]
+    size, res = cuda.robot_grids(grids, robots or 1)
+    slots = grids[0].log_odds.shape[0]
     if scratch is None:
-        scratch = InsertScratch.create(slots, size, grids.log_odds.device)
-    cuda.check(scratch.hit, "hit masks", torch.uint8, (slots, size, size))
-    cuda.check(scratch.free, "free masks", torch.uint8, (slots, size, size))
-    _KERNEL(grids.log_odds.device, rd.returns.points.data_ptr(),
-            rd.returns.mask.data_ptr(), rd.misses.points.data_ptr(),
-            rd.misses.mask.data_ptr(), n, rd.origin.data_ptr(), grids.origin.data_ptr(),
-            float(grids.resolution), size, int(ray_samples), int(insert_free_space),
-            active.data_ptr(), do_insert.data_ptr(), slots, hit_lo, miss_lo,
-            MIN_LOG_ODDS, MAX_LOG_ODDS, grids.log_odds.data_ptr(),
-            grids.known.data_ptr(), scratch.hit.data_ptr(), scratch.free.data_ptr())
+        scratch = [InsertScratch.create(slots, size, rd.returns.points.device)
+                   for _ in grids]
+    rows = []
+    for g, sc in zip(grids, scratch):
+        cuda.check(g.log_odds, "log_odds", torch.float32, (slots, size, size))
+        cuda.check(g.known, "known", torch.bool, (slots, size, size))
+        cuda.check(g.origin, "grid origin", torch.float32, (slots, 2))
+        cuda.check(sc.hit, "hit masks", torch.uint8, (slots, size, size))
+        cuda.check(sc.free, "free masks", torch.uint8, (slots, size, size))
+        rows.append((g.log_odds, g.known, g.origin, sc.hit, sc.free))
+    inputs = ((rd.returns.points, "returns", torch.float32, (n, 2)),
+              (rd.returns.mask, "returns mask", torch.bool, (n,)),
+              (rd.misses.points, "misses", torch.float32, (n, 2)),
+              (rd.misses.mask, "misses mask", torch.bool, (n,)),
+              (rd.origin, "origin", torch.float32, (2,)),
+              (active, "active", torch.bool, (slots,)),
+              (do_insert, "do_insert", torch.bool, ()))
+    strides = np.array([cuda.robot_stride(t, name, dtype, inner, robots)
+                        for t, name, dtype, inner in inputs], np.int64)
+    _KERNEL(rd.returns.points.device, cuda.pointer_table(rows), robots or 1,
+            *(t.data_ptr() for t, _, _, _ in inputs[:4]), n, rd.origin.data_ptr(),
+            active.data_ptr(), do_insert.data_ptr(), strides.ctypes.data, float(res), size,
+            int(ray_samples), int(insert_free_space), slots, hit_lo, miss_lo, MIN_LOG_ODDS,
+            MAX_LOG_ODDS)
 
 
 def insert_range_data(grid: Grid2D, range_data: RangeData, hit_probability: float = 0.55,

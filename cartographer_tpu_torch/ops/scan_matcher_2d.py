@@ -14,6 +14,12 @@ on CPU tensors. On a `TsdfGrid2D` both read its score surface in place of
 the probability (K3's TSDF form, `scan_matcher_2d_tsdf`), as the JAX
 matcher does through `grid.probability()`; the loop-closure refine runs
 there. The TSDF frontend's own matcher is `tsdf_2d.lm_match_tsdf_2d` (K22).
+
+With a leading robot dimension (R, M, 2) on the points, a sequence of R
+grids and a row per robot of every other tensor (the cross-robot batched
+step), the kernel solves every robot in one launch, one block per robot,
+each with its own early exit; one solve is the R = 1 case. The plain twin
+solves robot by robot.
 """
 
 from __future__ import annotations
@@ -22,9 +28,10 @@ import ctypes
 import dataclasses
 from typing import Tuple
 
+import numpy as np
 import torch
 
-from cartographer_tpu_torch.core.tensor import true_div
+from cartographer_tpu_torch.core.tensor import f32, true_div
 from cartographer_tpu_torch.ops import cuda
 from cartographer_tpu_torch.ops.gauss_newton import lm_solve
 from cartographer_tpu_torch.ops.grid_2d import Grid2D
@@ -33,20 +40,14 @@ from cartographer_tpu_torch.transform.rigid import Rigid2
 
 _FUNCTION_TOLERANCE = 1e-6  # Ceres Solver::Options default, as lm_solve
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# The arguments after the kernel's own surface scalars (none, or one).
+LM_ARGS = [_F, _I, _P, _P, _I, _P, _P, _P, _F, _F, _F, _I, _I, _F, _P, _P, _P]
 # One kernel per surface form (Grid2D.SURFACE, TsdfGrid2D.SURFACE).
 _KERNELS = {
-    "occupancy": cuda.CudaKernel(
-        "scan_matcher_2d.cu", "scan_matcher_2d",
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
-         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-         ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]),
-    "tsdf": cuda.CudaKernel(
-        "scan_matcher_2d.cu", "scan_matcher_2d_tsdf",
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p, ctypes.c_float,
-         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-         ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int,
-         ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])}
+    "occupancy": cuda.CudaKernel("scan_matcher_2d.cu", "scan_matcher_2d", [_P, _I] + LM_ARGS),
+    "tsdf": cuda.CudaKernel("scan_matcher_2d.cu", "scan_matcher_2d_tsdf",
+                            [_P, _I, _F] + LM_ARGS)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,36 +99,68 @@ def _match_plain(grid, points, mask, x0, target_translation, params):
                     nonmonotonic=params.use_nonmonotonic_steps)
 
 
-def _match_kernel(grid, points, mask, x0, target_translation, params):
-    size = grid.size
-    m = points.shape[0]
-    surface = grid.surface_args()
-    cuda.check(grid.origin, "grid origin", torch.float32, (2,))
-    cuda.check(points, "points", torch.float32, (m, 2))
-    cuda.check(mask, "mask", torch.bool, (m,))
-    cuda.check(x0, "initial pose", torch.float32, (3,))
-    cuda.check(target_translation, "target translation", torch.float32, (2,))
-    device = points.device
-    x = torch.empty(3, dtype=torch.float32, device=device)
-    cost = torch.empty((), dtype=torch.float32, device=device)
-    iterations = torch.empty((), dtype=torch.int32, device=device)
-    _KERNELS[grid.SURFACE](device, *surface, grid.origin.data_ptr(), float(grid.resolution), size,
-               points.data_ptr(), mask.data_ptr(), m, x0.data_ptr(),
-               target_translation.data_ptr(), float(params.occupied_space_weight),
-               float(params.translation_weight), float(params.rotation_weight),
-               int(params.num_iterations), int(params.use_nonmonotonic_steps),
-               _FUNCTION_TOLERANCE, x.data_ptr(), cost.data_ptr(), iterations.data_ptr())
+def launch_lm(kernel, scalars, grids, points, mask, x0, target_translation, params,
+              nonmonotonic: bool):
+    """One launch of a K3-template solve (K3, its TSDF form, K22): `grids`
+    one grid per robot, `points` (M, 2) for one robot or (R, M, 2), `mask`,
+    `x0` (3,) and `target_translation` (2,) with the same leading R,
+    `scalars` the kernel's surface scalars; -> (poses, costs, LM
+    iterations) with that leading R."""
+    robots = points.shape[0] if points.dim() == 3 else None
+    m = points.shape[-2]
+    size, res = cuda.robot_grids(grids, robots or 1)
+    table = cuda.pointer_table([g.surface_row() for g in grids])
+    strides = np.array([
+        cuda.robot_stride(points, "points", torch.float32, (m, 2), robots),
+        cuda.robot_stride(mask, "mask", torch.bool, (m,), robots),
+        cuda.robot_stride(x0, "initial pose", torch.float32, (3,), robots),
+        cuda.robot_stride(target_translation, "target translation", torch.float32, (2,),
+                          robots)], np.int64)
+    device, lead = points.device, (() if robots is None else (robots,))
+    x = torch.empty((*lead, 3), dtype=torch.float32, device=device)
+    cost = torch.empty(lead, dtype=torch.float32, device=device)
+    iterations = torch.empty(lead, dtype=torch.int32, device=device)
+    kernel(device, table, robots or 1, *scalars, float(res), size, points.data_ptr(),
+           mask.data_ptr(), m, x0.data_ptr(), target_translation.data_ptr(),
+           strides.ctypes.data, float(params.occupied_space_weight),
+           float(params.translation_weight), float(params.rotation_weight),
+           int(params.num_iterations), int(nonmonotonic), _FUNCTION_TOLERANCE, x.data_ptr(),
+           cost.data_ptr(), iterations.data_ptr())
     return x, cost, iterations
+
+
+def per_robot(launch, plain, grid, points, mask, x0, target_translation, params):
+    """A solve on pose vectors for one robot ((M, 2) points, one grid) or R
+    ((R, M, 2) points, R grids, a leading R on the rest): `launch(grids,
+    ...)` on CUDA tensors, `plain(grid, ...)` robot by robot on CPU
+    tensors."""
+    if points.is_cuda:
+        if points.dim() == 2:
+            return launch([grid], points, mask, x0.contiguous(),
+                          target_translation.contiguous(), params)
+        return launch(list(grid), points, mask, x0, target_translation, params)
+    if points.dim() == 2:
+        return plain(grid, points, mask, x0, target_translation, params)
+    rows = [plain(g, points[r], mask[r], x0[r], target_translation[r], params)
+            for r, g in enumerate(grid)]
+    return tuple(torch.stack(t) for t in zip(*rows))
+
+
+def _launch(grids, points, mask, x0, target_translation, params):
+    surface = grids[0].SURFACE
+    scalars = (f32(grids[0].truncation_distance),) if surface == "tsdf" else ()
+    return launch_lm(_KERNELS[surface], scalars, grids, points, mask, x0, target_translation,
+                     params, params.use_nonmonotonic_steps)
 
 
 def lm_match_2d(grid, points: torch.Tensor, mask: torch.Tensor, x0: torch.Tensor,
                 target_translation: torch.Tensor, params: GaussNewtonMatcherParams2D):
     """The solve on pose vectors, on a Grid2D or the score surface of a
-    TsdfGrid2D: -> (pose (3,), final cost, LM iterations)."""
-    if points.is_cuda:
-        return _match_kernel(grid, points, mask, x0.contiguous(),
-                             target_translation.contiguous(), params)
-    return _match_plain(grid, points, mask, x0, target_translation, params)
+    TsdfGrid2D: -> (pose (3,), final cost, LM iterations). With (R, M, 2)
+    points, R grids and a leading R on the rest: R robots' solves, one
+    launch on the card."""
+    return per_robot(_launch, _match_plain, grid, points, mask, x0, target_translation,
+                     params)
 
 
 def gauss_newton_match_2d(grid: Grid2D, points: torch.Tensor, mask: torch.Tensor,

@@ -10,6 +10,9 @@ voxel filter.
 On CUDA tensors the per-point pass is the kernel
 `csrc/scan_preprocess_2d.cu` (K1) and the voxel filter the kernel
 `csrc/voxel_filter.cu` (K2); on CPU tensors both run their plain twins.
+Every argument may carry a leading robot dimension R (the cross-robot
+batched step): each kernel is then one launch for all R robots, and one
+robot is its R = 1 case; the plain twins run robot by robot.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import ctypes
 import dataclasses
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from cartographer_tpu_torch.ops import cuda
@@ -28,7 +32,7 @@ from cartographer_tpu_torch.transform.rigid import Rigid3
 
 _KERNEL = cuda.CudaKernel(
     "scan_preprocess_2d.cu", "scan_preprocess_2d",
-    [ctypes.c_void_p] * 9 + [ctypes.c_int] + [ctypes.c_float] * 5
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2 + [ctypes.c_float] * 5
     + [ctypes.c_void_p] * 5)
 
 
@@ -70,42 +74,50 @@ def align_scan_plain(points, times01, mask, origin, pose_start: Rigid3, pose_end
 
 def _align_kernel(points, times01, mask, origin, pose_start, pose_end, gravity_rotation,
                   params):
-    n = points.shape[0]
-    cuda.check(points, "points", torch.float32, (n, 3))
-    cuda.check(times01, "times01", torch.float32, (n,))
-    cuda.check(mask, "mask", torch.bool, (n,))
-    cuda.check(origin, "origins", torch.float32, (n, 3))
-    for name, t, size in (("pose_start.translation", pose_start.translation, 3),
-                          ("pose_start.rotation", pose_start.rotation, 4),
-                          ("pose_end.translation", pose_end.translation, 3),
-                          ("pose_end.rotation", pose_end.rotation, 4),
-                          ("gravity_rotation", gravity_rotation, 4)):
-        cuda.check(t, name, torch.float32, (size,))
-    device = points.device
-    hits = torch.empty((n, 3), dtype=torch.float32, device=device)
-    misses = torch.empty((n, 2), dtype=torch.float32, device=device)
-    is_return = torch.empty(n, dtype=torch.bool, device=device)
-    is_miss = torch.empty(n, dtype=torch.bool, device=device)
-    origin_aligned = torch.empty(3, dtype=torch.float32, device=device)
-    _KERNEL(device, points.data_ptr(), times01.data_ptr(), mask.data_ptr(),
-            origin.data_ptr(), pose_start.translation.data_ptr(),
-            pose_start.rotation.data_ptr(), pose_end.translation.data_ptr(),
-            pose_end.rotation.data_ptr(), gravity_rotation.data_ptr(), n,
-            float(params.min_range), float(params.max_range), float(params.min_z),
-            float(params.max_z), float(params.missing_data_ray_length), hits.data_ptr(),
-            misses.data_ptr(), is_return.data_ptr(), is_miss.data_ptr(),
+    robots = points.shape[0] if points.dim() == 3 else None
+    n = points.shape[-2]
+    inputs = (("points", points, torch.float32, (n, 3)),
+              ("times01", times01, torch.float32, (n,)),
+              ("mask", mask, torch.bool, (n,)),
+              ("origins", origin, torch.float32, (n, 3)),
+              ("pose_start.translation", pose_start.translation, torch.float32, (3,)),
+              ("pose_start.rotation", pose_start.rotation, torch.float32, (4,)),
+              ("pose_end.translation", pose_end.translation, torch.float32, (3,)),
+              ("pose_end.rotation", pose_end.rotation, torch.float32, (4,)),
+              ("gravity_rotation", gravity_rotation, torch.float32, (4,)))
+    strides = np.array([cuda.robot_stride(t, name, dtype, inner, robots)
+                        for name, t, dtype, inner in inputs], np.int64)
+    device, lead = points.device, (() if robots is None else (robots,))
+    hits = torch.empty((*lead, n, 3), dtype=torch.float32, device=device)
+    misses = torch.empty((*lead, n, 2), dtype=torch.float32, device=device)
+    is_return = torch.empty((*lead, n), dtype=torch.bool, device=device)
+    is_miss = torch.empty((*lead, n), dtype=torch.bool, device=device)
+    origin_aligned = torch.empty((*lead, 3), dtype=torch.float32, device=device)
+    _KERNEL(device, *(t.data_ptr() for _, t, _, _ in inputs), strides.ctypes.data,
+            robots or 1, n, float(params.min_range), float(params.max_range),
+            float(params.min_z), float(params.max_z), float(params.missing_data_ray_length),
+            hits.data_ptr(), misses.data_ptr(), is_return.data_ptr(), is_miss.data_ptr(),
             origin_aligned.data_ptr())
     return hits, misses, is_return, is_miss, origin_aligned
 
 
 def align_scan(points, times01, mask, origin, pose_start, pose_end, gravity_rotation,
                params):
-    """K1: unwarp, gate, clamp misses, gravity-align and z-crop a scan."""
+    """K1: unwarp, gate, clamp misses, gravity-align and z-crop a scan:
+    `points` (N, 3), or (R, N, 3) with every argument's leading R for R
+    robots' scans."""
     if points.is_cuda:
         return _align_kernel(points, times01, mask, origin, pose_start, pose_end,
                              gravity_rotation, params)
-    return align_scan_plain(points, times01, mask, origin, pose_start, pose_end,
-                            gravity_rotation, params)
+    if points.dim() == 2:
+        return align_scan_plain(points, times01, mask, origin, pose_start, pose_end,
+                                gravity_rotation, params)
+    rows = [align_scan_plain(points[r], times01[r], mask[r], origin[r],
+                             Rigid3(pose_start.translation[r], pose_start.rotation[r]),
+                             Rigid3(pose_end.translation[r], pose_end.rotation[r]),
+                             gravity_rotation[r], params)
+            for r in range(points.shape[0])]
+    return tuple(torch.stack(t) for t in zip(*rows))
 
 
 def preprocess_scan_2d(
@@ -122,12 +134,14 @@ def preprocess_scan_2d(
     """Returns (gravity-aligned 2D RangeData, sensor origin in that frame).
 
     The RangeData is centred at the scan-end sensor position, with z dropped
-    after cropping; the returns are voxel-filtered in 3D cells."""
+    after cropping; the returns are voxel-filtered in 3D cells. With a
+    leading robot dimension on every argument, every field of the result
+    has it too."""
     hits, misses, is_return, is_miss, origin_aligned = align_scan(
         points, times01, mask, origin, pose_start, pose_end, gravity_rotation, params)
     keep = voxel_filter_mask(hits, is_return, params.voxel_filter_size, perm)
-    zeros = torch.zeros(points.shape[0], dtype=torch.float32, device=points.device)
-    returns = PointCloud(points=hits[:, 0:2], mask=keep, intensities=zeros)
+    zeros = torch.zeros(points.shape[:-1], dtype=torch.float32, device=points.device)
+    returns = PointCloud(points=hits[..., 0:2], mask=keep, intensities=zeros)
     miss_cloud = PointCloud(points=misses, mask=is_miss, intensities=zeros)
-    return RangeData(origin=origin_aligned[0:2], returns=returns, misses=miss_cloud), \
+    return RangeData(origin=origin_aligned[..., 0:2], returns=returns, misses=miss_cloud), \
         origin_aligned

@@ -14,7 +14,9 @@ Three kernels, each with its plain PyTorch twin, which CPU tensors take:
   - `estimate_normals_2d` (K20, `csrc/tsdf_2d.cu` `tsdf_normals_2d`):
     normals from the angle-sorted neighbours of each return;
   - `insert_into_slots_tsdf` (K21, `tsdf_insert_2d`): one scan into every
-    active grid of a batch (the two active submaps), in place;
+    active grid of a batch (the two active submaps), in place, each cell's
+    samples added in input order (`csrc/in_order_scatter.cuh`), so the card
+    equals the twin bit for bit;
   - `lm_match_tsdf_2d` (K22, `csrc/scan_matcher_2d.cu` `lm_match_tsdf_2d`):
     K3's Levenberg-Marquardt solve on the interpolated signed distance.
 
@@ -34,8 +36,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from cartographer_tpu_torch.core.tensor import f32, to_device, true_div
-from cartographer_tpu_torch.ops import cuda
+from cartographer_tpu_torch.core.tensor import f32, index_add_in_order_, to_device, true_div
+from cartographer_tpu_torch.ops import cuda, in_order_scatter, scan_matcher_2d
 from cartographer_tpu_torch.ops.gauss_newton import lm_solve
 from cartographer_tpu_torch.ops.interp import bicubic_with_gradient
 from cartographer_tpu_torch.sensor.point_cloud import RangeData
@@ -49,11 +51,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _NORMALS = cuda.CudaKernel("tsdf_2d.cu", "tsdf_normals_2d", [_P, _P, _P, _I, _P, _P])
 _INSERT = cuda.CudaKernel(
     "tsdf_2d.cu", "tsdf_insert_2d",
-    [_P, _P, _P, _P, _I, _P, _F, _I, _F, _F, _I, _F, _F, _I, _P, _P, _I, _P, _P, _P, _P, _P,
-     _P])
-_LM = cuda.CudaKernel(
-    "scan_matcher_2d.cu", "lm_match_tsdf_2d",
-    [_P, _F, _P, _F, _I, _P, _P, _I, _P, _P, _F, _F, _F, _I, _I, _F, _P, _P, _P])
+    [_P, _P, _P, _P, _I, _P, _F, _I, _F, _F, _I, _F, _F, _I, _P, _P, _I, _I, _P, _P])
+_LM = cuda.CudaKernel("scan_matcher_2d.cu", "lm_match_tsdf_2d",
+                      [_P, _I, _F] + scan_matcher_2d.LM_ARGS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,6 +127,15 @@ class TsdfGrid2D:
     def probability(self) -> torch.Tensor:
         """The scoring surface under the name the matchers read (JAX l.81)."""
         return self.correspondence_score()
+
+    def surface_row(self) -> tuple:
+        """This (S, S) grid's row of the matching kernels' pointer table (the
+        TSDF forms of K3 and K5, K22): its tsd, weight and origin."""
+        size = self.size
+        cuda.check(self.tsd, "tsd", torch.float32, (size, size))
+        cuda.check(self.weight, "weight", torch.float32, (size, size))
+        cuda.check(self.origin, "grid origin", torch.float32, (2,))
+        return self.tsd, self.weight, self.origin
 
     def surface_args(self) -> tuple:
         """The surface arguments of the matching kernels' TSDF form: the tsd
@@ -275,9 +284,12 @@ def _insert_plain(grids: TsdfGrid2D, rd: RangeData, normals, active, do_insert,
         cells = torch.where(inb[..., None], cells, torch.zeros_like(cells)).long()
         lin = torch.where(inb, cells[..., 0] * s + cells[..., 1],
                           torch.full_like(cells[..., 0], flat)).reshape(-1)
-        wsum = torch.zeros(flat + 1, device=w.device).index_add_(0, lin, w.reshape(-1))[:flat]
-        wtsd = torch.zeros(flat + 1, device=w.device).index_add_(
-            0, lin, (w * sdf).reshape(-1))[:flat]
+        # Each cell's samples in input order, as XLA's scatter-add on the
+        # CPU and K21 add them (index_add_ on the card adds by atomics).
+        wsum = index_add_in_order_(torch.zeros(flat + 1, device=w.device), lin,
+                                   w.reshape(-1))[:flat]
+        wtsd = index_add_in_order_(torch.zeros(flat + 1, device=w.device), lin,
+                                   (w * sdf).reshape(-1))[:flat]
         old_w, old_t = g.weight.reshape(-1), g.tsd.reshape(-1)
         touched = wsum > 0
         new_w = old_w + wsum
@@ -289,27 +301,8 @@ def _insert_plain(grids: TsdfGrid2D, rd: RangeData, normals, active, do_insert,
         g.weight.copy_(torch.where(gate, new_w, old_w).reshape(s, s))
 
 
-@dataclasses.dataclass
-class TsdfInsertScratch:
-    """K21's per-slot sums (zero between scans), touched-cell lists and counts."""
-
-    wsum: torch.Tensor
-    wtsd: torch.Tensor
-    touched: torch.Tensor
-    counts: torch.Tensor
-
-    @staticmethod
-    def create(slots: int, size: int, n: int, device) -> "TsdfInsertScratch":
-        return TsdfInsertScratch(
-            torch.zeros((slots, size, size), dtype=torch.float32, device=device),
-            torch.zeros((slots, size, size), dtype=torch.float32, device=device),
-            torch.empty(slots * SAMPLES_PER_RAY * n, dtype=torch.int32, device=device),
-            torch.zeros(slots, dtype=torch.int32, device=device))
-
-
 def insert_into_slots_tsdf(grids: TsdfGrid2D, rd: RangeData, active: torch.Tensor,
                            do_insert: torch.Tensor, params: TsdfInserterParams,
-                           scratch: Optional[TsdfInsertScratch] = None,
                            normals: Optional[torch.Tensor] = None) -> None:
     """TSDFRangeDataInserter2D::Insert of one scan (in the grids' frame)
     into every grid of the batch whose `active` flag is set, when
@@ -331,21 +324,15 @@ def insert_into_slots_tsdf(grids: TsdfGrid2D, rd: RangeData, active: torch.Tenso
     cuda.check(rd.origin, "origin", torch.float32, (2,))
     cuda.check(active, "active", torch.bool, (slots,))
     cuda.check(do_insert, "do_insert", torch.bool, ())
-    if scratch is None:
-        scratch = TsdfInsertScratch.create(slots, size, n, grids.tsd.device)
-    cuda.check(scratch.wsum, "weight sums", torch.float32, (slots, size, size))
-    cuda.check(scratch.wtsd, "weighted tsd sums", torch.float32, (slots, size, size))
-    cuda.check(scratch.touched, "touched cells", torch.int32, (slots * SAMPLES_PER_RAY * n,))
-    cuda.check(scratch.counts, "touched counts", torch.int32, (slots,))
     _INSERT(grids.tsd.device, hits.points.data_ptr(), hits.mask.data_ptr(), normals.data_ptr(),
             rd.origin.data_ptr(), n, grids.origin.data_ptr(), f32(grids.resolution), size,
             f32(grids.truncation_distance), f32(grids.max_weight),
             int(params.update_weight_range_exponent),
             f32(2 * params.angle_kernel_bandwidth**2),
             f32(2 * params.distance_kernel_bandwidth**2), int(params.project_to_normal),
-            active.data_ptr(), do_insert.data_ptr(), slots, grids.tsd.data_ptr(),
-            grids.weight.data_ptr(), scratch.wsum.data_ptr(), scratch.wtsd.data_ptr(),
-            scratch.touched.data_ptr(), scratch.counts.data_ptr())
+            active.data_ptr(), do_insert.data_ptr(), slots,
+            in_order_scatter.radix_passes(slots * size * size), grids.tsd.data_ptr(),
+            grids.weight.data_ptr())
 
 
 def insert_range_data_tsdf(grid: TsdfGrid2D, range_data: RangeData,
@@ -407,25 +394,9 @@ def _match_plain(grid, points, mask, x0, target_translation, params):
                     function_tolerance=_FUNCTION_TOLERANCE)
 
 
-def _match_kernel(grid, points, mask, x0, target_translation, params):
-    size, m = grid.size, points.shape[0]
-    cuda.check(grid.tsd, "tsd", torch.float32, (size, size))
-    cuda.check(grid.origin, "grid origin", torch.float32, (2,))
-    cuda.check(points, "points", torch.float32, (m, 2))
-    cuda.check(mask, "mask", torch.bool, (m,))
-    cuda.check(x0, "initial pose", torch.float32, (3,))
-    cuda.check(target_translation, "target translation", torch.float32, (2,))
-    device = points.device
-    x = torch.empty(3, dtype=torch.float32, device=device)
-    cost = torch.empty((), dtype=torch.float32, device=device)
-    iterations = torch.empty((), dtype=torch.int32, device=device)
-    _LM(device, grid.tsd.data_ptr(), f32(0.8 / grid.resolution), grid.origin.data_ptr(),
-        float(grid.resolution), size, points.data_ptr(), mask.data_ptr(), m, x0.data_ptr(),
-        target_translation.data_ptr(), float(params.occupied_space_weight),
-        float(params.translation_weight), float(params.rotation_weight),
-        int(params.num_iterations), 0, _FUNCTION_TOLERANCE, x.data_ptr(), cost.data_ptr(),
-        iterations.data_ptr())
-    return x, cost, iterations
+def _launch(grids, points, mask, x0, target_translation, params):
+    return scan_matcher_2d.launch_lm(_LM, (f32(0.8 / grids[0].resolution),), grids, points, mask,
+                                     x0, target_translation, params, False)
 
 
 def lm_match_tsdf_2d(grid: TsdfGrid2D, points: torch.Tensor, mask: torch.Tensor,
@@ -433,11 +404,10 @@ def lm_match_tsdf_2d(grid: TsdfGrid2D, points: torch.Tensor, mask: torch.Tensor,
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The TSDF solve on pose vectors (`params` a GaussNewtonMatcherParams2D;
     its use_nonmonotonic_steps is not read, as in JAX): -> (pose (3,),
-    final cost, LM iterations)."""
-    if points.is_cuda:
-        return _match_kernel(grid, points, mask, x0.contiguous(),
-                             target_translation.contiguous(), params)
-    return _match_plain(grid, points, mask, x0, target_translation, params)
+    final cost, LM iterations). With (R, M, 2) points, R grids and a
+    leading R on the rest: R robots' solves, one launch on the card."""
+    return scan_matcher_2d.per_robot(_launch, _match_plain, grid, points, mask, x0,
+                                     target_translation, params)
 
 
 def gauss_newton_match_tsdf(grid: TsdfGrid2D, points: torch.Tensor, mask: torch.Tensor,

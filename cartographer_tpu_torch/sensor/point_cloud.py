@@ -34,14 +34,22 @@ class PointCloud:
     def filter_mask(self, keep: torch.Tensor) -> "PointCloud":
         return dataclasses.replace(self, mask=self.mask & keep)
 
+    def robot(self, r: int) -> "PointCloud":
+        """Cloud r of a batch with a leading robot dimension (views)."""
+        return PointCloud(self.points[r], self.mask[r], self.intensities[r])
+
     def compact(self, capacity: int) -> "PointCloud":
-        """Pack valid points to the front (stable) and truncate to `capacity`.
+        """Pack valid points to the front (stable) and truncate to `capacity`,
+        along the point axis (every leading axis is a batch of clouds).
 
         The argsort key is an integer copy of ~mask: not every backend sorts
         bool tensors.
         """
-        order = torch.argsort((~self.mask).to(torch.int32), stable=True)[:capacity]
-        return PointCloud(self.points[order], self.mask[order], self.intensities[order])
+        order = torch.argsort((~self.mask).to(torch.int32), dim=-1, stable=True)
+        order = order[..., :capacity]
+        return PointCloud(torch.take_along_dim(self.points, order[..., None], dim=-2),
+                          torch.take_along_dim(self.mask, order, dim=-1),
+                          torch.take_along_dim(self.intensities, order, dim=-1))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,3 +63,8 @@ class RangeData:
     def transform(self, pose) -> "RangeData":
         return RangeData(pose.apply(self.origin), self.returns.transform(pose),
                          self.misses.transform(pose))
+
+    def robot(self, r: int) -> "RangeData":
+        """Robot r's range data of a batch with a leading robot dimension
+        (views of the batch's tensors)."""
+        return RangeData(self.origin[r], self.returns.robot(r), self.misses.robot(r))

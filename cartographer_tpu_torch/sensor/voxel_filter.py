@@ -11,7 +11,10 @@ tensors and run the plain PyTorch twin, the JAX algorithm written in
 PyTorch (shuffle, stable sort by packed key, last point of each run), on
 CPU tensors. The kernel takes clouds of any size: above one block's shared
 memory its hash table moves to a device-memory scratch that the wrapper
-always passes. The fork's edge filter (`voxel_filter_edge`) keeps the points
+passes. Clouds with a leading robot dimension (R, N, D), one permutation
+row per robot, are one launch for every robot, and `adaptive_voxel_filter_masks`
+runs two adaptive filters over the same clouds in that one launch (the
+cross-robot batched step's form; one robot is its R = 1 case). The fork's edge filter (`voxel_filter_edge`) keeps the points
 of sparsely populated voxels: K31 in the same source on CUDA tensors, its
 plain twin (the JAX program: sorted keys, run lengths) on CPU tensors.
 """
@@ -31,11 +34,12 @@ _BISECT_STEPS = 5  # until (high-low)/low <= 10%
 _PACK_BIAS = 1 << 15  # per-axis voxel indices packed as biased 16-bit fields
 _SENTINEL = 1 << 62  # sorts after every packed key of a valid point
 
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _KERNEL = cuda.CudaKernel(
     "voxel_filter.cu", "voxel_filter",
-    [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-     ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+    [_P, _I, _L, _I, _P, _L, _P, _L, _I, _I, _I, _I, _I, _F, _I, _F, _F, _I, _F, _P, _P])
+_MAX_SHARED_POINTS = 4096  # the kernel's kMaxSharedPoints: above it the table is in scratch
+_MAX_FILTERS = 2  # kMaxFilters
 _EDGE_KERNEL = cuda.CudaKernel(
     "voxel_filter.cu", "voxel_filter_edge",
     [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
@@ -118,24 +122,38 @@ def voxel_filter_edge_plain(points, mask, resolution, voxel_edge_ratio) -> torch
 # ---------------------------------------------------------------- kernel
 
 
-def _launch(points, mask, perm, adaptive, length, min_num_points, max_range):
-    n, dim = points.shape
-    if dim not in (2, 3) or points.stride(1) != 1:
-        raise ValueError("points must be (N, 2) or (N, 3) with unit column stride")
+def _launch(points, mask, perm, adaptive, filters):
+    """K2 over a (N, D) cloud or R robots' (R, N, D) clouds, with masks and
+    permutations of the clouds' leading shape: one launch; -> keep-masks
+    (F, N) or (F, R, N) of the F = len(filters) filters, each (length,
+    min_num_points, max_range)."""
+    robots = points.shape[0] if points.dim() == 3 else None
+    n, dim = points.shape[-2], points.shape[-1]
+    if dim not in (2, 3) or points.stride(-1) != 1:
+        raise ValueError("points must be (..., N, 2) or (..., N, 3) with unit column stride")
     if points.dtype != torch.float32 or not points.is_cuda:
         raise ValueError("points must be a float32 CUDA tensor")
-    cuda.check(mask, "mask", torch.bool, (n,))
-    cuda.check(perm, "perm", torch.int32, (n,))
+    if not 1 <= len(filters) <= _MAX_FILTERS:
+        raise ValueError(f"one launch takes 1 to {_MAX_FILTERS} filters, got {len(filters)}")
+    mask_rs = cuda.robot_stride(mask, "mask", torch.bool, (n,), robots)
+    perm_rs = cuda.robot_stride(perm, "perm", torch.int32, (n,), robots)
     slots = 64
     while slots < 2 * n:
         slots *= 2
-    keep = torch.empty(n, dtype=torch.bool, device=points.device)
-    # Table, ranks, inverse permutation, slots and flags, for a cloud whose
-    # table does not fit the kernel's shared memory.
-    scratch = torch.empty(slots * 12 + n * 9, dtype=torch.uint8, device=points.device)
-    _KERNEL(points.device, points.data_ptr(), points.stride(0), dim, mask.data_ptr(),
-            perm.data_ptr(), n, slots, int(adaptive), float(length),
-            int(min_num_points), float(max_range), keep.data_ptr(), scratch.data_ptr())
+    lead = () if robots is None else (robots,)
+    keep = torch.empty((len(filters), *lead, n), dtype=torch.bool, device=points.device)
+    # Table, ranks, inverse permutation, slots and flags per (filter, robot),
+    # for a cloud whose table does not fit the kernel's shared memory.
+    slice_bytes = -(-(slots * 12 + n * 9) // 8) * 8
+    scratch = torch.empty(slice_bytes * len(filters) * (robots or 1)
+                          if n > _MAX_SHARED_POINTS else 8, dtype=torch.uint8,
+                          device=points.device)
+    (l0, m0, r0), (l1, m1, r1) = filters[0], filters[-1]
+    _KERNEL(points.device, points.data_ptr(), points.stride(-2),
+            points.stride(0) if robots is not None and robots > 1 else 0, dim,
+            mask.data_ptr(), mask_rs, perm.data_ptr(), perm_rs, n, slots, robots or 1,
+            len(filters), int(adaptive), float(l0), int(m0), float(r0), float(l1), int(m1),
+            float(r1), keep.data_ptr(), scratch.data_ptr())
     return keep
 
 
@@ -145,10 +163,30 @@ def _launch(points, mask, perm, adaptive, length, min_num_points, max_range):
 def voxel_filter_mask(points: torch.Tensor, mask: torch.Tensor, resolution: float,
                       perm: torch.Tensor) -> torch.Tensor:
     """Keep-mask selecting one random point per occupied voxel of edge
-    `resolution`: the point that comes last in the order `perm`."""
+    `resolution`: the point that comes last in the order `perm`. `points`
+    (N, D), or (R, N, D) with `mask` and `perm` (R, N): R robots' clouds."""
     if points.is_cuda:
-        return _launch(points, mask, perm, False, resolution, 0, 0.0)
-    return voxel_filter_mask_plain(points, mask, resolution, perm)
+        return _launch(points, mask, perm, False, [(resolution, 0, 0.0)])[0]
+    if points.dim() == 2:
+        return voxel_filter_mask_plain(points, mask, resolution, perm)
+    return torch.stack([voxel_filter_mask_plain(p, m, resolution, q)
+                        for p, m, q in zip(points, mask, perm)])
+
+
+def adaptive_voxel_filter_masks(points: torch.Tensor, mask: torch.Tensor, filters,
+                                perm: torch.Tensor):
+    """The keep-masks of up to two adaptive filters (each `(max_length,
+    min_num_points, max_range)`) over the same clouds: `points` (N, D) or
+    (R, N, D), `mask` and `perm` (N,) or (R, N); one mask per filter, of
+    `mask`'s shape. On CUDA tensors every filter and robot is one launch."""
+    if points.is_cuda:
+        return list(_launch(points, mask, perm, True, list(filters)))
+    if points.dim() == 2:
+        return [adaptive_voxel_filter_mask_plain(points, mask, length, num, max_range, perm)
+                for length, num, max_range in filters]
+    return [torch.stack([adaptive_voxel_filter_mask_plain(p, m, length, num, max_range, q)
+                         for p, m, q in zip(points, mask, perm)])
+            for length, num, max_range in filters]
 
 
 def adaptive_voxel_filter(cloud: PointCloud, max_length: float, min_num_points: int,
@@ -160,12 +198,8 @@ def adaptive_voxel_filter(cloud: PointCloud, max_length: float, min_num_points: 
     3. Else halve the edge length from max_length until enough points
        survive (7 steps), then bisect to within 10% (5 steps).
     """
-    if cloud.points.is_cuda:
-        keep = _launch(cloud.points, cloud.mask, perm, True, max_length,
-                       min_num_points, max_range)
-    else:
-        keep = adaptive_voxel_filter_mask_plain(cloud.points, cloud.mask, max_length,
-                                                min_num_points, max_range, perm)
+    keep, = adaptive_voxel_filter_masks(cloud.points, cloud.mask,
+                                        [(max_length, min_num_points, max_range)], perm)
     return cloud.filter_mask(keep)
 
 

@@ -152,6 +152,42 @@ def relative_to_first(truth: np.ndarray, first=None) -> np.ndarray:
     return np.stack([c * dx - s * dy, s * dx + c * dy, truth[:, 2] - a0], -1)
 
 
+_THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _threefry2x32(k1, k2, x1: np.ndarray, x2: np.ndarray):
+    """The Threefry-2x32 hash (20 rounds) of the counters (x1, x2) under
+    the key (k1, k2), all uint32."""
+    ks = (np.uint32(k1), np.uint32(k2), np.uint32(k1) ^ np.uint32(k2) ^ np.uint32(0x1BD11BDA))
+    x = [x1 + ks[0], x2 + ks[1]]
+    for i in range(5):
+        for r in _THREEFRY_ROTATIONS[i % 2]:
+            x[0] = x[0] + x[1]
+            x[1] = x[0] ^ ((x[1] << np.uint32(r)) | (x[1] >> np.uint32(32 - r)))
+        x[0] = x[0] + ks[(i + 1) % 3]
+        x[1] = x[1] + ks[(i + 2) % 3] + np.uint32(i + 1)
+    return x
+
+
+def reference_permutation(seed: int, n: int) -> np.ndarray:
+    """The voxel filters' permutation that the JAX package draws for a
+    scan's `seed` (jax.random.permutation(PRNGKey(seed), n) with the
+    partitionable Threefry, JAX's default): rounds of a split key and a
+    stable sort of the indices by 32 random bits each. Given as a
+    builder's `permutation_fn`, it makes the port's inputs the
+    reference's (int32 (n,))."""
+    with np.errstate(over="ignore"):
+        key = (np.uint32(0), np.uint32(seed & 0xFFFFFFFF))
+        x = np.arange(n, dtype=np.int32)
+        rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
+        for _ in range(rounds):
+            b1, b2 = _threefry2x32(*key, np.zeros(2, np.uint32), np.arange(2, dtype=np.uint32))
+            key, sub = (b1[0], b2[0]), (b1[1], b2[1])
+            c1, c2 = _threefry2x32(*sub, np.zeros(n, np.uint32), np.arange(n, dtype=np.uint32))
+            x = x[np.argsort(c1 ^ c2, kind="stable")]
+    return x
+
+
 def synthetic_pose_graph(num_submaps: int, num_nodes: int, constraint_slots: int,
                          seed: int = 0, outlier_share: float = 0.05, pose_noise: float = 0.1):
     """A pose-graph problem in the fields of the Schur SPA

@@ -58,9 +58,11 @@ on the card, at full width (the reference's default 2D and 3D options):
 14. the 2D frontend of phase 2 on TSDF submaps (`submaps.grid_type =
     "TSDF"`, the TSDF inserter at its defaults): K1, K2, K20, K21, K22 and
     K5's TSDF form launched, one blocking copy per scan, accuracy against
-    ground truth, the first scans again on the CPU's plain path;
-15. K20, K21, K22 and the TSDF forms of K3, K5 and K6, each against its
-    plain twin, on that run's state;
+    ground truth, the first 100 scans again in a fresh builder (the poses
+    repeat bit for bit: K21 adds in input order), the first scans again on
+    the CPU's plain path;
+15. K20, K21 (bit for bit), K22 and the TSDF forms of K3, K5 and K6, each
+    against its plain twin, on that run's state;
 16. global SLAM through `MapBuilder` on TSDF submaps over the three laps of
     phase 4: loop closures, solves, optimized poses no worse than the
     frontend's; the first pairs again on the CPU's plain path;
@@ -110,7 +112,17 @@ on the card, at full width (the reference's default 2D and 3D options):
     the truth, every frozen pose unmoved bit for bit); the pbstream CLI's
     `info` counts in subprocesses; a v1 twin of the 3D reference-schema
     stream loads with its submap histograms rebuilt by K12's rotation on the
-    card, within 1e-5 of the plain path's.
+    card, within 1e-5 of the plain path's;
+23. cross-robot batched serving at bench.py's shape: 16 robot threads
+    (1,024-beam scans, 512^2 grids at 5 cm, matcher cloud 512, loop-closure
+    cloud 256) through one `ScanBatcher` and through 16 separate builders,
+    with the default options and with the correlative search on: every
+    robot's poses equal its single-robot run bit for bit, mean errors
+    reported (alone the frontend loses some of these robots at this shape,
+    in the JAX package too: tests/batched_serving_witness_2d.py), scans/s
+    of both, host and wait seconds per scan, K1-K5 launches per tick equal
+    at R = 1, 4 and 16 (and every kernel counted in a captured CUDA graph),
+    device ms per tick, GPU activities per tick.
 Phase 10 also runs the scans of two more seeds and reports their yaw error.
 
 Prints a `kernels` JSON line, a timing JSON line, the card's name and power
@@ -139,6 +151,34 @@ PROFILED_SCANS = 30
 GLOBAL_SCANS = 900  # three laps of the floor plan's path
 CPU_PAIRS = 3
 REFINE_EVERY = 150  # the TSDF global run's loop-closure refines held against the twin
+TSDF_REPEAT_SCANS = 100  # the TSDF frontend's first scans, run again in a fresh builder
+# Cross-robot batched serving (phase 23) at bench.py's shape.
+BATCH_ROBOTS = 16
+BATCH_SCANS = 60  # per robot, timed
+BATCH_PROFILED = 20  # per robot, profiled
+BATCH_BEAMS = 1024
+BATCH_TICK_ROBOTS = (1, 4, 16)
+BATCH_OPTIONS = {"use_imu_data": False, "tpu.scan_capacity": 1024,
+                 "tpu.submap_grid_size": 512, "submaps.resolution": 0.05,
+                 "tpu.matcher_capacity": 512, "tpu.loop_closure_capacity": 256}
+BATCH_ERROR_LIMIT = 0.25  # m, a robot's mean error over its BATCH_SCANS (PERF.md section 2)
+# Each robot's mean error [m] over the first BATCH_SCANS scans, (JAX, the
+# port's plain path), on the CPU with the JAX package's permutations, with
+# the default options and with the search on: tests/batched_serving_witness_2d.py.
+BATCH_WITNESS = {
+    "default": [
+        (0.0307, 0.0305), (0.0227, 0.0226), (0.05, 0.0507), (0.2781, 0.2728),
+        (0.0198, 0.0197), (0.0312, 0.0814), (0.9243, 0.8809), (0.0171, 0.0169),
+        (1.5228, 1.5791), (0.0268, 0.0274), (0.0447, 0.0433), (0.0128, 0.0127),
+        (0.043, 0.0403), (0.0231, 0.0224), (1.5693, 1.5418), (0.0157, 0.0154),
+    ],
+    "correlative": [
+        (0.0294, 0.0291), (0.019, 0.0191), (0.0164, 0.0172), (0.1608, 0.1608),
+        (0.0225, 0.0254), (1.8396, 1.4606), (0.017, 0.0172), (0.0139, 0.0139),
+        (0.0222, 0.0198), (0.0189, 0.0194), (0.0345, 1.0453), (0.0124, 0.0122),
+        (0.0285, 0.029), (0.017, 0.0211), (0.0201, 0.0201), (0.0138, 0.0144),
+    ],
+}
 NUM_SCANS_3D = 400  # one submap finishes at 320 insertions
 CPU_SCANS_3D = 20
 TIME_OFFSET_US = 10_000_000  # the simulated IMU starts before t = 0
@@ -339,7 +379,7 @@ def _kernel_phase(torch, dev):
         replaces="cartographer_tpu/ops/scan_pipeline_2d.py:40", max_abs_err=err,
         ms=_cuda_ms(lambda: scan_pipeline_2d.align_scan(*args)),
         plain_ms=_cuda_ms(lambda: scan_pipeline_2d.align_scan_plain(*args)),
-        bound=_bound(n * 51 + 18 * 4, n * 250), library_ms=None)
+        bound=_bound(*_k1_work(n)), library_ms=None)
 
     # K2: the preprocess filter (3D keys) and both adaptive filters (2D).
     hits, is_return = got[0], got[2]
@@ -361,12 +401,18 @@ def _kernel_phase(torch, dev):
     print("K2 voxel_filter: masks equal to the plain twin (tolerance: exact)")
     avf = filters[0]
 
-    def k2_scan():  # the three launches of one scan
+    pair = [(f.max_length, f.min_num_points, f.max_range) for f in filters]
+    for f, a in zip(filters, voxel_filter.adaptive_voxel_filter_masks(returns.points, keep,
+                                                                      pair, perm)):
+        b = voxel_filter.adaptive_voxel_filter_mask_plain(
+            returns.points, returns.mask, f.max_length, f.min_num_points, f.max_range, perm)
+        mism += int((a != (b & returns.mask)).sum())
+    if mism:
+        _fail(f"K2's two-filter launch differs from the plain twin in {mism} points")
+
+    def k2_scan():  # the two launches of one scan, as the step makes them
         m = voxel_filter.voxel_filter_mask(hits, is_return, pre.voxel_filter_size, perm)
-        c = PointCloud(hits[:, 0:2], m, returns.intensities)
-        for f in filters:
-            voxel_filter.adaptive_voxel_filter(c, f.max_length, f.min_num_points, f.max_range,
-                                               perm)
+        voxel_filter.adaptive_voxel_filter_masks(hits[:, 0:2], m, pair, perm)
 
     def k2_plain():
         m = voxel_filter.voxel_filter_mask_plain(hits, is_return, pre.voxel_filter_size, perm)
@@ -374,25 +420,12 @@ def _kernel_phase(torch, dev):
             voxel_filter.adaptive_voxel_filter_mask_plain(hits[:, 0:2], m, f.max_length,
                                                           f.min_num_points, f.max_range, perm)
 
-    # The hashing passes this scan's filters make (the adaptive search ends
-    # early), for the operation count of the bound.
-    passes = 1
-    for f in filters:
-        base = keep & (hits[:, 0:2].norm(dim=-1) <= f.max_range)
-        if int(base.sum()) <= f.min_num_points:
-            continue
-        coarse = [int(voxel_filter.voxel_filter_mask_plain(
-            hits[:, 0:2], base, f.max_length / 2 ** k, perm).sum()) >= f.min_num_points
-            for k in range(7)]
-        first = coarse.index(True) if any(coarse) else 7
-        passes += min(first + 1, 7) + (5 if 0 < first < 7 else 0) + 1
-    valid = int(keep.sum())
     key_sets = [voxel_filter._packed_voxel_keys(hits, is_return, pre.voxel_filter_size)] + [
         voxel_filter._packed_voxel_keys(hits[:, 0:2], keep, f.max_length) for f in filters]
     rows["voxel_filter"] = dict(
         replaces="cartographer_tpu/sensor/voxel_filter.py:67", max_abs_err=float(mism),
         ms=_cuda_ms(k2_scan), plain_ms=_cuda_ms(k2_plain, reps=5),
-        bound=_bound(n * (12 + 1 + 4 + 1) + 2 * n * (8 + 1 + 4 + 1), passes * valid * 20),
+        bound=_bound(*_k2_work(torch, hits, keep, filters, perm)),
         library_ms=_cuda_ms(lambda: [torch.unique(k) for k in key_sets]))
 
     # K4: a few scans into both slots of two full-size grids.
@@ -433,12 +466,6 @@ def _kernel_phase(torch, dev):
     print(f"K4 insert_2d: {differ} of {touched} touched cells differ (tolerance 0.1%), "
           f"max |log-odds err| {err:.3g}")
     rd = rd_list[-1]
-    # The cells this scan touches: in place, the function reads and writes
-    # the log-odds and known of these cells only.
-    fresh = Grid2D(torch.zeros_like(grids.log_odds), torch.zeros_like(grids.known),
-                   grids.origin, grids.resolution)
-    grid_2d._insert_plain(fresh, rd, active, yes, 0.0, 0.0, True, samples)
-    scan_cells = int(fresh.known.sum())
     lin = []
     for slot in range(2):
         for pts_k, m, end in ((rd.returns.points, rd.returns.mask, False),
@@ -454,7 +481,6 @@ def _kernel_phase(torch, dev):
     lin = torch.cat(lin)
     marks = torch.zeros(2 * size * size, dtype=torch.bool, device=dev)
     ones = torch.ones(lin.shape[0], dtype=torch.bool, device=dev)
-    num_samples = 2 * samples * int(rd.returns.mask.sum() + rd.misses.mask.sum())
     rows["insert_2d"] = dict(
         replaces="cartographer_tpu/ops/grid_2d.py:105", max_abs_err=err,
         ms=_cuda_ms(lambda: grid_2d.insert_into_slots(
@@ -463,7 +489,7 @@ def _kernel_phase(torch, dev):
         plain_ms=_cuda_ms(lambda: grid_2d._insert_plain(
             plain_grids, rd, active, yes, probability_to_log_odds(ins.hit_probability),
             probability_to_log_odds(ins.miss_probability), True, samples), reps=5),
-        bound=_bound(scan_cells * 2 * (4 + 1) + n * 18, num_samples * 10 + scan_cells * 4),
+        bound=_bound(*_k4_work(torch, grids, rd, active, True, samples)),
         library_ms=_cuda_ms(lambda: marks.index_put_((lin,), ones)))
 
     # K3: the LM refine on slot 0 of those grids, 512 points of a scan.
@@ -483,16 +509,77 @@ def _kernel_phase(torch, dev):
     rel_cost = abs(float(ck) - float(cp)) / max(abs(float(cp)), 1e-30)
     if err > 1e-4 or rel_cost > 1e-4:
         _fail(f"K3 pose differs by {err} (tolerance 1e-4), cost by {rel_cost} (rtol 1e-4)")
-    iters, valid = int(itk), int(cloud.mask.sum())
     print(f"K3 scan_matcher_2d: max |pose err| {err:.3g} (tolerance 1e-4), cost rel err "
-          f"{rel_cost:.3g} (rtol 1e-4), {iters} iterations (plain {int(itp)})")
-    passes = 1 + 2 * iters
+          f"{rel_cost:.3g} (rtol 1e-4), {int(itk)} iterations (plain {int(itp)})")
     rows["scan_matcher_2d"] = dict(
         replaces="cartographer_tpu/ops/scan_matcher_2d.py:70", max_abs_err=err,
         ms=_cuda_ms(lambda: scan_matcher_2d.lm_match_2d(*margs)),
         plain_ms=_cuda_ms(lambda: scan_matcher_2d._match_plain(*margs), reps=5),
-        bound=_bound(valid * (8 + 1 + 16 * 5), passes * valid * 16 * 12), library_ms=None)
+        bound=_bound(*_k3_work(int(cloud.mask.sum()), int(itk))), library_ms=None)
     return rows, dict(grid=grid0, cloud=cloud)
+
+
+# Bytes each kernel must move and operations it must do on one robot's
+# inputs, for the bounds of its row and of the batched tick (row 6b).
+def _k1_work(n):
+    return n * 51 + 18 * 4, n * 250
+
+
+def _k2_work(torch, hits, keep, filters, perm):
+    """K2's two launches of a scan: the preprocess filter's 3D keys, then
+    the two adaptive filters' hashing passes, as many as this scan's
+    search makes (it ends early)."""
+    from cartographer_tpu_torch.sensor import voxel_filter
+
+    n, passes = hits.shape[0], 1
+    for f in filters:
+        base = keep & (hits[:, 0:2].norm(dim=-1) <= f.max_range)
+        if int(base.sum()) <= f.min_num_points:
+            continue
+        coarse = [int(voxel_filter.voxel_filter_mask_plain(
+            hits[:, 0:2], base, f.max_length / 2 ** k, perm).sum()) >= f.min_num_points
+            for k in range(7)]
+        first = coarse.index(True) if any(coarse) else 7
+        passes += min(first + 1, 7) + (5 if 0 < first < 7 else 0) + 1
+    return n * (12 + 1 + 4 + 1) + 2 * n * (8 + 1 + 4 + 1), passes * int(keep.sum()) * 20
+
+
+def _k3_work(valid, iterations):
+    return valid * (8 + 1 + 16 * 5), (1 + 2 * iterations) * valid * 16 * 12
+
+
+def _k4_work(torch, grids, rd, active, insert_free_space, samples):
+    """K4 on one robot's slots: in place, it reads and writes the
+    log-odds and known of the cells the scan touches, and nothing else."""
+    from cartographer_tpu_torch.ops import grid_2d
+    from cartographer_tpu_torch.ops.grid_2d import Grid2D
+
+    fresh = Grid2D(torch.zeros_like(grids.log_odds), torch.zeros_like(grids.known),
+                   grids.origin, grids.resolution)
+    yes = torch.ones((), dtype=torch.bool, device=grids.log_odds.device)
+    grid_2d._insert_plain(fresh, rd, active, yes, 0.0, 0.0, insert_free_space, samples)
+    cells = int(fresh.known.sum())
+    num_samples = (int(active.sum()) * samples
+                   * int(rd.returns.mask.sum() + rd.misses.mask.sum()))
+    return cells * 2 * (4 + 1) + rd.returns.points.shape[0] * 18, num_samples * 10 + cells * 4
+
+
+def _k5_work(torch, grid, points, mask, x0, scores, params):
+    """K5 on one robot's search: the distinct grid cells its candidates
+    read, the points, the scores written; a product per (angle, shift,
+    valid point)."""
+    from cartographer_tpu_torch.ops import correlative_2d
+
+    w = 2 * params.num_linear(grid.resolution) + 1
+    finite = torch.isfinite(scores[:, 0, 0])
+    _, _, cells = correlative_2d.candidate_cells(grid, points, mask, x0, scores.shape[0],
+                                                 params.angular_search_window)
+    cells = cells[finite][:, mask]
+    shifts = torch.arange(w, device=points.device) - w // 2
+    lin = ((cells[:, None, None, :, 0] + shifts[None, :, None, None]) * grid.size
+           + cells[:, None, None, :, 1] + shifts[None, None, :, None])
+    return (_distinct_cells(torch, [lin]) * 5 + points.shape[0] * 9 + scores.numel() * 4,
+            int(finite.sum()) * w * w * int(mask.sum()) * 14)
 
 
 FRONTEND_KERNELS = ("scan_preprocess_2d", "voxel_filter", "scan_matcher_2d", "insert_2d",
@@ -579,6 +666,20 @@ def _slice_phase(torch, dev, grid_type="PROBABILITY_GRID", kernels=FRONTEND_KERN
     if errors.mean() > error_limit:
         _fail(f"{label}: mean error {errors.mean()} m against ground truth "
               f"(limit {error_limit} m)")
+    repeated = None
+    if grid_type == "TSDF":
+        # K21 adds in input order: a fresh builder repeats the run's poses.
+        again = LocalTrajectoryBuilder2D(opts, ["laser"], device=dev)
+        rerun = []
+        for d in data[:TSDF_REPEAT_SCANS]:
+            r = again.add_range_data("laser", d)
+            rerun.append([*r.local_pose_translation[:2], nquat.get_yaw(r.local_pose_rotation)])
+        repeated = bool(np.array_equal(np.asarray(rerun), est[:TSDF_REPEAT_SCANS]))
+        print(f"{label}: the first {TSDF_REPEAT_SCANS} scans again in a fresh builder: poses "
+              f"{'repeat bit for bit' if repeated else 'differ'}")
+        if not repeated:
+            _fail(f"{label}: a second run does not repeat the poses")
+        del again
 
     # The first scans again on the CPU's plain path, with the same permutations.
     def card_permutation(seed, n):
@@ -608,9 +709,10 @@ def _slice_phase(torch, dev, grid_type="PROBABILITY_GRID", kernels=FRONTEND_KERN
     # One more scan, keeping the arguments of its search and its refine and
     # its range data in the local frame, for the kernel phases.
     kept = {"correlative": [], "lm": []}
-    restore = [_recording(ltb, "real_time_correlative_match", kept["correlative"]),
+    restore = [_recording(ltb, "real_time_correlative_match", kept["correlative"],
+                          transform=_robot0),
                _recording(ltb, "lm_match_tsdf_2d" if grid_type == "TSDF" else "lm_match_2d",
-                          kept["lm"])]
+                          kept["lm"], transform=_robot0)]
     try:
         kept["range_data"] = builder.add_range_data("laser", profiled[-1]).range_data_in_local
     finally:
@@ -624,7 +726,7 @@ def _slice_phase(torch, dev, grid_type="PROBABILITY_GRID", kernels=FRONTEND_KERN
         host_seconds=builder.host_seconds, device_seconds=builder.device_seconds,
         launches=launches, submap=finished[0], nodes=nodes, builder=builder, kept=kept,
         lm_iterations_per_scan=float(np.mean(builder.lm_iterations)),
-        cpu_agreement=[float(worst[0]), float(worst[1])])
+        cpu_agreement=[float(worst[0]), float(worst[1])], repeats_bit_for_bit=repeated)
 
 
 def _distinct_cells(torch, lin_list):
@@ -658,7 +760,7 @@ def _backend_kernel_phase(torch, dev, ctx, run):
     grid, cloud = ctx["grid"], ctx["cloud"]
     x0 = t(np.float32([0.31, 0.03, 0.02]))
     args = (grid, cloud.points, cloud.mask, x0, cparams)
-    best_k, scores_k = correlative_2d._match_kernel(*args)
+    best_k, scores_k = correlative_2d.correlative_match(*args)
     best_p, scores_p = correlative_2d.correlative_match_plain(*args)
     err = float((best_k[0] - best_p[0]).abs())
     if not torch.equal(best_k[1:], best_p[1:]) or err > 1e-6:
@@ -681,21 +783,11 @@ def _backend_kernel_phase(torch, dev, ctx, run):
           f"(tolerance 1e-5 each)")
     if cpu_err > 1e-5 or below > 1e-5:
         _fail("K5 and the CPU's plain path disagree")
-    valid = int(cloud.mask.sum())
-    w = 2 * cparams.num_linear(grid.resolution) + 1
-    angles = int(torch.isfinite(scores_k[:, 0, 0]).sum())
-    _, _, cells = correlative_2d.candidate_cells(
-        grid, cloud.points, cloud.mask, x0, scores_k.shape[0], cparams.angular_search_window)
-    cells = cells[torch.isfinite(scores_k[:, 0, 0])][:, cloud.mask]
-    shifts = torch.arange(w, device=dev) - w // 2
-    lin = ((cells[:, None, None, :, 0] + shifts[None, :, None, None]) * grid.size
-           + cells[:, None, None, :, 1] + shifts[None, None, :, None])
     rows["correlative_2d"] = dict(
         replaces="cartographer_tpu/ops/correlative_2d.py:138", max_abs_err=max(err, score_err),
-        ms=_cuda_ms(lambda: correlative_2d._match_kernel(*args)),
+        ms=_cuda_ms(lambda: correlative_2d.correlative_match(*args)),
         plain_ms=_cuda_ms(lambda: correlative_2d.correlative_match_plain(*args), reps=5),
-        bound=_bound(_distinct_cells(torch, [lin]) * 5 + cloud.points.shape[0] * 9
-                     + scores_k.numel() * 4, angles * w * w * valid * 14),
+        bound=_bound(*_k5_work(torch, grid, cloud.points, cloud.mask, x0, scores_k, cparams)),
         library_ms=None)
 
     # K6: the pyramid of the frontend run's first finished submap.
@@ -990,15 +1082,15 @@ def _kernel_phase_tsdf(torch, dev, run):
 
     # K21: the scan into both active grids, on clones for the twin.
     grids = builder._active_submaps.grids
-    scratch = builder._active_submaps._scratch
     params = builder._active_submaps._tsdf_params
     card = grids.clone()
     twin = grids.clone()
     active = torch.ones(2, dtype=torch.bool, device=dev)
     yes = torch.ones((), dtype=torch.bool, device=dev)
-    tsdf_2d.insert_into_slots_tsdf(card, rd, active, yes, params, scratch, normals=got)
+    tsdf_2d.insert_into_slots_tsdf(card, rd, active, yes, params, normals=got)
     tsdf_2d._insert_plain(twin, rd, got, active, yes, params)
     known_diff = int(((card.weight > 0) != (twin.weight > 0)).sum())
+    exact = torch.equal(card.tsd, twin.tsd) and torch.equal(card.weight, twin.weight)
     err = float(max((card.tsd - twin.tsd).abs().max(), (card.weight - twin.weight).abs().max()))
     sample_pts, sdf, w = tsdf_2d._samples(rd, got, grids.truncation_distance, params)
     lins, touched = [], 0
@@ -1011,14 +1103,14 @@ def _kernel_phase_tsdf(torch, dev, run):
         touched += int(torch.unique(lin).numel())
     print(f"K21 tsdf_insert_2d: {touched} cells touched in 2 slots, known sets "
           f"{'equal' if not known_diff else f'differ in {known_diff} cells'}, max |err| "
-          f"{err:.3g} (tolerance 1e-5: float atomics order the sums)")
-    if known_diff or err > 1e-5:
+          f"{err:.3g} (tolerance: exact, both add in input order)")
+    if known_diff or not exact:
         _fail("K21 differs from the plain twin")
     sums = [torch.zeros(size * size, device=dev) for _ in range(4)]
     rows["tsdf_insert_2d"] = dict(
         replaces="cartographer_tpu/ops/tsdf_2d.py:115", max_abs_err=err,
         ms=_cuda_ms(lambda: tsdf_2d.insert_into_slots_tsdf(card, rd, active, yes, params,
-                                                           scratch, normals=got)),
+                                                           normals=got)),
         plain_ms=_cuda_ms(lambda: tsdf_2d._insert_plain(twin, rd, got, active, yes, params),
                           reps=5),
         # Reads the returns, mask, normals and origin, reads and writes the
@@ -1056,7 +1148,7 @@ def _kernel_phase_tsdf(torch, dev, run):
     # K5's TSDF form: the scan's search.
     cgrid, cpts, cmask, cpose, cparams = kept["correlative"][0]
     cargs = (cgrid, cpts, cmask, cpose, cparams)
-    best_k, scores_k = correlative_2d._match_kernel(*cargs)
+    best_k, scores_k = correlative_2d.correlative_match(*cargs)
     best_p, scores_p = correlative_2d.correlative_match_plain(*cargs)
     if not torch.equal(best_k, best_p) or not torch.equal(scores_k, scores_p):
         _fail(f"K5's TSDF form differs from the plain twin ({best_k} vs {best_p})")
@@ -1073,7 +1165,7 @@ def _kernel_phase_tsdf(torch, dev, run):
           f"angles, best score {float(best_k[0]):.5f}")
     rows["correlative_2d_tsdf"] = dict(
         symbol="correlative_2d_tsdf", replaces="cartographer_tpu/ops/correlative_2d.py:138",
-        max_abs_err=0.0, ms=_cuda_ms(lambda: correlative_2d._match_kernel(*cargs)),
+        max_abs_err=0.0, ms=_cuda_ms(lambda: correlative_2d.correlative_match(*cargs)),
         plain_ms=_cuda_ms(lambda: correlative_2d.correlative_match_plain(*cargs), reps=5),
         bound=_bound(_distinct_cells(torch, [lin]) * 8 + cpts.shape[0] * 9
                      + scores_k.numel() * 4, angles * w_ * w_ * cvalid * 14),
@@ -1106,6 +1198,8 @@ def _refine_phase_tsdf(torch, calls):
     refines (every REFINE_EVERY-th call of ConstraintBuilder2D's refine: a
     power-of-two cloud against a finished submap from the BnB pose), where
     the main path runs it; its time and bound are the means over them."""
+    import dataclasses
+
     from cartographer_tpu_torch.ops import scan_matcher_2d
 
     if not calls:
@@ -1114,11 +1208,22 @@ def _refine_phase_tsdf(torch, calls):
     for args in calls:
         xk, ck, itk = scan_matcher_2d.lm_match_2d(*args)
         xp, cp, itp = scan_matcher_2d._match_plain(*args)
-        err = float((xk - xp).abs().max())
         rel_cost = abs(float(ck) - float(cp)) / max(abs(float(cp)), 1e-30)
+        common = ""
+        if int(itk) != int(itp):
+            # A near-tie in the stop test (relative improvement under 1e-6)
+            # ends one solve an iteration before the other: both are held
+            # after the iterations they share, on one path, and the whole
+            # runs' costs above.
+            cap = (*args[:5], dataclasses.replace(args[5], num_iterations=min(int(itk),
+                                                                              int(itp))))
+            common = f"; both capped at {cap[5].num_iterations} iterations"
+            xk = scan_matcher_2d.lm_match_2d(*cap)[0]
+            xp = scan_matcher_2d._match_plain(*cap)[0]
+        err = float((xk - xp).abs().max())
         valid = int(args[2].sum())
         print(f"scan_matcher_2d_tsdf: loop-closure refine of {valid} of {args[1].shape[0]} "
-              f"points: max |pose err| {err:.3g} (tolerance 1e-4), cost rel err "
+              f"points: max |pose err| {err:.3g} (tolerance 1e-4{common}), cost rel err "
               f"{rel_cost:.3g} (rtol 1e-4), {int(itk)} iterations (plain {int(itp)})")
         if err > 1e-4 or rel_cost > 1e-4:
             _fail("scan_matcher_2d_tsdf differs from the plain twin")
@@ -1541,17 +1646,29 @@ def _full_frontend_options(**extra):
         "use_online_correlative_scan_matching": True, "use_intensities": True, **extra})
 
 
-def _recording(module, name, calls, every=1):
-    """Wrap module.name so the arguments of every `every`-th call are
+def _robot0(args):
+    """Robot 0's arguments of a call from the 2D builder's robot-batched
+    step (a list of grids and tensors with a leading robot dimension)."""
+    import torch
+
+    return tuple(a[0] if isinstance(a, (list, torch.Tensor)) else a for a in args)
+
+
+def _recording(module, name, calls, every=1, transform=None, result=False):
+    """Wrap module.name so the arguments of every `every`-th call (through
+    `transform`, if given; with the call's result, if `result`) are
     appended to `calls`; returns a function that restores it."""
     original = getattr(module, name)
     seen = [0]
 
     def recorded(*args):
-        if seen[0] % every == 0:
-            calls.append(args)
+        keep = seen[0] % every == 0
         seen[0] += 1
-        return original(*args)
+        kept = (transform(args) if transform else args) if keep else None
+        out = original(*args)
+        if keep:
+            calls.append((kept, out) if result else kept)
+        return out
 
     setattr(module, name, recorded)
     return lambda: setattr(module, name, original)
@@ -2370,7 +2487,7 @@ def _one_block_limits_phase(torch, dev):
     gt = relative_to_first(truth)
     builder = ltb2.LocalTrajectoryBuilder2D(opts, ["laser"], device=dev)
     calls, est, lc_points = [], [], []
-    restore = _recording(ltb2, "real_time_correlative_match", calls)
+    restore = _recording(ltb2, "real_time_correlative_match", calls, transform=_robot0)
     cuda.reset_launch_counts()
     try:
         for ts, pts, rel in scans:
@@ -2409,14 +2526,14 @@ def _one_block_limits_phase(torch, dev):
     for n in ABOVE_ONE_BLOCK["correlative_2d"]:
         pts, mask = t(raw[:n]), t(np.isfinite(raw[:n]).all(1) & (np.abs(raw[:n]).max(1) < 29))
         args = (grid, pts, mask, x0, cparams)
-        best_k, scores_k = correlative_2d._match_kernel(*args)
+        best_k, scores_k = correlative_2d.correlative_match(*args)
         best_p, scores_p = correlative_2d.correlative_match_plain(*args)
         if not (torch.equal(scores_k, scores_p) and torch.equal(best_k, best_p)):
             _fail(f"K5 at {n} points differs from the twin (tolerance: exact)")
         angles = int(torch.isfinite(scores_k[:, 0, 0]).sum())
         w, valid = scores_k.shape[-1], int(mask.sum())
         rows["correlative_2d"].append(_sizes_row(dict(
-            ms=_cuda_ms(lambda: correlative_2d._match_kernel(*args)),
+            ms=_cuda_ms(lambda: correlative_2d.correlative_match(*args)),
             plain_ms=_cuda_ms(lambda: correlative_2d.correlative_match_plain(*args), reps=3,
                               warmup=1),
             bound=_bound(n * 9 + scores_k.numel() * 4 + min(angles * w * w * valid,
@@ -3575,6 +3692,408 @@ def _state_interchange_phase(torch, dev, mb2d, pg3d):
     return out
 
 
+def _keeping_tick(torch):
+    """Record K1-K5's arguments and results through one robot-batched step
+    (grids cloned where a later kernel of the step writes them: K5 and K3
+    read the grids K4 then inserts into; K4 keeps its grids from before
+    the insert). -> (the calls by kernel, a function that restores the
+    wrappers)."""
+    from cartographer_tpu_torch.mapping import local_trajectory_builder_2d as ltb
+    from cartographer_tpu_torch.mapping import submap_2d
+    from cartographer_tpu_torch.ops import correlative_2d, scan_pipeline_2d
+
+    def cloned(args):
+        return ([g.clone() for g in args[0]], *args[1:])
+
+    kept = {k: [] for k in ("align", "voxel", "adaptive", "correlative", "lm", "insert")}
+    restore = [_recording(scan_pipeline_2d, "align_scan", kept["align"], result=True),
+               _recording(scan_pipeline_2d, "voxel_filter_mask", kept["voxel"], result=True),
+               _recording(ltb, "adaptive_voxel_filter_masks", kept["adaptive"], result=True),
+               _recording(correlative_2d, "correlative_match", kept["correlative"],
+                          transform=cloned, result=True),
+               _recording(ltb, "lm_match_2d", kept["lm"], transform=cloned, result=True),
+               _recording(submap_2d, "insert_into_slots", kept["insert"],
+                          transform=lambda a: (a, cloned(a)[0]))]
+
+    def undo():
+        for r in restore:
+            r()
+    return kept, undo
+
+
+def _tick_against_twins(torch, opts, kept):
+    """Each robot's slice of a recorded robot-batched tick (`kept` by
+    _keeping_tick) against K1-K5's plain twins, at the tolerances of the
+    card test test_robot_batched_kernels: K2 and K5 exact, K1 1e-5 m with
+    its masks exact, K3's cost 1e-4 relative and pose 1e-4 (1e-3 where the
+    twin's LM path takes another number of iterations), K4 0.1% of the
+    known cells. -> (the worst deviation by kernel, the tick's work (bytes,
+    operations) by kernel, a function that runs the twins on the tick)."""
+    from cartographer_tpu_torch.ops import correlative_2d, grid_2d, scan_matcher_2d
+    from cartographer_tpu_torch.ops.probability import probability_to_log_odds
+    from cartographer_tpu_torch.ops.scan_pipeline_2d import align_scan_plain
+    from cartographer_tpu_torch.sensor import voxel_filter
+    from cartographer_tpu_torch.transform.rigid import Rigid3
+
+    (a1, got1), = kept["align"]
+    (a2, keep), = kept["voxel"]
+    (a3, adaptive), = kept["adaptive"]
+    (a5, (best, scores)), = kept["correlative"]
+    (a4, (pose, cost, iterations)), = kept["lm"]
+    (args_ins, before), = kept["insert"]
+    grids_after, rd, active, do_insert, hit_p, miss_p, free, samples = args_ins[:8]
+    lo = (probability_to_log_odds(hit_p), probability_to_log_odds(miss_p))
+    filters = (opts.adaptive_voxel_filter, opts.loop_closure_adaptive_voxel_filter)
+    robots, n = a1[0].shape[0], a1[0].shape[1]
+
+    def plain_args(r):
+        """Robot r's arguments of every twin."""
+        ps, pe = a1[4], a1[5]
+        return dict(
+            align=(a1[0][r], a1[1][r], a1[2][r], a1[3][r],
+                   Rigid3(ps.translation[r], ps.rotation[r]),
+                   Rigid3(pe.translation[r], pe.rotation[r]), a1[6][r], a1[7]),
+            voxel=(a2[0][r], a2[1][r], a2[2], a2[3][r]),
+            adaptive=[(a3[0][r], a3[1][r], *f, a3[3][r]) for f in a3[2]],
+            correlative=(a5[0][r], a5[1][r], a5[2][r], a5[3][r], a5[4]),
+            lm=(a4[0][r], a4[1][r], a4[2][r], a4[3][r], a4[4][r], a4[5]),
+            insert=(rd.robot(r), active[r], do_insert[r], *lo, free, samples))
+
+    worst = dict.fromkeys(("scan_preprocess_2d", "voxel_filter", "correlative_2d",
+                           "scan_matcher_2d", "insert_2d"), 0.0)
+    work = {k: [0, 0] for k in worst}
+    for r in range(robots):
+        p = plain_args(r)
+        ref = align_scan_plain(*p["align"])
+        err = max(float((got1[k][r] - ref[k]).abs().max()) for k in (0, 1, 4))
+        if err > 1e-5 or not all(torch.equal(got1[k][r], ref[k]) for k in (2, 3)):
+            _fail(f"batched tick: K1 robot {r} differs from its twin ({err} m, tolerance 1e-5; "
+                  "masks exact)")
+        worst["scan_preprocess_2d"] = max(worst["scan_preprocess_2d"], err)
+        mism = int((keep[r] != voxel_filter.voxel_filter_mask_plain(*p["voxel"])).sum())
+        mism += sum(int((adaptive[f][r] != voxel_filter.adaptive_voxel_filter_mask_plain(
+            *p["adaptive"][f])).sum()) for f in range(len(filters)))
+        if mism:
+            _fail(f"batched tick: K2 robot {r} differs from its twin in {mism} points")
+        bp, sp = correlative_2d.correlative_match_plain(*p["correlative"])
+        if not (torch.equal(best[r], bp) and torch.equal(scores[r], sp)):
+            _fail(f"batched tick: K5 robot {r} differs from its twin (tolerance: exact)")
+        xp, cp, ip = scan_matcher_2d._match_plain(*p["lm"])
+        same_path = int(iterations[r]) == int(ip)
+        pose_err = float((pose[r] - xp).abs().max())
+        rel_cost = abs(float(cost[r]) - float(cp)) / max(abs(float(cp)), 1e-30)
+        if rel_cost > 1e-4 or pose_err > (1e-4 if same_path else 1e-3):
+            _fail(f"batched tick: K3 robot {r} differs from its twin: pose {pose_err}, cost "
+                  f"{rel_cost} relative; {int(iterations[r])} iterations, the twin {int(ip)}")
+        worst["scan_matcher_2d"] = max(worst["scan_matcher_2d"], pose_err)
+        plain = before[r].clone()
+        grid_2d._insert_plain(plain, *p["insert"])
+        touched = int(plain.known.sum())
+        differ = int(((grids_after[r].log_odds - plain.log_odds).abs() > 1e-6).sum()
+                     + (grids_after[r].known != plain.known).sum())
+        if differ > 1e-3 * touched:
+            _fail(f"batched tick: K4 robot {r}'s grids differ in {differ} of {touched} known "
+                  "cells (tolerance 0.1%)")
+        worst["insert_2d"] = max(worst["insert_2d"], differ / max(touched, 1))
+
+        # The work this robot's inputs need of each kernel.
+        inserted = bool(do_insert[r]) and bool(active[r].any())
+        for name, (b, o) in (
+                ("scan_preprocess_2d", _k1_work(n)),
+                ("voxel_filter", _k2_work(torch, got1[0][r], keep[r], filters, a2[3][r])),
+                ("correlative_2d", _k5_work(torch, *p["correlative"][:4], scores[r],
+                                            a5[4])),
+                ("scan_matcher_2d", _k3_work(int(a4[2][r].sum()), int(iterations[r]))),
+                ("insert_2d", _k4_work(torch, before[r], rd.robot(r), active[r], free,
+                                       samples) if inserted else (0, 0))):
+            work[name][0] += b
+            work[name][1] += o
+    spare = [g.clone() for g in before]
+    args = [plain_args(r) for r in range(robots)]
+
+    def plain_tick():
+        for r, p in enumerate(args):
+            align_scan_plain(*p["align"])
+            voxel_filter.voxel_filter_mask_plain(*p["voxel"])
+            for f in p["adaptive"]:
+                voxel_filter.adaptive_voxel_filter_mask_plain(*f)
+            correlative_2d.correlative_match_plain(*p["correlative"])
+            scan_matcher_2d._match_plain(*p["lm"])
+            grid_2d._insert_plain(spare[r], *p["insert"])
+    return worst, work, plain_tick
+
+
+def _batched_serving_phase(torch, dev):
+    """Cross-robot batched serving at bench.py's shape: BATCH_ROBOTS robot
+    threads (1,024-beam scans, 512^2 grids at 5 cm, matcher cloud 512,
+    loop-closure cloud 256), each through its own builder and through one
+    shared ScanBatcher, with the default options and with the correlative
+    search on: every robot's poses in the batched run equal its
+    single-robot builder's bit for bit; scans/s of both runs timed over the
+    whole run (and of the separate builders from one thread); on the JAX
+    package's permutations, every robot that the CPU witness keeps within
+    BATCH_ERROR_LIMIT stays within it; one tick's K1-K5 against their
+    twins robot by robot, and that tick's bound and plain time (row 6b);
+    K1-K5 launches and all kernel launches per tick (counters, and the
+    kernel nodes of a captured CUDA graph) and device ms per tick at R = 1,
+    4 and 16; GPU activities and busy ms per tick in a profiled window."""
+    import threading
+
+    from cartographer_tpu_torch.core.config import TrajectoryBuilder2DOptions, apply_overrides
+    from cartographer_tpu_torch.mapping import local_trajectory_builder_2d as ltb
+    from cartographer_tpu_torch.mapping.scan_batcher import ScanBatcher
+    from cartographer_tpu_torch.ops import cuda
+    from cartographer_tpu_torch.sensor.data import TimedPointCloudData
+    from cartographer_tpu_torch.simulation import (
+        reference_permutation,
+        relative_to_first,
+        simulate_scans,
+    )
+    from cartographer_tpu_torch.transform import nquat
+
+    streams = []
+    for r in range(BATCH_ROBOTS):
+        scans, truth = simulate_scans(BATCH_SCANS + BATCH_PROFILED, beams=BATCH_BEAMS, seed=r,
+                                      start=4.0 * r)
+        data = [TimedPointCloudData(time=int(round(ts * 1e6)), origin=np.zeros(3, np.float32),
+                                    ranges=pts, times=rel) for ts, pts, rel in scans]
+        streams.append((data, relative_to_first(truth)))
+    step_kernels = FRONTEND_KERNELS
+    out = {}
+    for label, correlative in (("default", False), ("correlative", True)):
+        opts = apply_overrides(TrajectoryBuilder2DOptions(), {
+            **BATCH_OPTIONS, "use_online_correlative_scan_matching": correlative})
+
+        def run(batcher, count=BATCH_SCANS, first=0, permutation_fn=None, threads=True):
+            """BATCH_ROBOTS builders each fed its robot's scans, from a
+            thread per robot (or, with `threads` False, one thread taking
+            the robots in turn, scan by scan)."""
+            builders = [ltb.LocalTrajectoryBuilder2D(opts, ["laser"], device=dev,
+                                                     batcher=batcher,
+                                                     permutation_fn=permutation_fn)
+                        for _ in range(BATCH_ROBOTS)]
+            poses = [[] for _ in range(BATCH_ROBOTS)]
+            failures = []
+
+            def feed(r, d):
+                res = builders[r].add_range_data("laser", d)
+                poses[r].append([np.nan] * 3 if res is None else
+                                [*res.local_pose_translation[:2],
+                                 nquat.get_yaw(res.local_pose_rotation)])
+
+            def robot(r):
+                try:
+                    for d in streams[r][0][first:first + count]:
+                        feed(r, d)
+                except Exception as e:  # noqa: BLE001 — raised below
+                    failures.append(e)
+
+            t0 = time.monotonic()
+            if threads:
+                workers = [threading.Thread(target=robot, args=(r,))
+                           for r in range(BATCH_ROBOTS)]
+                for t in workers:
+                    t.start()
+                for t in workers:
+                    t.join()
+            else:
+                for k in range(first, first + count):
+                    for r in range(BATCH_ROBOTS):
+                        feed(r, streams[r][0][k])
+            wall = time.monotonic() - t0
+            if failures:
+                raise failures[0]
+            return builders, np.asarray(poses), wall
+
+        def mean_errors(poses):
+            return [float(np.linalg.norm(poses[r][:, :2] - streams[r][1][:len(poses[r]), :2],
+                                         axis=1).mean()) for r in range(BATCH_ROBOTS)]
+
+        # Warm both paths (first launches, pinned pools), then the timed runs.
+        warm = ScanBatcher(max_batch=BATCH_ROBOTS)
+        run(warm, count=3)
+        warm.close()
+        run(None, count=3)
+        alone_builders, alone, wall_alone = run(None)
+        batcher = ScanBatcher(max_batch=BATCH_ROBOTS)
+        cuda.reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("warn")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            builders, batched, wall = run(batcher)
+        torch.cuda.set_sync_debug_mode("default")
+        launches = cuda.launch_counts()
+        batcher.close()
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+        ticks, scans = batcher.num_batches, batcher.num_scans
+        _check_launched(launches, step_kernels if correlative else
+                        tuple(k for k in step_kernels if k != "correlative_2d"),
+                        f"batched serving ({label})")
+        same = [bool(np.array_equal(batched[r], alone[r])) for r in range(BATCH_ROBOTS)]
+        errors = mean_errors(batched)
+        per_tick = {k: launches.get(k, 0) / ticks for k in step_kernels}
+        res = dict(
+            robots=BATCH_ROBOTS, scans_per_robot=BATCH_SCANS, ticks=ticks,
+            scans_per_tick=scans / ticks,
+            batched_scans_per_sec=scans / wall, separate_scans_per_sec=scans / wall_alone,
+            batched_wall_s=wall, separate_wall_s=wall_alone,
+            host_s_per_scan=float(np.mean([(b.host_seconds - b.device_seconds) / BATCH_SCANS
+                                           for b in builders])),
+            wait_s_per_scan=float(np.mean([b.device_seconds / BATCH_SCANS for b in builders])),
+            separate_host_s_per_scan=float(np.mean(
+                [(b.host_seconds - b.device_seconds) / BATCH_SCANS for b in alone_builders])),
+            separate_wait_s_per_scan=float(np.mean(
+                [b.device_seconds / BATCH_SCANS for b in alone_builders])),
+            dispatch_s_per_tick=batcher.dispatch_seconds / ticks,
+            fetch_s_per_tick=batcher.fetch_seconds / ticks,
+            collect_s_per_tick=batcher.collect_seconds / ticks,
+            synchronizing_operations=syncs, step_launches_per_tick=per_tick,
+            robots_equal_to_single=sum(same), mean_error_m=errors)
+        print(f"batched serving ({label}): {scans} scans of {BATCH_ROBOTS} robots in {ticks} "
+              f"ticks ({scans / ticks:.2f} scans per tick): {scans / wall:.1f} scans/s against "
+              f"{scans / wall_alone:.1f} for {BATCH_ROBOTS} separate builders; {sum(same)} of "
+              f"{BATCH_ROBOTS} robots' poses equal to their single-robot run bit for bit; mean "
+              f"errors on the card's permutations {min(errors):.4f}-{max(errors):.4f} m "
+              f"({sum(e <= BATCH_ERROR_LIMIT for e in errors)} robots within "
+              f"{BATCH_ERROR_LIMIT} m; reported, and held below on the reference's); {syncs} "
+              f"synchronizing operations; launches per tick {per_tick}")
+        if not all(same):
+            differ = [r for r in range(BATCH_ROBOTS) if not same[r]]
+            _fail(f"batched serving ({label}): robots {differ} differ from their single-robot "
+                  "runs")
+        if syncs > ticks:
+            _fail(f"batched serving ({label}): {syncs} synchronizing operations in {ticks} ticks")
+
+        # Accuracy on the reference's own inputs: the batched run again with
+        # the JAX package's voxel-filter permutations, the inputs of
+        # tests/batched_serving_witness_2d.py. At this shape the frontend
+        # loses some robots on the CPU too, in both packages; each robot
+        # that the witness keeps within the limit in both must stay within
+        # it here, and the others are reported beside the witness.
+        rb = ScanBatcher(max_batch=BATCH_ROBOTS)
+        _, on_reference, _ = run(rb, permutation_fn=reference_permutation)
+        rb.close()
+        ref_errors = mean_errors(on_reference)
+        witness = BATCH_WITNESS[label]
+        kept = [r for r in range(BATCH_ROBOTS) if max(witness[r]) <= BATCH_ERROR_LIMIT]
+        lost = [r for r in kept if ref_errors[r] > BATCH_ERROR_LIMIT]
+        res["reference_inputs"] = dict(
+            mean_error_m=ref_errors, witness_kept=kept,
+            witness_lost={r: dict(card=ref_errors[r], jax=witness[r][0], plain=witness[r][1])
+                          for r in range(BATCH_ROBOTS) if r not in kept})
+        print(f"batched serving ({label}) on the reference's permutations: mean errors "
+              f"{[round(e, 4) for e in ref_errors]} m; the {len(kept)} robots the CPU witness "
+              f"keeps within {BATCH_ERROR_LIMIT} m in both packages: "
+              f"{len(kept) - len(lost)} within it here; the others (card, JAX, plain): "
+              f"{res['reference_inputs']['witness_lost']}")
+        if lost:
+            _fail(f"batched serving ({label}): robots {lost} lose the ground truth on the "
+                  f"reference's inputs ({[ref_errors[r] for r in lost]} m; the witness keeps "
+                  f"them within {BATCH_ERROR_LIMIT} m)")
+
+        if not correlative:
+            # The separate builders' work again from one thread taking the
+            # robots in turn: the same kernels, fetches and stream, without
+            # 16 threads contending for the host.
+            serial_builders, serial, wall_serial = run(None, threads=False)
+            if not np.array_equal(serial, alone):
+                _fail(f"batched serving ({label}): one thread's run differs from the threads'")
+            res["separate_one_thread_scans_per_sec"] = scans / wall_serial
+            res["separate_one_thread_wait_s_per_scan"] = float(np.mean(
+                [b.device_seconds / BATCH_SCANS for b in serial_builders]))
+            print(f"batched serving ({label}): {BATCH_ROBOTS} separate builders from one "
+                  f"thread: {scans / wall_serial:.1f} scans/s (from {BATCH_ROBOTS} threads "
+                  f"{scans / wall_alone:.1f})")
+
+        if correlative:
+            # One tick of all the robots with K1-K5's calls recorded: each
+            # robot's slice against the plain twins, and the tick's own
+            # bound and plain time (row 6b).
+            group = builders
+            staging = torch.cat([b._staging for b in group])
+            # Every robot inserts (the motion filter's first-scan flag), so
+            # K4 is held on all of them.
+            staging[:, 8 * opts.tpu.scan_capacity + ltb._MF_FIRST] = 1.0
+            staging = staging.pin_memory()
+            calls, undo = _keeping_tick(torch)
+            try:
+                ltb.batched_step(group, staging, [b._seed_counter for b in group])
+            finally:
+                undo()
+            worst, work, plain_tick = _tick_against_twins(torch, opts, calls)
+            bounds = {k: _bound(*v) for k, v in work.items()}
+            res["tick_against_twins"] = dict(
+                robots=BATCH_ROBOTS, worst=worst, work=work,
+                bound_ms=sum(b[0] for b in bounds.values()),
+                bound_ms_by_kernel={k: b[0] for k, b in bounds.items()},
+                plain_ms=_cuda_ms(plain_tick, reps=2, warmup=1))
+            del calls, plain_tick
+            print(f"batched tick ({label}) of {BATCH_ROBOTS} robots against the twins: "
+                  f"{res['tick_against_twins']}")
+
+        # One tick at R = 1, 4 and 16 on the run's robots (their last rows):
+        # K1-K5 launches by the counters, every kernel by a captured graph,
+        # device ms by the profiler and by CUDA events.
+        per_r = {}
+        for robots in BATCH_TICK_ROBOTS:
+            group = builders[:robots]
+            staging = torch.cat([b._staging for b in group]).pin_memory()
+            seeds = [b._seed_counter for b in group]
+            upload = staging.to(dev)
+            perms = torch.stack([torch.randperm(opts.tpu.scan_capacity, device=dev,
+                                                dtype=torch.int32) for _ in group])
+            cuda.reset_launch_counts()
+            ltb.device_step(group, upload, perms)
+            counted = {k: v for k, v in cuda.launch_counts().items() if v}
+            kernels = _launches_per_call(lambda: ltb.device_step(group, upload, perms),
+                                         100000, f"batched step at R = {robots}")
+            tick = lambda: ltb.batched_step(group, staging, seeds)  # noqa: E731
+            per_r[robots] = dict(step_launches=counted, kernel_launches=kernels,
+                                 device_ms=_cuda_ms(tick, reps=20),
+                                 event_ms=_event_ms(tick, reps=20))
+            print(f"batched step ({label}) at R = {robots}: {per_r[robots]}")
+        base = per_r[BATCH_TICK_ROBOTS[0]]
+        for robots, v in per_r.items():
+            if v["step_launches"] != base["step_launches"]:
+                _fail(f"batched step ({label}): K1-K5 launches grow with R: {per_r}")
+        res["per_tick"] = per_r
+
+        # GPU activities and busy ms per tick over a profiled window.
+        pb = ScanBatcher(max_batch=BATCH_ROBOTS)
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            run(pb, count=BATCH_PROFILED, first=BATCH_SCANS)
+            pwall = time.monotonic() - t0
+        pb.close()
+        busy, activities, by_name = 0.0, 0, {}
+        for e in prof.key_averages():
+            us = _device_us(e)
+            if us > 0:
+                busy += us / 1e3
+                activities += e.count
+                name = e.key.replace("(anonymous namespace)::", "").split("(")[0][-60:]
+                by_name[name] = by_name.get(name, 0.0) + us / 1e3 / pb.num_batches
+        res["profile"] = dict(
+            ticks=pb.num_batches, scans=pb.num_scans,
+            gpu_activities_per_tick=activities / pb.num_batches,
+            device_busy_ms_per_tick=busy / pb.num_batches if busy else "not measured",
+            device_busy_share=busy / (pwall * 1e3) if busy else "not measured",
+            device_ms_per_tick_by_kernel=dict(sorted(by_name.items(),
+                                                     key=lambda kv: -kv[1])[:12]))
+        print(f"batched serving ({label}) profile: {res['profile']}")
+        out[label] = res
+
+    # Row 6b: a tick of BATCH_ROBOTS robots with the search, its bound and
+    # plain time from that tick's own inputs.
+    tick = out["correlative"]["tick_against_twins"]
+    out["row_6b"] = dict(
+        robots=BATCH_ROBOTS, bound_ms=tick["bound_ms"], plain_ms=tick["plain_ms"],
+        device_ms_per_tick=out["correlative"]["per_tick"][BATCH_ROBOTS]["device_ms"])
+    return out
+
+
 def _profile(torch, feed, data, label="profile"):
     """Device busy share and kernel time by name over a window of scans
     that continues the main run (its launches are not counted there);
@@ -3663,6 +4182,7 @@ def main() -> int:
     rows_ei, edge_intensity = _edge_intensity_phase(torch, dev)
     interchange = _state_interchange_phase(torch, dev, map_2d, map_3d)
     del map_2d, map_3d
+    batched = _batched_serving_phase(torch, dev)
     # K23 and its stats form count the `icp` run's launches, as before.
     scan_match_launches = {**gicp_ndt["launches"], **scan_match["modes"]["ceres"]["launches"],
                            **scan_match["modes"]["icp"]["launches"]}
@@ -3736,6 +4256,7 @@ def main() -> int:
             for phase, r in (("phase_11", rows3f["paged_intensity_insert_3d"]),
                              ("phase_17", large["kernels"]["paged_intensity_insert_3d"]))},
         "state_interchange": interchange,
+        "batched_serving": batched,
         "bnb_match_ms": backend["bnb_match_ms"],
         "schur_50_iterations_ms": backend["schur_50_iterations_ms"],
         "bnb3d_match_ms": backend3d["bnb3d_match_ms"],

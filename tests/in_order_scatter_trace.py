@@ -1,4 +1,4 @@
-"""Where the in-order scatter of K18 and K30 spends its time, on the card (not
+"""Where the in-order scatter of K18, K30 and K21 spends its time, on the card (not
 collected by pytest).
 
     python tests/in_order_scatter_trace.py [RETURNS ...]
@@ -71,13 +71,13 @@ HARNESS = r"""
 #include <vector>
 #include "scatter.cuh"
 
-struct DenseReturns {
+struct DenseReturns : in_order_scatter::SumCount {
   const float* returns;
   const float* intensities;
   float origin, resolution;
   int size;
-  __device__ unsigned int cell(int i, float& value) const {
-    value = intensities[i];
+  __device__ unsigned int cell(int i, unsigned int& payload) const {
+    payload = __float_as_uint(intensities[i]);
     int c[3];
     for (int a = 0; a < 3; ++a) {
       const float f = floorf((returns[3 * (size_t)i + a] - origin) / resolution);
@@ -116,14 +116,14 @@ int main(int argc, char** argv) {
   cudaMemcpyToSymbol(in_order_scatter::g_stamps, &stamps, sizeof(stamps));
   cudaMemcpy(dp, pts.data(), 12 * (size_t)n, cudaMemcpyHostToDevice);
   cudaMemcpy(di, inten.data(), 4 * (size_t)n, cudaMemcpyHostToDevice);
-  DenseReturns src{dp, di, -12.8f, 0.1f, size};
+  DenseReturns src{{ds, dc}, dp, di, -12.8f, 0.1f, size};
   cudaEvent_t a, b;
   cudaEventCreate(&a);
   cudaEventCreate(&b);
   float best = 1e9f;
   for (int rep = 0; rep < 20; ++rep) {
     cudaEventRecord(a);
-    const cudaError_t err = in_order_scatter::launch(src, n, 3, ds, dc, 0);
+    const cudaError_t err = in_order_scatter::launch(src, n, 3, 0);
     cudaEventRecord(b);
     cudaEventSynchronize(b);
     if (err != cudaSuccess || cudaGetLastError() != cudaSuccess) return 1;

@@ -41,7 +41,7 @@ def main(label):
     x0 = t._t(np.float32([0.23, -0.12, 0.02]), dev)
     a5 = (grid, rd.returns.points, rd.returns.mask, x0, params)
     out["K5 correlative_2d (512 points)"] = cs._cuda_ms(
-        lambda: correlative_2d._match_kernel(*a5), reps=200)
+        lambda: correlative_2d.real_time_correlative_match(*a5), reps=200)
     pyr = bnb_2d.build_precomputation_pyramid(grid, 7)
     rng = np.random.RandomState(4)
     n, b = 128, 5000

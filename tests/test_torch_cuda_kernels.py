@@ -132,7 +132,7 @@ def test_correlative_2d_kernel(dev):
     grid, rd = _card_grid(dev)
     params = correlative_2d.CorrelativeSearchParams(max_scan_range=12.0)
     x0 = _t(np.float32([0.23, -0.12, 0.02]), dev)
-    best, scores = correlative_2d._match_kernel(grid, rd.returns.points, rd.returns.mask, x0,
+    best, scores = correlative_2d.correlative_match(grid, rd.returns.points, rd.returns.mask, x0,
                                                 params)
     best_p, scores_p = correlative_2d.correlative_match_plain(
         grid, rd.returns.points, rd.returns.mask, x0, params)
@@ -570,7 +570,7 @@ def test_correlative_2d_kernel_large(dev, n):
     mask = _t(rng.rand(n) < 0.9, dev)
     params = correlative_2d.CorrelativeSearchParams(max_scan_range=12.0)
     x0 = _t(np.float32([0.23, -0.12, 0.02]), dev)
-    best, scores = correlative_2d._match_kernel(grid, pts, mask, x0, params)
+    best, scores = correlative_2d.correlative_match(grid, pts, mask, x0, params)
     best_p, scores_p = correlative_2d.correlative_match_plain(grid, pts, mask, x0, params)
     assert torch.equal(scores, scores_p)
     assert torch.equal(best, best_p)
@@ -908,24 +908,49 @@ def _tsdf_batch(dev):
 
 
 def test_tsdf_insert_kernel(dev):
-    """K21 against its twin on the card over three scans (one with slot 1
-    inactive, one with do_insert False): the same known cells, tsd and
-    weight within 1e-5 (float atomics order the sums)."""
+    """K21 against its in-order twin on the card over three scans (one with
+    slot 1 inactive, one with do_insert False): tsd and weight bit for bit
+    (both add each cell's samples in input order), and a second run
+    repeats them."""
+    from cartographer_tpu_torch.ops import tsdf_2d
+
+    runs = []
+    for _ in range(2):
+        card, plain = _tsdf_batch(dev), _tsdf_batch(dev)
+        params = tsdf_2d.TsdfInserterParams()
+        for k, (active, do) in enumerate((([True, False], True), ([True, True], False),
+                                          ([True, True], True))):
+            rd = _tsdf_scan(dev, 2048, 1500, seed=30 + k, origin=(0.05 * k + 0.031, -0.017))
+            a, d = _t(np.array(active), dev), torch.tensor(do, device=dev)
+            normals = tsdf_2d._normals_plain(rd.returns.points, rd.returns.mask, rd.origin)
+            tsdf_2d.insert_into_slots_tsdf(card, rd, a, d, params, normals=normals)
+            tsdf_2d._insert_plain(plain, rd, normals, a, d, params)
+        assert int((plain.weight > 0).sum()) > 5000
+        assert torch.equal(card.weight, plain.weight)
+        assert torch.equal(card.tsd, plain.tsd)
+        runs.append(card)
+    assert torch.equal(runs[0].tsd, runs[1].tsd) and torch.equal(runs[0].weight, runs[1].weight)
+
+
+@pytest.mark.parametrize("n", [512, 4096, 8192])
+def test_tsdf_insert_kernel_sizes(dev, n):
+    """K21 bit for bit against its twin where the two slots' 2 x 16 x n
+    samples take one launch of the in-order routine (16,384 and 131,072)
+    and two (262,144), with the range-exponent and no-projection options."""
     from cartographer_tpu_torch.ops import tsdf_2d
 
     card, plain = _tsdf_batch(dev), _tsdf_batch(dev)
-    params = tsdf_2d.TsdfInserterParams()
-    for k, (active, do) in enumerate((([True, False], True), ([True, True], False),
-                                      ([True, True], True))):
-        rd = _tsdf_scan(dev, 2048, 1500, seed=30 + k, origin=(0.05 * k + 0.031, -0.017))
-        a, d = _t(np.array(active), dev), torch.tensor(do, device=dev)
-        normals = tsdf_2d._normals_plain(rd.returns.points, rd.returns.mask, rd.origin)
-        tsdf_2d.insert_into_slots_tsdf(card, rd, a, d, params, normals=normals)
-        tsdf_2d._insert_plain(plain, rd, normals, a, d, params)
-    assert int((plain.weight > 0).sum()) > 5000
-    assert torch.equal(card.weight > 0, plain.weight > 0)
-    torch.testing.assert_close(card.weight, plain.weight, atol=1e-5, rtol=0)
-    torch.testing.assert_close(card.tsd, plain.tsd, atol=1e-5, rtol=0)
+    params = tsdf_2d.TsdfInserterParams(update_weight_range_exponent=1,
+                                        project_to_normal=n != 4096)
+    rd = _tsdf_scan(dev, n, n * 3 // 4, seed=50, origin=(0.031, -0.017))
+    normals = tsdf_2d._normals_plain(rd.returns.points, rd.returns.mask, rd.origin)
+    yes = torch.tensor(True, device=dev)
+    both = _t(np.array([True, True]), dev)
+    tsdf_2d.insert_into_slots_tsdf(card, rd, both, yes, params, normals=normals)
+    tsdf_2d._insert_plain(plain, rd, normals, both, yes, params)
+    assert int((plain.weight > 0).sum()) > 500
+    assert torch.equal(card.weight, plain.weight)
+    assert torch.equal(card.tsd, plain.tsd)
 
 
 def _tsdf_grid(dev):
@@ -971,7 +996,7 @@ def test_tsdf_surface_forms_of_k3_k5_k6(dev):
     torch.testing.assert_close(xk, xp, atol=1e-4, rtol=0)
     torch.testing.assert_close(ck, cp, atol=0, rtol=1e-4)
     cparams = correlative_2d.CorrelativeSearchParams(max_scan_range=12.0)
-    best, scores = correlative_2d._match_kernel(grid, pts, mask, x0, cparams)
+    best, scores = correlative_2d.correlative_match(grid, pts, mask, x0, cparams)
     best_p, scores_p = correlative_2d.correlative_match_plain(grid, pts, mask, x0, cparams)
     assert torch.equal(scores, scores_p) and torch.equal(best, best_p)
     pyr = bnb_2d.build_precomputation_pyramid(grid, 7)
@@ -1239,3 +1264,194 @@ def test_voxel_filter_edge_kernel(dev, dim, n):
     want = voxel_filter_edge_plain(p, m, 0.3, 0.5)
     assert torch.equal(got, want)
     assert 0 < int(got.sum()) < int(m.sum())
+
+
+# ---------------------------------------------------------------- robot batches
+
+
+def _robot_scans(dev, robots, n=N):
+    """R robots' scans (RangeData with a leading R) and their grids, each
+    robot's two slots with a scan inserted, and their K4 scratches."""
+    rds, grids, scratch = [], [], []
+    for r in range(robots):
+        rng = np.random.RandomState(100 + r)
+        pts = _room(rng, n)[:, :2].astype(np.float32)
+        rr = np.linalg.norm(pts, axis=1)
+        miss = (pts * (5.0 / rr)[:, None]).astype(np.float32)
+        z = torch.zeros(n, device=dev)
+        rds.append(RangeData(_t(np.float32([0.2 + 0.01 * r, -0.1]), dev),
+                             PointCloud(_t(pts, dev), _t(rr <= 12.0, dev), z),
+                             PointCloud(_t(miss, dev), _t(rr > 12.0, dev), z)))
+        g = Grid2D(torch.zeros((2, SIZE, SIZE), device=dev),
+                   torch.zeros((2, SIZE, SIZE), dtype=torch.bool, device=dev),
+                   _t(np.float32([[-6.4 + 0.013 * r, -6.4], [-6.0, -6.3 + 0.007 * r]]), dev),
+                   0.05)
+        sc = grid_2d.InsertScratch.create(2, SIZE, dev)
+        grid_2d.insert_into_slots(g, rds[-1], _t(np.array([True, True]), dev),
+                                  torch.ones((), dtype=torch.bool, device=dev), 0.55, 0.49,
+                                  True, SAMPLES, sc)
+        grids.append(g)
+        scratch.append(sc)
+    stack = lambda ts: torch.stack(ts)  # noqa: E731
+    rd = RangeData(stack([x.origin for x in rds]),
+                   PointCloud(stack([x.returns.points for x in rds]),
+                              stack([x.returns.mask for x in rds]),
+                              stack([x.returns.intensities for x in rds])),
+                   PointCloud(stack([x.misses.points for x in rds]),
+                              stack([x.misses.mask for x in rds]),
+                              stack([x.misses.intensities for x in rds])))
+    return rd, rds, grids, scratch
+
+
+@pytest.mark.parametrize("robots", [1, 3, 16])
+def test_robot_batched_kernels(dev, robots):
+    """K1-K5 with a robot index in their grids (the cross-robot batched
+    step): one launch for R robots equals each robot's own launch bit for
+    bit, and the plain twins robot by robot: K2 and K5 bit for bit, K1 (1e-5
+    m, masks exact), K3 (cost 1e-4; pose 1e-4 on the twin's LM path, 1e-3
+    where a near-tie parts the paths) and K4 (0.1% of touched cells) at
+    their twins' tolerances."""
+    from cartographer_tpu_torch.ops import correlative_2d
+    from cartographer_tpu_torch.ops.scan_pipeline_2d import (
+        ScanPreprocessParams2D,
+        align_scan,
+        align_scan_plain,
+    )
+
+    rng = np.random.RandomState(robots)
+    rd, rds, grids, scratch = _robot_scans(dev, robots)
+
+    # K1: rows of one (R, L) upload, as the step lays them out.
+    row = 8 * N + 33
+    upload = torch.zeros((robots, row), device=dev)
+    for r in range(robots):
+        pts = _room(np.random.RandomState(200 + r), N).astype(np.float32)
+        upload[r, :3 * N] = _t(pts.reshape(-1), dev)
+        upload[r, 6 * N:7 * N] = _t(np.linspace(0, 1, N, dtype=np.float32), dev)
+        upload[r, 7 * N:8 * N] = _t((rng.rand(N) < 0.9).astype(np.float32), dev)
+        yaw = 0.1 * r
+        small = np.float32([0.1, 0.2, 0, 1, 0, 0, 0, 0.3 + 0.01 * r, 0.1, 0,
+                            np.cos(yaw), 0, 0, np.sin(yaw), 1, 0, 0, 0])
+        upload[r, 8 * N:8 * N + 18] = _t(small, dev)
+    small = upload[:, 8 * N:]
+    args = (upload[:, :3 * N].view(robots, N, 3), upload[:, 6 * N:7 * N],
+            upload[:, 7 * N:8 * N] > 0.5, upload[:, 3 * N:6 * N].view(robots, N, 3),
+            Rigid3(small[:, 0:3], small[:, 3:7]), Rigid3(small[:, 7:10], small[:, 10:14]),
+            small[:, 14:18])
+    pre = ScanPreprocessParams2D(max_range=12.0)
+    got = align_scan(*args, pre)
+    for r in range(robots):
+        one = [a[r] if isinstance(a, torch.Tensor) else Rigid3(a.translation[r], a.rotation[r])
+               for a in args]
+        alone = align_scan(*[x.contiguous() if isinstance(x, torch.Tensor) else x
+                             for x in one], pre)
+        ref = align_scan_plain(*one, pre)
+        for k in range(5):
+            assert torch.equal(got[k][r], alone[k])
+        for k in (0, 1, 4):
+            torch.testing.assert_close(got[k][r], ref[k], atol=1e-5, rtol=0)
+        for k in (2, 3):
+            assert torch.equal(got[k][r], ref[k])
+
+    # K2: the voxel filter and the two adaptive filters in one launch.
+    perm = torch.stack([_t(np.random.RandomState(300 + r).permutation(N).astype(np.int32),
+                           dev) for r in range(robots)])
+    hits, is_return = got[0], got[2]
+    keep = voxel_filter.voxel_filter_mask(hits, is_return, 0.05, perm)
+    filters = [(0.5, 100, 12.0), (0.9, 50, 12.0)]
+    adaptive = voxel_filter.adaptive_voxel_filter_masks(hits[..., 0:2], keep, filters, perm)
+    for r in range(robots):
+        assert torch.equal(keep[r], voxel_filter.voxel_filter_mask_plain(
+            hits[r], is_return[r], 0.05, perm[r]))
+        for f, (length, num, max_range) in enumerate(filters):
+            assert torch.equal(adaptive[f][r], voxel_filter.adaptive_voxel_filter_mask_plain(
+                hits[r, :, 0:2], keep[r], length, num, max_range, perm[r]))
+
+    # K5 and K3 on each robot's slot 0.
+    slot0 = [g.slot(0) for g in grids]
+    x0 = torch.stack([_t(np.float32([0.23 + 0.01 * r, -0.12, 0.02]), dev)
+                      for r in range(robots)])
+    cparams = correlative_2d.CorrelativeSearchParams(max_scan_range=12.0)
+    best, scores = correlative_2d.correlative_match(slot0, rd.returns.points, rd.returns.mask,
+                                                    x0, cparams)
+    params = scan_matcher_2d.GaussNewtonMatcherParams2D(translation_weight=1.0,
+                                                        rotation_weight=1.0)
+    target = x0[:, 0:2]
+    xk, ck, ik = scan_matcher_2d.lm_match_2d(slot0, rd.returns.points, rd.returns.mask, x0,
+                                             target, params)
+    for r in range(robots):
+        bp, sp = correlative_2d.correlative_match_plain(
+            slot0[r], rds[r].returns.points, rds[r].returns.mask, x0[r], cparams)
+        assert torch.equal(scores[r], sp) and torch.equal(best[r], bp)
+        alone = scan_matcher_2d.lm_match_2d(slot0[r], rds[r].returns.points,
+                                            rds[r].returns.mask, x0[r], x0[r, 0:2], params)
+        assert torch.equal(xk[r], alone[0]) and torch.equal(ck[r], alone[1])
+        assert torch.equal(ik[r], alone[2])
+        xp, cp, ip = scan_matcher_2d._match_plain(slot0[r], rds[r].returns.points,
+                                                  rds[r].returns.mask, x0[r], x0[r, 0:2],
+                                                  params)
+        # The twin sums in another order: both reach the minimum (cost
+        # within 1e-4), and where an accept test meets a near-tie their LM
+        # paths part (as test_scan_matcher_2d_kernel's 1e-4 holds one path).
+        why = f"robot {r}: {int(ik[r])} iterations, the twin {int(ip)}"
+        torch.testing.assert_close(ck[r], cp, atol=0, rtol=1e-4, msg=why)
+        torch.testing.assert_close(xk[r], xp, atol=1e-4 if int(ik[r]) == int(ip) else 1e-3,
+                                   rtol=0, msg=why)
+
+    # K4: R robots' second scans into their own grids, slot 1 of robot 1 off
+    # and robot 2's do_insert False, against one launch per robot.
+    active = torch.ones((robots, 2), dtype=torch.bool, device=dev)
+    do_insert = torch.ones(robots, dtype=torch.bool, device=dev)
+    if robots >= 3:
+        active[1, 1] = False
+        do_insert[2] = False
+    moved = RangeData(rd.origin + 0.02, PointCloud(rd.returns.points + 0.03, rd.returns.mask,
+                                                   rd.returns.intensities), rd.misses)
+    alone = [g.clone() for g in grids]
+    plain = [g.clone() for g in grids]
+    grid_2d.insert_into_slots(grids, moved, active, do_insert, 0.55, 0.49, True, SAMPLES,
+                              scratch)
+    for r in range(robots):
+        one = RangeData(moved.origin[r], PointCloud(moved.returns.points[r],
+                                                    moved.returns.mask[r],
+                                                    moved.returns.intensities[r]), rds[r].misses)
+        grid_2d.insert_into_slots(alone[r], one, active[r], do_insert[r], 0.55, 0.49, True,
+                                  SAMPLES)
+        grid_2d._insert_plain(plain[r], one, active[r], do_insert[r],
+                              probability_to_log_odds(0.55), probability_to_log_odds(0.49),
+                              True, SAMPLES)
+        assert torch.equal(grids[r].log_odds, alone[r].log_odds)
+        assert torch.equal(grids[r].known, alone[r].known)
+        assert int(scratch[r].hit.sum()) == 0 and int(scratch[r].free.sum()) == 0
+        touched = int(plain[r].known.sum())
+        differ = int(((grids[r].log_odds - plain[r].log_odds).abs() > 1e-6).sum()
+                     + (grids[r].known != plain[r].known).sum())
+        assert touched > 1000 and differ <= 1e-3 * touched
+
+
+@pytest.mark.parametrize("robots", [1, 3])
+def test_robot_batched_tsdf_matchers(dev, robots):
+    """The TSDF forms of K3 and K5 and K22 with a robot index: one launch
+    equals each robot's own launch bit for bit, and K5's form its twin."""
+    from cartographer_tpu_torch.ops import correlative_2d, tsdf_2d
+
+    grids = []
+    for r in range(robots):
+        g, rd = _tsdf_grid(dev)
+        grids.append(dataclasses.replace(g, origin=g.origin + 0.01 * r))
+    pts = torch.stack([rd.returns.points[:N] for _ in range(robots)])
+    mask = torch.stack([rd.returns.mask[:N] for _ in range(robots)])
+    x0 = torch.stack([_t(np.float32([0.02 * r, -0.01, 0.01]), dev) for r in range(robots)])
+    params = scan_matcher_2d.GaussNewtonMatcherParams2D()
+    for fn in (scan_matcher_2d.lm_match_2d, tsdf_2d.lm_match_tsdf_2d):
+        out = fn(grids, pts, mask, x0, x0[:, 0:2], params)
+        for r in range(robots):
+            alone = fn(grids[r], pts[r], mask[r], x0[r], x0[r, 0:2], params)
+            for a, b in zip(out, alone):
+                assert torch.equal(a[r], b)
+    cparams = correlative_2d.CorrelativeSearchParams(max_scan_range=12.0)
+    best, scores = correlative_2d.correlative_match(grids, pts, mask, x0, cparams)
+    for r in range(robots):
+        bp, sp = correlative_2d.correlative_match_plain(grids[r], pts[r], mask[r], x0[r],
+                                                        cparams)
+        assert torch.equal(scores[r], sp) and torch.equal(best[r], bp)

@@ -266,5 +266,9 @@ def test_kernel_limits_refused_at_construction(override, option):
 
 
 def test_batcher_raises():
-    with pytest.raises(NotImplementedError):
-        LocalTrajectoryBuilder2D(_port_options(), ["laser"], device="cpu", batcher=object())
+    """Only TSDF submaps refuse a batcher (K20 and K21 are not batched
+    across robots); a probability-grid builder takes one."""
+    with pytest.raises(NotImplementedError, match="TSDF"):
+        LocalTrajectoryBuilder2D(_port_options(**{"submaps.grid_type": "TSDF"}), ["laser"],
+                                 device="cpu", batcher=object())
+    LocalTrajectoryBuilder2D(_port_options(), ["laser"], device="cpu", batcher=object())

@@ -229,13 +229,53 @@ def test_map_builder_without_card_raises(monkeypatch):
 
 @pytest.mark.parametrize("override", [
     {"use_trajectory_builder_3d": True, "pose_graph.overlapping_submaps_trimmer_2d": object()},
-    {"batch_scan_dispatch": True},
     {"pose_graph.overlapping_submaps_trimmer_2d": object()},
 ])
 def test_unported_map_builder_options_raise(override):
     options = apply_overrides(MapBuilderOptions(use_trajectory_builder_2d=True), override)
     with pytest.raises(NotImplementedError):
         MapBuilder(options, device="cpu")
+
+
+def test_batch_scan_dispatch_shares_one_batcher():
+    """`batch_scan_dispatch` builds one ScanBatcher for the 2D trajectories:
+    two trajectories fed through it get the nodes of the same two fed
+    through a MapBuilder without it, bit for bit; a TSDF trajectory under
+    it raises (TSDF is not batched across robots)."""
+    jmb_options, jtraj = build_options()
+    jmb_options = j_apply_overrides(jmb_options, {"async_constraint_search": False})
+    traj = trajectory_builder_options_from_dict(dataclasses.asdict(jtraj))
+    world = make_wall_points(num=400, seed=5)
+    nodes = []
+    for dispatch in (False, True):
+        options = map_builder_options_from_dict(dataclasses.asdict(
+            j_apply_overrides(jmb_options, {"batch_scan_dispatch": dispatch})))
+        assert options.batch_scan_dispatch == dispatch
+        mb = MapBuilder(options, device="cpu")
+        tids = [mb.add_trajectory_builder(["laser"], traj) for _ in range(2)]
+        locals_ = [mb.get_trajectory_builder(t)._local for t in tids]
+        if dispatch:
+            assert locals_[0]._batcher is locals_[1]._batcher is mb._scan_batcher
+        for i in range(8):
+            for tid, start in zip(tids, (np.zeros(2), np.array([0.3, -0.2]))):
+                scan = scan_at(world, start + np.array([0.05 * i, 0.0]), 0.0)
+                mb.add_sensor_data(tid, "laser", TimedPointCloudData(
+                    time=T0 + from_seconds(i * 0.1), origin=np.zeros(3, np.float32),
+                    ranges=scan, times=np.zeros(len(scan), np.float32)))
+        for tid in tids:
+            mb.finish_trajectory(tid)
+        nodes.append({k: (n.local_pose_translation, n.local_pose_rotation)
+                      for k, n in mb.pose_graph.nodes.items()})
+        if dispatch:
+            assert mb._scan_batcher.num_scans == 16
+            with pytest.raises(NotImplementedError, match="TSDF"):
+                mb.add_trajectory_builder(["laser"], dataclasses.replace(
+                    traj, trajectory_builder_2d=apply_overrides(
+                        traj.trajectory_builder_2d, {"submaps.grid_type": "TSDF"})))
+            mb._scan_batcher.close()
+    assert len(nodes[0]) == 16 and nodes[0].keys() == nodes[1].keys()
+    for key, (t, q) in nodes[0].items():
+        assert np.array_equal(nodes[1][key][0], t) and np.array_equal(nodes[1][key][1], q)
 
 
 def test_unported_entry_points_raise(tmp_path):

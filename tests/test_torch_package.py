@@ -179,7 +179,6 @@ def test_map_builder_options_carry_across():
 
 
 @pytest.mark.parametrize("path,value", [
-    ("batch_scan_dispatch", True),
     ("pose_graph.overlapping_submaps_trimmer_2d", {"fresh_submaps_count": 1}),
     ("pose_graph.overlapping_submaps_trimmer_2d", {"min_covered_area": 5.0}),
 ])
@@ -187,6 +186,24 @@ def test_unported_map_builder_switches_raise(path, value):
     jopts = apply_overrides(JMapBuilderOptions(), {path: value})
     with pytest.raises(NotImplementedError, match=path):
         map_builder_options_from_dict(dataclasses.asdict(jopts))
+
+
+def test_batch_scan_dispatch_is_carried():
+    """`batch_scan_dispatch`, refused until cross-robot batching was ported,
+    carries over from a JAX options dict and builds the MapBuilder's shared
+    ScanBatcher."""
+    from cartographer_tpu_torch.mapping.map_builder import MapBuilder
+    from cartographer_tpu_torch.mapping.scan_batcher import ScanBatcher
+
+    assert "batch_scan_dispatch" not in UNPORTED_MAP_BUILDER_SWITCHES
+    jopts = apply_overrides(JMapBuilderOptions(use_trajectory_builder_2d=True),
+                            {"batch_scan_dispatch": True})
+    options = map_builder_options_from_dict(dataclasses.asdict(jopts))
+    assert options.batch_scan_dispatch
+    mb = MapBuilder(options, device="cpu")
+    tid = mb.add_trajectory_builder(["laser"], TrajectoryBuilderOptions())
+    assert isinstance(mb.get_trajectory_builder(tid)._local._batcher, ScanBatcher)
+    mb._scan_batcher.close()
 
 
 def test_pure_localization_trimmer_raises():
