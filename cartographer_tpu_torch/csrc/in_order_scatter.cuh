@@ -20,6 +20,14 @@
 // intensity's bits); K21's payload is its sample's index, through which it
 // recomputes the sample's two addends (w and w x sdf) in the walk.
 //
+// Groups: a launch may hold several independent groups of items whose
+// cells never meet (K21's robots), one cluster each along blockIdx.y. The
+// launch's parameters are then not a Source but a table from which
+// `source_of(params, group)` (found by argument-dependent lookup beside the
+// parameters' type) makes the group's Source; for a Source itself it is the
+// Source, one group. Every group has the same item count and is added as a
+// launch of its own would add it.
+//
 // One launch holds up to kChunk = 131,072 items on chip: a thread-block
 // cluster of up to 16 blocks of 512 threads, each block up to kTile = 8,192
 // items in 147 KB of dynamic shared memory, the blocks reading and writing
@@ -30,8 +38,10 @@
 // one block took 2.4x and 2 blocks 1.7x the cycles of 8 at 4,096 returns,
 // and 8 blocks 1.2-1.4x those of 16 at 16,384 and 32,768). Above kChunk,
 // one launch per kChunk items in input order on the stream keeps each
-// cell's order across launches too. So a call is one launch up to 131,072
-// items, ceil(n / 131,072) above, and allocates nothing.
+// cell's order across launches too: a cell whose state is its running sums
+// (SumCount) then ends as one launch would leave it; K21, whose state is an
+// average, keeps its sums in a scratch across launches. So a call is one
+// launch up to 131,072 items, ceil(n / 131,072) above, and allocates nothing.
 //
 // 1. Compact. Block b takes the b-th slice of the launch's items, each
 //    warp a contiguous share of it, staged in shared memory; the items
@@ -76,6 +86,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace in_order_scatter {
 
 namespace cg = cooperative_groups;
@@ -104,6 +116,12 @@ struct Shared {
 __host__ __device__ inline int cluster_blocks(int count) {
   const int spread = (count + kSpread - 1) / kSpread;
   return spread < 1 ? 1 : spread > kMaxCluster ? kMaxCluster : spread;
+}
+
+// A launch of one group: its parameters are the Source.
+template <class Source>
+__device__ inline const Source& source_of(const Source& src, unsigned int) {
+  return src;
 }
 
 __device__ inline unsigned int warp_inclusive_sum(unsigned int x, int lane) {
@@ -167,9 +185,11 @@ __device__ inline void walk(const Source& src, const uint2* items, unsigned int&
   }
 }
 
-template <class Source>
+template <class Params>
 __global__ void __launch_bounds__(kThreads, 1)
-    scatter_kernel(Source src, int begin, int count, int passes) {
+    scatter_kernel(Params params, int begin, int count, int passes) {
+  using Source = std::decay_t<decltype(source_of(params, 0u))>;
+  decltype(auto) src = source_of(params, blockIdx.y);  // this cluster's group
   extern __shared__ __align__(16) unsigned char smem[];
   Shared& s = *reinterpret_cast<Shared*>(smem);
   cg::cluster_group cluster = cg::this_cluster();
@@ -326,14 +346,17 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (blocks > 1) cluster.sync();  // no block leaves while another may read its shared memory
 }
 
-// Adds the n items of `src` into its cells in place; `passes` (1 to 4) radix
-// passes of 8 bits cover every cell index. ceil(n / kChunk) launches on
-// `stream`, each a cluster of cluster_blocks(items) blocks.
-template <class Source>
-inline cudaError_t launch(const Source& src, int n, int passes, cudaStream_t stream) {
-  if (n < 0 || passes < 1 || passes > 4) return cudaErrorInvalidValue;
+// Adds the n items of each of `groups` groups of `params` (a Source: one
+// group) into their cells in place; `passes` (1 to 4) radix passes of 8 bits
+// cover every cell index. ceil(n / kChunk) launches on `stream`, each a grid
+// of `groups` clusters of cluster_blocks(items) blocks.
+template <class Params>
+inline cudaError_t launch(const Params& params, int n, int passes, cudaStream_t stream,
+                          int groups = 1) {
+  if (n < 0 || passes < 1 || passes > 4 || groups < 1 || groups > 65535)
+    return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
-  void (*kernel)(Source, int, int, int) = scatter_kernel<Source>;
+  void (*kernel)(Params, int, int, int) = scatter_kernel<Params>;
   const int bytes = (int)sizeof(Shared);
   static int configured = -1;  // the device on which the kernel may take `bytes`
   int device = 0;
@@ -349,7 +372,7 @@ inline cudaError_t launch(const Source& src, int n, int passes, cudaStream_t str
     const int count = min(kChunk, n - begin);
     const unsigned int blocks = (unsigned int)cluster_blocks(count);
     cudaLaunchConfig_t config = {};
-    config.gridDim = dim3(blocks, 1, 1);
+    config.gridDim = dim3(blocks, (unsigned int)groups, 1);
     config.blockDim = dim3(kThreads, 1, 1);
     config.dynamicSmemBytes = (size_t)bytes;
     config.stream = stream;
@@ -360,7 +383,7 @@ inline cudaError_t launch(const Source& src, int n, int passes, cudaStream_t str
     attribute[0].val.clusterDim.z = 1;
     config.attrs = attribute;
     config.numAttrs = 1;
-    err = cudaLaunchKernelEx(&config, kernel, src, begin, count, passes);
+    err = cudaLaunchKernelEx(&config, kernel, params, begin, count, passes);
     if (err != cudaSuccess) return err;
   }
   return cudaGetLastError();

@@ -34,15 +34,39 @@
 // scan does not touch keep their values; JAX recomputes every cell, which
 // re-rounds (w tsd) / w of an untouched cell by at most an ulp. The items
 // read do_insert and the active flags from device memory, so the caller
-// never waits.
+// never waits. A call whose items take more than one launch of the routine
+// (above 4,096 returns into two slots) must not average a cell once per
+// launch: the average rounds, and the weight clamps, in between. There each
+// launch adds its items to the cell's running sums (sum w, sum w sdf) in a
+// zeroed scratch of two floats per cell, continuing the same in-order sums,
+// and one pass over the cells then applies the average to every cell whose
+// sum of weights is positive (the touched ones).
+//
+// Robots: the JAX package's _batched_step_cached vmaps the TSDF insertion
+// over robots (mapping/local_trajectory_builder_2d.py:191). K20 takes R
+// robots' scans in one call: blockIdx.y is the robot of the key and normal
+// passes, and the keys of each robot sort on their own, side by side in the
+// launches of one robot's sort (bitonic::sort_segments).
+// K21 takes R robots' active windows: each robot's items are a cluster of
+// their own along blockIdx.y (in_order_scatter.cuh's groups), its chunk
+// order and so each cell's input order unchanged, so a robot's grids equal
+// those of its own launch bit for bit. Each robot's grids stay where its
+// submaps keep them, reached through a pointer table in the launch's
+// parameters (kMaxRobots rows, as K4's); above kMaxRobots robots the entry
+// point launches once per kMaxRobots. The scans, masks, normals, origins,
+// active flags and do_insert are robot 0's plus the robot times a robot
+// stride in elements. A one-robot call instantiates the one-robot bodies
+// (robot index 0), at their former cost.
 //
 // Bound: K20 by latency (a sort of 2,048 keys in one block, a few dozen
 // barrier-separated steps); its bytes are 29 B per point. K21 by bytes:
 // it reads the N points, masks and normals and reads and writes the tsd
 // and weight of the cells the scan touches, and its 32 N samples are a few
 // hundred thousand flops; the radix passes' barriers make it latency-bound.
-// The grids are never swept, and there is no scratch: 2 x 16 x 2,048
-// samples are one launch (a cluster of 16 blocks).
+// Up to 4,096 returns into two slots (the default 2,048: 2 x 16 x 2,048
+// samples, one launch of a cluster of 16 blocks) the grids are never swept
+// and there is no scratch; above, the running sums take 8 bytes per cell
+// and the apply pass sweeps them once.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -56,18 +80,32 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kSamples = 16;  // insert_range_data_tsdf's samples_per_ray
 constexpr int kHalfWindow = 2;  // max(1, num_samples // 2) with num_samples = 4
+constexpr int kMaxRobots = 64;  // K21's robots per launch: the pointer table's rows
+
+// K20's robot strides of points, mask and origin, in elements.
+struct NormalStrides {
+  long long points, mask, origin;
+};
 
 __device__ inline uint32_t ordered_bits(float f) {
   uint32_t b = __float_as_uint(f);
   return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
 }
 
+// kRobots: a launch for several robots (blockIdx.y); one robot's launch
+// instantiates the same bodies with r = 0.
+template <bool kRobots>
 __global__ void angle_keys_kernel(const float* __restrict__ points,
                                   const uint8_t* __restrict__ mask,
                                   const float* __restrict__ origin, int n, int npad,
-                                  unsigned long long* __restrict__ keys) {
+                                  NormalStrides rs, unsigned long long* __restrict__ keys) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= npad) return;
+  const long long r = kRobots ? blockIdx.y : 0;
+  points += r * rs.points;
+  mask += r * rs.mask;
+  origin += r * rs.origin;
+  keys += r * npad;
   uint32_t hi = 0xFFFFFFFFu;  // the power-of-two padding sorts after every point
   if (i < n) {
     float a = INFINITY;
@@ -81,12 +119,18 @@ __global__ void angle_keys_kernel(const float* __restrict__ points,
   keys[i] = ((unsigned long long)hi << 32) | (unsigned int)i;
 }
 
+template <bool kRobots>
 __global__ void normals_kernel(const float* __restrict__ points,
-                               const float* __restrict__ origin, int n,
-                               const unsigned long long* __restrict__ keys,
+                               const float* __restrict__ origin, int n, int npad,
+                               NormalStrides rs, const unsigned long long* __restrict__ keys,
                                float* __restrict__ normals) {
   int s = blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= n) return;
+  const long long r = kRobots ? blockIdx.y : 0;
+  points += r * rs.points;
+  origin += r * rs.origin;
+  keys += r * npad;
+  normals += r * 2LL * n;
   float px[2 * kHalfWindow + 1], py[2 * kHalfWindow + 1];
   for (int d = -kHalfWindow; d <= kHalfWindow; ++d) {
     int pos = min(max(s + d, 0), n - 1);
@@ -213,49 +257,187 @@ struct TsdfSamples {
     a.wt = a.wt + w * sdf;
   }
   __device__ void store(unsigned int c, const Acc& a) const {
-    float new_w = a.old_w + a.ws;
-    if (new_w > 0.0f) tsd[c] = (a.old_w * a.old_t + a.wt) / fmaxf(new_w, 1e-9f);
+    update(c, a.old_w, a.old_t, a.ws, a.wt);
+  }
+  // The running weighted average of cell c from its sums, as the twin's.
+  __device__ void update(unsigned int c, float old_w, float old_t, float ws, float wt) const {
+    float new_w = old_w + ws;
+    if (new_w > 0.0f) tsd[c] = (old_w * old_t + wt) / fmaxf(new_w, 1e-9f);
     weight[c] = fminf(new_w, max_weight);
   }
 };
 
+// The items of a call that takes several launches: each adds to the cells'
+// running sums in `sums` (slots, size, size), and apply_sums_kernel updates
+// the grids once after the last.
+struct TsdfSums : TsdfSamples {
+  float2* sums;
+
+  __device__ Acc load(unsigned int c) const {
+    const float2 p = sums[c];
+    return {0.0f, 0.0f, p.x, p.y};
+  }
+  __device__ void store(unsigned int c, const Acc& a) const { sums[c] = make_float2(a.ws, a.wt); }
+};
+
+// K21's launch parameters for several robots: robot 0's samples and the
+// shared options, the robot strides, and each robot's grids.
+template <class Samples>
+struct TsdfRobots {
+  Samples first;
+  long long points, mask, normals, origin, active, do_insert;  // robot strides, in elements
+  long long cells;  // a robot's cells: the stride of the running sums
+  const float* grid_origins[kMaxRobots];
+  float* tsd[kMaxRobots];
+  float* weight[kMaxRobots];
+};
+
+template <class Samples>
+__device__ inline void offset_sums(Samples&, long long) {}
+__device__ inline void offset_sums(TsdfSums& s, long long cells) { s.sums += cells; }
+
+// Robot r's items (in_order_scatter.cuh's group r).
+template <class Samples>
+__device__ inline Samples source_of(const TsdfRobots<Samples>& p, unsigned int r) {
+  Samples s = p.first;
+  s.points += r * p.points;
+  s.mask += r * p.mask;
+  s.normals += r * p.normals;
+  s.origin += r * p.origin;
+  s.active += r * p.active;
+  s.do_insert += r * p.do_insert;
+  s.grid_origins = p.grid_origins[r];
+  s.tsd = p.tsd[r];
+  s.weight = p.weight[r];
+  offset_sums(s, r * p.cells);
+  return s;
+}
+
+// After a call's launches: every cell of robot blockIdx.y whose sum of
+// weights is positive takes its running average from its sums.
+__global__ void apply_sums_kernel(TsdfRobots<TsdfSums> p) {
+  const long long r = blockIdx.y;
+  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= p.cells) return;
+  const float2 sums = p.first.sums[r * p.cells + c];
+  if (!(sums.x > 0.0f)) return;
+  TsdfSamples cell = p.first;
+  cell.tsd = p.tsd[r];
+  cell.weight = p.weight[r];
+  cell.update((unsigned int)c, cell.weight[c], cell.tsd[c], sums.x, sums.y);
+}
+
+// The table of robots r0 .. r0 + count of a call: `first` robot r0's
+// samples, `row` the robots' grid pointers.
+template <class Samples>
+inline TsdfRobots<Samples> robots_table(const Samples& first, const void* const* row, int count,
+                                        const long long* st, long long cells) {
+  TsdfRobots<Samples> p = {};
+  p.first = first;
+  p.points = st[0];
+  p.mask = st[1];
+  p.normals = st[2];
+  p.origin = st[3];
+  p.active = st[4];
+  p.do_insert = st[5];
+  p.cells = cells;
+  for (int r = 0; r < count; ++r) {
+    p.tsd[r] = (float*)row[3 * r];
+    p.weight[r] = (float*)row[3 * r + 1];
+    p.grid_origins[r] = (const float*)row[3 * r + 2];
+  }
+  return p;
+}
+
+// Inserts the `count` robots of table `p`; one robot launches its own
+// Source (robot index 0).
+template <class Samples>
+inline cudaError_t insert_robots(const TsdfRobots<Samples>& p, int count, int items, int passes,
+                                 cudaStream_t stream) {
+  if (count == 1) return in_order_scatter::launch(p.first, items, passes, stream);
+  return in_order_scatter::launch(p, items, passes, stream, count);
+}
+
 }  // namespace
 
-// K20. `keys` holds next_pow2(n) int64 of scratch; `normals` (n, 2) out.
+// K20 for `robots` scans of n points: `keys` holds robots x next_pow2(n)
+// int64 of scratch; `normals` (robots, n, 2) out; `strides` (host memory)
+// the robot strides of points, mask and origin.
 extern "C" int tsdf_normals_2d(const void* points, const void* mask, const void* origin, int n,
-                               void* keys, void* normals, void* stream) {
+                               int robots, const void* strides, void* keys, void* normals,
+                               void* stream) {
+  if (robots < 1 || robots > 65535 || strides == nullptr) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   int npad = 2;
   while (npad < n) npad <<= 1;
-  cudaStream_t st = (cudaStream_t)stream;
+  const long long* st = (const long long*)strides;
+  const NormalStrides rs = {st[0], st[1], st[2]};
+  cudaStream_t stm = (cudaStream_t)stream;
   unsigned long long* k = (unsigned long long*)keys;
-  angle_keys_kernel<<<(npad + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-      (const float*)points, (const uint8_t*)mask, (const float*)origin, n, npad, k);
-  cudaError_t err = bitonic::sort(k, npad, st);
+  const dim3 key_grid((npad + kThreads - 1) / kThreads, robots);
+  auto angle_keys = robots == 1 ? angle_keys_kernel<false> : angle_keys_kernel<true>;
+  angle_keys<<<key_grid, kThreads, 0, stm>>>((const float*)points, (const uint8_t*)mask,
+                                              (const float*)origin, n, npad, rs, k);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  normals_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-      (const float*)points, (const float*)origin, n, k, (float*)normals);
+  err = bitonic::sort_segments(k, npad, robots, stm);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 normal_grid((n + kThreads - 1) / kThreads, robots);
+  auto normals_of = robots == 1 ? normals_kernel<false> : normals_kernel<true>;
+  normals_of<<<normal_grid, kThreads, 0, stm>>>((const float*)points, (const float*)origin, n,
+                                                 npad, rs, k, (float*)normals);
   return (int)cudaGetLastError();
 }
 
-// K21: inserts in place into `tsd` and `weight` (slots, size, size);
-// `passes` radix passes of 8 bits cover the slots' cell indices.
-extern "C" int tsdf_insert_2d(const void* points, const void* mask, const void* normals,
-                              const void* origin, int n, const void* grid_origins,
-                              float resolution, int size, float truncation, float max_weight,
-                              int range_exponent, float angle_denominator,
+// K21: inserts in place into each robot's `tsd` and `weight` (slots, size,
+// size). `grids` (host memory): robots x (tsd, weight, grid origins (slots,
+// 2)) device pointers; `strides` (host memory): the robot strides of
+// points, mask, normals, origin, active and do_insert. `passes` radix
+// passes of 8 bits cover one robot's cell indices. Where a robot's items
+// take more than one launch (more than kChunk), `sums` holds robots x
+// (slots, size, size) zeroed float pairs, the running sums; else it may be
+// null.
+extern "C" int tsdf_insert_2d(const void* const* grids, int robots, const void* points,
+                              const void* mask, const void* normals, const void* origin, int n,
+                              const void* strides, float resolution, int size, float truncation,
+                              float max_weight, int range_exponent, float angle_denominator,
                               float distance_denominator, int project_to_normal,
                               const void* active, const void* do_insert, int slots, int passes,
-                              void* tsd, void* weight, void* stream) {
+                              void* sums, void* stream) {
   const long long cells = (long long)slots * size * size;
   const long long items = (long long)kSamples * n * slots;
-  if (n < 0 || size < 1 || cells >= (long long)in_order_scatter::kNone || items > 0x7FFFFFFFll ||
-      passes < 1 || (passes < 4 && cells > (1ll << (8 * passes))))
+  const bool chunked = items > (long long)in_order_scatter::kChunk;
+  if (grids == nullptr || strides == nullptr || robots < 1 || n < 0 || size < 1 ||
+      cells >= (long long)in_order_scatter::kNone || items > 0x7FFFFFFFll || passes < 1 ||
+      (passes < 4 && cells > (1ll << (8 * passes))) || (chunked && sums == nullptr))
     return (int)cudaErrorInvalidValue;
-  TsdfSamples src{(const float*)points, (const uint8_t*)mask, (const float*)normals,
-                  (const float*)origin, n, (const float*)grid_origins, resolution, size, truncation, range_exponent,
-                  angle_denominator, distance_denominator, project_to_normal,
-                  (const uint8_t*)active, (const uint8_t*)do_insert, max_weight, (float*)tsd,
-                  (float*)weight};
-  return (int)in_order_scatter::launch(src, (int)items, passes, (cudaStream_t)stream);
+  const long long* st = (const long long*)strides;
+  cudaStream_t stm = (cudaStream_t)stream;
+  for (int r0 = 0; r0 < robots; r0 += kMaxRobots) {
+    const int count = min(kMaxRobots, robots - r0);
+    const void* const* row = grids + 3 * r0;
+    TsdfSamples src{(const float*)points + r0 * st[0], (const uint8_t*)mask + r0 * st[1],
+                    (const float*)normals + r0 * st[2], (const float*)origin + r0 * st[3], n,
+                    (const float*)row[2], resolution, size, truncation, range_exponent,
+                    angle_denominator, distance_denominator, project_to_normal,
+                    (const uint8_t*)active + r0 * st[4], (const uint8_t*)do_insert + r0 * st[5],
+                    max_weight, (float*)row[0], (float*)row[1]};
+    cudaError_t err;
+    if (!chunked) {
+      err = insert_robots(robots_table(src, row, count, st, cells), count, (int)items, passes,
+                          stm);
+    } else {
+      TsdfSums partial;
+      (TsdfSamples&)partial = src;
+      partial.sums = (float2*)sums + r0 * cells;
+      const TsdfRobots<TsdfSums> table = robots_table(partial, row, count, st, cells);
+      err = insert_robots(table, count, (int)items, passes, stm);
+      if (err != cudaSuccess) return (int)err;
+      const dim3 grid((unsigned)((cells + kThreads - 1) / kThreads), count);
+      apply_sums_kernel<<<grid, kThreads, 0, stm>>>(table);
+      err = cudaGetLastError();
+    }
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }

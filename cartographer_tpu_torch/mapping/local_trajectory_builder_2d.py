@@ -29,9 +29,11 @@ ticks of R. The correlative search's data-dependent angular step and
 argmax, the LM loop's early exit, the adaptive filters' searches and the
 insertion's do_insert gate stay on the device.
 
-TSDF submaps with a batcher (K20 and K21 batched across robots) and the
-IMU-based extrapolator (which the JAX package's 2D builder never reads)
-raise NotImplementedError.
+TSDF submaps batch the same way (K20's normals and K21's insertion one
+launch each for all R; the step key keeps TSDF and probability-grid
+builders apart, as the JAX key's `use_tsdf` does). The IMU-based
+extrapolator, which the JAX package's 2D builder never reads, raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -225,8 +227,6 @@ class LocalTrajectoryBuilder2D:
         cross-robot ticks. `permutation_fn(seed, n)` replaces the voxel
         filters' on-device permutation (tests inject the JAX package's
         permutation through it)."""
-        if batcher is not None and options.submaps.grid_type == "TSDF":
-            raise NotImplementedError("TSDF submaps are not batched across robots")
         if options.pose_extrapolator.use_imu_based:
             raise NotImplementedError("the IMU-based extrapolator is not ported to 2D")
         self._device = torch.device(device)

@@ -18,12 +18,14 @@ against the loaded map.
 
 With `batch_scan_dispatch` the 2D trajectories share one `ScanBatcher`
 (`mapping/scan_batcher.py`): their frontends' steps run in cross-robot
-ticks, one launch per kernel and one fetch per tick.
+ticks, one launch per kernel and one fetch per tick, on probability-grid
+or TSDF submaps. As in the JAX package the batcher takes one step
+configuration: a trajectory whose 2D options differ from the first one's
+raises ValueError at its first scan.
 
 Not ported, and refused with NotImplementedError: the trimmers (pure
 localization among them), landmark observations, pose-graph-only
-(uplinked) trajectories, a device mesh or multihost process group, and
-TSDF submaps under `batch_scan_dispatch`.
+(uplinked) trajectories, and a device mesh or multihost process group.
 """
 
 from __future__ import annotations

@@ -135,13 +135,12 @@ class ActiveSubmaps2D:
                      active: torch.Tensor, do_insert: torch.Tensor) -> None:
         """Insert R robots' scans (every field of `range_data` with a leading
         R; `active` (R, 2), `do_insert` (R,)) into each robot's own active
-        slots: one launch of K4 for all R on the card. TSDF windows insert
-        one robot's scan."""
+        slots: one launch of K4 for all R on the card, or for TSDF windows
+        one launch of K20 and one of K21."""
         w0 = windows[0]
         if w0._tsdf:
-            if len(windows) != 1:
-                raise NotImplementedError("TSDF submaps are not batched across robots")
-            w0.insert(range_data.robot(0), active[0], do_insert[0])
+            insert_into_slots_tsdf([w._grids for w in windows], range_data, active, do_insert,
+                                   w0._tsdf_params)
             return
         ins = w0._options.probability_grid_range_data_inserter
         insert_into_slots([w._grids for w in windows], range_data, active, do_insert,

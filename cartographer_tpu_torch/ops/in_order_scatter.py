@@ -1,4 +1,4 @@
-"""Host side of the in-order scatter-add of K18 and K30
+"""Host side of the in-order scatter-add of K18, K30 and K21
 (`csrc/in_order_scatter.cuh`): the radix passes a grid's cell count needs,
 and the launches a call of n returns takes. The constants are the
 header's."""
@@ -17,6 +17,7 @@ def radix_passes(num_cells: int) -> int:
 
 
 def launches(n: int) -> int:
-    """Kernel launches of one call on n returns: one per CHUNK returns."""
+    """Kernel launches of one call on n returns (of each group, where a
+    launch holds several): one per CHUNK returns."""
     return -(-n // CHUNK)
 

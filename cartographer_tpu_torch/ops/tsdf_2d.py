@@ -20,6 +20,11 @@ Three kernels, each with its plain PyTorch twin, which CPU tensors take:
   - `lm_match_tsdf_2d` (K22, `csrc/scan_matcher_2d.cu` `lm_match_tsdf_2d`):
     K3's Levenberg-Marquardt solve on the interpolated signed distance.
 
+Each takes R robots' inputs with a leading R (the cross-robot batched
+step), one launch for all of them on the card: K20 R scans, K21 R robots'
+windows (a list of their grids, which stay where each robot keeps them),
+K22 R grids. A robot's results do not depend on R.
+
 The port follows the JAX program with two documented departures: the 16
 sample offsets are jnp.linspace's float32 formula evaluated with IEEE
 division (XLA's reciprocal moves some by an ulp), and cells the scan does
@@ -48,10 +53,10 @@ NUM_NORMAL_SAMPLES = 4  # estimate_normals_2d's num_samples, as the JAX inserter
 _FUNCTION_TOLERANCE = 1e-6  # lm_solve's default, which the JAX TSDF matcher keeps
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_NORMALS = cuda.CudaKernel("tsdf_2d.cu", "tsdf_normals_2d", [_P, _P, _P, _I, _P, _P])
+_NORMALS = cuda.CudaKernel("tsdf_2d.cu", "tsdf_normals_2d", [_P, _P, _P, _I, _I, _P, _P, _P])
 _INSERT = cuda.CudaKernel(
     "tsdf_2d.cu", "tsdf_insert_2d",
-    [_P, _P, _P, _P, _I, _P, _F, _I, _F, _F, _I, _F, _F, _I, _P, _P, _I, _I, _P, _P])
+    [_P, _I, _P, _P, _P, _P, _I, _P, _F, _I, _F, _F, _I, _F, _F, _I, _P, _P, _I, _I, _P])
 _LM = cuda.CudaKernel("scan_matcher_2d.cu", "lm_match_tsdf_2d",
                       [_P, _I, _F] + scan_matcher_2d.LM_ARGS)
 
@@ -150,6 +155,9 @@ class TsdfGrid2D:
 
 
 def _normals_plain(points: torch.Tensor, mask: torch.Tensor, origin: torch.Tensor):
+    if points.dim() == 3:  # R robots' scans, one after another
+        return torch.stack([_normals_plain(points[r], mask[r], origin[r])
+                            for r in range(points.shape[0])])
     n = points.shape[0]
     rel = points - origin
     angles = torch.atan2(rel[:, 1], rel[:, 0])
@@ -199,18 +207,21 @@ def estimate_normals_2d(points: torch.Tensor, mask: torch.Tensor,
                         origin: torch.Tensor) -> torch.Tensor:
     """Per-point unit normals (N, 2) (normal_estimation_2d.cc): the smallest
     principal direction of each point's 5 neighbours in scan-angle order,
-    oriented toward the sensor `origin` (2,)."""
+    oriented toward the sensor `origin` (2,). With (R, N, 2) points, (R, N)
+    masks and (R, 2) origins: R robots' normals (R, N, 2), one launch."""
     if not points.is_cuda:
         return _normals_plain(points, mask, origin)
-    n = points.shape[0]
-    cuda.check(points, "points", torch.float32, (n, 2))
-    cuda.check(mask, "mask", torch.bool, (n,))
-    cuda.check(origin, "origin", torch.float32, (2,))
-    keys = torch.empty(max(2, 1 << (n - 1).bit_length()), dtype=torch.int64,
+    robots = points.shape[0] if points.dim() == 3 else None
+    n = points.shape[-2]
+    strides = np.array([cuda.robot_stride(t, name, dtype, inner, robots) for t, name, dtype, inner
+                        in ((points, "points", torch.float32, (n, 2)),
+                            (mask, "mask", torch.bool, (n,)),
+                            (origin, "origin", torch.float32, (2,)))], np.int64)
+    keys = torch.empty((robots or 1) * max(2, 1 << (n - 1).bit_length()), dtype=torch.int64,
                        device=points.device)
-    normals = torch.empty((n, 2), dtype=torch.float32, device=points.device)
+    normals = torch.empty(points.shape, dtype=torch.float32, device=points.device)
     _NORMALS(points.device, points.data_ptr(), mask.data_ptr(), origin.data_ptr(), n,
-             keys.data_ptr(), normals.data_ptr())
+             robots or 1, strides.ctypes.data, keys.data_ptr(), normals.data_ptr())
     return normals
 
 
@@ -301,38 +312,61 @@ def _insert_plain(grids: TsdfGrid2D, rd: RangeData, normals, active, do_insert,
         g.weight.copy_(torch.where(gate, new_w, old_w).reshape(s, s))
 
 
-def insert_into_slots_tsdf(grids: TsdfGrid2D, rd: RangeData, active: torch.Tensor,
+def insert_into_slots_tsdf(grids, rd: RangeData, active: torch.Tensor,
                            do_insert: torch.Tensor, params: TsdfInserterParams,
                            normals: Optional[torch.Tensor] = None) -> None:
     """TSDFRangeDataInserter2D::Insert of one scan (in the grids' frame)
-    into every grid of the batch whose `active` flag is set, when
+    into every grid of the batch `grids` whose `active` flag is set, when
     `do_insert` (0-d bool) holds; in place. `normals` (N, 2) default to
-    estimate_normals_2d of the returns."""
+    estimate_normals_2d of the returns. With (R, N, 2) returns, (R, 2)
+    origin, (R, slots) `active` and (R,) `do_insert`, `grids` is a list of
+    R robots' batches: one launch of K20 and one of K21 for all R."""
     hits = rd.returns
+    robots = hits.points.shape[0] if hits.points.dim() == 3 else None
     if normals is None:
         normals = estimate_normals_2d(hits.points, hits.mask, rd.origin)
-    if not grids.tsd.is_cuda:
-        _insert_plain(grids, rd, normals, active, do_insert, params)
+    if not hits.points.is_cuda:
+        jobs = ([(grids, rd, normals, active, do_insert)] if robots is None else
+                [(grids[r], rd.robot(r), normals[r], active[r], do_insert[r])
+                 for r in range(robots)])
+        for g, one, nr, a, d in jobs:
+            _insert_plain(g, one, nr, a, d, params)
         return
-    slots, size, n = grids.tsd.shape[0], grids.size, hits.capacity
-    cuda.check(grids.tsd, "tsd", torch.float32, (slots, size, size))
-    cuda.check(grids.weight, "weight", torch.float32, (slots, size, size))
-    cuda.check(grids.origin, "grid origin", torch.float32, (slots, 2))
-    cuda.check(hits.points, "returns", torch.float32, (n, 2))
-    cuda.check(hits.mask, "returns mask", torch.bool, (n,))
-    cuda.check(normals, "normals", torch.float32, (n, 2))
-    cuda.check(rd.origin, "origin", torch.float32, (2,))
-    cuda.check(active, "active", torch.bool, (slots,))
-    cuda.check(do_insert, "do_insert", torch.bool, ())
-    _INSERT(grids.tsd.device, hits.points.data_ptr(), hits.mask.data_ptr(), normals.data_ptr(),
-            rd.origin.data_ptr(), n, grids.origin.data_ptr(), f32(grids.resolution), size,
-            f32(grids.truncation_distance), f32(grids.max_weight),
+    if robots is None:
+        grids = [grids]
+    g0 = grids[0]
+    n = hits.points.shape[-2]
+    size, res = cuda.robot_grids(grids, robots or 1)
+    slots = g0.tsd.shape[0]
+    if any(g.truncation_distance != g0.truncation_distance or g.max_weight != g0.max_weight
+           for g in grids):
+        raise ValueError("the robots' grids must share their truncation and maximum weight")
+    rows = []
+    for g in grids:
+        cuda.check(g.tsd, "tsd", torch.float32, (slots, size, size))
+        cuda.check(g.weight, "weight", torch.float32, (slots, size, size))
+        cuda.check(g.origin, "grid origin", torch.float32, (slots, 2))
+        rows.append((g.tsd, g.weight, g.origin))
+    inputs = ((hits.points, "returns", torch.float32, (n, 2)),
+              (hits.mask, "returns mask", torch.bool, (n,)),
+              (normals, "normals", torch.float32, (n, 2)),
+              (rd.origin, "origin", torch.float32, (2,)),
+              (active, "active", torch.bool, (slots,)),
+              (do_insert, "do_insert", torch.bool, ()))
+    strides = np.array([cuda.robot_stride(t, name, dtype, inner, robots)
+                        for t, name, dtype, inner in inputs], np.int64)
+    # Items of more than one launch add to running sums, applied once after.
+    sums = (torch.zeros(((robots or 1) * slots * size * size, 2), device=hits.points.device)
+            if in_order_scatter.launches(SAMPLES_PER_RAY * n * slots) > 1 else None)
+    _INSERT(hits.points.device, cuda.pointer_table(rows), robots or 1,
+            *(t.data_ptr() for t, _, _, _ in inputs[:4]), n, strides.ctypes.data, f32(res),
+            size, f32(g0.truncation_distance), f32(g0.max_weight),
             int(params.update_weight_range_exponent),
             f32(2 * params.angle_kernel_bandwidth**2),
             f32(2 * params.distance_kernel_bandwidth**2), int(params.project_to_normal),
             active.data_ptr(), do_insert.data_ptr(), slots,
-            in_order_scatter.radix_passes(slots * size * size), grids.tsd.data_ptr(),
-            grids.weight.data_ptr())
+            in_order_scatter.radix_passes(slots * size * size),
+            None if sums is None else sums.data_ptr())
 
 
 def insert_range_data_tsdf(grid: TsdfGrid2D, range_data: RangeData,

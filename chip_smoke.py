@@ -164,7 +164,9 @@ BATCH_OPTIONS = {"use_imu_data": False, "tpu.scan_capacity": 1024,
 BATCH_ERROR_LIMIT = 0.25  # m, a robot's mean error over its BATCH_SCANS (PERF.md section 2)
 # Each robot's mean error [m] over the first BATCH_SCANS scans, (JAX, the
 # port's plain path), on the CPU with the JAX package's permutations, with
-# the default options and with the search on: tests/batched_serving_witness_2d.py.
+# the default options, with the search on, and on TSDF submaps with the
+# search on, there with a third entry, the worst of JAX's means over 4 runs
+# with N(0, 1e-6 m) added to the ranges: tests/batched_serving_witness_2d.py.
 BATCH_WITNESS = {
     "default": [
         (0.0307, 0.0305), (0.0227, 0.0226), (0.05, 0.0507), (0.2781, 0.2728),
@@ -177,6 +179,14 @@ BATCH_WITNESS = {
         (0.0225, 0.0254), (1.8396, 1.4606), (0.017, 0.0172), (0.0139, 0.0139),
         (0.0222, 0.0198), (0.0189, 0.0194), (0.0345, 1.0453), (0.0124, 0.0122),
         (0.0285, 0.029), (0.017, 0.0211), (0.0201, 0.0201), (0.0138, 0.0144),
+    ],
+    "tsdf": [
+        (0.0122, 0.0124, 0.0124), (0.0149, 0.0146, 0.0187), (0.0175, 0.0176, 0.0177),
+        (0.0181, 0.0185, 0.0181), (0.0223, 0.0222, 0.0222), (0.0168, 0.018, 0.0198),
+        (0.0115, 0.0116, 0.0136), (0.0129, 0.013, 0.013), (0.0157, 0.0159, 0.0161),
+        (0.0152, 0.0146, 0.0152), (0.0195, 0.0187, 0.0196), (0.0203, 0.0197, 0.0199),
+        (0.0214, 0.0226, 0.0214), (0.0187, 0.0221, 0.0188), (0.0164, 0.0188, 0.0164),
+        (0.0132, 0.0119, 0.0132),
     ],
 }
 NUM_SCANS_3D = 400  # one submap finishes at 320 insertions
@@ -285,10 +295,24 @@ def _cuda_ms(fn, reps=30, warmup=3, attempts=3):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        device_ms = sum(_device_us(e) for e in prof.key_averages()) / 1e3 / reps
+        device_ms = _window_device_us(prof) / 1e3 / reps
         if device_ms > 0:
             return device_ms
     return _event_ms(fn, reps, warmup=0)
+
+
+def _window_device_us(prof):
+    """Device microseconds of a profiled window: the summed durations of
+    its GPU activities, read from the trace's records without building the
+    profiler's event tree (seconds per 10,000 operations, which a plain
+    tick of many small operations would take a minute for)."""
+    import torch
+
+    results = getattr(prof.profiler, "kineto_results", None)
+    if results is None:
+        return sum(_device_us(e) for e in prof.key_averages())
+    on_card = torch._C._autograd.DeviceType.CUDA
+    return sum(e.duration_ns() for e in results.events() if e.device_type() == on_card) / 1e3
 
 
 def _event_ms(fn, reps=30, warmup=3):
@@ -1047,7 +1071,6 @@ def _kernel_phase_tsdf(torch, dev, run):
     (default widths)."""
     import torch.nn.functional as F
 
-    from cartographer_tpu_torch.core.tensor import true_div
     from cartographer_tpu_torch.ops import bnb_2d, correlative_2d, tsdf_2d
     from cartographer_tpu_torch.ops.probability import UNKNOWN_PROBABILITY
 
@@ -1075,9 +1098,7 @@ def _kernel_phase_tsdf(torch, dev, run):
         replaces="cartographer_tpu/ops/tsdf_2d.py:86", max_abs_err=max_err,
         ms=_cuda_ms(lambda: tsdf_2d.estimate_normals_2d(pts, mask, origin)),
         plain_ms=_cuda_ms(lambda: tsdf_2d._normals_plain(pts, mask, origin), reps=10),
-        # atan2 and the key (20), a sort's n log2 n comparisons, the window's
-        # mean, covariance and eigenvector (60) per point.
-        bound=_bound(n * 17 + 8, n * (80 + int(np.log2(n)))),
+        bound=_bound(*_k20_work(n)),
         library_ms=_cuda_ms(lambda: torch.argsort(keys, stable=True)))
 
     # K21: the scan into both active grids, on clones for the twin.
@@ -1092,15 +1113,9 @@ def _kernel_phase_tsdf(torch, dev, run):
     known_diff = int(((card.weight > 0) != (twin.weight > 0)).sum())
     exact = torch.equal(card.tsd, twin.tsd) and torch.equal(card.weight, twin.weight)
     err = float(max((card.tsd - twin.tsd).abs().max(), (card.weight - twin.weight).abs().max()))
-    sample_pts, sdf, w = tsdf_2d._samples(rd, got, grids.truncation_distance, params)
-    lins, touched = [], 0
+    k21_bytes, k21_ops, lins = _k21_work(torch, grids, rd, got, active, params)
     size = grids.size
-    for slot in range(2):
-        c = torch.floor(true_div(sample_pts - grids.origin[slot], grids.resolution)).long()
-        inside = ((c >= 0) & (c < size)).all(-1) & (w > 0)
-        lin = (c[..., 0] * size + c[..., 1])[inside]
-        lins.append((lin, w[inside], (w * sdf)[inside]))
-        touched += int(torch.unique(lin).numel())
+    touched = sum(int(torch.unique(lin).numel()) for lin, _, _ in lins)
     print(f"K21 tsdf_insert_2d: {touched} cells touched in 2 slots, known sets "
           f"{'equal' if not known_diff else f'differ in {known_diff} cells'}, max |err| "
           f"{err:.3g} (tolerance: exact, both add in input order)")
@@ -1113,10 +1128,7 @@ def _kernel_phase_tsdf(torch, dev, run):
                                                            normals=got)),
         plain_ms=_cuda_ms(lambda: tsdf_2d._insert_plain(twin, rd, got, active, yes, params),
                           reps=5),
-        # Reads the returns, mask, normals and origin, reads and writes the
-        # tsd and weight of the touched cells; 16 samples per return and slot
-        # at some 60 operations each, 10 per touched cell.
-        bound=_bound(n * 17 + 8 + touched * 16, 2 * 16 * valid * 60 + touched * 10),
+        bound=_bound(k21_bytes, k21_ops),
         # index_add_ of the two sums of both slots: the scatter only.
         library_ms=_cuda_ms(lambda: [(sums[2 * k].index_add_(0, lin, ww),
                                       sums[2 * k + 1].index_add_(0, lin, ws))
@@ -1139,10 +1151,7 @@ def _kernel_phase_tsdf(torch, dev, run):
         replaces="cartographer_tpu/ops/tsdf_2d.py:183", max_abs_err=err,
         ms=_cuda_ms(lambda: tsdf_2d.lm_match_tsdf_2d(*margs)),
         plain_ms=_cuda_ms(lambda: tsdf_2d._match_plain(*margs), reps=5),
-        # Per valid point: the point and flag, 16 tsd cells per bicubic
-        # sample; some 12 operations per cell and pass, 1 + 2 passes per
-        # iteration.
-        bound=_bound(lvalid * (8 + 1 + 16 * 4), (1 + 2 * int(itk)) * lvalid * 16 * 12),
+        bound=_bound(*_k22_work(lvalid, int(itk))),
         library_ms=None)
 
     # K5's TSDF form: the scan's search.
@@ -2347,15 +2356,42 @@ def _backend_kernel_phase_3d(torch, dev, ctx):
           f"the floor")
     if differ or not torch.equal(got.full, m.stack.full):
         _fail("K14 differs from the plain twin")
-    q = got.full[0].float()[None, None]
+    def shift_max(a, d):  # max(a[i], a[i + d]) along each axis, zero beyond: one 2^3 pool
+        return F.max_pool3d(F.pad(a, (0, d) * 3), 2, stride=1, dilation=d)
+
+    def pooled():
+        """K14's function through max_pool3d: the quantized level (the twin's
+        elementwise operations), then a 2^3 pool of the zero-padded level per
+        full level, and three (a shift, a halving, a shift) per coarse
+        level."""
+        x = bnb_3d.quantize_plain(grid.log_odds, grid.known).float()[None, None]
+        full, coarse = [x], []
+        for h in range(1, frd):
+            x = shift_max(x, 1 << (h - 1))
+            full.append(x)
+        for _ in range(depth - frd):
+            x = shift_max(F.max_pool3d(shift_max(x, 1 << (frd - 1)), 2, 2), 1)
+            coarse.append(x)
+        return full, coarse
+
+    full, coarse = pooled()
+    pool_differ = sum(int((f[0, 0] != got.full[h].float()).sum()) for h, f in enumerate(full))
+    for j, c in enumerate(coarse):
+        n = c.shape[-1]
+        pool_differ += int((c[0, 0] != got.coarse[j, :n, :n, :n].float()).sum())
+    pools = (frd - 1) + 3 * (depth - frd)
+    print(f"K14's function through {pools} max_pool3d calls: {pool_differ} differing cells")
+    if pool_differ:
+        _fail("K14's library composition differs from K14")
+    del full, coarse
     rows["bnb3d_stack"] = dict(
         replaces="cartographer_tpu/ops/bnb_3d.py:113", max_abs_err=float(differ),
         ms=_cuda_ms(lambda: bnb_3d.build_precomputation_stack_3d(grid, depth, frd), reps=10),
         plain_ms=_cuda_ms(lambda: bnb_3d.stack_plain(grid, depth, frd), reps=3, warmup=1),
         bound=_bound(S ** 3 * 5 + frd * S ** 3 + (depth - frd) * (S // 2) ** 3,
                      S ** 3 * (12 + 8 * (frd - 1)) + (depth - frd) * S ** 3 * 2),
-        # One halving of the quantized level; the stack takes 18 such passes.
-        library_ms=_cuda_ms(lambda: F.max_pool3d(q, 2, 2)))
+        # The whole stack through max_pool3d (from the log-odds and known).
+        library_ms=_cuda_ms(pooled, reps=10), library_pools=pools)
     del got, ref
 
     # K15: one local pair of the run at the default widths, kernel against twin.
@@ -3692,28 +3728,34 @@ def _state_interchange_phase(torch, dev, mb2d, pg3d):
     return out
 
 
-def _keeping_tick(torch):
-    """Record K1-K5's arguments and results through one robot-batched step
-    (grids cloned where a later kernel of the step writes them: K5 and K3
-    read the grids K4 then inserts into; K4 keeps its grids from before
-    the insert). -> (the calls by kernel, a function that restores the
-    wrappers)."""
+def _keeping_tick(torch, tsdf=False):
+    """Record the kernels' arguments and results through one robot-batched
+    step: K1, K2, K5, then K3 and K4, or with `tsdf` K22, K20 and K21
+    (grids cloned where a later kernel of the step writes them: K5 and the
+    refine read the grids the insertion then updates; the insertion keeps
+    its grids from before). -> (the calls by kernel, a function that
+    restores the wrappers)."""
     from cartographer_tpu_torch.mapping import local_trajectory_builder_2d as ltb
     from cartographer_tpu_torch.mapping import submap_2d
-    from cartographer_tpu_torch.ops import correlative_2d, scan_pipeline_2d
+    from cartographer_tpu_torch.ops import correlative_2d, scan_pipeline_2d, tsdf_2d
 
     def cloned(args):
         return ([g.clone() for g in args[0]], *args[1:])
 
-    kept = {k: [] for k in ("align", "voxel", "adaptive", "correlative", "lm", "insert")}
+    kept = {k: [] for k in ("align", "voxel", "adaptive", "correlative", "lm", "insert",
+                            "normals")}
     restore = [_recording(scan_pipeline_2d, "align_scan", kept["align"], result=True),
                _recording(scan_pipeline_2d, "voxel_filter_mask", kept["voxel"], result=True),
                _recording(ltb, "adaptive_voxel_filter_masks", kept["adaptive"], result=True),
                _recording(correlative_2d, "correlative_match", kept["correlative"],
                           transform=cloned, result=True),
-               _recording(ltb, "lm_match_2d", kept["lm"], transform=cloned, result=True),
-               _recording(submap_2d, "insert_into_slots", kept["insert"],
-                          transform=lambda a: (a, cloned(a)[0]))]
+               _recording(ltb, "lm_match_tsdf_2d" if tsdf else "lm_match_2d", kept["lm"],
+                          transform=cloned, result=True),
+               _recording(submap_2d, "insert_into_slots_tsdf" if tsdf else "insert_into_slots",
+                          kept["insert"], transform=lambda a: (a, cloned(a)[0]))]
+    if tsdf:
+        restore.append(_recording(tsdf_2d, "estimate_normals_2d", kept["normals"],
+                                  result=True))
 
     def undo():
         for r in restore:
@@ -3721,15 +3763,55 @@ def _keeping_tick(torch):
     return kept, undo
 
 
-def _tick_against_twins(torch, opts, kept):
+def _k20_work(n):
+    """K20 on one scan of n points: the points, masks, origin and normals;
+    atan2 and the key (20 operations), a sort's log2 n comparisons and the
+    window's mean, covariance and eigenvector (60) per point."""
+    return n * 17 + 8, n * (80 + int(np.log2(n)))
+
+
+def _k21_work(torch, grids, rd, normals, active, params):
+    """K21 on one robot's slots: it reads the returns, masks, normals and
+    origin and reads and writes the tsd and weight of the cells its samples
+    touch; 16 samples per return and active slot at some 60 operations,
+    10 per touched cell. -> (bytes, operations, the touched cells' (index,
+    weight, weight x sdf) per active slot, for the library call)."""
+    from cartographer_tpu_torch.core.tensor import true_div
+    from cartographer_tpu_torch.ops import tsdf_2d
+
+    sample_pts, sdf, w = tsdf_2d._samples(rd, normals, grids.truncation_distance, params)
+    lins, touched, size = [], 0, grids.size
+    for slot in range(grids.tsd.shape[0]):
+        if not bool(active[slot]):
+            continue
+        c = torch.floor(true_div(sample_pts - grids.origin[slot], grids.resolution)).long()
+        inside = ((c >= 0) & (c < size)).all(-1) & (w > 0)
+        lin = (c[..., 0] * size + c[..., 1])[inside]
+        lins.append((lin, w[inside], (w * sdf)[inside]))
+        touched += int(torch.unique(lin).numel())
+    n, valid = rd.returns.points.shape[0], int(rd.returns.mask.sum())
+    return (n * 17 + 8 + touched * 16, len(lins) * 16 * valid * 60 + touched * 10, lins)
+
+
+def _k22_work(valid, iterations):
+    """K22 on one robot's refine: the points and flags, 16 tsd cells per
+    bicubic sample; some 12 operations per cell and pass, 1 + 2 passes per
+    iteration."""
+    return valid * (8 + 1 + 16 * 4), (1 + 2 * iterations) * valid * 16 * 12
+
+
+def _tick_against_twins(torch, opts, kept, tsdf=False):
     """Each robot's slice of a recorded robot-batched tick (`kept` by
-    _keeping_tick) against K1-K5's plain twins, at the tolerances of the
-    card test test_robot_batched_kernels: K2 and K5 exact, K1 1e-5 m with
-    its masks exact, K3's cost 1e-4 relative and pose 1e-4 (1e-3 where the
-    twin's LM path takes another number of iterations), K4 0.1% of the
-    known cells. -> (the worst deviation by kernel, the tick's work (bytes,
-    operations) by kernel, a function that runs the twins on the tick)."""
-    from cartographer_tpu_torch.ops import correlative_2d, grid_2d, scan_matcher_2d
+    _keeping_tick) against its kernels' plain twins, at the tolerances of
+    the card tests test_robot_batched_kernels and, with `tsdf`, of the
+    single-robot TSDF kernel tests: K2, K5 (its TSDF form too) and K21
+    exact, K1 1e-5 m with its masks exact, K3's and K22's cost 1e-4
+    relative and pose 1e-4 (1e-3 where the twin's LM path takes another
+    number of iterations), K4 0.1% of the known cells, K20 1e-5 where a
+    return's normal is defined. -> (the worst deviation by kernel, the
+    tick's work (bytes, operations) by kernel, a function that runs the
+    twins on the tick)."""
+    from cartographer_tpu_torch.ops import correlative_2d, grid_2d, scan_matcher_2d, tsdf_2d
     from cartographer_tpu_torch.ops.probability import probability_to_log_odds
     from cartographer_tpu_torch.ops.scan_pipeline_2d import align_scan_plain
     from cartographer_tpu_torch.sensor import voxel_filter
@@ -3741,27 +3823,42 @@ def _tick_against_twins(torch, opts, kept):
     (a5, (best, scores)), = kept["correlative"]
     (a4, (pose, cost, iterations)), = kept["lm"]
     (args_ins, before), = kept["insert"]
-    grids_after, rd, active, do_insert, hit_p, miss_p, free, samples = args_ins[:8]
-    lo = (probability_to_log_odds(hit_p), probability_to_log_odds(miss_p))
+    if tsdf:
+        (an, normals), = kept["normals"]
+        grids_after, rd, active, do_insert, tparams = args_ins[:5]
+        names = ("scan_preprocess_2d", "voxel_filter", "correlative_2d_tsdf",
+                 "lm_match_tsdf_2d", "tsdf_normals_2d", "tsdf_insert_2d")
+        match_plain = tsdf_2d._match_plain
+    else:
+        grids_after, rd, active, do_insert, hit_p, miss_p, free, samples = args_ins[:8]
+        lo = (probability_to_log_odds(hit_p), probability_to_log_odds(miss_p))
+        names = ("scan_preprocess_2d", "voxel_filter", "correlative_2d", "scan_matcher_2d",
+                 "insert_2d")
+        match_plain = scan_matcher_2d._match_plain
+    k1, k2, k5, k3 = names[:4]
     filters = (opts.adaptive_voxel_filter, opts.loop_closure_adaptive_voxel_filter)
     robots, n = a1[0].shape[0], a1[0].shape[1]
 
     def plain_args(r):
         """Robot r's arguments of every twin."""
         ps, pe = a1[4], a1[5]
-        return dict(
+        args = dict(
             align=(a1[0][r], a1[1][r], a1[2][r], a1[3][r],
                    Rigid3(ps.translation[r], ps.rotation[r]),
                    Rigid3(pe.translation[r], pe.rotation[r]), a1[6][r], a1[7]),
             voxel=(a2[0][r], a2[1][r], a2[2], a2[3][r]),
             adaptive=[(a3[0][r], a3[1][r], *f, a3[3][r]) for f in a3[2]],
             correlative=(a5[0][r], a5[1][r], a5[2][r], a5[3][r], a5[4]),
-            lm=(a4[0][r], a4[1][r], a4[2][r], a4[3][r], a4[4][r], a4[5]),
-            insert=(rd.robot(r), active[r], do_insert[r], *lo, free, samples))
+            lm=(a4[0][r], a4[1][r], a4[2][r], a4[3][r], a4[4][r], a4[5]))
+        if tsdf:
+            args["normals"] = (an[0][r], an[1][r], an[2][r])
+            args["insert"] = (rd.robot(r), normals[r], active[r], do_insert[r], tparams)
+        else:
+            args["insert"] = (rd.robot(r), active[r], do_insert[r], *lo, free, samples)
+        return args
 
-    worst = dict.fromkeys(("scan_preprocess_2d", "voxel_filter", "correlative_2d",
-                           "scan_matcher_2d", "insert_2d"), 0.0)
-    work = {k: [0, 0] for k in worst}
+    worst = dict.fromkeys(names, 0.0)
+    work = {k: [0, 0] for k in names}
     for r in range(robots):
         p = plain_args(r)
         ref = align_scan_plain(*p["align"])
@@ -3769,7 +3866,7 @@ def _tick_against_twins(torch, opts, kept):
         if err > 1e-5 or not all(torch.equal(got1[k][r], ref[k]) for k in (2, 3)):
             _fail(f"batched tick: K1 robot {r} differs from its twin ({err} m, tolerance 1e-5; "
                   "masks exact)")
-        worst["scan_preprocess_2d"] = max(worst["scan_preprocess_2d"], err)
+        worst[k1] = max(worst[k1], err)
         mism = int((keep[r] != voxel_filter.voxel_filter_mask_plain(*p["voxel"])).sum())
         mism += sum(int((adaptive[f][r] != voxel_filter.adaptive_voxel_filter_mask_plain(
             *p["adaptive"][f])).sum()) for f in range(len(filters)))
@@ -3777,35 +3874,55 @@ def _tick_against_twins(torch, opts, kept):
             _fail(f"batched tick: K2 robot {r} differs from its twin in {mism} points")
         bp, sp = correlative_2d.correlative_match_plain(*p["correlative"])
         if not (torch.equal(best[r], bp) and torch.equal(scores[r], sp)):
-            _fail(f"batched tick: K5 robot {r} differs from its twin (tolerance: exact)")
-        xp, cp, ip = scan_matcher_2d._match_plain(*p["lm"])
+            _fail(f"batched tick: {k5} robot {r} differs from its twin (tolerance: exact)")
+        xp, cp, ip = match_plain(*p["lm"])
         same_path = int(iterations[r]) == int(ip)
         pose_err = float((pose[r] - xp).abs().max())
         rel_cost = abs(float(cost[r]) - float(cp)) / max(abs(float(cp)), 1e-30)
         if rel_cost > 1e-4 or pose_err > (1e-4 if same_path else 1e-3):
-            _fail(f"batched tick: K3 robot {r} differs from its twin: pose {pose_err}, cost "
+            _fail(f"batched tick: {k3} robot {r} differs from its twin: pose {pose_err}, cost "
                   f"{rel_cost} relative; {int(iterations[r])} iterations, the twin {int(ip)}")
-        worst["scan_matcher_2d"] = max(worst["scan_matcher_2d"], pose_err)
-        plain = before[r].clone()
-        grid_2d._insert_plain(plain, *p["insert"])
-        touched = int(plain.known.sum())
-        differ = int(((grids_after[r].log_odds - plain.log_odds).abs() > 1e-6).sum()
-                     + (grids_after[r].known != plain.known).sum())
-        if differ > 1e-3 * touched:
-            _fail(f"batched tick: K4 robot {r}'s grids differ in {differ} of {touched} known "
-                  "cells (tolerance 0.1%)")
-        worst["insert_2d"] = max(worst["insert_2d"], differ / max(touched, 1))
+        worst[k3] = max(worst[k3], pose_err)
+        inserted = bool(do_insert[r]) and bool(active[r].any())
+        if tsdf:
+            pts, mask, origin = p["normals"]
+            defined = torch.from_numpy(_defined_normals(
+                pts.cpu().numpy(), mask.cpu().numpy(), origin.cpu().numpy())).to(pts.device)
+            nerr = float(((normals[r] - tsdf_2d._normals_plain(*p["normals"])).abs().max(-1)
+                          .values * defined).max())
+            if nerr > 1e-5:
+                _fail(f"batched tick: K20 robot {r} differs from its twin by {nerr} where the "
+                      "normal is defined (tolerance 1e-5)")
+            worst["tsdf_normals_2d"] = max(worst["tsdf_normals_2d"], nerr)
+            plain = before[r].clone()
+            tsdf_2d._insert_plain(plain, *p["insert"])
+            if not (torch.equal(grids_after[r].tsd, plain.tsd)
+                    and torch.equal(grids_after[r].weight, plain.weight)):
+                _fail(f"batched tick: K21 robot {r}'s grids differ from its twin's "
+                      "(tolerance: exact)")
+            ins_work = (_k21_work(torch, before[r], rd.robot(r), normals[r], active[r],
+                                  tparams)[:2] if inserted else (0, 0))
+            rows = (("tsdf_normals_2d", _k20_work(n)), ("tsdf_insert_2d", ins_work),
+                    (k3, _k22_work(int(a4[2][r].sum()), int(iterations[r]))))
+        else:
+            plain = before[r].clone()
+            grid_2d._insert_plain(plain, *p["insert"])
+            touched = int(plain.known.sum())
+            differ = int(((grids_after[r].log_odds - plain.log_odds).abs() > 1e-6).sum()
+                         + (grids_after[r].known != plain.known).sum())
+            if differ > 1e-3 * touched:
+                _fail(f"batched tick: K4 robot {r}'s grids differ in {differ} of {touched} "
+                      "known cells (tolerance 0.1%)")
+            worst["insert_2d"] = max(worst["insert_2d"], differ / max(touched, 1))
+            rows = (("insert_2d", _k4_work(torch, before[r], rd.robot(r), active[r], free,
+                                           samples) if inserted else (0, 0)),
+                    (k3, _k3_work(int(a4[2][r].sum()), int(iterations[r]))))
 
         # The work this robot's inputs need of each kernel.
-        inserted = bool(do_insert[r]) and bool(active[r].any())
         for name, (b, o) in (
-                ("scan_preprocess_2d", _k1_work(n)),
-                ("voxel_filter", _k2_work(torch, got1[0][r], keep[r], filters, a2[3][r])),
-                ("correlative_2d", _k5_work(torch, *p["correlative"][:4], scores[r],
-                                            a5[4])),
-                ("scan_matcher_2d", _k3_work(int(a4[2][r].sum()), int(iterations[r]))),
-                ("insert_2d", _k4_work(torch, before[r], rd.robot(r), active[r], free,
-                                       samples) if inserted else (0, 0))):
+                (k1, _k1_work(n)),
+                (k2, _k2_work(torch, got1[0][r], keep[r], filters, a2[3][r])),
+                (k5, _k5_work(torch, *p["correlative"][:4], scores[r], a5[4])), *rows):
             work[name][0] += b
             work[name][1] += o
     spare = [g.clone() for g in before]
@@ -3818,8 +3935,12 @@ def _tick_against_twins(torch, opts, kept):
             for f in p["adaptive"]:
                 voxel_filter.adaptive_voxel_filter_mask_plain(*f)
             correlative_2d.correlative_match_plain(*p["correlative"])
-            scan_matcher_2d._match_plain(*p["lm"])
-            grid_2d._insert_plain(spare[r], *p["insert"])
+            match_plain(*p["lm"])
+            if tsdf:
+                tsdf_2d._normals_plain(*p["normals"])
+                tsdf_2d._insert_plain(spare[r], *p["insert"])
+            else:
+                grid_2d._insert_plain(spare[r], *p["insert"])
     return worst, work, plain_tick
 
 
@@ -3827,22 +3948,24 @@ def _batched_serving_phase(torch, dev):
     """Cross-robot batched serving at bench.py's shape: BATCH_ROBOTS robot
     threads (1,024-beam scans, 512^2 grids at 5 cm, matcher cloud 512,
     loop-closure cloud 256), each through its own builder and through one
-    shared ScanBatcher, with the default options and with the correlative
-    search on: every robot's poses in the batched run equal its
-    single-robot builder's bit for bit; scans/s of both runs timed over the
-    whole run (and of the separate builders from one thread); on the JAX
-    package's permutations, every robot that the CPU witness keeps within
-    BATCH_ERROR_LIMIT stays within it; one tick's K1-K5 against their
-    twins robot by robot, and that tick's bound and plain time (row 6b);
-    K1-K5 launches and all kernel launches per tick (counters, and the
-    kernel nodes of a captured CUDA graph) and device ms per tick at R = 1,
-    4 and 16; GPU activities and busy ms per tick in a profiled window."""
+    shared ScanBatcher, with the default options, with the correlative
+    search on, and on TSDF submaps with the search on: every robot's poses
+    in the batched run equal its single-robot builder's bit for bit; scans/s
+    of both runs timed over the whole run (and of the separate builders from
+    one thread); on the JAX package's permutations, every robot that the CPU
+    witness keeps within BATCH_ERROR_LIMIT stays within it; one tick's
+    kernels (K1-K5, or K1, K2, K5's TSDF form, K22, K20, K21) against their
+    twins robot by robot, and that tick's bound and plain time (rows 6b and
+    6c); the step's launches and all kernel launches per tick (counters,
+    and the kernel nodes of a captured CUDA graph; K20's and K21's alone on
+    TSDF) and device ms per tick at R = 1, 4 and 16; GPU activities and
+    busy ms per tick in a profiled window."""
     import threading
 
     from cartographer_tpu_torch.core.config import TrajectoryBuilder2DOptions, apply_overrides
     from cartographer_tpu_torch.mapping import local_trajectory_builder_2d as ltb
     from cartographer_tpu_torch.mapping.scan_batcher import ScanBatcher
-    from cartographer_tpu_torch.ops import cuda
+    from cartographer_tpu_torch.ops import cuda, tsdf_2d
     from cartographer_tpu_torch.sensor.data import TimedPointCloudData
     from cartographer_tpu_torch.simulation import (
         reference_permutation,
@@ -3858,11 +3981,21 @@ def _batched_serving_phase(torch, dev):
         data = [TimedPointCloudData(time=int(round(ts * 1e6)), origin=np.zeros(3, np.float32),
                                     ranges=pts, times=rel) for ts, pts, rel in scans]
         streams.append((data, relative_to_first(truth)))
-    step_kernels = FRONTEND_KERNELS
     out = {}
-    for label, correlative in (("default", False), ("correlative", True)):
+    for label, correlative, grid_type in (("default", False, "PROBABILITY_GRID"),
+                                          ("correlative", True, "PROBABILITY_GRID"),
+                                          ("tsdf", True, "TSDF")):
+        marks, seconds = [time.monotonic()], {}
+
+        def lap(part):  # the wall seconds of each part of the label's run
+            marks.append(time.monotonic())
+            seconds[part] = marks[-1] - marks[-2]
+
+        tsdf = grid_type == "TSDF"
+        step_kernels = TSDF_FRONTEND_KERNELS if tsdf else FRONTEND_KERNELS
         opts = apply_overrides(TrajectoryBuilder2DOptions(), {
-            **BATCH_OPTIONS, "use_online_correlative_scan_matching": correlative})
+            **BATCH_OPTIONS, "use_online_correlative_scan_matching": correlative,
+            "submaps.grid_type": grid_type})
 
         def run(batcher, count=BATCH_SCANS, first=0, permutation_fn=None, threads=True):
             """BATCH_ROBOTS builders each fed its robot's scans, from a
@@ -3914,7 +4047,9 @@ def _batched_serving_phase(torch, dev):
         run(warm, count=3)
         warm.close()
         run(None, count=3)
+        lap("warm")
         alone_builders, alone, wall_alone = run(None)
+        lap("separate")
         batcher = ScanBatcher(max_batch=BATCH_ROBOTS)
         cuda.reset_launch_counts()
         torch.cuda.set_sync_debug_mode("warn")
@@ -3970,21 +4105,26 @@ def _batched_serving_phase(torch, dev):
         # loses some robots on the CPU too, in both packages; each robot
         # that the witness keeps within the limit in both must stay within
         # it here, and the others are reported beside the witness.
+        lap("batched")
         rb = ScanBatcher(max_batch=BATCH_ROBOTS)
         _, on_reference, _ = run(rb, permutation_fn=reference_permutation)
         rb.close()
+        lap("reference")
         ref_errors = mean_errors(on_reference)
         witness = BATCH_WITNESS[label]
         kept = [r for r in range(BATCH_ROBOTS) if max(witness[r]) <= BATCH_ERROR_LIMIT]
         lost = [r for r in kept if ref_errors[r] > BATCH_ERROR_LIMIT]
         res["reference_inputs"] = dict(
             mean_error_m=ref_errors, witness_kept=kept,
-            witness_lost={r: dict(card=ref_errors[r], jax=witness[r][0], plain=witness[r][1])
+            witness_lost={r: dict(card=ref_errors[r], jax=witness[r][0], plain=witness[r][1],
+                                  **({"jax_noisy_worst": witness[r][2]}
+                                     if len(witness[r]) > 2 else {}))
                           for r in range(BATCH_ROBOTS) if r not in kept})
         print(f"batched serving ({label}) on the reference's permutations: mean errors "
               f"{[round(e, 4) for e in ref_errors]} m; the {len(kept)} robots the CPU witness "
-              f"keeps within {BATCH_ERROR_LIMIT} m in both packages: "
-              f"{len(kept) - len(lost)} within it here; the others (card, JAX, plain): "
+              f"keeps within {BATCH_ERROR_LIMIT} m (both packages"
+              f"{', and JAX under range noise' if tsdf else ''}): "
+              f"{len(kept) - len(lost)} within it here; the others: "
               f"{res['reference_inputs']['witness_lost']}")
         if lost:
             _fail(f"batched serving ({label}): robots {lost} lose the ground truth on the "
@@ -4006,34 +4146,39 @@ def _batched_serving_phase(torch, dev):
                   f"{scans / wall_alone:.1f})")
 
         if correlative:
-            # One tick of all the robots with K1-K5's calls recorded: each
-            # robot's slice against the plain twins, and the tick's own
-            # bound and plain time (row 6b).
+            # One tick of all the robots with its kernels' calls recorded:
+            # each robot's slice against the plain twins, and the tick's own
+            # bound and plain time (rows 6b and 6c).
             group = builders
             staging = torch.cat([b._staging for b in group])
             # Every robot inserts (the motion filter's first-scan flag), so
-            # K4 is held on all of them.
+            # the insertion is held on all of them.
             staging[:, 8 * opts.tpu.scan_capacity + ltb._MF_FIRST] = 1.0
             staging = staging.pin_memory()
-            calls, undo = _keeping_tick(torch)
+            calls, undo = _keeping_tick(torch, tsdf)
             try:
                 ltb.batched_step(group, staging, [b._seed_counter for b in group])
             finally:
                 undo()
-            worst, work, plain_tick = _tick_against_twins(torch, opts, calls)
+            worst, work, plain_tick = _tick_against_twins(torch, opts, calls, tsdf)
+            lap("tick_against_twins")
             bounds = {k: _bound(*v) for k, v in work.items()}
             res["tick_against_twins"] = dict(
                 robots=BATCH_ROBOTS, worst=worst, work=work,
                 bound_ms=sum(b[0] for b in bounds.values()),
                 bound_ms_by_kernel={k: b[0] for k, b in bounds.items()},
-                plain_ms=_cuda_ms(plain_tick, reps=2, warmup=1))
+                # The profiler's device time of one run, as every plain
+                # time (the twin checks above ran the same operations).
+                plain_ms=_cuda_ms(plain_tick, reps=1, warmup=0))
             del calls, plain_tick
             print(f"batched tick ({label}) of {BATCH_ROBOTS} robots against the twins: "
                   f"{res['tick_against_twins']}")
 
         # One tick at R = 1, 4 and 16 on the run's robots (their last rows):
-        # K1-K5 launches by the counters, every kernel by a captured graph,
-        # device ms by the profiler and by CUDA events.
+        # the step's launches by the counters, every kernel by a captured
+        # graph (and on TSDF K20's and K21's alone), device ms by the
+        # profiler and by CUDA events.
+        lap("tick_plain_ms" if correlative else "one_thread")
         per_r = {}
         for robots in BATCH_TICK_ROBOTS:
             group = builders[:robots]
@@ -4043,7 +4188,7 @@ def _batched_serving_phase(torch, dev):
             perms = torch.stack([torch.randperm(opts.tpu.scan_capacity, device=dev,
                                                 dtype=torch.int32) for _ in group])
             cuda.reset_launch_counts()
-            ltb.device_step(group, upload, perms)
+            _, rd = ltb.device_step(group, upload, perms)
             counted = {k: v for k, v in cuda.launch_counts().items() if v}
             kernels = _launches_per_call(lambda: ltb.device_step(group, upload, perms),
                                          100000, f"batched step at R = {robots}")
@@ -4051,12 +4196,31 @@ def _batched_serving_phase(torch, dev):
             per_r[robots] = dict(step_launches=counted, kernel_launches=kernels,
                                  device_ms=_cuda_ms(tick, reps=20),
                                  event_ms=_event_ms(tick, reps=20))
+            if tsdf:
+                pts, mask = rd.returns.points, rd.returns.mask
+                normals = tsdf_2d.estimate_normals_2d(pts, mask, rd.origin)
+                windows = [b._active_submaps for b in group]
+                active = upload[:, 8 * opts.tpu.scan_capacity + ltb._ACTIVE.start:
+                                8 * opts.tpu.scan_capacity + ltb._ACTIVE.stop] > 0.5
+                yes = torch.ones(robots, dtype=torch.bool, device=dev)
+                per_r[robots]["k20_kernels"] = _launches_per_call(
+                    lambda: tsdf_2d.estimate_normals_2d(pts, mask, rd.origin), 3,
+                    f"K20 at R = {robots}")
+                per_r[robots]["k21_kernels"] = _launches_per_call(
+                    lambda: tsdf_2d.insert_into_slots_tsdf(
+                        [w.grids for w in windows], rd, active, yes, windows[0]._tsdf_params,
+                        normals=normals), 1, f"K21 at R = {robots}")
             print(f"batched step ({label}) at R = {robots}: {per_r[robots]}")
         base = per_r[BATCH_TICK_ROBOTS[0]]
         for robots, v in per_r.items():
             if v["step_launches"] != base["step_launches"]:
-                _fail(f"batched step ({label}): K1-K5 launches grow with R: {per_r}")
+                _fail(f"batched step ({label}): the step's launches grow with R: {per_r}")
+            if tsdf and (v["k21_kernels"] != 1 or v["k20_kernels"] != base["k20_kernels"]):
+                _fail(f"batched step ({label}): K21 takes {v['k21_kernels']} kernel launches "
+                      f"at R = {robots} (1 at every R), K20 {v['k20_kernels']} (at R = 1 "
+                      f"{base['k20_kernels']})")
         res["per_tick"] = per_r
+        lap("per_tick")
 
         # GPU activities and busy ms per tick over a profiled window.
         pb = ScanBatcher(max_batch=BATCH_ROBOTS)
@@ -4083,14 +4247,20 @@ def _batched_serving_phase(torch, dev):
             device_ms_per_tick_by_kernel=dict(sorted(by_name.items(),
                                                      key=lambda kv: -kv[1])[:12]))
         print(f"batched serving ({label}) profile: {res['profile']}")
+        lap("profile")
+        res["seconds"] = dict(seconds, all=marks[-1] - marks[0])
+        print(f"batched serving ({label}): seconds {res['seconds']}")
         out[label] = res
 
-    # Row 6b: a tick of BATCH_ROBOTS robots with the search, its bound and
-    # plain time from that tick's own inputs.
-    tick = out["correlative"]["tick_against_twins"]
-    out["row_6b"] = dict(
-        robots=BATCH_ROBOTS, bound_ms=tick["bound_ms"], plain_ms=tick["plain_ms"],
-        device_ms_per_tick=out["correlative"]["per_tick"][BATCH_ROBOTS]["device_ms"])
+    # Rows 6b and 6c: a tick of BATCH_ROBOTS robots with the search, on
+    # probability grids and on TSDF submaps, its bound and plain time from
+    # that tick's own inputs.
+    for row, label in (("row_6b", "correlative"), ("row_6c", "tsdf")):
+        tick = out[label]["tick_against_twins"]
+        out[row] = dict(
+            robots=BATCH_ROBOTS, bound_ms=tick["bound_ms"], plain_ms=tick["plain_ms"],
+            device_ms_per_tick=out[label]["per_tick"][BATCH_ROBOTS]["device_ms"],
+            kernels_per_tick={r: v["kernel_launches"] for r, v in out[label]["per_tick"].items()})
     return out
 
 

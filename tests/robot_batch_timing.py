@@ -1,9 +1,10 @@
-"""Device times of the 2D step's kernels for one robot, K1-K5 and K21, at the
-main path's shapes (the default 2D options: 2,048-point scans, 1,024^2
-grids), through the wrappers both the robot-batched port and its parent
-have (not collected by pytest).
+"""Device times of the 2D step's kernels for one robot, K1-K5, K20 and K21,
+at the main path's shapes (the default 2D options: 2,048-point scans,
+1,024^2 grids), through the wrappers both the robot-batched port and its
+parent have (not collected by pytest).
 
     python tests/robot_batch_timing.py LABEL [TREE]
+    python tests/robot_batch_timing.py tsdf-robots
 
 Times each kernel's wrapper over 200 calls with `chip_smoke._cuda_ms` (the
 profiler) and `chip_smoke._event_ms` (CUDA events) on the card and prints
@@ -12,6 +13,10 @@ LABEL and one JSON object of [profiler ms, event ms] per kernel. TREE
 and `chip_smoke.py` are used, so one script times two commits: unpack the
 parent with `git archive` and run, in one call on the card, parent,
 change, change, parent.
+
+`tsdf-robots` times the robot-batched K20 and K21 at `bench.py`'s shape
+(1,024-beam scans of R robots, 512^2 grids at 5 cm, two slots) at R = 1, 4
+and 16, and prints one JSON object.
 """
 
 import json
@@ -113,6 +118,8 @@ def main(label):
         "K3 scan_matcher_2d": lambda: scan_matcher_2d.lm_match_2d(*a3),
         "K4 insert_2d": lambda: grid_2d.insert_into_slots(*a4),
         "K5 correlative_2d": lambda: correlative_2d.real_time_correlative_match(*a5),
+        "K20 tsdf_normals_2d": lambda: tsdf_2d.estimate_normals_2d(
+            returns.points, returns.mask, rd.origin),
         "K21 tsdf_insert_2d": lambda: tsdf_2d.insert_into_slots_tsdf(
             tsdf, rd, active, yes, tparams, normals=normals, **extra),
     }
@@ -121,5 +128,46 @@ def main(label):
     print(label, json.dumps(out), flush=True)
 
 
+def tsdf_robots():
+    """K20 and K21 for R robots at bench.py's shape."""
+    from cartographer_tpu_torch.simulation import simulate_scans as scans_of
+
+    cuda.build()
+    dev = torch.device("cuda:0")
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    n, size = 1024, 512
+    pts, masks, grids = [], [], []
+    for r in range(16):
+        scans, _ = scans_of(12, beams=n, seed=r, start=4.0 * r)
+        p = scans[-1][1][:, 0:2]
+        pts.append(p)
+        masks.append(np.linalg.norm(p, axis=1) <= 30.0)
+        grids.append(tsdf_2d.TsdfGrid2D(
+            torch.zeros((2, size, size), device=dev), torch.zeros((2, size, size), device=dev),
+            t(np.float32([[-12.8, -12.8], [-12.0, -12.5]])), 0.05))
+    params = tsdf_2d.TsdfInserterParams()
+    out = {"card": cs._smi()}
+    for robots in (1, 4, 16):
+        points = t(np.stack(pts[:robots]).astype(np.float32))
+        mask = t(np.stack(masks[:robots]))
+        origin = torch.zeros((robots, 2), device=dev)
+        none = PointCloud(torch.zeros_like(points), torch.zeros_like(mask),
+                          torch.zeros(mask.shape, device=dev))
+        rd = RangeData(origin, PointCloud(points, mask, torch.zeros(mask.shape, device=dev)),
+                       none)
+        active = torch.ones((robots, 2), dtype=torch.bool, device=dev)
+        yes = torch.ones(robots, dtype=torch.bool, device=dev)
+        normals = tsdf_2d.estimate_normals_2d(points, mask, origin)
+        calls = {"K20": lambda: tsdf_2d.estimate_normals_2d(points, mask, origin),
+                 "K21": lambda: tsdf_2d.insert_into_slots_tsdf(
+                     grids[:robots], rd, active, yes, params, normals=normals)}
+        out[robots] = {k: [cs._cuda_ms(fn, reps=200), cs._event_ms(fn, reps=200)]
+                       for k, fn in calls.items()}
+    print("tsdf-robots", json.dumps(out), flush=True)
+
+
 if __name__ == "__main__":
-    main(sys.argv[1])
+    if sys.argv[1] == "tsdf-robots":
+        tsdf_robots()
+    else:
+        main(sys.argv[1])

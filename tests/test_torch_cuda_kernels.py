@@ -932,11 +932,12 @@ def test_tsdf_insert_kernel(dev):
     assert torch.equal(runs[0].tsd, runs[1].tsd) and torch.equal(runs[0].weight, runs[1].weight)
 
 
-@pytest.mark.parametrize("n", [512, 4096, 8192])
+@pytest.mark.parametrize("n", [512, 4096, 6144, 8192])
 def test_tsdf_insert_kernel_sizes(dev, n):
     """K21 bit for bit against its twin where the two slots' 2 x 16 x n
     samples take one launch of the in-order routine (16,384 and 131,072)
-    and two (262,144), with the range-exponent and no-projection options."""
+    and two (196,608, the second slot's cells split between them, and
+    262,144), with the range-exponent and no-projection options."""
     from cartographer_tpu_torch.ops import tsdf_2d
 
     card, plain = _tsdf_batch(dev), _tsdf_batch(dev)
@@ -1001,6 +1002,102 @@ def test_tsdf_surface_forms_of_k3_k5_k6(dev):
     assert torch.equal(scores, scores_p) and torch.equal(best, best_p)
     pyr = bnb_2d.build_precomputation_pyramid(grid, 7)
     assert torch.equal(pyr, bnb_2d.pyramid_plain(grid, 7))
+
+
+def _tsdf_robots(dev, n):
+    """Three robots' TSDF scans of n points (RangeData with a leading R) and
+    their windows (two slots each, a scan inserted by the twin), each robot
+    with its own scan, sensor origin and grid origins."""
+    from cartographer_tpu_torch.ops import tsdf_2d
+
+    rds, grids = [], []
+    for r in range(3):
+        origin = (0.031 + 0.04 * r, -0.017 + 0.01 * r)
+        rds.append(_tsdf_scan(dev, n, n * 3 // 4 - 97 * r, seed=60 + r, origin=origin))
+        g = _tsdf_batch(dev)
+        g = dataclasses.replace(g, origin=g.origin + 0.013 * (r + 1))
+        prior = _tsdf_scan(dev, n, n // 2, seed=80 + r, origin=origin)
+        tsdf_2d._insert_plain(g, prior, tsdf_2d._normals_plain(
+            prior.returns.points, prior.returns.mask, prior.origin),
+            _t(np.array([True, True]), dev), torch.tensor(True, device=dev),
+            tsdf_2d.TsdfInserterParams())
+        grids.append(g)
+    stack = lambda ts: torch.stack(ts)  # noqa: E731
+    rd = RangeData(stack([x.origin for x in rds]),
+                   PointCloud(stack([x.returns.points for x in rds]),
+                              stack([x.returns.mask for x in rds]),
+                              stack([x.returns.intensities for x in rds])),
+                   PointCloud(stack([x.misses.points for x in rds]),
+                              stack([x.misses.mask for x in rds]),
+                              stack([x.misses.intensities for x in rds])))
+    return rd, rds, grids
+
+
+def _graph_kernels(fn):
+    """Kernels one call of fn() launches: the kernel nodes of a CUDA graph
+    captured around it."""
+    import ctypes
+
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    libcuda = ctypes.CDLL("libcuda.so.1")
+    raw, count = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    assert libcuda.cuGraphGetNodes(raw, None, ctypes.byref(count)) == 0
+    nodes = (ctypes.c_void_p * count.value)()
+    libcuda.cuGraphGetNodes(raw, nodes, ctypes.byref(count))
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        libcuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        kinds.append(kind.value)
+    return kinds.count(0)  # CU_GRAPH_NODE_TYPE_KERNEL
+
+
+@pytest.mark.parametrize("robots", [1, 3])
+@pytest.mark.parametrize("n", [2048, 16384])
+def test_robot_batched_tsdf_kernels(dev, robots, n):
+    """K20 and K21 with a robot index (the batched step's TSDF insertion):
+    one call for R robots of different scans and grids equals each robot's
+    own call bit for bit; K21 equals its twin bit for bit robot by robot
+    (slot 1 inactive for some robots, do_insert False for one), K20 its twin
+    at the single-robot test's tolerance. K20 takes the kernels of one
+    robot's call at every R: 3, and 5 at 16,384 points (the sort over
+    several tiles, its runs side by side); each robot's K21 items take four
+    chunks there."""
+    from cartographer_tpu_torch.ops import tsdf_2d
+
+    rd, rds, grids = _tsdf_robots(dev, n)
+    rd = rd if robots == 3 else RangeData(rd.origin[:1], PointCloud(
+        rd.returns.points[:1], rd.returns.mask[:1], rd.returns.intensities[:1]), PointCloud(
+        rd.misses.points[:1], rd.misses.mask[:1], rd.misses.intensities[:1]))
+    rds, grids = rds[:robots], grids[:robots]
+    pts, mask = rd.returns.points, rd.returns.mask
+    normals = tsdf_2d.estimate_normals_2d(pts, mask, rd.origin)
+    kernels = _graph_kernels(lambda: tsdf_2d.estimate_normals_2d(pts, mask, rd.origin))
+    assert kernels == (3 if n <= 8192 else 5)
+    for r in range(robots):
+        alone = tsdf_2d.estimate_normals_2d(pts[r], mask[r], rd.origin[r])
+        assert torch.equal(normals[r], alone)
+        ref = tsdf_2d._normals_plain(pts[r], mask[r], rd.origin[r])
+        close = (normals[r] - ref).abs().max(-1).values <= 1e-5
+        assert float(close[mask[r]].float().mean()) >= 0.995
+
+    params = tsdf_2d.TsdfInserterParams()
+    active = _t(np.array([[True, r != 1] for r in range(robots)]), dev)
+    do = _t(np.array([r != 2 for r in range(robots)]), dev)
+    twins = [g.clone() for g in grids]
+    alone = [g.clone() for g in grids]
+    before = tsdf_2d._INSERT.launches
+    tsdf_2d.insert_into_slots_tsdf(grids, rd, active, do, params, normals=normals)
+    assert tsdf_2d._INSERT.launches == before + 1
+    for r in range(robots):
+        tsdf_2d._insert_plain(twins[r], rds[r], normals[r], active[r], do[r], params)
+        tsdf_2d.insert_into_slots_tsdf(alone[r], rds[r], active[r], do[r], params,
+                                       normals=normals[r])
+        assert int((twins[r].weight > 0).sum()) > 2000
+        for g in (twins[r], alone[r]):
+            assert torch.equal(grids[r].tsd, g.tsd) and torch.equal(grids[r].weight, g.weight)
 
 
 # ---------------------------------------------------------------- the scan-match testbed

@@ -266,9 +266,16 @@ def test_kernel_limits_refused_at_construction(override, option):
 
 
 def test_batcher_raises():
-    """Only TSDF submaps refuse a batcher (K20 and K21 are not batched
-    across robots); a probability-grid builder takes one."""
-    with pytest.raises(NotImplementedError, match="TSDF"):
-        LocalTrajectoryBuilder2D(_port_options(**{"submaps.grid_type": "TSDF"}), ["laser"],
-                                 device="cpu", batcher=object())
-    LocalTrajectoryBuilder2D(_port_options(), ["laser"], device="cpu", batcher=object())
+    """Both submap types take a batcher (TSDF since K20 and K21 take a robot
+    index), and their step keys differ, so a batcher never mixes them in a
+    tick; the IMU-based extrapolator still raises, with a batcher or
+    without."""
+    tsdf = LocalTrajectoryBuilder2D(_port_options(**{"submaps.grid_type": "TSDF"}), ["laser"],
+                                    device="cpu", batcher=object())
+    grid = LocalTrajectoryBuilder2D(_port_options(), ["laser"], device="cpu", batcher=object())
+    assert tsdf.step_key != grid.step_key
+    for batcher in (None, object()):
+        with pytest.raises(NotImplementedError, match="IMU-based"):
+            LocalTrajectoryBuilder2D(apply_overrides(
+                _port_options(), {"pose_extrapolator.use_imu_based": True}), ["laser"],
+                device="cpu", batcher=batcher)

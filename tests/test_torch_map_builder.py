@@ -237,45 +237,75 @@ def test_unported_map_builder_options_raise(override):
         MapBuilder(options, device="cpu")
 
 
-def test_batch_scan_dispatch_shares_one_batcher():
-    """`batch_scan_dispatch` builds one ScanBatcher for the 2D trajectories:
-    two trajectories fed through it get the nodes of the same two fed
-    through a MapBuilder without it, bit for bit; a TSDF trajectory under
-    it raises (TSDF is not batched across robots)."""
-    jmb_options, jtraj = build_options()
-    jmb_options = j_apply_overrides(jmb_options, {"async_constraint_search": False})
-    traj = trajectory_builder_options_from_dict(dataclasses.asdict(jtraj))
+def _dispatch_nodes(traj, dispatch, check=None):
+    """Two trajectories of `traj` fed 8 scans each through a MapBuilder with
+    and without `batch_scan_dispatch`: -> {node id: (local translation,
+    rotation)}. `check(mb, tids)` runs after they finish."""
+    jmb_options, _ = build_options()
+    jmb_options = j_apply_overrides(jmb_options, {"async_constraint_search": False,
+                                                  "batch_scan_dispatch": dispatch})
+    options = map_builder_options_from_dict(dataclasses.asdict(jmb_options))
+    assert options.batch_scan_dispatch == dispatch
     world = make_wall_points(num=400, seed=5)
-    nodes = []
-    for dispatch in (False, True):
-        options = map_builder_options_from_dict(dataclasses.asdict(
-            j_apply_overrides(jmb_options, {"batch_scan_dispatch": dispatch})))
-        assert options.batch_scan_dispatch == dispatch
-        mb = MapBuilder(options, device="cpu")
-        tids = [mb.add_trajectory_builder(["laser"], traj) for _ in range(2)]
-        locals_ = [mb.get_trajectory_builder(t)._local for t in tids]
-        if dispatch:
-            assert locals_[0]._batcher is locals_[1]._batcher is mb._scan_batcher
-        for i in range(8):
-            for tid, start in zip(tids, (np.zeros(2), np.array([0.3, -0.2]))):
-                scan = scan_at(world, start + np.array([0.05 * i, 0.0]), 0.0)
-                mb.add_sensor_data(tid, "laser", TimedPointCloudData(
-                    time=T0 + from_seconds(i * 0.1), origin=np.zeros(3, np.float32),
-                    ranges=scan, times=np.zeros(len(scan), np.float32)))
-        for tid in tids:
-            mb.finish_trajectory(tid)
-        nodes.append({k: (n.local_pose_translation, n.local_pose_rotation)
-                      for k, n in mb.pose_graph.nodes.items()})
-        if dispatch:
-            assert mb._scan_batcher.num_scans == 16
-            with pytest.raises(NotImplementedError, match="TSDF"):
-                mb.add_trajectory_builder(["laser"], dataclasses.replace(
-                    traj, trajectory_builder_2d=apply_overrides(
-                        traj.trajectory_builder_2d, {"submaps.grid_type": "TSDF"})))
-            mb._scan_batcher.close()
+    mb = MapBuilder(options, device="cpu")
+    tids = [mb.add_trajectory_builder(["laser"], traj) for _ in range(2)]
+    for i in range(8):
+        for tid, start in zip(tids, (np.zeros(2), np.array([0.3, -0.2]))):
+            scan = scan_at(world, start + np.array([0.05 * i, 0.0]), 0.0)
+            mb.add_sensor_data(tid, "laser", TimedPointCloudData(
+                time=T0 + from_seconds(i * 0.1), origin=np.zeros(3, np.float32),
+                ranges=scan, times=np.zeros(len(scan), np.float32)))
+    for tid in tids:
+        mb.finish_trajectory(tid)
+    if check is not None:
+        check(mb, tids)
+    if dispatch:
+        assert mb._scan_batcher.num_scans == 16
+        mb._scan_batcher.close()
+    return {k: (n.local_pose_translation, n.local_pose_rotation)
+            for k, n in mb.pose_graph.nodes.items()}
+
+
+def _same_nodes(nodes):
     assert len(nodes[0]) == 16 and nodes[0].keys() == nodes[1].keys()
     for key, (t, q) in nodes[0].items():
         assert np.array_equal(nodes[1][key][0], t) and np.array_equal(nodes[1][key][1], q)
+
+
+def test_batch_scan_dispatch_shares_one_batcher():
+    """`batch_scan_dispatch` builds one ScanBatcher for the 2D trajectories:
+    two trajectories fed through it get the nodes of the same two fed
+    through a MapBuilder without it, bit for bit; a trajectory of other 2D
+    options (TSDF submaps) raises at its first scan, as in the JAX package
+    (one batcher takes one step configuration)."""
+    _, jtraj = build_options()
+    traj = trajectory_builder_options_from_dict(dataclasses.asdict(jtraj))
+
+    def check(mb, tids):
+        locals_ = [mb.get_trajectory_builder(t)._local for t in tids]
+        assert locals_[0]._batcher is locals_[1]._batcher is mb._scan_batcher
+        other = mb.add_trajectory_builder(["laser"], dataclasses.replace(
+            traj, trajectory_builder_2d=apply_overrides(
+                traj.trajectory_builder_2d, {"submaps.grid_type": "TSDF"})))
+        scan = scan_at(make_wall_points(num=400, seed=5), np.zeros(2), 0.0)
+        with pytest.raises(ValueError, match="different step options"):
+            for i in range(2):
+                mb.add_sensor_data(other, "laser", TimedPointCloudData(
+                    time=T0 + from_seconds(1.0 + i * 0.1), origin=np.zeros(3, np.float32),
+                    ranges=scan, times=np.zeros(len(scan), np.float32)))
+            mb.finish_trajectory(other)
+
+    _same_nodes([_dispatch_nodes(traj, False), _dispatch_nodes(traj, True, check)])
+
+
+def test_batch_scan_dispatch_tsdf():
+    """Two TSDF trajectories under `batch_scan_dispatch` (K20 and K21 with a
+    robot index) get the nodes of the same two without it, bit for bit."""
+    _, jtraj = build_options()
+    traj = trajectory_builder_options_from_dict(dataclasses.asdict(jtraj))
+    traj = dataclasses.replace(traj, trajectory_builder_2d=apply_overrides(
+        traj.trajectory_builder_2d, {"submaps.grid_type": "TSDF"}))
+    _same_nodes([_dispatch_nodes(traj, False), _dispatch_nodes(traj, True)])
 
 
 def test_unported_entry_points_raise(tmp_path):
