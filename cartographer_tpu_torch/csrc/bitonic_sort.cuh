@@ -1,8 +1,8 @@
 // Bitonic sort of distinct 64-bit keys in device memory, ascending, in place,
 // over as many blocks as the keys need. Included by K12 (rot_histogram.cu),
-// K20 (tsdf_2d.cu), K28 (ndt.cu) and K31 (voxel_filter.cu, whose keys
-// repeat: equal keys end up together, in some order). K18 and K30 add in
-// input order through in_order_scatter.cuh instead.
+// K20 (tsdf_2d.cu) and K31 (voxel_filter.cu, whose keys repeat: equal keys
+// end up together, in some order). K18, K30, K21 and K28 add in input order
+// through in_order_scatter.cuh instead.
 //
 // The count is a power of two. Every stage k and step j of the network that
 // stays within a tile of kSortTile keys runs in shared memory, one tile per

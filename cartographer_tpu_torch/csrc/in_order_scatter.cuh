@@ -1,6 +1,7 @@
 // In-order segmented scatter-add, shared by K18 (paged_grid_3d.cu), K30
-// (grid_3d.cu) and K21 (tsdf_2d.cu): every item that contributes is added
-// into its cell, each cell's items added to its old state in input order.
+// (grid_3d.cu), K21 (tsdf_2d.cu) and K28 (ndt.cu): every item that
+// contributes is added into its cell, each cell's items added to its old
+// state in input order.
 // That is the order of XLA's scatter-add on the CPU and of the twins'
 // index_add_in_order_, so the card equals the twin bit for bit and a run
 // repeats. No atomics touch the sums (float atomics moved results at
@@ -15,10 +16,14 @@
 //   __device__ void add(Acc& acc, unsigned int payload) const
 //     adds one item;
 //   __device__ void store(unsigned int cell, const Acc& acc) const
-//     writes the cell once, after its last item.
+//     writes the cell once, after its last item;
+//   optionally typename Item, Item fetch(unsigned int payload) const,
+//   add(Acc&, const Item&) and static constexpr int kAhead
+//     the item's addends read before the walk adds them (see `fetches`).
 // `SumCount` is the sum-and-count cell of K18 and K30 (the payload is the
 // intensity's bits); K21's payload is its sample's index, through which it
-// recomputes the sample's two addends (w and w x sdf) in the walk.
+// recomputes the sample's two addends (w and w x sdf) in the walk; K28's
+// the point's index, through which it fetches the point again, 8 ahead.
 //
 // Groups: a launch may hold several independent groups of items whose
 // cells never meet (K21's robots), one cluster each along blockIdx.y. The
@@ -173,15 +178,49 @@ struct SumCount {
   }
 };
 
+// A Source with `typename Item` fetches an item's addends from its payload
+// (`Item fetch(unsigned int payload) const`, which must read only valid
+// memory for any payload of the launch and for 0) before its walk adds
+// them (`add(Acc&, const Item&)`), kAhead (`static constexpr int`) items a
+// round. Its round's fetches do not wait on the test of the cell, so
+// their loads are in flight together; a run of a thousand items then
+// costs a few hundred fetch latencies instead of a thousand.
+template <class Source, class = void>
+struct fetches : std::false_type {};
+template <class Source>
+struct fetches<Source, std::void_t<typename Source::Item>> : std::true_type {};
+
 // Adds the payloads of items[j], items[j + 1], ... while their cell is
 // `key`, before `end`.
 template <class Source>
 __device__ inline void walk(const Source& src, const uint2* items, unsigned int& j,
                             unsigned int end, unsigned int key, typename Source::Acc& acc) {
-  for (; j < end; ++j) {
-    const uint2 item = items[j];
-    if (item.x != key) break;
-    src.add(acc, item.y);
+  if constexpr (fetches<Source>::value) {
+    constexpr int ahead = Source::kAhead;
+    while (j < end) {
+      uint2 item[ahead];
+      typename Source::Item addends[ahead];
+#pragma unroll
+      for (int q = 0; q < ahead; ++q) {
+        item[q] = j + q < end ? items[j + q] : make_uint2(~key, 0u);
+        addends[q] = src.fetch(item[q].y);
+      }
+      unsigned int run = ahead;  // the round's items up to the first of another cell
+#pragma unroll
+      for (int q = ahead - 1; q >= 0; --q)
+        if (item[q].x != key) run = q;
+#pragma unroll
+      for (int q = 0; q < ahead; ++q)
+        if (q < (int)run) src.add(acc, addends[q]);
+      j += run;
+      if (run < (unsigned int)ahead) return;
+    }
+  } else {
+    for (; j < end; ++j) {
+      const uint2 item = items[j];
+      if (item.x != key) break;
+      src.add(acc, item.y);
+    }
   }
 }
 

@@ -6,21 +6,27 @@
 //
 // K28: the per-voxel Gaussians of a g^3 grid. A point's cell is
 // floor((p - origin) / resolution) per axis (a true division, as the port
-// divides everywhere); an in-bounds masked-in point keys (cell << 32 |
-// index), every other point (cell g^3 << 32 | index), and the padding to a
-// power of two all ones. The keys are sorted (bitonic_sort.cuh), so each
-// cell's points lie together in input order. One thread per cell then
-// finds its run by binary search and adds, in that order from zero, the
-// count, the sum of p and the sum of p p^T in float32 (the order of XLA's
-// scatter-add on the CPU and of the plain twin, so the sums keep their
-// bits: sq / n - mu mu^T cancels about 4 of float32's 7 digits at the
-// hall's 2-13 m, and float atomics would move L between runs). Then mean =
-// sum / max(count, 1), cov = sq / n - mu mu^T + reg I and valid = count >=
-// min_points in float32, as JAX; inv(cov) by its adjugate and the lower
-// Cholesky factor of that inverse in double precision, rounded to float32.
+// divides everywhere); a masked-out or out-of-bounds point adds nothing.
+// in_order_scatter.cuh adds each cell's points, in input order from zero,
+// into the count, the sum of p and the six distinct sums of p p^T in
+// float32 (the order of XLA's scatter-add on the CPU and of the plain
+// twin, so the sums keep their bits: sq / n - mu mu^T cancels about 4 of
+// float32's 7 digits at the hall's 2-13 m, and float atomics would move L
+// between runs); an item is the point's index, through which the walk
+// reads the point again. The thread that ends a cell's run then writes the
+// cell once: mean = sum / max(count, 1), cov = sq / n - mu mu^T + reg I and
+// valid = count >= min_points in float32, as JAX; inv(cov) by its adjugate
+// and the lower Cholesky factor of that inverse in double precision,
+// rounded to float32. A pass over every cell first writes the cells no
+// point reaches (those of a zero count), so a call is two launches up to
+// in_order_scatter's kChunk = 131,072 points. Above, each chunk's launch
+// continues the cells' running sums in a zeroed scratch of 10 floats a
+// cell, and one pass over the cells then writes every cell from its sums:
+// ceil(n / kChunk) + 1 launches and a memset. The bitonic sort of
+// (cell, index) keys that this replaces took about ten launches a call.
 // Bound: bytes, the points read once (12 + 1 bytes each) and the grid
-// written once (13 floats and a flag a cell); the sort's passes and the
-// longest cell's serial sum make it latency-bound.
+// written once (13 floats and a flag a cell); the radix passes' cluster
+// barriers and the longest cell's serial sum make it latency-bound.
 //
 // K29: the whole <= max_iterations LM of ndt_match in one launch
 // (se3_lm.cuh), three rows per source point: world = R p + t, its cell as
@@ -35,7 +41,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "bitonic_sort.cuh"
+#include "in_order_scatter.cuh"
 #include "se3_lm.cuh"
 
 namespace {
@@ -53,62 +59,28 @@ __device__ inline int cell_of(const float w[3], const float* origin, float resol
   return (c[0] * g + c[1]) * g + c[2];
 }
 
-__global__ void keys_kernel(const float* __restrict__ target, const uint8_t* __restrict__ mask,
-                            int n, int padded, const float* __restrict__ origin, float resolution,
-                            int g, unsigned long long* __restrict__ keys) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= padded) return;
-  if (i >= n) {
-    keys[i] = ~0ull;
-    return;
-  }
-  long long cell = (long long)g * g * g;
-  if (mask[i]) {
-    const float p[3] = {target[3 * i], target[3 * i + 1], target[3 * i + 2]};
-    const int c = cell_of(p, origin, resolution, g);
-    if (c >= 0) cell = c;
-  }
-  keys[i] = ((unsigned long long)cell << 32) | (unsigned int)i;
+// The sums of a cell's points: the count, sum p and the six distinct
+// entries of sum p p^T (xx, xy, xz, yy, yz, zz).
+struct NdtAcc {
+  float count, s[3], sq[6];
+};
+
+// The slot of entry (a, b) of p p^T among the six.
+__device__ inline int pair(int a, int b) {
+  const int lo = min(a, b), hi = max(a, b);
+  return lo == 0 ? hi : lo == 1 ? hi + 2 : 5;
 }
 
-// The first position in keys[0, count) whose key is >= v.
-__device__ inline int lower_bound(const unsigned long long* keys, int count,
-                                  unsigned long long v) {
-  int lo = 0, hi = count;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (keys[mid] < v) lo = mid + 1;
-    else hi = mid;
-  }
-  return lo;
-}
-
-__global__ void cells_kernel(const float* __restrict__ target,
-                             const unsigned long long* __restrict__ keys, int padded, int cells,
-                             float regularization, float min_points, float* __restrict__ means,
-                             float* __restrict__ chol, uint8_t* __restrict__ valid) {
-  const int cell = blockIdx.x * blockDim.x + threadIdx.x;
-  if (cell >= cells) return;
-  const int lo = lower_bound(keys, padded, (unsigned long long)cell << 32);
-  const int hi = lower_bound(keys, padded, (unsigned long long)(cell + 1) << 32);
-  float count = 0.0f, s[3] = {0.0f, 0.0f, 0.0f};
-  float sq[9] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  for (int q = lo; q < hi; ++q) {
-    const size_t i = (size_t)(keys[q] & 0xffffffffull);
-    const float p[3] = {target[3 * i], target[3 * i + 1], target[3 * i + 2]};
-    count = count + 1.0f;
-    for (int a = 0; a < 3; ++a) {
-      s[a] = s[a] + p[a];
-      for (int b = 0; b < 3; ++b) sq[3 * a + b] = sq[3 * a + b] + p[a] * p[b];
-    }
-  }
-  const float n = fmaxf(count, 1.0f);
+// Cell `cell`'s mean, factor and flag from its sums.
+__device__ void write_cell(const NdtAcc& acc, unsigned int cell, float regularization,
+                           float min_points, float* means, float* chol, uint8_t* valid) {
+  const float n = fmaxf(acc.count, 1.0f);
   float mu[3];
-  for (int a = 0; a < 3; ++a) mu[a] = s[a] / n;
+  for (int a = 0; a < 3; ++a) mu[a] = acc.s[a] / n;
   double c[3][3];
   for (int a = 0; a < 3; ++a)
     for (int b = 0; b < 3; ++b) {
-      float v = sq[3 * a + b] / n - mu[a] * mu[b];
+      float v = acc.sq[pair(a, b)] / n - mu[a] * mu[b];
       if (a == b) v = v + regularization;
       c[a][b] = v;
     }
@@ -131,7 +103,72 @@ __global__ void cells_kernel(const float* __restrict__ target,
   const double L[9] = {l00, 0.0, 0.0, l10, l11, 0.0, l20, l21, l22};
   for (int a = 0; a < 3; ++a) means[3 * (size_t)cell + a] = mu[a];
   for (int q = 0; q < 9; ++q) chol[9 * (size_t)cell + q] = (float)L[q];
-  valid[cell] = count >= min_points;
+  valid[cell] = acc.count >= min_points;
+}
+
+// K28's items for in_order_scatter: one per target point, its index the
+// payload; a cell's run is written once, from zero sums.
+struct NdtPoints {
+  const float* target;
+  const uint8_t* mask;
+  const float* center;
+  float half;  // the origin is center - half, as the twin rounds it
+  float* origin;  // (3,) out
+  float resolution;
+  int g;
+  float regularization;
+  float min_points;
+  float* means;
+  float* chol;
+  uint8_t* valid;
+
+  using Acc = NdtAcc;
+  struct Item {
+    float p[3];
+  };
+  static constexpr int kAhead = 8;  // a run's points fetched together (in_order_scatter's walk)
+  __device__ unsigned int cell(int i, unsigned int& payload) const {
+    payload = (unsigned int)i;
+    if (!mask[i]) return in_order_scatter::kNone;
+    const float p[3] = {target[3 * i], target[3 * i + 1], target[3 * i + 2]};
+    const float o[3] = {center[0] - half, center[1] - half, center[2] - half};
+    const int c = cell_of(p, o, resolution, g);
+    return c < 0 ? in_order_scatter::kNone : (unsigned int)c;
+  }
+  __device__ Acc load(unsigned int) const { return {}; }
+  __device__ Item fetch(unsigned int i) const {  // any index below n, or 0
+    return {{target[3 * (size_t)i], target[3 * (size_t)i + 1], target[3 * (size_t)i + 2]}};
+  }
+  __device__ void add(Acc& acc, const Item& item) const {
+    const float* p = item.p;
+    acc.count = acc.count + 1.0f;
+    for (int a = 0; a < 3; ++a) {
+      acc.s[a] = acc.s[a] + p[a];
+      for (int b = a; b < 3; ++b) acc.sq[pair(a, b)] = acc.sq[pair(a, b)] + p[a] * p[b];
+    }
+  }
+  __device__ void store(unsigned int c, const Acc& acc) const {
+    write_cell(acc, c, regularization, min_points, means, chol, valid);
+  }
+};
+
+// The items of a call above one launch: each launch continues the cells'
+// running sums in `sums` (g^3, 10), and sums_kernel writes the cells after
+// the last.
+struct NdtSums : NdtPoints {
+  NdtAcc* sums;
+
+  __device__ Acc load(unsigned int c) const { return sums[c]; }
+  __device__ void store(unsigned int c, const Acc& acc) const { sums[c] = acc; }
+};
+
+// Every cell from zero sums (the cells no point reaches) or, with `sums`,
+// from its running sums; and the grid's origin.
+__global__ void cells_kernel(NdtPoints p, const NdtAcc* sums, int cells) {
+  const int cell = blockIdx.x * blockDim.x + threadIdx.x;
+  if (cell < 3) p.origin[cell] = p.center[cell] - p.half;
+  if (cell >= cells) return;
+  p.store((unsigned int)cell, sums ? sums[cell] : NdtAcc{});
 }
 
 struct NdtRows {
@@ -179,28 +216,38 @@ __global__ void __launch_bounds__(se3lm::kThreads)
 
 }  // namespace
 
-// K28: means (g^3, 3), chol (g^3, 3, 3) and valid (g^3,) uint8 of the
-// target (n, 3) with mask (n,) uint8; `keys` is a scratch of at least
-// max(2, the power of two >= n) 64-bit words.
-extern "C" int ndt_grid(const void* target, const void* mask, int n, const void* origin,
-                        float resolution, int g, float regularization, float min_points,
-                        void* keys, void* means, void* chol, void* valid, void* stream) {
-  if (n < 1 || g < 1 || (long long)g * g * g >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+// K28: origin (3,) = center - half, means (g^3, 3), chol (g^3, 3, 3) and
+// valid (g^3,) uint8 of the target (n, 3) with mask (n,) uint8; `passes`
+// radix passes of 8 bits cover the cell indices. Above
+// in_order_scatter::kChunk points `sums` is a scratch of g^3 x 10 floats
+// (zeroed here), else it may be null.
+extern "C" int ndt_grid(const void* target, const void* mask, int n, const void* center,
+                        float half, float resolution, int g, float regularization,
+                        float min_points, int passes, void* sums, void* origin, void* means,
+                        void* chol, void* valid, void* stream) {
+  const long long cells = (long long)g * g * g;
+  const bool chunked = n > in_order_scatter::kChunk;
+  if (n < 1 || g < 1 || cells >= (1ll << 31) || passes < 1 || passes > 4 ||
+      (passes < 4 && cells > (1ll << (8 * passes))) || (chunked && sums == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  int padded = 2;
-  while (padded < n) padded <<= 1;
-  unsigned long long* k = (unsigned long long*)keys;
-  keys_kernel<<<(padded + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      (const float*)target, (const uint8_t*)mask, n, padded, (const float*)origin, resolution, g,
-      k);
-  cudaError_t err = cudaGetLastError();
+  NdtPoints p{(const float*)target, (const uint8_t*)mask, (const float*)center, half,
+              (float*)origin, resolution, g, regularization, min_points, (float*)means,
+              (float*)chol, (uint8_t*)valid};
+  const int blocks = (int)((cells + kThreads - 1) / kThreads);
+  if (!chunked) {
+    cells_kernel<<<blocks, kThreads, 0, s>>>(p, nullptr, (int)cells);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    return (int)in_order_scatter::launch(p, n, passes, s);
+  }
+  NdtSums partial;
+  (NdtPoints&)partial = p;
+  partial.sums = (NdtAcc*)sums;
+  cudaError_t err = cudaMemsetAsync(sums, 0, cells * sizeof(NdtAcc), s);
+  if (err == cudaSuccess) err = in_order_scatter::launch(partial, n, passes, s);
   if (err != cudaSuccess) return (int)err;
-  err = bitonic::sort(k, padded, s);
-  if (err != cudaSuccess) return (int)err;
-  const int cells = g * g * g;
-  cells_kernel<<<(cells + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      (const float*)target, k, padded, cells, regularization, min_points, (float*)means,
-      (float*)chol, (uint8_t*)valid);
+  cells_kernel<<<blocks, kThreads, 0, s>>>(p, partial.sums, (int)cells);
   return (int)cudaGetLastError();
 }
 

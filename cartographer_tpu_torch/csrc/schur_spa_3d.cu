@@ -26,40 +26,56 @@
 //             angle branch below |v|^2 = 1e-12). The coupling blocks
 //             B = J_reduced^T J_node, masked by the free dims, are kept per
 //             entry (E = C + 2R + 3A) and scattered transposed into the
-//             sweep's right-hand sides [B^T | g_n] (N, 6, 6S+1).
+//             band solve's right-hand sides [B^T | g_n] (N, 6, 6S+1).
 //   cost      the cost at x (no retraction, as _cost_local).
 //   damp      one thread per slot: frozen dims get zero rows and columns
 //             and a unit diagonal, free ones lambda |diag| + damping.
-//   factor    one block walks the 12x12 super-blocks of node pairs (2k,
-//             2k+1): C_k = Td_k - To_{k-1}^T CinvU_{k-1}, Cinv_k =
-//             (C_k + 1e-9 I)^-1 (Gauss-Jordan with partial pivoting, the
-//             block's threads over the augmented matrix), CinvU_k =
-//             Cinv_k To_k.
-//   sweep     one warp per two right-hand sides, a lane per row of the
-//             super-block: forward and back substitution down and up the
-//             chain.
-//   reduce    one block per B entry: B X and B y scattered atomically into
-//             the reduced matrix and right-hand side.
-//   cholesky  one block: the 6S x 6S system blockdiag(A) - B X in global
-//             memory (at S = 64, 384^2 floats, 590 KB, more than shared
-//             memory holds), factored in place and solved; a system that
-//             is not positive definite yields NaN, and the step is then
-//             rejected.
-//   update    dx_n = -(y + X dx_s), the retraction of every slot and the
-//             gravity clamp.
+//   band      T X = [B^T | g_n] over the 12x12 super-blocks of node pairs
+//             (2k, 2k+1) by block cyclic reduction (Band, below), in place
+//             of _block_tridiag_factor and _tridiag_solve_multi's Thomas
+//             chain: ceil(log2(N/2)) levels down and as many back up, each
+//             one launch over its blocks and column tiles, so the dependent
+//             depth is 2 ceil(log2(N/2)) + 1 launches (23 at N = 4,096)
+//             where the chain was 4,096 steps in one block. Each pivot,
+//             plus 1e-9 I as JAX adds to each Thomas pivot, is inverted by
+//             one warp in registers (Gauss-Jordan without pivot search: T is
+//             symmetric positive definite under the damping); its 12 x K
+//             right-hand-side rows are read along X's columns, a thread per
+//             column. It solves the same system as the twin's Thomas chain
+//             in another order of float32 operations: the twin's tolerance
+//             holds the result.
+//   reduce    B X and B y into the reduced system without atomics: the
+//             entries grouped by slot once per call, a block per piece of
+//             64 entries and column tile, then a block per slot and tile
+//             adds its pieces in order (a fixed order from run to run).
+//   cholesky  the 6S x 6S system blockdiag(A) - B X, augmented with its
+//             right-hand side, in one thread-block cluster (up to 16
+//             blocks, its rows in their shared memory where they fit: at
+//             S = 64, 590 KB over 16 blocks), factored by panels of 32
+//             columns with one cluster barrier per panel, the forward
+//             substitution riding along as the last row, then the back
+//             substitution by panels; a system that is not positive
+//             definite yields NaN, and the step is then rejected.
+//   update    dx_n = -(y + X dx_s) (a warp per node along X's row), the
+//             retraction of every slot and the gravity clamp.
 //   cost      the cost at the candidate.
 //   accept    finite and not larger: take the candidate, lambda / 3; else
 //             keep the state, lambda * 8; lambda within [1e-8, 1e8].
-// Atomics order the sums differently from run to run: the result agrees
-// with the plain twin to a tolerance, not bit for bit.
+// The assembly's atomics order its sums differently from run to run: the
+// result agrees with the plain twin to a tolerance, not bit for bit.
 //
 // Bound: latency. At capacity (N = 4096 nodes, S = 64 reduced slots,
 // C = 16,384 binary terms, 4,095 gyro and 4,094 acceleration terms) an
 // iteration moves some 70 MB (the right-hand sides are 4096 x 6 x 385
-// floats) and does some 0.5 GFLOP; the factor is a chain of 2,048 dependent
-// 12x12 inversions and the sweep a chain of 4,096 dependent 12x12 products
-// per column, which is what the time is made of.
+// floats) and does some 0.5 GFLOP (the cyclic reduction about twice the
+// Thomas chain's band work). The former form spent 16.4 of its 27.5 ms an
+// iteration in the one-block factor chain, 7.0 in the one-block Cholesky
+// and 3.2 in the sweep; this one takes about 1.1 ms: the cluster's 12
+// panel steps 0.40 (each block reads each panel from the cluster), the
+// band's 23 dependent launches 0.27, the assembly's atomics 0.23 and B X
+// 0.15, which reads X once per entry (PERF.md).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -68,7 +84,12 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr float kEps = 1e-9f;
-constexpr int kSweepWarps = 8;
+constexpr int kBandThreads = 128;  // a block's threads in the band's launches
+constexpr int kWideLaunch = 264;   // blocks from which a level launch takes no column tiles
+constexpr int kCholThreads = 512;
+constexpr int kPanel = 32;       // columns per panel step of the reduced Cholesky
+constexpr int kPiece = 64;       // coupling entries per piece of the B X reduction
+constexpr int kMaxCluster = 16;  // Hopper's largest cluster, a non-portable size
 
 struct Problem {
   int S, N, C, D, R, A, E, K, N2;
@@ -112,7 +133,7 @@ struct State {
 struct Workspace {
   float *A, *d0, *u1, *u2, *g_s, *g_n, *X, *M, *r;  // zeroed every iteration, in this order
   float* scal;  // [0] cost at x, [1] cost at the candidate, [2] lambda
-  float *Cinv, *CinvU, *To;
+  float* panels;  // the reduced Cholesky's panel buffers where shared memory cannot hold them
   float* Bc;
   int *ae, *be;  // ae < 0: the entry is zero
   float* dx;
@@ -576,191 +597,544 @@ __device__ inline float to_at(const Workspace& w, int k, int r, int c) {
   return w.u2[36 * (2 * k + 1) + 6 * (r - 6) + (c - 6)];
 }
 
-__global__ void factor_kernel(Problem p, Workspace w) {
-  __shared__ float aug[12][24];
-  __shared__ float prev[12][12];  // CinvU_{k-1}
-  __shared__ float lo[12][12];    // To_{k-1}
-  __shared__ float up[12][12];    // To_k
-  __shared__ float fcol[12];
-  __shared__ int piv;
-  const int tid = threadIdx.x;
-  for (int k = 0; k < p.N2; ++k) {
-    bool last = k + 1 == p.N2;
-    if (tid < 144) {
-      int r = tid / 12, c = tid % 12;
-      float v = td_at(w, k, r, c);
-      if (k > 0) {
-        float s = 0.0f;
-        for (int m = 0; m < 12; ++m) s = s + lo[m][r] * prev[m][c];
-        v = v - s;
-      }
-      aug[r][c] = v + (r == c ? kEps : 0.0f);
-      aug[r][12 + c] = r == c ? 1.0f : 0.0f;
-      float u = last ? 0.0f : to_at(w, k, r, c);
-      up[r][c] = u;
-      if (!last) w.To[144 * (size_t)k + tid] = u;
+// ------------------------------------------------------------ the node band
+
+// Block cyclic reduction of T X = [B^T | g_n] over the n = N/2 super-blocks.
+// Level l (stride s = 2^l) holds the blocks whose index is a multiple of s:
+// D^(l)_i on the diagonal and U^(l)_i coupling i to i + s (U^(0) = To).
+// While more than one block is left, the odd ones of the level (i = s mod
+// 2s) are eliminated: x_j = y_j - G_j x_{j-s} - H_j x_{j+s} with
+// Dinv_j = (D_j + 1e-9 I)^-1, G_j = Dinv_j U_{j-s}^T, H_j = Dinv_j U_j and
+// y_j = Dinv_j b_j; each even one i takes D_i - U_{i-s}^T H_{i-s} - U_i
+// G_{i+s}, b_i - U_{i-s}^T y_{i-s} - U_i y_{i+s} and, to i + 2s, the
+// coupling -U_i H_{i+s}. The last block (index 0) is eliminated with no
+// neighbours, so its y is its x; back up the levels each eliminated block
+// then takes its x from its neighbours'. A block past the end is zero.
+struct Band {
+  int n;           // super-blocks
+  float* D[2];     // D^(l) by the parity of l, l >= 1
+  float* U[2];     // U^(l) by the parity of l, l >= 1
+  float* G;        // per eliminated block
+  float* H;
+};
+
+// Block k's diagonal at `level` into the shared `out` (144 floats).
+__device__ inline void load_d(const Workspace& w, const Band& b, int level, int k, float* out) {
+  for (int e = threadIdx.x; e < 144; e += blockDim.x)
+    out[e] = level == 0 ? td_at(w, k, e / 12, e % 12) : b.D[level & 1][144 * (size_t)k + e];
+}
+// U^(level)_k, zero where k or k + 2^level lies outside the band.
+__device__ inline void load_u(const Workspace& w, const Band& b, int level, int k, float* out) {
+  const bool in = k >= 0 && k + (1 << level) < b.n;
+  for (int e = threadIdx.x; e < 144; e += blockDim.x)
+    out[e] = !in ? 0.0f
+             : level == 0 ? to_at(w, k, e / 12, e % 12)
+                          : b.U[level & 1][144 * (size_t)k + e];
+}
+__device__ inline void load_block(const float* src, int k, bool in, float* out) {
+  for (int e = threadIdx.x; e < 144; e += blockDim.x)
+    out[e] = in ? src[144 * (size_t)k + e] : 0.0f;
+}
+
+// out = (a + 1e-9 I)^-1 of the symmetric positive definite 12x12 `a` by the
+// first warp: Gauss-Jordan without pivot search, lane r holding row r of
+// [a | I] in registers, the pivot row broadcast by shuffles.
+__device__ inline void warp_inverse(const float* a, float* out) {
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x;
+  const int r = lane < 12 ? lane : 0;
+  float m[12], e[12];
+#pragma unroll
+  for (int c = 0; c < 12; ++c) {
+    m[c] = a[12 * r + c] + (c == r ? kEps : 0.0f);
+    e[c] = c == r ? 1.0f : 0.0f;
+  }
+#pragma unroll
+  for (int k = 0; k < 12; ++k) {
+    float pm[12], pe[12];
+#pragma unroll
+    for (int c = 0; c < 12; ++c) {
+      pm[c] = __shfl_sync(0xffffffffu, m[c], k);
+      pe[c] = __shfl_sync(0xffffffffu, e[c], k);
     }
-    __syncthreads();
-    for (int col = 0; col < 12; ++col) {
-      if (tid == 0) {
-        int best = col;
-        for (int r = col + 1; r < 12; ++r)
-          if (fabsf(aug[r][col]) > fabsf(aug[best][col])) best = r;
-        piv = best;
-      }
-      __syncthreads();
-      if (piv != col && tid < 24) {
-        float tmp = aug[col][tid];
-        aug[col][tid] = aug[piv][tid];
-        aug[piv][tid] = tmp;
-      }
-      __syncthreads();
-      float inv = 1.0f / aug[col][col];
-      __syncthreads();
-      if (tid < 24) aug[col][tid] = aug[col][tid] * inv;
-      if (tid < 12) fcol[tid] = aug[tid][col];
-      __syncthreads();
-      for (int idx = tid; idx < 288; idx += blockDim.x) {
-        int r = idx / 24, j = idx % 24;
-        if (r != col) aug[r][j] = aug[r][j] - fcol[r] * aug[col][j];
-      }
-      __syncthreads();
+    const float inv = 1.0f / pm[k];
+    const float f = m[k];
+#pragma unroll
+    for (int c = 0; c < 12; ++c) {
+      const float nm = pm[c] * inv, ne = pe[c] * inv;
+      m[c] = lane == k ? nm : m[c] - f * nm;
+      e[c] = lane == k ? ne : e[c] - f * ne;
     }
-    if (tid < 144) {
-      int r = tid / 12, c = tid % 12;
-      w.Cinv[144 * (size_t)k + tid] = aug[r][12 + c];
-      float s = 0.0f;
-      for (int m = 0; m < 12; ++m) s = s + aug[r][12 + m] * up[m][c];
-      w.CinvU[144 * (size_t)k + tid] = s;
-      prev[r][c] = s;  // read next step, after the barrier below
-      lo[r][c] = up[r][c];
+  }
+  if (lane < 12)
+#pragma unroll
+    for (int c = 0; c < 12; ++c) out[12 * lane + c] = e[c];
+}
+
+// Eliminates block k from its diagonal `d` and its couplings `ul` (to the
+// left neighbour, U_{k-s}) and `ur` (U_k), all shared: Dinv into `dinv`,
+// and G_k, H_k written by the first column tile.
+__device__ inline void eliminate(const Band& b, int k, const float* d, const float* ul,
+                                 const float* ur, float* dinv) {
+  warp_inverse(d, dinv);
+  __syncthreads();
+  if (blockIdx.y == 0)
+    for (int e = threadIdx.x; e < 144; e += blockDim.x) {
+      const int r = e / 12, c = e % 12;
+      float g = 0.0f, h = 0.0f;
+      for (int m = 0; m < 12; ++m) {
+        g = g + dinv[12 * r + m] * ul[12 * c + m];
+        h = h + dinv[12 * r + m] * ur[12 * m + c];
+      }
+      b.G[144 * (size_t)k + e] = g;
+      b.H[144 * (size_t)k + e] = h;
     }
-    __syncthreads();
+}
+
+// The columns of X of this block's tile (blockIdx.y of gridDim.y), a
+// thread's every blockDim.x-th: [first, end). The first and back launches
+// always take tiles of at most blockDim.x columns, one a thread (a loop
+// over several lets the compiler hold the block's 12x12 matrices in
+// registers across it, 288 floats, and spill).
+__device__ inline int2 band_columns(int K) {
+  const int per = (K + gridDim.y - 1) / gridDim.y;
+  return make_int2(blockIdx.y * per + threadIdx.x, min(K, (blockIdx.y + 1) * per));
+}
+
+__device__ inline void load_rows(const float* x, size_t K, float* v) {
+#pragma unroll
+  for (int r = 0; r < 12; ++r) v[r] = x[r * K];
+}
+
+// Level 0's eliminations: the odd blocks (block 0 where it is the only one).
+__global__ void __launch_bounds__(kBandThreads)
+    band_first_kernel(Problem p, Workspace w, Band b) {
+  __shared__ float d[144], ul[144], ur[144], dinv[144];
+  const int j = b.n == 1 ? 0 : 2 * blockIdx.x + 1;
+  load_d(w, b, 0, j, d);
+  load_u(w, b, 0, j - 1, ul);
+  load_u(w, b, 0, j, ur);
+  __syncthreads();
+  eliminate(b, j, d, ul, ur, dinv);
+  const size_t K = p.K;
+  const int2 c = band_columns(p.K);  // a column a thread: the launch is in column tiles
+  if (c.x < c.y) {
+    float* x = w.X + 12 * (size_t)j * K + c.x;
+    float v[12];
+    load_rows(x, K, v);
+#pragma unroll
+    for (int r = 0; r < 12; ++r) {
+      float y = 0.0f;
+#pragma unroll
+      for (int m = 0; m < 12; ++m) y = y + dinv[12 * r + m] * v[m];
+      x[r * K] = y;
+    }
   }
 }
 
-// X = T^-1 [B^T | g_n]: one warp per two columns, lane 12 c + r holds row r
-// of column c of the current super-block.
-__global__ void sweep_kernel(Problem p, Workspace w) {
-  __shared__ float buf[kSweepWarps][2][2][12];  // [warp][column][carry, tmp][row]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int first = 2 * (blockIdx.x * kSweepWarps + warp);
-  if (first >= p.K) return;  // whole warps leave together
-  const int c = lane < 24 ? lane / 12 : 0;
-  const int row = lane % 12;
-  const int col = first + c;
-  const bool active = lane < 24 && col < p.K;
-  const size_t K = p.K;
-  float* carry = buf[warp][c][0];
-  float* tmp = buf[warp][c][1];
-  if (active) carry[row] = 0.0f;
-  __syncwarp();
-  for (int k = 0; k < p.N2; ++k) {
-    float* x = w.X + (12 * (size_t)k + row) * K + col;
-    float b = active ? x[0] : 0.0f;
-    if (k > 0 && active) {
-      const float* to = w.To + 144 * (size_t)(k - 1);
-      float s = 0.0f;
-      for (int m = 0; m < 12; ++m) s = s + to[12 * m + row] * carry[m];
-      b = b - s;
+// The even blocks of `level`: their updates from the odd neighbours, then,
+// for those the next level eliminates, their elimination.
+__global__ void __launch_bounds__(kBandThreads)
+    band_level_kernel(Problem p, Workspace w, Band b, int level) {
+  __shared__ float d[144], ul[144], ui[144], hl[144], gr[144], hr[144], ull[144];
+  __shared__ float dn[144], uln[144], uin[144], dinv[144];
+  const int s = 1 << level;
+  const int i = blockIdx.x * 2 * s, jl = i - s, jr = i + s;
+  const bool has_l = i > 0, has_r = jr < b.n;
+  load_d(w, b, level, i, d);
+  load_u(w, b, level, jl, ul);
+  load_u(w, b, level, i, ui);
+  load_u(w, b, level, i - 2 * s, ull);
+  load_block(b.H, jl, has_l, hl);
+  load_block(b.G, jr, has_r, gr);
+  load_block(b.H, jr, has_r, hr);
+  __syncthreads();
+  for (int e = threadIdx.x; e < 144; e += blockDim.x) {
+    const int r = e / 12, c = e % 12;
+    float v = d[e], un = 0.0f, ln = 0.0f;
+    for (int m = 0; m < 12; ++m) {
+      v = v - ul[12 * m + r] * hl[12 * m + c];
+      v = v - ui[12 * r + m] * gr[12 * m + c];
+      un = un - ui[12 * r + m] * hr[12 * m + c];
+      ln = ln - ull[12 * r + m] * hl[12 * m + c];
     }
-    __syncwarp();
-    if (active) tmp[row] = b;
-    __syncwarp();
-    float y = 0.0f;
-    if (active) {
-      const float* ci = w.Cinv + 144 * (size_t)k + 12 * row;
-      for (int m = 0; m < 12; ++m) y = y + ci[m] * tmp[m];
-      x[0] = y;
-    }
-    __syncwarp();
-    if (active) carry[row] = y;
-    __syncwarp();
+    dn[e] = v;
+    uin[e] = un;
+    uln[e] = ln;
   }
-  if (active) carry[row] = 0.0f;
-  __syncwarp();
-  for (int k = p.N2 - 1; k >= 0; --k) {
-    float* x = w.X + (12 * (size_t)k + row) * K + col;
-    float v = 0.0f;
-    if (active) {
-      const float* cu = w.CinvU + 144 * (size_t)k + 12 * row;
-      float s = 0.0f;
-      for (int m = 0; m < 12; ++m) s = s + cu[m] * carry[m];
-      v = x[0] - s;
-      x[0] = v;
+  __syncthreads();
+  const int next = 2 * s;
+  const bool eliminated = (b.n + next - 1) / next == 1 ? i == 0 : i % (2 * next) == next;
+  if (blockIdx.y == 0) {
+    float* dst_d = b.D[(level + 1) & 1] + 144 * (size_t)i;
+    float* dst_u = b.U[(level + 1) & 1] + 144 * (size_t)i;
+    for (int e = threadIdx.x; e < 144; e += blockDim.x) {
+      dst_d[e] = dn[e];
+      dst_u[e] = uin[e];
     }
-    __syncwarp();
-    if (active) carry[row] = v;
-    __syncwarp();
+  }
+  if (eliminated) eliminate(b, i, dn, uln, uin, dinv);
+  const size_t K = p.K;
+#pragma unroll 1  // a column at a time: its 12-row vectors fill the registers
+  for (int2 c = band_columns(p.K); c.x < c.y; c.x += blockDim.x) {
+    float* x = w.X + 12 * (size_t)i * K + c.x;
+    float v[12], yl[12], yr[12];
+    load_rows(x, K, v);
+#pragma unroll
+    for (int r = 0; r < 12; ++r) yl[r] = yr[r] = 0.0f;
+    if (has_l) load_rows(w.X + 12 * (size_t)jl * K + c.x, K, yl);
+    if (has_r) load_rows(w.X + 12 * (size_t)jr * K + c.x, K, yr);
+#pragma unroll
+    for (int r = 0; r < 12; ++r) {
+      float t = v[r];
+#pragma unroll
+      for (int m = 0; m < 12; ++m) t = t - ul[12 * m + r] * yl[m] - ui[12 * r + m] * yr[m];
+      v[r] = t;
+    }
+    if (eliminated) {
+#pragma unroll
+      for (int r = 0; r < 12; ++r) {
+        float y = 0.0f;
+#pragma unroll
+        for (int m = 0; m < 12; ++m) y = y + dinv[12 * r + m] * v[m];
+        x[r * K] = y;
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < 12; ++r) x[r * K] = v[r];
+    }
   }
 }
 
-__global__ void reduce_kernel(Problem p, Workspace w) {
-  int e = blockIdx.x;
-  int a = w.ae[e];
-  if (a < 0) return;
-  int b = w.be[e];
-  const float* bc = w.Bc + 36 * (size_t)e;
+// Back up `level`: each block it eliminated takes x_j = y_j - G_j x_{j-s} -
+// H_j x_{j+s}.
+__global__ void __launch_bounds__(kBandThreads)
+    band_back_kernel(Problem p, Workspace w, Band b, int level) {
+  __shared__ float g[144], h[144];
+  const int s = 1 << level;
+  const int j = s + blockIdx.x * 2 * s;
+  const bool has_r = j + s < b.n;
+  load_block(b.G, j, true, g);
+  load_block(b.H, j, has_r, h);
+  __syncthreads();
   const size_t K = p.K;
-  const float* x = w.X + (size_t)b * 6 * K;
-  const int n6 = 6 * p.S;
-  for (int k = threadIdx.x; k < p.K; k += blockDim.x) {
+  const int2 c = band_columns(p.K);  // a column a thread: the launch is in column tiles
+  if (c.x < c.y) {
+    float* x = w.X + 12 * (size_t)j * K + c.x;
+    float v[12], xl[12], xr[12];
+    load_rows(x, K, v);
+    load_rows(w.X + 12 * (size_t)(j - s) * K + c.x, K, xl);
+#pragma unroll
+    for (int r = 0; r < 12; ++r) xr[r] = 0.0f;
+    if (has_r) load_rows(w.X + 12 * (size_t)(j + s) * K + c.x, K, xr);
+#pragma unroll
+    for (int r = 0; r < 12; ++r) {
+      float t = v[r];
+#pragma unroll
+      for (int m = 0; m < 12; ++m) t = t - g[12 * r + m] * xl[m] - h[12 * r + m] * xr[m];
+      x[r * K] = t;
+    }
+  }
+}
+
+// ------------------------------------------------------------ B X, B y
+
+// The couplings' products into the reduced system without atomics: the
+// entries are grouped by reduced slot once per call (`order`, with
+// slot_start and piece_start per slot, S + 1 each), each slot's entries
+// cut into pieces of kPiece. reduce_pieces_kernel: one block per (piece,
+// column tile) adds its entries' Bc X[b] (and Bc y[b], the last column) in
+// order in registers and writes the piece's 6 rows; reduce_slots_kernel: one
+// block per (slot, tile of 32 columns) adds its pieces and writes the slot's
+// rows of B X (and B y) once. The sums' order is fixed.
+struct Groups {
+  const int* order;        // (E,) entries by slot
+  const int* slot_start;   // (S + 1,) first position of each slot's entries
+  const int* piece_start;  // (S + 1,) first piece of each slot
+  float* partial;          // (pieces, 6, K)
+};
+
+__global__ void __launch_bounds__(kBandThreads)
+    reduce_pieces_kernel(Problem p, Workspace w, Groups g) {
+  __shared__ float bc[kPiece][36];
+  __shared__ int node[kPiece];
+  const int q = blockIdx.x;
+  int lo = 0, hi = p.S;  // the slot a with piece_start[a] <= q < piece_start[a + 1]
+  if (q >= g.piece_start[p.S]) return;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (g.piece_start[mid] <= q) lo = mid;
+    else hi = mid;
+  }
+  const int a = lo;
+  const int first = g.slot_start[a] + (q - g.piece_start[a]) * kPiece;
+  const int count = min(kPiece, g.slot_start[a + 1] - first);
+  for (int t = threadIdx.x; t < count * 36; t += blockDim.x) {
+    const int e = g.order[first + t / 36];
+    bc[t / 36][t % 36] = w.ae[e] >= 0 ? w.Bc[36 * (size_t)e + t % 36] : 0.0f;
+    if (t % 36 == 0) node[t / 36] = w.ae[e] >= 0 ? w.be[e] : -1;
+  }
+  __syncthreads();
+  const int c = blockIdx.y * kBandThreads + threadIdx.x;
+  if (c >= p.K) return;
+  const size_t K = p.K;
+  float acc[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 4
+  for (int t = 0; t < count; ++t) {
+    if (node[t] < 0) continue;
+    const float* x = w.X + (size_t)node[t] * 6 * K + c;
     float xv[6];
-    for (int j = 0; j < 6; ++j) xv[j] = x[j * K + k];
+#pragma unroll
+    for (int j = 0; j < 6; ++j) xv[j] = x[j * K];
+#pragma unroll
     for (int i = 0; i < 6; ++i) {
       float v = 0.0f;
-      for (int j = 0; j < 6; ++j) v = v + bc[6 * i + j] * xv[j];
-      if (k < p.K - 1)
-        atomicAdd(&w.M[(size_t)(6 * a + i) * n6 + k], v);
-      else
-        atomicAdd(&w.r[6 * a + i], v);
+#pragma unroll
+      for (int j = 0; j < 6; ++j) v = v + bc[t][6 * i + j] * xv[j];
+      acc[i] = acc[i] + v;
     }
+  }
+#pragma unroll
+  for (int i = 0; i < 6; ++i) g.partial[((size_t)q * 6 + i) * K + c] = acc[i];
+}
+
+// A block per slot and tile of 32 columns: warp w adds the pieces q = w
+// mod 4 in order, then the first warp adds the four warps' sums in order.
+__global__ void __launch_bounds__(kBandThreads)
+    reduce_slots_kernel(Problem p, Workspace w, Groups g) {
+  __shared__ float part[kBandThreads / 32][6][32];
+  const int a = blockIdx.x, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warps = kBandThreads / 32;
+  const int c = blockIdx.y * 32 + lane;
+  const int q0 = g.piece_start[a], q1 = g.piece_start[a + 1];
+  if (q0 == q1) return;
+  const size_t K = p.K;
+  float acc[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  if (c < p.K)
+#pragma unroll 4
+    for (int q = q0 + warp; q < q1; q += warps)
+#pragma unroll
+      for (int i = 0; i < 6; ++i) acc[i] = acc[i] + g.partial[((size_t)q * 6 + i) * K + c];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) part[warp][i][lane] = acc[i];
+  __syncthreads();
+  if (warp != 0 || c >= p.K) return;
+  const int n6 = 6 * p.S;
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    float v = part[0][i][lane];
+    for (int u = 1; u < warps; ++u) v = v + part[u][i][lane];
+    if (c < p.K - 1)
+      w.M[(size_t)(6 * a + i) * n6 + c] = v;
+    else
+      w.r[6 * a + i] = v;
   }
 }
 
-__global__ void cholesky_kernel(Problem p, Workspace w) {
-  const int n = 6 * p.S;
-  float* m = w.M;
-  float* b = w.r;
-  for (int idx = threadIdx.x; idx < n * n; idx += blockDim.x) {
-    int r = idx / n, q = idx % n;
-    float a = r / 6 == q / 6 ? w.A[36 * (r / 6) + 6 * (r % 6) + q % 6] : 0.0f;
-    m[idx] = a - m[idx];
+// ------------------------------------------------------------ the reduced system
+
+// The reduced system, augmented with its right-hand side as row n = 6S:
+// row i < n holds blockdiag(A) - B X (its lower triangle is read), row n
+// -(g_s - B y). Rows are dealt out to the cluster's blocks in turn (row i to
+// block i mod blocks), held in the blocks' shared memory where they fit,
+// else in place in the workspace's M (and r, which follows it).
+struct Rows {
+  float* own;  // this block's rows where they are shared, else null
+  float* M;    // the rows in place, where they are not
+  int shift;   // log2 of the cluster's blocks
+  int n;
+  // Row i, held by block i mod blocks.
+  __device__ float* row(cooperative_groups::cluster_group cluster, int i) const {
+    if (!own) return M + (size_t)i * n;
+    return cluster.map_shared_rank(own, (unsigned int)(i & ((1 << shift) - 1))) +
+           (size_t)(i >> shift) * n;
   }
-  for (int r = threadIdx.x; r < n; r += blockDim.x) b[r] = -(w.g_s[r] - b[r]);
-  __syncthreads();
-  for (int k = 0; k < n; ++k) {
-    if (threadIdx.x == 0) m[(size_t)k * n + k] = sqrtf(m[(size_t)k * n + k]);
-    __syncthreads();
-    float dkk = m[(size_t)k * n + k];
-    for (int i = k + 1 + threadIdx.x; i < n; i += blockDim.x)
-      m[(size_t)i * n + k] = m[(size_t)i * n + k] / dkk;
-    __syncthreads();
-    int rem = n - k - 1;
-    for (int idx = threadIdx.x; idx < rem * rem; idx += blockDim.x) {
-      int i = k + 1 + idx / rem, j = k + 1 + idx % rem;
-      if (j <= i)
-        m[(size_t)i * n + j] = m[(size_t)i * n + j] - m[(size_t)i * n + k] * m[(size_t)j * n + k];
-    }
-    __syncthreads();
+  // Row i of this block's own, through its own shared memory.
+  __device__ float* mine(int i) const {
+    return own ? own + (size_t)(i >> shift) * n : M + (size_t)i * n;
   }
-  for (int k = 0; k < n; ++k) {  // L y = b
-    if (threadIdx.x == 0) b[k] = b[k] / m[(size_t)k * n + k];
-    __syncthreads();
-    for (int i = k + 1 + threadIdx.x; i < n; i += blockDim.x)
-      b[i] = b[i] - m[(size_t)i * n + k] * b[k];
-    __syncthreads();
-  }
-  for (int k = n - 1; k >= 0; --k) {  // L^T x = y
-    if (threadIdx.x == 0) {
-      b[k] = b[k] / m[(size_t)k * n + k];
-      w.dx[k] = b[k];
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < k; i += blockDim.x) b[i] = b[i] - m[(size_t)k * n + i] * b[k];
-    __syncthreads();
+};
+
+// This block's rows' factor columns [c0, c0 + wd) from the panel buffer.
+__device__ inline void write_panel(const Rows& R, const float* panel, int ld, int n, int rank,
+                                   int c0, int wd) {
+  const int blocks = 1 << R.shift;
+  const int first = rank + (c0 > rank ? (c0 - rank + blocks - 1) >> R.shift << R.shift : 0);
+  const int rows = first <= n ? (n - first) / blocks + 1 : 0;
+  for (int e = threadIdx.x; e < rows * kPanel; e += blockDim.x) {
+    const int i = first + (e / kPanel) * blocks, k = e % kPanel;
+    if (k < wd && c0 + k <= i) R.mine(i)[c0 + k] = panel[k * ld + i];
   }
 }
+
+// Cholesky factor and solve of the reduced system in one thread-block
+// cluster, by panels of kPanel columns. In panel step c0 every block reads
+// the panel's columns of all rows i >= c0 from their blocks, factors the
+// panel's diagonal block in one warp (registers and shuffles), solves every
+// row below it against that factor (a thread per row; row n so becomes
+// the forward substitution's y), and updates its own rows' trailing columns
+// with the panel; one cluster barrier ends the step. A block writes its
+// rows' panel values (the factor's columns) at the start of the next step,
+// when no block reads them any more. Then one block solves L^T x = y by
+// panels, reading the factor's rows from the cluster. A pivot that is not
+// positive gives NaN, which reaches dx, and the step is rejected.
+__global__ void __launch_bounds__(kCholThreads, 1)
+    cholesky_kernel(Problem p, Workspace w, int in_shared) {
+  // in_shared: the rows and the panel buffer in shared memory; else the rows
+  // in place in M and each block's panel buffer in w.panels.
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(16) float sm[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int blocks = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int n = 6 * p.S, ld = n + 1;  // ld: the panel buffer's row length
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* diag = sm;  // [32][33]: the panel's factor, and 1 / its diagonal in column 32
+  float* vec = diag + 32 * 33;       // [n]: the back substitution's vector
+  // [k][i]: column c0 + k of row i in the panel step c0.
+  float* panel = in_shared ? vec + n : w.panels + (size_t)rank * kPanel * ld;
+  float* own = vec + n + kPanel * ld;  // this block's rows, where they are shared
+  Rows R{in_shared ? own : nullptr, w.M, __ffs(blocks) - 1, n};
+
+  // This block's rows: blockdiag(A) - B X on and below the diagonal; row n.
+  for (int i = rank; i <= n; i += blocks) {
+    float* dst = R.mine(i);
+    const float* src = w.M + (size_t)i * n;  // row n: r, which follows M
+    for (int j = tid; j < (i < n ? i + 1 : n); j += blockDim.x) {
+      if (i == n) {
+        dst[j] = -(w.g_s[j] - src[j]);
+      } else {
+        const float a = i / 6 == j / 6 ? w.A[36 * (i / 6) + 6 * (i % 6) + j % 6] : 0.0f;
+        dst[j] = a - src[j];
+      }
+    }
+  }
+  cluster.sync();
+
+  int prev = -1, prev_w = 0;
+  for (int c0 = 0; c0 < n; c0 += kPanel) {
+    const int wd = min(kPanel, n - c0), c1 = c0 + wd;
+    // The previous panel's factor columns into this block's rows.
+    if (prev >= 0) write_panel(R, panel, ld, n, rank, prev, prev_w);
+    __syncthreads();
+    // A warp per row, a lane per column: the loads of four rows in flight.
+    if (lane < wd)
+#pragma unroll 4
+      for (int i = c0 + warp; i <= n; i += kCholThreads / 32)
+        panel[lane * ld + i] = R.row(cluster, i)[c0 + lane];
+    __syncthreads();
+    if (warp == 0) {  // the diagonal block's factor, lane r its row r
+      float a[kPanel];
+#pragma unroll
+      for (int k = 0; k < kPanel; ++k)
+        a[k] = lane < wd ? (k <= lane && k < wd ? panel[k * ld + c0 + lane] : 0.0f)
+                         : (k == lane ? 1.0f : 0.0f);
+#pragma unroll
+      for (int k = 0; k < kPanel; ++k) {
+        const float dkk = sqrtf(__shfl_sync(0xffffffffu, a[k], k));
+        a[k] = lane == k ? dkk : lane > k ? a[k] / dkk : a[k];
+#pragma unroll
+        for (int c = k + 1; c < kPanel; ++c) {
+          const float lck = __shfl_sync(0xffffffffu, a[k], c);
+          if (lane >= c) a[c] = a[c] - a[k] * lck;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kPanel; ++k) {
+        diag[lane * 33 + k] = a[k];
+        if (lane < wd && k < wd) panel[k * ld + c0 + lane] = k <= lane ? a[k] : 0.0f;
+      }
+#pragma unroll
+      for (int k = 0; k < kPanel; ++k)
+        if (lane == k) diag[lane * 33 + 32] = 1.0f / a[k];
+    }
+    __syncthreads();
+    for (int i = c1 + tid; i <= n; i += blockDim.x) {  // rows below: L_ip = M_ip L_pp^-T
+      float l[kPanel];
+#pragma unroll
+      for (int k = 0; k < kPanel; ++k) {
+        if (k < wd) {
+          float v = panel[k * ld + i];
+#pragma unroll
+          for (int t = 0; t < k; ++t) v = v - l[t] * diag[k * 33 + t];
+          l[k] = v * diag[k * 33 + 32];
+          panel[k * ld + i] = l[k];
+        }
+      }
+    }
+    __syncthreads();
+    // This block's rows' trailing columns j in [c1, min(i, n - 1)].
+    for (int i = rank + warp * blocks; i <= n; i += (blockDim.x >> 5) * blocks) {
+      if (i < c1) continue;
+      float li[kPanel];
+#pragma unroll
+      for (int k = 0; k < kPanel; ++k) li[k] = k < wd ? panel[k * ld + i] : 0.0f;
+      float* dst = R.mine(i);
+      const int last = min(i, n - 1);
+      for (int j = c1 + lane; j <= last; j += 32) {
+        float v = dst[j];
+#pragma unroll
+        for (int k = 0; k < kPanel; ++k) v = v - li[k] * panel[k * ld + j];
+        dst[j] = v;
+      }
+    }
+    prev = c0;
+    prev_w = wd;
+    cluster.sync();
+  }
+  if (prev >= 0) write_panel(R, panel, ld, n, rank, prev, prev_w);
+  cluster.sync();
+
+  if (rank == 0) {  // L^T x = y, y the factor's row n
+    const float* y = R.row(cluster, n);
+    for (int j = tid; j < n; j += blockDim.x) vec[j] = y[j];
+    __syncthreads();
+    for (int c0 = ((n - 1) / kPanel) * kPanel; c0 >= 0; c0 -= kPanel) {
+      const int wd = min(kPanel, n - c0);
+      if (warp == 0) {  // lane r: column r of the panel's factor, and x_r
+        float col[kPanel];
+#pragma unroll
+        for (int i = 0; i < kPanel; ++i)
+          col[i] = lane < wd && i < wd && i >= lane ? R.row(cluster, c0 + i)[c0 + lane] : 0.0f;
+        float t = lane < wd ? vec[c0 + lane] : 0.0f;
+#pragma unroll
+        for (int k = kPanel - 1; k >= 0; --k) {
+          if (k < wd) {
+            const float xk = __shfl_sync(0xffffffffu, t / col[k], k);
+            if (lane == k) t = xk;
+            else if (lane < k) t = t - col[k] * xk;
+          }
+        }
+        if (lane < wd) vec[c0 + lane] = t;
+      }
+      __syncthreads();
+      for (int j = tid; j < c0; j += blockDim.x) {
+        float v = vec[j];
+#pragma unroll 8
+        for (int i = 0; i < wd; ++i) v = v - R.row(cluster, c0 + i)[j] * vec[c0 + i];
+        vec[j] = v;
+      }
+      __syncthreads();
+    }
+    for (int j = tid; j < n; j += blockDim.x) w.dx[j] = vec[j];
+  }
+  cluster.sync();  // no block leaves while block 0 reads its rows
+}
+
+// Blocks of the reduced system's cluster, and its shared memory: the
+// panel's factor and the back substitution's vector, and where they fit
+// (in_shared) the panel buffer and a block's rows.
+// A power of two, a block per 24 rows or so: at 384 rows 16 blocks took
+// 0.44-0.50 ms, 8 took 0.51-0.54 and 4 0.58-0.62 (PERF.md, PR 13).
+inline int cholesky_blocks(int n) {
+  int blocks = 1;
+  while (2 * blocks <= kMaxCluster && 2 * blocks <= (n + 24) / 24) blocks *= 2;
+  return blocks;
+}
+inline size_t cholesky_shared_bytes(int n, int blocks, bool in_shared) {
+  const size_t rows = (size_t)(n + 1 + blocks - 1) / blocks * n;
+  return sizeof(float) * (32 * 33 + n + (in_shared ? (size_t)kPanel * (n + 1) + rows : 0));
+}
+constexpr size_t kMaxShared = 232448;  // a block's dynamic shared memory on Hopper
 
 // t + d[0:3], normalize(q exp(d[3:6])) (quaternion.from_axis_angle).
 __device__ inline void retract(const float* t, const float* q, const float* d, float* t2,
@@ -788,25 +1162,30 @@ __device__ inline void retract(const float* t, const float* q, const float* d, f
   for (int i = 0; i < 4; ++i) q2[i] = o[i] / n;
 }
 
+// The candidate: slot t retracted by its part of dx (gravity clamped), node
+// n by dx_n = -(y + X dx_s), a warp per node with its lanes along X's row.
 __global__ void update_kernel(Problem p, Workspace w, State st) {
-  int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t < p.S) {
     float d[6];
     for (int i = 0; i < 6; ++i) d[i] = p.sub_free[6 * t + i] ? w.dx[6 * t + i] : 0.0f;
     retract(st.s_t + 3 * t, st.s_q + 4 * t, d, w.cand.s_t + 3 * t, w.cand.s_q + 4 * t);
     if (p.grav_clamp[t]) w.cand.s_t[3 * t] = fmaxf(w.cand.s_t[3 * t], 0.0f);
-  } else if (t < p.S + p.N) {
-    int n = t - p.S;
-    const size_t K = p.K;
-    float d[6];
-    for (int i = 0; i < 6; ++i) {
-      const float* x = w.X + ((size_t)n * 6 + i) * K;
-      float acc = 0.0f;
-      for (int k = 0; k < p.K - 1; ++k) acc = acc + x[k] * w.dx[k];
-      d[i] = p.node_free[6 * n + i] ? -(x[p.K - 1] + acc) : 0.0f;
-    }
-    retract(st.n_t + 3 * n, st.n_q + 4 * n, d, w.cand.n_t + 3 * n, w.cand.n_q + 4 * n);
   }
+  const int n = (int)(((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5);
+  const int lane = threadIdx.x & 31;
+  if (n >= p.N) return;  // whole warps leave together
+  const size_t K = p.K;
+  float d[6];
+  for (int i = 0; i < 6; ++i) {
+    const float* x = w.X + ((size_t)n * 6 + i) * K;
+    float acc = 0.0f;
+    for (int k = lane; k < p.K - 1; k += 32) acc = acc + x[k] * w.dx[k];
+    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    d[i] = p.node_free[6 * n + i] ? -(x[p.K - 1] + acc) : 0.0f;
+  }
+  if (lane == 0)
+    retract(st.n_t + 3 * n, st.n_q + 4 * n, d, w.cand.n_t + 3 * n, w.cand.n_q + 4 * n);
 }
 
 __global__ void accept_kernel(Problem p, Workspace w, State st, float* history) {
@@ -837,13 +1216,50 @@ __global__ void accept_kernel(Problem p, Workspace w, State st, float* history) 
 
 inline int blocks_for(long long n, int threads) { return (int)((n + threads - 1) / threads); }
 
+// Launches cholesky_kernel on p.S and w's A, g_s, M, r, panels and dx:
+// one cluster of cholesky_blocks(6S) blocks.
+inline cudaError_t launch_cholesky(const Problem& p, const Workspace& w, cudaStream_t s) {
+  const int n = 6 * p.S, blocks = cholesky_blocks(n);
+  const bool in_shared = cholesky_shared_bytes(n, blocks, true) <= kMaxShared;
+  const size_t bytes = cholesky_shared_bytes(n, blocks, in_shared);
+  if (bytes > kMaxShared) return cudaErrorInvalidValue;
+  static int configured = -1;  // the device on which the kernel may take kMaxShared
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess && device != configured) {
+    err = cudaFuncSetAttribute(cholesky_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kMaxShared);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(cholesky_kernel,
+                                 cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err == cudaSuccess) configured = device;
+  }
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(blocks, 1, 1);
+  config.blockDim = dim3(kCholThreads, 1, 1);
+  config.dynamicSmemBytes = bytes;
+  config.stream = s;
+  cudaLaunchAttribute attribute[1];
+  attribute[0].id = cudaLaunchAttributeClusterDimension;
+  attribute[0].val.clusterDim.x = blocks;
+  attribute[0].val.clusterDim.y = 1;
+  attribute[0].val.clusterDim.z = 1;
+  config.attrs = attribute;
+  config.numAttrs = 1;
+  return cudaLaunchKernelEx(&config, cholesky_kernel, p, w, (int)in_shared);
+}
+
 }  // namespace
 
 // `ptrs` (host) holds the problem's device pointers in the order of
 // parallel/schur_spa_3d.py:_FIELDS, then sub_t, sub_q, node_t, node_q (the
-// state, optimized in place); `dims` (host) is [S, N, C, D, R, A].
-// `history` (device, may be null) takes per iteration the cost at x, the
-// cost at the candidate, the accept flag and the new lambda.
+// state, optimized in place), then the coupling entries grouped by slot
+// (order (E,), slot_start (S + 1,), piece_start (S + 1,) int32);
+// `dims` (host) is [S, N, C, D, R, A, pieces], pieces at least the number
+// of pieces of kPiece entries the grouping makes. `history` (device, may be
+// null) takes per iteration the cost at x, the cost at the candidate, the
+// accept flag and the new lambda.
 extern "C" int schur_spa_3d(const void* ptrs_v, const void* dims_v, int num_iterations,
                             float huber_scale, float damping, void* workspace,
                             long long workspace_floats, void* history, void* stream) {
@@ -851,6 +1267,7 @@ extern "C" int schur_spa_3d(const void* ptrs_v, const void* dims_v, int num_iter
   const int* dims = (const int*)dims_v;
   Problem p;
   p.S = dims[0]; p.N = dims[1]; p.C = dims[2]; p.D = dims[3]; p.R = dims[4]; p.A = dims[5];
+  const int max_pieces = dims[6];
   p.E = p.C + 2 * p.R + 3 * p.A;
   p.K = 6 * p.S + 1;
   p.N2 = p.N / 2;
@@ -874,14 +1291,21 @@ extern "C" int schur_spa_3d(const void* ptrs_v, const void* dims_v, int num_iter
   State st;
   st.s_t = (float*)ptrs[f++]; st.s_q = (float*)ptrs[f++];
   st.n_t = (float*)ptrs[f++]; st.n_q = (float*)ptrs[f++];
+  Groups g;
+  g.order = (const int*)ptrs[f++];
+  g.slot_start = (const int*)ptrs[f++];
+  g.piece_start = (const int*)ptrs[f++];
   p.huber_scale = huber_scale;
   p.damping = damping;
 
-  const long long S = p.S, N = p.N, K = p.K, E = p.E, N2 = p.N2;
+  const long long S = p.S, N = p.N, K = p.K, E = p.E, N2 = p.N2, n6 = 6 * S;
   long long zeroed = 36 * S + 3 * 36 * N + 6 * S + 6 * N + 6 * N * K + 36 * S * S + 6 * S;
-  long long needed = zeroed + 8 + 3 * 144 * N2 + 36 * E + 2 * E + 6 * S + 7 * S + 7 * N;
-  if (workspace_floats < needed || S <= 0 || N <= 0 || N % 2) return (int)cudaErrorInvalidValue;
+  long long needed = zeroed + 8 + 6 * 144 * N2 + 36 * E + 2 * E + 6 * S + 7 * S + 7 * N +
+                     (long long)kMaxCluster * kPanel * (n6 + 1) + (long long)max_pieces * 6 * K;
+  if (workspace_floats < needed || S <= 0 || N <= 0 || N % 2 || max_pieces < 0)
+    return (int)cudaErrorInvalidValue;
   Workspace w;
+  Band b;
   float* q = (float*)workspace;
   w.A = q; q += 36 * S;
   w.d0 = q; q += 36 * N;
@@ -893,9 +1317,12 @@ extern "C" int schur_spa_3d(const void* ptrs_v, const void* dims_v, int num_iter
   w.M = q; q += 36 * S * S;
   w.r = q; q += 6 * S;
   w.scal = q; q += 8;
-  w.Cinv = q; q += 144 * N2;
-  w.CinvU = q; q += 144 * N2;
-  w.To = q; q += 144 * N2;
+  for (int i = 0; i < 2; ++i) {
+    b.D[i] = q; q += 144 * N2;
+    b.U[i] = q; q += 144 * N2;
+  }
+  b.G = q; q += 144 * N2;
+  b.H = q; q += 144 * N2;
   w.Bc = q; q += 36 * E;
   w.ae = (int*)q; q += E;
   w.be = (int*)q; q += E;
@@ -903,13 +1330,25 @@ extern "C" int schur_spa_3d(const void* ptrs_v, const void* dims_v, int num_iter
   w.cand.s_t = q; q += 3 * S;
   w.cand.s_q = q; q += 4 * S;
   w.cand.n_t = q; q += 3 * N;
-  w.cand.n_q = q;
+  w.cand.n_q = q; q += 4 * N;
+  w.panels = q; q += (long long)kMaxCluster * kPanel * (n6 + 1);
+  g.partial = q;
+
+  b.n = (int)N2;
+  int levels = 0;  // ceil(log2 n)
+  while ((1ll << levels) < N2) ++levels;
+  // X's columns in tiles of kBandThreads, but a level launch of many blocks
+  // takes all of them in each block (its 12x12 work then once a block).
+  const int most_tiles = (int)((K + kBandThreads - 1) / kBandThreads);
+  auto band_grid = [&](long long blocks, bool wide) {
+    return dim3((unsigned)blocks, wide && blocks >= kWideLaunch ? 1u : (unsigned)most_tiles);
+  };
 
   cudaStream_t s = (cudaStream_t)stream;
   long long terms = (long long)p.C + p.D + p.R + p.A;
   int term_blocks = blocks_for(terms, kThreads);
   int slot_blocks = blocks_for(S + N, kThreads);
-  int sweep_blocks = blocks_for((K + 1) / 2, kSweepWarps);
+  int update_blocks = blocks_for(S > 32 * N ? S : 32 * N, kThreads);  // a warp per node
   init_kernel<<<1, 1, 0, s>>>(w.scal);
   for (int it = 0; it < num_iterations; ++it) {
     cudaMemsetAsync(w.A, 0, zeroed * sizeof(float), s);
@@ -919,15 +1358,51 @@ extern "C" int schur_spa_3d(const void* ptrs_v, const void* dims_v, int num_iter
       constraint_kernel<<<term_blocks, kThreads, 0, s>>>(p, w, st, false, w.scal);
     }
     damp_kernel<<<slot_blocks, kThreads, 0, s>>>(p, w);
-    factor_kernel<<<1, kThreads, 0, s>>>(p, w);
-    sweep_kernel<<<sweep_blocks, 32 * kSweepWarps, 0, s>>>(p, w);
-    if (E > 0) reduce_kernel<<<(int)E, 128, 0, s>>>(p, w);
-    cholesky_kernel<<<1, 1024, 0, s>>>(p, w);
-    update_kernel<<<slot_blocks, kThreads, 0, s>>>(p, w, st);
+    band_first_kernel<<<band_grid(b.n == 1 ? 1 : b.n / 2, false), kBandThreads, 0, s>>>(p, w,
+                                                                                       b);
+    for (int l = 0; l < levels; ++l) {
+      const int stride = 2 << l;
+      band_level_kernel<<<band_grid((b.n + stride - 1) / stride, true), kBandThreads, 0, s>>>(
+          p, w, b, l);
+    }
+    for (int l = levels - 1; l >= 0; --l) {
+      const int step = 1 << l;
+      band_back_kernel<<<band_grid((b.n + step - 1) / (2 * step), false), kBandThreads, 0, s>>>(
+          p, w, b, l);
+    }
+    if (E > 0 && max_pieces > 0) {
+      reduce_pieces_kernel<<<dim3(max_pieces, most_tiles), kBandThreads, 0, s>>>(p, w, g);
+      reduce_slots_kernel<<<dim3((unsigned)S, (unsigned)((K + 31) / 32)), kBandThreads, 0, s>>>(
+          p, w, g);
+    }
+    const cudaError_t err = launch_cholesky(p, w, s);
+    if (err != cudaSuccess) return (int)err;
+    update_kernel<<<update_blocks, kThreads, 0, s>>>(p, w, st);
     if (term_blocks > 0)
       constraint_kernel<<<term_blocks, kThreads, 0, s>>>(p, w, w.cand, false, w.scal + 1);
     accept_kernel<<<slot_blocks, kThreads, 0, s>>>(
         p, w, st, history ? (float*)history + 4 * it : nullptr);
   }
   return (int)cudaGetLastError();
+}
+
+// The reduced system's Cholesky solve alone (K16's cholesky_kernel): x =
+// P^-1 b of the symmetric positive definite P (n = 6S, its lower triangle
+// read) given as `system` (n + 1, n) = [-P; b]; `panels` holds
+// kMaxCluster x 32 x (n + 1) floats; `zeros` 42 S zero floats (the kernel's
+// A and g_s). `system` is overwritten where the cluster's shared memory
+// cannot hold the rows.
+extern "C" int schur_reduced_cholesky(int S, void* system, void* zeros, void* panels, void* x,
+                                      void* stream) {
+  if (S <= 0) return (int)cudaErrorInvalidValue;
+  Problem p = {};
+  p.S = S;
+  Workspace w = {};
+  w.A = (float*)zeros;
+  w.g_s = (float*)zeros + 36 * (size_t)S;
+  w.M = (float*)system;
+  w.r = (float*)system + 36 * (size_t)S * S;
+  w.panels = (float*)panels;
+  w.dx = (float*)x;
+  return (int)launch_cholesky(p, w, (cudaStream_t)stream);
 }

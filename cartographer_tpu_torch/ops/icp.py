@@ -24,9 +24,10 @@ residuals (K27 `gicp_lm`, on the same pose buffer), and K23 and
 `icp_stats` for the fitness and the RMSE.
 
 NDT (`ndt_match`): per-voxel Gaussians of the target on a g^3 grid around
-its masked mean (`build_ndt_grid`, K28 `csrc/ndt.cu` `ndt_grid`), then one
-SE(3) Levenberg-Marquardt solve on the whitened point-to-mean residuals
-(K29 `ndt_lm`).
+its masked mean (`build_ndt_grid`, K28 `csrc/ndt.cu` `ndt_grid`: each
+cell's points added in input order by `csrc/in_order_scatter.cuh`), then
+one SE(3) Levenberg-Marquardt solve on the whitened point-to-mean
+residuals (K29 `ndt_lm`).
 
 CPU tensors run the plain twins (`*_plain`); CUDA tensors launch the
 kernels. The twins' neighbour lists break distance ties by the lower
@@ -45,7 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from cartographer_tpu_torch.core.tensor import f32, index_add_in_order_, true_div
-from cartographer_tpu_torch.ops import cuda
+from cartographer_tpu_torch.ops import cuda, in_order_scatter
 from cartographer_tpu_torch.ops.correlative_2d import tree_sum
 from cartographer_tpu_torch.ops.gauss_newton import lm_solve
 from cartographer_tpu_torch.ops.scan_matcher_3d import se3_retract
@@ -61,7 +62,7 @@ _NORMALS = cuda.CudaKernel("gicp.cu", "icp_normals", [_P, _P, _I, _I, _P, _P])
 _GICP_LM = cuda.CudaKernel("gicp.cu", "gicp_lm",
                            [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F])
 _NDT_GRID = cuda.CudaKernel("ndt.cu", "ndt_grid",
-                            [_P, _P, _I, _P, _F, _I, _F, _F, _P, _P, _P, _P])
+                            [_P, _P, _I, _P, _F, _F, _I, _F, _F, _I, _P, _P, _P, _P, _P])
 _NDT_LM = cuda.CudaKernel("ndt.cu", "ndt_lm",
                           [_P, _P, _I, _P, _P, _P, _P, _F, _I, _P, _I, _F, _P, _P, _P])
 
@@ -604,16 +605,22 @@ def build_ndt_grid(target: torch.Tensor, target_mask: torch.Tensor, params: NdtP
     g = params.grid_extent
     C = g ** 3
     dev = target.device
-    origin = _ndt_origin(center.to(torch.float32), params).contiguous()
-    cuda.check(origin, "center", torch.float32, (3,))
-    keys = torch.empty(max(2, 1 << (m - 1).bit_length()), dtype=torch.int64, device=dev)
+    if C >= 1 << 31:
+        raise ValueError(f"build_ndt_grid: {g}^3 cells exceed the kernel's 2^31")
+    center = center.to(torch.float32).contiguous()
+    cuda.check(center, "center", torch.float32, (3,))
+    # The running sums of a call above one launch of the in-order routine.
+    sums = (torch.empty((C, 10), dtype=torch.float32, device=dev)
+            if m > in_order_scatter.CHUNK else None)
+    origin = torch.empty(3, dtype=torch.float32, device=dev)  # _ndt_origin, in the kernel
     means = torch.empty((C, 3), dtype=torch.float32, device=dev)
     L = torch.empty((C, 3, 3), dtype=torch.float32, device=dev)
     valid = torch.empty(C, dtype=torch.bool, device=dev)
-    _NDT_GRID(dev, target.data_ptr(), target_mask.data_ptr(), m, origin.data_ptr(),
-              f32(params.resolution), g, f32(params.regularization),
-              float(params.min_points_per_cell), keys.data_ptr(), means.data_ptr(),
-              L.data_ptr(), valid.data_ptr())
+    _NDT_GRID(dev, target.data_ptr(), target_mask.data_ptr(), m, center.data_ptr(),
+              f32(0.5 * g * params.resolution), f32(params.resolution), g,
+              f32(params.regularization), float(params.min_points_per_cell),
+              in_order_scatter.radix_passes(C), None if sums is None else sums.data_ptr(),
+              origin.data_ptr(), means.data_ptr(), L.data_ptr(), valid.data_ptr())
     return means, L, valid, origin
 
 

@@ -1,4 +1,4 @@
-"""Host side of the in-order scatter-add of K18, K30 and K21
+"""Host side of the in-order scatter-add of K18, K30, K21 and K28
 (`csrc/in_order_scatter.cuh`): the radix passes a grid's cell count needs,
 and the launches a call of n returns takes. The constants are the
 header's."""

@@ -135,6 +135,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -224,6 +225,7 @@ RAISED_BEAMS_2D = 16384
 ABOVE_ONE_BLOCK = {"correlative_2d": (4096, 8192, 16384), "bnb_score": (1024, 2048, 4096),
                    "rot_histogram": ((1024, 120), (2048, 120), (8192, 120), (2048, 2048)),
                    "rot_match": (1024, 2048), "correlative_3d": (2048, 4096, 8192)}
+K16_CAPACITY = (64, 4096, 16384)  # reduced slots, nodes, binary terms
 SCAN_MATCH_AZIMUTHS = 1800  # 16 rings x 1,800 = 28,800 returns, padded to 32,768
 # The JAX package's results on the phase's two scans (28,800 returns each),
 # from tests/scan_match_witness_3d.py on a CPU; the port's plain path there
@@ -2234,8 +2236,8 @@ def _global_phase_3d(torch, dev):
           f"submaps, {inter} loop closures from {cb.pairs_matched} pairs tried, {solves} solves, "
           f"{wall:.1f} s wall; constraint search {cb.match_seconds:.2f} s on its threads "
           f"({cb.match_seconds * 1e3 / max(cb.pairs_matched, 1):.2f} ms per pair), solves "
-          f"{pg.solve_seconds:.2f} s ({pg.snapshot_seconds:.3f} s of host snapshots); launches "
-          f"{launches}")
+          f"{pg.solve_seconds:.2f} s ({pg.solve_seconds / max(solves, 1):.3f} s per solve, "
+          f"{pg.snapshot_seconds:.3f} s of host snapshots); launches {launches}")
     _check_launched(launches, KERNELS_3D_GLOBAL, "3D global SLAM")
     if inter < 50 or solves < 3 or not recorded:
         _fail(f"3D global SLAM ran {inter} loop closures and {solves} solves (need >= 50, >= 3)")
@@ -2297,7 +2299,9 @@ def _global_phase_3d(torch, dev):
             scans=len(events), nodes=len(pg.nodes), submaps=len(pg.submap_data),
             loop_closures=inter, pairs_tried=cb.pairs_matched, solves=solves,
             wall_seconds=wall, constraint_search_seconds=cb.match_seconds,
-            solve_seconds=pg.solve_seconds, snapshot_seconds=pg.snapshot_seconds,
+            solve_seconds=pg.solve_seconds,
+            solve_seconds_per_solve=pg.solve_seconds / max(solves, 1),
+            snapshot_seconds=pg.snapshot_seconds,
             wall_ms_per_pair=cb.match_seconds * 1e3 / max(cb.pairs_matched, 1),
             launches=launches, mean_error_optimized_m=global_err,
             mean_error_frontend_m=local_err, global_localization_score=score,
@@ -2311,10 +2315,8 @@ def _backend_kernel_phase_3d(torch, dev, ctx):
     graph with IMU terms at the solver's capacity."""
     import torch.nn.functional as F
 
-    from cartographer_tpu_torch.interop import schur_problem_3d_from_numpy
     from cartographer_tpu_torch.ops import bnb_3d, rot_histogram
     from cartographer_tpu_torch.parallel import schur_spa_3d
-    from cartographer_tpu_torch.simulation import synthetic_pose_graph_3d
     from cartographer_tpu_torch.transform import quaternion as quat
 
     rows, extra = {}, {}
@@ -2450,12 +2452,8 @@ def _backend_kernel_phase_3d(torch, dev, ctx):
     extra["bnb3d_match_ms"] = _cuda_ms(lambda: bnb_3d.fast_correlative_match_3d(*args), reps=10)
 
     # K16: a synthetic pose graph with IMU terms at capacity.
-    S, N, C = 64, 4096, 16384
-    arrays, truth_t, _ = synthetic_pose_graph_3d(S, N, C, seed=3)
-    problem = schur_problem_3d_from_numpy(arrays, dev)
-    wmax = schur_spa_3d.max_weight(problem)
-    p = schur_spa_3d.pad_even(schur_spa_3d.normalized(problem, wmax))
-    hs = 10.0 / wmax
+    S, N, C = K16_CAPACITY
+    arrays, truth_t, p, hs = _k16_capacity_problem(torch, dev)
     kern = schur_spa_3d._solve_kernel(p, 2, hs, 1e-6)
     twin = schur_spa_3d.solve_plain(p, 2, hs, 1e-6)
     err = max(float((a - b).abs().max()) for a, b in zip(kern, twin))
@@ -2471,12 +2469,40 @@ def _backend_kernel_phase_3d(torch, dev, ctx):
           f"{cost50:.4g}, node error {err0:.4f} -> {err50:.4f} m")
     if not (cost50 < 0.01 * cost0 and err50 < 0.5 * err0):
         _fail("K16 50 iterations did not converge")
+    solve = lambda n: schur_spa_3d._solve_kernel(p, n, hs, 1e-6)  # noqa: E731
+    steps, counted = _launch_breakdown(lambda: solve(1))
+    groups = {}
+    for name, ms in steps:
+        count, total = groups.get(name, (0, 0.0))
+        groups[name] = (count + 1, total + ms)
+    print(f"K16 one iteration at N={N} S={S} C={C}, per launch (profiler, median of {counted} "
+          f"calls; the call's first launch and copies included): " + ", ".join(
+              f"{name} {total:.4f} ms" + (f" ({count} launches)" if count > 1 else "")
+              for name, (count, total) in groups.items()))
+    one, two = _graph_kernels(lambda: solve(1), "K16"), _graph_kernels(lambda: solve(2), "K16")
+    ms2, ms50 = _event_ms(lambda: solve(2), reps=5, warmup=1), _event_ms(lambda: solve(50),
+                                                                         reps=3, warmup=1)
+    n6 = 6 * S
+    spd = torch.randn(n6, n6, device=dev)
+    spd = spd @ spd.T + n6 * torch.eye(n6, device=dev)
+    rhs = torch.randn(n6, device=dev)
+    chol_err = float((schur_spa_3d.reduced_cholesky_solve(spd, rhs)
+                      - torch.linalg.solve(spd.double(), rhs.double()).float()).abs().max())
+    chol_ms = _event_ms(lambda: schur_spa_3d.reduced_cholesky_solve(spd, rhs), reps=50)
+    chol_lib_ms = _event_ms(lambda: torch.linalg.cholesky_ex(spd), reps=50)
+    print(f"K16: {two - one} kernels per iteration ({one} in a one-iteration call; captured "
+          f"graphs); by CUDA events 2 iterations {ms2:.3f} ms, 50 iterations {ms50:.3f} ms; the "
+          f"reduced {n6}^2 Cholesky solve alone {chol_ms:.4f} ms (within {chol_err:.3g} of a "
+          f"float64 solve) against torch.linalg.cholesky_ex {chol_lib_ms:.4f} ms")
+    extra["schur_3d_breakdown_ms"] = [[name, ms] for name, ms in steps]
+    extra["schur_3d_kernels_per_iteration"] = two - one
+    extra["schur_3d_event_ms"] = {"2": ms2, "50": ms50}
+    extra["schur_3d_reduced_cholesky_ms"] = {"kernel": chol_ms, "cholesky_ex": chol_lib_ms,
+                                             "max_abs_err": chol_err}
     K, E, N2 = 6 * S + 1, C + 2 * (N - 1) + 3 * (N - 2), N // 2
     per_iteration_ops = (C * 2 * 6000 + (N - 1) * 6000 * 4 + (N - 1) * 3 * 5000
                          + (N - 2) * 4 * 5000 + N2 * 12 ** 3 * 6 + 2 * N * 12 * K * 24
                          + E * K * 72 + (6 * S) ** 3 // 3 + N * 6 * 6 * S * 2)
-    spd = torch.randn(6 * S, 6 * S, device=dev)
-    spd = spd @ spd.T + 6 * S * torch.eye(6 * S, device=dev)
     rows["schur_spa_3d"] = dict(
         replaces="cartographer_tpu/parallel/schur_spa_3d.py:529", max_abs_err=err,
         ms=_cuda_ms(lambda: schur_spa_3d._solve_kernel(p, 2, hs, 1e-6), reps=3),
@@ -3116,22 +3142,22 @@ def _gicp_ndt_phase(torch, dev):
           f"(tolerance: exact), L within {err28:.3g} (tolerance 1e-5 x {scale:.3g})")
     if not exact or err28 > 1e-5 * scale:
         _fail("K28 differs from the plain twin")
-    lin, inb = icp._ndt_cells(tgt, tm, origin, params.resolution, params.grid_extent)
-    lin = torch.where(inb, lin, torch.full_like(lin, C))
-    rows_sums = torch.cat([torch.ones_like(tgt[:, :1]), tgt,
-                           (tgt[:, :, None] * tgt[:, None, :]).reshape(-1, 9)], 1)
-
-    def library_grid():
-        sums = torch.zeros((C + 1, 13), device=dev).index_add_(0, lin, rows_sums)[:C]
-        n_ = sums[:, 0].clamp(min=1.0)
-        mu = sums[:, 1:4] / n_[:, None]
-        cov = (sums[:, 4:13].reshape(-1, 3, 3) / n_[:, None, None]
-               - mu[:, :, None] * mu[:, None, :] + 0.01 * torch.eye(3, device=dev))
-        return torch.linalg.cholesky(torch.linalg.inv(cov))
-
+    library_grid, inb = _ndt_library(torch, tgt, tm, origin, params)
+    k28_kernels = _launches_per_call(lambda: icp.build_ndt_grid(tgt, tm, params, center), 2,
+                                     "K28")
+    out["ndt_grid_kernels_per_call"] = k28_kernels
+    out["ndt_grid_event_ms"] = _event_ms(lambda: icp.build_ndt_grid(tgt, tm, params, center),
+                                         reps=100)
+    out["ndt_grid_library_event_ms"] = _event_ms(library_grid, reps=100)
+    print(f"K28: {k28_kernels} kernels per call (a captured graph); by CUDA events "
+          f"{out['ndt_grid_event_ms']:.4f} ms against the library composition's "
+          f"{out['ndt_grid_library_event_ms']:.4f} ms")
+    # Its two kernels one by one, from calls whose profiled window kept both
+    # (a window of many short calls has read below a third of this).
+    k28_steps, _ = _launch_breakdown(lambda: icp.build_ndt_grid(tgt, tm, params, center))
     rows["ndt_grid"] = dict(
         replaces="cartographer_tpu/ops/icp.py:179", max_abs_err=err28,
-        ms=_cuda_ms(lambda: icp.build_ndt_grid(tgt, tm, params, center)),
+        ms=sum(ms for _, ms in k28_steps),
         plain_ms=_cuda_ms(lambda: icp.build_ndt_grid_plain(tgt, tm, params, center), reps=2,
                           warmup=1),
         # The points and the mask once; per cell a mean, a factor and a flag.
@@ -3139,6 +3165,8 @@ def _gicp_ndt_phase(torch, dev):
         # index_add_ of the count, sum and products, then the batched
         # inverse and Cholesky.
         library_ms=_cuda_ms(library_grid))
+    print("K28 by the profiler, kernel by kernel: " + ", ".join(
+        f"{name} {ms:.4f} ms" for name, ms in k28_steps))
 
     k29 = icp.ndt_lm(grid, src, sm, x0, params)
     k29_p = icp.ndt_lm_plain(grid, src, sm, x0, params)
@@ -3177,6 +3205,46 @@ def _gicp_ndt_phase(torch, dev):
     return rows, out
 
 
+def _ndt_library(torch, tgt, tm, origin, params):
+    """K28's function as library calls on the same inputs: -> (fn, the
+    in-bounds mask). fn is `index_add_` of the count, sum and products
+    into their cells, then the batched inverse and Cholesky factor."""
+    from cartographer_tpu_torch.ops import icp
+
+    C = params.grid_extent ** 3
+    lin, inb = icp._ndt_cells(tgt, tm, origin, params.resolution, params.grid_extent)
+    lin = torch.where(inb, lin, torch.full_like(lin, C))
+    rows_sums = torch.cat([torch.ones_like(tgt[:, :1]), tgt,
+                           (tgt[:, :, None] * tgt[:, None, :]).reshape(-1, 9)], 1)
+    eye = params.regularization * torch.eye(3, device=tgt.device)
+
+    def library_grid():
+        sums = torch.zeros((C + 1, 13), device=tgt.device).index_add_(0, lin, rows_sums)[:C]
+        n_ = sums[:, 0].clamp(min=1.0)
+        mu = sums[:, 1:4] / n_[:, None]
+        cov = (sums[:, 4:13].reshape(-1, 3, 3) / n_[:, None, None]
+               - mu[:, :, None] * mu[:, None, :] + eye)
+        return torch.linalg.cholesky(torch.linalg.inv(cov))
+
+    return library_grid, inb
+
+
+def _k16_capacity_problem(torch, dev):
+    """K16's synthetic SE(3) pose graph with IMU terms at the solver's
+    capacity (S 64, N 4,096, C 16,384; a gyro term per consecutive pair, an
+    acceleration triplet per triple): -> (arrays, truth node translations,
+    the weight-normalized problem on `dev`, the Huber scale)."""
+    from cartographer_tpu_torch.interop import schur_problem_3d_from_numpy
+    from cartographer_tpu_torch.parallel import schur_spa_3d
+    from cartographer_tpu_torch.simulation import synthetic_pose_graph_3d
+
+    arrays, truth_t, _ = synthetic_pose_graph_3d(*K16_CAPACITY, seed=3)
+    problem = schur_problem_3d_from_numpy(arrays, dev)
+    wmax = schur_spa_3d.max_weight(problem)
+    return (arrays, truth_t, schur_spa_3d.pad_even(schur_spa_3d.normalized(problem, wmax)),
+            10.0 / wmax)
+
+
 def _timed(fn, reps=20, warmup=2):
     """(profiler ms, CUDA-event ms, flag) of fn(): the profiler's total has
     dropped device events on some calls, so the new rows are read both
@@ -3186,11 +3254,10 @@ def _timed(fn, reps=20, warmup=2):
     return profiler, events, max(profiler, events) > 2.0 * max(min(profiler, events), 1e-9)
 
 
-def _launches_per_call(fn, expected, label):
+def _graph_kernels(fn, label):
     """Kernels one call of fn() launches: the kernel nodes of a CUDA graph
     captured around the call (the profiler dropped kernels of short
-    sessions). Fails above `expected`, the count the kernel's source
-    states."""
+    sessions)."""
     import ctypes
 
     import torch
@@ -3209,11 +3276,51 @@ def _launches_per_call(fn, expected, label):
         kind = ctypes.c_int(-1)
         driver.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
         kinds.append(kind.value)
-    launched = kinds.count(0)  # CU_GRAPH_NODE_TYPE_KERNEL
     del graph
+    return kinds.count(0)  # CU_GRAPH_NODE_TYPE_KERNEL
+
+
+def _launches_per_call(fn, expected, label):
+    """_graph_kernels of fn(); fails above `expected`, the count the
+    kernel's source states."""
+    launched = _graph_kernels(fn, label)
     if launched > expected:
         _fail(f"{label}: {launched} kernel launches per call, the source states {expected}")
     return launched
+
+
+def _short_name(name):
+    """A GPU activity's kernel name without its namespaces, template
+    arguments and parameters ("Memset" for a memset)."""
+    found = re.search(r"(\w+)\s*[<(]", name.replace("(anonymous namespace)::", ""))
+    return found.group(1) if found else name
+
+
+def _launch_breakdown(fn, reps=5):
+    """Each GPU activity of one call of fn() in launch order: -> ([(name,
+    median device ms)], calls counted). Each of `reps` calls is profiled
+    alone and read from the trace's raw records; a call whose window holds
+    fewer activities than the fullest (the profiler drops records of short
+    sessions) is not counted."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    on_card = torch._C._autograd.DeviceType.CUDA
+    runs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = sorted((e.start_ns(), _short_name(e.name()), e.duration_ns() / 1e6)
+                        for e in prof.profiler.kineto_results.events()
+                        if e.device_type() == on_card)
+        runs.append([(name, ms) for _, name, ms in events])
+    longest = max(len(r) for r in runs)
+    full = [r for r in runs if len(r) == longest]
+    return ([(full[0][i][0], statistics.median(r[i][1] for r in full))
+             for i in range(longest)], len(full))
 
 
 def _edge_intensity_phase(torch, dev):
@@ -4293,7 +4400,17 @@ def _profile(torch, feed, data, label="profile"):
     return result
 
 
+def _clocked(seconds, phase, fn, *args, **kwargs):
+    """fn(*args, **kwargs), its wall seconds kept in seconds[phase] and printed."""
+    t0 = time.monotonic()
+    out = fn(*args, **kwargs)
+    seconds[str(phase)] = time.monotonic() - t0
+    print(f"phase {phase}: {seconds[str(phase)]:.1f} s")
+    return out
+
+
 def main() -> int:
+    t_main = time.monotonic()
     try:
         import torch
     except ImportError:
@@ -4314,45 +4431,49 @@ def main() -> int:
 
     build_s = cuda.build()
     print(f"build: {build_s:.1f} s for {len(list(cuda.CSRC_DIR.glob('*.cu')))} sources")
-    rows, ctx = _kernel_phase(torch, dev)
-    run = _slice_phase(torch, dev)
-    backend_rows, backend = _backend_kernel_phase(torch, dev, ctx, run)
+    seconds = {}  # wall seconds per phase (the docstring's numbers)
+    rows, ctx = _clocked(seconds, 1, _kernel_phase, torch, dev)
+    run = _clocked(seconds, 2, _slice_phase, torch, dev)
+    backend_rows, backend = _clocked(seconds, 3, _backend_kernel_phase, torch, dev, ctx, run)
     rows.update(backend_rows)
-    slam = _global_phase(torch, dev)
+    slam = _clocked(seconds, 4, _global_phase, torch, dev)
     map_2d = slam.pop("map_builder")  # phase 22 saves and reloads its map
     for key in ("submap", "nodes", "builder", "kept"):
         del run[key]
-    run_tsdf = _slice_phase(torch, dev, "TSDF", TSDF_FRONTEND_KERNELS, TSDF_ERROR_LIMIT,
-                            "TSDF frontend")
-    rows_tsdf = _kernel_phase_tsdf(torch, dev, run_tsdf)
+    run_tsdf = _clocked(seconds, 14, _slice_phase, torch, dev, "TSDF", TSDF_FRONTEND_KERNELS,
+                        TSDF_ERROR_LIMIT, "TSDF frontend")
+    rows_tsdf = _clocked(seconds, 15, _kernel_phase_tsdf, torch, dev, run_tsdf)
     for key in ("submap", "nodes", "builder", "kept"):
         del run_tsdf[key]
     refines = []
-    slam_tsdf = _global_phase(torch, dev, "TSDF", TSDF_KERNELS, TSDF_GLOBAL_LIMITS,
-                              localize=False, label="TSDF global", refines=refines)
+    slam_tsdf = _clocked(seconds, 16, _global_phase, torch, dev, "TSDF", TSDF_KERNELS,
+                         TSDF_GLOBAL_LIMITS, localize=False, label="TSDF global",
+                         refines=refines)
     del slam_tsdf["map_builder"]
-    rows_tsdf.update(_refine_phase_tsdf(torch, refines))
+    rows_tsdf.update(_clocked(seconds, "15, refines", _refine_phase_tsdf, torch, refines))
     del refines
-    run3d = _slice_phase_3d(torch, dev)
-    rows3d = _kernel_phase_3d(torch, dev, run3d.pop("builder"), run3d.pop("last_step"))
-    slam3d = _global_phase_3d(torch, dev)
-    rows3g, backend3d = _backend_kernel_phase_3d(torch, dev, slam3d)
+    run3d = _clocked(seconds, 5, _slice_phase_3d, torch, dev)
+    rows3d = _clocked(seconds, 6, _kernel_phase_3d, torch, dev, run3d.pop("builder"),
+                      run3d.pop("last_step"))
+    slam3d = _clocked(seconds, 7, _global_phase_3d, torch, dev)
+    rows3g, backend3d = _clocked(seconds, 8, _backend_kernel_phase_3d, torch, dev, slam3d)
     map_3d = slam3d.pop("pose_graph")  # phase 22 saves and reloads it
     del slam3d["request"]
-    full_hall = _full_hall_phase_3d(torch, dev)
-    run3f = _slice_phase_3d_full(torch, dev)
-    rows3f = _kernel_phase_3d_full(torch, dev, run3f.pop("builder"), run3f.pop("kept"))
-    full_hall_corr = _full_hall_phase_3d(torch, dev, correlative=True)
-    imu_based = _imu_based_phase_3d(torch, dev)
-    large = _large_scan_phase_3d(torch, dev)
-    raised = _one_block_limits_phase(torch, dev)
-    rows_sm, scan_match = _scan_match_phase(torch, dev)
-    rows_gn, gicp_ndt = _gicp_ndt_phase(torch, dev)
+    full_hall = _clocked(seconds, 9, _full_hall_phase_3d, torch, dev)
+    run3f = _clocked(seconds, 10, _slice_phase_3d_full, torch, dev)
+    rows3f = _clocked(seconds, 11, _kernel_phase_3d_full, torch, dev, run3f.pop("builder"),
+                      run3f.pop("kept"))
+    full_hall_corr = _clocked(seconds, 12, _full_hall_phase_3d, torch, dev, correlative=True)
+    imu_based = _clocked(seconds, 13, _imu_based_phase_3d, torch, dev)
+    large = _clocked(seconds, 17, _large_scan_phase_3d, torch, dev)
+    raised = _clocked(seconds, 18, _one_block_limits_phase, torch, dev)
+    rows_sm, scan_match = _clocked(seconds, 19, _scan_match_phase, torch, dev)
+    rows_gn, gicp_ndt = _clocked(seconds, 20, _gicp_ndt_phase, torch, dev)
     rows_sm.update(rows_gn)
-    rows_ei, edge_intensity = _edge_intensity_phase(torch, dev)
-    interchange = _state_interchange_phase(torch, dev, map_2d, map_3d)
+    rows_ei, edge_intensity = _clocked(seconds, 21, _edge_intensity_phase, torch, dev)
+    interchange = _clocked(seconds, 22, _state_interchange_phase, torch, dev, map_2d, map_3d)
     del map_2d, map_3d
-    batched = _batched_serving_phase(torch, dev)
+    batched = _clocked(seconds, 23, _batched_serving_phase, torch, dev)
     # K23 and its stats form count the `icp` run's launches, as before.
     scan_match_launches = {**gicp_ndt["launches"], **scan_match["modes"]["ceres"]["launches"],
                            **scan_match["modes"]["icp"]["launches"]}
@@ -4379,7 +4500,8 @@ def main() -> int:
     smi = _smi()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
-        "card": smi, "build_seconds": build_s,
+        "card": smi, "build_seconds": build_s, "phase_seconds": seconds,
+        "seconds": time.monotonic() - t_main,
         "frontend": {
             "scans": run["scans"],
             "frontend_2d_builder_scans_per_sec": run["frontend_2d_builder_scans_per_sec"],
@@ -4431,6 +4553,9 @@ def main() -> int:
         "schur_50_iterations_ms": backend["schur_50_iterations_ms"],
         "bnb3d_match_ms": backend3d["bnb3d_match_ms"],
         "schur_3d_50_iterations_ms": backend3d["schur_3d_50_iterations_ms"],
+        "schur_3d": {k: backend3d[k] for k in (
+            "schur_3d_breakdown_ms", "schur_3d_kernels_per_iteration", "schur_3d_event_ms",
+            "schur_3d_reduced_cholesky_ms")},
         "kernel_device_ms": {k["name"]: k["ms"] for k in kernels},
         "bound_ms": {k["name"]: k["bound_ms"] for k in kernels},
         "library_ms": {k["name"]: k["library_ms"] for k in kernels}}))

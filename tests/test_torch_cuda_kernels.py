@@ -394,11 +394,108 @@ def test_schur_spa_3d_kernel(dev, iterations):
     Over the steps that lower the cost by more than 1e-5, which no rounding
     flips, the states agree at 1e-3. After 30 iterations both have
     converged."""
-    from cartographer_tpu_torch.interop import schur_problem_3d_from_numpy
-    from cartographer_tpu_torch.parallel import schur_spa_3d
     from cartographer_tpu_torch.simulation import synthetic_pose_graph_3d
 
     arrays, truth_t, _ = synthetic_pose_graph_3d(8, 200, 640, seed=2)
+    _check_schur_spa_3d(dev, arrays, truth_t, iterations)
+
+
+def _k16_graph(S, N, seed):
+    """A synthetic SE(3) pose graph of S reduced slots and N nodes with frozen
+    nodes and dims: every 97th node frozen, roll and pitch frozen on every
+    13th. S = 1: the graph of 3 slots cut to its first (freed), its binary
+    terms to that slot, no IMU terms, node 0 frozen. The poses start 5 mm
+    from the truth, as a running pose graph's solve starts from the last
+    solution: from 5 cm the first step of a 6-node graph lowers the cost
+    3,500-fold, and the float32 candidate cost is then fixed only to about
+    2e-4 by either elimination order (on the CPU the twin's own Thomas
+    chain lands 1.9e-4 from its float64 form), which a 1e-4 check of the
+    costs cannot tell from a fault."""
+    from cartographer_tpu_torch.simulation import synthetic_pose_graph_3d
+
+    arrays, truth_t, _ = synthetic_pose_graph_3d(max(S, 3), N, 4 * N + 16, seed=seed,
+                                                 pose_noise=0.005)
+    arrays["acc_delta_v"] = arrays["acc_delta_v"].reshape(-1, 3)
+    if S == 1:
+        keep = arrays["a_idx"] == 0
+        for k in ("a_idx", "b_idx", "rel_t", "rel_q", "trans_weight", "rot_weight",
+                  "use_huber", "valid"):
+            arrays[k] = arrays[k][keep]
+        for k in ("sub_t", "sub_q", "sub_free", "grav_clamp"):
+            arrays[k] = arrays[k][:1]
+        arrays["sub_free"][:] = True
+        for k in ("rot_i", "rot_traj", "rot_delta_q", "rot_weight_c", "rot_valid", "acc_i",
+                  "acc_traj", "acc_delta_v", "acc_dt1", "acc_dt2", "acc_weight", "acc_valid"):
+            arrays[k] = arrays[k][:0]
+        arrays["node_free"][0] = False
+    arrays["node_free"][::97] = False
+    arrays["node_free"][5::13, 3:5] = False
+    return arrays, truth_t
+
+
+@pytest.mark.parametrize("S", [1, 8, 64])
+@pytest.mark.parametrize("pairs", [1, 3, 100, 350, 2048])
+def test_schur_spa_3d_kernel_shapes(dev, pairs, S):
+    """K16 against its twin over 2 iterations at N/2 = `pairs` super-blocks
+    (the band's cyclic reduction at 0, 2, 7, 9 and 11 levels) and S reduced
+    slots (1, 1 or 4 column tiles of X), with frozen nodes and dims: the
+    checks and tolerances of test_schur_spa_3d_kernel."""
+    arrays, truth_t = _k16_graph(S, 2 * pairs, seed=pairs + S)
+    _check_schur_spa_3d(dev, arrays, truth_t, 2)
+
+
+def test_schur_spa_3d_kernel_not_positive_definite(dev):
+    """A damping of -1e4 makes the reduced system indefinite: its Cholesky
+    gives NaN on the card as in the twin, both reject the step (the state
+    unchanged bit for bit) and multiply lambda by 8."""
+    from cartographer_tpu_torch.interop import schur_problem_3d_from_numpy
+    from cartographer_tpu_torch.parallel import schur_spa_3d
+
+    arrays, _ = _k16_graph(8, 200, seed=7)
+    p = schur_problem_3d_from_numpy(arrays, dev)
+    wmax = schur_spa_3d.max_weight(p)
+    pp = schur_spa_3d.pad_even(schur_spa_3d.normalized(p, wmax))
+    for solve in (schur_spa_3d._solve_kernel, schur_spa_3d.solve_plain):
+        history = torch.zeros((1, 4), dtype=torch.float32, device=dev)
+        out = solve(pp, 1, 10.0 / wmax, -1e4, history=history)
+        h = history.cpu().numpy()[0]
+        assert np.isfinite(h[0]) and not np.isfinite(h[1]) and h[2] == 0.0, (solve, h)
+        assert h[3] == np.float32(1e-4) * 8, (solve, h)
+        for got, start in zip(out, (pp.sub_t, pp.sub_q, pp.node_t, pp.node_q)):
+            assert torch.equal(got, start)
+
+
+@pytest.mark.parametrize("n", [6, 66, 384, 1200, -384])
+def test_schur_reduced_cholesky_kernel(dev, n):
+    """K16's reduced-system Cholesky alone (one cluster; at 1,200 its rows in
+    device memory) against a float64 solve: within 1e-4 of the solution's
+    scale on a well-conditioned system (cond below 10); an indefinite
+    system (n < 0: the same with its diagonal's sign flipped on one row)
+    gives NaN."""
+    from cartographer_tpu_torch.parallel import schur_spa_3d
+
+    m = abs(n)
+    rng = np.random.RandomState(m)
+    R = rng.randn(m, m)
+    P = R @ R.T / m + np.eye(m)
+    if n < 0:
+        P[m // 2, m // 2] = -P[m // 2, m // 2]
+    b = rng.randn(m)
+    x = schur_spa_3d.reduced_cholesky_solve(_t(P.astype(np.float32), dev),
+                                           _t(b.astype(np.float32), dev)).cpu().numpy()
+    if n < 0:
+        assert np.isnan(x).any()
+        return
+    ref = np.linalg.solve(P, b)
+    assert np.abs(x - ref).max() <= 1e-4 * np.abs(ref).max()
+
+
+def _check_schur_spa_3d(dev, arrays, truth_t, iterations):
+    """test_schur_spa_3d_kernel's checks of K16 against its twin on the
+    problem `arrays`."""
+    from cartographer_tpu_torch.interop import schur_problem_3d_from_numpy
+    from cartographer_tpu_torch.parallel import schur_spa_3d
+
     p = schur_problem_3d_from_numpy(arrays, dev)
     wmax = schur_spa_3d.max_weight(p)
     pp = schur_spa_3d.pad_even(schur_spa_3d.normalized(p, wmax))
@@ -1260,6 +1357,55 @@ def test_ndt_grid_kernel(dev, resolution, extent):
     assert int(valid.sum()) > 10
     torch.testing.assert_close(L[valid], rL[valid], atol=1e-5 * float(rL[valid].abs().max()),
                                rtol=0)
+
+
+def _ndt_case(dev, case):
+    """-> (target, mask, NdtParams, center) of a K28 size case."""
+    from cartographer_tpu_torch.ops import icp
+
+    rng = np.random.RandomState(len(case))
+    if case == "two_launches":  # one point above a launch of the in-order routine
+        pts, _ = _hall_scan(rng, np.float32([0.3, -0.2, 0.1]), 131073)
+        params = icp.NdtParams(resolution=1.0)
+    elif case == "one_cell":  # every point in one cell: one run of 20,000
+        pts = rng.uniform(0.2, 0.8, (20000, 3)) + np.float32([3.0, -2.0, 1.0])
+        params = icp.NdtParams(resolution=1.0)
+    elif case == "none_in_bounds":
+        pts, _ = _hall_scan(rng, np.float32([0.3, -0.2, 0.1]), 4096)
+        params = icp.NdtParams(resolution=0.5)
+    else:  # "three_passes": 48^3 cells need 17 bits, three radix passes
+        pts, _ = _hall_scan(rng, np.float32([0.3, -0.2, 0.1]), 32768)
+        params = icp.NdtParams(resolution=0.5, grid_extent=48)
+    tgt = _t(pts.astype(np.float32), dev)
+    tm = _t(rng.rand(len(pts)) < 0.95, dev)
+    center = (_t(np.float32([1e4, 0.0, 0.0]), dev) if case == "none_in_bounds"
+              else _t(np.zeros(3, np.float32), dev) if case == "one_cell"  # cells on integers
+              else icp.ndt_center(tgt, tm))
+    return tgt, tm, params, center
+
+
+@pytest.mark.parametrize("case", ["two_launches", "one_cell", "none_in_bounds",
+                                  "three_passes"])
+def test_ndt_grid_kernel_sizes(dev, case):
+    """K28 at the in-order routine's edges, with test_ndt_grid_kernel's
+    checks (valid and means exact, L within 1e-5 of its largest entries;
+    every cell where none is valid), and its kernels per call in a captured
+    CUDA graph: 2 up to 131,072 points (the cells' defaults, one launch of
+    the routine), 3 above (two launches on running sums, then the cells)."""
+    from cartographer_tpu_torch.ops import icp, in_order_scatter
+
+    tgt, tm, params, center = _ndt_case(dev, case)
+    means, L, valid, origin = icp.build_ndt_grid(tgt, tm, params, center)
+    rm, rL, rv, ro = icp.build_ndt_grid_plain(tgt, tm, params, center)
+    assert torch.equal(origin, ro) and torch.equal(valid, rv) and torch.equal(means, rm)
+    cells = valid if bool(valid.any()) else torch.ones_like(valid)
+    torch.testing.assert_close(L[cells], rL[cells], atol=1e-5 * float(rL[cells].abs().max()),
+                               rtol=0)
+    assert (int(valid.sum()) == 1) == (case == "one_cell")
+    assert (not bool(valid.any())) == (case == "none_in_bounds")
+    n = tgt.shape[0]
+    expected = 2 if n <= in_order_scatter.CHUNK else in_order_scatter.launches(n) + 1
+    assert _graph_kernels(lambda: icp.build_ndt_grid(tgt, tm, params, center)) == expected
 
 
 @pytest.mark.parametrize("resolution", [1.0, 0.5])

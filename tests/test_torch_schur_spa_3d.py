@@ -148,3 +148,44 @@ def test_synthetic_pose_graph_3d_recovers_truth():
     assert arrays["rot_valid"].sum() == 95 and arrays["acc_valid"].sum() == 94
     assert (~arrays["sub_free"].any(1)).sum() >= 1 and arrays["grav_clamp"].sum() == 1
     assert arrays["use_huber"].sum() > 0
+
+
+def _band_system(n, width, seed):
+    """A damped block-tridiagonal system of n 12x12 super-blocks as the
+    solver builds it: each block's own rank-6 term, a 12 x 24 Jacobian's
+    J^T J on each consecutive pair, lambda |diag| + damping on the diagonal
+    (1e-4, 1e-6); and a right-hand side of `width` columns. -> (T float64,
+    Td, To, rhs float32)."""
+    rng = np.random.RandomState(seed)
+    T = np.zeros((12 * n, 12 * n))
+    for i in range(n):
+        R = rng.randn(6, 12)
+        T[12 * i:12 * i + 12, 12 * i:12 * i + 12] += R.T @ R
+    for i in range(n - 1):
+        J = rng.randn(12, 24)
+        T[12 * i:12 * i + 24, 12 * i:12 * i + 24] += J.T @ J
+    T[np.diag_indices_from(T)] += 1e-4 * np.abs(np.diag(T)) + 1e-6
+    Td = np.stack([T[12 * i:12 * i + 12, 12 * i:12 * i + 12] for i in range(n)])
+    To = np.zeros((n - 1, 12, 12))
+    for i in range(n - 1):
+        To[i] = T[12 * i:12 * i + 12, 12 * i + 12:12 * i + 24]
+    rhs = rng.randn(n, 12, width)
+    return T, Td.astype(np.float32), To.astype(np.float32), rhs.astype(np.float32)
+
+
+@pytest.mark.parametrize("width", [1, 13, 385])
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 8, 13, 100])
+def test_cyclic_reduction_matches_thomas(n, width):
+    """The plain form of K16's band solve (block cyclic reduction, level by
+    level as the kernel's launches) against the JAX package's Thomas chain
+    (_block_tridiag_factor, _tridiag_solve_multi) in float32 on the same
+    system. Two backward-stable solves of one system differ by rounding:
+    tolerance eps_float32 x cond(T) relative to the solution's largest
+    entry, the first-order bound on either's forward error."""
+    T, Td, To, rhs = _band_system(n, width, seed=100 * n + width)
+    factors = jss._block_tridiag_factor(jnp.asarray(Td), jnp.asarray(To), 12)
+    ref = np.asarray(jss._tridiag_solve_multi(factors, jnp.asarray(rhs), 12))
+    got = tss.cyclic_reduction_solve(*(torch.from_numpy(x) for x in (Td, To, rhs))).numpy()
+    tol = np.finfo(np.float32).eps * np.linalg.cond(T)
+    err = np.abs(got - ref).max() / np.abs(ref).max()
+    assert err <= tol, (err, tol)
