@@ -5,11 +5,17 @@
 // (l.31) and ops/gauss_newton.py:lm_solve (l.22).
 //
 // The whole Levenberg-Marquardt solve on (x, y, theta) is one launch of one
-// block: per iteration one pass computes the residuals, the analytic
-// Jacobian, J^T J (6 values), J^T r (3) and the cost at x, thread 0 solves
-// the damped 3x3 system, and a second pass computes the cost at x + delta;
-// accept/reject, the lambda schedule, use_nonmonotonic_steps and the
-// function_tolerance exit follow lm_solve (l.72-127).
+// block, with one pass over the points per iteration: the pass at the
+// candidate x + delta computes the residuals, the analytic Jacobian and all
+// ten sums (J^T J: 6, J^T r: 3, the sum of squares). If the step is
+// accepted, the next iteration's normal equations are already there; if it
+// is rejected, the sums at x are kept. The first pass, at the start pose,
+// gives the initial cost and the first normal equations. lm_solve rebuilds
+// J at the same x from the same inputs, so with one order of the sums this
+// is what a pass at x and a pass at x + delta compute: 1 + n passes for n
+// iterations where the two-pass form took 1 + 2n. Accept/reject, the lambda
+// schedule, use_nonmonotonic_steps and the function_tolerance exit follow
+// lm_solve (l.72-127).
 //
 // Residual i = w / sqrt(n) * (1 - P(T p_i)) with P the border-clamped
 // Catmull-Rom bicubic of the probability grid, plus the translation and
@@ -20,17 +26,25 @@
 // no derivative, the fraction does, as under jax.jacfwd.
 //
 // Bound: latency. The data is small (512 points, 16 taps each from a 5 MB
-// grid), and the solve is a chain of up to 41 dependent block-wide passes
-// with a reduction and a barrier each. Design: one block of 256 threads
-// holds the state in shared memory and runs the loop without returning to
-// the host, so the early exit costs no synchronisation.
+// grid), and the solve is a chain of up to 21 dependent block-wide passes.
+// Design: one thread per point (up to 512 threads, a loop above that); each
+// point issues its 16 taps' loads (value and flag) together before any use,
+// so a pass waits for one round trip to memory, not one per tap; one
+// barrier per pass: the warps' partial sums go to a double-buffered shared
+// array, after the barrier each warp adds them in a fixed order (a lane a
+// sum) and passes them round its lanes, and every thread solves the damped
+// 3x3 system itself, the same in every thread, so nothing is broadcast
+// through shared memory. No atomics: two calls give the same bits. At 512
+// points the block issues about as many instructions a pass as its SM can
+// (PERF.md).
 //
 // Robots: one block per robot of a cross-robot batch (the JAX package's
 // _batched_step_cached vmaps the solve over robots), each with its own
-// grid, points, start pose, target and early exit. The robots' grids stay
-// where their submaps keep them: a pointer table (surface values, flags,
-// origin per robot) travels in the launch's parameters, so it needs no copy
-// to the device; above kMaxRobots robots the entry point launches once per
+// grid, points, start pose, target and early exit; the block's layout
+// depends on the point count only. The robots' grids stay where their
+// submaps keep them: a pointer table (surface values, flags, origin per
+// robot) travels in the launch's parameters, so it needs no copy to the
+// device; above kMaxRobots robots the entry point launches once per
 // kMaxRobots. The points, masks, start poses and targets are robot 0's plus
 // the robot times a robot stride in elements. One solve is the R = 1 case.
 //
@@ -52,8 +66,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kMaxThreads = 512;  // a thread per point up to this many points
+constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr int kSums = 10;  // H (6), g (3), sum of squares
 constexpr int kMaxRobots = 64;  // robots per launch: the pointer table's rows
 
@@ -85,17 +99,27 @@ struct Problem {
   float scale;  // occupied_space_weight / sqrt(n)
 };
 
-// The interpolated cell value: probability (0.1 where unknown), TSDF score
-// (0 where unknown) or the raw signed distance.
+// The 16 taps' values around cell (i0, j0) (rows i0 - 1 .. i0 + 2, border
+// clamped), tap t at (t / 4, t % 4): probability (0.1 where unknown), TSDF
+// score (0 where unknown) or the raw signed distance. Every load is issued
+// before any is used.
 template <int kSurface>
-__device__ inline float cell_value(const Problem& p, int i, int j) {
-  size_t idx = (size_t)i * p.size + j;
-  if (kSurface == kOccupancy)
-    return ((const uint8_t*)p.flags)[idx] ? 1.0f / (1.0f + expf(-p.values[idx])) : 0.1f;
-  if (kSurface == kTsdfScore)
-    return ((const float*)p.flags)[idx] > 0.0f ? 1.0f - fabsf(p.values[idx]) / p.truncation
-                                               : 0.0f;
-  return p.values[idx];
+__device__ inline void taps(const Problem& p, int i0, int j0, float g[16]) {
+  float v[16], f[16];
+#pragma unroll
+  for (int t = 0; t < 16; ++t) {
+    const size_t idx = (size_t)min(max(i0 + t / 4 - 1, 0), p.size - 1) * p.size +
+                       min(max(j0 + t % 4 - 1, 0), p.size - 1);
+    v[t] = p.values[idx];
+    if (kSurface == kOccupancy) f[t] = ((const uint8_t*)p.flags)[idx] ? 1.0f : 0.0f;
+    if (kSurface == kTsdfScore) f[t] = ((const float*)p.flags)[idx];
+  }
+#pragma unroll
+  for (int t = 0; t < 16; ++t) {
+    if (kSurface == kOccupancy) g[t] = f[t] != 0.0f ? 1.0f / (1.0f + expf(-v[t])) : 0.1f;
+    if (kSurface == kTsdfScore) g[t] = f[t] > 0.0f ? 1.0f - fabsf(v[t]) / p.truncation : 0.0f;
+    if (kSurface == kTsdfDistance) g[t] = v[t];
+  }
 }
 
 __device__ inline void catmull_rom(float f, float w[4], float dw[4]) {
@@ -111,12 +135,12 @@ __device__ inline void catmull_rom(float f, float w[4], float dw[4]) {
   dw[3] = 0.5f * (3.0f * f2 - 2.0f * f);
 }
 
-// Residual of point k at pose x and, when jac != nullptr, its gradient.
+// Residual of point k at pose x and its gradient.
 template <int kSurface>
 __device__ inline float residual(const Problem& p, const float x[3], float c, float s,
-                                 int k, float* jac) {
+                                 int k, float jac[3]) {
   if (!p.mask[k]) {
-    if (jac) jac[0] = jac[1] = jac[2] = 0.0f;
+    jac[0] = jac[1] = jac[2] = 0.0f;
     return 0.0f;
   }
   float px = p.points[2 * k], py = p.points[2 * k + 1];
@@ -126,59 +150,36 @@ __device__ inline float residual(const Problem& p, const float x[3], float c, fl
   float cy = (ry + x[1] - p.origin[1]) / p.resolution - 0.5f;
   float fi = floorf(cx), fj = floorf(cy);
   float fx = cx - fi, fy = cy - fj;
-  int i0 = (int)fi, j0 = (int)fj;
+  float g[16];
+  taps<kSurface>(p, (int)fi, (int)fj, g);
   float wx[4], dwx[4], wy[4], dwy[4];
   catmull_rom(fx, wx, dwx);
   catmull_rom(fy, wy, dwy);
   float val = 0.0f, dfx = 0.0f, dfy = 0.0f;
+#pragma unroll
   for (int di = 0; di < 4; ++di) {
-    int ii = min(max(i0 + di - 1, 0), p.size - 1);
     float row = 0.0f, drow = 0.0f;
+#pragma unroll
     for (int dj = 0; dj < 4; ++dj) {
-      int jj = min(max(j0 + dj - 1, 0), p.size - 1);
-      float g = cell_value<kSurface>(p, ii, jj);
-      row = row + wy[dj] * g;
-      drow = drow + dwy[dj] * g;
+      row = row + wy[dj] * g[4 * di + dj];
+      drow = drow + dwy[dj] * g[4 * di + dj];
     }
     val = val + wx[di] * row;
     dfx = dfx + dwx[di] * row;
     dfy = dfy + wx[di] * drow;
   }
   if (kSurface == kTsdfDistance) {
-    if (jac) {
-      float k_ = p.scale * p.distance_scale / p.resolution;
-      jac[0] = k_ * dfx;
-      jac[1] = k_ * dfy;
-      jac[2] = k_ * (dfy * rx - dfx * ry);
-    }
-    return p.scale * (val * p.distance_scale);
-  }
-  if (jac) {
-    float k_ = -p.scale / p.resolution;
+    float k_ = p.scale * p.distance_scale / p.resolution;
     jac[0] = k_ * dfx;
     jac[1] = k_ * dfy;
     jac[2] = k_ * (dfy * rx - dfx * ry);
+    return p.scale * (val * p.distance_scale);
   }
+  float k_ = -p.scale / p.resolution;
+  jac[0] = k_ * dfx;
+  jac[1] = k_ * dfy;
+  jac[2] = k_ * (dfy * rx - dfx * ry);
   return p.scale * (1.0f - val);
-}
-
-// Block-wide sum of v[0..count); the result is valid in every thread.
-__device__ void block_sum(float* v, int count, float (*scratch)[kSums], float* out) {
-  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int q = 0; q < count; ++q) {
-    float a = v[q];
-    for (int off = 16; off > 0; off >>= 1) a += __shfl_down_sync(0xffffffffu, a, off);
-    if (lane == 0) scratch[warp][q] = a;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int q = 0; q < count; ++q) {
-      float a = 0.0f;
-      for (int w = 0; w < kWarps; ++w) a += scratch[w][q];
-      out[q] = a;
-    }
-  }
-  __syncthreads();
 }
 
 // Solve A d = b for a 3x3 system by Gaussian elimination with partial pivoting.
@@ -220,14 +221,57 @@ __device__ inline float penalty_sq(const Penalty& q, const float x[3]) {
   return a * a + b * b + r * r;
 }
 
+// One pass at pose x: the ten sums over the points into out, in every
+// thread. Each thread adds its points (k, k + blockDim.x, ...) in order, a
+// shuffle tree adds a warp's lanes, and after the one barrier each warp
+// adds the warps' sums in order from `part`, which the caller alternates between
+// two buffers: a thread that runs ahead into the next pass writes the other
+// one, and the pass after that comes only after every thread has passed
+// the next barrier.
 template <int kSurface>
-__global__ void scan_matcher_2d_kernel(Problem p, Grids grids, RobotStrides rs,
-                                       const float* __restrict__ x0,
-                                       const float* __restrict__ target_t, float wt,
-                                       float wr, int num_iterations, int nonmonotonic,
-                                       float function_tolerance, float* __restrict__ x_out,
-                                       float* __restrict__ cost_out,
-                                       int* __restrict__ iterations_out) {
+__device__ inline void pass(const Problem& p, const float x[3], float (*part)[kSums],
+                            float out[kSums]) {
+  const float c = cosf(x[2]), s = sinf(x[2]);
+  float acc[kSums];
+#pragma unroll
+  for (int q = 0; q < kSums; ++q) acc[q] = 0.0f;
+  for (int k = threadIdx.x; k < p.m; k += blockDim.x) {
+    float j[3];
+    const float r = residual<kSurface>(p, x, c, s, k, j);
+    acc[0] += j[0] * j[0];
+    acc[1] += j[0] * j[1];
+    acc[2] += j[0] * j[2];
+    acc[3] += j[1] * j[1];
+    acc[4] += j[1] * j[2];
+    acc[5] += j[2] * j[2];
+    acc[6] += j[0] * r;
+    acc[7] += j[1] * r;
+    acc[8] += j[2] * r;
+    acc[9] += r * r;
+  }
+#pragma unroll
+  for (int q = 0; q < kSums; ++q)
+    for (int off = 16; off > 0; off >>= 1) acc[q] += __shfl_down_sync(0xffffffffu, acc[q], off);
+  if ((threadIdx.x & 31) == 0)
+#pragma unroll
+    for (int q = 0; q < kSums; ++q) part[threadIdx.x >> 5][q] = acc[q];
+  __syncthreads();
+  // Lane q < kSums of every warp adds sum q over the warps, then the lanes
+  // pass the sums round (the same bits in every warp).
+  float v = 0.0f;
+  if ((threadIdx.x & 31) < kSums)
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) v += part[w][threadIdx.x & 31];
+#pragma unroll
+  for (int q = 0; q < kSums; ++q) out[q] = __shfl_sync(0xffffffffu, v, q);
+}
+
+template <int kSurface>
+__global__ void __launch_bounds__(kMaxThreads)
+    scan_matcher_2d_kernel(Problem p, Grids grids, RobotStrides rs,
+                           const float* __restrict__ x0, const float* __restrict__ target_t,
+                           float wt, float wr, int num_iterations, int nonmonotonic,
+                           float function_tolerance, float* __restrict__ x_out,
+                           float* __restrict__ cost_out, int* __restrict__ iterations_out) {
   const int r = blockIdx.x;
   p.values = (const float*)grids.values[r];
   p.flags = grids.flags[r];
@@ -236,117 +280,72 @@ __global__ void scan_matcher_2d_kernel(Problem p, Grids grids, RobotStrides rs,
   p.mask += r * rs.mask;
   x0 += r * rs.x0;
   target_t += r * rs.target;
-  x_out += 3 * r;
-  cost_out += r;
-  iterations_out += r;
-  __shared__ float scratch[kWarps][kSums];
-  __shared__ float sums[kSums];
-  __shared__ float x[3], x_new[3], best_x[3];
-  __shared__ float lam, current, best_cost;
-  __shared__ int it, stop, finite_delta;
+  __shared__ float part[2][kMaxWarps][kSums];
 
   // n = max(number of valid points, 1), counted once.
-  float cnt = 0.0f;
-  for (int k = threadIdx.x; k < p.m; k += blockDim.x) cnt += p.mask[k] ? 1.0f : 0.0f;
-  block_sum(&cnt, 1, scratch, sums);
-  p.scale = p.scale / sqrtf(fmaxf(sums[0], 1.0f));
-  Penalty pen = {target_t[0], target_t[1], x0[2], wt, wr};
-
-  if (threadIdx.x == 0) {
-    for (int q = 0; q < 3; ++q) x[q] = best_x[q] = x0[q];
-    lam = 1e-4f;
-    it = 0;
-    stop = 0;
+  int count = 0;
+  for (int k0 = 0; k0 < p.m; k0 += blockDim.x) {
+    const int k = k0 + threadIdx.x;
+    count += __syncthreads_count(k < p.m && p.mask[k]);
   }
-  __syncthreads();
+  p.scale = p.scale / sqrtf(fmaxf((float)count, 1.0f));
+  const Penalty pen = {target_t[0], target_t[1], x0[2], wt, wr};
 
-  // Initial cost.
-  {
-    float xl[3] = {x[0], x[1], x[2]};
-    float c = cosf(xl[2]), s = sinf(xl[2]);
-    float acc = 0.0f;
-    for (int k = threadIdx.x; k < p.m; k += blockDim.x) {
-      float r = residual<kSurface>(p, xl, c, s, k, nullptr);
-      acc += r * r;
-    }
-    block_sum(&acc, 1, scratch, sums);
-    if (threadIdx.x == 0) current = best_cost = 0.5f * (sums[0] + penalty_sq(pen, xl));
-  }
-  __syncthreads();
-
+  // The state, the same in every thread: the sums at x and the candidate's.
+  float x[3] = {x0[0], x0[1], x0[2]}, best_x[3] = {x0[0], x0[1], x0[2]};
+  float sums[kSums], cand[kSums];
+  int buf = 0;
+  pass<kSurface>(p, x, part[buf], sums);
+  float current = 0.5f * (sums[9] + penalty_sq(pen, x)), best_cost = current;
+  float lam = 1e-4f;
+  int it = 0;
+  bool stop = false;
   while (!stop && it < num_iterations) {
-    // Pass A: normal equations at x.
-    float xl[3] = {x[0], x[1], x[2]};
-    float c = cosf(xl[2]), s = sinf(xl[2]);
-    float acc[kSums] = {0.0f};
-    for (int k = threadIdx.x; k < p.m; k += blockDim.x) {
-      float j[3];
-      float r = residual<kSurface>(p, xl, c, s, k, j);
-      acc[0] += j[0] * j[0];
-      acc[1] += j[0] * j[1];
-      acc[2] += j[0] * j[2];
-      acc[3] += j[1] * j[1];
-      acc[4] += j[1] * j[2];
-      acc[5] += j[2] * j[2];
-      acc[6] += j[0] * r;
-      acc[7] += j[1] * r;
-      acc[8] += j[2] * r;
-    }
-    block_sum(acc, 9, scratch, sums);
-    if (threadIdx.x == 0) {
-      // Penalty rows: r_t = wt (x_xy - t), r_r = wr (theta - rot).
-      float h[3][3] = {{sums[0] + wt * wt, sums[1], sums[2]},
-                       {sums[1], sums[3] + wt * wt, sums[4]},
-                       {sums[2], sums[4], sums[5] + wr * wr}};
-      float g[3] = {sums[6] + wt * (wt * (xl[0] - pen.tx)),
-                    sums[7] + wt * (wt * (xl[1] - pen.ty)),
-                    sums[8] + wr * (wr * (xl[2] - pen.rot))};
-      for (int q = 0; q < 3; ++q) h[q][q] = h[q][q] + lam * fmaxf(h[q][q], 1e-6f);
-      float rhs[3] = {-g[0], -g[1], -g[2]};
-      float d[3];
-      solve3(h, rhs, d);
-      finite_delta = isfinite(d[0]) && isfinite(d[1]) && isfinite(d[2]);
-      for (int q = 0; q < 3; ++q) x_new[q] = xl[q] + d[q];
-    }
-    __syncthreads();
+    // Penalty rows: r_t = wt (x_xy - t), r_r = wr (theta - rot).
+    float h[3][3] = {{sums[0] + wt * wt, sums[1], sums[2]},
+                     {sums[1], sums[3] + wt * wt, sums[4]},
+                     {sums[2], sums[4], sums[5] + wr * wr}};
+    float g[3] = {sums[6] + wt * (wt * (x[0] - pen.tx)),
+                  sums[7] + wt * (wt * (x[1] - pen.ty)),
+                  sums[8] + wr * (wr * (x[2] - pen.rot))};
+    for (int q = 0; q < 3; ++q) h[q][q] = h[q][q] + lam * fmaxf(h[q][q], 1e-6f);
+    float rhs[3] = {-g[0], -g[1], -g[2]};
+    float d[3];
+    solve3(h, rhs, d);
+    const bool finite_delta = isfinite(d[0]) && isfinite(d[1]) && isfinite(d[2]);
+    const float xn[3] = {x[0] + d[0], x[1] + d[1], x[2] + d[2]};
 
-    // Pass B: cost at x + delta.
-    float xn[3] = {x_new[0], x_new[1], x_new[2]};
-    float cn = cosf(xn[2]), sn = sinf(xn[2]);
-    float sq = 0.0f;
-    for (int k = threadIdx.x; k < p.m; k += blockDim.x) {
-      float r = residual<kSurface>(p, xn, cn, sn, k, nullptr);
-      sq += r * r;
+    buf ^= 1;
+    pass<kSurface>(p, xn, part[buf], cand);
+    const float new_cost = 0.5f * (cand[9] + penalty_sq(pen, xn));
+    const bool finite = finite_delta && isfinite(new_cost);
+    const bool improved = new_cost < current && finite;
+    const bool accept = nonmonotonic ? finite : improved;
+    const float improvement = improved ? (current - new_cost) / fmaxf(current, 1e-30f) : 1.0f;
+    lam = improved ? lam * 0.5f : lam * 4.0f;
+    if (accept) {
+      for (int q = 0; q < 3; ++q) x[q] = xn[q];
+      for (int q = 0; q < kSums; ++q) sums[q] = cand[q];
+      current = new_cost;
     }
-    block_sum(&sq, 1, scratch, sums);
-    if (threadIdx.x == 0) {
-      float new_cost = 0.5f * (sums[0] + penalty_sq(pen, xn));
-      bool finite = finite_delta && isfinite(new_cost);
-      bool improved = new_cost < current && finite;
-      bool accept = nonmonotonic ? finite : improved;
-      float improvement =
-          improved ? (current - new_cost) / fmaxf(current, 1e-30f) : 1.0f;
-      lam = improved ? lam * 0.5f : lam * 4.0f;
-      if (accept) {
-        for (int q = 0; q < 3; ++q) x[q] = xn[q];
-        current = new_cost;
-      }
-      if (finite && new_cost < best_cost) {
-        for (int q = 0; q < 3; ++q) best_x[q] = xn[q];
-        best_cost = new_cost;
-      }
-      it = it + 1;
-      stop = accept && improvement < function_tolerance && improvement >= 0.0f;
+    if (finite && new_cost < best_cost) {
+      for (int q = 0; q < 3; ++q) best_x[q] = xn[q];
+      best_cost = new_cost;
     }
-    __syncthreads();
+    it = it + 1;
+    stop = accept && improvement < function_tolerance && improvement >= 0.0f;
   }
 
   if (threadIdx.x == 0) {
-    for (int q = 0; q < 3; ++q) x_out[q] = nonmonotonic ? best_x[q] : x[q];
-    cost_out[0] = nonmonotonic ? best_cost : current;
-    iterations_out[0] = it;
+    for (int q = 0; q < 3; ++q) x_out[3 * r + q] = nonmonotonic ? best_x[q] : x[q];
+    cost_out[r] = nonmonotonic ? best_cost : current;
+    iterations_out[r] = it;
   }
 }
+
+// A solve's threads for m points: one per point, whole warps, at most
+// kMaxThreads (a loop above).
+inline int block_threads(int m) { return min(kMaxThreads, max(32, (m + 31) / 32 * 32)); }
 
 // `grids` (host memory): robots x (values, flags, origin) device pointers;
 // `strides` (host memory): the robot strides of points, mask, x0, target.
@@ -380,7 +379,7 @@ int launch(const void* const* grids, int robots, float truncation, float distanc
     p.mask = (const uint8_t*)mask + r0 * rs.mask;
     p.m = m;
     p.scale = occupied_space_weight;
-    scan_matcher_2d_kernel<kSurface><<<count, kThreads, 0, (cudaStream_t)stream>>>(
+    scan_matcher_2d_kernel<kSurface><<<count, block_threads(m), 0, (cudaStream_t)stream>>>(
         p, g, rs, (const float*)x0 + r0 * rs.x0, (const float*)target_t + r0 * rs.target,
         translation_weight, rotation_weight, num_iterations, nonmonotonic,
         function_tolerance, (float*)x_out + 3 * r0, (float*)cost_out + r0,

@@ -47,7 +47,8 @@
 //   reduce    B X and B y into the reduced system without atomics: the
 //             entries grouped by slot once per call, a block per piece of
 //             64 entries and column tile, then a block per slot and tile
-//             adds its pieces in order (a fixed order from run to run).
+//             adds its pieces in order (a fixed order from run to run;
+//             csrc/schur_reduced.cuh, shared with K8, as the Cholesky).
 //   cholesky  the 6S x 6S system blockdiag(A) - B X, augmented with its
 //             right-hand side, in one thread-block cluster (up to 16
 //             blocks, its rows in their shared memory where they fit: at
@@ -80,16 +81,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "schur_reduced.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr float kEps = 1e-9f;
 constexpr int kBandThreads = 128;  // a block's threads in the band's launches
 constexpr int kWideLaunch = 264;   // blocks from which a level launch takes no column tiles
-constexpr int kCholThreads = 512;
-constexpr int kPanel = 32;       // columns per panel step of the reduced Cholesky
-constexpr int kPiece = 64;       // coupling entries per piece of the B X reduction
-constexpr int kMaxCluster = 16;  // Hopper's largest cluster, a non-portable size
 
 struct Problem {
   int S, N, C, D, R, A, E, K, N2;
@@ -837,305 +836,6 @@ __global__ void __launch_bounds__(kBandThreads)
   }
 }
 
-// ------------------------------------------------------------ B X, B y
-
-// The couplings' products into the reduced system without atomics: the
-// entries are grouped by reduced slot once per call (`order`, with
-// slot_start and piece_start per slot, S + 1 each), each slot's entries
-// cut into pieces of kPiece. reduce_pieces_kernel: one block per (piece,
-// column tile) adds its entries' Bc X[b] (and Bc y[b], the last column) in
-// order in registers and writes the piece's 6 rows; reduce_slots_kernel: one
-// block per (slot, tile of 32 columns) adds its pieces and writes the slot's
-// rows of B X (and B y) once. The sums' order is fixed.
-struct Groups {
-  const int* order;        // (E,) entries by slot
-  const int* slot_start;   // (S + 1,) first position of each slot's entries
-  const int* piece_start;  // (S + 1,) first piece of each slot
-  float* partial;          // (pieces, 6, K)
-};
-
-__global__ void __launch_bounds__(kBandThreads)
-    reduce_pieces_kernel(Problem p, Workspace w, Groups g) {
-  __shared__ float bc[kPiece][36];
-  __shared__ int node[kPiece];
-  const int q = blockIdx.x;
-  int lo = 0, hi = p.S;  // the slot a with piece_start[a] <= q < piece_start[a + 1]
-  if (q >= g.piece_start[p.S]) return;
-  while (hi - lo > 1) {
-    const int mid = (lo + hi) >> 1;
-    if (g.piece_start[mid] <= q) lo = mid;
-    else hi = mid;
-  }
-  const int a = lo;
-  const int first = g.slot_start[a] + (q - g.piece_start[a]) * kPiece;
-  const int count = min(kPiece, g.slot_start[a + 1] - first);
-  for (int t = threadIdx.x; t < count * 36; t += blockDim.x) {
-    const int e = g.order[first + t / 36];
-    bc[t / 36][t % 36] = w.ae[e] >= 0 ? w.Bc[36 * (size_t)e + t % 36] : 0.0f;
-    if (t % 36 == 0) node[t / 36] = w.ae[e] >= 0 ? w.be[e] : -1;
-  }
-  __syncthreads();
-  const int c = blockIdx.y * kBandThreads + threadIdx.x;
-  if (c >= p.K) return;
-  const size_t K = p.K;
-  float acc[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll 4
-  for (int t = 0; t < count; ++t) {
-    if (node[t] < 0) continue;
-    const float* x = w.X + (size_t)node[t] * 6 * K + c;
-    float xv[6];
-#pragma unroll
-    for (int j = 0; j < 6; ++j) xv[j] = x[j * K];
-#pragma unroll
-    for (int i = 0; i < 6; ++i) {
-      float v = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 6; ++j) v = v + bc[t][6 * i + j] * xv[j];
-      acc[i] = acc[i] + v;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 6; ++i) g.partial[((size_t)q * 6 + i) * K + c] = acc[i];
-}
-
-// A block per slot and tile of 32 columns: warp w adds the pieces q = w
-// mod 4 in order, then the first warp adds the four warps' sums in order.
-__global__ void __launch_bounds__(kBandThreads)
-    reduce_slots_kernel(Problem p, Workspace w, Groups g) {
-  __shared__ float part[kBandThreads / 32][6][32];
-  const int a = blockIdx.x, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int warps = kBandThreads / 32;
-  const int c = blockIdx.y * 32 + lane;
-  const int q0 = g.piece_start[a], q1 = g.piece_start[a + 1];
-  if (q0 == q1) return;
-  const size_t K = p.K;
-  float acc[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  if (c < p.K)
-#pragma unroll 4
-    for (int q = q0 + warp; q < q1; q += warps)
-#pragma unroll
-      for (int i = 0; i < 6; ++i) acc[i] = acc[i] + g.partial[((size_t)q * 6 + i) * K + c];
-#pragma unroll
-  for (int i = 0; i < 6; ++i) part[warp][i][lane] = acc[i];
-  __syncthreads();
-  if (warp != 0 || c >= p.K) return;
-  const int n6 = 6 * p.S;
-#pragma unroll
-  for (int i = 0; i < 6; ++i) {
-    float v = part[0][i][lane];
-    for (int u = 1; u < warps; ++u) v = v + part[u][i][lane];
-    if (c < p.K - 1)
-      w.M[(size_t)(6 * a + i) * n6 + c] = v;
-    else
-      w.r[6 * a + i] = v;
-  }
-}
-
-// ------------------------------------------------------------ the reduced system
-
-// The reduced system, augmented with its right-hand side as row n = 6S:
-// row i < n holds blockdiag(A) - B X (its lower triangle is read), row n
-// -(g_s - B y). Rows are dealt out to the cluster's blocks in turn (row i to
-// block i mod blocks), held in the blocks' shared memory where they fit,
-// else in place in the workspace's M (and r, which follows it).
-struct Rows {
-  float* own;  // this block's rows where they are shared, else null
-  float* M;    // the rows in place, where they are not
-  int shift;   // log2 of the cluster's blocks
-  int n;
-  // Row i, held by block i mod blocks.
-  __device__ float* row(cooperative_groups::cluster_group cluster, int i) const {
-    if (!own) return M + (size_t)i * n;
-    return cluster.map_shared_rank(own, (unsigned int)(i & ((1 << shift) - 1))) +
-           (size_t)(i >> shift) * n;
-  }
-  // Row i of this block's own, through its own shared memory.
-  __device__ float* mine(int i) const {
-    return own ? own + (size_t)(i >> shift) * n : M + (size_t)i * n;
-  }
-};
-
-// This block's rows' factor columns [c0, c0 + wd) from the panel buffer.
-__device__ inline void write_panel(const Rows& R, const float* panel, int ld, int n, int rank,
-                                   int c0, int wd) {
-  const int blocks = 1 << R.shift;
-  const int first = rank + (c0 > rank ? (c0 - rank + blocks - 1) >> R.shift << R.shift : 0);
-  const int rows = first <= n ? (n - first) / blocks + 1 : 0;
-  for (int e = threadIdx.x; e < rows * kPanel; e += blockDim.x) {
-    const int i = first + (e / kPanel) * blocks, k = e % kPanel;
-    if (k < wd && c0 + k <= i) R.mine(i)[c0 + k] = panel[k * ld + i];
-  }
-}
-
-// Cholesky factor and solve of the reduced system in one thread-block
-// cluster, by panels of kPanel columns. In panel step c0 every block reads
-// the panel's columns of all rows i >= c0 from their blocks, factors the
-// panel's diagonal block in one warp (registers and shuffles), solves every
-// row below it against that factor (a thread per row; row n so becomes
-// the forward substitution's y), and updates its own rows' trailing columns
-// with the panel; one cluster barrier ends the step. A block writes its
-// rows' panel values (the factor's columns) at the start of the next step,
-// when no block reads them any more. Then one block solves L^T x = y by
-// panels, reading the factor's rows from the cluster. A pivot that is not
-// positive gives NaN, which reaches dx, and the step is rejected.
-__global__ void __launch_bounds__(kCholThreads, 1)
-    cholesky_kernel(Problem p, Workspace w, int in_shared) {
-  // in_shared: the rows and the panel buffer in shared memory; else the rows
-  // in place in M and each block's panel buffer in w.panels.
-  namespace cg = cooperative_groups;
-  extern __shared__ __align__(16) float sm[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int blocks = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
-  const int n = 6 * p.S, ld = n + 1;  // ld: the panel buffer's row length
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  float* diag = sm;  // [32][33]: the panel's factor, and 1 / its diagonal in column 32
-  float* vec = diag + 32 * 33;       // [n]: the back substitution's vector
-  // [k][i]: column c0 + k of row i in the panel step c0.
-  float* panel = in_shared ? vec + n : w.panels + (size_t)rank * kPanel * ld;
-  float* own = vec + n + kPanel * ld;  // this block's rows, where they are shared
-  Rows R{in_shared ? own : nullptr, w.M, __ffs(blocks) - 1, n};
-
-  // This block's rows: blockdiag(A) - B X on and below the diagonal; row n.
-  for (int i = rank; i <= n; i += blocks) {
-    float* dst = R.mine(i);
-    const float* src = w.M + (size_t)i * n;  // row n: r, which follows M
-    for (int j = tid; j < (i < n ? i + 1 : n); j += blockDim.x) {
-      if (i == n) {
-        dst[j] = -(w.g_s[j] - src[j]);
-      } else {
-        const float a = i / 6 == j / 6 ? w.A[36 * (i / 6) + 6 * (i % 6) + j % 6] : 0.0f;
-        dst[j] = a - src[j];
-      }
-    }
-  }
-  cluster.sync();
-
-  int prev = -1, prev_w = 0;
-  for (int c0 = 0; c0 < n; c0 += kPanel) {
-    const int wd = min(kPanel, n - c0), c1 = c0 + wd;
-    // The previous panel's factor columns into this block's rows.
-    if (prev >= 0) write_panel(R, panel, ld, n, rank, prev, prev_w);
-    __syncthreads();
-    // A warp per row, a lane per column: the loads of four rows in flight.
-    if (lane < wd)
-#pragma unroll 4
-      for (int i = c0 + warp; i <= n; i += kCholThreads / 32)
-        panel[lane * ld + i] = R.row(cluster, i)[c0 + lane];
-    __syncthreads();
-    if (warp == 0) {  // the diagonal block's factor, lane r its row r
-      float a[kPanel];
-#pragma unroll
-      for (int k = 0; k < kPanel; ++k)
-        a[k] = lane < wd ? (k <= lane && k < wd ? panel[k * ld + c0 + lane] : 0.0f)
-                         : (k == lane ? 1.0f : 0.0f);
-#pragma unroll
-      for (int k = 0; k < kPanel; ++k) {
-        const float dkk = sqrtf(__shfl_sync(0xffffffffu, a[k], k));
-        a[k] = lane == k ? dkk : lane > k ? a[k] / dkk : a[k];
-#pragma unroll
-        for (int c = k + 1; c < kPanel; ++c) {
-          const float lck = __shfl_sync(0xffffffffu, a[k], c);
-          if (lane >= c) a[c] = a[c] - a[k] * lck;
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < kPanel; ++k) {
-        diag[lane * 33 + k] = a[k];
-        if (lane < wd && k < wd) panel[k * ld + c0 + lane] = k <= lane ? a[k] : 0.0f;
-      }
-#pragma unroll
-      for (int k = 0; k < kPanel; ++k)
-        if (lane == k) diag[lane * 33 + 32] = 1.0f / a[k];
-    }
-    __syncthreads();
-    for (int i = c1 + tid; i <= n; i += blockDim.x) {  // rows below: L_ip = M_ip L_pp^-T
-      float l[kPanel];
-#pragma unroll
-      for (int k = 0; k < kPanel; ++k) {
-        if (k < wd) {
-          float v = panel[k * ld + i];
-#pragma unroll
-          for (int t = 0; t < k; ++t) v = v - l[t] * diag[k * 33 + t];
-          l[k] = v * diag[k * 33 + 32];
-          panel[k * ld + i] = l[k];
-        }
-      }
-    }
-    __syncthreads();
-    // This block's rows' trailing columns j in [c1, min(i, n - 1)].
-    for (int i = rank + warp * blocks; i <= n; i += (blockDim.x >> 5) * blocks) {
-      if (i < c1) continue;
-      float li[kPanel];
-#pragma unroll
-      for (int k = 0; k < kPanel; ++k) li[k] = k < wd ? panel[k * ld + i] : 0.0f;
-      float* dst = R.mine(i);
-      const int last = min(i, n - 1);
-      for (int j = c1 + lane; j <= last; j += 32) {
-        float v = dst[j];
-#pragma unroll
-        for (int k = 0; k < kPanel; ++k) v = v - li[k] * panel[k * ld + j];
-        dst[j] = v;
-      }
-    }
-    prev = c0;
-    prev_w = wd;
-    cluster.sync();
-  }
-  if (prev >= 0) write_panel(R, panel, ld, n, rank, prev, prev_w);
-  cluster.sync();
-
-  if (rank == 0) {  // L^T x = y, y the factor's row n
-    const float* y = R.row(cluster, n);
-    for (int j = tid; j < n; j += blockDim.x) vec[j] = y[j];
-    __syncthreads();
-    for (int c0 = ((n - 1) / kPanel) * kPanel; c0 >= 0; c0 -= kPanel) {
-      const int wd = min(kPanel, n - c0);
-      if (warp == 0) {  // lane r: column r of the panel's factor, and x_r
-        float col[kPanel];
-#pragma unroll
-        for (int i = 0; i < kPanel; ++i)
-          col[i] = lane < wd && i < wd && i >= lane ? R.row(cluster, c0 + i)[c0 + lane] : 0.0f;
-        float t = lane < wd ? vec[c0 + lane] : 0.0f;
-#pragma unroll
-        for (int k = kPanel - 1; k >= 0; --k) {
-          if (k < wd) {
-            const float xk = __shfl_sync(0xffffffffu, t / col[k], k);
-            if (lane == k) t = xk;
-            else if (lane < k) t = t - col[k] * xk;
-          }
-        }
-        if (lane < wd) vec[c0 + lane] = t;
-      }
-      __syncthreads();
-      for (int j = tid; j < c0; j += blockDim.x) {
-        float v = vec[j];
-#pragma unroll 8
-        for (int i = 0; i < wd; ++i) v = v - R.row(cluster, c0 + i)[j] * vec[c0 + i];
-        vec[j] = v;
-      }
-      __syncthreads();
-    }
-    for (int j = tid; j < n; j += blockDim.x) w.dx[j] = vec[j];
-  }
-  cluster.sync();  // no block leaves while block 0 reads its rows
-}
-
-// Blocks of the reduced system's cluster, and its shared memory: the
-// panel's factor and the back substitution's vector, and where they fit
-// (in_shared) the panel buffer and a block's rows.
-// A power of two, a block per 24 rows or so: at 384 rows 16 blocks took
-// 0.44-0.50 ms, 8 took 0.51-0.54 and 4 0.58-0.62 (PERF.md, PR 13).
-inline int cholesky_blocks(int n) {
-  int blocks = 1;
-  while (2 * blocks <= kMaxCluster && 2 * blocks <= (n + 24) / 24) blocks *= 2;
-  return blocks;
-}
-inline size_t cholesky_shared_bytes(int n, int blocks, bool in_shared) {
-  const size_t rows = (size_t)(n + 1 + blocks - 1) / blocks * n;
-  return sizeof(float) * (32 * 33 + n + (in_shared ? (size_t)kPanel * (n + 1) + rows : 0));
-}
-constexpr size_t kMaxShared = 232448;  // a block's dynamic shared memory on Hopper
-
 // t + d[0:3], normalize(q exp(d[3:6])) (quaternion.from_axis_angle).
 __device__ inline void retract(const float* t, const float* q, const float* d, float* t2,
                                float* q2) {
@@ -1216,38 +916,9 @@ __global__ void accept_kernel(Problem p, Workspace w, State st, float* history) 
 
 inline int blocks_for(long long n, int threads) { return (int)((n + threads - 1) / threads); }
 
-// Launches cholesky_kernel on p.S and w's A, g_s, M, r, panels and dx:
-// one cluster of cholesky_blocks(6S) blocks.
-inline cudaError_t launch_cholesky(const Problem& p, const Workspace& w, cudaStream_t s) {
-  const int n = 6 * p.S, blocks = cholesky_blocks(n);
-  const bool in_shared = cholesky_shared_bytes(n, blocks, true) <= kMaxShared;
-  const size_t bytes = cholesky_shared_bytes(n, blocks, in_shared);
-  if (bytes > kMaxShared) return cudaErrorInvalidValue;
-  static int configured = -1;  // the device on which the kernel may take kMaxShared
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess && device != configured) {
-    err = cudaFuncSetAttribute(cholesky_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)kMaxShared);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(cholesky_kernel,
-                                 cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err == cudaSuccess) configured = device;
-  }
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(blocks, 1, 1);
-  config.blockDim = dim3(kCholThreads, 1, 1);
-  config.dynamicSmemBytes = bytes;
-  config.stream = s;
-  cudaLaunchAttribute attribute[1];
-  attribute[0].id = cudaLaunchAttributeClusterDimension;
-  attribute[0].val.clusterDim.x = blocks;
-  attribute[0].val.clusterDim.y = 1;
-  attribute[0].val.clusterDim.z = 1;
-  config.attrs = attribute;
-  config.numAttrs = 1;
-  return cudaLaunchKernelEx(&config, cholesky_kernel, p, w, (int)in_shared);
+// The reduced system of p.S slots in w's A, g_s, M, r, panels and dx.
+inline schur::System reduced_system(const Problem& p, const Workspace& w) {
+  return schur::System{6 * p.S, 6, w.A, w.g_s, w.M, w.panels, w.dx};
 }
 
 }  // namespace
@@ -1257,7 +928,7 @@ inline cudaError_t launch_cholesky(const Problem& p, const Workspace& w, cudaStr
 // state, optimized in place), then the coupling entries grouped by slot
 // (order (E,), slot_start (S + 1,), piece_start (S + 1,) int32);
 // `dims` (host) is [S, N, C, D, R, A, pieces], pieces at least the number
-// of pieces of kPiece entries the grouping makes. `history` (device, may be
+// of pieces of schur::kPiece entries the grouping makes. `history` (device, may be
 // null) takes per iteration the cost at x, the cost at the candidate, the
 // accept flag and the new lambda.
 extern "C" int schur_spa_3d(const void* ptrs_v, const void* dims_v, int num_iterations,
@@ -1291,7 +962,7 @@ extern "C" int schur_spa_3d(const void* ptrs_v, const void* dims_v, int num_iter
   State st;
   st.s_t = (float*)ptrs[f++]; st.s_q = (float*)ptrs[f++];
   st.n_t = (float*)ptrs[f++]; st.n_q = (float*)ptrs[f++];
-  Groups g;
+  schur::SlotReduce<6> g;
   g.order = (const int*)ptrs[f++];
   g.slot_start = (const int*)ptrs[f++];
   g.piece_start = (const int*)ptrs[f++];
@@ -1301,7 +972,8 @@ extern "C" int schur_spa_3d(const void* ptrs_v, const void* dims_v, int num_iter
   const long long S = p.S, N = p.N, K = p.K, E = p.E, N2 = p.N2, n6 = 6 * S;
   long long zeroed = 36 * S + 3 * 36 * N + 6 * S + 6 * N + 6 * N * K + 36 * S * S + 6 * S;
   long long needed = zeroed + 8 + 6 * 144 * N2 + 36 * E + 2 * E + 6 * S + 7 * S + 7 * N +
-                     (long long)kMaxCluster * kPanel * (n6 + 1) + (long long)max_pieces * 6 * K;
+                     (long long)schur::kMaxCluster * schur::kPanel * (n6 + 1) +
+                     (long long)max_pieces * 6 * K;
   if (workspace_floats < needed || S <= 0 || N <= 0 || N % 2 || max_pieces < 0)
     return (int)cudaErrorInvalidValue;
   Workspace w;
@@ -1331,8 +1003,15 @@ extern "C" int schur_spa_3d(const void* ptrs_v, const void* dims_v, int num_iter
   w.cand.s_q = q; q += 4 * S;
   w.cand.n_t = q; q += 3 * N;
   w.cand.n_q = q; q += 4 * N;
-  w.panels = q; q += (long long)kMaxCluster * kPanel * (n6 + 1);
+  w.panels = q; q += (long long)schur::kMaxCluster * schur::kPanel * (n6 + 1);
   g.partial = q;
+  g.S = p.S;
+  g.K = p.K;
+  g.Bc = w.Bc;
+  g.ae = w.ae;
+  g.be = w.be;
+  g.X = w.X;
+  g.M = w.M;
 
   b.n = (int)N2;
   int levels = 0;  // ceil(log2 n)
@@ -1370,12 +1049,8 @@ extern "C" int schur_spa_3d(const void* ptrs_v, const void* dims_v, int num_iter
       band_back_kernel<<<band_grid((b.n + step - 1) / (2 * step), false), kBandThreads, 0, s>>>(
           p, w, b, l);
     }
-    if (E > 0 && max_pieces > 0) {
-      reduce_pieces_kernel<<<dim3(max_pieces, most_tiles), kBandThreads, 0, s>>>(p, w, g);
-      reduce_slots_kernel<<<dim3((unsigned)S, (unsigned)((K + 31) / 32)), kBandThreads, 0, s>>>(
-          p, w, g);
-    }
-    const cudaError_t err = launch_cholesky(p, w, s);
+    if (E > 0) schur::launch_slot_reduce(g, max_pieces, s);
+    const cudaError_t err = schur::launch_cholesky(reduced_system(p, w), 0, s);
     if (err != cudaSuccess) return (int)err;
     update_kernel<<<update_blocks, kThreads, 0, s>>>(p, w, st);
     if (term_blocks > 0)
@@ -1384,25 +1059,4 @@ extern "C" int schur_spa_3d(const void* ptrs_v, const void* dims_v, int num_iter
         p, w, st, history ? (float*)history + 4 * it : nullptr);
   }
   return (int)cudaGetLastError();
-}
-
-// The reduced system's Cholesky solve alone (K16's cholesky_kernel): x =
-// P^-1 b of the symmetric positive definite P (n = 6S, its lower triangle
-// read) given as `system` (n + 1, n) = [-P; b]; `panels` holds
-// kMaxCluster x 32 x (n + 1) floats; `zeros` 42 S zero floats (the kernel's
-// A and g_s). `system` is overwritten where the cluster's shared memory
-// cannot hold the rows.
-extern "C" int schur_reduced_cholesky(int S, void* system, void* zeros, void* panels, void* x,
-                                      void* stream) {
-  if (S <= 0) return (int)cudaErrorInvalidValue;
-  Problem p = {};
-  p.S = S;
-  Workspace w = {};
-  w.A = (float*)zeros;
-  w.g_s = (float*)zeros + 36 * (size_t)S;
-  w.M = (float*)system;
-  w.r = (float*)system + 36 * (size_t)S * S;
-  w.panels = (float*)panels;
-  w.dx = (float*)x;
-  return (int)launch_cholesky(p, w, (cudaStream_t)stream);
 }

@@ -19,8 +19,13 @@ grows by 8 within [1e-8, 1e8].
 `solve_spa_2d_schur` runs all iterations in the CUDA kernel
 `csrc/schur_spa_2d.cu` (K8) on CUDA tensors, with no host synchronisation
 until the caller reads the poses, and the plain twin `solve_plain` on CPU
-tensors. Weights are divided by their maximum on the host first (argmin
-invariant; the Huber scale rescales with them), as l.428-450 do.
+tensors. The twin solves T by the Thomas chain, as JAX does; the kernel by
+block cyclic reduction (`cyclic_reduction_solve` is its plain form, for the
+tests, and K16's at 12x12), B X by slot without atomics (`group_by_slot`,
+shared with K16) and the reduced system in one thread-block cluster (K16's
+Cholesky, `csrc/schur_reduced.cuh`). Weights are
+divided by their maximum on the host first (argmin invariant; the Huber
+scale rescales with them), as l.428-450 do.
 """
 
 from __future__ import annotations
@@ -40,10 +45,18 @@ _KERNEL = cuda.CudaKernel(
      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-     ctypes.c_float, ctypes.c_void_p, ctypes.c_longlong])
+     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
+
+_REDUCED_CHOLESKY = cuda.CudaKernel(
+    "schur_spa_2d.cu", "schur_spa_2d_reduced_cholesky",
+    [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
 
 _EPS = 1e-9  # added to each diagonal block before its 3x3 inverse (l.188)
+_PIECE = 64  # coupling entries per piece of the B X reduction (schur_reduced.cuh kPiece)
+_MAX_CLUSTER = 16  # blocks of the reduced Cholesky's cluster at most (kMaxCluster)
+_PANEL = 32  # columns per panel step of the reduced Cholesky (kPanel)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,6 +190,54 @@ def _tridiag_solve(Cinv, CinvU, To, rhs):
     return torch.stack(xs)
 
 
+def cyclic_reduction_solve(Td, To, rhs):
+    """T X = rhs by block cyclic reduction, level by level in the order of
+    the band launches of K8 (3x3 blocks, csrc/schur_spa_2d.cu `Band`) and
+    K16 (12x12, csrc/schur_spa_3d.cu); a plain form for the tests, which
+    hold it against JAX's Thomas chain. Td (n, b, b), To (n - 1, b, b) the
+    upper blocks (the lower are their transposes), rhs (n, b, K) -> X (n, b,
+    K).
+
+    While a level (stride s) holds more than one block, its odd blocks j
+    are eliminated: Dinv_j = (D_j + 1e-9 I)^-1, G_j = Dinv_j U_{j-s}^T,
+    H_j = Dinv_j U_j, y_j = Dinv_j b_j; each even block i takes
+    D_i - U_{i-s}^T H_{i-s} - U_i G_{i+s}, b_i - U_{i-s}^T y_{i-s} -
+    U_i y_{i+s} and the coupling -U_i H_{i+s} to i + 2s. The last block's y
+    is its x; back up the levels x_j = y_j - G_j x_{j-s} - H_j x_{j+s}. U_k
+    couples block k to k + s; a block past the end is zero."""
+    n, bs = Td.shape[0], Td.shape[1]
+    eye = _EPS * torch.eye(bs, dtype=Td.dtype, device=Td.device)
+    zero = Td.new_zeros((1, bs, bs))
+    D = Td.clone()
+    U = torch.cat([To, zero])
+    b = rhs.clone()
+    G, H = torch.zeros_like(D), torch.zeros_like(D)
+    levels = []
+    s = 1
+    while s < n:
+        odd, even = torch.arange(s, n, 2 * s), torch.arange(0, n, 2 * s)
+        right = torch.where(odd + s < n, odd + s, 0)
+        ur = torch.where((odd + s < n)[:, None, None], U[odd], zero)
+        dinv = torch.linalg.inv(D[odd] + eye)
+        G[odd] = dinv @ U[odd - s].transpose(1, 2)
+        H[odd] = dinv @ ur
+        b[odd] = dinv @ b[odd]
+        has_l, has_r = even >= s, even + s < n
+        jl, jr = torch.where(has_l, even - s, 0), torch.where(has_r, even + s, 0)
+        ml, mr = has_l.to(D.dtype)[:, None, None], has_r.to(D.dtype)[:, None, None]
+        ul_t = U[jl].transpose(1, 2) * ml
+        ui = U[even] * mr
+        D[even] = D[even] - ul_t @ H[jl] - ui @ G[jr]
+        b[even] = b[even] - ul_t @ b[jl] - ui @ b[jr]
+        U[even] = -(ui @ H[jr])
+        levels.append((s, odd, right))
+        s *= 2
+    b[0] = torch.linalg.inv(D[0] + eye) @ b[0]
+    for s, odd, right in reversed(levels):
+        b[odd] = b[odd] - G[odd] @ b[odd - s] - H[odd] @ b[right]
+    return b
+
+
 def reduced_system(A, Bc, X, y, g_s, a_idx, b_idx):
     """(S_red (3S, 3S), rhs (3S,)): A - B T^-1 B^T and -(g_s - B T^-1 g_n)."""
     S = A.shape[0]
@@ -196,9 +257,12 @@ def cholesky_solve(M, rhs):
 
 
 def solve_plain(p: SchurSpaProblem2D, num_iterations: int, huber_scale: float,
-                damping: float) -> Tuple[torch.Tensor, torch.Tensor]:
+                damping: float, history: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain twin of K8 on a weight-normalized problem (`solve` of
-    `_solver_fn`, l.252-381)."""
+    `_solver_fn`, l.252-381). `history`, an (iterations, 4) tensor where
+    given, takes per iteration the cost at x, the cost at the candidate, the
+    accept flag and the new lambda, as the kernel's does."""
     sub, nod = p.submap_poses.clone(), p.node_poses.clone()
     S, N = sub.shape[0], nod.shape[0]
     sub_fixed, node_fixed = p.submap_fixed, p.node_fixed
@@ -209,7 +273,7 @@ def solve_plain(p: SchurSpaProblem2D, num_iterations: int, huber_scale: float,
     next_free = torch.cat([node_free[1:], node_free.new_zeros((1, 1))])
     fm_o = node_free[:, :, None] * next_free[:, None, :]  # To_j couples nodes j and j + 1
     lam = torch.tensor(1e-4, dtype=sub.dtype, device=sub.device)
-    for _ in range(num_iterations):
+    for it in range(num_iterations):
         A, Td, To, g_s, g_n, Bc = assemble(sub, nod, p, huber_scale)
         cost0 = _cost(sub, nod, p, huber_scale)
         A, Td, To = A * fm_s, Td * fm_n, To * fm_o
@@ -239,22 +303,47 @@ def solve_plain(p: SchurSpaProblem2D, num_iterations: int, huber_scale: float,
         sub = torch.where(accept, cand_sub, sub)
         nod = torch.where(accept, cand_nod, nod)
         lam = torch.clamp(torch.where(accept, lam / 3.0, lam * 8.0), 1e-8, 1e8)
+        if history is not None:
+            history[it] = torch.stack([cost0, cost1, accept.to(sub.dtype), lam])
     return sub, nod
 
 
 # ---------------------------------------------------------------- kernel
 
 
+def max_pieces(S: int, E: int) -> int:
+    """The pieces of _PIECE entries that grouping E coupling entries by S
+    slots makes, at most."""
+    return -(-E // _PIECE) + S if E else 0
+
+
+def group_by_slot(slot: torch.Tensor, S: int):
+    """Coupling entries grouped by reduced slot for the B X reduction of K8
+    and K16, on the entries' device with no host synchronisation: `slot`
+    (E,) each entry's slot in [0, S) -> (order (E,), slot_start (S + 1,),
+    piece_start (S + 1,)) int32, the entries by slot in their own order,
+    and each slot's first position and first piece of _PIECE."""
+    slot = slot.long()
+    order = torch.argsort(slot, stable=True)
+    counts = torch.zeros(S, dtype=torch.int64, device=slot.device).index_add_(
+        0, slot, torch.ones_like(slot))
+    zero = counts.new_zeros(1)
+    pieces = (counts + _PIECE - 1) // _PIECE
+    return tuple(x.to(torch.int32).contiguous() for x in (
+        order, torch.cat([zero, counts.cumsum(0)]), torch.cat([zero, pieces.cumsum(0)])))
+
+
 def workspace_floats(S: int, N: int, C: int) -> int:
     """Float32 workspace K8 carves its buffers from, in the order of the
-    `Workspace` layout of csrc/schur_spa_2d.cu."""
+    `Workspace` and `Band` layout of csrc/schur_spa_2d.cu."""
     K = 3 * S + 1
     zeroed = 9 * S + 9 * N + 9 * N + 3 * S + 3 * N + 3 * N * K + 9 * S * S + 3 * S
-    return zeroed + 8 + 9 * N + 9 * N + 9 * C + 3 * S + 3 * S + 3 * N
+    return (zeroed + 8 + 6 * 9 * N + 9 * C + 2 * C + 3 * S + 3 * S + 3 * N
+            + _MAX_CLUSTER * _PANEL * (3 * S + 1) + max_pieces(S, C) * 3 * K)
 
 
 def _solve_kernel(p: SchurSpaProblem2D, num_iterations: int, huber_scale: float,
-                  damping: float):
+                  damping: float, history: Optional[torch.Tensor] = None):
     S, N = p.submap_poses.shape[0], p.node_poses.shape[0]
     C, D = p.a_idx.shape[0], p.j_idx.shape[0]
     for name, t, dtype, shape in (
@@ -275,16 +364,41 @@ def _solve_kernel(p: SchurSpaProblem2D, num_iterations: int, huber_scale: float,
     nod = p.node_poses.contiguous().clone()
     cuda.check(sub, "submap_poses", torch.float32, (S, 3))
     cuda.check(nod, "node_poses", torch.float32, (N, 3))
+    order, slot_start, piece_start = group_by_slot(p.a_idx, S)
     ws = workspace_floats(S, N, C)
     workspace = torch.empty(ws, dtype=torch.float32, device=device)
+    if history is not None:
+        cuda.check(history, "history", torch.float32, (num_iterations, 4))
     _KERNEL(device, sub.data_ptr(), nod.data_ptr(), S, N, p.a_idx.data_ptr(),
             p.b_idx.data_ptr(), p.rel.data_ptr(), p.trans_weight.data_ptr(),
             p.rot_weight.data_ptr(), p.use_huber.data_ptr(), p.valid.data_ptr(), C,
             p.j_idx.data_ptr(), p.nn_rel.data_ptr(), p.nn_trans_weight.data_ptr(),
             p.nn_rot_weight.data_ptr(), p.nn_valid.data_ptr(), D, p.submap_fixed.data_ptr(),
-            p.node_fixed.data_ptr(), int(num_iterations), float(huber_scale), float(damping),
-            workspace.data_ptr(), ws)
+            p.node_fixed.data_ptr(), order.data_ptr(), slot_start.data_ptr(),
+            piece_start.data_ptr(), max_pieces(S, C), int(num_iterations), float(huber_scale),
+            float(damping), workspace.data_ptr(), ws,
+            None if history is None else history.data_ptr())
     return sub, nod
+
+
+def reduced_cholesky_solve(P: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """P^-1 b by the reduced-system Cholesky of K8 and K16 alone
+    (`csrc/schur_reduced.cuh`, as an iteration runs it: a cluster of a
+    block per 24 rows or so) for a symmetric positive definite P (n, n) on
+    the card; NaN where P is not positive definite. For the card's tests and
+    timings: the solves run it inside their own launches."""
+    n = P.shape[0]
+    if tuple(P.shape) != (n, n) or tuple(b.shape) != (n,):
+        raise ValueError(f"reduced_cholesky_solve: P {tuple(P.shape)}, b {tuple(b.shape)}")
+    cuda.check(P, "P", torch.float32)
+    cuda.check(b, "b", torch.float32)
+    system = torch.cat([-P, b[None]]).contiguous()
+    zeros = P.new_zeros(2 * n)
+    panels = P.new_empty(_MAX_CLUSTER * _PANEL * (n + 1))
+    x = P.new_empty(n)
+    _REDUCED_CHOLESKY(P.device, n, system.data_ptr(), zeros.data_ptr(),
+                      panels.data_ptr(), x.data_ptr())
+    return x
 
 
 def solve_spa_2d_schur(problem: SchurSpaProblem2D, num_iterations: int = 50,

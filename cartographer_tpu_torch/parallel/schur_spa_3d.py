@@ -26,9 +26,9 @@ cost; lambda shrinks by 3 or grows by 8 within [1e-8, 1e8].
 `csrc/schur_spa_3d.cu` (K16) on CUDA tensors, with no host synchronisation
 until the caller reads the poses, and the plain twin `solve_plain` on CPU
 tensors. The twin solves T by the Thomas chain, as JAX does; the kernel by
-block cyclic reduction (`cyclic_reduction_solve` is its plain form, for the
-tests), B X by slot without atomics and the reduced system in one
-thread-block cluster. Weights are divided by their maximum on the host first (argmin
+block cyclic reduction (`schur_spa.cyclic_reduction_solve` is its plain
+form, for the tests), B X by slot without atomics and the reduced system in
+one thread-block cluster (both shared with K8, `csrc/schur_reduced.cuh`). Weights are divided by their maximum on the host first (argmin
 invariant; the Huber scale rescales with them), as l.577-600 do. N is padded
 to an even count with frozen slots.
 """
@@ -51,17 +51,19 @@ from cartographer_tpu_torch.ops.spa_3d import (
     rotation_jacobians_3d,
     rotation_residual_3d,
 )
-from cartographer_tpu_torch.parallel.schur_spa import cholesky_solve
+from cartographer_tpu_torch.parallel.schur_spa import (
+    _MAX_CLUSTER,
+    _PANEL,
+    cholesky_solve,
+    group_by_slot,
+    max_pieces,
+)
 from cartographer_tpu_torch.transform import quaternion as quat
 
 _KERNEL = cuda.CudaKernel(
     "schur_spa_3d.cu", "schur_spa_3d",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_float,
      ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
-
-_REDUCED_CHOLESKY = cuda.CudaKernel(
-    "schur_spa_3d.cu", "schur_reduced_cholesky",
-    [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
 
 _EPS = 1e-9  # added to each 12x12 super-block before its inverse (l.326)
 
@@ -295,53 +297,6 @@ def _tridiag_solve(Cinv, CinvU, To, rhs):
     return torch.stack(xs)
 
 
-def cyclic_reduction_solve(Td, To, rhs):
-    """T X = rhs by block cyclic reduction, level by level in the order of
-    K16's band launches (csrc/schur_spa_3d.cu `Band`); a plain form for the
-    tests, which hold it against the Thomas chain of `_block_tridiag_factor`
-    and `_tridiag_solve`. Td (n, b, b), To (n - 1, b, b) the upper blocks
-    (the lower are their transposes), rhs (n, b, K) -> X (n, b, K).
-
-    While a level (stride s) holds more than one block, its odd blocks j
-    are eliminated: Dinv_j = (D_j + 1e-9 I)^-1, G_j = Dinv_j U_{j-s}^T,
-    H_j = Dinv_j U_j, y_j = Dinv_j b_j; each even block i takes
-    D_i - U_{i-s}^T H_{i-s} - U_i G_{i+s}, b_i - U_{i-s}^T y_{i-s} -
-    U_i y_{i+s} and the coupling -U_i H_{i+s} to i + 2s. The last block's y
-    is its x; back up the levels x_j = y_j - G_j x_{j-s} - H_j x_{j+s}. U_k
-    couples block k to k + s; a block past the end is zero."""
-    n, bs = Td.shape[0], Td.shape[1]
-    eye = _EPS * torch.eye(bs, dtype=Td.dtype, device=Td.device)
-    zero = Td.new_zeros((1, bs, bs))
-    D = Td.clone()
-    U = torch.cat([To, zero])
-    b = rhs.clone()
-    G, H = torch.zeros_like(D), torch.zeros_like(D)
-    levels = []
-    s = 1
-    while s < n:
-        odd, even = torch.arange(s, n, 2 * s), torch.arange(0, n, 2 * s)
-        right = torch.where(odd + s < n, odd + s, 0)
-        ur = torch.where((odd + s < n)[:, None, None], U[odd], zero)
-        dinv = torch.linalg.inv(D[odd] + eye)
-        G[odd] = dinv @ U[odd - s].transpose(1, 2)
-        H[odd] = dinv @ ur
-        b[odd] = dinv @ b[odd]
-        has_l, has_r = even >= s, even + s < n
-        jl, jr = torch.where(has_l, even - s, 0), torch.where(has_r, even + s, 0)
-        ml, mr = has_l.to(D.dtype)[:, None, None], has_r.to(D.dtype)[:, None, None]
-        ul_t = U[jl].transpose(1, 2) * ml
-        ui = U[even] * mr
-        D[even] = D[even] - ul_t @ H[jl] - ui @ G[jr]
-        b[even] = b[even] - ul_t @ b[jl] - ui @ b[jr]
-        U[even] = -(ui @ H[jr])
-        levels.append((s, odd, right))
-        s *= 2
-    b[0] = torch.linalg.inv(D[0] + eye) @ b[0]
-    for s, odd, right in reversed(levels):
-        b[odd] = b[odd] - G[odd] @ b[odd - s] - H[odd] @ b[right]
-    return b
-
-
 def pair_blocks(d0, u1, u2):
     """The node band paired into 12x12 super-blocks (l.427-437): diagonal
     (N/2, 12, 12) and upper (N/2 - 1, 12, 12)."""
@@ -442,17 +397,6 @@ _COUNT_OF = {"a_idx": "C", "j_idx": "D", "rot_i": "R", "acc_i": "A", "sub_free":
              "node_free": "N", "grav_clamp": "S"}
 
 
-_PIECE = 64  # coupling entries per piece of K16's B X reduction (kPiece)
-_MAX_CLUSTER = 16  # blocks of the reduced Cholesky's cluster at most (kMaxCluster)
-_PANEL = 32  # columns per panel step of the reduced Cholesky (kPanel)
-
-
-def max_pieces(S: int, E: int) -> int:
-    """The pieces of _PIECE entries that grouping E coupling entries by S
-    slots makes, at most."""
-    return -(-E // _PIECE) + S if E else 0
-
-
 def workspace_floats(S: int, N: int, E: int) -> int:
     """Float32 workspace K16 carves its buffers from, in the order of the
     `Workspace` and `Band` layout of csrc/schur_spa_3d.cu."""
@@ -464,20 +408,11 @@ def workspace_floats(S: int, N: int, E: int) -> int:
 
 def slot_groups(p: SchurSpaProblem3D):
     """K16's coupling entries (the binary terms, two per gyro term, three per
-    triplet, as `assemble` orders them) grouped by reduced slot, on the
-    problem's device with no host synchronisation: -> (order (E,), slot_start
-    (S + 1,), piece_start (S + 1,)) int32, the entries by slot in their own
-    order, and each slot's first position and first piece of _PIECE."""
-    S = p.sub_t.shape[0]
+    triplet, as `assemble` orders them) grouped by reduced slot
+    (`schur_spa.group_by_slot`)."""
     slot = torch.cat([p.a_idx, p.rot_traj.repeat_interleave(2),
-                      p.acc_traj.repeat_interleave(3)]).long()
-    order = torch.argsort(slot, stable=True)
-    counts = torch.zeros(S, dtype=torch.int64, device=slot.device).index_add_(
-        0, slot, torch.ones_like(slot))
-    zero = counts.new_zeros(1)
-    pieces = (counts + _PIECE - 1) // _PIECE
-    return tuple(x.to(torch.int32).contiguous() for x in (
-        order, torch.cat([zero, counts.cumsum(0)]), torch.cat([zero, pieces.cumsum(0)])))
+                      p.acc_traj.repeat_interleave(3)])
+    return group_by_slot(slot, p.sub_t.shape[0])
 
 
 def _solve_kernel(p: SchurSpaProblem3D, num_iterations: int, huber_scale: float,
@@ -513,26 +448,6 @@ def _solve_kernel(p: SchurSpaProblem3D, num_iterations: int, huber_scale: float,
             float(huber_scale), float(damping), workspace.data_ptr(), ws,
             None if history is None else history.data_ptr())
     return tuple(state)
-
-
-def reduced_cholesky_solve(P: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """P^-1 b by K16's reduced-system Cholesky alone (its cluster kernel, as
-    one iteration runs it) for a symmetric positive definite P (n, n) on the
-    card, n a multiple of 6; NaN where P is not positive definite. For the
-    card's tests and timings: the solve itself runs it inside
-    `_solve_kernel`'s launches."""
-    n = P.shape[0]
-    if n % 6 or tuple(P.shape) != (n, n) or tuple(b.shape) != (n,):
-        raise ValueError(f"reduced_cholesky_solve: P {tuple(P.shape)}, b {tuple(b.shape)}")
-    cuda.check(P, "P", torch.float32)
-    cuda.check(b, "b", torch.float32)
-    system = torch.cat([-P, b[None]]).contiguous()
-    zeros = P.new_zeros(7 * n)
-    panels = P.new_empty(_MAX_CLUSTER * _PANEL * (n + 1))
-    x = P.new_empty(n)
-    _REDUCED_CHOLESKY(P.device, n // 6, system.data_ptr(), zeros.data_ptr(), panels.data_ptr(),
-                      x.data_ptr())
-    return x
 
 
 def solve_spa_3d_schur(problem: SchurSpaProblem3D, num_iterations: int = 50,

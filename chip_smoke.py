@@ -12,12 +12,16 @@ on the card, at full width (the reference's default 2D and 3D options):
    blocking device-to-host copy per scan, agreement with the plain path on
    the CPU, accuracy against ground truth, finished submaps;
 3. the backend kernels K5-K8 against their twins, on that run's finished
-   submap and node clouds and on a full-width synthetic pose graph;
+   submap and node clouds and on a full-width synthetic pose graph (K8's
+   launches one by one in an iteration, its kernels per iteration in
+   captured graphs, 2- and 50-iteration times by CUDA events, its reduced
+   Cholesky alone against torch.linalg's);
 4. global SLAM through `MapBuilder` over three laps of the floor plan
    (default pose-graph options, background searches): K1-K8 launched, at
    least 100 loop closures and 3 solves, optimized poses within 0.25 m of
    the truth and no worse than the frontend's; the first loop-closure pairs
-   again on the CPU's plain path; one certified global localization;
+   again on the CPU's plain path; one 50-iteration K8 solve of the run's
+   last problem by CUDA events; one certified global localization;
 5. the 3D frontend, `LocalTrajectoryBuilder3D`, over 400 simulated scans of
    a 16-ring sensor with an IMU in the same floor plan extruded to a hall
    (paged submaps, dense crops of 256^3 and 192^3 per scan): K2 and K9-K12
@@ -571,7 +575,10 @@ def _k2_work(torch, hits, keep, filters, perm):
 
 
 def _k3_work(valid, iterations):
-    return valid * (8 + 1 + 16 * 5), (1 + 2 * iterations) * valid * 16 * 12
+    """K3 on one robot's solve: the points and flags, 16 cells of log-odds
+    and known per bicubic sample; some 12 operations per cell and pass, one
+    pass per iteration and one at the start."""
+    return valid * (8 + 1 + 16 * 5), (1 + iterations) * valid * 16 * 12
 
 
 def _k4_work(torch, grids, rd, active, insert_free_space, samples):
@@ -923,7 +930,55 @@ def _backend_kernel_phase(torch, dev, ctx, run):
                                      for _ in range(2)]))
     extra["schur_50_iterations_ms"] = _cuda_ms(lambda: schur_spa._solve_kernel(q, 50, hs, 1e-6),
                                                reps=3, warmup=1)
+    extra["schur_2d"] = _schur_2d_timing(torch, dev, q, hs)
     return rows, extra
+
+
+def _schur_2d_timing(torch, dev, q, hs):
+    """K8 on the capacity problem `q`: each launch of a one-iteration call in
+    order (the profiler, median of 5 calls), kernels per iteration (captured
+    graphs of one and two iterations), 2 and 50 iterations by CUDA events,
+    and its reduced Cholesky alone at 3S = 192 rows against
+    torch.linalg.cholesky_ex + torch.cholesky_solve (the same solve), by
+    events, within a float64 solve's 1e-4 of the solution's scale."""
+    from cartographer_tpu_torch.parallel import schur_spa
+
+    solve = lambda n: schur_spa._solve_kernel(q, n, hs, 1e-6)  # noqa: E731
+    steps, counted = _launch_breakdown(lambda: solve(1))
+    groups = {}
+    for name, ms in steps:
+        count, total = groups.get(name, (0, 0.0))
+        groups[name] = (count + 1, total + ms)
+    one, two = _graph_kernels(lambda: solve(1), "K8"), _graph_kernels(lambda: solve(2), "K8")
+    ms2, ms50 = _event_ms(lambda: solve(2), reps=5, warmup=1), _event_ms(lambda: solve(50),
+                                                                         reps=3, warmup=1)
+    n = 3 * q.submap_poses.shape[0]
+    rng = np.random.RandomState(n)
+    R = rng.randn(n, n)
+    P64 = R @ R.T / n + np.eye(n)
+    b64 = rng.randn(n)
+    P = torch.from_numpy(P64.astype(np.float32)).to(dev)
+    b = torch.from_numpy(b64.astype(np.float32)).to(dev)
+    ref = np.linalg.solve(P64, b64)
+    err = float(np.abs(schur_spa.reduced_cholesky_solve(P, b).cpu().numpy() - ref).max()
+                / np.abs(ref).max())
+    if not err <= 1e-4:
+        _fail(f"K8's reduced Cholesky at {n} rows is {err} from a float64 solve (1e-4)")
+    alone = _event_ms(lambda: schur_spa.reduced_cholesky_solve(P, b), reps=50)
+    library = _event_ms(lambda: torch.cholesky_solve(b[:, None], torch.linalg.cholesky_ex(P)[0]),
+                        reps=50)
+    print(f"K8 one iteration at capacity, per launch (profiler, median of {counted} calls; the "
+          f"call's first launch and copies included): " + ", ".join(
+              f"{name} {total:.4f} ms" + (f" ({count} launches)" if count > 1 else "")
+              for name, (count, total) in groups.items()))
+    print(f"K8: {two - one} kernels per iteration ({one} in a one-iteration call; captured "
+          f"graphs); by CUDA events 2 iterations {ms2:.3f} ms, 50 iterations {ms50:.3f} ms; the "
+          f"reduced {n}^2 Cholesky solve alone {alone:.4f} ms (within {err:.3g} of a float64 "
+          f"solve) against torch.linalg.cholesky_ex + torch.cholesky_solve {library:.4f} ms")
+    return {"breakdown_ms": [[name, ms] for name, ms in steps],
+            "kernels_per_iteration": two - one, "event_ms": {"2": ms2, "50": ms50},
+            "reduced_cholesky_ms": {"kernel": alone, "cholesky_ex_cholesky_solve": library,
+                                    "max_rel_err": err}}
 
 
 def _global_phase(torch, dev, grid_type="PROBABILITY_GRID", kernels=KERNELS_2D,
@@ -933,7 +988,7 @@ def _global_phase(torch, dev, grid_type="PROBABILITY_GRID", kernels=KERNELS_2D,
     and the largest mean error of the optimized poses. The arguments of
     every REFINE_EVERY-th loop-closure refine go into `refines` if given."""
     from cartographer_tpu_torch.core.config import MapBuilderOptions, TrajectoryBuilderOptions
-    from cartographer_tpu_torch.mapping import constraint_builder_2d
+    from cartographer_tpu_torch.mapping import constraint_builder_2d, pose_graph_2d
     from cartographer_tpu_torch.mapping.constraint_builder_2d import _pow2_points
     from cartographer_tpu_torch.mapping.id import NodeId, SubmapId
     from cartographer_tpu_torch.mapping.map_builder import MapBuilder
@@ -956,6 +1011,13 @@ def _global_phase(torch, dev, grid_type="PROBABILITY_GRID", kernels=KERNELS_2D,
     cb.compute_constraints = recording
     restore = (_recording(constraint_builder_2d, "lm_match_2d", refines, REFINE_EVERY)
                if refines is not None else lambda: None)
+    solve_2d, solves_seen = pose_graph_2d.solve_spa_2d_schur, []
+
+    def recording_solve(problem, **kwargs):
+        solves_seen[:] = [(problem, kwargs)]  # the last solve (K8)
+        return solve_2d(problem, **kwargs)
+
+    pose_graph_2d.solve_spa_2d_schur = recording_solve
     tid = mb.add_trajectory_builder(["laser"],
                                     TrajectoryBuilderOptions(_frontend_options(grid_type)))
     cuda.reset_launch_counts()
@@ -970,7 +1032,17 @@ def _global_phase(torch, dev, grid_type="PROBABILITY_GRID", kernels=KERNELS_2D,
     launches = cuda.launch_counts()
     cb.compute_constraints = compute
     restore()
+    pose_graph_2d.solve_spa_2d_schur = solve_2d
     inter, solves = pg.num_inter_constraints(), pg.solves
+    # One K8 launch as the run makes it: its last problem (padded to powers
+    # of two), one whole solve of 50 iterations, by CUDA events.
+    problem, kwargs = solves_seen[0]
+    solve_shape = {"S": problem.submap_poses.shape[0], "N": problem.node_poses.shape[0],
+                   "C": problem.a_idx.shape[0], "D": problem.j_idx.shape[0]}
+    solve_ms = _event_ms(lambda: solve_2d(problem, **dict(kwargs, num_iterations=50)), reps=5,
+                         warmup=1)
+    print(f"{label}: K8 at the run's last problem {solve_shape}: one 50-iteration solve "
+          f"{solve_ms:.3f} ms by CUDA events")
     print(f"{label}: {len(scans)} scans, {len(pg.nodes)} nodes, {len(pg.submap_data)} "
           f"submaps, {inter} loop closures from {cb.pairs_matched} matched pairs, {solves} "
           f"solves, {wall:.1f} s wall; constraint search {cb.match_seconds:.2f} s, solves "
@@ -1018,6 +1090,7 @@ def _global_phase(torch, dev, grid_type="PROBABILITY_GRID", kernels=KERNELS_2D,
                    matched_pairs=cb.pairs_matched, solves=solves,
                    wall_seconds=wall, constraint_search_seconds=cb.match_seconds,
                    solve_seconds=pg.solve_seconds, launches=launches,
+                   solve_shape=solve_shape, solve_50_iterations_ms=solve_ms,
                    mean_error_optimized_m=float(global_err),
                    mean_error_frontend_m=float(local_err))
     if not localize:
@@ -1240,10 +1313,18 @@ def _refine_phase_tsdf(torch, calls):
             _fail("scan_matcher_2d_tsdf differs from the plain twin")
         errs.append(err)
         # Per valid point: the point and flag, 16 cells of tsd and weight per
-        # bicubic sample; some 12 operations per cell and pass.
+        # bicubic sample; some 12 operations per cell and pass, a pass per
+        # iteration and one at the start.
         nbytes += valid * (8 + 1 + 16 * 8)
-        ops += (1 + 2 * int(itk)) * valid * 16 * 12
-        ms.append(_cuda_ms(lambda: scan_matcher_2d.lm_match_2d(*args), reps=10))
+        ops += (1 + int(itk)) * valid * 16 * 12
+        # One kernel a call: the mean of its records, which a short window
+        # that drops some leaves whole.
+        kernel_ms, records = _kernel_ms(lambda: scan_matcher_2d.lm_match_2d(*args),
+                                        "scan_matcher_2d_kernel", reps=50)
+        event_ms = _event_ms(lambda: scan_matcher_2d.lm_match_2d(*args), reps=20)
+        print(f"scan_matcher_2d_tsdf: that refine {kernel_ms:.5f} ms a kernel ({records} records "
+              f"of 50 calls), {event_ms:.5f} ms by CUDA events (the call's host gaps included)")
+        ms.append(kernel_ms)
         plain_ms.append(_cuda_ms(lambda: scan_matcher_2d._match_plain(*args), reps=3))
     k = len(calls)
     return {"scan_matcher_2d_tsdf": dict(
@@ -2316,7 +2397,7 @@ def _backend_kernel_phase_3d(torch, dev, ctx):
     import torch.nn.functional as F
 
     from cartographer_tpu_torch.ops import bnb_3d, rot_histogram
-    from cartographer_tpu_torch.parallel import schur_spa_3d
+    from cartographer_tpu_torch.parallel import schur_spa, schur_spa_3d
     from cartographer_tpu_torch.transform import quaternion as quat
 
     rows, extra = {}, {}
@@ -2486,9 +2567,9 @@ def _backend_kernel_phase_3d(torch, dev, ctx):
     spd = torch.randn(n6, n6, device=dev)
     spd = spd @ spd.T + n6 * torch.eye(n6, device=dev)
     rhs = torch.randn(n6, device=dev)
-    chol_err = float((schur_spa_3d.reduced_cholesky_solve(spd, rhs)
+    chol_err = float((schur_spa.reduced_cholesky_solve(spd, rhs)
                       - torch.linalg.solve(spd.double(), rhs.double()).float()).abs().max())
-    chol_ms = _event_ms(lambda: schur_spa_3d.reduced_cholesky_solve(spd, rhs), reps=50)
+    chol_ms = _event_ms(lambda: schur_spa.reduced_cholesky_solve(spd, rhs), reps=50)
     chol_lib_ms = _event_ms(lambda: torch.linalg.cholesky_ex(spd), reps=50)
     print(f"K16: {two - one} kernels per iteration ({one} in a one-iteration call; captured "
           f"graphs); by CUDA events 2 iterations {ms2:.3f} ms, 50 iterations {ms50:.3f} ms; the "
@@ -3323,6 +3404,30 @@ def _launch_breakdown(fn, reps=5):
              for i in range(longest)], len(full))
 
 
+def _kernel_ms(fn, kernel, reps=50, warmup=3):
+    """(mean device ms of the GPU kernels whose name holds `kernel`, their
+    records counted) over `reps` calls of fn() in one profiled window, or
+    (CUDA events' median ms per call, 0) where the window holds none. A mean
+    per record stays whole where the profiler drops records of a short
+    window; a sum per call falls with them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    on_card = torch._C._autograd.DeviceType.CUDA
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ns = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+          if e.device_type() == on_card and kernel in e.name()]
+    if not ns:
+        return _event_ms(fn, reps, warmup=0), 0
+    return sum(ns) / len(ns) / 1e6, len(ns)
+
+
 def _edge_intensity_phase(torch, dev):
     """Phase 21: K30 and K31 at the path's shapes, each equal to its twin bit
     for bit; K30 over phase 10's first scans against K18 -> K19's crop of
@@ -3902,9 +4007,9 @@ def _k21_work(torch, grids, rd, normals, active, params):
 
 def _k22_work(valid, iterations):
     """K22 on one robot's refine: the points and flags, 16 tsd cells per
-    bicubic sample; some 12 operations per cell and pass, 1 + 2 passes per
-    iteration."""
-    return valid * (8 + 1 + 16 * 4), (1 + 2 * iterations) * valid * 16 * 12
+    bicubic sample; some 12 operations per cell and pass, one pass per
+    iteration and one at the start."""
+    return valid * (8 + 1 + 16 * 4), (1 + iterations) * valid * 16 * 12
 
 
 def _tick_against_twins(torch, opts, kept, tsdf=False):
@@ -4551,6 +4656,7 @@ def main() -> int:
         "batched_serving": batched,
         "bnb_match_ms": backend["bnb_match_ms"],
         "schur_50_iterations_ms": backend["schur_50_iterations_ms"],
+        "schur_2d": backend["schur_2d"],
         "bnb3d_match_ms": backend3d["bnb3d_match_ms"],
         "schur_3d_50_iterations_ms": backend3d["schur_3d_50_iterations_ms"],
         "schur_3d": {k: backend3d[k] for k in (

@@ -189,6 +189,88 @@ def test_schur_spa_2d_kernel(dev, iterations):
     torch.testing.assert_close(nod, nod_p, atol=1e-3, rtol=0)
 
 
+def _k8_problem(dev, S, N, seed):
+    """A synthetic 2D pose graph of S submaps and N nodes, 4N + 16
+    constraint slots, with frozen nodes and submaps: every 97th node from
+    the 97th, the middle submap where S > 2, and, as the pose graph pads
+    its slots, every submap that no constraint reaches; the gauge is
+    submap 0 (frozen), or node 0 where S = 1 (the submap free). The poses
+    start 5 mm
+    from the truth, as a running pose graph's solve starts from the last
+    solution, so that the first steps are no near-ties of the accept test
+    (test_schur_spa_3d_kernel's reasoning for K16). -> (the weight-normalized
+    problem on `dev`, the Huber scale)."""
+    from cartographer_tpu_torch.interop import schur_problem_from_numpy
+    from cartographer_tpu_torch.parallel import schur_spa
+    from cartographer_tpu_torch.simulation import synthetic_pose_graph
+
+    arrays, _, _ = synthetic_pose_graph(S, N, 4 * N + 16, seed=seed, pose_noise=0.005)
+    arrays["node_fixed"][97::97] = True
+    if S == 1:
+        arrays["submap_fixed"][0] = False
+        arrays["node_fixed"][0] = True
+    if S > 2:
+        arrays["submap_fixed"][S // 2] = True
+    reached = np.zeros(S, bool)
+    reached[arrays["a_idx"][arrays["valid"]]] = True
+    arrays["submap_fixed"] |= ~reached
+    p = schur_problem_from_numpy(arrays, dev)
+    wmax = schur_spa.max_weight(p)
+    return schur_spa.normalized(p, wmax), 10.0 / wmax
+
+
+@pytest.mark.parametrize("S", [1, 8, 64])
+@pytest.mark.parametrize("N", [1, 2, 3, 120, 1000, 4096])
+def test_schur_spa_2d_kernel_shapes(dev, N, S):
+    """K8 against its twin over 2 iterations at N node blocks (the band's
+    cyclic reduction at 0, 1, 2, 7, 10 and 12 levels, N not always a power
+    of two) and S submaps (X's 4, 25 and 193 columns; the reduced system at
+    3, 24 and 192 rows, in clusters of 1, 2 and 8 blocks), with frozen
+    nodes and submaps: the accept flags equal, the poses within the twin's
+    1e-3, the costs at the start within 1e-4 and at each candidate within
+    1e-3. The twin runs in float64 here: on 3 nodes against 8 or 64
+    submaps its float32 Thomas chain lands 4.9 and 0.7 mm from its own
+    float64 form after 2 iterations (the band's weak submap terms cancel
+    against its strong node-node ones), where the cyclic reduction's
+    float32 lands 8e-6 and 3.5e-5 m from it (the same solves on the CPU).
+    A candidate near the optimum has residuals of some 1e-3 m from poses of
+    some 10 m, so float32 fixes its cost to 3-4 digits: on such small
+    graphs the first candidate's costs are 2-9e-4 apart."""
+    from cartographer_tpu_torch.parallel import schur_spa
+
+    q, hs = _k8_problem(dev, S, N, seed=N + S)
+    q64 = dataclasses.replace(q, **{f.name: getattr(q, f.name).double()
+                                    for f in dataclasses.fields(q)
+                                    if getattr(q, f.name).dtype == torch.float32})
+    hk = torch.zeros((2, 4), device=dev)
+    hp = torch.zeros((2, 4), dtype=torch.float64, device=dev)
+    sub, nod = schur_spa._solve_kernel(q, 2, hs, 1e-6, history=hk)
+    sub_p, nod_p = schur_spa.solve_plain(q64, 2, hs, 1e-6, history=hp)
+    hk, hp = hk.cpu().numpy(), hp.cpu().numpy()
+    print(f"N={N} S={S}: kernel {hk.tolist()}, twin {hp.tolist()}")
+    assert (hk[:, 2] == hp[:, 2]).all()
+    torch.testing.assert_close(sub, sub_p.float(), atol=1e-3, rtol=0)
+    torch.testing.assert_close(nod, nod_p.float(), atol=1e-3, rtol=0)
+    np.testing.assert_allclose(hk[0, 0], hp[0, 0], rtol=1e-4, atol=0)
+    np.testing.assert_allclose(hk[:, :2], hp[:, :2], rtol=1e-3, atol=0)
+
+
+def test_schur_spa_2d_kernel_not_positive_definite(dev):
+    """A damping of -1e4 makes the reduced system indefinite: its Cholesky
+    gives NaN on the card as in the twin, both reject the step (the poses
+    unchanged bit for bit) and multiply lambda by 8."""
+    from cartographer_tpu_torch.parallel import schur_spa
+
+    q, hs = _k8_problem(dev, 8, 120, seed=7)
+    for solve in (schur_spa._solve_kernel, schur_spa.solve_plain):
+        history = torch.zeros((1, 4), dtype=torch.float32, device=dev)
+        sub, nod = solve(q, 1, hs, -1e4, history=history)
+        h = history.cpu().numpy()[0]
+        assert np.isfinite(h[0]) and not np.isfinite(h[1]) and h[2] == 0.0, (solve, h)
+        assert h[3] == np.float32(1e-4) * 8, (solve, h)
+        assert torch.equal(sub, q.submap_poses) and torch.equal(nod, q.node_poses)
+
+
 def test_voxel_filter_kernel_3d_scan(dev):
     """K2 at the shape the 3D frontend gives it: 4096 points, 3D keys, the
     voxel filter and then both adaptive searches."""
@@ -465,14 +547,15 @@ def test_schur_spa_3d_kernel_not_positive_definite(dev):
             assert torch.equal(got, start)
 
 
-@pytest.mark.parametrize("n", [6, 66, 384, 1200, -384])
+@pytest.mark.parametrize("n", [3, 6, 66, 192, 384, 1200, -192, -384])
 def test_schur_reduced_cholesky_kernel(dev, n):
-    """K16's reduced-system Cholesky alone (one cluster; at 1,200 its rows in
-    device memory) against a float64 solve: within 1e-4 of the solution's
-    scale on a well-conditioned system (cond below 10); an indefinite
-    system (n < 0: the same with its diagonal's sign flipped on one row)
-    gives NaN."""
-    from cartographer_tpu_torch.parallel import schur_spa_3d
+    """The reduced-system Cholesky of K8 and K16 alone (csrc/schur_reduced.cuh
+    in one cluster: 1 block at 3 and 6 rows, 8 at 192 (K8 at capacity), 16
+    at 384 (K16 at capacity); at 1,200 its rows in device memory) against a
+    float64 solve: within 1e-4 of the solution's scale on a
+    well-conditioned system (cond below 10); an indefinite system (n < 0:
+    the same with its diagonal's sign flipped on one row) gives NaN."""
+    from cartographer_tpu_torch.parallel import schur_spa
 
     m = abs(n)
     rng = np.random.RandomState(m)
@@ -481,8 +564,8 @@ def test_schur_reduced_cholesky_kernel(dev, n):
     if n < 0:
         P[m // 2, m // 2] = -P[m // 2, m // 2]
     b = rng.randn(m)
-    x = schur_spa_3d.reduced_cholesky_solve(_t(P.astype(np.float32), dev),
-                                           _t(b.astype(np.float32), dev)).cpu().numpy()
+    x = schur_spa.reduced_cholesky_solve(_t(P.astype(np.float32), dev),
+                                         _t(b.astype(np.float32), dev)).cpu().numpy()
     if n < 0:
         assert np.isnan(x).any()
         return
@@ -1698,3 +1781,110 @@ def test_robot_batched_tsdf_matchers(dev, robots):
         bp, sp = correlative_2d.correlative_match_plain(grids[r], pts[r], mask[r], x0[r],
                                                         cparams)
         assert torch.equal(scores[r], sp) and torch.equal(best[r], bp)
+
+
+# ---------------------------------------------------------------- K3's LM template
+
+LM_SURFACES = ["K3", "K3 TSDF form", "K22"]
+
+
+def _lm_surface(dev, surface):
+    """(solve, plain twin, grid) of one surface of K3's template, its grid
+    holding three scans of _tsdf_scan's room."""
+    from cartographer_tpu_torch.ops import tsdf_2d
+
+    if surface == "K22":
+        return tsdf_2d.lm_match_tsdf_2d, tsdf_2d._match_plain, _tsdf_grid(dev)[0]
+    if surface == "K3 TSDF form":
+        grid = _tsdf_grid(dev)[0]
+    else:
+        grids = Grid2D(torch.zeros((2, SIZE, SIZE), device=dev),
+                       torch.zeros((2, SIZE, SIZE), dtype=torch.bool, device=dev),
+                       _t(np.float32([[-6.4, -6.4], [-6.1, -6.3]]), dev), 0.05)
+        for k in range(3):
+            rd = _tsdf_scan(dev, 2048, 1500, seed=40 + k, origin=(0.04 * k + 0.031, -0.017))
+            grid_2d._insert_plain(grids, rd, _t(np.array([True, True]), dev),
+                                  torch.tensor(True, device=dev), probability_to_log_odds(0.55),
+                                  probability_to_log_odds(0.49), True, SAMPLES)
+        grid = grids.slot(0)
+    return scan_matcher_2d.lm_match_2d, scan_matcher_2d._match_plain, grid
+
+
+def _lm_points(dev, m, seed=90):
+    """m points of a scan of the room (three quarters of them valid, one at
+    least)."""
+    rd = _tsdf_scan(dev, m, max(1, 3 * m // 4), seed=seed, origin=(0.081, -0.047))
+    return rd.returns.points, rd.returns.mask
+
+
+def _check_lm(solve, plain, args):
+    """The kernel against its twin: the pose within 1e-4 and the cost within
+    1e-4 relative, over the iterations both ran where a near-tie in the stop
+    test (relative improvement under 1e-6) ends one an iteration before the
+    other; two calls of the kernel bit-equal. -> the kernel's iterations."""
+    xk, ck, ik = solve(*args)
+    again = solve(*args)
+    for a, b in zip((xk, ck, ik), again):
+        assert torch.equal(a, b)
+    xp, cp, ip = plain(*args)
+    torch.testing.assert_close(ck, cp, atol=0, rtol=1e-4)
+    if int(ik) != int(ip):
+        cap = (*args[:5], dataclasses.replace(args[5], num_iterations=min(int(ik), int(ip))))
+        xk, xp = solve(*cap)[0], plain(*cap)[0]
+    torch.testing.assert_close(xk, xp, atol=1e-4, rtol=0)
+    return int(ik)
+
+
+@pytest.mark.parametrize("m", [1, 31, 128, 512, 513, 4096])
+@pytest.mark.parametrize("surface", LM_SURFACES)
+def test_lm_template_kernel_shapes(dev, surface, m):
+    """K3, its TSDF form and K22 (one pass an iteration) against their twins
+    at m points: a thread per point up to 512 (1 to 16 warps), a loop above;
+    monotonic steps from 6 cm and 0.02 rad off."""
+    solve, plain, grid = _lm_surface(dev, surface)
+    pts, mask = _lm_points(dev, m)
+    x0 = _t(np.float32([0.06, -0.04, 0.02]), dev)
+    params = scan_matcher_2d.GaussNewtonMatcherParams2D()
+    _check_lm(solve, plain, (grid, pts, mask, x0, x0[0:2] - 0.01, params))
+
+
+@pytest.mark.parametrize("surface", LM_SURFACES)
+def test_lm_template_kernel_steps(dev, surface):
+    """The template's LM paths at 512 points against the twins: non-monotonic
+    steps (K3 and its TSDF form; K22 takes monotonic steps, as in JAX), an
+    iteration cap of 1, and an early exit by function_tolerance (of the
+    solve from the start and a second one from its result, one at least
+    stops before its cap, in the kernel and the twin alike)."""
+    solve, plain, grid = _lm_surface(dev, surface)
+    pts, mask = _lm_points(dev, 512, seed=91)
+    x0 = _t(np.float32([0.09, 0.05, -0.03]), dev)
+    default = scan_matcher_2d.GaussNewtonMatcherParams2D()
+    cases = [dataclasses.replace(default, num_iterations=1)]
+    if surface != "K22":
+        cases.append(dataclasses.replace(default, use_nonmonotonic_steps=True))
+    for params in cases:
+        _check_lm(solve, plain, (grid, pts, mask, x0, x0[0:2], params))
+    first = _check_lm(solve, plain, (grid, pts, mask, x0, x0[0:2], default))
+    x1 = solve(grid, pts, mask, x0, x0[0:2], default)[0]
+    second = _check_lm(solve, plain, (grid, pts, mask, x1, x0[0:2], default))
+    assert min(first, second) < default.num_iterations
+
+
+@pytest.mark.parametrize("surface", LM_SURFACES)
+def test_lm_template_kernel_robots(dev, surface):
+    """16 robots in one launch, each with its own grid origin, points and
+    start: every robot bit-equal to its own one-robot launch."""
+    solve, _, grid = _lm_surface(dev, surface)
+    robots = 16
+    grids = [dataclasses.replace(grid, origin=grid.origin + 0.007 * r) for r in range(robots)]
+    clouds = [_lm_points(dev, 512, seed=100 + r) for r in range(robots)]
+    pts = torch.stack([c[0] for c in clouds])
+    mask = torch.stack([c[1] for c in clouds])
+    x0 = torch.stack([_t(np.float32([0.05 - 0.004 * r, 0.03, 0.01 * (r % 3)]), dev)
+                      for r in range(robots)])
+    params = scan_matcher_2d.GaussNewtonMatcherParams2D()
+    out = solve(grids, pts, mask, x0, x0[:, 0:2], params)
+    for r in range(robots):
+        alone = solve(grids[r], pts[r], mask[r], x0[r], x0[r, 0:2], params)
+        for a, b in zip(out, alone):
+            assert torch.equal(a[r], b)

@@ -17,12 +17,15 @@ from cartographer_tpu.ops.spa import constraint_residual as j_residual
 from cartographer_tpu.parallel.schur_spa import (
     SchurSpaProblem2D as JProblem,
     _assemble_local,
+    _block_tridiag_factor,
+    _tridiag_solve_multi,
     solve_spa_2d_schur as j_solve,
 )
 from cartographer_tpu_torch.interop import schur_problem_from_numpy
 from cartographer_tpu_torch.ops.spa import constraint_jacobians, constraint_residual
 from cartographer_tpu_torch.parallel.schur_spa import (
     assemble,
+    cyclic_reduction_solve,
     max_weight,
     normalized,
     solve_spa_2d_schur,
@@ -162,3 +165,45 @@ def test_singular_step_is_rejected():
     sub, nod = solve_spa_2d_schur(schur_problem_from_numpy(arrays, "cpu"), num_iterations=3)
     np.testing.assert_array_equal(sub.numpy(), arrays["submap_poses"])
     np.testing.assert_array_equal(nod.numpy(), arrays["node_poses"])
+
+
+def _band_system(n, width, seed):
+    """A damped block-tridiagonal system of n 3x3 node blocks as the 2D
+    solver builds it: each node's own rank-2 term (its submap constraints),
+    a 3 x 6 Jacobian's J^T J on each consecutive pair (the node-node term),
+    lambda |diag| + damping on the diagonal (1e-4, 1e-6); and a right-hand
+    side of `width` columns. -> (T float64, Td, To, rhs float32)."""
+    rng = np.random.RandomState(seed)
+    T = np.zeros((3 * n, 3 * n))
+    for i in range(n):
+        R = rng.randn(2, 3)
+        T[3 * i:3 * i + 3, 3 * i:3 * i + 3] += R.T @ R
+    for i in range(n - 1):
+        J = rng.randn(3, 6)
+        T[3 * i:3 * i + 6, 3 * i:3 * i + 6] += J.T @ J
+    T[np.diag_indices_from(T)] += 1e-4 * np.abs(np.diag(T)) + 1e-6
+    Td = np.stack([T[3 * i:3 * i + 3, 3 * i:3 * i + 3] for i in range(n)])
+    To = np.zeros((n - 1, 3, 3))
+    for i in range(n - 1):
+        To[i] = T[3 * i:3 * i + 3, 3 * i + 3:3 * i + 6]
+    rhs = rng.randn(n, 3, width)
+    return T, Td.astype(np.float32), To.astype(np.float32), rhs.astype(np.float32)
+
+
+@pytest.mark.parametrize("width", [1, 13, 193])
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 8, 13, 100])
+def test_cyclic_reduction_matches_thomas(n, width):
+    """The plain form of K8's band solve (block cyclic reduction of 3x3
+    blocks, level by level as the kernel's launches) against the JAX
+    package's Thomas chain (_block_tridiag_factor, _tridiag_solve_multi) in
+    float32 on the same system. Two backward-stable solves of one system
+    differ by rounding: tolerance eps_float32 x cond(T) relative to the
+    solution's largest entry, the first-order bound on either's forward
+    error."""
+    T, Td, To, rhs = _band_system(n, width, seed=100 * n + width)
+    factors = _block_tridiag_factor(jnp.asarray(Td), jnp.asarray(To))
+    ref = np.asarray(_tridiag_solve_multi(factors, jnp.asarray(rhs)))
+    got = cyclic_reduction_solve(*(torch.from_numpy(x) for x in (Td, To, rhs))).numpy()
+    tol = np.finfo(np.float32).eps * np.linalg.cond(T)
+    err = np.abs(got - ref).max() / np.abs(ref).max()
+    assert err <= tol, (err, tol)

@@ -15,6 +15,7 @@ from cartographer_tpu.transform import nquat
 from cartographer_tpu_torch.interop import schur_problem_3d_from_numpy
 from cartographer_tpu_torch.ops import spa_3d
 from cartographer_tpu_torch.parallel import schur_spa_3d as tss
+from cartographer_tpu_torch.parallel.schur_spa import cyclic_reduction_solve
 from cartographer_tpu_torch.simulation import synthetic_pose_graph_3d
 
 from test_schur_spa_3d import _wavy_problem
@@ -185,7 +186,7 @@ def test_cyclic_reduction_matches_thomas(n, width):
     T, Td, To, rhs = _band_system(n, width, seed=100 * n + width)
     factors = jss._block_tridiag_factor(jnp.asarray(Td), jnp.asarray(To), 12)
     ref = np.asarray(jss._tridiag_solve_multi(factors, jnp.asarray(rhs), 12))
-    got = tss.cyclic_reduction_solve(*(torch.from_numpy(x) for x in (Td, To, rhs))).numpy()
+    got = cyclic_reduction_solve(*(torch.from_numpy(x) for x in (Td, To, rhs))).numpy()
     tol = np.finfo(np.float32).eps * np.linalg.cond(T)
     err = np.abs(got - ref).max() / np.abs(ref).max()
     assert err <= tol, (err, tol)
