@@ -6,17 +6,22 @@
 // ops/gauss_newton.py:lm_solve (l.22).
 //
 // The whole Levenberg-Marquardt solve on the SE(3) tangent [dt, so3] (or
-// [dt, yaw]) is one launch of one block: per iteration one pass over the
-// high- and the low-resolution cloud computes the residuals
-// w / sqrt(n) * (1 - P(T p)), with an intensity grid also the high cloud's
+// [dt, yaw]) is one launch, with one pass over the rows per iteration: the
+// pass at the candidate x + delta computes, for the high- and the
+// low-resolution cloud and the intensity rows, the residuals
+// w / sqrt(n) * (1 - P(T p)) (with an intensity grid also the high cloud's
 // intensity rows w_i / sqrt(n_i) * clip(I(T p) - i) over the points whose
-// intensity i is at most the threshold, their analytic Jacobian, J^T J (21 values),
-// J^T r (6) and the cost at the pose; thread 0 adds the translation and
-// rotation penalties, damps the diagonal, solves the 6x6 (4x4) system with
-// partial pivoting and retracts (t += dt, q = normalize(q * exp(so3))); a
-// second pass computes the cost at the new pose; accept/reject, the lambda
-// schedule, use_nonmonotonic_steps and the function_tolerance exit follow
-// lm_solve (l.72-127).
+// intensity i is at most the threshold), their analytic Jacobian and all 28
+// sums (J^T J: 21, J^T r: 6, the sum of squares). If the step is accepted,
+// the next iteration's normal equations are already there; if it is
+// rejected, the sums at x are kept. The first pass, at the start pose, gives
+// the initial cost and the first normal equations: 1 + n passes for n
+// iterations where the two-pass form took 1 + 2n. The solve adds the
+// translation and rotation penalties at x, damps the diagonal, solves the
+// 6x6 (4x4) system with partial pivoting and retracts (t += dt,
+// q = normalize(q * exp(so3))); accept/reject, the lambda schedule,
+// use_nonmonotonic_steps (the best pose kept beside the accepted one) and
+// the function_tolerance exit follow lm_solve (l.72-127).
 //
 // P is the trilinear interpolation of the grid's probability, with the
 // corner indices clamped to the border. The probability is computed from
@@ -33,25 +38,46 @@
 // rotation penalty log(conj(q_target) q) has the inverse right Jacobian of
 // SO(3); JAX takes both with jacfwd at delta = 0.
 //
-// Bound: latency. 1,536 points with 8 corners each from two grids is a few
-// hundred KB; the solve is a chain of up to 25 dependent block-wide passes.
-// Design: one block of 256 threads holds the state in shared memory and
-// runs the loop without returning to the host.
-//
-// Order of the sums: each thread adds its strided share of the points, a
-// warp shuffle adds the 32 lanes, one thread adds the 8 warps. The plain
-// twin (ops/scan_matcher_3d.py:_match_plain) forms J^T J and J^T r as matrix
-// products, which add in another order, so kernel and twin are not bit-equal:
-// they are held to 1e-4 m, 1e-4 rad and 1e-4 of the cost.
+// Bound: latency. The frontend's 512 + 1,024 points with 8 corners each
+// from two grids are a few hundred KB; the solve is a chain of up to 13
+// dependent passes (23 for the testbed's `ceres` mode). Design:
+//  - a thread per row (a high point with its intensity row, or a low point):
+//    each row issues its corners' loads together before any use (8 log-odds
+//    and 8 known flags, and 8 sums and 8 counts for an intensity row), so a
+//    pass waits for one round trip to memory, not one per corner;
+//  - above one block's 256 rows, the rows spread over a thread-block cluster
+//    of up to 16 blocks, ceil(rows / 256) of them (the `ceres` testbed's
+//    2 x 32,768 points take 16, each thread 16 rows): a block adds its warps'
+//    sums after a block barrier, and after one cluster barrier a pass every
+//    warp reads the blocks' 28 sums through distributed shared memory;
+//  - the warps' partial sums go to double-buffered shared arrays, so a pass
+//    takes one barrier in one block (one block and one cluster barrier in a
+//    cluster): a thread that runs ahead into the next pass writes the other
+//    buffer;
+//  - the damped solve: one warp of each block keeps the solve's state,
+//    solves the 6x6 system and broadcasts the candidate through shared
+//    memory, at the cost of a second block barrier a pass; every thread
+//    solving the same system itself so that nothing is broadcast (as K3's
+//    template does) took 5-18% longer on the card (PERF.md row 14).
+// No atomics and a fixed order of every sum (a thread's rows in order, a
+// shuffle tree over a warp's lanes, the warps in order, the blocks in
+// order; the layout depends on the point counts only), so two calls give
+// the same bits. The plain twin (ops/scan_matcher_3d.py:_match_plain) forms
+// J^T J and J^T r as matrix products, which add in another order, so kernel
+// and twin are held to 1e-4 m, 1e-4 rad and 1e-4 of the cost.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kMaxCluster = 16;
 constexpr int kSums = 28;  // H upper triangle (21), g (6), sum of squares
 
 struct Grid {
@@ -81,22 +107,10 @@ struct Intensity {
   float threshold;
 };
 
-__device__ inline float probability(const Grid& g, int i, int j, int k) {
-  size_t idx = ((size_t)i * g.size + j) * g.size + k;
-  return g.known[idx] ? 1.0f / (1.0f + expf(-g.log_odds[idx])) : 0.1f;
-}
-
-struct OccupancyCorner {
-  const Grid* g;
-  __device__ float operator()(int i, int j, int k) const { return probability(*g, i, j, k); }
-};
-
-struct IntensityCorner {
-  const Intensity* it;
-  __device__ float operator()(int i, int j, int k) const {
-    size_t idx = ((size_t)i * it->size + j) * it->size + k;
-    return it->sums[idx] / fmaxf(it->counts[idx], 1.0f);
-  }
+struct Shared {
+  float part[2][kWarps][kSums];  // the warps' partial sums, double-buffered
+  float total[2][kSums];         // in a cluster: the block's sums, read by the others
+  float candidate[8];            // the pose to evaluate and whether to go on
 };
 
 __device__ inline void cross3(const float a[3], const float b[3], float out[3]) {
@@ -121,14 +135,12 @@ __device__ inline void quat_multiply(const float a[4], const float b[4], float o
   out[3] = a[0] * b[3] + a[1] * b[2] - a[2] * b[1] + a[3] * b[0];
 }
 
-// Trilinear value at the world point `world` of the size^3 grid whose cell
-// values `corner(i, j, k)` returns (corner indices clamped to the border),
-// and its gradient in cell coordinates.
-template <typename Corner>
-__device__ inline float trilinear(const float* origin, float resolution, int size,
-                                  const float world[3], Corner corner, float grad[3]) {
+// The 8 corners of the trilinear stencil at the world point `world` of a
+// size^3 grid (corner indices clamped to the border), corner c at
+// (c >> 2, (c >> 1) & 1, c & 1), and the weights w[axis][0 or 1].
+__device__ inline void stencil(const float* origin, float resolution, int size,
+                               const float world[3], size_t idx[8], float w[3][2]) {
   int base[3];
-  float w[3][2];
   for (int a = 0; a < 3; ++a) {
     float c = (world[a] - origin[a]) / resolution - 0.5f;
     float b = floorf(c);
@@ -137,22 +149,27 @@ __device__ inline float trilinear(const float* origin, float resolution, int siz
     w[a][0] = 1.0f - f;
     w[a][1] = f;
   }
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const int ii = min(max(base[0] + (c >> 2), 0), size - 1);
+    const int jj = min(max(base[1] + ((c >> 1) & 1), 0), size - 1);
+    const int kk = min(max(base[2] + (c & 1), 0), size - 1);
+    idx[c] = ((size_t)ii * size + jj) * size + kk;
+  }
+}
+
+// Trilinear value of the corner values v and its gradient in cell coordinates.
+__device__ inline float trilinear(const float v[8], const float w[3][2], float grad[3]) {
   float val = 0.0f;
   grad[0] = grad[1] = grad[2] = 0.0f;
-  for (int di = 0; di < 2; ++di) {
-    int ii = min(max(base[0] + di, 0), size - 1);
-    for (int dj = 0; dj < 2; ++dj) {
-      int jj = min(max(base[1] + dj, 0), size - 1);
-      for (int dk = 0; dk < 2; ++dk) {
-        int kk = min(max(base[2] + dk, 0), size - 1);
-        float c = corner(ii, jj, kk);
-        val = val + w[0][di] * w[1][dj] * w[2][dk] * c;
-        float si = di ? 1.0f : -1.0f, sj = dj ? 1.0f : -1.0f, sk = dk ? 1.0f : -1.0f;
-        grad[0] = grad[0] + si * (w[1][dj] * w[2][dk]) * c;
-        grad[1] = grad[1] + sj * (w[0][di] * w[2][dk]) * c;
-        grad[2] = grad[2] + sk * (w[0][di] * w[1][dj]) * c;
-      }
-    }
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const int di = c >> 2, dj = (c >> 1) & 1, dk = c & 1;
+    val = val + w[0][di] * w[1][dj] * w[2][dk] * v[c];
+    float si = di ? 1.0f : -1.0f, sj = dj ? 1.0f : -1.0f, sk = dk ? 1.0f : -1.0f;
+    grad[0] = grad[0] + si * (w[1][dj] * w[2][dk]) * v[c];
+    grad[1] = grad[1] + sj * (w[0][di] * w[2][dk]) * v[c];
+    grad[2] = grad[2] + sk * (w[0][di] * w[1][dj]) * v[c];
   }
   return val;
 }
@@ -168,80 +185,139 @@ __device__ inline void tangent_gradient(const float q[4], const float p[3], cons
   cross3(p, gb, jac + 3);
 }
 
-// Residual of point k of `cloud` at pose x = [t, q] and, when jac != nullptr,
-// its gradient on the tangent [dt, so3].
-__device__ inline float residual(const Grid& g, const Cloud& cloud, const float x[7], int k,
-                                 float* jac) {
-  if (!cloud.mask[k]) {
-    if (jac)
-      for (int a = 0; a < 6; ++a) jac[a] = 0.0f;
-    return 0.0f;
-  }
-  const float* q = x + 3;
-  float p[3] = {cloud.points[3 * k], cloud.points[3 * k + 1], cloud.points[3 * k + 2]};
-  float world[3];
-  rotate(q, p, world);
-  for (int a = 0; a < 3; ++a) world[a] = world[a] + x[a];
-  float grad[3];
-  float val = trilinear(g.origin, g.resolution, g.size, world, OccupancyCorner{&g}, grad);
-  if (jac) {
-    float gw[3];
-    for (int a = 0; a < 3; ++a) gw[a] = -cloud.scale * (grad[a] / g.resolution);
-    tangent_gradient(q, p, gw, jac);
-  }
-  return cloud.scale * (1.0f - val);
+__device__ inline void accumulate(float* acc, const float j[6], float r) {
+  int q = 0;
+#pragma unroll
+  for (int a = 0; a < 6; ++a)
+#pragma unroll
+    for (int b = a; b < 6; ++b) acc[q++] += j[a] * j[b];
+#pragma unroll
+  for (int a = 0; a < 6; ++a) acc[21 + a] += j[a] * r;
+  acc[27] += r * r;
 }
 
-// The intensity residual of point k of the high cloud, and its gradient.
-__device__ inline float intensity_residual(const Intensity& it, const Cloud& cloud,
-                                           const float x[7], int k, float* jac) {
-  float value = it.values[k];
-  if (!cloud.mask[k] || !(value <= it.threshold)) {
-    if (jac)
-      for (int a = 0; a < 6; ++a) jac[a] = 0.0f;
-    return 0.0f;
-  }
-  const float* q = x + 3;
-  float p[3] = {cloud.points[3 * k], cloud.points[3 * k + 1], cloud.points[3 * k + 2]};
+// Adds row `row` at pose x (translation t, rotation q) to acc: a high point
+// (row < hc.n) with its intensity row, or low point row - hc.n.
+__device__ inline void add_row(const Grid& hg, const Cloud& hc, const Grid& lg, const Cloud& lc,
+                               const Intensity& it, const float t[3], const float q[4],
+                               int row, float* acc) {
+  const bool high = row < hc.n;
+  const Grid& g = high ? hg : lg;
+  const Cloud& cloud = high ? hc : lc;
+  const int k = high ? row : row - hc.n;
+  if (!cloud.mask[k]) return;  // a zero row adds nothing
+  const float p[3] = {cloud.points[3 * k], cloud.points[3 * k + 1], cloud.points[3 * k + 2]};
   float world[3];
   rotate(q, p, world);
-  for (int a = 0; a < 3; ++a) world[a] = world[a] + x[a];
-  float grad[3];
-  float pred = trilinear(it.origin, it.resolution, it.size, world, IntensityCorner{&it}, grad);
-  float r = pred - value;
-  float s = it.huber_scale;
-  float a = fabsf(r);
-  float arg = s * (a - s);
-  bool outlier = arg > 0.0f;
-  float soft = outlier ? sqrtf(arg) : 0.0f;
-  float bound = s + soft;
-  float sign = r > 0.0f ? 1.0f : (r < 0.0f ? -1.0f : 0.0f);
-  if (jac) {
-    float d_bound = outlier ? 0.5f * s * sign / soft : 0.0f;
-    float d_min = a < bound ? sign : (a > bound ? d_bound : 0.5f * (sign + d_bound));
-    float d_r = sign * d_min;
-    float gw[3];
-    for (int c = 0; c < 3; ++c) gw[c] = (it.scale * d_r) * (grad[c] / it.resolution);
-    tangent_gradient(q, p, gw, jac);
+  for (int a = 0; a < 3; ++a) world[a] = world[a] + t[a];
+  const bool rows = high && it.sums != nullptr;
+  const float value = rows ? it.values[k] : 0.0f;
+  const bool intensity_row = rows && value <= it.threshold;
+
+  // Every corner's loads, issued before any is used.
+  size_t idx[8], iidx[8];
+  float w[3][2], iw[3][2];
+  stencil(g.origin, g.resolution, g.size, world, idx, w);
+  if (intensity_row) stencil(it.origin, it.resolution, it.size, world, iidx, iw);
+  float lo[8], isum[8], icount[8];
+  uint8_t kn[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    lo[c] = g.log_odds[idx[c]];
+    kn[c] = g.known[idx[c]];
   }
-  return it.scale * (sign * fminf(a, bound));
+  if (intensity_row) {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      isum[c] = it.sums[iidx[c]];
+      icount[c] = it.counts[iidx[c]];
+    }
+  }
+
+  float v[8], grad[3], jac[6];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) v[c] = kn[c] ? 1.0f / (1.0f + expf(-lo[c])) : 0.1f;
+  const float val = trilinear(v, w, grad);
+  float gw[3];
+  for (int a = 0; a < 3; ++a) gw[a] = -cloud.scale * (grad[a] / g.resolution);
+  tangent_gradient(q, p, gw, jac);
+  accumulate(acc, jac, cloud.scale * (1.0f - val));
+
+  if (!intensity_row) return;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) v[c] = isum[c] / fmaxf(icount[c], 1.0f);
+  const float pred = trilinear(v, iw, grad);
+  const float r = pred - value;
+  const float s = it.huber_scale;
+  const float a = fabsf(r);
+  const float arg = s * (a - s);
+  const bool outlier = arg > 0.0f;
+  const float soft = outlier ? sqrtf(arg) : 0.0f;
+  const float bound = s + soft;
+  const float sign = r > 0.0f ? 1.0f : (r < 0.0f ? -1.0f : 0.0f);
+  const float d_bound = outlier ? 0.5f * s * sign / soft : 0.0f;
+  const float d_min = a < bound ? sign : (a > bound ? d_bound : 0.5f * (sign + d_bound));
+  const float d_r = sign * d_min;
+  for (int c = 0; c < 3; ++c) gw[c] = (it.scale * d_r) * (grad[c] / it.resolution);
+  tangent_gradient(q, p, gw, jac);
+  accumulate(acc, jac, it.scale * (sign * fminf(a, bound)));
 }
 
-// Block-wide sum of v[0..count); the result is valid in every thread.
-__device__ void block_sum(float* v, int count, float (*scratch)[kSums], float* out) {
-  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int q = 0; q < count; ++q) {
-    float a = v[q];
-    for (int off = 16; off > 0; off >>= 1) a += __shfl_down_sync(0xffffffffu, a, off);
-    if (lane == 0) scratch[warp][q] = a;
-  }
+// The cluster's sums of acc[0..K) into out[0..K), in every thread of the
+// warps that take them (every warp, or warp 0 alone): a shuffle tree over
+// each warp's lanes, then the warps in order into buffer `buf` of `part`;
+// in a cluster each block adds its warps after a block barrier and, after
+// the cluster barrier, lane q of a warp adds sum q of the blocks in order.
+template <int K>
+__device__ inline void reduce(float acc[K], Shared& s, int buf, cg::cluster_group& cluster,
+                              unsigned int blocks, bool take, float out[K]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int q = 0; q < K; ++q)
+    for (int off = 16; off > 0; off >>= 1) acc[q] += __shfl_down_sync(0xffffffffu, acc[q], off);
+  if (lane == 0)
+#pragma unroll
+    for (int q = 0; q < K; ++q) s.part[buf][warp][q] = acc[q];
   __syncthreads();
-  if (threadIdx.x < count) {
-    float a = 0.0f;
-    for (int w = 0; w < kWarps; ++w) a += scratch[w][threadIdx.x];
-    out[threadIdx.x] = a;
+  float v = 0.0f;
+  if (blocks == 1) {
+    if (take && lane < K)
+      for (int w = 0; w < kWarps; ++w) v += s.part[buf][w][lane];
+  } else {
+    if (warp == 0 && lane < K) {
+      float b = 0.0f;
+      for (int w = 0; w < kWarps; ++w) b += s.part[buf][w][lane];
+      s.total[buf][lane] = b;
+    }
+    cluster.sync();
+    if (take && lane < K) {
+      float t[kMaxCluster];
+#pragma unroll
+      for (int b = 0; b < kMaxCluster; ++b)  // the loads in flight together
+        t[b] = b < (int)blocks ? cluster.map_shared_rank(&s.total[buf][0], (unsigned int)b)[lane]
+                               : 0.0f;
+#pragma unroll
+      for (int b = 0; b < kMaxCluster; ++b)
+        if (b < (int)blocks) v += t[b];
+    }
   }
-  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < K; ++q) out[q] = __shfl_sync(0xffffffffu, v, q);
+}
+
+// One pass at pose x: the 28 sums over the rows. Thread g of the cluster
+// takes rows g, g + G, ... (G the cluster's threads) in order.
+__device__ inline void pass(const Grid& hg, const Cloud& hc, const Grid& lg, const Cloud& lc,
+                            const Intensity& it, const float x[7], Shared& s, int buf,
+                            cg::cluster_group& cluster, unsigned int blocks, unsigned int rank,
+                            bool take, float out[kSums]) {
+  float acc[kSums];
+#pragma unroll
+  for (int q = 0; q < kSums; ++q) acc[q] = 0.0f;
+  const int stride = (int)blocks * kThreads, rows = hc.n + lc.n;
+  for (int row = (int)rank * kThreads + threadIdx.x; row < rows; row += stride)
+    add_row(hg, hc, lg, lc, it, x, x + 3, row, acc);
+  reduce<kSums>(acc, s, buf, cluster, blocks, take, out);
 }
 
 // Solve A d = b (n <= 6) by Gaussian elimination with partial pivoting.
@@ -338,182 +414,159 @@ __device__ inline void retract(const float x[7], const float d[6], float x_new[7
   for (int a = 0; a < 4; ++a) x_new[3 + a] = q[a] / norm;
 }
 
-__device__ float sum_of_squares(const Grid& hg, const Cloud& hc, const Grid& lg,
-                                const Cloud& lc, const Intensity& it, const float x[7]) {
-  float acc = 0.0f;
-  for (int k = threadIdx.x; k < hc.n; k += blockDim.x) {
-    float r = residual(hg, hc, x, k, nullptr);
-    acc += r * r;
-    if (it.sums) {
-      r = intensity_residual(it, hc, x, k, nullptr);
-      acc += r * r;
-    }
-  }
-  for (int k = threadIdx.x; k < lc.n; k += blockDim.x) {
-    float r = residual(lg, lc, x, k, nullptr);
-    acc += r * r;
-  }
-  return acc;
-}
-
-__device__ inline void accumulate(float* acc, const float j[6], float r) {
+// The damped step from the sums at x: the penalty rows at x added to the
+// normal equations, the diagonal damped by lam, the 6x6 (or [dt, yaw] 4x4)
+// system solved and the step retracted into xn. Returns whether the step is
+// finite.
+__device__ inline bool lm_step(const float sums[kSums], const float x[7], const Penalty& pen,
+                               float lam, bool yaw_only, float xn[7]) {
+  const float wt = pen.wt, wr = pen.wr;
+  float h6[6][6], g6[6];
   int q = 0;
   for (int a = 0; a < 6; ++a)
-    for (int b = a; b < 6; ++b) acc[q++] += j[a] * j[b];
-  for (int a = 0; a < 6; ++a) acc[21 + a] += j[a] * r;
-  acc[27] += r * r;
+    for (int b = a; b < 6; ++b) {
+      h6[a][b] = h6[b][a] = sums[q];
+      ++q;
+    }
+  for (int a = 0; a < 6; ++a) g6[a] = sums[21 + a];
+  // Penalty rows: r_t = wt (t - target), r_r = wr log(conj(q_target) q).
+  float phi[3], m[3][3];
+  rotation_error(pen, x + 3, phi);
+  inverse_right_jacobian(phi, m);
+  for (int a = 0; a < 3; ++a) {
+    h6[a][a] = h6[a][a] + wt * wt;
+    g6[a] = g6[a] + wt * (wt * (x[a] - pen.target_t[a]));
+    for (int b = 0; b < 3; ++b) {
+      float hh = 0.0f;
+      for (int r = 0; r < 3; ++r) hh += (wr * m[r][a]) * (wr * m[r][b]);
+      h6[3 + a][3 + b] = h6[3 + a][3 + b] + hh;
+    }
+    float gg = 0.0f;
+    for (int r = 0; r < 3; ++r) gg += (wr * m[r][a]) * (wr * phi[r]);
+    g6[3 + a] = g6[3 + a] + gg;
+  }
+  // The tangent's columns: all six, or [dt, yaw].
+  const int dim = yaw_only ? 4 : 6;
+  const int cols[6] = {0, 1, 2, yaw_only ? 5 : 3, 4, 5};
+  float h[6][6], rhs[6], d[6];
+  for (int a = 0; a < dim; ++a) {
+    for (int b = 0; b < dim; ++b) h[a][b] = h6[cols[a]][cols[b]];
+    rhs[a] = -g6[cols[a]];
+  }
+  for (int a = 0; a < dim; ++a) h[a][a] = h[a][a] + lam * fmaxf(h[a][a], 1e-6f);
+  solve(h, rhs, d, dim);
+  bool finite = true;
+  float d6[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  for (int a = 0; a < dim; ++a) {
+    finite = finite && isfinite(d[a]);
+    d6[cols[a]] = d[a];
+  }
+  retract(x, d6, xn);
+  return finite;
 }
 
-__global__ void scan_matcher_3d_kernel(Grid hg, Cloud hc, Grid lg, Cloud lc, Intensity rows,
-                                       const float* __restrict__ x0,
-                                       const float* __restrict__ target_t, float wt, float wr,
-                                       int yaw_only, int num_iterations, int nonmonotonic,
-                                       float function_tolerance, float* __restrict__ x_out,
-                                       float* __restrict__ cost_out,
-                                       int* __restrict__ iterations_out) {
-  __shared__ float scratch[kWarps][kSums];
-  __shared__ float sums[kSums];
-  __shared__ float x[7], x_new[7], best_x[7];
-  __shared__ float lam, current, best_cost;
-  __shared__ int it, stop, finite_delta;
+// The solve's state, kept by every thread that solves.
+struct State {
+  float x[7], best_x[7];
+  float sums[kSums];  // at x
+  float lam, current, best_cost;
+  int it;
+  bool stop;
+};
+
+// lm_solve's accept/reject of the candidate xn with sums cand.
+__device__ inline void decide(State& st, const float xn[7], const float cand[kSums],
+                              bool finite_delta, const Penalty& pen, int nonmonotonic,
+                              float function_tolerance) {
+  const float new_cost = 0.5f * (cand[27] + penalty_sq(pen, xn));
+  const bool finite = finite_delta && isfinite(new_cost);
+  const bool improved = new_cost < st.current && finite;
+  const bool accept = nonmonotonic ? finite : improved;
+  const float improvement =
+      improved ? (st.current - new_cost) / fmaxf(st.current, 1e-30f) : 1.0f;
+  st.lam = improved ? st.lam * 0.5f : st.lam * 4.0f;
+  if (accept) {
+    for (int q = 0; q < 7; ++q) st.x[q] = xn[q];
+    for (int q = 0; q < kSums; ++q) st.sums[q] = cand[q];
+    st.current = new_cost;
+  }
+  if (finite && new_cost < st.best_cost) {
+    for (int q = 0; q < 7; ++q) st.best_x[q] = xn[q];
+    st.best_cost = new_cost;
+  }
+  st.it = st.it + 1;
+  st.stop = accept && improvement < function_tolerance && improvement >= 0.0f;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    scan_matcher_3d_kernel(Grid hg, Cloud hc, Grid lg, Cloud lc, Intensity rows,
+                           const float* __restrict__ x0, const float* __restrict__ target_t,
+                           float wt, float wr, int yaw_only, int num_iterations, int nonmonotonic,
+                           float function_tolerance, float* __restrict__ x_out,
+                           float* __restrict__ cost_out, int* __restrict__ iterations_out) {
+  __shared__ Shared s;
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned int blocks = cluster.num_blocks(), rank = cluster.block_rank();
+  // Warp 0 of each block keeps the solve's state.
+  const bool solver = threadIdx.x < 32;
+  int buf = 0;
 
   // n = max(number of valid points, 1) of each cloud and of the intensity
   // rows, counted once.
-  float cnt[3] = {0.0f, 0.0f, 0.0f};
-  for (int k = threadIdx.x; k < hc.n; k += blockDim.x) {
-    cnt[0] += hc.mask[k] ? 1.0f : 0.0f;
-    if (rows.sums) cnt[2] += (hc.mask[k] && rows.values[k] <= rows.threshold) ? 1.0f : 0.0f;
+  {
+    float cnt[3] = {0.0f, 0.0f, 0.0f};
+    const int stride = (int)blocks * kThreads;
+    for (int k = (int)rank * kThreads + threadIdx.x; k < hc.n; k += stride) {
+      cnt[0] += hc.mask[k] ? 1.0f : 0.0f;
+      if (rows.sums) cnt[2] += (hc.mask[k] && rows.values[k] <= rows.threshold) ? 1.0f : 0.0f;
+    }
+    for (int k = (int)rank * kThreads + threadIdx.x; k < lc.n; k += stride)
+      cnt[1] += lc.mask[k] ? 1.0f : 0.0f;
+    float n[3];
+    reduce<3>(cnt, s, buf, cluster, blocks, true, n);
+    hc.scale = hc.scale / sqrtf(fmaxf(n[0], 1.0f));
+    lc.scale = lc.scale / sqrtf(fmaxf(n[1], 1.0f));
+    rows.scale = rows.scale / sqrtf(fmaxf(n[2], 1.0f));
   }
-  for (int k = threadIdx.x; k < lc.n; k += blockDim.x) cnt[1] += lc.mask[k] ? 1.0f : 0.0f;
-  block_sum(cnt, 3, scratch, sums);
-  hc.scale = hc.scale / sqrtf(fmaxf(sums[0], 1.0f));
-  lc.scale = lc.scale / sqrtf(fmaxf(sums[1], 1.0f));
-  rows.scale = rows.scale / sqrtf(fmaxf(sums[2], 1.0f));
-  __syncthreads();
   Penalty pen;
   for (int a = 0; a < 3; ++a) pen.target_t[a] = target_t[a];
   for (int a = 0; a < 4; ++a) pen.target_q[a] = x0[3 + a];
   pen.wt = wt;
   pen.wr = wr;
 
-  if (threadIdx.x == 0) {
-    for (int q = 0; q < 7; ++q) x[q] = best_x[q] = x0[q];
-    lam = 1e-4f;
-    it = 0;
-    stop = 0;
-  }
-  __syncthreads();
-
-  // Initial cost.
-  {
-    float xl[7];
-    for (int q = 0; q < 7; ++q) xl[q] = x[q];
-    float acc = sum_of_squares(hg, hc, lg, lc, rows, xl);
-    block_sum(&acc, 1, scratch, sums);
-    if (threadIdx.x == 0) current = best_cost = 0.5f * (sums[0] + penalty_sq(pen, xl));
-  }
-  __syncthreads();
-
-  const int dim = yaw_only ? 4 : 6;
-  while (!stop && it < num_iterations) {
-    // Pass A: normal equations at x.
-    float xl[7];
-    for (int q = 0; q < 7; ++q) xl[q] = x[q];
-    float acc[kSums];
-    for (int q = 0; q < kSums; ++q) acc[q] = 0.0f;
-    for (int k = threadIdx.x; k < hc.n; k += blockDim.x) {
-      float j[6];
-      float r = residual(hg, hc, xl, k, j);
-      accumulate(acc, j, r);
-      if (rows.sums) {
-        r = intensity_residual(rows, hc, xl, k, j);
-        accumulate(acc, j, r);
-      }
-    }
-    for (int k = threadIdx.x; k < lc.n; k += blockDim.x) {
-      float j[6];
-      float r = residual(lg, lc, xl, k, j);
-      accumulate(acc, j, r);
-    }
-    block_sum(acc, 27, scratch, sums);
-    if (threadIdx.x == 0) {
-      float h6[6][6], g6[6];
-      int q = 0;
-      for (int a = 0; a < 6; ++a)
-        for (int b = a; b < 6; ++b) {
-          h6[a][b] = h6[b][a] = sums[q];
-          ++q;
-        }
-      for (int a = 0; a < 6; ++a) g6[a] = sums[21 + a];
-      // Penalty rows: r_t = wt (t - target), r_r = wr log(conj(q_target) q).
-      float phi[3], m[3][3];
-      rotation_error(pen, xl + 3, phi);
-      inverse_right_jacobian(phi, m);
-      for (int a = 0; a < 3; ++a) {
-        h6[a][a] = h6[a][a] + wt * wt;
-        g6[a] = g6[a] + wt * (wt * (xl[a] - pen.target_t[a]));
-        for (int b = 0; b < 3; ++b) {
-          float hh = 0.0f;
-          for (int r = 0; r < 3; ++r) hh += (wr * m[r][a]) * (wr * m[r][b]);
-          h6[3 + a][3 + b] = h6[3 + a][3 + b] + hh;
-        }
-        float gg = 0.0f;
-        for (int r = 0; r < 3; ++r) gg += (wr * m[r][a]) * (wr * phi[r]);
-        g6[3 + a] = g6[3 + a] + gg;
-      }
-      // The tangent's columns: all six, or [dt, yaw].
-      const int cols[6] = {0, 1, 2, yaw_only ? 5 : 3, 4, 5};
-      float h[6][6], rhs[6], d[6];
-      for (int a = 0; a < dim; ++a) {
-        for (int b = 0; b < dim; ++b) h[a][b] = h6[cols[a]][cols[b]];
-        rhs[a] = -g6[cols[a]];
-      }
-      for (int a = 0; a < dim; ++a) h[a][a] = h[a][a] + lam * fmaxf(h[a][a], 1e-6f);
-      solve(h, rhs, d, dim);
-      int finite = 1;
-      float d6[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-      for (int a = 0; a < dim; ++a) {
-        finite = finite && isfinite(d[a]);
-        d6[cols[a]] = d[a];
-      }
-      finite_delta = finite;
-      float xn[7];
-      retract(xl, d6, xn);
-      for (int q2 = 0; q2 < 7; ++q2) x_new[q2] = xn[q2];
-    }
-    __syncthreads();
-
-    // Pass B: cost at the retracted pose.
+  State st;
+  for (int q = 0; q < 7; ++q) st.x[q] = st.best_x[q] = x0[q];
+  buf ^= 1;
+  pass(hg, hc, lg, lc, rows, st.x, s, buf, cluster, blocks, rank, solver, st.sums);
+  st.current = st.best_cost = 0.5f * (st.sums[27] + penalty_sq(pen, st.x));
+  st.lam = 1e-4f;
+  st.it = 0;
+  st.stop = false;
+  while (true) {
     float xn[7];
-    for (int q = 0; q < 7; ++q) xn[q] = x_new[q];
-    float sq = sum_of_squares(hg, hc, lg, lc, rows, xn);
-    block_sum(&sq, 1, scratch, sums);
+    bool finite_delta = false, go = !st.stop && st.it < num_iterations;
+    if (solver && go) finite_delta = lm_step(st.sums, st.x, pen, st.lam, yaw_only != 0, xn);
+    // Warp 0 broadcasts the candidate and whether to go on.
     if (threadIdx.x == 0) {
-      float new_cost = 0.5f * (sums[0] + penalty_sq(pen, xn));
-      bool finite = finite_delta && isfinite(new_cost);
-      bool improved = new_cost < current && finite;
-      bool accept = nonmonotonic ? finite : improved;
-      float improvement = improved ? (current - new_cost) / fmaxf(current, 1e-30f) : 1.0f;
-      lam = improved ? lam * 0.5f : lam * 4.0f;
-      if (accept) {
-        for (int q = 0; q < 7; ++q) x[q] = xn[q];
-        current = new_cost;
-      }
-      if (finite && new_cost < best_cost) {
-        for (int q = 0; q < 7; ++q) best_x[q] = xn[q];
-        best_cost = new_cost;
-      }
-      it = it + 1;
-      stop = accept && improvement < function_tolerance && improvement >= 0.0f;
+      for (int q = 0; q < 7; ++q) s.candidate[q] = xn[q];
+      s.candidate[7] = go ? 1.0f : 0.0f;
     }
     __syncthreads();
+    for (int q = 0; q < 7; ++q) xn[q] = s.candidate[q];
+    go = s.candidate[7] != 0.0f;
+    if (!go) break;
+    float cand[kSums];
+    buf ^= 1;
+    pass(hg, hc, lg, lc, rows, xn, s, buf, cluster, blocks, rank, solver, cand);
+    if (solver) decide(st, xn, cand, finite_delta, pen, nonmonotonic, function_tolerance);
   }
 
-  if (threadIdx.x == 0) {
-    for (int q = 0; q < 7; ++q) x_out[q] = nonmonotonic ? best_x[q] : x[q];
-    cost_out[0] = nonmonotonic ? best_cost : current;
-    iterations_out[0] = it;
+  if (rank == 0 && threadIdx.x == 0) {
+    for (int q = 0; q < 7; ++q) x_out[q] = nonmonotonic ? st.best_x[q] : st.x[q];
+    cost_out[0] = nonmonotonic ? st.best_cost : st.current;
+    iterations_out[0] = st.it;
   }
+  if (blocks > 1) cluster.sync();  // no block leaves while another may read its sums
 }
 
 Grid make_grid(const void* log_odds, const void* known, const void* origin, float resolution,
@@ -534,6 +587,12 @@ Cloud make_cloud(const void* points, const void* mask, int n, float weight) {
   c.n = n;
   c.scale = weight;
   return c;
+}
+
+// Blocks of the cluster for `rows` rows: one per kThreads, at most kMaxCluster.
+int cluster_blocks(long long rows) {
+  const long long b = (rows + kThreads - 1) / kThreads;
+  return b < 1 ? 1 : b > kMaxCluster ? kMaxCluster : (int)b;
 }
 
 }  // namespace
@@ -559,9 +618,33 @@ extern "C" int scan_matcher_3d(
                  (const float*)intensity_origin, intensity_resolution, intensity_size,
                  (const float*)high_intensities, intensity_weight, huber_scale,
                  intensity_threshold};
-  scan_matcher_3d_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(
-      hg, hc, lg, lc, rows, (const float*)x0, (const float*)target_t, translation_weight,
-      rotation_weight, only_optimize_yaw, num_iterations, nonmonotonic, function_tolerance,
-      (float*)x_out, (float*)cost_out, (int*)iterations_out);
+  void (*kernel)(Grid, Cloud, Grid, Cloud, Intensity, const float*, const float*, float, float,
+                 int, int, int, float, float*, float*, int*) = scan_matcher_3d_kernel;
+  static int configured = -1;  // the device on which the kernel may take 16 blocks a cluster
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess && device != configured) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err == cudaSuccess) configured = device;
+  }
+  if (err != cudaSuccess) return (int)err;
+  const unsigned int blocks = (unsigned int)cluster_blocks((long long)num_high + num_low);
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(blocks, 1, 1);
+  config.blockDim = dim3(kThreads, 1, 1);
+  config.dynamicSmemBytes = 0;
+  config.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attribute[1];
+  attribute[0].id = cudaLaunchAttributeClusterDimension;
+  attribute[0].val.clusterDim.x = blocks;
+  attribute[0].val.clusterDim.y = 1;
+  attribute[0].val.clusterDim.z = 1;
+  config.attrs = attribute;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, kernel, hg, hc, lg, lc, rows, (const float*)x0,
+                           (const float*)target_t, translation_weight, rotation_weight,
+                           only_optimize_yaw, num_iterations, nonmonotonic, function_tolerance,
+                           (float*)x_out, (float*)cost_out, (int*)iterations_out);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -4,10 +4,10 @@ Counterpart of the JAX package's `mapping/constraint_builder_2d.py`
 (constraint_builder_2d.cc) on one device: gated and sampled (node, submap)
 requests, a per-submap cache of the precomputation pyramid (K6), the
 branch-and-bound match (K7) followed by a Gauss-Newton refine (K3), and an
-INTER_SUBMAP constraint for every match above `min_score`. Local requests of
-a batch run back to back on the device and their results come back in one
+INTER_SUBMAP constraint for every match above `min_score`. The local
+requests of a batch are one BnB launch and their results come back in one
 blocking copy; full-submap (global) requests widen their beam in waves until
-each result is certified, one blocking copy per wave.
+each result is certified, one BnB launch and one blocking copy per wave.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ from cartographer_tpu_torch.mapping.id import NodeId, SubmapId
 from cartographer_tpu_torch.ops.bnb_2d import (
     FastCorrelativeMatcherParams2D,
     build_precomputation_pyramid,
-    fast_correlative_match_2d,
+    fast_correlative_match_2d_batch,
     full_submap_window,
     grid_center_pose,
 )
@@ -211,20 +211,18 @@ class ConstraintBuilder2D:
         return refined
 
     def _raw_local(self, group: List[MatchRequest]) -> torch.Tensor:
-        """(B, 4) device rows for local requests: BnB over the configured
-        window, then the GN refine of its pose. The inputs go up in one copy
-        and the rows come back in one."""
+        """(B, 4) device rows for local requests: one BnB launch for the
+        group over the configured window, then the GN refine of each pose.
+        The inputs go up in one copy and the rows come back in one."""
         pts, mask = _pow2_points([r.points for r in group])
         pts_d = to_device(pts, self._device)
         mask_d = to_device(mask, self._device)
         inits = to_device(np.stack([r.init for r in group]).astype(np.float32), self._device)
-        rows = []
-        for i, r in enumerate(group):
-            pyramid = self._pyramid_for(r.submap_id, r.grid)
-            out = fast_correlative_match_2d(pyramid, r.grid, pts_d[i], mask_d[i], inits[i],
-                                            self._bnb_params, min_score=0.0)
-            refined = self._refine(r.grid, pts_d[i], mask_d[i], out[1:4])
-            rows.append(torch.cat([out[0:1], refined]))
+        out = fast_correlative_match_2d_batch(
+            [self._pyramid_for(r.submap_id, r.grid) for r in group], [r.grid for r in group],
+            pts_d, mask_d, inits, self._bnb_params, min_score=0.0)
+        rows = [torch.cat([out[i, 0:1], self._refine(r.grid, pts_d[i], mask_d[i], out[i, 1:4])])
+                for i, r in enumerate(group)]
         return torch.stack(rows)
 
     def _raw_globals(self, reqs: List[MatchRequest]) -> np.ndarray:
@@ -238,6 +236,12 @@ class ConstraintBuilder2D:
         clouds = [_pow2_points([r.points]) for r in reqs]
         pts_d = [to_device(p[0], self._device) for p, _ in clouds]
         mask_d = [to_device(m[0], self._device) for _, m in clouds]
+        # The waves' BnB takes every request's cloud padded to one size
+        # (padding adds masked zeros, which change no score).
+        all_pts, all_mask = _pow2_points([r.points for r in reqs])
+        all_pts_d = to_device(all_pts, self._device)
+        all_mask_d = to_device(all_mask, self._device)
+        inits = torch.stack([grid_center_pose(r.grid) for r in reqs])
         n = len(reqs)
         scores = np.zeros(n, np.float32)
         poses: List[Optional[torch.Tensor]] = [None] * n
@@ -248,14 +252,12 @@ class ConstraintBuilder2D:
         certified, beams = [False] * n, [0] * n
         while alive:
             params = dataclasses.replace(self._bnb_params, beam_width=beam)
-            wave = []
-            for i in alive:
-                r = reqs[i]
-                wave.append(fast_correlative_match_2d(
-                    self._pyramid_for(r.submap_id, r.grid), r.grid, pts_d[i], mask_d[i],
-                    grid_center_pose(r.grid), params, min_score,
-                    linear_window_override=full_submap_window(r.grid)))
-            flat = torch.stack([w[[0, 5]] for w in wave]).cpu().numpy()  # one copy per round
+            wave = fast_correlative_match_2d_batch(  # one launch per wave
+                [self._pyramid_for(reqs[i].submap_id, reqs[i].grid) for i in alive],
+                [reqs[i].grid for i in alive], all_pts_d[alive], all_mask_d[alive],
+                inits[alive], params, min_score,
+                [full_submap_window(reqs[i].grid) for i in alive])
+            flat = wave[:, [0, 5]].cpu().numpy()  # one copy per round
             nxt = []
             for i, w, row in zip(alive, wave, flat):
                 if row[1] >= 0.5 or beam >= _MAX_GLOBAL_BEAM:

@@ -21,7 +21,11 @@ on the card, at full width (the reference's default 2D and 3D options):
    least 100 loop closures and 3 solves, optimized poses within 0.25 m of
    the truth and no worse than the frontend's; the first loop-closure pairs
    again on the CPU's plain path; one 50-iteration K8 solve of the run's
-   last problem by CUDA events; one certified global localization;
+   last problem by CUDA events; one certified global localization; then
+   K7 (the whole beam descent of a group of pairs in one launch) on the
+   run's largest group of local requests and on its global localization's
+   full-submap wave, every row equal to the twin's bit for bit, one descent
+   kernel a group and a wave (captured CUDA graphs), the group's times;
 5. the 3D frontend, `LocalTrajectoryBuilder3D`, over 400 simulated scans of
    a 16-ring sensor with an IMU in the same floor plan extruded to a hall
    (paged submaps, dense crops of 256^3 and 192^3 per scan): K2 and K9-K12
@@ -155,6 +159,7 @@ CPU_SCANS = 50
 PROFILED_SCANS = 30
 GLOBAL_SCANS = 900  # three laps of the floor plan's path
 CPU_PAIRS = 3
+GROUP_PAIRS = 32  # K7 is held on the first pairs of the 2D global run's largest group
 REFINE_EVERY = 150  # the TSDF global run's loop-closure refines held against the twin
 TSDF_REPEAT_SCANS = 100  # the TSDF frontend's first scans, run again in a fresh builder
 # Cross-robot batched serving (phase 23) at bench.py's shape.
@@ -198,7 +203,7 @@ NUM_SCANS_3D = 400  # one submap finishes at 320 insertions
 CPU_SCANS_3D = 20
 TIME_OFFSET_US = 10_000_000  # the simulated IMU starts before t = 0
 KERNELS_2D = ("scan_preprocess_2d", "voxel_filter", "scan_matcher_2d", "insert_2d",
-              "correlative_2d", "bnb_pyramid", "bnb_score", "schur_spa_2d")
+              "correlative_2d", "bnb_pyramid", "bnb_descent", "schur_spa_2d")
 KERNELS_3D = ("voxel_filter", "paged_insert_3d", "paged_crop_3d", "scan_matcher_3d",
               "rot_histogram", "rot_histogram_rotate")
 GLOBAL_SCANS_3D = 700  # three laps of the half-scale hall
@@ -212,7 +217,7 @@ KERNELS_3D_GLOBAL = KERNELS_3D + ("rot_match", "bnb3d_stack", "bnb3d_discretize"
 YAW_SEEDS = (1, 2)  # the full frontend's phase again over these seeds' scans
 TSDF_FRONTEND_KERNELS = ("scan_preprocess_2d", "voxel_filter", "correlative_2d_tsdf",
                          "lm_match_tsdf_2d", "tsdf_normals_2d", "tsdf_insert_2d")
-TSDF_KERNELS = TSDF_FRONTEND_KERNELS + ("bnb_pyramid_tsdf", "bnb_score",
+TSDF_KERNELS = TSDF_FRONTEND_KERNELS + ("bnb_pyramid_tsdf", "bnb_descent",
                                         "scan_matcher_2d_tsdf", "schur_spa_2d")
 TSDF_ERROR_LIMIT = 0.25  # m, the TSDF frontend's mean error (see PERF.md, PR 6)
 TSDF_GLOBAL_LIMITS = (100, 3, 0.25)  # loop closures, solves, optimized mean error [m]
@@ -226,7 +231,7 @@ RAISED_3D = {"tpu.filtered_capacity_high": 4096}
 RAISED_SCANS = 40
 RAISED_BEAMS_2D = 16384
 # The sizes each kernel is held at: its former limit first, then above it.
-ABOVE_ONE_BLOCK = {"correlative_2d": (4096, 8192, 16384), "bnb_score": (1024, 2048, 4096),
+ABOVE_ONE_BLOCK = {"correlative_2d": (4096, 8192, 16384), "bnb_descent": (1024, 2048, 4096),
                    "rot_histogram": ((1024, 120), (2048, 120), (8192, 120), (2048, 2048)),
                    "rot_match": (1024, 2048), "correlative_3d": (2048, 4096, 8192)}
 K16_CAPACITY = (64, 4096, 16384)  # reduced slots, nodes, binary terms
@@ -846,7 +851,8 @@ def _backend_kernel_phase(torch, dev, ctx, run):
                                      for h, x in enumerate(padded)]))
 
     # K7: one loop-closure pair at the default options, a node of the
-    # frontend run whose cloud lies in the finished submap.
+    # frontend run whose cloud lies in the finished submap (the group of
+    # one); the row comes from the global run's own groups (_descent_phase).
     cb = ConstraintBuilderOptions()
     fc = cb.fast_correlative_scan_matcher
     bparams = bnb_2d.FastCorrelativeMatcherParams2D(
@@ -859,40 +865,12 @@ def _backend_kernel_phase(torch, dev, ctx, run):
         node.time, node.gravity_alignment, None, node.local_pose_translation,
         node.local_pose_rotation))
     init = t(pose2d.astype(np.float32) + np.float32([0.4, -0.3, 0.05]))
-    calls = []
-
-    def recorded(*a):
-        calls.append(a)
-        return bnb_2d.score_candidates(*a)
-
-    out_k = bnb_2d.fast_correlative_match_2d(pyr, submap_grid, pts, mask, init, bparams, 0.0,
-                                             score=recorded)
-    out_p = bnb_2d.fast_correlative_match_2d(pyr, submap_grid, pts, mask, init, bparams, 0.0,
-                                             score=bnb_2d.score_candidates_plain)
-    err = float((out_k[0] - out_p[0]).abs())
-    if err > 1e-5 or not torch.equal(out_k[4:], out_p[4:]):
-        _fail(f"K7 match differs from the plain twin: {out_k} vs {out_p}")
-    print(f"K7 bnb_score: score {float(out_k[0]):.4f} err {err:.3g} (tolerance 1e-5), found "
-          f"and certificate equal ({bool(out_k[4])}, {bool(out_k[5])}), {len(calls)} launches, "
-          f"{sum(c[3].shape[0] for c in calls)} candidates")
-    lins, gathers = [], 0
-    valid = int(mask.sum())
-    for h, (level, cells_, mask_, a, ox, oy) in enumerate(calls):
-        cx = cells_[a.long()][:, mask_, 0] + ox[:, None]
-        cy = cells_[a.long()][:, mask_, 1] + oy[:, None]
-        inside = (cx >= 0) & (cx < size) & (cy >= 0) & (cy < size)
-        lins.append((cx * size + cy + h * size * size)[inside])
-        gathers += a.shape[0] * valid
-    cand = sum(c[3].shape[0] for c in calls)
-    sorts = [bnb_2d.score_candidates(*c) for c in calls]  # the beam's selection sorts these
-    rows["bnb_score"] = dict(
-        replaces="cartographer_tpu/ops/bnb_2d.py:81", max_abs_err=err,
-        ms=_cuda_ms(lambda: [bnb_2d.score_candidates(*c) for c in calls]),
-        plain_ms=_cuda_ms(lambda: [bnb_2d.score_candidates_plain(*c) for c in calls], reps=5),
-        bound=_bound(_distinct_cells(torch, lins) * 4 + calls[0][1].numel() * 4 + cand * 16,
-                     gathers * 10),
-        library_ms=_cuda_ms(lambda: [torch.sort(x, descending=True, stable=True)
-                                     for x in sorts]))
+    out_k = bnb_2d.fast_correlative_match_2d(pyr, submap_grid, pts, mask, init, bparams, 0.0)
+    out_p = bnb_2d.match_plain(pyr, submap_grid, pts, mask, init, bparams, 0.0)
+    if not torch.equal(out_k, out_p):
+        _fail(f"K7 match differs from the plain twin: {out_k} vs {out_p} (tolerance: exact)")
+    print(f"K7 bnb_descent: one pair's row equal to the plain twin's (exact): score "
+          f"{float(out_k[0]):.4f}, found and certificate ({bool(out_k[4])}, {bool(out_k[5])})")
     extra["bnb_match_ms"] = _cuda_ms(lambda: bnb_2d.fast_correlative_match_2d(
         pyr, submap_grid, pts, mask, init, bparams, 0.0), reps=10)
 
@@ -982,11 +960,15 @@ def _schur_2d_timing(torch, dev, q, hs):
 
 
 def _global_phase(torch, dev, grid_type="PROBABILITY_GRID", kernels=KERNELS_2D,
-                  limits=(100, 3, 0.25), localize=True, label="global", refines=None):
+                  limits=(100, 3, 0.25), localize=True, label="global", refines=None,
+                  groups=None):
     """Global SLAM through MapBuilder on the card over three laps, on
     submaps of `grid_type`; `limits` are the least loop closures and solves
     and the largest mean error of the optimized poses. The arguments of
-    every REFINE_EVERY-th loop-closure refine go into `refines` if given."""
+    every REFINE_EVERY-th loop-closure refine go into `refines` if given;
+    `groups`, if given, gets the run's largest group of local requests, the
+    global localization's request and the beam that certified it, and the
+    constraint builder (for _descent_phase)."""
     from cartographer_tpu_torch.core.config import MapBuilderOptions, TrajectoryBuilderOptions
     from cartographer_tpu_torch.mapping import constraint_builder_2d, pose_graph_2d
     from cartographer_tpu_torch.mapping.constraint_builder_2d import _pow2_points
@@ -1006,6 +988,9 @@ def _global_phase(torch, dev, grid_type="PROBABILITY_GRID", kernels=KERNELS_2D,
 
     def recording(requests):
         recorded.extend(r for r in requests if not r.match_full and len(recorded) < CPU_PAIRS)
+        local = [r for r in requests if not r.match_full and len(r.points) > 0]
+        if groups is not None and len(local) > len(groups.get("local", ())):
+            groups["local"] = local
         return compute(requests)
 
     cb.compute_constraints = recording
@@ -1113,6 +1098,10 @@ def _global_phase(torch, dev, grid_type="PROBABILITY_GRID", kernels=KERNELS_2D,
                                                      NodeId(*nid), node.filtered_points)])[0]
     loc_s = time.monotonic() - t0
     certified, beam = cb.last_global_certified[0], cb.last_global_beams[0]
+    if groups is not None:
+        groups.update(builder=cb, global_request=cb.begin_global_constraint(
+            SubmapId(*sid), entry.submap.grid, NodeId(*nid), node.filtered_points),
+            global_beam=beam)
     loc_err = float(np.linalg.norm(row[1:3] - gt[index[nid], :2]))
     print(f"global localization: node {nid} (scan {index[nid]}) in submap {sid}: score "
           f"{row[0]:.4f}, certified {certified} at beam {beam}, {loc_err:.4f} m from the truth "
@@ -1121,6 +1110,128 @@ def _global_phase(torch, dev, grid_type="PROBABILITY_GRID", kernels=KERNELS_2D,
         _fail("global localization did not come back certified within 0.1 m")
     return dict(summary, global_localization_error_m=loc_err,
                 global_localization_seconds=loc_s, global_localization_beam=beam)
+
+
+def _descent_work(torch, pairs, params, min_score):
+    """(bytes, operations, the levels' score lists) of K7's descent on
+    `pairs` [(pyramid, grid, points, mask, start pose, window)], counted on
+    the twin's own live candidates: each level cell they touch read once,
+    each pair's cells at every angle and its mask read once, its row
+    written; 10 operations a gathered point and one a candidate a level
+    for its selection. The score lists (each level's, -inf for the dead
+    candidates) are what the twin sorts."""
+    from cartographer_tpu_torch.ops import bnb_2d
+
+    calls, lists, seen = [], [], {}
+    distinct = torch.zeros(0, dtype=torch.int64, device=pairs[0][2].device)
+    nbytes = ops = 0
+
+    def recorded(level, cells, mask, a_idx, ox, oy):
+        out = bnb_2d.score_candidates_plain(level, cells, mask, a_idx, ox, oy)
+        calls.append((level, cells, mask, a_idx, ox, oy, out))
+        return out
+
+    for pyr, grid, pts, mask, init, window in pairs:
+        calls.clear()
+        bnb_2d.match_plain(pyr, grid, pts, mask, init, params, min_score,
+                           linear_window_override=window, score=recorded)
+        depth, size = pyr.shape[0], grid.size
+        key = seen.setdefault(pyr.data_ptr(), len(seen))
+        nbytes += calls[0][1].numel() * 4 + mask.numel() + 24
+        top = calls[0][1].shape[0] * bnb_2d._num_off(window, grid.resolution, depth) ** 2
+        for j, (level, cells, m, a, ox, oy, out) in enumerate(calls):
+            h = depth - 1 - j
+            cx = cells[a.long()][:, m, 0] + ox[:, None]
+            cy = cells[a.long()][:, m, 1] + oy[:, None]
+            inside = (cx >= 0) & (cx < size) & (cy >= 0) & (cy < size)
+            lin = (cx * size + cy)[inside].long() + (key * depth + h) * size * size
+            distinct = torch.unique(torch.cat([distinct, torch.unique(lin)]))
+            total = top if j == 0 else 4 * params.beam_width
+            ops += a.shape[0] * int(m.sum()) * 10 + total
+            lists.append(torch.cat([out, torch.full((total - out.shape[0],), -float("inf"),
+                                                    device=out.device)]))
+    return nbytes + int(distinct.numel()) * 4, ops, lists
+
+
+def _descent_phase(torch, dev, groups):
+    """K7 on the first GROUP_PAIRS pairs of the 2D global run's own largest
+    group of local requests and on its global localization's full-submap
+    wave (at the beam that certified it): every row equal to the twin's
+    (exact), one descent kernel a group (a captured CUDA graph) and the
+    group's kernels with its torch glue; the group's device time (the
+    kernel, and the whole call), its wall time by CUDA events, the twin's
+    time, the bound and the stable sorts."""
+    import dataclasses
+
+    from cartographer_tpu_torch.mapping.constraint_builder_2d import _pow2_points
+    from cartographer_tpu_torch.ops import bnb_2d
+
+    cb, group = groups["builder"], groups["local"][:GROUP_PAIRS]
+    params = cb._bnb_params
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    pts, mask = (t(a) for a in _pow2_points([r.points for r in group]))
+    inits = t(np.stack([r.init for r in group]).astype(np.float32))
+    pyrs = [cb._pyramid_for(r.submap_id, r.grid) for r in group]
+    grids = [r.grid for r in group]
+    windows = [params.linear_search_window] * len(group)
+    call = lambda: bnb_2d.fast_correlative_match_2d_batch(  # noqa: E731
+        pyrs, grids, pts, mask, inits, params, 0.0)
+    rows_k = call()
+    for b in range(len(group)):
+        ref = bnb_2d.match_plain(pyrs[b], grids[b], pts[b], mask[b], inits[b], params, 0.0)
+        if not torch.equal(rows_k[b], ref):
+            _fail(f"K7: pair {b} of the global run's group differs from the twin: "
+                  f"{rows_k[b]} vs {ref} (tolerance: exact)")
+    d = bnb_2d.descent_inputs(pyrs, grids, pts, mask, inits, params, windows)
+    launch = lambda: bnb_2d.descent_launch(d, params.beam_width, 0.0)  # noqa: E731
+    kernels = _graph_kernels(launch, "K7 group")
+    with_glue = _graph_kernels(call, "K7 group with its glue")
+    if kernels != 1:
+        _fail(f"K7: {kernels} kernels a group (the source states 1)")
+    # The full-submap wave of the run's global localization.
+    req, beam = groups["global_request"], groups["global_beam"]
+    wparams = dataclasses.replace(params, beam_width=beam)
+    wpts, wmask = (t(a) for a in _pow2_points([req.points]))
+    wpyr = cb._pyramid_for(req.submap_id, req.grid)
+    wargs = ([wpyr], [req.grid], wpts, wmask, bnb_2d.grid_center_pose(req.grid)[None], wparams,
+             cb._options.global_localization_min_score, [bnb_2d.full_submap_window(req.grid)])
+    wave = bnb_2d.fast_correlative_match_2d_batch(*wargs)
+    wref = bnb_2d.match_plain(wpyr, req.grid, wpts[0], wmask[0], wargs[4][0], wparams,
+                              wargs[6], linear_window_override=wargs[7][0])
+    if not torch.equal(wave[0], wref):
+        _fail(f"K7: the full-submap wave differs from the twin: {wave[0]} vs {wref}")
+    wd = bnb_2d.descent_inputs(*wargs[:6], wargs[7])
+    wave_kernels = _graph_kernels(lambda: bnb_2d.descent_launch(wd, beam, wargs[6]),
+                                  "K7 full-submap wave")
+    if wave_kernels != 1:
+        _fail(f"K7: {wave_kernels} kernels a full-submap wave (the source states 1)")
+    nbytes, ops, lists = _descent_work(
+        torch, [(pyrs[b], grids[b], pts[b], mask[b], inits[b], windows[b])
+                for b in range(len(group))], params, 0.0)
+    ms = _cuda_ms(launch, reps=10)
+    group_ms = _cuda_ms(call, reps=10)
+    group_event_ms = _event_ms(call, reps=10)
+    wave_ms = _event_ms(lambda: bnb_2d.fast_correlative_match_2d_batch(*wargs), reps=5)
+    plain_ms = _cuda_ms(lambda: [bnb_2d.match_plain(pyrs[b], grids[b], pts[b], mask[b],
+                                                    inits[b], params, 0.0)
+                                 for b in range(len(group))], reps=2, warmup=1)
+    library_ms = _cuda_ms(lambda: [torch.sort(x, descending=True, stable=True)
+                                   for x in lists], reps=5)
+    bound = _bound(nbytes, ops)
+    n = len(group)
+    print(f"K7 bnb_descent: the global run's largest group, {n} pairs, every row equal to the "
+          f"twin's (exact), {int(rows_k[:, 4].sum())} found; the full-submap wave at beam "
+          f"{beam} equal (exact); {kernels} kernel a group ({with_glue} with the glue), "
+          f"{wave_kernels} a wave; the kernel {ms:.4f} ms a group ({ms / n:.4f} a pair), the "
+          f"whole call {group_ms:.4f} device ms, {group_event_ms:.4f} ms by CUDA events, the "
+          f"wave {wave_ms:.4f} ms by events; the twin {plain_ms:.2f} ms, the sorts "
+          f"{library_ms:.4f} ms; bound {bound[0]:.3g} ms ({bound[1]})")
+    return {"bnb_descent": dict(
+        replaces="cartographer_tpu/ops/bnb_2d.py:101", max_abs_err=0.0, ms=ms,
+        plain_ms=plain_ms, bound=bound, library_ms=library_ms, pairs=n,
+        kernels_per_group=kernels, kernels_per_group_with_glue=with_glue,
+        group_device_ms=group_ms, group_event_ms=group_event_ms, wave_beam=beam,
+        wave_event_ms=wave_ms)}
 
 
 def _defined_normals(pts, mask, origin):
@@ -1685,7 +1796,7 @@ def _kernel_phase_3d(torch, dev, builder, last_step):
           f"(plain {int(itp)}), moved {moved:.4f} m")
     if err_t > 1e-4 or err_r > 1e-4 or rel_cost > 1e-4 or not moved > 1e-3:
         _fail("K11 differs from the plain twin")
-    passes = 1 + 2 * iters
+    passes = 1 + iters  # one pass an LM iteration and one at the start
     rows["scan_matcher_3d"] = dict(
         replaces="cartographer_tpu/ops/scan_matcher_3d.py:61", max_abs_err=max(err_t, err_r),
         ms=_cuda_ms(lambda: scan_matcher_3d.lm_match_3d(*margs)),
@@ -2046,7 +2157,7 @@ def _kernel_phase_3d_full(torch, dev, builder, kept):
           f"rel err {rel_cost:.3g} (rtol 1e-4), {iters} iterations (plain {int(itp)})")
     if err_t > 1e-4 or err_r > 1e-4 or rel_cost > 1e-4:
         _fail("K11 with intensity rows differs from the plain twin")
-    passes = 1 + 2 * iters
+    passes = 1 + iters  # one pass an LM iteration and one at the start
     rows["scan_matcher_3d_intensity"] = dict(
         symbol="scan_matcher_3d", replaces="cartographer_tpu/ops/scan_matcher_3d.py:93",
         max_abs_err=max(err_t, err_r),
@@ -2664,7 +2775,7 @@ def _one_block_limits_phase(torch, dev):
     # (the former limit), 8,192 and 16,384 points.
     grid, _, _, x0, cparams = calls[-1]
     raw = scans[-1][1][:, :2]
-    rows = {"correlative_2d": [], "bnb_score": [], "rot_histogram": [], "rot_match": [],
+    rows = {"correlative_2d": [], "bnb_descent": [], "rot_histogram": [], "rot_match": [],
             "correlative_3d": []}
     for n in ABOVE_ONE_BLOCK["correlative_2d"]:
         pts, mask = t(raw[:n]), t(np.isfinite(raw[:n]).all(1) & (np.abs(raw[:n]).max(1) < 29))
@@ -2683,34 +2794,23 @@ def _one_block_limits_phase(torch, dev):
                                                             grid.size ** 2) * 5,
                          angles * w * w * valid * 14),
             max_abs_err=0.0), n))
-    # K7 on the pyramid of that grid: the scan's cells at 31 angles, 4,096
-    # candidates, levels 0, 3 and 6, at 1,024 (the former limit), 2,048 and
-    # 4,096 points.
+    # K7 on the pyramid of that grid: a pair's descent (a 1 m and 10 degree
+    # window, beam 512) of the scan's first n returns at 1,024 (the former
+    # limit), 2,048 and 4,096 points.
     pyr = bnb_2d.build_precomputation_pyramid(grid, 7)
     rng = np.random.RandomState(7)
-    for n in ABOVE_ONE_BLOCK["bnb_score"]:
+    bparams = bnb_2d.FastCorrelativeMatcherParams2D(1.0, np.radians(10.0), 7, 512, 30.0)
+    for n in ABOVE_ONE_BLOCK["bnb_descent"]:
         pts, mask = t(raw[:n]), t(np.isfinite(raw[:n]).all(1) & (np.abs(raw[:n]).max(1) < 29))
-        _, _, cells = correlative_2d.candidate_cells(grid, pts, mask, x0, 31, 0.5)
-        cells = cells.to(torch.int32).contiguous()
-        b = 4096
-        a_idx, ox, oy = (t(rng.randint(lo, hi, b).astype(np.int32))
-                         for lo, hi in ((0, 31), (-64, 64), (-64, 64)))
-        for h in (0, 3, 6):
-            got = bnb_2d.score_candidates(pyr[h], cells, mask, a_idx, ox, oy)
-            if not torch.equal(got, bnb_2d.score_candidates_plain(pyr[h], cells, mask, a_idx,
-                                                                  ox, oy)):
-                _fail(f"K7 at {n} points differs from the twin on level {h} (exact)")
-        sargs = (pyr[3], cells, mask, a_idx, ox, oy)
-        valid = int(mask.sum())
-        cx = cells[a_idx.long()][:, mask, 0] + ox[:, None]
-        cy = cells[a_idx.long()][:, mask, 1] + oy[:, None]
-        inside = (cx >= 0) & (cx < grid.size) & (cy >= 0) & (cy < grid.size)
-        rows["bnb_score"].append(_sizes_row(dict(
-            ms=_cuda_ms(lambda: bnb_2d.score_candidates(*sargs)),
-            plain_ms=_cuda_ms(lambda: bnb_2d.score_candidates_plain(*sargs)),
-            bound=_bound(_distinct_cells(torch, [(cx * grid.size + cy)[inside]]) * 4
-                         + cells.numel() * 4 + b * 16, b * valid * 10),
-            max_abs_err=0.0), n, candidates=b))
+        dargs = (pyr, grid, pts, mask, x0, bparams, 0.0)
+        got = bnb_2d.fast_correlative_match_2d(*dargs)
+        if not torch.equal(got, bnb_2d.match_plain(*dargs)):
+            _fail(f"K7 at {n} points differs from the twin (exact)")
+        nbytes, ops, _ = _descent_work(torch, [(pyr, grid, pts, mask, x0, 1.0)], bparams, 0.0)
+        rows["bnb_descent"].append(_sizes_row(dict(
+            ms=_cuda_ms(lambda: bnb_2d.fast_correlative_match_2d(*dargs)),
+            plain_ms=_cuda_ms(lambda: bnb_2d.match_plain(*dargs), reps=3, warmup=1),
+            bound=_bound(nbytes, ops), max_abs_err=0.0), n, beam=512))
     del builder, calls, pyr
 
     # The 3D frontend at its full options with the high-resolution cloud at
@@ -3077,16 +3177,16 @@ def _scan_match_phase(torch, dev):
         num_iterations=args["max_iterations"], translation_weight=0.1, rotation_weight=1.0)
     margs = (*grids, src, sm, src, sm, x0, x0[0:3].clone(), params)
     xk, ck, itk = scan_matcher_3d.lm_match_3d(*margs)
-    xp, cp, _ = scan_matcher_3d._match_plain(*margs)
+    xp, cp, itp = scan_matcher_3d._match_plain(*margs)
     dq = quat.multiply(quat.conjugate(xp[3:7]), xk[3:7])
     k11_err = (float((xk[0:3] - xp[0:3]).abs().max()), float(quat.to_axis_angle(dq).norm()))
     print(f"K11 scan_matcher_3d on the ceres mode's grids, 2 x {n} points: {int(itk)} "
-          f"iterations, pose within {k11_err[0]:.3g} m, {k11_err[1]:.3g} rad of its twin on the "
-          f"card (tolerance 1e-4 each)")
+          f"iterations (the twin {int(itp)}), pose within {k11_err[0]:.3g} m, {k11_err[1]:.3g} "
+          f"rad of its twin on the card (tolerance 1e-4 each)")
     if max(k11_err) > 1e-4:
         _fail("K11 on the ceres mode's inputs differs from its twin")
     out["scan_matcher_3d_at_ceres"] = dict(
-        iterations=int(itk), against_twin=list(k11_err),
+        iterations=int(itk), twin_iterations=int(itp), against_twin=list(k11_err),
         ms=_cuda_ms(lambda: scan_matcher_3d.lm_match_3d(*margs), reps=5, warmup=1),
         plain_ms=_cuda_ms(lambda: scan_matcher_3d._match_plain(*margs), reps=1, warmup=0))
     out["kernels"] = {k: {"ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
@@ -4541,7 +4641,10 @@ def main() -> int:
     run = _clocked(seconds, 2, _slice_phase, torch, dev)
     backend_rows, backend = _clocked(seconds, 3, _backend_kernel_phase, torch, dev, ctx, run)
     rows.update(backend_rows)
-    slam = _clocked(seconds, 4, _global_phase, torch, dev)
+    groups = {}
+    slam = _clocked(seconds, 4, _global_phase, torch, dev, groups=groups)
+    rows.update(_clocked(seconds, "4, K7", _descent_phase, torch, dev, groups))
+    del groups
     map_2d = slam.pop("map_builder")  # phase 22 saves and reloads its map
     for key in ("submap", "nodes", "builder", "kept"):
         del run[key]

@@ -43,15 +43,23 @@ def main(label):
     out["K5 correlative_2d (512 points)"] = cs._cuda_ms(
         lambda: correlative_2d.real_time_correlative_match(*a5), reps=200)
     pyr = bnb_2d.build_precomputation_pyramid(grid, 7)
-    rng = np.random.RandomState(4)
-    n, b = 128, 5000
-    cells = t._t(rng.randint(-20, t.SIZE + 20, (31, n, 2)).astype(np.int32), dev)
-    mask = t._t(rng.rand(n) < 0.8, dev)
-    a7 = (pyr[3], cells, mask, t._t(rng.randint(0, 31, b).astype(np.int32), dev),
-          t._t(rng.randint(-64, 64, b).astype(np.int32), dev),
-          t._t(rng.randint(-64, 64, b).astype(np.int32), dev))
-    out["K7 bnb_score (128 points, 5,000 candidates)"] = cs._cuda_ms(
-        lambda: bnb_2d.score_candidates(*a7), reps=200)
+    x7 = t._t(np.float32([0.3, -0.2, 0.05]), dev)
+    p7 = bnb_2d.FastCorrelativeMatcherParams2D(linear_search_window=2.0, beam_width=512,
+                                               max_scan_range=12.0)
+    if hasattr(bnb_2d, "fast_correlative_match_2d_batch"):  # the descent in one launch
+        a7 = (pyr, grid, rd.returns.points[:128], rd.returns.mask[:128], x7, p7, 0.3)
+        out["K7 bnb_descent (128 points, beam 512, one pair)"] = cs._cuda_ms(
+            lambda: bnb_2d.fast_correlative_match_2d(*a7), reps=200)
+    else:
+        rng = np.random.RandomState(4)
+        n, b = 128, 5000
+        cells = t._t(rng.randint(-20, t.SIZE + 20, (31, n, 2)).astype(np.int32), dev)
+        mask = t._t(rng.rand(n) < 0.8, dev)
+        a7 = (pyr[3], cells, mask, t._t(rng.randint(0, 31, b).astype(np.int32), dev),
+              t._t(rng.randint(-64, 64, b).astype(np.int32), dev),
+              t._t(rng.randint(-64, 64, b).astype(np.int32), dev))
+        out["K7 bnb_score (128 points, 5,000 candidates)"] = cs._cuda_ms(
+            lambda: bnb_2d.score_candidates(*a7), reps=200)
     rng = np.random.RandomState(512)
     pts, m = t._hall_scan(rng, np.zeros(3, np.float32), 512)
     pts, m = t._t(pts, dev), t._t(m, dev)

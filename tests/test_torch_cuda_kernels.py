@@ -146,26 +146,70 @@ def test_bnb_kernels(dev):
     grid, rd = _card_grid(dev)
     pyr = bnb_2d.build_precomputation_pyramid(grid, 7)
     assert torch.equal(pyr, bnb_2d.pyramid_plain(grid, 7))
-    rng = np.random.RandomState(4)
-    n = 128
-    cells = _t(rng.randint(-20, SIZE + 20, (31, n, 2)).astype(np.int32), dev)
-    mask = _t(rng.rand(n) < 0.8, dev)
-    b = 5000
-    a_idx = _t(rng.randint(0, 31, b).astype(np.int32), dev)
-    ox = _t(rng.randint(-64, 64, b).astype(np.int32), dev)
-    oy = _t(rng.randint(-64, 64, b).astype(np.int32), dev)
-    for h in (0, 3, 6):
-        got = bnb_2d.score_candidates(pyr[h], cells, mask, a_idx, ox, oy)
-        ref = bnb_2d.score_candidates_plain(pyr[h], cells, mask, a_idx, ox, oy)
-        assert torch.equal(got, ref)
     params = bnb_2d.FastCorrelativeMatcherParams2D(linear_search_window=2.0, beam_width=512,
                                                    max_scan_range=12.0)
-    pts, m = rd.returns.points[:n], rd.returns.mask[:n]
+    pts, m = rd.returns.points[:128], rd.returns.mask[:128]
     x0 = _t(np.float32([0.3, -0.2, 0.05]), dev)
     out = bnb_2d.fast_correlative_match_2d(pyr, grid, pts, m, x0, params, 0.3)
-    ref = bnb_2d.fast_correlative_match_2d(pyr, grid, pts, m, x0, params, 0.3,
-                                           score=bnb_2d.score_candidates_plain)
+    ref = bnb_2d.match_plain(pyr, grid, pts, m, x0, params, 0.3)
     assert torch.equal(out, ref)
+
+
+def _bnb_group(dev, pairs, n, seed):
+    """A group of `pairs` (node, submap) pairs on three grids (the card grid,
+    one with a flat patch whose coarse levels tie, one with another origin),
+    each with its own cloud of n points (some masked) and start pose."""
+    from cartographer_tpu_torch.ops import bnb_2d
+
+    base, rd = _card_grid(dev)
+    log_odds, known = base.log_odds.clone(), base.known.clone()
+    log_odds[60:140, 100:180] = 2.0
+    known[60:140, 100:180] = True
+    grids = [base, Grid2D(log_odds, known, base.origin, base.resolution),
+             Grid2D(base.log_odds, base.known, base.origin + 0.37, base.resolution)]
+    pyramids = [bnb_2d.build_precomputation_pyramid(g, 7) for g in grids]
+    rng = np.random.RandomState(seed)
+    pts, mask, inits, gs, ps = [], [], [], [], []
+    src = rd.returns.points[rd.returns.mask].cpu().numpy()
+    for b in range(pairs):
+        k = b % 3
+        idx = rng.randint(0, len(src), n)
+        pts.append(src[idx] + rng.normal(0.0, 0.01, (n, 2)).astype(np.float32))
+        mask.append(rng.rand(n) < 0.9)
+        inits.append(np.float32([0.3 + 0.05 * rng.randn(), -0.2 + 0.05 * rng.randn(),
+                                 0.05 * rng.randn()]))
+        gs.append(grids[k])
+        ps.append(pyramids[k])
+    return (ps, gs, _t(np.stack(pts).astype(np.float32), dev), _t(np.stack(mask), dev),
+            _t(np.stack(inits), dev))
+
+
+@pytest.mark.parametrize("pairs", [1, 3, 17])
+@pytest.mark.parametrize("beam,n", [(4, 128), (512, 128), (4096, 128), (4096, 1024),
+                                    (65536, 128), (256, 4096)])
+def test_bnb_descent_kernel_groups(dev, pairs, beam, n):
+    """K7: every pair's row of a group's one launch equals the plain twin's
+    (stable torch.sort selections) bit for bit: score, pose, found and
+    certificate; beams 4 to 65,536 (the full-submap search's largest), 128
+    to 4,096 points, min_score pruning on; one kernel a group."""
+    from cartographer_tpu_torch.ops import bnb_2d
+
+    ps, gs, pts, mask, inits = _bnb_group(dev, pairs, n, seed=pairs * 7 + beam + n)
+    params = bnb_2d.FastCorrelativeMatcherParams2D(linear_search_window=1.5, beam_width=beam,
+                                                   max_scan_range=12.0)
+    windows = [1.5 if b % 2 else 3.0 for b in range(pairs)]
+    min_score = 0.3
+    rows = bnb_2d.fast_correlative_match_2d_batch(ps, gs, pts, mask, inits, params, min_score,
+                                                  windows)
+    for b in range(pairs):
+        ref = bnb_2d.match_plain(ps[b], gs[b], pts[b], mask[b], inits[b], params, min_score,
+                                 linear_window_override=windows[b])
+        assert torch.equal(rows[b], ref), (b, rows[b], ref)
+    again = bnb_2d.fast_correlative_match_2d_batch(ps, gs, pts, mask, inits, params, min_score,
+                                                   windows)
+    assert torch.equal(rows, again)
+    d = bnb_2d.descent_inputs(ps, gs, pts, mask, inits, params, windows)
+    assert _graph_kernels(lambda: bnb_2d.descent_launch(d, beam, min_score)) == 1
 
 
 def _spa_problem(dev):
@@ -373,6 +417,118 @@ def test_scan_matcher_3d_kernel(dev, yaw_only):
     torch.testing.assert_close(xk, xp, atol=1e-4, rtol=0)
     torch.testing.assert_close(ck, cp, atol=0, rtol=1e-4)
     assert int(itk) > 1 and float((xk[0:3] - x0[0:3]).norm()) > 1e-3  # it moved
+
+
+@pytest.mark.parametrize("nh,nl", [(127, 128), (128, 128), (128, 129), (512, 1024),
+                                   (2048, 2048), (2048, 2049), (32768, 32768)])
+@pytest.mark.parametrize("case", ["default", "yaw_only", "nonmonotonic", "intensities"])
+def test_scan_matcher_3d_kernel_sizes(dev, nh, nl, case):
+    """K11 on both sides of its block (256 rows) and cluster (16 blocks,
+    4,096 rows) limits up to the testbed's 2 x 32,768 points: within 1e-4 m,
+    1e-4 rad and 1e-4 of the cost of the twin, the same LM iterations, and
+    the same bits from call to call; with intensities, yaw-only and
+    non-monotonic steps."""
+    from cartographer_tpu_torch.ops import scan_matcher_3d
+
+    high, _ = _paged_pair(dev, 0.1)
+    low, _ = _paged_pair(dev, 0.3)
+    center = np.float32([0.3, 0.0, 0.0])
+    hg, lg = high.crop_dense(center, 96), low.crop_dense(center, 48)
+    rng = np.random.RandomState(nh + nl)
+    shift = np.float32([0.313, -0.079, 0.037])
+    hp, hm = _hall_scan(rng, shift, nh)
+    lp, lm = _hall_scan(rng, shift, nl)
+    x0 = _t(np.float32([0.05, -0.04, 0.02, np.cos(0.01), 0.0, 0.0, np.sin(0.01)]), dev)
+    kw = {"yaw_only": dict(only_optimize_yaw=True),
+          "nonmonotonic": dict(use_nonmonotonic_steps=True, num_iterations=20),
+          "intensities": dict(intensity_weight=0.5)}.get(case, {})
+    params = scan_matcher_3d.GaussNewtonMatcherParams3D(**kw)
+    extra = ()
+    if case == "intensities":
+        # The intensities the map holds under the points, plus noise: with
+        # intensities drawn at random the Huber clip makes a rough cost, on
+        # which the kernel's former two-pass form and the twin part by 1e-4 m
+        # too.
+        inten, _ = _intensity_pair(dev)
+        ig = inten.crop_dense(center, 96)
+        avg = ig.average()
+        cells = torch.floor((_t(hp, dev) - ig.origin) / ig.resolution).long().clamp(0, 95)
+        held = avg[cells[:, 0], cells[:, 1], cells[:, 2]]
+        extra = (ig, (held + _t(rng.normal(0.0, 0.5, nh).astype(np.float32), dev)).clamp(min=0))
+    args = (hg, lg, _t(hp - shift, dev), _t(hm, dev), _t(lp - shift, dev), _t(lm, dev), x0,
+            x0[0:3].clone(), params, *extra)
+    xk, ck, itk = scan_matcher_3d.lm_match_3d(*args)
+    xp, cp, itp = scan_matcher_3d._match_plain(*args)
+    torch.testing.assert_close(xk, xp, atol=1e-4, rtol=0)
+    torch.testing.assert_close(ck, cp, atol=0, rtol=1e-4)
+    assert int(itk) == int(itp)
+    xk2, ck2, itk2 = scan_matcher_3d.lm_match_3d(*args)
+    assert torch.equal(xk, xk2) and torch.equal(ck, ck2) and int(itk) == int(itk2)
+    assert _graph_kernels(lambda: scan_matcher_3d.lm_match_3d(*args)) == 1
+
+
+def _widened(v):
+    """v on the CPU with its float32 tensors (a grid's too) in float64."""
+    if isinstance(v, torch.Tensor):
+        v = v.cpu()
+        return v.double() if v.dtype == torch.float32 else v
+    if dataclasses.is_dataclass(v) and not isinstance(v, type):
+        tensors = {f.name: _widened(getattr(v, f.name)) for f in dataclasses.fields(v)
+                   if isinstance(getattr(v, f.name), torch.Tensor)}
+        return dataclasses.replace(v, **tensors) if tensors else v
+    return v
+
+
+def _float64_twin(args):
+    """K11's twin run in float64 on the CPU on lm_match_3d's arguments
+    widened: its pose, iterations, and the float64 cost as a function of a
+    pose."""
+    from cartographer_tpu_torch.ops import scan_matcher_3d
+
+    wide = tuple(_widened(a) for a in args)
+    saved = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        x, _, iterations = scan_matcher_3d._match_plain(*wide)
+    finally:
+        torch.set_default_dtype(saved)
+
+    def cost(pose):
+        r, _ = scan_matcher_3d.residuals_and_jacobian_3d(*wide[:6], _widened(pose), wide[7],
+                                                         wide[6][3:7], *wide[8:])
+        return float(0.5 * (r * r).sum())
+
+    return x, int(iterations), cost
+
+
+@pytest.mark.parametrize("nh,nl", [(127, 128), (128, 128), (512, 1024), (2048, 2048)])
+def test_scan_matcher_3d_kernel_random_intensities(dev, nh, nl):
+    """K11 with intensities drawn at random (a rough Huber cost, on which
+    float32 LM iterations part by rounding: at 512 + 1,024 points the float32
+    twin on the card took 12 iterations and ended 2.2e-4 m from the float64
+    twin, the kernel 7, as the float64 twin, and 1e-7 m from it): within
+    1e-5 of the twin run in float64 on the CPU, its float64 cost within 1e-6
+    of the float64 twin's."""
+    from cartographer_tpu_torch.ops import scan_matcher_3d
+
+    high, _ = _paged_pair(dev, 0.1)
+    low, _ = _paged_pair(dev, 0.3)
+    inten, _ = _intensity_pair(dev)
+    center = np.float32([0.3, 0.0, 0.0])
+    shift = np.float32([0.313, -0.079, 0.037])
+    rng = np.random.RandomState(nh + nl)
+    hp, hm = _hall_scan(rng, shift, nh)
+    lp, lm = _hall_scan(rng, shift, nl)
+    x0 = _t(np.float32([0.05, -0.04, 0.02, np.cos(0.01), 0.0, 0.0, np.sin(0.01)]), dev)
+    args = (high.crop_dense(center, 96), low.crop_dense(center, 48), _t(hp - shift, dev),
+            _t(hm, dev), _t(lp - shift, dev), _t(lm, dev), x0, x0[0:3].clone(),
+            scan_matcher_3d.GaussNewtonMatcherParams3D(intensity_weight=0.5),
+            inten.crop_dense(center, 96), _t((rng.rand(nh) * 50.0).astype(np.float32), dev))
+    xk, _, itk = scan_matcher_3d.lm_match_3d(*args)
+    xd, itd, cost = _float64_twin(args)
+    torch.testing.assert_close(_widened(xk), xd, atol=1e-5, rtol=0)
+    assert abs(cost(xk) - cost(xd)) <= 1e-6 * cost(xd)
+    assert int(itk) > 1 and itd > 1
 
 
 @pytest.mark.parametrize("n,bins", [(512, 120), (300, 120), (64, 60)])
@@ -759,21 +915,15 @@ def test_correlative_2d_kernel_large(dev, n):
 @pytest.mark.parametrize("n", [1024, 2048, 4096])
 def test_bnb_score_kernel_large(dev, n):
     """K7 at its former one-warp limit (1,024 points) and above it (the
-    fold), bit for bit against the twin on three pyramid levels."""
+    fold): a pair's descent bit for bit against the twin."""
     from cartographer_tpu_torch.ops import bnb_2d
 
-    grid, _ = _card_grid(dev)
-    pyr = bnb_2d.build_precomputation_pyramid(grid, 7)
-    rng = np.random.RandomState(n)
-    cells = _t(rng.randint(-20, SIZE + 20, (31, n, 2)).astype(np.int32), dev)
-    mask = _t(rng.rand(n) < 0.8, dev)
-    b = 5000
-    a_idx = _t(rng.randint(0, 31, b).astype(np.int32), dev)
-    ox = _t(rng.randint(-64, 64, b).astype(np.int32), dev)
-    oy = _t(rng.randint(-64, 64, b).astype(np.int32), dev)
-    for h in (0, 3, 6):
-        got = bnb_2d.score_candidates(pyr[h], cells, mask, a_idx, ox, oy)
-        assert torch.equal(got, bnb_2d.score_candidates_plain(pyr[h], cells, mask, a_idx, ox, oy))
+    ps, gs, pts, mask, inits = _bnb_group(dev, 1, n, seed=n)
+    params = bnb_2d.FastCorrelativeMatcherParams2D(linear_search_window=2.0, beam_width=512,
+                                                   max_scan_range=12.0)
+    got = bnb_2d.fast_correlative_match_2d(ps[0], gs[0], pts[0], mask[0], inits[0], params, 0.0)
+    assert torch.equal(got, bnb_2d.match_plain(ps[0], gs[0], pts[0], mask[0], inits[0], params,
+                                               0.0))
 
 
 @pytest.mark.parametrize("n,bins", [(1024, 120), (2048, 120), (8192, 120), (2048, 2048)])

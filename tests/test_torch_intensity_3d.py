@@ -267,6 +267,17 @@ def test_intensity_rows_and_jacobian_match_jax():
 
 @pytest.mark.parametrize("yaw_only", [False, True])
 def test_match_with_intensities_matches_jax(yaw_only):
+    _intensity_match(yaw_only, False)
+
+
+@pytest.mark.parametrize("yaw_only", [False, True])
+def test_match_with_intensities_nonmonotonic_matches_jax(yaw_only):
+    """The intensity rows with non-monotonic steps (the best pose kept
+    beside the accepted one), as K11 runs them."""
+    _intensity_match(yaw_only, True)
+
+
+def _intensity_match(yaw_only, nonmonotonic):
     grid, igrid = _corridor_grids()
     rng = np.random.RandomState(6)
     n = 300
@@ -279,7 +290,8 @@ def test_match_with_intensities_matches_jax(yaw_only):
     t0 = np.float32([0.02, 0.01, 0.0])
     q0 = _quat([0.0, 0.0, 0.01] if yaw_only else [0.004, -0.003, 0.01])
     kw = dict(occupied_space_weight_1=0.0, intensity_weight=0.5, translation_weight=0.0,
-              rotation_weight=10.0, num_iterations=10, only_optimize_yaw=yaw_only)
+              rotation_weight=10.0, num_iterations=10, only_optimize_yaw=yaw_only,
+              use_nonmonotonic_steps=nonmonotonic)
     ref, ref_cost = j_match(grid, grid, jnp.asarray(scan), jnp.ones(n, bool),
                             jnp.asarray(scan[:1]), jnp.zeros(1, bool),
                             JRigid3(jnp.asarray(t0), jnp.asarray(q0)), JParams(**kw),

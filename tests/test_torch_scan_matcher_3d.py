@@ -145,7 +145,7 @@ def test_jacobian_matches_jacfwd(yaw_only, offset):
 
 
 @pytest.mark.parametrize("yaw_only,nonmonotonic", [(False, False), (True, False),
-                                                   (False, True)])
+                                                   (False, True), (True, True)])
 def test_match_matches_jax(yaw_only, nonmonotonic):
     (jh, jl), world = _grids()
     rng = np.random.RandomState(3)
