@@ -4,22 +4,31 @@
 // (l.138) in its gather form _scores_gather (l.82), with _angular_step (l.61)
 // and _candidate_geometry (l.69).
 //
-// One block per candidate (angle a, shift ix, iy), in JAX's flat (a, ix, iy)
-// order. Each block computes the data-dependent angular step from the
-// largest range of the cloud (every block redoes this 512-point max; it is
-// cheaper than a second launch), rotates and discretises the scan at its
-// angle, reads the log-odds and known flag of each shifted cell and turns
-// them into a probability on the fly (no probability image is built), and
-// sums the masked points as a pairwise halving tree in shared memory, the
-// order the plain twin uses. Above kMaxPoints padded points each thread first
-// folds its k over the points k + j * kMaxPoints in that tree's order
-// (halving_fold.cuh), so the shared array holds kMaxPoints floats for any
-// cloud and the sum keeps its bits. Thread 0 applies the motion prior, writes the
-// score and folds it into one 64-bit atomicMax over (order-preserving score
-// bits, ~flat index): the maximum score wins and, among equal scores, the
-// lowest flat index, which is jnp.argmax's tie-break. A one-thread launch
-// decodes the winner into [score, x, y, theta] on the device, so the caller
-// never waits.
+// Three launches a call (for up to kMaxRobots robots):
+//  - prelude, one block per robot: the largest valid range and the valid
+//    count of the cloud, the data-dependent angular step from them, and the
+//    robot's 64-bit argmax key cleared;
+//  - score, one block per (angle, 5 x 5 tile of shifts) and robot (the
+//    default 0.1 m window at 5 cm is one tile). A block whose angle lies
+//    outside the angular window writes its -inf scores and its delta and
+//    reads no point: the twin scores those candidates -inf whatever their
+//    sum. Otherwise each thread rotates and discretises its points once,
+//    reads each point's 5 x 5 neighbourhood as 5 rows of 5 contiguous cells,
+//    turns log-odds and known flag into a probability on the fly (no
+//    probability image is built) and keeps the 25 partial sums in registers.
+//    The sums reproduce the twin's pairwise halving tree (tree_sum): above
+//    kThreads padded points a thread first folds its points k + j * kThreads
+//    in that tree's order (halving_fold.cuh), the levels from kThreads / 2
+//    down to 32 go through shared memory with all 25 trees sharing each
+//    barrier, and the last 5 levels are v + __shfl_down_sync(v, h) for
+//    h = 16 ... 1, which pairs lane k with lane k + h as the tree does. The
+//    lane that ends a sum applies the motion prior and writes the score;
+//    the block folds its candidates into one (order-preserving score bits,
+//    ~flat index) key and makes one 64-bit atomicMax: the maximum score
+//    wins and, among equal scores, the lowest flat index, which is
+//    jnp.argmax's tie-break;
+//  - decode, one thread per robot: the winner into [score, x, y, theta] on
+//    the device, so the caller never waits.
 //
 // correlative_2d_tsdf is K5's TSDF form, on the score surface of a TSDF grid
 // (JAX ops/tsdf_2d.py:TsdfGrid2D.correspondence_score, l.71, which the JAX
@@ -27,22 +36,22 @@
 // truncation : 0 in the map, UNKNOWN outside it, as the gather form pads.
 // One template over the cell's surface serves both exported functions.
 //
-// Robots: blockIdx.y is the robot of a cross-robot batch (the JAX package's
-// _batched_step_cached vmaps the search over robots); a launch for one
-// robot instantiates the same body with the robot index 0, so that it costs
-// what the one-robot kernel did. num_angles comes
-// from the options, so every robot of a batch has the same grid of
-// candidates; each robot has its own grid (a pointer table of values,
-// flags and origin in the launch's parameters: no copy to the device),
-// padded points and mask, start pose, scores, 64-bit key and decode. One
-// init_key launch clears the robots' keys, one decode launch reads them.
-// Above kMaxRobots robots the entry point launches once per kMaxRobots.
-// One search is the R = 1 case.
+// Robots: blockIdx.y of the score launch and blockIdx.x of the prelude are
+// the robot of a cross-robot batch (the JAX package's _batched_step_cached
+// vmaps the search over robots); a score launch for one robot instantiates
+// the same body with the robot index 0. num_angles comes from the options,
+// so every robot of a batch has the same grid of candidates; each robot has
+// its own grid (a pointer table of values, flags and origin in the launch's
+// parameters: no copy to the device), padded points and mask, start pose,
+// scores, state (key, step, count) and decode. Above kMaxRobots robots the
+// entry point launches once per kMaxRobots. One search is the R = 1 case.
 //
-// Bound: operations and latency. At full width 421 x 5 x 5 candidates x 512
-// points are 5.4 M gathers of 5 bytes from a 5 MB grid (L2-resident), a few
-// microseconds of bytes; the blocks are short, so launch and tail effects
-// dominate. Arithmetic follows the JAX order with -fmad=false.
+// Bound: operations and latency. At full width 421 angles x 5 x 5 shifts x
+// 512 points are 5.4 M gathers of 5 bytes from a 5 MB grid (L2-resident), a
+// few microseconds of bytes. A point is placed once an angle, whatever the
+// shifts, its 25 cells are read by one thread, next to each other, and the
+// cloud's max-range pass runs once a call. Arithmetic follows the JAX order
+// with -fmad=false.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -52,9 +61,11 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxPoints = 4096;  // the shared tile of the point sum
-constexpr int kMaxRobots = 64;    // robots per launch: the pointer table's rows
+constexpr int kThreads = 256;  // a score block; the fold's tile
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 5;  // a block's tile of kTile x kTile shifts
+constexpr int kSums = kTile * kTile;
+constexpr int kMaxRobots = 64;  // robots per launch: the pointer table's rows
 
 // Per robot: the surface values, flags and grid origin.
 struct Grids {
@@ -75,6 +86,14 @@ struct Params {
   float tw, rw;       // prior weights
   float res_sq;       // resolution^2 rounded to float
   float min_range;    // 3 * resolution rounded to float
+};
+
+// A robot's search state: the argmax key, written by the prelude (cleared)
+// and the score blocks, and the angular step and valid count of its cloud.
+struct State {
+  unsigned long long key;
+  float step;
+  int count;
 };
 
 __device__ inline uint32_t ordered_bits(float f) {
@@ -105,6 +124,7 @@ __device__ inline Robot robot_of(const Params& p, const Grids& grids, const floa
           points + (long long)r * 2 * p.n, mask + (long long)r * p.n, init + r * init_rs};
 }
 
+// The surface at cell (cx, cy): UNKNOWN (0.1) outside the map.
 template <bool kTsdf>
 __device__ inline float probability(const Params& p, const Robot& q, int cx, int cy) {
   if (cx < 0 || cx >= p.size || cy < 0 || cy >= p.size) return 0.1f;
@@ -115,40 +135,22 @@ __device__ inline float probability(const Params& p, const Robot& q, int cx, int
   return ((const uint8_t*)q.flags)[idx] ? 1.0f / (1.0f + expf(-q.values[idx])) : 0.1f;
 }
 
-__global__ void init_key(unsigned long long* key, int robots) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r < robots) key[r] = 0ull;
-}
-
-// kRobots: a launch for several robots (blockIdx.y); one robot's launch
-// instantiates the same body with r = 0.
-template <bool kTsdf, bool kRobots>
-__global__ void score_kernel(Params p, Grids grids, const float* __restrict__ points,
-                             const uint8_t* __restrict__ mask, const float* __restrict__ init,
-                             long long init_rs, float* __restrict__ scores,
-                             float* __restrict__ deltas,
-                             unsigned long long* __restrict__ key) {
-  const int r = kRobots ? blockIdx.y : 0;
-  const Robot q = robot_of(p, grids, points, mask, init, init_rs, r);
-  scores += (long long)r * p.num_angles * (2 * p.nl + 1) * (2 * p.nl + 1);
-  deltas += (long long)r * p.num_angles;
-  key += r;
-  __shared__ float s[kMaxPoints];
-  __shared__ float red[kThreads / 32];
-  __shared__ int cnt;
-  const int w = 2 * p.nl + 1;
-  const int flat = blockIdx.x;
-  const int a = flat / (w * w);
-  const int ix = (flat / w) % w;
-  const int iy = flat % w;
-
-  // Largest valid range and the valid count.
+// One block per robot: the largest valid range (at least min_range) and the
+// valid count, the angular step, the key cleared.
+__global__ void __launch_bounds__(kThreads)
+    prelude_kernel(Params p, const float* __restrict__ points, const uint8_t* __restrict__ mask,
+                   State* __restrict__ state) {
+  const int r = blockIdx.x;
+  points += (long long)r * 2 * p.n;
+  mask += (long long)r * p.n;
+  __shared__ float red[kWarps];
+  __shared__ int cnt[kWarps];
   float mr = 0.0f;
   int c = 0;
-  for (int k = threadIdx.x; k < p.n; k += blockDim.x) {
-    float x = q.points[2 * k], y = q.points[2 * k + 1];
+  for (int k = threadIdx.x; k < p.n; k += kThreads) {
+    float x = points[2 * k], y = points[2 * k + 1];
     float range = sqrtf(x * x + y * y);
-    if (q.mask[k]) {
+    if (mask[k]) {
       mr = fmaxf(mr, range);
       c += 1;
     }
@@ -157,70 +159,159 @@ __global__ void score_kernel(Params p, Grids grids, const float* __restrict__ po
     mr = fmaxf(mr, __shfl_down_sync(0xffffffffu, mr, off));
     c += __shfl_down_sync(0xffffffffu, c, off);
   }
-  if (threadIdx.x == 0) cnt = 0;
-  __syncthreads();
   if ((threadIdx.x & 31) == 0) {
     red[threadIdx.x >> 5] = mr;
-    atomicAdd(&cnt, c);
+    cnt[threadIdx.x >> 5] = c;
   }
   __syncthreads();
-  mr = red[0];
-  for (int w_ = 1; w_ < kThreads / 32; ++w_) mr = fmaxf(mr, red[w_]);
-  mr = fmaxf(mr, p.min_range);
-  const float step = 0.999f * acosf(1.0f - p.res_sq / (2.0f * (mr * mr)));
-  const int half = (p.num_angles - 1) / 2;
-  const float delta = ((float)a - (float)half) * step;
-  const float theta = q.init[2] + delta;
-  const float ct = cosf(theta), st = sinf(theta);
-  const int sx = ix - p.nl, sy = iy - p.nl;
-
-  auto value = [&](int k) {
-    float v = 0.0f;
-    if (q.mask[k]) {
-      float x = q.points[2 * k], y = q.points[2 * k + 1];
-      float wx = (ct * x - st * y) + q.init[0];
-      float wy = (st * x + ct * y) + q.init[1];
-      int cx = (int)floorf((wx - q.origin[0]) / p.resolution);
-      int cy = (int)floorf((wy - q.origin[1]) / p.resolution);
-      v = probability<kTsdf>(p, q, cx + sx, cy + sy);
-    }
-    return v;
-  };
-  const int tile = min(p.n, kMaxPoints), m = p.n / tile;
-  for (int k = threadIdx.x; k < tile; k += blockDim.x)
-    s[k] = halving::fold(m, [&](int j) { return value(k + j * tile); });
-  __syncthreads();
-  for (int h = tile / 2; h >= 1; h >>= 1) {
-    for (int k = threadIdx.x; k < h; k += blockDim.x) s[k] = s[k] + s[k + h];
-    __syncthreads();
-  }
   if (threadIdx.x == 0) {
-    float raw = s[0] / (float)max(cnt, 1);
-    float dx = fabsf((float)sx) * p.resolution;
-    float dy = fabsf((float)sy) * p.resolution;
-    float dist = sqrtf(dx * dx + dy * dy);
-    float prior = dist * p.tw + fabsf(delta) * p.rw;
-    float score = fabsf(delta) <= p.angle_limit ? raw * expf(-(prior * prior)) : -INFINITY;
-    scores[flat] = score;
-    if (ix == 0 && iy == 0) deltas[a] = delta;
-    unsigned long long k64 = ((unsigned long long)ordered_bits(score) << 32) |
-                             (unsigned long long)(0xffffffffu - (uint32_t)flat);
-    atomicMax(key, k64);
+    for (int w = 1; w < kWarps; ++w) {
+      mr = fmaxf(mr, red[w]);
+      c += cnt[w];
+    }
+    mr = fmaxf(mr, p.min_range);
+    state[r].key = 0ull;
+    state[r].step = 0.999f * acosf(1.0f - p.res_sq / (2.0f * (mr * mr)));
+    state[r].count = c;
   }
 }
 
-__global__ void decode_kernel(Params p, Grids grids, const float* __restrict__ init,
-                              long long init_rs, int robots, const float* __restrict__ deltas,
-                              const unsigned long long* __restrict__ key,
-                              float* __restrict__ best) {
+// kTile x kTile floats added lane by lane.
+using Sums = halving::Lanes<kSums>;
+
+// The surface under point k of the tile's shifts (0 for a masked point),
+// into `out` (kAdd false) or added to it (kAdd true).
+template <bool kTsdf, bool kAdd>
+__device__ inline void point_values(const Params& p, const Robot& q, float ct, float st, int sx0,
+                                    int sy0, int k, Sums& out) {
+  if (!q.mask[k]) {
+    if (!kAdd)
+#pragma unroll
+      for (int c = 0; c < kSums; ++c) out.v[c] = 0.0f;
+    return;
+  }
+  const float x = q.points[2 * k], y = q.points[2 * k + 1];
+  const float wx = (ct * x - st * y) + q.init[0];
+  const float wy = (st * x + ct * y) + q.init[1];
+  const int cx = (int)floorf((wx - q.origin[0]) / p.resolution) + sx0;
+  const int cy = (int)floorf((wy - q.origin[1]) / p.resolution) + sy0;
+#pragma unroll
+  for (int i = 0; i < kTile; ++i)
+#pragma unroll
+    for (int j = 0; j < kTile; ++j) {
+      const float v = probability<kTsdf>(p, q, cx + i, cy + j);
+      if (kAdd)
+        out.v[i * kTile + j] = out.v[i * kTile + j] + v;
+      else
+        out.v[i * kTile + j] = v;
+    }
+}
+
+// kRobots: a launch for several robots (blockIdx.y); one robot's launch
+// instantiates the same body with r = 0.
+template <bool kTsdf, bool kRobots>
+__global__ void __launch_bounds__(kThreads)
+    score_kernel(Params p, Grids grids, const float* __restrict__ points,
+                 const uint8_t* __restrict__ mask, const float* __restrict__ init,
+                 long long init_rs, float* __restrict__ scores, float* __restrict__ deltas,
+                 State* __restrict__ state) {
+  const int r = kRobots ? blockIdx.y : 0;
+  const Robot q = robot_of(p, grids, points, mask, init, init_rs, r);
+  const int w = 2 * p.nl + 1;
+  const int side = (w + kTile - 1) / kTile;
+  scores += (long long)r * p.num_angles * w * w;
+  deltas += (long long)r * p.num_angles;
+  state += r;
+  const int a = blockIdx.x / (side * side);
+  const int tile = blockIdx.x - a * (side * side);
+  const int tx0 = (tile / side) * kTile, ty0 = (tile % side) * kTile;
+  const float step = state->step;
+  const int half = (p.num_angles - 1) / 2;
+  const float delta = ((float)a - (float)half) * step;
+  if (tile == 0 && threadIdx.x == 0) deltas[a] = delta;
+  if (!(fabsf(delta) <= p.angle_limit)) {
+    // Outside the window: -inf whatever the sum, and no point is read.
+    if (threadIdx.x < kSums) {
+      const int ix = tx0 + threadIdx.x / kTile, iy = ty0 + threadIdx.x % kTile;
+      if (ix < w && iy < w) scores[((long long)a * w + ix) * w + iy] = -INFINITY;
+    }
+    return;
+  }
+  __shared__ float red[kSums][kThreads];
+  __shared__ unsigned long long best[kWarps];
+  const float theta = q.init[2] + delta;
+  const float ct = cosf(theta), st = sinf(theta);
+  const int sx0 = tx0 - p.nl, sy0 = ty0 - p.nl;
+
+  // This thread's fold of the first log2(m) halvings, points k + j * tile.
+  const int tile_n = min(p.n, kThreads), m = p.n / tile_n;
+  const int k = threadIdx.x;
+  Sums acc;
+  if (k < tile_n) {
+    if (m <= 2) {
+      point_values<kTsdf, false>(p, q, ct, st, sx0, sy0, k, acc);
+      if (m == 2) point_values<kTsdf, true>(p, q, ct, st, sx0, sy0, k + tile_n, acc);
+    } else {
+      acc = halving::fold_of<Sums>(m, [&](int j) {
+        Sums v;
+        point_values<kTsdf, false>(p, q, ct, st, sx0, sy0, k + j * tile_n, v);
+        return v;
+      });
+    }
+#pragma unroll
+    for (int c = 0; c < kSums; ++c) red[c][k] = acc.v[c];
+  }
+  __syncthreads();
+  // The cross-warp levels, all trees at once.
+  for (int h = tile_n / 2; h >= 32; h >>= 1) {
+    for (int i = threadIdx.x; i < kSums * h; i += kThreads) {
+      const int c = i / h, j = i - c * h;
+      red[c][j] = red[c][j] + red[c][j + h];
+    }
+    __syncthreads();
+  }
+  // The last levels in a warp: warp wp takes the trees wp, wp + kWarps, ...
+  const int lane = threadIdx.x & 31, wp = threadIdx.x >> 5;
+  const int width = min(tile_n, 32);
+  const int count = state->count;
+  unsigned long long mine = 0ull;
+  for (int c = wp; c < kSums; c += kWarps) {
+    float v = lane < width ? red[c][lane] : 0.0f;
+    for (int h = width / 2; h >= 1; h >>= 1) v = v + __shfl_down_sync(0xffffffffu, v, h);
+    const int ix = tx0 + c / kTile, iy = ty0 + c % kTile;
+    if (lane == 0 && ix < w && iy < w) {
+      const int sx = ix - p.nl, sy = iy - p.nl;
+      const float raw = v / (float)max(count, 1);
+      const float dx = fabsf((float)sx) * p.resolution;
+      const float dy = fabsf((float)sy) * p.resolution;
+      const float dist = sqrtf(dx * dx + dy * dy);
+      const float prior = dist * p.tw + fabsf(delta) * p.rw;
+      const float score = raw * expf(-(prior * prior));
+      const int flat = (a * w + ix) * w + iy;
+      scores[flat] = score;
+      const unsigned long long k64 = ((unsigned long long)ordered_bits(score) << 32) |
+                                     (unsigned long long)(0xffffffffu - (uint32_t)flat);
+      mine = k64 > mine ? k64 : mine;
+    }
+  }
+  if (lane == 0) best[wp] = mine;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int i = 1; i < kWarps; ++i) mine = best[i] > mine ? best[i] : mine;
+    atomicMax(&state->key, mine);
+  }
+}
+
+__global__ void decode_kernel(Params p, const float* __restrict__ init, long long init_rs,
+                              int robots, const float* __restrict__ deltas,
+                              const State* __restrict__ state, float* __restrict__ best) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= robots) return;
   const float* start = init + r * init_rs;
   deltas += (long long)r * p.num_angles;
-  key += r;
   best += 4 * r;
   const int w = 2 * p.nl + 1;
-  unsigned long long k64 = key[0];
+  unsigned long long k64 = state[r].key;
   int flat = (int)(0xffffffffu - (uint32_t)(k64 & 0xffffffffull));
   int a = flat / (w * w), ix = (flat / w) % w, iy = flat % w;
   best[0] = from_ordered_bits((uint32_t)(k64 >> 32));
@@ -231,16 +322,17 @@ __global__ void decode_kernel(Params p, Grids grids, const float* __restrict__ i
 
 // `grids` (host memory): robots x (values, flags, origin) device pointers.
 // `points` (robots, n, 2) and `mask` (robots, n) contiguous; `init` robot
-// 0's start pose, robot r's init_rs floats further; outputs per robot.
+// 0's start pose, robot r's init_rs floats further; outputs per robot;
+// `state` 16 bytes per robot.
 template <bool kTsdf>
 int launch(const void* const* grids, int robots, float truncation, float resolution, int size,
            const void* points, const void* mask, int n, const void* init, long long init_rs,
            int num_angles, int nl, float angle_limit, float tw, float rw, float res_sq,
-           float min_range, void* scores, void* deltas, void* key, void* best, void* stream) {
-  if (n < 1 || (n & (n - 1)) != 0 || robots < 1 || grids == nullptr)
+           float min_range, void* scores, void* deltas, void* state, void* best, void* stream) {
+  if (n < 1 || (n & (n - 1)) != 0 || robots < 1 || grids == nullptr || nl < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int w = 2 * nl + 1;
+  const int w = 2 * nl + 1, side = (w + kTile - 1) / kTile;
   for (int r0 = 0; r0 < robots; r0 += kMaxRobots) {
     const int count = min(kMaxRobots, robots - r0);
     Grids g = {};
@@ -266,16 +358,16 @@ int launch(const void* const* grids, int robots, float truncation, float resolut
     const float* start = (const float*)init + r0 * init_rs;
     float* sc = (float*)scores + (long long)r0 * num_angles * w * w;
     float* de = (float*)deltas + (long long)r0 * num_angles;
-    unsigned long long* k = (unsigned long long*)key + r0;
-    init_key<<<1, kMaxRobots, 0, s>>>(k, count);
-    const dim3 grid(num_angles * w * w, count);
+    State* st = (State*)state + r0;
+    prelude_kernel<<<count, kThreads, 0, s>>>(p, pts, msk, st);
+    const dim3 grid(num_angles * side * side, count);
     if (count == 1)
       score_kernel<kTsdf, false><<<grid, kThreads, 0, s>>>(p, g, pts, msk, start, init_rs, sc,
-                                                           de, k);
+                                                           de, st);
     else
       score_kernel<kTsdf, true><<<grid, kThreads, 0, s>>>(p, g, pts, msk, start, init_rs, sc,
-                                                          de, k);
-    decode_kernel<<<1, kMaxRobots, 0, s>>>(p, g, start, init_rs, count, de, k,
+                                                          de, st);
+    decode_kernel<<<1, kMaxRobots, 0, s>>>(p, start, init_rs, count, de, st,
                                            (float*)best + 4 * r0);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
@@ -291,10 +383,10 @@ extern "C" int correlative_2d(const void* const* grids, int robots, float resolu
                               const void* points, const void* mask, int n, const void* init,
                               long long init_rs, int num_angles, int nl, float angle_limit,
                               float tw, float rw, float res_sq, float min_range, void* scores,
-                              void* deltas, void* key, void* best, void* stream) {
+                              void* deltas, void* state, void* best, void* stream) {
   return launch<false>(grids, robots, 0.0f, resolution, size, points, mask, n, init, init_rs,
                        num_angles, nl, angle_limit, tw, rw, res_sq, min_range, scores, deltas,
-                       key, best, stream);
+                       state, best, stream);
 }
 
 // K5's TSDF form: per robot `tsd` and `weight` (float32, size^2) and the
@@ -304,9 +396,9 @@ extern "C" int correlative_2d_tsdf(const void* const* grids, int robots, float t
                                    const void* mask, int n, const void* init,
                                    long long init_rs, int num_angles, int nl,
                                    float angle_limit, float tw, float rw, float res_sq,
-                                   float min_range, void* scores, void* deltas, void* key,
+                                   float min_range, void* scores, void* deltas, void* state,
                                    void* best, void* stream) {
   return launch<true>(grids, robots, truncation, resolution, size, points, mask, n, init,
                       init_rs, num_angles, nl, angle_limit, tw, rw, res_sq, min_range, scores,
-                      deltas, key, best, stream);
+                      deltas, state, best, stream);
 }

@@ -59,12 +59,24 @@
 //    memory, at the cost of a second block barrier a pass; every thread
 //    solving the same system itself so that nothing is broadcast (as K3's
 //    template does) took 5-18% longer on the card (PERF.md row 14).
-// No atomics and a fixed order of every sum (a thread's rows in order, a
-// shuffle tree over a warp's lanes, the warps in order, the blocks in
-// order; the layout depends on the point counts only), so two calls give
-// the same bits. The plain twin (ops/scan_matcher_3d.py:_match_plain) forms
-// J^T J and J^T r as matrix products, which add in another order, so kernel
-// and twin are held to 1e-4 m, 1e-4 rad and 1e-4 of the cost.
+// The 28 sums add in double: each row's products are float32, and their
+// sum over a thread's rows, the warp's tree, the warps and the cluster's
+// blocks is float64, and so are the cost and the LM accept test taken from
+// it (the normal equations are rounded to float32 for the solve). On the
+// `ceres` testbed's flat cost (2 x 32,768 rows) float32 sums took 26 LM
+// iterations and ended 7.4e-5 m from the twin run in float64; float64 sums
+// take its 22 and end within 1e-5 m of it (PERF.md row 14). So that double
+// sums cost little more than float ones: a warp's tree is a halving
+// exchange (31 shuffles of a lane for the 28 sums, where a shuffle tree a
+// sum takes 140), and the solver warp keeps the sums at x spread over its
+// lanes (lane q sum q), gathering them as it forms the normal equations,
+// which keeps the kernel within its registers. No atomics and a
+// fixed order of every sum (a thread's rows in order, a shuffle tree over a
+// warp's lanes, the warps in order, the blocks in order; the layout depends
+// on the point counts only), so two calls give the same bits. The plain
+// twin (ops/scan_matcher_3d.py:_match_plain) forms J^T J and J^T r as
+// float32 matrix products, which add in another order and precision, so
+// kernel and twin are held to 1e-4 m, 1e-4 rad and 1e-4 of the cost.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -108,8 +120,8 @@ struct Intensity {
 };
 
 struct Shared {
-  float part[2][kWarps][kSums];  // the warps' partial sums, double-buffered
-  float total[2][kSums];         // in a cluster: the block's sums, read by the others
+  double part[2][kWarps][kSums];  // the warps' partial sums, double-buffered
+  double total[2][kSums];         // in a cluster: the block's sums, read by the others
   float candidate[8];            // the pose to evaluate and whether to go on
 };
 
@@ -185,22 +197,23 @@ __device__ inline void tangent_gradient(const float q[4], const float p[3], cons
   cross3(p, gb, jac + 3);
 }
 
-__device__ inline void accumulate(float* acc, const float j[6], float r) {
+// The row's float32 products added to the float64 sums.
+__device__ inline void accumulate(double* acc, const float j[6], float r) {
   int q = 0;
 #pragma unroll
   for (int a = 0; a < 6; ++a)
 #pragma unroll
-    for (int b = a; b < 6; ++b) acc[q++] += j[a] * j[b];
+    for (int b = a; b < 6; ++b) acc[q++] += (double)(j[a] * j[b]);
 #pragma unroll
-  for (int a = 0; a < 6; ++a) acc[21 + a] += j[a] * r;
-  acc[27] += r * r;
+  for (int a = 0; a < 6; ++a) acc[21 + a] += (double)(j[a] * r);
+  acc[27] += (double)(r * r);
 }
 
 // Adds row `row` at pose x (translation t, rotation q) to acc: a high point
 // (row < hc.n) with its intensity row, or low point row - hc.n.
 __device__ inline void add_row(const Grid& hg, const Cloud& hc, const Grid& lg, const Cloud& lc,
                                const Intensity& it, const float t[3], const float q[4],
-                               int row, float* acc) {
+                               int row, double* acc) {
   const bool high = row < hc.n;
   const Grid& g = high ? hg : lg;
   const Cloud& cloud = high ? hc : lc;
@@ -263,61 +276,87 @@ __device__ inline void add_row(const Grid& hg, const Cloud& hc, const Grid& lg, 
   accumulate(acc, jac, it.scale * (sign * fminf(a, bound)));
 }
 
-// The cluster's sums of acc[0..K) into out[0..K), in every thread of the
-// warps that take them (every warp, or warp 0 alone): a shuffle tree over
-// each warp's lanes, then the warps in order into buffer `buf` of `part`;
-// in a cluster each block adds its warps after a block barrier and, after
-// the cluster barrier, lane q of a warp adds sum q of the blocks in order.
+// One level of the halving exchange below and the levels under it, each
+// unrolled at compile time (a loop over the levels left v in local memory):
+// a lane keeps v[0..H) or v[H..2H) by its bit H and adds what lane ^ H
+// sends of the other half.
+template <int H, int P>
+__device__ inline void exchange(double (&v)[P], int lane) {
+  if constexpr (H >= 1) {
+    const bool upper = (lane & H) != 0;
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+      const double send = upper ? v[i] : v[H + i];
+      const double keep = upper ? v[H + i] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, H);
+    }
+    exchange<H / 2, P>(v, lane);
+  }
+}
+
+// The cluster's sums of acc[0..K): lane q < K of each warp that takes them
+// (every warp, or warp 0 alone) returns sum q. Over a warp's lanes,
+// a halving exchange: at offset h = P/2 ... 1 (P the power of two >= K) a
+// lane keeps half of its sums, sends the other half to lane ^ h and adds
+// what it receives, so lane q ends with sum q of lanes that agree in their
+// bits >= P, and an xor tree over those bits completes it: for every sum
+// the pairing of a shuffle tree (lane l with l + 16, then l + 8, ...) in
+// P - 1 + 5 - log2(P) shuffles of a lane instead of 5 K. Then the warps in
+// order into buffer `buf` of `part`; in a cluster each block adds its warps
+// after a block barrier and, after the cluster barrier, lane q of a warp
+// adds sum q of the blocks in order.
 template <int K>
-__device__ inline void reduce(float acc[K], Shared& s, int buf, cg::cluster_group& cluster,
-                              unsigned int blocks, bool take, float out[K]) {
+__device__ inline double reduce(double acc[K], Shared& s, int buf, cg::cluster_group& cluster,
+                                unsigned int blocks, bool take) {
+  constexpr int P = K <= 1 ? 1 : K <= 2 ? 2 : K <= 4 ? 4 : K <= 8 ? 8 : K <= 16 ? 16 : 32;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  double v[P];
 #pragma unroll
-  for (int q = 0; q < K; ++q)
-    for (int off = 16; off > 0; off >>= 1) acc[q] += __shfl_down_sync(0xffffffffu, acc[q], off);
-  if (lane == 0)
+  for (int q = 0; q < P; ++q) v[q] = q < K ? acc[q] : 0.0;
+  exchange<P / 2, P>(v, lane);
 #pragma unroll
-    for (int q = 0; q < K; ++q) s.part[buf][warp][q] = acc[q];
+  for (int off = 16; off >= P; off >>= 1) v[0] += __shfl_xor_sync(0xffffffffu, v[0], off);
+  if (lane < K) s.part[buf][warp][lane] = v[0];
   __syncthreads();
-  float v = 0.0f;
+  double t = 0.0;
   if (blocks == 1) {
     if (take && lane < K)
-      for (int w = 0; w < kWarps; ++w) v += s.part[buf][w][lane];
+      for (int w = 0; w < kWarps; ++w) t += s.part[buf][w][lane];
   } else {
     if (warp == 0 && lane < K) {
-      float b = 0.0f;
+      double b = 0.0;
       for (int w = 0; w < kWarps; ++w) b += s.part[buf][w][lane];
       s.total[buf][lane] = b;
     }
     cluster.sync();
     if (take && lane < K) {
-      float t[kMaxCluster];
+      double u[kMaxCluster];
 #pragma unroll
       for (int b = 0; b < kMaxCluster; ++b)  // the loads in flight together
-        t[b] = b < (int)blocks ? cluster.map_shared_rank(&s.total[buf][0], (unsigned int)b)[lane]
-                               : 0.0f;
+        u[b] = b < (int)blocks ? cluster.map_shared_rank(&s.total[buf][0], (unsigned int)b)[lane]
+                               : 0.0;
 #pragma unroll
       for (int b = 0; b < kMaxCluster; ++b)
-        if (b < (int)blocks) v += t[b];
+        if (b < (int)blocks) t += u[b];
     }
   }
-#pragma unroll
-  for (int q = 0; q < K; ++q) out[q] = __shfl_sync(0xffffffffu, v, q);
+  return t;
 }
 
-// One pass at pose x: the 28 sums over the rows. Thread g of the cluster
+// One pass at pose x: the 28 sums over the rows, sum q in lane q of the
+// warps that take them. Thread g of the cluster
 // takes rows g, g + G, ... (G the cluster's threads) in order.
-__device__ inline void pass(const Grid& hg, const Cloud& hc, const Grid& lg, const Cloud& lc,
+__device__ inline double pass(const Grid& hg, const Cloud& hc, const Grid& lg, const Cloud& lc,
                             const Intensity& it, const float x[7], Shared& s, int buf,
                             cg::cluster_group& cluster, unsigned int blocks, unsigned int rank,
-                            bool take, float out[kSums]) {
-  float acc[kSums];
+                            bool take) {
+  double acc[kSums];
 #pragma unroll
-  for (int q = 0; q < kSums; ++q) acc[q] = 0.0f;
+  for (int q = 0; q < kSums; ++q) acc[q] = 0.0;
   const int stride = (int)blocks * kThreads, rows = hc.n + lc.n;
   for (int row = (int)rank * kThreads + threadIdx.x; row < rows; row += stride)
     add_row(hg, hc, lg, lc, it, x, x + 3, row, acc);
-  reduce<kSums>(acc, s, buf, cluster, blocks, take, out);
+  return reduce<kSums>(acc, s, buf, cluster, blocks, take);
 }
 
 // Solve A d = b (n <= 6) by Gaussian elimination with partial pivoting.
@@ -369,14 +408,15 @@ __device__ inline void rotation_error(const Penalty& pen, const float q[4], floa
   for (int a = 0; a < 3; ++a) phi[a] = scale * dq[a + 1];
 }
 
-__device__ inline float penalty_sq(const Penalty& pen, const float x[7]) {
+// The penalty rows' sum of squares: float32 squares, a float64 sum.
+__device__ inline double penalty_sq(const Penalty& pen, const float x[7]) {
   float phi[3];
   rotation_error(pen, x + 3, phi);
-  float acc = 0.0f;
+  double acc = 0.0;
   for (int a = 0; a < 3; ++a) {
     float rt = pen.wt * (x[a] - pen.target_t[a]);
     float rr = pen.wr * phi[a];
-    acc += rt * rt + rr * rr;
+    acc += (double)(rt * rt) + (double)(rr * rr);
   }
   return acc;
 }
@@ -416,19 +456,23 @@ __device__ inline void retract(const float x[7], const float d[6], float x_new[7
 
 // The damped step from the sums at x: the penalty rows at x added to the
 // normal equations, the diagonal damped by lam, the 6x6 (or [dt, yaw] 4x4)
-// system solved and the step retracted into xn. Returns whether the step is
-// finite.
-__device__ inline bool lm_step(const float sums[kSums], const float x[7], const Penalty& pen,
-                               float lam, bool yaw_only, float xn[7]) {
+// system solved and the step retracted into xn. `sum` is lane q's sum q of
+// the warp (every lane of which calls this), each rounded to float32 as it
+// is gathered. Returns whether the step is finite.
+__device__ inline bool lm_step(double sum, const float x[7], const Penalty& pen, float lam,
+                               bool yaw_only, float xn[7]) {
   const float wt = pen.wt, wr = pen.wr;
   float h6[6][6], g6[6];
   int q = 0;
+#pragma unroll
   for (int a = 0; a < 6; ++a)
+#pragma unroll
     for (int b = a; b < 6; ++b) {
-      h6[a][b] = h6[b][a] = sums[q];
+      h6[a][b] = h6[b][a] = (float)__shfl_sync(0xffffffffu, sum, q);
       ++q;
     }
-  for (int a = 0; a < 6; ++a) g6[a] = sums[21 + a];
+#pragma unroll
+  for (int a = 0; a < 6; ++a) g6[a] = (float)__shfl_sync(0xffffffffu, sum, 21 + a);
   // Penalty rows: r_t = wt (t - target), r_r = wr log(conj(q_target) q).
   float phi[3], m[3][3];
   rotation_error(pen, x + 3, phi);
@@ -465,29 +509,31 @@ __device__ inline bool lm_step(const float sums[kSums], const float x[7], const 
   return finite;
 }
 
-// The solve's state, kept by every thread that solves.
+// The solve's state, kept by every lane of the warp that solves; the sums at
+// x spread over its lanes, lane q holding sum q.
 struct State {
   float x[7], best_x[7];
-  float sums[kSums];  // at x
-  float lam, current, best_cost;
+  double sum;  // at x
+  double current, best_cost;
+  float lam;
   int it;
   bool stop;
 };
 
-// lm_solve's accept/reject of the candidate xn with sums cand.
-__device__ inline void decide(State& st, const float xn[7], const float cand[kSums],
-                              bool finite_delta, const Penalty& pen, int nonmonotonic,
-                              float function_tolerance) {
-  const float new_cost = 0.5f * (cand[27] + penalty_sq(pen, xn));
+// lm_solve's accept/reject of the candidate xn, lane q holding its sum q
+// in cand.
+__device__ inline void decide(State& st, const float xn[7], double cand, bool finite_delta,
+                              const Penalty& pen, int nonmonotonic, float function_tolerance) {
+  const double new_cost = 0.5 * (__shfl_sync(0xffffffffu, cand, 27) + penalty_sq(pen, xn));
   const bool finite = finite_delta && isfinite(new_cost);
   const bool improved = new_cost < st.current && finite;
   const bool accept = nonmonotonic ? finite : improved;
-  const float improvement =
-      improved ? (st.current - new_cost) / fmaxf(st.current, 1e-30f) : 1.0f;
+  const double improvement =
+      improved ? (st.current - new_cost) / fmax(st.current, 1e-30) : 1.0;
   st.lam = improved ? st.lam * 0.5f : st.lam * 4.0f;
   if (accept) {
     for (int q = 0; q < 7; ++q) st.x[q] = xn[q];
-    for (int q = 0; q < kSums; ++q) st.sums[q] = cand[q];
+    st.sum = cand;
     st.current = new_cost;
   }
   if (finite && new_cost < st.best_cost) {
@@ -495,7 +541,7 @@ __device__ inline void decide(State& st, const float xn[7], const float cand[kSu
     st.best_cost = new_cost;
   }
   st.it = st.it + 1;
-  st.stop = accept && improvement < function_tolerance && improvement >= 0.0f;
+  st.stop = accept && improvement < (double)function_tolerance && improvement >= 0.0;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -514,19 +560,18 @@ __global__ void __launch_bounds__(kThreads)
   // n = max(number of valid points, 1) of each cloud and of the intensity
   // rows, counted once.
   {
-    float cnt[3] = {0.0f, 0.0f, 0.0f};
+    double cnt[3] = {0.0, 0.0, 0.0};
     const int stride = (int)blocks * kThreads;
     for (int k = (int)rank * kThreads + threadIdx.x; k < hc.n; k += stride) {
-      cnt[0] += hc.mask[k] ? 1.0f : 0.0f;
-      if (rows.sums) cnt[2] += (hc.mask[k] && rows.values[k] <= rows.threshold) ? 1.0f : 0.0f;
+      cnt[0] += hc.mask[k] ? 1.0 : 0.0;
+      if (rows.sums) cnt[2] += (hc.mask[k] && rows.values[k] <= rows.threshold) ? 1.0 : 0.0;
     }
     for (int k = (int)rank * kThreads + threadIdx.x; k < lc.n; k += stride)
-      cnt[1] += lc.mask[k] ? 1.0f : 0.0f;
-    float n[3];
-    reduce<3>(cnt, s, buf, cluster, blocks, true, n);
-    hc.scale = hc.scale / sqrtf(fmaxf(n[0], 1.0f));
-    lc.scale = lc.scale / sqrtf(fmaxf(n[1], 1.0f));
-    rows.scale = rows.scale / sqrtf(fmaxf(n[2], 1.0f));
+      cnt[1] += lc.mask[k] ? 1.0 : 0.0;
+    const double n = reduce<3>(cnt, s, buf, cluster, blocks, true);  // whole counts, exact
+    hc.scale = hc.scale / sqrtf(fmaxf((float)__shfl_sync(0xffffffffu, n, 0), 1.0f));
+    lc.scale = lc.scale / sqrtf(fmaxf((float)__shfl_sync(0xffffffffu, n, 1), 1.0f));
+    rows.scale = rows.scale / sqrtf(fmaxf((float)__shfl_sync(0xffffffffu, n, 2), 1.0f));
   }
   Penalty pen;
   for (int a = 0; a < 3; ++a) pen.target_t[a] = target_t[a];
@@ -537,15 +582,16 @@ __global__ void __launch_bounds__(kThreads)
   State st;
   for (int q = 0; q < 7; ++q) st.x[q] = st.best_x[q] = x0[q];
   buf ^= 1;
-  pass(hg, hc, lg, lc, rows, st.x, s, buf, cluster, blocks, rank, solver, st.sums);
-  st.current = st.best_cost = 0.5f * (st.sums[27] + penalty_sq(pen, st.x));
+  st.sum = pass(hg, hc, lg, lc, rows, st.x, s, buf, cluster, blocks, rank, solver);
+  st.current = st.best_cost =
+      0.5 * (__shfl_sync(0xffffffffu, st.sum, 27) + penalty_sq(pen, st.x));
   st.lam = 1e-4f;
   st.it = 0;
   st.stop = false;
   while (true) {
     float xn[7];
     bool finite_delta = false, go = !st.stop && st.it < num_iterations;
-    if (solver && go) finite_delta = lm_step(st.sums, st.x, pen, st.lam, yaw_only != 0, xn);
+    if (solver && go) finite_delta = lm_step(st.sum, st.x, pen, st.lam, yaw_only != 0, xn);
     // Warp 0 broadcasts the candidate and whether to go on.
     if (threadIdx.x == 0) {
       for (int q = 0; q < 7; ++q) s.candidate[q] = xn[q];
@@ -555,15 +601,14 @@ __global__ void __launch_bounds__(kThreads)
     for (int q = 0; q < 7; ++q) xn[q] = s.candidate[q];
     go = s.candidate[7] != 0.0f;
     if (!go) break;
-    float cand[kSums];
     buf ^= 1;
-    pass(hg, hc, lg, lc, rows, xn, s, buf, cluster, blocks, rank, solver, cand);
+    const double cand = pass(hg, hc, lg, lc, rows, xn, s, buf, cluster, blocks, rank, solver);
     if (solver) decide(st, xn, cand, finite_delta, pen, nonmonotonic, function_tolerance);
   }
 
   if (rank == 0 && threadIdx.x == 0) {
     for (int q = 0; q < 7; ++q) x_out[q] = nonmonotonic ? st.best_x[q] : st.x[q];
-    cost_out[0] = nonmonotonic ? st.best_cost : st.current;
+    cost_out[0] = (float)(nonmonotonic ? st.best_cost : st.current);
     iterations_out[0] = st.it;
   }
   if (blocks > 1) cluster.sync();  // no block leaves while another may read its sums

@@ -55,7 +55,7 @@ class ActiveSubmaps2D:
         self._tsdf = options.grid_type == "TSDF"
         self.submaps: List[Submap2D] = []
         self._grids = None  # batched (2, S, S) Grid2D or TsdfGrid2D
-        self._scratch = None  # K4's hit and free masks
+        self._scratch = None  # K4's bitmaps of marked cells
         if self._device.type == "cuda" and not self._tsdf:
             self._scratch = InsertScratch.create(_SLOTS, tpu.submap_grid_size, self._device)
         t = options.tsdf_range_data_inserter

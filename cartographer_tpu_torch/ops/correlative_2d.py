@@ -12,7 +12,8 @@ largest range of the cloud), so it is computed on the device and the
 candidate count is the static worst case from `max_scan_range`.
 
 `real_time_correlative_match` launches the CUDA kernel `csrc/correlative_2d.cu`
-(K5) on CUDA tensors and the plain twin on CPU tensors. On a `TsdfGrid2D`
+(K5: a prelude, one score block per angle and tile of shifts, a decode) on
+CUDA tensors and the plain twin on CPU tensors. On a `TsdfGrid2D`
 both score its score surface (K5's TSDF form, `correlative_2d_tsdf`): 0 in
 unknown cells, UNKNOWN outside the map, as the JAX search reads it through
 `grid.probability()`. Both sum the point axis (padded to a power of two) as
@@ -204,14 +205,15 @@ def _match_kernel(grids, points: torch.Tensor, mask: torch.Tensor,
     w = 2 * nl + 1
     scores = torch.empty((*lead, num_angles, w, w), dtype=torch.float32, device=device)
     deltas = torch.empty((*lead, num_angles), dtype=torch.float32, device=device)
-    key = torch.empty(robots or 1, dtype=torch.int64, device=device)
+    # Per robot the kernel's state: its argmax key, angular step and valid count.
+    state = torch.empty((robots or 1, 2), dtype=torch.int64, device=device)
     best = torch.empty((*lead, 4), dtype=torch.float32, device=device)
     _KERNELS[surface](device, table, robots or 1, *scalars, f32(res), size, points.data_ptr(),
                       mask.data_ptr(), n, initial_pose.data_ptr(), init_rs, num_angles, nl,
                       f32(params.angular_search_window + 1e-6),
                       f32(params.translation_delta_cost_weight),
                       f32(params.rotation_delta_cost_weight), f32(res**2), f32(3.0 * res),
-                      scores.data_ptr(), deltas.data_ptr(), key.data_ptr(), best.data_ptr())
+                      scores.data_ptr(), deltas.data_ptr(), state.data_ptr(), best.data_ptr())
     return best, scores
 
 

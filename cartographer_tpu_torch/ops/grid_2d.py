@@ -9,7 +9,9 @@ precedence over free. The port implements the JAX package's scatter form.
 `insert_into_slots` updates a batch of grids (the two active submaps) in
 place: the JAX program donates the grids and returns new ones, here the
 tensors are overwritten. On CUDA tensors it launches the kernel
-`csrc/insert_2d.cu` (K4), on CPU tensors it runs the plain twin. With a
+`csrc/insert_2d.cu` (K4: a mark pass into per-slot bitmaps of 2 bits a
+cell, kept in an `InsertScratch`, and a pass over the marked bitmap words),
+on CPU tensors it runs the plain twin. With a
 leading robot dimension on the scan (the cross-robot batched step), it
 inserts R robots' scans into their own grids, wherever each robot keeps
 them, in one launch; one robot is the R = 1 case.
@@ -171,16 +173,15 @@ def _insert_plain(grids: Grid2D, rd: RangeData, active, do_insert, hit_lo, miss_
 
 @dataclasses.dataclass
 class InsertScratch:
-    """Per-slot hit and free byte masks the kernel keeps zeroed between scans."""
+    """K4's per-slot bitmaps of marked cells, 2 bits a cell (hit, free); the
+    kernel leaves them zero after each scan."""
 
-    hit: torch.Tensor
-    free: torch.Tensor
+    bits: torch.Tensor  # (slots, ceil(S^2 / 16)) int32
 
     @staticmethod
     def create(slots: int, size: int, device) -> "InsertScratch":
         return InsertScratch(
-            torch.zeros((slots, size, size), dtype=torch.uint8, device=device),
-            torch.zeros((slots, size, size), dtype=torch.uint8, device=device))
+            torch.zeros((slots, (size * size + 15) // 16), dtype=torch.int32, device=device))
 
 
 def insert_into_slots(grids, rd: RangeData, active: torch.Tensor,
@@ -213,9 +214,8 @@ def insert_into_slots(grids, rd: RangeData, active: torch.Tensor,
         cuda.check(g.log_odds, "log_odds", torch.float32, (slots, size, size))
         cuda.check(g.known, "known", torch.bool, (slots, size, size))
         cuda.check(g.origin, "grid origin", torch.float32, (slots, 2))
-        cuda.check(sc.hit, "hit masks", torch.uint8, (slots, size, size))
-        cuda.check(sc.free, "free masks", torch.uint8, (slots, size, size))
-        rows.append((g.log_odds, g.known, g.origin, sc.hit, sc.free))
+        cuda.check(sc.bits, "bitmaps", torch.int32, (slots, (size * size + 15) // 16))
+        rows.append((g.log_odds, g.known, g.origin, sc.bits))
     inputs = ((rd.returns.points, "returns", torch.float32, (n, 2)),
               (rd.returns.mask, "returns mask", torch.bool, (n,)),
               (rd.misses.points, "misses", torch.float32, (n, 2)),

@@ -59,9 +59,9 @@ on the card, at full width (the reference's default 2D and 3D options):
     sums and the counts into both pools timed beside it;
 12. the full-size hall of phase 9 with the correlative search on (error and
     pages reported, not limited);
-13. 200 scans of the half-scale hall with the IMU-based extrapolator (a
+13. 100 scans of the half-scale hall with the IMU-based extrapolator (a
     1 s pose queue) and intensities: error reported, the first scans again
-    on the CPU's plain path; then 70 scans with the default 5 s queue, its
+    on the CPU's plain path; then 60 scans with the default 5 s queue, its
     host cost read once the queue is full;
 14. the 2D frontend of phase 2 on TSDF submaps (`submaps.grid_type =
     "TSDF"`, the TSDF inserter at its defaults): K1, K2, K20, K21, K22 and
@@ -207,8 +207,8 @@ KERNELS_2D = ("scan_preprocess_2d", "voxel_filter", "scan_matcher_2d", "insert_2
 KERNELS_3D = ("voxel_filter", "paged_insert_3d", "paged_crop_3d", "scan_matcher_3d",
               "rot_histogram", "rot_histogram_rotate")
 GLOBAL_SCANS_3D = 700  # three laps of the half-scale hall
-NUM_SCANS_IMU = 200
-IMU_DEFAULT_QUEUE_SCANS = 70  # the 5 s queue fills at scan 50
+NUM_SCANS_IMU = 100
+IMU_DEFAULT_QUEUE_SCANS = 60  # the 5 s queue fills at scan 50
 FULL_FRONTEND_YAW_LIMIT = 0.03  # rad, mean over the 400 scans (see _slice_phase_3d_full)
 FULL_FRONTEND_KERNELS = KERNELS_3D + ("correlative_3d", "paged_intensity_insert_3d",
                                       "paged_intensity_crop_3d")
@@ -501,6 +501,18 @@ def _kernel_phase(torch, dev):
     print(f"K4 insert_2d: {differ} of {touched} touched cells differ (tolerance 0.1%), "
           f"max |log-odds err| {err:.3g}")
     rd = rd_list[-1]
+    # The last scan once more into fresh grids: the cells it marks known
+    # against the cells the twin touches.
+    marked, want, apart = _k4_marks_against_twin(torch, scratch, grids, rd, active, samples)
+    if apart > 1e-3 * want or int((scratch.bits != 0).sum()):
+        _fail(f"K4 marked {marked} cells against the twin's {want} touched, {apart} apart "
+              "(tolerance 0.1%), or left bits set")
+    k4_kernels = _launches_per_call(lambda: grid_2d.insert_into_slots(
+        grids, rd, active, yes, ins.hit_probability, ins.miss_probability, True, samples,
+        scratch), 2, "K4")
+    print(f"K4 insert_2d: {marked} cells marked in the last scan's two slots against the "
+          f"twin's {want} touched ({apart} apart, tolerance 0.1%), {k4_kernels} kernels per "
+          f"call (at most 2)")
     lin = []
     for slot in range(2):
         for pts_k, m, end in ((rd.returns.points, rd.returns.mask, False),
@@ -600,6 +612,41 @@ def _k4_work(torch, grids, rd, active, insert_free_space, samples):
     num_samples = (int(active.sum()) * samples
                    * int(rd.returns.mask.sum() + rd.misses.mask.sum()))
     return cells * 2 * (4 + 1) + rd.returns.points.shape[0] * 18, num_samples * 10 + cells * 4
+
+
+def _k4_marks_against_twin(torch, scratch, grids, rd, active, samples):
+    """K4 inserting a scan into fresh grids at `grids`' origins: the cells
+    it marks known against the cells the twin touches with that scan ->
+    (cells marked, cells the twin touches, cells in one set only)."""
+    from cartographer_tpu_torch.ops import grid_2d
+    from cartographer_tpu_torch.ops.grid_2d import Grid2D
+
+    fresh = Grid2D(torch.zeros_like(grids.log_odds), torch.zeros_like(grids.known),
+                   grids.origin, grids.resolution)
+    yes = torch.ones((), dtype=torch.bool, device=grids.log_odds.device)
+    grid_2d.insert_into_slots(fresh, rd, active, yes, 0.55, 0.49, True, samples, scratch)
+    marked = want = apart = 0
+    for slot in range(grids.log_odds.shape[0]):
+        hit, free = grid_2d._masks_plain(grids.origin[slot], grids.resolution, grids.size, rd,
+                                         True, samples)
+        twin = torch.nonzero((hit | free).reshape(-1)).reshape(-1)
+        got = torch.nonzero(fresh.known[slot].reshape(-1)).reshape(-1)
+        marked += got.numel()
+        want += twin.numel()
+        apart += int((~torch.isin(got, twin)).sum()) + int((~torch.isin(twin, got)).sum())
+    return marked, want, apart
+
+
+def _k5_blocks(fn, scores):
+    """K5's angles inside the window, and the score blocks that sum points,
+    of a call fn() whose scores are (A, W, W) or (R, A, W, W): its largest
+    launch, read from a captured graph, has a block per (robot, angle, tile
+    of shifts), and those of the angles inside the window sum."""
+    import torch
+
+    inside = int(torch.isfinite(scores[..., 0, 0]).sum())
+    launched = max(_graph_grids(fn, "K5"))
+    return inside, launched // scores[..., 0, 0].numel() * inside
 
 
 def _k5_work(torch, grid, points, mask, x0, scores, params):
@@ -821,6 +868,10 @@ def _backend_kernel_phase(torch, dev, ctx, run):
           f"(tolerance 1e-5 each)")
     if cpu_err > 1e-5 or below > 1e-5:
         _fail("K5 and the CPU's plain path disagree")
+    inside, summing = _k5_blocks(lambda: correlative_2d.correlative_match(*args), scores_k)
+    k5_kernels = _launches_per_call(lambda: correlative_2d.correlative_match(*args), 3, "K5")
+    print(f"K5 correlative_2d: {inside} of {scores_k.shape[0]} angles inside the window, "
+          f"{summing} summing blocks, {k5_kernels} kernels per call (at most 3)")
     rows["correlative_2d"] = dict(
         replaces="cartographer_tpu/ops/correlative_2d.py:138", max_abs_err=max(err, score_err),
         ms=_cuda_ms(lambda: correlative_2d.correlative_match(*args)),
@@ -1356,8 +1407,12 @@ def _kernel_phase_tsdf(torch, dev, run):
     shifts = torch.arange(w_, device=dev) - w_ // 2
     lin = ((cells[:, None, None, :, 0] + shifts[None, :, None, None]) * cgrid.size
            + cells[:, None, None, :, 1] + shifts[None, None, :, None])
+    _, summing = _k5_blocks(lambda: correlative_2d.correlative_match(*cargs), scores_k)
+    k5_kernels = _launches_per_call(lambda: correlative_2d.correlative_match(*cargs), 3,
+                                    "K5's TSDF form")
     print(f"correlative_2d_tsdf: scores and argmax equal to the twin (exact), {angles} valid "
-          f"angles, best score {float(best_k[0]):.5f}")
+          f"angles of {scores_k.shape[0]}, {summing} summing blocks, {k5_kernels} kernels per "
+          f"call (at most 3), best score {float(best_k[0]):.5f}")
     rows["correlative_2d_tsdf"] = dict(
         symbol="correlative_2d_tsdf", replaces="cartographer_tpu/ops/correlative_2d.py:138",
         max_abs_err=0.0, ms=_cuda_ms(lambda: correlative_2d.correlative_match(*cargs)),
@@ -2333,7 +2388,7 @@ def _large_scan_phase_3d(torch, dev):
 
 def _imu_based_phase_3d(torch, dev):
     """The 3D frontend with the IMU-based extrapolator and intensities over
-    200 scans of the half-scale hall with a 1 s pose queue (error reported,
+    NUM_SCANS_IMU scans of the half-scale hall with a 1 s pose queue (error reported,
     not limited; the first scans again on the CPU's plain path), then over
     IMU_DEFAULT_QUEUE_SCANS with the default 5 s queue, whose host cost is
     read once the queue is full (scans are 0.1 s apart)."""
@@ -3435,10 +3490,10 @@ def _timed(fn, reps=20, warmup=2):
     return profiler, events, max(profiler, events) > 2.0 * max(min(profiler, events), 1e-9)
 
 
-def _graph_kernels(fn, label):
-    """Kernels one call of fn() launches: the kernel nodes of a CUDA graph
-    captured around the call (the profiler dropped kernels of short
-    sessions)."""
+def _graph_grids(fn, label):
+    """The blocks of each kernel one call of fn() launches: the kernel nodes
+    of a CUDA graph captured around the call (the profiler dropped kernels
+    of short sessions), each node's grid read back through libcuda."""
     import ctypes
 
     import torch
@@ -3452,13 +3507,24 @@ def _graph_kernels(fn, label):
         _fail(f"{label}: cuGraphGetNodes failed")
     nodes = (ctypes.c_void_p * count.value)()
     driver.cuGraphGetNodes(raw, nodes, ctypes.byref(count))
-    kinds = []
+    blocks = []
     for node in nodes:
         kind = ctypes.c_int(-1)
         driver.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
-        kinds.append(kind.value)
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        # CUDA_KERNEL_NODE_PARAMS_v2: the function, then gridDimX, Y, Z.
+        params = (ctypes.c_uint32 * 64)()
+        if driver.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), params) != 0:
+            _fail(f"{label}: cuGraphKernelNodeGetParams failed")
+        blocks.append(params[2] * params[3] * params[4])
     del graph
-    return kinds.count(0)  # CU_GRAPH_NODE_TYPE_KERNEL
+    return blocks
+
+
+def _graph_kernels(fn, label):
+    """Kernels one call of fn() launches (_graph_grids)."""
+    return len(_graph_grids(fn, label))
 
 
 def _launches_per_call(fn, expected, label):
@@ -4277,7 +4343,7 @@ def _batched_serving_phase(torch, dev):
     from cartographer_tpu_torch.core.config import TrajectoryBuilder2DOptions, apply_overrides
     from cartographer_tpu_torch.mapping import local_trajectory_builder_2d as ltb
     from cartographer_tpu_torch.mapping.scan_batcher import ScanBatcher
-    from cartographer_tpu_torch.ops import cuda, tsdf_2d
+    from cartographer_tpu_torch.ops import correlative_2d, cuda, grid_2d, tsdf_2d
     from cartographer_tpu_torch.sensor.data import TimedPointCloudData
     from cartographer_tpu_torch.simulation import (
         reference_permutation,
@@ -4508,6 +4574,30 @@ def _batched_serving_phase(torch, dev):
             per_r[robots] = dict(step_launches=counted, kernel_launches=kernels,
                                  device_ms=_cuda_ms(tick, reps=20),
                                  event_ms=_event_ms(tick, reps=20))
+            # K5 (its TSDF form on TSDF) and K4 alone, on the tick's robots.
+            windows = [b._active_submaps for b in group]
+            m = opts.tpu.matcher_capacity
+            corr = opts.real_time_correlative_scan_matcher
+            cparams = correlative_2d.CorrelativeSearchParams(
+                corr.linear_search_window, corr.angular_search_window,
+                corr.translation_delta_cost_weight, corr.rotation_delta_cost_weight,
+                opts.max_range)
+            cpts = rd.returns.points[:, :m].contiguous()
+            cmask = rd.returns.mask[:, :m].contiguous()
+            start = torch.zeros((robots, 3), device=dev)
+            per_r[robots]["k5_kernels"] = _launches_per_call(
+                lambda: correlative_2d.correlative_match(
+                    [w.grids.slot(0) for w in windows], cpts, cmask, start, cparams), 3,
+                f"K5 at R = {robots}")
+            if not tsdf:
+                ins = opts.submaps.probability_grid_range_data_inserter
+                on = torch.ones((robots, 2), dtype=torch.bool, device=dev)
+                yes = torch.ones(robots, dtype=torch.bool, device=dev)
+                per_r[robots]["k4_kernels"] = _launches_per_call(
+                    lambda: grid_2d.insert_into_slots(
+                        [w.grids for w in windows], rd, on, yes, ins.hit_probability,
+                        ins.miss_probability, True, opts.tpu.ray_samples,
+                        [w._scratch for w in windows]), 2, f"K4 at R = {robots}")
             if tsdf:
                 pts, mask = rd.returns.points, rd.returns.mask
                 normals = tsdf_2d.estimate_normals_2d(pts, mask, rd.origin)
@@ -4527,6 +4617,10 @@ def _batched_serving_phase(torch, dev):
         for robots, v in per_r.items():
             if v["step_launches"] != base["step_launches"]:
                 _fail(f"batched step ({label}): the step's launches grow with R: {per_r}")
+            if v["k5_kernels"] != base["k5_kernels"] or v.get("k4_kernels") != base.get(
+                    "k4_kernels"):
+                _fail(f"batched step ({label}): K5's or K4's kernels per call grow with R: "
+                      f"{per_r}")
             if tsdf and (v["k21_kernels"] != 1 or v["k20_kernels"] != base["k20_kernels"]):
                 _fail(f"batched step ({label}): K21 takes {v['k21_kernels']} kernel launches "
                       f"at R = {robots} (1 at every R), K20 {v['k20_kernels']} (at R = 1 "

@@ -1,10 +1,12 @@
-"""Device times of the 2D step's kernels for one robot, K1-K5, K20 and K21,
-at the main path's shapes (the default 2D options: 2,048-point scans,
-1,024^2 grids), through the wrappers both the robot-batched port and its
-parent have (not collected by pytest).
+"""Device times of the 2D step's kernels for one robot, K1-K5 (K5 in both
+forms), K20 and K21, at the main path's shapes (the default 2D options:
+2,048-point scans, 1,024^2 grids), through the wrappers both the
+robot-batched port and its parent have (not collected by pytest).
 
     python tests/robot_batch_timing.py LABEL [TREE]
     python tests/robot_batch_timing.py tsdf-robots
+    python tests/robot_batch_timing.py LABEL TREE robots
+    python tests/robot_batch_timing.py LABEL . k4-forms
 
 Times each kernel's wrapper over 200 calls with `chip_smoke._cuda_ms` (the
 profiler) and `chip_smoke._event_ms` (CUDA events) on the card and prints
@@ -17,6 +19,25 @@ change, change, parent.
 `tsdf-robots` times the robot-batched K20 and K21 at `bench.py`'s shape
 (1,024-beam scans of R robots, 512^2 grids at 5 cm, two slots) at R = 1, 4
 and 16, and prints one JSON object.
+
+`robots` times K5 in both forms and K4 the same way at `bench.py`'s shape:
+each robot's twelfth scan of `simulate_scans(beams=1024, seed=r, start=4.0
+* r)`, its first eleven inserted into both slots of its 512^2 grids at 5 cm
+(and of its TSDF grids), the matcher cloud its adaptive filter's first 512
+points, the default 2D options. For each R it prints [profiler ms, event
+ms] and the kernels a call launches (a captured CUDA graph); with TREE the
+parent's package, so one call on the card runs parent, change, change,
+parent.
+
+`k4-forms` times K4 as kept (`csrc/insert_2d.cu`: bitmaps, a sweep of the
+marked words) beside its list form (a copy of `csrc/insert_2d.cu` patched
+by `_LIST_FORM` and built into `csrc/_build/variant/`: each cell appended
+to a list by the thread that marks it first, the apply pass walking the
+lists) on the same inputs,
+at `bench.py`'s shape for 1, 4 and 16 robots and at the main path's (one
+robot, 2,048-point capacity, 1,024^2 grids): device ms (profiler), each
+form's mark and apply kernels' mean ms, and the cells where each differs
+from the twin.
 """
 
 import json
@@ -112,6 +133,7 @@ def main(label):
     extra = {}
     if hasattr(tsdf_2d, "TsdfInsertScratch"):  # the parent's sums and lists
         extra["scratch"] = tsdf_2d.TsdfInsertScratch.create(2, size, n, dev)
+    a5t = (tsdf.slot(0), *a5[1:])
     calls = {
         "K1 scan_preprocess_2d": lambda: scan_pipeline_2d.align_scan(*a1),
         "K2 voxel_filter (a scan's filters)": k2,
@@ -122,6 +144,8 @@ def main(label):
             returns.points, returns.mask, rd.origin),
         "K21 tsdf_insert_2d": lambda: tsdf_2d.insert_into_slots_tsdf(
             tsdf, rd, active, yes, tparams, normals=normals, **extra),
+        # After K21's timing: the TSDF grids hold the scan.
+        "K5 correlative_2d_tsdf": lambda: correlative_2d.real_time_correlative_match(*a5t),
     }
     out = {name: [cs._cuda_ms(fn, reps=200), cs._event_ms(fn, reps=200)]
            for name, fn in calls.items()}
@@ -166,8 +190,376 @@ def tsdf_robots():
     print("tsdf-robots", json.dumps(out), flush=True)
 
 
+def _bench_robots(dev, count):
+    """`count` robots at bench.py's shape: their scans (RangeData with a
+    leading R), grids and K4 scratches, TSDF grids, matcher clouds and
+    start poses."""
+    from cartographer_tpu_torch.simulation import relative_to_first
+
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    opts = TrajectoryBuilder2DOptions()
+    n, size, m = 1024, 512, 512
+    f = opts.adaptive_voxel_filter
+    params = tsdf_2d.TsdfInserterParams()
+    one = torch.ones((1, 2), dtype=torch.bool, device=dev)
+    yes = torch.ones(1, dtype=torch.bool, device=dev)
+    out = dict(rds=[], grids=[], scratch=[], tsdf=[], points=[], mask=[], x0=[])
+    for r in range(count):
+        scans, truth = simulate_scans(12, beams=n, seed=r, start=4.0 * r)
+        rel = relative_to_first(truth)
+        origins = t(np.float32([[-12.8, -12.8], [-12.0, -12.5]]))
+        grids = Grid2D(torch.zeros((2, size, size), device=dev),
+                       torch.zeros((2, size, size), dtype=torch.bool, device=dev), origins, 0.05)
+        tsdf = tsdf_2d.TsdfGrid2D(torch.zeros((2, size, size), device=dev),
+                                  torch.zeros((2, size, size), device=dev), origins.clone(),
+                                  0.05)
+        scratch = grid_2d.InsertScratch.create(2, size, dev)
+        for i, (_, pts, _) in enumerate(scans):
+            c, s = np.cos(rel[i, 2]), np.sin(rel[i, 2])
+            xy = pts[:, 0:2] @ np.float32([[c, s], [-s, c]]) + rel[i, 0:2]
+            ranges = np.linalg.norm(pts[:, 0:2], axis=1)
+            hit = ranges <= opts.max_range
+            miss = rel[i, 0:2] + (xy - rel[i, 0:2]) * (5.0 / np.maximum(ranges, 1e-6))[:, None]
+            z = torch.zeros((1, n), device=dev)
+            rd = RangeData(t(rel[None, i, 0:2].astype(np.float32)),
+                           PointCloud(t(xy[None].astype(np.float32)), t(hit[None]), z),
+                           PointCloud(t(miss[None].astype(np.float32)), t(~hit[None]), z))
+            if i == len(scans) - 1:
+                break
+            grid_2d.insert_into_slots([grids], rd, one, yes, 0.55, 0.49, True,
+                                      opts.tpu.ray_samples, [scratch])
+            normals = tsdf_2d.estimate_normals_2d(rd.returns.points, rd.returns.mask,
+                                                  rd.origin)
+            tsdf_2d.insert_into_slots_tsdf([tsdf], rd, one, yes, params, normals=normals)
+        perm = torch.randperm(n, generator=torch.Generator(device=dev).manual_seed(r),
+                              device=dev, dtype=torch.int32)
+        sensor = PointCloud(t(pts[:, 0:2]), t(hit), torch.zeros(n, device=dev))
+        cloud = voxel_filter.adaptive_voxel_filter(sensor, f.max_length, f.min_num_points,
+                                                   f.max_range, perm).compact(m)
+        out["rds"].append(rd)
+        out["grids"].append(grids)
+        out["scratch"].append(scratch)
+        out["tsdf"].append(tsdf)
+        out["points"].append(cloud.points)
+        out["mask"].append(cloud.mask)
+        out["x0"].append(t((rel[-1] + np.float32([0.03, -0.02, 0.01])).astype(np.float32)))
+    return out
+
+
+def robots_of(label):
+    """K5 in both forms and K4 for R robots at bench.py's shape."""
+    cuda.build()
+    dev = torch.device("cuda:0")
+    opts = TrajectoryBuilder2DOptions()
+    corr = opts.real_time_correlative_scan_matcher
+    cparams = correlative_2d.CorrelativeSearchParams(
+        corr.linear_search_window, corr.angular_search_window,
+        corr.translation_delta_cost_weight, corr.rotation_delta_cost_weight, opts.max_range)
+    b = _bench_robots(dev, 16)
+    out = {"card": cs._smi(), "tree": TREE}
+    for robots in (1, 4, 16):
+        rd = RangeData(torch.cat([x.origin for x in b["rds"][:robots]]),
+                       PointCloud(torch.cat([x.returns.points for x in b["rds"][:robots]]),
+                                  torch.cat([x.returns.mask for x in b["rds"][:robots]]),
+                                  torch.cat([x.returns.intensities
+                                             for x in b["rds"][:robots]])),
+                       PointCloud(torch.cat([x.misses.points for x in b["rds"][:robots]]),
+                                  torch.cat([x.misses.mask for x in b["rds"][:robots]]),
+                                  torch.cat([x.misses.intensities
+                                             for x in b["rds"][:robots]])))
+        pts = torch.stack(b["points"][:robots])
+        mask = torch.stack(b["mask"][:robots])
+        x0 = torch.stack(b["x0"][:robots])
+        active = torch.ones((robots, 2), dtype=torch.bool, device=dev)
+        yes = torch.ones(robots, dtype=torch.bool, device=dev)
+        occupancy = [g.slot(0) for g in b["grids"][:robots]]
+        tsdf = [g.slot(0) for g in b["tsdf"][:robots]]
+        calls = {
+            "K5 correlative_2d": lambda: correlative_2d.correlative_match(
+                occupancy, pts, mask, x0, cparams),
+            "K5 correlative_2d_tsdf": lambda: correlative_2d.correlative_match(
+                tsdf, pts, mask, x0, cparams),
+            "K4 insert_2d": lambda: grid_2d.insert_into_slots(
+                b["grids"][:robots], rd, active, yes, 0.55, 0.49, True, opts.tpu.ray_samples,
+                b["scratch"][:robots]),
+        }
+        out[robots] = {k: [cs._cuda_ms(fn, reps=200), cs._event_ms(fn, reps=200),
+                           cs._graph_kernels(fn, k)] for k, fn in calls.items()}
+        best, scores = calls["K5 correlative_2d"]()
+        out[robots]["K5 angles inside"] = int(torch.isfinite(scores[..., 0, 0]).sum())
+        print(label, robots, json.dumps(out[robots]), flush=True)
+    print(label)
+    print(json.dumps(out))
+
+
+# K4's list form, as patches of csrc/insert_2d.cu: (start, end, new) puts
+# `new` in place of the text from `start` up to `end`; (old, new) replaces
+# `old`. The mark pass's atomicOrs return: the thread whose atomicOr sets a
+# cell's first bit appends the cell to its (robot, slot)'s list, one
+# atomicAdd a warp, two slots' atomics in flight together. The apply pass
+# walks only the lists (their lengths read from device memory), taking and
+# clearing each cell's bits by one atomicAnd; the last block of a list
+# clears its length. The pointer table's rows gain the lists (size^2 int32
+# a slot) and their state (4 int32 a slot: length, blocks done, last
+# length, unused).
+_LIST_FORM = [
+    ("constexpr uint32_t kHit = 1u, kFree = 2u;\n",
+     "constexpr uint32_t kHit = 1u, kFree = 2u;\n"
+     "constexpr int kApplyBlocks = 1056;  // the apply pass's blocks over all lists: 8 an SM\n"
+     "constexpr int kApplyBatch = 4;      // listed cells a thread takes at once\n"),
+    ("  uint32_t* bits[kMaxRobots];\n};",
+     "  uint32_t* bits[kMaxRobots];\n  int* cells[kMaxRobots];\n  int* lists[kMaxRobots];\n};"),
+    ("  for (int slot = 0; slot < slots; ++slot) {\n    if (!active[slot])",
+     "// A thread per bitmap word", """  constexpr int kMarks = kRun + 1;  // the samples' free marks, then the hit mark
+  for (int s0 = 0; s0 < slots; s0 += 2) {
+    // The cells to mark, -1 for none.
+    int cell[2][kMarks];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int slot = s0 + j;
+      const bool on_slot = slot < slots && active[slot];  // the same for every lane
+      const float* g = grids.origins[r] + 2 * (on_slot ? slot : 0);
+#pragma unroll
+      for (int i = 0; i < kRun; ++i)
+        cell[j][i] = on_slot && on[i] ? cell_of(g, resolution, size, sx[i], sy[i]) : -1;
+      int prev = __shfl_up_sync(0xffffffffu, cell[j][kRun - 1], 1);
+      if (first) prev = -1;
+#pragma unroll
+      for (int i = 0; i < kRun; ++i) {
+        const int c = cell[j][i];
+        if (c == prev) cell[j][i] = -1;
+        prev = c;
+      }
+      cell[j][kRun] = on_slot && hit ? cell_of(g, resolution, size, px, py) : -1;
+    }
+    // The atomics together, then their results.
+    bool add[2][kMarks];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int i = 0; i < kMarks; ++i) {
+        const int c = cell[j][i];
+        const uint32_t bit = c >= 0 ? (i == kRun ? kHit : kFree) << (2 * (c & 15)) : 0u;
+        uint32_t old = 3u << (2 * (c & 15));
+        if (c >= 0) old = atomicOr(grids.bits[r] + (s0 + j) * words + (c >> 4), bit);
+        add[j][i] = c >= 0 && ((old >> (2 * (c & 15))) & 3u) == 0u;
+      }
+    // One atomicAdd a warp and slot: the lanes' offsets by an inclusive scan.
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      int mine = 0;
+#pragma unroll
+      for (int i = 0; i < kMarks; ++i) mine += add[j][i] ? 1 : 0;
+      int scan = mine;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, scan, off);
+        if (lane >= off) scan += v;
+      }
+      const int total = __shfl_sync(0xffffffffu, scan, 31);
+      if (total == 0) continue;  // the same for every lane
+      const int slot = s0 + j;
+      int base = 0;
+      if (lane == 31) base = atomicAdd(grids.lists[r] + 4 * slot, total);
+      base = __shfl_sync(0xffffffffu, base, 31) + scan - mine;
+      int* cells = grids.cells[r] + (size_t)slot * size * size;
+#pragma unroll
+      for (int i = 0; i < kMarks; ++i)
+        if (add[j][i]) cells[base++] = cell[j][i];
+    }
+  }
+}
+
+"""),
+    ("  const size_t words = (cells + 15) / 16;\n  const size_t w =", "}  // namespace",
+     """  float* __restrict__ log_odds = grids.log_odds[r] + slot * cells;
+  uint8_t* __restrict__ known = grids.known[r] + slot * cells;
+  uint32_t* bits = grids.bits[r] + (size_t)slot * ((cells + 15) / 16);
+  const int* __restrict__ listed = grids.cells[r] + slot * cells;
+  int* list = grids.lists[r] + 4 * slot;
+  const int length = list[0];
+  const int stride = gridDim.x * blockDim.x;
+  for (int i0 = blockIdx.x * blockDim.x + threadIdx.x; i0 < length;
+       i0 += kApplyBatch * stride) {
+    int lin[kApplyBatch];
+#pragma unroll
+    for (int b = 0; b < kApplyBatch; ++b) {
+      const int i = i0 + b * stride;
+      lin[b] = i < length ? listed[i] : -1;
+    }
+    uint32_t two[kApplyBatch];
+    float lo[kApplyBatch];
+    uint8_t kn[kApplyBatch];
+#pragma unroll
+    for (int b = 0; b < kApplyBatch; ++b) {
+      if (lin[b] < 0) continue;
+      const int shift = 2 * (lin[b] & 15);
+      two[b] = (atomicAnd(bits + (lin[b] >> 4), ~(3u << shift)) >> shift) & 3u;
+      lo[b] = log_odds[lin[b]];
+      kn[b] = known[lin[b]];
+    }
+#pragma unroll
+    for (int b = 0; b < kApplyBatch; ++b) {
+      if (lin[b] < 0) continue;
+      const bool hit = (two[b] & kHit) != 0u;
+      const bool fre = (two[b] & kFree) != 0u && !hit;
+      float updated = (lo[b] + (hit ? hit_log_odds : 0.0f)) + (fre ? miss_log_odds : 0.0f);
+      updated = fminf(fmaxf(updated, min_log_odds), max_log_odds);
+      if (updated != lo[b]) log_odds[lin[b]] = updated;
+      if (!kn[b]) known[lin[b]] = 1;
+    }
+  }
+  // Every block read the length before it counts itself done: the last one
+  // clears it for the next scan.
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    if (atomicAdd(list + 1, 1) == (int)gridDim.x - 1) {
+      list[2] = length;
+      list[0] = 0;
+      list[1] = 0;
+    }
+  }
+}
+
+"""),
+    ('extern "C" int insert_2d(', 'extern "C" int insert_2d_lists('),
+    ("grids + 4 * (r0 + r)", "grids + 6 * (r0 + r)"),
+    ("      g.bits[r] = (uint32_t*)row[3];\n",
+     "      g.bits[r] = (uint32_t*)row[3];\n      g.cells[r] = (int*)row[4];\n"
+     "      g.lists[r] = (int*)row[5];\n"),
+    ("    const dim3 apply_grid((unsigned)((words + kThreads - 1) / kThreads), slots, count);\n",
+     "    const long long most = ((long long)size * size + kThreads - 1) / kThreads;\n"
+     "    long long per = kApplyBlocks / (count * slots);\n"
+     "    per = per < 1 ? 1 : per > most ? most : per;\n"
+     "    const dim3 apply_grid((unsigned)per, slots, count);\n"),
+]
+
+
+def _list_form(text):
+    """csrc/insert_2d.cu's text patched into K4's list form."""
+    for patch in _LIST_FORM:
+        if len(patch) == 2:
+            old, new = patch
+            assert text.count(old) == 1, old
+            text = text.replace(old, new)
+        else:
+            begin, end, new = patch
+            assert text.count(begin) == 1 and text.count(end) == 1, begin
+            i, j = text.index(begin), text.index(end)
+            text = text[:i] + new + text[j:]
+    return text
+
+
+def k4_forms(label):
+    """K4 as kept beside its list form."""
+    import ctypes
+    import subprocess
+
+    from cartographer_tpu_torch.ops.probability import (
+        MAX_LOG_ODDS,
+        MIN_LOG_ODDS,
+        probability_to_log_odds,
+    )
+
+    cuda.build()
+    dev = torch.device("cuda:0")
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    out_dir = cuda.BUILD_DIR / "variant"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    source, lib = out_dir / "insert_2d_lists.cu", out_dir / "libinsert_2d_lists.so"
+    source.write_text(_list_form((cuda.CSRC_DIR / "insert_2d.cu").read_text()))
+    subprocess.run([cuda._nvcc(), *cuda.NVCC_FLAGS, "-o", str(lib), str(source)], check=True)
+    lists_fn = ctypes.CDLL(str(lib)).insert_2d_lists
+    lists_fn.argtypes = grid_2d._KERNEL._argtypes
+    lists_fn.restype = ctypes.c_int
+    hit_lo, miss_lo = probability_to_log_odds(0.55), probability_to_log_odds(0.49)
+    samples = TrajectoryBuilder2DOptions().tpu.ray_samples
+
+    def batch(rds):
+        cat = lambda f: torch.cat([f(x) for x in rds])  # noqa: E731
+        return RangeData(cat(lambda x: x.origin),
+                         PointCloud(cat(lambda x: x.returns.points),
+                                    cat(lambda x: x.returns.mask),
+                                    cat(lambda x: x.returns.intensities)),
+                         PointCloud(cat(lambda x: x.misses.points),
+                                    cat(lambda x: x.misses.mask),
+                                    cat(lambda x: x.misses.intensities)))
+
+    b = _bench_robots(dev, 16)
+    cases = {f"bench R = {r}": (b["grids"][:r], batch(b["rds"][:r])) for r in (1, 4, 16)}
+    scans, _ = simulate_scans(12, seed=1)
+    pts = scans[-1][1][:, 0:2]
+    n = TrajectoryBuilder2DOptions().tpu.scan_capacity
+    ret = np.zeros((n, 2), np.float32)
+    ret[:len(pts)] = pts
+    ranges = np.linalg.norm(ret, axis=1)
+    live = np.arange(n) < len(pts)
+    z = torch.zeros((1, n), device=dev)
+    size = TrajectoryBuilder2DOptions().tpu.submap_grid_size
+    cases["main path"] = (
+        [Grid2D(torch.zeros((2, size, size), device=dev),
+                torch.zeros((2, size, size), dtype=torch.bool, device=dev),
+                t(np.float32([[-25.6, -25.6], [-24.0, -25.0]])), 0.05)],
+        RangeData(t(np.float32([[0.3, -0.2]])),
+                  PointCloud(t(ret[None]), t((live & (ranges <= 30.0))[None]), z),
+                  PointCloud(t((ret * (5.0 / np.maximum(ranges, 1e-6))[:, None])[None]),
+                             t((live & (ranges > 30.0))[None]), z)))
+    out = {"card": cs._smi()}
+    for name, (grids, rd) in cases.items():
+        robots, size = len(grids), grids[0].size
+        active = torch.ones((robots, 2), dtype=torch.bool, device=dev)
+        yes = torch.ones(robots, dtype=torch.bool, device=dev)
+        scratch = [grid_2d.InsertScratch.create(2, size, dev) for _ in grids]
+        state = [(torch.zeros((2, (size * size + 15) // 16), dtype=torch.int32, device=dev),
+                  torch.empty((2, size * size), dtype=torch.int32, device=dev),
+                  torch.zeros((2, 4), dtype=torch.int32, device=dev)) for _ in grids]
+        table = cuda.pointer_table([(g.log_odds, g.known, g.origin, *st)
+                                    for g, st in zip(grids, state)])
+        inputs = ((rd.returns.points, (rd.returns.points.shape[1], 2)),
+                  (rd.returns.mask, (rd.returns.points.shape[1],)),
+                  (rd.misses.points, (rd.returns.points.shape[1], 2)),
+                  (rd.misses.mask, (rd.returns.points.shape[1],)), (rd.origin, (2,)),
+                  (active, (2,)), (yes, ()))
+        strides = np.array([cuda.robot_stride(x, "input", x.dtype, inner, robots)
+                            for x, inner in inputs], np.int64)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def lists():
+            assert lists_fn(table, robots, *(x.data_ptr() for x, _ in inputs[:4]),
+                            rd.returns.points.shape[1], rd.origin.data_ptr(),
+                            active.data_ptr(), yes.data_ptr(), strides.ctypes.data, 0.05,
+                            size, samples, 1, 2, hit_lo, miss_lo, MIN_LOG_ODDS, MAX_LOG_ODDS,
+                            stream) == 0
+
+        kept = lambda: grid_2d.insert_into_slots(  # noqa: E731
+            grids, rd, active, yes, 0.55, 0.49, True, samples, scratch)
+        row = {}
+        for form, fn in (("kept", kept), ("lists", lists)):
+            before = [g.clone() for g in grids]
+            fn()
+            differ = 0
+            for r, g in enumerate(before):
+                grid_2d._insert_plain(g, rd.robot(r), active[r], yes[r], hit_lo, miss_lo,
+                                      True, samples)
+                differ += int(((grids[r].log_odds - g.log_odds).abs() > 1e-6).sum()
+                              + (grids[r].known != g.known).sum())
+            row[form] = {"ms": cs._cuda_ms(fn, reps=200),
+                         "mark_ms": cs._kernel_ms(fn, "mark_kernel", reps=100)[0],
+                         "apply_ms": cs._kernel_ms(fn, "apply_kernel", reps=100)[0],
+                         "cells_apart_from_twin": differ}
+        out[name] = row
+        print(label, name, json.dumps(row), flush=True)
+    print(label)
+    print(json.dumps(out))
+
+
 if __name__ == "__main__":
     if sys.argv[1] == "tsdf-robots":
         tsdf_robots()
+    elif len(sys.argv) > 3 and sys.argv[3] == "robots":
+        robots_of(sys.argv[1])
+    elif len(sys.argv) > 3 and sys.argv[3] == "k4-forms":
+        k4_forms(sys.argv[1])
     else:
         main(sys.argv[1])

@@ -122,3 +122,33 @@ def test_tree_sum_order():
     v = torch.tensor([1e8, 1.0, -1e8, 1.0], dtype=torch.float32)
     # ((1e8 + -1e8) + (1 + 1)): the halving tree pairs k with k + n/2.
     assert float(tree_sum(v)) == 2.0
+
+
+@pytest.mark.parametrize("max_scan_range,inside", [(12.0, "few"), (2.0, "all")])
+def test_invalid_angles_score_minus_inf_at_both_extremes(grids, max_scan_range, inside):
+    """The twin scores an angle -inf exactly where JAX's angle_valid is
+    false. With max_scan_range 12 m the scan's 5 m reach takes a coarser
+    step, so the window ends inside the angle grid on both sides (the
+    kernel's score blocks for those angles read no point); with 2 m every
+    angle is inside."""
+    jgrid, grid = grids
+    pts, mask = _scan(5, 300, 512)
+    jparams, params = _params(max_scan_range=max_scan_range)
+    init = np.float32([0.04, -0.03, 0.02])
+    jinit = JRigid2(jnp.asarray(init[:2]), jnp.asarray(init[2]))
+    _, valid, _ = _candidate_geometry(jgrid, jnp.asarray(pts), jnp.asarray(mask), jinit,
+                                      jparams)
+    valid = np.asarray(valid)
+    scores, _ = scores_plain(grid, torch.from_numpy(pts), torch.from_numpy(mask),
+                             torch.from_numpy(init), params)
+    s = scores.numpy()
+    assert np.array_equal(np.isfinite(s), np.broadcast_to(valid[:, None, None], s.shape))
+    assert np.array_equal(np.isneginf(s), ~np.isfinite(s))
+    half = (len(valid) - 1) // 2
+    if inside == "few":
+        # The edge on both sides: valid through some angle, invalid beyond.
+        for side in (valid[:half + 1][::-1], valid[half:]):
+            edge = int(np.argmin(side))
+            assert 0 < edge and not side[edge:].any() and side[:edge].all()
+    else:
+        assert valid.all()

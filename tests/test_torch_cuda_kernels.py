@@ -1898,7 +1898,7 @@ def test_robot_batched_kernels(dev, robots):
                               True, SAMPLES)
         assert torch.equal(grids[r].log_odds, alone[r].log_odds)
         assert torch.equal(grids[r].known, alone[r].known)
-        assert int(scratch[r].hit.sum()) == 0 and int(scratch[r].free.sum()) == 0
+        assert int((scratch[r].bits != 0).sum()) == 0
         touched = int(plain[r].known.sum())
         differ = int(((grids[r].log_odds - plain[r].log_odds).abs() > 1e-6).sum()
                      + (grids[r].known != plain[r].known).sum())
@@ -2038,3 +2038,155 @@ def test_lm_template_kernel_robots(dev, surface):
         alone = solve(grids[r], pts[r], mask[r], x0[r], x0[r, 0:2], params)
         for a, b in zip(out, alone):
             assert torch.equal(a[r], b)
+
+
+# ---------------------------------------------------------------- K5's windows, K4's marks
+
+
+def _k5_robots(dev, surface, robots, n=N):
+    """R robots' grids of one surface (slot 0 of a grid holding scans, its
+    origin moved by robot) and their clouds of n points of _room's rooms
+    within 6 m."""
+    grid = _card_grid(dev)[0] if surface == "occupancy" else _tsdf_grid(dev)[0]
+    grids = [dataclasses.replace(grid, origin=grid.origin + 0.013 * r) for r in range(robots)]
+    pts, masks = [], []
+    for r in range(robots):
+        rng = np.random.RandomState(500 + r)
+        p = _room(rng, n)[:, :2].astype(np.float32)
+        pts.append(p)
+        masks.append((np.linalg.norm(p, axis=1) <= 6.0) & (rng.rand(n) < 0.95))
+    x0 = torch.stack([_t(np.float32([0.21 + 0.01 * r, -0.12, 0.02 - 0.003 * r]), dev)
+                      for r in range(robots)])
+    return grids, _t(np.stack(pts), dev), _t(np.stack(masks), dev), x0
+
+
+@pytest.mark.parametrize("surface", ["occupancy", "tsdf"])
+@pytest.mark.parametrize("robots", [1, 4, 16])
+@pytest.mark.parametrize("inside", ["few", "all"])
+def test_correlative_2d_kernel_windows(dev, surface, robots, inside):
+    """K5 in both forms, scores and best bit for bit against the twin robot
+    by robot: on clouds within 6 m whose angular step leaves most of the
+    angles that max_scan_range 30 m gives outside the window (those score
+    blocks read no point), and with max_scan_range 3 m, where every angle is
+    inside; three kernels a call at every R."""
+    from cartographer_tpu_torch.ops import correlative_2d
+
+    grids, pts, mask, x0 = _k5_robots(dev, surface, robots)
+    params = correlative_2d.CorrelativeSearchParams(
+        max_scan_range=30.0 if inside == "few" else 3.0)
+    best, scores = correlative_2d.correlative_match(grids, pts, mask, x0, params)
+    finite = torch.isfinite(scores[..., 0, 0])
+    if inside == "few":
+        assert 0 < int(finite.sum()) < 0.5 * finite.numel()
+    else:
+        assert bool(finite.all())
+    for r in range(robots):
+        bp, sp = correlative_2d.correlative_match_plain(grids[r], pts[r], mask[r], x0[r],
+                                                        params)
+        assert torch.equal(scores[r], sp) and torch.equal(best[r], bp), f"robot {r}"
+    assert _graph_kernels(lambda: correlative_2d.correlative_match(
+        grids, pts, mask, x0, params)) == 3
+
+
+@pytest.mark.parametrize("n", [4096, 16384])
+def test_correlative_2d_tsdf_kernel_large(dev, n):
+    """K5's TSDF form above one block's points (the fold), scores and best
+    bit for bit against the twin, for one robot and for three."""
+    from cartographer_tpu_torch.ops import correlative_2d
+
+    grids, pts, mask, x0 = _k5_robots(dev, "tsdf", 3, n)
+    params = correlative_2d.CorrelativeSearchParams(max_scan_range=12.0)
+    best, scores = correlative_2d.correlative_match(grids, pts, mask, x0, params)
+    for r in range(3):
+        bp, sp = correlative_2d.correlative_match_plain(grids[r], pts[r], mask[r], x0[r],
+                                                        params)
+        assert torch.equal(scores[r], sp) and torch.equal(best[r], bp), f"robot {r}"
+    best1, scores1 = correlative_2d.correlative_match(grids[0], pts[0], mask[0], x0[0], params)
+    assert torch.equal(best1, best[0]) and torch.equal(scores1, scores[0])
+
+
+def test_insert_2d_kernel_marks(dev):
+    """K4 for three robots, robot 1's slot 1 inactive and robot 2's
+    do_insert false: one call into fresh grids marks known exactly the
+    cells the twin touches (0.1%), and nothing for the inactive slot and
+    the robot that does not insert; a call into filled grids gives the
+    twin's grids (0.1% of touched cells); each leaves the bitmaps zero;
+    two kernels a call."""
+    robots = 3
+    rd, rds, grids, scratch = _robot_scans(dev, robots)
+    moved = RangeData(rd.origin + 0.02, PointCloud(rd.returns.points + 0.03, rd.returns.mask,
+                                                   rd.returns.intensities), rd.misses)
+    active = torch.ones((robots, 2), dtype=torch.bool, device=dev)
+    active[1, 1] = False
+    do_insert = torch.tensor([True, True, False], device=dev)
+    fresh = [Grid2D(torch.zeros_like(g.log_odds), torch.zeros_like(g.known), g.origin,
+                    g.resolution) for g in grids]
+    grid_2d.insert_into_slots(fresh, moved, active, do_insert, 0.55, 0.49, True, SAMPLES,
+                              scratch)
+    for r in range(robots):
+        assert int((scratch[r].bits != 0).sum()) == 0
+        for slot in range(2):
+            marked = torch.nonzero(fresh[r].known[slot].reshape(-1)).reshape(-1)
+            if not (bool(active[r, slot]) and bool(do_insert[r])):
+                assert marked.numel() == 0, (r, slot)
+                continue
+            g = grids[r]
+            hit, free = grid_2d._masks_plain(g.origin[slot], g.resolution, g.size,
+                                             moved.robot(r), True, SAMPLES)
+            twin = torch.nonzero((hit | free).reshape(-1)).reshape(-1)
+            apart = int((~torch.isin(marked, twin)).sum()) + int((~torch.isin(twin,
+                                                                               marked)).sum())
+            assert twin.numel() > 1000 and apart <= 1e-3 * twin.numel(), (r, slot, apart)
+    plain = [g.clone() for g in grids]
+    grid_2d.insert_into_slots(grids, moved, active, do_insert, 0.55, 0.49, True, SAMPLES,
+                              scratch)
+    for r in range(robots):
+        grid_2d._insert_plain(plain[r], moved.robot(r), active[r], do_insert[r],
+                              probability_to_log_odds(0.55), probability_to_log_odds(0.49),
+                              True, SAMPLES)
+        touched = int(plain[r].known.sum())
+        differ = int(((grids[r].log_odds - plain[r].log_odds).abs() > 1e-6).sum()
+                     + (grids[r].known != plain[r].known).sum())
+        assert touched > 1000 and differ <= 1e-3 * touched
+        assert int((scratch[r].bits != 0).sum()) == 0
+    assert _graph_kernels(lambda: grid_2d.insert_into_slots(
+        grids, moved, active, do_insert, 0.55, 0.49, True, SAMPLES, scratch)) == 2
+
+
+def test_scan_matcher_3d_kernel_ceres_float64(dev):
+    """K11 at the `ceres` testbed's shape (two 28,800-return scans of the
+    hall padded to 32,768 rows each, its 128^3 and 64^3 grids at 0.3 and
+    0.9 m): within 2e-5 m and rad of the twin run in float64 on the CPU
+    (float32 sums on that flat cost ended 7.4e-5 m off), and the same bits
+    from call to call."""
+    from cartographer_tpu_torch.ops import scan_matcher_3d
+    from cartographer_tpu_torch.ops.grid_3d import Grid3D, insert_range_data_3d
+    from cartographer_tpu_torch.simulation import simulate_scan_pair_3d
+
+    source, target, _, _ = simulate_scan_pair_3d()
+    cap = 32768
+
+    def pad(p):
+        out = np.zeros((cap, 3), np.float32)
+        out[:len(p)] = p
+        return _t(out, dev), _t(np.arange(cap) < len(p), dev)
+
+    src, sm = pad(source)
+    tgt, tm = pad(target)
+    center = target.mean(0)
+    high, low = Grid3D.create(128, 0.3, center, dev), Grid3D.create(64, 0.9, center, dev)
+    origin = _t(np.asarray(center, np.float32), dev)
+    for _ in range(4):
+        high = insert_range_data_3d(high, origin, tgt, tm)
+        low = insert_range_data_3d(low, origin, tgt, tm)
+    x0 = _t(np.float32([0, 0, 0, 1, 0, 0, 0]), dev)
+    params = scan_matcher_3d.GaussNewtonMatcherParams3D(num_iterations=30,
+                                                        translation_weight=0.1,
+                                                        rotation_weight=1.0)
+    args = (high, low, src, sm, src, sm, x0, x0[0:3].clone(), params)
+    xk, ck, itk = scan_matcher_3d.lm_match_3d(*args)
+    xd, itd, cost = _float64_twin(args)
+    err = float((_widened(xk) - xd).abs().max())
+    assert err <= 2e-5, (err, int(itk), itd, cost(xk) - cost(xd))
+    xk2, ck2, _ = scan_matcher_3d.lm_match_3d(*args)
+    assert torch.equal(xk, xk2) and torch.equal(ck, ck2)

@@ -91,3 +91,30 @@ def test_active_submaps_counters_and_finished_submaps():
         ref_known = np.asarray(js.grid.known)
         _assert_grids_agree(lo, known, np.asarray(js.grid.log_odds), ref_known,
                             ref_known.sum())
+
+
+def test_touched_cells_of_two_slots_match_jax():
+    """The cells the port's insertion twin updates in two slots with
+    different origins (the two active submaps) are the cells of JAX's
+    hit_mask | free_mask in each: the known flags after one scan into fresh
+    grids, in the scatter form."""
+    from cartographer_tpu_torch.ops.grid_2d import Grid2D, _insert_plain
+    from cartographer_tpu_torch.ops.probability import probability_to_log_odds
+
+    rng = np.random.RandomState(3)
+    origin = np.array([0.37, -0.41], np.float32)
+    centers = np.float32([[0.1, 0.2], [0.63, -0.29]])
+    scan = _scan(rng, origin)
+    batch = Grid2D(torch.zeros((2, SIZE, SIZE)), torch.zeros((2, SIZE, SIZE), dtype=torch.bool),
+                   torch.from_numpy(centers - np.float32(0.5 * SIZE * RES)), RES)
+    _insert_plain(batch, _port_rd(origin, *scan), torch.ones(2, dtype=torch.bool),
+                  torch.tensor(True), probability_to_log_odds(0.55),
+                  probability_to_log_odds(0.49), True, SAMPLES)
+    for slot in range(2):
+        jgrid = j_insert(JGrid2D.create(SIZE, RES, jnp.asarray(centers[slot])),
+                         _jax_rd(origin, *scan), ray_samples=SAMPLES, method="scatter")
+        want = np.asarray(jgrid.known)
+        assert want.sum() > 3000
+        np.testing.assert_array_equal(np.asarray(batch.origin[slot]), np.asarray(jgrid.origin))
+        differ = int((batch.known[slot].numpy() != want).sum())
+        assert differ == 0, (slot, differ, int(want.sum()))
