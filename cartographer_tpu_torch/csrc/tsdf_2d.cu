@@ -3,9 +3,17 @@
 // K20 replaces: cartographer_tpu/ops/tsdf_2d.py:estimate_normals_2d (l.86).
 // Each point's angle about the sensor origin, atan2 (masked points +inf),
 // becomes a 64-bit key (order-preserving angle bits, point index), and the
-// keys are sorted ascending by the bitonic network of bitonic_sort.cuh: one
-// block in shared memory for the 2D scan capacity (2,048), several above
-// 8,192. The keys are distinct, so the order is the stable argsort's. One
+// keys are sorted ascending by a bitonic network. The keys are distinct, so
+// the order is the stable argsort's. Up to 8,192 points (the 2D scan
+// capacity is 2,048) this is one launch, one block per robot: the block
+// computes the keys into shared memory, sorts them in registers (steps
+// between a thread's own keys in registers, steps within a warp by
+// shuffles, only the steps across warps through shared memory behind a
+// barrier: 8 keys a sorting thread, 256 sorting threads and 6 barriers at
+// 2,048), keeps the sorted indices and the points in shared memory and
+// computes the normals;
+// the keys never touch device memory. Above, three launches: the keys into
+// device memory, bitonic_sort.cuh over several blocks, the normals. A
 // thread per sorted position then takes the 5 points at positions s - 2 ..
 // s + 2 clipped to [0, N - 1] (not wrapped: the padding, sorted last, takes
 // part at the end as in JAX), their mean, the 2x2 covariance of the centred
@@ -44,9 +52,10 @@
 //
 // Robots: the JAX package's _batched_step_cached vmaps the TSDF insertion
 // over robots (mapping/local_trajectory_builder_2d.py:191). K20 takes R
-// robots' scans in one call: blockIdx.y is the robot of the key and normal
-// passes, and the keys of each robot sort on their own, side by side in the
-// launches of one robot's sort (bitonic::sort_segments).
+// robots' scans in one call: a block per robot up to 8,192 points; above,
+// blockIdx.y is the robot of the key and normal passes, and the keys of
+// each robot sort on their own, side by side in the launches of one
+// robot's sort (bitonic::sort_segments).
 // K21 takes R robots' active windows: each robot's items are a cluster of
 // their own along blockIdx.y (in_order_scatter.cuh's groups), its chunk
 // order and so each cell's input order unchanged, so a robot's grids equal
@@ -58,8 +67,9 @@
 // stride in elements. A one-robot call instantiates the one-robot bodies
 // (robot index 0), at their former cost.
 //
-// Bound: K20 by latency (a sort of 2,048 keys in one block, a few dozen
-// barrier-separated steps); its bytes are 29 B per point. K21 by bytes:
+// Bound: K20 by latency (a sort of 2,048 keys in one block: 66 steps of
+// the network, 6 of them behind a barrier, on one SM a robot); its bytes
+// are 17 B per point. K21 by bytes:
 // it reads the N points, masks and normals and reads and writes the tsd
 // and weight of the cells the scan touches, and its 32 N samples are a few
 // hundred thousand flops; the radix passes' barriers make it latency-bound.
@@ -119,25 +129,11 @@ __global__ void angle_keys_kernel(const float* __restrict__ points,
   keys[i] = ((unsigned long long)hi << 32) | (unsigned int)i;
 }
 
-template <bool kRobots>
-__global__ void normals_kernel(const float* __restrict__ points,
-                               const float* __restrict__ origin, int n, int npad,
-                               NormalStrides rs, const unsigned long long* __restrict__ keys,
-                               float* __restrict__ normals) {
-  int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= n) return;
-  const long long r = kRobots ? blockIdx.y : 0;
-  points += r * rs.points;
-  origin += r * rs.origin;
-  keys += r * npad;
-  normals += r * 2LL * n;
-  float px[2 * kHalfWindow + 1], py[2 * kHalfWindow + 1];
-  for (int d = -kHalfWindow; d <= kHalfWindow; ++d) {
-    int pos = min(max(s + d, 0), n - 1);
-    int idx = (int)(keys[pos] & 0xFFFFFFFFull);
-    px[d + kHalfWindow] = points[2 * idx];
-    py[d + kHalfWindow] = points[2 * idx + 1];
-  }
+// The normal of the point whose window (sorted positions s - 2 .. s + 2,
+// clipped) holds px, py; flipped toward (ox, oy).
+__device__ inline void window_normal(const float (&px)[2 * kHalfWindow + 1],
+                                     const float (&py)[2 * kHalfWindow + 1], float ox, float oy,
+                                     float* out_x, float* out_y) {
   const int k = 2 * kHalfWindow + 1;
   float mx = 0.0f, my = 0.0f;
   for (int q = 0; q < k; ++q) {
@@ -170,14 +166,196 @@ __global__ void normals_kernel(const float* __restrict__ points,
     ny = v2y / r;
   }
   const float sx = px[kHalfWindow], sy = py[kHalfWindow];
-  float dot = nx * (origin[0] - sx) + ny * (origin[1] - sy);
+  float dot = nx * (ox - sx) + ny * (oy - sy);
   if (dot < 0.0f) {
     nx = -nx;
     ny = -ny;
   }
+  *out_x = nx;
+  *out_y = ny;
+}
+
+template <bool kRobots>
+__global__ void normals_kernel(const float* __restrict__ points,
+                               const float* __restrict__ origin, int n, int npad,
+                               NormalStrides rs, const unsigned long long* __restrict__ keys,
+                               float* __restrict__ normals) {
+  int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= n) return;
+  const long long r = kRobots ? blockIdx.y : 0;
+  points += r * rs.points;
+  origin += r * rs.origin;
+  keys += r * npad;
+  normals += r * 2LL * n;
+  float px[2 * kHalfWindow + 1], py[2 * kHalfWindow + 1];
+  for (int d = -kHalfWindow; d <= kHalfWindow; ++d) {
+    int pos = min(max(s + d, 0), n - 1);
+    int idx = (int)(keys[pos] & 0xFFFFFFFFull);
+    px[d + kHalfWindow] = points[2 * idx];
+    py[d + kHalfWindow] = points[2 * idx + 1];
+  }
+  float nx, ny;
+  window_normal(px, py, origin[0], origin[1], &nx, &ny);
   int idx = (int)(keys[s] & 0xFFFFFFFFull);
   normals[2 * idx] = nx;
   normals[2 * idx + 1] = ny;
+}
+
+// K20 in one launch, one block per robot (blockIdx.x), up to
+// kOneBlockKeys keys. Every thread computes keys into shared memory; then
+// npad / kE threads sort them, kE consecutive keys a thread in registers
+// (key e of sorting thread t at position t * kE + e): the steps of the
+// bitonic network with j < kE pair two of a thread's registers, those with
+// j < 32 kE two lanes of a warp (shuffles), and only the longer ones go
+// through shared memory (two buffers, one barrier of the sorting threads a
+// step: 6 at 2,048 keys). The sorted keys' indices and the points then stay
+// in shared memory, and every thread computes normals.
+constexpr int kOneBlockKeys = bitonic::kSortTile;  // 8,192: 192 KB of shared memory
+constexpr int kOneBlockThreads = 1024;
+
+__device__ inline unsigned long long shfl_xor64(unsigned long long v, int lane_mask) {
+  const unsigned int lo = __shfl_xor_sync(0xFFFFFFFFu, (unsigned int)v, lane_mask);
+  const unsigned int hi = __shfl_xor_sync(0xFFFFFFFFu, (unsigned int)(v >> 32), lane_mask);
+  return ((unsigned long long)hi << 32) | lo;
+}
+
+// The barrier of the first `count` threads (whole warps) of the block.
+__device__ inline void sorters_sync(int count) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(count) : "memory");
+}
+
+template <int kE>
+__global__ void __launch_bounds__(kOneBlockThreads)
+    normals_one_block_kernel(const float* __restrict__ points, const uint8_t* __restrict__ mask,
+                             const float* __restrict__ origin, int n, int npad,
+                             NormalStrides rs, float* __restrict__ normals) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned long long* buffers[2] = {reinterpret_cast<unsigned long long*>(smem),
+                                    reinterpret_cast<unsigned long long*>(smem) + npad};
+  float* sp = reinterpret_cast<float*>(buffers[1] + npad);  // the points, (n, 2)
+  const long long r = blockIdx.x;
+  points += r * rs.points;
+  mask += r * rs.mask;
+  origin += r * rs.origin;
+  normals += r * 2LL * n;
+  const int T = blockDim.x, tid = threadIdx.x, sorters = npad / kE;
+  const float ox = origin[0], oy = origin[1];
+
+  // The keys: order-preserving angle bits and the index; the power-of-two
+  // padding sorts after every point.
+  for (int i = tid; i < npad; i += T) {
+    uint32_t hi = 0xFFFFFFFFu;
+    if (i < n) {
+      const float x = points[2 * i], y = points[2 * i + 1];
+      sp[2 * i] = x;
+      sp[2 * i + 1] = y;
+      float a = INFINITY;
+      if (mask[i]) {
+        float rx = x - ox;
+        float ry = y - oy;
+        a = atan2f(ry, rx) + 0.0f;  // -0 sorts with +0, as argsort compares them
+      }
+      hi = ordered_bits(a);
+    }
+    buffers[0][i] = ((unsigned long long)hi << 32) | (unsigned int)i;
+  }
+  __syncthreads();
+
+  // The network: stage k sorts runs of k keys, ascending where (i & k) == 0.
+  // Buffer 0 holds the keys until every sorting thread has read its own.
+  int which = 1;
+  if (tid < sorters) {
+    unsigned long long v[kE];
+#pragma unroll
+    for (int e = 0; e < kE; ++e) v[e] = buffers[0][tid * kE + e];
+    for (int k = 2; k <= npad; k <<= 1) {
+      for (int j = k >> 1; j >= 32 * kE; j >>= 1) {  // across warps
+        unsigned long long* buf = buffers[which];
+        which ^= 1;
+        const int partner = tid ^ (j / kE);
+#pragma unroll
+        for (int e = 0; e < kE; ++e) buf[e * sorters + tid] = v[e];
+        sorters_sync(sorters);
+#pragma unroll
+        for (int e = 0; e < kE; ++e) {
+          const int i = tid * kE + e;
+          const unsigned long long p = buf[e * sorters + partner];
+          const bool keep_min = ((i & j) == 0) == ((i & k) == 0);
+          v[e] = keep_min ? (p < v[e] ? p : v[e]) : (p > v[e] ? p : v[e]);
+        }
+      }
+      for (int j = min(k >> 1, 16 * kE); j >= kE; j >>= 1) {  // within a warp
+#pragma unroll
+        for (int e = 0; e < kE; ++e) {
+          const int i = tid * kE + e;
+          const unsigned long long p = shfl_xor64(v[e], j / kE);
+          const bool keep_min = ((i & j) == 0) == ((i & k) == 0);
+          v[e] = keep_min ? (p < v[e] ? p : v[e]) : (p > v[e] ? p : v[e]);
+        }
+      }
+#pragma unroll
+      for (int j = kE / 2; j >= 1; j >>= 1) {  // within a thread
+        if (j > (k >> 1)) continue;
+#pragma unroll
+        for (int e = 0; e < kE; ++e) {
+          const int g = e ^ j;
+          if (g > e) {
+            const bool ascending = ((tid * kE + e) & k) == 0;
+            const unsigned long long a = v[e], b = v[g];
+            if ((a > b) == ascending) {
+              v[e] = b;
+              v[g] = a;
+            }
+          }
+        }
+      }
+    }
+    // Each sorted position's point index, in the buffer the last exchange
+    // did not read.
+    int* order = reinterpret_cast<int*>(buffers[which]);
+#pragma unroll
+    for (int e = 0; e < kE; ++e) order[tid * kE + e] = (int)(v[e] & 0xFFFFFFFFull);
+  }
+  __syncthreads();
+  // `which` is the same in every sorting thread; the others take it from
+  // the sort's length: one exchange step per j >= 32 kE of every stage.
+  int steps = 0;
+  for (int k = 2; k <= npad; k <<= 1)
+    for (int j = k >> 1; j >= 32 * kE; j >>= 1) ++steps;
+  const int* order = reinterpret_cast<const int*>(buffers[(1 + steps) & 1]);
+  for (int s = tid; s < n; s += T) {
+    float px[2 * kHalfWindow + 1], py[2 * kHalfWindow + 1];
+    for (int d = -kHalfWindow; d <= kHalfWindow; ++d) {
+      const int idx = order[min(max(s + d, 0), n - 1)];
+      px[d + kHalfWindow] = sp[2 * idx];
+      py[d + kHalfWindow] = sp[2 * idx + 1];
+    }
+    float nx, ny;
+    window_normal(px, py, ox, oy, &nx, &ny);
+    const int idx = order[s];
+    normals[2 * idx] = nx;
+    normals[2 * idx + 1] = ny;
+  }
+}
+
+template <int kE>
+cudaError_t launch_one_block(const float* points, const uint8_t* mask, const float* origin,
+                             int n, int npad, int robots, NormalStrides rs, float* normals,
+                             cudaStream_t stream) {
+  auto kernel = normals_one_block_kernel<kE>;
+  const int bytes = 2 * kOneBlockKeys * 8 + kOneBlockKeys * 8;
+  static int configured = -1;  // the device on which the kernel may take `bytes`
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess && device != configured) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err == cudaSuccess) configured = device;
+  }
+  if (err != cudaSuccess) return err;
+  const int threads = npad < kOneBlockThreads ? npad : kOneBlockThreads;
+  const size_t shared = (size_t)npad * 16 + (size_t)n * 8;
+  kernel<<<robots, threads, shared, stream>>>(points, mask, origin, n, npad, rs, normals);
+  return cudaGetLastError();
 }
 
 // K21's items for in_order_scatter: one per (slot, sample k, point).
@@ -360,9 +538,13 @@ inline cudaError_t insert_robots(const TsdfRobots<Samples>& p, int count, int it
 
 }  // namespace
 
-// K20 for `robots` scans of n points: `keys` holds robots x next_pow2(n)
-// int64 of scratch; `normals` (robots, n, 2) out; `strides` (host memory)
-// the robot strides of points, mask and origin.
+// K20 for `robots` scans of n points: `normals` (robots, n, 2) out;
+// `strides` (host memory) the robot strides of points, mask and origin.
+// Up to kOneBlockKeys points one launch, a block per robot; above, `keys`
+// (robots x next_pow2(n) int64 of scratch) takes the keys through three
+// steps: the keys, bitonic::sort_segments (each robot's keys a run of their
+// own, sorted side by side in the launches of one robot's sort) and the
+// normals.
 extern "C" int tsdf_normals_2d(const void* points, const void* mask, const void* origin, int n,
                                int robots, const void* strides, void* keys, void* normals,
                                void* stream) {
@@ -373,6 +555,18 @@ extern "C" int tsdf_normals_2d(const void* points, const void* mask, const void*
   const long long* st = (const long long*)strides;
   const NormalStrides rs = {st[0], st[1], st[2]};
   cudaStream_t stm = (cudaStream_t)stream;
+  if (npad <= kOneBlockKeys) {
+    if (npad < 64) npad = 64;  // a warp of sorting threads, 2 keys each
+    const float* p = (const float*)points;
+    const uint8_t* m = (const uint8_t*)mask;
+    const float* o = (const float*)origin;
+    float* out = (float*)normals;
+    // 8 keys a sorting thread from 2,048 keys (fewer barriers); 2 below, where
+    // 8 would leave too few warps to hide the shuffles' latency.
+    if (npad >= 2048) return (int)launch_one_block<8>(p, m, o, n, npad, robots, rs, out, stm);
+    return (int)launch_one_block<2>(p, m, o, n, npad, robots, rs, out, stm);
+  }
+  if (keys == nullptr) return (int)cudaErrorInvalidValue;
   unsigned long long* k = (unsigned long long*)keys;
   const dim3 key_grid((npad + kThreads - 1) / kThreads, robots);
   auto angle_keys = robots == 1 ? angle_keys_kernel<false> : angle_keys_kernel<true>;

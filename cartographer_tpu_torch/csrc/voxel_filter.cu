@@ -9,69 +9,144 @@
 // packed voxel key and keeps the last point of each run of equal keys. The
 // last point of a run is the one with the highest position in the shuffled
 // order, so here every valid point inserts its key into an open-addressing
-// hash in shared memory and does atomicMax with its rank (its position in
-// the permutation); a point is kept when its rank is its voxel's maximum.
-// With the same permutation the mask is bit-identical to the JAX one.
-// The number of voxels is the number of keys a point inserted first.
+// hash and does atomicMax with its rank (its position in the permutation);
+// a point is kept when its rank is its voxel's maximum. With the same
+// permutation the mask is bit-identical to the JAX one. A voxel count needs
+// keys only: the number of keys a point inserted first.
 //
-// Keys: floor(p / resolution + 0.5) per axis (a division, as JAX, not a
-// reciprocal multiply), clipped to [-2^15, 2^15 - 2] and biased by 2^15;
-// x and y packed into one 32-bit word, z (3D clouds) into a second word.
+// Keys: floor(p / resolution + 0.5) per axis (a division, as JAX; K2 takes
+// the product with the float32 reciprocal where that provably gives the same
+// index, `axis_index(float, Length)`), clipped to [-2^15, 2^15 - 2] and
+// biased by 2^15;
+// x and y packed into one 32-bit word, z (3D clouds) into a second word. A
+// 2D key is one 32-bit word (a table of 4,096 slots: 16 KB), a 3D key 64 bits.
 //
-// The adaptive filter's range gate, 7 halving lengths, 5 bisection steps and
-// final mask all run inside one launch: the counts never leave the block.
+// One launch takes R robots' clouds (robot 0's points, mask and permutation
+// plus the robot times a robot stride in elements), an optional random
+// filter (`pre`: keys over the first pre_dim coordinates) and up to two
+// adaptive filters (keys over the first `dim` coordinates) that read the
+// random filter's keep-mask where there is one, else the input mask. The
+// keep-masks are (outputs, robots, n): the random filter's first, then one
+// per adaptive filter. The 2D step makes its three filters one launch: the
+// random filter at voxel_filter_size on the 3D hits, the matcher's and the
+// loop closure's adaptive filters on their x and y.
 //
-// Robots and filters: blockIdx.x is the robot of a cross-robot batch (the
-// JAX package vmaps the step over robots), each with its own cloud, mask
-// and permutation (robot 0's plus the robot times a robot stride in
-// elements); blockIdx.y picks one of up to two filters that read the same
-// clouds, so a scan's two adaptive filters (the matcher's and the loop
-// closure's) share one launch. The keep-masks are (filters, robots, n).
-// One cloud and one filter is the grid's 1 x 1 case.
+// The adaptive search (the JAX program's 7 halving lengths, then 5
+// bisection steps, then the mask) is 3 dependent phases, on one thread-block
+// cluster of C blocks per (robot, adaptive filter):
+//   A. the 7 coarse counts side by side, block k counting max_length / 2^k
+//      (block k % C, in rounds, where C < 7);
+//   B. only where 1 <= first_ok <= 6 (first_ok as the sequential loop
+//      takes it): the 31 lengths the depth-5 bisection can visit below the
+//      coarse interval, counted side by side (node j of the tree in heap
+//      order on block j % C, up to 4 tables a block at once). Each node's
+//      length comes from walking its path from low = max_length /
+//      2^first_ok, high = max_length / 2^(first_ok - 1) with the sequential
+//      loop's own float32 mid = 0.5f * (low + high), so the length the walk
+//      of the 5 counts then chooses is bit-identical;
+//   C. the final mask at the chosen length, with the ranks.
+// Where the launch's clusters leave fewer than kSmsPerCluster SMs each
+// (robots x filters above 4 on an H100's 132), the 31 speculative passes
+// cost more than a dependent round saves, and phase B counts in two rounds:
+// the 7 nodes of depths 0-2, the walk down them, then the 3 nodes of depths
+// 3-4 below the node it reached (4 dependent phases, 10 lengths counted).
+// Measured on an H100 (`tests/robot_batch_timing.py ... k2-shapes`): two
+// rounds cost 0.0016-0.0019 ms more with 2 clusters, and save 0.0005 /
+// 0.0017 / 0.0091 ms with 8 / 16 / 32.
+// The search reads each count only against min_num_points, so a table
+// stops counting once it reaches it (a fine length's table after a few
+// hundred points). Counts pass between the cluster's blocks through
+// distributed shared memory and cluster barriers, never through device
+// memory; there is no host synchronisation. A mask pass (the random filter,
+// phase C) is spread over the cluster: block c inserts only the keys whose
+// hash is c modulo the cluster size and writes the flags of those points,
+// the random filter's into every block's shared memory (one more cluster
+// barrier), so each block makes 1/C of the pass's atomics (a block still
+// computes every point's key: sharing the keys through distributed shared
+// memory measured slower). A random
+// filter alone is one block per robot. C and the block's threads: the
+// widest of 16 x 1024, 8 x 1024, 8 x 512, 4 x 1024 of which the card holds
+// all the launch's clusters at once, else 4 x 512 (`choose`, from the
+// card's occupancy for the launch, cached by shape under a lock; one
+// robot's two filters take 16 x 1024); 8 x 512 above kMaxSharedPoints.
 //
-// Bound: operations, not bytes. A scan of 2048 points is 25 KB in and 2 KB
-// out, but the adaptive filter makes up to 13 passes of hashing with shared
-// memory atomics. Design: one block of 1024 threads per cloud; the table of
-// next_pow2(2N) slots (8-byte key, 4-byte rank: 48 KB at N = 2048) with the
-// inverse permutation and per-point slots lives in dynamic shared memory, so
-// no pass touches device memory after the first load.
+// Bound: operations, not bytes. A scan of 2,048 points is 25 KB in and 6 KB
+// out, but the search inserts points into up to 7 + 31 + 1 tables (+1 for
+// the random filter), each insertion a multiply per axis (a division near a
+// cell boundary) and a shared memory read or atomic: a plain read finds a
+// key already inserted, and a lane whose key equals its left neighbour's (a
+// scan comes in angle order) inserts nothing. The kernel is bound by the
+// latency of these chains on the few SMs a cluster holds. Up to
+// kMaxSharedPoints (4,096) points a block keeps its tables, the inverse
+// permutation, per-point slots and flags and a copy of the coordinates in
+// dynamic shared memory (108 KB at 2,048 points with 2D keys: two blocks an
+// SM); where 4 tables do not fit (3D keys at 4,096 points) a block counts
+// its lengths in rounds of as many as fit.
 //
-// Above kMaxSharedPoints (4,096) the table and the per-point arrays do not
-// fit one block's shared memory. The same block then keeps them in a
-// global-memory scratch the wrapper passes, one slice per (filter, robot)
-// (393 KB of table at N = 16,384, resident in the 50 MB L2), and runs the
-// same passes over it with
-// global atomics: one template, two storage places, the same mask bit for
-// bit, and still no host synchronisation between the 13 passes.
+// Above kMaxSharedPoints the same kernel, with the same 3 phases in the same
+// clusters, keeps those arrays in a device-memory scratch the wrapper
+// passes, one slice per block (L2-resident at the 3D path's 16,384 points),
+// with global atomics: one template, two storage places, the same mask bit
+// for bit.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <array>
+#include <map>
+#include <mutex>
+
 #include "bitonic_sort.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr unsigned long long kEmpty = 0xFFFFFFFFFFFFFFFFull;
-constexpr int kThreads = 1024;
+constexpr int kThreads = 512;      // a block's threads, or kMaxThreads (`choose`)
+constexpr int kMaxThreads = 1024;
 constexpr int kCoarseSteps = 7;
 constexpr int kBisectSteps = 5;
+constexpr int kNodes = (1 << kBisectSteps) - 1;  // the bisection's tree: 31 lengths
+constexpr int kMaxTables = 4;                     // tables a block counts at once
+constexpr int kCluster = 8;  // blocks per (robot, adaptive filter) above kMaxSharedPoints
+constexpr int kSmsPerCluster = 32;  // fewer SMs a cluster: phase B in two rounds
+constexpr int kSplit = 3;           // the first round's levels where it takes two
 constexpr int kMaxSharedPoints = 4096;
 constexpr int kMaxFilters = 2;
+// An H100 block's shared memory (227 KB) less 1 KB for the kernel's static arrays.
+constexpr int kSharedBudget = 226 * 1024;
 
-// Per filter (blockIdx.y): the resolution, or the adaptive filter's
-// max_length, min_num_points and max_range.
+// Per adaptive filter (blockIdx.y): max_length, min_num_points, max_range.
 struct Filters {
   float length[kMaxFilters];
   int min_num_points[kMaxFilters];
   float max_range[kMaxFilters];
 };
 
-struct Shared {
-  unsigned long long* keys;  // [slots]
-  unsigned int* ranks;       // [slots]
-  int* inv;                  // [n] rank of point i in the permutation
-  int* slot;                 // [n] table slot of point i (final pass)
-  uint8_t* base;             // [n] points taking part
+template <typename Key>
+struct Empty;
+template <>
+struct Empty<uint32_t> {
+  static constexpr uint32_t value = 0xFFFFFFFFu;  // above every packed 2D key
+};
+template <>
+struct Empty<unsigned long long> {
+  static constexpr unsigned long long value = kEmpty;
+};
+
+// A block's arrays, in shared memory or in its scratch slice.
+struct Block {
+  unsigned char* region;  // the hash tables of the pass at hand
+  int* inv;               // [n] rank of point i in the permutation
+  int* slot;              // [n] table slot of point i (a mask pass)
+  uint8_t* base;          // [n] points taking part
+  uint8_t* kept;          // [n] the random filter's mask, written by the points' owners
+  const float* pts;       // point i at pts + i * pstride
+  int pstride;
+  int n;
+  int bits;  // log2 of a table's slots
 };
 
 __device__ inline int axis_index(float v, float resolution) {
@@ -88,17 +163,65 @@ __device__ inline unsigned long long voxel_key(const float* p, int dim, float re
   return key;
 }
 
-// Inserts `key`; returns its slot and sets *is_new for the inserting thread.
-__device__ inline int insert_key(unsigned long long* keys, unsigned int mask,
-                                 unsigned long long key, bool* is_new) {
-  unsigned int h = (unsigned int)((key * 0x9E3779B97F4A7C15ull) >> 32) & mask;
+// K2's voxel length: the resolution and its float32 reciprocal.
+struct Length {
+  float resolution, inverse;
+};
+
+__device__ inline Length length_of(float resolution) { return {resolution, 1.0f / resolution}; }
+
+// axis_index by a multiply: v * inverse lies within 3 ulps of the quotient
+// v / resolution, so the two sums with 0.5f lie within 4 ulps of each other
+// and have the same floor unless the product's sum lies within 8 ulps of an
+// integer; there (rarely) the division decides. The same index, bit for bit.
+__device__ inline int axis_index(float v, Length l) {
+  const float y = v * l.inverse + 0.5f;
+  float f = floorf(y);
+  const float guard = fmaxf(fabsf(y), 1.0f) * 9.5367431640625e-07f;  // 8 ulps: 2^-20 |y|
+  const float d = y - f;
+  if (d < guard || d > 1.0f - guard) f = floorf(v / l.resolution + 0.5f);
+  f = fminf(fmaxf(f, -32768.0f), 32766.0f);
+  return (int)f + 32768;
+}
+
+template <typename Key>
+__device__ inline Key key_of(const float* p, int dim, Length l);
+template <>
+__device__ inline uint32_t key_of<uint32_t>(const float* p, int, Length l) {
+  return ((uint32_t)axis_index(p[0], l) << 16) | (uint32_t)axis_index(p[1], l);
+}
+template <>
+__device__ inline unsigned long long key_of<unsigned long long>(const float* p, int dim,
+                                                                Length l) {
+  unsigned long long key = ((unsigned long long)axis_index(p[0], l) << 16) | axis_index(p[1], l);
+  if (dim == 3) key |= (unsigned long long)axis_index(p[2], l) << 32;
+  return key;
+}
+
+__device__ inline unsigned int hash_of(uint32_t key, int bits) {
+  return (key * 0x9E3779B1u) >> (32 - bits);
+}
+__device__ inline unsigned int hash_of(unsigned long long key, int bits) {
+  return (unsigned int)((key * 0x9E3779B97F4A7C15ull) >> (64 - bits));
+}
+
+// Inserts `key`, probing from slot h (its hash); returns its slot and sets
+// *is_new for the inserting thread. A slot already holding the key is found
+// by a plain read, so the points of one voxel do not queue on one atomic.
+template <typename Key>
+__device__ __forceinline__ int insert_key(Key* keys, int bits, Key key, unsigned int h,
+                                          bool* is_new) {
+  const unsigned int mask = (1u << bits) - 1u;
   while (true) {
-    unsigned long long prev = atomicCAS(&keys[h], kEmpty, key);
-    if (prev == kEmpty) {
-      *is_new = true;
-      return (int)h;
+    Key cur = *(volatile Key*)(keys + h);
+    if (cur == Empty<Key>::value) {
+      cur = atomicCAS(keys + h, Empty<Key>::value, key);
+      if (cur == Empty<Key>::value) {
+        *is_new = true;
+        return (int)h;
+      }
     }
-    if (prev == key) {
+    if (cur == key) {
       *is_new = false;
       return (int)h;
     }
@@ -106,198 +229,541 @@ __device__ inline int insert_key(unsigned long long* keys, unsigned int mask,
   }
 }
 
-__device__ void clear_table(const Shared& s, int slots) {
-  for (int k = threadIdx.x; k < slots; k += blockDim.x) {
-    s.keys[k] = kEmpty;
-    s.ranks[k] = 0u;
-  }
+template <typename T>
+__device__ __forceinline__ void fill(T* a, int count, T v) {
+  for (int k = threadIdx.x; k < count; k += blockDim.x) a[k] = v;
 }
 
-// Number of distinct voxels among the base points at `resolution`.
-__device__ int count_voxels(const Shared& s, int* counter, const float* points,
-                            int stride, int dim, int n, int slots, float resolution) {
-  clear_table(s, slots);
-  if (threadIdx.x == 0) *counter = 0;
-  __syncthreads();
-  int local = 0;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    if (!s.base[i]) continue;
-    bool is_new;
-    insert_key(s.keys, slots - 1, voxel_key(points + (size_t)i * stride, dim, resolution),
-               &is_new);
-    local += is_new;
+// The length of node j (heap order) of the bisection's tree below (low,
+// high): the path walked as the sequential loop walks it (bit 1: the count
+// was enough, low = mid), then its mid.
+__device__ inline float node_length(int j, float low, float high) {
+  const int path = j + 1;
+  for (int b = 30 - __clz(path); b >= 0; --b) {
+    const float mid = 0.5f * (low + high);
+    if ((path >> b) & 1) {
+      low = mid;
+    } else {
+      high = mid;
+    }
   }
-  if (local) atomicAdd(counter, local);
-  __syncthreads();
-  int count = *counter;
-  __syncthreads();
-  return count;
+  return 0.5f * (low + high);
 }
 
-// Keep-mask of the highest-ranked base point of every voxel.
-__device__ void final_mask(const Shared& s, const float* points, int stride, int dim,
-                           int n, int slots, float resolution, uint8_t* keep) {
-  clear_table(s, slots);
+// The insertions of a mask pass at `resolution` (keys over `dim`
+// coordinates): each owned base point's key and rank (atomicMax); its slot
+// into s.slot, -1 for the points the block does not own.
+template <typename Key>
+__device__ __forceinline__ void mask_insert(const Block& s, int dim, float resolution, int c,
+                                            int cluster) {
+  const int slots = 1 << s.bits;
+  Key* keys = reinterpret_cast<Key*>(s.region);
+  unsigned int* ranks = reinterpret_cast<unsigned int*>(keys + slots);
+  const Length l = length_of(resolution);
+  fill(keys, slots, Empty<Key>::value);
+  fill(ranks, slots, 0u);
   __syncthreads();
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    if (!s.base[i]) continue;
-    bool is_new;
-    int h = insert_key(s.keys, slots - 1,
-                       voxel_key(points + (size_t)i * stride, dim, resolution), &is_new);
+  for (int i = threadIdx.x; i < s.n; i += blockDim.x) {
+    int h = -1;
+    if (s.base[i]) {
+      const Key key = key_of<Key>(s.pts + (size_t)i * s.pstride, dim, l);
+      const unsigned int h0 = hash_of(key, s.bits);
+      if ((int)(h0 % (unsigned int)cluster) == c) {
+        bool is_new;
+        h = insert_key(keys, s.bits, key, h0, &is_new);
+        const unsigned int rank = (unsigned int)s.inv[i];
+        if (*(volatile unsigned int*)(ranks + h) < rank) atomicMax(ranks + h, rank);
+      }
+    }
     s.slot[i] = h;
-    atomicMax(&s.ranks[h], (unsigned int)s.inv[i]);
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    keep[i] = s.base[i] && s.ranks[s.slot[i]] == (unsigned int)s.inv[i];
+}
+
+// Block dst's copy of this block's array `a` (block c of the cluster): in
+// its shared memory, or in its slice of the scratch.
+template <bool kGlobal, typename T>
+__device__ __forceinline__ T* peer_of(T* a, int dst, int c, long long slice) {
+  if (kGlobal)
+    return reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(a) + (long long)(dst - c) * slice);
+  return cg::this_cluster().map_shared_rank(a, (unsigned int)dst);
+}
+
+// The flags of a mask pass: each owned point kept when its rank is its
+// voxel's highest, into every cluster block's `kept` (with `exchange`) and
+// into `out` (device memory, may be null), whose points outside the base
+// the blocks clear in stripes.
+template <bool kGlobal, typename Key>
+__device__ __forceinline__ void mask_write(const Block& s, int c, int cluster, long long slice,
+                                           bool exchange, uint8_t* __restrict__ out) {
+  const unsigned int* ranks =
+      reinterpret_cast<const unsigned int*>(reinterpret_cast<Key*>(s.region) + (1 << s.bits));
+  for (int i = threadIdx.x; i < s.n; i += blockDim.x) {
+    const int h = s.slot[i];
+    if (h >= 0) {
+      const uint8_t k = ranks[h] == (unsigned int)s.inv[i];
+      if (exchange)
+        for (int dst = 0; dst < cluster; ++dst) peer_of<kGlobal>(s.kept, dst, c, slice)[i] = k;
+      if (out) out[i] = k;
+    } else if (out && !s.base[i] && i % cluster == c) {
+      out[i] = 0;
+    }
   }
 }
 
-// kGlobal: the table and per-point arrays live in `scratch` (device memory)
-// instead of dynamic shared memory.
-template <bool kGlobal>
-__global__ void voxel_filter_kernel(const float* __restrict__ points, int stride,
-                                    long long points_rs, int dim,
-                                    const uint8_t* __restrict__ mask, long long mask_rs,
-                                    const int* __restrict__ perm, long long perm_rs, int n,
-                                    int slots, int adaptive, Filters filters,
-                                    uint8_t* __restrict__ keep, unsigned char* scratch,
-                                    long long slice) {
-  extern __shared__ unsigned char smem[];
-  __shared__ int counter;
-  const long long r = blockIdx.x, f = blockIdx.y;
+// Whether the base points' voxels at lengths[0, nt) number at least
+// `enough`, side by side in nt tables: into totals[0, nt) (zeroed by the
+// caller before the barrier that follows its clearing of the tables) the
+// count, or a number >= `enough` once a table's count reaches it (the walk
+// needs only the comparison: a table stops there). A lane whose key equals
+// its left neighbour's (a scan comes in angle order) does not insert it.
+template <typename Key>
+__device__ __forceinline__ void count_pass(const Block& s, int dim,
+                                           const float (&lengths)[kMaxTables], int nt,
+                                           int enough, int* totals) {
+  const int slots = 1 << s.bits, lane = threadIdx.x & 31;
+  Key* tables = reinterpret_cast<Key*>(s.region);
+  unsigned int open = (1u << nt) - 1u;  // the tables still counting: the same in a warp
+  Length l[kMaxTables];
+#pragma unroll
+  for (int t = 0; t < kMaxTables; ++t) l[t] = length_of(lengths[t]);
+  for (int i = threadIdx.x; i - lane < s.n; i += blockDim.x) {
+    const bool valid = i < s.n && s.base[i];
+    const float* p = s.pts + (size_t)(valid ? i : 0) * s.pstride;
+#pragma unroll
+    for (int t = 0; t < kMaxTables; ++t) {
+      if ((open >> t) & 1u) {  // the same in the warp
+        const Key key = valid ? key_of<Key>(p, dim, l[t]) : Empty<Key>::value;
+        const Key left = __shfl_up_sync(0xFFFFFFFFu, key, 1);
+        bool is_new = false;
+        if (valid && (lane == 0 || left != key))
+          insert_key(tables + (size_t)t * slots, s.bits, key, hash_of(key, s.bits), &is_new);
+        const int v = __reduce_add_sync(0xFFFFFFFFu, (int)is_new);
+        if (lane == 0 && v) atomicAdd(totals + t, v);
+      }
+    }
+    unsigned int reached = 0;
+    if (lane == 0)
+      for (int t = 0; t < nt; ++t)
+        if (*(volatile int*)(totals + t) >= enough) reached |= 1u << t;
+    open &= ~__shfl_sync(0xFFFFFFFFu, reached, 0);
+    if (!open) break;
+  }
+  __syncthreads();
+}
+
+// The counts of lengths 0 .. total - 1 (the coarse lengths max_length / 2^j,
+// or the bisection tree's nodes below (low, high)) over the cluster, as
+// count_pass leaves them: block c counts lengths c, c + cluster, ... in
+// rounds of `tables` and writes each into counts[j] of every block of the
+// cluster.
+template <typename Key>
+__device__ __forceinline__ void count_lengths(const Block& s, int dim, int c, int cluster,
+                                              int tables, int total, bool coarse, float a,
+                                              float b, int enough, int* totals, int* counts,
+                                              cg::cluster_group& team) {
+  const int slots = 1 << s.bits;
+  Key* table = reinterpret_cast<Key*>(s.region);
+  for (int j0 = c; j0 < total; j0 += cluster * tables) {
+    float lengths[kMaxTables] = {1.0f, 1.0f, 1.0f, 1.0f};
+    int nt = 0;
+#pragma unroll
+    for (int t = 0; t < kMaxTables; ++t) {
+      const int j = j0 + t * cluster;
+      if (t < tables && j < total) {
+        lengths[t] = coarse ? a / (float)(1 << j) : node_length(j, a, b);
+        nt = t + 1;
+      }
+    }
+    fill(table, nt * slots, Empty<Key>::value);
+    if (threadIdx.x < kMaxTables) totals[threadIdx.x] = 0;
+    __syncthreads();
+    count_pass<Key>(s, dim, lengths, nt, enough, totals);
+    for (int q = threadIdx.x; q < nt * cluster; q += blockDim.x) {
+      const int t = q / cluster;
+      *team.map_shared_rank(&counts[j0 + t * cluster], (unsigned int)(q % cluster)) =
+          totals[t];
+    }
+    __syncthreads();  // totals read before the next round zeroes them
+  }
+}
+
+__device__ inline void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ inline void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Grid (robots x cluster, max(1, filters)); a cluster of `cluster` blocks
+// per (robot, adaptive filter), one block per robot without adaptive
+// filters. kGlobal: each block's arrays live in its slice of `scratch`.
+template <bool kGlobal, typename Key>
+__global__ void __launch_bounds__(kMaxThreads)
+    voxel_filter_kernel(const float* __restrict__ points, int stride, long long points_rs,
+                        const uint8_t* __restrict__ mask, long long mask_rs,
+                        const int* __restrict__ perm, long long perm_rs, int n, int bits,
+                        float pre_resolution, int pre_dim, int filters, int dim,
+                        Filters params, int cluster, int split, int tables,
+                        long long region_bytes,
+                        uint8_t* __restrict__ keep, unsigned char* scratch, long long slice) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int counts[kCoarseSteps + kNodes];  // written by every block of the cluster
+  __shared__ int totals[kMaxTables];
+  __shared__ int num_base;
+  const int c = (int)(blockIdx.x % cluster), f = (int)blockIdx.y;
+  const long long robots = gridDim.x / cluster, r = blockIdx.x / cluster;
+  const bool clustered = filters > 0;
   points += r * points_rs;
   mask += r * mask_rs;
   perm += r * perm_rs;
-  keep += (f * gridDim.x + r) * n;
-  const float resolution_or_max_length = filters.length[f];
-  const int min_num_points = filters.min_num_points[f];
-  const float max_range = filters.max_range[f];
-  Shared s;
-  s.keys = reinterpret_cast<unsigned long long*>(
-      kGlobal ? scratch + (f * gridDim.x + r) * slice : smem);
-  s.ranks = reinterpret_cast<unsigned int*>(s.keys + slots);
-  s.inv = reinterpret_cast<int*>(s.ranks + slots);
-  s.slot = s.inv + n;
-  s.base = reinterpret_cast<uint8_t*>(s.slot + n);
+  const int pdim = pre_dim > dim ? pre_dim : dim;
 
-  if (threadIdx.x == 0) counter = 0;
-  __syncthreads();
-  int local = 0;
+  Block s;
+  s.region = kGlobal ? scratch + ((long long)f * gridDim.x + blockIdx.x) * slice : smem;
+  unsigned char* q = s.region + region_bytes;
+  s.inv = reinterpret_cast<int*>(q);
+  q += (4LL * n + 15) & ~15LL;
+  s.slot = reinterpret_cast<int*>(q);
+  q += (4LL * n + 15) & ~15LL;
+  float* copy = reinterpret_cast<float*>(q);
+  if (!kGlobal) q += (4LL * n * pdim + 15) & ~15LL;
+  s.base = q;
+  q += (n + 15) & ~15;
+  s.kept = q;
+  s.pts = kGlobal ? points : copy;
+  s.pstride = kGlobal ? stride : pdim;
+  s.n = n;
+  s.bits = bits;
+
+  if (threadIdx.x == 0) num_base = 0;
   for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    int i = perm[j];
+    const int i = perm[j];  // the loads first, then the stores
+    const uint8_t m = mask[j];
+    const float* p = points + (size_t)j * stride;
+    float x = 0.0f, y = 0.0f, z = 0.0f;
+    if (!kGlobal) {
+      x = p[0];
+      y = p[1];
+      if (pdim == 3) z = p[2];
+    }
     if (i >= 0 && i < n) s.inv[i] = j;
+    s.base[j] = m != 0;
+    s.kept[j] = 0;
+    if (!kGlobal) {
+      copy[j * pdim] = x;
+      copy[j * pdim + 1] = y;
+      if (pdim == 3) copy[j * pdim + 2] = z;
+    }
   }
+  // The blocks' start: a block writes into another's `kept` and counts only
+  // once every block of the cluster runs and has cleared its own.
+  if (clustered) cluster_arrive();
+  __syncthreads();
+  if (pre_dim > 0) {  // the random filter: its mask becomes the base flags
+    mask_insert<unsigned long long>(s, pre_dim, pre_resolution, c, cluster);
+    if (clustered) cluster_wait();
+    mask_write<kGlobal, unsigned long long>(s, c, cluster, slice, true,
+                                            f == 0 ? keep + r * n : nullptr);
+    if (clustered) {
+      cluster_arrive();
+      cluster_wait();
+    } else {
+      __syncthreads();
+    }
+    s.base = s.kept;
+  } else if (clustered) {
+    cluster_wait();
+  }
+  if (!clustered) return;
+  uint8_t* out = keep + (((pre_dim > 0) + f) * robots + r) * n;
+  const float max_length = params.length[f], max_range = params.max_range[f];
+  const int min_num_points = params.min_num_points[f];
+
+  // The range gate and the number of base points, in every block.
+  int local = 0;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    bool b = mask[i] != 0;
-    if (adaptive) {
-      const float* p = points + (size_t)i * stride;
+    bool b = s.base[i] != 0;
+    if (b) {
+      const float* p = s.pts + (size_t)i * s.pstride;
       float sq = 0.0f;
       for (int d = 0; d < dim; ++d) sq += p[d] * p[d];
-      b = b && sqrtf(sq) <= max_range;
+      b = sqrtf(sq) <= max_range;
     }
     s.base[i] = b;
     local += b;
   }
-  if (local) atomicAdd(&counter, local);
+  local = __reduce_add_sync(0xFFFFFFFFu, local);
+  if ((threadIdx.x & 31) == 0 && local) atomicAdd(&num_base, local);
   __syncthreads();
-  const int num_base = counter;
-  __syncthreads();
+  if (num_base <= min_num_points) {  // the same in every block of the cluster
+    for (int i = threadIdx.x; i < n; i += blockDim.x)
+      if (i % cluster == c) out[i] = s.base[i];
+    return;
+  }
+  cg::cluster_group team = cg::this_cluster();  // the counts' exchange
 
-  float resolution = resolution_or_max_length;
-  if (adaptive) {
-    if (num_base <= min_num_points) {
-      for (int i = threadIdx.x; i < n; i += blockDim.x) keep[i] = s.base[i];
-      return;
+  // Phase A: the coarse lengths max_length / 2^k.
+  count_lengths<Key>(s, dim, c, cluster, tables, kCoarseSteps, true, max_length, 0.0f,
+                     min_num_points, totals, counts, team);
+  cluster_arrive();
+  cluster_wait();
+  int first_ok = -1;
+  for (int k = 0; k < kCoarseSteps; ++k) {
+    if (counts[k] >= min_num_points) {
+      first_ok = k;
+      break;
     }
-    const float max_length = resolution_or_max_length;
-    int first_ok = -1;
-    for (int k = 0; k < kCoarseSteps; ++k) {
-      float length = max_length / (float)(1 << k);
-      if (count_voxels(s, &counter, points, stride, dim, n, slots, length) >=
-          min_num_points) {
-        first_ok = k;
+  }
+  float resolution;
+  if (first_ok < 0) {
+    resolution = max_length / (float)(1 << (kCoarseSteps - 1));
+  } else if (first_ok == 0) {
+    resolution = max_length;
+  } else {
+    // Phase B: the bisection tree's nodes below (low, high), `split` levels
+    // a round (all 5, or 3 then 2), each round's counts then the sequential
+    // loop's walk down its levels. A round's counts take slots no later
+    // round writes, so a block may start the next round while a peer walks.
+    float low = max_length / (float)(1 << first_ok);
+    float high = max_length / (float)(1 << (first_ok - 1));
+    int* level_counts = counts + kCoarseSteps;
+    for (int depth = 0; depth < kBisectSteps;) {
+      const int levels = split < kBisectSteps - depth ? split : kBisectSteps - depth;
+      count_lengths<Key>(s, dim, c, cluster, tables, (1 << levels) - 1, false, low, high,
+                         min_num_points, totals, level_counts, team);
+      cluster_arrive();
+      cluster_wait();
+      for (int step = 0, j = 0; step < levels; ++step) {
+        const float mid = 0.5f * (low + high);
+        if (level_counts[j] >= min_num_points) {
+          low = mid;
+          j = 2 * j + 2;
+        } else {
+          high = mid;
+          j = 2 * j + 1;
+        }
+      }
+      level_counts += (1 << levels) - 1;
+      depth += levels;
+    }
+    resolution = low;
+  }
+  // Phase C: the mask, spread over the cluster.
+  mask_insert<Key>(s, dim, resolution, c, cluster);
+  mask_write<kGlobal, Key>(s, c, cluster, slice, false, out);
+}
+
+// A launch's shape: clusters of `cluster` blocks of `threads`, and phase
+// B's levels a round (`split`: kBisectSteps, or kSplit where the card is
+// short of SMs).
+struct Shape {
+  int cluster, threads, split;
+};
+
+// A launch's table sizes and block bytes.
+struct Plan {
+  int bits, tables;
+  long long region, block;
+  bool global;
+};
+
+long long align16(long long v) { return (v + 15) / 16 * 16; }
+
+Plan plan_of(int n, int pre_dim, int filters, int dim, Shape shape) {
+  Plan p;
+  int slots = 64;
+  p.bits = 6;
+  while (slots < 2 * n) {
+    slots *= 2;
+    ++p.bits;
+  }
+  const long long key_bytes = dim == 3 ? 8 : 4;
+  p.global = n > kMaxSharedPoints;
+  const int pdim = p.global ? 0 : (pre_dim > dim ? pre_dim : dim);
+  const long long fixed = 2 * align16(4LL * n) + align16(4LL * n * pdim) + 2 * align16(n);
+  long long masks = pre_dim > 0 ? slots * 12LL : 0;  // a mask pass: keys and ranks
+  if (filters > 0 && slots * (key_bytes + 4) > masks) masks = slots * (key_bytes + 4);
+  const int nodes = (1 << shape.split) - 1;  // the most lengths a round counts
+  p.tables = filters > 0 ? ((nodes > kCoarseSteps ? nodes : kCoarseSteps) + shape.cluster - 1) /
+                               shape.cluster
+                         : 0;
+  if (p.tables > kMaxTables) p.tables = kMaxTables;
+  auto region = [&](int t) {
+    const long long counting = t * slots * key_bytes;
+    return align16(counting > masks ? counting : masks);
+  };
+  while (!p.global && p.tables > 1 && region(p.tables) + fixed > kSharedBudget) --p.tables;
+  p.region = region(p.tables);
+  p.block = p.region + fixed;
+  return p;
+}
+
+// The shape of a launch of `clusters` clusters: phase B in two rounds where
+// they leave fewer than kSmsPerCluster SMs each; above kMaxSharedPoints
+// kCluster blocks of kThreads; else the first of a few shapes, widest first,
+// of which the card holds every cluster of the launch at once (one wave),
+// or the narrowest. Cached by shape under a lock (launches come from
+// several threads): no query under stream capture after a shape's first
+// call.
+template <bool kGlobal, typename Key>
+Shape choose(int n, int pre_dim, int filters, int dim, int clusters) {
+  static std::mutex lock;
+  static std::map<std::array<int, 6>, Shape> cache;
+  int device = 0;
+  cudaGetDevice(&device);
+  const std::array<int, 6> key = {device, n, pre_dim, filters, dim, clusters};
+  std::lock_guard<std::mutex> hold(lock);
+  const auto hit = cache.find(key);
+  if (hit != cache.end()) return hit->second;
+  int sms = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const int split = sms < kSmsPerCluster * clusters ? kSplit : kBisectSteps;
+  constexpr int kShapes = 5;
+  const int shapes[kShapes][2] = {{16, kMaxThreads}, {8, kMaxThreads}, {8, kThreads},
+                                  {4, kMaxThreads}, {4, kThreads}};
+  Shape shape = {kCluster, kThreads, split};
+  if (!kGlobal) {
+    shape = {shapes[kShapes - 1][0], shapes[kShapes - 1][1], split};
+    for (int k = 0; k < kShapes - 1; ++k) {
+      const Shape candidate = {shapes[k][0], shapes[k][1], split};
+      cudaLaunchConfig_t config = {};
+      config.gridDim = dim3((unsigned int)(clusters * candidate.cluster), 1, 1);
+      config.blockDim = dim3((unsigned int)candidate.threads, 1, 1);
+      config.dynamicSmemBytes = (size_t)plan_of(n, pre_dim, filters, dim, candidate).block;
+      cudaLaunchAttribute attribute[1];
+      attribute[0].id = cudaLaunchAttributeClusterDimension;
+      attribute[0].val.clusterDim.x = (unsigned int)candidate.cluster;
+      attribute[0].val.clusterDim.y = 1;
+      attribute[0].val.clusterDim.z = 1;
+      config.attrs = attribute;
+      config.numAttrs = 1;
+      int active = 0;
+      if (cudaOccupancyMaxActiveClusters(&active, voxel_filter_kernel<kGlobal, Key>, &config) !=
+          cudaSuccess) {
+        cudaGetLastError();
+        continue;
+      }
+      if (active >= clusters) {
+        shape = candidate;
         break;
       }
     }
-    if (first_ok < 0) {
-      resolution = max_length / (float)(1 << (kCoarseSteps - 1));
-    } else if (first_ok == 0) {
-      resolution = max_length;
-    } else {
-      float low = max_length / (float)(1 << first_ok);
-      float high = max_length / (float)(1 << (first_ok - 1));
-      for (int step = 0; step < kBisectSteps; ++step) {
-        float mid = 0.5f * (low + high);
-        if (count_voxels(s, &counter, points, stride, dim, n, slots, mid) >=
-            min_num_points) {
-          low = mid;
-        } else {
-          high = mid;
-        }
-      }
-      resolution = low;
-    }
   }
-  final_mask(s, points, stride, dim, n, slots, resolution, keep);
+  cache[key] = shape;
+  return shape;
+}
+
+template <bool kGlobal, typename Key>
+cudaError_t launch(int robots, int filters, cudaStream_t st, const float* points, int stride,
+                   long long points_rs, const uint8_t* mask, long long mask_rs,
+                   const int* perm, long long perm_rs, int n, float pre_resolution,
+                   int pre_dim, int dim, Filters params, uint8_t* keep,
+                   unsigned char* scratch) {
+  auto kernel = voxel_filter_kernel<kGlobal, Key>;
+  // Set once per device, so that a launch under stream capture makes no
+  // attribute call.
+  static int configured = -1;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess && device != configured) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSharedBudget);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err == cudaSuccess) configured = device;
+  }
+  if (err != cudaSuccess) return err;
+  const Shape shape = filters > 0 ? choose<kGlobal, Key>(n, pre_dim, filters, dim, robots * filters)
+                                  : Shape{1, kThreads, kBisectSteps};
+  const Plan plan = plan_of(n, pre_dim, filters, dim, shape);
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((unsigned int)(robots * shape.cluster),
+                        (unsigned int)(filters > 0 ? filters : 1), 1);
+  config.blockDim = dim3((unsigned int)shape.threads, 1, 1);
+  config.dynamicSmemBytes = kGlobal ? 0 : (size_t)plan.block;
+  config.stream = st;
+  cudaLaunchAttribute attribute[1];
+  attribute[0].id = cudaLaunchAttributeClusterDimension;
+  attribute[0].val.clusterDim.x = (unsigned int)shape.cluster;
+  attribute[0].val.clusterDim.y = 1;
+  attribute[0].val.clusterDim.z = 1;
+  config.attrs = attribute;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, kernel, points, stride, points_rs, mask, mask_rs, perm,
+                           perm_rs, n, plan.bits, pre_resolution, pre_dim, filters, dim, params,
+                           shape.cluster, shape.split, plan.tables, plan.region, keep, scratch,
+                           kGlobal ? plan.block : 0LL);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int voxel_filter_shared_bytes(int n, int slots) {
-  return slots * (8 + 4) + n * (4 + 4 + 1);
+// The scratch bytes a call needs: 16 up to kMaxSharedPoints points, else a
+// slice per block of the launch's shape.
+extern "C" long long voxel_filter_scratch_bytes(int n, int robots, int pre_dim, int filters,
+                                                int dim) {
+  if (n <= kMaxSharedPoints) return 16;
+  const int clusters = robots * filters;
+  const Shape shape = filters == 0 ? Shape{1, kThreads, kBisectSteps}
+                      : dim == 2   ? choose<true, uint32_t>(n, pre_dim, filters, dim, clusters)
+                                   : choose<true, unsigned long long>(n, pre_dim, filters, dim,
+                                                                      clusters);
+  return plan_of(n, pre_dim, filters, dim, shape).block * robots *
+         (filters > 0 ? filters * shape.cluster : 1);
 }
 
-// The scratch bytes of one (filter, robot) block: voxel_filter_shared_bytes
-// rounded up to 8.
-extern "C" long long voxel_filter_scratch_slice(int n, int slots) {
-  return ((long long)voxel_filter_shared_bytes(n, slots) + 7) / 8 * 8;
-}
-
-// `points`, `mask` and `perm` are robot 0's; robot r's lie `*_rs` elements
-// further. `filters` (1 or 2) filters, filter k of parameters (length_k,
-// min_num_points_k, max_range_k), each run over every robot's cloud into
-// keep[filter][robot]; without `adaptive` the length is the resolution. `scratch` holds filters
-// x robots x voxel_filter_scratch_slice(n, slots) bytes (8-byte aligned),
-// used when n > kMaxSharedPoints.
-extern "C" int voxel_filter(const void* points, int stride, long long points_rs, int dim,
+// `points` (stride floats a point), `mask` and `perm` are robot 0's; robot
+// r's lie `*_rs` elements further. With pre_dim (2 or 3) the random filter
+// at pre_resolution over the first pre_dim coordinates; then `filters` (0 to
+// 2) adaptive filters, filter k of parameters (length_k, min_num_points_k,
+// max_range_k), over the first `dim` coordinates of the random filter's
+// keep-mask (or of `mask`). keep: (outputs, robots, n) flags. `scratch`
+// holds voxel_filter_scratch_bytes(...) bytes, 16-byte aligned.
+extern "C" int voxel_filter(const void* points, int stride, long long points_rs,
                             const void* mask, long long mask_rs, const void* perm,
-                            long long perm_rs, int n, int slots, int robots, int filters,
-                            int adaptive, float length0, int min_num_points0,
-                            float max_range0, float length1, int min_num_points1,
-                            float max_range1, void* keep, void* scratch, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (scratch == nullptr || robots < 1 || filters < 1 || filters > kMaxFilters)
+                            long long perm_rs, int n, int robots, float pre_resolution,
+                            int pre_dim, int filters, int dim, float length0,
+                            int min_num_points0, float max_range0, float length1,
+                            int min_num_points1, float max_range1, void* keep, void* scratch,
+                            long long scratch_bytes, void* stream) {
+  if (n < 0 || robots < 1 || filters < 0 || filters > kMaxFilters ||
+      (pre_dim != 0 && pre_dim != 2 && pre_dim != 3) || (dim != 2 && dim != 3) ||
+      (pre_dim == 0 && filters == 0) || scratch == nullptr ||
+      stride < (pre_dim > dim ? pre_dim : dim))
     return (int)cudaErrorInvalidValue;
-  Filters f = {{length0, length1}, {min_num_points0, min_num_points1},
-               {max_range0, max_range1}};
-  const dim3 grid(robots, filters);
-  const long long slice = voxel_filter_scratch_slice(n, slots);
-  if (n > kMaxSharedPoints) {
-    voxel_filter_kernel<true><<<grid, kThreads, 0, st>>>(
-        (const float*)points, stride, points_rs, dim, (const uint8_t*)mask, mask_rs,
-        (const int*)perm, perm_rs, n, slots, adaptive, f, (uint8_t*)keep,
-        (unsigned char*)scratch, slice);
-    return (int)cudaGetLastError();
+  if (n == 0) return 0;
+  if (scratch_bytes < voxel_filter_scratch_bytes(n, robots, pre_dim, filters, dim))
+    return (int)cudaErrorInvalidValue;
+  const Filters params = {{length0, length1}, {min_num_points0, min_num_points1},
+                          {max_range0, max_range1}};
+  const bool global = n > kMaxSharedPoints;
+  cudaStream_t st = (cudaStream_t)stream;
+  const float* p = (const float*)points;
+  const uint8_t* m = (const uint8_t*)mask;
+  const int* q = (const int*)perm;
+  uint8_t* k = (uint8_t*)keep;
+  unsigned char* sc = (unsigned char*)scratch;
+  cudaError_t err;
+  if (global) {
+    err = dim == 2 ? launch<true, uint32_t>(robots, filters, st, p, stride,
+                                             points_rs, m, mask_rs, q, perm_rs, n,
+                                             pre_resolution, pre_dim, dim, params, k, sc)
+                   : launch<true, unsigned long long>(robots, filters, st, p,
+                                                      stride, points_rs, m, mask_rs, q,
+                                                      perm_rs, n, pre_resolution, pre_dim, dim,
+                                                      params, k, sc);
+  } else {
+    err = dim == 2 ? launch<false, uint32_t>(robots, filters, st, p, stride,
+                                              points_rs, m, mask_rs, q, perm_rs, n,
+                                              pre_resolution, pre_dim, dim, params, k, sc)
+                   : launch<false, unsigned long long>(robots, filters, st, p,
+                                                       stride, points_rs, m, mask_rs, q,
+                                                       perm_rs, n, pre_resolution, pre_dim,
+                                                       dim, params, k, sc);
   }
-  int shared = voxel_filter_shared_bytes(n, slots);
-  // Raised once per device to the largest size asked so far, so that a
-  // launch under stream capture makes no attribute call.
-  static int configured_device = -1, configured_bytes = 0;
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return (int)err;
-  if (device != configured_device || shared > configured_bytes) {
-    err = cudaFuncSetAttribute(voxel_filter_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
-    if (err != cudaSuccess) return (int)err;
-    configured_device = device;
-    configured_bytes = shared;
-  }
-  voxel_filter_kernel<false><<<grid, kThreads, shared, st>>>(
-      (const float*)points, stride, points_rs, dim, (const uint8_t*)mask, mask_rs,
-      (const int*)perm, perm_rs, n, slots, adaptive, f, (uint8_t*)keep, nullptr, 0);
-  return (int)cudaGetLastError();
+  return (int)err;
 }
 
 // ---------------------------------------------------------------- K31

@@ -5,10 +5,11 @@ Counterpart of the JAX package's `mapping/local_trajectory_builder_2d.py`
 the sequential state (pose extrapolator, submap window, sensor collation)
 and runs one device step per scan, `batched_step`:
 
-  1. preprocess: unwarp, gate, gravity-align, voxel filter (K1, K2)
-  2. the two adaptive voxel filters (K2, one launch), the online
-     correlative search when `use_online_correlative_scan_matching` is set
-     (K5) and the LM refine (K3)
+  1. preprocess: unwarp, gate, gravity-align (K1), then the voxel filter
+     and the two adaptive voxel filters over its output (K2, one launch)
+  2. the online correlative search when
+     `use_online_correlative_scan_matching` is set (K5) and the LM refine
+     (K3)
   3. the motion filter decision, on the device
   4. the conditional raycast insertion into both active submaps (K4)
 
@@ -59,12 +60,11 @@ from cartographer_tpu_torch.ops.correlative_2d import (
 from cartographer_tpu_torch.ops.scan_matcher_2d import GaussNewtonMatcherParams2D, lm_match_2d
 from cartographer_tpu_torch.ops.scan_pipeline_2d import (
     ScanPreprocessParams2D,
-    preprocess_scan_2d,
+    preprocess_and_filter_scan_2d,
 )
 from cartographer_tpu_torch.ops.tsdf_2d import lm_match_tsdf_2d
 from cartographer_tpu_torch.sensor.data import ImuData, OdometryData, TimedPointCloudData
 from cartographer_tpu_torch.sensor.point_cloud import PointCloud, RangeData
-from cartographer_tpu_torch.sensor.voxel_filter import adaptive_voxel_filter_masks
 from cartographer_tpu_torch.transform import nquat
 from cartographer_tpu_torch.transform import quaternion as quat
 from cartographer_tpu_torch.transform.rigid import Rigid2, Rigid3
@@ -164,15 +164,14 @@ def device_step(builders: Sequence["LocalTrajectoryBuilder2D"], upload: torch.Te
     pred = small[:, _PRED]
     has_grid = small[:, _HAS_GRID] > 0.5
 
-    rd_aligned, _ = preprocess_scan_2d(
-        points, t01, mask, origins, Rigid3(small[:, _PS_T], small[:, _PS_Q]),
-        Rigid3(small[:, _PE_T], small[:, _PE_Q]), gravity_q, b0._pre_params, perms)
-    # The matcher's filter and the loop-closure node cloud's coarser one.
+    # The matcher's filter and the loop-closure node cloud's coarser one,
+    # in the voxel filter's launch.
     avf, lc = opts.adaptive_voxel_filter, opts.loop_closure_adaptive_voxel_filter
-    keep, keep_lc = adaptive_voxel_filter_masks(
-        rd_aligned.returns.points, rd_aligned.returns.mask,
+    rd_aligned, _, (keep, keep_lc) = preprocess_and_filter_scan_2d(
+        points, t01, mask, origins, Rigid3(small[:, _PS_T], small[:, _PS_Q]),
+        Rigid3(small[:, _PE_T], small[:, _PE_Q]), gravity_q, b0._pre_params, perms,
         [(avf.max_length, avf.min_num_points, avf.max_range),
-         (lc.max_length, lc.min_num_points, lc.max_range)], perms)
+         (lc.max_length, lc.min_num_points, lc.max_range)])
     filtered = rd_aligned.returns.filter_mask(keep)
     if opts.tpu.matcher_capacity < n:
         filtered = filtered.compact(opts.tpu.matcher_capacity)

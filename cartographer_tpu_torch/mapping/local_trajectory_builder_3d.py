@@ -11,7 +11,7 @@ intensity pools' window, K19) and runs one device step, `_fused_step`:
 
   1. unwarp between the extrapolated start and end poses, the range gate
      on each point's own ray, the voxel filter (K2, 3D keys)
-  2. the high- and the low-resolution adaptive voxel filters (K2)
+  2. the high- and the low-resolution adaptive voxel filters (K2, one launch)
   3. with `use_online_correlative_scan_matching`, the real-time correlative
      search of the high-resolution cloud on the high window around the
      prediction (K17), whose best pose starts the LM
@@ -82,7 +82,10 @@ from cartographer_tpu_torch.ops.scan_matcher_3d import (
 )
 from cartographer_tpu_torch.sensor.data import ImuData, OdometryData, TimedPointCloudData
 from cartographer_tpu_torch.sensor.point_cloud import PointCloud
-from cartographer_tpu_torch.sensor.voxel_filter import adaptive_voxel_filter, voxel_filter_mask
+from cartographer_tpu_torch.sensor.voxel_filter import (
+    adaptive_voxel_filter_masks,
+    voxel_filter_mask,
+)
 from cartographer_tpu_torch.transform import nquat
 from cartographer_tpu_torch.transform import quaternion as quat
 from cartographer_tpu_torch.transform.interpolation import interpolate_rigid3
@@ -314,10 +317,11 @@ class LocalTrajectoryBuilder3D:
         cloud = PointCloud(tracking, keep, intensities)
         hi = opts.high_resolution_adaptive_voxel_filter
         lo = opts.low_resolution_adaptive_voxel_filter
-        high = adaptive_voxel_filter(cloud, hi.max_length, hi.min_num_points, hi.max_range,
-                                     perm).compact(cap_high)
-        low = adaptive_voxel_filter(cloud, lo.max_length, lo.min_num_points, lo.max_range,
-                                    perm).compact(cap_low)
+        keep_high, keep_low = adaptive_voxel_filter_masks(
+            tracking, keep, [(hi.max_length, hi.min_num_points, hi.max_range),
+                             (lo.max_length, lo.min_num_points, lo.max_range)], perm)
+        high = cloud.filter_mask(keep_high).compact(cap_high)
+        low = cloud.filter_mask(keep_low).compact(cap_low)
 
         # The LM starts from the correlative search's best pose (when it
         # runs) and its rotation penalty pulls toward it; its translation

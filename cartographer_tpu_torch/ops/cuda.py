@@ -127,6 +127,20 @@ class CudaKernel:
             self.launches += 1
 
 
+def host_function(source: str, symbol: str, argtypes, restype):
+    """An exported C function of `csrc/<source>` that launches no kernel (a
+    size query, say): loaded from the same library, built at first use, and
+    not counted as a launch."""
+    with _lock:
+        path = library_path(source)
+        if not path.exists():
+            build([source])
+        fn = getattr(ctypes.CDLL(str(path)), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = restype
+    return fn
+
+
 def reset_launch_counts() -> None:
     for kernel in KERNELS.values():
         kernel.launches = 0

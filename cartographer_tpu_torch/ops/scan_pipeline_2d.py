@@ -9,7 +9,9 @@ voxel filter.
 
 On CUDA tensors the per-point pass is the kernel
 `csrc/scan_preprocess_2d.cu` (K1) and the voxel filter the kernel
-`csrc/voxel_filter.cu` (K2); on CPU tensors both run their plain twins.
+`csrc/voxel_filter.cu` (K2), which `preprocess_and_filter_scan_2d` also
+gives the step's two adaptive filters, in the same launch; on CPU tensors
+both run their plain twins.
 Every argument may carry a leading robot dimension R (the cross-robot
 batched step): each kernel is then one launch for all R robots, and one
 robot is its R = 1 case; the plain twins run robot by robot.
@@ -26,7 +28,7 @@ import torch
 
 from cartographer_tpu_torch.ops import cuda
 from cartographer_tpu_torch.sensor.point_cloud import PointCloud, RangeData
-from cartographer_tpu_torch.sensor.voxel_filter import voxel_filter_mask
+from cartographer_tpu_torch.sensor.voxel_filter import voxel_filter_masks
 from cartographer_tpu_torch.transform.interpolation import interpolate_rigid3
 from cartographer_tpu_torch.transform.rigid import Rigid3
 
@@ -137,11 +139,23 @@ def preprocess_scan_2d(
     after cropping; the returns are voxel-filtered in 3D cells. With a
     leading robot dimension on every argument, every field of the result
     has it too."""
+    rd, origin_aligned, _ = preprocess_and_filter_scan_2d(
+        points, times01, mask, origin, pose_start, pose_end, gravity_rotation, params, perm, ())
+    return rd, origin_aligned
+
+
+def preprocess_and_filter_scan_2d(points, times01, mask, origin, pose_start, pose_end,
+                                  gravity_rotation, params, perm, adaptive_filters):
+    """preprocess_scan_2d and the keep-masks of up to two adaptive voxel
+    filters (each `(max_length, min_num_points, max_range)`) over its
+    returns' x and y: -> (RangeData, origin, [one mask per filter]). K2 is
+    one launch for the random filter and the adaptive ones."""
     hits, misses, is_return, is_miss, origin_aligned = align_scan(
         points, times01, mask, origin, pose_start, pose_end, gravity_rotation, params)
-    keep = voxel_filter_mask(hits, is_return, params.voxel_filter_size, perm)
+    keep, *adaptive = voxel_filter_masks(hits, is_return, params.voxel_filter_size, perm,
+                                         adaptive_filters, 2)
     zeros = torch.zeros(points.shape[:-1], dtype=torch.float32, device=points.device)
     returns = PointCloud(points=hits[..., 0:2], mask=keep, intensities=zeros)
     miss_cloud = PointCloud(points=misses, mask=is_miss, intensities=zeros)
     return RangeData(origin=origin_aligned[..., 0:2], returns=returns, misses=miss_cloud), \
-        origin_aligned
+        origin_aligned, adaptive

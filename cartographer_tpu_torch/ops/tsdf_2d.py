@@ -12,7 +12,8 @@ loop-closure refine (K3) read in their TSDF forms.
 Three kernels, each with its plain PyTorch twin, which CPU tensors take:
 
   - `estimate_normals_2d` (K20, `csrc/tsdf_2d.cu` `tsdf_normals_2d`):
-    normals from the angle-sorted neighbours of each return;
+    normals from the angle-sorted neighbours of each return, one launch
+    (a block per robot) up to 8,192 returns;
   - `insert_into_slots_tsdf` (K21, `tsdf_insert_2d`): one scan into every
     active grid of a batch (the two active submaps), in place, each cell's
     samples added in input order (`csrc/in_order_scatter.cuh`), so the card
@@ -54,6 +55,7 @@ _FUNCTION_TOLERANCE = 1e-6  # lm_solve's default, which the JAX TSDF matcher kee
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _NORMALS = cuda.CudaKernel("tsdf_2d.cu", "tsdf_normals_2d", [_P, _P, _P, _I, _I, _P, _P, _P])
+_NORMALS_ONE_BLOCK = 8192  # kOneBlockKeys: K20 in one launch up to this many points
 _INSERT = cuda.CudaKernel(
     "tsdf_2d.cu", "tsdf_insert_2d",
     [_P, _I, _P, _P, _P, _P, _I, _P, _F, _I, _F, _F, _I, _F, _F, _I, _P, _P, _I, _I, _P])
@@ -217,8 +219,10 @@ def estimate_normals_2d(points: torch.Tensor, mask: torch.Tensor,
                         in ((points, "points", torch.float32, (n, 2)),
                             (mask, "mask", torch.bool, (n,)),
                             (origin, "origin", torch.float32, (2,)))], np.int64)
-    keys = torch.empty((robots or 1) * max(2, 1 << (n - 1).bit_length()), dtype=torch.int64,
-                       device=points.device)
+    # The keys' scratch: only above one block's sort, where they go through
+    # device memory.
+    keys = torch.empty((robots or 1) * max(2, 1 << (n - 1).bit_length())
+                       if n > _NORMALS_ONE_BLOCK else 1, dtype=torch.int64, device=points.device)
     normals = torch.empty(points.shape, dtype=torch.float32, device=points.device)
     _NORMALS(points.device, points.data_ptr(), mask.data_ptr(), origin.data_ptr(), n,
              robots or 1, strides.ctypes.data, keys.data_ptr(), normals.data_ptr())

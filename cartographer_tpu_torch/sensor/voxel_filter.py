@@ -10,18 +10,21 @@ The wrappers launch the CUDA kernel `csrc/voxel_filter.cu` (K2) on CUDA
 tensors and run the plain PyTorch twin, the JAX algorithm written in
 PyTorch (shuffle, stable sort by packed key, last point of each run), on
 CPU tensors. The kernel takes clouds of any size: above one block's shared
-memory its hash table moves to a device-memory scratch that the wrapper
+memory its hash tables move to a device-memory scratch that the wrapper
 passes. Clouds with a leading robot dimension (R, N, D), one permutation
-row per robot, are one launch for every robot, and `adaptive_voxel_filter_masks`
-runs two adaptive filters over the same clouds in that one launch (the
-cross-robot batched step's form; one robot is its R = 1 case). The fork's edge filter (`voxel_filter_edge`) keeps the points
-of sparsely populated voxels: K31 in the same source on CUDA tensors, its
-plain twin (the JAX program: sorted keys, run lengths) on CPU tensors.
+row per robot, are one launch for every robot; `adaptive_voxel_filter_masks`
+runs two adaptive filters over the same clouds in that one launch, and
+`voxel_filter_masks` the random filter and up to two adaptive filters over
+its output (the 2D step's three filters; one robot is its R = 1 case). The
+fork's edge filter (`voxel_filter_edge`) keeps the points of sparsely
+populated voxels: K31 in the same source on CUDA tensors, its plain twin
+(the JAX program: sorted keys, run lengths) on CPU tensors.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -37,8 +40,7 @@ _SENTINEL = 1 << 62  # sorts after every packed key of a valid point
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _KERNEL = cuda.CudaKernel(
     "voxel_filter.cu", "voxel_filter",
-    [_P, _I, _L, _I, _P, _L, _P, _L, _I, _I, _I, _I, _I, _F, _I, _F, _F, _I, _F, _P, _P])
-_MAX_SHARED_POINTS = 4096  # the kernel's kMaxSharedPoints: above it the table is in scratch
+    [_P, _I, _L, _P, _L, _P, _L, _I, _I, _F, _I, _I, _I, _F, _I, _F, _F, _I, _F, _P, _P, _L])
 _MAX_FILTERS = 2  # kMaxFilters
 _EDGE_KERNEL = cuda.CudaKernel(
     "voxel_filter.cu", "voxel_filter_edge",
@@ -122,38 +124,47 @@ def voxel_filter_edge_plain(points, mask, resolution, voxel_edge_ratio) -> torch
 # ---------------------------------------------------------------- kernel
 
 
-def _launch(points, mask, perm, adaptive, filters):
+@functools.lru_cache(maxsize=None)
+def _scratch_bytes(n, robots, pre_dim, filters, dim):
+    """The kernel's own `voxel_filter_scratch_bytes`: 16 up to one block's
+    shared memory, else a slice of device memory per block."""
+    return cuda.host_function("voxel_filter.cu", "voxel_filter_scratch_bytes",
+                              [_I] * 5, _L)(n, robots, pre_dim, filters, dim)
+
+
+def _launch(points, mask, perm, resolution, filters, dim):
     """K2 over a (N, D) cloud or R robots' (R, N, D) clouds, with masks and
-    permutations of the clouds' leading shape: one launch; -> keep-masks
-    (F, N) or (F, R, N) of the F = len(filters) filters, each (length,
-    min_num_points, max_range)."""
+    permutations of the clouds' leading shape: one launch. With a
+    `resolution` the random filter over the D coordinates, then the
+    len(filters) adaptive filters (each (max_length, min_num_points,
+    max_range)) over the first `dim` coordinates of the points it keeps.
+    -> keep-masks (outputs, N) or (outputs, R, N), the random filter's
+    first."""
     robots = points.shape[0] if points.dim() == 3 else None
-    n, dim = points.shape[-2], points.shape[-1]
-    if dim not in (2, 3) or points.stride(-1) != 1:
+    n, width = points.shape[-2], points.shape[-1]
+    if width not in (2, 3) or dim not in (2, 3) or dim > width or points.stride(-1) != 1:
         raise ValueError("points must be (..., N, 2) or (..., N, 3) with unit column stride")
     if points.dtype != torch.float32 or not points.is_cuda:
         raise ValueError("points must be a float32 CUDA tensor")
-    if not 1 <= len(filters) <= _MAX_FILTERS:
-        raise ValueError(f"one launch takes 1 to {_MAX_FILTERS} filters, got {len(filters)}")
+    if len(filters) > _MAX_FILTERS or (resolution is None and not filters):
+        raise ValueError(f"one launch takes a random filter and up to {_MAX_FILTERS} adaptive "
+                         f"filters, at least one of them: got {len(filters)} adaptive filters"
+                         f"{'' if resolution is not None else ' and no random filter'}")
     mask_rs = cuda.robot_stride(mask, "mask", torch.bool, (n,), robots)
     perm_rs = cuda.robot_stride(perm, "perm", torch.int32, (n,), robots)
-    slots = 64
-    while slots < 2 * n:
-        slots *= 2
+    pre_dim = 0 if resolution is None else width
     lead = () if robots is None else (robots,)
-    keep = torch.empty((len(filters), *lead, n), dtype=torch.bool, device=points.device)
-    # Table, ranks, inverse permutation, slots and flags per (filter, robot),
-    # for a cloud whose table does not fit the kernel's shared memory.
-    slice_bytes = -(-(slots * 12 + n * 9) // 8) * 8
-    scratch = torch.empty(slice_bytes * len(filters) * (robots or 1)
-                          if n > _MAX_SHARED_POINTS else 8, dtype=torch.uint8,
-                          device=points.device)
-    (l0, m0, r0), (l1, m1, r1) = filters[0], filters[-1]
+    keep = torch.empty(((resolution is not None) + len(filters), *lead, n), dtype=torch.bool,
+                       device=points.device)
+    scratch = torch.empty(_scratch_bytes(n, robots or 1, pre_dim, len(filters), dim),
+                          dtype=torch.uint8, device=points.device)
+    (l0, m0, r0), (l1, m1, r1) = (filters[0], filters[-1]) if filters else ((0.0, 0, 0.0),) * 2
     _KERNEL(points.device, points.data_ptr(), points.stride(-2),
-            points.stride(0) if robots is not None and robots > 1 else 0, dim,
-            mask.data_ptr(), mask_rs, perm.data_ptr(), perm_rs, n, slots, robots or 1,
-            len(filters), int(adaptive), float(l0), int(m0), float(r0), float(l1), int(m1),
-            float(r1), keep.data_ptr(), scratch.data_ptr())
+            points.stride(0) if robots is not None and robots > 1 else 0, mask.data_ptr(),
+            mask_rs, perm.data_ptr(), perm_rs, n, robots or 1,
+            0.0 if resolution is None else float(resolution), pre_dim, len(filters), dim,
+            float(l0), int(m0), float(r0), float(l1), int(m1), float(r1), keep.data_ptr(),
+            scratch.data_ptr(), scratch.numel())
     return keep
 
 
@@ -166,7 +177,7 @@ def voxel_filter_mask(points: torch.Tensor, mask: torch.Tensor, resolution: floa
     `resolution`: the point that comes last in the order `perm`. `points`
     (N, D), or (R, N, D) with `mask` and `perm` (R, N): R robots' clouds."""
     if points.is_cuda:
-        return _launch(points, mask, perm, False, [(resolution, 0, 0.0)])[0]
+        return _launch(points, mask, perm, resolution, [], points.shape[-1])[0]
     if points.dim() == 2:
         return voxel_filter_mask_plain(points, mask, resolution, perm)
     return torch.stack([voxel_filter_mask_plain(p, m, resolution, q)
@@ -180,13 +191,30 @@ def adaptive_voxel_filter_masks(points: torch.Tensor, mask: torch.Tensor, filter
     (R, N, D), `mask` and `perm` (N,) or (R, N); one mask per filter, of
     `mask`'s shape. On CUDA tensors every filter and robot is one launch."""
     if points.is_cuda:
-        return list(_launch(points, mask, perm, True, list(filters)))
+        return list(_launch(points, mask, perm, None, list(filters), points.shape[-1]))
     if points.dim() == 2:
         return [adaptive_voxel_filter_mask_plain(points, mask, length, num, max_range, perm)
                 for length, num, max_range in filters]
     return [torch.stack([adaptive_voxel_filter_mask_plain(p, m, length, num, max_range, q)
                          for p, m, q in zip(points, mask, perm)])
             for length, num, max_range in filters]
+
+
+def voxel_filter_masks(points: torch.Tensor, mask: torch.Tensor, resolution: float,
+                       perm: torch.Tensor, adaptive_filters=(), adaptive_dim=None):
+    """The random filter's keep-mask at `resolution` over all D coordinates
+    of `points` ((N, D) or (R, N, D)), then the keep-masks of up to two
+    adaptive filters (each `(max_length, min_num_points, max_range)`) over
+    the first `adaptive_dim` (default D) coordinates of the points it keeps.
+    -> [random, *adaptive], each of `mask`'s shape; one launch on CUDA
+    tensors."""
+    dim = points.shape[-1] if adaptive_dim is None else adaptive_dim
+    if points.is_cuda:
+        return list(_launch(points, mask, perm, resolution, list(adaptive_filters), dim))
+    keep = voxel_filter_mask(points, mask, resolution, perm)
+    if not adaptive_filters:
+        return [keep]
+    return [keep, *adaptive_voxel_filter_masks(points[..., 0:dim], keep, adaptive_filters, perm)]
 
 
 def adaptive_voxel_filter(cloud: PointCloud, max_length: float, min_num_points: int,

@@ -416,38 +416,41 @@ def _kernel_phase(torch, dev):
         plain_ms=_cuda_ms(lambda: scan_pipeline_2d.align_scan_plain(*args)),
         bound=_bound(*_k1_work(n)), library_ms=None)
 
-    # K2: the preprocess filter (3D keys) and both adaptive filters (2D).
+    # K2: the preprocess filter (3D keys) and both adaptive filters (2D) over
+    # its output, in one launch, as the step makes it.
     hits, is_return = got[0], got[2]
     perm = torch.randperm(n, generator=torch.Generator(device=dev).manual_seed(3),
                           device=dev, dtype=torch.int32)
-    keep = voxel_filter.voxel_filter_mask(hits, is_return, pre.voxel_filter_size, perm)
-    returns = PointCloud(hits[:, 0:2], keep, torch.zeros(n, device=dev))
-    mism = int((keep != voxel_filter.voxel_filter_mask_plain(
-        hits, is_return, pre.voxel_filter_size, perm)).sum())
     filters = (opts.adaptive_voxel_filter, opts.loop_closure_adaptive_voxel_filter)
-    for f in filters:
-        a = voxel_filter.adaptive_voxel_filter(returns, f.max_length, f.min_num_points,
-                                               f.max_range, perm).mask
-        b = voxel_filter.adaptive_voxel_filter_mask_plain(
-            returns.points, returns.mask, f.max_length, f.min_num_points, f.max_range, perm)
-        mism += int((a != (b & returns.mask)).sum())
-    if mism:
-        _fail(f"K2 masks differ from the plain twin in {mism} points (tolerance 0)")
-    print("K2 voxel_filter: masks equal to the plain twin (tolerance: exact)")
-    avf = filters[0]
-
     pair = [(f.max_length, f.min_num_points, f.max_range) for f in filters]
-    for f, a in zip(filters, voxel_filter.adaptive_voxel_filter_masks(returns.points, keep,
-                                                                      pair, perm)):
-        b = voxel_filter.adaptive_voxel_filter_mask_plain(
-            returns.points, returns.mask, f.max_length, f.min_num_points, f.max_range, perm)
-        mism += int((a != (b & returns.mask)).sum())
-    if mism:
-        _fail(f"K2's two-filter launch differs from the plain twin in {mism} points")
 
-    def k2_scan():  # the two launches of one scan, as the step makes them
-        m = voxel_filter.voxel_filter_mask(hits, is_return, pre.voxel_filter_size, perm)
-        voxel_filter.adaptive_voxel_filter_masks(hits[:, 0:2], m, pair, perm)
+    def k2_scan():  # the scan's one launch
+        return voxel_filter.voxel_filter_masks(hits, is_return, pre.voxel_filter_size, perm,
+                                               pair, 2)
+
+    keep, *adaptive = k2_scan()
+    plain_keep = voxel_filter.voxel_filter_mask_plain(hits, is_return, pre.voxel_filter_size,
+                                                      perm)
+    mism = int((keep != plain_keep).sum())
+    returns = PointCloud(hits[:, 0:2], keep, torch.zeros(n, device=dev))
+    for f, a in zip(filters, adaptive):
+        b = voxel_filter.adaptive_voxel_filter_mask_plain(
+            returns.points, plain_keep, f.max_length, f.min_num_points, f.max_range, perm)
+        mism += int((a != b).sum())
+    if mism:
+        _fail(f"K2's three masks differ from the plain twins in {mism} points (tolerance 0)")
+    # The separate entry points too (the 3D path's): the random filter alone
+    # and both adaptive filters over its output.
+    mism = int((voxel_filter.voxel_filter_mask(hits, is_return, pre.voxel_filter_size, perm)
+                != keep).sum())
+    for a, b in zip(voxel_filter.adaptive_voxel_filter_masks(returns.points, keep, pair, perm),
+                    adaptive):
+        mism += int((a != b).sum())
+    if mism:
+        _fail(f"K2's separate launches differ from its fused launch in {mism} points")
+    print("K2 voxel_filter: the fused launch's three masks equal the plain twins' "
+          "(tolerance: exact), and the separate launches' masks")
+    avf = filters[0]
 
     def k2_plain():
         m = voxel_filter.voxel_filter_mask_plain(hits, is_return, pre.voxel_filter_size, perm)
@@ -573,9 +576,11 @@ def _k1_work(n):
 
 
 def _k2_work(torch, hits, keep, filters, perm):
-    """K2's two launches of a scan: the preprocess filter's 3D keys, then
-    the two adaptive filters' hashing passes, as many as this scan's
-    search makes (it ends early)."""
+    """K2's launch for a scan: the hits, flags and permutation read once and
+    the three masks written once; the preprocess filter's pass over the 3D
+    keys, then the two adaptive filters' hashing passes, as many as this
+    scan's sequential search needs (it ends early; the kernel counts the
+    bisection's 31 lengths side by side, more work than this)."""
     from cartographer_tpu_torch.sensor import voxel_filter
 
     n, passes = hits.shape[0], 1
@@ -588,7 +593,7 @@ def _k2_work(torch, hits, keep, filters, perm):
             for k in range(7)]
         first = coarse.index(True) if any(coarse) else 7
         passes += min(first + 1, 7) + (5 if 0 < first < 7 else 0) + 1
-    return n * (12 + 1 + 4 + 1) + 2 * n * (8 + 1 + 4 + 1), passes * int(keep.sum()) * 20
+    return n * (12 + 1 + 4) + 3 * n, passes * int(keep.sum()) * 20
 
 
 def _k3_work(valid, iterations):
@@ -1745,11 +1750,11 @@ def _kernel_phase_3d(torch, dev, builder, last_step):
     mism = int((m != voxel_filter.voxel_filter_mask_plain(local_points, keep,
                                                           opts.voxel_filter_size, perm)).sum())
     centered = (local_points - est_t).contiguous()
-    for f in (opts.high_resolution_adaptive_voxel_filter,
-              opts.low_resolution_adaptive_voxel_filter):
-        a = voxel_filter.adaptive_voxel_filter(
-            PointCloud(centered, keep, torch.zeros(n, device=dev)), f.max_length,
-            f.min_num_points, f.max_range, perm).mask
+    filters = (opts.high_resolution_adaptive_voxel_filter,
+               opts.low_resolution_adaptive_voxel_filter)
+    both = voxel_filter.adaptive_voxel_filter_masks(  # the 3D step's one launch of both
+        centered, keep, [(f.max_length, f.min_num_points, f.max_range) for f in filters], perm)
+    for f, a in zip(filters, both):
         b = voxel_filter.adaptive_voxel_filter_mask_plain(centered, keep, f.max_length,
                                                           f.min_num_points, f.max_range, perm)
         mism += int((a != (b & keep)).sum())
@@ -2283,26 +2288,21 @@ def _large_scan_phase_3d(torch, dev):
     keep = voxel_filter.voxel_filter_mask(pts, mask, opts.voxel_filter_size, perm)
     mism = int((keep != voxel_filter.voxel_filter_mask_plain(
         pts, mask, opts.voxel_filter_size, perm)).sum())
-    cloud = PointCloud(pts, keep, torch.zeros(size, device=dev))
     filters = (opts.high_resolution_adaptive_voxel_filter,
                opts.low_resolution_adaptive_voxel_filter)
-    for f in filters:
-        a = voxel_filter.adaptive_voxel_filter(cloud, f.max_length, f.min_num_points,
-                                               f.max_range, perm).mask
+    pair = [(f.max_length, f.min_num_points, f.max_range) for f in filters]
+    for f, a in zip(filters, voxel_filter.adaptive_voxel_filter_masks(pts, keep, pair, perm)):
         b = voxel_filter.adaptive_voxel_filter_mask_plain(pts, keep, f.max_length,
                                                           f.min_num_points, f.max_range, perm)
         mism += int((a != b).sum())
-    print(f"K2 voxel_filter at {size} points (table in device memory): {mism} points differ "
+    print(f"K2 voxel_filter at {size} points (tables in device memory): {mism} points differ "
           f"from the twin (tolerance: exact)")
     if mism:
         _fail(f"K2 at {size} points differs from the plain twin")
 
-    def k2_scan():
+    def k2_scan():  # the 3D step's two launches
         m = voxel_filter.voxel_filter_mask(pts, mask, opts.voxel_filter_size, perm)
-        c = PointCloud(pts, m, cloud.intensities)
-        for f in filters:
-            voxel_filter.adaptive_voxel_filter(c, f.max_length, f.min_num_points, f.max_range,
-                                               perm)
+        voxel_filter.adaptive_voxel_filter_masks(pts, m, pair, perm)
 
     def k2_plain():
         m = voxel_filter.voxel_filter_mask_plain(pts, mask, opts.voxel_filter_size, perm)
@@ -4108,7 +4108,8 @@ def _state_interchange_phase(torch, dev, mb2d, pg3d):
 
 def _keeping_tick(torch, tsdf=False):
     """Record the kernels' arguments and results through one robot-batched
-    step: K1, K2, K5, then K3 and K4, or with `tsdf` K22, K20 and K21
+    step: K1, K2 (its one launch of three filters), K5, then K3 and K4, or
+    with `tsdf` K22, K20 and K21
     (grids cloned where a later kernel of the step writes them: K5 and the
     refine read the grids the insertion then updates; the insertion keeps
     its grids from before). -> (the calls by kernel, a function that
@@ -4120,11 +4121,9 @@ def _keeping_tick(torch, tsdf=False):
     def cloned(args):
         return ([g.clone() for g in args[0]], *args[1:])
 
-    kept = {k: [] for k in ("align", "voxel", "adaptive", "correlative", "lm", "insert",
-                            "normals")}
+    kept = {k: [] for k in ("align", "voxel", "correlative", "lm", "insert", "normals")}
     restore = [_recording(scan_pipeline_2d, "align_scan", kept["align"], result=True),
-               _recording(scan_pipeline_2d, "voxel_filter_mask", kept["voxel"], result=True),
-               _recording(ltb, "adaptive_voxel_filter_masks", kept["adaptive"], result=True),
+               _recording(scan_pipeline_2d, "voxel_filter_masks", kept["voxel"], result=True),
                _recording(correlative_2d, "correlative_match", kept["correlative"],
                           transform=cloned, result=True),
                _recording(ltb, "lm_match_tsdf_2d" if tsdf else "lm_match_2d", kept["lm"],
@@ -4196,8 +4195,7 @@ def _tick_against_twins(torch, opts, kept, tsdf=False):
     from cartographer_tpu_torch.transform.rigid import Rigid3
 
     (a1, got1), = kept["align"]
-    (a2, keep), = kept["voxel"]
-    (a3, adaptive), = kept["adaptive"]
+    (a2, (keep, *adaptive)), = kept["voxel"]
     (a5, (best, scores)), = kept["correlative"]
     (a4, (pose, cost, iterations)), = kept["lm"]
     (args_ins, before), = kept["insert"]
@@ -4225,7 +4223,7 @@ def _tick_against_twins(torch, opts, kept, tsdf=False):
                    Rigid3(ps.translation[r], ps.rotation[r]),
                    Rigid3(pe.translation[r], pe.rotation[r]), a1[6][r], a1[7]),
             voxel=(a2[0][r], a2[1][r], a2[2], a2[3][r]),
-            adaptive=[(a3[0][r], a3[1][r], *f, a3[3][r]) for f in a3[2]],
+            adaptive=[(a2[0][r][:, 0:a2[5]], keep[r], *f, a2[3][r]) for f in a2[4]],
             correlative=(a5[0][r], a5[1][r], a5[2][r], a5[3][r], a5[4]),
             lm=(a4[0][r], a4[1][r], a4[2][r], a4[3][r], a4[4][r], a4[5]))
         if tsdf:
@@ -4606,7 +4604,7 @@ def _batched_serving_phase(torch, dev):
                                 8 * opts.tpu.scan_capacity + ltb._ACTIVE.stop] > 0.5
                 yes = torch.ones(robots, dtype=torch.bool, device=dev)
                 per_r[robots]["k20_kernels"] = _launches_per_call(
-                    lambda: tsdf_2d.estimate_normals_2d(pts, mask, rd.origin), 3,
+                    lambda: tsdf_2d.estimate_normals_2d(pts, mask, rd.origin), 1,
                     f"K20 at R = {robots}")
                 per_r[robots]["k21_kernels"] = _launches_per_call(
                     lambda: tsdf_2d.insert_into_slots_tsdf(
@@ -4621,10 +4619,9 @@ def _batched_serving_phase(torch, dev):
                     "k4_kernels"):
                 _fail(f"batched step ({label}): K5's or K4's kernels per call grow with R: "
                       f"{per_r}")
-            if tsdf and (v["k21_kernels"] != 1 or v["k20_kernels"] != base["k20_kernels"]):
+            if tsdf and (v["k21_kernels"] != 1 or v["k20_kernels"] != 1):
                 _fail(f"batched step ({label}): K21 takes {v['k21_kernels']} kernel launches "
-                      f"at R = {robots} (1 at every R), K20 {v['k20_kernels']} (at R = 1 "
-                      f"{base['k20_kernels']})")
+                      f"at R = {robots}, K20 {v['k20_kernels']} (1 each at every R)")
         res["per_tick"] = per_r
         lap("per_tick")
 

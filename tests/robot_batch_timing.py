@@ -7,6 +7,9 @@ robot-batched port and its parent have (not collected by pytest).
     python tests/robot_batch_timing.py tsdf-robots
     python tests/robot_batch_timing.py LABEL TREE robots
     python tests/robot_batch_timing.py LABEL . k4-forms
+    python tests/robot_batch_timing.py LABEL TREE k2-k20
+    python tests/robot_batch_timing.py LABEL . k2-stamps
+    python tests/robot_batch_timing.py LABEL . k2-shapes
 
 Times each kernel's wrapper over 200 calls with `chip_smoke._cuda_ms` (the
 profiler) and `chip_smoke._event_ms` (CUDA events) on the card and prints
@@ -38,10 +41,38 @@ at `bench.py`'s shape for 1, 4 and 16 robots and at the main path's (one
 robot, 2,048-point capacity, 1,024^2 grids): device ms (profiler), each
 form's mark and apply kernels' mean ms, and the cells where each differs
 from the twin.
+
+`k2-k20` times K2 (all of a 2D scan's voxel filters, as TREE's step
+launches them: one launch where the package has `voxel_filter_masks`, else
+the random filter's launch and the adaptive filters' launch) and K20 at
+the main path's shape (one robot, 2,048-point capacity, the default
+filters) and at `bench.py`'s (R = 1, 4, 8 and 16 robots' 1,024-beam
+scans): profiler ms, CUDA-event ms and kernels a call in a captured graph
+for each. Where the package has the fused entry point it also times the
+two forms side by side (one launch of three filters, or the random
+filter's launch and then the adaptive filters'). Run parent, change,
+change, parent in one call.
+
+`... LABEL . k2-stamps` builds a copy of `csrc/voxel_filter.cu` stamping
+the global timer at the kernel's start, after the loads, the random
+filter, the range gate, phase A's counts and barrier, phase B's last
+round's counts and its barrier and phase C (the first 16 blocks of each
+filter's grid) into `csrc/_build/variant/` and prints each phase's
+microseconds and how many dependent cluster phases ran (A, each round of
+B, C), at the main path's shape and at bench R = 8 and 16.
+
+`... LABEL . k2-shapes` builds a copy of `csrc/voxel_filter.cu` whose
+launch shape can be forced (`k2_force`) into `csrc/_build/variant/` and
+times, at the main path's shape and at bench R = 1, 4, 8 and 16, the
+shape the kernel chooses and every shape it can choose (clusters of 16 x
+1,024, 8 x 1,024, 8 x 512, 4 x 1,024 and 4 x 512 threads) with phase B in
+one round and in two: profiler ms, masks checked against the kernel's.
 """
 
+import ctypes
 import json
 import os
+import subprocess
 import sys
 
 TREE = os.path.abspath(sys.argv[2] if len(sys.argv) > 2 else ".")
@@ -554,6 +585,257 @@ def k4_forms(label):
     print(json.dumps(out))
 
 
+def _k2_inputs(dev, robots, n):
+    """R robots' 2D-step K2 inputs at bench.py's shape: each robot's
+    twelfth scan of `simulate_scans(beams=n, seed=r, start=4.0 * r)` as 3D
+    hits, its returns within the default max_range, a permutation."""
+    opts = TrajectoryBuilder2DOptions()
+    hits, ret, perms = [], [], []
+    for r in range(robots):
+        scans, _ = simulate_scans(12, beams=n, seed=r, start=4.0 * r)
+        p = np.zeros((n, 3), np.float32)
+        p[:, :scans[-1][1].shape[1]] = scans[-1][1][:n]
+        hits.append(p)
+        ret.append(np.linalg.norm(p[:, 0:2], axis=1) <= opts.max_range)
+        perms.append(np.random.RandomState(r).permutation(n).astype(np.int32))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return t(np.stack(hits)), t(np.stack(ret)), t(np.stack(perms))
+
+
+def _k2_call(hits, is_return, perm, filters):
+    """A 2D scan's voxel filters as the tree's step launches them."""
+    size = scan_pipeline_2d.ScanPreprocessParams2D().voxel_filter_size
+    if hasattr(voxel_filter, "voxel_filter_masks"):
+        return lambda: voxel_filter.voxel_filter_masks(hits, is_return, size, perm, filters, 2)
+    return _k2_two(hits, is_return, perm, filters, size)
+
+
+_STAMP_AT = [  # (line of voxel_filter.cu, stamp index after it)
+    ("  const bool clustered = filters > 0;\n", 0),
+    ("  if (clustered) cluster_arrive();\n  __syncthreads();\n", 1),
+    ("  if (!clustered) return;\n", 2),
+    ("  cg::cluster_group team = cg::this_cluster();  // the counts' exchange\n", 3),
+    ("                     min_num_points, totals, counts, team);\n", 4),
+    ("  int first_ok = -1;\n", 5),
+    ("                         min_num_points, totals, level_counts, team);\n", 6),
+    ("      depth += levels;\n", -1),  # a round of phase B: counted in stamp 9
+    ("    resolution = low;\n", 7),
+    ("  mask_write<kGlobal, Key>(s, c, cluster, slice, false, out);\n", 8),
+]
+# Each stamp's phase: the time since the stamp before it.
+_STAMP_PHASES = ("load", "random filter", "range gate", "phase A counts", "phase A barrier",
+                 "phase B counts", "phase B barrier", "phase C")
+
+
+def _k2_variant(name, text, extra):
+    """TREE's csrc/voxel_filter.cu as `text`, with the C functions `extra`
+    appended, built into csrc/_build/variant/NAME.so. -> its library, with
+    `voxel_filter` typed as K2's wrapper calls it."""
+    src = os.path.join(TREE, "cartographer_tpu_torch", "csrc")
+    out_dir = os.path.join(src, "_build", "variant")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, name + ".cu")
+    with open(path, "w") as f:
+        f.write(text + extra)
+    subprocess.run([cuda._nvcc(), *cuda.NVCC_FLAGS, "-I", src, "-o", path[:-3] + ".so", path],
+                   check=True)
+    lib = ctypes.CDLL(path[:-3] + ".so")
+    lib.voxel_filter.argtypes = voxel_filter._KERNEL._argtypes
+    lib.voxel_filter.restype = ctypes.c_int
+    return lib
+
+
+def _swap_k2(lib):
+    """Swap `lib`'s voxel_filter into K2's wrapper -> a function restoring it."""
+    original = voxel_filter._KERNEL._load()
+    voxel_filter._KERNEL._fn = lib.voxel_filter
+    return lambda: setattr(voxel_filter._KERNEL, "_fn", original)
+
+
+def _k2_source():
+    with open(os.path.join(TREE, "cartographer_tpu_torch", "csrc", "voxel_filter.cu")) as f:
+        return f.read()
+
+
+def _stamped_k2():
+    """A copy of TREE's csrc/voxel_filter.cu with global-timer stamps (the
+    first 16 blocks of each filter's grid; stamp 9 counts phase B's
+    rounds), built into csrc/_build/variant/. -> (its library, a function
+    reading the stamps (ns) and clearing them)."""
+    text = _k2_source()
+    timer = ("__device__ unsigned long long k2_stamps[2][16][10];\n"
+             "__device__ inline bool k2_stamper() { return blockIdx.x < 16 && threadIdx.x == 0; }\n"
+             "__device__ inline void k2_stamp(int k) { if (k2_stamper()) "
+             "{ unsigned long long t; asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t)); "
+             "k2_stamps[blockIdx.y][blockIdx.x][k] = t; } }\n"
+             "__device__ inline void k2_round() { if (k2_stamper()) "
+             "++k2_stamps[blockIdx.y][blockIdx.x][9]; }\n")
+    text = text.replace("namespace {\n", "namespace {\n" + timer, 1)
+    for line, k in _STAMP_AT:
+        assert line in text, line
+        mark = "k2_round()" if k < 0 else f"k2_stamp({k})"
+        indent = line[:len(line) - len(line.lstrip())]
+        text = text.replace(line, line + f"{indent}{mark};\n", 1)
+    lib = _k2_variant("voxel_filter_stamped", text, (
+        "extern \"C\" int k2_read(void* a) { int e = (int)cudaMemcpyFromSymbol("
+        "a, k2_stamps, sizeof(k2_stamps)); static unsigned long long zero[2][16][10]; "
+        "cudaMemcpyToSymbol(k2_stamps, zero, sizeof(zero)); return e; }\n"))
+    lib.k2_read.argtypes, lib.k2_read.restype = [ctypes.c_void_p], ctypes.c_int
+
+    def read():
+        torch.cuda.synchronize()
+        a = np.zeros((2, 16, 10), np.uint64)
+        assert lib.k2_read(a.ctypes.data) == 0
+        return a
+    return lib, read
+
+
+def _phases(stamps, cluster=8):
+    """Microseconds of each phase by filter and block (the first `cluster`
+    blocks of the grid: robot 0's cluster first), from one call's stamps (a
+    phase that did not run is left out), and the dependent cluster phases
+    block 0 ran (A, each round of B, C)."""
+    out = []
+    for rows in stamps:
+        if not rows[0][0]:
+            continue
+        blocks = []
+        for row in rows[:cluster]:
+            if not row[0]:
+                continue
+            t, last, phases = row.astype(np.int64), int(row[0]), {}
+            for k, name in enumerate(_STAMP_PHASES, start=1):
+                if t[k]:
+                    phases[name] = (int(t[k]) - last) / 1000.0
+                    last = int(t[k])
+            blocks.append(phases)
+        blocks[0]["cluster phases run"] = int(bool(rows[0][5])) + int(rows[0][9]) + int(
+            bool(rows[0][8]))
+        out.append(blocks)
+    return out
+
+
+def _forced_k2():
+    """A copy of TREE's csrc/voxel_filter.cu whose `choose` returns the
+    shape `k2_force(cluster, threads, split)` sets (cluster 0: its own
+    choice), built into csrc/_build/variant/."""
+    text = _k2_source()
+    anchor = "Shape choose(int n, int pre_dim, int filters, int dim, int clusters) {\n"
+    struct = "struct Shape {\n  int cluster, threads, split;\n};\n"
+    assert anchor in text and struct in text
+    text = text.replace(struct, struct + "Shape k2_forced = {0, 0, 0};\n", 1)
+    text = text.replace(anchor, anchor + "  if (k2_forced.cluster) return k2_forced;\n", 1)
+    lib = _k2_variant("voxel_filter_forced", text, (
+        "extern \"C\" void k2_force(int c, int t, int s) { k2_forced = {c, t, s}; }\n"))
+    lib.k2_force.argtypes, lib.k2_force.restype = [ctypes.c_int] * 3, None
+    return lib
+
+
+def k2_k20(label):
+    """K2 and K20 at the main path's shape and at bench.py's, R = 1, 4, 16."""
+    cuda.build()
+    dev = torch.device("cuda:0")
+    opts = TrajectoryBuilder2DOptions()
+    filters = [(f.max_length, f.min_num_points, f.max_range)
+               for f in (opts.adaptive_voxel_filter, opts.loop_closure_adaptive_voxel_filter)]
+    fused = hasattr(voxel_filter, "voxel_filter_masks")
+    size = scan_pipeline_2d.ScanPreprocessParams2D().voxel_filter_size
+    out = {"card": cs._smi(), "tree": TREE, "fused": fused}
+
+    def timed(fn, name):
+        return [cs._cuda_ms(fn, reps=200), cs._event_ms(fn, reps=200),
+                cs._graph_kernels(fn, name)]
+
+    shapes = [("main", 1, opts.tpu.scan_capacity)] + [("bench", r, 1024) for r in (1, 4, 8, 16)]
+    for shape, robots, n in shapes:
+        hits, ret, perm = _k2_inputs(dev, robots, n)
+        if shape == "main":  # one robot's (N, D) form
+            hits, ret, perm = hits[0], ret[0], perm[0]
+        pts2 = hits[..., 0:2].contiguous()
+        origin = torch.zeros((robots, 2), device=dev)[0 if shape == "main" else slice(None)]
+        row = {"K2": timed(_k2_call(hits, ret, perm, filters), "K2"),
+               "K20": timed(lambda: tsdf_2d.estimate_normals_2d(pts2, ret, origin), "K20")}
+        if fused:
+            row["K2 two launches"] = timed(_k2_two(hits, ret, perm, filters, size), "K2 two")
+        key = f"{shape} R={robots}"
+        out[key] = row
+        print(label, key, json.dumps(row), flush=True)
+    print(label)
+    print(json.dumps(out))
+
+
+def k2_stamps(label):
+    """Each of K2's phases in the first 16 blocks of each filter's grid
+    (robot 0's cluster first) at the main path's shape and at bench R = 8
+    and 16 (the last of 5 calls)."""
+    cuda.build()
+    dev = torch.device("cuda:0")
+    opts = TrajectoryBuilder2DOptions()
+    filters = [(f.max_length, f.min_num_points, f.max_range)
+               for f in (opts.adaptive_voxel_filter, opts.loop_closure_adaptive_voxel_filter)]
+    lib, read = _stamped_k2()
+    restore = _swap_k2(lib)
+    try:
+        for shape, robots, n in (("main", 1, opts.tpu.scan_capacity), ("bench", 8, 1024),
+                                 ("bench", 16, 1024)):
+            hits, ret, perm = _k2_inputs(dev, robots, n)
+            fn = _k2_call(hits, ret, perm, filters)
+            for _ in range(5):
+                read()
+                fn()
+                phases = _phases(read(), cluster=16)
+            print(label, shape, robots, json.dumps(phases), flush=True)
+    finally:
+        restore()
+
+
+def k2_shapes(label):
+    """K2 on every launch shape, phase B in one round and in two, beside
+    the shape the kernel chooses, at the main path's shape and at bench R =
+    1, 4, 8 and 16."""
+    cuda.build()
+    dev = torch.device("cuda:0")
+    opts = TrajectoryBuilder2DOptions()
+    filters = [(f.max_length, f.min_num_points, f.max_range)
+               for f in (opts.adaptive_voxel_filter, opts.loop_closure_adaptive_voxel_filter)]
+    lib = _forced_k2()
+    restore = _swap_k2(lib)
+    out = {"card": cs._smi()}
+    try:
+        shapes = [("main", 1, opts.tpu.scan_capacity)] + [("bench", r, 1024)
+                                                         for r in (1, 4, 8, 16)]
+        for shape, robots, n in shapes:
+            hits, ret, perm = _k2_inputs(dev, robots, n)
+            if shape == "main":
+                hits, ret, perm = hits[0], ret[0], perm[0]
+            fn = _k2_call(hits, ret, perm, filters)
+            lib.k2_force(0, 0, 0)
+            chosen = [m.clone() for m in fn()]
+            row = {"chosen": cs._cuda_ms(fn, reps=200)}
+            for c, t in ((16, 1024), (8, 1024), (8, 512), (4, 1024), (4, 512)):
+                for split in (5, 3):
+                    lib.k2_force(c, t, split)
+                    same = all(torch.equal(a, b) for a, b in zip(fn(), chosen))
+                    row[f"{c}x{t} split {split}"] = [cs._cuda_ms(fn, reps=200), same]
+            lib.k2_force(0, 0, 0)
+            key = f"{shape} R={robots}"
+            out[key] = row
+            print(label, key, json.dumps(row), flush=True)
+    finally:
+        lib.k2_force(0, 0, 0)
+        restore()
+    print(label)
+    print(json.dumps(out))
+
+
+def _k2_two(hits, is_return, perm, filters, size):
+    """K2's two-launch form: the random filter, then both adaptive filters."""
+    def two():
+        m = voxel_filter.voxel_filter_mask(hits, is_return, size, perm)
+        voxel_filter.adaptive_voxel_filter_masks(hits[..., 0:2], m, filters, perm)
+    return two
+
+
 if __name__ == "__main__":
     if sys.argv[1] == "tsdf-robots":
         tsdf_robots()
@@ -561,5 +843,11 @@ if __name__ == "__main__":
         robots_of(sys.argv[1])
     elif len(sys.argv) > 3 and sys.argv[3] == "k4-forms":
         k4_forms(sys.argv[1])
+    elif len(sys.argv) > 3 and sys.argv[3] == "k2-shapes":
+        k2_shapes(sys.argv[1])
+    elif len(sys.argv) > 3 and sys.argv[3] == "k2-stamps":
+        k2_stamps(sys.argv[1])
+    elif len(sys.argv) > 3 and sys.argv[3] == "k2-k20":
+        k2_k20(sys.argv[1])
     else:
         main(sys.argv[1])

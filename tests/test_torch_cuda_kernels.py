@@ -1000,6 +1000,122 @@ def test_voxel_filter_kernel_large(dev, n):
         assert torch.equal(got, ref) and int(got.sum()) >= min(min_num_points, int(keep.sum()))
 
 
+def _k2_branch_cloud(rng, n, case):
+    """A 2D cloud of n points and an adaptive filter (max_length,
+    min_num_points, max_range) that takes the search's branch `case`."""
+    pts = rng.uniform(-8.0, 8.0, (n, 2))
+    mask = rng.rand(n) < 0.9
+    need = min(200, n // 4)
+    if case == "few":  # num_base <= min_num_points: every base point kept
+        mask &= rng.rand(n) < need / n
+        return pts, mask, (0.5, int(mask.sum()) + 3, 50.0)
+    if case == "first_ok_0":  # enough voxels at max_length
+        return pts, mask, (0.4, need, 50.0)
+    if case == "bisect":  # 1 <= first_ok <= 6: the bisection tree
+        return pts, mask, (8.0, need, 50.0)
+    pts = 1e-3 * pts  # "none": no coarse length has enough voxels
+    return pts, mask, (0.5, need, 50.0)
+
+
+def _k2_branch(points, mask, max_length, min_num_points, max_range):
+    """The search branch the twin's inputs take: few, first_ok_0, bisect or none."""
+    base = mask & (torch.linalg.norm(points, dim=-1) <= max_range)
+    if int(base.sum()) <= min_num_points:
+        return "few"
+    perm = torch.arange(points.shape[0], dtype=torch.int32, device=points.device)
+    for k in range(7):
+        length = torch.tensor(max_length, dtype=torch.float32) / 2.0 ** k
+        if int(voxel_filter.voxel_filter_mask_plain(points, base, float(length), perm).sum()) \
+                >= min_num_points:
+            return "first_ok_0" if k == 0 else "bisect"
+    return "none"
+
+
+@pytest.mark.parametrize("n", [2048, 16384])
+@pytest.mark.parametrize("filters", [1, 2])
+@pytest.mark.parametrize("robots", [1, 16])
+@pytest.mark.parametrize("case", ["few", "first_ok_0", "bisect", "none"])
+def test_voxel_filter_kernel_branches(dev, case, robots, filters, n):
+    """K2's adaptive search in each of its branches (num_base <=
+    min_num_points, first_ok 0, first_ok in 1..6 with the bisection tree,
+    no coarse length large enough), for 1 and 16 robots (phase B in one
+    round and in two), one and two filters (the second coarser), in shared
+    memory and above 4,096 points in device memory: masks equal to the
+    twin's, bit for bit."""
+    clouds, masks, perms = [], [], []
+    for r in range(robots):
+        rng = np.random.RandomState(1000 * robots + 10 * r + filters)
+        pts, mask, f = _k2_branch_cloud(rng, n, case)
+        clouds.append(pts.astype(np.float32))
+        masks.append(mask)
+        perms.append(rng.permutation(n).astype(np.int32))
+        if r == 0:  # robot 0's filter, for every robot
+            chosen = [f, (f[0] * 2.0, f[1], f[2] * 0.75)][:filters]
+    pts = _t(np.stack(clouds), dev)
+    mask = _t(np.stack(masks), dev)
+    perm = _t(np.stack(perms), dev)
+    got = voxel_filter.adaptive_voxel_filter_masks(pts, mask, chosen, perm)
+    assert _k2_branch(pts[0], mask[0], *chosen[0]) == case
+    for f, (length, num, max_range) in enumerate(chosen):
+        for r in range(robots):
+            ref = voxel_filter.adaptive_voxel_filter_mask_plain(pts[r], mask[r], length, num,
+                                                                max_range, perm[r])
+            assert torch.equal(got[f][r], ref), (f, r)
+    if robots == 1:  # the one-robot (N, 2) form is the R = 1 launch
+        one = voxel_filter.adaptive_voxel_filter_masks(pts[0], mask[0], chosen, perm[0])
+        assert all(torch.equal(a, b[0]) for a, b in zip(one, got))
+
+
+@pytest.mark.parametrize("n", [300, 1024, 2048, 16384])
+@pytest.mark.parametrize("robots", [1, 16])
+def test_voxel_filter_kernel_fused(dev, robots, n):
+    """The 2D step's K2: the random filter over 3D hits and both adaptive
+    filters over their x and y in one launch (one kernel a call in a
+    captured graph); its three masks equal the twins' bit for bit."""
+    rng = np.random.RandomState(robots + n)
+    hits = np.stack([_room(rng, n).astype(np.float32) for _ in range(robots)])
+    hits[..., 2] *= 0.2
+    pts = _t(hits, dev)
+    is_return = _t(rng.rand(robots, n) < 0.93, dev)
+    perm = _t(np.stack([rng.permutation(n).astype(np.int32) for _ in range(robots)]), dev)
+    filters = [(0.5, 200, 12.0), (0.9, 100, 15.0)]
+    keep, a0, a1 = voxel_filter.voxel_filter_masks(pts, is_return, 0.025, perm, filters, 2)
+    assert _graph_kernels(lambda: voxel_filter.voxel_filter_masks(
+        pts, is_return, 0.025, perm, filters, 2)) == 1
+    for r in range(robots):
+        ref = voxel_filter.voxel_filter_mask_plain(pts[r], is_return[r], 0.025, perm[r])
+        assert torch.equal(keep[r], ref)
+        for got, (length, num, max_range) in zip((a0, a1), filters):
+            assert torch.equal(got[r], voxel_filter.adaptive_voxel_filter_mask_plain(
+                pts[r, :, 0:2], ref, length, num, max_range, perm[r]))
+    # The unfused calls agree with the fused one.
+    assert torch.equal(keep, voxel_filter.voxel_filter_mask(pts, is_return, 0.025, perm))
+    two = voxel_filter.adaptive_voxel_filter_masks(pts[..., 0:2], keep, filters, perm)
+    assert torch.equal(two[0], a0) and torch.equal(two[1], a1)
+
+
+@pytest.mark.parametrize("robots", [1, 2, 4, 8, 16, 64])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_voxel_filter_kernel_cluster_sizes(dev, robots, dim):
+    """K2's search on the cluster shapes the launch chooses for 2 to 128
+    clusters (two filters of 1 to 64 robots: 16 x 1,024 blocks for one
+    robot, narrower clusters as the card fills, phase B in two rounds from
+    5 clusters on an H100), 3D keys too: masks equal to the twin's."""
+    n = 4096 if dim == 3 else 2048
+    rng = np.random.RandomState(robots)
+    pts = _t(rng.uniform(-6, 6, (robots, n, dim)).astype(np.float32), dev)
+    mask = _t(rng.rand(robots, n) < 0.9, dev)
+    perm = _t(np.stack([rng.permutation(n).astype(np.int32) for _ in range(robots)]), dev)
+    filters = [(2.0, 300, 7.0), (0.3, 50, 9.0)]
+    got = voxel_filter.voxel_filter_masks(pts, mask, 0.1, perm, filters)
+    for r in range(robots):
+        keep = voxel_filter.voxel_filter_mask_plain(pts[r], mask[r], 0.1, perm[r])
+        assert torch.equal(got[0][r], keep), r
+        for f, (length, num, max_range) in enumerate(filters):
+            assert torch.equal(got[1 + f][r], voxel_filter.adaptive_voxel_filter_mask_plain(
+                pts[r], keep, length, num, max_range, perm[r])), (f, r)
+
+
 @pytest.mark.parametrize("n", [4097, 16384, 32768])
 def test_paged_intensity_insert_kernel_large(dev, n):
     """K18 at and above one block's 8,192 keys (the multi-block sort): pools
@@ -1212,7 +1328,8 @@ def _tsdf_scan(dev, n, valid, seed=21, origin=(0.031, -0.017)):
                                 torch.zeros(n, device=dev)), none)
 
 
-@pytest.mark.parametrize("n,valid", [(300, 300), (2048, 1500), (16384, 12000)])
+@pytest.mark.parametrize("n,valid", [(300, 300), (2048, 1500), (16384, 12000), (10, 10),
+                                     (8192, 8000), (8193, 8000)])
 def test_tsdf_normals_kernel(dev, n, valid):
     """K20 against its twin on the card: the sort (one block, or several at
     16,384) and the normals, within 1e-5 where the neighbourhood is not
@@ -1226,6 +1343,29 @@ def test_tsdf_normals_kernel(dev, n, valid):
     close = (got - ref).abs().max(-1).values <= 1e-5
     assert float(close[mask].float().mean()) >= 0.995
     torch.testing.assert_close(got.norm(dim=-1), torch.ones(n, device=dev), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("n", [2048, 8192, 16384])
+def test_tsdf_normals_kernel_robots(dev, n):
+    """K20 for 16 robots of different scans and origins: each robot's
+    normals equal its own call's bit for bit and the twin's within 1e-5 at
+    the single-robot test's share; one kernel a call up to 8,192 points (a
+    block per robot), 5 at 16,384."""
+    from cartographer_tpu_torch.ops import tsdf_2d
+
+    rds = [_tsdf_scan(dev, n, n * 3 // 4 - 37 * r, seed=90 + r,
+                      origin=(0.031 + 0.02 * r, -0.017 + 0.01 * r)) for r in range(16)]
+    pts = torch.stack([x.returns.points for x in rds])
+    mask = torch.stack([x.returns.mask for x in rds])
+    origin = torch.stack([x.origin for x in rds])
+    normals = tsdf_2d.estimate_normals_2d(pts, mask, origin)
+    assert _graph_kernels(lambda: tsdf_2d.estimate_normals_2d(pts, mask, origin)) == (
+        1 if n <= 8192 else 5)
+    for r in range(16):
+        assert torch.equal(normals[r], tsdf_2d.estimate_normals_2d(pts[r], mask[r], origin[r]))
+        ref = tsdf_2d._normals_plain(pts[r], mask[r], origin[r])
+        close = (normals[r] - ref).abs().max(-1).values <= 1e-5
+        assert float(close[mask[r]].float().mean()) >= 0.995
 
 
 def _tsdf_batch(dev):
@@ -1392,9 +1532,9 @@ def test_robot_batched_tsdf_kernels(dev, robots, n):
     own call bit for bit; K21 equals its twin bit for bit robot by robot
     (slot 1 inactive for some robots, do_insert False for one), K20 its twin
     at the single-robot test's tolerance. K20 takes the kernels of one
-    robot's call at every R: 3, and 5 at 16,384 points (the sort over
-    several tiles, its runs side by side); each robot's K21 items take four
-    chunks there."""
+    robot's call at every R: 1 (a block per robot), and 5 at 16,384 points
+    (the sort over several tiles, its runs side by side); each robot's K21
+    items take four chunks there."""
     from cartographer_tpu_torch.ops import tsdf_2d
 
     rd, rds, grids = _tsdf_robots(dev, n)
@@ -1405,7 +1545,7 @@ def test_robot_batched_tsdf_kernels(dev, robots, n):
     pts, mask = rd.returns.points, rd.returns.mask
     normals = tsdf_2d.estimate_normals_2d(pts, mask, rd.origin)
     kernels = _graph_kernels(lambda: tsdf_2d.estimate_normals_2d(pts, mask, rd.origin))
-    assert kernels == (3 if n <= 8192 else 5)
+    assert kernels == (1 if n <= 8192 else 5)
     for r in range(robots):
         alone = tsdf_2d.estimate_normals_2d(pts[r], mask[r], rd.origin[r])
         assert torch.equal(normals[r], alone)
