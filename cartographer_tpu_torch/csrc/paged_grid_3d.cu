@@ -1,5 +1,5 @@
-// K9 paged_insert_3d, K10 paged_crop_3d, K18 paged_intensity_insert_3d,
-// K19 paged_intensity_crop_3d
+// K9 paged_insert_3d, K10 and K19 paged_crop_3d (the occupancy and the
+// intensity windows, one launch), K18 paged_intensity_insert_3d
 //
 // Replaces: cartographer_tpu/ops/paged_grid_3d.py:_insert_paged (l.235),
 // crop_dense / _crop_pools (l.323, l.287), _insert_intensity_paged (l.385)
@@ -23,13 +23,25 @@
 // by the resolution, floor, and a floor division of the signed products
 // along the ray.
 //
-// K10 and K19, crop. One thread per cell of the dense size^3 window whose
-// first cell is floor((center - origin) / resolution) - size / 2: block by
-// floor division, page lookup, read both pools or write 0 where the block
-// has no page or lies outside the table. The window's origin comes out with
-// it. One template over the two pools' element types serves the occupancy
-// pools (K10: log-odds, known) and the intensity pools (K19: sums, counts),
-// so a scan's two high-resolution windows are the same cells.
+// K10 and K19, crop: one launch for a scan's windows (2, or 3 with the
+// intensity window), each a descriptor of its two pools (base pointers and
+// element bytes: 4 and 1 for K10's log-odds and known, 4 and 4 for K19's
+// sums and counts), page table, grid origin, resolution, center and size.
+// The copy is typeless. A window's first cell is
+// floor((center - origin) / resolution) - size / 2, a true division as in
+// the JAX program, computed once per window in each block, and its origin
+// comes out with it. Work is destination rows (window, i, j) along the
+// last axis, a warp a row, over a persistent grid-stride launch sized from
+// the SM count. A row's block coordinates and the page-table lookups of its
+// <= size / B + 2 blocks are made once per row; a row whose blocks have no
+// page (outside the table, unallocated, or >= num_pages) is written as
+// zeros without a read. Otherwise the warp copies the row's page-row
+// segments (B cells each) of both pools into shared memory by 16-byte
+// cp.async (zeros for the blocks without a page), shifts them by the window
+// start's offset within its page (two 16-byte shared loads and a funnel
+// shift per 16 bytes) and writes the row with 16-byte streaming stores; the
+// bytes before the first 16-byte boundary of a row and after its last are
+// written one by one, so any size is taken.
 //
 // K18, intensity insert. Each return resolves to its pool index (true
 // division, floor, block and page; no cell for a return that is masked out,
@@ -46,10 +58,10 @@
 // Bound: bytes. K9 touches 3 N cells of the pool (5 bytes each, read and
 // written) and reads N returns; K18 reads N returns and intensities and
 // updates at most N cells (8 bytes each, read and written); K10 writes 5
-// bytes and K19 8 bytes per window cell and reads as many from the pages
-// the window covers. Design: K9 and K18 never sweep the pool (8.4 M cells);
-// the crops run the last axis fastest so a warp reads and writes runs of a
-// page row.
+// bytes and K19 8 bytes per window cell and read only the pages under the
+// window (more than 95% of a scan's window bytes are zeros). Design: K9 and
+// K18 never sweep the pool (8.4 M cells); the crops make no division and
+// no page lookup per cell, and store 16 bytes a thread.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -164,28 +176,6 @@ Paged make_paged(const void* table, const void* origin, float resolution, int pa
   return g;
 }
 
-template <typename A, typename B>
-__global__ void crop_kernel(Paged g, const A* __restrict__ pool_a, const B* __restrict__ pool_b,
-                            float cx, float cy, float cz, int size, A* __restrict__ dense_a,
-                            B* __restrict__ dense_b, float* __restrict__ window_origin) {
-  const float center[3] = {cx, cy, cz};
-  int start[3];
-  for (int a = 0; a < 3; ++a)
-    start[a] = world_to_cell(center[a], g.origin[a], g.resolution) - size / 2;
-  size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx < 3)
-    window_origin[idx] = g.origin[idx] + (float)start[idx] * g.resolution;
-  size_t total = (size_t)size * size * size;
-  if (idx >= total) return;
-  int k = (int)(idx % size);
-  int j = (int)((idx / size) % size);
-  int i = (int)(idx / ((size_t)size * size));
-  int c[3] = {start[0] + i, start[1] + j, start[2] + k};
-  long long lin = pool_index(g, c);
-  dense_a[idx] = lin >= 0 ? pool_a[lin] : (A)0;
-  dense_b[idx] = lin >= 0 ? pool_b[lin] : (B)0;
-}
-
 // K18's returns for in_order_scatter: a return's pool index, or kNone.
 struct IntensityReturns : in_order_scatter::SumCount {
   Paged g;
@@ -209,19 +199,179 @@ struct IntensityReturns : in_order_scatter::SumCount {
   }
 };
 
-template <typename A, typename B>
-int launch_crop(const void* pool_a, const void* pool_b, const void* table,
-                const void* grid_origin, float resolution, int page_size, int num_blocks,
-                int num_pages, float cx, float cy, float cz, int size, void* dense_a,
-                void* dense_b, void* window_origin, void* stream) {
-  Paged g = make_paged(table, grid_origin, resolution, page_size, num_blocks, num_pages);
-  size_t total = (size_t)size * size * size;
-  if (total == 0) return 0;
-  unsigned int blocks = (unsigned int)((total + kThreads - 1) / kThreads);
-  crop_kernel<A, B><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      g, (const A*)pool_a, (const B*)pool_b, cx, cy, cz, size, (A*)dense_a, (B*)dense_b,
-      (float*)window_origin);
-  return (int)cudaGetLastError();
+// One window of a crop launch; ops/paged_grid_3d.py `_CROP_WINDOW` packs it.
+struct CropWindow {
+  const void* pool[2];  // (P, B, B, B) elements of element_bytes[q] each
+  void* dense[2];       // (size, size, size)
+  const int* table;     // (nb, nb, nb)
+  const float* grid_origin;
+  float* window_origin;  // (3,)
+  float center[3];
+  float resolution;
+  int element_bytes[2];
+  int page_size, num_blocks, num_pages, size;
+};
+static_assert(sizeof(CropWindow) == 96, "ops/paged_grid_3d.py _CROP_WINDOW packs this layout");
+
+constexpr int kMaxWindows = 4;
+constexpr int kCropWarps = 8;
+
+struct CropLaunch {
+  CropWindow w[kMaxWindows];
+  int count;
+  int page_slots;    // ints of a warp's page list
+  int staged_bytes;  // bytes of a warp's staged page rows of one pool (a multiple of 16)
+};
+
+// A window's start, computed once per block.
+struct CropPlan {
+  int start[3];
+  int first_block;  // floor(start[2] / B): the block of a row's first cell
+  int shift;        // start[2] - first_block * B
+  int blocks;       // the blocks a row spans
+  int rows_end;     // rows of this window and those before it
+};
+
+// Bytes sh .. sh + 15 of the 32 bytes lo, hi (sh warp-uniform, 0 .. 15).
+__device__ inline uint4 byte_window(uint4 lo, uint4 hi, int sh) {
+  unsigned a0 = lo.x, a1 = lo.y, a2 = lo.z, a3 = lo.w, a4 = hi.x, a5 = hi.y, a6 = hi.z,
+           a7 = hi.w;
+  if (sh & 8) { a0 = a2; a1 = a3; a2 = a4; a3 = a5; a4 = a6; a5 = a7; }
+  if (sh & 4) { a0 = a1; a1 = a2; a2 = a3; a3 = a4; a4 = a5; }
+  const unsigned b = 8u * (sh & 3);
+  return make_uint4(__funnelshift_r(a0, a1, b), __funnelshift_r(a1, a2, b),
+                    __funnelshift_r(a2, a3, b), __funnelshift_r(a3, a4, b));
+}
+
+// The warp writes `bytes` bytes to dst: src[0 ..] from shared memory, or
+// zeros where src is null. Bytes before dst's first 16-byte boundary and
+// after its last go one by one; the rest as 16-byte streaming stores.
+__device__ inline void write_row(unsigned char* dst, const unsigned char* src, int bytes,
+                                 int lane) {
+  const int head = min(bytes, (int)((16 - ((uintptr_t)dst & 15)) & 15));
+  const int chunks = (bytes - head) >> 4;
+  const int tail_at = head + 16 * chunks;
+  if (lane < head) dst[lane] = src ? src[lane] : 0;
+  if (lane < bytes - tail_at) dst[tail_at + lane] = src ? src[tail_at + lane] : 0;
+  uint4* out = reinterpret_cast<uint4*>(dst + head);
+  if (!src) {
+    for (int c = lane; c < chunks; c += 32) __stcs(out + c, make_uint4(0, 0, 0, 0));
+    return;
+  }
+  const int at = (int)((uintptr_t)(src + head) & 15);  // shared memory: its offset
+  const uint4* in = reinterpret_cast<const uint4*>(src + head - at);
+  if (at == 0) {
+    for (int c = lane; c < chunks; c += 32) __stcs(out + c, in[c]);
+  } else {
+    for (int c = lane; c < chunks; c += 32) __stcs(out + c, byte_window(in[c], in[c + 1], at));
+  }
+}
+
+// Starts pool q's page rows of one destination row on their way into
+// `staged`: segment s (B elements) from page pages[s] by cp.async, zeros
+// where pages[s] < 0. The caller waits for them.
+__device__ inline void stage_row(const CropWindow& w, int q, const int* pages, int blocks,
+                                 int off0, int off1, unsigned char* staged, int lane) {
+  const int B = w.page_size;
+  const int segment = B * w.element_bytes[q];
+  const unsigned char* pool = static_cast<const unsigned char*>(w.pool[q]);
+  const int misaligned = segment | (int)((uintptr_t)pool & 15);
+  const int width = (misaligned & 15) == 0 ? 16 : (misaligned & 3) == 0 ? 4 : 1;
+  const int per = segment / width;  // vectors a segment
+  const int ds = 32 / per, dv = 32 - ds * per;
+  int s = lane / per, v = lane - s * per;
+  for (int idx = lane; idx < blocks * per; idx += 32) {
+    const int page = pages[s];
+    const unsigned char* from =
+        pool + (((size_t)max(page, 0) * B + off0) * B + off1) * segment + (size_t)v * width;
+    unsigned char* to = staged + s * segment + v * width;
+    const unsigned at = (unsigned)__cvta_generic_to_shared(to);
+    if (page < 0) {
+      if (width == 16) *reinterpret_cast<uint4*>(to) = make_uint4(0, 0, 0, 0);
+      else if (width == 4) *reinterpret_cast<unsigned*>(to) = 0u;
+      else *to = 0;
+    } else if (width == 16) {
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(at), "l"(from));
+    } else if (width == 4) {
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(at), "l"(from));
+    } else {
+      *to = __ldg(from);
+    }
+    s += ds;
+    v += dv;
+    if (v >= per) {
+      v -= per;
+      ++s;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kCropWarps * 32)
+    crop_rows(const __grid_constant__ CropLaunch L) {
+  __shared__ CropPlan plan[kMaxWindows];
+  extern __shared__ __align__(16) unsigned char warp_memory[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x < L.count) {
+    const CropWindow& w = L.w[threadIdx.x];
+    CropPlan p;
+    for (int a = 0; a < 3; ++a)
+      p.start[a] = world_to_cell(w.center[a], w.grid_origin[a], w.resolution) - w.size / 2;
+    p.first_block = floor_div(p.start[2], w.page_size);
+    p.shift = p.start[2] - p.first_block * w.page_size;
+    p.blocks = (p.shift + w.size - 1) / w.page_size + 1;
+    p.rows_end = 0;
+    for (int v = 0; v <= (int)threadIdx.x; ++v) p.rows_end += L.w[v].size * L.w[v].size;
+    plan[threadIdx.x] = p;
+    if (blockIdx.x == 0)
+      for (int a = 0; a < 3; ++a)
+        w.window_origin[a] = w.grid_origin[a] + (float)p.start[a] * w.resolution;
+  }
+  __syncthreads();
+  // The warp's shared memory: the row's page list, then its staged page
+  // rows of each pool.
+  unsigned char* mine = warp_memory + (size_t)warp * (L.page_slots * sizeof(int) +
+                                                      2 * L.staged_bytes);
+  int* pages = reinterpret_cast<int*>(mine);
+  unsigned char* staged = mine + L.page_slots * sizeof(int);
+  const int rows = plan[L.count - 1].rows_end;
+  for (int row = blockIdx.x * kCropWarps + warp; row < rows; row += gridDim.x * kCropWarps) {
+    int v = 0;
+    while (row >= plan[v].rows_end) ++v;
+    const CropWindow& w = L.w[v];
+    const CropPlan& p = plan[v];
+    const int B = w.page_size, nb = w.num_blocks, size = w.size;
+    const int r = row - (v ? plan[v - 1].rows_end : 0);
+    const int i = r / size, j = r - i * size;
+    const int c0 = p.start[0] + i, c1 = p.start[1] + j;
+    const bool inside = c0 >= 0 && c0 < nb * B && c1 >= 0 && c1 < nb * B;
+    const int b0 = inside ? c0 / B : 0, b1 = inside ? c1 / B : 0;
+    bool any = false;
+    for (int s = lane; s < p.blocks; s += 32) {
+      const int kb = p.first_block + s;
+      int page = -1;
+      if (inside && kb >= 0 && kb < nb) {
+        page = __ldg(w.table + ((size_t)b0 * nb + b1) * nb + kb);
+        if (page >= w.num_pages) page = -1;
+      }
+      pages[s] = page;
+      any |= page >= 0;
+    }
+    any = __any_sync(0xffffffffu, any);
+    __syncwarp();
+    if (any) {  // both pools' page rows on their way at once
+      for (int q = 0; q < 2; ++q)
+        stage_row(w, q, pages, p.blocks, c0 - b0 * B, c1 - b1 * B, staged + q * L.staged_bytes,
+                  lane);
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      __syncwarp();
+    }
+    for (int q = 0; q < 2; ++q) {
+      const int E = w.element_bytes[q];
+      write_row(static_cast<unsigned char*>(w.dense[q]) + (size_t)r * size * E,
+                any ? staged + q * L.staged_bytes + p.shift * E : nullptr, size * E, lane);
+    }
+    __syncwarp();  // before the next row is staged
+  }
 }
 
 }  // namespace
@@ -251,24 +401,46 @@ extern "C" int paged_insert_3d(void* pages, void* known, const void* table,
   return (int)cudaGetLastError();
 }
 
-extern "C" int paged_crop_3d(const void* pages, const void* known, const void* table,
-                             const void* grid_origin, float resolution, int page_size,
-                             int num_blocks, int num_pages, float cx, float cy, float cz,
-                             int size, void* dense, void* dense_known, void* window_origin,
-                             void* stream) {
-  return launch_crop<float, uint8_t>(pages, known, table, grid_origin, resolution, page_size,
-                                     num_blocks, num_pages, cx, cy, cz, size, dense,
-                                     dense_known, window_origin, stream);
-}
-
-extern "C" int paged_intensity_crop_3d(const void* sums, const void* counts, const void* table,
-                                       const void* grid_origin, float resolution,
-                                       int page_size, int num_blocks, int num_pages, float cx,
-                                       float cy, float cz, int size, void* dense_sums,
-                                       void* dense_counts, void* window_origin, void* stream) {
-  return launch_crop<float, float>(sums, counts, table, grid_origin, resolution, page_size,
-                                   num_blocks, num_pages, cx, cy, cz, size, dense_sums,
-                                   dense_counts, window_origin, stream);
+// `windows` points to `count` (1 .. 4) CropWindow descriptors in host
+// memory; they go into the launch's parameters.
+extern "C" int paged_crop_3d(const void* windows, int count, void* stream) {
+  if (count < 1 || count > kMaxWindows) return (int)cudaErrorInvalidValue;
+  CropLaunch L;
+  L.count = count;
+  int page_slots = 0, staged = 0;
+  long long rows = 0;
+  for (int v = 0; v < count; ++v) {
+    L.w[v] = static_cast<const CropWindow*>(windows)[v];
+    const CropWindow& w = L.w[v];
+    if (w.page_size < 1 || w.size < 0 || w.element_bytes[0] < 1 || w.element_bytes[1] < 1)
+      return (int)cudaErrorInvalidValue;
+    const int blocks = (w.page_size - 1 + w.size - 1) / w.page_size + 1;  // at any shift
+    page_slots = max(page_slots, (blocks + 3) & ~3);
+    for (int q = 0; q < 2; ++q)  // + 16: the shift's second load may pass the end
+      staged = max(staged, ((blocks * w.page_size * w.element_bytes[q] + 15) & ~15) + 16);
+    rows += (long long)w.size * w.size;
+  }
+  if (rows >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  L.page_slots = page_slots;
+  L.staged_bytes = staged;
+  const size_t smem = (size_t)kCropWarps * (page_slots * sizeof(int) + 2 * staged);
+  cudaError_t err;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(crop_rows, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  int device = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+          cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, crop_rows, kCropWarps * 32,
+                                                           smem)) != cudaSuccess)
+    return (int)err;
+  const long long needed = (rows + kCropWarps - 1) / kCropWarps;
+  const int grid = (int)max(1ll, min(needed, (long long)sms * max(per_sm, 1)));
+  crop_rows<<<grid, kCropWarps * 32, smem, (cudaStream_t)stream>>>(L);
+  return (int)cudaGetLastError();
 }
 
 // Adds in place into `sums` and `counts` (num_pages * page_size^3 each, under

@@ -33,6 +33,7 @@ from cartographer_tpu_torch.ops.grid_3d import Grid3D, IntensityGrid3D
 from cartographer_tpu_torch.ops.paged_grid_3d import (
     PagedIntensitySubmapGrid3D,
     PagedSubmapGrid3D,
+    crop_windows,
 )
 from cartographer_tpu_torch.ops.rot_histogram import rotate_histogram
 
@@ -127,10 +128,12 @@ class ActiveSubmaps3D:
             return None
         s = self.submaps[0]
         size = self._tpu.high_grid_size
-        intensity = (s.intensity_paged.crop_dense(center, size)
-                     if s.intensity_paged is not None else None)
-        return (s.high_paged.crop_dense(center, size),
-                s.low_paged.crop_dense(center, self._tpu.low_grid_size), intensity)
+        windows = [(s.high_paged.grid, center, size),
+                   (s.low_paged.grid, center, self._tpu.low_grid_size)]
+        if s.intensity_paged is not None:
+            windows.append((s.intensity_paged.grid, center, size))
+        grids = crop_windows(windows)  # one launch on the card
+        return grids[0], grids[1], grids[2] if len(grids) > 2 else None
 
     @property
     def matching_histogram(self) -> np.ndarray:

@@ -4,22 +4,22 @@ Counterpart of the JAX package's `ops/paged_grid_3d.py` (the reference's
 unbounded HybridGrid, mapping/3d/hybrid_grid.h): a fixed pool of P dense
 pages of B^3 voxels, a dense int32 page table over `num_blocks`^3 blocks,
 allocation of pages on the host (a dict from block to pool slot, with a
-host mirror of the table), and four device programs, all in
+host mirror of the table), and three device programs, all in
 `csrc/paged_grid_3d.cu`:
 
   - `insert_paged` (K9): hits and the trailing free-space cells of each
     ray, through the page table into the pool, in place (the JAX program
     returns a new pool);
-  - `crop_dense` (K10): the pages that cover a size^3 window gathered into
-    a dense `Grid3D` for the matcher;
+  - `crop_windows` (K10 and K19): the pages that cover each of a scan's
+    size^3 windows gathered into a dense `Grid3D` (occupancy pools) or
+    `IntensityGrid3D` (intensity pools) for the matchers, every window in
+    one launch; `crop_dense` and `crop_dense_intensity` crop one;
   - `insert_intensity_paged` (K18): the running-average intensity pools of
     the reference's IntensityHybridGrid (sums and counts behind their own
     page table), fed with the returns whose intensity is at most the
     threshold, in place, each cell's returns in their order, for scans of
     any size (`csrc/in_order_scatter.cuh`: one block up to 8,192 returns, a
-    cluster of blocks above);
-  - `crop_dense_intensity` (K19): K10's crop of the two intensity pools
-    into a dense `IntensityGrid3D`.
+    cluster of blocks above).
 
 Each launches its CUDA kernel on CUDA tensors and runs the plain PyTorch
 twin, the JAX program written in PyTorch, on CPU tensors.
@@ -33,6 +33,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
+import struct
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -53,13 +54,16 @@ _P, _F, _I = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
 _INSERT_KERNEL = cuda.CudaKernel(
     "paged_grid_3d.cu", "paged_insert_3d",
     [_P, _P, _P, _P, _F, _I, _I, _I, _P, _P, _P, _I, _F, _F, _I, _F, _F, _P, _P])
-_CROP_ARGS = [_P, _P, _P, _P, _F, _I, _I, _I, _F, _F, _F, _I, _P, _P, _P]
-_CROP_KERNEL = cuda.CudaKernel("paged_grid_3d.cu", "paged_crop_3d", _CROP_ARGS)
+_CROP_KERNEL = cuda.CudaKernel("paged_grid_3d.cu", "paged_crop_3d", [_P, _I])
 _INTENSITY_INSERT_KERNEL = cuda.CudaKernel(
     "paged_grid_3d.cu", "paged_intensity_insert_3d",
     [_P, _P, _P, _P, _F, _I, _I, _I, _P, _P, _P, _I, _F, _I])
-_INTENSITY_CROP_KERNEL = cuda.CudaKernel("paged_grid_3d.cu", "paged_intensity_crop_3d",
-                                         _CROP_ARGS)
+MAX_CROP_WINDOWS = 4  # windows a crop launch takes (csrc/paged_grid_3d.cu kMaxWindows)
+# One window of a crop launch, `CropWindow` of csrc/paged_grid_3d.cu: the two
+# pools, the two dense outputs, the table, the grid's and the window's
+# origins (pointers); center (3) and resolution; the pools' element bytes,
+# page size, blocks a side, pages and window size.
+_CROP_WINDOW = struct.Struct("=7Q4f6i")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -220,7 +224,7 @@ def insert_paged(grid: PagedGrid3D, origin: torch.Tensor, returns: torch.Tensor,
                            num_free_space_voxels)
 
 
-# ---------------------------------------------------------------- K10 crop
+# ---------------------------------------------------------------- K10 and K19 crop
 
 
 def _crop_pools_plain(grid, pools, center: torch.Tensor, size: int):
@@ -258,36 +262,63 @@ def crop_dense_plain(grid: PagedGrid3D, center: torch.Tensor, size: int) -> Grid
     return Grid3D(dense, known, origin, grid.resolution)
 
 
-def _crop_kernel(kernel, grid, pools, center, size: int):
-    """K10 or K19 on the grid's two pools, given as (tensor, name, dtype)
-    -> (dense windows, window origin)."""
-    P, B, nb = grid.max_pages, grid.page_size, grid.num_blocks
-    for pool, name, dtype in pools:
-        cuda.check(pool, name, dtype, (P, B, B, B))
-    cuda.check(grid.page_table, "page table", torch.int32, (nb, nb, nb))
-    cuda.check(grid.origin, "grid origin", torch.float32, (3,))
-    dev = grid.page_table.device
-    denses = [torch.empty((size, size, size), dtype=dtype, device=dev) for _, _, dtype in pools]
-    origin = torch.empty(3, dtype=torch.float32, device=dev)
-    c = np.asarray(center, np.float32)
-    kernel(dev, pools[0][0].data_ptr(), pools[1][0].data_ptr(), grid.page_table.data_ptr(),
-           grid.origin.data_ptr(), grid.resolution, B, nb, P, float(c[0]), float(c[1]),
-           float(c[2]), int(size), denses[0].data_ptr(), denses[1].data_ptr(),
-           origin.data_ptr())
-    return denses, origin
+def _crop_pools(grid):
+    """The grid's two pools as (tensor, name, dtype), and its window type."""
+    if isinstance(grid, PagedIntensityGrid3D):
+        return (((grid.sums, "sums", torch.float32), (grid.counts, "counts", torch.float32)),
+                IntensityGrid3D)
+    return ((grid.pages, "pages", torch.float32), (grid.known, "known", torch.bool)), Grid3D
+
+
+def _crop_launch(windows):
+    """K10 and K19: one launch for every window -> their dense grids."""
+    if len(windows) > MAX_CROP_WINDOWS:
+        raise ValueError(f"a crop launch takes at most {MAX_CROP_WINDOWS} windows")
+    descs, out = [], []
+    for grid, center, size in windows:
+        pools, window = _crop_pools(grid)
+        P, B, nb = pools[0][0].shape[0], grid.page_size, grid.num_blocks
+        for pool, name, dtype in pools:
+            cuda.check(pool, name, dtype, (P, B, B, B))
+        cuda.check(grid.page_table, "page table", torch.int32, (nb, nb, nb))
+        cuda.check(grid.origin, "grid origin", torch.float32, (3,))
+        dev = grid.page_table.device
+        denses = [torch.empty((size,) * 3, dtype=dtype, device=dev) for _, _, dtype in pools]
+        origin = torch.empty(3, dtype=torch.float32, device=dev)
+        c = np.asarray(center, np.float32)
+        descs.append(_CROP_WINDOW.pack(
+            pools[0][0].data_ptr(), pools[1][0].data_ptr(), denses[0].data_ptr(),
+            denses[1].data_ptr(), grid.page_table.data_ptr(), grid.origin.data_ptr(),
+            origin.data_ptr(), float(c[0]), float(c[1]), float(c[2]), grid.resolution,
+            pools[0][0].element_size(), pools[1][0].element_size(), B, nb, P, int(size)))
+        out.append(window(*denses, origin, grid.resolution))
+    _CROP_KERNEL(windows[0][0].page_table.device, b"".join(descs), len(windows))
+    return out
+
+
+def crop_windows(windows) -> list:
+    """Dense windows [(grid, center, size), ...] of paged grids, occupancy
+    (`PagedGrid3D` -> `Grid3D`) or intensity (`PagedIntensityGrid3D` ->
+    `IntensityGrid3D`), each size^3 around its `center` (3 host floats);
+    unallocated blocks and blocks outside the table read as zero. On the
+    card one launch makes them all (at most MAX_CROP_WINDOWS)."""
+    if len({grid.page_table.device for grid, _, _ in windows}) > 1:
+        raise ValueError("crop windows: the grids lie on different devices")
+    if not windows:
+        return []
+    if windows[0][0].page_table.is_cuda:
+        return _crop_launch(windows)
+    return [(crop_dense_intensity_plain if isinstance(grid, PagedIntensityGrid3D)
+             else crop_dense_plain)(
+                 grid, torch.from_numpy(np.asarray(center, np.float32).copy()), size)
+            for grid, center, size in windows]
 
 
 def crop_dense(grid: PagedGrid3D, center, size: int) -> Grid3D:
     """Dense size^3 Grid3D of the window centered at `center` (3 host
     floats): unallocated blocks and blocks outside the table read as
     0 / unknown."""
-    if grid.pages.is_cuda:
-        (dense, known), origin = _crop_kernel(
-            _CROP_KERNEL, grid, ((grid.pages, "pages", torch.float32),
-                                 (grid.known, "known", torch.bool)), center, size)
-        return Grid3D(dense, known, origin, grid.resolution)
-    return crop_dense_plain(grid, torch.from_numpy(np.asarray(center, np.float32).copy()),
-                            size)
+    return crop_windows([(grid, center, size)])[0]
 
 
 # ---------------------------------------------------------------- host allocation
@@ -509,14 +540,7 @@ def crop_dense_intensity(grid: PagedIntensityGrid3D, center, size: int) -> Inten
     host floats): zero sums and counts where a block has no page. With the
     occupancy grid's resolution, origin and page size it is the same window
     as `crop_dense`'s."""
-    if grid.sums.is_cuda:
-        (sums, counts), origin = _crop_kernel(
-            _INTENSITY_CROP_KERNEL, grid, ((grid.sums, "sums", torch.float32),
-                                           (grid.counts, "counts", torch.float32)),
-            center, size)
-        return IntensityGrid3D(sums, counts, origin, grid.resolution)
-    return crop_dense_intensity_plain(
-        grid, torch.from_numpy(np.asarray(center, np.float32).copy()), size)
+    return crop_windows([(grid, center, size)])[0]
 
 
 class PagedIntensitySubmapGrid3D(_PagedAllocation):

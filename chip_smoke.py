@@ -29,11 +29,13 @@ on the card, at full width (the reference's default 2D and 3D options):
 5. the 3D frontend, `LocalTrajectoryBuilder3D`, over 400 simulated scans of
    a 16-ring sensor with an IMU in the same floor plan extruded to a hall
    (paged submaps, dense crops of 256^3 and 192^3 per scan): K2 and K9-K12
-   launched, one blocking copy per scan, accuracy against ground truth, one
-   finished submap with its dense crops, the first scans again on the
-   CPU's plain path;
+   launched, one crop launch per scan after the first (both windows) and
+   per lazy crop, one blocking copy per scan, accuracy against ground
+   truth, one finished submap with its dense crops, the first scans again
+   on the CPU's plain path;
 6. the 3D kernels K9-K12, each against its plain twin, on that run's pools,
-   windows and clouds;
+   windows and clouds (K10: the scan's two windows in one launch, beside a
+   zero_() of the same bytes);
 7. 3D global SLAM through `MapBuilder(use_trajectory_builder_3d=True)` at
    the default options over 700 scans of that hall (three laps; background
    searches and solves): K2 and K9-K16 launched, at least 50 loop closures
@@ -48,13 +50,15 @@ on the card, at full width (the reference's default 2D and 3D options):
    error and its page count are reported, not limited;
 10. the 3D frontend at its full options (the online correlative search,
     intensities) over 400 scans of the half-scale hall with intensities:
-    K2 and K9-K12 and K17-K19 launched (K17 and K11 once per scan, K19
-    once per scan after the first, K18 once per active submap and inserted
-    scan), one blocking copy per scan, accuracy against ground truth (0.25
-    m; a mean yaw error of 0.03 rad, above the JAX builder's and the plain
-    path's on the CPU), the first scans again on the CPU's plain path;
+    K2 and K9-K12 and K17-K19 launched (K17 and K11 once per scan, the
+    crops of K10 and K19 one launch per scan after the first, K18 once per
+    active submap and inserted scan), one blocking copy per scan, accuracy
+    against ground truth (0.25 m; a mean yaw error of 0.03 rad, above the
+    JAX builder's and the plain path's on the CPU), the first scans again
+    on the CPU's plain path;
 11. K17, K18, K19 and K11 with its intensity rows, each against its plain
-    twin, on that run's pools, windows and clouds; K18 also timed by CUDA
+    twin, on that run's pools, windows and clouds (K19: the scan's three
+    windows in K10's one launch); K18 also timed by CUDA
     events, its kernel launches per call counted, and `index_add_` of the
     sums and the counts into both pools timed beside it;
 12. the full-size hall of phase 9 with the correlative search on (error and
@@ -206,12 +210,13 @@ KERNELS_2D = ("scan_preprocess_2d", "voxel_filter", "scan_matcher_2d", "insert_2
               "correlative_2d", "bnb_pyramid", "bnb_descent", "schur_spa_2d")
 KERNELS_3D = ("voxel_filter", "paged_insert_3d", "paged_crop_3d", "scan_matcher_3d",
               "rot_histogram", "rot_histogram_rotate")
+CROP_KERNEL_NAME = "crop_rows"  # K10's kernel (csrc/paged_grid_3d.cu), in profiler records
 GLOBAL_SCANS_3D = 700  # three laps of the half-scale hall
 NUM_SCANS_IMU = 100
 IMU_DEFAULT_QUEUE_SCANS = 60  # the 5 s queue fills at scan 50
 FULL_FRONTEND_YAW_LIMIT = 0.03  # rad, mean over the 400 scans (see _slice_phase_3d_full)
-FULL_FRONTEND_KERNELS = KERNELS_3D + ("correlative_3d", "paged_intensity_insert_3d",
-                                      "paged_intensity_crop_3d")
+# K19, the intensity window, is a window of K10's launch (`paged_crop_3d`).
+FULL_FRONTEND_KERNELS = KERNELS_3D + ("correlative_3d", "paged_intensity_insert_3d")
 KERNELS_3D_GLOBAL = KERNELS_3D + ("rot_match", "bnb3d_stack", "bnb3d_discretize",
                                   "bnb3d_score", "schur_spa_3d")
 YAW_SEEDS = (1, 2)  # the full frontend's phase again over these seeds' scans
@@ -1624,6 +1629,7 @@ def _slice_phase_3d(torch, dev):
     launches = cuda.launch_counts()
     print(f"3D frontend: launches {launches}")
     _check_launched(launches, KERNELS_3D, "3D frontend")
+    _check_crop_launches(launches, n, finished, "3D frontend")
     active = builder._active_submaps.submaps
     if len(finished) < 1 or len(active) != 2 or active[1].num_range_data == 0:
         _fail(f"{len(finished)} submaps finished, {len(active)} active: the window did not "
@@ -1656,10 +1662,11 @@ def _slice_phase_3d(torch, dev):
     worst = _cpu_agreement_3d(torch, dev, opts, events, est, "3D frontend")
 
     profile = _profile(torch, lambda e: _feed_3d(builder, e), events[n:n + PROFILED_SCANS],
-                       "3D profile")
+                       "3D profile", watch=CROP_KERNEL_NAME)
     # One more scan, keeping what its step read and left on the card (the dense
-    # windows, the packed result, the insertion's tensors) for the kernel phase.
-    step, kept = builder._fused_step, []
+    # windows and their center, the packed result, the insertion's tensors) for
+    # the kernel phase.
+    step, kept, centers = builder._fused_step, [], []
 
     def keeping_step(high_grid, low_grid, intensity_grid, upload, perm):
         out = step(high_grid, low_grid, intensity_grid, upload, perm)
@@ -1667,11 +1674,14 @@ def _slice_phase_3d(torch, dev):
         return out
 
     builder._fused_step = keeping_step
+    undo = _recording_windows(builder._active_submaps, centers)
     _feed_3d(builder, events[n + PROFILED_SCANS])
+    undo()
     del builder._fused_step
     steady = walls[10:]
     return dict(
-        builder=builder, last_step=kept[0], profile=profile, scans=n, inserted=inserted,
+        builder=builder, last_step=(*kept[0], centers[0]), profile=profile, scans=n,
+        inserted=inserted,
         finished_submaps=len(finished), mean_error_m=float(errors.mean()),
         mean_yaw_error_rad=float(yaw_err.mean()),
         mean_offset_m=offsets,
@@ -1721,6 +1731,99 @@ def _full_hall_phase_3d(torch, dev, correlative=False):
     return result
 
 
+def _check_crop_launches(launches, n, finished, label):
+    """One crop launch a 3D scan (the matching windows of every scan after
+    the first) and one per lazy crop of a finished submap (its high and low
+    windows, which _drive_3d makes)."""
+    expected = n - 1 + 2 * len(finished)
+    if launches["paged_crop_3d"] != expected:
+        _fail(f"{label}: {launches['paged_crop_3d']} crop launches, expected {expected} (one "
+              f"a scan after the first, one per lazy crop)")
+
+
+def _recording_windows(active, centers):
+    """Record into `centers` each center that `active.matching_grids_at`
+    crops around; returns the undo."""
+    original = active.matching_grids_at
+
+    def recorded(center):
+        centers.append(np.asarray(center, np.float32).copy())
+        return original(center)
+
+    active.matching_grids_at = recorded
+    return lambda: delattr(active, "matching_grids_at")
+
+
+def _window_tensors(grid):
+    """A crop's two dense tensors and its origin."""
+    if hasattr(grid, "sums"):
+        return grid.sums, grid.counts, grid.origin
+    return grid.log_odds, grid.known, grid.origin
+
+
+def _crop_work(torch, windows):
+    """The bytes a crop of `windows` [(paged grid, center, size)] must move:
+    each window's two dense tensors and origin written once, the window's
+    cells that lie on a page and its part of the page table read once.
+    -> (bytes, cells, [(pools, pages under the window)])."""
+    nbytes, cells, gathers = 0, 0, []
+    for grid, center, size in windows:
+        B, nb = grid.page_size, grid.num_blocks
+        pools = (grid.sums, grid.counts) if hasattr(grid, "sums") else (grid.pages, grid.known)
+        per_cell = sum(p.element_size() for p in pools)
+        c = torch.from_numpy(np.asarray(center, np.float32).copy()).to(grid.origin.device)
+        start = grid.world_to_cell(c).cpu().numpy().astype(np.int64) - size // 2
+        lo, hi = np.clip(start // B, 0, nb), np.clip((start + size - 1) // B + 1, 0, nb)
+        table = grid.page_table[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]]
+        has = ((table >= 0) & (table < pools[0].shape[0])).cpu().numpy()
+        # The cells of each block under the window, axis by axis.
+        span = [np.minimum((np.arange(lo[a], hi[a]) + 1) * B, start[a] + size)
+                - np.maximum(np.arange(lo[a], hi[a]) * B, start[a]) for a in range(3)]
+        on_pages = int((has * span[0][:, None, None] * span[1][None, :, None]
+                        * span[2][None, None, :]).sum())
+        nbytes += size ** 3 * per_cell + 12 + on_pages * per_cell + int(table.numel()) * 4
+        cells += size ** 3
+        gathers.append((pools, table[torch.from_numpy(has).to(table.device)].long()))
+    return nbytes, cells, gathers
+
+
+def _crop_row(torch, dev, windows, label, replaces, **extra):
+    """The crop launch of `windows` against the plain twins (tolerance 0)
+    and its row: device ms of the launch and of one zero_() of as many
+    bytes as the windows hold (the card's store ceiling), each the mean of
+    its kernel's profiler records (the profiler drops records of short
+    windows, which a window's sum would lose), and of the twins and the
+    library's gather of the windows' pages."""
+    from cartographer_tpu_torch.ops import paged_grid_3d
+
+    def twins():
+        return [(paged_grid_3d.crop_dense_intensity_plain if hasattr(grid, "sums")
+                 else paged_grid_3d.crop_dense_plain)(
+                     grid, torch.from_numpy(np.asarray(center, np.float32).copy()).to(dev), size)
+                for grid, center, size in windows]
+
+    got = paged_grid_3d.crop_windows(windows)
+    differ = sum(int((a != b).sum()) for g, r in zip(got, twins())
+                 for a, b in zip(_window_tensors(g), _window_tensors(r)))
+    if differ:
+        _fail(f"{label}: {differ} cells differ from the plain twins (tolerance 0)")
+    nbytes, cells, gathers = _crop_work(torch, windows)
+    flat = torch.empty(sum(x.numel() * x.element_size() for g in got
+                           for x in _window_tensors(g)[:2]) // 4,
+                       dtype=torch.float32, device=dev)
+    print(f"{label}: windows {[size for _, _, size in windows]} in one launch, 0 differing "
+          f"cells, {[int(p.numel()) for _, p in gathers]} pages under them, "
+          f"{nbytes / 1e6:.1f} MB to move")
+    return dict(
+        replaces=replaces, max_abs_err=float(differ), **extra,
+        ms=_kernel_ms(lambda: paged_grid_3d.crop_windows(windows), CROP_KERNEL_NAME)[0],
+        plain_ms=_cuda_ms(twins, reps=3, warmup=1),
+        bound=_bound(nbytes, cells * 20),
+        # Advanced indexing gathers the windows' pages; it does not assemble them.
+        library_ms=_cuda_ms(lambda: [(p[0][pages], p[1][pages]) for p, pages in gathers]),
+        zero_ms=_kernel_ms(flat.zero_, "FillFunctor")[0])
+
+
 def _kernel_phase_3d(torch, dev, builder, last_step):
     """K9-K12 against their twins on the card, on the pools, windows and
     clouds of the 3D run's last scan (default widths): `last_step` is that
@@ -1735,7 +1838,8 @@ def _kernel_phase_3d(torch, dev, builder, last_step):
 
     opts = builder._options
     rows = {}
-    (high_grid, low_grid), packed, (est_t, local_points, keep, in_high, _) = last_step
+    (high_grid, low_grid), packed, (est_t, local_points, keep, in_high, _), crop_center = \
+        last_step
     bins = opts.rotational_histogram_size
     u = unpack_step_result(packed, bins, builder._caps)
     host = unpack_step_result(packed.cpu().numpy(), bins, builder._caps)
@@ -1762,40 +1866,13 @@ def _kernel_phase_3d(torch, dev, builder, last_step):
         _fail(f"K2 (3D keys, {n} points) differs from the plain twin in {mism} points")
     print(f"K2 voxel_filter at 3D shapes ({n} points): masks equal to the plain twin")
 
-    # K10: the two windows of a scan, around the last pose.
-    center = host["translation"].astype(np.float32)
+    # K10: the scan's two windows in one launch, around the step's own center.
+    center = host["translation"].astype(np.float32)  # K9's sensor origin below
     submaps = builder._active_submaps.submaps
-    windows = ((submaps[0].high_paged, opts.tpu.high_grid_size),
-               (submaps[0].low_paged, opts.tpu.low_grid_size))
-    differ, read_bytes, gathers = 0, 0, []
-    for paged, size in windows:
-        got = paged.crop_dense(center, size)
-        ref = paged_grid_3d.crop_dense_plain(paged.grid, t(center), size)
-        differ += int((got.log_odds != ref.log_odds).sum() + (got.known != ref.known).sum()
-                      + (got.origin != ref.origin).sum())
-        start = (paged.grid.world_to_cell(t(center)).cpu().numpy() - size // 2)
-        lo, hi = start // B, (start + size - 1) // B + 1
-        nb = paged.grid.num_blocks
-        lo, hi = np.clip(lo, 0, nb), np.clip(hi, 0, nb)
-        table = paged.grid.page_table[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]]
-        pages = table[table >= 0].long()
-        gathers.append((paged.grid, pages))
-        read_bytes += int(pages.numel()) * B ** 3 * 5 + int(table.numel()) * 4
-        del got, ref
-    if differ:
-        _fail(f"K10 crops differ from the plain twin in {differ} cells (tolerance 0)")
-    print(f"K10 paged_crop_3d: {windows[0][1]}^3 and {windows[1][1]}^3 windows, 0 differing "
-          f"cells, {[int(p.numel()) for _, p in gathers]} pages under them")
-    written = sum(size ** 3 * 5 + 12 for _, size in windows)
-    cells = sum(size ** 3 for _, size in windows)
-    rows["paged_crop_3d"] = dict(
-        replaces="cartographer_tpu/ops/paged_grid_3d.py:287", max_abs_err=float(differ),
-        ms=_cuda_ms(lambda: [p.crop_dense(center, s) for p, s in windows]),
-        plain_ms=_cuda_ms(lambda: [paged_grid_3d.crop_dense_plain(p.grid, t(center), s)
-                                   for p, s in windows], reps=3, warmup=1),
-        bound=_bound(written + read_bytes, cells * 20),
-        # Advanced indexing gathers the windows' pages; it does not assemble them.
-        library_ms=_cuda_ms(lambda: [(g.pages[p], g.known[p]) for g, p in gathers]))
+    rows["paged_crop_3d"] = _crop_row(torch, dev, [
+        (submaps[0].high_paged.grid, crop_center, opts.tpu.high_grid_size),
+        (submaps[0].low_paged.grid, crop_center, opts.tpu.low_grid_size)],
+        "K10 paged_crop_3d", "cartographer_tpu/ops/paged_grid_3d.py:287")
 
     # K9: the four insertions of a scan, on clones for the twin.
     ins = opts.submaps.range_data_inserter
@@ -1953,7 +2030,8 @@ def _slice_phase_3d_full(torch, dev):
     launches = cuda.launch_counts()
     print(f"{label}: launches {launches}")
     _check_launched(launches, FULL_FRONTEND_KERNELS, label)
-    expected = {"correlative_3d": n, "scan_matcher_3d": n, "paged_intensity_crop_3d": n - 1,
+    _check_crop_launches(launches, n, finished, label)
+    expected = {"correlative_3d": n, "scan_matcher_3d": n,
                 "paged_intensity_insert_3d": launches["paged_insert_3d"] // 2}
     wrong = {k: (launches[k], v) for k, v in expected.items() if launches[k] != v}
     if wrong:
@@ -1984,7 +2062,7 @@ def _slice_phase_3d_full(torch, dev):
         _fail(f"{label} lost the ground truth")
     worst = _cpu_agreement_3d(torch, dev, opts, events, est, label)
     profile = _profile(torch, lambda e: _feed_3d(builder, e), events[n:n + PROFILED_SCANS],
-                       f"{label} profile")
+                       f"{label} profile", watch=CROP_KERNEL_NAME)
     # One more scan, keeping the arguments of its correlative search and LM
     # match and what its insertion reads, for the kernel phase.
     kept = {"correlative": [], "lm": []}
@@ -1998,12 +2076,15 @@ def _slice_phase_3d_full(torch, dev):
         return out
 
     builder._fused_step = keeping_step
+    centers = []
+    restore.append(_recording_windows(builder._active_submaps, centers))
     try:
         _feed_3d(builder, events[n + PROFILED_SCANS])
     finally:
         del builder._fused_step
         for r in restore:
             r()
+    kept["center"] = centers[0]
     # The same phase over the scans of other seeds (the sensor noise and the
     # intensities): the spread of the yaw error, reported beside the CPU
     # witnesses' (tests/hall_yaw_witness_3d.py), not limited.
@@ -2073,7 +2154,6 @@ def _kernel_phase_3d_full(torch, dev, builder, kept):
     est_t, local_points, keep, in_high, intensities = device_tensors
     bins = opts.rotational_histogram_size
     host = unpack_step_result(packed.cpu().numpy(), bins, builder._caps, True)
-    B = opts.tpu.page_size
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
 
     # K17: the step's own search, from its prediction.
@@ -2108,38 +2188,18 @@ def _kernel_phase_3d_full(torch, dev, builder, kept):
                      + rotations * translations * valid * 12),
         library_ms=None)
 
-    # K19: the scan's intensity window around its prediction.
-    # A center in the middle of the window's middle cell: the same window.
+    # K19: the scan's three windows (K10's two and the intensity window) in
+    # one launch, around the step's own center.
     size = opts.tpu.high_grid_size
-    center = np.asarray(cgrid.origin.cpu().numpy() + (size // 2 + 0.5) * cgrid.resolution,
-                        np.float32)
-    paged = builder._active_submaps.submaps[0].intensity_paged
-    got = paged.crop_dense(center, size)
-    ref = paged_grid_3d.crop_dense_intensity_plain(paged.grid, t(center), size)
-    differ = int((got.sums != ref.sums).sum() + (got.counts != ref.counts).sum()
-                 + (got.origin != ref.origin).sum())
-    if differ:
-        _fail(f"K19 differs from the plain twin in {differ} cells (tolerance 0)")
-    if not torch.equal(got.origin, cgrid.origin):
-        _fail("K19's window is not the high occupancy window")
-    start = paged.grid.world_to_cell(t(center)).cpu().numpy() - size // 2
-    nb = paged.grid.num_blocks
-    lo = np.clip(start // B, 0, nb)
-    hi = np.clip((start + size - 1) // B + 1, 0, nb)
-    table = paged.grid.page_table[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]]
-    pages = table[table >= 0].long()
-    print(f"K19 paged_intensity_crop_3d: {size}^3 window, 0 differing cells, "
-          f"{int(pages.numel())} pages under it")
-    g = paged.grid
-    rows["paged_intensity_crop_3d"] = dict(
-        replaces="cartographer_tpu/ops/paged_grid_3d.py:410", max_abs_err=float(differ),
-        ms=_cuda_ms(lambda: paged.crop_dense(center, size)),
-        plain_ms=_cuda_ms(lambda: paged_grid_3d.crop_dense_intensity_plain(g, t(center), size),
-                          reps=3, warmup=1),
-        bound=_bound(size ** 3 * 8 + 12 + int(pages.numel()) * B ** 3 * 8
-                     + int(table.numel()) * 4, size ** 3 * 20),
-        # Advanced indexing gathers the window's pages; it does not assemble them.
-        library_ms=_cuda_ms(lambda: (g.sums[pages], g.counts[pages])))
+    s0 = builder._active_submaps.submaps[0]
+    windows = [(s0.high_paged.grid, kept["center"], size),
+               (s0.low_paged.grid, kept["center"], opts.tpu.low_grid_size),
+               (s0.intensity_paged.grid, kept["center"], size)]
+    if not torch.equal(paged_grid_3d.crop_windows(windows)[2].origin, cgrid.origin):
+        _fail("K19's window is not the step's high occupancy window")
+    rows["paged_intensity_crop_3d"] = _crop_row(
+        torch, dev, windows, "K19 paged_intensity_crop_3d (with K10's two windows)",
+        "cartographer_tpu/ops/paged_grid_3d.py:410", symbol="paged_crop_3d")
 
     # K18: the scan's insertions into both submaps' intensity pools, on clones
     # for the twin.
@@ -2253,8 +2313,7 @@ def _large_scan_phase_3d(torch, dev):
     est, offset, yaw_err, _, walls, inserted = _drive_3d(torch, builder, events[:n], gt, label)
     launches = cuda.launch_counts()
     _check_launched(launches, ("voxel_filter", "paged_insert_3d", "paged_crop_3d",
-                               "scan_matcher_3d", "paged_intensity_insert_3d",
-                               "paged_intensity_crop_3d"), label)
+                               "scan_matcher_3d", "paged_intensity_insert_3d"), label)
     errors = np.linalg.norm(offset, axis=1)
     print(f"{label}: mean error {errors.mean():.4f} m, mean yaw error {yaw_err.mean():.5f} rad "
           f"(reported), launches {launches}")
@@ -4667,10 +4726,11 @@ def _batched_serving_phase(torch, dev):
     return out
 
 
-def _profile(torch, feed, data, label="profile"):
+def _profile(torch, feed, data, label="profile", watch=None):
     """Device busy share and kernel time by name over a window of scans
     that continues the main run (its launches are not counted there);
-    `feed(d)` hands one scan to the builder."""
+    `feed(d)` hands one scan to the builder. With `watch`, also the device
+    ms per scan of the kernels whose name holds it."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -4692,6 +4752,9 @@ def _profile(torch, feed, data, label="profile"):
               "device_busy_share": busy_ms / (wall * 1e3 / len(data)) if by_name
               else "not measured",
               "device_ms_per_scan_by_kernel": top}
+    if watch:
+        result[f"{watch}_device_ms_per_scan"] = sum(
+            ms for name, ms in by_name.items() if watch in name)
     print(f"{label}: " + json.dumps(result))
     return result
 
@@ -4795,7 +4858,8 @@ def main() -> int:
             "replaces": row["replaces"], "launches": launches[symbol],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": row["library_ms"]})
+            "library_ms": row["library_ms"],
+            **({"zero_ms": row["zero_ms"]} if "zero_ms" in row else {})})
     smi = _smi()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -343,11 +343,11 @@ def _hall_scan(rng, origin, n=1024):
     return pts.astype(np.float32), rng.rand(n) < 0.9
 
 
-def _paged_pair(dev, resolution=0.1):
+def _paged_pair(dev, resolution=0.1, page_size=8):
     from cartographer_tpu_torch.ops.paged_grid_3d import PagedSubmapGrid3D
 
     center = np.float32([0.3, -0.2, 0.1])
-    args = dict(page_size=8, max_pages=1024, num_blocks=32)
+    args = dict(page_size=page_size, max_pages=1024, num_blocks=32)
     card = PagedSubmapGrid3D(resolution, center, device=dev, **args)
     cpu = PagedSubmapGrid3D(resolution, center, device="cpu", **args)
     rng = np.random.RandomState(7)
@@ -394,6 +394,98 @@ def test_paged_crop_kernel(dev, center, size):
     card.compact()
     again = card.crop_dense(np.float32(center), size)
     assert torch.equal(again.log_odds, got.log_odds) and torch.equal(again.known, got.known)
+
+
+def _same_window(got, ref):
+    """Two crops (Grid3D or IntensityGrid3D) equal bit for bit."""
+    fields = ("log_odds", "known") if hasattr(ref, "log_odds") else ("sums", "counts")
+    return all(torch.equal(getattr(got, f), getattr(ref, f)) for f in fields + ("origin",))
+
+
+def _twin(grid, center, size, dev):
+    from cartographer_tpu_torch.ops import paged_grid_3d
+
+    plain = (paged_grid_3d.crop_dense_intensity_plain if hasattr(grid, "sums")
+             else paged_grid_3d.crop_dense_plain)
+    return plain(grid, _t(np.float32(center), dev), size)
+
+
+@pytest.mark.parametrize("page_size", [8, 16])
+@pytest.mark.parametrize("size", [37, 40, 64, 192, 256])
+def test_crop_windows_kernel_residues(dev, page_size, size):
+    """K10 and K19 in one launch, 16 centers a cell apart on a diagonal
+    (the window start takes every residue mod the page size on each axis),
+    each window equal to its plain twin bit for bit."""
+    from cartographer_tpu_torch.ops import paged_grid_3d
+
+    high, _ = _paged_pair(dev, 0.1, page_size)
+    low, _ = _paged_pair(dev, 0.3, page_size)
+    inten, _ = _intensity_pair(dev, page_size)
+    for k in range(16):
+        center = np.float32(np.float64([0.31, -0.22, 0.13]) + k * 0.1)
+        windows = [(high.grid, center, size), (low.grid, center, size // 2 + 1),
+                   (inten.grid, center, size)]
+        got = paged_grid_3d.crop_windows(windows)
+        for g, (grid, c, s) in zip(got, windows):
+            assert _same_window(g, _twin(grid, c, s, dev)), (k, s)
+        assert torch.equal(got[2].origin, got[0].origin)
+        assert int(got[0].known.sum()) > 0 and float(got[2].counts.sum()) > 0
+
+
+def _filled(t):
+    """`t` with every byte 0xFF."""
+    t.view(torch.uint8).fill_(255)
+    return t
+
+
+def test_crop_windows_kernel_edges(dev, monkeypatch):
+    """K10 and K19 on windows wholly outside the table and on a window whose
+    every block has a page, into output memory that already holds non-zero
+    bytes (as an earlier crop leaves it): equal to the twins bit for bit,
+    so no row of zeros is skipped."""
+    from cartographer_tpu_torch.ops import paged_grid_3d
+
+    high, _ = _paged_pair(dev)
+    inten, _ = _intensity_pair(dev)
+    # Every block of a 4^3 table has a page, in a shuffled order.
+    rng = np.random.RandomState(23)
+    full = paged_grid_3d.PagedGrid3D.create(0.1, np.float32([0.3, -0.2, 0.1]), dev,
+                                            page_size=8, max_pages=64, num_blocks=4)
+    full.page_table.copy_(_t(rng.permutation(64).astype(np.int32).reshape(4, 4, 4), dev))
+    full.pages.copy_(_t(rng.uniform(-3, 3, (64, 8, 8, 8)).astype(np.float32), dev))
+    full.known.copy_(_t(rng.rand(64, 8, 8, 8) < 0.7, dev))
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, **k: _filled(empty(*a, **k)))
+    outside = np.float32([60.0, -45.0, 30.0])
+    for size in (37, 64):
+        got = paged_grid_3d.crop_windows([(high.grid, outside, size),
+                                          (inten.grid, outside, size)])
+        assert _same_window(got[0], _twin(high.grid, outside, size, dev))
+        assert _same_window(got[1], _twin(inten.grid, outside, size, dev))
+        assert not got[0].known.any() and not got[1].counts.any()
+    for center, size in (([0.3, -0.2, 0.1], 24), ([0.37, -0.11, 0.16], 13),
+                         ([0.33, -0.17, 0.05], 32)):
+        got = paged_grid_3d.crop_dense(full, np.float32(center), size)
+        assert _same_window(got, _twin(full, center, size, dev)), (center, size)
+
+
+def test_crop_windows_kernel_scan(dev):
+    """A scan's three windows (high, low, intensity) in one launch equal the
+    three one-window launches and the twins."""
+    from cartographer_tpu_torch.ops import paged_grid_3d
+
+    high, _ = _paged_pair(dev)
+    low, _ = _paged_pair(dev, 0.3)
+    inten, _ = _intensity_pair(dev)
+    center = np.float32([0.41, -0.07, 0.19])
+    windows = [(high.grid, center, 96), (low.grid, center, 48), (inten.grid, center, 96)]
+    before = paged_grid_3d._CROP_KERNEL.launches
+    fused = paged_grid_3d.crop_windows(windows)
+    assert paged_grid_3d._CROP_KERNEL.launches == before + 1
+    for g, (grid, c, s) in zip(fused, windows):
+        alone = paged_grid_3d.crop_windows([(grid, c, s)])[0]
+        assert _same_window(g, alone) and _same_window(g, _twin(grid, c, s, dev))
+    assert paged_grid_3d._CROP_KERNEL.launches == before + 4
 
 
 @pytest.mark.parametrize("yaw_only", [False, True])
@@ -773,12 +865,12 @@ def _check_schur_spa_3d(dev, arrays, truth_t, iterations):
             assert err < 0.1 * np.abs(arrays["node_t"] - truth_t).mean()
 
 
-def _intensity_pair(dev):
+def _intensity_pair(dev, page_size=8):
     """The same intensity pools on the card and on the CPU after four scans."""
     from cartographer_tpu_torch.ops.paged_grid_3d import PagedIntensitySubmapGrid3D
 
     center = np.float32([0.3, -0.2, 0.1])
-    args = dict(page_size=8, max_pages=1024, num_blocks=32)
+    args = dict(page_size=page_size, max_pages=1024, num_blocks=32)
     card = PagedIntensitySubmapGrid3D(0.1, center, device=dev, **args)
     cpu = PagedIntensitySubmapGrid3D(0.1, center, device="cpu", **args)
     rng = np.random.RandomState(17)

@@ -1,6 +1,10 @@
-"""The port's paged 3D grid (plain twins of kernels K9 and K10) against the
-JAX package: the same scans inserted into the same pool give the same
-allocation, pool and known cells, and the same dense crops, cell for cell."""
+"""The port's paged 3D grid (plain twins of kernels K9, K10 and K19) against
+the JAX package: the same scans inserted into the same pool give the same
+allocation, pool and known cells, and the same dense crops, cell for cell,
+alone and as the 3D frontend's matching windows."""
+
+import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -107,26 +111,106 @@ def test_pool_exhaustion_raises():
         tp.insert_range_data(np.zeros(3, np.float32), pts, mask)
 
 
+# The table spans [LO, LO + 12.8) m on each axis.
+LO = CENTER - np.float32(0.5 * BLOCKS * PAGE * RES)
+HI = LO + np.float32(BLOCKS * PAGE * RES)
+
+
+def _face_origin(axis, high, inset):
+    """A point `inset` m inside the table's low or high face on `axis`, off
+    the cell borders on the other two."""
+    p = np.float64([0.013, -0.021, 0.037])
+    p[axis] = HI[axis] - inset if high else LO[axis] + inset
+    return p
+
+
+# 16 centers a cell apart on a diagonal: the window start takes every
+# residue mod the page size on each axis (twice), at an odd and an even size.
+DIAGONAL = [((np.float64([0.31, -0.22, 0.13]) + k * RES).tolist(), size)
+            for size in (37, 40) for k in range(16)]
+# A window that crosses each face of the table, 1.72 m beyond it.
+FACES = [(_face_origin(axis, high, 0.13).tolist(), 37) for axis in range(3)
+         for high in (False, True)]
+
+
+@functools.lru_cache(maxsize=1)
+def _crop_pair():
+    """Both packages' pools after the same ten scans: four inside the
+    table, one 0.93 m inside each face."""
+    rng = np.random.RandomState(7)
+    jp, tp = _pair(max_pages=2048)
+    origins = [[0.01, 0.02, 0.03], [0.51, -1.02, 0.33], [-5.03, 5.01, 0.02],
+               [5.61, 5.62, 5.63]] + [_face_origin(axis, high, 0.93)
+                                      for axis in range(3) for high in (False, True)]
+    for origin in origins:
+        origin = np.float32(origin)
+        pts, mask = _scan(rng, origin, reach=1.5)
+        _insert_both(jp, tp, origin, pts, mask)
+    return jp, tp
+
+
 @pytest.mark.parametrize("center,size", [
     ([0.31, -0.22, 0.13], 32),   # the table's middle
     ([0.37, -1.13, 0.52], 48),   # an offset that is no multiple of the page
     ([-5.93, 5.84, 0.02], 32),   # partly outside the table, negative window start
     ([6.33, 6.31, 6.32], 40),    # leaves the table at its far corner
-])
+] + DIAGONAL + FACES)
 def test_crop_matches_jax(center, size):
-    rng = np.random.RandomState(7)
-    jp, tp = _pair()
-    for origin in ([0.01, 0.02, 0.03], [0.51, -1.02, 0.33], [-5.03, 5.01, 0.02],
-                   [5.61, 5.62, 5.63]):
-        origin = np.float32(origin)
-        pts, mask = _scan(rng, origin, reach=1.5)
-        _insert_both(jp, tp, origin, pts, mask)
+    jp, tp = _crop_pair()
     ref = jp.crop_dense(np.float32(center), size)
     got = tp.crop_dense(np.float32(center), size)
     np.testing.assert_array_equal(got.known.numpy(), np.asarray(ref.known))
     np.testing.assert_array_equal(got.log_odds.numpy(), np.asarray(ref.log_odds))
     np.testing.assert_allclose(got.origin.numpy(), np.asarray(ref.origin), atol=1e-6, rtol=0)
     assert got.resolution == ref.resolution
+    assert int(got.known.sum()) > 0
+
+
+def test_matching_grids_match_jax():
+    """ActiveSubmaps3D.matching_grids_at with intensities, the port's plain
+    path (on the card one crop launch) against the JAX package's: the high,
+    low and intensity windows exactly, around centers a cell apart."""
+    from cartographer_tpu.core import config as jconfig
+    from cartographer_tpu.mapping.submap_3d import ActiveSubmaps3D as JActive
+    from cartographer_tpu_torch.core import config as tconfig
+    from cartographer_tpu_torch.mapping.submap_3d import ActiveSubmaps3D
+
+    def options(cfg):
+        tpu = dataclasses.replace(cfg.TpuOptions3D(), page_size=PAGE, max_pages=PAGES,
+                                  num_blocks=BLOCKS, high_grid_size=37, low_grid_size=20)
+        inserter = dataclasses.replace(cfg.RangeDataInserterOptions3D(), hit_probability=HIT,
+                                       miss_probability=MISS)
+        subs = dataclasses.replace(cfg.SubmapsOptions3D(), num_range_data=3,
+                                   high_resolution_max_range=1.6,
+                                   range_data_inserter=inserter)
+        return subs, tpu
+
+    jactive = JActive(*options(jconfig), histogram_size=8, use_intensities=True)
+    active = ActiveSubmaps3D(*options(tconfig), "cpu", 8, use_intensities=True)
+    rng = np.random.RandomState(10)
+    for k in range(4):  # a second submap starts at the fourth scan
+        origin = np.float32([0.2 * k + 0.013, -0.1 * k + 0.021, 0.037])
+        pts, mask = _scan(rng, origin, reach=2.0)
+        intens = (rng.rand(len(pts)) * 60.0).astype(np.float32)
+        hist = np.ones(8)
+        jactive.insert_range_data(origin, pts, mask, hist, 0.0, intensities=intens,
+                                  rotated_histogram=hist)
+        active.insert_range_data(origin, pts, mask, hist, 0.0, rotated_histogram=hist,
+                                 intensities=intens)
+    assert len(active.submaps) == len(jactive.submaps) == 2
+    for k in range(3):
+        center = np.float32(np.float64([0.31, -0.22, 0.13]) + k * RES)
+        ref = jactive.matching_grids_at(center)
+        got = active.matching_grids_at(center)
+        for g, r in zip(got[:2], ref[:2]):
+            np.testing.assert_array_equal(g.log_odds.numpy(), np.asarray(r.log_odds))
+            np.testing.assert_array_equal(g.known.numpy(), np.asarray(r.known))
+            np.testing.assert_array_equal(g.origin.numpy(), np.asarray(r.origin))
+        np.testing.assert_array_equal(got[2].sums.numpy(), np.asarray(ref[2].sums))
+        np.testing.assert_array_equal(got[2].counts.numpy(), np.asarray(ref[2].counts))
+        np.testing.assert_array_equal(got[2].origin.numpy(), np.asarray(ref[2].origin))
+        assert torch.equal(got[2].origin, got[0].origin) and float(got[2].counts.sum()) > 0
+        assert int(got[0].known.sum()) > 0 and int(got[1].known.sum()) > 0
 
 
 def test_compacted_pool_crops_the_same():
