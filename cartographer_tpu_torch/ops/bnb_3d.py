@@ -21,13 +21,18 @@ result is certified optimal when the best leaf scores at least the largest
 bound any truncation dropped.
 
 `build_precomputation_stack_3d` launches `csrc/bnb_3d.cu` `bnb3d_stack`
-(K14); the per-yaw discretization of the clouds and the candidate scorer
-launch its `bnb3d_discretize` and `bnb3d_score` (K15), on CUDA tensors; CPU
-tensors take the plain twins. The beam selection is a stable sort (value
-descending, index ascending: the order of `lax.top_k`), the same on both
-paths. The point axis is summed as the same pairwise halving tree on both,
-and the clouds are rotated with the same sequence of operations, so on the
-card the twin's scores are bit-equal to the kernel's.
+(K14). `fast_correlative_match_3d_batch` runs the local searches of a group
+of pairs and `match_full_submap_3d_batch` a wave of full-submap ones: a
+prelude (`local_searches`, `full_searches`: the angular steps, the yaws and
+their rotational scores, K13) and then one launch of `bnb3d_descent` (K15)
+for the whole group, the per-yaw discretization of the clouds, every
+level's scoring and beam selection and the low-resolution gate included;
+the one-pair entry points are their groups of one. CPU tensors, or
+`plain`, take the plain twin (`_match_tail`: the descent level by level,
+each selection a stable `torch.sort`, value descending and index
+ascending: the order of `lax.top_k`). The kernel keeps the twin's order of
+operations (the rotations, the pairwise halving tree over the points, the
+selections' order), so on the card its rows equal the twin's bit for bit.
 """
 
 from __future__ import annotations
@@ -43,7 +48,7 @@ import torch.nn.functional as F
 
 from cartographer_tpu_torch.core.tensor import f32, true_div
 from cartographer_tpu_torch.ops import cuda
-from cartographer_tpu_torch.ops.correlative_2d import tree_sum
+from cartographer_tpu_torch.ops.correlative_2d import pad_points, tree_sum
 from cartographer_tpu_torch.ops.grid_3d import Grid3D
 from cartographer_tpu_torch.ops.probability import (
     MAX_PROBABILITY,
@@ -55,16 +60,10 @@ from cartographer_tpu_torch.ops.rot_histogram import match_histograms, match_his
 from cartographer_tpu_torch.transform import quaternion as quat
 
 Q_SCALE = (MAX_PROBABILITY - MIN_PROBABILITY) / 255.0  # uint8 <-> probability
-MAX_POINTS = 1024  # the scorer keeps one float per (padded) point of each warp in shared memory
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _STACK = cuda.CudaKernel("bnb_3d.cu", "bnb3d_stack",
                          [_P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P])
-_DISCRETIZE = cuda.CudaKernel("bnb_3d.cu", "bnb3d_discretize",
-                              [_P, _I, _P, _I, _P, _P, _P, _F, _P])
-_SCORE = cuda.CudaKernel("bnb_3d.cu", "bnb3d_score",
-                         [_P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _I, _F, _F, _F,
-                          _P])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,31 +184,16 @@ def discretize_plain(points: torch.Tensor, yaw_q: torch.Tensor, q_init: torch.Te
     return torch.floor(true_div(world - origin, resolution)).to(torch.int32)
 
 
-def discretize(points: torch.Tensor, yaw_q: torch.Tensor, q_init: torch.Tensor,
-               translation: torch.Tensor, origin: torch.Tensor, resolution: float
-               ) -> torch.Tensor:
-    """The cloud (N, 3) rotated by q_init, then by each yaw (A, 4), shifted
-    by `translation` and discretized on a grid at `origin`: (A, N, 3)."""
-    if not points.is_cuda:
-        return discretize_plain(points, yaw_q, q_init, translation, origin, resolution)
-    n, a = points.shape[0], yaw_q.shape[0]
-    cuda.check(points, "points", torch.float32, (n, 3))
-    cuda.check(yaw_q, "yaw_q", torch.float32, (a, 4))
-    for name, t, size in (("q_init", q_init, 4), ("translation", translation, 3),
-                          ("origin", origin, 3)):
-        cuda.check(t, name, torch.float32, (size,))
-    out = torch.empty((a, n, 3), dtype=torch.int32, device=points.device)
-    if a * n:
-        _DISCRETIZE(points.device, points.data_ptr(), n, yaw_q.data_ptr(), a, q_init.data_ptr(),
-                    translation.data_ptr(), origin.data_ptr(), f32(resolution), out.data_ptr())
-    return out
-
-
 def score_plain(level: torch.Tensor, re: int, window: int, size: int, cells: torch.Tensor,
                 mask: torch.Tensor, a_idx: torch.Tensor, ox: torch.Tensor, oy: torch.Tensor,
                 oz: torch.Tensor) -> torch.Tensor:
     """The plain twin of K15's scorer (`_score_level` l.152; with a float
-    level, window 1 and re 0, `_score_3d` l.724)."""
+    level, window 1 and re 0, `_score_3d` l.724): the mean level value (B,)
+    under the candidates (a_idx, ox, oy, oz). Point k of yaw a sits at
+    cells[a, k] + offset, in full-resolution cells of a grid `size` wide; a
+    candidate anchored `window` or more cells below the grid or beyond it
+    reads UNKNOWN, others read the level at the clipped cell >> re. A uint8
+    level is dequantized. The point count is a power of two."""
     dim = level.shape[-1]
     a = a_idx.long()
     c = [cells[a, :, k] + o[:, None] for k, o in enumerate((ox, oy, oz))]
@@ -225,45 +209,52 @@ def score_plain(level: torch.Tensor, re: int, window: int, size: int, cells: tor
     return total / torch.clamp(mask.sum(), min=1).to(torch.float32)
 
 
-def score(level: torch.Tensor, re: int, window: int, size: int, cells: torch.Tensor,
-          mask: torch.Tensor, a_idx: torch.Tensor, ox: torch.Tensor, oy: torch.Tensor,
-          oz: torch.Tensor) -> torch.Tensor:
-    """Mean level value (B,) under the candidates (a_idx, ox, oy, oz):
-    point k of yaw a sits at cells[a, k] + offset, in full-resolution cells
-    of a grid `size` wide; a candidate anchored more than `window` cells
-    below the grid or beyond it reads UNKNOWN, others read the level at the
-    clipped cell >> re. A uint8 level is dequantized. The point count is a
-    power of two."""
-    if not level.is_cuda:
-        return score_plain(level, re, window, size, cells, mask, a_idx, ox, oy, oz)
-    dim = level.shape[-1]
-    a_n, n = cells.shape[0], cells.shape[1]
-    b = a_idx.shape[0]
-    if n > MAX_POINTS or n & (n - 1):
-        raise ValueError(f"bnb3d_score: the point count must be a power of two <= {MAX_POINTS}")
-    if level.dtype not in (torch.uint8, torch.float32):
-        raise ValueError(f"bnb3d_score: level must be uint8 or float32, got {level.dtype}")
-    cuda.check(level, "level", level.dtype, (dim, dim, dim))
-    cuda.check(cells, "cells", torch.int32, (a_n, n, 3))
-    cuda.check(mask, "mask", torch.bool, (n,))
-    for name, t in (("a_idx", a_idx), ("ox", ox), ("oy", oy), ("oz", oz)):
-        cuda.check(t, name, torch.int32, (b,))
-    out = torch.empty(b, dtype=torch.float32, device=level.device)
-    if b:
-        _SCORE(level.device, level.data_ptr(), int(level.dtype == torch.uint8), dim, size, re,
-               window, cells.data_ptr(), n, mask.data_ptr(), a_idx.data_ptr(), ox.data_ptr(),
-               oy.data_ptr(), oz.data_ptr(), b, f32(Q_SCALE), f32(MIN_PROBABILITY),
-               f32(UNKNOWN_PROBABILITY), out.data_ptr())
-    return out
-
-
 # ---------------------------------------------------------------- the search
+
+
+@dataclasses.dataclass
+class Search3D:
+    """One pair's translation search as `_match_tail` and K15 take it: the
+    stack and grids, the clouds (padded to powers of two), the yaws
+    (rotations `yaw_q` applied after `q_init`, their gate and rotational
+    scores), the start `translation` in the grid frame and the linear
+    windows in cells."""
+
+    stack: PrecomputationStack3D
+    grid: Grid3D
+    low_grid: Grid3D
+    low_probability: torch.Tensor
+    points: torch.Tensor  # (N, 3)
+    mask: torch.Tensor
+    low_points: torch.Tensor  # (Nl, 3)
+    low_mask: torch.Tensor
+    yaw_q: torch.Tensor  # (A, 4)
+    q_init: torch.Tensor  # (4,)
+    translation: torch.Tensor  # (3,)
+    yaw_alive: torch.Tensor  # (A,) bool
+    rot_scores: torch.Tensor  # (A,)
+    w_xy: int
+    w_z: int
 
 
 def _top(scores: torch.Tensor, k: int):
     """(values, indices) of the k largest, ties to the lower index (lax.top_k)."""
     values, order = torch.sort(scores, descending=True, stable=True)
     return values[:k], order[:k]
+
+
+def _num_off(w: int, top_stride: int) -> int:
+    """Top-level offsets per axis across a window of w cells."""
+    return 2 * ((w + top_stride - 1) // top_stride) + 1
+
+
+def _scored(scorer, level, re, window, size, cells, mask, a_idx, ox, oy, oz, live):
+    """The candidates' scores, -inf where not `live`: only the live ones
+    are scored, as K15 skips the others."""
+    out = torch.full(a_idx.shape, -math.inf, device=level.device)
+    out[live] = scorer(level, re, window, size, cells, mask, a_idx[live], ox[live], oy[live],
+                       oz[live])
+    return out
 
 
 def _beam_candidates(stack: PrecomputationStack3D, cells, mask, yaw_alive, w_xy: int,
@@ -276,7 +267,7 @@ def _beam_candidates(stack: PrecomputationStack3D, cells, mask, yaw_alive, w_xy:
     top_stride = 1 << (depth - 1)
 
     def offsets(w):
-        n = 2 * ((w + top_stride - 1) // top_stride) + 1
+        n = _num_off(w, top_stride)
         return ((torch.arange(n, device=device) - n // 2) * top_stride
                 - top_stride // 2).to(torch.int32)
 
@@ -288,8 +279,8 @@ def _beam_candidates(stack: PrecomputationStack3D, cells, mask, yaw_alive, w_xy:
     oy = offs_xy.repeat_interleave(nz).repeat(num_angles * nxy)
     oz = offs_z.repeat(num_angles * nxy * nxy)
     level, re = stack.level(depth - 1)
-    scores = scorer(level, re, top_stride, size, cells, mask, a_idx, ox, oy, oz)
-    scores = torch.where(yaw_alive[a_idx.long()], scores, torch.full_like(scores, -math.inf))
+    scores = _scored(scorer, level, re, top_stride, size, cells, mask, a_idx, ox, oy, oz,
+                     yaw_alive[a_idx.long()])
 
     total = scores.shape[0]
     beam = min(beam_width, total)
@@ -318,21 +309,32 @@ def _beam_candidates(stack: PrecomputationStack3D, cells, mask, yaw_alive, w_xy:
         oz = torch.cat([pz + (k >> 2) * child for k in range(8)])
         alive = (top > f32(min_score)).repeat(8)
         level, re = stack.level(h)
-        scores = scorer(level, re, child, size, cells, mask, a_idx, ox, oy, oz)
-        scores = torch.where(alive, scores, torch.full_like(scores, -math.inf))
+        scores = _scored(scorer, level, re, child, size, cells, mask, a_idx, ox, oy, oz, alive)
     return a_idx, ox, oy, oz, scores, dropped
 
 
-def _match_tail(stack, grid: Grid3D, low_grid: Grid3D, low_probability, cells, mask, low_cells,
-                low_mask, yaw_alive, rot_scores, yaw_qs_abs, init_translation, w_xy, w_z,
-                num_angles, params: FastCorrelativeMatcherParams3D, min_score: float, plain):
-    """Translation search, low-resolution gate and best-candidate selection
-    (l.527-578). Returns the device vector [found, score, t (3), q (4),
-    rotational score, low-resolution score, certified]."""
-    scorer = score_plain if plain else score
+def _unit(q: torch.Tensor) -> torch.Tensor:
+    """q / |q|, the squares added in K15's order."""
+    w, x, y, z = q.unbind(-1)
+    return q / torch.sqrt(((w * w + x * x) + y * y) + z * z)[..., None]
+
+
+def _match_tail(s: Search3D, params: FastCorrelativeMatcherParams3D, min_score: float,
+                score=None) -> torch.Tensor:
+    """The plain twin of K15 for one pair: the discretization, translation
+    search, low-resolution gate and best-candidate selection (l.527-578),
+    each level's candidates scored by `score` (default `score_plain`; a
+    wrapper may record the work). Returns the device vector [found, score,
+    t (3), q (4), rotational score, low-resolution score, certified]."""
+    score = score or score_plain
+    grid, low_grid = s.grid, s.low_grid
+    cells = discretize_plain(s.points, s.yaw_q, s.q_init, s.translation, grid.origin,
+                             grid.resolution)
+    low_cells = discretize_plain(s.low_points, s.yaw_q, s.q_init, s.translation,
+                                 low_grid.origin, low_grid.resolution)
     a_idx, ox, oy, oz, scores, dropped = _beam_candidates(
-        stack, cells, mask, yaw_alive, w_xy, w_z, grid.size, num_angles, min_score,
-        params.beam_width, scorer)
+        s.stack, cells, s.mask, s.yaw_alive, s.w_xy, s.w_z, grid.size, s.yaw_q.shape[0],
+        min_score, params.beam_width, score)
     k = min(64, scores.shape[0])
     values, order = _top(scores, min(k + 1, scores.shape[0]))
     if scores.shape[0] > k:
@@ -341,7 +343,8 @@ def _match_tail(stack, grid: Grid3D, low_grid: Grid3D, low_probability, cells, m
     la, lx, ly, lz = a_idx[order], ox[order], oy[order], oz[order]
     ratio = f32(grid.resolution / low_grid.resolution)
     low_off = [torch.round(x.to(torch.float32) * ratio).to(torch.int32) for x in (lx, ly, lz)]
-    low_scores = scorer(low_probability, 0, 1, low_grid.size, low_cells, low_mask, la, *low_off)
+    low_scores = score(s.low_probability, 0, 1, low_grid.size, low_cells, s.low_mask, la,
+                       *low_off)
     gated = torch.where(low_scores >= f32(params.min_low_resolution_score), top,
                         torch.full_like(top, -math.inf))
     best = torch.argmax(gated)
@@ -351,30 +354,204 @@ def _match_tail(stack, grid: Grid3D, low_grid: Grid3D, low_probability, cells, m
     a_best = la[best].long()
     certified = (best_score >= dropped) | (dropped <= f32(min_score))
     return torch.cat([(best_score > f32(min_score)).to(torch.float32)[None], best_score[None],
-                      init_translation + offset, quat.normalize(yaw_qs_abs[a_best]),
-                      rot_scores[a_best][None], low_scores[best][None],
+                      s.translation + offset, _unit(quat.multiply(s.yaw_q[a_best], s.q_init)),
+                      s.rot_scores[a_best][None], low_scores[best][None],
                       certified.to(torch.float32)[None]])
 
 
-def _pad_pow2(points: torch.Tensor, mask: torch.Tensor):
-    n = points.shape[0]
-    p = max(2, 1 << (n - 1).bit_length())
-    if p == n:
-        return points.contiguous(), mask.contiguous()
-    return (torch.cat([points, points.new_zeros((p - n, 3))]).contiguous(),
-            torch.cat([mask, mask.new_zeros(p - n)]).contiguous())
+_DESCENT = cuda.CudaKernel(
+    "bnb_3d.cu", "bnb3d_descent",
+    [_P, _P] + [_I] * 7 + [_P] * 9 + [_F] * 7 + [_P] * 4 + [ctypes.c_longlong, _P, _I]
+    + [_P] * 4)
+
+
+def descent_inputs(searches, points: torch.Tensor, mask: torch.Tensor,
+                   low_points: torch.Tensor, low_mask: torch.Tensor):
+    """The torch glue of a group's launch: the pairs' yaw data stacked, and
+    their tables. `points` (B, N, 3) and `low_points` (B, Nl, 3) with their
+    masks are the pairs' padded clouds. -> dict of the launch's inputs."""
+    s0 = searches[0]
+    res, low_res = s0.grid.resolution, s0.low_grid.resolution
+    depth, frd = s0.stack.depth, s0.stack.full_resolution_depth
+    for s in searches:
+        if (s.grid.resolution, s.low_grid.resolution) != (res, low_res):
+            raise ValueError("bnb3d_descent: the pairs' grids must share their resolutions")
+        if (s.stack.depth, s.stack.full_resolution_depth) != (depth, frd):
+            raise ValueError("bnb3d_descent: the pairs' stacks must share their depths")
+        if s.yaw_q.shape[0] != s0.yaw_q.shape[0]:
+            raise ValueError("bnb3d_descent: the pairs must share their yaw count")
+    top_stride = 1 << (depth - 1)
+    dims = np.array([[s.grid.size, s.low_grid.size, _num_off(s.w_xy, top_stride),
+                      _num_off(s.w_z, top_stride)] for s in searches], np.int32)
+    stacked = {name: torch.stack([getattr(s, name) for s in searches]).contiguous()
+               for name in ("yaw_q", "q_init", "translation", "yaw_alive", "rot_scores")}
+    return dict(searches=searches, dims=dims, depth=depth, frd=frd, res=res, low_res=low_res,
+                points=points.contiguous(), mask=mask.contiguous(),
+                low_points=low_points.contiguous(), low_mask=low_mask.contiguous(), **stacked)
+
+
+def descent_launch(d, params: FastCorrelativeMatcherParams3D, min_score: float) -> torch.Tensor:
+    """One launch of K15 on `descent_inputs` (one per 64 pairs above that):
+    -> (B, 12) rows [found, score, t (3), q (4), rotational score,
+    low-resolution score, certified]."""
+    searches, dims = d["searches"], d["dims"]
+    points, low_points = d["points"], d["low_points"]
+    pairs, n, nl = points.shape[0], points.shape[1], low_points.shape[1]
+    angles = d["yaw_q"].shape[1]
+    depth, frd, beam = d["depth"], d["frd"], params.beam_width
+    cuda.check(points, "points", torch.float32, (pairs, n, 3))
+    cuda.check(d["mask"], "mask", torch.bool, (pairs, n))
+    cuda.check(low_points, "low_points", torch.float32, (pairs, nl, 3))
+    cuda.check(d["low_mask"], "low_mask", torch.bool, (pairs, nl))
+    for name, dtype, inner in (("yaw_q", torch.float32, (angles, 4)),
+                               ("q_init", torch.float32, (4,)),
+                               ("translation", torch.float32, (3,)),
+                               ("yaw_alive", torch.bool, (angles,)),
+                               ("rot_scores", torch.float32, (angles,))):
+        cuda.check(d[name], name, dtype, (pairs, *inner))
+    if n & (n - 1) or nl & (nl - 1):
+        raise ValueError("bnb3d_descent: the point counts must be powers of two")
+    for s, (size, low_size, _, _) in zip(searches, dims):
+        cuda.check(s.stack.full, "stack.full", torch.uint8, (frd, size, size, size))
+        half = size // 2
+        cuda.check(s.stack.coarse, "stack.coarse", torch.uint8, (depth - frd, half, half, half))
+        cuda.check(s.low_probability, "low_probability", torch.float32, (low_size,) * 3)
+        cuda.check(s.grid.origin, "origin", torch.float32, (3,))
+        cuda.check(s.low_grid.origin, "low origin", torch.float32, (3,))
+    device = points.device
+    top = [angles * int(nxy) * int(nxy) * int(nz) for _, _, nxy, nz in dims]
+    mmax = max(max(m, 8 * min(beam, m)) for m in top) if pairs else 1
+    pstride = max(beam, 64)
+    i32 = dict(dtype=torch.int32, device=device)
+    cells = torch.empty((pairs, angles, n, 4), **i32)
+    low_cells = torch.empty((pairs, angles, nl, 4), **i32)
+    counts = torch.empty((pairs, 2), **i32)
+    items = torch.empty((pairs, 2, mmax, 2), **i32)
+    parents = torch.empty((pairs, 2, pstride, 4), **i32)
+    dropped = torch.empty(pairs, dtype=torch.float32, device=device)
+    gate = torch.empty((pairs, 2, 64), dtype=torch.float32, device=device)
+    barrier = torch.empty(2, **i32)
+    out = torch.empty((pairs, 12), dtype=torch.float32, device=device)
+    table = cuda.pointer_table([[s.stack.full, s.stack.coarse, s.low_probability, s.grid.origin,
+                                 s.low_grid.origin] for s in searches])
+    _DESCENT(device, table, dims.ctypes.data, pairs, depth, frd, beam, angles, n, nl,
+             points.data_ptr(), d["mask"].data_ptr(), low_points.data_ptr(),
+             d["low_mask"].data_ptr(), d["yaw_q"].data_ptr(), d["q_init"].data_ptr(),
+             d["translation"].data_ptr(), d["yaw_alive"].data_ptr(), d["rot_scores"].data_ptr(),
+             f32(d["res"]), f32(d["low_res"]),
+             f32(d["res"] / d["low_res"]), f32(min_score),
+             f32(params.min_low_resolution_score), f32(Q_SCALE), f32(MIN_PROBABILITY),
+             cells.data_ptr(), low_cells.data_ptr(), counts.data_ptr(), items.data_ptr(), mmax,
+             parents.data_ptr(), pstride, dropped.data_ptr(), gate.data_ptr(),
+             barrier.data_ptr(), out.data_ptr())
+    return out
+
+
+def _match(searches, points, mask, low_points, low_mask, params, min_score, plain):
+    """(B, 12) rows of the searches: one launch of K15 for the group on CUDA
+    tensors, the plain twin pair by pair on CPU tensors or with `plain`."""
+    if plain or not points.is_cuda:
+        return torch.stack([_match_tail(s, params, min_score) for s in searches])
+    return descent_launch(descent_inputs(searches, points, mask, low_points, low_mask), params,
+                          min_score)
 
 
 def angular_step_3d(points: torch.Tensor, mask: torch.Tensor, resolution: float) -> torch.Tensor:
-    """Data-dependent angular step from the cloud's largest range (l.489-491),
-    a 0-d tensor on the cloud's device."""
-    x, y, z = points[:, 0], points[:, 1], points[:, 2]
+    """Data-dependent angular step from the cloud's largest range (l.489-491):
+    of clouds (..., N, 3) with masks (..., N), a (...) tensor on their
+    device."""
+    x, y, z = points[..., 0], points[..., 1], points[..., 2]
     ranges = torch.sqrt(x * x + y * y + z * z)
-    max_range = torch.clamp(torch.max(torch.where(mask, ranges, torch.zeros_like(ranges))),
+    max_range = torch.clamp(torch.amax(torch.where(mask, ranges, torch.zeros_like(ranges)), -1),
                             min=f32(3.0 * resolution))
     ratio = true_div(torch.full_like(max_range, f32(resolution**2)),
                      2.0 * (max_range * max_range))
     return f32(1.0 - 1e-3) * torch.arccos(1.0 - ratio)
+
+
+def _low_probabilities(low_grids, low_probabilities):
+    if low_probabilities is None:
+        low_probabilities = [None] * len(low_grids)
+    return [g.probability() if p is None else p for g, p in zip(low_grids, low_probabilities)]
+
+
+def _chunks(points: torch.Tensor, grids):
+    """The pairs whose preludes run as one batch of tensor operations: the
+    whole group on CUDA tensors (the operations are elementwise or a max,
+    so each pair's values equal its own call's); one pair at a time on CPU
+    tensors, where a vectorized cos or arccos may round a value apart from
+    the scalar code that takes the same value at another index, or where
+    the pairs' resolutions differ."""
+    if points.is_cuda and len({g.resolution for g in grids}) == 1:
+        return [slice(0, len(grids))]
+    return [slice(b, b + 1) for b in range(len(grids))]
+
+
+def local_searches(stacks, grids, low_grids, points: torch.Tensor, mask: torch.Tensor,
+                   low_points: torch.Tensor, low_mask: torch.Tensor,
+                   scan_histograms: torch.Tensor, submap_histograms,
+                   initial_translations: torch.Tensor, initial_rotations: torch.Tensor,
+                   params: FastCorrelativeMatcherParams3D, low_probabilities=None,
+                   plain: bool = False):
+    """The prelude of a group's local-window searches (l.449-525): the
+    clouds padded to powers of two, then the angular steps, the yaws and,
+    pair by pair, their rotational scores (K13; its twin with `plain`),
+    for the group at once on CUDA tensors (`_chunks`).
+    -> ([Search3D], (points, mask, low_points, low_mask) padded)."""
+    points, mask = pad_points(points, mask)
+    low_points, low_mask = pad_points(low_points, low_mask)
+    matcher = match_histograms_plain if plain else match_histograms
+    lows = _low_probabilities(low_grids, low_probabilities)
+    searches = []
+    for chunk in _chunks(points, grids):
+        res = grids[chunk.start].resolution
+        num_angles = params.static_num_angles(res)
+        step = angular_step_3d(points[chunk], mask[chunk], res)
+        half = (num_angles - 1) // 2
+        deltas = (torch.arange(num_angles, dtype=torch.float32, device=points.device)
+                  - half) * step[:, None]
+        angle_valid = torch.abs(deltas) <= f32(params.angular_search_window + 1e-6)
+        q_init = initial_rotations[chunk]
+        angles = quat.get_yaw(q_init)[:, None] + deltas
+        first = chunk.start
+        rot_scores = torch.stack([matcher(submap_histograms[first + i], scan_histograms[first + i],
+                                          angles[i]) for i in range(angles.shape[0])])
+        alive = angle_valid & (rot_scores >= f32(params.min_rotational_score))
+        yaw_q = quat.from_yaw(deltas).contiguous()
+        for i in range(angles.shape[0]):
+            b = first + i
+            searches.append(Search3D(
+                stacks[b], grids[b], low_grids[b], lows[b], points[b], mask[b], low_points[b],
+                low_mask[b], yaw_q[i], q_init[i], initial_translations[b], alive[i],
+                rot_scores[i], int(math.ceil(params.linear_xy_search_window / res)),
+                int(math.ceil(params.linear_z_search_window / res))))
+    return searches, (points, mask, low_points, low_mask)
+
+
+def fast_correlative_match_3d_batch(stacks, grids, low_grids, points: torch.Tensor,
+                                    mask: torch.Tensor, low_points: torch.Tensor,
+                                    low_mask: torch.Tensor, scan_histograms: torch.Tensor,
+                                    submap_histograms, initial_translations: torch.Tensor,
+                                    initial_rotations: torch.Tensor,
+                                    params: FastCorrelativeMatcherParams3D, min_score: float,
+                                    low_probabilities=None, plain: bool = False
+                                    ) -> torch.Tensor:
+    """The local-window searches of a group of pairs (the JAX package's beam
+    path): pair b searches its clouds `points[b]` (N, 3) and `low_points[b]`
+    (Nl, 3) with their masks, from the pose (`initial_translations[b]`,
+    `initial_rotations[b]`) in the frame of `grids[b]`, on `stacks[b]`
+    (from build_precomputation_stack_3d of that grid) and `low_grids[b]`
+    (`low_probabilities[b]` its probability volume, when the caller caches
+    it). -> (B, 12) device rows [found, score, t (3), q (4), rotational
+    score, low-resolution score, certified]. The prelude pair by pair
+    (`local_searches`), then one launch of K15 for the group on CUDA tensors
+    (one per 64 pairs), or the plain twins pair by pair on CPU tensors or
+    with `plain` (K13's too)."""
+    searches, clouds = local_searches(stacks, grids, low_grids, points, mask, low_points,
+                                      low_mask, scan_histograms, submap_histograms,
+                                      initial_translations, initial_rotations, params,
+                                      low_probabilities, plain)
+    return _match(searches, *clouds, params, min_score, plain)
 
 
 def fast_correlative_match_3d(stack: PrecomputationStack3D, grid: Grid3D, low_grid: Grid3D,
@@ -385,37 +562,15 @@ def fast_correlative_match_3d(stack: PrecomputationStack3D, grid: Grid3D, low_gr
                               params: FastCorrelativeMatcherParams3D, min_score: float,
                               low_probability: Optional[torch.Tensor] = None,
                               plain: bool = False) -> torch.Tensor:
-    """The local-window search around a pose estimate in the grid frame
-    (the JAX package's beam path). `points` (N, 3) and `low_points` (Nl, 3)
-    are the node's clouds with masks; `low_probability` is the low grid's
-    probability volume when the caller caches it. Returns the device vector
-    [found, score, t (3), q (4), rotational score, low-resolution score,
-    certified]. `plain` runs the twins of K13 and K15 on any device."""
-    res = grid.resolution
-    num_angles = params.static_num_angles(res)
-    device = points.device
-    points, mask = _pad_pow2(points, mask)
-    low_points, low_mask = _pad_pow2(low_points, low_mask)
-    step = angular_step_3d(points, mask, res)
-    half = (num_angles - 1) // 2
-    deltas = (torch.arange(num_angles, dtype=torch.float32, device=device) - half) * step
-    angle_valid = torch.abs(deltas) <= f32(params.angular_search_window + 1e-6)
-    matcher = match_histograms_plain if plain else match_histograms
-    initial_yaw = quat.get_yaw(initial_rotation)
-    rot_scores = matcher(submap_histogram, scan_histogram, initial_yaw + deltas)
-    yaw_alive = angle_valid & (rot_scores >= f32(params.min_rotational_score))
-    yaw_qs = quat.from_yaw(deltas).contiguous()
-    disc = discretize_plain if plain else discretize
-    cells = disc(points, yaw_qs, initial_rotation, initial_translation, grid.origin, res)
-    low_cells = disc(low_points, yaw_qs, initial_rotation, initial_translation, low_grid.origin,
-                     low_grid.resolution)
-    if low_probability is None:
-        low_probability = low_grid.probability()
-    w_xy = int(math.ceil(params.linear_xy_search_window / res))
-    w_z = int(math.ceil(params.linear_z_search_window / res))
-    return _match_tail(stack, grid, low_grid, low_probability, cells, mask, low_cells, low_mask,
-                       yaw_alive, rot_scores, quat.multiply(yaw_qs, initial_rotation[None, :]),
-                       initial_translation, w_xy, w_z, num_angles, params, min_score, plain)
+    """The local-window search around a pose estimate in the grid frame, the
+    group of one of `fast_correlative_match_3d_batch`. `points` (N, 3) and
+    `low_points` (Nl, 3) are the node's clouds with masks. Returns the
+    device vector [found, score, t (3), q (4), rotational score,
+    low-resolution score, certified]."""
+    return fast_correlative_match_3d_batch(
+        [stack], [grid], [low_grid], points[None], mask[None], low_points[None], low_mask[None],
+        scan_histogram[None], [submap_histogram], initial_translation[None],
+        initial_rotation[None], params, min_score, [low_probability], plain)[0]
 
 
 def full_circle_yaws(resolution: float, max_scan_range: float) -> int:
@@ -423,6 +578,69 @@ def full_circle_yaws(resolution: float, max_scan_range: float) -> int:
     (GenerateDiscreteScans with angular window pi), at most 4096."""
     step = (1.0 - 1e-3) * math.acos(1.0 - resolution**2 / (2.0 * max_scan_range**2))
     return min(2 * int(math.ceil(math.pi / step)) + 1, 4096)
+
+
+def full_searches(stacks, grids, low_grids, points: torch.Tensor, mask: torch.Tensor,
+                  low_points: torch.Tensor, low_mask: torch.Tensor,
+                  scan_histograms: torch.Tensor, submap_histograms,
+                  node_rotations: torch.Tensor, submap_rotations: torch.Tensor,
+                  params: FastCorrelativeMatcherParams3D, top_k_yaws: int = 64,
+                  extra_window_cells: int = 4, low_probabilities=None, plain: bool = False):
+    """The per-pair prelude of a wave of full-submap searches (l.581-665):
+    the clouds padded, then per pair the full circle's yaws scored by K13
+    (its twin with `plain`) and the `top_k_yaws` best kept, the window the
+    whole grid from its center. -> ([Search3D], (points, mask, low_points,
+    low_mask) padded, (B,) whether no yaw passing the gate was left out)."""
+    points, mask = pad_points(points, mask)
+    low_points, low_mask = pad_points(low_points, low_mask)
+    matcher = match_histograms_plain if plain else match_histograms
+    lows = _low_probabilities(low_grids, low_probabilities)
+    searches, complete = [], []
+    for b, (stack, grid, low_grid) in enumerate(zip(stacks, grids, low_grids)):
+        res, size = grid.resolution, grid.size
+        q_rel = quat.normalize(quat.multiply(quat.conjugate(submap_rotations[b]),
+                                             node_rotations[b]))
+        center = grid.origin + f32(0.5 * size * res)
+        n_yaws = full_circle_yaws(res, params.max_scan_range)
+        deltas = ((torch.arange(n_yaws, dtype=torch.float32, device=points.device)
+                   - n_yaws // 2) * f32(2.0 * math.pi / n_yaws))
+        rot_all = matcher(submap_histograms[b], scan_histograms[b], quat.get_yaw(q_rel) + deltas)
+        alive_all = rot_all >= f32(params.min_rotational_score)
+        ranked = torch.where(alive_all, rot_all, torch.full_like(rot_all, -math.inf))
+        k = min(top_k_yaws, n_yaws)
+        _, sel = _top(ranked, k)
+        yaw_q = quat.from_yaw(deltas[sel]).contiguous()
+        w = size // 2 + extra_window_cells
+        searches.append(Search3D(
+            stack, grid, low_grid, lows[b], points[b], mask[b], low_points[b], low_mask[b],
+            yaw_q, q_rel, center, alive_all[sel], rot_all[sel], w, w))
+        complete.append(alive_all.sum() <= k)
+    return searches, (points, mask, low_points, low_mask), torch.stack(complete)
+
+
+def match_full_submap_3d_batch(stacks, grids, low_grids, points: torch.Tensor,
+                               mask: torch.Tensor, low_points: torch.Tensor,
+                               low_mask: torch.Tensor, scan_histograms: torch.Tensor,
+                               submap_histograms, node_rotations: torch.Tensor,
+                               submap_rotations: torch.Tensor,
+                               params: FastCorrelativeMatcherParams3D, min_score: float,
+                               top_k_yaws: int = 64, extra_window_cells: int = 4,
+                               low_probabilities=None, plain: bool = False) -> torch.Tensor:
+    """MatchFullSubmap for a wave of requests (l.581-674), the searches with
+    no pose prior: pair b's yaw axis covers the full circle, scored by the
+    rotational histograms; the `top_k_yaws` best yaws passing the rotational
+    gate enter the translation search over the whole grid (half its size
+    plus `extra_window_cells`) from its center (`full_searches`). -> (B, 12)
+    rows as `fast_correlative_match_3d_batch`'s, the pose in the grid frame;
+    `certified` also requires that no yaw passing the gate was left out.
+    One launch of K15 for the wave on CUDA tensors."""
+    searches, clouds, complete = full_searches(
+        stacks, grids, low_grids, points, mask, low_points, low_mask, scan_histograms,
+        submap_histograms, node_rotations, submap_rotations, params, top_k_yaws,
+        extra_window_cells, low_probabilities, plain)
+    rows = _match(searches, *clouds, params, min_score, plain)
+    certified = (rows[:, 11] > 0.5) & complete
+    return torch.cat([rows[:, :11], certified.to(torch.float32)[:, None]], 1)
 
 
 def match_full_submap_3d(stack: PrecomputationStack3D, grid: Grid3D, low_grid: Grid3D,
@@ -433,39 +651,54 @@ def match_full_submap_3d(stack: PrecomputationStack3D, grid: Grid3D, low_grid: G
                          min_score: float, top_k_yaws: int = 64, extra_window_cells: int = 4,
                          low_probability: Optional[torch.Tensor] = None,
                          plain: bool = False) -> torch.Tensor:
-    """MatchFullSubmap: the search with no pose prior (l.581-674). The yaw
-    axis covers the full circle, scored by the rotational histograms; the
-    `top_k_yaws` best yaws passing the rotational gate enter the
-    translation search over the whole grid (half its size plus
-    `extra_window_cells`) from its center. Returns the vector of
-    `fast_correlative_match_3d`, the pose in the grid frame; `certified`
-    also requires that no yaw passing the gate was left out."""
-    res, size, device = grid.resolution, grid.size, points.device
-    points, mask = _pad_pow2(points, mask)
-    low_points, low_mask = _pad_pow2(low_points, low_mask)
-    q_rel = quat.normalize(quat.multiply(quat.conjugate(submap_rotation), node_rotation))
-    center = grid.origin + f32(0.5 * size * res)
-    n_yaws = full_circle_yaws(res, params.max_scan_range)
-    deltas = ((torch.arange(n_yaws, dtype=torch.float32, device=device) - n_yaws // 2)
-              * f32(2.0 * math.pi / n_yaws))
-    matcher = match_histograms_plain if plain else match_histograms
-    rot_all = matcher(submap_histogram, scan_histogram, quat.get_yaw(q_rel) + deltas)
-    alive_all = rot_all >= f32(params.min_rotational_score)
-    ranked = torch.where(alive_all, rot_all, torch.full_like(rot_all, -math.inf))
-    k = min(top_k_yaws, n_yaws)
-    _, sel = _top(ranked, k)
-    yaw_qs = quat.from_yaw(deltas[sel]).contiguous()
-    disc = discretize_plain if plain else discretize
-    cells = disc(points, yaw_qs, q_rel, center, grid.origin, res)
-    low_cells = disc(low_points, yaw_qs, q_rel, center, low_grid.origin, low_grid.resolution)
-    if low_probability is None:
-        low_probability = low_grid.probability()
-    w = size // 2 + extra_window_cells
-    out = _match_tail(stack, grid, low_grid, low_probability, cells, mask, low_cells, low_mask,
-                      alive_all[sel], rot_all[sel], quat.multiply(yaw_qs, q_rel[None, :]),
-                      center, w, w, k, params, min_score, plain)
-    certified = (out[11] > 0.5) & (alive_all.sum() <= k)
-    return torch.cat([out[:11], certified.to(torch.float32)[None]])
+    """MatchFullSubmap for one request, the wave of one of
+    `match_full_submap_3d_batch`: the row of the search."""
+    return match_full_submap_3d_batch(
+        [stack], [grid], [low_grid], points[None], mask[None], low_points[None], low_mask[None],
+        scan_histogram[None], [submap_histogram], node_rotation[None], submap_rotation[None],
+        params, min_score, top_k_yaws, extra_window_cells, [low_probability], plain)[0]
+
+
+def match_full_submap_3d_exact_batch(stacks, grids, low_grids, points, mask, low_points,
+                                     low_mask, scan_histograms, submap_histograms,
+                                     node_rotations, submap_rotations,
+                                     params: FastCorrelativeMatcherParams3D, min_score: float,
+                                     max_beam: int = 32768, max_yaws: int = 512,
+                                     low_probabilities=None, plain: bool = False):
+    """Certified MatchFullSubmap by widening (l.685-721) for a wave of
+    requests: each round runs every request not yet certified at the
+    round's beam and yaw budget (all start at the configured beam and 64
+    yaws and double together), one launch of K15 and one blocking copy a
+    round, until the certificate holds or both budgets cap out. Returns per
+    request (found, score, translation (3,), rotation (4,), rotational
+    score, low-resolution score, certified) as host values."""
+    lows = _low_probabilities(low_grids, low_probabilities)
+    results = [None] * len(stacks)
+    todo = list(range(len(stacks)))
+    beam, top_k = params.beam_width, 64
+    while todo:
+        sel = (lambda x: x) if len(todo) == len(stacks) else (lambda x: x[todo])
+        pick = lambda xs: [xs[i] for i in todo]  # noqa: E731
+        rows = match_full_submap_3d_batch(
+            pick(stacks), pick(grids), pick(low_grids), sel(points), sel(mask),
+            sel(low_points), sel(low_mask), sel(scan_histograms), pick(submap_histograms),
+            sel(node_rotations), sel(submap_rotations),
+            dataclasses.replace(params, beam_width=beam), min_score, top_k_yaws=top_k,
+            low_probabilities=pick(lows), plain=plain).cpu().numpy()
+        last = beam >= max_beam and top_k >= max_yaws
+        left = []
+        for i, out in zip(todo, rows):
+            certified = bool(out[11] > 0.5)
+            if certified or last:
+                results[i] = (bool(out[0] > 0.5), float(out[1]), out[2:5].astype(np.float64),
+                              out[5:9].astype(np.float64), float(out[9]), float(out[10]),
+                              certified)
+            else:
+                left.append(i)
+        todo = left
+        beam = min(2 * beam, max_beam)
+        top_k = min(2 * top_k, max_yaws)
+    return results
 
 
 def match_full_submap_3d_exact(stack: PrecomputationStack3D, grid: Grid3D, low_grid: Grid3D,
@@ -475,23 +708,10 @@ def match_full_submap_3d_exact(stack: PrecomputationStack3D, grid: Grid3D, low_g
                                max_beam: int = 32768, max_yaws: int = 512,
                                low_probability: Optional[torch.Tensor] = None,
                                plain: bool = False):
-    """Certified MatchFullSubmap by widening (l.685-721): rerun with a
-    doubled beam and yaw budget until the certificate holds or both budgets
-    cap out. Returns (found, score, translation (3,), rotation (4,),
-    rotational score, low-resolution score, certified) as host values, one
-    blocking copy per round."""
-    if low_probability is None:
-        low_probability = low_grid.probability()
-    beam, top_k = params.beam_width, 64
-    while True:
-        p = dataclasses.replace(params, beam_width=beam)
-        out = match_full_submap_3d(
-            stack, grid, low_grid, points, mask, low_points, low_mask, scan_histogram,
-            submap_histogram, node_rotation, submap_rotation, p, min_score, top_k_yaws=top_k,
-            low_probability=low_probability, plain=plain).cpu().numpy()
-        certified = bool(out[11] > 0.5)
-        if certified or (beam >= max_beam and top_k >= max_yaws):
-            return (bool(out[0] > 0.5), float(out[1]), out[2:5].astype(np.float64),
-                    out[5:9].astype(np.float64), float(out[9]), float(out[10]), certified)
-        beam = min(2 * beam, max_beam)
-        top_k = min(2 * top_k, max_yaws)
+    """Certified MatchFullSubmap by widening for one request: (found, score,
+    translation (3,), rotation (4,), rotational score, low-resolution score,
+    certified) as host values, one blocking copy per round."""
+    return match_full_submap_3d_exact_batch(
+        [stack], [grid], [low_grid], points[None], mask[None], low_points[None], low_mask[None],
+        scan_histogram[None], [submap_histogram], node_rotation[None], submap_rotation[None],
+        params, min_score, max_beam, max_yaws, [low_probability], plain)[0]

@@ -136,7 +136,7 @@ def pad_points(points: torch.Tensor, mask: torch.Tensor):
     p = max(2, 1 << (n - 1).bit_length())
     if p == n:
         return points.contiguous(), mask.contiguous()
-    return (torch.cat([points, points.new_zeros((*points.shape[:-2], p - n, 2))],
+    return (torch.cat([points, points.new_zeros((*points.shape[:-2], p - n, points.shape[-1]))],
                       -2).contiguous(),
             torch.cat([mask, mask.new_zeros((*mask.shape[:-1], p - n))], -1).contiguous())
 

@@ -44,7 +44,12 @@ on the card, at full width (the reference's default 2D and 3D options):
    first submap with its yaw unknown;
 8. the 3D backend kernels K13-K16, each against its plain twin, on that
    run's state (its node, finished submap and a local pair) and on a
-   synthetic SE(3) pose graph with IMU terms at the solver's capacity;
+   synthetic SE(3) pose graph with IMU terms at the solver's capacity; K15
+   (the whole 3D beam descent of a group of pairs in one launch) also on
+   the run's first 64 local requests as one group and on each widening
+   round of its global localization as a wave, every row equal to the
+   twin's bit for bit, one descent kernel a group (a captured CUDA graph),
+   the group's times;
 9. the 3D frontend once more over the hall at full size with the robot's
    heading along the walls, where the LM-only matcher tracks worst: its
    error and its page count are reported, not limited;
@@ -217,8 +222,7 @@ IMU_DEFAULT_QUEUE_SCANS = 60  # the 5 s queue fills at scan 50
 FULL_FRONTEND_YAW_LIMIT = 0.03  # rad, mean over the 400 scans (see _slice_phase_3d_full)
 # K19, the intensity window, is a window of K10's launch (`paged_crop_3d`).
 FULL_FRONTEND_KERNELS = KERNELS_3D + ("correlative_3d", "paged_intensity_insert_3d")
-KERNELS_3D_GLOBAL = KERNELS_3D + ("rot_match", "bnb3d_stack", "bnb3d_discretize",
-                                  "bnb3d_score", "schur_spa_3d")
+KERNELS_3D_GLOBAL = KERNELS_3D + ("rot_match", "bnb3d_stack", "bnb3d_descent", "schur_spa_3d")
 YAW_SEEDS = (1, 2)  # the full frontend's phase again over these seeds' scans
 TSDF_FRONTEND_KERNELS = ("scan_preprocess_2d", "voxel_filter", "correlative_2d_tsdf",
                          "lm_match_tsdf_2d", "tsdf_normals_2d", "tsdf_insert_2d")
@@ -2499,9 +2503,10 @@ def _pair_args(cb, r):
             cb._options.min_score, m.low_probability)
 
 
-def _global_phase_3d(torch, dev):
+def _global_phase_3d(torch, dev, kernels=KERNELS_3D_GLOBAL):
     """3D global SLAM through MapBuilder on the card over three laps of the
-    half-scale hall, then one global localization."""
+    half-scale hall, then one global localization. Records the run's first
+    64 local requests (for K15's group) and the localization's inputs."""
     from cartographer_tpu_torch.core.config import MapBuilderOptions, TrajectoryBuilderOptions
     from cartographer_tpu_torch.mapping.constraint_builder_3d import MatchRequest3D
     from cartographer_tpu_torch.mapping.id import SubmapId
@@ -2544,7 +2549,7 @@ def _global_phase_3d(torch, dev):
           f"({cb.match_seconds * 1e3 / max(cb.pairs_matched, 1):.2f} ms per pair), solves "
           f"{pg.solve_seconds:.2f} s ({pg.solve_seconds / max(solves, 1):.3f} s per solve, "
           f"{pg.snapshot_seconds:.3f} s of host snapshots); launches {launches}")
-    _check_launched(launches, KERNELS_3D_GLOBAL, "3D global SLAM")
+    _check_launched(launches, kernels, "3D global SLAM")
     if inter < 50 or solves < 3 or not recorded:
         _fail(f"3D global SLAM ran {inter} loop closures and {solves} solves (need >= 50, >= 3)")
     # Node -> scan index: scan i is stamped TIME_OFFSET_US + (i + 1) * 0.1 s.
@@ -2599,8 +2604,11 @@ def _global_phase_3d(torch, dev):
     request = next((r for r in recorded
                     if float(bnb_3d.fast_correlative_match_3d(*_pair_args(cb, r))[0]) > 0.5),
                    recorded[0])
+    localization = dict(matcher=matcher, clouds=(hp, hm, lp, lm, hist), node_q=node_q,
+                        identity=identity)
     return dict(
-        pose_graph=pg, request=request, node=node, node_rotation=unknown_yaw,
+        pose_graph=pg, request=request, node=node, node_rotation=unknown_yaw, group=recorded,
+        localization=localization,
         summary=dict(
             scans=len(events), nodes=len(pg.nodes), submaps=len(pg.submap_data),
             loop_closures=inter, pairs_tried=cb.pairs_matched, solves=solves,
@@ -2613,6 +2621,151 @@ def _global_phase_3d(torch, dev):
             mean_error_frontend_m=local_err, global_localization_score=score,
             global_localization_certified=certified, global_localization_error_m=loc_err,
             global_localization_error_rad=rot_err, global_localization_seconds=loc_s))
+
+
+def _descent_work_3d(torch, searches, params, min_score):
+    """(bytes, operations) of K15's searches, counted on the twin's own live
+    candidates: each level cell and low-grid cell they touch read once, each
+    pair's clouds, masks and yaw data read once, its row written; 25
+    operations a gathered point, 60 a point and yaw discretized and one a
+    candidate a selection."""
+    from cartographer_tpu_torch.ops import bnb_3d
+
+    calls, seen = [], {}
+    distinct = torch.zeros(0, dtype=torch.int64, device=searches[0].points.device)
+    nbytes = ops = 0
+
+    def recorded(level, re, window, size, cells, mask, a_idx, ox, oy, oz):
+        calls.append((level, re, size, cells, mask, a_idx, ox, oy, oz))
+        return bnb_3d.score_plain(level, re, window, size, cells, mask, a_idx, ox, oy, oz)
+
+    for s in searches:
+        calls.clear()
+        touched = [distinct]
+        bnb_3d._match_tail(s, params, min_score, score=recorded)
+        a = s.yaw_q.shape[0]
+        n, nl = s.points.shape[0], s.low_points.shape[0]
+        nbytes += (n + nl) * 13 + a * 25 + 40 + 48
+        ops += a * (n + nl) * 60
+        for j, (level, re, size, cells, mask, a_idx, ox, oy, oz) in enumerate(calls):
+            key = seen.setdefault((level.data_ptr(), level.element_size()), len(seen))
+            c = [cells[a_idx.long()][:, mask, k] + o[:, None] for k, o in enumerate((ox, oy, oz))]
+            inside = (c[0] >= 0) & (c[0] < size) & (c[1] >= 0) & (c[1] < size) & (c[2] >= 0) & (
+                c[2] < size)
+            dim = level.shape[-1]
+            lin = (((c[0] >> re) * dim + (c[1] >> re)) * dim + (c[2] >> re))[inside].long()
+            touched.append((torch.unique(lin) + key * (1 << 40)) * 8 + level.element_size())
+            ops += a_idx.shape[0] * int(mask.sum()) * 25 + a_idx.shape[0]
+        distinct = torch.unique(torch.cat(touched))
+    item = distinct % 8
+    return nbytes + int(item.sum()), ops
+
+
+def _descent_phase_3d(torch, ctx, extra):
+    """K15 on the 3D global run's state: its first recorded local pair (the
+    whole call, kernel against twin, bit for bit), its first 64 local
+    requests as one group (every row equal to the twin's), its global
+    localization's widening rounds as waves (each round's row equal to the
+    twin's), one descent kernel a group in a captured graph and the group's
+    kernels with its glue; the group's device ms per pair (the kernel, and
+    the whole call), its wall by CUDA events, the twin's time, the bound."""
+    import dataclasses
+
+    from cartographer_tpu_torch.ops import bnb_3d
+
+    pg, req = ctx["pose_graph"], ctx["request"]
+    cb = pg.constraint_builder
+    params, min_score = cb.bnb_params, cb._options.min_score
+    args = _pair_args(cb, req)
+    before = bnb_3d._DESCENT.launches
+    out_k = bnb_3d.fast_correlative_match_3d(*args)
+    one_launches = bnb_3d._DESCENT.launches - before
+    out_p = bnb_3d.fast_correlative_match_3d(*args, plain=True)
+    if not torch.equal(out_k, out_p) or one_launches != 1:
+        _fail(f"K15: the pair's match differs from the plain twin ({one_launches} launches): "
+              f"{out_k} vs {out_p} (tolerance: exact)")
+    print(f"K15 bnb3d_descent: pair {req.node_id}/{req.submap_id}: score "
+          f"{float(out_k[1]):.6f}, found {bool(out_k[0])}, certified {bool(out_k[11])}, equal "
+          f"to the twin (exact), 1 launch")
+
+    group = ctx["group"]
+    n = len(group)
+    hp, hm, lp, lm, hist, init = cb._clouds(group)
+    ms = [r.matcher for r in group]
+    gargs = ([m.stack for m in ms], [m.high_grid for m in ms], [m.low_grid for m in ms], hp, hm,
+             lp, lm, hist, [m.histogram for m in ms], init[:, 0:3], init[:, 3:7], params)
+    lows = [m.low_probability for m in ms]
+    call = lambda: bnb_3d.fast_correlative_match_3d_batch(  # noqa: E731
+        *gargs, min_score, low_probabilities=lows)
+    rows_k = call()
+    for b, r in enumerate(group):
+        ref = bnb_3d.fast_correlative_match_3d(*_pair_args(cb, r), plain=True)
+        if not torch.equal(rows_k[b], ref):
+            _fail(f"K15: pair {b} of the global run's group differs from the twin: "
+                  f"{rows_k[b]} vs {ref} (tolerance: exact)")
+    searches, clouds = bnb_3d.local_searches(*gargs, low_probabilities=lows)
+    d = bnb_3d.descent_inputs(searches, *clouds)
+    launch = lambda: bnb_3d.descent_launch(d, params, min_score)  # noqa: E731
+    kernels = _graph_kernels(launch, "K15 group")
+    with_glue = _graph_kernels(call, "K15 group with its glue")
+    if kernels != 1:
+        _fail(f"K15: {kernels} kernels a group of {n} pairs (the source states 1)")
+
+    # The localization's widening rounds, each as a wave of one request.
+    loc = ctx["localization"]
+    m = loc["matcher"]
+    lhp, lhm, llp, llm, lhist = (x[None] for x in loc["clouds"])
+    global_min = pg._options.constraint_builder.global_localization_min_score
+    beam, top_k, rounds = params.beam_width, 64, []
+    while True:
+        wargs = ([m.stack], [m.high_grid], [m.low_grid], lhp, lhm, llp, llm, lhist,
+                 [m.histogram], loc["node_q"][None], loc["identity"][None],
+                 dataclasses.replace(params, beam_width=beam), global_min)
+        wave = bnb_3d.match_full_submap_3d_batch(*wargs, top_k_yaws=top_k,
+                                                 low_probabilities=[m.low_probability])
+        wref = bnb_3d.match_full_submap_3d_batch(*wargs, top_k_yaws=top_k,
+                                                 low_probabilities=[m.low_probability],
+                                                 plain=True)
+        if not torch.equal(wave, wref):
+            _fail(f"K15: the localization's wave at beam {beam}, {top_k} yaws differs from the "
+                  f"twin: {wave} vs {wref}")
+        rounds.append((beam, top_k))
+        if float(wave[0, 11]) > 0.5 or (beam >= 32768 and top_k >= 512):
+            break
+        beam, top_k = min(2 * beam, 32768), min(2 * top_k, 512)
+    wave_ms = _event_ms(lambda: bnb_3d.match_full_submap_3d_batch(
+        *wargs, top_k_yaws=top_k, low_probabilities=[m.low_probability]), reps=5)
+
+    nbytes, ops = _descent_work_3d(torch, searches, params, min_score)
+    bound = _bound(nbytes, ops)
+    # The mean of the kernel's profiler records: a summed window loses records.
+    kernel_ms, records = _kernel_ms(launch, "descent_kernel", reps=10)
+    group_ms = _cuda_ms(call, reps=10)
+    group_event_ms = _event_ms(call, reps=10)
+    plain_ms = _cuda_ms(lambda: [bnb_3d._match_tail(x, params, min_score) for x in searches],
+                        reps=2, warmup=1)
+    one_ms = _cuda_ms(lambda: bnb_3d.fast_correlative_match_3d(*args), reps=10)
+    one_event_ms = _event_ms(lambda: bnb_3d.fast_correlative_match_3d(*args), reps=10)
+    print(f"K15 bnb3d_descent: the global run's first {n} local pairs in one group, every row "
+          f"equal to the twin's (exact), {int(rows_k[:, 0].sum())} found; the localization's "
+          f"waves at (beam, yaws) {rounds} equal (exact), the last {wave_ms:.4f} ms by events; "
+          f"{kernels} kernel a group ({with_glue} with the glue); the kernel {kernel_ms:.4f} ms "
+          f"a group ({kernel_ms / n:.4f} a pair; the mean of {records} profiler records of 10 "
+          f"launches), the whole call {group_ms:.4f} device ms "
+          f"({group_ms / n:.4f} a pair), {group_event_ms:.4f} ms by CUDA events; a lone pair's "
+          f"call {one_ms:.4f} device ms, {one_event_ms:.4f} by events; the twin "
+          f"{plain_ms:.2f} ms; bound {bound[0]:.3g} ms ({bound[1]}) a group")
+    extra["bnb3d_match_ms"] = one_ms
+    extra["bnb3d"] = dict(
+        pairs=n, kernels_per_group=kernels, kernels_per_group_with_glue=with_glue,
+        kernel_ms_per_group=kernel_ms, kernel_records=records, group_device_ms=group_ms,
+        group_event_ms=group_event_ms,
+        one_pair_device_ms=one_ms, one_pair_event_ms=one_event_ms, wave_rounds=rounds,
+        wave_event_ms=wave_ms, bound_ms_per_group=bound[0], plain_ms_per_group=plain_ms)
+    # Per pair: the kernel's device time, the twin's and the bound over the group's inputs.
+    return {"bnb3d_descent": dict(
+        replaces="cartographer_tpu/ops/bnb_3d.py:182", max_abs_err=0.0, ms=kernel_ms / n,
+        plain_ms=plain_ms / n, bound=(bound[0] / n, bound[1]), library_ms=None)}
 
 
 def _backend_kernel_phase_3d(torch, dev, ctx):
@@ -2702,60 +2855,9 @@ def _backend_kernel_phase_3d(torch, dev, ctx):
         library_ms=_cuda_ms(pooled, reps=10), library_pools=pools)
     del got, ref
 
-    # K15: one local pair of the run at the default widths, kernel against twin.
-    args = _pair_args(cb, req)
-    calls = []
-    score, discretize = bnb_3d.score, bnb_3d.discretize
-
-    def recorded_score(*a):
-        calls.append(("score", a))
-        return score(*a)
-
-    def recorded_discretize(*a):
-        calls.append(("discretize", a))
-        return discretize(*a)
-
-    bnb_3d.score, bnb_3d.discretize = recorded_score, recorded_discretize
-    out_k = bnb_3d.fast_correlative_match_3d(*args)
-    bnb_3d.score, bnb_3d.discretize = score, discretize
-    out_p = bnb_3d.fast_correlative_match_3d(*args, plain=True)
-    same = torch.equal(out_k, out_p)
-    cand = sum(a[6].shape[0] for kind, a in calls if kind == "score")
-    gathers = sum(a[6].shape[0] * int(a[5].sum()) for kind, a in calls if kind == "score")
-    print(f"K15 bnb3d_discretize, bnb3d_score: pair {req.node_id}/{req.submap_id}: score "
-          f"{float(out_k[1]):.6f} (twin {float(out_p[1]):.6f}), found {bool(out_k[0])}, certified "
-          f"{bool(out_k[11])}, result vectors bit-equal {same}; {len(calls)} launches, {cand} "
-          f"candidates")
-    if not same:
-        _fail(f"K15 match differs from the plain twin: {out_k} vs {out_p}")
-    scores = [a for kind, a in calls if kind == "score"]
-
-    def score_bytes(a):
-        # The level cells the candidates can touch (at most one per point and
-        # candidate, at most the whole level), the cells of the yaws in use,
-        # the mask, and the candidates in and their scores out.
-        level, cells, mask, a_idx = a[0], a[4], a[5], a[6]
-        b, item = a_idx.shape[0], level.element_size()
-        yaws = int(a_idx.unique().numel())
-        return (min(level.numel() * item, b * int(mask.sum()) * item)
-                + yaws * cells.shape[1] * 12 + mask.numel() + b * 20)
-
-    cloud_bytes = sum(a[0].numel() * 4 + a[1].numel() * 4 + a[0].shape[0] * a[1].shape[0] * 12
-                      for kind, a in calls if kind == "discretize")
-    rows["bnb3d_score"] = dict(
-        replaces="cartographer_tpu/ops/bnb_3d.py:152", max_abs_err=0.0 if same else 1.0,
-        ms=_cuda_ms(lambda: [score(*a) for a in scores], reps=10),
-        plain_ms=_cuda_ms(lambda: [bnb_3d.score_plain(*a) for a in scores], reps=3, warmup=1),
-        bound=_bound(sum(score_bytes(a) for a in scores), gathers * 25), library_ms=None)
-    rows["bnb3d_discretize"] = dict(
-        replaces="cartographer_tpu/ops/bnb_3d.py:503", max_abs_err=0.0 if same else 1.0,
-        ms=_cuda_ms(lambda: [discretize(*a) for k, a in calls if k == "discretize"]),
-        plain_ms=_cuda_ms(lambda: [bnb_3d.discretize_plain(*a) for k, a in calls
-                                   if k == "discretize"]),
-        bound=_bound(cloud_bytes, sum(a[1].shape[0] * a[0].shape[0] * 60
-                                      for k, a in calls if k == "discretize")),
-        library_ms=None)
-    extra["bnb3d_match_ms"] = _cuda_ms(lambda: bnb_3d.fast_correlative_match_3d(*args), reps=10)
+    # K15: one local pair of the run, its first 64 local requests as one
+    # group and its localization's wave, each row against the twin.
+    rows.update(_descent_phase_3d(torch, ctx, extra))
 
     # K16: a synthetic pose graph with IMU terms at capacity.
     S, N, C = K16_CAPACITY
@@ -4820,7 +4922,8 @@ def main() -> int:
     slam3d = _clocked(seconds, 7, _global_phase_3d, torch, dev)
     rows3g, backend3d = _clocked(seconds, 8, _backend_kernel_phase_3d, torch, dev, slam3d)
     map_3d = slam3d.pop("pose_graph")  # phase 22 saves and reloads it
-    del slam3d["request"]
+    for key in ("request", "group", "localization"):
+        del slam3d[key]
     full_hall = _clocked(seconds, 9, _full_hall_phase_3d, torch, dev)
     run3f = _clocked(seconds, 10, _slice_phase_3d_full, torch, dev)
     rows3f = _clocked(seconds, 11, _kernel_phase_3d_full, torch, dev, run3f.pop("builder"),
@@ -4916,6 +5019,7 @@ def main() -> int:
         "schur_50_iterations_ms": backend["schur_50_iterations_ms"],
         "schur_2d": backend["schur_2d"],
         "bnb3d_match_ms": backend3d["bnb3d_match_ms"],
+        "bnb3d_descent": backend3d["bnb3d"],
         "schur_3d_50_iterations_ms": backend3d["schur_3d_50_iterations_ms"],
         "schur_3d": {k: backend3d[k] for k in (
             "schur_3d_breakdown_ms", "schur_3d_kernels_per_iteration", "schur_3d_event_ms",

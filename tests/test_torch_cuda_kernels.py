@@ -685,6 +685,8 @@ def test_bnb3d_stack_kernel(dev, depth, frd):
 
 
 def test_bnb3d_search_kernels(dev):
+    """K15: a pair's local search, one launch of bnb3d_descent, equal to the
+    plain twin bit for bit; a match found."""
     from cartographer_tpu_torch.ops import bnb_3d, rot_histogram
 
     rng = np.random.RandomState(5)
@@ -704,13 +706,146 @@ def test_bnb3d_search_kernels(dev):
         linear_xy_search_window=1.0, linear_z_search_window=0.4, beam_width=512,
         max_scan_range=8.0)
     init_t, init_q = torch.zeros(3, device=dev), _t(np.float32([1, 0, 0, 0]), dev)
-    yaw_q = torch.nn.functional.normalize(torch.randn(33, 4, device=dev), dim=-1)
-    assert torch.equal(bnb_3d.discretize(hp, yaw_q, init_q, init_t, grid.origin, 0.2),
-                       bnb_3d.discretize_plain(hp, yaw_q, init_q, init_t, grid.origin, 0.2))
     args = (stack, grid, low, hp, hm, lp, lm, hist, hist, init_t, init_q, params, 0.3)
+    launches = bnb_3d._DESCENT.launches
     got = bnb_3d.fast_correlative_match_3d(*args)
+    assert bnb_3d._DESCENT.launches == launches + 1
     ref = bnb_3d.fast_correlative_match_3d(*args, plain=True)
     assert torch.equal(got, ref) and float(got[0]) == 1.0
+
+
+def _bnb3d_group(dev, pairs, n, seed, constant=False):
+    """The arguments of `fast_correlative_match_3d_batch` for `pairs` local
+    pairs on three 64^3 grids (two of random planes, the first again at
+    another origin; with `constant`, every cell of every grid one value, so
+    that every score ties and the stable order decides), each pair a cloud
+    of n points of its grid's planes (some masked; the low cloud n / 2 of
+    them) seen from its own pose, searched from 5-10 cm and a few degrees
+    off. Every third pair has a zero scan histogram: all its yaws fall
+    below the rotational gate."""
+    from cartographer_tpu_torch.ops import bnb_3d, rot_histogram
+
+    rng = np.random.RandomState(seed)
+    grid_a, pts_a = _occupied_grid_3d(rng, dev)
+    grid_b, pts_b = _occupied_grid_3d(rng, dev)
+    scenes = [(grid_a, pts_a), (grid_b, pts_b),
+              (dataclasses.replace(grid_a, origin=grid_a.origin + 0.13), pts_a + 0.13)]
+    if constant:
+        scenes = [(dataclasses.replace(g, log_odds=torch.full_like(g.log_odds, 0.7)), p)
+                  for g, p in scenes]
+    lows = [dataclasses.replace(g, log_odds=g.log_odds[::2, ::2, ::2].contiguous(),
+                                known=g.known[::2, ::2, ::2].contiguous(), resolution=0.4)
+            for g, _ in scenes]
+    stacks = [bnb_3d.build_precomputation_stack_3d(g, 4, 3) for g, _ in scenes]
+    subs = [rot_histogram.compute_rotational_histogram(
+        _t(p, dev), torch.ones(len(p), dtype=torch.bool, device=dev), 120) for _, p in scenes]
+    out = {k: [] for k in ("stacks", "grids", "lows", "hp", "hm", "lp", "lm", "hist", "sub",
+                           "t", "q")}
+    for b in range(pairs):
+        k = b % 3
+        grid, pts = scenes[k]
+        world = pts[rng.randint(0, len(pts), n)] + rng.normal(0.0, 0.01, (n, 3))
+        shift = rng.uniform(-0.5, 0.5, 3).astype(np.float32) * np.float32([1, 1, 0.4])
+        yaw = rng.uniform(-0.1, 0.1)
+        c, s = np.cos(yaw), np.sin(yaw)
+        local = ((world - shift) @ np.float32([[c, -s, 0], [s, c, 0], [0, 0, 1]])).astype(
+            np.float32)
+        hp, hm = _t(local, dev), _t(rng.rand(n) < 0.9, dev)
+        hist = rot_histogram.compute_rotational_histogram(hp, hm, 120)
+        init_yaw = yaw + rng.uniform(-0.05, 0.05)
+        for key, v in (("stacks", stacks[k]), ("grids", grid), ("lows", lows[k]), ("hp", hp),
+                       ("hm", hm), ("lp", hp[: n // 2]), ("lm", hm[: n // 2]),
+                       ("hist", hist * (0.0 if b % 3 == 2 else 1.0)), ("sub", subs[k]),
+                       ("t", _t(shift + rng.normal(0.0, 0.05, 3).astype(np.float32), dev)),
+                       ("q", _t(np.float32([np.cos(init_yaw / 2), 0, 0, np.sin(init_yaw / 2)]),
+                                dev))):
+            out[key].append(v)
+    for key in ("hp", "hm", "lp", "lm", "hist", "t", "q"):
+        out[key] = torch.stack(out[key])
+    return out
+
+
+def _bnb3d_params(beam):
+    from cartographer_tpu_torch.ops import bnb_3d
+
+    return bnb_3d.FastCorrelativeMatcherParams3D(
+        branch_and_bound_depth=4, min_rotational_score=0.1, min_low_resolution_score=0.2,
+        linear_xy_search_window=1.0, linear_z_search_window=0.4, beam_width=beam,
+        max_scan_range=8.0)
+
+
+def _check_bnb3d_group(g, params, min_score):
+    """Every row of the group's launch equal to the twin's, bit for bit; the
+    same rows again; one kernel a group of up to 64 pairs in a captured
+    graph (one per 64 pairs above)."""
+    from cartographer_tpu_torch.ops import bnb_3d
+
+    args = (g["stacks"], g["grids"], g["lows"], g["hp"], g["hm"], g["lp"], g["lm"], g["hist"],
+            g["sub"], g["t"], g["q"], params)
+    rows = bnb_3d.fast_correlative_match_3d_batch(*args, min_score)
+    for b in range(len(g["stacks"])):
+        ref = bnb_3d.fast_correlative_match_3d(
+            g["stacks"][b], g["grids"][b], g["lows"][b], g["hp"][b], g["hm"][b], g["lp"][b],
+            g["lm"][b], g["hist"][b], g["sub"][b], g["t"][b], g["q"][b], params, min_score,
+            plain=True)
+        assert torch.equal(rows[b], ref), (b, rows[b], ref)
+    assert torch.equal(rows, bnb_3d.fast_correlative_match_3d_batch(*args, min_score))
+    searches, clouds = bnb_3d.local_searches(*args)
+    d = bnb_3d.descent_inputs(searches, *clouds)
+    kernels = _graph_kernels(lambda: bnb_3d.descent_launch(d, params, min_score))
+    assert kernels == (len(searches) + 63) // 64
+    return rows
+
+
+@pytest.mark.parametrize("pairs", [1, 3, 65])
+@pytest.mark.parametrize("n,beam", [(256, 512), (512, 32), (2048, 512), (2048, 32)])
+def test_bnb3d_descent_kernel_groups(dev, pairs, n, beam):
+    """K15: one launch for a group of 1, 3 or 65 pairs (one more than a
+    launch's 64), 256 to 2,048 points (the scorer's former one-block limit
+    was 1,024), the top level padded to 8 beam (beam 512: 621 candidates)
+    and truncated to it (beam 32: 256 kept of 621), min_score pruning on,
+    every third pair's yaws all dead: every row equal to the twin's."""
+    rows = _check_bnb3d_group(_bnb3d_group(dev, pairs, n, seed=pairs * 11 + n + beam),
+                              _bnb3d_params(beam), 0.3)
+    assert beam < 512 or int(rows[:, 0].sum()) >= 1  # the wide beam finds the scans' poses
+    if pairs >= 3:
+        assert float(rows[2, 1]) == -float("inf") and float(rows[2, 0]) == 0.0
+
+
+@pytest.mark.parametrize("pairs,beam", [(1, 512), (3, 32)])
+def test_bnb3d_descent_kernel_ties(dev, pairs, beam):
+    """K15 on grids of one value everywhere: every candidate inside the map
+    ties, so the stable order alone picks the beam and the leaf; equal to
+    the twin."""
+    _check_bnb3d_group(_bnb3d_group(dev, pairs, 256, seed=pairs + beam, constant=True),
+                       _bnb3d_params(beam), 0.3)
+
+
+def test_bnb3d_descent_kernel_full_submap_wave(dev):
+    """K15 as a full-submap wave of 3 requests (the full yaw circle's best
+    64, the whole 64^3 grid as the window, one dead) and through the
+    certified widening: equal to the twin's rows and results."""
+    from cartographer_tpu_torch.ops import bnb_3d
+
+    g = _bnb3d_group(dev, 3, 256, seed=3)
+    params = _bnb3d_params(256)
+    rots = g["q"]
+    ident = torch.zeros_like(rots)
+    ident[:, 0] = 1.0
+    args = (g["stacks"], g["grids"], g["lows"], g["hp"], g["hm"], g["lp"], g["lm"], g["hist"],
+            g["sub"], rots, ident, params, 0.3)
+    rows = bnb_3d.match_full_submap_3d_batch(*args)
+    ref = bnb_3d.match_full_submap_3d_batch(*args, plain=True)
+    assert torch.equal(rows, ref), (rows, ref)
+    launches = bnb_3d._DESCENT.launches
+    got = bnb_3d.match_full_submap_3d_exact_batch(*args, max_beam=1024, max_yaws=128)
+    rounds = bnb_3d._DESCENT.launches - launches
+    want = bnb_3d.match_full_submap_3d_exact_batch(*args, max_beam=1024, max_yaws=128,
+                                                   plain=True)
+    for a, b in zip(got, want):
+        assert a[0] == b[0] and a[1] == b[1] and a[4:] == b[4:]
+        assert np.array_equal(a[2], b[2]) and np.array_equal(a[3], b[3])
+    assert 1 <= rounds <= 3
 
 
 @pytest.mark.parametrize("iterations", [1, 2, 30])
