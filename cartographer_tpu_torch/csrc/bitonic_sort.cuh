@@ -1,6 +1,6 @@
 // Bitonic sort of distinct 64-bit keys in device memory, ascending, in place,
-// over as many blocks as the keys need. Included by K12 (rot_histogram.cu),
-// K20 (tsdf_2d.cu) and K31 (voxel_filter.cu, whose keys repeat: equal keys
+// over as many blocks as the keys need. Included by K20 (tsdf_2d.cu) and
+// K31 (voxel_filter.cu, whose keys repeat: equal keys
 // end up together, in some order). K18, K30, K21 and K28 add in input order
 // through in_order_scatter.cuh instead.
 //

@@ -1,6 +1,6 @@
 // The first halvings of a pairwise halving tree, folded into one thread.
-// Shared by K5 (correlative_2d.cu), K7 (bnb_2d.cu), K12 and K13
-// (rot_histogram.cu) and K17 (correlative_3d.cu) above their one-block
+// Shared by K5 (correlative_2d.cu), K7 (bnb_2d.cu), K13 (rot_histogram.cu)
+// and K17 (correlative_3d.cu) above their one-block
 // tiles, and by K24 (icp.cu) for its sums over a whole cloud.
 //
 // Those kernels sum n values (a power of two) in the plain twins' order,

@@ -18,9 +18,9 @@ intensity pools' window, K19) and runs one device step, `_fused_step`:
   4. the SE(3) LM match on both windows (K11; with `use_intensities` also
      the intensity rows of the high cloud), its translation pulled toward
      the prediction, guarded against non-finite results on the device
-  5. the rotational histogram of the levelled high-resolution cloud (K12;
-     the gravity alignment without its yaw) and its rotation by the matched
-     yaw
+  5. the rotational histogram of the levelled high-resolution cloud (the
+     gravity alignment without its yaw) and its rotation by the matched
+     yaw, one K12 launch
   6. the scan in the local frame and the high-resolution range gate
 
 Each scan makes one host-to-device copy of its inputs (points, origins,
@@ -70,10 +70,7 @@ from cartographer_tpu_torch.mapping.pose_extrapolator import PoseExtrapolator
 from cartographer_tpu_torch.mapping.range_data_collator import RangeDataCollator
 from cartographer_tpu_torch.mapping.submap_3d import ActiveSubmaps3D, Submap3D
 from cartographer_tpu_torch.ops.grid_3d import Grid3D, IntensityGrid3D
-from cartographer_tpu_torch.ops.rot_histogram import (
-    compute_rotational_histogram,
-    rotate_histogram,
-)
+from cartographer_tpu_torch.ops.rot_histogram import scan_histograms
 from cartographer_tpu_torch.ops.scan_matcher_3d import (
     CorrelativeSearchParams3D,
     GaussNewtonMatcherParams3D,
@@ -348,12 +345,10 @@ class LocalTrajectoryBuilder3D:
         # yaw of local_pose * gravity^-1 (submap_3d.cc InsertData), the same
         # thing; rotating it by the matched yaw alone, as the JAX package
         # does, counts the IMU's yaw twice and smears the submap histogram.
-        gravity = small[_GRAVITY]
-        level = quat.multiply(quat.from_yaw(-quat.get_yaw(gravity)), gravity)
-        hist = compute_rotational_histogram(quat.rotate(level, high.points), high.mask,
-                                            opts.rotational_histogram_size)
-        # Rotated into the submap frame here, so the scan keeps one fetch.
-        hist_rot = rotate_histogram(hist, quat.get_yaw(est_q))
+        # Rotated into the submap frame here, so the scan keeps one fetch; one
+        # K12 launch takes both quaternions from the device.
+        hist, hist_rot = scan_histograms(high.points, high.mask, small[_GRAVITY], est_q,
+                                         opts.rotational_histogram_size)
         local_points = Rigid3(est_t, est_q).apply(tracking)
         in_high = keep & (torch.linalg.norm(local_points - est_t, dim=-1)
                           <= opts.submaps.high_resolution_max_range)

@@ -27,14 +27,17 @@ as the mean probability of the rotated and shifted cloud's cells times the
 motion prior exp(-(|dt| w_t + |aa| w_r)^2), and the best taken. The angular
 step depends on the cloud's largest range, so the rotation count is static
 (from `max_scan_range`) and the candidates beyond the window are skipped.
-`correlative_match_3d` launches `csrc/correlative_3d.cu` (K17) on CUDA
-tensors and runs the plain twin on CPU tensors.
+`correlative_match_3d` launches `csrc/correlative_3d.cu` (K17, the whole
+search in one launch: each block takes the step size itself and the last
+block decodes the winner) on CUDA tensors and runs the plain twin on CPU
+tensors.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -53,10 +56,11 @@ from cartographer_tpu_torch.transform import quaternion as quat
 from cartographer_tpu_torch.transform.rigid import Rigid3
 
 _FUNCTION_TOLERANCE = 1e-6  # Ceres Solver::Options default, as lm_solve
-# K17 keeps a cloud's cells in shared memory up to 2,048 points; above, each
-# of at most 4 blocks per SM keeps them in its slice of a device scratch.
-_CORRELATIVE_SHARED_POINTS = 2048
-_CORRELATIVE_LARGE_BLOCKS = 4 * 132
+# K17 keeps a cloud's cells in shared memory up to 12,288 points (its
+# kSharedPoints); above, each of at most 4 blocks per SM keeps them in its
+# slice of a device scratch.
+_CORRELATIVE_SHARED_POINTS = 12288
+_CORRELATIVE_LARGE_BLOCKS_PER_SM = 4
 
 _P, _F, _I = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
 _KERNEL = cuda.CudaKernel(
@@ -67,8 +71,10 @@ _KERNEL = cuda.CudaKernel(
      _P, _P, _F, _F, _F, _F, _I, _I, _I, _F, _P, _P, _P])
 _CORRELATIVE_KERNEL = cuda.CudaKernel(
     "correlative_3d.cu", "correlative_3d",
-    [_P, _P, _P, _F, _I, _P, _P, _I, _I, _P, _I, _I, _F, _F, _F, _F, _F, _F, _P, _P, _P,
-     _I, _P, _P])
+    [_P, _P, _P, _F, _I, _P, _P, _I, _I, _P, _I, _I, _F, _F, _F, _F, _F, _F, _P, _P, _I,
+     _P, _P, _P])
+_correlative_sync = {}  # device index -> K17's two zero words (best key, ticket)
+_correlative_lock = threading.Lock()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -415,7 +421,23 @@ def correlative_match_3d_plain(grid: Grid3D, points, mask, x0: torch.Tensor,
     return scores.reshape(-1)[best], x, int(flat[rot]) * shifts.shape[0] + t
 
 
+def _correlative_sync_words(dev: torch.device) -> torch.Tensor:
+    """K17's best key and blocks' ticket on `dev`: zeroed once, and each call
+    leaves them zero (its last block resets them)."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    with _correlative_lock:
+        words = _correlative_sync.get(index)
+        if words is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("correlative_3d: call it once on this device before "
+                                   "capturing it in a CUDA graph")
+            words = _correlative_sync[index] = torch.zeros(2, dtype=torch.int64, device=dev)
+    return words
+
+
 def _correlative_kernel(grid: Grid3D, points, mask, x0, params):
+    """K17 in one launch: -> (best score, best pose [t, q], its key (score
+    bits << 32 | ~flat index) as a (1,) int64 tensor)."""
     n = points.shape[0]
     cuda.check(points, "points", torch.float32, (n, 3))
     cuda.check(mask, "mask", torch.bool, (n,))
@@ -425,22 +447,25 @@ def _correlative_kernel(grid: Grid3D, points, mask, x0, params):
     res = grid.resolution
     nl, na = search_sizes(res, params)
     dev = x0.device
-    best = torch.zeros(1, dtype=torch.int64, device=dev)
-    state = torch.empty(4, dtype=torch.int32, device=dev)
-    cell_blocks = _CORRELATIVE_LARGE_BLOCKS if n > _CORRELATIVE_SHARED_POINTS else 0
+    sync = _correlative_sync_words(dev)
+    cell_blocks = 0
+    if n > _CORRELATIVE_SHARED_POINTS:
+        cell_blocks = (_CORRELATIVE_LARGE_BLOCKS_PER_SM
+                       * torch.cuda.get_device_properties(dev).multi_processor_count)
     cells = torch.empty(cell_blocks * 3 * n, dtype=torch.int32, device=dev)
     x = torch.empty(7, dtype=torch.float32, device=dev)
     score = torch.empty((), dtype=torch.float32, device=dev)
+    key = torch.empty(1, dtype=torch.int64, device=dev)
     f32 = lambda v: float(np.float32(v))  # noqa: E731
     _CORRELATIVE_KERNEL(dev, *_check_grid(grid, "grid"), points.data_ptr(), mask.data_ptr(), n,
                         1 << (n - 1).bit_length(), x0.data_ptr(), nl, na, f32(res ** 2),
                         f32(3.0 * res), f32(1.0 - 1e-3),
                         f32(params.angular_search_window + 1e-6),
                         f32(params.translation_delta_cost_weight),
-                        f32(params.rotation_delta_cost_weight), best.data_ptr(),
-                        state.data_ptr(), cells.data_ptr() if cell_blocks else None,
-                        cell_blocks, x.data_ptr(), score.data_ptr())
-    return score, x, best
+                        f32(params.rotation_delta_cost_weight), sync.data_ptr(),
+                        cells.data_ptr() if cell_blocks else None, cell_blocks, x.data_ptr(),
+                        score.data_ptr(), key.data_ptr())
+    return score, x, key
 
 
 def correlative_match_3d(grid: Grid3D, points, mask, x0: torch.Tensor,

@@ -30,12 +30,15 @@ on the card, at full width (the reference's default 2D and 3D options):
    a 16-ring sensor with an IMU in the same floor plan extruded to a hall
    (paged submaps, dense crops of 256^3 and 192^3 per scan): K2 and K9-K12
    launched, one crop launch per scan after the first (both windows) and
-   per lazy crop, one blocking copy per scan, accuracy against ground
+   per lazy crop, one blocking copy per scan, every scan's K12 launch (the
+   histogram of the levelled cloud and its rotation by the matched yaw)
+   bit for bit against its twin after the scan, accuracy against ground
    truth, one finished submap with its dense crops, the first scans again
    on the CPU's plain path;
 6. the 3D kernels K9-K12, each against its plain twin, on that run's pools,
    windows and clouds (K10: the scan's two windows in one launch, beside a
-   zero_() of the same bytes);
+   zero_() of the same bytes; K12 one kernel a call, its standalone
+   rotation too);
 7. 3D global SLAM through `MapBuilder(use_trajectory_builder_3d=True)` at
    the default options over 700 scans of that hall (three laps; background
    searches and solves): K2 and K9-K16 launched, at least 50 loop closures
@@ -57,12 +60,15 @@ on the card, at full width (the reference's default 2D and 3D options):
     intensities) over 400 scans of the half-scale hall with intensities:
     K2 and K9-K12 and K17-K19 launched (K17 and K11 once per scan, the
     crops of K10 and K19 one launch per scan after the first, K18 once per
-    active submap and inserted scan), one blocking copy per scan, accuracy
+    active submap and inserted scan), one blocking copy per scan, every
+    scan's K17 (flat index, score and offsets bit for bit, quaternion 1e-6)
+    and K12 (bit for bit) against their twins after the scan, accuracy
     against ground truth (0.25 m; a mean yaw error of 0.03 rad, above the
     JAX builder's and the plain path's on the CPU), the first scans again
     on the CPU's plain path;
-11. K17, K18, K19 and K11 with its intensity rows, each against its plain
-    twin, on that run's pools, windows and clouds (K19: the scan's three
+11. K17 (one kernel a call), K18, K19 and K11 with its intensity rows,
+    each against its plain twin, on that run's pools, windows and clouds
+    (K19: the scan's three
     windows in K10's one launch); K18 also timed by CUDA
     events, its kernel launches per call counted, and `index_add_` of the
     sums and the counts into both pools timed beside it;
@@ -213,8 +219,10 @@ CPU_SCANS_3D = 20
 TIME_OFFSET_US = 10_000_000  # the simulated IMU starts before t = 0
 KERNELS_2D = ("scan_preprocess_2d", "voxel_filter", "scan_matcher_2d", "insert_2d",
               "correlative_2d", "bnb_pyramid", "bnb_descent", "schur_spa_2d")
+# The 3D step's histogram and its rotation are one K12 launch (`rot_histogram`);
+# the standalone rotation (`rot_histogram_rotate`) runs in phase 22.
 KERNELS_3D = ("voxel_filter", "paged_insert_3d", "paged_crop_3d", "scan_matcher_3d",
-              "rot_histogram", "rot_histogram_rotate")
+              "rot_histogram")
 CROP_KERNEL_NAME = "crop_rows"  # K10's kernel (csrc/paged_grid_3d.cu), in profiler records
 GLOBAL_SCANS_3D = 700  # three laps of the half-scale hall
 NUM_SCANS_IMU = 100
@@ -1541,12 +1549,13 @@ def _feed_3d(builder, event):
     return builder.add_range_data("points", event[1])
 
 
-def _drive_3d(torch, builder, events, gt, label):
+def _drive_3d(torch, builder, events, gt, label, after_scan=None):
     """Feeds the events to the builder, counting the synchronizing
     operations; checks that no scan is dropped and that each makes one
-    blocking copy. Returns the poses [x, y, z, yaw], their position and yaw
-    errors against the truth, the finished submaps, the wall seconds of each
-    `add_range_data` and the number of inserted scans."""
+    blocking copy. `after_scan()`, where given, runs after each scan, outside
+    the timed and counted calls. Returns the poses [x, y, z, yaw], their
+    position and yaw errors against the truth, the finished submaps, the wall
+    seconds of each `add_range_data` and the number of inserted scans."""
     from cartographer_tpu_torch.transform import nquat
 
     n = len(events)
@@ -1560,6 +1569,10 @@ def _drive_3d(torch, builder, events, gt, label):
             t0 = time.monotonic()
             r = builder.add_range_data("points", event[1])
             walls.append(time.monotonic() - t0)
+            if after_scan is not None:
+                torch.cuda.set_sync_debug_mode("default")
+                after_scan()
+                torch.cuda.set_sync_debug_mode("warn")
             if r is None:
                 _fail(f"{label}: the 3D frontend dropped scan {len(est)}")
             est.append([*r.local_pose_translation, nquat.get_yaw(r.local_pose_rotation)])
@@ -1581,6 +1594,73 @@ def _drive_3d(torch, builder, events, gt, label):
     offset = np.concatenate([est[:, :2] - gt[:n, :2], est[:, 2:3]], 1)
     yaw_err = np.abs((est[:, 3] - gt[:n, 2] + np.pi) % (2 * np.pi) - np.pi)
     return est, offset, yaw_err, finished, walls, inserted
+
+
+class _ScanChecks:
+    """Holds each scan's K12 call (`scan_histograms`: the histogram and its
+    rotation bit for bit) and, with `correlative`, its K17 call (the flat
+    index, the score and the offsets bit for bit, the quaternion within
+    1e-6) against their twins on the same inputs, after the scan while its
+    window is still live: installed on the 3D builder module `ltb`, called
+    as `_drive_3d`'s after_scan. The wrappers launch what the step launches
+    and only keep the arguments and results."""
+
+    def __init__(self, torch, ltb, correlative, label):
+        from cartographer_tpu_torch.ops import rot_histogram, scan_matcher_3d
+
+        self.torch, self.ltb, self.label = torch, ltb, label
+        self.rh, self.sm = rot_histogram, scan_matcher_3d
+        self.pending, self.checked, self.mismatches = [], {"K12": 0, "K17": 0}, []
+        self.saved = {"scan_histograms": ltb.scan_histograms}
+        ltb.scan_histograms = self._histograms
+        if correlative:
+            self.saved["correlative_match_3d"] = ltb.correlative_match_3d
+            ltb.correlative_match_3d = self._search
+
+    def _histograms(self, *args):
+        out = self.rh.scan_histograms(*args)
+        self.pending.append(("K12", args, out))
+        return out
+
+    def _search(self, grid, points, mask, x0, params):
+        score, x, key = self.sm._correlative_kernel(grid, points, mask, x0.contiguous(), params)
+        self.pending.append(("K17", (grid, points, mask, x0, params), (score, x, key)))
+        return score, x
+
+    def __call__(self):
+        torch = self.torch
+        for name, args, out in self.pending:
+            scan = self.checked[name]
+            if name == "K12":
+                ref = self.rh.scan_histograms_plain(*args)
+                if not (torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])):
+                    self.mismatches.append(f"K12 scan {scan}: histogram or rotation differs")
+            else:
+                score, x, key = out
+                ref_score, ref_x, ref_index = self.sm.correlative_match_3d_plain(*args)
+                index = ~int(key.cpu()) & 0xFFFFFFFF
+                q_err = float((x[3:7] - ref_x[3:7]).abs().max())
+                if (index != ref_index or float(score) != float(ref_score)
+                        or not torch.equal(x[0:3], ref_x[0:3]) or q_err > 1e-6):
+                    self.mismatches.append(
+                        f"K17 scan {scan}: index {index} (twin {ref_index}), score "
+                        f"{float(score)!r} ({float(ref_score)!r}), quaternion err {q_err:.3g}")
+            self.checked[name] += 1
+        self.pending = []
+
+    def finish(self):
+        """Restores the module's functions; prints the counts and fails on a
+        mismatch."""
+        for name, fn in self.saved.items():
+            setattr(self.ltb, name, fn)
+        for m in self.mismatches:
+            print(f"{self.label}: MISMATCH {m}")
+        print(f"{self.label}: scans checked against the twins {json.dumps(self.checked)} "
+              f"(K12 histogram and rotation bit for bit; K17 index, score and offsets bit for "
+              f"bit, quaternion 1e-6), {len(self.mismatches)} mismatches")
+        if self.mismatches:
+            _fail(f"{self.label}: {len(self.mismatches)} scans differ from the twins")
+        return dict(self.checked, mismatches=len(self.mismatches))
 
 
 def _cpu_agreement_3d(torch, dev, opts, events, est, label):
@@ -1616,6 +1696,7 @@ def _slice_phase_3d(torch, dev):
     """The 3D frontend on the card at the default options, over simulated
     scans of a 16-ring sensor with an IMU in the floor plan's hall."""
     from cartographer_tpu_torch.core.config import TrajectoryBuilder3DOptions
+    from cartographer_tpu_torch.mapping import local_trajectory_builder_3d as ltb
     from cartographer_tpu_torch.mapping.local_trajectory_builder_3d import (
         LocalTrajectoryBuilder3D,
     )
@@ -1627,10 +1708,14 @@ def _slice_phase_3d(torch, dev):
     print(f"3D frontend: {time.monotonic() - t_sim:.1f} s to simulate {len(events)} scans")
 
     builder = LocalTrajectoryBuilder3D(opts, ["points"], device=dev)
+    checks = _ScanChecks(torch, ltb, False, "3D frontend")
     cuda.reset_launch_counts()
-    est, offset, yaw_err, finished, walls, inserted = _drive_3d(
-        torch, builder, events[:n], gt, "3D frontend")
-    launches = cuda.launch_counts()
+    try:
+        est, offset, yaw_err, finished, walls, inserted = _drive_3d(
+            torch, builder, events[:n], gt, "3D frontend", after_scan=checks)
+    finally:
+        launches = cuda.launch_counts()
+        twin_checks = checks.finish()
     print(f"3D frontend: launches {launches}")
     _check_launched(launches, KERNELS_3D, "3D frontend")
     _check_crop_launches(launches, n, finished, "3D frontend")
@@ -1679,12 +1764,18 @@ def _slice_phase_3d(torch, dev):
 
     builder._fused_step = keeping_step
     undo = _recording_windows(builder._active_submaps, centers)
-    _feed_3d(builder, events[n + PROFILED_SCANS])
-    undo()
-    del builder._fused_step
+    histograms = []
+    restore = _recording(ltb, "scan_histograms", histograms)
+    try:
+        _feed_3d(builder, events[n + PROFILED_SCANS])
+    finally:
+        restore()
+        undo()
+        del builder._fused_step
     steady = walls[10:]
     return dict(
-        builder=builder, last_step=(*kept[0], centers[0]), profile=profile, scans=n,
+        builder=builder, last_step=(*kept[0], centers[0], histograms[0]), profile=profile,
+        scans=n,
         inserted=inserted,
         finished_submaps=len(finished), mean_error_m=float(errors.mean()),
         mean_yaw_error_rad=float(yaw_err.mean()),
@@ -1695,7 +1786,7 @@ def _slice_phase_3d(torch, dev):
         new_pages_per_inserted_scan=builder.pages_allocated / max(inserted, 1),
         finished_submap_pages=[f.high_paged.num_allocated, f.low_paged.num_allocated],
         launches=launches, lm_iterations_per_scan=float(np.mean(builder.lm_iterations[1:n])),
-        cpu_agreement=[float(worst[0]), float(worst[1])])
+        cpu_agreement=[float(worst[0]), float(worst[1])], twin_checks=twin_checks)
 
 
 def _full_hall_phase_3d(torch, dev, correlative=False):
@@ -1842,8 +1933,8 @@ def _kernel_phase_3d(torch, dev, builder, last_step):
 
     opts = builder._options
     rows = {}
-    (high_grid, low_grid), packed, (est_t, local_points, keep, in_high, _), crop_center = \
-        last_step
+    (high_grid, low_grid), packed, (est_t, local_points, keep, in_high, _), crop_center, \
+        hist_args = last_step
     bins = opts.rotational_histogram_size
     u = unpack_step_result(packed, bins, builder._caps)
     host = unpack_step_result(packed.cpu().numpy(), bins, builder._caps)
@@ -1945,39 +2036,57 @@ def _kernel_phase_3d(torch, dev, builder, last_step):
         bound=_bound(sum(valid) * (13 + 8 * 5) + 44, passes * sum(valid) * 8 * 40),
         library_ms=None)
 
-    # K12: the histogram of the high-resolution cloud, and its rotation.
-    pts, mask = u["high_points"].contiguous(), u["high_mask"]
-    got = rot_histogram.compute_rotational_histogram(pts, mask, bins)
-    ref = rot_histogram.rotational_histogram_plain(pts, mask, bins)
-    bin_err = float((got - ref).abs().max())
-    sum_err = abs(float(got.sum()) - float(ref.sum()))
-    empty = rot_histogram.compute_rotational_histogram(pts, torch.zeros_like(mask), bins)
-    print(f"K12 rot_histogram: {valid[0]} points, {bins} bins, sum {float(ref.sum()):.3f}: "
-          f"largest bin difference {bin_err:.3g}, sum difference {sum_err:.3g} (tolerance "
-          f"1e-4 each); empty cloud sum {float(empty.sum())}")
-    if bin_err > 1e-4 or sum_err > 1e-4 or not float(ref.sum()) > 0 or float(empty.abs().sum()):
+    # K12: the step's one launch, the histogram of the levelled high-resolution
+    # cloud and its rotation by the matched yaw, on the step's own inputs.
+    pts, mask, gravity, est_q, bins = hist_args
+    got = rot_histogram.scan_histograms(*hist_args)
+    ref = rot_histogram.scan_histograms_plain(*hist_args)
+    bin_err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    empty = rot_histogram.scan_histograms(pts, torch.zeros_like(mask), gravity, est_q, bins)
+    nv = int(mask.sum())
+    print(f"K12 rot_histogram (the step's launch, with the levelling and the rotation): {nv} "
+          f"points, {bins} bins, sum {float(ref[0].sum()):.3f}: largest bin difference "
+          f"{bin_err:.3g} (tolerance: bit for bit); empty cloud sum {float(empty[0].sum())}; "
+          f"kernels a call {_graph_kernels(lambda: rot_histogram.scan_histograms(*hist_args), 'K12')}")
+    if (not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]))
+            or not float(ref[0].sum()) > 0 or float(empty[0].abs().sum())):
         _fail("K12 differs from the plain twin")
-    nv, npad = valid[0], rot_histogram._padded_size(pts.shape[0])
+    if _graph_kernels(lambda: rot_histogram.scan_histograms(*hist_args), "K12") != 1:
+        _fail("K12: the step's histogram and rotation are not one kernel")
+    k12_ms, records = _kernel_ms(lambda: rot_histogram.scan_histograms(*hist_args),
+                                 "histogram_kernel")
+    print(f"K12 rot_histogram: {k12_ms:.5f} ms a kernel ({records} records of 50 calls)")
     rows["rot_histogram"] = dict(
-        replaces="cartographer_tpu/ops/rot_histogram.py:27", max_abs_err=bin_err,
-        ms=_cuda_ms(lambda: rot_histogram.compute_rotational_histogram(pts, mask, bins)),
-        plain_ms=_cuda_ms(lambda: rot_histogram.rotational_histogram_plain(pts, mask, bins),
+        replaces="cartographer_tpu/ops/rot_histogram.py:27", max_abs_err=bin_err, ms=k12_ms,
+        plain_ms=_cuda_ms(lambda: rot_histogram.scan_histograms_plain(*hist_args),
                           reps=2, warmup=1),
-        bound=_bound(pts.shape[0] * 13 + bins * 4,
-                     npad * 45 + (2 * 129 + bins) * npad + nv * 60),
+        bound=_bound(*_k12_work(torch, pts.shape[0], nv, bins, rotated=True)),
         library_ms=None)
+    hist = got[0]
     yaw = quat.get_yaw(u["rotation"]).contiguous()
-    rot_err = float((rot_histogram.rotate_histogram(got, yaw)
-                     - rot_histogram.rotate_histogram_plain(got, yaw)).abs().max())
+    rot_err = float((rot_histogram.rotate_histogram(hist, yaw)
+                     - rot_histogram.rotate_histogram_plain(hist, yaw)).abs().max())
     if rot_err > 1e-6:
         _fail(f"K12's rotation differs from the plain twin by {rot_err} (tolerance 1e-6)")
-    print(f"K12 rot_histogram_rotate: max |err| {rot_err:.3g} (tolerance 1e-6)")
+    print(f"K12 rot_histogram_rotate (the standalone rotation, phase 22's): max |err| "
+          f"{rot_err:.3g} (tolerance 1e-6)")
     rows["rot_histogram_rotate"] = dict(
         replaces="cartographer_tpu/ops/rot_histogram.py:94", max_abs_err=rot_err,
-        ms=_cuda_ms(lambda: rot_histogram.rotate_histogram(got, yaw)),
-        plain_ms=_cuda_ms(lambda: rot_histogram.rotate_histogram_plain(got, yaw)),
+        ms=_cuda_ms(lambda: rot_histogram.rotate_histogram(hist, yaw)),
+        plain_ms=_cuda_ms(lambda: rot_histogram.rotate_histogram_plain(hist, yaw)),
         bound=_bound(bins * 8 + 4, bins * 10), library_ms=None)
     return rows
+
+
+def _k12_work(torch, n, valid, bins, rotated=False):
+    """(bytes, operations) of one K12 call: the points and mask read, the
+    histogram (and its rotation) written; some 114 operations a valid point
+    (the levelling rotation 30, the slice 6, the centroid sums 2, the angle
+    and its test 30, the walk 6, the emitted direction 40), log2 of the valid
+    points a point for its sorted place, 10 a bin for the rotation."""
+    sort = valid * max(int(np.ceil(np.log2(max(valid, 2)))), 1)
+    nbytes = n * 13 + 32 + bins * 4 * (2 if rotated else 1)
+    return nbytes, n * 2 + valid * 114 + sort + (bins * 10 if rotated else 0)
 
 
 def _full_frontend_options(**extra):
@@ -2028,10 +2137,16 @@ def _slice_phase_3d_full(torch, dev):
     label = "3D full frontend"
     events, gt = _events_3d(n + PROFILED_SCANS + 1, intensities=True)
     builder = ltb.LocalTrajectoryBuilder3D(opts, ["points"], device=dev)
+    # Every scan's K17 and K12 calls against their twins (ROADMAP.md, Queue 3's
+    # yaw item: the card's own searches, recomputed by the twin).
+    checks = _ScanChecks(torch, ltb, True, label)
     cuda.reset_launch_counts()
-    est, offset, yaw_err, finished, walls, inserted = _drive_3d(
-        torch, builder, events[:n], gt, label)
-    launches = cuda.launch_counts()
+    try:
+        est, offset, yaw_err, finished, walls, inserted = _drive_3d(
+            torch, builder, events[:n], gt, label, after_scan=checks)
+    finally:
+        launches = cuda.launch_counts()
+        twin_checks = checks.finish()
     print(f"{label}: launches {launches}")
     _check_launched(launches, FULL_FRONTEND_KERNELS, label)
     _check_crop_launches(launches, n, finished, label)
@@ -2116,7 +2231,7 @@ def _slice_phase_3d_full(torch, dev):
         finished_submap_pages=[f.high_paged.num_allocated, f.low_paged.num_allocated,
                                f.intensity_paged.num_allocated],
         launches=launches, lm_iterations_per_scan=float(np.mean(builder.lm_iterations[1:n])),
-        cpu_agreement=[float(worst[0]), float(worst[1])])
+        cpu_agreement=[float(worst[0]), float(worst[1])], twin_checks=twin_checks)
 
 
 def _correlative_cells(torch, grid, points, mask, x0, params):
@@ -2171,16 +2286,24 @@ def _kernel_phase_3d_full(torch, dev, builder, kept):
     valid = int(cmask.sum())
     nl, na = scan_matcher_3d.search_sizes(cgrid.resolution, cparams)
     translations, a3, n_high = (2 * nl + 1) ** 3, (2 * na + 1) ** 3, cpoints.shape[0]
+    per_call = _graph_kernels(lambda: scan_matcher_3d._correlative_kernel(*cargs), "K17")
     print(f"K17 correlative_3d: {valid} points, {rotations} valid rotations of {a3}, "
           f"best {index} (twin {ref_index}), score {float(score):.7g} (twin "
           f"{float(ref_score):.7g}), quaternion err {q_err:.3g} (tolerance: index and score "
-          f"bit for bit, offsets equal, quaternion 1e-6), {cells} window cells read")
+          f"bit for bit, offsets equal, quaternion 1e-6), {cells} window cells read, "
+          f"{per_call} kernel a call")
+    if per_call != 1:
+        _fail(f"K17: {per_call} kernels a call, one expected")
     if (index != ref_index or float(score) != float(ref_score)
             or not torch.equal(x[0:3], ref_x[0:3]) or q_err > 1e-6):
         _fail("K17 differs from the plain twin")
+    # One kernel a call: the mean of its records, which a short window that
+    # drops some leaves whole.
+    k17_ms, records = _kernel_ms(lambda: scan_matcher_3d._correlative_kernel(*cargs),
+                                 "correlative_kernel")
+    print(f"K17 correlative_3d: {k17_ms:.5f} ms a kernel ({records} records of 50 calls)")
     rows["correlative_3d"] = dict(
-        replaces="cartographer_tpu/ops/scan_matcher_3d.py:144", max_abs_err=q_err,
-        ms=_cuda_ms(lambda: scan_matcher_3d._correlative_kernel(*cargs)),
+        replaces="cartographer_tpu/ops/scan_matcher_3d.py:144", max_abs_err=q_err, ms=k17_ms,
         plain_ms=_cuda_ms(lambda: scan_matcher_3d.correlative_match_3d_plain(*cargs), reps=3,
                           warmup=1),
         # The range maximum over the valid points, once (7 per point), the
@@ -2934,7 +3057,7 @@ def _sizes_row(row, n, **extra):
 
 def _one_block_limits_phase(torch, dev):
     """K5, K7, K12, K13 and K17 at their former one-block limits and above
-    (the halving fold, K12's device-memory scratch and multi-block sort),
+    (the halving fold, K12's device-memory scratch above some 3,400 points),
     each equal to its twin bit for bit; and the 2D and 3D frontends built
     with capacities above those limits (`RAISED_2D`, `RAISED_3D`) and driven
     over RAISED_SCANS scans, which a builder refused before."""
@@ -3030,8 +3153,8 @@ def _one_block_limits_phase(torch, dev):
     del builder, calls, pyr
 
     # The 3D frontend at its full options with the high-resolution cloud at
-    # 4,096 points: K12 above one block (scratch, multi-block sort) and K17
-    # above its former 2,048 on the frontend's path.
+    # 4,096 points: K12 (its arrays in a device scratch) and K17 above their
+    # former one-block limits on the frontend's path.
     label = "3D full frontend at raised capacities"
     opts3 = _full_frontend_options(**RAISED_3D)
     events, gt3 = _events_3d(RAISED_SCANS, intensities=True)
@@ -3070,13 +3193,12 @@ def _one_block_limits_phase(torch, dev):
         got = rot_histogram.compute_rotational_histogram(pts, mask, bins)
         if not torch.equal(got, rot_histogram.rotational_histogram_plain(pts, mask, bins)):
             _fail(f"K12 at {n} points and {bins} bins differs from the twin (exact)")
-        nv, npad = int(mask.sum()), rot_histogram._padded_size(n)
+        nv = int(mask.sum())
         rows["rot_histogram"].append(_sizes_row(dict(
             ms=_cuda_ms(lambda: rot_histogram.compute_rotational_histogram(pts, mask, bins)),
             plain_ms=_cuda_ms(lambda: rot_histogram.rotational_histogram_plain(pts, mask, bins),
                               reps=1, warmup=0),
-            bound=_bound(n * 13 + bins * 4, npad * 45 + (2 * 129 + bins) * npad + nv * 60),
-            max_abs_err=0.0), n, bins=bins))
+            bound=_bound(*_k12_work(torch, n, nv, bins)), max_abs_err=0.0), n, bins=bins))
     for bins in ABOVE_ONE_BLOCK["rot_match"]:
         scan_h, sub_h = (t(rng.rand(bins).astype(np.float32)) for _ in range(2))
         angles = t(rng.uniform(-4.0, 4.0, 1259).astype(np.float32))
@@ -4948,7 +5070,11 @@ def main() -> int:
     for name, row in {**rows, **rows_tsdf, **rows3d, **rows3g, **rows3f, **rows_sm,
                       **rows_ei}.items():
         bound_ms, bound_by = row["bound"]
-        launches = (edge_intensity["launches"] if name in rows_ei
+        # The standalone rotation's launches are phase 22's (the v1 migration):
+        # the 3D step's rotation is in K12's one launch.
+        launches = ({"rot_histogram_rotate": interchange["v1_migration"]["rotations"]}
+                    if name == "rot_histogram_rotate"
+                    else edge_intensity["launches"] if name in rows_ei
                     else scan_match_launches if name in rows_sm
                     else run3f["launches"] if name in rows3f
                     else slam_tsdf["launches"] if name in rows_tsdf

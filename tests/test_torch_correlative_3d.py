@@ -171,3 +171,71 @@ def test_pairwise_sum_is_the_kernel_tree(n):
         padded = torch.stack([padded[:, i] + padded[:, i + h] for i in range(h)], -1)
     assert torch.equal(_pairwise_sum(x), padded[:, 0])
     np.testing.assert_allclose(_pairwise_sum(x).numpy(), x.double().sum(-1).numpy(), rtol=1e-5)
+
+
+def _lane_tree(x: np.ndarray, leaves: int) -> np.float32:
+    """K17's column form summing one row in float32: lane l holds the points
+    l + 32 k (k < leaves), visits them in bit-reversed order of k, keeps a
+    stack of partial sums, then __shfl_down 16..1 adds the lanes."""
+    bits = leaves.bit_length() - 1
+    lanes = []
+    for lane in range(32):
+        stack = []
+        for i in range(leaves):
+            k = int(format(i, f"0{bits}b")[::-1], 2) if bits else 0
+            v = np.float32(x[lane + 32 * k]) if lane + 32 * k < len(x) else np.float32(0.0)
+            t = i
+            while t & 1:
+                v = np.float32(stack.pop() + v)
+                t >>= 1
+            stack.append(v)
+        lanes.append(stack[0])
+    off = 16
+    while off:
+        lanes = [np.float32(lanes[l] + lanes[l + off]) if l + off < 32 else lanes[l]
+                 for l in range(32)]
+        off //= 2
+    return lanes[0]
+
+
+@pytest.mark.parametrize("n,valid", [(512, "prefix"), (512, "interleaved"), (300, "prefix"),
+                                     (64, "interleaved"), (1, "prefix")])
+def test_column_form_adds_in_the_twin_tree(n, valid):
+    """The kernel's column form adds a row's probabilities in the order of
+    the twin's `_pairwise_sum`: with P the power of two that holds the
+    highest valid point's leaves a lane (zeros above it add exactly), the
+    lanes' bit-reversed stacks and the shuffles give the twin's bits."""
+    from cartographer_tpu_torch.ops.scan_matcher_3d import _pairwise_sum
+
+    rng = np.random.RandomState(n)
+    x = rng.uniform(0.1, 0.97, n).astype(np.float32)
+    if valid == "prefix":  # the valid points first, as `compact` leaves them
+        x[int(0.35 * n) + 1:] = 0.0
+    else:
+        x[rng.rand(n) < 0.6] = 0.0
+    highest = int(np.flatnonzero(x).max()) if x.any() else -1
+    leaves = 1
+    while 32 * leaves <= highest:
+        leaves *= 2
+    assert _lane_tree(x, leaves) == _pairwise_sum(torch.from_numpy(x)).numpy()
+
+
+@pytest.mark.parametrize("pattern", ["interleaved", "tail"])
+def test_invalid_points_against_jax(pattern):
+    """Invalid points among the valid ones and as a tail (as `compact`
+    leaves them), on a random window around a rotated and shifted pose."""
+    rng = np.random.RandomState(11)
+    size, res = 40, 0.1
+    log_odds = rng.uniform(-2.2, 2.2, (size,) * 3).astype(np.float32)
+    known = rng.rand(size, size, size) > 0.3
+    jgrid = JGrid3D(log_odds=jnp.asarray(log_odds), known=jnp.asarray(known),
+                    origin=jnp.asarray(np.float32([-2.0, -2.0, -2.0])), resolution=res)
+    n = 256
+    points = rng.uniform(-1.6, 1.6, (n, 3)).astype(np.float32)
+    points[0] = [5.0, 4.0, 1.0]  # about 6.5 m: all 7 angles of the window are valid
+    mask = rng.rand(n) > 0.5 if pattern == "interleaved" else np.arange(n) < 90
+    mask[0] = True
+    jparams, params = _params(linear_search_window=0.15, angular_search_window=0.05,
+                              max_scan_range=6.0)
+    _compare(jgrid, points, mask, np.float32([0.11, -0.05, 0.02]), _quat([0.02, 0.01, -0.1]),
+             jparams, params)

@@ -1118,6 +1118,129 @@ def test_correlative_3d_kernel(dev, window, max_range):
     torch.testing.assert_close(x[3:7], ref_x[3:7], atol=1e-6, rtol=0)
 
 
+def _k17_case(dev, case):
+    """A K17 call's arguments: the 96^3 window of four hall scans, a cloud of
+    512 points (4,096 for `points_4096`) around it, the default search
+    (a 1 degree window, 60 m max_scan_range: 27 of 9,261 rotations valid)."""
+    import dataclasses
+
+    from cartographer_tpu_torch.ops import scan_matcher_3d
+    from cartographer_tpu_torch.ops.grid_3d import Grid3D
+
+    high, _ = _paged_pair(dev, 0.1)
+    grid = high.crop_dense(np.float32([0.3, 0.0, 0.0]), 96)
+    rng = np.random.RandomState(31)
+    shift = np.float32([0.313, -0.079, 0.037])
+    n = 4096 if case == "points_4096" else 512
+    pts, mask = _hall_scan(rng, shift, n)
+    pts = pts - shift
+    params = scan_matcher_3d.CorrelativeSearchParams3D()
+    if case == "invalid_interleaved":
+        mask = rng.rand(n) < 0.4
+    elif case == "invalid_tail":
+        mask = np.arange(n) < 180  # the valid points first, as `compact` leaves them
+    elif case == "ties":
+        # No known cell and no motion prior: every candidate scores the same,
+        # and the lowest flat index must win.
+        grid = Grid3D.create(96, 0.1, np.float32([0.3, 0.0, 0.0]), dev)
+        params = dataclasses.replace(params, translation_delta_cost_weight=0.0,
+                                     rotation_delta_cost_weight=0.0)
+    # The largest range sets the step: about 7.9 m keeps 3 angles an axis
+    # inside 1 degree (27 rotations), 13 m keeps 5 (125).
+    pts[0] = [12.0, 5.0, 1.0] if case == "all_125_rotations" else [7.0, 3.5, 1.0]
+    mask[0] = True
+    x0 = _t(np.float32([0.04, -0.03, 0.01, np.cos(0.005), 0.0, 0.0, np.sin(0.005)]), dev)
+    return grid, _t(pts, dev), _t(mask, dev), x0, params
+
+
+@pytest.mark.parametrize("case", ["all_125_rotations", "invalid_interleaved", "invalid_tail",
+                                  "ties", "points_4096"])
+def test_correlative_3d_kernel_cases(dev, case):
+    """K17 in one launch: the flat index, the score and the offsets bit for
+    bit against the twin, the quaternion within 1e-6, twice in a row (each
+    call leaves its key and ticket zero for the next); all 125 rotations of
+    the default window, invalid points among the valid ones and as a tail, a
+    grid where every candidate ties (the lowest flat index wins) and 4,096
+    points."""
+    from cartographer_tpu_torch.ops import scan_matcher_3d
+
+    args = _k17_case(dev, case)
+    grid, pts, mask, x0, params = args
+    _, na = scan_matcher_3d.search_sizes(grid.resolution, params)
+    step = scan_matcher_3d._angular_step(pts, mask, grid.resolution)
+    ang = torch.arange(-na, na + 1, device=dev).to(torch.float32) * step
+    valid = int((ang.abs() <= float(np.float32(params.angular_search_window + 1e-6))).sum())
+    assert valid ** 3 == (125 if case == "all_125_rotations" else 27)
+    ref_score, ref_x, ref_index = scan_matcher_3d.correlative_match_3d_plain(*args)
+    if case == "ties":
+        first = ((na - 1) * (2 * na + 1) + (na - 1)) * (2 * na + 1) + (na - 1)
+        assert ref_index == first * 125
+    for _ in range(2):
+        score, x, key = scan_matcher_3d._correlative_kernel(*args)
+        assert ~int(key.cpu()) & 0xFFFFFFFF == ref_index
+        assert float(score) == float(ref_score) and torch.equal(x[0:3], ref_x[0:3])
+        torch.testing.assert_close(x[3:7], ref_x[3:7], atol=1e-6, rtol=0)
+
+
+def _k12_case(rng, case):
+    """A K12 cloud (points, mask) for `case`."""
+    if case in ("points_1024", "points_8192"):
+        return _hall_scan(rng, np.zeros(3, np.float32), int(case.split("_")[1]))
+    if case == "empty":
+        pts, mask = _hall_scan(rng, np.zeros(3, np.float32), 512)
+        return pts, np.zeros_like(mask)
+    if case == "one_slice":
+        pts, mask = _hall_scan(rng, np.zeros(3, np.float32), 512)
+        pts[:, 2] = rng.uniform(0.0, 0.15, 512)
+        return pts.astype(np.float32), mask
+    if case == "long_chain":
+        # 300 points round a ring of 28.6 m, steps of 0.3, 0.3 and 1.2 m:
+        # every third point is more than 0.9 m from the anchor and moves it,
+        # a chain of 100 anchors; the others are emitted.
+        arc = np.cumsum(np.tile([0.3, 0.3, 1.2], 100))
+        a = arc / arc[-1] * 2 * np.pi
+        r = arc[-1] / (2 * np.pi)
+        pts = np.stack([r * np.cos(a), r * np.sin(a), np.full(300, 0.05)], -1)
+        return pts.astype(np.float32), np.ones(300, bool)
+    # equal_angles: a cloud and exact copies of every second point of it, and
+    # points on the four axis rays about a centroid at exactly (0, 0): equal
+    # angles, ordered by index.
+    pts, _ = _hall_scan(rng, np.zeros(3, np.float32), 256)
+    radii = np.float32([1.0, 1.5, 2.0, 2.5, 3.0, 3.5, 4.0, 4.5])
+    rays = [(1, 0), (0, 1), (-1, 0), (0, -1)]
+    axes = np.array([[dx * r, dy * r, 2.5] for r in radii for dx, dy in rays], np.float32)
+    pts = np.concatenate([pts, pts[::2], axes, axes[::3]])
+    return pts, np.ones(len(pts), bool)
+
+
+@pytest.mark.parametrize("case", ["empty", "one_slice", "long_chain", "equal_angles",
+                                  "points_1024", "points_8192"])
+def test_scan_histograms_kernel(dev, case):
+    """K12's one launch for the 3D step (the cloud levelled by a gravity
+    quaternion, the histogram and its rotation by a matched yaw) bit for bit
+    against the twin composition: an empty cloud, one slice, a slice whose
+    anchor chain is 100 long, equal angles, 1,024 and 8,192 points."""
+    from cartographer_tpu_torch.ops import rot_histogram
+
+    rng = np.random.RandomState(len(case))
+    pts, mask = _k12_case(rng, case)
+    # A gravity quaternion with a tilt, or (where the case needs its slices
+    # kept) a yaw alone, which levelling takes out.
+    flat = case in ("one_slice", "long_chain")
+    tilt = np.float32([np.cos(0.3), 0.0 if flat else 0.012, 0.0 if flat else -0.01, np.sin(0.3)])
+    gravity = _t((tilt / np.linalg.norm(tilt)).astype(np.float32), dev)
+    est_q = _t(np.float32([np.cos(0.35), 0.0, 0.0, np.sin(0.35)]), dev)
+    args = (_t(pts, dev), _t(mask, dev), gravity, est_q, 120)
+    ref = rot_histogram.scan_histograms_plain(*args)
+    for _ in range(2):
+        got = rot_histogram.scan_histograms(*args)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    if case == "empty":
+        assert not bool(ref[0].any())
+    else:
+        assert float(ref[0].sum()) > 1.0
+
+
 # ---------------------------------------------------------------- scan sizes above one block
 
 
@@ -1155,9 +1278,9 @@ def test_bnb_score_kernel_large(dev, n):
 
 @pytest.mark.parametrize("n,bins", [(1024, 120), (2048, 120), (8192, 120), (2048, 2048)])
 def test_rot_histogram_kernel_large(dev, n, bins):
-    """K12 at its former one-block limit (1,024 points) and above it (the
-    device-memory scratch and the multi-block key sort), up to 2,048 bins,
-    bit for bit against the twin."""
+    """K12 at its former one-block limit (1,024 points) and above it (its
+    arrays in shared memory up to some 3,400 points, in a device-memory
+    scratch above), up to 2,048 bins, bit for bit against the twin."""
     from cartographer_tpu_torch.ops import rot_histogram
 
     rng = np.random.RandomState(n + bins)
@@ -1183,9 +1306,10 @@ def test_rot_match_kernel_large(dev, bins):
 
 @pytest.mark.parametrize("n", [2048, 4096, 8192])
 def test_correlative_3d_kernel_large(dev, n):
-    """K17 at its former one-block limit (2,048 points) and above it (cells
-    in a device scratch, the fold above 4,096): score, pose and flat index
-    bit for bit against the twin."""
+    """K17 at its former one-block limit (2,048 points) and above it (a
+    lane's leaves folded above 512 padded points, the cells in shared memory
+    up to 12,288 points): score, pose and flat index bit for bit against the
+    twin."""
     from cartographer_tpu_torch.ops import scan_matcher_3d
 
     high, _ = _paged_pair(dev, 0.1)
