@@ -10,18 +10,31 @@
 // NB^3 int32 slots (-1: no page). Block b covers the world cells
 // [b * B, (b + 1) * B) of each axis.
 //
-// K9, insert. Per return: the hit cell and `free_voxels` cells back along
-// the ray from the sensor origin. Every cell changes at most once per scan
-// and a hit wins over a miss. Two passes over the N * (1 + free_voxels)
-// candidate cells, none over the pool: `mark` resolves each candidate
-// through the page table to its pool index, stores it, and ORs a hit (2)
-// or miss (1) bit into a per-cell state byte; `apply` takes each
-// candidate's state byte with an atomic AND that clears it, so exactly one
-// candidate of a cell sees it non-zero, adds the hit or the miss
-// increment, clamps and sets known. The state bytes are all zero again
-// when the call ends. Cell indices follow the JAX program: a true division
-// by the resolution, floor, and a floor division of the signed products
-// along the ray.
+// K9, insert: one launch for a scan's inserts into up to 4 grids (the high
+// and low grids of the active submaps), each grid's descriptor in the
+// launch's parameters and each grid a thread-block cluster. Per return: the
+// hit cell and `free_voxels` cells back along the ray from the sensor
+// origin. Every cell changes at most once per scan and a hit wins over a
+// miss, so a grid's marks must all be made before any is applied; the
+// grids' pools are disjoint, so that barrier spans one cluster, not the
+// launch. A cluster (1) writes the grid's new page-table entries (the
+// scan's allocation, one upload for all grids) and fills its hash table,
+// cluster barrier; (2) marks: a thread per return resolves its candidates
+// through the table to pool indices (the reads issued together) and puts
+// hit (2) or miss (1) into the index's slot of an open-addressing table
+// keyed by pool index, owned by the block its hash picks, through
+// distributed shared memory (a compare-and-swap at the hashed slot, its
+// candidates' issued together; an OR where the key is there); cluster
+// barrier; (3) each block applies its own occupied slots: v = clamp(v +
+// (hit ? hit : miss)), known = 1. A slot is one 32-bit word, the pool index
+// (below 2^30) and the two state bits, so nothing is zeroed between calls
+// and no state is sized to the pool. Each block's table holds every
+// candidate of the grid (a power of two above N * (1 + free_voxels)), so no
+// hash can overflow it; above kMaxSharedSlots a block's table lives in a
+// device-memory slice (the wrapper's scratch), the same template with
+// global atomics. Cell indices follow the JAX program: a true division by
+// the resolution, floor, and a floor division of the signed products along
+// the ray.
 //
 // K10 and K19, crop: one launch for a scan's windows (2, or 3 with the
 // intensity window), each a descriptor of its two pools (base pointers and
@@ -55,23 +68,28 @@
 // to 131,072 returns (a thread-block cluster of one block per 512 returns,
 // up to 16), one more per further 131,072; no scratch.
 //
-// Bound: bytes. K9 touches 3 N cells of the pool (5 bytes each, read and
-// written) and reads N returns; K18 reads N returns and intensities and
-// updates at most N cells (8 bytes each, read and written); K10 writes 5
-// bytes and K19 8 bytes per window cell and read only the pages under the
-// window (more than 95% of a scan's window bytes are zeros). Design: K9 and
-// K18 never sweep the pool (8.4 M cells); the crops make no division and
-// no page lookup per cell, and store 16 bytes a thread.
+// Bound: bytes. K9 touches at most 3 N cells of each pool (5 bytes each,
+// read and written) and reads N returns and each grid's N mask bytes; K18
+// reads N returns and intensities and updates at most N cells (8 bytes
+// each, read and written); K10 writes 5 bytes and K19 8 bytes per window
+// cell and read only the pages under the window (more than 95% of a scan's
+// window bytes are zeros). Design: K9 and
+// K18 never sweep the pool (8.4 M cells), and K9's tables are sized to the
+// scan, in shared memory at the 3D defaults (64 KB a block, 8 blocks a
+// grid); the crops make no division and no page lookup per cell, and store
+// 16 bytes a thread.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "in_order_scatter.cuh"
+#include "stamps.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
-
-constexpr int kThreads = 256;
 
 struct Paged {
   const int* table;  // (nb, nb, nb)
@@ -91,7 +109,9 @@ __device__ inline int world_to_cell(float p, float origin, float resolution) {
   return (int)floorf((p - origin) / resolution);
 }
 
-// Pool index of world cell c, or -1 where it has no page.
+// Pool index of world cell c, or -1 where it has no page. kFresh: the table
+// was written in this launch, so it is read past L1.
+template <bool kFresh = false>
 __device__ inline long long pool_index(const Paged& g, const int c[3]) {
   const int B = g.page_size, nb = g.num_blocks;
   int block[3], off[3];
@@ -100,68 +120,204 @@ __device__ inline long long pool_index(const Paged& g, const int c[3]) {
     block[a] = c[a] / B;
     off[a] = c[a] - block[a] * B;
   }
-  int page = g.table[((size_t)block[0] * nb + block[1]) * nb + block[2]];
+  const int* entry = g.table + ((size_t)block[0] * nb + block[1]) * nb + block[2];
+  const int page = kFresh ? __ldcg(entry) : *entry;
   if (page < 0 || page >= g.num_pages) return -1;
   return (((long long)page * B + off[0]) * B + off[1]) * B + off[2];
 }
 
-__device__ inline void or_state(uint8_t* state, long long lin, unsigned int bits) {
-  unsigned int* word = reinterpret_cast<unsigned int*>(state + (lin & ~3ll));
-  atomicOr(word, bits << (8 * (int)(lin & 3ll)));
+// ---------------------------------------------------------------- K9
+
+// One grid of an insert launch; ops/paged_grid_3d.py `_INSERT_GRID` packs it.
+struct InsertGrid {
+  float* pages;              // (P, B, B, B) log-odds
+  uint8_t* known;            // (P, B, B, B)
+  int* table;                // (nb, nb, nb), the new entries written here
+  const float* grid_origin;  // (3,)
+  const uint8_t* mask;       // (n,) the returns this grid takes
+  const int* entries;        // (entry_count, 2): flat table index, pool slot
+  unsigned int* scratch;     // the cluster's tables in device memory, or null
+  float resolution;
+  int page_size, num_blocks, num_pages, entry_count, unused;
+};
+static_assert(sizeof(InsertGrid) == 80, "ops/paged_grid_3d.py _INSERT_GRID packs this layout");
+
+constexpr int kMaxInsertGrids = 4;
+constexpr int kInsertThreads = 512;
+constexpr int kInsertCluster = 8;         // blocks a grid, at most
+constexpr int kMaxSharedSlots = 1 << 15;  // a block's table in shared memory: 128 KB
+constexpr int kMarkBatch = 4;   // steps along a ray whose cells a thread looks up together
+constexpr int kApplyBatch = 8;  // slots a thread applies together
+constexpr unsigned int kFree = 0xFFFFFFFFu;
+constexpr unsigned int kKeyMask = (1u << 30) - 1u;  // a slot: state bits << 30 | pool index
+
+struct InsertLaunch {
+  InsertGrid g[kMaxInsertGrids];
+  const float* sensor_origin;  // (3,)
+  const float* returns;        // (n, 3)
+  int n, free_voxels, cluster, slot_bits;  // slot_bits: log2 of a block's slots
+  float hit_increment, miss_increment, min_log_odds, max_log_odds;
+};
+
+struct InsertShape {
+  int cluster, slot_bits;
+  bool shared;
+};
+
+InsertShape insert_shape(int n, int free_voxels) {
+  InsertShape s;
+  s.cluster = (n + kInsertThreads - 1) / kInsertThreads;
+  s.cluster = s.cluster < 1 ? 1 : s.cluster > kInsertCluster ? kInsertCluster : s.cluster;
+  const long long candidates = (long long)n * (free_voxels + 1);
+  s.slot_bits = 8;
+  while ((1ll << s.slot_bits) <= candidates) ++s.slot_bits;
+  s.shared = (1ll << s.slot_bits) <= kMaxSharedSlots;
+  return s;
 }
 
-__device__ inline unsigned int take_state(uint8_t* state, long long lin) {
-  unsigned int* word = reinterpret_cast<unsigned int*>(state + (lin & ~3ll));
-  int shift = 8 * (int)(lin & 3ll);
-  unsigned int old = atomicAnd(word, ~(0xFFu << shift));
-  return (old >> shift) & 0xFFu;
+__device__ inline unsigned int slot_hash(unsigned int key) {
+  unsigned int h = key * 0x9E3779B1u;
+  h ^= h >> 15;
+  h *= 0x85EBCA6Bu;
+  return h ^ (h >> 13);
 }
 
-__global__ void mark_kernel(Paged g, const float* __restrict__ sensor_origin,
-                            const float* __restrict__ returns,
-                            const uint8_t* __restrict__ mask, int n, int free_voxels,
-                            uint8_t* __restrict__ state, long long* __restrict__ cells) {
-  int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  int per = free_voxels + 1;
-  if (idx >= n * per) return;
-  int i = idx / per, k = idx % per;  // k = 0: the hit, k >= 1: the k-th cell back
-  long long lin = -1;
-  if (mask[i]) {
-    int hit[3], origin_cell[3], delta[3];
+// A mark of pool index `key` with `bits`: its owner's table, the slot its
+// hash picks and the word it stores there.
+struct Mark {
+  unsigned int* table;
+  unsigned int slot, want;
+};
+
+template <bool kShared>
+__device__ inline Mark mark_of(const InsertLaunch& L, const InsertGrid& g, unsigned int* local,
+                               cg::cluster_group& cluster, unsigned int key, unsigned int bits) {
+  const unsigned int h = slot_hash(key);
+  const unsigned int owner = (unsigned int)(((h & 0xFFFFu) * (unsigned int)L.cluster) >> 16);
+  return {kShared ? cluster.map_shared_rank(local, owner)
+                  : g.scratch + ((size_t)owner << L.slot_bits),
+          h >> (32 - L.slot_bits), key | (bits << 30)};
+}
+
+// Ends a mark whose compare-and-swap at its slot found `cur` there: done
+// where the slot was free or holds the key (its missing bits ORed in, not
+// waited for); else the next slots, one compare-and-swap each.
+__device__ inline void finish_mark(const Mark& m, unsigned int mask, unsigned int cur) {
+  const unsigned int key = m.want & kKeyMask, bits = m.want & ~kKeyMask;
+  for (unsigned int s = m.slot; cur != kFree; cur = atomicCAS(m.table + s, kFree, m.want)) {
+    if ((cur & kKeyMask) == key) {
+      if ((cur & bits) != bits) atomicOr(m.table + s, bits);
+      return;
+    }
+    s = (s + 1u) & mask;
+  }
+}
+
+// Grid (cluster x grids): blockIdx.x / cluster is the grid.
+template <bool kShared>
+__global__ void __launch_bounds__(kInsertThreads)
+    paged_insert_kernel(const __grid_constant__ InsertLaunch L) {
+  extern __shared__ unsigned int shared_slots[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned int c = cluster.block_rank();
+  const InsertGrid& g = L.g[blockIdx.x / L.cluster];
+  const int slots = 1 << L.slot_bits;
+  unsigned int* mine = kShared ? shared_slots : g.scratch + ((size_t)c << L.slot_bits);
+  STAMP(0);
+  const int stride = L.cluster * blockDim.x;
+  // The thread's return, read before the first barrier so that the read
+  // overlaps the tables' fill; the next one read before this one is marked.
+  int i = c * blockDim.x + threadIdx.x;
+  bool in = false;
+  float ret[3] = {0.0f, 0.0f, 0.0f};
+  auto fetch = [&](int at) {
+    in = at < L.n && g.mask[at];
+    if (in)
+      for (int a = 0; a < 3; ++a) ret[a] = L.returns[3 * (size_t)at + a];
+  };
+  fetch(i);
+  for (int s = threadIdx.x; s < slots; s += blockDim.x) mine[s] = kFree;
+  for (int e = c * blockDim.x + threadIdx.x; e < g.entry_count; e += stride)
+    g.table[g.entries[2 * e]] = g.entries[2 * e + 1];
+  STAMP(1);
+  cluster.sync();  // the tables are empty and the new entries visible to the cluster
+  STAMP(2);
+
+  const Paged p = {g.table, g.grid_origin, g.resolution, g.page_size, g.num_blocks,
+                   g.num_pages};
+  int origin_cell[3];
+  for (int a = 0; a < 3; ++a)
+    origin_cell[a] = world_to_cell(L.sensor_origin[a], g.grid_origin[a], g.resolution);
+  // A thread's cells along a ray: a batch's table reads are issued
+  // together, then its first compare-and-swaps, then their ends.
+  const unsigned int mask = (1u << L.slot_bits) - 1u;
+  for (; i < L.n; i += stride) {
+    const bool here = in;
+    int hit[3], delta[3];
     int num_samples = 0;
     for (int a = 0; a < 3; ++a) {
-      hit[a] = world_to_cell(returns[3 * i + a], g.origin[a], g.resolution);
-      origin_cell[a] = world_to_cell(sensor_origin[a], g.origin[a], g.resolution);
+      hit[a] = world_to_cell(ret[a], g.grid_origin[a], g.resolution);
       delta[a] = hit[a] - origin_cell[a];
       num_samples = max(num_samples, abs(delta[a]));
     }
-    if (k == 0) {
-      lin = pool_index(g, hit);
-    } else if (num_samples > 0) {
-      int position = max(num_samples - k, 0);
-      int c[3];
-      for (int a = 0; a < 3; ++a)
-        c[a] = origin_cell[a] + floor_div(delta[a] * position, num_samples);
-      lin = pool_index(g, c);
+    fetch(i + stride);
+    if (!here) continue;
+    // k = 0: the hit; k >= 1: the k-th cell back.
+    for (int k0 = 0; k0 <= L.free_voxels; k0 += kMarkBatch) {
+      long long lin[kMarkBatch];
+#pragma unroll
+      for (int u = 0; u < kMarkBatch; ++u) {
+        const int k = k0 + u;
+        lin[u] = -1;
+        if (k == 0) {
+          lin[u] = pool_index<true>(p, hit);
+        } else if (k <= L.free_voxels && num_samples > 0) {
+          const int position = max(num_samples - k, 0);
+          int cell[3];
+          for (int a = 0; a < 3; ++a)
+            cell[a] = origin_cell[a] + floor_div(delta[a] * position, num_samples);
+          lin[u] = pool_index<true>(p, cell);
+        }
+      }
+      Mark m[kMarkBatch];
+      unsigned int cur[kMarkBatch];
+#pragma unroll
+      for (int u = 0; u < kMarkBatch; ++u) {
+        if (lin[u] < 0) continue;
+        m[u] = mark_of<kShared>(L, g, shared_slots, cluster, (unsigned int)lin[u],
+                                k0 + u == 0 ? 2u : 1u);
+        cur[u] = atomicCAS(m[u].table + m[u].slot, kFree, m[u].want);
+      }
+#pragma unroll
+      for (int u = 0; u < kMarkBatch; ++u)
+        if (lin[u] >= 0) finish_mark(m[u], mask, cur[u]);
     }
   }
-  cells[idx] = lin;
-  if (lin >= 0) or_state(state, lin, k == 0 ? 2u : 1u);
-}
+  STAMP(3);
+  cluster.sync();  // every mark made; no block reads a peer's table after this
+  STAMP(4);
 
-__global__ void apply_kernel(const long long* __restrict__ cells, int count,
-                             uint8_t* __restrict__ state, float* __restrict__ pages,
-                             uint8_t* __restrict__ known, float hit_increment,
-                             float miss_increment, float min_log_odds, float max_log_odds) {
-  int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= count) return;
-  long long lin = cells[idx];
-  if (lin < 0) return;
-  unsigned int s = take_state(state, lin);
-  if (s == 0) return;  // another candidate of this cell applied the update
-  float v = pages[lin] + ((s & 2u) ? hit_increment : miss_increment);
-  pages[lin] = fminf(fmaxf(v, min_log_odds), max_log_odds);
-  known[lin] = 1;
+  // A batch's pool reads (a cell most often not in L2) are issued together.
+  for (int s0 = threadIdx.x; s0 < slots; s0 += kApplyBatch * blockDim.x) {
+    unsigned int w[kApplyBatch];
+    float v[kApplyBatch];
+#pragma unroll
+    for (int u = 0; u < kApplyBatch; ++u) {
+      const int s = s0 + u * (int)blockDim.x;
+      w[u] = s >= slots ? kFree : kShared ? mine[s] : __ldcg(mine + s);
+    }
+#pragma unroll
+    for (int u = 0; u < kApplyBatch; ++u) v[u] = w[u] != kFree ? g.pages[w[u] & kKeyMask] : 0.0f;
+#pragma unroll
+    for (int u = 0; u < kApplyBatch; ++u) {
+      if (w[u] == kFree) continue;
+      const unsigned int lin = w[u] & kKeyMask;
+      const float x = v[u] + ((w[u] >> 31) ? L.hit_increment : L.miss_increment);
+      g.pages[lin] = fminf(fmaxf(x, L.min_log_odds), L.max_log_odds);
+      g.known[lin] = 1;
+    }
+  }
+  STAMP(5);
 }
 
 Paged make_paged(const void* table, const void* origin, float resolution, int page_size,
@@ -376,28 +532,71 @@ __global__ void __launch_bounds__(kCropWarps * 32)
 
 }  // namespace
 
-// `state` holds num_pages * page_size^3 zero bytes (padded to a multiple of
-// 4) and is zero again on return; `cells` holds n * (free_voxels + 1) int64.
-extern "C" int paged_insert_3d(void* pages, void* known, const void* table,
-                               const void* grid_origin, float resolution, int page_size,
-                               int num_blocks, int num_pages, const void* sensor_origin,
-                               const void* returns, const void* mask, int n,
-                               float hit_increment, float miss_increment, int free_voxels,
-                               float min_log_odds, float max_log_odds, void* state,
-                               void* cells, void* stream) {
-  Paged g = make_paged(table, grid_origin, resolution, page_size, num_blocks, num_pages);
-  int count = n * (free_voxels + 1);
-  if (count == 0) return 0;
-  int blocks = (count + kThreads - 1) / kThreads;
-  cudaStream_t s = (cudaStream_t)stream;
-  mark_kernel<<<blocks, kThreads, 0, s>>>(g, (const float*)sensor_origin,
-                                          (const float*)returns, (const uint8_t*)mask, n,
-                                          free_voxels, (uint8_t*)state, (long long*)cells);
-  cudaError_t err = cudaGetLastError();
+// The device-memory bytes K9's tables take for one grid: 0 where they fit
+// in shared memory.
+extern "C" long long paged_insert_3d_scratch_bytes(int n, int free_voxels) {
+  const InsertShape s = insert_shape(n, free_voxels);
+  return s.shared ? 0 : (long long)s.cluster * 4 << s.slot_bits;
+}
+
+// `grids` points to `count` (1 .. 4) InsertGrid descriptors in host memory
+// (their pools disjoint, each under 2^30 - 1 cells, each `scratch` holding
+// paged_insert_3d_scratch_bytes(n, free_voxels) bytes); they go into the
+// launch's parameters. The grids share the sensor origin and the n returns.
+extern "C" int paged_insert_3d(const void* grids, int count, const void* sensor_origin,
+                               const void* returns, int n, int free_voxels,
+                               float hit_increment, float miss_increment, float min_log_odds,
+                               float max_log_odds, void* stream) {
+  if (count < 1 || count > kMaxInsertGrids || n < 0 || free_voxels < 0)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  const InsertShape shape = insert_shape(n, free_voxels);
+  InsertLaunch L;
+  for (int v = 0; v < count; ++v) {
+    L.g[v] = static_cast<const InsertGrid*>(grids)[v];
+    const InsertGrid& g = L.g[v];
+    const long long cells = (long long)g.num_pages * g.page_size * g.page_size * g.page_size;
+    if (g.page_size < 1 || cells >= (long long)kKeyMask || (!shape.shared && !g.scratch) ||
+        (g.entry_count > 0 && !g.entries))
+      return (int)cudaErrorInvalidValue;
+  }
+  L.sensor_origin = (const float*)sensor_origin;
+  L.returns = (const float*)returns;
+  L.n = n;
+  L.free_voxels = free_voxels;
+  L.cluster = shape.cluster;
+  L.slot_bits = shape.slot_bits;
+  L.hit_increment = hit_increment;
+  L.miss_increment = miss_increment;
+  L.min_log_odds = min_log_odds;
+  L.max_log_odds = max_log_odds;
+  auto kernel = shape.shared ? paged_insert_kernel<true> : paged_insert_kernel<false>;
+  const size_t smem = shape.shared ? (size_t)4 << shape.slot_bits : 0;
+  // Set once per device, so that a launch under stream capture makes no
+  // attribute call.
+  static int configured = -1;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess && device != configured) {
+    err = cudaFuncSetAttribute(paged_insert_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, 4 * kMaxSharedSlots);
+    if (err == cudaSuccess) configured = device;
+  }
   if (err != cudaSuccess) return (int)err;
-  apply_kernel<<<blocks, kThreads, 0, s>>>((const long long*)cells, count, (uint8_t*)state,
-                                           (float*)pages, (uint8_t*)known, hit_increment,
-                                           miss_increment, min_log_odds, max_log_odds);
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((unsigned int)(shape.cluster * count), 1, 1);
+  config.blockDim = dim3(kInsertThreads, 1, 1);
+  config.dynamicSmemBytes = smem;
+  config.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attribute[1];
+  attribute[0].id = cudaLaunchAttributeClusterDimension;
+  attribute[0].val.clusterDim.x = (unsigned int)shape.cluster;
+  attribute[0].val.clusterDim.y = 1;
+  attribute[0].val.clusterDim.z = 1;
+  config.attrs = attribute;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, kernel, L);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

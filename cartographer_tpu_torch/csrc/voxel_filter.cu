@@ -31,6 +31,19 @@
 // random filter at voxel_filter_size on the 3D hits, the matcher's and the
 // loop closure's adaptive filters on their x and y.
 //
+// K1 in K2's launch (`scan_filter_2d`, the 2D step's one launch; K1 replaces
+// cartographer_tpu/ops/scan_pipeline_2d.py:preprocess_scan_2d, l.40-104,
+// up to its voxel filter): instead of reading the hits, each block computes
+// the gravity-aligned hits and return flags of its part of the points with
+// K1's own code (scan_preprocess_2d.cuh) into its copy of the cloud, in
+// shared memory (or its scratch slice); after a cluster barrier each block
+// copies the other parts from its peers through distributed shared memory,
+// 16 bytes a load. So K1's outputs equal the standalone K1's bit for bit
+// and the masks those of K2 on them. The first filter's cluster writes K1's
+// outputs for the rest of the step, its block 0 the aligned origin. One
+// launch less a scan: the standalone K1's few microseconds were one small
+// kernel's floor.
+//
 // The adaptive search (the JAX program's 7 halving lengths, then 5
 // bisection steps, then the mask) is 3 dependent phases, on one thread-block
 // cluster of C blocks per (robot, adaptive filter):
@@ -98,6 +111,7 @@
 #include <mutex>
 
 #include "bitonic_sort.cuh"
+#include "scan_preprocess_2d.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -135,6 +149,9 @@ template <>
 struct Empty<unsigned long long> {
   static constexpr unsigned long long value = kEmpty;
 };
+
+static_assert(sizeof(scan2d::ScanArgs) == 208,
+              "sensor/voxel_filter.py _SCAN_ARGS packs this layout");
 
 // A block's arrays, in shared memory or in its scratch slice.
 struct Block {
@@ -398,9 +415,12 @@ __device__ inline void cluster_wait() {
 // Grid (robots x cluster, max(1, filters)); a cluster of `cluster` blocks
 // per (robot, adaptive filter), one block per robot without adaptive
 // filters. kGlobal: each block's arrays live in its slice of `scratch`.
-template <bool kGlobal, typename Key>
+// kScan: the cloud is K1's aligned hits and return flags of `scan`, and the
+// first filter's cluster writes K1's outputs (`points` and `mask` unused).
+template <bool kGlobal, typename Key, bool kScan>
 __global__ void __launch_bounds__(kMaxThreads)
-    voxel_filter_kernel(const float* __restrict__ points, int stride, long long points_rs,
+    voxel_filter_kernel(const __grid_constant__ scan2d::ScanArgs scan,
+                        const float* __restrict__ points, int stride, long long points_rs,
                         const uint8_t* __restrict__ mask, long long mask_rs,
                         const int* __restrict__ perm, long long perm_rs, int n, int bits,
                         float pre_resolution, int pre_dim, int filters, int dim,
@@ -427,33 +447,77 @@ __global__ void __launch_bounds__(kMaxThreads)
   s.slot = reinterpret_cast<int*>(q);
   q += (4LL * n + 15) & ~15LL;
   float* copy = reinterpret_cast<float*>(q);
-  if (!kGlobal) q += (4LL * n * pdim + 15) & ~15LL;
+  if (!kGlobal || kScan) q += (4LL * n * pdim + 15) & ~15LL;
   s.base = q;
   q += (n + 15) & ~15;
   s.kept = q;
-  s.pts = kGlobal ? points : copy;
-  s.pstride = kGlobal ? stride : pdim;
+  s.pts = kGlobal && !kScan ? points : copy;
+  s.pstride = kGlobal && !kScan ? stride : pdim;
   s.n = n;
   s.bits = bits;
 
   if (threadIdx.x == 0) num_base = 0;
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    const int i = perm[j];  // the loads first, then the stores
-    const uint8_t m = mask[j];
-    const float* p = points + (size_t)j * stride;
-    float x = 0.0f, y = 0.0f, z = 0.0f;
-    if (!kGlobal) {
-      x = p[0];
-      y = p[1];
-      if (pdim == 3) z = p[2];
+  if constexpr (kScan) {  // K1: pdim is 3, the hits' coordinates
+    // Block c computes K1 for its part of the points (a multiple of 16, so
+    // that each part starts on 16 bytes of both arrays) into its own arrays;
+    // after a cluster barrier it copies the other parts from its peers, 16
+    // bytes a load, every peer's vectors spread over all its threads.
+    const scan2d::Rows rows = scan2d::rows_of(scan, r);
+    const scan2d::ScanPose pose = scan2d::scan_pose(scan, r);
+    const int part = ((n + cluster - 1) / cluster + 15) & ~15;
+    for (int j = c * part + (int)threadIdx.x; j < min(n, (c + 1) * part); j += blockDim.x) {
+      const scan2d::Aligned a = scan2d::align_point(scan, pose, rows, j);
+      copy[3 * j] = a.hit[0];
+      copy[3 * j + 1] = a.hit[1];
+      copy[3 * j + 2] = a.hit[2];
+      s.base[j] = a.is_return;
+      if (f == 0) scan2d::write_point(scan, r, n, j, a);
     }
-    if (i >= 0 && i < n) s.inv[i] = j;
-    s.base[j] = m != 0;
-    s.kept[j] = 0;
-    if (!kGlobal) {
-      copy[j * pdim] = x;
-      copy[j * pdim + 1] = y;
-      if (pdim == 3) copy[j * pdim + 2] = z;
+    for (int j = threadIdx.x; j < n; j += blockDim.x) {
+      const int i = perm[j];
+      if (i >= 0 && i < n) s.inv[i] = j;
+      s.kept[j] = 0;
+    }
+    if (f == 0 && c == 0 && threadIdx.x == 0) scan2d::write_origin(scan, pose, r);
+    if (clustered) {
+      cluster_arrive();
+      cluster_wait();
+      // A part's hits are 3 * part / 4 vectors and its flags part / 16; the
+      // arrays' 16-byte padding takes the last part's rounding.
+      const int hit_vectors = 3 * part / 4, per_part = hit_vectors + part / 16;
+      for (int v = threadIdx.x; v < (cluster - 1) * per_part; v += blockDim.x) {
+        const int peer = (c + 1 + v / per_part) % cluster, w = v % per_part, lo = peer * part;
+        if (lo >= n) continue;
+        if (w < hit_vectors) {
+          if (4 * w >= 3 * (n - lo)) continue;
+          reinterpret_cast<uint4*>(copy + 3 * lo)[w] =
+              reinterpret_cast<const uint4*>(peer_of<kGlobal>(copy, peer, c, slice) + 3 * lo)[w];
+        } else if (16 * (w - hit_vectors) < n - lo) {
+          reinterpret_cast<uint4*>(s.base + lo)[w - hit_vectors] =
+              reinterpret_cast<const uint4*>(peer_of<kGlobal>(s.base, peer, c, slice) +
+                                             lo)[w - hit_vectors];
+        }
+      }
+    }
+  } else {
+    for (int j = threadIdx.x; j < n; j += blockDim.x) {
+      const int i = perm[j];  // the loads first, then the stores
+      const uint8_t m = mask[j];
+      const float* p = points + (size_t)j * stride;
+      float x = 0.0f, y = 0.0f, z = 0.0f;
+      if (!kGlobal) {
+        x = p[0];
+        y = p[1];
+        if (pdim == 3) z = p[2];
+      }
+      if (i >= 0 && i < n) s.inv[i] = j;
+      s.base[j] = m != 0;
+      s.kept[j] = 0;
+      if (!kGlobal) {
+        copy[j * pdim] = x;
+        copy[j * pdim + 1] = y;
+        if (pdim == 3) copy[j * pdim + 2] = z;
+      }
     }
   }
   // The blocks' start: a block writes into another's `kept` and counts only
@@ -570,7 +634,7 @@ struct Plan {
 
 long long align16(long long v) { return (v + 15) / 16 * 16; }
 
-Plan plan_of(int n, int pre_dim, int filters, int dim, Shape shape) {
+Plan plan_of(int n, int pre_dim, int filters, int dim, Shape shape, bool scan) {
   Plan p;
   int slots = 64;
   p.bits = 6;
@@ -580,7 +644,7 @@ Plan plan_of(int n, int pre_dim, int filters, int dim, Shape shape) {
   }
   const long long key_bytes = dim == 3 ? 8 : 4;
   p.global = n > kMaxSharedPoints;
-  const int pdim = p.global ? 0 : (pre_dim > dim ? pre_dim : dim);
+  const int pdim = p.global && !scan ? 0 : (pre_dim > dim ? pre_dim : dim);
   const long long fixed = 2 * align16(4LL * n) + align16(4LL * n * pdim) + 2 * align16(n);
   long long masks = pre_dim > 0 ? slots * 12LL : 0;  // a mask pass: keys and ranks
   if (filters > 0 && slots * (key_bytes + 4) > masks) masks = slots * (key_bytes + 4);
@@ -606,7 +670,7 @@ Plan plan_of(int n, int pre_dim, int filters, int dim, Shape shape) {
 // or the narrowest. Cached by shape under a lock (launches come from
 // several threads): no query under stream capture after a shape's first
 // call.
-template <bool kGlobal, typename Key>
+template <bool kGlobal, typename Key, bool kScan>
 Shape choose(int n, int pre_dim, int filters, int dim, int clusters) {
   static std::mutex lock;
   static std::map<std::array<int, 6>, Shape> cache;
@@ -630,7 +694,8 @@ Shape choose(int n, int pre_dim, int filters, int dim, int clusters) {
       cudaLaunchConfig_t config = {};
       config.gridDim = dim3((unsigned int)(clusters * candidate.cluster), 1, 1);
       config.blockDim = dim3((unsigned int)candidate.threads, 1, 1);
-      config.dynamicSmemBytes = (size_t)plan_of(n, pre_dim, filters, dim, candidate).block;
+      config.dynamicSmemBytes =
+          (size_t)plan_of(n, pre_dim, filters, dim, candidate, kScan).block;
       cudaLaunchAttribute attribute[1];
       attribute[0].id = cudaLaunchAttributeClusterDimension;
       attribute[0].val.clusterDim.x = (unsigned int)candidate.cluster;
@@ -639,8 +704,8 @@ Shape choose(int n, int pre_dim, int filters, int dim, int clusters) {
       config.attrs = attribute;
       config.numAttrs = 1;
       int active = 0;
-      if (cudaOccupancyMaxActiveClusters(&active, voxel_filter_kernel<kGlobal, Key>, &config) !=
-          cudaSuccess) {
+      if (cudaOccupancyMaxActiveClusters(&active, voxel_filter_kernel<kGlobal, Key, kScan>,
+                                         &config) != cudaSuccess) {
         cudaGetLastError();
         continue;
       }
@@ -654,13 +719,13 @@ Shape choose(int n, int pre_dim, int filters, int dim, int clusters) {
   return shape;
 }
 
-template <bool kGlobal, typename Key>
-cudaError_t launch(int robots, int filters, cudaStream_t st, const float* points, int stride,
-                   long long points_rs, const uint8_t* mask, long long mask_rs,
-                   const int* perm, long long perm_rs, int n, float pre_resolution,
-                   int pre_dim, int dim, Filters params, uint8_t* keep,
+template <bool kGlobal, typename Key, bool kScan>
+cudaError_t launch(const scan2d::ScanArgs& scan, int robots, int filters, cudaStream_t st,
+                   const float* points, int stride, long long points_rs, const uint8_t* mask,
+                   long long mask_rs, const int* perm, long long perm_rs, int n,
+                   float pre_resolution, int pre_dim, int dim, Filters params, uint8_t* keep,
                    unsigned char* scratch) {
-  auto kernel = voxel_filter_kernel<kGlobal, Key>;
+  auto kernel = voxel_filter_kernel<kGlobal, Key, kScan>;
   // Set once per device, so that a launch under stream capture makes no
   // attribute call.
   static int configured = -1;
@@ -674,9 +739,10 @@ cudaError_t launch(int robots, int filters, cudaStream_t st, const float* points
     if (err == cudaSuccess) configured = device;
   }
   if (err != cudaSuccess) return err;
-  const Shape shape = filters > 0 ? choose<kGlobal, Key>(n, pre_dim, filters, dim, robots * filters)
-                                  : Shape{1, kThreads, kBisectSteps};
-  const Plan plan = plan_of(n, pre_dim, filters, dim, shape);
+  const Shape shape = filters > 0
+                          ? choose<kGlobal, Key, kScan>(n, pre_dim, filters, dim, robots * filters)
+                          : Shape{1, kThreads, kBisectSteps};
+  const Plan plan = plan_of(n, pre_dim, filters, dim, shape, kScan);
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3((unsigned int)(robots * shape.cluster),
                         (unsigned int)(filters > 0 ? filters : 1), 1);
@@ -690,7 +756,7 @@ cudaError_t launch(int robots, int filters, cudaStream_t st, const float* points
   attribute[0].val.clusterDim.z = 1;
   config.attrs = attribute;
   config.numAttrs = 1;
-  err = cudaLaunchKernelEx(&config, kernel, points, stride, points_rs, mask, mask_rs, perm,
+  err = cudaLaunchKernelEx(&config, kernel, scan, points, stride, points_rs, mask, mask_rs, perm,
                            perm_rs, n, plan.bits, pre_resolution, pre_dim, filters, dim, params,
                            shape.cluster, shape.split, plan.tables, plan.region, keep, scratch,
                            kGlobal ? plan.block : 0LL);
@@ -701,18 +767,50 @@ cudaError_t launch(int robots, int filters, cudaStream_t st, const float* points
 }  // namespace
 
 // The scratch bytes a call needs: 16 up to kMaxSharedPoints points, else a
-// slice per block of the launch's shape.
+// slice per block of the launch's shape (scan: K1 in the launch, whose
+// hits each slice keeps).
 extern "C" long long voxel_filter_scratch_bytes(int n, int robots, int pre_dim, int filters,
-                                                int dim) {
+                                                int dim, int scan) {
   if (n <= kMaxSharedPoints) return 16;
   const int clusters = robots * filters;
-  const Shape shape = filters == 0 ? Shape{1, kThreads, kBisectSteps}
-                      : dim == 2   ? choose<true, uint32_t>(n, pre_dim, filters, dim, clusters)
-                                   : choose<true, unsigned long long>(n, pre_dim, filters, dim,
-                                                                      clusters);
-  return plan_of(n, pre_dim, filters, dim, shape).block * robots *
+  Shape shape = {1, kThreads, kBisectSteps};
+  if (filters > 0)
+    shape = dim == 3 ? choose<true, unsigned long long, false>(n, pre_dim, filters, dim, clusters)
+            : scan   ? choose<true, uint32_t, true>(n, pre_dim, filters, dim, clusters)
+                     : choose<true, uint32_t, false>(n, pre_dim, filters, dim, clusters);
+  return plan_of(n, pre_dim, filters, dim, shape, scan != 0).block * robots *
          (filters > 0 ? filters * shape.cluster : 1);
 }
+
+namespace {
+
+// One launch of the kernel's shared- or device-memory form and key width.
+template <bool kScan>
+cudaError_t dispatch(const scan2d::ScanArgs& scan, int robots, int filters, cudaStream_t st,
+                     const float* p, int stride, long long points_rs, const uint8_t* m,
+                     long long mask_rs, const int* q, long long perm_rs, int n,
+                     float pre_resolution, int pre_dim, int dim, Filters params, uint8_t* k,
+                     unsigned char* sc) {
+  const bool global = n > kMaxSharedPoints;
+  if (dim == 2)
+    return global ? launch<true, uint32_t, kScan>(scan, robots, filters, st, p, stride,
+                                                  points_rs, m, mask_rs, q, perm_rs, n,
+                                                  pre_resolution, pre_dim, dim, params, k, sc)
+                  : launch<false, uint32_t, kScan>(scan, robots, filters, st, p, stride,
+                                                   points_rs, m, mask_rs, q, perm_rs, n,
+                                                   pre_resolution, pre_dim, dim, params, k, sc);
+  if (kScan) return cudaErrorInvalidValue;  // K1's hits take 2D adaptive keys
+  return global ? launch<true, unsigned long long, false>(scan, robots, filters, st, p, stride,
+                                                          points_rs, m, mask_rs, q, perm_rs, n,
+                                                          pre_resolution, pre_dim, dim, params,
+                                                          k, sc)
+                : launch<false, unsigned long long, false>(scan, robots, filters, st, p, stride,
+                                                           points_rs, m, mask_rs, q, perm_rs, n,
+                                                           pre_resolution, pre_dim, dim, params,
+                                                           k, sc);
+}
+
+}  // namespace
 
 // `points` (stride floats a point), `mask` and `perm` are robot 0's; robot
 // r's lie `*_rs` elements further. With pre_dim (2 or 3) the random filter
@@ -720,7 +818,7 @@ extern "C" long long voxel_filter_scratch_bytes(int n, int robots, int pre_dim, 
 // 2) adaptive filters, filter k of parameters (length_k, min_num_points_k,
 // max_range_k), over the first `dim` coordinates of the random filter's
 // keep-mask (or of `mask`). keep: (outputs, robots, n) flags. `scratch`
-// holds voxel_filter_scratch_bytes(...) bytes, 16-byte aligned.
+// holds voxel_filter_scratch_bytes(..., 0) bytes, 16-byte aligned.
 extern "C" int voxel_filter(const void* points, int stride, long long points_rs,
                             const void* mask, long long mask_rs, const void* perm,
                             long long perm_rs, int n, int robots, float pre_resolution,
@@ -734,36 +832,36 @@ extern "C" int voxel_filter(const void* points, int stride, long long points_rs,
       stride < (pre_dim > dim ? pre_dim : dim))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  if (scratch_bytes < voxel_filter_scratch_bytes(n, robots, pre_dim, filters, dim))
+  if (scratch_bytes < voxel_filter_scratch_bytes(n, robots, pre_dim, filters, dim, 0))
     return (int)cudaErrorInvalidValue;
   const Filters params = {{length0, length1}, {min_num_points0, min_num_points1},
                           {max_range0, max_range1}};
-  const bool global = n > kMaxSharedPoints;
-  cudaStream_t st = (cudaStream_t)stream;
-  const float* p = (const float*)points;
-  const uint8_t* m = (const uint8_t*)mask;
-  const int* q = (const int*)perm;
-  uint8_t* k = (uint8_t*)keep;
-  unsigned char* sc = (unsigned char*)scratch;
-  cudaError_t err;
-  if (global) {
-    err = dim == 2 ? launch<true, uint32_t>(robots, filters, st, p, stride,
-                                             points_rs, m, mask_rs, q, perm_rs, n,
-                                             pre_resolution, pre_dim, dim, params, k, sc)
-                   : launch<true, unsigned long long>(robots, filters, st, p,
-                                                      stride, points_rs, m, mask_rs, q,
-                                                      perm_rs, n, pre_resolution, pre_dim, dim,
-                                                      params, k, sc);
-  } else {
-    err = dim == 2 ? launch<false, uint32_t>(robots, filters, st, p, stride,
-                                              points_rs, m, mask_rs, q, perm_rs, n,
-                                              pre_resolution, pre_dim, dim, params, k, sc)
-                   : launch<false, unsigned long long>(robots, filters, st, p,
-                                                       stride, points_rs, m, mask_rs, q,
-                                                       perm_rs, n, pre_resolution, pre_dim,
-                                                       dim, params, k, sc);
-  }
-  return (int)err;
+  return (int)dispatch<false>(scan2d::ScanArgs{}, robots, filters, (cudaStream_t)stream,
+                              (const float*)points, stride, points_rs, (const uint8_t*)mask,
+                              mask_rs, (const int*)perm, perm_rs, n, pre_resolution, pre_dim,
+                              dim, params, (uint8_t*)keep, (unsigned char*)scratch);
+}
+
+// The 2D step's launch: K1 (`scan`, a ScanArgs in host memory: robot 0's
+// inputs, their robot strides, K1's parameters and outputs) on the robots'
+// n-point scans, the random filter at pre_resolution over its 3D hits and
+// `filters` (0 to 2) adaptive filters over their x and y, as voxel_filter
+// takes them. `scratch` holds voxel_filter_scratch_bytes(..., 1) bytes.
+extern "C" int scan_filter_2d(const void* scan, const void* perm, long long perm_rs, int n,
+                              int robots, float pre_resolution, int filters, float length0,
+                              int min_num_points0, float max_range0, float length1,
+                              int min_num_points1, float max_range1, void* keep, void* scratch,
+                              long long scratch_bytes, void* stream) {
+  if (scan == nullptr || n < 1 || robots < 1 || filters < 0 || filters > kMaxFilters ||
+      scratch == nullptr ||
+      scratch_bytes < voxel_filter_scratch_bytes(n, robots, 3, filters, 2, 1))
+    return (int)cudaErrorInvalidValue;
+  const Filters params = {{length0, length1}, {min_num_points0, min_num_points1},
+                          {max_range0, max_range1}};
+  return (int)dispatch<true>(*static_cast<const scan2d::ScanArgs*>(scan), robots, filters,
+                             (cudaStream_t)stream, nullptr, 3, 0, nullptr, 0,
+                             (const int*)perm, perm_rs, n, pre_resolution, 3, 2, params,
+                             (uint8_t*)keep, (unsigned char*)scratch);
 }
 
 // ---------------------------------------------------------------- K31

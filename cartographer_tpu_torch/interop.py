@@ -173,7 +173,6 @@ def paged_grid_from_numpy(pages: np.ndarray, known: np.ndarray, page_table: np.n
         to_device(np.asarray(pages, np.float32), device), to_device(np.asarray(known, bool), device),
         to_device(page_table.copy(), device), to_device(np.asarray(origin, np.float32), device),
         float(resolution), int(page_size))
-    paged._scratch = None
     return _with_allocation(paged, page_table, origin, slots)
 
 

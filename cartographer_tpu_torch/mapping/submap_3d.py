@@ -18,6 +18,8 @@ window; unlike the reference, a finished submap keeps its compacted pool.
 
 The insertion runs on the device tensors the caller already holds (the
 frontend's per-scan step); the host arrays only drive the page allocation.
+On the card a scan's occupancy inserts into the active submaps' grids (2
+or 4) are one K9 launch, which also writes their new page-table entries.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from cartographer_tpu_torch.ops.paged_grid_3d import (
     PagedIntensitySubmapGrid3D,
     PagedSubmapGrid3D,
     crop_windows,
+    insert_paged_grids,
 )
 from cartographer_tpu_torch.ops.rot_histogram import rotate_histogram
 
@@ -177,20 +180,14 @@ class ActiveSubmaps3D:
                 torch.from_numpy(np.asarray(scan_histogram, np.float32)),
                 torch.tensor(scan_yaw_in_local, dtype=torch.float32)).numpy()
         rotated = np.asarray(rotated_histogram, np.float64)
-        kwargs = dict(hit_probability=ins.hit_probability,
-                      miss_probability=ins.miss_probability,
-                      num_free_space_voxels=ins.num_free_space_voxels)
         self.pages_allocated_last_insert = 0
+        jobs = []  # K9: every grid's allocation first, then one launch for the scan
         for i, submap in enumerate(self.submaps):
-            submap.high_paged.insert_range_data(
-                origin_np, points_np, high_np, device_tensors=(origin_t, points_t, high_t),
-                **kwargs)
-            submap.low_paged.insert_range_data(
-                origin_np, points_np, mask_np, device_tensors=(origin_t, points_t, mask_t),
-                **kwargs)
-            self.pages_allocated_last_insert += (
-                submap.high_paged.pages_allocated_last_insert
-                + submap.low_paged.pages_allocated_last_insert)
+            for paged, grid_mask_np, grid_mask_t in ((submap.high_paged, high_np, high_t),
+                                                     (submap.low_paged, mask_np, mask_t)):
+                jobs.append((paged.grid, grid_mask_t, paged.allocate(
+                    points_np, grid_mask_np, ins.num_free_space_voxels)))
+                self.pages_allocated_last_insert += paged.pages_allocated_last_insert
             if submap.intensity_paged is not None and intensities is not None:
                 # The high-resolution range gate, as the occupancy's high grid.
                 dev_intens = (device_tensors[4] if len(device_tensors) > 4
@@ -204,6 +201,8 @@ class ActiveSubmaps3D:
             # The scan histogram rotated into the submap frame (submaps are
             # yaw-anchored at identity, so the scan's yaw is the rotation).
             self._histograms[i] += rotated
+        insert_paged_grids(jobs, origin_t, points_t, ins.hit_probability,
+                           ins.miss_probability, ins.num_free_space_voxels)
 
         front = self.submaps[0]
         if (not front.insertion_finished

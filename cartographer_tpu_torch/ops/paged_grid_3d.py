@@ -7,9 +7,11 @@ allocation of pages on the host (a dict from block to pool slot, with a
 host mirror of the table), and three device programs, all in
 `csrc/paged_grid_3d.cu`:
 
-  - `insert_paged` (K9): hits and the trailing free-space cells of each
-    ray, through the page table into the pool, in place (the JAX program
-    returns a new pool);
+  - `insert_paged_grids` (K9): hits and the trailing free-space cells of
+    each ray, through the page table into the pool, in place (the JAX
+    program returns a new pool), for up to 4 grids in one launch (a scan's
+    high and low grids of the active submaps), their new page-table
+    entries written in the same launch; `insert_paged` inserts into one;
   - `crop_windows` (K10 and K19): the pages that cover each of a scan's
     size^3 windows gathered into a dense `Grid3D` (occupancy pools) or
     `IntensityGrid3D` (intensity pools) for the matchers, every window in
@@ -32,9 +34,10 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 import struct
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -51,13 +54,18 @@ from cartographer_tpu_torch.ops.probability import (
 )
 
 _P, _F, _I = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
-_INSERT_KERNEL = cuda.CudaKernel(
-    "paged_grid_3d.cu", "paged_insert_3d",
-    [_P, _P, _P, _P, _F, _I, _I, _I, _P, _P, _P, _I, _F, _F, _I, _F, _F, _P, _P])
+_INSERT_KERNEL = cuda.CudaKernel("paged_grid_3d.cu", "paged_insert_3d",
+                                 [_P, _I, _P, _P, _I, _I, _F, _F, _F, _F])
 _CROP_KERNEL = cuda.CudaKernel("paged_grid_3d.cu", "paged_crop_3d", [_P, _I])
 _INTENSITY_INSERT_KERNEL = cuda.CudaKernel(
     "paged_grid_3d.cu", "paged_intensity_insert_3d",
     [_P, _P, _P, _P, _F, _I, _I, _I, _P, _P, _P, _I, _F, _I])
+MAX_INSERT_GRIDS = 4  # grids an insert launch takes (csrc/paged_grid_3d.cu kMaxInsertGrids)
+# One grid of an insert launch, `InsertGrid` of csrc/paged_grid_3d.cu: the
+# pools, the table, the grid origin, the mask, the new table entries and the
+# tables' device scratch (pointers); the resolution; the page size, blocks a
+# side, pages, new entries and a pad.
+_INSERT_GRID = struct.Struct("=7Qf5i")
 MAX_CROP_WINDOWS = 4  # windows a crop launch takes (csrc/paged_grid_3d.cu kMaxWindows)
 # One window of a crop launch, `CropWindow` of csrc/paged_grid_3d.cu: the two
 # pools, the two dense outputs, the table, the grid's and the window's
@@ -134,8 +142,9 @@ def _pool_index(grid: PagedGrid3D, cells: torch.Tensor, valid: torch.Tensor):
 
 
 def insert_paged_plain(grid: PagedGrid3D, origin, returns, mask, hit_probability,
-                       miss_probability, num_free_space_voxels: int) -> None:
-    """The plain twin of K9: the JAX program in PyTorch, sweeping the pool."""
+                       miss_probability, num_free_space_voxels: int) -> torch.Tensor:
+    """The plain twin of K9: the JAX program in PyTorch, sweeping the pool.
+    -> the flat mask of the pool cells it touched."""
     flat = grid.pages.numel()
     hit_cells = grid.world_to_cell(returns).long()
     hit_lin, _ = _pool_index(grid, hit_cells, mask)
@@ -164,64 +173,102 @@ def insert_paged_plain(grid: PagedGrid3D, origin, returns, mask, hit_probability
     updated = clamp_log_odds(pages + torch.where(hit_mask, hit_lo, zero)
                              + torch.where(miss_mask, miss_lo, zero))
     pages.copy_(updated)
-    grid.known.view(-1).logical_or_(hit_mask | miss_mask)
+    touched = hit_mask | miss_mask
+    grid.known.view(-1).logical_or_(touched)
+    return touched
 
 
-def _insert_kernel(grid, origin, returns, mask, hit_probability, miss_probability,
-                   num_free_space_voxels, scratch):
+@functools.lru_cache(maxsize=None)
+def _insert_scratch_bytes(n: int, free_voxels: int) -> int:
+    """The kernel's own `paged_insert_3d_scratch_bytes`: a grid's tables in
+    device memory, 0 where they fit in shared memory."""
+    return cuda.host_function("paged_grid_3d.cu", "paged_insert_3d_scratch_bytes", [_I, _I],
+                              ctypes.c_longlong)(n, free_voxels)
+
+
+def _write_entries(grid, entries) -> None:
+    """The page-table write of `entries` = (flat indices, pool slots), or
+    None, to the grid's device without waiting."""
+    if entries is not None:
+        dev = grid.page_table.device
+        grid.page_table.view(-1)[to_device(entries[0], dev)] = to_device(entries[1], dev)
+
+
+def _insert_launch(jobs, origin, returns, hit_probability, miss_probability,
+                   num_free_space_voxels):
     n = returns.shape[0]
-    P, B, nb = grid.max_pages, grid.page_size, grid.num_blocks
-    cuda.check(grid.pages, "pages", torch.float32, (P, B, B, B))
-    cuda.check(grid.known, "known", torch.bool, (P, B, B, B))
-    cuda.check(grid.page_table, "page table", torch.int32, (nb, nb, nb))
-    cuda.check(grid.origin, "grid origin", torch.float32, (3,))
     cuda.check(origin, "sensor origin", torch.float32, (3,))
     cuda.check(returns, "returns", torch.float32, (n, 3))
-    cuda.check(mask, "mask", torch.bool, (n,))
-    if B % 2:
-        raise ValueError("paged insert: the page size must be even")
-    cuda.check(scratch.state, "state", torch.uint8, (P * B ** 3,))
-    per = num_free_space_voxels + 1
-    if scratch.cells is None or scratch.cells.numel() < n * per:
-        scratch.cells = torch.empty(n * per, dtype=torch.int64, device=returns.device)
-    _INSERT_KERNEL(returns.device, grid.pages.data_ptr(), grid.known.data_ptr(),
-                   grid.page_table.data_ptr(), grid.origin.data_ptr(), grid.resolution, B, nb,
-                   P, origin.data_ptr(), returns.data_ptr(), mask.data_ptr(), n,
-                   probability_to_log_odds(hit_probability),
-                   probability_to_log_odds(miss_probability), int(num_free_space_voxels),
-                   MIN_LOG_ODDS, MAX_LOG_ODDS, scratch.state.data_ptr(),
-                   scratch.cells.data_ptr())
+    dev = returns.device
+    # The scan's new page-table entries of every grid: one upload.
+    counts = [0 if e is None else len(e[0]) for _, _, e in jobs]
+    entries = None
+    if sum(counts):
+        pairs = np.concatenate([np.stack([np.asarray(e[0], np.int32),
+                                          np.asarray(e[1], np.int32)], -1)
+                                for _, _, e in jobs if e is not None and len(e[0])])
+        entries = to_device(pairs, dev)
+    per_grid = _insert_scratch_bytes(n, int(num_free_space_voxels))
+    scratch = (torch.empty(per_grid * len(jobs), dtype=torch.uint8, device=dev)
+               if per_grid else None)
+    descs, offset = [], 0
+    for v, ((grid, mask, _), count) in enumerate(zip(jobs, counts)):
+        P, B, nb = grid.max_pages, grid.page_size, grid.num_blocks
+        cuda.check(grid.pages, "pages", torch.float32, (P, B, B, B))
+        cuda.check(grid.known, "known", torch.bool, (P, B, B, B))
+        cuda.check(grid.page_table, "page table", torch.int32, (nb, nb, nb))
+        cuda.check(grid.origin, "grid origin", torch.float32, (3,))
+        cuda.check(mask, "mask", torch.bool, (n,))
+        if P * B ** 3 >= (1 << 30) - 1:
+            raise ValueError("paged insert: a pool takes fewer than 2^30 - 1 cells")
+        descs.append(_INSERT_GRID.pack(
+            grid.pages.data_ptr(), grid.known.data_ptr(), grid.page_table.data_ptr(),
+            grid.origin.data_ptr(), mask.data_ptr(),
+            entries.data_ptr() + 8 * offset if count else 0,
+            scratch.data_ptr() + v * per_grid if per_grid else 0,
+            grid.resolution, B, nb, P, count, 0))
+        offset += count
+    _INSERT_KERNEL(dev, b"".join(descs), len(jobs), origin.data_ptr(), returns.data_ptr(), n,
+                   int(num_free_space_voxels), probability_to_log_odds(hit_probability),
+                   probability_to_log_odds(miss_probability), MIN_LOG_ODDS, MAX_LOG_ODDS)
 
 
-@dataclasses.dataclass
-class InsertScratch:
-    """Device scratch of K9: one state byte per pool cell, zero between
-    calls, and the candidate cells' pool indices."""
-
-    state: torch.Tensor
-    cells: Optional[torch.Tensor] = None
-
-    @staticmethod
-    def create(grid: PagedGrid3D) -> "InsertScratch":
-        return InsertScratch(torch.zeros(grid.pages.numel(), dtype=torch.uint8,
-                                         device=grid.pages.device))
+def insert_paged_grids(jobs, origin: torch.Tensor, returns: torch.Tensor,
+                       hit_probability: float, miss_probability: float,
+                       num_free_space_voxels: int) -> None:
+    """RangeDataInserter3D::Insert of one scan into up to MAX_INSERT_GRIDS
+    paged grids, in place: `jobs` = [(grid, mask, entries), ...], their pools
+    disjoint, `mask` the (N,) returns the grid takes and `entries` None or
+    (flat table indices, pool slots), the grid's page-table entries that the
+    host allocated for this scan and the device table does not hold yet.
+    Each grid gets the hit cell of every masked return and
+    `num_free_space_voxels` cells back along its ray from `origin`; each cell
+    changes once, hits win over misses; cells whose block has no page are
+    dropped. On the card one launch writes the entries and inserts into
+    every grid."""
+    if len(jobs) > MAX_INSERT_GRIDS:
+        raise ValueError(f"an insert launch takes at most {MAX_INSERT_GRIDS} grids")
+    if not jobs:
+        return
+    if len({id(grid.pages) for grid, _, _ in jobs}) < len(jobs):
+        raise ValueError("paged insert: the grids' pools must be disjoint")
+    if returns.is_cuda:
+        _insert_launch(jobs, origin, returns, hit_probability, miss_probability,
+                       num_free_space_voxels)
+        return
+    for grid, mask, entries in jobs:
+        _write_entries(grid, entries)
+        insert_paged_plain(grid, origin, returns, mask, hit_probability, miss_probability,
+                           num_free_space_voxels)
 
 
 def insert_paged(grid: PagedGrid3D, origin: torch.Tensor, returns: torch.Tensor,
                  mask: torch.Tensor, hit_probability: float, miss_probability: float,
-                 num_free_space_voxels: int, scratch: Optional[InsertScratch] = None) -> None:
-    """RangeDataInserter3D::Insert against the page pool, in place: the hit
-    cell of every masked return and `num_free_space_voxels` cells back along
-    its ray from `origin`; each cell changes once, hits win over misses.
-    Cells whose block has no page are dropped."""
-    if returns.is_cuda:
-        if scratch is None:
-            scratch = InsertScratch.create(grid)
-        _insert_kernel(grid, origin, returns, mask, hit_probability, miss_probability,
-                       num_free_space_voxels, scratch)
-    else:
-        insert_paged_plain(grid, origin, returns, mask, hit_probability, miss_probability,
-                           num_free_space_voxels)
+                 num_free_space_voxels: int) -> None:
+    """`insert_paged_grids` into one grid whose table holds the scan's
+    pages already."""
+    insert_paged_grids([(grid, mask, None)], origin, returns, hit_probability,
+                       miss_probability, num_free_space_voxels)
 
 
 # ---------------------------------------------------------------- K10 and K19 crop
@@ -359,26 +406,29 @@ class _PagedAllocation:
     def num_allocated(self) -> int:
         return len(self._slots)
 
-    def _allocate_cells(self, cells: np.ndarray) -> None:
+    def _new_entries(self, cells: np.ndarray):
         """Pool slots for the blocks of the (n, 3) world cells within the
-        table that have none, in block order; the new table entries go to
-        the device without waiting."""
+        table that have none, in block order, in the host's dict and
+        mirror; -> the new table entries (flat indices, slots) that the
+        device table lacks, or None."""
         B, nb = self.grid.page_size, self.grid.num_blocks
         cells = cells[np.all((cells >= 0) & (cells < nb * B), axis=-1)] // B
         self.pages_allocated_last_insert = 0
         if not len(cells):
-            return
+            return None
         uniq = np.unique((cells[:, 0] * nb + cells[:, 1]) * nb + cells[:, 2])
         uniq = uniq[self._table_host.reshape(-1)[uniq] < 0]  # most blocks have a page
         keys = np.stack([uniq // (nb * nb), (uniq // nb) % nb, uniq % nb], -1)
         upd = _allocate_blocks(self._slots, self._table_host, keys, self.grid.max_pages)
         if upd is None:
-            return
+            return None
         idx, vals = upd
-        dev = self.grid.page_table.device
-        flat = (idx[:, 0] * nb + idx[:, 1]) * nb + idx[:, 2]
-        self.grid.page_table.view(-1)[to_device(flat, dev)] = to_device(vals, dev)
         self.pages_allocated_last_insert = len(vals)
+        return (idx[:, 0] * nb + idx[:, 1]) * nb + idx[:, 2], vals
+
+    def _allocate_cells(self, cells: np.ndarray) -> None:
+        """`_new_entries`, written to the device table without waiting."""
+        _write_entries(self.grid, self._new_entries(cells))
 
     def _cells(self, points: np.ndarray) -> np.ndarray:
         return np.floor((points - self._origin_host)
@@ -409,41 +459,41 @@ class PagedSubmapGrid3D(_PagedAllocation):
         self.grid = PagedGrid3D.create(resolution, center, device, page_size, max_pages,
                                        num_blocks)
         self._init_allocation(resolution, center, page_size, num_blocks)
-        self._scratch: Optional[InsertScratch] = None
+
+    def allocate(self, returns, mask, num_free_space_voxels: int = 2):
+        """Host: the blocks a scan touches (hits and the free-space cells,
+        all within `num_free_space_voxels` cells of a hit) get pool slots.
+        -> the new page-table entries, for `insert_paged_grids` to write."""
+        cells = self._cells(np.asarray(returns, np.float32)[np.asarray(mask, bool)])
+        f = num_free_space_voxels
+        return self._new_entries(np.concatenate([cells - f, cells + f, cells]))
 
     def insert_range_data(self, origin, returns, mask, hit_probability: float = 0.55,
                           miss_probability: float = 0.49, num_free_space_voxels: int = 2,
                           device_tensors=None) -> None:
-        """Host: the blocks the scan touches (hits and the free-space cells,
-        all within `num_free_space_voxels` cells of a hit) get pool slots,
-        and the new table entries go to the device without waiting. Device:
-        K9 on `device_tensors` = (origin, returns, mask) where the caller
-        holds them there already, else on uploads of the host arrays."""
-        pts = np.asarray(returns, np.float32)
-        m = np.asarray(mask, bool)
-        cells = self._cells(pts[m])
-        f = num_free_space_voxels
-        self._allocate_cells(np.concatenate([cells - f, cells + f, cells]))
-        dev = self.grid.pages.device
+        """`allocate`, then K9 (one launch writing the new table entries and
+        inserting) on `device_tensors` = (origin, returns, mask) where the
+        caller holds them there already, else on uploads of the host
+        arrays."""
+        entries = self.allocate(returns, mask, num_free_space_voxels)
         if device_tensors is None:
+            dev = self.grid.pages.device
             device_tensors = (to_device(np.asarray(origin, np.float32), dev),
-                              to_device(pts, dev), to_device(m, dev))
-        if dev.type == "cuda" and self._scratch is None:
-            self._scratch = InsertScratch.create(self.grid)
-        insert_paged(self.grid, *device_tensors, hit_probability, miss_probability,
-                     num_free_space_voxels, self._scratch)
+                              to_device(np.asarray(returns, np.float32), dev),
+                              to_device(np.asarray(mask, bool), dev))
+        origin_t, returns_t, mask_t = device_tensors
+        insert_paged_grids([(self.grid, mask_t, entries)], origin_t, returns_t,
+                           hit_probability, miss_probability, num_free_space_voxels)
 
     def crop_dense(self, center, size: int) -> Grid3D:
         return crop_dense(self.grid, center, size)
 
     def compact(self) -> None:
         """Shrink the pool to the allocated pages, padded to a power of two,
-        as a fresh tensor on the device; the full pool and K9's scratch are
-        freed."""
+        as a fresh tensor on the device; the full pool is freed."""
         n = self._compacted_size()
         self.grid = dataclasses.replace(self.grid, pages=self.grid.pages[:n].clone(),
                                         known=self.grid.known[:n].clone())
-        self._scratch = None
 
     def probability_at(self, points: torch.Tensor, unknown: float = 0.5) -> torch.Tensor:
         return self.grid.probability_at(points, unknown)

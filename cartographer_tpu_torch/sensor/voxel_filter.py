@@ -125,11 +125,12 @@ def voxel_filter_edge_plain(points, mask, resolution, voxel_edge_ratio) -> torch
 
 
 @functools.lru_cache(maxsize=None)
-def _scratch_bytes(n, robots, pre_dim, filters, dim):
+def scratch_bytes(n, robots, pre_dim, filters, dim, scan=False):
     """The kernel's own `voxel_filter_scratch_bytes`: 16 up to one block's
-    shared memory, else a slice of device memory per block."""
+    shared memory, else a slice of device memory per block (`scan`: the 2D
+    step's launch with K1 in it, `scan_pipeline_2d`)."""
     return cuda.host_function("voxel_filter.cu", "voxel_filter_scratch_bytes",
-                              [_I] * 5, _L)(n, robots, pre_dim, filters, dim)
+                              [_I] * 6, _L)(n, robots, pre_dim, filters, dim, int(scan))
 
 
 def _launch(points, mask, perm, resolution, filters, dim):
@@ -156,7 +157,7 @@ def _launch(points, mask, perm, resolution, filters, dim):
     lead = () if robots is None else (robots,)
     keep = torch.empty(((resolution is not None) + len(filters), *lead, n), dtype=torch.bool,
                        device=points.device)
-    scratch = torch.empty(_scratch_bytes(n, robots or 1, pre_dim, len(filters), dim),
+    scratch = torch.empty(scratch_bytes(n, robots or 1, pre_dim, len(filters), dim),
                           dtype=torch.uint8, device=points.device)
     (l0, m0, r0), (l1, m1, r1) = (filters[0], filters[-1]) if filters else ((0.0, 0, 0.0),) * 2
     _KERNEL(points.device, points.data_ptr(), points.stride(-2),

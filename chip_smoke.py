@@ -217,7 +217,8 @@ BATCH_WITNESS = {
 NUM_SCANS_3D = 400  # one submap finishes at 320 insertions
 CPU_SCANS_3D = 20
 TIME_OFFSET_US = 10_000_000  # the simulated IMU starts before t = 0
-KERNELS_2D = ("scan_preprocess_2d", "voxel_filter", "scan_matcher_2d", "insert_2d",
+# The 2D step's K1 and K2 are one launch (`scan_filter_2d`, csrc/voxel_filter.cu).
+KERNELS_2D = ("scan_filter_2d", "scan_matcher_2d", "insert_2d",
               "correlative_2d", "bnb_pyramid", "bnb_descent", "schur_spa_2d")
 # The 3D step's histogram and its rotation are one K12 launch (`rot_histogram`);
 # the standalone rotation (`rot_histogram_rotate`) runs in phase 22.
@@ -232,7 +233,7 @@ FULL_FRONTEND_YAW_LIMIT = 0.03  # rad, mean over the 400 scans (see _slice_phase
 FULL_FRONTEND_KERNELS = KERNELS_3D + ("correlative_3d", "paged_intensity_insert_3d")
 KERNELS_3D_GLOBAL = KERNELS_3D + ("rot_match", "bnb3d_stack", "bnb3d_descent", "schur_spa_3d")
 YAW_SEEDS = (1, 2)  # the full frontend's phase again over these seeds' scans
-TSDF_FRONTEND_KERNELS = ("scan_preprocess_2d", "voxel_filter", "correlative_2d_tsdf",
+TSDF_FRONTEND_KERNELS = ("scan_filter_2d", "correlative_2d_tsdf",
                          "lm_match_tsdf_2d", "tsdf_normals_2d", "tsdf_insert_2d")
 TSDF_KERNELS = TSDF_FRONTEND_KERNELS + ("bnb_pyramid_tsdf", "bnb_descent",
                                         "scan_matcher_2d_tsdf", "schur_spa_2d")
@@ -418,7 +419,15 @@ def _kernel_phase(torch, dev):
     gravity = t(quat(0.0, 0.002))
     pre = scan_pipeline_2d.ScanPreprocessParams2D()
     args = (t(points), t(times01), t(mask), t(origins), ps, pe, gravity, pre)
-    got = scan_pipeline_2d.align_scan(*args)
+    perm = torch.randperm(n, generator=torch.Generator(device=dev).manual_seed(3),
+                          device=dev, dtype=torch.int32)
+    filters = (opts.adaptive_voxel_filter, opts.loop_closure_adaptive_voxel_filter)
+    pair = [(f.max_length, f.min_num_points, f.max_range) for f in filters]
+
+    def k1_k2():  # the 2D step's one launch of K1 and K2
+        return scan_pipeline_2d._scan_filter_kernel(*args, perm, pair)
+
+    got, (keep, *adaptive) = k1_k2()
     ref = scan_pipeline_2d.align_scan_plain(*args)
     err = max(float((got[k] - ref[k]).abs().max()) for k in (0, 1, 4))
     if err > 1e-5:
@@ -426,26 +435,21 @@ def _kernel_phase(torch, dev):
     for k in (2, 3):
         if not torch.equal(got[k], ref[k]):
             _fail("K1 masks differ from the plain twin")
-    print(f"K1 scan_preprocess_2d: max |err| {err:.3g} m (tolerance 1e-5), masks equal")
-    rows["scan_preprocess_2d"] = dict(
-        replaces="cartographer_tpu/ops/scan_pipeline_2d.py:40", max_abs_err=err,
-        ms=_cuda_ms(lambda: scan_pipeline_2d.align_scan(*args)),
-        plain_ms=_cuda_ms(lambda: scan_pipeline_2d.align_scan_plain(*args)),
-        bound=_bound(*_k1_work(n)), library_ms=None)
+    alone = scan_pipeline_2d.align_scan(*args)  # K1's standalone launch
+    if not all(torch.equal(a, b) for a, b in zip(got, alone)):
+        _fail("K1's outputs from K2's launch differ from its standalone launch's bits")
+    k1_k2_kernels = _launches_per_call(k1_k2, 1, "K1 and K2")
+    print(f"K1 scan_preprocess_2d in K2's launch: max |err| {err:.3g} m (tolerance 1e-5), "
+          f"masks equal, bit-equal to the standalone K1, {k1_k2_kernels} kernel a call")
 
     # K2: the preprocess filter (3D keys) and both adaptive filters (2D) over
-    # its output, in one launch, as the step makes it.
+    # its output, from the step's launch; alone (the unfused launch) for its row.
     hits, is_return = got[0], got[2]
-    perm = torch.randperm(n, generator=torch.Generator(device=dev).manual_seed(3),
-                          device=dev, dtype=torch.int32)
-    filters = (opts.adaptive_voxel_filter, opts.loop_closure_adaptive_voxel_filter)
-    pair = [(f.max_length, f.min_num_points, f.max_range) for f in filters]
 
-    def k2_scan():  # the scan's one launch
+    def k2_scan():
         return voxel_filter.voxel_filter_masks(hits, is_return, pre.voxel_filter_size, perm,
                                                pair, 2)
 
-    keep, *adaptive = k2_scan()
     plain_keep = voxel_filter.voxel_filter_mask_plain(hits, is_return, pre.voxel_filter_size,
                                                       perm)
     mism = int((keep != plain_keep).sum())
@@ -463,10 +467,12 @@ def _kernel_phase(torch, dev):
     for a, b in zip(voxel_filter.adaptive_voxel_filter_masks(returns.points, keep, pair, perm),
                     adaptive):
         mism += int((a != b).sum())
+    mism += sum(int((a != b).sum()) for a, b in zip(k2_scan(), (keep, *adaptive)))
     if mism:
-        _fail(f"K2's separate launches differ from its fused launch in {mism} points")
-    print("K2 voxel_filter: the fused launch's three masks equal the plain twins' "
-          "(tolerance: exact), and the separate launches' masks")
+        _fail(f"K2's separate and unfused launches differ from the step's launch in {mism} "
+              "points")
+    print("K2 voxel_filter: the step's launch's three masks equal the plain twins' "
+          "(tolerance: exact), the unfused launch's and the separate launches' masks")
     avf = filters[0]
 
     def k2_plain():
@@ -475,12 +481,22 @@ def _kernel_phase(torch, dev):
             voxel_filter.adaptive_voxel_filter_mask_plain(hits[:, 0:2], m, f.max_length,
                                                           f.min_num_points, f.max_range, perm)
 
+    k2_work = _k2_work(torch, hits, keep, filters, perm)
+    # K1's row is the step's launch (K1 in K2's), against the plain
+    # composition; the 2D path's K2 launches are that launch's.
+    rows["scan_preprocess_2d"] = dict(
+        symbol="scan_filter_2d", replaces="cartographer_tpu/ops/scan_pipeline_2d.py:40",
+        max_abs_err=err, ms=_cuda_ms(k1_k2),
+        plain_ms=_cuda_ms(lambda: (scan_pipeline_2d.align_scan_plain(*args), k2_plain()),
+                          reps=5),
+        bound=_bound(*_k1k2_work(n, k2_work)), library_ms=None)
+
     key_sets = [voxel_filter._packed_voxel_keys(hits, is_return, pre.voxel_filter_size)] + [
         voxel_filter._packed_voxel_keys(hits[:, 0:2], keep, f.max_length) for f in filters]
     rows["voxel_filter"] = dict(
-        replaces="cartographer_tpu/sensor/voxel_filter.py:67", max_abs_err=float(mism),
-        ms=_cuda_ms(k2_scan), plain_ms=_cuda_ms(k2_plain, reps=5),
-        bound=_bound(*_k2_work(torch, hits, keep, filters, perm)),
+        symbol="scan_filter_2d", replaces="cartographer_tpu/sensor/voxel_filter.py:67",
+        max_abs_err=float(mism), ms=_cuda_ms(k2_scan), plain_ms=_cuda_ms(k2_plain, reps=5),
+        bound=_bound(*k2_work),
         library_ms=_cuda_ms(lambda: [torch.unique(k) for k in key_sets]))
 
     # K4: a few scans into both slots of two full-size grids.
@@ -592,6 +608,12 @@ def _k1_work(n):
     return n * 51 + 18 * 4, n * 250
 
 
+def _k1k2_work(n, k2_work):
+    """K1 and K2 in one launch: both kernels' work, less K2's reads of K1's
+    hits and flags (13 bytes a point), which stay on chip."""
+    return n * 51 + 18 * 4 + k2_work[0] - 13 * n, n * 250 + k2_work[1]
+
+
 def _k2_work(torch, hits, keep, filters, perm):
     """K2's launch for a scan: the hits, flags and permutation read once and
     the three masks written once; the preprocess filter's pass over the 3D
@@ -689,8 +711,7 @@ def _k5_work(torch, grid, points, mask, x0, scores, params):
             int(finite.sum()) * w * w * int(mask.sum()) * 14)
 
 
-FRONTEND_KERNELS = ("scan_preprocess_2d", "voxel_filter", "scan_matcher_2d", "insert_2d",
-                    "correlative_2d")
+FRONTEND_KERNELS = ("scan_filter_2d", "scan_matcher_2d", "insert_2d", "correlative_2d")
 
 
 def _check_launched(launches, names, phase):
@@ -1719,6 +1740,7 @@ def _slice_phase_3d(torch, dev):
     print(f"3D frontend: launches {launches}")
     _check_launched(launches, KERNELS_3D, "3D frontend")
     _check_crop_launches(launches, n, finished, "3D frontend")
+    _check_insert_launches(launches, inserted, "3D frontend")
     active = builder._active_submaps.submaps
     if len(finished) < 1 or len(active) != 2 or active[1].num_range_data == 0:
         _fail(f"{len(finished)} submaps finished, {len(active)} active: the window did not "
@@ -1824,6 +1846,22 @@ def _full_hall_phase_3d(torch, dev, correlative=False):
         pool_pages=opts.tpu.max_pages, scans_per_sec=len(walls[10:]) / sum(walls[10:]))
     print(f"{label} (reported, no limit on the error): " + json.dumps(result))
     return result
+
+
+def _submap_insertions(builder, finished):
+    """The (scan, submap) insertions of a 3D run: the insertions of every
+    submap it made (the finished ones and the active ones not finished)."""
+    submaps = {id(s): s for s in finished}
+    for s in builder._active_submaps.submaps:
+        submaps.setdefault(id(s), s)
+    return sum(s.num_range_data for s in submaps.values())
+
+
+def _check_insert_launches(launches, inserted, label):
+    """One K9 launch an inserted 3D scan, whatever the active submaps."""
+    if launches["paged_insert_3d"] != inserted:
+        _fail(f"{label}: {launches['paged_insert_3d']} K9 launches for {inserted} inserted "
+              "scans (one a scan)")
 
 
 def _check_crop_launches(launches, n, finished, label):
@@ -1969,43 +2007,51 @@ def _kernel_phase_3d(torch, dev, builder, last_step):
         (submaps[0].low_paged.grid, crop_center, opts.tpu.low_grid_size)],
         "K10 paged_crop_3d", "cartographer_tpu/ops/paged_grid_3d.py:287")
 
-    # K9: the four insertions of a scan, on clones for the twin.
+    # K9: the scan's inserts into the active submaps' grids, one launch with
+    # their new page-table entries (the host's allocation first), against
+    # the twin on clones of the pools (the table is shared: the twin reads
+    # the entries the launch wrote).
     ins = opts.submaps.range_data_inserter
     args = (ins.hit_probability, ins.miss_probability, ins.num_free_space_voxels)
-    jobs = []
+    jobs, twins = [], []
     for submap in submaps:
         for paged, mask_t, mask_h in ((submap.high_paged, in_high, host["high_range_mask"]),
                                       (submap.low_paged, keep, host["local_mask"])):
-            twin = dataclasses.replace(paged.grid, pages=paged.grid.pages.clone(),
-                                       known=paged.grid.known.clone())
-            paged.insert_range_data(center, host["local_points"], mask_h, *args,
-                                    device_tensors=(est_t, local_points, mask_t))
-            paged_grid_3d.insert_paged_plain(twin, est_t, local_points, mask_t, *args)
-            jobs.append((paged, mask_t, twin))
-    differ = sum(int((p.grid.pages != w.pages).sum() + (p.grid.known != w.known).sum())
-                 for p, _, w in jobs)
+            twins.append(dataclasses.replace(paged.grid, pages=paged.grid.pages.clone(),
+                                             known=paged.grid.known.clone()))
+            jobs.append((paged.grid, mask_t, paged.allocate(
+                host["local_points"], mask_h, ins.num_free_space_voxels)))
+    paged_grid_3d.insert_paged_grids(jobs, est_t, local_points, *args)
+    marks = [paged_grid_3d.insert_paged_plain(w, est_t, local_points, mk, *args)
+             for w, (_, mk, _) in zip(twins, jobs)]  # the cells each grid's insert touches
+    differ = sum(int((g.pages != w.pages).sum() + (g.known != w.known).sum())
+                 for (g, _, _), w in zip(jobs, twins))
     if differ:
         _fail(f"K9 pools differ from the plain twin in {differ} cells (tolerance 0)")
-    lins = [p._scratch.cells[p._scratch.cells >= 0] for p, _, _ in jobs]
-    touched = [int(torch.unique(x).numel()) for x in lins]
-    print(f"K9 paged_insert_3d: 4 pools of {opts.tpu.max_pages} x {B}^3, 0 differing cells, "
-          f"{touched} cells touched")
-    marks = [torch.zeros(p.grid.pages.numel(), dtype=torch.bool, device=dev)
-             for p, _, _ in jobs]
+    touched = [int(m.sum()) for m in marks]
+    jobs = [(g, mk, None) for g, mk, _ in jobs]  # the table holds the scan's pages now
+
+    def k9():
+        paged_grid_3d.insert_paged_grids(jobs, est_t, local_points, *args)
+
+    k9_kernels = _launches_per_call(k9, 1, "K9")
+    print(f"K9 paged_insert_3d: {len(jobs)} pools of {opts.tpu.max_pages} x {B}^3 in one "
+          f"launch, 0 differing cells, {touched} cells touched, {k9_kernels} kernel a call")
+    lins = [m.nonzero()[:, 0] for m in marks]
     ones = [torch.ones(x.shape[0], dtype=torch.bool, device=dev) for x in lins]
     per = ins.num_free_space_voxels + 1
     rows["paged_insert_3d"] = dict(
         replaces="cartographer_tpu/ops/paged_grid_3d.py:235", max_abs_err=float(differ),
-        ms=_cuda_ms(lambda: [paged_grid_3d.insert_paged(p.grid, est_t, local_points, mk, *args,
-                                                        p._scratch) for p, mk, _ in jobs]),
+        ms=_cuda_ms(k9),
         plain_ms=_cuda_ms(lambda: [paged_grid_3d.insert_paged_plain(
-            w, est_t, local_points, mk, *args) for _, mk, w in jobs], reps=3, warmup=1),
-        bound=_bound(sum(c * 10 for c in touched) + 4 * (n * 13 + 12 + n * per * 4),
-                     4 * n * per * 40),
-        # index_put_ sets the marks of the candidate cells; it applies nothing.
+            w, est_t, local_points, mk, *args) for w, (_, mk, _) in zip(twins, jobs)], reps=3,
+            warmup=1),
+        bound=_bound(sum(c * 10 for c in touched) + len(jobs) * (n * 13 + 12 + n * per * 4),
+                     len(jobs) * n * per * 40),
+        # index_put_ sets the marks of the touched cells; it applies nothing.
         library_ms=_cuda_ms(lambda: [mk.index_put_((x,), o)
                                      for mk, x, o in zip(marks, lins, ones)]))
-    del marks, jobs
+    del marks, jobs, twins
 
     # K11: the match from a pose 5 cm and 0.6 degrees off the scan's own.
     gn = builder._gn_params
@@ -2150,8 +2196,9 @@ def _slice_phase_3d_full(torch, dev):
     print(f"{label}: launches {launches}")
     _check_launched(launches, FULL_FRONTEND_KERNELS, label)
     _check_crop_launches(launches, n, finished, label)
-    expected = {"correlative_3d": n, "scan_matcher_3d": n,
-                "paged_intensity_insert_3d": launches["paged_insert_3d"] // 2}
+    # K9 once an inserted scan; K18 once a scan and active submap.
+    expected = {"correlative_3d": n, "scan_matcher_3d": n, "paged_insert_3d": inserted,
+                "paged_intensity_insert_3d": _submap_insertions(builder, finished)}
     wrong = {k: (launches[k], v) for k, v in expected.items() if launches[k] != v}
     if wrong:
         _fail(f"{label}: launches (got, expected) {wrong}")
@@ -4404,9 +4451,9 @@ def _keeping_tick(torch, tsdf=False):
     def cloned(args):
         return ([g.clone() for g in args[0]], *args[1:])
 
-    kept = {k: [] for k in ("align", "voxel", "correlative", "lm", "insert", "normals")}
-    restore = [_recording(scan_pipeline_2d, "align_scan", kept["align"], result=True),
-               _recording(scan_pipeline_2d, "voxel_filter_masks", kept["voxel"], result=True),
+    kept = {k: [] for k in ("scan_filter", "correlative", "lm", "insert", "normals")}
+    restore = [_recording(scan_pipeline_2d, "_scan_filter_kernel", kept["scan_filter"],
+                          result=True),
                _recording(correlative_2d, "correlative_match", kept["correlative"],
                           transform=cloned, result=True),
                _recording(ltb, "lm_match_tsdf_2d" if tsdf else "lm_match_2d", kept["lm"],
@@ -4477,8 +4524,9 @@ def _tick_against_twins(torch, opts, kept, tsdf=False):
     from cartographer_tpu_torch.sensor import voxel_filter
     from cartographer_tpu_torch.transform.rigid import Rigid3
 
-    (a1, got1), = kept["align"]
-    (a2, (keep, *adaptive)), = kept["voxel"]
+    # The step's launch of K1 and K2: its arguments (K1's, the params, the
+    # permutations, the adaptive filters), K1's outputs and the masks.
+    (a1, (got1, (keep, *adaptive))), = kept["scan_filter"]
     (a5, (best, scores)), = kept["correlative"]
     (a4, (pose, cost, iterations)), = kept["lm"]
     (args_ins, before), = kept["insert"]
@@ -4486,13 +4534,13 @@ def _tick_against_twins(torch, opts, kept, tsdf=False):
         (an, normals), = kept["normals"]
         grids_after, rd, active, do_insert, tparams = args_ins[:5]
         names = ("scan_preprocess_2d", "voxel_filter", "correlative_2d_tsdf",
-                 "lm_match_tsdf_2d", "tsdf_normals_2d", "tsdf_insert_2d")
+                 "lm_match_tsdf_2d", "tsdf_normals_2d", "tsdf_insert_2d")  # K1, K2 one launch
         match_plain = tsdf_2d._match_plain
     else:
         grids_after, rd, active, do_insert, hit_p, miss_p, free, samples = args_ins[:8]
         lo = (probability_to_log_odds(hit_p), probability_to_log_odds(miss_p))
         names = ("scan_preprocess_2d", "voxel_filter", "correlative_2d", "scan_matcher_2d",
-                 "insert_2d")
+                 "insert_2d")  # K1 and K2 one launch
         match_plain = scan_matcher_2d._match_plain
     k1, k2, k5, k3 = names[:4]
     filters = (opts.adaptive_voxel_filter, opts.loop_closure_adaptive_voxel_filter)
@@ -4505,8 +4553,8 @@ def _tick_against_twins(torch, opts, kept, tsdf=False):
             align=(a1[0][r], a1[1][r], a1[2][r], a1[3][r],
                    Rigid3(ps.translation[r], ps.rotation[r]),
                    Rigid3(pe.translation[r], pe.rotation[r]), a1[6][r], a1[7]),
-            voxel=(a2[0][r], a2[1][r], a2[2], a2[3][r]),
-            adaptive=[(a2[0][r][:, 0:a2[5]], keep[r], *f, a2[3][r]) for f in a2[4]],
+            voxel=(got1[0][r], got1[2][r], a1[7].voxel_filter_size, a1[8][r]),
+            adaptive=[(got1[0][r][:, 0:2], keep[r], *f, a1[8][r]) for f in a1[9]],
             correlative=(a5[0][r], a5[1][r], a5[2][r], a5[3][r], a5[4]),
             lm=(a4[0][r], a4[1][r], a4[2][r], a4[3][r], a4[4][r], a4[5]))
         if tsdf:
@@ -4523,8 +4571,8 @@ def _tick_against_twins(torch, opts, kept, tsdf=False):
         ref = align_scan_plain(*p["align"])
         err = max(float((got1[k][r] - ref[k]).abs().max()) for k in (0, 1, 4))
         if err > 1e-5 or not all(torch.equal(got1[k][r], ref[k]) for k in (2, 3)):
-            _fail(f"batched tick: K1 robot {r} differs from its twin ({err} m, tolerance 1e-5; "
-                  "masks exact)")
+            _fail(f"batched tick: K1 (in K2's launch) robot {r} differs from its twin ({err} m, "
+                  "tolerance 1e-5; masks exact)")
         worst[k1] = max(worst[k1], err)
         mism = int((keep[r] != voxel_filter.voxel_filter_mask_plain(*p["voxel"])).sum())
         mism += sum(int((adaptive[f][r] != voxel_filter.adaptive_voxel_filter_mask_plain(
@@ -4580,7 +4628,7 @@ def _tick_against_twins(torch, opts, kept, tsdf=False):
         # The work this robot's inputs need of each kernel.
         for name, (b, o) in (
                 (k1, _k1_work(n)),
-                (k2, _k2_work(torch, got1[0][r], keep[r], filters, a2[3][r])),
+                (k2, _k2_work(torch, got1[0][r], keep[r], filters, a1[8][r])),
                 (k5, _k5_work(torch, *p["correlative"][:4], scores[r], a5[4])), *rows):
             work[name][0] += b
             work[name][1] += o

@@ -1,9 +1,11 @@
 """Device times of the 3D frontend's correlative search, K17
-(csrc/correlative_3d.cu), and its scan histogram with the rotation by the
-matched yaw, K12 (csrc/rot_histogram.cu), at the main path's shapes (not
-collected by pytest).
+(csrc/correlative_3d.cu), its scan histogram with the rotation by the
+matched yaw, K12 (csrc/rot_histogram.cu), and its paged inserts, K9
+(csrc/paged_grid_3d.cu), at the main path's shapes (not collected by
+pytest).
 
-    python tests/frontend_3d_timing.py LABEL [TREE] [kernels|profile|stamps|variants]
+    python tests/frontend_3d_timing.py LABEL [TREE] [kernels|k9|profile|stamps|variants]
+    python tests/frontend_3d_timing.py LABEL . k9-stamps|k9-variants
 
 `kernels` (the default): the 40th scan of a full-options 3D run over
 `simulate_scans_3d` (intensities on): K17 on that scan's 256^3 high window,
@@ -17,6 +19,21 @@ each kernel's mean ms over its records with their count, CUDA events, the
 kernels a call launches (a captured CUDA graph), the host ms a call takes to
 return (the median of 50 calls, the card drained between them), and for K17
 the valid rotations.
+
+`k9`: a scan's occupancy inserts as TREE's `ActiveSubmaps3D` makes them
+(the parent: `insert_paged` a grid, two kernels each; since their merge:
+one `insert_paged_grids` launch), on the 200th scan of a default-options
+run (two active submaps: 4 grids) and on its first submap's 2 grids, the
+page table holding the scan's pages: the same timings as `kernels`, and
+the cells the inserts touch.
+
+`k9-stamps` (the change's tree): a copy of K9 built with -DCARTO_STAMPS
+into csrc/_build/variant/, each phase's us at 4 grids by block 0's thread 0
+(0 entry, 1 tables filled and entries written, 2 the first cluster barrier,
+3 its marks, 4 the second barrier: the slowest marks, 5 its applies), the
+median of 5 calls after one. `k9-variants` (the change's tree): patched
+copies of K9 (K9_VARIANTS) timed beside the kept kernel at 4 grids, each
+pool checked equal to the kept kernel's on copies of the pools.
 
 `profile`: the 3D frontend's profile windows as `chip_smoke.py` reads them
 (30 scans after 400, at the default and at the full options): device busy
@@ -43,6 +60,7 @@ change, parent.
 """
 
 import ctypes
+import dataclasses
 import importlib.util
 import json
 import os
@@ -158,6 +176,132 @@ def kernels(dev):
                     **_timings(lambda: scan_matcher_3d._correlative_kernel(*args17), "K17")},
             "k12": {"valid_points": valid, "bins": BINS,
                     **_timings(lambda: _histograms(*args12), "K12")}}
+
+
+K9_SCANS = 200  # two submaps are active from 160 inserted scans on
+
+
+def _k9_scan(dev):
+    """The default-options 3D frontend's K9_SCANS-th scan: its insert's
+    arguments (sensor origin, points, the full and the high-range masks on
+    the device) and the active submaps' paged grids [(high, low), ...]."""
+    from cartographer_tpu_torch.mapping import submap_3d
+
+    events, _ = cs._events_3d(K9_SCANS)
+    builder = ltb3.LocalTrajectoryBuilder3D(TrajectoryBuilder3DOptions(), ["points"],
+                                            device=dev)
+    for e in events[:-1]:
+        cs._feed_3d(builder, e)
+    calls, insert = [], submap_3d.ActiveSubmaps3D.insert_range_data
+
+    def recording(self, *args, **kwargs):
+        calls.append(kwargs["device_tensors"][:4])
+        return insert(self, *args, **kwargs)
+
+    submap_3d.ActiveSubmaps3D.insert_range_data = recording
+    try:
+        cs._feed_3d(builder, events[-1])
+    finally:
+        submap_3d.ActiveSubmaps3D.insert_range_data = insert
+    active = builder._active_submaps
+    return calls[-1], [(s.high_paged, s.low_paged) for s in active.submaps], active._options
+
+
+def k9(dev):
+    from cartographer_tpu_torch.ops import paged_grid_3d
+
+    (origin, points, mask, high), submaps, options = _k9_scan(dev)
+    ins = options.range_data_inserter
+    args = (ins.hit_probability, ins.miss_probability, ins.num_free_space_voxels)
+    out = {"returns": int(mask.sum()), "high_returns": int(high.sum())}
+    for grids in (len(submaps) * 2, 2):
+        pairs = [(paged, m) for hp, lp in submaps[:grids // 2] for paged, m in
+                 ((hp, high), (lp, mask))]
+        touched = []
+        for paged, m in pairs:  # the twin on a copy whose known cells start clear
+            fresh = dataclasses.replace(paged.grid, pages=paged.grid.pages.clone(),
+                                        known=torch.zeros_like(paged.grid.known))
+            paged_grid_3d.insert_paged_plain(fresh, origin, points, m, *args)
+            touched.append(int(fresh.known.sum()))
+        if hasattr(paged_grid_3d, "insert_paged_grids"):
+            jobs = [(paged.grid, m, None) for paged, m in pairs]
+
+            def call():
+                paged_grid_3d.insert_paged_grids(jobs, origin, points, *args)
+        else:
+            def call():
+                for paged, m in pairs:
+                    paged_grid_3d.insert_paged(paged.grid, origin, points, m, *args,
+                                               paged._scratch)
+        out[f"grids_{grids}"] = {"touched_cells": touched, **_timings(call, f"K9 {grids}")}
+    return out
+
+
+K9_VARIANTS = {
+    # the tables in device memory (L2) at every size, atomics at L2
+    "global_table": [("s.shared = (1ll << s.slot_bits) <= kMaxSharedSlots;", "s.shared = false;")],
+    "cluster_4": [("constexpr int kInsertCluster = 8;", "constexpr int kInsertCluster = 4;")],
+    "mark_batch_1": [("constexpr int kMarkBatch = 4;", "constexpr int kMarkBatch = 1;")],
+    "apply_batch_1": [("constexpr int kApplyBatch = 8;", "constexpr int kApplyBatch = 1;")],
+    "apply_batch_32": [("constexpr int kApplyBatch = 8;", "constexpr int kApplyBatch = 32;")],
+}
+
+
+def _k9_jobs(dev):
+    """The 4-grid insert of `_k9_scan` as a call, and its arguments."""
+    from cartographer_tpu_torch.ops import paged_grid_3d
+
+    (origin, points, mask, high), submaps, options = _k9_scan(dev)
+    ins = options.range_data_inserter
+    args = (ins.hit_probability, ins.miss_probability, ins.num_free_space_voxels)
+    jobs = [(paged.grid, m, None) for hp, lp in submaps for paged, m in ((hp, high), (lp, mask))]
+    return (lambda: paged_grid_3d.insert_paged_grids(jobs, origin, points, *args)), jobs
+
+
+def k9_stamps(dev):
+    from cartographer_tpu_torch.ops import paged_grid_3d
+
+    call, _ = _k9_jobs(dev)
+    kernel = paged_grid_3d._INSERT_KERNEL
+    lib = _build_copy("paged_grid_3d.cu", "stamped", defines=("-DCARTO_STAMPS",))
+    kept = _pointed(kernel, lib)
+    out = _stamps(lib, call, 5)
+    kernel._fn = kept
+    return out
+
+
+def k9_variants(dev):
+    from cartographer_tpu_torch.ops import paged_grid_3d
+
+    call, jobs = _k9_jobs(dev)
+    kernel = paged_grid_3d._INSERT_KERNEL
+    pools = [(g.pages.clone(), g.known.clone()) for g, _, _ in jobs]
+
+    def once():  # one insert from the saved pools -> the pools after it
+        for (g, _, _), (pages, known) in zip(jobs, pools):
+            g.pages.copy_(pages)
+            g.known.copy_(known)
+        call()
+        return [(g.pages.clone(), g.known.clone()) for g, _, _ in jobs]
+
+    ref = once()
+    runs = {"kept": cs._cuda_ms(call, reps=50)}
+    scratch_bytes = paged_grid_3d._insert_scratch_bytes
+    for name, patches in K9_VARIANTS.items():
+        lib = _build_copy("paged_grid_3d.cu", name, patches=patches)
+        kept = _pointed(kernel, lib)
+        sizing = lib.paged_insert_3d_scratch_bytes  # the variant's own table sizes
+        sizing.argtypes, sizing.restype = [ctypes.c_int] * 2, ctypes.c_longlong
+        paged_grid_3d._insert_scratch_bytes = sizing
+        try:
+            same = all(torch.equal(a, c) and torch.equal(b, d)
+                       for (a, b), (c, d) in zip(once(), ref))
+            runs[name] = {"device_ms": cs._cuda_ms(call, reps=50), "equal_to_kept": same}
+        finally:
+            kernel._fn = kept
+            paged_grid_3d._insert_scratch_bytes = scratch_bytes
+    runs["kept_again"] = cs._cuda_ms(call, reps=50)
+    return runs
 
 
 def profile(dev):
@@ -284,6 +428,12 @@ def main(label, mode):
     out = {"card": cs._smi(), "tree": TREE}
     if mode == "profile":
         out["profile"] = profile(dev)
+    elif mode == "k9":
+        out["k9"] = k9(dev)
+    elif mode == "k9-stamps":
+        out["k9_stamps"] = k9_stamps(dev)
+    elif mode == "k9-variants":
+        out["k9_variants"] = k9_variants(dev)
     elif mode == "stamps":
         out["stamps"] = stamps(dev)
     elif mode == "variants":

@@ -10,6 +10,7 @@ robot-batched port and its parent have (not collected by pytest).
     python tests/robot_batch_timing.py LABEL TREE k2-k20
     python tests/robot_batch_timing.py LABEL . k2-stamps
     python tests/robot_batch_timing.py LABEL . k2-shapes
+    python tests/robot_batch_timing.py LABEL TREE k1k2
 
 Times each kernel's wrapper over 200 calls with `chip_smoke._cuda_ms` (the
 profiler) and `chip_smoke._event_ms` (CUDA events) on the card and prints
@@ -67,6 +68,18 @@ times, at the main path's shape and at bench R = 1, 4, 8 and 16, the
 shape the kernel chooses and every shape it can choose (clusters of 16 x
 1,024, 8 x 1,024, 8 x 512, 4 x 1,024 and 4 x 512 threads) with phase B in
 one round and in two: profiler ms, masks checked against the kernel's.
+
+`k1k2` times K1 and K2 as TREE's 2D step launches them (the parent: K1's
+launch, then K2's; since K1 moved into K2's launch: `scan_filter_2d`) at the
+main path's shape (one robot's 1,081-beam scan padded to 2,048 points, the
+default filters) and at `bench.py`'s (R = 1, 4, 8 and 16 robots' 1,024-beam
+scans), their inputs rows of one upload as the step lays them out: profiler
+ms, CUDA-event ms and kernels a call in a captured graph, for the two
+kernels alone and for the step's entry `preprocess_and_filter_scan_2d` with
+its glue; where K1 is in K2's launch also the two launches on the same
+inputs. Then the kernels of a captured tick (`device_step`) of 1, 4 and 16
+robots at `bench.py`'s shape, at the default options and with the search,
+and its device ms. Run parent, change, change, parent in one call.
 """
 
 import ctypes
@@ -836,6 +849,116 @@ def _k2_two(hits, is_return, perm, filters, size):
     return two
 
 
+def _k1_rows(dev, robots, n, beams):
+    """R robots' K1 inputs as rows of one (R, 8n + 33) upload, as the 2D step
+    lays them out: each robot's twelfth scan of `simulate_scans(beams=beams,
+    seed=r, start=4.0 * r)` padded to n points, its beams' times, sensor
+    origins at zero, a start and an end pose a few centimetres and degrees
+    apart, a slight gravity tilt; and a permutation per robot."""
+    from cartographer_tpu_torch.mapping import local_trajectory_builder_2d as ltb
+
+    upload = np.zeros((robots, 8 * n + 33), np.float32)
+    perms = []
+    for r in range(robots):
+        scans, _ = simulate_scans(12, beams=beams, seed=r, start=4.0 * r)
+        _, pts, rel = scans[-1]
+        m = min(len(pts), n)
+        upload[r, :3 * m] = pts[:m].reshape(-1)
+        upload[r, 6 * n:6 * n + m] = (rel[:m] - rel.min()) / (rel.max() - rel.min())
+        upload[r, 7 * n:7 * n + m] = 1.0
+        yaw0, yaw1 = 0.1 * r, 0.1 * r + 0.05
+        small = upload[r, 8 * n:]
+        small[ltb._PS_T] = [0.3 + 0.1 * r, -0.2, 0.0]
+        small[ltb._PS_Q] = [np.cos(yaw0 / 2), 0.0, 0.0, np.sin(yaw0 / 2)]
+        small[ltb._PE_T] = [0.34 + 0.1 * r, -0.19, 0.0]
+        small[ltb._PE_Q] = [np.cos(yaw1 / 2), 0.0, 0.0, np.sin(yaw1 / 2)]
+        g = np.float32([1.0, 0.002, -0.001, 0.0])
+        small[ltb._GRAVITY] = g / np.linalg.norm(g)
+        perms.append(np.random.RandomState(r).permutation(n).astype(np.int32))
+    up = torch.from_numpy(upload).to(dev)
+    small = up[:, 8 * n:]
+    args = (up[:, :3 * n].view(robots, n, 3), up[:, 6 * n:7 * n], up[:, 7 * n:8 * n] > 0.5,
+            up[:, 3 * n:6 * n].view(robots, n, 3),
+            Rigid3(small[:, ltb._PS_T], small[:, ltb._PS_Q]),
+            Rigid3(small[:, ltb._PE_T], small[:, ltb._PE_Q]), small[:, ltb._GRAVITY])
+    return args, torch.from_numpy(np.stack(perms)).to(dev)
+
+
+def _tick_kernels(dev, timed):
+    """The kernels of a captured 2D tick (`device_step`) of 1, 4 and 16 of
+    16 robots at bench.py's shape (each fed its first 12 scans alone), at
+    the default options and with the search, and the tick's device ms."""
+    from cartographer_tpu_torch.core.config import apply_overrides
+    from cartographer_tpu_torch.mapping import local_trajectory_builder_2d as ltb
+    from cartographer_tpu_torch.sensor.data import TimedPointCloudData
+
+    out = {}
+    for name, correlative in (("default", False), ("correlative", True)):
+        opts = apply_overrides(TrajectoryBuilder2DOptions(), {
+            **cs.BATCH_OPTIONS, "use_online_correlative_scan_matching": correlative})
+        builders = []
+        for r in range(16):
+            scans, _ = simulate_scans(12, beams=cs.BATCH_BEAMS, seed=r, start=4.0 * r)
+            b = ltb.LocalTrajectoryBuilder2D(opts, ["laser"], device=dev)
+            for ts, pts, rel in scans:
+                b.add_range_data("laser", TimedPointCloudData(
+                    time=int(round(ts * 1e6)), origin=np.zeros(3, np.float32), ranges=pts,
+                    times=rel))
+            builders.append(b)
+        for robots in (1, 4, 16):
+            group = builders[:robots]
+            upload = torch.cat([b._staging for b in group]).to(dev)
+            perms = torch.stack([torch.randperm(opts.tpu.scan_capacity, device=dev,
+                                                dtype=torch.int32) for _ in group])
+            out[f"{name} R={robots}"] = timed(lambda: ltb.device_step(group, upload, perms),
+                                              f"tick R={robots}")
+    return out
+
+
+def k1k2(label):
+    """K1 and K2 at the main path's shape and at bench.py's, R = 1, 4, 8, 16;
+    a captured tick's kernels."""
+    cuda.build()
+    dev = torch.device("cuda:0")
+    opts = TrajectoryBuilder2DOptions()
+    filters = [(f.max_length, f.min_num_points, f.max_range)
+               for f in (opts.adaptive_voxel_filter, opts.loop_closure_adaptive_voxel_filter)]
+    pre = scan_pipeline_2d.ScanPreprocessParams2D(
+        min_range=opts.min_range, max_range=opts.max_range, min_z=opts.min_z,
+        max_z=opts.max_z, missing_data_ray_length=opts.missing_data_ray_length,
+        voxel_filter_size=opts.voxel_filter_size)
+    fused = hasattr(scan_pipeline_2d, "_scan_filter_kernel")
+    out = {"card": cs._smi(), "tree": TREE, "fused": fused}
+
+    def timed(fn, name, reps=200):
+        return [cs._cuda_ms(fn, reps=reps), cs._event_ms(fn, reps=reps),
+                cs._graph_kernels(fn, name)]
+
+    shapes = [("main", 1, opts.tpu.scan_capacity, 1081)] + [
+        ("bench", r, 1024, 1024) for r in (1, 4, 8, 16)]
+    for shape, robots, n, beams in shapes:
+        args, perm = _k1_rows(dev, robots, n, beams)
+
+        def apart():  # K1's launch, then K2's
+            hits, _, is_return, _, _ = scan_pipeline_2d.align_scan(*args, pre)
+            return voxel_filter.voxel_filter_masks(hits, is_return, pre.voxel_filter_size,
+                                                   perm, filters, 2)
+
+        kernels = ((lambda: scan_pipeline_2d._scan_filter_kernel(*args, pre, perm, filters))
+                   if fused else apart)
+        row = {"K1+K2": timed(kernels, "K1+K2"),
+               "step entry": timed(lambda: scan_pipeline_2d.preprocess_and_filter_scan_2d(
+                   *args, pre, perm, filters), "entry")}
+        if fused:
+            row["K1, K2 apart"] = timed(apart, "apart")
+        key = f"{shape} R={robots}"
+        out[key] = row
+        print(label, key, json.dumps(row), flush=True)
+    out["tick"] = _tick_kernels(dev, lambda fn, name: timed(fn, name, reps=20))
+    print(label)
+    print(json.dumps(out))
+
+
 if __name__ == "__main__":
     if sys.argv[1] == "tsdf-robots":
         tsdf_robots()
@@ -849,5 +972,8 @@ if __name__ == "__main__":
         k2_stamps(sys.argv[1])
     elif len(sys.argv) > 3 and sys.argv[3] == "k2-k20":
         k2_k20(sys.argv[1])
+    elif len(sys.argv) > 3 and sys.argv[3] == "k1k2":
+        k1k2(sys.argv[1])
+
     else:
         main(sys.argv[1])

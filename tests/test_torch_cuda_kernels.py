@@ -56,6 +56,77 @@ def test_scan_preprocess_2d_kernel(dev):
         torch.testing.assert_close(got[k], ref[k], atol=1e-5, rtol=0)
     for k in (2, 3):
         assert torch.equal(got[k], ref[k])
+    # The 2D step's launch (K1 in K2's) gives the standalone K1's bits.
+    perm = _t(rng.permutation(N).astype(np.int32), dev)
+    fused, _ = scan_pipeline_2d._scan_filter_kernel(*args, perm, [(0.5, 100, 12.0)])
+    assert all(torch.equal(a, b) for a, b in zip(fused, got))
+
+
+def _upload_scans(dev, robots, n, seed=0):
+    """R robots' K1 inputs as rows of one (R, 8n + 33) upload, as the 2D
+    step lays them out, and their permutations."""
+    rng = np.random.RandomState(seed)
+    upload = torch.zeros((robots, 8 * n + 33), device=dev)
+    for r in range(robots):
+        pts = _room(np.random.RandomState(seed + 200 + r), n).astype(np.float32)
+        upload[r, :3 * n] = _t(pts.reshape(-1), dev)
+        upload[r, 3 * n:6 * n] = _t(rng.uniform(-0.05, 0.05, 3 * n).astype(np.float32), dev)
+        upload[r, 6 * n:7 * n] = _t(np.linspace(0, 1, n, dtype=np.float32), dev)
+        upload[r, 7 * n:8 * n] = _t((rng.rand(n) < 0.9).astype(np.float32), dev)
+        yaw, tilt = 0.1 * r, 0.004 * (r % 3)
+        small = np.float32([0.1, 0.2, 0, 1, 0, 0, 0, 0.3 + 0.01 * r, 0.1, 0.01,
+                            np.cos(yaw), tilt, 0, np.sin(yaw), 1, 0.002, -0.001, 0])
+        small[14:18] /= np.linalg.norm(small[14:18])
+        small[10:14] /= np.linalg.norm(small[10:14])
+        upload[r, 8 * n:8 * n + 18] = _t(small, dev)
+    small = upload[:, 8 * n:]
+    args = (upload[:, :3 * n].view(robots, n, 3), upload[:, 6 * n:7 * n],
+            upload[:, 7 * n:8 * n] > 0.5, upload[:, 3 * n:6 * n].view(robots, n, 3),
+            Rigid3(small[:, 0:3], small[:, 3:7]), Rigid3(small[:, 7:10], small[:, 10:14]),
+            small[:, 14:18])
+    perm = _t(np.stack([rng.permutation(n).astype(np.int32) for _ in range(robots)]), dev)
+    return args, perm
+
+
+@pytest.mark.parametrize("n", [1081, 2048, 16384])
+@pytest.mark.parametrize("robots", [1, 4, 16])
+def test_scan_filter_kernel_fused(dev, robots, n):
+    """The 2D step's one launch of K1 and K2 (`preprocess_and_filter_scan_2d`
+    on the card; rows of one upload): K1's outputs equal the standalone K1
+    launch's bit for bit, the three masks equal the unfused K2 launch's on
+    those outputs bit for bit, one kernel a call in a captured graph; one
+    robot's (n, ...) form is the R = 1 launch."""
+    from cartographer_tpu_torch.ops.scan_pipeline_2d import (
+        ScanPreprocessParams2D,
+        _scan_filter_kernel,
+        align_scan,
+    )
+
+    args, perm = _upload_scans(dev, robots, n, seed=robots + n)
+    pre = ScanPreprocessParams2D(max_range=12.0, voxel_filter_size=0.025)
+    filters = [(0.5, 200, 50.0), (0.9, 100, 50.0)]
+    (hits, misses, is_return, is_miss, origin), masks = _scan_filter_kernel(
+        *args, pre, perm, filters)
+    alone = align_scan(*args, pre)
+    for got, ref in zip((hits, misses, is_return, is_miss, origin), alone):
+        assert torch.equal(got, ref)
+    unfused = voxel_filter.voxel_filter_masks(alone[0], alone[2], pre.voxel_filter_size, perm,
+                                              filters, 2)
+    assert all(torch.equal(a, b) for a, b in zip(masks, unfused))
+    assert int(masks[1].sum()) > 0 and int(is_miss.sum()) > 0
+    assert _graph_kernels(lambda: _scan_filter_kernel(*args, pre, perm, filters)) == 1
+    if robots == 1:
+        one = [a[0] if isinstance(a, torch.Tensor) else Rigid3(a.translation[0], a.rotation[0])
+               for a in args]
+        out, keep = _scan_filter_kernel(*one, pre, perm[0], filters)
+        assert all(torch.equal(a, b[0]) for a, b in zip(out, (hits, misses, is_return, is_miss,
+                                                               origin)))
+        assert all(torch.equal(a, b[0]) for a, b in zip(keep, masks))
+        # No adaptive filter: the random filter alone, K1's outputs the same.
+        out, (keep,) = _scan_filter_kernel(*one, pre, perm[0], [])
+        assert all(torch.equal(a, b[0]) for a, b in zip(out, (hits, misses, is_return, is_miss,
+                                                               origin)))
+        assert torch.equal(keep, masks[0][0])
 
 
 @pytest.mark.parametrize("dim,adaptive", [(3, False), (2, True)])
@@ -367,7 +438,6 @@ def test_paged_insert_kernel(dev):
     assert torch.equal(card.grid.page_table.cpu(), cpu.grid.page_table)
     assert torch.equal(card.grid.known.cpu(), cpu.grid.known)
     assert torch.equal(card.grid.pages.cpu(), cpu.grid.pages)
-    assert int(card._scratch.state.sum()) == 0  # the state bytes are zero again
     assert int(card.grid.known.sum()) > 3000
     # And against the twin on the card.
     twin = dataclasses.replace(card.grid, pages=card.grid.pages.clone(),
@@ -376,9 +446,51 @@ def test_paged_insert_kernel(dev):
     origin = np.float32([0.41, 0.33, -0.05])
     pts, mask = _hall_scan(rng, origin)
     o, p, m = _t(origin, dev), _t(pts, dev), _t(mask, dev)
-    paged_grid_3d.insert_paged(card.grid, o, p, m, 0.55, 0.49, 2, card._scratch)
+    paged_grid_3d.insert_paged(card.grid, o, p, m, 0.55, 0.49, 2)
     paged_grid_3d.insert_paged_plain(twin, o, p, m, 0.55, 0.49, 2)
     assert torch.equal(card.grid.pages, twin.pages) and torch.equal(card.grid.known, twin.known)
+
+
+@pytest.mark.parametrize("free", [0, 2])
+@pytest.mark.parametrize("grids", [2, 4])
+@pytest.mark.parametrize("n", [4096, 16384])
+def test_paged_insert_kernel_scan(dev, n, grids, free):
+    """K9 as the 3D frontend runs it: a scan's inserts into the active
+    submaps' high and low grids (2 grids with one submap, 4 with two; the
+    3D defaults' pools of 2,048 x 16^3) in one launch that also writes the
+    grids' new page-table entries, each pool equal to the twin's bit for
+    bit (the twin's table written on the host's allocation), over 3 scans;
+    at 16,384 returns the tables live in device memory. One kernel a call
+    in a captured graph."""
+    from cartographer_tpu_torch.ops import paged_grid_3d
+    from cartographer_tpu_torch.ops.paged_grid_3d import PagedSubmapGrid3D
+
+    rng = np.random.RandomState(n + grids + free)
+    args = dict(page_size=16, max_pages=2048, num_blocks=128)
+    specs = [(0.1, [0.03, -0.02, 0.01]), (0.45, [0.03, -0.02, 0.01]),
+             (0.1, [1.3, -0.7, 0.2]), (0.45, [1.3, -0.7, 0.2])][:grids]
+    cards = [PagedSubmapGrid3D(res, np.float32(c), device=dev, **args) for res, c in specs]
+    twins = [PagedSubmapGrid3D(res, np.float32(c), device=dev, **args) for res, c in specs]
+    for k in range(3):
+        origin = np.float32([0.4 * k + 0.013, -0.3 * k + 0.021, 0.037])
+        pts, mask = _hall_scan(rng, origin, n)
+        high = mask & (np.linalg.norm(pts - origin, axis=1) <= 2.6)
+        o, p = _t(origin, dev), _t(pts, dev)
+        jobs = []
+        for g, (card, twin) in enumerate(zip(cards, twins)):
+            m = high if g % 2 == 0 else mask
+            jobs.append((card.grid, _t(m, dev), card.allocate(pts, m, free)))
+            paged_grid_3d._write_entries(twin.grid, twin.allocate(pts, m, free))
+            paged_grid_3d.insert_paged_plain(twin.grid, o, p, _t(m, dev), 0.55, 0.49, free)
+        paged_grid_3d.insert_paged_grids(jobs, o, p, 0.55, 0.49, free)
+        for card, twin in zip(cards, twins):
+            assert torch.equal(card.grid.page_table, twin.grid.page_table)
+            assert torch.equal(card.grid.pages, twin.grid.pages)
+            assert torch.equal(card.grid.known, twin.grid.known)
+    assert all(int(card.grid.known.sum()) > 1000 for card in cards)
+    jobs = [(card.grid, _t(mask, dev), None) for card in cards]
+    assert _graph_kernels(lambda: paged_grid_3d.insert_paged_grids(
+        jobs, o, p, 0.55, 0.49, free)) == 1
 
 
 @pytest.mark.parametrize("center,size", [([0.31, -0.22, 0.13], 64), ([0.97, -1.13, 0.52], 48),

@@ -13,9 +13,10 @@ import torch
 import jax.numpy as jnp
 
 from cartographer_tpu.ops.paged_grid_3d import PagedSubmapGrid3D as JPaged
+from cartographer_tpu.ops.paged_grid_3d import _insert_paged as j_insert_paged
 from cartographer_tpu.ops.probability import probability_to_log_odds as j_log_odds
 from cartographer_tpu_torch.interop import paged_grid_from_numpy, paged_grid_to_numpy
-from cartographer_tpu_torch.ops.paged_grid_3d import PagedSubmapGrid3D
+from cartographer_tpu_torch.ops.paged_grid_3d import PagedSubmapGrid3D, insert_paged_grids
 from cartographer_tpu_torch.ops.probability import probability_to_log_odds
 
 RES, PAGE, PAGES, BLOCKS = 0.1, 8, 512, 16  # 12.8 m addressable per side
@@ -101,6 +102,86 @@ def test_returns_outside_the_table_are_dropped():
     _insert_both(jp, tp, origin, pts, mask)
     _assert_same_pool(jp, tp)
     assert int((pts[mask][:, 0] > 6.8).sum()) > 10
+
+
+def _crossing_scan(rng, origin, n=256):
+    """A scan whose first 32 returns lie on 16 rays two at a time, the far
+    one 2 cells (of the finer grid) beyond the near one: the near return's
+    hit cell is a free-space cell of the far one, and the hit wins."""
+    pts, mask = _scan(rng, origin, n)
+    d = rng.normal(size=(16, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    near = origin + d * rng.uniform(0.8, 1.6, (16, 1))
+    pts[:16] = near
+    pts[16:32] = near + d * np.float32(2 * RES)
+    mask[:32] = True
+    return pts.astype(np.float32), mask
+
+
+# Two submaps x (high, low) as ActiveSubmaps3D keeps them: the high grids at
+# RES, the low at 3 RES, the second submap centred elsewhere.
+SUBMAP_GRIDS = [(RES, CENTER), (3 * RES, CENTER), (RES, CENTER + np.float32([0.9, -0.4, 0.2])),
+                (3 * RES, CENTER + np.float32([0.9, -0.4, 0.2]))]
+
+
+@pytest.mark.parametrize("free", [0, 2])
+def test_scan_insert_matches_jax_grid_by_grid(free):
+    """The scan-level entry (`insert_paged_grids`: each grid's allocation
+    first, then one call for the 4 grids, the new table entries with it)
+    against JAX's `_insert_paged` applied grid by grid, exactly: the high
+    grids take the returns within 1.8 m (a subset of the low grids'),
+    returns cross each other's rays and leave the finer tables."""
+    rng = np.random.RandomState(20 + free)
+    args = dict(page_size=PAGE, max_pages=PAGES, num_blocks=BLOCKS)
+    jaxes = [JPaged(res, c, **args) for res, c in SUBMAP_GRIDS]
+    ports = [PagedSubmapGrid3D(res, c, device="cpu", **args) for res, c in SUBMAP_GRIDS]
+    kwargs = dict(hit_probability=HIT, miss_probability=MISS, num_free_space_voxels=free)
+    origins = ([0.013, 0.021, 0.037], [0.61, -0.29, 0.11], [5.31, 5.22, 0.07])  # the last
+    for origin in origins:  # 1.2 m inside the finer tables' corner: returns leave them
+        origin = np.float32(origin)
+        pts, mask = _crossing_scan(rng, origin)
+        high = mask & (np.linalg.norm(pts - origin, axis=1) <= 1.8)
+        assert 0 < high.sum() < mask.sum()
+        jobs = []
+        for g, (jp, tp) in enumerate(zip(jaxes, ports)):
+            m = high if g % 2 == 0 else mask
+            jp.insert_range_data(origin, pts, m, **kwargs)
+            jobs.append((tp.grid, torch.from_numpy(m), tp.allocate(pts, m, free)))
+        insert_paged_grids(jobs, torch.from_numpy(origin), torch.from_numpy(pts), HIT, MISS,
+                           free)
+    for jp, tp in zip(jaxes, ports):
+        _assert_same_pool(jp, tp)
+        assert int(tp.grid.known.sum()) > 100
+    lo = CENTER - np.float32(0.5 * BLOCKS * PAGE * RES)
+    assert int((pts[mask] >= lo + np.float32(BLOCKS * PAGE * RES)).any(axis=1).sum()) > 5
+
+
+@pytest.mark.parametrize("free", [0, 2])
+def test_scan_insert_drops_cells_without_a_page(free):
+    """One call for two grids: one gains the scan's pages in the call, the
+    other was allocated for the high returns only and takes all of them, so
+    the cells of blocks without a page are dropped, as in JAX's
+    `_insert_paged` on the same table."""
+    rng = np.random.RandomState(30 + free)
+    (jp, tp), (jq, tq) = _pair(), _pair()
+    kwargs = dict(hit_probability=HIT, miss_probability=MISS, num_free_space_voxels=free)
+    origin = np.float32([0.213, -0.121, 0.037])
+    pts, mask = _crossing_scan(rng, origin)
+    high = mask & (np.linalg.norm(pts - origin, axis=1) <= 1.3)
+    jq.insert_range_data(origin, pts, high, **kwargs)
+    tq.insert_range_data(origin, pts, high, **kwargs)
+    pts2, mask2 = _crossing_scan(rng, origin + np.float32([0.05, 0.03, 0.0]))
+    origin2 = origin + np.float32([0.05, 0.03, 0.0])
+    jp.insert_range_data(origin2, pts2, mask2, **kwargs)
+    jq.grid = j_insert_paged(jq.grid, jnp.asarray(origin2), jnp.asarray(pts2),
+                             jnp.asarray(mask2), HIT, MISS, free)
+    pages_before = tq.num_allocated
+    insert_paged_grids([(tp.grid, torch.from_numpy(mask2), tp.allocate(pts2, mask2, free)),
+                        (tq.grid, torch.from_numpy(mask2), None)],
+                       torch.from_numpy(origin2), torch.from_numpy(pts2), HIT, MISS, free)
+    _assert_same_pool(jp, tp)
+    _assert_same_pool(jq, tq)
+    assert tq.num_allocated == pages_before < tp.num_allocated
 
 
 def test_pool_exhaustion_raises():
